@@ -1,0 +1,40 @@
+"""Carrying state across from the JAX package.
+
+The system has no weights: a transform's state is its allocation (seed,
+counter, path), N, S and extra hyper-parameters (CT's C), all in its JSON
+form, plus the raw (2,) uint32 key data the serve path passes around.
+These helpers take what ``libskylark_tpu`` writes and return the port's
+objects; nothing here imports the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Union
+
+import numpy as np
+
+from libskylark_tpu_torch.base import errors
+from libskylark_tpu_torch.base.context import Context
+from libskylark_tpu_torch.sketch.transform import (SketchTransform,
+                                                   deserialize_sketch)
+
+
+def transform_from_reference(d: Union[dict[str, Any], str]) -> SketchTransform:
+    """The port's transform for a reference ``to_dict()``/``to_json()``."""
+    return deserialize_sketch(d)
+
+
+def key_from_numpy(kd) -> np.ndarray:
+    """Raw key data (e.g. ``np.asarray(jax.random.key_data(k))``) as the
+    port's (2,) uint32 key."""
+    a = np.asarray(kd)
+    if a.shape != (2,) or a.dtype != np.uint32:
+        raise errors.InvalidParametersError(
+            f"key data must be a (2,) uint32 array, got {a.shape} {a.dtype}")
+    return a.copy()
+
+
+def context_from_reference(d: Union[dict[str, Any], str]) -> Context:
+    """The port's Context for a reference ``Context.to_dict()``/JSON."""
+    return Context.from_dict(json.loads(d) if isinstance(d, str) else d)

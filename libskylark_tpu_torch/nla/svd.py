@@ -1,0 +1,160 @@
+"""Randomized SVD: power_iteration, approximate_svd,
+approximate_symmetric_svd (the port of libskylark_tpu/nla/svd.py,
+Halko-Martinsson-Tropp).
+
+Range sketch → power iteration with re-orthogonalization → Rayleigh-Ritz
+→ truncation. The range sketch A·Sᵀ is ``JLT.apply(A, ROWWISE)``, so on a
+CUDA tensor it runs the fused rowwise kernel (sketch/cuda_dense.py); the
+other large products are plain matmuls. A wide matrix is factored as its
+transpose.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from libskylark_tpu_torch.base import errors
+from libskylark_tpu_torch.base.context import Context
+from libskylark_tpu_torch.base.device import as_tensor
+from libskylark_tpu_torch.base.params import Params
+from libskylark_tpu_torch.base.precision import with_solver_precision
+from libskylark_tpu_torch.nla.tsqr import cholesky_qr2
+
+
+@dataclasses.dataclass
+class ApproximateSVDParams(Params):
+    """Oversampling k' = ratio·k + additive; ``num_iterations`` power
+    iterations; ``ortho`` "cqr2" (CholeskyQR2) or "qr" (Householder);
+    ``rr`` "cqr2" (QR-reduce Bᵀ, SVD of the k'×k' factor) or "svd"
+    (direct SVD of the k'×n panel)."""
+
+    oversampling_ratio: float = 2.0
+    oversampling_additive: int = 0
+    num_iterations: int = 0
+    skip_qr: bool = False
+    ortho: str = "cqr2"
+    rr: str = "cqr2"
+
+
+def _orthonormalize(Q: torch.Tensor, method: str) -> torch.Tensor:
+    if method == "cqr2":
+        return cholesky_qr2(Q)[0]
+    if method != "qr":
+        raise errors.InvalidParametersError(
+            f"ortho must be 'qr' or 'cqr2', got {method!r}")
+    return torch.linalg.qr(Q)[0]
+
+
+def _validate_params(params: ApproximateSVDParams) -> None:
+    if params.ortho not in ("qr", "cqr2"):
+        raise errors.InvalidParametersError(
+            f"ortho must be 'qr' or 'cqr2', got {params.ortho!r}")
+    if params.rr not in ("cqr2", "svd"):
+        raise errors.InvalidParametersError(
+            f"rr must be 'cqr2' or 'svd', got {params.rr!r}")
+
+
+def _oversampled(params: ApproximateSVDParams, k: int, limit: int) -> int:
+    kp = min(int(params.oversampling_ratio * k)
+             + int(params.oversampling_additive), limit)
+    return max(kp, k)
+
+
+@with_solver_precision
+def power_iteration(A: torch.Tensor, Q: torch.Tensor, num_iterations: int,
+                    orthogonalize: bool = True, adjoint: bool = False,
+                    ortho: str = "qr") -> torch.Tensor:
+    """(A·Aᵀ)^q · Q (or (Aᵀ·A)^q · Q when ``adjoint``), re-orthogonalized
+    between products unless disabled."""
+    for _ in range(num_iterations):
+        Q = A.T @ (A @ Q) if adjoint else A @ (A.T @ Q)
+        if orthogonalize:
+            Q = _orthonormalize(Q, ortho)
+    return Q
+
+
+@with_solver_precision
+def approximate_svd(A, rank: int, context: Context,
+                    params: Optional[ApproximateSVDParams] = None,
+                    dtype=None, device=None):
+    """Rank-``rank`` approximate SVD: (U, S, V) with A ≈ U·diag(S)·Vᵀ.
+
+    ``A`` is a numpy array or tensor, moved to ``device`` (default: the
+    package default device); ``dtype`` casts it first."""
+    params = params or ApproximateSVDParams()
+    _validate_params(params)
+    A = as_tensor(A, device)
+    if dtype is not None:
+        A = A.to(dtype)
+    m, n = A.shape
+    k = int(rank)
+    if k <= 0:
+        raise errors.InvalidParametersError(f"rank must be positive, got {rank}")
+    kp = _oversampled(params, k, min(m, n))
+
+    if m < n:
+        V, S, U = approximate_svd(A.T, rank, context, params, dtype=dtype,
+                                  device=A.device)
+        return U, S, V
+
+    from libskylark_tpu_torch.sketch import ROWWISE, JLT
+
+    T = JLT(n, kp, context)
+    Q = T.apply(A, ROWWISE, device=A.device)          # range sketch (m, kp)
+    if not params.skip_qr:
+        Q = _orthonormalize(Q, params.ortho)
+    Q = power_iteration(A, Q, params.num_iterations,
+                        orthogonalize=not params.skip_qr, ortho=params.ortho)
+    if params.skip_qr:
+        # one final orthogonalization is always required before projection
+        Q = _orthonormalize(Q, params.ortho)
+
+    Bt = A.T @ Q                                      # (n, kp); B = Btᵀ
+    if params.rr == "svd":
+        Ub, S, Vt = torch.linalg.svd(Bt.T, full_matrices=False)
+        return Q @ Ub[:, :k], S[:k], Vt[:k, :].T
+    # Bᵀ = Qb·Rb ⇒ B = Rbᵀ·Qbᵀ; SVD only the k'×k' factor:
+    # Rbᵀ = Ur·S·Vrᵀ ⇒ B = Ur·S·(Qb·Vr)ᵀ
+    Qb, Rb = cholesky_qr2(Bt)
+    Ur, S, Vrt = torch.linalg.svd(Rb.T, full_matrices=False)
+    return Q @ Ur[:, :k], S[:k], Qb @ Vrt.T[:, :k]
+
+
+@with_solver_precision
+def approximate_symmetric_svd(A, rank: int, context: Context,
+                              params: Optional[ApproximateSVDParams] = None,
+                              device=None):
+    """Approximate eigendecomposition of symmetric A: (V, S) with
+    A ≈ V·diag(S)·Vᵀ, the k largest-magnitude eigenpairs, descending."""
+    params = params or ApproximateSVDParams()
+    _validate_params(params)
+    A = as_tensor(A, device)
+    n, n2 = A.shape
+    if n != n2:
+        raise errors.InvalidParametersError(
+            "symmetric SVD expects a square matrix")
+    k = int(rank)
+    if k <= 0:
+        raise errors.InvalidParametersError(f"rank must be positive, got {rank}")
+    kp = _oversampled(params, k, n)
+
+    from libskylark_tpu_torch.sketch import ROWWISE, JLT
+
+    T = JLT(n, kp, context)
+    Q = _orthonormalize(T.apply(A, ROWWISE, device=A.device), params.ortho)
+    for _ in range(params.num_iterations):
+        Q = A @ Q
+        if not params.skip_qr:
+            Q = _orthonormalize(Q, params.ortho)
+    if params.skip_qr:
+        Q = _orthonormalize(Q, params.ortho)
+
+    # Rayleigh-Ritz: eigendecomposition of QᵀAQ
+    G = Q.T @ (A @ Q)
+    G = 0.5 * (G + G.T)
+    w, Z = torch.linalg.eigh(G)
+    order = torch.argsort(-torch.abs(w))[:k]
+    return Q @ Z[:, order], w[order]
