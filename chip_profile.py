@@ -4,9 +4,12 @@
 Run from the root of a checkout, with one CUDA card: ``python3
 chip_profile.py``. For each main-path cell of chip_smoke.py — JLT.apply
 rowwise and columnwise on 8192×8192 → 1024, approximate_svd of the SVD
-cell's 8192×8192 matrix at rank 64 (k' = 128, two power iterations), and
-approximate_least_squares(sketch="jlt") on 65536×512 — it prints one JSON
-line with:
+cell's 8192×8192 matrix at rank 64 (k' = 128, two power iterations),
+approximate_least_squares on 65536×512 with the JLT, the default FJLT and
+the CWT, solve_l2_sketched with FJLT(fut="wht") (the SRHT) on the same
+operands, and fast_least_squares (Blendenpik) on chip_smoke.py's 65536×512
+matrix with singular values over [1e-3, 1] — it prints one JSON line
+with:
 
 - ``warm_ms``: median host time of 5 calls after 2 warm-ups, each call
   ended by ``torch.cuda.synchronize()``;
@@ -15,7 +18,12 @@ line with:
   time summed over its kernels;
 - ``busy``: ``device_ms / warm_ms``, the device's busy share of a warm
   call made without the profiler;
-- ``top``: the profiled call's kernels by device time, in ms.
+- ``top``: the profiled call's kernels by device time, in ms;
+- for Blendenpik, and for LSQR alone on Blendenpik's preconditioner,
+  ``iterations`` (LSQR's) and ``idle_ms_per_iteration`` = (warm_ms −
+  device_ms) / iterations. For LSQR alone that is the card's idle time
+  per iteration: the host's launches and the stopping test's read, which
+  synchronises once per iteration.
 
 It ends with the card's name and power limit as nvidia-smi gives them.
 It exits non-zero without a CUDA device. It imports neither jax nor
@@ -74,7 +82,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(chip_smoke.ROOT))
     import libskylark_tpu_torch as P
-    from libskylark_tpu_torch import nla, sketch as sk
+    from libskylark_tpu_torch import algorithms, nla, sketch as sk
     from libskylark_tpu_torch.kernels import build
 
     build.build()
@@ -82,7 +90,14 @@ def main() -> int:
     T = sk.JLT(8192, 1024, P.Context(42))
     Asvd, _ = chip_smoke.svd_operand(torch)
     Als, b = chip_smoke.ls_operands(torch)
+    Ak, bk = chip_smoke.kappa_operands(torch)
     params = nla.ApproximateSVDParams(num_iterations=2)
+    srht = sk.FJLT(65536, 2048, P.Context(47), fut="wht")
+    # LSQR alone, on Blendenpik's own preconditioner and tolerance
+    accel = algorithms.AcceleratedParams()
+    precond, _ = algorithms.build_blendenpik_precond(Ak, P.Context(50),
+                                                     accel)
+    lsqr_params = algorithms.KrylovParams(tolerance=accel.tolerance)
     cells = {
         "jlt_rowwise_8192x8192_to_1024": lambda: T.apply(A, sk.ROWWISE),
         "jlt_columnwise_8192x8192_to_1024":
@@ -92,11 +107,27 @@ def main() -> int:
         "lstsq_jlt_65536x512_s2048":
             lambda: nla.approximate_least_squares(Als, b, P.Context(44),
                                                   sketch="jlt"),
+        "lstsq_fjlt_65536x512_s2048":
+            lambda: nla.approximate_least_squares(Als, b, P.Context(45)),
+        "lstsq_cwt_65536x512_s2048":
+            lambda: nla.approximate_least_squares(Als, b, P.Context(46),
+                                                  sketch="cwt"),
+        "lstsq_srht_65536x512_s2048":
+            lambda: algorithms.solve_l2_sketched(Als, b, srht),
+        "blendenpik_65536x512_kappa1e3":
+            lambda: nla.fast_least_squares(Ak, bk, P.Context(50)),
+        "lsqr_blendenpik_precond_65536x512_kappa1e3":
+            lambda: algorithms.lsqr(Ak, bk, params=lsqr_params,
+                                    precond=precond),
     }
     for name, fn in cells.items():
         row = {"cell": name, "warm_ms": warm_ms(torch, fn)}
         row.update(profile_call(torch, fn))
         row["busy"] = row["device_ms"] / row["warm_ms"]
+        if "blendenpik" in name:
+            row["iterations"] = fn()[1]
+            row["idle_ms_per_iteration"] = ((row["warm_ms"] - row["device_ms"])
+                                            / row["iterations"])
         print(json.dumps(row), flush=True)
     chip_smoke.check("jax" not in sys.modules
                      and "libskylark_tpu" not in sys.modules,

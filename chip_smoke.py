@@ -6,19 +6,32 @@ chip_smoke.py``. In order, each phase printing one JSON line:
 
 1. env    — torch and CUDA versions, the card, and the peak rates of the
             bound, derived from the card's own attributes;
-2. build  — every kernel in csrc/ built from source with nvcc (sm_90a);
+2. build  — every kernel in csrc/ built from source with nvcc (sm_90a),
+            one nvcc per source, all started together;
 3. check  — each kernel's wrapper on the card against its plain PyTorch
-            version on the same inputs, three distributions, main-path,
-            aligned and ragged shapes: max|kernel − plain| ≤ 1e-4·max|plain|;
-4. main   — the main path at full size through the public entry points
-            (JLT.apply both ways on 8192×8192 → 1024; approximate_svd of an
+            version on the same inputs, at main-path, aligned and ragged
+            shapes:
+            - dense (B1): three distributions, max|kernel − plain| ≤
+              1e-4·max|plain|;
+            - hash (B2): bit-equal (torch.equal) to the plain scatter run
+              on a CPU copy of the operand, also at a span that is not a
+              power of two (s = 300) and at ragged n;
+            - fwht (B5): bit-equal on dyadic data (integers in [−8, 8],
+              n = 4096, s = 256), ≤ 1e-4·max|plain| on Gaussian data;
+4. main   — the main path at full size through the public entry points,
+            with every launch counter set to 0 before and read after:
+            JLT.apply both ways on 8192×8192 → 1024; approximate_svd of an
             8192×8192 matrix with a known spectrum, rank 64, k' = 128;
-            approximate_least_squares(sketch="jlt") on 65536×512), with
-            every launch counter set to 0 before and read after;
-5. time   — CUDA-event medians of each kernel, its plain version and the
-            PyTorch matmul against a pre-made S, beside the card's bound,
-            at the main-path shapes (and, for comparison, least squares'
-            sketch as the two launches S·A, S·b that one on [A|b] replaces);
+            approximate_least_squares on 65536×512, s = 2048, with the JLT,
+            the default FJLT (DCT mixer, cuFFT: no kernel) and the CWT;
+            solve_l2_sketched with FJLT(fut="wht"); fast_least_squares
+            (Blendenpik over the FJLT) and solve_l2_accelerated
+            (simplified_blendenpik, lsrn) on a 65536×512 matrix with
+            singular values over [1e-3, 1]; CWT and FJLT(fut="wht") applied
+            rowwise on 8192×8192 → 1024;
+5. time   — CUDA-event medians of each kernel, its plain version and one
+            PyTorch call computing the same function, beside the card's
+            bound, at the main-path shapes;
 6. the ``{"kernels": [...]}`` line, the card's name and power limit, and
    ``{"ok": true, ...}`` as the last line.
 
@@ -133,6 +146,26 @@ def ls_operands(torch):
     return A, A @ x0 + 0.1 * make_operand(torch, (65536,), 5)
 
 
+def kappa_operands(torch):
+    """The accelerated cell: A 65536×512 = U·diag(σ)·Vᵀ with σ spread
+    evenly in log over [1e-3, 1] and random orthonormal U, V, and b =
+    A·x0 + 0.1·noise."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    U = torch.linalg.qr(torch.randn(65536, 512, generator=g,
+                                    device="cuda"))[0]
+    V = torch.linalg.qr(torch.randn(512, 512, generator=g, device="cuda"))[0]
+    sigma = torch.logspace(0, -3, 512, device="cuda")
+    A = (U * sigma) @ V.T
+    x0 = torch.randn(512, generator=g, device="cuda")
+    return A, A @ x0 + 0.1 * torch.randn(65536, generator=g, device="cuda")
+
+
+def lstsq_residual(torch, A, b) -> float:
+    """‖A·x − b‖ at the exact least-squares solution, solved in float64."""
+    x = torch.linalg.lstsq(A.double(), b.double()[:, None]).solution
+    return float(torch.linalg.norm(A.double() @ x[:, 0] - b.double()))
+
+
 def compare(torch, cd, key, dist, A, s_dim, scale, rowwise):
     """Max abs and relative error of one wrapper call against the plain
     version on the same inputs."""
@@ -173,24 +206,102 @@ def check_kernels(torch, P, cases) -> dict:
             for r in results}
 
 
+def check_hash(torch, P, cases) -> dict:
+    """Phase 3, B2: each case bit-equal to the plain scatter on a CPU
+    copy of the operand (which adds in increasing coordinate order; CUDA's
+    index_add_ uses atomics and has no order)."""
+    from libskylark_tpu_torch.sketch import cuda_hash as ch
+
+    results = []
+    for i, (name, shape, s_dim) in enumerate(cases):
+        rowwise = name == "hash_rowwise"
+        key = P.Context(200 + i).allocate().key
+        A = make_operand(torch, shape, 2000 + i)
+        got = ch.cwt_apply(key, A, s_dim, rowwise).cpu()
+        want = ch.cwt_apply_plain(key, A.cpu(), s_dim, rowwise)
+        results.append({"kernel": name, "shape": list(shape), "s_dim": s_dim,
+                        "bit_equal": bool(torch.equal(got, want)),
+                        "max_abs_err": float((got - want).abs().max())})
+        del A
+    emit("check", tolerance="B2: torch.equal with the plain scatter on a "
+                            "CPU copy", cases=results)
+    bad = [r for r in results if not r["bit_equal"]]
+    check(not bad, f"CountSketch kernel differs from its plain version: {bad}")
+    return {(r["kernel"], tuple(r["shape"]), r["s_dim"]): r for r in results}
+
+
+def check_fwht(torch, P, cases) -> dict:
+    """Phase 3, B5: dyadic cases bit-equal to the plain version on the
+    card, Gaussian ones within TOL·max|plain|."""
+    from libskylark_tpu_torch.sketch import cuda_fwht as cf
+
+    results = []
+    for i, (name, shape, s_dim, dyadic) in enumerate(cases):
+        rowwise = name == "fwht_rowwise"
+        key = P.Context(300 + i).allocate().key
+        if dyadic:
+            g = torch.Generator(device="cuda").manual_seed(3000 + i)
+            A = torch.randint(-8, 9, shape, generator=g,
+                              device="cuda").float()
+        else:
+            A = make_operand(torch, shape, 3000 + i)
+        got = cf.srht_apply(key, A, s_dim, rowwise)
+        want = cf.srht_apply_plain(key, A, s_dim, rowwise)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "SRHT kernel output not finite")
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        ok = bool(torch.equal(got, want)) if dyadic else rel <= TOL
+        results.append({"kernel": name, "shape": list(shape), "s_dim": s_dim,
+                        "dyadic": dyadic, "max_abs_err": err,
+                        "max_rel_err": rel, "ok": ok})
+        del A
+    emit("check", tolerance=f"B5: torch.equal on dyadic data, else "
+                            f"max|kernel-plain| <= {TOL} * max|plain|",
+         cases=results)
+    bad = [r for r in results if not r["ok"]]
+    check(not bad, f"SRHT kernel disagrees with its plain version: {bad}")
+    return {(r["kernel"], tuple(r["shape"]), r["s_dim"]): r for r in results}
+
+
+def counters():
+    """Every kernel wrapper's launch counter dict."""
+    from libskylark_tpu_torch.sketch import cuda_dense, cuda_fwht, cuda_hash
+
+    return [cuda_dense.launches, cuda_hash.launches, cuda_fwht.launches]
+
+
+def launch_counts() -> dict:
+    return {k: v for c in counters() for k, v in c.items()}
+
+
 def main_path(torch, P) -> dict:
     """Phase 4: the main path at full size through the public API."""
-    from libskylark_tpu_torch import nla, sketch as sk
+    from libskylark_tpu_torch import algorithms, nla, sketch as sk
     from libskylark_tpu_torch.sketch import cuda_dense as cd
 
-    for k in cd.launches:
-        cd.launches[k] = 0
-    out = {}
+    for c in counters():
+        for k in c:
+            c[k] = 0
+    out = {"launches_by_step": {}}
+
+    def step(name, fn):
+        """Run one step timed, and record the launches it made."""
+        before = launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_seconds"] = time.perf_counter() - t0
+        out["launches_by_step"][name] = {
+            k: v - before[k] for k, v in launch_counts().items()
+            if v != before[k]}
+        return result
 
     # 1. JLT both ways: BASELINE config 1 at the headline size
     A = make_operand(torch, (8192, 8192), 1)
     T = sk.JLT(8192, 1024, P.Context(42))
-    t0 = time.perf_counter()
-    Yr = T.apply(A, sk.ROWWISE)
-    Yc = T.apply(A, sk.COLUMNWISE)
-    torch.cuda.synchronize()
-    out["jlt_seconds"] = time.perf_counter() - t0
-    launches_jlt = dict(cd.launches)
+    Yr, Yc = step("jlt", lambda: (T.apply(A, sk.ROWWISE),
+                                  T.apply(A, sk.COLUMNWISE)))
     check(tuple(Yr.shape) == (8192, 1024) and tuple(Yc.shape) == (1024, 8192),
           "JLT output shapes")
     check(bool(torch.isfinite(Yr).all() and torch.isfinite(Yc).all()),
@@ -201,20 +312,36 @@ def main_path(torch, P) -> dict:
         out[f"jlt_{name}_rel_err"] = float((Y - want).abs().max()
                                            / want.abs().max())
         check(out[f"jlt_{name}_rel_err"] <= TOL, f"JLT {name} vs plain")
-    # JL property: squared row norms kept on average (E‖S a‖² = ‖a‖²)
-    out["jlt_norm_ratio"] = float((Yr.square().sum(1)
-                                   / A.square().sum(1)).mean())
-    check(abs(out["jlt_norm_ratio"] - 1.0) < 0.01, "JLT norm ratio")
-    del A, Yr, Yc, want
+    del Yc, want
 
-    # 2. randomized SVD at rank 64 (k' = 128) of the SVD cell's matrix
+    def norm_ratio(Y):
+        # E‖S a‖² = ‖a‖² for every sketch here: squared row norms kept on
+        # average over the 8192 rows
+        return float((Y.square().sum(1) / A.square().sum(1)).mean())
+
+    out["jlt_norm_ratio"] = norm_ratio(Yr)
+    check(abs(out["jlt_norm_ratio"] - 1.0) < 0.01, "JLT norm ratio")
+    del Yr
+
+    # 2. CWT and the SRHT rowwise on the same operand (B2-rw, B5-rw)
+    for name, Ts in (("cwt_rowwise", sk.CWT(8192, 1024, P.Context(48))),
+                     ("srht_rowwise", sk.FJLT(8192, 1024, P.Context(49),
+                                              fut="wht"))):
+        Y = step(name, lambda: Ts.apply(A, sk.ROWWISE))
+        check(tuple(Y.shape) == (8192, 1024)
+              and bool(torch.isfinite(Y).all()), f"{name} output")
+        out[f"{name}_norm_ratio"] = norm_ratio(Y)
+        check(abs(out[f"{name}_norm_ratio"] - 1.0) < 0.01,
+              f"{name} norm ratio")
+        del Y
+    del A
+
+    # 3. randomized SVD at rank 64 (k' = 128) of the SVD cell's matrix
     k = 64
     A, sigma = svd_operand(torch)
     params = nla.ApproximateSVDParams(num_iterations=2)
-    t0 = time.perf_counter()
-    U, S, V = nla.approximate_svd(A, k, P.Context(43), params)
-    torch.cuda.synchronize()
-    out["svd_seconds"] = time.perf_counter() - t0
+    U, S, V = step("svd", lambda: nla.approximate_svd(A, k, P.Context(43),
+                                                      params))
     check(tuple(U.shape) == (8192, k) and tuple(S.shape) == (k,)
           and tuple(V.shape) == (8192, k), "SVD output shapes")
     out["svd_sigma_rel_err"] = float(((S - sigma[:k]).abs() / sigma[:k]).max())
@@ -225,26 +352,53 @@ def main_path(torch, P) -> dict:
     check(recon <= 1.01 * tail + 1e-4, "SVD reconstruction above bound")
     del A, U, V
 
-    # 3. sketch-and-solve least squares, s = 4·512
+    # 4. sketch-and-solve least squares, s = 4·512, with each sketch
     A, b = ls_operands(torch)
-    t0 = time.perf_counter()
-    x = nla.approximate_least_squares(A, b, P.Context(44), sketch="jlt")
-    torch.cuda.synchronize()
-    out["ls_seconds"] = time.perf_counter() - t0
-    check(tuple(x.shape) == (512,) and bool(torch.isfinite(x).all()),
-          "least squares output")
-    x_ls = torch.linalg.lstsq(A, b[:, None]).solution[:, 0]
-    out["ls_residual"] = float(torch.linalg.norm(A @ x - b))
-    out["ls_residual_lstsq"] = float(torch.linalg.norm(A @ x_ls - b))
-    out["ls_residual_ratio"] = out["ls_residual"] / out["ls_residual_lstsq"]
-    # Gaussian sketch-and-solve: E ratio ≈ sqrt(1 + n/(s − n)) ≈ 1.15
-    check(out["ls_residual_ratio"] <= 1.5, "LS residual ratio > 1.5")
+    out["ls_residual_lstsq"] = lstsq_residual(torch, A, b)
+    solves = {
+        "ls_jlt": lambda: nla.approximate_least_squares(
+            A, b, P.Context(44), sketch="jlt"),
+        "ls_fjlt": lambda: nla.approximate_least_squares(A, b, P.Context(45)),
+        "ls_cwt": lambda: nla.approximate_least_squares(
+            A, b, P.Context(46), sketch="cwt"),
+        "ls_srht": lambda: algorithms.solve_l2_sketched(
+            A, b, sk.FJLT(65536, 2048, P.Context(47), fut="wht")),
+    }
+    for name, fn in solves.items():
+        x = step(name, fn)
+        check(tuple(x.shape) == (512,) and bool(torch.isfinite(x).all()),
+              f"{name} output")
+        ratio = (float(torch.linalg.norm(A @ x - b))
+                 / out["ls_residual_lstsq"])
+        out[f"{name}_residual_ratio"] = ratio
+        # sketch-and-solve at s = 4n: E ratio ≈ sqrt(1 + n/(s − n)) ≈ 1.15
+        check(ratio <= 1.5, f"{name} residual ratio {ratio} > 1.5")
     del A, b
 
-    out["launches"] = dict(cd.launches)
-    out["launches_jlt"] = launches_jlt
+    # 5. Blendenpik, simplified Blendenpik and LSRN over LSQR on an
+    # ill-conditioned problem: the exact residual, in 0 < iterations < limit
+    A, b = kappa_operands(torch)
+    best = lstsq_residual(torch, A, b)
+    out["accel_residual_lstsq"] = best
+    iter_lim = max(20, 2 * 512)  # LSQR's default limit at n = 512
+    accel = {
+        "fast_ls": lambda: nla.fast_least_squares(A, b, P.Context(50)),
+        "simplified_blendenpik": lambda: algorithms.solve_l2_accelerated(
+            A, b, P.Context(51), method="simplified_blendenpik"),
+        "lsrn": lambda: algorithms.solve_l2_accelerated(
+            A, b, P.Context(52), method="lsrn"),
+    }
+    for name, fn in accel.items():
+        x, it = step(name, fn)
+        ratio = float(torch.linalg.norm(A @ x - b)) / best
+        out[f"{name}_residual_ratio"], out[f"{name}_iterations"] = ratio, it
+        check(0 < it < iter_lim, f"{name} iterations {it}")
+        check(ratio <= 1 + 1e-3, f"{name} residual ratio {ratio} > 1 + 1e-3")
+    del A, b
+
+    out["launches"] = launch_counts()
     emit("main", **out)
-    for k_, v in cd.launches.items():
+    for k_, v in out["launches"].items():
         check(v > 0, f"kernel {k_} never launched on the main path")
     return out
 
@@ -266,9 +420,37 @@ def event_ms(torch, fn, reps=10, warmup=3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
+def profiled_device_ms(torch, fn, reps=10) -> float:
+    """Device time of one call summed over the kernels it runs, from
+    torch.profiler over ``reps`` calls after one warm-up: the kernels'
+    own time, without the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / reps / 1e3
+
+
+def bound(ops: float, ops_per_s: float, nbytes: float,
+          peaks: dict) -> dict:
+    """The least time the card could take: the larger of the operations
+    over their peak rate and the bytes over the memory rate."""
+    t_ops = ops / ops_per_s * 1e3
+    t_bytes = nbytes / peaks["hbm_bytes_per_s"] * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
 def time_kernels(torch, P, shapes, main_path: bool,
                  peaks: dict) -> list[dict]:
-    """Phase 5: kernel, plain and library times at the given shapes."""
+    """Phase 5, B1: kernel, plain and library times at the given shapes."""
     from libskylark_tpu_torch.base import randgen
     from libskylark_tpu_torch.sketch import cuda_dense as cd
     from libskylark_tpu_torch.sketch.dense import virtual_panel
@@ -283,25 +465,91 @@ def time_kernels(torch, P, shapes, main_path: bool,
         n, m = (shape[1], shape[0]) if rowwise else shape
         fn = cd.rowwise_apply if rowwise else cd.columnwise_apply
         ms = event_ms(torch, lambda: fn(key, dist, A, s_dim, scale))
+        dev_ms = profiled_device_ms(torch, lambda: fn(key, dist, A, s_dim,
+                                                      scale))
         plain_ms = event_ms(torch, lambda: cd.dense_apply_plain(
             key, dist, A, s_dim, scale, rowwise))
         S = virtual_panel(key, dist, s_dim, 0, n, scale, device=A.device)
         lib = (lambda: torch.matmul(A, S.T)) if rowwise else (
             lambda: torch.matmul(S, A))
         library_ms = event_ms(torch, lib)
-        # A and the key table read once, the output written once
-        flops = 2.0 * m * n * s_dim
-        nbytes = 4.0 * (m * n + m * s_dim) + 8.0 * -(-n // 256)
-        t_ops = flops / peaks["fp32_flops"] * 1e3
-        t_bytes = nbytes / peaks["hbm_bytes_per_s"] * 1e3
+        # 2·m·n·s flops on the CUDA cores; A and the key table read once,
+        # the output written once
         rows.append({"kernel": name, "use": use, "main_path": main_path,
-                     "shape": list(shape),
-                     "s_dim": s_dim, "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms,
-                     "bound_ms": max(t_ops, t_bytes),
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                     "flops": flops, "bytes": nbytes})
+                     "shape": list(shape), "s_dim": s_dim, "ms": ms,
+                     "device_ms": dev_ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     **bound(2.0 * m * n * s_dim, peaks["fp32_flops"],
+                             4.0 * (m * n + m * s_dim) + 8.0 * -(-n // 256),
+                             peaks)})
         del A, S
+    return rows
+
+
+def time_hash(torch, P, shapes, peaks: dict) -> list[dict]:
+    """Phase 5, B2: kernel, plain version, and index_add_ against h and v
+    made beforehand (the scatter alone, without generation)."""
+    from libskylark_tpu_torch.sketch import cuda_hash as ch
+
+    rows = []
+    for name, use, shape, s_dim in shapes:
+        rowwise = name == "hash_rowwise"
+        A = make_operand(torch, shape, 8)
+        key = P.Context(10).allocate().key
+        n, m = (shape[1], shape[0]) if rowwise else shape
+        ms = event_ms(torch, lambda: ch.cwt_apply(key, A, s_dim, rowwise))
+        dev_ms = profiled_device_ms(torch, lambda: ch.cwt_apply(
+            key, A, s_dim, rowwise))
+        plain_ms = event_ms(torch, lambda: ch.cwt_apply_plain(
+            key, A, s_dim, rowwise))
+        h, v = ch.streams(key, n, s_dim, A.device)
+        library_ms = event_ms(torch, lambda: ch.scatter(h, v, A, s_dim,
+                                                        rowwise))
+        # a multiply and an add per element of A; A and the key table
+        # read once, the output written once
+        rows.append({"kernel": name, "use": use, "main_path": True,
+                     "shape": list(shape), "s_dim": s_dim, "ms": ms,
+                     "device_ms": dev_ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     **bound(2.0 * m * n, peaks["fp32_flops"],
+                             4.0 * (m * n + m * s_dim)
+                             + 24.0 * -(-n // 4096), peaks)})
+        del A
+    return rows
+
+
+def time_fwht(torch, P, shapes, peaks: dict) -> list[dict]:
+    """Phase 5, B5: kernel, plain version, and fut.fwht_sketch against D
+    and idx made beforehand: the D multiply, the kron two-torch.matmul WHT
+    (TF32 off), index_select and the scale, without generation."""
+    from libskylark_tpu_torch.sketch import cuda_fwht as cf, fut
+
+    rows = []
+    for name, use, shape, s_dim in shapes:
+        rowwise = name == "fwht_rowwise"
+        A = make_operand(torch, shape, 9)
+        key = P.Context(11).allocate().key
+        n, m = (shape[1], shape[0]) if rowwise else shape
+        ms = event_ms(torch, lambda: cf.srht_apply(key, A, s_dim, rowwise))
+        dev_ms = profiled_device_ms(torch, lambda: cf.srht_apply(
+            key, A, s_dim, rowwise))
+        plain_ms = event_ms(torch, lambda: cf.srht_apply_plain(
+            key, A, s_dim, rowwise))
+        D, idx = cf.streams(key, n, s_dim, device=A.device)
+        fs, ss = cf.scales(n, s_dim)
+        library_ms = event_ms(torch, lambda: fut.fwht_sketch(
+            A, D, idx, fs, ss, axis=1 if rowwise else 0))
+        # n·log2(n) adds per transformed vector at the fp32 add rate (half
+        # the FMA flop rate); A read once, the output written once
+        rows.append({"kernel": name, "use": use, "main_path": True,
+                     "shape": list(shape), "s_dim": s_dim, "ms": ms,
+                     "device_ms": dev_ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     **bound(float(m) * n * math.log2(n),
+                             peaks["fp32_flops"] / 2,
+                             4.0 * (m * n + m * s_dim)
+                             + 8.0 * -(-n // 4096), peaks)})
+        del A
     return rows
 
 
@@ -318,6 +566,15 @@ SPLIT_LS_SHAPES = [
     ("dense_columnwise", "S·A alone", (65536, 512), 2048),
     ("dense_columnwise", "S·b alone", (65536, 1), 2048),
 ]
+HASH_SHAPES = [
+    ("hash_columnwise", "CWT least squares S·[A|b]", (65536, 513), 2048),
+    ("hash_columnwise", "simplified Blendenpik S·A", (65536, 512), 2048),
+    ("hash_rowwise", "CWT.apply rowwise", (8192, 8192), 1024),
+]
+FWHT_SHAPES = [
+    ("fwht_columnwise", "SRHT least squares S·[A|b]", (65536, 513), 2048),
+    ("fwht_rowwise", "FJLT(wht).apply rowwise", (8192, 8192), 1024),
+]
 
 
 def check_cases() -> list:
@@ -332,9 +589,36 @@ def check_cases() -> list:
     return cases
 
 
+# main-path shapes; s = 300 (randint's multiplier is not 0); n ragged
+# (not a multiple of the 4096-chunk nor of the 1024-tile)
+HASH_CASES = [(name, shape, s) for name, _, shape, s in HASH_SHAPES] + [
+    ("hash_columnwise", (5000, 37), 300), ("hash_rowwise", (37, 5000), 300),
+    ("hash_columnwise", (12305, 70), 2048),
+    ("hash_rowwise", (70, 12305), 1500)]
+# dyadic at n = 4096, s = 256; Gaussian at 8192 → 1024 and 65536 → 2048
+FWHT_CASES = [
+    ("fwht_columnwise", (4096, 64), 256, True),
+    ("fwht_rowwise", (64, 4096), 256, True),
+    ("fwht_columnwise", (8192, 300), 1024, False),
+    ("fwht_rowwise", (8192, 8192), 1024, False),
+    ("fwht_columnwise", (65536, 513), 2048, False),
+    ("fwht_rowwise", (64, 65536), 2048, False)]
+
+CSRC = "libskylark_tpu_torch/csrc/"
+# kernel: (source, the TPU kernel it replaces)
 KERNELS = {
-    "dense_rowwise": "libskylark_tpu/sketch/pallas_dense.py:396",
-    "dense_columnwise": "libskylark_tpu/sketch/pallas_dense.py:480",
+    "dense_rowwise": (CSRC + "dense_sketch.cu",
+                      "libskylark_tpu/sketch/pallas_dense.py:396"),
+    "dense_columnwise": (CSRC + "dense_sketch.cu",
+                         "libskylark_tpu/sketch/pallas_dense.py:480"),
+    "hash_rowwise": (CSRC + "hash_sketch.cu",
+                     "libskylark_tpu/sketch/pallas_hash.py:423"),
+    "hash_columnwise": (CSRC + "hash_sketch.cu",
+                        "libskylark_tpu/sketch/pallas_hash.py:423"),
+    "fwht_rowwise": (CSRC + "fwht_sketch.cu",
+                     "libskylark_tpu/sketch/pallas_fwht.py:314"),
+    "fwht_columnwise": (CSRC + "fwht_sketch.cu",
+                        "libskylark_tpu/sketch/pallas_fwht.py:314"),
 }
 
 
@@ -367,31 +651,42 @@ def main() -> int:
                                 if "registers" in ln or "spill" in ln]}
                   for k, v in report.items()})
 
-    checked = check_kernels(torch, P, check_cases())
+    checked = {(k[0], k[1], k[2]): v
+               for k, v in check_kernels(torch, P, check_cases()).items()
+               if k[3] == "normal"}
+    checked.update(check_hash(torch, P, HASH_CASES))
+    checked.update(check_fwht(torch, P, FWHT_CASES))
     main = main_path(torch, P)
     rows = (time_kernels(torch, P, MAIN_SHAPES, True, peaks)
-            + time_kernels(torch, P, SPLIT_LS_SHAPES, False, peaks))
-    emit("time", method="CUDA events around each of 10 back-to-back calls "
-                        "after 3 warm-ups, median",
-         library="torch.matmul against S made beforehand, TF32 off: the "
-                 "contraction alone, without generation",
+            + time_kernels(torch, P, SPLIT_LS_SHAPES, False, peaks)
+            + time_hash(torch, P, HASH_SHAPES, peaks)
+            + time_fwht(torch, P, FWHT_SHAPES, peaks))
+    emit("time", method="ms: CUDA events around each of 10 back-to-back "
+                        "calls after 3 warm-ups, median; device_ms: the "
+                        "kernels' own time per call under torch.profiler, "
+                        "mean of 10",
+         library={"dense": "torch.matmul against S made beforehand, TF32 "
+                           "off: the contraction alone, without generation",
+                  "hash": "index_add_ of v·A at h, h and v made "
+                          "beforehand: the scatter alone",
+                  "fwht": "D multiply, kron two-torch.matmul WHT (TF32 off), "
+                          "index_select and scale, D and idx made "
+                          "beforehand"},
          rows=rows)
 
     kernels = []
-    for name, replaces in KERNELS.items():
+    for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name and r["main_path"]]
         head = mine[0]
         # the worst check over this kernel's main-path shapes
-        cs = [checked[(name, tuple(r["shape"]), r["s_dim"], "normal")]
-              for r in mine]
+        cs = [checked[(name, tuple(r["shape"]), r["s_dim"])] for r in mine]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "libskylark_tpu_torch/csrc/dense_sketch.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": main["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in cs),
-            "max_rel_err": max(c["max_rel_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "device_ms": head["device_ms"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"]})
     check("jax" not in sys.modules and "libskylark_tpu" not in sys.modules,

@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kHalf = 128;       // BLOCK_COLS / 2: counters per row per block
@@ -42,31 +44,7 @@ constexpr int kPad = 4;          // keeps float4 rows aligned, splits banks
 
 enum Dist { kNormal = 0, kCauchy = 1, kRademacher = 2 };
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-// Threefry-2x32-20 (Salmon et al., SC'11), in place on (x0, x1).
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-#define SK_ROUND(r) \
-  x0 += x1;         \
-  x1 = rotl32(x1, r) ^ x0;
-  x0 += k0;
-  x1 += k1;
-  SK_ROUND(13) SK_ROUND(15) SK_ROUND(26) SK_ROUND(6)
-  x0 += k1; x1 += k2 + 1u;
-  SK_ROUND(17) SK_ROUND(29) SK_ROUND(16) SK_ROUND(24)
-  x0 += k2; x1 += k0 + 2u;
-  SK_ROUND(13) SK_ROUND(15) SK_ROUND(26) SK_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
-  SK_ROUND(17) SK_ROUND(29) SK_ROUND(16) SK_ROUND(24)
-  x0 += k1; x1 += k2 + 4u;
-  SK_ROUND(13) SK_ROUND(15) SK_ROUND(26) SK_ROUND(6)
-  x0 += k2; x1 += k0 + 5u;
-#undef SK_ROUND
-}
+using sk::threefry2x32;
 
 // f32 erfinv by the reference's algorithm (XLA's ErfInv32, Giles 2010),
 // term for term as base/threefry.py erfinv_f32: products and sums are

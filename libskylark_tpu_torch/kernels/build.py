@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with nvcc, for Hopper only (sm_90a), into
 a shared library with a plain C interface, ``build/torch_kernels/
 lib<name>.so`` under the checkout's root; the wrappers load it with ctypes.
-A library is built at first use and again whenever its source is newer.
+A library is built at first use and again whenever its source, or a
+shared header ``csrc/*.cuh``, is newer.
 A failed build raises with nvcc's output: nothing falls back.
 """
 
@@ -52,9 +53,13 @@ def nvcc() -> str:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    shared header in csrc/."""
     so = library_path(name)
-    return (not so.exists()
-            or so.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not so.exists():
+        return True
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return so.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
 
 def build(names=None, force: bool = False) -> dict[str, dict]:

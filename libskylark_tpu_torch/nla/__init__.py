@@ -1,7 +1,10 @@
-"""NLA layer: randomized SVD, CholeskyQR2, sketch-and-solve least squares."""
+"""NLA layer: randomized SVD, CholeskyQR2, least squares."""
 
 from libskylark_tpu_torch.nla import least_squares, svd, tsqr
-from libskylark_tpu_torch.nla.least_squares import approximate_least_squares
+from libskylark_tpu_torch.nla.least_squares import (
+    approximate_least_squares,
+    fast_least_squares,
+)
 from libskylark_tpu_torch.nla.svd import (
     ApproximateSVDParams,
     approximate_svd,
@@ -11,6 +14,6 @@ from libskylark_tpu_torch.nla.svd import (
 
 __all__ = [
     "least_squares", "svd", "tsqr", "approximate_least_squares",
-    "ApproximateSVDParams", "approximate_svd", "approximate_symmetric_svd",
-    "power_iteration",
+    "fast_least_squares", "ApproximateSVDParams", "approximate_svd",
+    "approximate_symmetric_svd", "power_iteration",
 ]

@@ -49,16 +49,10 @@ def supported(dist, dtype) -> bool:
     return dtype == torch.float32
 
 
-def block_keys(key, n: int, device) -> torch.Tensor:
-    """The kernel's key table on ``device``: (ceil(n/BLOCK_COLS), 2) int32
-    holding the uint32 words of ``chunk_key(key, b)`` for each column
-    block b. Made on the host and uploaded from pinned memory, so the copy
-    does not wait for the stream."""
-    keys = randgen.chunk_keys(key, 0, -(-n // BLOCK_COLS)).view(np.int32)
-    host = torch.from_numpy(keys)
-    if torch.device(device).type == "cpu":
-        return host
-    return host.pin_memory().to(device, non_blocking=True)
+def block_keys(key, n: int) -> np.ndarray:
+    """The kernel's key table: (ceil(n/BLOCK_COLS), 2) uint32 words of
+    ``chunk_key(key, b)`` for each column block b."""
+    return randgen.chunk_keys(key, 0, -(-n // BLOCK_COLS))
 
 
 def dense_apply_plain(key, dist, A: torch.Tensor, s_dim: int, scale: float,
@@ -112,16 +106,14 @@ def _apply(key, dist, A, s_dim: int, scale: float, precision, rowwise: bool):
                       dtype=torch.float32, device=A.device)
     if m == 0:
         return out
-    keys = block_keys(key, n, A.device)
+    from libskylark_tpu_torch.kernels import launch
+
+    keys, _ = launch.key_table(block_keys, key, n, A.device)
     lib = _load()
     fn = lib.sk_dense_rowwise if rowwise else lib.sk_dense_columnwise
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        rc = fn(A.data_ptr(), keys.data_ptr(), out.data_ptr(), m, n, s_dim,
-                A.shape[1], _DIST_KINDS[type(dist)], float(scale), stream)
-    if rc != 0:
-        raise errors.SketchError(
-            f"dense sketch kernel launch failed: CUDA error {rc}")
+    launch.call(fn, A.device, A.data_ptr(), keys.data_ptr(), out.data_ptr(),
+                m, n, s_dim, A.shape[1], _DIST_KINDS[type(dist)],
+                float(scale))
     launches["dense_rowwise" if rowwise else "dense_columnwise"] += 1
     return out
 

@@ -20,7 +20,7 @@ import torch
 
 from libskylark_tpu_torch import __version__
 from libskylark_tpu_torch.base import errors
-from libskylark_tpu_torch.base.context import Allocation, Context
+from libskylark_tpu_torch.base.context import Allocation, Context, fold_in
 from libskylark_tpu_torch.base.device import as_tensor, resolve_device
 
 
@@ -140,6 +140,10 @@ class SketchTransform:
     @property
     def allocation(self) -> Allocation:
         return self._alloc
+
+    def subkey(self, tag: int):
+        """Key data of sub-stream ``tag``: fold_in(allocation key, tag)."""
+        return fold_in(self._alloc.key, tag)
 
     def apply(self, A, dimension: Dimension = COLUMNWISE,
               device=None) -> torch.Tensor:

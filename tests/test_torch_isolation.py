@@ -39,8 +39,11 @@ def test_port_and_chip_smoke_import_no_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["loaded"] == []
     for mod in ("base.threefry", "base.randgen", "base.context",
-                "sketch.cuda_dense", "sketch.dense", "kernels.build",
-                "nla.svd", "algorithms.regression", "interop"):
+                "sketch.cuda_dense", "sketch.dense", "sketch.cuda_hash",
+                "sketch.hash", "sketch.cuda_fwht", "sketch.fjlt", "sketch.fut",
+                "kernels.build", "kernels.launch", "nla.svd",
+                "nla.least_squares", "algorithms.regression",
+                "algorithms.krylov", "algorithms.precond", "interop"):
         assert f"libskylark_tpu_torch.{mod}" in report["modules"]
 
 

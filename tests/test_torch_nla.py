@@ -145,9 +145,19 @@ def test_solve_l2_sketched_consumes_one_allocation():
     assert ctx.counter == 1
 
 
+@pytest.mark.parametrize("sketch", ["fjlt", "cwt"])
+def test_fjlt_and_cwt_sketches_run(sketch):
+    rng = np.random.default_rng(10)
+    A = rng.standard_normal((512, 10)).astype(np.float32)
+    b = (A @ rng.standard_normal(10)).astype(np.float32)
+    ctx = Context(0)
+    x = nla.approximate_least_squares(A, b, ctx, sketch=sketch, device="cpu")
+    assert x.shape == (10,) and ctx.counter == 1
+    assert float(torch.linalg.norm(torch.from_numpy(A) @ x - torch.from_numpy(
+        b))) <= 1e-4 * float(np.linalg.norm(b))
+
+
 @pytest.mark.parametrize("sketch,error", [
-    ("fjlt", errors.NotImplementedYetError),
-    ("cwt", errors.NotImplementedYetError),
     ("gauss", errors.InvalidParametersError),
 ])
 def test_unported_sketches_raise(sketch, error):
