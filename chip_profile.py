@@ -12,7 +12,9 @@ matrix with singular values over [1e-3, 1] — it prints one JSON line
 with:
 
 - ``warm_ms``: median host time of 5 calls after 2 warm-ups, each call
-  ended by ``torch.cuda.synchronize()``;
+  ended by ``torch.cuda.synchronize()``. Every call of a cell draws its
+  transform from the cell's one Context, which advances, so each call
+  has a new key, as a user solving again from one Context does;
 - ``profiled_ms``, ``device_ms``: one more call under ``torch.profiler``:
   its host time (which includes the profiler's own cost) and the device
   time summed over its kernels;
@@ -87,35 +89,37 @@ def main() -> int:
 
     build.build()
     A = chip_smoke.make_operand(torch, (8192, 8192), 1)
-    T = sk.JLT(8192, 1024, P.Context(42))
     Asvd, _ = chip_smoke.svd_operand(torch)
     Als, b = chip_smoke.ls_operands(torch)
     Ak, bk = chip_smoke.kappa_operands(torch)
     params = nla.ApproximateSVDParams(num_iterations=2)
-    srht = sk.FJLT(65536, 2048, P.Context(47), fut="wht")
+    # one advancing Context per cell: every call has a new key
+    ctx = {seed: P.Context(seed) for seed in range(42, 51)}
     # LSQR alone, on Blendenpik's own preconditioner and tolerance
     accel = algorithms.AcceleratedParams()
     precond, _ = algorithms.build_blendenpik_precond(Ak, P.Context(50),
                                                      accel)
     lsqr_params = algorithms.KrylovParams(tolerance=accel.tolerance)
     cells = {
-        "jlt_rowwise_8192x8192_to_1024": lambda: T.apply(A, sk.ROWWISE),
+        "jlt_rowwise_8192x8192_to_1024":
+            lambda: sk.JLT(8192, 1024, ctx[42]).apply(A, sk.ROWWISE),
         "jlt_columnwise_8192x8192_to_1024":
-            lambda: T.apply(A, sk.COLUMNWISE),
+            lambda: sk.JLT(8192, 1024, ctx[48]).apply(A, sk.COLUMNWISE),
         "svd_8192x8192_rank64_q2":
-            lambda: nla.approximate_svd(Asvd, 64, P.Context(43), params),
+            lambda: nla.approximate_svd(Asvd, 64, ctx[43], params),
         "lstsq_jlt_65536x512_s2048":
-            lambda: nla.approximate_least_squares(Als, b, P.Context(44),
+            lambda: nla.approximate_least_squares(Als, b, ctx[44],
                                                   sketch="jlt"),
         "lstsq_fjlt_65536x512_s2048":
-            lambda: nla.approximate_least_squares(Als, b, P.Context(45)),
+            lambda: nla.approximate_least_squares(Als, b, ctx[45]),
         "lstsq_cwt_65536x512_s2048":
-            lambda: nla.approximate_least_squares(Als, b, P.Context(46),
+            lambda: nla.approximate_least_squares(Als, b, ctx[46],
                                                   sketch="cwt"),
         "lstsq_srht_65536x512_s2048":
-            lambda: algorithms.solve_l2_sketched(Als, b, srht),
+            lambda: algorithms.solve_l2_sketched(
+                Als, b, sk.FJLT(65536, 2048, ctx[47], fut="wht")),
         "blendenpik_65536x512_kappa1e3":
-            lambda: nla.fast_least_squares(Ak, bk, P.Context(50)),
+            lambda: nla.fast_least_squares(Ak, bk, ctx[50]),
         "lsqr_blendenpik_precond_65536x512_kappa1e3":
             lambda: algorithms.lsqr(Ak, bk, params=lsqr_params,
                                     precond=precond),

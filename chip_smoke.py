@@ -31,7 +31,9 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             rowwise on 8192×8192 → 1024;
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
-            bound, at the main-path shapes;
+            bound, at the main-path shapes; every timed call of a kernel
+            or a plain version draws a new key from one Context, as a
+            user solving again does;
 6. the ``{"kernels": [...]}`` line, the card's name and power limit, and
    ``{"ok": true, ...}`` as the last line.
 
@@ -460,28 +462,29 @@ def time_kernels(torch, P, shapes, main_path: bool,
     for name, use, shape, s_dim in shapes:
         rowwise = name == "dense_rowwise"
         A = make_operand(torch, shape, 7)
-        key = P.Context(9).allocate().key
+        ctx = P.Context(9)
         scale = 1.0 / math.sqrt(s_dim)
         n, m = (shape[1], shape[0]) if rowwise else shape
         fn = cd.rowwise_apply if rowwise else cd.columnwise_apply
-        ms = event_ms(torch, lambda: fn(key, dist, A, s_dim, scale))
-        dev_ms = profiled_device_ms(torch, lambda: fn(key, dist, A, s_dim,
-                                                      scale))
+        ms = event_ms(torch, lambda: fn(ctx.allocate().key, dist, A, s_dim,
+                                        scale))
+        dev_ms = profiled_device_ms(torch, lambda: fn(
+            ctx.allocate().key, dist, A, s_dim, scale))
         plain_ms = event_ms(torch, lambda: cd.dense_apply_plain(
-            key, dist, A, s_dim, scale, rowwise))
+            ctx.allocate().key, dist, A, s_dim, scale, rowwise))
+        key = ctx.allocate().key
         S = virtual_panel(key, dist, s_dim, 0, n, scale, device=A.device)
         lib = (lambda: torch.matmul(A, S.T)) if rowwise else (
             lambda: torch.matmul(S, A))
         library_ms = event_ms(torch, lib)
-        # 2·m·n·s flops on the CUDA cores; A and the key table read once,
-        # the output written once
+        # 2·m·n·s flops on the CUDA cores; A read once, the output
+        # written once
         rows.append({"kernel": name, "use": use, "main_path": main_path,
                      "shape": list(shape), "s_dim": s_dim, "ms": ms,
                      "device_ms": dev_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      **bound(2.0 * m * n * s_dim, peaks["fp32_flops"],
-                             4.0 * (m * n + m * s_dim) + 8.0 * -(-n // 256),
-                             peaks)})
+                             4.0 * (m * n + m * s_dim), peaks)})
         del A, S
     return rows
 
@@ -495,25 +498,25 @@ def time_hash(torch, P, shapes, peaks: dict) -> list[dict]:
     for name, use, shape, s_dim in shapes:
         rowwise = name == "hash_rowwise"
         A = make_operand(torch, shape, 8)
-        key = P.Context(10).allocate().key
+        ctx = P.Context(10)
         n, m = (shape[1], shape[0]) if rowwise else shape
-        ms = event_ms(torch, lambda: ch.cwt_apply(key, A, s_dim, rowwise))
+        ms = event_ms(torch, lambda: ch.cwt_apply(ctx.allocate().key, A,
+                                                  s_dim, rowwise))
         dev_ms = profiled_device_ms(torch, lambda: ch.cwt_apply(
-            key, A, s_dim, rowwise))
+            ctx.allocate().key, A, s_dim, rowwise))
         plain_ms = event_ms(torch, lambda: ch.cwt_apply_plain(
-            key, A, s_dim, rowwise))
-        h, v = ch.streams(key, n, s_dim, A.device)
+            ctx.allocate().key, A, s_dim, rowwise))
+        h, v = ch.streams(ctx.allocate().key, n, s_dim, A.device)
         library_ms = event_ms(torch, lambda: ch.scatter(h, v, A, s_dim,
                                                         rowwise))
-        # a multiply and an add per element of A; A and the key table
-        # read once, the output written once
+        # a multiply and an add per element of A; A read once, the
+        # output written once
         rows.append({"kernel": name, "use": use, "main_path": True,
                      "shape": list(shape), "s_dim": s_dim, "ms": ms,
                      "device_ms": dev_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      **bound(2.0 * m * n, peaks["fp32_flops"],
-                             4.0 * (m * n + m * s_dim)
-                             + 24.0 * -(-n // 4096), peaks)})
+                             4.0 * (m * n + m * s_dim), peaks)})
         del A
     return rows
 
@@ -528,14 +531,15 @@ def time_fwht(torch, P, shapes, peaks: dict) -> list[dict]:
     for name, use, shape, s_dim in shapes:
         rowwise = name == "fwht_rowwise"
         A = make_operand(torch, shape, 9)
-        key = P.Context(11).allocate().key
+        ctx = P.Context(11)
         n, m = (shape[1], shape[0]) if rowwise else shape
-        ms = event_ms(torch, lambda: cf.srht_apply(key, A, s_dim, rowwise))
+        ms = event_ms(torch, lambda: cf.srht_apply(ctx.allocate().key, A,
+                                                   s_dim, rowwise))
         dev_ms = profiled_device_ms(torch, lambda: cf.srht_apply(
-            key, A, s_dim, rowwise))
+            ctx.allocate().key, A, s_dim, rowwise))
         plain_ms = event_ms(torch, lambda: cf.srht_apply_plain(
-            key, A, s_dim, rowwise))
-        D, idx = cf.streams(key, n, s_dim, device=A.device)
+            ctx.allocate().key, A, s_dim, rowwise))
+        D, idx = cf.streams(ctx.allocate().key, n, s_dim, device=A.device)
         fs, ss = cf.scales(n, s_dim)
         library_ms = event_ms(torch, lambda: fut.fwht_sketch(
             A, D, idx, fs, ss, axis=1 if rowwise else 0))
@@ -547,8 +551,7 @@ def time_fwht(torch, P, shapes, peaks: dict) -> list[dict]:
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      **bound(float(m) * n * math.log2(n),
                              peaks["fp32_flops"] / 2,
-                             4.0 * (m * n + m * s_dim)
-                             + 8.0 * -(-n // 4096), peaks)})
+                             4.0 * (m * n + m * s_dim), peaks)})
         del A
     return rows
 
@@ -664,7 +667,8 @@ def main() -> int:
     emit("time", method="ms: CUDA events around each of 10 back-to-back "
                         "calls after 3 warm-ups, median; device_ms: the "
                         "kernels' own time per call under torch.profiler, "
-                        "mean of 10",
+                        "mean of 10; each kernel and plain call with a new "
+                        "key from one Context",
          library={"dense": "torch.matmul against S made beforehand, TF32 "
                            "off: the contraction alone, without generation",
                   "hash": "index_add_ of v·A at h, h and v made "

@@ -5,11 +5,12 @@
 //   columnwise out = scale * S * A     (_fused_call_cw -> _kernel_cw /
 //                                        _kernel_pipe_cw)
 // S (s_dim x n) is the virtual dense-block operator of base/randgen.py. It
-// is generated here, tile by tile, from the per-block key table and never
-// stored: one Threefry-2x32-20 call at counter c = r*128 + j (r the global
-// operator row, j < 128) under keys[k] gives column j of block k (word 0)
-// and column 128 + j (word 1, second counter c + s_dim*128). The bits map
-// to values with exactly the f32 operations of base/threefry.py.
+// is generated here, tile by tile, from the transform's 2-word key and
+// never stored: each block derives block k's key chunk_key(key, k) on the
+// card, and one Threefry-2x32-20 call at counter c = r*128 + j (r the
+// global operator row, j < 128) under it gives column j of block k (word
+// 0) and column 128 + j (word 1, second counter c + s_dim*128). The bits
+// map to values with exactly the f32 operations of base/threefry.py.
 //
 // Bound on this card: 2*m*n*s_dim FMA flops on the FP32 CUDA cores; at the
 // main-path shapes (e.g. 8192 x 8192 -> 1024) that is compute-bound by a
@@ -128,7 +129,7 @@ __device__ __forceinline__ void fma_tile(const float (&X)[kBK][TILE + kPad],
 // runs in one wave instead of two.
 template <int TILE, bool ROWWISE, int DIST>
 __global__ void __launch_bounds__(kThreads, TILE == 64 ? 4 : 2)
-dense_sketch_kernel(const float* __restrict__ A, const uint32_t* __restrict__ keys,
+dense_sketch_kernel(const float* __restrict__ A, uint32_t key0, uint32_t key1,
                     float* __restrict__ out, int64_t m, int64_t n, int s_dim,
                     int64_t ld, float scale) {
   constexpr int MICRO = TILE / 16;
@@ -148,7 +149,9 @@ dense_sketch_kernel(const float* __restrict__ A, const uint32_t* __restrict__ ke
 
   const int64_t n_blocks = (n + 2 * kHalf - 1) / (2 * kHalf);
   for (int64_t kb = 0; kb < n_blocks; ++kb) {
-    const uint32_t k0 = keys[2 * kb], k1 = keys[2 * kb + 1];
+    // block kb's key: two cipher calls, uniform across the block
+    uint32_t k0 = key0, k1 = key1;
+    sk::chunk_key(k0, k1, kb);
     for (int j0 = 0; j0 < kHalf; j0 += kT) {
       // k-step columns: [c_lo, c_lo + kT) then [c_lo + 128, c_lo + 128 + kT)
       const int64_t c_lo = kb * 2 * kHalf + j0;
@@ -213,7 +216,7 @@ dense_sketch_kernel(const float* __restrict__ A, const uint32_t* __restrict__ ke
 }
 
 template <int TILE, bool ROWWISE>
-cudaError_t launch_tile(const float* A, const uint32_t* keys, float* out, int64_t m,
+cudaError_t launch_tile(const float* A, uint32_t key0, uint32_t key1, float* out, int64_t m,
                         int64_t n, int64_t s_dim, int64_t ld, int dist, float scale,
                         cudaStream_t stream) {
   const dim3 grid((unsigned)((m + TILE - 1) / TILE), (unsigned)((s_dim + TILE - 1) / TILE));
@@ -221,15 +224,15 @@ cudaError_t launch_tile(const float* A, const uint32_t* keys, float* out, int64_
   switch (dist) {
     case kNormal:
       dense_sketch_kernel<TILE, ROWWISE, kNormal>
-          <<<grid, kThreads, 0, stream>>>(A, keys, out, m, n, s, ld, scale);
+          <<<grid, kThreads, 0, stream>>>(A, key0, key1, out, m, n, s, ld, scale);
       break;
     case kCauchy:
       dense_sketch_kernel<TILE, ROWWISE, kCauchy>
-          <<<grid, kThreads, 0, stream>>>(A, keys, out, m, n, s, ld, scale);
+          <<<grid, kThreads, 0, stream>>>(A, key0, key1, out, m, n, s, ld, scale);
       break;
     case kRademacher:
       dense_sketch_kernel<TILE, ROWWISE, kRademacher>
-          <<<grid, kThreads, 0, stream>>>(A, keys, out, m, n, s, ld, scale);
+          <<<grid, kThreads, 0, stream>>>(A, key0, key1, out, m, n, s, ld, scale);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -241,7 +244,7 @@ cudaError_t launch_tile(const float* A, const uint32_t* keys, float* out, int64_
 // ones (a thin output, e.g. the SVD range sketch or least squares' S*A,
 // would leave most SMs idle). The tile changes no sum order.
 template <bool ROWWISE>
-cudaError_t launch(const float* A, const uint32_t* keys, float* out, int64_t m, int64_t n,
+cudaError_t launch(const float* A, uint32_t key0, uint32_t key1, float* out, int64_t m, int64_t n,
                    int64_t s_dim, int64_t ld, int dist, float scale, cudaStream_t stream) {
   if (m <= 0 || n <= 0 || s_dim <= 0 || ld < (ROWWISE ? n : m) ||
       (s_dim + 63) / 64 > 65535 || (m + 63) / 64 > 0x7FFFFFFF ||
@@ -254,20 +257,20 @@ cudaError_t launch(const float* A, const uint32_t* keys, float* out, int64_t m, 
   if (err != cudaSuccess) return err;
   const int64_t big_tiles = ((m + 127) / 128) * ((s_dim + 127) / 128);
   if (big_tiles >= 2 * (int64_t)sms)
-    return launch_tile<128, ROWWISE>(A, keys, out, m, n, s_dim, ld, dist, scale, stream);
-  return launch_tile<64, ROWWISE>(A, keys, out, m, n, s_dim, ld, dist, scale, stream);
+    return launch_tile<128, ROWWISE>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, stream);
+  return launch_tile<64, ROWWISE>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, stream);
 }
 
 }  // namespace
 
-extern "C" int sk_dense_rowwise(const float* A, const uint32_t* keys, float* out,
+extern "C" int sk_dense_rowwise(const float* A, uint32_t key0, uint32_t key1, float* out,
                                 int64_t m, int64_t n, int64_t s_dim, int64_t ld,
                                 int dist, float scale, cudaStream_t stream) {
-  return (int)launch<true>(A, keys, out, m, n, s_dim, ld, dist, scale, stream);
+  return (int)launch<true>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, stream);
 }
 
-extern "C" int sk_dense_columnwise(const float* A, const uint32_t* keys, float* out,
+extern "C" int sk_dense_columnwise(const float* A, uint32_t key0, uint32_t key1, float* out,
                                    int64_t m, int64_t n, int64_t s_dim, int64_t ld,
                                    int dist, float scale, cudaStream_t stream) {
-  return (int)launch<false>(A, keys, out, m, n, s_dim, ld, dist, scale, stream);
+  return (int)launch<false>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, stream);
 }

@@ -8,8 +8,11 @@
 // fut_scale = 1/sqrt(n), samp_scale = sqrt(n/s). fwht_gen_kernel makes D
 // (Rademacher, sub-stream 0; the scale is folded in, an exact product) and
 // idx (randint over the power-of-two span n, sub-stream 1: the low draw
-// alone, since the multiplier is 0) from the key table, in base/randgen.py's
-// counter-stream layout.
+// alone, since the multiplier is 0) from the transform's 2-word key, in
+// base/randgen.py's counter-stream layout: each thread derives the chunk
+// key of its D entry (chunk_key(fold_in(key, 0), j / 4096)) and, for idx,
+// randint's low-draw key (split(chunk_key(fold_in(key, 1), 0))[1]) on the
+// card.
 //
 // Bound on this card: bytes. A is read once and the output written once;
 // n*log2(n) adds per row (or column) are far below the fp32 add rate.
@@ -50,15 +53,23 @@ constexpr int kSegRW = 2048;    // rowwise segment: 8 KB of shared memory
 constexpr int kSegCW = 1024;    // columnwise segment rows
 constexpr int kColsCW = 16;     // columnwise columns per block: 64 KB
 
-__global__ void fwht_gen_kernel(const uint32_t* __restrict__ dkeys, uint32_t ik0,
-                                uint32_t ik1, int64_t n, int s, float fut_scale,
-                                float* __restrict__ D, int* __restrict__ idx) {
+__global__ void fwht_gen_kernel(uint32_t key0, uint32_t key1, int64_t n, int s,
+                                float fut_scale, float* __restrict__ D,
+                                int* __restrict__ idx) {
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (j < n) {
-    const uint32_t* K = dkeys + 2 * (j / kChunk);
-    D[j] = __fmul_rn(fut_scale, sk::rademacher(sk::stream_bits(K[0], K[1], (uint32_t)(j % kChunk))));
+    uint32_t k0 = key0, k1 = key1;
+    sk::fold_in(k0, k1, 0u);
+    sk::chunk_key(k0, k1, j / kChunk);
+    D[j] = __fmul_rn(fut_scale, sk::rademacher(sk::stream_bits(k0, k1, (uint32_t)(j % kChunk))));
   }
-  if (j < s) idx[j] = (int)(sk::stream_bits(ik0, ik1, (uint32_t)j) & (uint32_t)(n - 1));
+  if (j < s) {
+    uint32_t k0 = key0, k1 = key1;
+    sk::fold_in(k0, k1, 1u);
+    sk::chunk_key(k0, k1, 0);
+    sk::fold_in(k0, k1, 1u);
+    idx[j] = (int)(sk::stream_bits(k0, k1, (uint32_t)j) & (uint32_t)(n - 1));
+  }
 }
 
 // In-place unnormalized WHT (natural order) of Y[0..b) by the butterfly,
@@ -170,11 +181,11 @@ int log2_exact(int64_t n) {
   return (int64_t{1} << k) == n ? k : -1;
 }
 
-cudaError_t gen(const uint32_t* dkeys, uint32_t ik0, uint32_t ik1, float* D, int* idx,
-                int64_t n, int64_t s, float fut_scale, cudaStream_t stream) {
+cudaError_t gen(uint32_t key0, uint32_t key1, float* D, int* idx, int64_t n, int64_t s,
+                float fut_scale, cudaStream_t stream) {
   const int64_t count = n > s ? n : s;
   fwht_gen_kernel<<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      dkeys, ik0, ik1, n, (int)s, fut_scale, D, idx);
+      key0, key1, n, (int)s, fut_scale, D, idx);
   return cudaGetLastError();
 }
 
@@ -185,15 +196,15 @@ bool bad_shape(int64_t m, int64_t n, int64_t s, int log_n) {
 }  // namespace
 
 // Scratch, allocated by the caller: D (n floats), idx (s ints) and, for
-// the columnwise orientation, Y (n * m floats). dkeys: 2 words per
-// 4096-chunk of n; (ik0, ik1) is the sample stream's low-draw key.
-extern "C" int sk_fwht_rowwise(const float* A, const uint32_t* dkeys, uint32_t ik0,
-                               uint32_t ik1, float* D, int* idx, float* out, int64_t m,
-                               int64_t n, int64_t s, int64_t ld, float fut_scale,
-                               float samp_scale, cudaStream_t stream) {
+// the columnwise orientation, Y (n * m floats). (key0, key1): the
+// transform's key.
+extern "C" int sk_fwht_rowwise(const float* A, uint32_t key0, uint32_t key1, float* D,
+                               int* idx, float* out, int64_t m, int64_t n, int64_t s,
+                               int64_t ld, float fut_scale, float samp_scale,
+                               cudaStream_t stream) {
   const int log_n = log2_exact(n);
   if (bad_shape(m, n, s, log_n) || ld < n || m > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-  cudaError_t err = gen(dkeys, ik0, ik1, D, idx, n, s, fut_scale, stream);
+  cudaError_t err = gen(key0, key1, D, idx, n, s, fut_scale, stream);
   if (err != cudaSuccess) return (int)err;
   const int log_seg = log2_exact(kSegRW);
   const int log_b = log_n < log_seg ? log_n : log_seg;
@@ -202,14 +213,14 @@ extern "C" int sk_fwht_rowwise(const float* A, const uint32_t* dkeys, uint32_t i
   return (int)cudaGetLastError();
 }
 
-extern "C" int sk_fwht_columnwise(const float* A, const uint32_t* dkeys, uint32_t ik0,
-                                  uint32_t ik1, float* D, int* idx, float* Y, float* out,
-                                  int64_t m, int64_t n, int64_t s, int64_t ld, float fut_scale,
-                                  float samp_scale, cudaStream_t stream) {
+extern "C" int sk_fwht_columnwise(const float* A, uint32_t key0, uint32_t key1, float* D,
+                                  int* idx, float* Y, float* out, int64_t m, int64_t n,
+                                  int64_t s, int64_t ld, float fut_scale, float samp_scale,
+                                  cudaStream_t stream) {
   const int log_n = log2_exact(n);
   if (bad_shape(m, n, s, log_n) || ld < m || (m + kColsCW - 1) / kColsCW > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = gen(dkeys, ik0, ik1, D, idx, n, s, fut_scale, stream);
+  cudaError_t err = gen(key0, key1, D, idx, n, s, fut_scale, stream);
   if (err != cudaSuccess) return (int)err;
   const int log_seg = log2_exact(kSegCW);
   const int log_b = log_n < log_seg ? log_n : log_seg;

@@ -6,10 +6,12 @@
 //   rowwise     out[:, h[j]] += v[j] * A[:, j]    A (m, n) -> out (m, s)
 // h[j] is UniformInt(0, s-1) of sub-stream 0 (jax.random.randint's double
 // draw) and v[j] Rademacher of sub-stream 1. Both are generated here from
-// a per-chunk key table in base/randgen.py's counter-stream layout (word p
-// of chunk c is x0 ^ x1 of Threefry at the counters (0, p)): columns 0-1
-// hold the randint high-draw key, 2-3 the low-draw key, 4-5 the value
-// stream's chunk key.
+// the transform's 2-word key in base/randgen.py's counter-stream layout
+// (word p of chunk c is x0 ^ x1 of Threefry at the counters (0, p) under
+// the chunk key): each sort block derives its chunk's keys on the card —
+// sub-stream i's key is fold_in(key, i), chunk c's is chunk_key of that,
+// and randint's high- and low-draw keys are split's pair of the bucket
+// stream's chunk key. A sort tile lies inside one chunk.
 //
 // Bound on this card: bytes. A is read once and the output written once;
 // there is one multiply-add per element of A.
@@ -18,10 +20,11 @@
 // that the result is bit-equal to it: every v * a is exact (v = +-1), so
 // only the order of the adds matters. Atomics would add in an arbitrary
 // order, so the kernel sorts instead:
-// 1. hash_sort_kernel, one block per tile of kTile coordinates, generates
-//    h and v and sorts the tile's coordinates by bucket, stably: the
-//    position of coordinate e is the number of the tile's coordinates with
-//    a smaller bucket plus the number of earlier ones with the same bucket
+// 1. hash_sort_kernel, one block per tile of kTile coordinates, derives
+//    its chunk's keys, generates h and v and sorts the tile's coordinates
+//    by bucket, stably: the position of coordinate e is the number of the
+//    tile's coordinates with a smaller bucket plus the number of earlier
+//    ones with the same bucket
 //    (an O(kTile^2) count in shared memory: no atomics, no scan). It writes
 //    the sorted local indices and values, and off[t][b], the first sorted
 //    position of bucket b in tile t (b <= s).
@@ -50,9 +53,10 @@ constexpr int kPer = kTile / kThreads;  // coordinates per thread in a tile
 constexpr int kColsCW = 128;   // output columns per warp, columnwise
 constexpr int kRowsRW = 8;     // rows per block, rowwise
 constexpr int kBucketsRW = kThreads * 4;  // buckets per block, rowwise
+static_assert(kChunk % kTile == 0, "a sort tile must lie inside one stream chunk");
 
 __global__ void __launch_bounds__(kThreads)
-hash_sort_kernel(const uint32_t* __restrict__ keys, int64_t n, int s, uint32_t mult,
+hash_sort_kernel(uint32_t key0, uint32_t key1, int64_t n, int s, uint32_t mult,
                  int* __restrict__ off, int* __restrict__ idx, float* __restrict__ val) {
   __shared__ int hs[kTile];
   __shared__ int sorted_h[kTile];
@@ -60,6 +64,18 @@ hash_sort_kernel(const uint32_t* __restrict__ keys, int64_t n, int s, uint32_t m
   const int64_t base = (int64_t)blockIdx.x * kTile;
   const int len = (int)(n - base < kTile ? n - base : kTile);
   const uint32_t span = (uint32_t)s;
+
+  // the chunk's keys (8 cipher calls, the same in every thread): randint's
+  // high (hk) and low (lk) draw keys, and the value stream's key (vk)
+  const int64_t c = base / kChunk;
+  uint32_t hk0 = key0, hk1 = key1, vk0 = key0, vk1 = key1;
+  sk::fold_in(hk0, hk1, 0u);
+  sk::chunk_key(hk0, hk1, c);
+  uint32_t lk0 = hk0, lk1 = hk1;
+  sk::fold_in(hk0, hk1, 0u);
+  sk::fold_in(lk0, lk1, 1u);
+  sk::fold_in(vk0, vk1, 1u);
+  sk::chunk_key(vk0, vk1, c);
 
   int h[kPer];
   float v[kPer];
@@ -69,16 +85,14 @@ hash_sort_kernel(const uint32_t* __restrict__ keys, int64_t n, int s, uint32_t m
     h[q] = -1;
     v[q] = 0.0f;
     if (e < len) {
-      const int64_t j = base + e;
-      const uint32_t* K = keys + 6 * (j / kChunk);
-      const uint32_t p = (uint32_t)(j % kChunk);
-      uint32_t r = sk::stream_bits(K[2], K[3], p) % span;
+      const uint32_t p = (uint32_t)((base + e) % kChunk);
+      uint32_t r = sk::stream_bits(lk0, lk1, p) % span;
       if (mult) {  // uint32 arithmetic, wrapping as jax.random.randint's
-        const uint32_t hi = sk::stream_bits(K[0], K[1], p) % span;
+        const uint32_t hi = sk::stream_bits(hk0, hk1, p) % span;
         r = (hi * mult + r) % span;
       }
       h[q] = (int)r;
-      v[q] = sk::rademacher(sk::stream_bits(K[4], K[5], p));
+      v[q] = sk::rademacher(sk::stream_bits(vk0, vk1, p));
     }
     hs[e] = h[q];
   }
@@ -200,7 +214,8 @@ hash_rw_kernel(const float* __restrict__ A, const int* __restrict__ off,
   }
 }
 
-cudaError_t launch(bool rowwise, const float* A, const uint32_t* keys, float* out, int* off,
+cudaError_t launch(bool rowwise, const float* A, uint32_t key0, uint32_t key1, float* out,
+                   int* off,
                    int* idx, float* val, int64_t m, int64_t n, int64_t s, int64_t ld,
                    uint32_t mult, cudaStream_t stream) {
   const int64_t tiles = (n + kTile - 1) / kTile;
@@ -209,8 +224,8 @@ cudaError_t launch(bool rowwise, const float* A, const uint32_t* keys, float* ou
                                                (s + kBucketsRW - 1) / kBucketsRW > 65535
                                          : (m + kColsCW - 1) / kColsCW > 65535))
     return cudaErrorInvalidValue;
-  hash_sort_kernel<<<(unsigned)tiles, kThreads, 0, stream>>>(keys, n, (int)s, mult, off, idx,
-                                                             val);
+  hash_sort_kernel<<<(unsigned)tiles, kThreads, 0, stream>>>(key0, key1, n, (int)s, mult, off,
+                                                             idx, val);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (rowwise) {
@@ -228,15 +243,15 @@ cudaError_t launch(bool rowwise, const float* A, const uint32_t* keys, float* ou
 }  // namespace
 
 // Scratch, allocated by the caller: off (ceil(n/1024) * (s+1) ints), idx
-// and val (ceil(n/1024) * 1024 each). keys: 6 words per 4096-chunk of n.
-extern "C" int sk_hash_columnwise(const float* A, const uint32_t* keys, float* out, int* off,
-                                  int* idx, float* val, int64_t m, int64_t n, int64_t s,
-                                  int64_t ld, uint32_t mult, cudaStream_t stream) {
-  return (int)launch(false, A, keys, out, off, idx, val, m, n, s, ld, mult, stream);
+// and val (ceil(n/1024) * 1024 each). (key0, key1): the transform's key.
+extern "C" int sk_hash_columnwise(const float* A, uint32_t key0, uint32_t key1, float* out,
+                                  int* off, int* idx, float* val, int64_t m, int64_t n,
+                                  int64_t s, int64_t ld, uint32_t mult, cudaStream_t stream) {
+  return (int)launch(false, A, key0, key1, out, off, idx, val, m, n, s, ld, mult, stream);
 }
 
-extern "C" int sk_hash_rowwise(const float* A, const uint32_t* keys, float* out, int* off,
-                               int* idx, float* val, int64_t m, int64_t n, int64_t s,
+extern "C" int sk_hash_rowwise(const float* A, uint32_t key0, uint32_t key1, float* out,
+                               int* off, int* idx, float* val, int64_t m, int64_t n, int64_t s,
                                int64_t ld, uint32_t mult, cudaStream_t stream) {
-  return (int)launch(true, A, keys, out, off, idx, val, m, n, s, ld, mult, stream);
+  return (int)launch(true, A, key0, key1, out, off, idx, val, m, n, s, ld, mult, stream);
 }

@@ -35,6 +35,23 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t&
 #undef SK_ROUND
 }
 
+// jax.random.fold_in(key, d), in place on (k0, k1): the cipher under the
+// key at the counter words (0, d). jax.random.split(key)[i] is the same
+// pair at (0, i), so fold_in(key, i) is also split's i-th key.
+__device__ __forceinline__ void fold_in(uint32_t& k0, uint32_t& k1, uint32_t d) {
+  uint32_t x0 = 0u, x1 = d;
+  threefry2x32(k0, k1, x0, x1);
+  k0 = x0;
+  k1 = x1;
+}
+
+// base/randgen.py chunk_key(key, c), in place: fold_in(fold_in(key,
+// c >> 31), c & (2^31 - 1)), the key of chunk (or column block) c.
+__device__ __forceinline__ void chunk_key(uint32_t& k0, uint32_t& k1, int64_t c) {
+  fold_in(k0, k1, (uint32_t)(c >> 31));
+  fold_in(k0, k1, (uint32_t)(c & 0x7FFFFFFF));
+}
+
 // Word p (< 2^32) of jax.random.bits(key, (L,)) under JAX's partitionable
 // Threefry: x0 ^ x1 of the cipher at the counter words (0, p). This is
 // the layout of base/randgen.py's counter streams (stream_slice).

@@ -1,32 +1,13 @@
-"""What every kernel wrapper does around a launch: upload a key table made
-on the host, call the C function on PyTorch's current stream, and raise
-on a CUDA error (the launch never ran)."""
+"""What every kernel wrapper does around a launch: call the C function on
+PyTorch's current stream, and raise on a CUDA error (the launch never
+ran). The kernels take the transform's 2-word key and derive every chunk
+key on the card, so a launch needs no table from the host."""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors
-from libskylark_tpu_torch.base.context import key_words
-
-# Key tables already on a device, by (table builder, key, n, device); the
-# last _MAX_TABLES are kept. A table is a pure function of (key, n), and
-# making one costs a few Threefry passes in numpy plus a pinned upload:
-# more host time than a small launch's device time.
-_tables: dict = {}
-_MAX_TABLES = 64
-
-
-def _upload(table: np.ndarray, device) -> torch.Tensor:
-    """A uint32 host table as an int32 tensor on ``device``; to a CUDA
-    device from pinned memory, so the copy does not wait for the
-    stream."""
-    host = torch.from_numpy(np.ascontiguousarray(table, np.uint32).view(
-        np.int32))
-    if torch.device(device).type == "cpu":
-        return host
-    return host.pin_memory().to(device, non_blocking=True)
 
 
 def call(fn, device, *args) -> None:
@@ -38,19 +19,3 @@ def call(fn, device, *args) -> None:
     if rc != 0:
         raise errors.SketchError(
             f"{fn.__name__} launch failed: CUDA error {rc}")
-
-
-def key_table(build, key, n: int, device):
-    """``(table on device, host table)`` for ``build(key, n)``: a uint32
-    numpy table made on the host and uploaded once per (build, key, n,
-    device)."""
-    device = torch.device(device)
-    k = (build.__module__, build.__qualname__, *key_words(key), int(n),
-         str(device))
-    hit = _tables.get(k)
-    if hit is None:
-        host = build(key, n)
-        if len(_tables) >= _MAX_TABLES:
-            _tables.pop(next(iter(_tables)))
-        hit = _tables[k] = (_upload(host, device), host)
-    return hit

@@ -4,8 +4,8 @@ csrc/dense_sketch.cu, their plain versions, and their launch counters.
 Replaces libskylark_tpu/sketch/pallas_dense.py (``_fused_call`` and
 ``_fused_call_cw``): out = scale · A·Sᵀ (rowwise) or scale · S·A
 (columnwise) with S the virtual dense-block operator of base/randgen.py,
-generated inside the kernel from the per-block key table and never
-stored.
+generated inside the kernel from the transform's key (each block key is
+derived on the card) and never stored.
 
 Rules of the wrappers:
 
@@ -18,10 +18,10 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors, randgen
+from libskylark_tpu_torch.base.context import key_words
 from libskylark_tpu_torch.sketch import params as sketch_params
 from libskylark_tpu_torch.sketch.dense import BLOCK_COLS
 
@@ -49,12 +49,6 @@ def supported(dist, dtype) -> bool:
     return dtype == torch.float32
 
 
-def block_keys(key, n: int) -> np.ndarray:
-    """The kernel's key table: (ceil(n/BLOCK_COLS), 2) uint32 words of
-    ``chunk_key(key, b)`` for each column block b."""
-    return randgen.chunk_keys(key, 0, -(-n // BLOCK_COLS))
-
-
 def dense_apply_plain(key, dist, A: torch.Tensor, s_dim: int, scale: float,
                       rowwise: bool) -> torch.Tensor:
     """The plain PyTorch version of both kernels: S made whole on A's
@@ -71,8 +65,8 @@ def _load():
         from libskylark_tpu_torch.kernels import build
 
         lib = build.load("dense_sketch")
-        sig = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-               ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        sig = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
+               ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                ctypes.c_int64, ctypes.c_int, ctypes.c_float,
                ctypes.c_void_p]
         for fn in (lib.sk_dense_rowwise, lib.sk_dense_columnwise):
@@ -108,10 +102,9 @@ def _apply(key, dist, A, s_dim: int, scale: float, precision, rowwise: bool):
         return out
     from libskylark_tpu_torch.kernels import launch
 
-    keys, _ = launch.key_table(block_keys, key, n, A.device)
     lib = _load()
     fn = lib.sk_dense_rowwise if rowwise else lib.sk_dense_columnwise
-    launch.call(fn, A.device, A.data_ptr(), keys.data_ptr(), out.data_ptr(),
+    launch.call(fn, A.device, A.data_ptr(), *key_words(key), out.data_ptr(),
                 m, n, s_dim, A.shape[1], _DIST_KINDS[type(dist)],
                 float(scale))
     launches["dense_rowwise" if rowwise else "dense_columnwise"] += 1

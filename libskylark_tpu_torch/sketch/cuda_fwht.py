@@ -21,11 +21,10 @@ from __future__ import annotations
 import ctypes
 import math
 
-import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors, randgen
-from libskylark_tpu_torch.base.context import fold_in
+from libskylark_tpu_torch.base.context import fold_in, key_words
 from libskylark_tpu_torch.sketch import fut
 
 launches = {"fwht_rowwise": 0, "fwht_columnwise": 0}
@@ -68,16 +67,6 @@ def supported(n: int, s_dim: int, dtype) -> bool:
             and dtype == torch.float32)
 
 
-def key_table(key, n: int) -> np.ndarray:
-    """The kernel's keys, (ceil(n/CHUNK) + 1, 2) uint32: the chunk keys of
-    the sign stream, then the sample stream's low-draw key (randint's
-    second split key of chunk 0; the multiplier of a power-of-two span is
-    0, so the high draw is not needed)."""
-    dkeys = randgen.chunk_keys(fold_in(key, 0), 0, -(-n // randgen.CHUNK))
-    _, k_lo = randgen.split_keys(randgen.chunk_keys(fold_in(key, 1), 0, 1))
-    return np.concatenate([dkeys, k_lo])
-
-
 def _load():
     global _lib
     if _lib is None:
@@ -86,10 +75,10 @@ def _load():
         lib = build.load("fwht_sketch")
         p, i64, u32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
                             ctypes.c_float)
-        lib.sk_fwht_rowwise.argtypes = [p, p, u32, u32, p, p, p, i64, i64,
-                                        i64, i64, f32, f32, p]
-        lib.sk_fwht_columnwise.argtypes = [p, p, u32, u32, p, p, p, p, i64,
-                                           i64, i64, i64, f32, f32, p]
+        lib.sk_fwht_rowwise.argtypes = [p, u32, u32, p, p, p, i64, i64, i64,
+                                        i64, f32, f32, p]
+        lib.sk_fwht_columnwise.argtypes = [p, u32, u32, p, p, p, p, i64, i64,
+                                           i64, i64, f32, f32, p]
         for fn in (lib.sk_fwht_rowwise, lib.sk_fwht_columnwise):
             fn.restype = ctypes.c_int
         _lib = lib
@@ -122,21 +111,19 @@ def srht_apply(key, A: torch.Tensor, s_dim: int,
                       dtype=torch.float32, device=A.device)
     if m == 0:
         return out
-    dkeys, host = launch.key_table(key_table, key, n, A.device)
-    ik0, ik1 = int(host[-1, 0]), int(host[-1, 1])
     D = torch.empty(n, dtype=torch.float32, device=A.device)
     idx = torch.empty(s_dim, dtype=torch.int32, device=A.device)
     fut_scale, samp_scale = scales(n, s_dim)
     lib = _load()
     if rowwise:
         launch.call(lib.sk_fwht_rowwise, A.device, A.data_ptr(),
-                    dkeys.data_ptr(), ik0, ik1, D.data_ptr(), idx.data_ptr(),
+                    *key_words(key), D.data_ptr(), idx.data_ptr(),
                     out.data_ptr(), m, n, s_dim, A.shape[1], fut_scale,
                     samp_scale)
     else:
         Y = torch.empty((n, m), dtype=torch.float32, device=A.device)
         launch.call(lib.sk_fwht_columnwise, A.device, A.data_ptr(),
-                    dkeys.data_ptr(), ik0, ik1, D.data_ptr(), idx.data_ptr(),
+                    *key_words(key), D.data_ptr(), idx.data_ptr(),
                     Y.data_ptr(), out.data_ptr(), m, n, s_dim, A.shape[1],
                     fut_scale, samp_scale)
     launches["fwht_rowwise" if rowwise else "fwht_columnwise"] += 1

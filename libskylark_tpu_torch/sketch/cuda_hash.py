@@ -21,11 +21,10 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors, randgen
-from libskylark_tpu_torch.base.context import fold_in
+from libskylark_tpu_torch.base.context import fold_in, key_words
 
 launches = {"hash_rowwise": 0, "hash_columnwise": 0}
 
@@ -66,17 +65,6 @@ def cwt_apply_plain(key, A: torch.Tensor, s_dim: int,
     return scatter(h, v, A, s_dim, rowwise)
 
 
-def key_table(key, n: int) -> np.ndarray:
-    """(ceil(n/CHUNK), 6) uint32: per stream chunk c, randint's split
-    pair (k_hi, k_lo) of the bucket stream's chunk key and the value
-    stream's chunk key — the keys ``stream_slice`` derives."""
-    count = -(-n // randgen.CHUNK)
-    hkeys = randgen.chunk_keys(fold_in(key, 0), 0, count)
-    vkeys = randgen.chunk_keys(fold_in(key, 1), 0, count)
-    k_hi, k_lo = randgen.split_keys(hkeys)
-    return np.concatenate([k_hi, k_lo, vkeys], axis=1)
-
-
 def supported(dtype) -> bool:
     """The kernel's dispatch rule: float32 operands."""
     return dtype == torch.float32
@@ -88,8 +76,8 @@ def _load():
         from libskylark_tpu_torch.kernels import build
 
         lib = build.load("hash_sketch")
-        sig = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4 + [
-            ctypes.c_uint32, ctypes.c_void_p]
+        p, u32 = ctypes.c_void_p, ctypes.c_uint32
+        sig = [p, u32, u32] + [p] * 4 + [ctypes.c_int64] * 4 + [u32, p]
         for fn in (lib.sk_hash_rowwise, lib.sk_hash_columnwise):
             fn.argtypes = sig
             fn.restype = ctypes.c_int
@@ -124,13 +112,12 @@ def cwt_apply(key, A: torch.Tensor, s_dim: int,
     if m == 0 or n == 0:
         return out.zero_()
     tiles = -(-n // TILE)
-    keys, _ = launch.key_table(key_table, key, n, A.device)
     off = torch.empty(tiles * (s_dim + 1), dtype=torch.int32, device=A.device)
     idx = torch.empty(tiles * TILE, dtype=torch.int32, device=A.device)
     val = torch.empty(tiles * TILE, dtype=torch.float32, device=A.device)
     lib = _load()
     fn = lib.sk_hash_rowwise if rowwise else lib.sk_hash_columnwise
-    launch.call(fn, A.device, A.data_ptr(), keys.data_ptr(), out.data_ptr(),
+    launch.call(fn, A.device, A.data_ptr(), *key_words(key), out.data_ptr(),
                 off.data_ptr(), idx.data_ptr(), val.data_ptr(), m, n, s_dim,
                 A.shape[1], randgen.randint_multiplier(s_dim))
     launches["hash_rowwise" if rowwise else "hash_columnwise"] += 1

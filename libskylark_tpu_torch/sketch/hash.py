@@ -9,7 +9,10 @@ scatter SA[h[j], :] += v[j]·A[j, :]. CWT on a float32 operand runs the
 CountSketch kernel's route (sketch/cuda_hash.py): kernel B2 on a CUDA
 tensor, its plain version on a CPU tensor. The other transforms and
 dtypes take the plain scatter (``index_add_``), which on the CPU adds in
-increasing coordinate order. Sparse operands are not ported yet.
+increasing coordinate order. On a CUDA tensor ``index_add_`` adds with
+atomics in no fixed order, so there MMT, WZT and a CWT of a dtype other
+than float32 are neither ordered like the reference's ``segment_sum`` nor
+bit-stable from run to run. Sparse operands are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ def cwt_serve_apply(key_data, A: torch.Tensor, *, s_dim: int,
     ((2,) uint32): the same streams as :meth:`HashTransform.bucket_indices`
     and :meth:`CWT.values` over the operand's extent, so zero padding past
     the transform's N leaves the result unchanged. Float32 takes the
-    kernel's route; other dtypes the plain scatter."""
+    kernel's route; other dtypes the plain scatter, unordered on CUDA."""
     if cuda_hash.supported(A.dtype):
         return cuda_hash.cwt_apply(key_data, A.contiguous(), s_dim, rowwise)
     return cuda_hash.cwt_apply_plain(key_data, A, s_dim, rowwise)
