@@ -7,9 +7,12 @@ rowwise and columnwise on 8192×8192 → 1024, approximate_svd of the SVD
 cell's 8192×8192 matrix at rank 64 (k' = 128, two power iterations),
 approximate_least_squares on 65536×512 with the JLT, the default FJLT and
 the CWT, solve_l2_sketched with FJLT(fut="wht") (the SRHT) on the same
-operands, and fast_least_squares (Blendenpik) on chip_smoke.py's 65536×512
-matrix with singular values over [1e-3, 1] — it prints one JSON line
-with:
+operands, fast_least_squares (Blendenpik) on chip_smoke.py's 65536×512
+matrix with singular values over [1e-3, 1], and config 3's random
+features on X 16384×4096 → 4096 (GaussianRFT with σ = 64, the Fastfood
+FastGaussianRFT, and GaussianQRFT, whose W is built once on the host, as
+its construction does, and moved to the card by every apply) — it prints
+one JSON line with:
 
 - ``warm_ms``: median host time of 5 calls after 2 warm-ups, each call
   ended by ``torch.cuda.synchronize()``. Every call of a cell draws its
@@ -92,9 +95,12 @@ def main() -> int:
     Asvd, _ = chip_smoke.svd_operand(torch)
     Als, b = chip_smoke.ls_operands(torch)
     Ak, bk = chip_smoke.kappa_operands(torch)
+    X = chip_smoke.make_operand(torch, chip_smoke.RFT_SHAPE, 12)
+    d, s = chip_smoke.RFT_SHAPE[1], chip_smoke.RFT_S
+    qrft = sk.GaussianQRFT(d, s, P.Context(62), sigma=64.0)
     params = nla.ApproximateSVDParams(num_iterations=2)
     # one advancing Context per cell: every call has a new key
-    ctx = {seed: P.Context(seed) for seed in range(42, 51)}
+    ctx = {seed: P.Context(seed) for seed in range(42, 62)}
     # LSQR alone, on Blendenpik's own preconditioner and tolerance
     accel = algorithms.AcceleratedParams()
     precond, _ = algorithms.build_blendenpik_precond(Ak, P.Context(50),
@@ -123,6 +129,13 @@ def main() -> int:
         "lsqr_blendenpik_precond_65536x512_kappa1e3":
             lambda: algorithms.lsqr(Ak, bk, params=lsqr_params,
                                     precond=precond),
+        "rft_gauss_16384x4096_to_4096":
+            lambda: sk.GaussianRFT(d, s, ctx[60], sigma=64.0).apply(
+                X, sk.ROWWISE),
+        "fastfood_16384x4096_to_4096":
+            lambda: sk.FastGaussianRFT(d, s, ctx[61], sigma=64.0).apply(
+                X, sk.ROWWISE),
+        "qrft_16384x4096_to_4096": lambda: qrft.apply(X, sk.ROWWISE),
     }
     for name, fn in cells.items():
         row = {"cell": name, "warm_ms": warm_ms(torch, fn)}

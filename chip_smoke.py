@@ -18,6 +18,10 @@ chip_smoke.py``. In order, each phase printing one JSON line:
               power of two (s = 300) and at ragged n;
             - fwht (B5): bit-equal on dyadic data (integers in [−8, 8],
               n = 4096, s = 256), ≤ 1e-4·max|plain| on Gaussian data;
+            - cos (B1-cos): random sc/sh, ≤ 1e-4·max|plain|;
+            - fastfood (B4, B4-split): ≤ 1e-4·max|plain| at 16384×4096 →
+              4096, d = 1000 → 3000 (padding, 3 blocks, truncation), an
+              odd log2 NB (d = 2048) and m = 37;
 4. main   — the main path at full size through the public entry points,
             with every launch counter set to 0 before and read after:
             JLT.apply both ways on 8192×8192 → 1024; approximate_svd of an
@@ -28,12 +32,19 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             (Blendenpik over the FJLT) and solve_l2_accelerated
             (simplified_blendenpik, lsrn) on a 65536×512 matrix with
             singular values over [1e-3, 1]; CWT and FJLT(fut="wht") applied
-            rowwise on 8192×8192 → 1024;
+            rowwise on 8192×8192 → 1024; random features (BASELINE config
+            3) on X 16384×4096 → 4096 through ml.kernels' create_rft:
+            Gaussian regular/fast (fused, split, columnwise)/quasi,
+            Laplacian, ExpSemigroup on |X|, Polynomial (PPT), Linear fast
+            (FJLT), and UST with and without replacement, each feature map
+            held to its kernel's Gram matrix on 512 sampled rows;
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes; every timed call of a kernel
             or a plain version draws a new key from one Context, as a
-            user solving again does;
+            user solving again does (the Fastfood kernel, whose streams
+            are made outside it, is timed on streams made beforehand, and
+            its wrapper with a new transform per call beside it);
 6. the ``{"kernels": [...]}`` line, the card's name and power limit, and
    ``{"ok": true, ...}`` as the last line.
 
@@ -266,11 +277,79 @@ def check_fwht(torch, P, cases) -> dict:
     return {(r["kernel"], tuple(r["shape"]), r["s_dim"]): r for r in results}
 
 
+def check_cos(torch, P, cases) -> dict:
+    """Phase 3, B1-cos: each case against rft_apply_plain on the same
+    inputs, with random per-feature scales and shifts (they are indexed by
+    the output column), inscale 1/√n and outscale √(2/s)."""
+    from libskylark_tpu_torch.base import randgen
+    from libskylark_tpu_torch.sketch import cuda_dense as cd
+
+    results = []
+    for i, (shape, s_dim) in enumerate(cases):
+        key = P.Context(400 + i).allocate().key
+        A = make_operand(torch, shape, 4000 + i)
+        g = torch.Generator(device="cuda").manual_seed(4100 + i)
+        sc = 0.5 + torch.rand(s_dim, generator=g, device="cuda")
+        sh = 2 * math.pi * torch.rand(s_dim, generator=g, device="cuda")
+        args = (key, randgen.Normal(), A, s_dim, 1.0 / math.sqrt(shape[1]),
+                math.sqrt(2.0 / s_dim), sc, sh)
+        got = cd.rft_rowwise_apply(*args)
+        want = cd.rft_apply_plain(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "cos kernel output not finite")
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        results.append({"kernel": "dense_rowwise_cos", "shape": list(shape),
+                        "s_dim": s_dim, "max_abs_err": err,
+                        "max_rel_err": rel, "ok": rel <= TOL})
+        del A
+    emit("check", tolerance=f"B1-cos: max|kernel-plain| <= {TOL} * "
+                            "max|plain|", cases=results)
+    bad = [r for r in results if not r["ok"]]
+    check(not bad, f"cos kernel disagrees with its plain version: {bad}")
+    return {(r["kernel"], tuple(r["shape"]), r["s_dim"]): r for r in results}
+
+
+def check_fastfood(torch, P, cases) -> dict:
+    """Phase 3, B4 and B4-split: each case's FastGaussianRFT (σ = √d)
+    through both variants against fastfood_plain, the torch chain, on the
+    same operand."""
+    from libskylark_tpu_torch import sketch as sk
+    from libskylark_tpu_torch.sketch import cuda_fastfood as cf
+
+    results = []
+    for i, (m, d, s_dim) in enumerate(cases):
+        T = sk.FastGaussianRFT(d, s_dim, P.Context(500 + i),
+                               sigma=math.sqrt(d))
+        A = make_operand(torch, (m, d), 5000 + i)
+        want = cf.fastfood_plain(T, A)
+        for name, variant in (("fastfood", "fused"),
+                              ("fastfood_split", "split")):
+            got = cf.features_rows(T, A, variant)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"{name} output not finite")
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            results.append({"kernel": name, "shape": [m, d], "s_dim": s_dim,
+                            "NB": T._NB, "blocks": T._numblks,
+                            "max_abs_err": err, "max_rel_err": rel,
+                            "ok": rel <= TOL})
+        del A, want
+    emit("check", tolerance=f"B4: max|kernel-plain| <= {TOL} * max|plain|",
+         cases=results)
+    bad = [r for r in results if not r["ok"]]
+    check(not bad, f"Fastfood kernel disagrees with its plain version: {bad}")
+    return {(r["kernel"], tuple(r["shape"]), r["s_dim"]): r for r in results}
+
+
 def counters():
     """Every kernel wrapper's launch counter dict."""
-    from libskylark_tpu_torch.sketch import cuda_dense, cuda_fwht, cuda_hash
+    from libskylark_tpu_torch.sketch import (cuda_dense, cuda_fastfood,
+                                             cuda_fwht, cuda_hash)
 
-    return [cuda_dense.launches, cuda_hash.launches, cuda_fwht.launches]
+    return [cuda_dense.launches, cuda_hash.launches, cuda_fwht.launches,
+            cuda_fastfood.launches]
 
 
 def launch_counts() -> dict:
@@ -398,11 +477,151 @@ def main_path(torch, P) -> dict:
         check(ratio <= 1 + 1e-3, f"{name} residual ratio {ratio} > 1 + 1e-3")
     del A, b
 
+    # 6. random features, BASELINE config 3
+    failed = random_features(torch, P, step, out)
+
     out["launches"] = launch_counts()
     emit("main", **out)
+    check(not failed, f"random features: {failed}")
     for k_, v in out["launches"].items():
         check(v > 0, f"kernel {k_} never launched on the main path")
     return out
+
+
+# Bounds of the random-feature check on 512 sampled rows, relative to
+# max|K|: (max |Z·Zᵀ − K|, mean |Z·Zᵀ − K|). The Monte-Carlo error at
+# S = 4096 features measured 0.047–0.082 and 0.007–0.013 (PERF.md). A
+# wrong scale or shift leaves them by far (no shifts add K(x + y), ≈ 0.37
+# off the diagonal here); a wrong permutation direction gives another
+# valid random map, which the comparison with the plain version catches.
+GRAM_BOUNDS = {
+    "rft_regular": (0.1, 0.02),
+    "rft_fast": (0.1, 0.02),
+    "rft_quasi": (0.1, 0.02),
+    "laplacian_regular": (0.1, 0.02),
+    "expsemigroup_regular": (0.1, 0.02),
+    "polynomial_ppt": (0.1, 0.02),
+    "linear_fast": (0.1, 0.02),
+}
+
+
+def random_features(torch, P, step, out) -> list:
+    """Main path, config 3: X (RFT_SHAPE) 16384×4096 Gaussian, S = 4096,
+    every feature map made by its kernel's create_rft and applied
+    rowwise. Each map's Z·Zᵀ on 512 sampled rows is held to the kernel's
+    Gram matrix, made in float64 on the card; the kernel-served Gaussian
+    maps are also held to their plain versions on the same X (the split
+    variant to the fused). Each kernel's parameter puts K's off-diagonal
+    between 0.1 and 0.9 of its diagonal on this data (Linear has none).
+    Returns the names of the maps outside GRAM_BOUNDS."""
+    from libskylark_tpu_torch import ml, sketch as sk
+    from libskylark_tpu_torch.sketch import cuda_dense as cd
+    from libskylark_tpu_torch.sketch import cuda_fastfood as cf
+
+    (m, d), s = RFT_SHAPE, RFT_S
+    X = make_operand(torch, (m, d), 12)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rows = torch.randperm(m, generator=g, device="cuda")[:512]
+    failed = []
+
+    def gram_check(name, kernel, Z, data):
+        check(tuple(Z.shape) == (m, s) and bool(torch.isfinite(Z).all()),
+              f"{name} output")
+        Zs = Z[rows].double()
+        K = kernel.gram(data[rows].double())
+        err = (Zs @ Zs.T - K).abs()
+        top = float(K.abs().max())
+        diag = float(K.diagonal().mean())
+        off = float((K.sum() - K.diagonal().sum()) / (512 * 511))
+        out[f"{name}_gram_max_err"] = float(err.max()) / top
+        out[f"{name}_gram_mean_err"] = float(err.mean()) / top
+        out[f"{name}_offdiag_over_diag"] = off / diag
+        bmax, bmean = GRAM_BOUNDS[name]
+        if (out[f"{name}_gram_max_err"] > bmax
+                or out[f"{name}_gram_mean_err"] > bmean):
+            failed.append(name)
+
+    def plain_check(name, Z, want):
+        out[f"{name}_rel_err_vs_plain"] = float((Z - want).abs().max()
+                                                / want.abs().max())
+        check(out[f"{name}_rel_err_vs_plain"] <= TOL, f"{name} vs plain")
+
+    gauss = ml.Gaussian(d, math.sqrt(d))
+    T = gauss.create_rft(s, P.Context(60), "regular")
+    Z = step("rft_regular", lambda: T.apply(X, sk.ROWWISE))
+    gram_check("rft_regular", gauss, Z, X)
+    plain_check("rft_regular", Z, cd.rft_apply_plain(
+        T.subkey(0), T.dist, X, s, T.inscale, T.outscale,
+        T.row_scales(device=X.device), T.shifts(device=X.device)))
+
+    Tf = gauss.create_rft(s, P.Context(61), "fast")
+    Z = step("rft_fast", lambda: Tf.apply(X, sk.ROWWISE))
+    gram_check("rft_fast", gauss, Z, X)
+    plain_check("rft_fast", Z, cf.fastfood_plain(Tf, X))
+    # the split variant, as the reference's features_rows(variant="split")
+    Zsplit = step("rft_fast_split",
+                  lambda: cf.features_rows(Tf, X, variant="split"))
+    plain_check("rft_fast_split", Zsplit, Z)
+    del Zsplit
+    # columnwise: a (d, m) operand, transposed on the way in and out
+    Xt = X.T.contiguous()
+    Zc = step("rft_fast_columnwise", lambda: Tf.apply(Xt, sk.COLUMNWISE))
+    check(tuple(Zc.shape) == (s, m) and bool(torch.equal(Zc.T, Z)),
+          "Fastfood columnwise is not the rowwise features transposed")
+    del Xt, Zc
+
+    Z = step("rft_quasi", lambda: gauss.create_rft(
+        s, P.Context(62), "quasi").apply(X, sk.ROWWISE))
+    gram_check("rft_quasi", gauss, Z, X)
+
+    # l1 distances average 1.128·d here: σ = 2d gives K ≈ 0.57
+    lap = ml.Laplacian(d, 2.0 * d)
+    Z = step("laplacian_regular", lambda: lap.create_rft(
+        s, P.Context(63), "regular").apply(X, sk.ROWWISE))
+    gram_check("laplacian_regular", lap, Z, X)
+
+    # on |X|, Σ√(x+y) exceeds Σ√(2x) by ≈ 0.051·d: β = 6e-4 gives a
+    # ratio ≈ 0.88 and keeps the features' variance in bounds
+    Xa = X.abs()
+    exps = ml.ExpSemigroup(d, 6e-4)
+    Z = step("expsemigroup_regular", lambda: exps.create_rft(
+        s, P.Context(64), "regular").apply(Xa, sk.ROWWISE))
+    gram_check("expsemigroup_regular", exps, Z, Xa)
+    del Xa
+
+    # (⟨x,y⟩/d + 1)²: diagonal 4, off-diagonal ≈ 1
+    poly = ml.Polynomial(d, q=2, c=1.0, gamma=1.0 / d)
+    Z = step("polynomial_ppt", lambda: poly.create_rft(
+        s, P.Context(65)).apply(X, sk.ROWWISE))
+    gram_check("polynomial_ppt", poly, Z, X)
+
+    lin = ml.Linear(d)
+    Z = step("linear_fast", lambda: lin.create_rft(
+        s, P.Context(66), "fast").apply(X, sk.ROWWISE))
+    gram_check("linear_fast", lin, Z, X)
+    del Z
+
+    for name, replace in (("ust_replace", True), ("ust_no_replace", False)):
+        Tu = sk.UST(d, d // 4, P.Context(67), replace=replace)
+        Y = step(name, lambda: Tu.apply(X, sk.ROWWISE))
+        idx = Tu.sample_indices(X.device)
+        check(bool(torch.equal(Y, X[:, idx])) and int(idx.min()) >= 0
+              and int(idx.max()) < d, f"{name} is not a column sample")
+        if not replace:
+            check(int(torch.unique(idx).numel()) == d // 4,
+                  f"{name} repeats a column")
+    del X
+
+    by_step = out["launches_by_step"]
+    check(by_step["rft_regular"] == {"dense_rowwise_cos": 1},
+          f"GaussianRFT launches {by_step['rft_regular']}")
+    check(by_step["rft_fast"] == {"fastfood": 1},
+          f"FastGaussianRFT launches {by_step['rft_fast']}")
+    check(by_step["rft_fast_split"] == {"fastfood_split": 1},
+          f"split launches {by_step['rft_fast_split']}")
+    check(by_step["polynomial_ppt"] == {"hash_columnwise": 2},
+          f"PPT launches {by_step['polynomial_ppt']}")
+    return failed
 
 
 def event_ms(torch, fn, reps=10, warmup=3) -> float:
@@ -556,6 +775,114 @@ def time_fwht(torch, P, shapes, peaks: dict) -> list[dict]:
     return rows
 
 
+def time_cos(torch, P, peaks: dict) -> list[dict]:
+    """Phase 5, B1-cos at config 3's shape: kernel, plain version, and the
+    torch chain on S, sc and sh made beforehand (torch.matmul, TF32 off,
+    then the epilogue's elementwise ops and torch.cos)."""
+    from libskylark_tpu_torch.base import randgen
+    from libskylark_tpu_torch.sketch import cuda_dense as cd
+    from libskylark_tpu_torch.sketch.dense import virtual_panel
+
+    (m, n), s_dim = RFT_SHAPE, RFT_S
+    A = make_operand(torch, (m, n), 14)
+    dist, ctx = randgen.Normal(), P.Context(16)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    sc = torch.ones(s_dim, device="cuda")
+    sh = 2 * math.pi * torch.rand(s_dim, generator=g, device="cuda")
+    inscale, outscale = 1.0 / math.sqrt(n), math.sqrt(2.0 / s_dim)
+
+    def args():
+        return (ctx.allocate().key, dist, A, s_dim, inscale, outscale, sc,
+                sh)
+
+    ms = event_ms(torch, lambda: cd.rft_rowwise_apply(*args()))
+    dev_ms = profiled_device_ms(torch, lambda: cd.rft_rowwise_apply(*args()))
+    plain_ms = event_ms(torch, lambda: cd.rft_apply_plain(*args()))
+    S = virtual_panel(ctx.allocate().key, dist, s_dim, 0, n, 1.0,
+                      device=A.device)
+    library_ms = event_ms(torch, lambda: outscale * torch.cos(
+        torch.matmul(A, S.T) * inscale * sc + sh))
+    del A, S
+    # 2·m·n·s flops on the CUDA cores (the epilogue's m·s cos aside); A
+    # read once, the features written once
+    return [{"kernel": "dense_rowwise_cos", "use": "GaussianRFT.apply "
+             "rowwise", "main_path": True, "shape": [m, n], "s_dim": s_dim,
+             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+             "library_ms": library_ms,
+             **bound(2.0 * m * n * s_dim, peaks["fp32_flops"],
+                     4.0 * (m * n + m * s_dim), peaks)}]
+
+
+def wht_chain(torch, A, streams, scale, s_dim):
+    """The Fastfood chain from torch calls on streams made beforehand:
+    the kron two-torch.matmul WHT (TF32 off), gather, torch.cos."""
+    bdiag, perms, gdiag, smdiag, sh = streams
+    nb, NB = bdiag.shape
+    k = NB.bit_length() - 1
+    a, b = 1 << (k - k // 2), 1 << (k // 2)
+    Ha, Hb = (torch.ones(1, 1, device=A.device), ) * 2
+    while Ha.shape[0] < a:
+        Ha = torch.cat([torch.cat([Ha, Ha], 1), torch.cat([Ha, -Ha], 1)])
+    while Hb.shape[0] < b:
+        Hb = torch.cat([torch.cat([Hb, Hb], 1), torch.cat([Hb, -Hb], 1)])
+
+    def wht(W):
+        return torch.matmul(torch.matmul(Ha, W.reshape(nb, -1, a, b)),
+                            Hb).reshape(W.shape)
+
+    m = A.shape[0]
+    W = wht(bdiag[:, None, :] * A[None])
+    W = wht(gdiag[:, None, :] * torch.gather(
+        W, 2, perms[:, None, :].expand(nb, m, NB)))
+    F = scale * torch.cos(smdiag[:, None, :] * W + sh[:, None, :])
+    return F.permute(1, 0, 2).reshape(m, nb * NB)[:, :s_dim]
+
+
+def time_fastfood(torch, P, peaks: dict) -> list[dict]:
+    """Phase 5, B4 and B4-split at config 3's shape. ``ms``/``device_ms``:
+    the kernel on streams made beforehand; ``wrapper_ms``: features_rows
+    with a new transform (new streams) per call; ``plain_ms``:
+    fastfood_plain with a new transform per call; ``library_ms``:
+    wht_chain on the streams made beforehand."""
+    from libskylark_tpu_torch import sketch as sk
+    from libskylark_tpu_torch.sketch import cuda_fastfood as cf
+
+    (m, d), s_dim = RFT_SHAPE, RFT_S
+    A = make_operand(torch, (m, d), 15)
+    ctx = P.Context(18)
+
+    def transform():
+        return sk.FastGaussianRFT(d, s_dim, ctx, sigma=math.sqrt(d))
+
+    T0 = transform()
+    streams = cf.kernel_streams(T0, A.device)
+    library_ms = event_ms(torch, lambda: wht_chain(torch, A, streams,
+                                                   T0.scale, s_dim))
+    plain_ms = event_ms(torch, lambda: cf.fastfood_plain(transform(), A))
+    rows = []
+    for name, variant in (("fastfood", "fused"), ("fastfood_split", "split")):
+        ms = event_ms(torch, lambda: cf.apply_streams(A, streams, T0.scale,
+                                                      s_dim, variant))
+        dev_ms = profiled_device_ms(torch, lambda: cf.apply_streams(
+            A, streams, T0.scale, s_dim, variant))
+        wrapper_ms = event_ms(torch, lambda: cf.features_rows(
+            transform(), A, variant))
+        # 2·m·NB·log2(NB) adds per block at the fp32 add rate; A read
+        # once, the features written once
+        rows.append({"kernel": name, "use": "FastGaussianRFT.apply rowwise",
+                     "main_path": True, "shape": [m, d], "s_dim": s_dim,
+                     "ms": ms, "device_ms": dev_ms, "wrapper_ms": wrapper_ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     **bound(2.0 * m * T0._NB * math.log2(T0._NB)
+                             * T0._numblks, peaks["fp32_flops"] / 2,
+                             4.0 * (m * d + m * s_dim), peaks)})
+    del A
+    return rows
+
+
+# config 3 (BASELINE.md): 16384 rows, d = 4096 → S = 4096
+RFT_SHAPE, RFT_S = (16384, 4096), 4096
+
 # (kernel, use, A's shape, s_dim); A is (m, N) rowwise, (N, m) columnwise
 MAIN_SHAPES = [
     ("dense_rowwise", "JLT.apply rowwise", (8192, 8192), 1024),
@@ -607,6 +934,12 @@ FWHT_CASES = [
     ("fwht_columnwise", (65536, 513), 2048, False),
     ("fwht_rowwise", (64, 65536), 2048, False)]
 
+COS_CASES = [(RFT_SHAPE, RFT_S), ((37, 700), 48), ((1000, 3000), 300)]
+# (m, d, S): config 3; NB = 1024 with 3 blocks, padding and truncation;
+# odd log2 NB; few rows
+FASTFOOD_CASES = [(*RFT_SHAPE, RFT_S), (512, 1000, 3000), (512, 2048, 2048),
+                  (37, 4096, 4096)]
+
 CSRC = "libskylark_tpu_torch/csrc/"
 # kernel: (source, the TPU kernel it replaces)
 KERNELS = {
@@ -622,6 +955,12 @@ KERNELS = {
                      "libskylark_tpu/sketch/pallas_fwht.py:314"),
     "fwht_columnwise": (CSRC + "fwht_sketch.cu",
                         "libskylark_tpu/sketch/pallas_fwht.py:314"),
+    "dense_rowwise_cos": (CSRC + "dense_sketch.cu",
+                          "libskylark_tpu/sketch/pallas_dense.py:396"),
+    "fastfood": (CSRC + "fastfood.cu",
+                 "libskylark_tpu/sketch/pallas_fastfood.py:166"),
+    "fastfood_split": (CSRC + "fastfood.cu",
+                       "libskylark_tpu/sketch/pallas_fastfood.py:201"),
 }
 
 
@@ -659,11 +998,14 @@ def main() -> int:
                if k[3] == "normal"}
     checked.update(check_hash(torch, P, HASH_CASES))
     checked.update(check_fwht(torch, P, FWHT_CASES))
+    checked.update(check_cos(torch, P, COS_CASES))
+    checked.update(check_fastfood(torch, P, FASTFOOD_CASES))
     main = main_path(torch, P)
     rows = (time_kernels(torch, P, MAIN_SHAPES, True, peaks)
             + time_kernels(torch, P, SPLIT_LS_SHAPES, False, peaks)
             + time_hash(torch, P, HASH_SHAPES, peaks)
-            + time_fwht(torch, P, FWHT_SHAPES, peaks))
+            + time_fwht(torch, P, FWHT_SHAPES, peaks)
+            + time_cos(torch, P, peaks) + time_fastfood(torch, P, peaks))
     emit("time", method="ms: CUDA events around each of 10 back-to-back "
                         "calls after 3 warm-ups, median; device_ms: the "
                         "kernels' own time per call under torch.profiler, "
@@ -675,7 +1017,13 @@ def main() -> int:
                           "beforehand: the scatter alone",
                   "fwht": "D multiply, kron two-torch.matmul WHT (TF32 off), "
                           "index_select and scale, D and idx made "
-                          "beforehand"},
+                          "beforehand",
+                  "cos": "torch.matmul against S made beforehand (TF32 "
+                         "off), then the epilogue's elementwise ops and "
+                         "torch.cos on sc and sh made beforehand",
+                  "fastfood": "the chain from torch calls on streams made "
+                              "beforehand: kron two-torch.matmul WHT (TF32 "
+                              "off), gather, torch.cos"},
          rows=rows)
 
     kernels = []

@@ -2,8 +2,9 @@
 
 Randomized numerical linear algebra on an NVIDIA Hopper GPU: seeded
 sketches whose operator is a pure function of (seed, counter), randomized
-SVD and sketch-and-solve least squares. The module tree mirrors the JAX
-package's (base/, sketch/, nla/, algorithms/); hand-written CUDA kernels
+SVD, sketch-and-solve least squares, and kernel random feature maps. The
+module tree mirrors the JAX package's (base/, sketch/, nla/, algorithms/,
+ml/); hand-written CUDA kernels
 live in csrc/ and are built by kernels/build.py. The package imports
 torch and numpy only.
 
@@ -26,9 +27,9 @@ from libskylark_tpu_torch.base.device import (  # noqa: E402
     default_device,
     set_default_device,
 )
-from libskylark_tpu_torch import algorithms, nla, sketch  # noqa: E402
+from libskylark_tpu_torch import algorithms, ml, nla, sketch  # noqa: E402
 
 __all__ = [
     "Context", "errors", "default_device", "set_default_device",
-    "algorithms", "nla", "sketch", "__version__",
+    "algorithms", "ml", "nla", "sketch", "__version__",
 ]

@@ -71,6 +71,10 @@ class Allocation:
             k = fold_in(k, p)
         return k
 
+    def child(self, tag: int) -> "Allocation":
+        """The nested sub-allocation ``tag`` (e.g. PPT's i-th CWT)."""
+        return Allocation(self.seed, self.counter, self.path + (int(tag),))
+
     def to_dict(self) -> dict[str, Any]:
         d = {"seed": int(self.seed), "counter": int(self.counter)}
         if self.path:

@@ -14,10 +14,14 @@ Two formats, both pure functions of the allocation key:
   block_cols/2 and counter c[r, j] = r·half + j, Threefry of (c, c +
   rows·half) under ``chunk_key(key, b)`` gives two words, column j and
   column half + j of block b, mapped by the distribution's
-  ``from_bits``.
+  ``from_bits``. A distribution without a bit transform (StandardLevy)
+  keeps the legacy format: block b is its jax.random sampler's
+  ``sample(chunk_key(key, b), (rows, block_cols))``, drawn over the
+  block's flat index.
 
 The chunk key is ``chunk_key(key, c)`` = fold_in(fold_in(key, c>>31),
-c & (2^31−1)) in both. StandardLevy and Gamma are not ported yet.
+c & (2^31−1)) in both. :func:`permutation` is jax.random.permutation's
+sort shuffle. Gamma is not ported yet.
 """
 
 from __future__ import annotations
@@ -250,12 +254,26 @@ class Exponential(Distribution):
         return -torch.log1p(-u) / self.rate
 
 
+@dataclasses.dataclass(frozen=True)
+class StandardLevy(Distribution):
+    """Standard Levy, 1/Z² with Z ~ N(0, 1): jax.random.normal's draw,
+    then 1/max(z², tiny). No bit transform: its dense blocks take the
+    legacy format."""
+
+    name = "standard_levy"
+
+    def sample_chunks(self, keys, length):
+        z = Normal().sample_chunks(keys, length)
+        return 1.0 / torch.clamp_min(z * z, _TINY)
+
+
 _SQRT2 = float(np.float32(np.sqrt(2)))
+_TINY = float(np.finfo(np.float32).tiny)
 _PI = float(np.float32(np.pi))
 
 _DIST_REGISTRY = {cls.name: cls
                   for cls in [Normal, Uniform, UniformInt, Cauchy,
-                              Rademacher, Exponential]}
+                              Rademacher, StandardLevy, Exponential]}
 
 
 # ---------------------------------------------------------------------------
@@ -272,6 +290,22 @@ def stream_chunks(key, dist: Distribution, first_cid: int, n_chunks: int,
         chunk_keys(key, first_cid, n_chunks).astype(np.int64)).to(device)
     vals = dist.sample_chunks(keys, CHUNK).reshape(-1)
     return vals if dtype is None else vals.to(dtype)
+
+
+def permutation(key, n: int, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` as an int64 tensor: arange(n)
+    reordered by ceil(3·ln n / ln(2³²−1)) rounds (float64, as JAX
+    computes it) of a stable sort on 32-bit keys, each round's keys
+    ``bits(subkey, (n,))`` with (key, subkey) = split(key)."""
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(bits(sub, n, device), stable=True).indices
+        x = x[order]
+    return x
 
 
 def stream_slice(key, dist: Distribution, start: int, stop: int, dtype=None,
@@ -305,21 +339,23 @@ def dense_panel(
 ) -> torch.Tensor:
     """Columns [col_start, col_stop) of the virtual (rows × n) matrix in
     the dense-block format, generated on ``device`` (CPU by default)."""
-    if type(dist).from_bits is Distribution.from_bits or block_cols % 2:
-        raise errors.NotImplementedYetError(
-            f"dense blocks of {dist.name} need the jax.random samplers, "
-            "which are not ported yet")
     b0 = col_start // block_cols
     b1 = -(-col_stop // block_cols)
-    half = block_cols // 2
     keys = torch.from_numpy(
         chunk_keys(key, b0, b1 - b0).astype(np.int64)).to(device)
-    k0 = keys[:, 0].view(-1, 1, 1)
-    k1 = keys[:, 1].view(-1, 1, 1)
-    c = (torch.arange(rows, dtype=torch.int64, device=device)[:, None] * half
-         + torch.arange(half, dtype=torch.int64, device=device)[None, :])
-    w0, w1 = tf.threefry2x32(k0, k1, c, (c + rows * half) & tf.MASK32)
-    blocks = torch.cat([dist.from_bits(w0), dist.from_bits(w1)], dim=2)
+    if type(dist).from_bits is Distribution.from_bits or block_cols % 2:
+        # the legacy format: the sampler over each block's flat index
+        blocks = dist.sample_chunks(keys, rows * block_cols).reshape(
+            b1 - b0, rows, block_cols)
+    else:
+        half = block_cols // 2
+        k0 = keys[:, 0].view(-1, 1, 1)
+        k1 = keys[:, 1].view(-1, 1, 1)
+        c = (torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+             * half
+             + torch.arange(half, dtype=torch.int64, device=device)[None, :])
+        w0, w1 = tf.threefry2x32(k0, k1, c, (c + rows * half) & tf.MASK32)
+        blocks = torch.cat([dist.from_bits(w0), dist.from_bits(w1)], dim=2)
     panel = blocks.permute(1, 0, 2).reshape(rows, (b1 - b0) * block_cols)
     lo = col_start - b0 * block_cols
     return panel[:, lo:lo + col_stop - col_start].to(dtype)

@@ -4,6 +4,10 @@
 //   rowwise    out = scale * A * S^T   (_fused_call -> _kernel / _kernel_pipe)
 //   columnwise out = scale * S * A     (_fused_call_cw -> _kernel_cw /
 //                                        _kernel_pipe_cw)
+//   rowwise with the random-feature epilogue (_fused_call_cos ->
+//   _kernel_cos / _kernel_pipe_cos, _apply_epilogue)
+//              out = outscale * cos((A * S^T) * inscale * sc + sh)
+//   where sc and sh are per-feature vectors indexed by the output column.
 // S (s_dim x n) is the virtual dense-block operator of base/randgen.py. It
 // is generated here, tile by tile, from the transform's 2-word key and
 // never stored: each block derives block k's key chunk_key(key, k) on the
@@ -29,6 +33,11 @@
 // reduction crosses blocks. Ragged edges are masked (A reads as 0 past m
 // and n) instead of padded. The "f32" and "bf16x3" regimes both run as
 // fp32 FMA here.
+//
+// The cos epilogue is applied at the store, in _apply_epilogue's operation
+// order with every product and sum rounded on its own (no FMA contraction)
+// and the accurate cosf (never build with --use_fast_math: phases reach
+// O(10)). The feature matrix is written once and never read back.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -127,11 +136,12 @@ __device__ __forceinline__ void fma_tile(const float (&X)[kBK][TILE + kPad],
 // tile is held to 64 registers so that four blocks fit on an SM: a thin
 // output's grid (e.g. 9 x 32 blocks for least squares' S * [A | b]) then
 // runs in one wave instead of two.
-template <int TILE, bool ROWWISE, int DIST>
+template <int TILE, bool ROWWISE, int DIST, bool COS>
 __global__ void __launch_bounds__(kThreads, TILE == 64 ? 4 : 2)
 dense_sketch_kernel(const float* __restrict__ A, uint32_t key0, uint32_t key1,
                     float* __restrict__ out, int64_t m, int64_t n, int s_dim,
-                    int64_t ld, float scale) {
+                    int64_t ld, float scale, const float* __restrict__ sc,
+                    const float* __restrict__ sh, float outscale) {
   constexpr int MICRO = TILE / 16;
   __shared__ __align__(16) float As[kBK][TILE + kPad];  // [k][index into m]
   __shared__ __align__(16) float Ss[kBK][TILE + kPad];  // [k][operator row]
@@ -210,29 +220,37 @@ dense_sketch_kernel(const float* __restrict__ A, uint32_t key0, uint32_t key1,
 #pragma unroll
     for (int j = 0; j < MICRO; ++j) {
       const int64_t col = q0 + (j / 4) * 64 + tx * 4 + (j % 4);
-      if (col < cols) out[row * cols + col] = scale * acc[i][j];
+      if (col >= cols) continue;
+      if (COS) {
+        // outscale * cos(acc * inscale * sc + sh), scale being inscale
+        const float z = __fadd_rn(__fmul_rn(__fmul_rn(acc[i][j], scale), sc[col]), sh[col]);
+        out[row * cols + col] = __fmul_rn(outscale, cosf(z));
+      } else {
+        out[row * cols + col] = scale * acc[i][j];
+      }
     }
   }
 }
 
-template <int TILE, bool ROWWISE>
+template <int TILE, bool ROWWISE, bool COS>
 cudaError_t launch_tile(const float* A, uint32_t key0, uint32_t key1, float* out, int64_t m,
                         int64_t n, int64_t s_dim, int64_t ld, int dist, float scale,
+                        const float* sc, const float* sh, float outscale,
                         cudaStream_t stream) {
   const dim3 grid((unsigned)((m + TILE - 1) / TILE), (unsigned)((s_dim + TILE - 1) / TILE));
   const int s = (int)s_dim;
   switch (dist) {
     case kNormal:
-      dense_sketch_kernel<TILE, ROWWISE, kNormal>
-          <<<grid, kThreads, 0, stream>>>(A, key0, key1, out, m, n, s, ld, scale);
+      dense_sketch_kernel<TILE, ROWWISE, kNormal, COS><<<grid, kThreads, 0, stream>>>(
+          A, key0, key1, out, m, n, s, ld, scale, sc, sh, outscale);
       break;
     case kCauchy:
-      dense_sketch_kernel<TILE, ROWWISE, kCauchy>
-          <<<grid, kThreads, 0, stream>>>(A, key0, key1, out, m, n, s, ld, scale);
+      dense_sketch_kernel<TILE, ROWWISE, kCauchy, COS><<<grid, kThreads, 0, stream>>>(
+          A, key0, key1, out, m, n, s, ld, scale, sc, sh, outscale);
       break;
     case kRademacher:
-      dense_sketch_kernel<TILE, ROWWISE, kRademacher>
-          <<<grid, kThreads, 0, stream>>>(A, key0, key1, out, m, n, s, ld, scale);
+      dense_sketch_kernel<TILE, ROWWISE, kRademacher, COS><<<grid, kThreads, 0, stream>>>(
+          A, key0, key1, out, m, n, s, ld, scale, sc, sh, outscale);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -243,12 +261,13 @@ cudaError_t launch_tile(const float* A, uint32_t key0, uint32_t key1, float* out
 // 128-wide tiles when they give at least two blocks per SM, else 64-wide
 // ones (a thin output, e.g. the SVD range sketch or least squares' S*A,
 // would leave most SMs idle). The tile changes no sum order.
-template <bool ROWWISE>
+template <bool ROWWISE, bool COS>
 cudaError_t launch(const float* A, uint32_t key0, uint32_t key1, float* out, int64_t m, int64_t n,
-                   int64_t s_dim, int64_t ld, int dist, float scale, cudaStream_t stream) {
+                   int64_t s_dim, int64_t ld, int dist, float scale, const float* sc,
+                   const float* sh, float outscale, cudaStream_t stream) {
   if (m <= 0 || n <= 0 || s_dim <= 0 || ld < (ROWWISE ? n : m) ||
       (s_dim + 63) / 64 > 65535 || (m + 63) / 64 > 0x7FFFFFFF ||
-      s_dim * kHalf > 0xFFFFFFFFLL)
+      s_dim * kHalf > 0xFFFFFFFFLL || (COS && (sc == nullptr || sh == nullptr)))
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -257,8 +276,10 @@ cudaError_t launch(const float* A, uint32_t key0, uint32_t key1, float* out, int
   if (err != cudaSuccess) return err;
   const int64_t big_tiles = ((m + 127) / 128) * ((s_dim + 127) / 128);
   if (big_tiles >= 2 * (int64_t)sms)
-    return launch_tile<128, ROWWISE>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, stream);
-  return launch_tile<64, ROWWISE>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, stream);
+    return launch_tile<128, ROWWISE, COS>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, sc,
+                                          sh, outscale, stream);
+  return launch_tile<64, ROWWISE, COS>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, sc, sh,
+                                       outscale, stream);
 }
 
 }  // namespace
@@ -266,11 +287,21 @@ cudaError_t launch(const float* A, uint32_t key0, uint32_t key1, float* out, int
 extern "C" int sk_dense_rowwise(const float* A, uint32_t key0, uint32_t key1, float* out,
                                 int64_t m, int64_t n, int64_t s_dim, int64_t ld,
                                 int dist, float scale, cudaStream_t stream) {
-  return (int)launch<true>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, stream);
+  return (int)launch<true, false>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, nullptr,
+                                  nullptr, 0.0f, stream);
 }
 
 extern "C" int sk_dense_columnwise(const float* A, uint32_t key0, uint32_t key1, float* out,
                                    int64_t m, int64_t n, int64_t s_dim, int64_t ld,
                                    int dist, float scale, cudaStream_t stream) {
-  return (int)launch<false>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, stream);
+  return (int)launch<false, false>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, nullptr,
+                                   nullptr, 0.0f, stream);
+}
+
+extern "C" int sk_dense_rowwise_cos(const float* A, uint32_t key0, uint32_t key1, const float* sc,
+                                    const float* sh, float* out, int64_t m, int64_t n,
+                                    int64_t s_dim, int64_t ld, int dist, float inscale,
+                                    float outscale, cudaStream_t stream) {
+  return (int)launch<true, true>(A, key0, key1, out, m, n, s_dim, ld, dist, inscale, sc, sh,
+                                 outscale, stream);
 }

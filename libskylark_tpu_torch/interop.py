@@ -2,7 +2,8 @@
 
 The system has no weights: a transform's state is its allocation (seed,
 counter, path), N, S and extra hyper-parameters (CT's C), all in its JSON
-form, plus the raw (2,) uint32 key data the serve path passes around.
+form, plus the raw (2,) uint32 key data the serve path passes around; a
+kernel's is its type, N and parameters, in its JSON form.
 These helpers take what ``libskylark_tpu`` writes and return the port's
 objects; nothing here imports the JAX package.
 """
@@ -16,6 +17,7 @@ import numpy as np
 
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.context import Context
+from libskylark_tpu_torch.ml.kernels import Kernel, deserialize_kernel
 from libskylark_tpu_torch.sketch.transform import (SketchTransform,
                                                    deserialize_sketch)
 
@@ -23,6 +25,11 @@ from libskylark_tpu_torch.sketch.transform import (SketchTransform,
 def transform_from_reference(d: Union[dict[str, Any], str]) -> SketchTransform:
     """The port's transform for a reference ``to_dict()``/``to_json()``."""
     return deserialize_sketch(d)
+
+
+def kernel_from_reference(d: Union[dict[str, Any], str]) -> Kernel:
+    """The port's kernel for a reference ``Kernel.to_dict()``/JSON."""
+    return deserialize_kernel(d)
 
 
 def key_from_numpy(kd) -> np.ndarray:

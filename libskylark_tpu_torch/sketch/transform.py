@@ -128,6 +128,12 @@ class SketchTransform:
             self._alloc = context.allocate()
         else:
             self._alloc = context
+        self._build()
+
+    def _build(self) -> None:
+        """Derive what the transform needs from its dimensions and
+        allocation (block geometry, sub-transforms, host sample arrays).
+        Default: nothing."""
 
     @property
     def input_dim(self) -> int:

@@ -1,0 +1,47 @@
+"""Uniform sampling transform (UST): S is a row-sampling operator (the
+port of libskylark_tpu/sketch/ust.py).
+
+With replacement: S_dim independent uniform indices (sub-stream 0).
+Without: the first S_dim entries of ``randgen.permutation`` of [0, N)
+under sub-stream 1, jax.random.permutation's own shuffle.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from libskylark_tpu_torch.base import randgen
+from libskylark_tpu_torch.sketch.transform import SketchTransform, register
+
+
+@register
+class UST(SketchTransform):
+    sketch_type = "UST"
+
+    def __init__(self, N, S, context, replace: bool = True):
+        self._replace = bool(replace)
+        super().__init__(N, S, context)
+
+    def sample_indices(self, device=None) -> torch.Tensor:
+        """The S_dim sampled coordinates, int64."""
+        if self._replace:
+            return randgen.stream_slice(
+                self.subkey(0), randgen.UniformInt(0, self._N - 1), 0,
+                self._S, device=device)
+        return randgen.permutation(self.subkey(1), self._N,
+                                   device)[: self._S]
+
+    def _apply_columnwise(self, A: torch.Tensor) -> torch.Tensor:
+        return A.index_select(0, self.sample_indices(A.device))
+
+    def _apply_rowwise(self, A: torch.Tensor) -> torch.Tensor:
+        return A.index_select(1, self.sample_indices(A.device))
+
+    def _extra_params(self) -> dict[str, Any]:
+        return {"replace": self._replace}
+
+    @classmethod
+    def _from_parts(cls, N, S, alloc, d):
+        return cls(N, S, alloc, replace=bool(d.get("replace", True)))

@@ -88,7 +88,8 @@ def test_plain_version_matches_interpreted_pallas_kernel(family, rowwise, n,
     got = wrapper(T.allocation.key, T.dist, torch.from_numpy(A), s, T.scale)
     _close(got, want)
     assert cuda_dense.launches == {"dense_rowwise": 0,
-                                   "dense_columnwise": 0}
+                                   "dense_columnwise": 0,
+                                   "dense_rowwise_cos": 0}
 
 
 @pytest.mark.parametrize("rowwise", [True, False])
@@ -148,7 +149,8 @@ def test_cpu_tensor_leaves_launch_counters_at_zero():
     T.apply(_operand(512, 4, rowwise=False), sk.COLUMNWISE, device="cpu")
     T.apply(_operand(512, 4, rowwise=True), sk.ROWWISE, device="cpu")
     assert cuda_dense.launches == {"dense_rowwise": 0,
-                                   "dense_columnwise": 0}
+                                   "dense_columnwise": 0,
+                                   "dense_rowwise_cos": 0}
 
 
 def test_dispatch_rule_is_the_reference_rule():
@@ -232,4 +234,5 @@ def test_cuda_device_without_a_card_raises():
     with pytest.raises(errors.UnsupportedError):
         T.apply(A, sk.COLUMNWISE)  # the package default is "cuda"
     assert cuda_dense.launches == {"dense_rowwise": 0,
-                                   "dense_columnwise": 0}
+                                   "dense_columnwise": 0,
+                                   "dense_rowwise_cos": 0}

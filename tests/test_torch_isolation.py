@@ -43,7 +43,10 @@ def test_port_and_chip_smoke_import_no_jax():
                 "sketch.hash", "sketch.cuda_fwht", "sketch.fjlt", "sketch.fut",
                 "kernels.build", "kernels.launch", "nla.svd",
                 "nla.least_squares", "algorithms.regression",
-                "algorithms.krylov", "algorithms.precond", "interop"):
+                "algorithms.krylov", "algorithms.precond", "interop",
+                "sketch.rft", "sketch.frft", "sketch.cuda_fastfood",
+                "sketch.qrft", "sketch.ppt", "sketch.ust", "base.quasirand",
+                "base.distance", "ml.kernels"):
         assert f"libskylark_tpu_torch.{mod}" in report["modules"]
 
 

@@ -4,10 +4,15 @@
 same Threefry bits. Integer-only maps are bit-equal (Rademacher, Uniform);
 Normal differs only where the two erfinv implementations round their
 log1p differently (max |Δ| ≤ 1e-5); Cauchy only where the two tan
-implementations round differently (relative ≤ 1e-5).
+implementations round differently (relative ≤ 1e-5). StandardLevy, which
+has no bit transform, keeps the legacy format (jax.random's normal over
+each block's flat index, then 1/max(z², tiny)): relative ≤ 1e-5.
+``permutation`` is bit-equal to ``jax.random.permutation``, on both sides
+of the change from one sort round to two (n = 1625, 1626).
 """
 
 import jax.numpy as jnp
+import jax.random as jr
 import numpy as np
 import pytest
 import torch
@@ -25,6 +30,7 @@ DISTS = {
     "cauchy": (jrandgen.Cauchy(), randgen.Cauchy()),
     "rademacher": (jrandgen.Rademacher(), randgen.Rademacher()),
     "uniform": (jrandgen.Uniform(-2.0, 3.0), randgen.Uniform(-2.0, 3.0)),
+    "standard_levy": (jrandgen.StandardLevy(), randgen.StandardLevy()),
 }
 
 
@@ -82,4 +88,34 @@ def test_distribution_dict_round_trip_and_unported():
     assert (DISTS["cauchy"][0].to_dict()
             == DISTS["cauchy"][1].to_dict())
     with pytest.raises(errors.NotImplementedYetError):
-        randgen.Distribution.from_dict({"distribution": "standard_levy"})
+        randgen.Distribution.from_dict({"distribution": "gamma"})
+
+
+@pytest.mark.parametrize("n", [1, 2, 127, 1625, 1626, 4096, 5000])
+def test_permutation_matches_reference(n):
+    want = np.asarray(jr.permutation(JAllocation(5, 2).key, n))
+    got = randgen.permutation(Allocation(5, 2).key, n)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert sorted(got.tolist()) == list(range(n))
+
+
+def test_permutation_under_a_folded_key_matches_reference():
+    # Fastfood's per-block keys: fold_in(subkey(3), i)
+    jkey = jr.fold_in(JAllocation(9, 4, (3,)).key, 2)
+    key = Allocation(9, 4, (3,)).key
+    from libskylark_tpu_torch.base.context import fold_in
+
+    np.testing.assert_array_equal(
+        randgen.permutation(fold_in(key, 2), 777).numpy(),
+        np.asarray(jr.permutation(jkey, 777)))
+
+
+def test_standard_levy_stream_matches_reference():
+    want = np.asarray(jrandgen.stream_slice(
+        JAllocation(4, 1).key, jrandgen.StandardLevy(), 100, 9000))
+    got = randgen.stream_slice(Allocation(4, 1).key, randgen.StandardLevy(),
+                               100, 9000).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert (np.abs(got - want) / np.abs(want)).max() <= CAUCHY_REL_TOL
+    assert got.min() > 0
