@@ -30,6 +30,13 @@ one JSON line with:
   per iteration: the host's launches and the stopping test's read, which
   synchronises once per iteration.
 
+Then one ``serve-<bucket>`` line per bucket of chip_smoke.py's serve
+phase (``chip_smoke.serve_cells``): ``warm_ms``, the median host time of
+one synchronous capacity-8 flush of the bucket's requests through a
+MicrobatchExecutor on the card (capacity 4 for the smaller buckets),
+``device_ms`` its kernels' time under torch.profiler, ``busy`` their
+ratio, and ``requests_per_s`` = requests / warm time.
+
 It ends with the card's name and power limit as nvidia-smi gives them.
 It exits non-zero without a CUDA device. It imports neither jax nor
 libskylark_tpu.
@@ -80,6 +87,7 @@ def profile_call(torch, fn, top=8) -> dict:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -146,6 +154,9 @@ def main() -> int:
             row["idle_ms_per_iteration"] = ((row["warm_ms"] - row["device_ms"])
                                             / row["iterations"])
         print(json.dumps(row), flush=True)
+    del A, Asvd, Als, b, Ak, bk, X, qrft, precond
+    for name, row in chip_smoke.serve_cells(torch, np).items():
+        print(json.dumps({"cell": f"serve-{name}", **row}), flush=True)
     chip_smoke.check("jax" not in sys.modules
                      and "libskylark_tpu" not in sys.modules,
                      "the port imported jax or libskylark_tpu")

@@ -22,6 +22,14 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             - fastfood (B4, B4-split): ≤ 1e-4·max|plain| at 16384×4096 →
               4096, d = 1000 → 3000 (padding, 3 blocks, truncation), an
               odd log2 NB (d = 2048) and m = 37;
+            - batched (B1-batched, B4-batched): the serve buckets' capacity-8
+              stacks and ragged lanes zero-padded into them, ≤
+              1e-4·max|plain| against the per-lane serve program, and every
+              lane bit-equal to a launch of that lane alone;
+            - sparse (B3): CSR lanes at config 2's shape (rcv1.binary:
+              47,236 features, 0.16% dense) both ways, s = 300 and s = 7,
+              bit-equal to the plain scatter on a CPU copy, every lane
+              bit-equal to its launch alone;
 4. main   — the main path at full size through the public entry points,
             with every launch counter set to 0 before and read after:
             JLT.apply both ways on 8192×8192 → 1024; approximate_svd of an
@@ -32,19 +40,32 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             (Blendenpik over the FJLT) and solve_l2_accelerated
             (simplified_blendenpik, lsrn) on a 65536×512 matrix with
             singular values over [1e-3, 1]; CWT and FJLT(fut="wht") applied
-            rowwise on 8192×8192 → 1024; random features (BASELINE config
+            rowwise on 8192×8192 → 1024, and CWT on a 4096×47236 CSR operand
+            (config 2); random features (BASELINE config
             3) on X 16384×4096 → 4096 through ml.kernels' create_rft:
             Gaussian regular/fast (fused, split, columnwise)/quasi,
             Laplacian, ExpSemigroup on |X|, Polynomial (PPT), Linear fast
             (FJLT), and UST with and without replacement, each feature map
             held to its kernel's Gram matrix on 512 sampled rows;
+4b. serve — the serving path: 16 requests per main bucket (JLT 8192 →
+            1024 rowwise on 1537–2048 rows, CT columnwise on 65–128
+            columns, FastGaussianRFT 4096 → 4096 on 1025–2048 rows, CWT
+            rowwise on 4096×47236 CSR) and 4 per smaller bucket (CWT
+            columnwise on 47236×512 CSR, JLT on 8192×512 CSR, CWT and SRHT
+            dense) from 4 threads into one MicrobatchExecutor(max_batch=8,
+            linger_us=5000), warm-up storm then a measured one with the
+            launch counters set to 0 before and read after; every request
+            held to its capacity-1 plain flush (≤ 1e-4·max|plain|; CWT
+            torch.equal on the CPU) and bit-equal to its capacity-1 kernel
+            flush; then each bucket's flush cell (warm ms, device ms, busy);
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes; every timed call of a kernel
             or a plain version draws a new key from one Context, as a
-            user solving again does (the Fastfood kernel, whose streams
-            are made outside it, is timed on streams made beforehand, and
-            its wrapper with a new transform per call beside it);
+            user solving again does (the Fastfood kernels, whose streams
+            are made outside them, are timed on streams made beforehand,
+            and their wrappers with new streams per call beside them); the
+            serve kernels at their buckets' capacity-8 shapes;
 6. the ``{"kernels": [...]}`` line, the card's name and power limit, and
    ``{"ok": true, ...}`` as the last line.
 
@@ -346,10 +367,11 @@ def check_fastfood(torch, P, cases) -> dict:
 def counters():
     """Every kernel wrapper's launch counter dict."""
     from libskylark_tpu_torch.sketch import (cuda_dense, cuda_fastfood,
-                                             cuda_fwht, cuda_hash)
+                                             cuda_fwht, cuda_hash,
+                                             cuda_sparse)
 
     return [cuda_dense.launches, cuda_hash.launches, cuda_fwht.launches,
-            cuda_fastfood.launches]
+            cuda_fastfood.launches, cuda_sparse.launches]
 
 
 def launch_counts() -> dict:
@@ -417,6 +439,19 @@ def main_path(torch, P) -> dict:
         del Y
     del A
 
+    # 2b. CWT of a CSR operand at config 2's shape (B3 at one lane), bit-
+    # equal to the plain scatter on the CPU
+    Asp = csr_operand(4096, RCV1_D, RCV1_DENSITY, 47)
+    Tsp = sk.CWT(RCV1_D, 1024, P.Context(53))
+    Y = step("cwt_sparse_rowwise", lambda: Tsp.apply(Asp, sk.ROWWISE))
+    out["cwt_sparse_nnz"] = Asp.nnz
+    check(tuple(Y.shape) == (4096, 1024) and bool(torch.equal(
+        Y.cpu(), Tsp.apply(Asp, sk.ROWWISE, device="cpu"))),
+        "CWT of a CSR operand differs from the plain scatter")
+    check(out["launches_by_step"]["cwt_sparse_rowwise"]
+          == {"sparse_rowwise": 1}, "CWT of a CSR operand did not take B3")
+    del Y
+
     # 3. randomized SVD at rank 64 (k' = 128) of the SVD cell's matrix
     k = 64
     A, sigma = svd_operand(torch)
@@ -483,9 +518,17 @@ def main_path(torch, P) -> dict:
     out["launches"] = launch_counts()
     emit("main", **out)
     check(not failed, f"random features: {failed}")
-    for k_, v in out["launches"].items():
-        check(v > 0, f"kernel {k_} never launched on the main path")
+    for k_ in MAIN_KERNELS:
+        check(out["launches"][k_] > 0,
+              f"kernel {k_} never launched on the main path")
     return out
+
+
+# the kernels the main path must launch
+MAIN_KERNELS = ("dense_rowwise", "dense_columnwise", "hash_rowwise",
+                "hash_columnwise", "fwht_rowwise", "fwht_columnwise",
+                "dense_rowwise_cos", "fastfood", "fastfood_split",
+                "sparse_rowwise")
 
 
 # Bounds of the random-feature check on 512 sampled rows, relative to
@@ -676,9 +719,10 @@ def time_kernels(torch, P, shapes, main_path: bool,
     from libskylark_tpu_torch.sketch import cuda_dense as cd
     from libskylark_tpu_torch.sketch.dense import virtual_panel
 
-    dist = randgen.Normal()
     rows = []
-    for name, use, shape, s_dim in shapes:
+    for name, use, shape, s_dim, *dist_name in shapes:
+        dist = (randgen.Cauchy() if dist_name == ["cauchy"]
+                else randgen.Normal())
         rowwise = name == "dense_rowwise"
         A = make_operand(torch, shape, 7)
         ctx = P.Context(9)
@@ -880,6 +924,549 @@ def time_fastfood(torch, P, peaks: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The serving slice: B1-batched, B4-batched and B3, and the serve phase
+# ---------------------------------------------------------------------------
+
+# config 2 (BASELINE.md): LIBSVM's rcv1.binary, 47,236 features at 0.16%
+# density (≈ 75 nonzeros per row), made from a seed at that shape
+RCV1_D, RCV1_DENSITY = 47236, 0.0016
+
+
+def csr_operand(rows: int, cols: int, density: float, seed: int):
+    """A SparseMatrix of rows × cols with ≈ density·rows·cols nonzeros at
+    distinct uniform positions and standard normal values, made from a
+    numpy seed."""
+    import numpy as np
+
+    from libskylark_tpu_torch.base.sparse import SparseMatrix
+
+    rng = np.random.default_rng(seed)
+    pos = np.unique(rng.integers(0, rows * cols,
+                                 int(round(density * rows * cols))))
+    r, c = pos // cols, pos % cols
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=rows))])
+    data = rng.standard_normal(pos.size).astype(np.float32)
+    return SparseMatrix.from_csr(data, c, indptr, (rows, cols))
+
+
+def csr_lanes(torch, ops, nnz_class: int, rows_pad: int):
+    """Stacked (data, rows, cols) lanes of SparseMatrix operands on the
+    card, packed as the serve layer packs them; returns them and the
+    operands' true nnz."""
+    import numpy as np
+
+    from libskylark_tpu_torch.engine.serve import MicrobatchExecutor
+    from libskylark_tpu_torch.sketch import sparse_serve
+
+    packed = [MicrobatchExecutor._pack_csr(A, rows_pad, nnz_class,
+                                           np.float32) for A in ops]
+    data, idx, ptr = (torch.from_numpy(np.stack(x)).cuda()
+                      for x in zip(*packed))
+    rows = sparse_serve.csr_row_ids(ptr, nnz_class)
+    return data, rows, idx, sum(A.nnz for A in ops)
+
+
+def new_keys(np, ctx, B: int):
+    return np.stack([ctx.allocate().key for _ in range(B)])
+
+
+def check_batched(torch, P, np) -> dict:
+    """Phase 3, B1-batched and B4-batched: each cohort against the plain
+    version (the per-lane serve program) on the same stacked lanes, ≤
+    TOL·max|plain|, with ragged lanes zero-padded into the stack; and
+    capacity invariance: every lane of the batched launch bit-equal to a
+    launch of that lane alone."""
+    from libskylark_tpu_torch.base import randgen
+    from libskylark_tpu_torch.engine import bucket
+    from libskylark_tpu_torch.sketch import cuda_dense as cd
+    from libskylark_tpu_torch.sketch import cuda_fastfood as cf
+
+    g = np.random.default_rng(6000)
+    results = []
+    for i, (name, dist, B, shape, s_dim, ragged) in enumerate(BATCHED_CASES):
+        rowwise = name == "dense_batched_rowwise"
+        kd = new_keys(np, P.Context(600 + i), B)
+        scale = (1.0 + g.integers(0, 2, B)) / s_dim
+        if ragged:  # lanes with fewer rows (rowwise) or columns, padded
+            free = 0 if rowwise else 1
+            ops = []
+            for b in range(B):
+                sh = list(shape)
+                sh[free] = int(g.integers(shape[free] // 2, shape[free] + 1))
+                ops.append(make_operand(torch, tuple(sh), 6100 + 10 * i + b))
+            A = bucket.stack_pad_tensor(ops, shape, B, torch.float32, "cuda")
+        else:
+            A = make_operand(torch, (B, *shape), 6100 + 10 * i)
+        d = {"normal": randgen.Normal(), "cauchy": randgen.Cauchy()}[dist]
+        got = cd.serve_batched_apply(kd, scale, A, d, s_dim, rowwise)
+        want = cd.serve_batched_plain(kd, scale, A, d, s_dim, rowwise)
+        alone = [cd.serve_batched_apply(kd[b:b + 1], scale[b:b + 1],
+                                        A[b:b + 1], d, s_dim, rowwise)[0]
+                 for b in range(B)]
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{name} output not finite")
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        inv = all(bool(torch.equal(got[b], alone[b])) for b in range(B))
+        results.append({"kernel": name, "dist": dist,
+                        "shape": [B, *shape], "s_dim": s_dim,
+                        "ragged": ragged, "max_abs_err": err,
+                        "max_rel_err": rel, "capacity_invariant": inv,
+                        "ok": rel <= TOL and inv})
+        del A, got, want, alone
+    for i, (B, m, d, s_dim) in enumerate(FASTFOOD_BATCHED_CASES):
+        kd = new_keys(np, P.Context(650 + i), B)
+        A = make_operand(torch, (B, m, d), 6500 + i)
+        args = (d, s_dim, "wht", "gauss", math.sqrt(d))
+        got = cf.serve_features_batched(kd, A, *args)
+        want = cf.serve_features_plain(kd, A, *args)
+        alone = [cf.serve_features_batched(kd[b:b + 1], A[b:b + 1], *args)[0]
+                 for b in range(B)]
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              "fastfood_batched output not finite")
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        inv = all(bool(torch.equal(got[b], alone[b])) for b in range(B))
+        results.append({"kernel": "fastfood_batched", "shape": [B, m, d],
+                        "s_dim": s_dim, "max_abs_err": err,
+                        "max_rel_err": rel, "capacity_invariant": inv,
+                        "ok": rel <= TOL and inv})
+        del A, got, want, alone
+    emit("check", tolerance=f"B1-batched, B4-batched: max|kernel-plain| <= "
+                            f"{TOL} * max|plain|; each lane torch.equal to "
+                            "its launch alone", cases=results)
+    bad = [r for r in results if not r["ok"]]
+    check(not bad, f"batched kernel disagrees: {bad}")
+    return {(r["kernel"], tuple(r["shape"]), r["s_dim"]): r for r in results}
+
+
+def check_sparse(torch, P, np) -> dict:
+    """Phase 3, B3: each cohort of CSR lanes bit-equal (torch.equal) to
+    the plain scatter on a CPU copy of the lanes (it adds in CSR row-major
+    order; CUDA's index_add_ is atomic), and every lane bit-equal to a
+    launch of that lane alone."""
+    from libskylark_tpu_torch.engine import bucket
+    from libskylark_tpu_torch.sketch import cuda_sparse as cs
+
+    results = []
+    for i, (name, B, rows, cols, density, s_dim) in enumerate(SPARSE_CASES):
+        rowwise = name == "sparse_rowwise"
+        ops = [csr_operand(rows, cols, density, 7000 + 10 * i + b)
+               for b in range(B)]
+        nnz_class = bucket.nnz_class(max(A.nnz for A in ops))
+        shape = bucket.pad_shape((rows, cols), (0, 1))
+        data, r, c, nnz = csr_lanes(torch, ops, nnz_class, shape[0])
+        kd = new_keys(np, P.Context(700 + i), B)
+        got = cs.cwt_sparse_apply_batched(kd, data, r, c, s_dim, rowwise,
+                                          shape)
+        alone = [cs.cwt_sparse_apply(kd[b], data[b], r[b], c[b], s_dim,
+                                     rowwise, shape) for b in range(B)]
+        torch.cuda.synchronize()
+        got = got.cpu()
+        want = cs.cwt_sparse_plain(kd, data.cpu(), r.cpu(), c.cpu(), s_dim,
+                                   rowwise, shape)
+        inv = all(bool(torch.equal(got[b], alone[b].cpu()))
+                  for b in range(B))
+        results.append({"kernel": name, "shape": [B, rows, cols],
+                        "s_dim": s_dim, "nnz": nnz, "nnz_class": nnz_class,
+                        "bit_equal": bool(torch.equal(got, want)),
+                        "capacity_invariant": inv,
+                        "max_abs_err": float((got - want).abs().max())})
+        del data, r, c, got, want, alone
+    emit("check", tolerance="B3: torch.equal with the plain scatter on a CPU "
+                            "copy; each lane torch.equal to its launch "
+                            "alone", cases=results)
+    bad = [r for r in results
+           if not (r["bit_equal"] and r["capacity_invariant"])]
+    check(not bad, f"sparse CountSketch kernel disagrees: {bad}")
+    return {(r["kernel"], tuple(r["shape"]), r["s_dim"]): r for r in results}
+
+
+def serve_requests(torch, np) -> list:
+    """The serve phase's requests: (bucket, endpoint, transform, operand,
+    dimension), 16 per main bucket with 8 distinct seeds, 4 per smaller
+    bucket. Dense operands are made on the card; CSR operands on the host,
+    as a SparseMatrix."""
+    from libskylark_tpu_torch import Context, sketch as sk
+
+    g = np.random.default_rng(800)
+    reqs = []
+    for i in range(16):
+        reqs.append(("dense-rw", "sketch_apply",
+                     sk.JLT(8192, 1024, Context(800 + i % 8)),
+                     make_operand(torch, (int(g.integers(1537, 2049)), 8192),
+                                  8000 + i), sk.ROWWISE))
+        reqs.append(("ct-cw", "sketch_apply",
+                     sk.CT(8192, 1024, Context(810 + i % 8), C=1 + i % 2),
+                     make_operand(torch, (8192, int(g.integers(65, 129))),
+                                  8100 + i), sk.COLUMNWISE))
+        reqs.append(("fastfood", "fastfood_features",
+                     sk.FastGaussianRFT(4096, 4096, Context(820 + i % 8),
+                                        sigma=64.0),
+                     make_operand(torch, (int(g.integers(1025, 2049)), 4096),
+                                  8200 + i), None))
+        reqs.append(("sparse-rw", "sparse_sketch_apply",
+                     sk.CWT(RCV1_D, 1024, Context(830 + i % 8)),
+                     csr_operand(4096, RCV1_D, RCV1_DENSITY, 8300 + i),
+                     sk.ROWWISE))
+    for i in range(4):
+        reqs.append(("sparse-cw", "sparse_sketch_apply",
+                     sk.CWT(RCV1_D, 1024, Context(840 + i)),
+                     csr_operand(RCV1_D, 512, RCV1_DENSITY, 8400 + i),
+                     sk.COLUMNWISE))
+        reqs.append(("sparse-jlt", "sparse_sketch_apply",
+                     sk.JLT(8192, 1024, Context(850 + i)),
+                     csr_operand(8192, 512, 0.01, 8500 + i), sk.COLUMNWISE))
+        reqs.append(("cwt", "sketch_apply",
+                     sk.CWT(8192, 1024, Context(860 + i)),
+                     make_operand(torch, (int(g.integers(257, 513)), 8192),
+                                  8600 + i), sk.ROWWISE))
+        reqs.append(("srht", "sketch_apply",
+                     sk.FJLT(8192, 1024, Context(870 + i), fut="wht"),
+                     make_operand(torch, (int(g.integers(257, 513)), 8192),
+                                  8700 + i), sk.ROWWISE))
+    return reqs
+
+
+def submit(ex, endpoint, T, A, dim):
+    if endpoint == "fastfood_features":
+        return ex.submit_fastfood(T, A)
+    if endpoint == "sparse_sketch_apply":
+        return ex.submit_sparse(T, A, dimension=dim)
+    return ex.submit_sketch(T, A, dimension=dim)
+
+
+def storm(ex, reqs, threads: int = 4):
+    """Submit every request from ``threads`` threads, interleaved; returns
+    the results and, per request, (submit time, completion time)."""
+    import threading
+
+    futs = [None] * len(reqs)
+    times = [[0.0, 0.0] for _ in reqs]
+
+    def done(i):
+        return lambda f: times[i].__setitem__(1, time.perf_counter())
+
+    def worker(t):
+        for i in range(t, len(reqs), threads):
+            _, endpoint, T, A, dim = reqs[i]
+            times[i][0] = time.perf_counter()
+            futs[i] = submit(ex, endpoint, T, A, dim)
+            futs[i].add_done_callback(done(i))
+
+    ts = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return [f.result(timeout=300) for f in futs], times
+
+
+# the kernels the serve phase must launch
+SERVE_KERNELS = ("dense_batched_rowwise", "dense_batched_columnwise",
+                 "fastfood_batched", "sparse_rowwise", "sparse_columnwise",
+                 "hash_rowwise", "fwht_rowwise")
+# buckets whose result is held bit-equal to the plain program on the CPU
+EXACT_BUCKETS = ("sparse-rw", "sparse-cw", "cwt")
+
+
+def serve_phase(torch, P, np) -> dict:
+    """Phase 4b, the serving path at full width: 16 requests per main
+    bucket from 4 threads into one MicrobatchExecutor(max_batch=8,
+    linger_us=5000) on the card, once to warm up and once measured, with
+    every launch counter set to 0 just before the measured storm and read
+    just after. Then each request's result is held to its own capacity-1
+    flush with kernel="plain" (on the card, ≤ TOL·max|plain|; for CWT on
+    the CPU, torch.equal) and to its own capacity-1 flush through the
+    kernel (torch.equal: capacity invariance)."""
+    from libskylark_tpu_torch import engine
+
+    reqs = serve_requests(torch, np)
+    names = sorted({r[0] for r in reqs})
+    statics = {b: repr(engine.request_statics(
+        e, transform=T, A=A, dimension=dim))
+        for b, e, T, A, dim in reqs}
+    out = {"buckets": {}}
+    with engine.MicrobatchExecutor(max_batch=8, linger_us=5000,
+                                   device="cuda") as ex:
+        storm(ex, reqs)
+        torch.cuda.synchronize()
+        warm = ex.stats()
+    with engine.MicrobatchExecutor(max_batch=8, linger_us=5000,
+                                   device="cuda") as ex:
+        for c in counters():
+            for k in c:
+                c[k] = 0
+        t0 = time.perf_counter()
+        results, times = storm(ex, reqs)
+        torch.cuda.synchronize()
+        out["storm_seconds"] = time.perf_counter() - t0
+        out["launches"] = launch_counts()
+        st = ex.stats()
+    check(warm["failed"] == 0, f"warm-up storm failed: {warm['failed']}")
+    out["stats"] = {k: st[k] for k in (
+        "submitted", "completed", "failed", "rejected", "flushes",
+        "coalesced", "isolation_retries", "kernel", "sparse",
+        "padding_waste_ratio", "latency_s", "batch_capacity_hist")}
+    for b in names:
+        mine = [i for i, r in enumerate(reqs) if r[0] == b]
+        lat = sorted(times[i][1] - times[i][0] for i in mine)
+        span = (max(times[i][1] for i in mine)
+                - min(times[i][0] for i in mine))
+        out["buckets"][b] = {"requests": len(mine),
+                             "requests_per_s": len(mine) / span,
+                             "latency_p50_ms": 1e3 * statistics.median(lat),
+                             "latency_p99_ms": 1e3 * lat[-1],
+                             **st["by_bucket"][statics[reqs[mine[0]][0]]]}
+    check(st["failed"] == 0 and st["completed"] == len(reqs)
+          and st["submitted"] == len(reqs),
+          f"serve storm: {st['submitted']} submitted, {st['completed']} "
+          f"completed, {st['failed']} failed of {len(reqs)}")
+    check(set(st["kernel"]["by_backend"]) == {"cuda"}
+          and not st["kernel"]["by_reason"],
+          f"a kernel bucket flushed on the plain program: {st['kernel']}")
+    for k in SERVE_KERNELS:
+        check(out["launches"][k] > 0, f"kernel {k} never launched by the "
+                                      "serve phase")
+
+    # references: capacity-1 flushes, plain and through the kernel
+    with engine.MicrobatchExecutor(max_batch=1, kernel="plain",
+                                   device="cuda") as plain, \
+            engine.MicrobatchExecutor(max_batch=1, device="cpu") as cpu, \
+            engine.MicrobatchExecutor(max_batch=1, device="cuda") as one:
+        worst = {}
+        for (b, e, T, A, dim), got in zip(reqs, results):
+            alone = submit(one, e, T, A, dim).result(timeout=300)
+            check(bool(torch.equal(got, alone)),
+                  f"{b}: a lane of a capacity-8 flush differs from its "
+                  "capacity-1 flush through the kernel")
+            if b in EXACT_BUCKETS:
+                Ah = A.cpu() if isinstance(A, torch.Tensor) else A
+                want = submit(cpu, e, T, Ah, dim).result(timeout=300)
+                ok = bool(torch.equal(got.cpu(), want))
+                err = float((got.cpu() - want).abs().max())
+            else:
+                want = submit(plain, e, T, A, dim).result(timeout=300)
+                err = float((got - want).abs().max())
+                ok = err <= TOL * float(want.abs().max())
+            check(ok and tuple(got.shape) == tuple(want.shape),
+                  f"{b}: served result disagrees with its plain flush "
+                  f"(max abs err {err})")
+            worst[b] = max(worst.get(b, 0.0), err)
+    out["max_abs_err_vs_plain"] = worst
+    emit("serve", **out)
+    return out
+
+
+def flush_cell(torch, ex, bucket_reqs, reps: int = 5, warmup: int = 2):
+    """One bucket's capacity-8 flush through ``ex`` (max_batch 16, a long
+    linger, so 8 submits wait for :meth:`flush`): ``warm_ms``, the median
+    host time of the synchronous flush; ``device_ms``, its kernels' time
+    under torch.profiler in one more flush; ``busy`` = device/warm."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def one():
+        futs = [submit(ex, e, T, A, dim) for _, e, T, A, dim in bucket_reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.flush()
+        ms = (time.perf_counter() - t0) * 1e3
+        for f in futs:
+            f.result()
+        return ms
+
+    for _ in range(warmup):
+        one()
+    warm = statistics.median(one() for _ in range(reps))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one()
+    device = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return {"warm_ms": warm, "device_ms": device, "busy": device / warm,
+            "requests_per_s": len(bucket_reqs) / (warm / 1e3)}
+
+
+def serve_cells(torch, np) -> dict:
+    """Every serve bucket's flush cell (:func:`flush_cell`) on its first 8
+    requests (the smaller buckets: their 4)."""
+    from libskylark_tpu_torch import engine
+
+    reqs = serve_requests(torch, np)
+    cells = {}
+    with engine.MicrobatchExecutor(max_batch=16, linger_us=60_000_000,
+                                   device="cuda") as ex:
+        for b in sorted({r[0] for r in reqs}):
+            cells[b] = flush_cell(torch, ex, [r for r in reqs
+                                              if r[0] == b][:8])
+    return cells
+
+
+def time_serve_kernels(torch, P, np, peaks: dict) -> list[dict]:
+    """Phase 5, the serve kernels at their buckets' capacity-8 shapes:
+    kernel (a new key per lane and call), plain version, and one PyTorch
+    call on pre-made randomness — B1-batched torch.bmm against stored
+    per-lane S; B4-batched the batched kron two-matmul WHT chain with its
+    gather on stored streams; B3 one index_add_ of v·data at (row,
+    h[col]) with h, v gathered beforehand."""
+    from libskylark_tpu_torch.base import randgen
+    from libskylark_tpu_torch.engine import bucket
+    from libskylark_tpu_torch.sketch import cuda_dense as cd
+    from libskylark_tpu_torch.sketch import cuda_fastfood as cf
+    from libskylark_tpu_torch.sketch import cuda_hash as ch
+    from libskylark_tpu_torch.sketch import cuda_sparse as cs
+    from libskylark_tpu_torch.sketch.dense import virtual_panel
+
+    rows = []
+    for name, dist, B, shape, s_dim, _ in BATCHED_CASES[:2]:
+        rowwise = name == "dense_batched_rowwise"
+        d = {"normal": randgen.Normal(), "cauchy": randgen.Cauchy()}[dist]
+        A = make_operand(torch, (B, *shape), 9000)
+        ctx = P.Context(900)
+        sc = np.full(B, 1.0 / s_dim)
+        n, m = (shape[1], shape[0]) if rowwise else shape
+        ms = event_ms(torch, lambda: cd.serve_batched_apply(
+            new_keys(np, ctx, B), sc, A, d, s_dim, rowwise))
+        dev_ms = profiled_device_ms(torch, lambda: cd.serve_batched_apply(
+            new_keys(np, ctx, B), sc, A, d, s_dim, rowwise))
+        plain_ms = event_ms(torch, lambda: cd.serve_batched_plain(
+            new_keys(np, ctx, B), sc, A, d, s_dim, rowwise))
+        S = torch.stack([virtual_panel(k, d, s_dim, 0, n, 1.0 / s_dim,
+                                       device=A.device)
+                         for k in new_keys(np, ctx, B)])
+        lib = (lambda: torch.bmm(A, S.transpose(1, 2))) if rowwise else (
+            lambda: torch.bmm(S, A))
+        library_ms = event_ms(torch, lib)
+        rows.append({"kernel": name, "use": f"serve {name}", "main_path": True,
+                     "shape": [B, *shape], "s_dim": s_dim, "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
+                     **bound(2.0 * B * m * n * s_dim, peaks["fp32_flops"],
+                             4.0 * B * (m * n + m * s_dim), peaks)})
+        del A, S
+
+    B, m, d, s_dim = FASTFOOD_BATCHED_CASES[0]
+    A = make_operand(torch, (B, m, d), 9100)
+    ctx = P.Context(910)
+    args = (d, s_dim, "wht", "gauss", 64.0)
+    streams = cf.batched_streams(new_keys(np, ctx, B), *args, A.device)
+    scale = math.sqrt(2.0 / s_dim)
+    ms = event_ms(torch, lambda: cf.apply_streams_batched(A, streams, scale,
+                                                          s_dim))
+    dev_ms = profiled_device_ms(torch, lambda: cf.apply_streams_batched(
+        A, streams, scale, s_dim))
+    wrapper_ms = event_ms(torch, lambda: cf.serve_features_batched(
+        new_keys(np, ctx, B), A, *args))
+    plain_ms = event_ms(torch, lambda: cf.serve_features_plain(
+        new_keys(np, ctx, B), A, *args), reps=3, warmup=1)
+    library_ms = event_ms(torch, lambda: wht_chain_batched(
+        torch, A, streams, scale, s_dim))
+    NB, nb = streams[0].shape[2], streams[0].shape[1]
+    rows.append({"kernel": "fastfood_batched", "use": "serve fastfood",
+                 "main_path": True, "shape": [B, m, d], "s_dim": s_dim,
+                 "ms": ms, "device_ms": dev_ms, "wrapper_ms": wrapper_ms,
+                 "plain_ms": plain_ms,
+                 "library_ms": library_ms,
+                 **bound(2.0 * B * m * NB * math.log2(NB) * nb,
+                         peaks["fp32_flops"] / 2,
+                         4.0 * B * (m * d + m * s_dim), peaks)})
+    del A, streams
+
+    for i, (name, B, nr, nc, density, s_dim) in enumerate(SPARSE_CASES[:2]):
+        rowwise = name == "sparse_rowwise"
+        ops = [csr_operand(nr, nc, density, 9200 + 10 * i + b)
+               for b in range(B)]
+        nnz_class = bucket.nnz_class(max(A.nnz for A in ops))
+        shape = bucket.pad_shape((nr, nc), (0, 1))
+        data, r, c, nnz = csr_lanes(torch, ops, nnz_class, shape[0])
+        ctx = P.Context(920 + i)
+        m = shape[0] if rowwise else shape[1]
+        n = shape[1] if rowwise else shape[0]
+        ms = event_ms(torch, lambda: cs.cwt_sparse_apply_batched(
+            new_keys(np, ctx, B), data, r, c, s_dim, rowwise, shape))
+        dev_ms = profiled_device_ms(
+            torch, lambda: cs.cwt_sparse_apply_batched(
+                new_keys(np, ctx, B), data, r, c, s_dim, rowwise, shape))
+        plain_ms = event_ms(torch, lambda: cs.cwt_sparse_plain(
+            new_keys(np, ctx, B), data, r, c, s_dim, rowwise, shape))
+        hv = [ch.streams(k, n, s_dim, data.device)
+              for k in new_keys(np, ctx, B)]
+        hashed, kept = (c, r) if rowwise else (r, c)
+        lane = torch.arange(B, device=data.device)[:, None]
+        h = torch.stack([x[0] for x in hv]).gather(1, hashed.long())
+        v = torch.stack([x[1] for x in hv]).gather(1, hashed.long())
+        lin = ((lane * m + kept) * s_dim + h if rowwise
+               else (lane * s_dim + h) * m + kept).reshape(-1)
+        vals = (v * data).reshape(-1)
+        library_ms = event_ms(torch, lambda: torch.zeros(
+            B * m * s_dim, device=data.device).index_add_(0, lin, vals))
+        # a multiply and an add per nonzero; the real nonzeros' (value,
+        # row, col) read once, the output written once
+        rows.append({"kernel": name, "use": f"serve {name}",
+                     "main_path": True, "shape": [B, nr, nc],
+                     "s_dim": s_dim, "nnz": nnz, "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
+                     **bound(2.0 * nnz, peaks["fp32_flops"],
+                             12.0 * nnz + 4.0 * B * m * s_dim, peaks)})
+        del data, r, c, lin, vals
+    return rows
+
+
+def wht_chain_batched(torch, A, streams, scale, s_dim):
+    """:func:`wht_chain` over a cohort: A (B, m, d) and (B, nb, NB)
+    streams made beforehand."""
+    bdiag, perms, gdiag, smdiag, sh = streams
+    B, nb, NB = bdiag.shape
+    m = A.shape[1]
+    k = NB.bit_length() - 1
+    a, b = 1 << (k - k // 2), 1 << (k // 2)
+    Ha, Hb = (torch.ones(1, 1, device=A.device), ) * 2
+    while Ha.shape[0] < a:
+        Ha = torch.cat([torch.cat([Ha, Ha], 1), torch.cat([Ha, -Ha], 1)])
+    while Hb.shape[0] < b:
+        Hb = torch.cat([torch.cat([Hb, Hb], 1), torch.cat([Hb, -Hb], 1)])
+
+    def wht(W):
+        return torch.matmul(torch.matmul(Ha, W.reshape(B, nb, m, a, b)),
+                            Hb).reshape(W.shape)
+
+    X = torch.nn.functional.pad(A, (0, NB - A.shape[2]))
+    W = wht(bdiag[:, :, None, :] * X[:, None])
+    W = wht(gdiag[:, :, None, :] * torch.gather(
+        W, 3, perms.long()[:, :, None, :].expand(B, nb, m, NB)))
+    F = scale * torch.cos(smdiag[:, :, None, :] * W + sh[:, :, None, :])
+    return F.permute(0, 2, 1, 3).reshape(B, m, nb * NB)[:, :, :s_dim]
+
+
+# (kernel, dist, B, one lane's shape, s_dim, ragged): the dense-rw and
+# ct-cw buckets' capacity-8 shapes, then ragged lanes padded into the
+# stack and a small uneven case
+BATCHED_CASES = [
+    ("dense_batched_rowwise", "normal", 8, (2048, 8192), 1024, False),
+    ("dense_batched_columnwise", "cauchy", 8, (8192, 128), 1024, False),
+    ("dense_batched_rowwise", "normal", 8, (2048, 8192), 1024, True),
+    ("dense_batched_columnwise", "cauchy", 8, (8192, 128), 1024, True),
+    ("dense_batched_rowwise", "cauchy", 3, (37, 700), 48, True),
+    ("dense_batched_columnwise", "normal", 3, (700, 37), 300, True),
+]
+# (B, m, d, S): the fastfood bucket's capacity-8 shape; padding, 3 blocks
+# and truncation
+FASTFOOD_BATCHED_CASES = [(8, 2048, 4096, 4096), (3, 37, 1000, 3000)]
+# (kernel, B, rows, cols, density, s_dim): the sparse buckets' capacity-8
+# shapes at rcv1's density; then s = 300 (randint's multiplier is not 0)
+# and s = 7 (many nonzeros of a row or column share a bucket)
+SPARSE_CASES = [
+    ("sparse_rowwise", 8, 4096, RCV1_D, RCV1_DENSITY, 1024),
+    ("sparse_columnwise", 8, RCV1_D, 512, RCV1_DENSITY, 1024),
+    ("sparse_rowwise", 3, 300, 5000, 0.02, 300),
+    ("sparse_columnwise", 3, 5000, 300, 0.02, 300),
+    ("sparse_rowwise", 2, 64, 1000, 0.1, 7),
+    ("sparse_columnwise", 2, 1000, 64, 0.1, 7),
+]
+
+
 # config 3 (BASELINE.md): 16384 rows, d = 4096 → S = 4096
 RFT_SHAPE, RFT_S = (16384, 4096), 4096
 
@@ -889,6 +1476,8 @@ MAIN_SHAPES = [
     ("dense_rowwise", "SVD range sketch", (8192, 8192), 128),
     ("dense_columnwise", "JLT.apply columnwise", (8192, 8192), 1024),
     ("dense_columnwise", "least squares S·[A|b]", (65536, 513), 2048),
+    ("dense_rowwise", "LaplacianRFT (Cauchy) features", (16384, 4096), 4096,
+     "cauchy"),
 ]
 # Timed only: least squares' sketch as two launches, S·A then S·b, which
 # the one launch on [A|b] replaces.
@@ -908,7 +1497,8 @@ FWHT_SHAPES = [
 
 
 def check_cases() -> list:
-    cases = [(name, "normal", shape, s) for name, _, shape, s in MAIN_SHAPES]
+    cases = [(name, (d or ["normal"])[0], shape, s)
+             for name, _, shape, s, *d in MAIN_SHAPES]
     for dist in ("normal", "cauchy", "rademacher"):
         cases += [("dense_rowwise", dist, (37, 700), 48),
                   ("dense_columnwise", dist, (700, 37), 48),
@@ -961,6 +1551,16 @@ KERNELS = {
                  "libskylark_tpu/sketch/pallas_fastfood.py:166"),
     "fastfood_split": (CSRC + "fastfood.cu",
                        "libskylark_tpu/sketch/pallas_fastfood.py:201"),
+    "dense_batched_rowwise": (CSRC + "dense_sketch.cu",
+                              "libskylark_tpu/sketch/pallas_dense.py:954"),
+    "dense_batched_columnwise": (CSRC + "dense_sketch.cu",
+                                 "libskylark_tpu/sketch/pallas_dense.py:954"),
+    "fastfood_batched": (CSRC + "fastfood.cu",
+                         "libskylark_tpu/sketch/pallas_fastfood.py:255"),
+    "sparse_rowwise": (CSRC + "sparse_sketch.cu",
+                       "libskylark_tpu/sketch/pallas_sparse.py:225"),
+    "sparse_columnwise": (CSRC + "sparse_sketch.cu",
+                          "libskylark_tpu/sketch/pallas_sparse.py:225"),
 }
 
 
@@ -993,19 +1593,25 @@ def main() -> int:
                                 if "registers" in ln or "spill" in ln]}
                   for k, v in report.items()})
 
+    import numpy as np
+
     checked = {(k[0], k[1], k[2]): v
-               for k, v in check_kernels(torch, P, check_cases()).items()
-               if k[3] == "normal"}
+               for k, v in check_kernels(torch, P, check_cases()).items()}
     checked.update(check_hash(torch, P, HASH_CASES))
     checked.update(check_fwht(torch, P, FWHT_CASES))
     checked.update(check_cos(torch, P, COS_CASES))
     checked.update(check_fastfood(torch, P, FASTFOOD_CASES))
+    checked.update(check_batched(torch, P, np))
+    checked.update(check_sparse(torch, P, np))
     main = main_path(torch, P)
+    serve = serve_phase(torch, P, np)
+    emit("serve_cells", cells=serve_cells(torch, np))
     rows = (time_kernels(torch, P, MAIN_SHAPES, True, peaks)
             + time_kernels(torch, P, SPLIT_LS_SHAPES, False, peaks)
             + time_hash(torch, P, HASH_SHAPES, peaks)
             + time_fwht(torch, P, FWHT_SHAPES, peaks)
-            + time_cos(torch, P, peaks) + time_fastfood(torch, P, peaks))
+            + time_cos(torch, P, peaks) + time_fastfood(torch, P, peaks)
+            + time_serve_kernels(torch, P, np, peaks))
     emit("time", method="ms: CUDA events around each of 10 back-to-back "
                         "calls after 3 warm-ups, median; device_ms: the "
                         "kernels' own time per call under torch.profiler, "
@@ -1023,7 +1629,13 @@ def main() -> int:
                          "torch.cos on sc and sh made beforehand",
                   "fastfood": "the chain from torch calls on streams made "
                               "beforehand: kron two-torch.matmul WHT (TF32 "
-                              "off), gather, torch.cos"},
+                              "off), gather, torch.cos",
+                  "dense_batched": "torch.bmm against per-lane S made "
+                                   "beforehand (TF32 off)",
+                  "fastfood_batched": "the fastfood chain over the cohort "
+                                      "on streams made beforehand",
+                  "sparse": "one index_add_ of v·data at (row, h[col]) or "
+                            "(h[row], col), h and v gathered beforehand"},
          rows=rows)
 
     kernels = []
@@ -1034,7 +1646,8 @@ def main() -> int:
         cs = [checked[(name, tuple(r["shape"]), r["s_dim"])] for r in mine]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main["launches"][name],
+            "replaces": replaces,
+            "launches": main["launches"][name] + serve["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],
             "ms": head["ms"], "device_ms": head["device_ms"],

@@ -2,11 +2,11 @@
 
 Randomized numerical linear algebra on an NVIDIA Hopper GPU: seeded
 sketches whose operator is a pure function of (seed, counter), randomized
-SVD, sketch-and-solve least squares, and kernel random feature maps. The
-module tree mirrors the JAX package's (base/, sketch/, nla/, algorithms/,
-ml/); hand-written CUDA kernels
-live in csrc/ and are built by kernels/build.py. The package imports
-torch and numpy only.
+SVD, sketch-and-solve least squares, kernel random feature maps, sparse
+operands with LIBSVM IO, and a microbatch serving executor. The module
+tree mirrors the JAX package's (base/, sketch/, nla/, algorithms/, ml/,
+io/, engine/); hand-written CUDA kernels live in csrc/ and are built by
+kernels/build.py. The package imports torch, numpy and scipy only.
 
 Entry points run on the default device ("cuda"; see
 :func:`set_default_device`) unless a call passes ``device=``.
@@ -27,9 +27,10 @@ from libskylark_tpu_torch.base.device import (  # noqa: E402
     default_device,
     set_default_device,
 )
-from libskylark_tpu_torch import algorithms, ml, nla, sketch  # noqa: E402
+from libskylark_tpu_torch import (  # noqa: E402
+    algorithms, engine, io, ml, nla, sketch)
 
 __all__ = [
     "Context", "errors", "default_device", "set_default_device",
-    "algorithms", "ml", "nla", "sketch", "__version__",
+    "algorithms", "engine", "io", "ml", "nla", "sketch", "__version__",
 ]

@@ -41,6 +41,12 @@ class NLAError(SkylarkError):
     code = 109
 
 
+class IOError_(SkylarkError):
+    """Data IO error."""
+
+    code = 111
+
+
 class NotImplementedYetError(SkylarkError):
     """Declared in the API surface but not yet implemented."""
 

@@ -52,11 +52,27 @@ def chunk_keys(key, first: int, count: int) -> np.ndarray:
     """``chunk_key`` for ids first..first+count-1, as a uint32 (count, 2)
     array (one vectorized pass of the cipher on the host)."""
     k0, k1 = key_words(key)
+    return chunk_keys_batched(np.array([[k0, k1]]), first, count)[0]
+
+
+def chunk_keys_batched(keys, first: int, count: int) -> np.ndarray:
+    """:func:`chunk_keys` for each row of ``keys`` ((B, 2) uint32 words):
+    a (B, count, 2) uint32 array."""
+    k = np.asarray(keys).astype(np.int64)
     cids = np.arange(int(first), int(first) + int(count), dtype=np.int64)
     zero = np.zeros_like(cids)
-    h0, h1 = tf.threefry2x32(k0, k1, zero, cids >> 31)
+    h0, h1 = tf.threefry2x32(k[:, :1], k[:, 1:], zero, cids >> 31)
     b0, b1 = tf.threefry2x32(h0, h1, zero, cids & _MASK31)
-    return np.stack([b0, b1], axis=1).astype(np.uint32)
+    return np.stack([b0, b1], axis=2).astype(np.uint32)
+
+
+def fold_in_batched(keys, data) -> np.ndarray:
+    """``fold_in(k, d)`` for each row k of ``keys`` ((B, 2) uint32 words)
+    with ``data`` a scalar or a (B,) array: (B, 2) uint32."""
+    k = np.asarray(keys).astype(np.int64)
+    d = np.broadcast_to(np.asarray(data, dtype=np.int64), k.shape[:1])
+    x0, x1 = tf.threefry2x32(k[:, 0], k[:, 1], np.zeros_like(d), d)
+    return np.stack([x0, x1], axis=1).astype(np.uint32)
 
 
 def split_keys(keys):
@@ -306,6 +322,42 @@ def permutation(key, n: int, device=None) -> torch.Tensor:
         order = torch.sort(bits(sub, n, device), stable=True).indices
         x = x[order]
     return x
+
+
+def permutation_batched(keys, n: int, device=None) -> torch.Tensor:
+    """:func:`permutation` for each row of ``keys`` ((R, 2) uint32 words),
+    all rows at once: each round is one Threefry pass over the (R, n)
+    words and one row-wise stable sort. Returns (R, n) int64."""
+    n = int(n)
+    k = np.asarray(keys).astype(np.int64)
+    x = torch.arange(n, dtype=torch.int64, device=device).expand(
+        k.shape[0], n)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        k, sub = split_keys(k)
+        words = chunk_bits(torch.from_numpy(sub.astype(np.int64)).to(device),
+                           n)
+        x = torch.gather(x, 1, torch.sort(words, dim=1, stable=True).indices)
+    return x
+
+
+def stream_slice_batched(keys, dist: Distribution, start: int, stop: int,
+                         dtype=None, device=None) -> torch.Tensor:
+    """:func:`stream_slice` of each row of ``keys`` ((B, 2) uint32 words),
+    made in one pass over all rows: (B, stop − start) on ``device``."""
+    start, stop = int(start), int(stop)
+    B = np.asarray(keys).shape[0]
+    if stop <= start:
+        return torch.zeros((B, 0), dtype=dtype or torch.float32,
+                           device=device)
+    c0 = start // CHUNK
+    c1 = -(-stop // CHUNK)
+    ck = chunk_keys_batched(keys, c0, c1 - c0).reshape(-1, 2)
+    vals = dist.sample_chunks(
+        torch.from_numpy(ck.astype(np.int64)).to(device), CHUNK)
+    vals = vals.reshape(B, -1)[:, start - c0 * CHUNK:stop - c0 * CHUNK]
+    return vals if dtype is None else vals.to(dtype)
 
 
 def stream_slice(key, dist: Distribution, start: int, stop: int, dtype=None,

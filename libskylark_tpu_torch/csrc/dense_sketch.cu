@@ -8,6 +8,11 @@
 //   _kernel_cos / _kernel_pipe_cos, _apply_epilogue)
 //              out = outscale * cos((A * S^T) * inscale * sc + sh)
 //   where sc and sh are per-feature vectors indexed by the output column.
+//   batched (_batched_call -> _kernel_batched_rw / _kernel_batched_cw):
+//              out[b] = scale[b] * A[b] * S_b^T  or  scale[b] * S_b * A[b]
+//   over a stacked microbatch cohort, each lane b with its own key and
+//   scale: blockIdx.z is the lane, its two key words and its scale are
+//   read from device arrays, and A and out advance by one lane's extent.
 // S (s_dim x n) is the virtual dense-block operator of base/randgen.py. It
 // is generated here, tile by tile, from the transform's 2-word key and
 // never stored: each block derives block k's key chunk_key(key, k) on the
@@ -38,6 +43,13 @@
 // order with every product and sum rounded on its own (no FMA contraction)
 // and the accurate cosf (never build with --use_fast_math: phases reach
 // O(10)). The feature matrix is written once and never read back.
+//
+// Scale order: every variant multiplies the finished sum by the scale
+// (scale * (A * S^T)); the reference's batched kernel scales the
+// generated entries before the product. The two differ by rounding only.
+// In a batched launch the tile width is chosen from one lane's shape,
+// never from the lane count, so a lane's bits do not depend on how many
+// lanes share the launch (the serve layer's capacity invariance).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -141,8 +153,18 @@ __global__ void __launch_bounds__(kThreads, TILE == 64 ? 4 : 2)
 dense_sketch_kernel(const float* __restrict__ A, uint32_t key0, uint32_t key1,
                     float* __restrict__ out, int64_t m, int64_t n, int s_dim,
                     int64_t ld, float scale, const float* __restrict__ sc,
-                    const float* __restrict__ sh, float outscale) {
+                    const float* __restrict__ sh, float outscale,
+                    const uint32_t* __restrict__ keys, const float* __restrict__ scales,
+                    int64_t a_lane, int64_t out_lane) {
   constexpr int MICRO = TILE / 16;
+  if (keys != nullptr) {  // batched: lane blockIdx.z's key, scale and extents
+    const int64_t z = blockIdx.z;
+    key0 = keys[2 * z];
+    key1 = keys[2 * z + 1];
+    scale = scales[z];
+    A += z * a_lane;
+    out += z * out_lane;
+  }
   __shared__ __align__(16) float As[kBK][TILE + kPad];  // [k][index into m]
   __shared__ __align__(16) float Ss[kBK][TILE + kPad];  // [k][operator row]
 
@@ -232,25 +254,38 @@ dense_sketch_kernel(const float* __restrict__ A, uint32_t key0, uint32_t key1,
   }
 }
 
+// Lane arguments of a launch: keys (B, 2) and scales (B,) on the card, and
+// the per-lane strides of A and out; keys == nullptr for one lane whose key
+// and scale are arguments.
+struct Lanes {
+  const uint32_t* keys;
+  const float* scales;
+  int64_t count, a_lane, out_lane;
+};
+
 template <int TILE, bool ROWWISE, bool COS>
 cudaError_t launch_tile(const float* A, uint32_t key0, uint32_t key1, float* out, int64_t m,
                         int64_t n, int64_t s_dim, int64_t ld, int dist, float scale,
-                        const float* sc, const float* sh, float outscale,
+                        const float* sc, const float* sh, float outscale, Lanes ln,
                         cudaStream_t stream) {
-  const dim3 grid((unsigned)((m + TILE - 1) / TILE), (unsigned)((s_dim + TILE - 1) / TILE));
+  const dim3 grid((unsigned)((m + TILE - 1) / TILE), (unsigned)((s_dim + TILE - 1) / TILE),
+                  (unsigned)ln.count);
   const int s = (int)s_dim;
   switch (dist) {
     case kNormal:
       dense_sketch_kernel<TILE, ROWWISE, kNormal, COS><<<grid, kThreads, 0, stream>>>(
-          A, key0, key1, out, m, n, s, ld, scale, sc, sh, outscale);
+          A, key0, key1, out, m, n, s, ld, scale, sc, sh, outscale, ln.keys, ln.scales,
+          ln.a_lane, ln.out_lane);
       break;
     case kCauchy:
       dense_sketch_kernel<TILE, ROWWISE, kCauchy, COS><<<grid, kThreads, 0, stream>>>(
-          A, key0, key1, out, m, n, s, ld, scale, sc, sh, outscale);
+          A, key0, key1, out, m, n, s, ld, scale, sc, sh, outscale, ln.keys, ln.scales,
+          ln.a_lane, ln.out_lane);
       break;
     case kRademacher:
       dense_sketch_kernel<TILE, ROWWISE, kRademacher, COS><<<grid, kThreads, 0, stream>>>(
-          A, key0, key1, out, m, n, s, ld, scale, sc, sh, outscale);
+          A, key0, key1, out, m, n, s, ld, scale, sc, sh, outscale, ln.keys, ln.scales,
+          ln.a_lane, ln.out_lane);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -260,14 +295,16 @@ cudaError_t launch_tile(const float* A, uint32_t key0, uint32_t key1, float* out
 
 // 128-wide tiles when they give at least two blocks per SM, else 64-wide
 // ones (a thin output, e.g. the SVD range sketch or least squares' S*A,
-// would leave most SMs idle). The tile changes no sum order.
+// would leave most SMs idle). The tile changes no sum order. The choice
+// reads one lane's (m, s_dim), never the lane count.
 template <bool ROWWISE, bool COS>
 cudaError_t launch(const float* A, uint32_t key0, uint32_t key1, float* out, int64_t m, int64_t n,
                    int64_t s_dim, int64_t ld, int dist, float scale, const float* sc,
-                   const float* sh, float outscale, cudaStream_t stream) {
+                   const float* sh, float outscale, Lanes ln, cudaStream_t stream) {
   if (m <= 0 || n <= 0 || s_dim <= 0 || ld < (ROWWISE ? n : m) ||
       (s_dim + 63) / 64 > 65535 || (m + 63) / 64 > 0x7FFFFFFF ||
-      s_dim * kHalf > 0xFFFFFFFFLL || (COS && (sc == nullptr || sh == nullptr)))
+      s_dim * kHalf > 0xFFFFFFFFLL || (COS && (sc == nullptr || sh == nullptr)) ||
+      ln.count < 1 || ln.count > 65535 || (ln.count > 1 && ln.keys == nullptr))
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -277,10 +314,12 @@ cudaError_t launch(const float* A, uint32_t key0, uint32_t key1, float* out, int
   const int64_t big_tiles = ((m + 127) / 128) * ((s_dim + 127) / 128);
   if (big_tiles >= 2 * (int64_t)sms)
     return launch_tile<128, ROWWISE, COS>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, sc,
-                                          sh, outscale, stream);
+                                          sh, outscale, ln, stream);
   return launch_tile<64, ROWWISE, COS>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, sc, sh,
-                                       outscale, stream);
+                                       outscale, ln, stream);
 }
+
+constexpr Lanes kOneLane = {nullptr, nullptr, 1, 0, 0};
 
 }  // namespace
 
@@ -288,14 +327,14 @@ extern "C" int sk_dense_rowwise(const float* A, uint32_t key0, uint32_t key1, fl
                                 int64_t m, int64_t n, int64_t s_dim, int64_t ld,
                                 int dist, float scale, cudaStream_t stream) {
   return (int)launch<true, false>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, nullptr,
-                                  nullptr, 0.0f, stream);
+                                  nullptr, 0.0f, kOneLane, stream);
 }
 
 extern "C" int sk_dense_columnwise(const float* A, uint32_t key0, uint32_t key1, float* out,
                                    int64_t m, int64_t n, int64_t s_dim, int64_t ld,
                                    int dist, float scale, cudaStream_t stream) {
   return (int)launch<false, false>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, nullptr,
-                                   nullptr, 0.0f, stream);
+                                   nullptr, 0.0f, kOneLane, stream);
 }
 
 extern "C" int sk_dense_rowwise_cos(const float* A, uint32_t key0, uint32_t key1, const float* sc,
@@ -303,5 +342,21 @@ extern "C" int sk_dense_rowwise_cos(const float* A, uint32_t key0, uint32_t key1
                                     int64_t s_dim, int64_t ld, int dist, float inscale,
                                     float outscale, cudaStream_t stream) {
   return (int)launch<true, true>(A, key0, key1, out, m, n, s_dim, ld, dist, inscale, sc, sh,
-                                 outscale, stream);
+                                 outscale, kOneLane, stream);
+}
+
+// The batched sketch of a stacked cohort: A (B, m, n) rowwise -> out
+// (B, m, s_dim), or A (B, n, m) columnwise -> out (B, s_dim, m), lane b
+// under keys[2b], keys[2b + 1] and scaled by scales[b]; both arrays on the
+// card. Contiguous lanes (ld = n rowwise, m columnwise).
+extern "C" int sk_dense_batched(int rowwise, const float* A, const uint32_t* keys,
+                                const float* scales, float* out, int64_t B, int64_t m,
+                                int64_t n, int64_t s_dim, int dist, cudaStream_t stream) {
+  if (keys == nullptr || scales == nullptr) return (int)cudaErrorInvalidValue;
+  const Lanes ln = {keys, scales, B, m * n, m * s_dim};
+  if (rowwise)
+    return (int)launch<true, false>(A, 0u, 0u, out, m, n, s_dim, n, dist, 1.0f, nullptr,
+                                    nullptr, 0.0f, ln, stream);
+  return (int)launch<false, false>(A, 0u, 0u, out, m, n, s_dim, m, dist, 1.0f, nullptr, nullptr,
+                                   0.0f, ln, stream);
 }

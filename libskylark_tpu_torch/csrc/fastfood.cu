@@ -6,6 +6,12 @@
 //          -> scale * cos(. + shift)
 //   split  (_launch_split -> _kernel_pre, _kernel_post): the same chain cut
 //          at the gather; the caller gathers between the two kernels.
+//   batched (_launch_batched -> _kernel_batched): the fused chain over a
+//          stacked microbatch cohort, blockIdx.z the lane, each lane with
+//          its own streams at offset lane * nb * NB and its own (m, S)
+//          output block, written in block-major feature order and cut at
+//          S (what serve_features_batched gets after its moveaxis and
+//          slice).
 // It computes what FastRFT._features_rows computes (frft._chain_rows); it
 // is not a copy of the Pallas kernel's two kron dots. The streams arrive as
 // (nb, NB) device arrays, scal already folded into G and Sm and the shifts
@@ -79,11 +85,15 @@ __device__ __forceinline__ void stage_post(float* v, int NB, int b, int64_t r, i
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-fastfood_fused(const float* __restrict__ A, int64_t lda, int64_t d, int NB, int64_t m,
-               int64_t s_dim, const float* __restrict__ bdiag, const int32_t* __restrict__ perm,
-               const float* __restrict__ gdiag, const float* __restrict__ smdiag,
-               const float* __restrict__ shift, float scale, float* __restrict__ out) {
+// The whole chain for row blockIdx.x and Fastfood block blockIdx.y.
+__device__ __forceinline__ void fused_chain(const float* __restrict__ A, int64_t lda, int64_t d,
+                                            int NB, int64_t s_dim,
+                                            const float* __restrict__ bdiag,
+                                            const int32_t* __restrict__ perm,
+                                            const float* __restrict__ gdiag,
+                                            const float* __restrict__ smdiag,
+                                            const float* __restrict__ shift, float scale,
+                                            float* __restrict__ out) {
   extern __shared__ float smem[];
   float* u = smem;
   float* v = smem + NB;
@@ -95,6 +105,28 @@ fastfood_fused(const float* __restrict__ A, int64_t lda, int64_t d, int NB, int6
     v[j] = __fmul_rn(gdiag[off + j], u[perm[off + j]]);
   __syncthreads();
   stage_post(v, NB, b, r, s_dim, smdiag + off, shift + off, scale, out);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+fastfood_fused(const float* __restrict__ A, int64_t lda, int64_t d, int NB, int64_t m,
+               int64_t s_dim, const float* __restrict__ bdiag, const int32_t* __restrict__ perm,
+               const float* __restrict__ gdiag, const float* __restrict__ smdiag,
+               const float* __restrict__ shift, float scale, float* __restrict__ out) {
+  fused_chain(A, lda, d, NB, s_dim, bdiag, perm, gdiag, smdiag, shift, scale, out);
+}
+
+// Lane blockIdx.z of a stacked cohort: A (B, m, d), streams (B, nb, NB),
+// out (B, m, s_dim).
+__global__ void __launch_bounds__(kMaxThreads)
+fastfood_batched(const float* __restrict__ A, int64_t d, int NB, int nb, int64_t m,
+                 int64_t s_dim, const float* __restrict__ bdiag,
+                 const int32_t* __restrict__ perm, const float* __restrict__ gdiag,
+                 const float* __restrict__ smdiag, const float* __restrict__ shift, float scale,
+                 float* __restrict__ out) {
+  const int64_t z = blockIdx.z;
+  const int64_t so = z * nb * NB;
+  fused_chain(A + z * m * d, d, d, NB, s_dim, bdiag + so, perm + so, gdiag + so, smdiag + so,
+              shift + so, scale, out + z * m * s_dim);
 }
 
 // Split, first kernel: W[b, r, :] = H(B_b . x_r).
@@ -157,6 +189,23 @@ extern "C" int sk_fastfood_fused(const float* A, int64_t lda, int64_t m, int64_t
   if (err != cudaSuccess) return (int)err;
   fastfood_fused<<<dim3((unsigned)m, (unsigned)nb), threads_for(NB), bytes, stream>>>(
       A, lda, d, (int)NB, m, s_dim, bdiag, perm, gdiag, smdiag, shift, scale, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sk_fastfood_batched(const float* A, int64_t B, int64_t m, int64_t d, int64_t NB,
+                                   int64_t nb, int64_t s_dim, const float* bdiag,
+                                   const int32_t* perm, const float* gdiag, const float* smdiag,
+                                   const float* shift, float scale, float* out,
+                                   cudaStream_t stream) {
+  if (bad_geometry(m, NB, nb) || B < 1 || B > 65535 || d > NB || d < 1 ||
+      s_dim <= (nb - 1) * NB || s_dim > nb * NB)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = 2 * (size_t)NB * sizeof(float);
+  cudaError_t err = smem_attr(fastfood_batched, bytes);
+  if (err != cudaSuccess) return (int)err;
+  fastfood_batched<<<dim3((unsigned)m, (unsigned)nb, (unsigned)B), threads_for(NB), bytes,
+                     stream>>>(A, d, (int)NB, (int)nb, m, s_dim, bdiag, perm, gdiag, smdiag,
+                               shift, scale, out);
   return (int)cudaGetLastError();
 }
 

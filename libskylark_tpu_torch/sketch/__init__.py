@@ -5,7 +5,8 @@ FastGaussianRFT, the quasi-random QRFTs, PPT (TensorSketch), and the
 sampling UST."""
 
 from libskylark_tpu_torch.sketch import (cuda_dense, cuda_fastfood, cuda_fwht,
-                                         cuda_hash, fut, params)
+                                         cuda_hash, cuda_sparse, fut, params,
+                                         sparse_serve)
 from libskylark_tpu_torch.sketch.dense import CT, JLT, DenseTransform
 from libskylark_tpu_torch.sketch.fjlt import FJLT, RFUT
 from libskylark_tpu_torch.sketch.frft import (FastGaussianRFT, FastMaternRFT,
@@ -30,7 +31,8 @@ from libskylark_tpu_torch.sketch.ust import UST
 __all__ = [
     "COLUMNWISE", "ROWWISE", "Dimension", "SketchTransform",
     "deserialize_sketch", "register", "params", "cuda_dense",
-    "cuda_hash", "cuda_fwht", "cuda_fastfood", "fut", "DenseTransform",
+    "cuda_hash", "cuda_fwht", "cuda_fastfood", "cuda_sparse", "sparse_serve",
+    "fut", "DenseTransform",
     "JLT", "CT", "HashTransform", "CWT", "MMT", "WZT", "FJLT", "RFUT",
     "RFT", "GaussianRFT", "LaplacianRFT", "MaternRFT", "ExpSemigroupRLT",
     "FastRFT", "FastGaussianRFT", "FastMaternRFT", "QRFT", "GaussianQRFT",

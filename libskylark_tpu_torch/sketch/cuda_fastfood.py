@@ -1,8 +1,9 @@
 """Fastfood feature map: the wrappers of csrc/fastfood.cu, their plain
 version, and their launch counters.
 
-Replaces libskylark_tpu/sketch/pallas_fastfood.py (``_launch`` and
-``_launch_split``): for each row x of A (m, N) and block b,
+Replaces libskylark_tpu/sketch/pallas_fastfood.py (``_launch``,
+``_launch_split`` and ``_launch_batched``): for each row x of A (m, N)
+and block b,
 scale·cos((scal·Sm_b) ⊙ H((scal·G_b) ⊙ Π_b(H(B_b ⊙ x))) + shift_b), H the
 unnormalized Walsh–Hadamard transform of length NB (x zero-padded to NB),
 Π_b gathering ``out[j] = in[perm_b[j]]``, the features block-major and
@@ -15,10 +16,14 @@ Variants: ``"fused"`` (one kernel, the gather in shared memory; what
 ``"auto"`` means, since the card has no compiler that could refuse the
 gather) and ``"split"`` (a kernel up to the gather, ``torch.gather`` in
 the place of XLA's ``take_along_axis``, a kernel after it).
+:func:`serve_features_batched` runs the fused chain over a stacked serve
+cohort, each lane with its own transform's streams (made for all lanes at
+once by ``frft.serve_streams``), in one launch.
 
 Rules of the wrappers:
 
-- a CPU tensor takes the plain version, :func:`fastfood_plain`;
+- a CPU tensor takes the plain version, :func:`fastfood_plain` or
+  :func:`serve_features_plain`;
 - a CUDA tensor launches the kernel or raises — no fallback;
 - ``launches[...]`` counts kernel launches, nothing else.
 """
@@ -26,12 +31,14 @@ Rules of the wrappers:
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors
 
-launches = {"fastfood": 0, "fastfood_split": 0}
+launches = {"fastfood": 0, "fastfood_split": 0, "fastfood_batched": 0}
 
 # The largest block the kernel serves: one row's two NB-float buffers in
 # shared memory (csrc/fastfood.cu: kMaxNB).
@@ -79,8 +86,10 @@ def _load():
         lib.sk_fastfood_pre.argtypes = [p, i64, i64, i64, i64, i64, p, p, p]
         lib.sk_fastfood_post.argtypes = [p, i64, i64, i64, i64, p, p, p, f32,
                                          p, p]
+        lib.sk_fastfood_batched.argtypes = [p, i64, i64, i64, i64, i64, i64,
+                                            p, p, p, p, p, f32, p, p]
         for fn in (lib.sk_fastfood_fused, lib.sk_fastfood_pre,
-                   lib.sk_fastfood_post):
+                   lib.sk_fastfood_post, lib.sk_fastfood_batched):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -155,4 +164,111 @@ def apply_streams(A: torch.Tensor, streams, scale: float, s_dim: int,
                 gdiag.data_ptr(), smdiag.data_ptr(), sh.data_ptr(),
                 float(scale), out.data_ptr())
     launches["fastfood"] += 1
+    return out
+
+
+def serve_features_plain(key_data, A: torch.Tensor, n_dim: int, s_dim: int,
+                         fut: str = "wht", sm_kind: str = "ones",
+                         sm_param=None) -> torch.Tensor:
+    """The plain PyTorch version of the batched kernel:
+    ``frft.fastfood_serve_apply`` lane by lane."""
+    from libskylark_tpu_torch.sketch.frft import fastfood_serve_apply
+
+    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    return torch.stack([fastfood_serve_apply(
+        kd[i], A[i], n_dim=n_dim, s_dim=s_dim, fut=fut, sm_kind=sm_kind,
+        sm_param=sm_param) for i in range(A.shape[0])])
+
+
+def batched_streams(key_data, n_dim: int, s_dim: int, fut: str = "wht",
+                    sm_kind: str = "ones", sm_param=None, device=None):
+    """(bdiag, perms, gdiag, smdiag, shifts) of a cohort, each (B, nb, NB)
+    on ``device``, as the batched kernel takes them: the lanes' streams
+    made at once (``frft.serve_streams``), scal folded into G and Sm, the
+    permutations int32, the shifts zero-padded past S."""
+    from libskylark_tpu_torch.sketch.frft import block_geometry, serve_streams
+    from libskylark_tpu_torch.sketch.fut import make_fut
+
+    NB, nb = block_geometry(n_dim, s_dim, fut)
+    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    B = kd.shape[0]
+    scal = math.sqrt(NB) * make_fut(fut, NB).scale()
+    bdiag, gdiag, smdiag, perms, sh = serve_streams(
+        kd, torch.float32, NB=NB, nb=nb, s_dim=s_dim, sm_kind=sm_kind,
+        sm_param=sm_param, device=device)
+    sh = torch.nn.functional.pad(sh, (0, nb * NB - s_dim))
+    return (bdiag.contiguous(), perms.to(torch.int32).contiguous(),
+            (scal * gdiag).contiguous(),
+            (scal * smdiag).reshape(B, nb, NB).contiguous(),
+            sh.reshape(B, nb, NB).contiguous())
+
+
+def serve_features_batched(key_data, A: torch.Tensor, n_dim: int,
+                           s_dim: int, fut: str = "wht",
+                           sm_kind: str = "ones",
+                           sm_param=None) -> torch.Tensor:
+    """The (B, m, S) Fastfood features of a stacked cohort A (B, m, n_dim)
+    float32, lane b under the key ``key_data[b]`` ((B, 2) uint32 words):
+    the lanes' streams made at once on A's device
+    (:func:`batched_streams`), then one launch
+    (:func:`apply_streams_batched`)."""
+    from libskylark_tpu_torch.sketch.frft import block_geometry
+
+    NB, _ = block_geometry(n_dim, s_dim, fut)
+    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    if fut != "wht" or not supported(NB, A.dtype):
+        raise errors.UnsupportedError(
+            f"Fastfood kernel takes the wht core, a power-of-two NB <= "
+            f"{MAX_NB} and float32; got fut={fut!r}, NB={NB}, {A.dtype}")
+    if A.ndim != 3 or A.shape[2] != n_dim or kd.shape[0] != A.shape[0]:
+        raise errors.InvalidParametersError(
+            f"need a (B, m, {n_dim}) operand and B keys, got "
+            f"{tuple(A.shape)} and {kd.shape[0]} keys")
+    if A.device.type == "cpu":
+        return serve_features_plain(kd, A, n_dim, s_dim, fut, sm_kind,
+                                    sm_param)
+    if A.device.type != "cuda":
+        raise errors.UnsupportedError(
+            f"Fastfood kernel runs on CUDA or CPU, got {A.device}")
+    return apply_streams_batched(
+        A.contiguous(), batched_streams(kd, n_dim, s_dim, fut, sm_kind,
+                                        sm_param, A.device),
+        math.sqrt(2.0 / s_dim), s_dim)
+
+
+def apply_streams_batched(A: torch.Tensor, streams, scale: float,
+                          s_dim: int) -> torch.Tensor:
+    """The batched kernel on A (B, m, d) CUDA float32 and the (B, nb, NB)
+    streams of :func:`batched_streams`: one launch."""
+    bdiag, perms, gdiag, smdiag, sh = streams
+    B, m, d = A.shape
+    _, nb, NB = bdiag.shape
+    if A.device.type != "cuda":
+        raise errors.UnsupportedError(
+            f"Fastfood kernel runs on CUDA, got {A.device}")
+    if not A.is_contiguous() or A.dtype != torch.float32:
+        raise errors.InvalidParametersError(
+            "Fastfood kernel needs a contiguous float32 operand")
+    for t, dtype in zip(streams, (torch.float32, torch.int32) + (
+            torch.float32,) * 3):
+        if (t.shape != (B, nb, NB) or t.dtype != dtype
+                or t.device != A.device or not t.is_contiguous()):
+            raise errors.InvalidParametersError(
+                "Fastfood streams must be contiguous (B, numblks, NB) "
+                "tensors on the operand's device, as batched_streams makes "
+                "them")
+    if not (supported(NB, A.dtype) and d <= NB
+            and (nb - 1) * NB < s_dim <= nb * NB):
+        raise errors.InvalidParametersError(
+            f"Fastfood geometry: d={d}, NB={NB}, numblks={nb}, S={s_dim}")
+    out = torch.empty((B, m, s_dim), dtype=torch.float32, device=A.device)
+    if B == 0 or m == 0:
+        return out
+    from libskylark_tpu_torch.kernels import launch
+
+    launch.call(_load().sk_fastfood_batched, A.device, A.data_ptr(), B, m,
+                d, NB, nb, s_dim, bdiag.data_ptr(), perms.data_ptr(),
+                gdiag.data_ptr(), smdiag.data_ptr(), sh.data_ptr(),
+                float(scale), out.data_ptr())
+    launches["fastfood_batched"] += 1
     return out

@@ -7,7 +7,9 @@ with the sign diagonal D = Rademacher of sub-stream 0 and the sampled
 coordinates idx = UniformInt(0, n−1) of sub-stream 1 of the transform's
 key, in ``randgen.stream_slice``'s layout: the function the reference's
 ``fjlt.srht_serve_apply`` computes, and ``FJLT(n, s, fut="wht").apply``.
-n is a power of two ≥ 128 and s ≤ 2048.
+n is a power of two ≥ 128 and s ≤ 2048. :func:`srht_apply_batched` serves
+a stacked serve cohort with one launch per lane (the kernel has no lane
+axis yet).
 
 Rules of the wrappers:
 
@@ -21,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors, randgen
@@ -128,3 +131,22 @@ def srht_apply(key, A: torch.Tensor, s_dim: int,
                     fut_scale, samp_scale)
     launches["fwht_rowwise" if rowwise else "fwht_columnwise"] += 1
     return out
+
+
+def srht_apply_batched(key_data, A: torch.Tensor, s_dim: int,
+                       rowwise: bool) -> torch.Tensor:
+    """SRHT of a stacked serve cohort A (B, ., .), lane b under the key
+    ``key_data[b]`` ((B, 2) uint32 words): one :func:`srht_apply` per
+    lane, so one counted launch per lane on the card (the kernel has no
+    lane axis yet)."""
+    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    return torch.stack([srht_apply(kd[i], A[i], s_dim, rowwise)
+                        for i in range(A.shape[0])])
+
+
+def srht_apply_batched_plain(key_data, A: torch.Tensor, s_dim: int,
+                             rowwise: bool) -> torch.Tensor:
+    """The plain version of :func:`srht_apply_batched`, lane by lane."""
+    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    return torch.stack([srht_apply_plain(kd[i], A[i], s_dim, rowwise)
+                        for i in range(A.shape[0])])

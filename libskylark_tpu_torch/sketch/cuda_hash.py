@@ -8,7 +8,8 @@ value stream v = Rademacher of sub-stream 1 of the transform's key —
 ``randgen.stream_slice``'s layout, so the result equals the reference's
 ``hash.cwt_serve_apply``. The kernel adds each output's terms in
 increasing coordinate order, as the plain scatter does, and every v·a is
-exact: the two are bit-equal.
+exact: the two are bit-equal. :func:`cwt_apply_batched` serves a stacked
+serve cohort with one launch per lane (the kernel has no lane axis yet).
 
 Rules of the wrappers:
 
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors, randgen
@@ -122,3 +124,22 @@ def cwt_apply(key, A: torch.Tensor, s_dim: int,
                 A.shape[1], randgen.randint_multiplier(s_dim))
     launches["hash_rowwise" if rowwise else "hash_columnwise"] += 1
     return out
+
+
+def cwt_apply_batched(key_data, A: torch.Tensor, s_dim: int,
+                      rowwise: bool) -> torch.Tensor:
+    """CountSketch of a stacked serve cohort A (B, ., .), lane b under the
+    key ``key_data[b]`` ((B, 2) uint32 words): one :func:`cwt_apply` per
+    lane, so one counted launch per lane on the card (the kernel has no
+    lane axis yet)."""
+    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    return torch.stack([cwt_apply(kd[i], A[i], s_dim, rowwise)
+                        for i in range(A.shape[0])])
+
+
+def cwt_apply_batched_plain(key_data, A: torch.Tensor, s_dim: int,
+                            rowwise: bool) -> torch.Tensor:
+    """The plain version of :func:`cwt_apply_batched`, lane by lane."""
+    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    return torch.stack([cwt_apply_plain(kd[i], A[i], s_dim, rowwise)
+                        for i in range(A.shape[0])])

@@ -39,6 +39,21 @@ def virtual_panel(key, dist, s_dim: int, col_start: int, col_stop: int,
         key, dist, s_dim, col_start, col_stop, BLOCK_COLS, dtype, device)
 
 
+def serve_apply(key_data, scale, A: torch.Tensor, *, dist, s_dim: int,
+                rowwise: bool) -> torch.Tensor:
+    """One request's A·Sᵀ (rowwise) or S·A (columnwise) as a function of
+    the transform's raw key data ((2,) uint32) and its scale: the scaled
+    :func:`virtual_panel` over the operand's (padded) extent, then the
+    product. Zero padding past the transform's N is exact, since the
+    stream's first N columns do not depend on the panel's width. The
+    serve layer's plain program (the microbatch kernel's plain version
+    runs it lane by lane)."""
+    n = A.shape[1] if rowwise else A.shape[0]
+    S = virtual_panel(key_data, dist, s_dim, 0, n, float(scale), A.dtype,
+                      A.device)
+    return (A @ S.T) if rowwise else (S @ A)
+
+
 class DenseTransform(OperatorCache, SketchTransform):
     """Base: S = scale × i.i.d. matrix from ``dist``."""
 

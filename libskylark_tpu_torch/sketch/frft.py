@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors, randgen
@@ -60,6 +61,75 @@ def block_geometry(n_dim: int, s_dim: int, fut: str = "wht"
     return NB, 1 + (s_dim - 1) // NB
 
 
+def serve_streams(key_data, dtype=torch.float32, *, NB: int, nb: int,
+                  s_dim: int, sm_kind: str, sm_param, device=None):
+    """Every Fastfood stream of a cohort of transforms, as a function of
+    their raw keys ``key_data`` ((B, 2) uint32 words): (bdiag, gdiag,
+    smdiag, perms, shifts), shaped (B, nb, NB) (B, nb, NB) (B, nb·NB)
+    (B, nb, NB) (B, s_dim) — lane b bit-equal to the transform's ``_B``,
+    ``_G``, ``_Sm``, ``_perms`` and ``shifts`` (sub-streams 1, 2, the
+    Sm spec, 3 and 0). Made for all lanes at once: one Threefry pass per
+    stream over the lanes' chunk keys, and each permutation round one
+    row-wise stable sort over the B·nb block rows. ``sm_kind`` is
+    ``"ones"`` or ``"gauss"`` (``sm_param`` = σ); ``"matern"`` needs the
+    Gamma sampler, which is not ported, and raises."""
+    keys = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    B = keys.shape[0]
+
+    def sub(tag):
+        return randgen.fold_in_batched(keys, tag)
+
+    bdiag = randgen.stream_slice_batched(
+        sub(1), randgen.Rademacher(), 0, nb * NB, dtype, device
+    ).reshape(B, nb, NB)
+    gdiag = randgen.stream_slice_batched(
+        sub(2), randgen.Normal(), 0, nb * NB, dtype, device
+    ).reshape(B, nb, NB)
+    block_keys = randgen.fold_in_batched(np.repeat(sub(3), nb, axis=0),
+                                         np.tile(np.arange(nb), B))
+    perms = randgen.permutation_batched(block_keys, NB, device).reshape(
+        B, nb, NB)
+    shifts = randgen.stream_slice_batched(
+        sub(0), randgen.Uniform(0.0, 2.0 * math.pi), 0, s_dim, dtype, device)
+    if sm_kind == "ones":
+        smdiag = torch.ones((B, nb * NB), dtype=dtype, device=device)
+    elif sm_kind == "gauss":
+        smdiag = torch.full((B, nb * NB),
+                            1.0 / (float(sm_param) * math.sqrt(NB)),
+                            dtype=dtype, device=device)
+    elif sm_kind == "matern":
+        raise errors.NotImplementedYetError(
+            "the Matern Fastfood streams need the Gamma sampler "
+            "(jax.random.gamma), which is not ported yet")
+    else:
+        raise errors.InvalidParametersError(
+            f"unknown Sm spec kind {sm_kind!r}")
+    return bdiag, gdiag, smdiag, perms, shifts
+
+
+def fastfood_serve_apply(key_data, A: torch.Tensor, *, n_dim: int,
+                         s_dim: int, fut: str = "wht", sm_kind: str = "ones",
+                         sm_param=None) -> torch.Tensor:
+    """One request's (m, S) Fastfood features as a function of the
+    transform's raw key data ((2,) uint32) and static geometry, by the
+    torch chain. Rows are independent, so rows of zero padding leave the
+    real rows' features unchanged; A's column extent must be ``n_dim``."""
+    if A.shape[1] != n_dim:
+        raise errors.InvalidParametersError(
+            f"operand cols {A.shape[1]} != n_dim {n_dim}")
+    NB, nb = block_geometry(n_dim, s_dim, fut)
+    pad = NB - n_dim
+    Ap = torch.nn.functional.pad(A, (0, pad)) if pad else A
+    fut_obj = make_fut(fut, NB)
+    scal = math.sqrt(NB) * fut_obj.scale()
+    bdiag, gdiag, smdiag, perms, shifts = serve_streams(
+        key_data, A.dtype, NB=NB, nb=nb, s_dim=s_dim, sm_kind=sm_kind,
+        sm_param=sm_param, device=A.device)
+    return _chain_rows(Ap, bdiag[0], gdiag[0], smdiag[0], perms[0],
+                       shifts[0], math.sqrt(2.0 / s_dim), scal, NB, nb,
+                       lambda W: fut_obj.apply(W, axis=-1))
+
+
 class FastRFT(SketchTransform):
     """Base Fastfood transform: the WHT core by default, ``fut="dct"``
     for any N without padding."""
@@ -74,6 +144,11 @@ class FastRFT(SketchTransform):
         self._NB, self._numblks = block_geometry(self._N, self._S,
                                                  self._fut_name)
         self._fut = make_fut(self._fut_name, self._NB)
+
+    def _sm_spec(self) -> tuple:
+        """(kind, param) of the per-feature Sm scaling, as the serve layer
+        buckets on it and :func:`serve_streams` rebuilds it."""
+        return ("ones", None)
 
     @property
     def scale(self) -> float:
@@ -161,6 +236,9 @@ class FastGaussianRFT(FastRFT):
         v = 1.0 / (self._sigma * math.sqrt(self._NB))
         return torch.full((self._numblks * self._NB,), v, dtype=dtype,
                           device=device)
+
+    def _sm_spec(self) -> tuple:
+        return ("gauss", self._sigma)
 
     def _extra_params(self) -> dict[str, Any]:
         return {"sigma": self._sigma, "fut": self._fut_name}

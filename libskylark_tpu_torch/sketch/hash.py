@@ -12,17 +12,27 @@ dtypes take the plain scatter (``index_add_``), which on the CPU adds in
 increasing coordinate order. On a CUDA tensor ``index_add_`` adds with
 atomics in no fixed order, so there MMT, WZT and a CWT of a dtype other
 than float32 are neither ordered like the reference's ``segment_sum`` nor
-bit-stable from run to run. Sparse operands are not ported yet.
+bit-stable from run to run.
+
+Sparse operands (:class:`~libskylark_tpu_torch.base.sparse.SparseMatrix`)
+take an O(nnz) scatter over their nonzeros. A float32 CWT goes through
+the CSR-lane CountSketch kernel's route at one lane (sketch/cuda_sparse.py:
+kernel B3 on the card, its plain version on the CPU), which adds each
+output cell's terms in the reference's order; the other transforms and
+dtypes take ``index_add_`` over the COO triplets (CSC order), ordered on
+the CPU, unordered on CUDA. ``apply_sparse`` gives a sparse result, on the
+host. Distributed sparse operands are not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors, randgen
-from libskylark_tpu_torch.sketch import cuda_hash
+from libskylark_tpu_torch.sketch import cuda_hash, cuda_sparse, sparse_serve
 from libskylark_tpu_torch.sketch.transform import SketchTransform, register
 
 
@@ -73,6 +83,63 @@ class HashTransform(SketchTransform):
     def _apply_rowwise(self, A):
         return self._apply(A, rowwise=True)
 
+    # -- sparse input: O(nnz) scatter over the nonzeros --
+
+    def _sparse_kernel_serves(self, A) -> bool:
+        return False
+
+    def _apply_sparse_dense_out(self, A, device, rowwise: bool):
+        dtype = getattr(torch, np.dtype(A.device_dtype).name)
+        if self._sparse_kernel_serves(dtype):
+            data, indices, indptr = (torch.tensor(x, device=device)
+                                     for x in A.csr_parts())
+            rows = sparse_serve.csr_row_ids(indptr, data.shape[0])
+            return cuda_sparse.cwt_sparse_apply(
+                self._alloc.key, data, rows, indices, self._S, rowwise,
+                A.shape)
+        r, c, v = A.coo(device=device)
+        h = self.bucket_indices(device)
+        vs = self.values(v.dtype, device)
+        if rowwise:
+            flat = torch.zeros(A.height * self._S, dtype=v.dtype,
+                               device=device)
+            flat.index_add_(0, r * self._S + h[c], vs[c] * v)
+            return flat.view(A.height, self._S)
+        flat = torch.zeros(self._S * A.width, dtype=v.dtype, device=device)
+        flat.index_add_(0, h[r] * A.width + c, vs[r] * v)
+        return flat.view(self._S, A.width)
+
+    def _apply_columnwise_sparse(self, A, device):
+        return self._apply_sparse_dense_out(A, device, rowwise=False)
+
+    def _apply_rowwise_sparse(self, A, device):
+        return self._apply_sparse_dense_out(A, device, rowwise=True)
+
+    def apply_sparse(self, A, dimension=None):
+        """Sparse → sparse apply on the host: a :class:`SparseMatrix` with
+        duplicates summed, equal elementwise to ``apply``'s dense
+        result."""
+        from libskylark_tpu_torch.base.sparse import SparseMatrix, as_sparse
+        from libskylark_tpu_torch.sketch.transform import COLUMNWISE
+
+        A = as_sparse(A)
+        dimension = dimension or COLUMNWISE
+        n = A.height if dimension == COLUMNWISE else A.width
+        if n != self._N:
+            raise errors.SketchError(
+                f"{dimension.value} apply expects {self._N} "
+                f"{'rows' if dimension == COLUMNWISE else 'cols'}, got "
+                f"{A.shape}")
+        h = self.bucket_indices().numpy()
+        sp = A.to_scipy().tocoo()
+        v = self.values(getattr(torch, np.dtype(A.device_dtype).name)).numpy()
+        if dimension == COLUMNWISE:
+            return SparseMatrix.from_coo(h[sp.row], sp.col,
+                                         v[sp.row] * sp.data,
+                                         (self._S, A.width))
+        return SparseMatrix.from_coo(sp.row, h[sp.col], v[sp.col] * sp.data,
+                                     (A.height, self._S))
+
 
 @register
 class CWT(HashTransform):
@@ -86,6 +153,9 @@ class CWT(HashTransform):
 
     def _kernel_serves(self, A):
         return cuda_hash.supported(A.dtype)
+
+    def _sparse_kernel_serves(self, dtype):
+        return cuda_sparse.supported(dtype)
 
 
 @register

@@ -22,6 +22,7 @@ from libskylark_tpu_torch import __version__
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.context import Allocation, Context, fold_in
 from libskylark_tpu_torch.base.device import as_tensor, resolve_device
+from libskylark_tpu_torch.base.sparse import as_sparse, is_sparse_operand
 
 
 class Dimension(enum.Enum):
@@ -155,7 +156,22 @@ class SketchTransform:
               device=None) -> torch.Tensor:
         """COLUMNWISE: A is (N, m) -> (S, m). ROWWISE: A is (m, N) ->
         (m, S). ``A`` is a numpy array or tensor; the apply runs on
-        ``device`` (default: the package default device)."""
+        ``device`` (default: the package default device). A
+        :class:`~libskylark_tpu_torch.base.sparse.SparseMatrix` (or scipy
+        sparse) operand takes the transform's sparse apply and gives a
+        dense result."""
+        if is_sparse_operand(A) or _is_scipy_sparse(A):
+            A = as_sparse(A)
+            n = A.height if dimension == COLUMNWISE else A.width
+            if n != self._N:
+                raise errors.SketchError(
+                    f"{dimension.value} apply expects {self._N} "
+                    f"{'rows' if dimension == COLUMNWISE else 'cols'}, got "
+                    f"{A.shape}")
+            d = resolve_device(device)
+            if dimension == COLUMNWISE:
+                return self._apply_columnwise_sparse(A, d)
+            return self._apply_rowwise_sparse(A, d)
         A = as_tensor(A, device)
         if A.ndim == 1:
             A = A[:, None] if dimension == COLUMNWISE else A[None, :]
@@ -178,6 +194,14 @@ class SketchTransform:
     def _apply_rowwise(self, A: torch.Tensor) -> torch.Tensor:
         raise errors.NotImplementedYetError(
             f"{self.sketch_type}: rowwise apply not implemented")
+
+    def _apply_columnwise_sparse(self, A, device) -> torch.Tensor:
+        raise errors.NotImplementedYetError(
+            f"{self.sketch_type}: columnwise sparse apply not implemented")
+
+    def _apply_rowwise_sparse(self, A, device) -> torch.Tensor:
+        raise errors.NotImplementedYetError(
+            f"{self.sketch_type}: rowwise sparse apply not implemented")
 
     def _extra_params(self) -> dict[str, Any]:
         """Transform-specific hyper-params to serialize."""
@@ -206,6 +230,14 @@ class SketchTransform:
 
     def __repr__(self) -> str:
         return f"{self.sketch_type}(N={self._N}, S={self._S})"
+
+
+def _is_scipy_sparse(A) -> bool:
+    if type(A).__module__.split(".")[0] != "scipy":
+        return False
+    import scipy.sparse as sp
+
+    return sp.issparse(A)
 
 
 def deserialize_sketch(obj: Union[str, dict[str, Any]]) -> SketchTransform:

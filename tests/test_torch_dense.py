@@ -89,7 +89,9 @@ def test_plain_version_matches_interpreted_pallas_kernel(family, rowwise, n,
     _close(got, want)
     assert cuda_dense.launches == {"dense_rowwise": 0,
                                    "dense_columnwise": 0,
-                                   "dense_rowwise_cos": 0}
+                                   "dense_rowwise_cos": 0,
+                                   "dense_batched_rowwise": 0,
+                                   "dense_batched_columnwise": 0}
 
 
 @pytest.mark.parametrize("rowwise", [True, False])
@@ -150,7 +152,9 @@ def test_cpu_tensor_leaves_launch_counters_at_zero():
     T.apply(_operand(512, 4, rowwise=True), sk.ROWWISE, device="cpu")
     assert cuda_dense.launches == {"dense_rowwise": 0,
                                    "dense_columnwise": 0,
-                                   "dense_rowwise_cos": 0}
+                                   "dense_rowwise_cos": 0,
+                                   "dense_batched_rowwise": 0,
+                                   "dense_batched_columnwise": 0}
 
 
 def test_dispatch_rule_is_the_reference_rule():
@@ -235,4 +239,6 @@ def test_cuda_device_without_a_card_raises():
         T.apply(A, sk.COLUMNWISE)  # the package default is "cuda"
     assert cuda_dense.launches == {"dense_rowwise": 0,
                                    "dense_columnwise": 0,
-                                   "dense_rowwise_cos": 0}
+                                   "dense_rowwise_cos": 0,
+                                   "dense_batched_rowwise": 0,
+                                   "dense_batched_columnwise": 0}

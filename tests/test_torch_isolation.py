@@ -46,7 +46,9 @@ def test_port_and_chip_smoke_import_no_jax():
                 "algorithms.krylov", "algorithms.precond", "interop",
                 "sketch.rft", "sketch.frft", "sketch.cuda_fastfood",
                 "sketch.qrft", "sketch.ppt", "sketch.ust", "base.quasirand",
-                "base.distance", "ml.kernels"):
+                "base.distance", "ml.kernels", "base.sparse", "io.libsvm",
+                "engine.bucket", "engine.serve", "sketch.sparse_serve",
+                "sketch.cuda_sparse"):
         assert f"libskylark_tpu_torch.{mod}" in report["modules"]
 
 
