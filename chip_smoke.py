@@ -12,7 +12,9 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             version on the same inputs, at main-path, aligned and ragged
             shapes:
             - dense (B1): three distributions, max|kernel − plain| ≤
-              1e-4·max|plain|;
+              1e-4·max|plain|, and Cauchy draws entry by entry,
+              |kernel − plain| ≤ 1e-4·(|S|·|A|) (the heavy tail puts
+              max|plain| far above a typical entry);
             - hash (B2): bit-equal (torch.equal) to the plain scatter run
               on a CPU copy of the operand, also at a span that is not a
               power of two (s = 300) and at ragged n;
@@ -23,9 +25,10 @@ chip_smoke.py``. In order, each phase printing one JSON line:
               4096, d = 1000 → 3000 (padding, 3 blocks, truncation), an
               odd log2 NB (d = 2048) and m = 37;
             - batched (B1-batched, B4-batched): the serve buckets' capacity-8
-              stacks and ragged lanes zero-padded into them, ≤
-              1e-4·max|plain| against the per-lane serve program, and every
-              lane bit-equal to a launch of that lane alone;
+              stacks (the ct-cw shape with Cauchy and with Normal draws) and
+              ragged lanes zero-padded into them, against the per-lane
+              serve program with B1's limits, and every lane bit-equal to a
+              launch of that lane alone;
             - sparse (B3): CSR lanes at config 2's shape (rcv1.binary:
               47,236 features, 0.16% dense) both ways, s = 300 and s = 7,
               bit-equal to the plain scatter on a CPU copy, every lane
@@ -55,9 +58,9 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             dense) from 4 threads into one MicrobatchExecutor(max_batch=8,
             linger_us=5000), warm-up storm then a measured one with the
             launch counters set to 0 before and read after; every request
-            held to its capacity-1 plain flush (≤ 1e-4·max|plain|; CWT
-            torch.equal on the CPU) and bit-equal to its capacity-1 kernel
-            flush; then each bucket's flush cell (warm ms, device ms, busy);
+            held to its capacity-1 plain flush (≤ 1e-4·max|plain|, CT's
+            Cauchy draws entry by entry; CWT torch.equal on the CPU) and
+            bit-equal to its capacity-1 kernel flush; then each bucket's flush cell (warm ms, device ms, busy);
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes; every timed call of a kernel
@@ -66,7 +69,9 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             are made outside them, are timed on streams made beforehand,
             and their wrappers with new streams per call beside them); the
             serve kernels at their buckets' capacity-8 shapes;
-6. the ``{"kernels": [...]}`` line, the card's name and power limit, and
+6. the ``{"kernels": [...]}`` line (``max_abs_err``: the worst of every
+   check at the kernel's main-path shapes, all distributions and ragged
+   variants), the card's name and power limit, and
    ``{"ok": true, ...}`` as the last line.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -86,6 +91,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-4  # the reference's oracle, relative to max|plain|
+CHECK_TOLERANCE = (f"max|kernel-plain| <= {TOL} * max|plain|; Cauchy draws "
+                   f"entry by entry: |kernel-plain| <= {TOL} * (|S|·|A|)")
 # The kernels sum over n in another order than cuBLAS (n = 8192 gives
 # ≈ √n·2⁻²⁴ ≈ 5e-6 relative) and CUDA's log1pf/tanf may round an entry
 # differently from torch's by ~1e-7 relative: both far inside 1e-4.
@@ -200,22 +207,38 @@ def lstsq_residual(torch, A, b) -> float:
     return float(torch.linalg.norm(A.double() @ x[:, 0] - b.double()))
 
 
-def compare(torch, cd, key, dist, A, s_dim, scale, rowwise):
-    """Max abs and relative error of one wrapper call against the plain
-    version on the same inputs."""
-    fn = cd.rowwise_apply if rowwise else cd.columnwise_apply
-    got = fn(key, dist, A, s_dim, scale)
-    want = cd.dense_apply_plain(key, dist, A, s_dim, scale, rowwise)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), "kernel output not finite")
-    err = float((got - want).abs().max())
-    ref = float(want.abs().max())
-    return err, err / ref
+def elementwise_limit(torch, key, dist, A, s_dim, scale, rowwise):
+    """TOL·(|A|·|S|ᵀ) rowwise, TOL·(|S|·|A|) columnwise, in float64: per
+    output entry, TOL times the sum of its terms' magnitudes, which bounds
+    the rounding of any summation order. It is the limit for Cauchy
+    draws, whose heavy tail puts max|plain| far above a typical entry."""
+    from libskylark_tpu_torch.sketch.dense import virtual_panel
+
+    n = A.shape[1] if rowwise else A.shape[0]
+    S = virtual_panel(key, dist, s_dim, 0, n, scale,
+                      device=A.device).double().abs()
+    Aa = A.double().abs()
+    return TOL * ((Aa @ S.T) if rowwise else (S @ Aa))
 
 
-def check_kernels(torch, P, cases) -> dict:
-    """Phase 3: every case against the plain version; returns the worst
-    error per (kernel, shape)."""
+def held(torch, got, want, limit=None) -> dict:
+    """``got`` against ``want``: max abs and relative error, and ok by
+    max|got-want| <= TOL·max|plain|, or entry by entry within ``limit``
+    when one is given (its worst share of the limit reported too)."""
+    diff = (got - want).abs()
+    err = float(diff.max())
+    rel = err / float(want.abs().max())
+    if limit is None:
+        return {"max_abs_err": err, "max_rel_err": rel, "ok": rel <= TOL}
+    return {"max_abs_err": err, "max_rel_err": rel,
+            "max_err_over_limit": float(
+                (diff.double() / limit.clamp_min(1e-300)).max()),
+            "ok": bool((diff.double() <= limit).all())}
+
+
+def check_kernels(torch, P, cases) -> list:
+    """Phase 3: every case against the plain version; Cauchy cases entry
+    by entry within :func:`elementwise_limit`."""
     from libskylark_tpu_torch.base import randgen
     from libskylark_tpu_torch.sketch import cuda_dense as cd
 
@@ -226,21 +249,24 @@ def check_kernels(torch, P, cases) -> dict:
         rowwise = name == "dense_rowwise"
         key = P.Context(100 + i).allocate().key
         A = make_operand(torch, shape, 1000 + i)
-        err, rel = compare(torch, cd, key, dists[dist], A, s_dim,
-                           1.0 / math.sqrt(s_dim), rowwise)
+        d, scale = dists[dist], 1.0 / math.sqrt(s_dim)
+        fn = cd.rowwise_apply if rowwise else cd.columnwise_apply
+        got = fn(key, d, A, s_dim, scale)
+        want = cd.dense_apply_plain(key, d, A, s_dim, scale, rowwise)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "kernel output not finite")
+        limit = (elementwise_limit(torch, key, d, A, s_dim, scale, rowwise)
+                 if dist == "cauchy" else None)
         results.append({"kernel": name, "dist": dist, "shape": list(shape),
-                        "s_dim": s_dim, "max_abs_err": err,
-                        "max_rel_err": rel, "ok": rel <= TOL})
-        del A
-    emit("check", tolerance=f"max|kernel-plain| <= {TOL} * max|plain|",
-         cases=results)
+                        "s_dim": s_dim, **held(torch, got, want, limit)})
+        del A, got, want, limit
+    emit("check", tolerance=CHECK_TOLERANCE, cases=results)
     bad = [r for r in results if not r["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
-    return {(r["kernel"], tuple(r["shape"]), r["s_dim"], r["dist"]): r
-            for r in results}
+    return results
 
 
-def check_hash(torch, P, cases) -> dict:
+def check_hash(torch, P, cases) -> list:
     """Phase 3, B2: each case bit-equal to the plain scatter on a CPU
     copy of the operand (which adds in increasing coordinate order; CUDA's
     index_add_ uses atomics and has no order)."""
@@ -261,10 +287,10 @@ def check_hash(torch, P, cases) -> dict:
                             "CPU copy", cases=results)
     bad = [r for r in results if not r["bit_equal"]]
     check(not bad, f"CountSketch kernel differs from its plain version: {bad}")
-    return {(r["kernel"], tuple(r["shape"]), r["s_dim"]): r for r in results}
+    return results
 
 
-def check_fwht(torch, P, cases) -> dict:
+def check_fwht(torch, P, cases) -> list:
     """Phase 3, B5: dyadic cases bit-equal to the plain version on the
     card, Gaussian ones within TOL·max|plain|."""
     from libskylark_tpu_torch.sketch import cuda_fwht as cf
@@ -295,10 +321,10 @@ def check_fwht(torch, P, cases) -> dict:
          cases=results)
     bad = [r for r in results if not r["ok"]]
     check(not bad, f"SRHT kernel disagrees with its plain version: {bad}")
-    return {(r["kernel"], tuple(r["shape"]), r["s_dim"]): r for r in results}
+    return results
 
 
-def check_cos(torch, P, cases) -> dict:
+def check_cos(torch, P, cases) -> list:
     """Phase 3, B1-cos: each case against rft_apply_plain on the same
     inputs, with random per-feature scales and shifts (they are indexed by
     the output column), inscale 1/√n and outscale √(2/s)."""
@@ -328,10 +354,10 @@ def check_cos(torch, P, cases) -> dict:
                             "max|plain|", cases=results)
     bad = [r for r in results if not r["ok"]]
     check(not bad, f"cos kernel disagrees with its plain version: {bad}")
-    return {(r["kernel"], tuple(r["shape"]), r["s_dim"]): r for r in results}
+    return results
 
 
-def check_fastfood(torch, P, cases) -> dict:
+def check_fastfood(torch, P, cases) -> list:
     """Phase 3, B4 and B4-split: each case's FastGaussianRFT (σ = √d)
     through both variants against fastfood_plain, the torch chain, on the
     same operand."""
@@ -361,7 +387,7 @@ def check_fastfood(torch, P, cases) -> dict:
          cases=results)
     bad = [r for r in results if not r["ok"]]
     check(not bad, f"Fastfood kernel disagrees with its plain version: {bad}")
-    return {(r["kernel"], tuple(r["shape"]), r["s_dim"]): r for r in results}
+    return results
 
 
 def counters():
@@ -971,7 +997,7 @@ def new_keys(np, ctx, B: int):
     return np.stack([ctx.allocate().key for _ in range(B)])
 
 
-def check_batched(torch, P, np) -> dict:
+def check_batched(torch, P, np) -> list:
     """Phase 3, B1-batched and B4-batched: each cohort against the plain
     version (the per-lane serve program) on the same stacked lanes, ≤
     TOL·max|plain|, with ragged lanes zero-padded into the stack; and
@@ -1006,15 +1032,17 @@ def check_batched(torch, P, np) -> dict:
                  for b in range(B)]
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"{name} output not finite")
-        err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
+        limit = (torch.stack([
+            elementwise_limit(torch, kd[b], d, A[b], s_dim, float(scale[b]),
+                              rowwise) for b in range(B)])
+            if dist == "cauchy" else None)
+        h = held(torch, got, want, limit)
         inv = all(bool(torch.equal(got[b], alone[b])) for b in range(B))
         results.append({"kernel": name, "dist": dist,
                         "shape": [B, *shape], "s_dim": s_dim,
-                        "ragged": ragged, "max_abs_err": err,
-                        "max_rel_err": rel, "capacity_invariant": inv,
-                        "ok": rel <= TOL and inv})
-        del A, got, want, alone
+                        "ragged": ragged, **h, "capacity_invariant": inv,
+                        "ok": h["ok"] and inv})
+        del A, got, want, alone, limit
     for i, (B, m, d, s_dim) in enumerate(FASTFOOD_BATCHED_CASES):
         kd = new_keys(np, P.Context(650 + i), B)
         A = make_operand(torch, (B, m, d), 6500 + i)
@@ -1034,15 +1062,15 @@ def check_batched(torch, P, np) -> dict:
                         "max_rel_err": rel, "capacity_invariant": inv,
                         "ok": rel <= TOL and inv})
         del A, got, want, alone
-    emit("check", tolerance=f"B1-batched, B4-batched: max|kernel-plain| <= "
-                            f"{TOL} * max|plain|; each lane torch.equal to "
-                            "its launch alone", cases=results)
+    emit("check", tolerance=f"B1-batched, B4-batched: {CHECK_TOLERANCE}; "
+                            "each lane torch.equal to its launch alone",
+         cases=results)
     bad = [r for r in results if not r["ok"]]
     check(not bad, f"batched kernel disagrees: {bad}")
-    return {(r["kernel"], tuple(r["shape"]), r["s_dim"]): r for r in results}
+    return results
 
 
-def check_sparse(torch, P, np) -> dict:
+def check_sparse(torch, P, np) -> list:
     """Phase 3, B3: each cohort of CSR lanes bit-equal (torch.equal) to
     the plain scatter on a CPU copy of the lanes (it adds in CSR row-major
     order; CUDA's index_add_ is atomic), and every lane bit-equal to a
@@ -1081,7 +1109,7 @@ def check_sparse(torch, P, np) -> dict:
     bad = [r for r in results
            if not (r["bit_equal"] and r["capacity_invariant"])]
     check(not bad, f"sparse CountSketch kernel disagrees: {bad}")
-    return {(r["kernel"], tuple(r["shape"]), r["s_dim"]): r for r in results}
+    return results
 
 
 def serve_requests(torch, np) -> list:
@@ -1178,10 +1206,12 @@ def serve_phase(torch, P, np) -> dict:
     linger_us=5000) on the card, once to warm up and once measured, with
     every launch counter set to 0 just before the measured storm and read
     just after. Then each request's result is held to its own capacity-1
-    flush with kernel="plain" (on the card, ≤ TOL·max|plain|; for CWT on
-    the CPU, torch.equal) and to its own capacity-1 flush through the
+    flush with kernel="plain" (on the card, ≤ TOL·max|plain|, the CT's
+    Cauchy draws entry by entry within :func:`elementwise_limit`; for CWT
+    on the CPU, torch.equal) and to its own capacity-1 flush through the
     kernel (torch.equal: capacity invariance)."""
-    from libskylark_tpu_torch import engine
+    from libskylark_tpu_torch import engine, sketch as sk
+    from libskylark_tpu_torch.base import randgen
 
     reqs = serve_requests(torch, np)
     names = sorted({r[0] for r in reqs})
@@ -1236,7 +1266,7 @@ def serve_phase(torch, P, np) -> dict:
                                    device="cuda") as plain, \
             engine.MicrobatchExecutor(max_batch=1, device="cpu") as cpu, \
             engine.MicrobatchExecutor(max_batch=1, device="cuda") as one:
-        worst = {}
+        worst, over = {}, {}
         for (b, e, T, A, dim), got in zip(reqs, results):
             alone = submit(one, e, T, A, dim).result(timeout=300)
             check(bool(torch.equal(got, alone)),
@@ -1249,13 +1279,21 @@ def serve_phase(torch, P, np) -> dict:
                 err = float((got.cpu() - want).abs().max())
             else:
                 want = submit(plain, e, T, A, dim).result(timeout=300)
-                err = float((got - want).abs().max())
-                ok = err <= TOL * float(want.abs().max())
+                limit = None
+                if isinstance(getattr(T, "dist", None), randgen.Cauchy):
+                    limit = elementwise_limit(
+                        torch, T.allocation.key, T.dist, A, T.sketch_dim,
+                        float(T.scale), dim == sk.ROWWISE)
+                h = held(torch, got, want, limit)
+                ok, err = h["ok"], h["max_abs_err"]
+                if limit is not None:
+                    over[b] = max(over.get(b, 0.0), h["max_err_over_limit"])
             check(ok and tuple(got.shape) == tuple(want.shape),
                   f"{b}: served result disagrees with its plain flush "
                   f"(max abs err {err})")
             worst[b] = max(worst.get(b, 0.0), err)
     out["max_abs_err_vs_plain"] = worst
+    out["max_err_over_elementwise_limit"] = over
     emit("serve", **out)
     return out
 
@@ -1441,11 +1479,13 @@ def wht_chain_batched(torch, A, streams, scale, s_dim):
 
 
 # (kernel, dist, B, one lane's shape, s_dim, ragged): the dense-rw and
-# ct-cw buckets' capacity-8 shapes, then ragged lanes padded into the
-# stack and a small uneven case
+# ct-cw buckets' capacity-8 shapes (the first two are timed), ct-cw's
+# shape with Normal draws, then ragged lanes padded into the stack and
+# small uneven cases
 BATCHED_CASES = [
     ("dense_batched_rowwise", "normal", 8, (2048, 8192), 1024, False),
     ("dense_batched_columnwise", "cauchy", 8, (8192, 128), 1024, False),
+    ("dense_batched_columnwise", "normal", 8, (8192, 128), 1024, False),
     ("dense_batched_rowwise", "normal", 8, (2048, 8192), 1024, True),
     ("dense_batched_columnwise", "cauchy", 8, (8192, 128), 1024, True),
     ("dense_batched_rowwise", "cauchy", 3, (37, 700), 48, True),
@@ -1595,14 +1635,12 @@ def main() -> int:
 
     import numpy as np
 
-    checked = {(k[0], k[1], k[2]): v
-               for k, v in check_kernels(torch, P, check_cases()).items()}
-    checked.update(check_hash(torch, P, HASH_CASES))
-    checked.update(check_fwht(torch, P, FWHT_CASES))
-    checked.update(check_cos(torch, P, COS_CASES))
-    checked.update(check_fastfood(torch, P, FASTFOOD_CASES))
-    checked.update(check_batched(torch, P, np))
-    checked.update(check_sparse(torch, P, np))
+    checked = (check_kernels(torch, P, check_cases())
+               + check_hash(torch, P, HASH_CASES)
+               + check_fwht(torch, P, FWHT_CASES)
+               + check_cos(torch, P, COS_CASES)
+               + check_fastfood(torch, P, FASTFOOD_CASES)
+               + check_batched(torch, P, np) + check_sparse(torch, P, np))
     main = main_path(torch, P)
     serve = serve_phase(torch, P, np)
     emit("serve_cells", cells=serve_cells(torch, np))
@@ -1642,8 +1680,12 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name and r["main_path"]]
         head = mine[0]
-        # the worst check over this kernel's main-path shapes
-        cs = [checked[(name, tuple(r["shape"]), r["s_dim"])] for r in mine]
+        # the worst check at this kernel's main-path shapes, over every
+        # distribution and ragged variant checked there
+        at = {(tuple(r["shape"]), r["s_dim"]) for r in mine}
+        cs = [c for c in checked if c["kernel"] == name
+              and (tuple(c["shape"]), c["s_dim"]) in at]
+        check(bool(cs), f"{name}: no check at its main-path shapes")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -3,7 +3,8 @@
 The port of libskylark_tpu/base/sparse.py's ``SparseMatrix``. The matrix
 is immutable and its CSC buffers live in numpy (construction attaches
 scipy buffers without a copy where it can); ``coo`` and ``todense`` place
-it on a device as torch tensors. ``csr_parts`` gives the canonical CSR
+it on a device as torch tensors, the package default device unless the
+caller names one. ``csr_parts`` gives the canonical CSR
 form — row-major, sorted column indices, duplicates summed — whose
 nonzero order the sparse serve endpoints accumulate in. The sparse×dense
 products (``spmm``, ``spmm_t``, ``gemm``) are not ported yet.
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors
+from libskylark_tpu_torch.base.device import resolve_device
 
 
 class SparseMatrix:
@@ -131,9 +133,10 @@ class SparseMatrix:
     # -- conversions --
 
     def coo(self, dtype=None, device=None):
-        """(rows, cols, vals) as tensors on ``device`` (CPU by default):
-        int64 coordinates in CSC order, values in ``dtype`` (default
-        :attr:`device_dtype`)."""
+        """(rows, cols, vals) as tensors on ``device`` (the package
+        default device unless given): int64 coordinates in CSC order,
+        values in ``dtype`` (default :attr:`device_dtype`)."""
+        device = resolve_device(device)
         eff = np.dtype(dtype) if dtype is not None else self.device_dtype
         cols = np.repeat(np.arange(self.width, dtype=np.int64),
                          np.diff(self._colptr))
@@ -156,6 +159,8 @@ class SparseMatrix:
         return np.asarray(data, dtype=eff), indices, indptr
 
     def todense(self, dtype=None, device=None) -> torch.Tensor:
+        """The dense matrix on ``device`` (the package default device
+        unless given)."""
         r, c, v = self.coo(dtype, device)
         out = torch.zeros(self._shape, dtype=v.dtype, device=v.device)
         return out.index_put_((r, c), v, accumulate=True)

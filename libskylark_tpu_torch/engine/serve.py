@@ -330,14 +330,10 @@ def run_flush(ctx: dict, route: str, kd: np.ndarray, scale: np.ndarray,
         data, indices, indptr = (arrays["data"], arrays["indices"],
                                  arrays["indptr"])
         if family == "CWT":
-            if kernel:
-                rows = sparse_serve.csr_row_ids(indptr, data.shape[1])
-                return cuda_sparse.cwt_sparse_apply_batched(
-                    kd, data, rows, indices, s_dim, rowwise, ctx["padded"])
-            return torch.stack([sparse_serve.cwt_sparse_serve_apply(
-                kd[i], data[i], indices[i], indptr[i], s_dim=s_dim,
-                rowwise=rowwise, shape=ctx["padded"])
-                for i in range(data.shape[0])])
+            rows = sparse_serve.csr_row_ids(indptr, data.shape[1])
+            fn = (cuda_sparse.cwt_sparse_apply_batched if kernel
+                  else cuda_sparse.cwt_sparse_plain)
+            return fn(kd, data, rows, indices, s_dim, rowwise, ctx["padded"])
         A = sparse_serve.scatter_dense(data, indices, indptr,
                                        shape=ctx["padded"])
     fn = (cuda_dense.serve_batched_apply if kernel
@@ -777,15 +773,18 @@ class MicrobatchExecutor:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         now = time.monotonic()
+        done = 0
         for i, r in enumerate(cohort):
             try:
                 r.future.set_result(_unpad(endpoint, out, i, r))
+                done += 1
             except Exception as e:  # noqa: BLE001 — reaches its future
                 if not r.future.done():
                     r.future.set_exception(e)
         with self._stats_lock:
             self._counts["flushes"] += 1
-            self._counts["completed"] += k
+            self._counts["completed"] += done
+            self._counts["failed"] += k - done
             if k > 1:
                 self._counts["coalesced"] += k
             self._kernel_sel[route] += 1
@@ -801,7 +800,7 @@ class MicrobatchExecutor:
             self._pad_total += pad_total
             self._pad_real += pad_real
             obs = self._by_bucket.setdefault(b.key, collections.Counter())
-            obs.update(flushes=1, requests=k, capacity=capacity,
+            obs.update(flushes=1, requests=done, capacity=capacity,
                        pad_real=pad_real, pad_total=pad_total)
             for r in cohort:
                 self._latency.append(now - r.t_submit)

@@ -5,6 +5,8 @@ key on the card, so a launch needs no table from the host."""
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from libskylark_tpu_torch.base import errors
@@ -19,3 +21,13 @@ def call(fn, device, *args) -> None:
     if rc != 0:
         raise errors.SketchError(
             f"{fn.__name__} launch failed: CUDA error {rc}")
+
+
+_count_lock = threading.Lock()
+
+
+def count(launches: dict, name: str) -> None:
+    """Add one launch of ``name`` to a wrapper's counter dict; the serve
+    executor's worker threads launch concurrently."""
+    with _count_lock:
+        launches[name] += 1

@@ -141,7 +141,8 @@ def _apply(key, dist, A, s_dim: int, scale: float, precision, rowwise: bool):
     launch.call(fn, A.device, A.data_ptr(), *key_words(key), out.data_ptr(),
                 m, n, s_dim, A.shape[1], _DIST_KINDS[type(dist)],
                 float(scale))
-    launches["dense_rowwise" if rowwise else "dense_columnwise"] += 1
+    launch.count(launches,
+                 "dense_rowwise" if rowwise else "dense_columnwise")
     return out
 
 
@@ -182,7 +183,7 @@ def rft_rowwise_apply(key, dist, A: torch.Tensor, s_dim: int, inscale: float,
                 *key_words(key), sc.data_ptr(), sh.data_ptr(), out.data_ptr(),
                 m, n, s_dim, A.shape[1], _DIST_KINDS[type(dist)],
                 float(inscale), float(outscale))
-    launches["dense_rowwise_cos"] += 1
+    launch.count(launches, "dense_rowwise_cos")
     return out
 
 
@@ -244,6 +245,6 @@ def serve_batched_apply(key_data, scale, A: torch.Tensor, dist, s_dim: int,
     launch.call(_load().sk_dense_batched, A.device, int(rowwise),
                 A.data_ptr(), keys.data_ptr(), scales.data_ptr(),
                 out.data_ptr(), B, m, n, s_dim, _DIST_KINDS[type(dist)])
-    launches["dense_batched_rowwise" if rowwise
-             else "dense_batched_columnwise"] += 1
+    launch.count(launches, "dense_batched_rowwise" if rowwise
+                 else "dense_batched_columnwise")
     return out

@@ -156,14 +156,14 @@ def apply_streams(A: torch.Tensor, streams, scale: float, s_dim: int,
         launch.call(lib.sk_fastfood_post, A.device, W.data_ptr(), m, NB, nb,
                     s_dim, gdiag.data_ptr(), smdiag.data_ptr(), sh.data_ptr(),
                     float(scale), out.data_ptr())
-        launches["fastfood_split"] += 1
+        launch.count(launches, "fastfood_split")
         return out
     perms = perms.to(torch.int32)
     launch.call(lib.sk_fastfood_fused, A.device, A.data_ptr(), d, m, d, NB,
                 nb, s_dim, bdiag.data_ptr(), perms.data_ptr(),
                 gdiag.data_ptr(), smdiag.data_ptr(), sh.data_ptr(),
                 float(scale), out.data_ptr())
-    launches["fastfood"] += 1
+    launch.count(launches, "fastfood")
     return out
 
 
@@ -270,5 +270,5 @@ def apply_streams_batched(A: torch.Tensor, streams, scale: float,
                 d, NB, nb, s_dim, bdiag.data_ptr(), perms.data_ptr(),
                 gdiag.data_ptr(), smdiag.data_ptr(), sh.data_ptr(),
                 float(scale), out.data_ptr())
-    launches["fastfood_batched"] += 1
+    launch.count(launches, "fastfood_batched")
     return out

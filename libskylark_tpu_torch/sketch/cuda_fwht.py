@@ -129,7 +129,8 @@ def srht_apply(key, A: torch.Tensor, s_dim: int,
                     *key_words(key), D.data_ptr(), idx.data_ptr(),
                     Y.data_ptr(), out.data_ptr(), m, n, s_dim, A.shape[1],
                     fut_scale, samp_scale)
-    launches["fwht_rowwise" if rowwise else "fwht_columnwise"] += 1
+    launch.count(launches,
+                 "fwht_rowwise" if rowwise else "fwht_columnwise")
     return out
 
 

@@ -122,7 +122,8 @@ def cwt_apply(key, A: torch.Tensor, s_dim: int,
     launch.call(fn, A.device, A.data_ptr(), *key_words(key), out.data_ptr(),
                 off.data_ptr(), idx.data_ptr(), val.data_ptr(), m, n, s_dim,
                 A.shape[1], randgen.randint_multiplier(s_dim))
-    launches["hash_rowwise" if rowwise else "hash_columnwise"] += 1
+    launch.count(launches,
+                 "hash_rowwise" if rowwise else "hash_columnwise")
     return out
 
 

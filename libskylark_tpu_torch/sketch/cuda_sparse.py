@@ -124,7 +124,8 @@ def cwt_sparse_apply_batched(key_data, data: torch.Tensor,
                     data.data_ptr(), rows.data_ptr(), cols.data_ptr(),
                     out.data_ptr(), lrank.data_ptr(), hist.data_ptr(),
                     perm.data_ptr(), B, nnz, m, s_dim, mult)
-    launches["sparse_rowwise" if rowwise else "sparse_columnwise"] += 1
+    launch.count(launches,
+                 "sparse_rowwise" if rowwise else "sparse_columnwise")
     return out
 
 

@@ -15,13 +15,15 @@ than float32 are neither ordered like the reference's ``segment_sum`` nor
 bit-stable from run to run.
 
 Sparse operands (:class:`~libskylark_tpu_torch.base.sparse.SparseMatrix`)
-take an O(nnz) scatter over their nonzeros. A float32 CWT goes through
-the CSR-lane CountSketch kernel's route at one lane (sketch/cuda_sparse.py:
-kernel B3 on the card, its plain version on the CPU), which adds each
-output cell's terms in the reference's order; the other transforms and
-dtypes take ``index_add_`` over the COO triplets (CSC order), ordered on
-the CPU, unordered on CUDA. ``apply_sparse`` gives a sparse result, on the
-host. Distributed sparse operands are not ported yet.
+take an O(nnz) scatter over their nonzeros. A CWT scatters its CSR lanes
+in row-major order: float32 through the CSR-lane CountSketch kernel's
+route at one lane (sketch/cuda_sparse.py: kernel B3 on the card, its plain
+version on the CPU), which adds each output cell's terms in the
+reference's order, other dtypes through that plain version directly
+(unordered on CUDA). MMT and WZT take ``index_add_`` over the COO
+triplets (CSC order), ordered on the CPU, unordered on CUDA.
+``apply_sparse`` gives a sparse result, on the host. Distributed sparse
+operands are not ported yet.
 """
 
 from __future__ import annotations
@@ -85,18 +87,7 @@ class HashTransform(SketchTransform):
 
     # -- sparse input: O(nnz) scatter over the nonzeros --
 
-    def _sparse_kernel_serves(self, A) -> bool:
-        return False
-
     def _apply_sparse_dense_out(self, A, device, rowwise: bool):
-        dtype = getattr(torch, np.dtype(A.device_dtype).name)
-        if self._sparse_kernel_serves(dtype):
-            data, indices, indptr = (torch.tensor(x, device=device)
-                                     for x in A.csr_parts())
-            rows = sparse_serve.csr_row_ids(indptr, data.shape[0])
-            return cuda_sparse.cwt_sparse_apply(
-                self._alloc.key, data, rows, indices, self._S, rowwise,
-                A.shape)
         r, c, v = A.coo(device=device)
         h = self.bucket_indices(device)
         vs = self.values(v.dtype, device)
@@ -154,8 +145,19 @@ class CWT(HashTransform):
     def _kernel_serves(self, A):
         return cuda_hash.supported(A.dtype)
 
-    def _sparse_kernel_serves(self, dtype):
-        return cuda_sparse.supported(dtype)
+    def _apply_sparse_dense_out(self, A, device, rowwise: bool):
+        """The CSR-lane CountSketch: float32 through the kernel's route,
+        other dtypes through the plain CSR-order scatter."""
+        data, indices, indptr = (torch.tensor(x, device=device)
+                                 for x in A.csr_parts())
+        rows = sparse_serve.csr_row_ids(indptr, data.shape[0])
+        if cuda_sparse.supported(data.dtype):
+            return cuda_sparse.cwt_sparse_apply(
+                self._alloc.key, data, rows, indices, self._S, rowwise,
+                A.shape)
+        return sparse_serve.cwt_scatter_rows(
+            self._alloc.key, data, rows, indices, s_dim=self._S,
+            rowwise=rowwise, shape=A.shape)
 
 
 @register

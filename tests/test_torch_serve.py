@@ -10,7 +10,8 @@ Also: the bucket statics equal the reference's, requests coalesce
 (``flushes`` < requests), a full queue raises ``ServeOverloadedError``,
 sparse operands at density ≥ 0.25 go densified, a failing lane is
 isolated by bisection while its cohort-mates succeed, an exception in a
-flush reaches the futures, every lane is bit-equal to a capacity-1 flush,
+flush reaches the futures, a lane that cannot be handed its result counts
+as failed, every lane is bit-equal to a capacity-1 flush,
 drain resolves everything, and ``kernel="cuda"`` on a CPU executor raises
 at construction.
 """
@@ -288,6 +289,32 @@ def test_a_flush_exception_reaches_the_futures(monkeypatch):
             with pytest.raises(ValueError, match="broke"):
                 f.result(timeout=60)
         assert ex.stats()["failed"] == 3
+
+
+def test_a_lane_whose_unpad_raises_counts_as_failed(monkeypatch):
+    """A flush that ran but could not hand one lane its result counts that
+    lane failed, not completed: completed + failed == submitted."""
+    real = serve._unpad
+
+    def unpad(endpoint, out, lane, r):
+        if lane == 1:
+            raise ValueError("unpad broke")
+        return real(endpoint, out, lane, r)
+
+    monkeypatch.setattr(serve, "_unpad", unpad)
+    T = sk.JLT(100, 16, Context(0))
+    with _cpu(max_batch=4, linger_us=5_000_000) as ex:
+        futs = [ex.submit_sketch(T, np.ones((4, 100), np.float32),
+                                 dimension=sk.ROWWISE) for _ in range(4)]
+        for i, f in enumerate(futs):
+            if i == 1:
+                with pytest.raises(ValueError, match="unpad"):
+                    f.result(timeout=60)
+            else:
+                assert f.result(timeout=60).shape == (4, 16)
+        st = ex.stats()
+    assert st["completed"] == 3 and st["failed"] == 1
+    assert st["completed"] + st["failed"] == st["submitted"] == 4
 
 
 def test_drain_resolves_everything_and_stops_intake():

@@ -3,7 +3,8 @@
 - ``SparseMatrix`` (base/sparse.py): CSC buffers, canonical CSR parts,
   COO triplets, the dense form, transpose and column views equal to the
   reference's ``SparseMatrix`` on the same scipy input (exact: integer
-  structure and copied values);
+  structure and copied values), its tensors on the package default device
+  unless a device is named;
 - LIBSVM IO (io/libsvm.py): ``write_libsvm`` writes the reference's text
   byte for byte, and ``read_libsvm``/``read_dir_libsvm`` read a generated
   file (one and two targets, dense and sparse, rows and columns, ``min_d``
@@ -29,6 +30,8 @@ from libskylark_tpu.io import libsvm as jlibsvm
 from libskylark_tpu_torch import sketch as sk
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.context import Context
+from libskylark_tpu_torch.base.device import (default_device,
+                                              set_default_device)
 from libskylark_tpu_torch.base.sparse import SparseMatrix, as_sparse
 from libskylark_tpu_torch.io import libsvm
 
@@ -56,8 +59,9 @@ def test_from_scipy_matches_the_reference(dtype):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     for a, b in zip(got.csr_parts(), want.csr_parts()):
         assert a.dtype == b.dtype and np.array_equal(a, b)
-    assert np.array_equal(_dense(got.todense()), _dense(want.todense()))
-    for a, b in zip(got.coo(), want.coo()):
+    assert np.array_equal(_dense(got.todense(device="cpu")),
+                          _dense(want.todense()))
+    for a, b in zip(got.coo(device="cpu"), want.coo()):
         assert np.array_equal(_dense(a), _dense(b))
     assert (got.to_scipy() != want.to_scipy()).nnz == 0
 
@@ -68,7 +72,8 @@ def test_constructors_sum_duplicates_as_the_reference():
     v = rng.standard_normal(300).astype(np.float32)
     got, want = (SparseMatrix.from_coo(r, c, v, (20, 30)),
                  JSparse.from_coo(r, c, v, (20, 30)))
-    assert np.array_equal(_dense(got.todense()), _dense(want.todense()))
+    assert np.array_equal(_dense(got.todense(device="cpu")),
+                          _dense(want.todense()))
     d, i, p = want.csr_parts()
     got2, want2 = (SparseMatrix.from_csr(d, i, p, (20, 30)),
                    JSparse.from_csr(d, i, p, (20, 30)))
@@ -77,7 +82,7 @@ def test_constructors_sum_duplicates_as_the_reference():
     X = rng.standard_normal((12, 9)).astype(np.float32)
     for thr in (0.0, 0.5):
         assert np.array_equal(
-            _dense(SparseMatrix.from_dense(X, thr).todense()),
+            _dense(SparseMatrix.from_dense(X, thr).todense(device="cpu")),
             _dense(JSparse.from_dense(X, thr).todense()))
 
 
@@ -95,13 +100,30 @@ def test_from_csr_leaves_the_callers_arrays_alone():
 def test_structural_ops_match_the_reference():
     A = _csr(30, 50, 0.1, 4)
     got, want = SparseMatrix.from_scipy(A), JSparse.from_scipy(A)
-    assert np.array_equal(_dense(got.T.todense()), _dense(want.T.todense()))
+    assert np.array_equal(_dense(got.T.todense(device="cpu")),
+                          _dense(want.T.todense()))
     v, w = got.column_view(7, 31), want.column_view(7, 31)
     assert v.shape == w.shape
-    assert np.array_equal(_dense(v.todense()), _dense(w.todense()))
+    assert np.array_equal(_dense(v.todense(device="cpu")),
+                          _dense(w.todense()))
     assert as_sparse(A).nnz == got.nnz and as_sparse(got) is got
     with pytest.raises(TypeError):
         as_sparse(np.zeros((2, 2)))
+
+
+def test_dense_forms_land_on_the_default_device():
+    A = SparseMatrix.from_scipy(_csr(20, 30, 0.2, 6))
+    if not torch.cuda.is_available():  # the package default is "cuda"
+        with pytest.raises(errors.UnsupportedError):
+            A.todense()
+    set_default_device("cpu")
+    try:
+        D = A.todense()
+        assert D.device == default_device() and D.dtype == torch.float32
+        assert all(t.device == default_device() for t in A.coo())
+        assert np.array_equal(D.numpy(), A.to_scipy().toarray())
+    finally:
+        set_default_device("cuda")
 
 
 def _write_sample(path, nt, seed):
@@ -127,7 +149,7 @@ def test_read_libsvm_matches_the_reference(tmp_path, nt, sparse, direction):
         assert Y.dtype == Yr.dtype and np.array_equal(Y, Yr)
         if sparse:
             assert X.shape == Xr.shape
-            X, Xr = _dense(X.todense()), _dense(Xr.todense())
+            X, Xr = _dense(X.todense(device="cpu")), _dense(Xr.todense())
         assert X.dtype == Xr.dtype and np.array_equal(X, Xr)
 
 
@@ -168,7 +190,8 @@ def test_read_dir_libsvm_matches_the_reference(tmp_path):
     _write_sample(d / "part-1", 1, 2)
     X, Y = libsvm.read_dir_libsvm(str(d), sparse=True)
     Xr, Yr = jlibsvm.read_dir_libsvm(str(d), sparse=True)
-    assert np.array_equal(_dense(X.todense()), _dense(Xr.todense()))
+    assert np.array_equal(_dense(X.todense(device="cpu")),
+                          _dense(Xr.todense()))
     assert np.array_equal(Y, Yr)
 
 
