@@ -11,8 +11,10 @@ operands, fast_least_squares (Blendenpik) on chip_smoke.py's 65536×512
 matrix with singular values over [1e-3, 1], and config 3's random
 features on X 16384×4096 → 4096 (GaussianRFT with σ = 64, the Fastfood
 FastGaussianRFT, and GaussianQRFT, whose W is built once on the host, as
-its construction does, and moved to the card by every apply) — it prints
-one JSON line with:
+its construction does, and moved to the card by every apply), and B1's
+batched columnwise launch at the ct-cw serve bucket's capacity-8 shape
+(8 × 8192×128 → 1024, Cauchy, new keys per call) — it prints one JSON
+line with:
 
 - ``warm_ms``: median host time of 5 calls after 2 warm-ups, each call
   ended by ``torch.cuda.synchronize()``. Every call of a cell draws its
@@ -106,6 +108,11 @@ def main() -> int:
     X = chip_smoke.make_operand(torch, chip_smoke.RFT_SHAPE, 12)
     d, s = chip_smoke.RFT_SHAPE[1], chip_smoke.RFT_S
     qrft = sk.GaussianQRFT(d, s, P.Context(62), sigma=64.0)
+    from libskylark_tpu_torch.base import randgen
+    from libskylark_tpu_torch.sketch import cuda_dense
+
+    Acw = chip_smoke.make_operand(torch, (8, 8192, 128), 9000)
+    lanes = P.Context(900)
     params = nla.ApproximateSVDParams(num_iterations=2)
     # one advancing Context per cell: every call has a new key
     ctx = {seed: P.Context(seed) for seed in range(42, 62)}
@@ -144,6 +151,10 @@ def main() -> int:
             lambda: sk.FastGaussianRFT(d, s, ctx[61], sigma=64.0).apply(
                 X, sk.ROWWISE),
         "qrft_16384x4096_to_4096": lambda: qrft.apply(X, sk.ROWWISE),
+        "b1_batched_columnwise_8x8192x128_to_1024":
+            lambda: cuda_dense.serve_batched_apply(
+                chip_smoke.new_keys(np, lanes, 8), np.full(8, 1 / 1024), Acw,
+                randgen.Cauchy(), 1024, False),
     }
     for name, fn in cells.items():
         row = {"cell": name, "warm_ms": warm_ms(torch, fn)}
@@ -154,7 +165,7 @@ def main() -> int:
             row["idle_ms_per_iteration"] = ((row["warm_ms"] - row["device_ms"])
                                             / row["iterations"])
         print(json.dumps(row), flush=True)
-    del A, Asvd, Als, b, Ak, bk, X, qrft, precond
+    del A, Asvd, Als, b, Ak, bk, X, qrft, precond, Acw
     for name, row in chip_smoke.serve_cells(torch, np).items():
         print(json.dumps({"cell": f"serve-{name}", **row}), flush=True)
     chip_smoke.check("jax" not in sys.modules

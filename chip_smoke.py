@@ -11,30 +11,34 @@ chip_smoke.py``. In order, each phase printing one JSON line:
 3. check  — each kernel's wrapper on the card against its plain PyTorch
             version on the same inputs, at main-path, aligned and ragged
             shapes:
-            - dense (B1): three distributions, max|kernel − plain| ≤
-              1e-4·max|plain|, and Cauchy draws entry by entry,
-              |kernel − plain| ≤ 1e-4·(|S|·|A|) (the heavy tail puts
-              max|plain| far above a typical entry);
+            - dense (B1): three distributions, each in every regime
+              (bf16x3, the default, bf16gen2 and bf16 on the tensor
+              cores; f32 as fp32 FMA) against the plain version of that
+              regime, max|kernel − plain| ≤ 1e-4·max|plain|, and Cauchy
+              draws entry by entry, |kernel − plain| ≤ 1e-4·(|S|·|A|) (the
+              heavy tail puts max|plain| far above a typical entry);
             - hash (B2): bit-equal (torch.equal) to the plain scatter run
               on a CPU copy of the operand, also at a span that is not a
               power of two (s = 300) and at ragged n;
             - fwht (B5): bit-equal on dyadic data (integers in [−8, 8],
               n = 4096, s = 256), ≤ 1e-4·max|plain| on Gaussian data;
-            - cos (B1-cos): random sc/sh, ≤ 1e-4·max|plain|;
+            - cos (B1-cos): random sc/sh, every regime, ≤ 1e-4·max|plain|;
             - fastfood (B4, B4-split): ≤ 1e-4·max|plain| at 16384×4096 →
               4096, d = 1000 → 3000 (padding, 3 blocks, truncation), an
               odd log2 NB (d = 2048) and m = 37;
-            - batched (B1-batched, B4-batched): the serve buckets' capacity-8
-              stacks (the ct-cw shape with Cauchy and with Normal draws) and
-              ragged lanes zero-padded into them, against the per-lane
-              serve program with B1's limits, and every lane bit-equal to a
-              launch of that lane alone;
+            - batched (B1-batched in every regime, B4-batched): the serve
+              buckets' capacity-8 stacks (the ct-cw shape with Cauchy and
+              with Normal draws) and ragged lanes zero-padded into them,
+              against the per-lane serve program with B1's limits, and every
+              lane bit-equal to a launch of that lane alone;
             - sparse (B3): CSR lanes at config 2's shape (rcv1.binary:
               47,236 features, 0.16% dense) both ways, s = 300 and s = 7,
               bit-equal to the plain scatter on a CPU copy, every lane
               bit-equal to its launch alone;
 4. main   — the main path at full size through the public entry points,
-            with every launch counter set to 0 before and read after:
+            with every launch counter set to 0 before and read after (and
+            B1's launches by regime and the operator entries its
+            generation kernel made, s_dim·n per lane and call):
             JLT.apply both ways on 8192×8192 → 1024; approximate_svd of an
             8192×8192 matrix with a known spectrum, rank 64, k' = 128;
             approximate_least_squares on 65536×512, s = 2048, with the JLT,
@@ -63,12 +67,14 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             bit-equal to its capacity-1 kernel flush; then each bucket's flush cell (warm ms, device ms, busy);
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
-            bound, at the main-path shapes; every timed call of a kernel
-            or a plain version draws a new key from one Context, as a
-            user solving again does (the Fastfood kernels, whose streams
-            are made outside them, are timed on streams made beforehand,
-            and their wrappers with new streams per call beside them); the
-            serve kernels at their buckets' capacity-8 shapes;
+            bound, at the main-path shapes (B1 in its default regime, with
+            the f32 body's time and each regime's bound beside it); every
+            timed call of a kernel or a plain version draws a new key from
+            one Context, as a user solving again does (the Fastfood
+            kernels, whose streams are made outside them, are timed on
+            streams made beforehand, and their wrappers with new streams
+            per call beside them); the serve kernels at their buckets'
+            capacity-8 shapes;
 6. the ``{"kernels": [...]}`` line (``max_abs_err``: the worst of every
    check at the kernel's main-path shapes, all distributions and ragged
    variants), the card's name and power limit, and
@@ -115,18 +121,23 @@ def smi(query: str) -> str:
 
 
 # NVIDIA's data sheet for one H100 SXM at its full 700 W (dense): fp32
-# outside the tensor cores, and HBM3 bandwidth. Printed beside the peaks
-# of the attached card, which the bound uses.
-DATASHEET_H100_SXM = {"fp32_flops": 67e12, "hbm_bytes_per_s": 3.35e12}
+# outside the tensor cores, bf16 on the tensor cores, and HBM3 bandwidth.
+# Printed beside the peaks of the attached card, for reference only: the
+# bounds use the attached card's own rates (card_peaks).
+DATASHEET_H100_SXM = {"fp32_flops": 67e12, "bf16_tensor_flops": 989e12,
+                      "hbm_bytes_per_s": 3.35e12}
 FP32_LANES_PER_SM = {9: 128}  # Hopper: 128 fp32 FMA units per SM
+# Hopper: 4 tensor cores per SM, each 512 dense bf16 FMA (1024 flops) a clock
+BF16_FLOPS_PER_SM_CLOCK = {9: 4 * 1024}
 
 
 def card_peaks(torch) -> dict:
     """The attached card's peak rates, from its own attributes: fp32 FMA
-    lanes × 2 × SM count × max SM clock, and 2 (double data rate) × max
-    memory clock × bus width. The kernels run fp32 FMA on the CUDA cores,
-    so their bound is the larger of flops over the first and bytes over
-    the second."""
+    lanes × 2 × SM count × max SM clock; bf16 dense tensor flops per SM
+    per clock (4 tensor cores × 1024) × SM count × max SM clock; and 2
+    (double data rate) × max memory clock × bus width. B1 runs its bf16
+    regimes on the tensor cores and ``f32`` as fp32 FMA on the CUDA cores;
+    the other kernels add and multiply in fp32 on the CUDA cores."""
     import ctypes
 
     torch.cuda.init()
@@ -157,6 +168,7 @@ def card_peaks(torch) -> dict:
     sm_hz, sms = attr(13) * 1e3, attr(16)
     mem_hz, bus_bits = attr(36) * 1e3, attr(37)
     return {"fp32_flops": 2.0 * FP32_LANES_PER_SM[major] * sms * sm_hz,
+            "bf16_tensor_flops": BF16_FLOPS_PER_SM_CLOCK[major] * sms * sm_hz,
             "hbm_bytes_per_s": 2.0 * mem_hz * bus_bits / 8,
             "sms": sms, "sm_clock_mhz": sm_hz / 1e6,
             "mem_clock_mhz": mem_hz / 1e6, "bus_bits": bus_bits}
@@ -236,9 +248,14 @@ def held(torch, got, want, limit=None) -> dict:
             "ok": bool((diff.double() <= limit).all())}
 
 
+# B1's contraction regimes; the default first
+REGIMES = ("bf16x3", "bf16gen2", "bf16", "f32")
+
+
 def check_kernels(torch, P, cases) -> list:
-    """Phase 3: every case against the plain version; Cauchy cases entry
-    by entry within :func:`elementwise_limit`."""
+    """Phase 3: every case in every regime against the plain version of
+    that regime; Cauchy cases entry by entry within
+    :func:`elementwise_limit`."""
     from libskylark_tpu_torch.base import randgen
     from libskylark_tpu_torch.sketch import cuda_dense as cd
 
@@ -251,15 +268,18 @@ def check_kernels(torch, P, cases) -> list:
         A = make_operand(torch, shape, 1000 + i)
         d, scale = dists[dist], 1.0 / math.sqrt(s_dim)
         fn = cd.rowwise_apply if rowwise else cd.columnwise_apply
-        got = fn(key, d, A, s_dim, scale)
-        want = cd.dense_apply_plain(key, d, A, s_dim, scale, rowwise)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), "kernel output not finite")
         limit = (elementwise_limit(torch, key, d, A, s_dim, scale, rowwise)
                  if dist == "cauchy" else None)
-        results.append({"kernel": name, "dist": dist, "shape": list(shape),
-                        "s_dim": s_dim, **held(torch, got, want, limit)})
-        del A, got, want, limit
+        for p in REGIMES:
+            got = fn(key, d, A, s_dim, scale, precision=p)
+            want = cd.dense_apply_plain(key, d, A, s_dim, scale, rowwise, p)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), "kernel output not finite")
+            results.append({"kernel": name, "dist": dist, "regime": p,
+                            "shape": list(shape), "s_dim": s_dim,
+                            **held(torch, got, want, limit)})
+            del got, want
+        del A, limit
     emit("check", tolerance=CHECK_TOLERANCE, cases=results)
     bad = [r for r in results if not r["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
@@ -325,9 +345,10 @@ def check_fwht(torch, P, cases) -> list:
 
 
 def check_cos(torch, P, cases) -> list:
-    """Phase 3, B1-cos: each case against rft_apply_plain on the same
-    inputs, with random per-feature scales and shifts (they are indexed by
-    the output column), inscale 1/√n and outscale √(2/s)."""
+    """Phase 3, B1-cos: each case in every regime against rft_apply_plain
+    of that regime on the same inputs, with random per-feature scales and
+    shifts (they are indexed by the output column), inscale 1/√n and
+    outscale √(2/s)."""
     from libskylark_tpu_torch.base import randgen
     from libskylark_tpu_torch.sketch import cuda_dense as cd
 
@@ -340,15 +361,19 @@ def check_cos(torch, P, cases) -> list:
         sh = 2 * math.pi * torch.rand(s_dim, generator=g, device="cuda")
         args = (key, randgen.Normal(), A, s_dim, 1.0 / math.sqrt(shape[1]),
                 math.sqrt(2.0 / s_dim), sc, sh)
-        got = cd.rft_rowwise_apply(*args)
-        want = cd.rft_apply_plain(*args)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), "cos kernel output not finite")
-        err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
-        results.append({"kernel": "dense_rowwise_cos", "shape": list(shape),
-                        "s_dim": s_dim, "max_abs_err": err,
-                        "max_rel_err": rel, "ok": rel <= TOL})
+        for p in REGIMES:
+            got = cd.rft_rowwise_apply(*args, precision=p)
+            want = cd.rft_apply_plain(*args, precision=p)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  "cos kernel output not finite")
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            results.append({"kernel": "dense_rowwise_cos", "regime": p,
+                            "shape": list(shape), "s_dim": s_dim,
+                            "max_abs_err": err, "max_rel_err": rel,
+                            "ok": rel <= TOL})
+            del got, want
         del A
     emit("check", tolerance=f"B1-cos: max|kernel-plain| <= {TOL} * "
                             "max|plain|", cases=results)
@@ -404,19 +429,29 @@ def launch_counts() -> dict:
     return {k: v for c in counters() for k, v in c.items()}
 
 
+def dense_counts() -> dict:
+    """B1's launches by regime, and the operator entries its generation
+    kernel made (s_dim · n per lane and call in the bf16 regimes)."""
+    from libskylark_tpu_torch.sketch import cuda_dense
+
+    return {**cuda_dense.by_regime,
+            "generated_entries": cuda_dense.generated["entries"]}
+
+
 def main_path(torch, P) -> dict:
     """Phase 4: the main path at full size through the public API."""
     from libskylark_tpu_torch import algorithms, nla, sketch as sk
     from libskylark_tpu_torch.sketch import cuda_dense as cd
 
-    for c in counters():
+    for c in counters() + [cd.by_regime, cd.generated]:
         for k in c:
             c[k] = 0
-    out = {"launches_by_step": {}}
+    out = {"launches_by_step": {}, "dense_by_step": {}}
 
     def step(name, fn):
-        """Run one step timed, and record the launches it made."""
-        before = launch_counts()
+        """Run one step timed, and record the launches it made, B1's by
+        regime, and the operator entries B1 generated."""
+        before, dense_before = launch_counts(), dense_counts()
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
@@ -424,6 +459,9 @@ def main_path(torch, P) -> dict:
         out["launches_by_step"][name] = {
             k: v - before[k] for k, v in launch_counts().items()
             if v != before[k]}
+        out["dense_by_step"][name] = {
+            k: v - dense_before[k] for k, v in dense_counts().items()
+            if v != dense_before[k]}
         return result
 
     # 1. JLT both ways: BASELINE config 1 at the headline size
@@ -433,6 +471,12 @@ def main_path(torch, P) -> dict:
                                   T.apply(A, sk.COLUMNWISE)))
     check(tuple(Yr.shape) == (8192, 1024) and tuple(Yc.shape) == (1024, 8192),
           "JLT output shapes")
+    # the default regime on the tensor cores, each operator entry made once
+    # per apply: s_dim · n = 1024 · 8192, twice
+    jlt_route = {"bf16x3": 2, "generated_entries": 2 * 1024 * 8192}
+    check(out["dense_by_step"]["jlt"] == jlt_route,
+          f"JLT did not take B1's bf16x3 route once per entry: "
+          f"{out['dense_by_step']['jlt']}")
     check(bool(torch.isfinite(Yr).all() and torch.isfinite(Yc).all()),
           "JLT output not finite")
     for name, Y, rowwise in (("rowwise", Yr, True), ("columnwise", Yc, False)):
@@ -542,6 +586,7 @@ def main_path(torch, P) -> dict:
     failed = random_features(torch, P, step, out)
 
     out["launches"] = launch_counts()
+    out["dense"] = dense_counts()
     emit("main", **out)
     check(not failed, f"random features: {failed}")
     for k_ in MAIN_KERNELS:
@@ -684,6 +729,9 @@ def random_features(torch, P, step, out) -> list:
     by_step = out["launches_by_step"]
     check(by_step["rft_regular"] == {"dense_rowwise_cos": 1},
           f"GaussianRFT launches {by_step['rft_regular']}")
+    check(out["dense_by_step"]["rft_regular"]
+          == {"bf16x3": 1, "generated_entries": s * d},
+          f"GaussianRFT B1 route {out['dense_by_step']['rft_regular']}")
     check(by_step["rft_fast"] == {"fastfood": 1},
           f"FastGaussianRFT launches {by_step['rft_fast']}")
     check(by_step["rft_fast_split"] == {"fastfood_split": 1},
@@ -738,17 +786,41 @@ def bound(ops: float, ops_per_s: float, nbytes: float,
             "ops": ops, "bytes": nbytes}
 
 
+# bf16 tensor-core passes of each B1 regime (pallas_dense._dot)
+REGIME_PASSES = {"bf16x3": 3, "bf16gen2": 2, "bf16": 1}
+
+
+def dense_bounds(flops: float, nbytes: float, peaks: dict) -> dict:
+    """B1's bounds for a contraction of ``flops`` = 2·m·n·s (times the
+    lanes): the default regime's (``bound_ms``, ``bound_by``: bf16x3, 3
+    passes at the card's bf16 tensor rate), and each regime's under
+    ``bounds`` — the bf16 ones at that rate, f32 at the card's fp32 FMA
+    rate; bytes: A read once, the output written once."""
+    bounds = {p: bound(k * flops, peaks["bf16_tensor_flops"], nbytes, peaks)
+              for p, k in REGIME_PASSES.items()}
+    bounds["f32"] = bound(flops, peaks["fp32_flops"], nbytes, peaks)
+    return {**bounds["bf16x3"], "regime": "bf16x3",
+            "bounds": {p: {"bound_ms": b["bound_ms"],
+                           "bound_by": b["bound_by"]}
+                       for p, b in bounds.items()}}
+
+
 def time_kernels(torch, P, shapes, main_path: bool,
                  peaks: dict) -> list[dict]:
-    """Phase 5, B1: kernel, plain and library times at the given shapes."""
+    """Phase 5, B1: kernel (the default regime, and ``f32_ms`` the f32
+    regime's fp32-FMA body), plain (default regime) and library times at
+    the given shapes. A shape's optional 6th field names the regime its
+    entry point runs when that is not the default (``route_regime``,
+    timed as ``route_ms``)."""
     from libskylark_tpu_torch.base import randgen
     from libskylark_tpu_torch.sketch import cuda_dense as cd
     from libskylark_tpu_torch.sketch.dense import virtual_panel
 
     rows = []
-    for name, use, shape, s_dim, *dist_name in shapes:
-        dist = (randgen.Cauchy() if dist_name == ["cauchy"]
+    for name, use, shape, s_dim, *extra in shapes:
+        dist = (randgen.Cauchy() if extra[:1] == ["cauchy"]
                 else randgen.Normal())
+        route = extra[1] if len(extra) > 1 else "bf16x3"
         rowwise = name == "dense_rowwise"
         A = make_operand(torch, shape, 7)
         ctx = P.Context(9)
@@ -757,6 +829,8 @@ def time_kernels(torch, P, shapes, main_path: bool,
         fn = cd.rowwise_apply if rowwise else cd.columnwise_apply
         ms = event_ms(torch, lambda: fn(ctx.allocate().key, dist, A, s_dim,
                                         scale))
+        f32_ms = event_ms(torch, lambda: fn(ctx.allocate().key, dist, A,
+                                            s_dim, scale, precision="f32"))
         dev_ms = profiled_device_ms(torch, lambda: fn(
             ctx.allocate().key, dist, A, s_dim, scale))
         plain_ms = event_ms(torch, lambda: cd.dense_apply_plain(
@@ -766,14 +840,14 @@ def time_kernels(torch, P, shapes, main_path: bool,
         lib = (lambda: torch.matmul(A, S.T)) if rowwise else (
             lambda: torch.matmul(S, A))
         library_ms = event_ms(torch, lib)
-        # 2·m·n·s flops on the CUDA cores; A read once, the output
-        # written once
         rows.append({"kernel": name, "use": use, "main_path": main_path,
                      "shape": list(shape), "s_dim": s_dim, "ms": ms,
+                     "f32_ms": f32_ms, "route_regime": route,
+                     "route_ms": f32_ms if route == "f32" else ms,
                      "device_ms": dev_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
-                     **bound(2.0 * m * n * s_dim, peaks["fp32_flops"],
-                             4.0 * (m * n + m * s_dim), peaks)})
+                     **dense_bounds(2.0 * m * n * s_dim,
+                                    4.0 * (m * n + m * s_dim), peaks)})
         del A, S
     return rows
 
@@ -866,6 +940,8 @@ def time_cos(torch, P, peaks: dict) -> list[dict]:
                 sh)
 
     ms = event_ms(torch, lambda: cd.rft_rowwise_apply(*args()))
+    f32_ms = event_ms(torch, lambda: cd.rft_rowwise_apply(*args(),
+                                                          precision="f32"))
     dev_ms = profiled_device_ms(torch, lambda: cd.rft_rowwise_apply(*args()))
     plain_ms = event_ms(torch, lambda: cd.rft_apply_plain(*args()))
     S = virtual_panel(ctx.allocate().key, dist, s_dim, 0, n, 1.0,
@@ -873,14 +949,13 @@ def time_cos(torch, P, peaks: dict) -> list[dict]:
     library_ms = event_ms(torch, lambda: outscale * torch.cos(
         torch.matmul(A, S.T) * inscale * sc + sh))
     del A, S
-    # 2·m·n·s flops on the CUDA cores (the epilogue's m·s cos aside); A
-    # read once, the features written once
+    # the epilogue's m·s cos aside
     return [{"kernel": "dense_rowwise_cos", "use": "GaussianRFT.apply "
              "rowwise", "main_path": True, "shape": [m, n], "s_dim": s_dim,
-             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-             "library_ms": library_ms,
-             **bound(2.0 * m * n * s_dim, peaks["fp32_flops"],
-                     4.0 * (m * n + m * s_dim), peaks)}]
+             "ms": ms, "f32_ms": f32_ms, "device_ms": dev_ms,
+             "plain_ms": plain_ms, "library_ms": library_ms,
+             **dense_bounds(2.0 * m * n * s_dim, 4.0 * (m * n + m * s_dim),
+                            peaks)}]
 
 
 def wht_chain(torch, A, streams, scale, s_dim):
@@ -998,11 +1073,11 @@ def new_keys(np, ctx, B: int):
 
 
 def check_batched(torch, P, np) -> list:
-    """Phase 3, B1-batched and B4-batched: each cohort against the plain
-    version (the per-lane serve program) on the same stacked lanes, ≤
-    TOL·max|plain|, with ragged lanes zero-padded into the stack; and
-    capacity invariance: every lane of the batched launch bit-equal to a
-    launch of that lane alone."""
+    """Phase 3, B1-batched (every regime) and B4-batched: each cohort
+    against the plain version (the per-lane serve program, in the same
+    regime) on the same stacked lanes, ≤ TOL·max|plain|, with ragged lanes
+    zero-padded into the stack; and capacity invariance: every lane of the
+    batched launch bit-equal to a launch of that lane alone."""
     from libskylark_tpu_torch.base import randgen
     from libskylark_tpu_torch.engine import bucket
     from libskylark_tpu_torch.sketch import cuda_dense as cd
@@ -1025,24 +1100,27 @@ def check_batched(torch, P, np) -> list:
         else:
             A = make_operand(torch, (B, *shape), 6100 + 10 * i)
         d = {"normal": randgen.Normal(), "cauchy": randgen.Cauchy()}[dist]
-        got = cd.serve_batched_apply(kd, scale, A, d, s_dim, rowwise)
-        want = cd.serve_batched_plain(kd, scale, A, d, s_dim, rowwise)
-        alone = [cd.serve_batched_apply(kd[b:b + 1], scale[b:b + 1],
-                                        A[b:b + 1], d, s_dim, rowwise)[0]
-                 for b in range(B)]
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"{name} output not finite")
         limit = (torch.stack([
             elementwise_limit(torch, kd[b], d, A[b], s_dim, float(scale[b]),
                               rowwise) for b in range(B)])
             if dist == "cauchy" else None)
-        h = held(torch, got, want, limit)
-        inv = all(bool(torch.equal(got[b], alone[b])) for b in range(B))
-        results.append({"kernel": name, "dist": dist,
-                        "shape": [B, *shape], "s_dim": s_dim,
-                        "ragged": ragged, **h, "capacity_invariant": inv,
-                        "ok": h["ok"] and inv})
-        del A, got, want, alone, limit
+        for p in REGIMES:
+            got = cd.serve_batched_apply(kd, scale, A, d, s_dim, rowwise, p)
+            want = cd.serve_batched_plain(kd, scale, A, d, s_dim, rowwise, p)
+            alone = [cd.serve_batched_apply(kd[b:b + 1], scale[b:b + 1],
+                                            A[b:b + 1], d, s_dim, rowwise,
+                                            p)[0] for b in range(B)]
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"{name} output not finite")
+            h = held(torch, got, want, limit)
+            inv = all(bool(torch.equal(got[b], alone[b])) for b in range(B))
+            results.append({"kernel": name, "dist": dist, "regime": p,
+                            "shape": [B, *shape], "s_dim": s_dim,
+                            "ragged": ragged, **h, "capacity_invariant": inv,
+                            "ok": h["ok"] and inv})
+            del got, want, alone
+        del A, limit
     for i, (B, m, d, s_dim) in enumerate(FASTFOOD_BATCHED_CASES):
         kd = new_keys(np, P.Context(650 + i), B)
         A = make_operand(torch, (B, m, d), 6500 + i)
@@ -1366,6 +1444,8 @@ def time_serve_kernels(torch, P, np, peaks: dict) -> list[dict]:
         n, m = (shape[1], shape[0]) if rowwise else shape
         ms = event_ms(torch, lambda: cd.serve_batched_apply(
             new_keys(np, ctx, B), sc, A, d, s_dim, rowwise))
+        f32_ms = event_ms(torch, lambda: cd.serve_batched_apply(
+            new_keys(np, ctx, B), sc, A, d, s_dim, rowwise, "f32"))
         dev_ms = profiled_device_ms(torch, lambda: cd.serve_batched_apply(
             new_keys(np, ctx, B), sc, A, d, s_dim, rowwise))
         plain_ms = event_ms(torch, lambda: cd.serve_batched_plain(
@@ -1378,10 +1458,10 @@ def time_serve_kernels(torch, P, np, peaks: dict) -> list[dict]:
         library_ms = event_ms(torch, lib)
         rows.append({"kernel": name, "use": f"serve {name}", "main_path": True,
                      "shape": [B, *shape], "s_dim": s_dim, "ms": ms,
-                     "device_ms": dev_ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms,
-                     **bound(2.0 * B * m * n * s_dim, peaks["fp32_flops"],
-                             4.0 * B * (m * n + m * s_dim), peaks)})
+                     "f32_ms": f32_ms, "device_ms": dev_ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     **dense_bounds(2.0 * B * m * n * s_dim,
+                                    4.0 * B * (m * n + m * s_dim), peaks)})
         del A, S
 
     B, m, d, s_dim = FASTFOOD_BATCHED_CASES[0]
@@ -1516,8 +1596,9 @@ MAIN_SHAPES = [
     ("dense_rowwise", "SVD range sketch", (8192, 8192), 128),
     ("dense_columnwise", "JLT.apply columnwise", (8192, 8192), 1024),
     ("dense_columnwise", "least squares S·[A|b]", (65536, 513), 2048),
+    # LaplacianRFT projects its Cauchy frequencies in f32 (sketch/rft.py)
     ("dense_rowwise", "LaplacianRFT (Cauchy) features", (16384, 4096), 4096,
-     "cauchy"),
+     "cauchy", "f32"),
 ]
 # Timed only: least squares' sketch as two launches, S·A then S·b, which
 # the one launch on [A|b] replaces.
@@ -1695,7 +1776,9 @@ def main() -> int:
             "ms": head["ms"], "device_ms": head["device_ms"],
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"]})
+            "library_ms": head["library_ms"],
+            **{k: head[k] for k in ("regime", "f32_ms", "bounds")
+               if k in head}})
     check("jax" not in sys.modules and "libskylark_tpu" not in sys.modules,
           "the port imported jax or libskylark_tpu")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,8 +26,9 @@ def call(fn, device, *args) -> None:
 _count_lock = threading.Lock()
 
 
-def count(launches: dict, name: str) -> None:
-    """Add one launch of ``name`` to a wrapper's counter dict; the serve
-    executor's worker threads launch concurrently."""
+def count(counters: dict, name: str, n: int = 1) -> None:
+    """Add ``n`` (one launch, by default) to ``name`` in a wrapper's
+    counter dict; the serve executor's worker threads launch
+    concurrently."""
     with _count_lock:
-        launches[name] += 1
+        counters[name] += n

@@ -39,19 +39,57 @@ def virtual_panel(key, dist, s_dim: int, col_start: int, col_stop: int,
         key, dist, s_dim, col_start, col_stop, BLOCK_COLS, dtype, device)
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (round to nearest even), back in x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def regime_matmul(X: torch.Tensor, Y: torch.Tensor, precision: str,
+                  gen_side: int) -> torch.Tensor:
+    """X @ Y in the kernel regime ``precision``, term for term as the
+    reference's ``pallas_dense._dot``; ``gen_side`` names the generated
+    operator (0: X, 1: Y). With x = hi + lo, hi = bf16(x), lo = bf16(x −
+    hi), each product of bf16 values is exact in float32, so the regimes
+    differ from one another only in which terms they keep:
+
+    - ``"f32"``: X @ Y;
+    - ``"bf16x3"``: hi·hi + (hi·lo + lo·hi);
+    - ``"bf16gen2"``: the operator rounded to bf16, the data split;
+    - ``"bf16"``: bf16(X) @ bf16(Y)."""
+    if precision == "f32":
+        return X @ Y
+    if precision == "bf16":
+        return _bf16(X) @ _bf16(Y)
+    if precision == "bf16gen2":
+        if gen_side == 0:
+            Xb, Yh = _bf16(X), _bf16(Y)
+            return Xb @ Yh + Xb @ _bf16(Y - Yh)
+        Xh, Yb = _bf16(X), _bf16(Y)
+        return Xh @ Yb + _bf16(X - Xh) @ Yb
+    if precision == "bf16x3":
+        Xh, Yh = _bf16(X), _bf16(Y)
+        Xl, Yl = _bf16(X - Xh), _bf16(Y - Yh)
+        return Xh @ Yh + (Xh @ Yl + Xl @ Yh)
+    raise ValueError(f"unknown kernel regime {precision!r}")
+
+
 def serve_apply(key_data, scale, A: torch.Tensor, *, dist, s_dim: int,
-                rowwise: bool) -> torch.Tensor:
+                rowwise: bool, precision: str | None = None) -> torch.Tensor:
     """One request's A·Sᵀ (rowwise) or S·A (columnwise) as a function of
     the transform's raw key data ((2,) uint32) and its scale: the scaled
     :func:`virtual_panel` over the operand's (padded) extent, then the
-    product. Zero padding past the transform's N is exact, since the
-    stream's first N columns do not depend on the panel's width. The
+    product in the kernel regime ``precision`` (default: the package's,
+    sketch/params.py). Zero padding past the transform's N is exact, since
+    the stream's first N columns do not depend on the panel's width. The
     serve layer's plain program (the microbatch kernel's plain version
     runs it lane by lane)."""
+    p = sketch_params.check_kernel_precision(
+        precision or sketch_params.get_kernel_precision())
     n = A.shape[1] if rowwise else A.shape[0]
     S = virtual_panel(key_data, dist, s_dim, 0, n, float(scale), A.dtype,
                       A.device)
-    return (A @ S.T) if rowwise else (S @ A)
+    return (regime_matmul(A, S.T, p, 1) if rowwise
+            else regime_matmul(S, A, p, 0))
 
 
 class DenseTransform(OperatorCache, SketchTransform):

@@ -39,22 +39,19 @@ def set_auto_block_bytes(b: int) -> None:
     _auto_block_bytes = b
 
 
-# "bf16x3" (default) and "f32" both promise f32-grade rounding; the CUDA
-# kernel meets both with fp32 FMA. "bf16" and "bf16gen2" are reference
-# regimes the port does not implement yet: naming one raises.
+# The reference's regimes (pallas_dense._dot). "bf16x3" (default) and
+# "f32" promise f32-grade rounding: the CUDA kernel runs "bf16x3" as three
+# bf16 tensor-core passes and "f32" as fp32 FMA. "bf16gen2" (the operator
+# rounded to bf16, two passes) and "bf16" (one pass) trade accuracy for
+# speed and are opt-in.
 KERNEL_PRECISIONS = ("f32", "bf16x3", "bf16", "bf16gen2")
-PORTED_PRECISIONS = ("f32", "bf16x3")
 _kernel_precision = "bf16x3"
 
 
 def check_kernel_precision(p: str) -> str:
-    """``p`` if the kernel runs that regime; raises otherwise."""
-    if p in PORTED_PRECISIONS:
-        return p
+    """``p`` if it names a kernel regime; raises otherwise."""
     if p in KERNEL_PRECISIONS:
-        raise errors.NotImplementedYetError(
-            f"kernel precision {p!r} is not ported yet "
-            f"({' and '.join(PORTED_PRECISIONS)} are)")
+        return p
     raise errors.InvalidParametersError(
         f"kernel_precision must be one of {KERNEL_PRECISIONS}, got {p!r}")
 

@@ -13,7 +13,10 @@ dense-block format of base/randgen.py (sub-stream 0), b ~ U[0, 2π)
   into a visible one, so, as in the reference, they stay two-step;
 - otherwise the projection W·A or A·Wᵀ takes the dense kernel's route
   (B1-rw, B1-cw, scale = inscale) when its distribution is one the kernel
-  generates, then a torch cos. StandardLevy has no kernel: its W is made
+  generates, then a torch cos. Cauchy frequencies project in the "f32"
+  regime: bf16x3 keeps each term to ≈ 2⁻¹⁶, and under the cos their
+  heavy-tailed phases turn that into ≈ 8e-4 of max|features| against the
+  reference (Gaussian ones stay near 2e-5, inside the 1e-4 oracle). StandardLevy has no kernel: its W is made
   by ``dense_panel`` and contracted by ``torch.matmul``, as the
   reference's XLA path does. A pinned operator (OperatorCache) serves
   only that last path: no setting routes a CUDA tensor past a kernel.
@@ -102,8 +105,9 @@ class RFT(OperatorCache, SketchTransform):
         if self._projection_kernel_serves(A):
             fn = (cuda_dense.rowwise_apply if rowwise
                   else cuda_dense.columnwise_apply)
+            heavy = isinstance(self.dist, randgen.Cauchy)
             return fn(self.subkey(0), self.dist, A.contiguous(), self._S,
-                      self.inscale)
+                      self.inscale, precision="f32" if heavy else None)
         W = self._cached_op(A.dtype, A.device)
         if W is None:
             W = self.w_panel(0, self._N, A.dtype, A.device)

@@ -170,13 +170,22 @@ def test_dispatch_rule_is_the_reference_rule():
 
 
 def test_unported_precision_regimes_raise():
-    A = torch.zeros(4, 256)
+    # every regime the reference names now runs (bf16 and bf16gen2 too);
+    # a regime it does not name still raises, at the setter and the wrapper
+    A = torch.from_numpy(_operand(256, 4, rowwise=True))
+    key = Context(0).allocate().key
     for p in ("bf16", "bf16gen2"):
-        with pytest.raises(errors.NotImplementedYetError):
-            cuda_dense.rowwise_apply(Context(0).allocate().key,
-                                     randgen.Normal(), A, 8, 1.0,
+        got = cuda_dense.rowwise_apply(key, randgen.Normal(), A, 8, 1.0,
+                                       precision=p)
+        assert got.shape == (4, 8) and bool(torch.isfinite(got).all())
+        sketch_params.set_kernel_precision(p)
+        assert sketch_params.get_kernel_precision() == p
+        sketch_params.set_kernel_precision("bf16x3")
+    for p in ("tf32", "fp8"):
+        with pytest.raises(errors.InvalidParametersError):
+            cuda_dense.rowwise_apply(key, randgen.Normal(), A, 8, 1.0,
                                      precision=p)
-        with pytest.raises(errors.NotImplementedYetError):
+        with pytest.raises(errors.InvalidParametersError):
             sketch_params.set_kernel_precision(p)
     assert sketch_params.get_kernel_precision() == "bf16x3"
 
