@@ -12,8 +12,8 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             version on the same inputs, at main-path, aligned and ragged
             shapes:
             - dense (B1): three distributions, each in every regime
-              (bf16x3, the default, bf16gen2 and bf16 on the tensor
-              cores; f32 as fp32 FMA) against the plain version of that
+              (bf16x3, the default, bf16gen2 and bf16, and f32 as
+              3×TF32, all on the tensor cores) against the plain version of that
               regime, max|kernel − plain| ≤ 1e-4·max|plain|, and Cauchy
               draws entry by entry, |kernel − plain| ≤ 1e-4·(|S|·|A|) (the
               heavy tail puts max|plain| far above a typical entry);
@@ -34,7 +34,14 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             - sparse (B3): CSR lanes at config 2's shape (rcv1.binary:
               47,236 features, 0.16% dense) both ways, s = 300 and s = 7,
               bit-equal to the plain scatter on a CPU copy, every lane
-              bit-equal to its launch alone;
+              bit-equal to its launch alone; also duplicate (row,
+              column) entries inside a row, a row of more than 1024
+              nonzeros, an all-padding lane, and columnwise outputs
+              wider than the kernel's on-chip row of 1024 columns;
+            - f32 exact (B1 in f32): config 3's Laplacian projection on
+              2048 rows through the kernel against the float64 product,
+              entry by entry within 1e-4·(|S|·|A|), the plain version's
+              figure beside it;
 4. main   — the main path at full size through the public entry points,
             with every launch counter set to 0 before and read after (and
             B1's launches by regime and the operator entries its
@@ -53,7 +60,10 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             Gaussian regular/fast (fused, split, columnwise)/quasi,
             Laplacian, ExpSemigroup on |X|, Polynomial (PPT), Linear fast
             (FJLT), and UST with and without replacement, each feature map
-            held to its kernel's Gram matrix on 512 sampled rows;
+            held to its kernel's Gram matrix on 512 sampled rows (and
+            the Laplacian features, whose Cauchy projection runs B1 in
+            f32, to the plain f32 route's entry by entry, within the
+            phase's elementwise limit times cos's Lipschitz factor);
 4b. serve — the serving path: 16 requests per main bucket (JLT 8192 →
             1024 rowwise on 1537–2048 rows, CT columnwise on 65–128
             columns, FastGaussianRFT 4096 → 4096 on 1025–2048 rows, CWT
@@ -68,7 +78,9 @@ chip_smoke.py``. In order, each phase printing one JSON line:
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
-            the f32 body's time and each regime's bound beside it); every
+            the f32 regime's time and each regime's bound beside it, the
+            fp32-FMA bound of f32 too; the LaplacianRFT shape in f32, its
+            route); every
             timed call of a kernel or a plain version draws a new key from
             one Context, as a user solving again does (the Fastfood
             kernels, whose streams are made outside them, are timed on
@@ -125,19 +137,23 @@ def smi(query: str) -> str:
 # Printed beside the peaks of the attached card, for reference only: the
 # bounds use the attached card's own rates (card_peaks).
 DATASHEET_H100_SXM = {"fp32_flops": 67e12, "bf16_tensor_flops": 989e12,
+                      "tf32_tensor_flops": 495e12,
                       "hbm_bytes_per_s": 3.35e12}
 FP32_LANES_PER_SM = {9: 128}  # Hopper: 128 fp32 FMA units per SM
-# Hopper: 4 tensor cores per SM, each 512 dense bf16 FMA (1024 flops) a clock
+# Hopper: 4 tensor cores per SM, each 512 dense bf16 FMA (1024 flops) a
+# clock, and half that in tf32
 BF16_FLOPS_PER_SM_CLOCK = {9: 4 * 1024}
+TF32_FLOPS_PER_SM_CLOCK = {9: 4 * 512}
 
 
 def card_peaks(torch) -> dict:
     """The attached card's peak rates, from its own attributes: fp32 FMA
-    lanes × 2 × SM count × max SM clock; bf16 dense tensor flops per SM
-    per clock (4 tensor cores × 1024) × SM count × max SM clock; and 2
-    (double data rate) × max memory clock × bus width. B1 runs its bf16
-    regimes on the tensor cores and ``f32`` as fp32 FMA on the CUDA cores;
-    the other kernels add and multiply in fp32 on the CUDA cores."""
+    lanes × 2 × SM count × max SM clock; bf16 (tf32) dense tensor flops
+    per SM per clock (4 tensor cores × 1024 (512)) × SM count × max SM
+    clock; and 2 (double data rate) × max memory clock × bus width. B1
+    runs its bf16 regimes in bf16 and ``f32`` as three tf32 passes on the
+    tensor cores; the other kernels add and multiply in fp32 on the CUDA
+    cores."""
     import ctypes
 
     torch.cuda.init()
@@ -169,6 +185,7 @@ def card_peaks(torch) -> dict:
     mem_hz, bus_bits = attr(36) * 1e3, attr(37)
     return {"fp32_flops": 2.0 * FP32_LANES_PER_SM[major] * sms * sm_hz,
             "bf16_tensor_flops": BF16_FLOPS_PER_SM_CLOCK[major] * sms * sm_hz,
+            "tf32_tensor_flops": TF32_FLOPS_PER_SM_CLOCK[major] * sms * sm_hz,
             "hbm_bytes_per_s": 2.0 * mem_hz * bus_bits / 8,
             "sms": sms, "sm_clock_mhz": sm_hz / 1e6,
             "mem_clock_mhz": mem_hz / 1e6, "bus_bits": bus_bits}
@@ -690,9 +707,10 @@ def random_features(torch, P, step, out) -> list:
 
     # l1 distances average 1.128·d here: σ = 2d gives K ≈ 0.57
     lap = ml.Laplacian(d, 2.0 * d)
-    Z = step("laplacian_regular", lambda: lap.create_rft(
-        s, P.Context(63), "regular").apply(X, sk.ROWWISE))
+    Tl = lap.create_rft(s, P.Context(63), "regular")
+    Z = step("laplacian_regular", lambda: Tl.apply(X, sk.ROWWISE))
     gram_check("laplacian_regular", lap, Z, X)
+    laplacian_check(torch, Tl, X, Z, out)
 
     # on |X|, Σ√(x+y) exceeds Σ√(2x) by ≈ 0.051·d: β = 6e-4 gives a
     # ratio ≈ 0.88 and keeps the features' variance in bounds
@@ -732,6 +750,9 @@ def random_features(torch, P, step, out) -> list:
     check(out["dense_by_step"]["rft_regular"]
           == {"bf16x3": 1, "generated_entries": s * d},
           f"GaussianRFT B1 route {out['dense_by_step']['rft_regular']}")
+    check(out["dense_by_step"]["laplacian_regular"]
+          == {"f32": 1, "generated_entries": s * d},
+          f"LaplacianRFT B1 route {out['dense_by_step']['laplacian_regular']}")
     check(by_step["rft_fast"] == {"fastfood": 1},
           f"FastGaussianRFT launches {by_step['rft_fast']}")
     check(by_step["rft_fast_split"] == {"fastfood_split": 1},
@@ -739,6 +760,69 @@ def random_features(torch, P, step, out) -> list:
     check(by_step["polynomial_ppt"] == {"hash_columnwise": 2},
           f"PPT launches {by_step['polynomial_ppt']}")
     return failed
+
+
+def laplacian_check(torch, T, X, Z, out) -> None:
+    """Main path, LaplacianRFT: its features Z, whose Cauchy projection
+    runs B1 in f32 (3×TF32), against the plain f32 route's features (one
+    fp32 matmul of the whole operator), entry by entry within the phase's
+    elementwise limit times cos's Lipschitz factor, |ΔZ| ≤ outscale · sc ·
+    TOL · inscale · (|X|·|W|ᵀ), as tests/test_torch_dense_regimes.py holds
+    the cos kernel's Cauchy features. 1e-4 · max|Z| is no yardstick here:
+    phases reach O(10³) rad, where one f32 ulp of a phase is 2.4e-4 rad;
+    that figure is reported beside it."""
+    from libskylark_tpu_torch.base import randgen
+    from libskylark_tpu_torch.sketch import cuda_dense as cd
+    from libskylark_tpu_torch.sketch.dense import BLOCK_COLS
+
+    s = Z.shape[1]
+    W = randgen.dense_panel(T.subkey(0), T.dist, s, 0, X.shape[1],
+                            BLOCK_COLS, torch.float32, X.device)
+    want = T._featurize(cd.dense_apply_plain(T.subkey(0), T.dist, X, s,
+                                             T.inscale, True, "f32"), 1)
+    limit = (T.outscale * T.row_scales(torch.float32, X.device).double()
+             * TOL * T.inscale * (X.abs().double() @ W.abs().double().T))
+    diff = (Z - want).abs()
+    out["laplacian_regular_err_over_limit_vs_plain"] = float(
+        (diff.double() / limit).max())
+    out["laplacian_regular_rel_err_vs_plain"] = float(diff.max()
+                                                      / want.abs().max())
+    check(out["laplacian_regular_err_over_limit_vs_plain"] <= 1.0,
+          "LaplacianRFT features vs the plain f32 route")
+
+
+def check_f32_exact(torch, P) -> list:
+    """Phase 3, B1 in f32 against the exact product: LaplacianRFT's Cauchy
+    projection (config 3's operator, 2048 of its 16384 rows) through the
+    kernel and through the plain f32 version (cuBLAS fp32, TF32 off), each
+    against the float64 product of the same operator, entry by entry over
+    :func:`elementwise_limit`; the kernel must hold it."""
+    from libskylark_tpu_torch import ml
+    from libskylark_tpu_torch.sketch import cuda_dense as cd
+    from libskylark_tpu_torch.sketch.dense import virtual_panel
+
+    (m, d), s = RFT_SHAPE, RFT_S
+    X = make_operand(torch, (m, d), 12)[:2048].contiguous()
+    T = ml.Laplacian(d, 2.0 * d).create_rft(s, P.Context(63), "regular")
+    key, dist, scale = T.subkey(0), T.dist, T.inscale
+    limit = elementwise_limit(torch, key, dist, X, s, scale, True)
+    exact = X.double() @ virtual_panel(key, dist, s, 0, d, scale,
+                                       device=X.device).double().T
+    got = cd.rowwise_apply(key, dist, X, s, scale, precision="f32")
+    plain = cd.dense_apply_plain(key, dist, X, s, scale, True, "f32")
+    err = (got.double() - exact).abs()
+    over = float((err / limit).max())
+    results = [{"kernel": "dense_rowwise", "regime": "f32", "dist": "cauchy",
+                "shape": list(X.shape), "s_dim": s, "against": "float64",
+                "max_abs_err": float(err.max()),
+                "kernel_err_over_limit": over,
+                "plain_err_over_limit": float(
+                    ((plain.double() - exact).abs() / limit).max()),
+                "ok": over <= 1.0}]
+    emit("check", tolerance=f"B1 f32 vs the float64 product: |kernel - "
+                            f"exact| <= {TOL} * (|S|·|A|)", cases=results)
+    check(results[0]["ok"], f"f32 route vs the exact product: {results}")
+    return results
 
 
 def event_ms(torch, fn, reps=10, warmup=3) -> float:
@@ -790,16 +874,21 @@ def bound(ops: float, ops_per_s: float, nbytes: float,
 REGIME_PASSES = {"bf16x3": 3, "bf16gen2": 2, "bf16": 1}
 
 
-def dense_bounds(flops: float, nbytes: float, peaks: dict) -> dict:
+def dense_bounds(flops: float, nbytes: float, peaks: dict,
+                 regime: str = "bf16x3") -> dict:
     """B1's bounds for a contraction of ``flops`` = 2·m·n·s (times the
-    lanes): the default regime's (``bound_ms``, ``bound_by``: bf16x3, 3
-    passes at the card's bf16 tensor rate), and each regime's under
-    ``bounds`` — the bf16 ones at that rate, f32 at the card's fp32 FMA
-    rate; bytes: A read once, the output written once."""
+    lanes): ``bound_ms``/``bound_by`` of ``regime`` (the one the entry
+    point runs), and each regime's under ``bounds`` — the bf16 ones at the
+    card's bf16 tensor rate, f32 as its 3 tf32 passes at the tf32 tensor
+    rate, and ``f32_fma`` the same product at the fp32 FMA rate of the
+    CUDA cores (the f32 regime's first body); bytes: A read once, the
+    output written once."""
     bounds = {p: bound(k * flops, peaks["bf16_tensor_flops"], nbytes, peaks)
               for p, k in REGIME_PASSES.items()}
-    bounds["f32"] = bound(flops, peaks["fp32_flops"], nbytes, peaks)
-    return {**bounds["bf16x3"], "regime": "bf16x3",
+    bounds["f32"] = bound(3 * flops, peaks["tf32_tensor_flops"], nbytes,
+                          peaks)
+    bounds["f32_fma"] = bound(flops, peaks["fp32_flops"], nbytes, peaks)
+    return {**bounds[regime], "regime": regime,
             "bounds": {p: {"bound_ms": b["bound_ms"],
                            "bound_by": b["bound_by"]}
                        for p, b in bounds.items()}}
@@ -808,10 +897,11 @@ def dense_bounds(flops: float, nbytes: float, peaks: dict) -> dict:
 def time_kernels(torch, P, shapes, main_path: bool,
                  peaks: dict) -> list[dict]:
     """Phase 5, B1: kernel (the default regime, and ``f32_ms`` the f32
-    regime's fp32-FMA body), plain (default regime) and library times at
-    the given shapes. A shape's optional 6th field names the regime its
-    entry point runs when that is not the default (``route_regime``,
-    timed as ``route_ms``)."""
+    regime: 3×TF32 on the tensor cores), plain and library times at the
+    given shapes. A shape's optional 6th field names the regime its entry
+    point runs when that is not the default (``route_regime``, timed as
+    ``route_ms``; ``device_ms``, ``plain_ms`` and the bound are the route
+    regime's)."""
     from libskylark_tpu_torch.base import randgen
     from libskylark_tpu_torch.sketch import cuda_dense as cd
     from libskylark_tpu_torch.sketch.dense import virtual_panel
@@ -832,9 +922,9 @@ def time_kernels(torch, P, shapes, main_path: bool,
         f32_ms = event_ms(torch, lambda: fn(ctx.allocate().key, dist, A,
                                             s_dim, scale, precision="f32"))
         dev_ms = profiled_device_ms(torch, lambda: fn(
-            ctx.allocate().key, dist, A, s_dim, scale))
+            ctx.allocate().key, dist, A, s_dim, scale, precision=route))
         plain_ms = event_ms(torch, lambda: cd.dense_apply_plain(
-            ctx.allocate().key, dist, A, s_dim, scale, rowwise))
+            ctx.allocate().key, dist, A, s_dim, scale, rowwise, route))
         key = ctx.allocate().key
         S = virtual_panel(key, dist, s_dim, 0, n, scale, device=A.device)
         lib = (lambda: torch.matmul(A, S.T)) if rowwise else (
@@ -847,7 +937,8 @@ def time_kernels(torch, P, shapes, main_path: bool,
                      "device_ms": dev_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      **dense_bounds(2.0 * m * n * s_dim,
-                                    4.0 * (m * n + m * s_dim), peaks)})
+                                    4.0 * (m * n + m * s_dim), peaks,
+                                    route)})
         del A, S
     return rows
 
@@ -1148,22 +1239,76 @@ def check_batched(torch, P, np) -> list:
     return results
 
 
+def sparse_lanes(torch, np, case, seed: int):
+    """The stacked lanes of one SPARSE_CASES entry on the card: (data,
+    rows, cols, true nnz, nnz class, padded shape). Plain cases are packed
+    as the serve layer packs them (:func:`csr_lanes`). A variant edits each
+    lane's CSR triplets first and pads them as the serve layer does (value
+    0.0 at column 0 in the padded extent's last row):
+
+    - ``"dup"``: a fifth of the entries repeated with new values at the end
+      of their row, so (row, column) pairs repeat inside a row, adjacent
+      and not (canonical CSR has none; the sum must keep position order);
+    - ``"long_row"``: row 1 of every lane filled at every column (more than
+      1024 nonzeros in one row);
+    - ``"empty_lane"``: lane 1 holds padding only."""
+    from libskylark_tpu_torch.engine import bucket
+
+    name, B, nr, nc, density, s_dim, *variant = case
+    ops = [csr_operand(nr, nc, density, seed + b) for b in range(B)]
+    shape = bucket.pad_shape((nr, nc), (0, 1))
+    if not variant:
+        nnz_class = bucket.nnz_class(max(A.nnz for A in ops))
+        data, r, c, nnz = csr_lanes(torch, ops, nnz_class, shape[0])
+        return data, r, c, nnz, nnz_class, shape
+    g = np.random.default_rng(seed)
+    trips = []
+    for b, A in enumerate(ops):
+        d, idx, ptr = A.csr_parts(np.float32)
+        rows = np.repeat(np.arange(nr), np.diff(ptr))
+        order = np.arange(len(d), dtype=np.float64)
+        if variant[0] == "dup":
+            pick = np.flatnonzero(g.random(len(d)) < 0.2)
+            rows = np.concatenate([rows, rows[pick]])
+            idx = np.concatenate([idx, idx[pick]])
+            d = np.concatenate([d, g.standard_normal(len(pick))
+                                .astype(np.float32)])
+            order = np.concatenate([order, len(order) + order[pick]])
+        elif variant[0] == "long_row":
+            keep = rows != 1
+            rows = np.concatenate([rows[keep], np.ones(nc, np.int64)])
+            idx = np.concatenate([idx[keep], np.arange(nc)])
+            d = np.concatenate([d[keep], g.standard_normal(nc)
+                                .astype(np.float32)])
+            order = np.concatenate([order[keep], np.arange(nc) - 0.5])
+        elif variant[0] == "empty_lane" and b == 1:
+            rows, idx, d, order = rows[:0], idx[:0], d[:0], order[:0]
+        at = np.lexsort((order, rows))
+        trips.append((d[at], rows[at], idx[at]))
+    nnz_class = bucket.nnz_class(max(len(t[0]) for t in trips))
+    data = np.zeros((B, nnz_class), np.float32)
+    rows = np.full((B, nnz_class), shape[0] - 1, np.int64)
+    cols = np.zeros((B, nnz_class), np.int32)
+    for b, (d, rw, cl) in enumerate(trips):
+        data[b, :len(d)], rows[b, :len(d)], cols[b, :len(d)] = d, rw, cl
+    return (torch.from_numpy(data).cuda(), torch.from_numpy(rows).cuda(),
+            torch.from_numpy(cols).cuda(), sum(len(t[0]) for t in trips),
+            nnz_class, shape)
+
+
 def check_sparse(torch, P, np) -> list:
     """Phase 3, B3: each cohort of CSR lanes bit-equal (torch.equal) to
     the plain scatter on a CPU copy of the lanes (it adds in CSR row-major
     order; CUDA's index_add_ is atomic), and every lane bit-equal to a
     launch of that lane alone."""
-    from libskylark_tpu_torch.engine import bucket
     from libskylark_tpu_torch.sketch import cuda_sparse as cs
 
     results = []
-    for i, (name, B, rows, cols, density, s_dim) in enumerate(SPARSE_CASES):
+    for i, case in enumerate(SPARSE_CASES):
+        name, B, rows, cols, density, s_dim, *variant = case
         rowwise = name == "sparse_rowwise"
-        ops = [csr_operand(rows, cols, density, 7000 + 10 * i + b)
-               for b in range(B)]
-        nnz_class = bucket.nnz_class(max(A.nnz for A in ops))
-        shape = bucket.pad_shape((rows, cols), (0, 1))
-        data, r, c, nnz = csr_lanes(torch, ops, nnz_class, shape[0])
+        data, r, c, nnz, nnz_class, shape = sparse_lanes(torch, np, case,
+                                                         7000 + 10 * i)
         kd = new_keys(np, P.Context(700 + i), B)
         got = cs.cwt_sparse_apply_batched(kd, data, r, c, s_dim, rowwise,
                                           shape)
@@ -1176,7 +1321,8 @@ def check_sparse(torch, P, np) -> list:
         inv = all(bool(torch.equal(got[b], alone[b].cpu()))
                   for b in range(B))
         results.append({"kernel": name, "shape": [B, rows, cols],
-                        "s_dim": s_dim, "nnz": nnz, "nnz_class": nnz_class,
+                        "s_dim": s_dim, "variant": (variant or [None])[0],
+                        "nnz": nnz, "nnz_class": nnz_class,
                         "bit_equal": bool(torch.equal(got, want)),
                         "capacity_invariant": inv,
                         "max_abs_err": float((got - want).abs().max())})
@@ -1574,9 +1720,13 @@ BATCHED_CASES = [
 # (B, m, d, S): the fastfood bucket's capacity-8 shape; padding, 3 blocks
 # and truncation
 FASTFOOD_BATCHED_CASES = [(8, 2048, 4096, 4096), (3, 37, 1000, 3000)]
-# (kernel, B, rows, cols, density, s_dim): the sparse buckets' capacity-8
-# shapes at rcv1's density; then s = 300 (randint's multiplier is not 0)
-# and s = 7 (many nonzeros of a row or column share a bucket)
+# (kernel, B, rows, cols, density, s_dim[, variant]): the sparse buckets'
+# capacity-8 shapes at rcv1's density; then s = 300 (randint's multiplier
+# is not 0) and s = 7 (many nonzeros of a row or column share a bucket);
+# then duplicate (row, column) entries inside a row, a row of more than
+# 1024 nonzeros, an all-padding lane (:func:`sparse_lanes`), and
+# columnwise outputs wider than the kernel's on-chip row of 1024 columns
+# (2048 and 8192 padded columns)
 SPARSE_CASES = [
     ("sparse_rowwise", 8, 4096, RCV1_D, RCV1_DENSITY, 1024),
     ("sparse_columnwise", 8, RCV1_D, 512, RCV1_DENSITY, 1024),
@@ -1584,6 +1734,11 @@ SPARSE_CASES = [
     ("sparse_columnwise", 3, 5000, 300, 0.02, 300),
     ("sparse_rowwise", 2, 64, 1000, 0.1, 7),
     ("sparse_columnwise", 2, 1000, 64, 0.1, 7),
+    ("sparse_columnwise", 3, 3000, 700, 0.01, 7, "dup"),
+    ("sparse_rowwise", 3, 700, 3000, 0.01, 7, "dup"),
+    ("sparse_columnwise", 2, 3000, 1500, 0.002, 64, "long_row"),
+    ("sparse_columnwise", 3, 5000, 300, 0.02, 300, "empty_lane"),
+    ("sparse_columnwise", 2, 2000, 5000, 0.005, 1024),
 ]
 
 
@@ -1721,7 +1876,8 @@ def main() -> int:
                + check_fwht(torch, P, FWHT_CASES)
                + check_cos(torch, P, COS_CASES)
                + check_fastfood(torch, P, FASTFOOD_CASES)
-               + check_batched(torch, P, np) + check_sparse(torch, P, np))
+               + check_batched(torch, P, np) + check_sparse(torch, P, np)
+               + check_f32_exact(torch, P))
     main = main_path(torch, P)
     serve = serve_phase(torch, P, np)
     emit("serve_cells", cells=serve_cells(torch, np))

@@ -20,40 +20,46 @@
 // c + s_dim*128). The bits map to values with exactly the f32 operations of
 // base/threefry.py.
 //
-// Contraction regimes (pallas_dense.py _dot), x = hi + lo with hi the
-// round-to-nearest bf16 of x and lo = bf16(x - hi):
-//   bf16x3   (default) hi*hi + hi*lo + lo*hi, three bf16 passes
+// Contraction regimes (pallas_dense.py _dot), x = hi + lo:
+//   bf16x3   (default) hi*hi + hi*lo + lo*hi, three bf16 passes, hi the
+//            round-to-nearest bf16 of x and lo = bf16(x - hi)
 //   bf16gen2 the operator rounded to bf16, only the data split: two passes
 //   bf16     one pass on rounded operands
-//   f32      fp32 FMA on the CUDA cores (the fp32 body further below)
+//   f32      the reference's Precision.HIGHEST as 3xTF32: hi*hi + hi*lo +
+//            lo*hi, three tf32 passes, hi = tf32_rna(x) and lo = tf32_rna(x
+//            - hi) (10 stored mantissa bits each). Each product is exact in
+//            fp32; the dropped lo*lo and lo's own rounding leave about
+//            2^-21 of each term, far inside the 1e-4 oracle.
 //
-// The bf16 regimes run in three kernels per call, all on the caller's
-// stream:
-// 1. dense_gen_kernel writes one chunk of n of the operator as bf16 planes
-//    (hi, and lo for bf16x3) into a workspace the wrapper allocates, already
-//    in the swizzled layout of a wgmma B tile (csrc/hopper.cuh): each entry
-//    is generated once per call (s_dim * n per lane), where the fp32 body
-//    regenerates it once per m-tile. The workspace holds at most
-//    kWorkspaceCap bytes per lane, whatever n is; a longer n is walked in
-//    chunks, the contraction of chunk c + 1 adding onto that of chunk c.
+// Every regime runs in three kernels per call, all on the caller's stream:
+// 1. dense_gen_kernel writes one chunk of n of the operator as planes (hi,
+//    and lo for bf16x3 and f32; bf16 values, or tf32 values stored as fp32)
+//    into a workspace the wrapper allocates, already in the swizzled layout
+//    of a wgmma B tile (csrc/hopper.cuh): each entry is generated once per
+//    call (s_dim * n per lane). A plane's chunk holds at most kWorkspaceCap
+//    / 2 entries per lane, whatever n is (kWorkspaceCap bytes of bf16, twice
+//    that of tf32); a longer n is walked in chunks, the contraction of chunk
+//    c + 1 adding onto that of chunk c.
 // 2. dense_tc_kernel: each block owns a 128 x BN output tile (BN = 64 or
-//    128 operator rows) and a share of the chunk's k-blocks (64 deep). A
-//    producer warpgroup (40 registers a thread, setmaxnreg) fills a ring
-//    of shared-memory stages guarded by mbarriers, from one thread: per
-//    k-block it bulk-copies the operator planes (one contiguous run per
-//    k-block and plane) and loads A's 128 x 64 fp32 tile through a TMA
-//    tensor map (boxes of 32 floats with the 128-byte swizzle; rows ld
-//    floats apart, ld a multiple of 4; zeros past m or n).
+//    128 operator rows) and a share of the chunk's k-blocks (one 128-byte
+//    swizzle row deep: 64 bf16 or 32 tf32 values). A producer warpgroup (40
+//    registers a thread, setmaxnreg) fills a ring of shared-memory stages
+//    guarded by mbarriers, from one thread: per k-block it bulk-copies the
+//    operator planes (one contiguous run per k-block and plane) and loads
+//    A's 128 x KB fp32 tile through a TMA tensor map (boxes of 32 floats
+//    with the 128-byte swizzle; rows ld floats apart, ld a multiple of 4;
+//    zeros past m or n).
 //    Two consumer warpgroups (232 registers), 64 data rows each, read
-//    their wgmma register fragments of A from the tile, split them into
-//    bf16 hi and lo, and issue the regime's passes as m64nBNk16 wgmma
-//    with the operator planes as the shared-memory operand. One body
-//    serves both orientations of the data X[i][k] (rowwise X = A,
-//    columnwise X = A^T, its tile kept in A's layout and its output tile
-//    stored transposed). Each k-block's passes go to a scratch
-//    accumulator that is then added to the running sum with fp32 adds: the
-//    tensor cores truncate the sums they form, and over n = 65536 that
-//    alone reached 8e-5 of max|out|.
+//    their wgmma register fragments of A from the tile, split them into hi
+//    and lo (bf16, or tf32 by cvt.rna), and issue the regime's passes as
+//    m64nBNk16 bf16 or m64nBNk8 tf32 wgmma with the operator planes as the
+//    shared-memory operand (tf32 takes no transposed operand: the planes
+//    are K-major in every regime). One body serves both orientations of
+//    the data X[i][k] (rowwise X = A, columnwise X = A^T, its tile kept in
+//    A's layout and its output tile stored transposed). Each k-block's
+//    passes go to a scratch accumulator that is then added to the running
+//    sum with fp32 adds: the tensor cores truncate the sums they form, and
+//    over n = 65536 that alone reached 8e-5 of max|out|.
 // 3. When a thin output leaves SMs idle, n is split across blocks (split
 //    partial sums per tile) and dense_tc_finish adds the partials in split
 //    order: no atomics, so a result is the same run to run. The scale and
@@ -62,28 +68,24 @@
 //    and the accurate cosf (never build with --use_fast_math: phases reach
 //    O(10)).
 //
-// Bound on this card: regime passes * 2*m*n*s_dim flops on the bf16 tensor
-// cores (bytes moved: A once plus the output once), and s_dim * n entries
-// of Threefry and erfinv/tanf on the CUDA cores. At a thin output (least
-// squares' S * [A | b], s_dim = 2048 over n = 65536) the generation pass is
-// the larger of the two. Every block copies its A and operator tiles from
-// L2 (64 KiB per k-block at BN = 128 in bf16x3). Feeding A by 16-byte
+// Bound on this card: regime passes * 2*m*n*s_dim flops on the tensor
+// cores (bf16, or tf32 at half the bf16 rate; bytes moved: A once plus the
+// output once), and s_dim * n entries of Threefry and erfinv/tanf on the
+// CUDA cores. At a thin output (least squares' S * [A | b], s_dim = 2048
+// over n = 65536) the generation pass is the larger of the two. Every block
+// copies its A and operator tiles from L2 (64 KiB per 64-deep k-block at BN
+// = 128 in bf16x3, 48 KiB per 32-deep one in f32). Feeding A by 16-byte
 // cp.async from all 128 producer threads made that feed the limit; one
 // thread issuing TMA boxes took 0.56 of its time at 8192^2 -> 1024
 // (PERF.md).
 //
-// Scale order: in the batched launch the bf16 regimes scale the generated
-// entries before they are rounded, as the reference's batched kernel does;
-// every other launch multiplies the finished sum by the scale, as the
+// Scale order: in the batched launch the operator entries are scaled
+// before they are rounded, as the reference's batched kernel does; every
+// other launch multiplies the finished sum by the scale, as the
 // reference's rowwise_apply and columnwise_apply do. The plan (tile width,
 // split, chunk) reads one lane's (m, n, s_dim), never the lane count, so a
 // lane's bits do not depend on how many lanes share the launch (the serve
 // layer's capacity invariance).
-//
-// The f32 regime keeps the first design: a plain shared-memory SGEMM tiling
-// (256 threads, 8x8 or 4x4 outputs per thread, 32-deep k-steps) that
-// regenerates its operator tile for every m-tile and sums over n in one
-// fixed order per block, scaling the finished sum in every variant.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -96,11 +98,7 @@
 
 namespace {
 
-constexpr int kHalf = 128;       // BLOCK_COLS / 2: counters per row per block
-constexpr int kT = 16;           // counters per k-step
-constexpr int kBK = 2 * kT;      // operator columns per k-step: kT per half
-constexpr int kThreads = 256;
-constexpr int kPad = 4;          // keeps float4 rows aligned, splits banks
+constexpr int kHalf = 128;  // BLOCK_COLS / 2: counters per row per block
 
 enum Dist { kNormal = 0, kCauchy = 1, kRademacher = 2 };
 
@@ -153,280 +151,37 @@ __device__ __forceinline__ float from_bits(uint32_t b) {
   return tanf(3.14159265358979312f * (v - 0.5f));
 }
 
-// acc[i][j] += X[k][row_i] * Y[k][col_j] over the k-step. Thread (ty, tx)
-// owns rows g*64 + ty*4 + {0..3} and columns g*64 + tx*4 + {0..3}, so
-// both operands are read as float4 without bank conflicts.
-template <int TILE>
-__device__ __forceinline__ void fma_tile(const float (&X)[kBK][TILE + kPad],
-                                         const float (&Y)[kBK][TILE + kPad],
-                                         float (&acc)[TILE / 16][TILE / 16],
-                                         int tx, int ty) {
-  constexpr int MICRO = TILE / 16;
-#pragma unroll
-  for (int kk = 0; kk < kBK; ++kk) {
-    float x[MICRO], y[MICRO];
-#pragma unroll
-    for (int g = 0; g < MICRO / 4; ++g) {
-      const float4 xv = *reinterpret_cast<const float4*>(&X[kk][g * 64 + ty * 4]);
-      const float4 yv = *reinterpret_cast<const float4*>(&Y[kk][g * 64 + tx * 4]);
-      x[g * 4 + 0] = xv.x; x[g * 4 + 1] = xv.y; x[g * 4 + 2] = xv.z; x[g * 4 + 3] = xv.w;
-      y[g * 4 + 0] = yv.x; y[g * 4 + 1] = yv.y; y[g * 4 + 2] = yv.z; y[g * 4 + 3] = yv.w;
-    }
-#pragma unroll
-    for (int i = 0; i < MICRO; ++i)
-#pragma unroll
-      for (int j = 0; j < MICRO; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-  }
-}
-
-// One block: one TILE x TILE output tile. ROWWISE: A is (m, n), output
-// (m, s_dim), tile rows index m. Columnwise: A is (n, m), output
-// (s_dim, m), tile rows index the operator. blockIdx.x walks m and
-// blockIdx.y walks the operator rows in both orientations. The 64-wide
-// tile is held to 64 registers so that four blocks fit on an SM: a thin
-// output's grid (e.g. 9 x 32 blocks for least squares' S * [A | b]) then
-// runs in one wave instead of two.
-template <int TILE, bool ROWWISE, int DIST, bool COS>
-__global__ void __launch_bounds__(kThreads, TILE == 64 ? 4 : 2)
-dense_sketch_kernel(const float* __restrict__ A, uint32_t key0, uint32_t key1,
-                    float* __restrict__ out, int64_t m, int64_t n, int s_dim,
-                    int64_t ld, float scale, const float* __restrict__ sc,
-                    const float* __restrict__ sh, float outscale,
-                    const uint32_t* __restrict__ keys, const float* __restrict__ scales,
-                    int64_t a_lane, int64_t out_lane) {
-  constexpr int MICRO = TILE / 16;
-  if (keys != nullptr) {  // batched: lane blockIdx.z's key, scale and extents
-    const int64_t z = blockIdx.z;
-    key0 = keys[2 * z];
-    key1 = keys[2 * z + 1];
-    scale = scales[z];
-    A += z * a_lane;
-    out += z * out_lane;
-  }
-  __shared__ __align__(16) float As[kBK][TILE + kPad];  // [k][index into m]
-  __shared__ __align__(16) float Ss[kBK][TILE + kPad];  // [k][operator row]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int64_t m0 = (int64_t)blockIdx.x * TILE;
-  const int s0 = blockIdx.y * TILE;
-
-  float acc[MICRO][MICRO];
-#pragma unroll
-  for (int i = 0; i < MICRO; ++i)
-#pragma unroll
-    for (int j = 0; j < MICRO; ++j) acc[i][j] = 0.0f;
-
-  const int64_t n_blocks = (n + 2 * kHalf - 1) / (2 * kHalf);
-  for (int64_t kb = 0; kb < n_blocks; ++kb) {
-    // block kb's key: two cipher calls, uniform across the block
-    uint32_t k0 = key0, k1 = key1;
-    sk::chunk_key(k0, k1, kb);
-    for (int j0 = 0; j0 < kHalf; j0 += kT) {
-      // k-step columns: [c_lo, c_lo + kT) then [c_lo + 128, c_lo + 128 + kT)
-      const int64_t c_lo = kb * 2 * kHalf + j0;
-      if (c_lo >= n) break;  // uniform across the block
-      const int64_t c_hi = c_lo + kHalf;
-
-      if (ROWWISE) {
-        // lanes run along k: one row's 2 x 64 contiguous bytes per warp
-        for (int e = tid; e < TILE * kBK; e += kThreads) {
-          const int kk = e % kBK, i = e / kBK;
-          const int64_t row = m0 + i;
-          const int64_t col = kk < kT ? c_lo + kk : c_hi + (kk - kT);
-          As[kk][i] = (row < m && col < n) ? __ldg(A + row * ld + col) : 0.0f;
-        }
-      } else {
-        // lanes run along m: coalesced rows of A
-        for (int e = tid; e < TILE * kBK; e += kThreads) {
-          const int i = e % TILE, kk = e / TILE;
-          const int64_t col = m0 + i;
-          const int64_t row = kk < kT ? c_lo + kk : c_hi + (kk - kT);
-          As[kk][i] = (row < n && col < m) ? __ldg(A + row * ld + col) : 0.0f;
-        }
-      }
-
-      for (int e = tid; e < TILE * kT; e += kThreads) {
-        const int r = e % TILE, j = e / TILE;
-        const int srow = s0 + r;
-        float v0 = 0.0f, v1 = 0.0f;
-        if (srow < s_dim) {
-          uint32_t x0 = (uint32_t)srow * kHalf + (uint32_t)(j0 + j);
-          uint32_t x1 = x0 + (uint32_t)s_dim * kHalf;
-          threefry2x32(k0, k1, x0, x1);
-          v0 = from_bits<DIST>(x0);
-          v1 = from_bits<DIST>(x1);
-        }
-        Ss[j][r] = v0;
-        Ss[kT + j][r] = v1;
-      }
-      __syncthreads();
-      if (ROWWISE)
-        fma_tile<TILE>(As, Ss, acc, tx, ty);
-      else
-        fma_tile<TILE>(Ss, As, acc, tx, ty);
-      __syncthreads();
-    }
-  }
-
-  const int64_t rows = ROWWISE ? m : (int64_t)s_dim;
-  const int64_t cols = ROWWISE ? (int64_t)s_dim : m;
-  const int64_t r0 = ROWWISE ? m0 : (int64_t)s0;
-  const int64_t q0 = ROWWISE ? (int64_t)s0 : m0;
-#pragma unroll
-  for (int i = 0; i < MICRO; ++i) {
-    const int64_t row = r0 + (i / 4) * 64 + ty * 4 + (i % 4);
-    if (row >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < MICRO; ++j) {
-      const int64_t col = q0 + (j / 4) * 64 + tx * 4 + (j % 4);
-      if (col >= cols) continue;
-      if (COS) {
-        // outscale * cos(acc * inscale * sc + sh), scale being inscale
-        const float z = __fadd_rn(__fmul_rn(__fmul_rn(acc[i][j], scale), sc[col]), sh[col]);
-        out[row * cols + col] = __fmul_rn(outscale, cosf(z));
-      } else {
-        out[row * cols + col] = scale * acc[i][j];
-      }
-    }
-  }
-}
-
-// Lane arguments of a launch: keys (B, 2) and scales (B,) on the card, and
-// the per-lane strides of A and out; keys == nullptr for one lane whose key
-// and scale are arguments.
-struct Lanes {
-  const uint32_t* keys;
-  const float* scales;
-  int64_t count, a_lane, out_lane;
-};
-
-template <int TILE, bool ROWWISE, bool COS>
-cudaError_t launch_tile(const float* A, uint32_t key0, uint32_t key1, float* out, int64_t m,
-                        int64_t n, int64_t s_dim, int64_t ld, int dist, float scale,
-                        const float* sc, const float* sh, float outscale, Lanes ln,
-                        cudaStream_t stream) {
-  const dim3 grid((unsigned)((m + TILE - 1) / TILE), (unsigned)((s_dim + TILE - 1) / TILE),
-                  (unsigned)ln.count);
-  const int s = (int)s_dim;
-  switch (dist) {
-    case kNormal:
-      dense_sketch_kernel<TILE, ROWWISE, kNormal, COS><<<grid, kThreads, 0, stream>>>(
-          A, key0, key1, out, m, n, s, ld, scale, sc, sh, outscale, ln.keys, ln.scales,
-          ln.a_lane, ln.out_lane);
-      break;
-    case kCauchy:
-      dense_sketch_kernel<TILE, ROWWISE, kCauchy, COS><<<grid, kThreads, 0, stream>>>(
-          A, key0, key1, out, m, n, s, ld, scale, sc, sh, outscale, ln.keys, ln.scales,
-          ln.a_lane, ln.out_lane);
-      break;
-    case kRademacher:
-      dense_sketch_kernel<TILE, ROWWISE, kRademacher, COS><<<grid, kThreads, 0, stream>>>(
-          A, key0, key1, out, m, n, s, ld, scale, sc, sh, outscale, ln.keys, ln.scales,
-          ln.a_lane, ln.out_lane);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-// 128-wide tiles when they give at least two blocks per SM, else 64-wide
-// ones (a thin output, e.g. the SVD range sketch or least squares' S*A,
-// would leave most SMs idle). The tile changes no sum order. The choice
-// reads one lane's (m, s_dim), never the lane count.
-template <bool ROWWISE, bool COS>
-cudaError_t launch(const float* A, uint32_t key0, uint32_t key1, float* out, int64_t m, int64_t n,
-                   int64_t s_dim, int64_t ld, int dist, float scale, const float* sc,
-                   const float* sh, float outscale, Lanes ln, cudaStream_t stream) {
-  if (m <= 0 || n <= 0 || s_dim <= 0 || ld < (ROWWISE ? n : m) ||
-      (s_dim + 63) / 64 > 65535 || (m + 63) / 64 > 0x7FFFFFFF ||
-      s_dim * kHalf > 0xFFFFFFFFLL || (COS && (sc == nullptr || sh == nullptr)) ||
-      ln.count < 1 || ln.count > 65535 || (ln.count > 1 && ln.keys == nullptr))
-    return cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const int64_t big_tiles = ((m + 127) / 128) * ((s_dim + 127) / 128);
-  if (big_tiles >= 2 * (int64_t)sms)
-    return launch_tile<128, ROWWISE, COS>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, sc,
-                                          sh, outscale, ln, stream);
-  return launch_tile<64, ROWWISE, COS>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, sc, sh,
-                                       outscale, ln, stream);
-}
-
-constexpr Lanes kOneLane = {nullptr, nullptr, 1, 0, 0};
-
-}  // namespace
-
-extern "C" int sk_dense_rowwise(const float* A, uint32_t key0, uint32_t key1, float* out,
-                                int64_t m, int64_t n, int64_t s_dim, int64_t ld,
-                                int dist, float scale, cudaStream_t stream) {
-  return (int)launch<true, false>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, nullptr,
-                                  nullptr, 0.0f, kOneLane, stream);
-}
-
-extern "C" int sk_dense_columnwise(const float* A, uint32_t key0, uint32_t key1, float* out,
-                                   int64_t m, int64_t n, int64_t s_dim, int64_t ld,
-                                   int dist, float scale, cudaStream_t stream) {
-  return (int)launch<false, false>(A, key0, key1, out, m, n, s_dim, ld, dist, scale, nullptr,
-                                   nullptr, 0.0f, kOneLane, stream);
-}
-
-extern "C" int sk_dense_rowwise_cos(const float* A, uint32_t key0, uint32_t key1, const float* sc,
-                                    const float* sh, float* out, int64_t m, int64_t n,
-                                    int64_t s_dim, int64_t ld, int dist, float inscale,
-                                    float outscale, cudaStream_t stream) {
-  return (int)launch<true, true>(A, key0, key1, out, m, n, s_dim, ld, dist, inscale, sc, sh,
-                                 outscale, kOneLane, stream);
-}
-
-// The batched sketch of a stacked cohort: A (B, m, n) rowwise -> out
-// (B, m, s_dim), or A (B, n, m) columnwise -> out (B, s_dim, m), lane b
-// under keys[2b], keys[2b + 1] and scaled by scales[b]; both arrays on the
-// card. Contiguous lanes (ld = n rowwise, m columnwise).
-extern "C" int sk_dense_batched(int rowwise, const float* A, const uint32_t* keys,
-                                const float* scales, float* out, int64_t B, int64_t m,
-                                int64_t n, int64_t s_dim, int dist, cudaStream_t stream) {
-  if (keys == nullptr || scales == nullptr) return (int)cudaErrorInvalidValue;
-  const Lanes ln = {keys, scales, B, m * n, m * s_dim};
-  if (rowwise)
-    return (int)launch<true, false>(A, 0u, 0u, out, m, n, s_dim, n, dist, 1.0f, nullptr,
-                                    nullptr, 0.0f, ln, stream);
-  return (int)launch<false, false>(A, 0u, 0u, out, m, n, s_dim, m, dist, 1.0f, nullptr, nullptr,
-                                   0.0f, ln, stream);
-}
-
-// ---------------------------------------------------------------------------
-// The bf16 regimes on the tensor cores
-// ---------------------------------------------------------------------------
-
-namespace {
-
 enum Regime { kF32 = 0, kBf16x3 = 1, kBf16Gen2 = 2, kBf16 = 3 };
 
-constexpr int64_t kWorkspaceCap = 64ll << 20;  // operator planes, bytes per lane
-constexpr int kBM = 128;                       // data rows per block: 2 x 64
-constexpr int kKB = 64;                        // k-block: one 128-byte swizzle row
-constexpr int kConsumers = 256;                // two warpgroups
-constexpr int kProducers = 128;                // and a producer warpgroup
+// operator planes per lane: kWorkspaceCap bytes of bf16 planes; the f32
+// regime's tf32 planes hold as many entries, in twice the bytes
+constexpr int64_t kWorkspaceCap = 64ll << 20;
+constexpr int kBM = 128;          // data rows per block: 2 x 64
+constexpr int kConsumers = 256;   // two warpgroups
+constexpr int kProducers = 128;   // and a producer warpgroup
 constexpr int kTcThreads = kConsumers + kProducers;
+constexpr int kMaxStages = 6;
+constexpr int kSmemBudget = 220 * 1024;  // stages; barriers and alignment aside
+constexpr int kMinKbPerSplit = 32;       // 64-deep k-blocks a split share keeps at least
+
+// Per regime: a k-block is one 128-byte swizzle row of a plane (64 bf16 or
+// 32 tf32 values); f32 and bf16x3 keep hi and lo planes.
+__host__ __device__ constexpr int kblock(int regime) { return regime == kF32 ? 32 : 64; }
+__host__ __device__ constexpr int planes_of(int regime) { return regime == kF32 || regime == kBf16x3 ? 2 : 1; }
+__host__ __device__ constexpr int entry_bytes(int regime) { return regime == kF32 ? 4 : 2; }
 // A's fp32 tile in a stage, in A's own layout as TMA boxes of 32 floats
 // (128 bytes) by R rows with the 128-byte swizzle (csrc/hopper.cuh):
-// rowwise 2 boxes of [128 data rows][32 k], columnwise 4 boxes of [64 k][32
-// data rows]; the swizzle spreads each fragment read over all 32 banks
-constexpr int kABytes = kBM * kKB * 4;  // 32 KiB
-constexpr int kMaxStages = 6;
-constexpr int kSmemBudget = 220 * 1024;        // stages; barriers and alignment aside
-constexpr int kMinKbPerSplit = 32;             // k-blocks a split share keeps at least
+// rowwise KB/32 boxes of [128 data rows][32 k], columnwise 4 boxes of [KB
+// k][32 data rows]; the swizzle spreads each fragment read over the banks.
+// 32 KiB in the bf16 regimes, 16 KiB in f32.
+__host__ __device__ constexpr int a_bytes(int regime) { return kBM * kblock(regime) * 4; }
 
 // The launch plan of one lane; the same for every lane of a batched launch.
 struct Plan {
   int bn, split, stages, planes;
   int64_t s_pad, kc, chunks, m_pad;
-  int64_t ws_lane;    // bf16 elements of the operator planes, per lane
+  int64_t ws_lane;    // bytes of the operator planes, per lane
+  int64_t plane;      // bytes of one plane, per lane
   int64_t part_lane;  // floats of partial sums per lane (0: none needed)
 };
 
@@ -434,17 +189,17 @@ Plan make_plan(int64_t m, int64_t n, int64_t s_dim, int regime, int sms) {
   Plan p;
   p.bn = s_dim <= 64 ? 64 : 128;
   p.s_pad = (s_dim + p.bn - 1) / p.bn * p.bn;
-  p.planes = regime == kBf16x3 ? 2 : 1;
+  p.planes = planes_of(regime);
   const int64_t n256 = (n + 255) / 256 * 256;
   int64_t kc = kWorkspaceCap / (p.planes * p.s_pad * 2) / 256 * 256;
   p.kc = kc < 256 ? 256 : (kc > n256 ? n256 : kc);
   p.chunks = (n + p.kc - 1) / p.kc;
   p.m_pad = (m + kBM - 1) / kBM * kBM;
   const int64_t tiles = (p.m_pad / kBM) * (p.s_pad / p.bn);
-  const int64_t kb = (std::min(p.kc, n) + kKB - 1) / kKB;  // k-blocks of the first chunk
+  const int64_t kb = (std::min(p.kc, n) + 63) / 64;  // 64-deep k-blocks of the first chunk
   // a thin output (fewer tiles than SMs) splits n: the split that fills
   // the last wave of blocks best (the smallest on a tie), each share
-  // keeping at least kMinKbPerSplit k-blocks
+  // keeping at least kMinKbPerSplit 64-deep k-blocks
   const int64_t most =
       tiles >= sms ? 1 : std::max<int64_t>(1, std::min<int64_t>(kb / kMinKbPerSplit, 64));
   int64_t split = 1;
@@ -458,10 +213,11 @@ Plan make_plan(int64_t m, int64_t n, int64_t s_dim, int regime, int sms) {
     }
   }
   p.split = (int)split;
-  const int stage_bytes = p.planes * p.bn * 128 + kABytes;
+  const int stage_bytes = p.planes * p.bn * 128 + a_bytes(regime);
   p.stages = kSmemBudget / stage_bytes;
   if (p.stages > kMaxStages) p.stages = kMaxStages;
-  p.ws_lane = p.planes * p.s_pad * p.kc;
+  p.plane = p.s_pad * p.kc * entry_bytes(regime);
+  p.ws_lane = p.planes * p.plane;
   p.part_lane = (p.split > 1 || p.chunks > 1) ? p.split * p.m_pad * p.s_pad : 0;
   return p;
 }
@@ -472,8 +228,8 @@ struct GenArgs {
   const float* scales;   // (B,) entry scales, or nullptr: none
   int64_t n, c0;         // operator columns; this chunk's first
   int s_dim, s_pad, planes;
-  __nv_bfloat16* ws;
-  int64_t ws_lane, plane;  // elements
+  uint8_t* ws;
+  int64_t ws_lane, plane;  // bytes
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
@@ -481,12 +237,14 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
 }
 
 // Columns [c0 + 256*blockIdx.x, + 256) of operator rows 16*blockIdx.y + [0,
-// 16) of lane blockIdx.z, as bf16 hi (and lo) planes in the swizzled
-// k-block layout: element (r, k) of the chunk at ((k/64)*s_pad + r)*64 +
-// (((k%64)/8) ^ (r%8))*8 + k%8. Thread (row, 8-counter group) makes 16
-// entries, columns j..j+7 and 128+j..128+j+7 of the 256-column block, and
-// stores each run of 8 as one 16-byte vector per plane.
-template <int DIST>
+// 16) of lane blockIdx.z, as hi (and lo) planes in the swizzled k-block
+// layout. bf16: element (r, k) of the chunk at ((k/64)*s_pad + r)*64 +
+// (((k%64)/8) ^ (r%8))*8 + k%8; TF32 (tf32 values stored as fp32):
+// ((k/32)*s_pad + r)*32 + (((k%32)/4) ^ (r%8))*4 + k%4. Thread (row,
+// 8-counter group) makes 16 entries, columns j..j+7 and 128+j..128+j+7 of
+// the 256-column block, and stores each run of 8 as one 16-byte vector
+// per plane (bf16) or two (tf32).
+template <int DIST, bool TF32>
 __global__ void __launch_bounds__(256) dense_gen_kernel(const GenArgs g) {
   __shared__ uint32_t key[2];
   const int64_t lane = blockIdx.z;
@@ -523,24 +281,42 @@ __global__ void __launch_bounds__(256) dense_gen_kernel(const GenArgs g) {
       v[1][e] = __fmul_rn(v[1][e], s);
     }
   }
-  __nv_bfloat16* ws = g.ws + lane * g.ws_lane;
+  uint8_t* ws = g.ws + lane * g.ws_lane;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int lc = blockIdx.x * 256 + h * kHalf + j0;  // column within the chunk
-    const int64_t off =
-        ((int64_t)(lc / kKB) * g.s_pad + r) * kKB + (int64_t)((((lc % kKB) / 8) ^ (r % 8)) * 8);
-    uint32_t hi[4], lo[4];
+    if constexpr (TF32) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x0 = v[h][2 * e], x1 = v[h][2 * e + 1];
-      const __nv_bfloat162 bh = __floats2bfloat162_rn(x0, x1);
-      const float2 fh = __bfloat1622float2(bh);
-      hi[e] = pack_bf16(bh);
-      lo[e] = pack_bf16(__floats2bfloat162_rn(__fsub_rn(x0, fh.x), __fsub_rn(x1, fh.y)));
+      for (int c = 0; c < 2; ++c) {
+        const int k = lc + 4 * c;
+        const int64_t off =
+            (((int64_t)(k / 32) * g.s_pad + r) * 32 + (((k % 32) / 4) ^ (r % 8)) * 4) * 4;
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = v[h][4 * c + e];
+          hi[e] = hop::tf32_rna(x);
+          lo[e] = hop::tf32_rna(__fsub_rn(x, __uint_as_float(hi[e])));
+        }
+        *reinterpret_cast<uint4*>(ws + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(ws + g.plane + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+    } else {
+      const int64_t off =
+          (((int64_t)(lc / 64) * g.s_pad + r) * 64 + (((lc % 64) / 8) ^ (r % 8)) * 8) * 2;
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x0 = v[h][2 * e], x1 = v[h][2 * e + 1];
+        const __nv_bfloat162 bh = __floats2bfloat162_rn(x0, x1);
+        const float2 fh = __bfloat1622float2(bh);
+        hi[e] = pack_bf16(bh);
+        lo[e] = pack_bf16(__floats2bfloat162_rn(__fsub_rn(x0, fh.x), __fsub_rn(x1, fh.y)));
+      }
+      *reinterpret_cast<uint4*>(ws + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      if (g.planes == 2)
+        *reinterpret_cast<uint4*>(ws + g.plane + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
-    *reinterpret_cast<uint4*>(ws + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    if (g.planes == 2)
-      *reinterpret_cast<uint4*>(ws + g.plane + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
   }
 }
 
@@ -551,8 +327,8 @@ struct TcArgs {
   int64_t m, n;
   int s_dim, s_pad;
   int64_t c0, clen;  // this chunk's columns
-  const __nv_bfloat16* ws;
-  int64_t ws_lane, plane;
+  const uint8_t* ws;
+  int64_t ws_lane, plane;  // bytes
   int split, stages, first, last;
   int64_t lanes;
   float* part;  // partial sums: [lane][split], then [m_pad][s_pad] rowwise,
@@ -585,9 +361,12 @@ __device__ __forceinline__ float finish(const TcArgs& p, float acc, int64_t j) {
 template <int BN, int REGIME>
 __global__ void __launch_bounds__(kTcThreads, 1)
     dense_tc_kernel(const TcArgs p, const __grid_constant__ CUtensorMap amap) {
-  constexpr int kPlanes = REGIME == kBf16x3 ? 2 : 1;
+  constexpr bool kTf32 = REGIME == kF32;
+  constexpr int kKB = kblock(REGIME);
+  constexpr int kPlanes = planes_of(REGIME);
   constexpr bool kALo = REGIME != kBf16;
   constexpr int kSBytes = kPlanes * BN * 128;
+  constexpr int kABytes = a_bytes(REGIME);
   constexpr int kStageBytes = kSBytes + kABytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
@@ -615,25 +394,27 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   if (tid >= kConsumers) {
     // The producer warpgroup gives its registers back, and one thread
     // feeds the ring: per k-block the operator planes by bulk copy and A's
-    // 128 x 64 fp32 tile as TMA boxes (zeros past m or n), all counted on
+    // 128 x KB fp32 tile as TMA boxes (zeros past m or n), all counted on
     // the stage's full barrier.
     hop::regs_dec<40>();
     if (tid != kConsumers) return;
-    const __nv_bfloat16* src = p.ws + lane * p.ws_lane + (kb0 * p.s_pad + n0) * kKB;
+    const uint8_t* src = p.ws + lane * p.ws_lane + (kb0 * p.s_pad + n0) * 128;
     for (int it = 0; it < iters; ++it) {
       const int s = it % p.stages;
       if (it >= p.stages) hop::mbar_wait(&empty[s], ((it / p.stages) - 1) & 1);
       uint8_t* stage = smem + s * kStageBytes;
       hop::mbar_expect_tx(&full[s], kSBytes + kABytes);
-      const __nv_bfloat16* at = src + (int64_t)it * p.s_pad * kKB;
+      const uint8_t* at = src + (int64_t)it * p.s_pad * 128;
 #pragma unroll
       for (int q = 0; q < kPlanes; ++q)
         hop::bulk_copy(stage + q * BN * 128, at + q * p.plane, BN * 128, &full[s]);
       uint8_t* as = stage + kSBytes;
       const int kbase = (int)(p.c0 + (kb0 + it) * kKB);
       if (p.rowwise) {
-        hop::tma_load_3d(as, &amap, kbase, (int)m0, (int)lane, &full[s]);
-        hop::tma_load_3d(as + kABytes / 2, &amap, kbase + 32, (int)m0, (int)lane, &full[s]);
+#pragma unroll
+        for (int b = 0; b < kKB / 32; ++b)
+          hop::tma_load_3d(as + b * (kBM * 128), &amap, kbase + 32 * b, (int)m0, (int)lane,
+                           &full[s]);
       } else {
 #pragma unroll
         for (int b = 0; b < 4; ++b)
@@ -680,9 +461,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   for (int it = 0; it < iters; ++it) {
     const int s = it % p.stages;
     hop::mbar_wait(&full[s], (it / p.stages) & 1);
-    // A's fragments from the stage's tile, split into bf16 hi and lo:
+    // A's fragments from the stage's tile, split into hi and lo. bf16:
     // k-step kk's register r holds rows (r & 1 ? r1 : r0), columns 16*kk +
-    // 2q + (r & 2 ? 8 : 0) and the next
+    // 2q + (r & 2 ? 8 : 0) and the next; tf32: the same rows, column 8*kk
+    // + q + (r & 2 ? 4 : 0)
     uint32_t ah[4][4], al[4][4];
     if (active) {
       const float* as = reinterpret_cast<const float*>(smem + s * kStageBytes + kSBytes);
@@ -690,23 +472,37 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const int lr = l0 + ((r & 1) ? 8 : 0), k = 16 * kk + 2 * q + ((r & 2) ? 8 : 0);
+          const int lr = l0 + ((r & 1) ? 8 : 0);
           // (row, col) of a box at float row * 32 + ((col / 4) ^ (row % 8)) * 4 + col % 4
-          float2 x;
-          if (p.rowwise) {
-            x = *reinterpret_cast<const float2*>(as + (k / 32) * (kBM * 32) + lr * 32 +
-                                                 ((((k % 32) / 4) ^ (lr % 8)) * 4) + k % 4);
+          if constexpr (kTf32) {
+            const int k = 8 * kk + q + ((r & 2) ? 4 : 0);
+            float x;
+            if (p.rowwise) {
+              x = as[lr * 32 + (((k / 4) ^ (lr % 8)) * 4) + k % 4];
+            } else {
+              const float* box = as + (lr / 32) * (kKB * 32) + lr % 4;
+              x = box[k * 32 + ((((lr % 32) / 4) ^ (k % 8)) * 4)];
+            }
+            ah[kk][r] = hop::tf32_rna(x);
+            al[kk][r] = hop::tf32_rna(__fsub_rn(x, __uint_as_float(ah[kk][r])));
           } else {
-            const float* box = as + (lr / 32) * (kKB * 32) + lr % 4;
-            const int c = (lr % 32) / 4;
-            x.x = box[k * 32 + ((c ^ (k % 8)) * 4)];
-            x.y = box[(k + 1) * 32 + ((c ^ ((k + 1) % 8)) * 4)];
+            const int k = 16 * kk + 2 * q + ((r & 2) ? 8 : 0);
+            float2 x;
+            if (p.rowwise) {
+              x = *reinterpret_cast<const float2*>(as + (k / 32) * (kBM * 32) + lr * 32 +
+                                                   ((((k % 32) / 4) ^ (lr % 8)) * 4) + k % 4);
+            } else {
+              const float* box = as + (lr / 32) * (kKB * 32) + lr % 4;
+              const int c = (lr % 32) / 4;
+              x.x = box[k * 32 + ((c ^ (k % 8)) * 4)];
+              x.y = box[(k + 1) * 32 + ((c ^ ((k + 1) % 8)) * 4)];
+            }
+            const __nv_bfloat162 bh = __floats2bfloat162_rn(x.x, x.y);
+            const float2 fh = __bfloat1622float2(bh);
+            ah[kk][r] = pack_bf16(bh);
+            al[kk][r] =
+                pack_bf16(__floats2bfloat162_rn(__fsub_rn(x.x, fh.x), __fsub_rn(x.y, fh.y)));
           }
-          const __nv_bfloat162 bh = __floats2bfloat162_rn(x.x, x.y);
-          const float2 fh = __bfloat1622float2(bh);
-          ah[kk][r] = pack_bf16(bh);
-          al[kk][r] =
-              pack_bf16(__floats2bfloat162_rn(__fsub_rn(x.x, fh.x), __fsub_rn(x.y, fh.y)));
         }
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) hop::fence_operand(tmp[i]);
@@ -715,10 +511,16 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       const uint64_t dhi = hop::desc_k128(base);
       const uint64_t dlo = hop::desc_k128(base + BN * 128);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        hop::wgmma_rs<BN>(tmp, ah[kk], dhi + 2 * kk, kk > 0);  // +32 bytes per k-step
-        if constexpr (kPlanes == 2) hop::wgmma_rs<BN>(tmp, ah[kk], dlo + 2 * kk, 1);
-        if constexpr (kALo) hop::wgmma_rs<BN>(tmp, al[kk], dhi + 2 * kk, 1);
+      for (int kk = 0; kk < 4; ++kk) {  // +32 bytes per k-step
+        if constexpr (kTf32) {
+          hop::wgmma_rs_tf32<BN>(tmp, ah[kk], dhi + 2 * kk, kk > 0);
+          hop::wgmma_rs_tf32<BN>(tmp, ah[kk], dlo + 2 * kk, 1);
+          hop::wgmma_rs_tf32<BN>(tmp, al[kk], dhi + 2 * kk, 1);
+        } else {
+          hop::wgmma_rs<BN>(tmp, ah[kk], dhi + 2 * kk, kk > 0);
+          if constexpr (kPlanes == 2) hop::wgmma_rs<BN>(tmp, ah[kk], dlo + 2 * kk, 1);
+          if constexpr (kALo) hop::wgmma_rs<BN>(tmp, al[kk], dhi + 2 * kk, 1);
+        }
       }
       hop::wgmma_commit();
       hop::wgmma_wait_all();
@@ -774,15 +576,18 @@ __global__ void __launch_bounds__(256) dense_tc_finish(const TcArgs p) {
 }
 
 template <int DIST>
-cudaError_t launch_gen(const GenArgs& g, dim3 grid, cudaStream_t stream) {
-  dense_gen_kernel<DIST><<<grid, 256, 0, stream>>>(g);
+cudaError_t launch_gen(const GenArgs& g, bool tf32, dim3 grid, cudaStream_t stream) {
+  if (tf32)
+    dense_gen_kernel<DIST, true><<<grid, 256, 0, stream>>>(g);
+  else
+    dense_gen_kernel<DIST, false><<<grid, 256, 0, stream>>>(g);
   return cudaGetLastError();
 }
 
 template <int BN, int REGIME>
 cudaError_t launch_tc(const TcArgs& a, const CUtensorMap& amap, dim3 grid, cudaStream_t stream) {
-  constexpr int kSBytes = (REGIME == kBf16x3 ? 2 : 1) * BN * 128;
-  const int smem = a.stages * (kSBytes + kABytes) + 1024 + 2 * kMaxStages * 8;
+  constexpr int kSBytes = planes_of(REGIME) * BN * 128;
+  const int smem = a.stages * (kSBytes + a_bytes(REGIME)) + 1024 + 2 * kMaxStages * 8;
   cudaError_t err = cudaFuncSetAttribute(dense_tc_kernel<BN, REGIME>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -794,6 +599,7 @@ template <int BN>
 cudaError_t launch_tc_bn(const TcArgs& a, const CUtensorMap& amap, int regime, dim3 grid,
                          cudaStream_t stream) {
   switch (regime) {
+    case kF32: return launch_tc<BN, kF32>(a, amap, grid, stream);
     case kBf16x3: return launch_tc<BN, kBf16x3>(a, amap, grid, stream);
     case kBf16Gen2: return launch_tc<BN, kBf16Gen2>(a, amap, grid, stream);
     case kBf16: return launch_tc<BN, kBf16>(a, amap, grid, stream);
@@ -824,16 +630,17 @@ EncodeTiled encode_tiled() {
 }
 
 // The tensor map of A's lanes as TMA reads them: rowwise (n, m, B) with
-// boxes of 32 x 128 x 1, columnwise (m, n, B) with boxes of 32 x 64 x 1,
-// innermost first; rows ld floats apart, lanes a_lane floats apart.
-cudaError_t encode_a(CUtensorMap* map, int rowwise, const float* A, int64_t ld, int64_t a_lane,
-                     int64_t B, int64_t m, int64_t n) {
+// boxes of 32 x 128 x 1, columnwise (m, n, B) with boxes of 32 x KB x 1
+// (KB the regime's k-block), innermost first; rows ld floats apart, lanes
+// a_lane floats apart.
+cudaError_t encode_a(CUtensorMap* map, int rowwise, int regime, const float* A, int64_t ld,
+                     int64_t a_lane, int64_t B, int64_t m, int64_t n) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)(rowwise ? n : m), (cuuint64_t)(rowwise ? m : n),
                               (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)ld * 4, (cuuint64_t)a_lane * 4};
-  const cuuint32_t box[3] = {32, (cuuint32_t)(rowwise ? kBM : kKB), 1};
+  const cuuint32_t box[3] = {32, (cuuint32_t)(rowwise ? kBM : kblock(regime)), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(A), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -851,17 +658,17 @@ cudaError_t sm_count(int* sms) {
 
 }  // namespace
 
-// The plan of a bf16-regime launch, for the wrapper's allocations: plan[0]
+// The plan of a launch in any regime, for the wrapper's allocations: plan[0]
 // workspace bytes per lane, [1] partial-sum bytes per lane, [2] split, [3]
 // chunks, [4] tile width BN, [5] chunk columns.
 extern "C" int sk_dense_tc_plan(int64_t m, int64_t n, int64_t s_dim, int regime, int64_t* plan) {
-  if (m <= 0 || n <= 0 || s_dim <= 0 || regime < kBf16x3 || regime > kBf16)
+  if (m <= 0 || n <= 0 || s_dim <= 0 || regime < kF32 || regime > kBf16)
     return (int)cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   const Plan p = make_plan(m, n, s_dim, regime, sms);
-  plan[0] = 2 * p.ws_lane;
+  plan[0] = p.ws_lane;
   plan[1] = 4 * p.part_lane;
   plan[2] = p.split;
   plan[3] = p.chunks;
@@ -870,7 +677,7 @@ extern "C" int sk_dense_tc_plan(int64_t m, int64_t n, int64_t s_dim, int regime,
   return 0;
 }
 
-// The bf16 regimes, one lane or a stacked cohort. Rowwise A (B, m, n) ->
+// Every regime, one lane or a stacked cohort. Rowwise A (B, m, n) ->
 // out (B, m, s_dim); columnwise A (B, n, m) -> out (B, s_dim, m); A's rows
 // ld floats apart, ld a multiple of 4, lanes contiguous in that layout, A
 // 16-byte aligned. One lane: keys == nullptr, key0/key1 its key, and out is
@@ -884,7 +691,7 @@ extern "C" int sk_dense_tc(int rowwise, int regime, int dist, const float* A, in
                            float scale, const float* sc,
                            const float* sh, float outscale, float* out, void* ws, void* part,
                            cudaStream_t stream) {
-  if (m <= 0 || n <= 0 || s_dim <= 0 || B < 1 || regime < kBf16x3 || regime > kBf16 ||
+  if (m <= 0 || n <= 0 || s_dim <= 0 || B < 1 || regime < kF32 || regime > kBf16 ||
       dist < kNormal || dist > kRademacher || s_dim * kHalf > 0xFFFFFFFFLL ||
       (sc == nullptr) != (sh == nullptr) || (sc != nullptr && (!rowwise || keys != nullptr)) ||
       (keys == nullptr) != (scales == nullptr) || (keys == nullptr && B != 1) ||
@@ -908,9 +715,9 @@ extern "C" int sk_dense_tc(int rowwise, int regime, int dist, const float* A, in
   g.s_dim = (int)s_dim;
   g.s_pad = (int)pl.s_pad;
   g.planes = pl.planes;
-  g.ws = static_cast<__nv_bfloat16*>(ws);
+  g.ws = static_cast<uint8_t*>(ws);
   g.ws_lane = pl.ws_lane;
-  g.plane = pl.s_pad * pl.kc;
+  g.plane = pl.plane;
 
   TcArgs a;
   a.rowwise = rowwise;
@@ -938,7 +745,7 @@ extern "C" int sk_dense_tc(int rowwise, int regime, int dist, const float* A, in
   a.sh = sh;
 
   CUtensorMap amap;
-  err = encode_a(&amap, rowwise, A, ld, (rowwise ? m : n) * ld, B, m, n);
+  err = encode_a(&amap, rowwise, regime, A, ld, (rowwise ? m : n) * ld, B, m, n);
   if (err != cudaSuccess) return (int)err;
   const dim3 tc_grid((unsigned)(pl.s_pad / pl.bn), (unsigned)(pl.m_pad / kBM),
                      (unsigned)(B * pl.split));
@@ -947,9 +754,9 @@ extern "C" int sk_dense_tc(int rowwise, int regime, int dist, const float* A, in
     const int64_t clen = std::min(pl.kc, n - g.c0);
     const dim3 gen_grid((unsigned)((clen + 255) / 256), (unsigned)(pl.s_pad / 16), (unsigned)B);
     switch (dist) {
-      case kNormal: err = launch_gen<kNormal>(g, gen_grid, stream); break;
-      case kCauchy: err = launch_gen<kCauchy>(g, gen_grid, stream); break;
-      default: err = launch_gen<kRademacher>(g, gen_grid, stream); break;
+      case kNormal: err = launch_gen<kNormal>(g, regime == kF32, gen_grid, stream); break;
+      case kCauchy: err = launch_gen<kCauchy>(g, regime == kF32, gen_grid, stream); break;
+      default: err = launch_gen<kRademacher>(g, regime == kF32, gen_grid, stream); break;
     }
     if (err != cudaSuccess) return (int)err;
     a.c0 = g.c0;

@@ -8,10 +8,10 @@
 //   columnwise  out[b][h[r], c] += v[r] * val      (m = cols) -> (s, m)
 // h is UniformInt(0, s-1) of sub-stream 0 and v Rademacher of sub-stream 1
 // of the lane's key, in base/randgen.py's counter-stream layout. They are
-// derived here at each nonzero's hashed coordinate only (the column
-// rowwise, the row columnwise): the chunk key of coordinate j's chunk
-// j / 4096 and randint's split pair, as csrc/hash_sketch.cu derives them,
-// so the cipher work is O(nnz), not O(n).
+// derived here at the hashed coordinates that hold nonzeros only (each
+// nonzero's column rowwise, each row run columnwise): the chunk key of
+// coordinate j's chunk j / 4096 and randint's split pair, as
+// csrc/hash_sketch.cu derives them, so the cipher work is O(nnz), not O(n).
 //
 // Contract: bit-equal to the plain scatter (sketch/sparse_serve.py
 // cwt_sparse_serve_apply on the CPU), which adds each output cell's terms
@@ -26,14 +26,21 @@
 //   1024 at a time and hashes only the 32-entry batches that hold a
 //   nonzero value; a first pass finds each lane's last nonzero value, and
 //   every range is cut there.
-// - columnwise: cell (h[r], c) takes column c's terms in row order, spread
-//   over the whole lane. A stable counting sort by column makes that order
-//   a contiguous run: per tile of 1024 nonzeros each nonzero's rank among
-//   the tile's earlier nonzeros of its column (an O(tile^2) count in shared
-//   memory, as hash_sketch.cu sorts), the per-(column, tile) counts scanned
-//   in column-major order, then each nonzero placed at its column's offset
-//   plus its rank. One thread per (lane, column) then walks its run and
-//   adds in order.
+// - columnwise: cell (h[r], c) takes the terms of the rows r hashed to
+//   bucket h, in increasing r. In a CSR lane a row is one contiguous run of
+//   positions, so each row is hashed once (O(rows) cipher calls, not one
+//   per nonzero) and the runs are ordered by (bucket, row): per tile of
+//   2048 rows a bitonic sort in shared memory of the distinct keys
+//   h * 2048 + (r - tile start), so each tile holds its rows of bucket h
+//   as one segment in increasing r, found by binary search. One warp per
+//   (lane, bucket) then walks the tiles in order, gathers the bucket's
+//   runs 32 at a time, and adds their nonzeros 32 at a time into an
+//   on-chip copy of output row h (kRowBuf floats; a wider row is walked in
+//   column tiles): positions in a batch keep their order, and those that
+//   share a column (duplicate CSR entries) add in position order, ranked
+//   by __match_any_sync. The warp writes the whole row once, zeros
+//   included, so the output needs no zero-fill; the scratch is O(rows) per
+//   lane.
 // No float atomics anywhere.
 //
 // Zero values. An entry whose value is 0.0 adds +-0.0 to its cell. Every
@@ -42,9 +49,9 @@
 // its bits. The kernel therefore passes over such entries by their value
 // (never by their position): the lane padding (value 0.0 at column 0, the
 // row clamped to the last row: up to half of a lane, all in one row or
-// one column) and explicit zeros cost no hashing and no sorting, and the
-// result stays bit-equal to the plain scatter, which adds them, at every
-// capacity.
+// one column) and explicit zeros are never added, the padding past each
+// lane's last nonzero value is cut from every range, and the result stays
+// bit-equal to the plain scatter, which adds them, at every capacity.
 //
 // Bound on this card: bytes (the lanes read once, the output written
 // once); a few Threefry calls per nonzero are far below the integer rate.
@@ -61,9 +68,13 @@ namespace {
 constexpr int kChunk = 4096;   // randgen.CHUNK: stream chunk length
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 1024;    // nonzeros per sort tile, columnwise
-constexpr int kPer = kTile / kThreads;
-constexpr int kScan = 1024;    // threads of the scan block
+constexpr int kTile = 1024;    // positions per block of sparse_lane_end
+constexpr int kRunBits = 11;
+constexpr int kRunTile = 1 << kRunBits;  // rows per sort tile, columnwise
+constexpr int kSortThreads = 1024;
+constexpr int kAccWarps = 8;   // buckets per accumulation block
+constexpr int kRowBuf = 1024;  // output columns a warp holds on chip
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // The lane's sub-stream keys: bucket stream fold_in(key, 0), value stream
 // fold_in(key, 1).
@@ -116,7 +127,24 @@ __device__ __forceinline__ int64_t lower_bound(const int* __restrict__ a, int64_
   return lo;
 }
 
-// Rowwise, pass 1, one block per (tile, lane): end[b] = 1 + the last
+// lower_bound by one warp, 32 probes a step (four dependent loads over
+// 2^16 positions where the binary search takes 16); every lane returns it.
+__device__ __forceinline__ int64_t warp_lower_bound(const int* __restrict__ a, int64_t n,
+                                                    int64_t x, int lane) {
+  int64_t lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (hi - lo > 32) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t p = lo + lane * step;
+    const int c = __popc(__ballot_sync(kFull, p < hi && a[p] < x));
+    if (c == 0) return lo;
+    const int64_t top = lo + c * step;
+    lo += (c - 1) * step + 1;
+    if (top < hi) hi = top;
+  }
+  return lo + __popc(__ballot_sync(kFull, lo + lane < hi && a[lo + lane] < x));
+}
+
+// Pass 1 of both orientations, one block per (tile, lane): end[b] = 1 + the last
 // position of lane b holding a nonzero value (end[b] starts at 0). An
 // integer max: the order of the atomics changes nothing.
 __global__ void __launch_bounds__(kThreads)
@@ -186,104 +214,182 @@ sparse_rw_kernel(const uint32_t* __restrict__ keys, const float* __restrict__ da
   }
 }
 
-// Columnwise, pass 1, one block per (tile, lane): each nonzero-valued
-// entry's rank among the tile's earlier ones of its column; the last one of
-// each column writes the column's count in the tile to hist[c * T + t].
-__global__ void __launch_bounds__(kThreads)
-sparse_cw_rank(const float* __restrict__ data, const int* __restrict__ cols, int64_t nnz,
-               int64_t m, int* __restrict__ lrank, int* __restrict__ hist) {
-  __shared__ int cs[kTile];
+// Columnwise, pass 2, one block per (row tile, lane): the runs of the
+// tile's rows, cut at the lane's last nonzero value, from one coalesced
+// pass over the tile's positions; each non-empty row hashed once; the
+// tile's rows sorted by (bucket, row) in shared memory. Slot i of the tile
+// receives the bucket of the i-th row in that order (INT_MAX past the
+// tile's non-empty rows) and its run: first position, end, and sign bits.
+__global__ void __launch_bounds__(kSortThreads)
+sparse_cw_sort(const uint32_t* __restrict__ keys, const int* __restrict__ rows,
+               const int* __restrict__ end, int64_t nnz, int s, uint32_t mult,
+               int* __restrict__ bucket, int4* __restrict__ runs) {
+  __shared__ unsigned long long key[kRunTile];
+  __shared__ int slo[kRunTile], shi[kRunTile];
+  __shared__ float sv[kRunTile];
+  __shared__ int64_t span[2];
   const int64_t b = blockIdx.y;
-  const int64_t t = blockIdx.x, T = gridDim.x;
-  const int64_t base = t * kTile;
-  const int len = (int)(nnz - base < kTile ? nnz - base : kTile);
-  const int* cl = cols + b * nnz + base;
-  const float* dt = data + b * nnz + base;
-  for (int e = threadIdx.x; e < kTile; e += kThreads)
-    cs[e] = e < len && dt[e] != 0.0f ? cl[e] : -1;
-  __syncthreads();
-  int* hb = hist + b * (m * T + 1);
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) {
-    const int e = threadIdx.x * kPer + q;
-    if (e >= len || cs[e] < 0) continue;
-    const int c = cs[e];
-    int rank = 0, tot = 0;
-    for (int i = 0; i < len; ++i) {
-      const int same = cs[i] == c;
-      tot += same;
-      rank += same & (i < e);
-    }
-    lrank[b * nnz + base + e] = rank;
-    if (rank == tot - 1) hb[(int64_t)c * T + t] = tot;
-  }
-}
-
-// Columnwise, pass 2, one block per lane: exclusive scan of the lane's
-// (column, tile) counts in place; hist[L] receives the total.
-__global__ void __launch_bounds__(kScan) sparse_cw_scan(int* __restrict__ hist, int64_t L) {
-  __shared__ int buf[kScan];
-  int* h = hist + (int64_t)blockIdx.x * (L + 1);
-  int carry = 0;
-  for (int64_t base = 0; base < L; base += kScan) {
-    const int64_t i = base + threadIdx.x;
-    const int x = i < L ? h[i] : 0;
-    buf[threadIdx.x] = x;
-    __syncthreads();
-    for (int off = 1; off < kScan; off <<= 1) {
-      const int y = threadIdx.x >= off ? buf[threadIdx.x - off] : 0;
-      __syncthreads();
-      buf[threadIdx.x] += y;
-      __syncthreads();
-    }
-    if (i < L) h[i] = carry + buf[threadIdx.x] - x;
-    carry += buf[kScan - 1];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) h[L] = carry;
-}
-
-// Columnwise, pass 3: each nonzero's position in the column-sorted order.
-__global__ void __launch_bounds__(kThreads)
-sparse_cw_place(const float* __restrict__ data, const int* __restrict__ cols,
-                const int* __restrict__ lrank, const int* __restrict__ hist, int64_t nnz,
-                int64_t m, int* __restrict__ perm) {
-  const int64_t b = blockIdx.y;
-  const int64_t t = blockIdx.x, T = gridDim.x;
-  const int* hb = hist + b * (m * T + 1);
-  for (int e = threadIdx.x; e < kTile; e += kThreads) {
-    const int64_t j = t * kTile + e;
-    if (j >= nnz) break;
-    if (data[b * nnz + j] == 0.0f) continue;
-    const int c = cols[b * nnz + j];
-    perm[b * nnz + hb[(int64_t)c * T + t] + lrank[b * nnz + j]] = (int)j;
-  }
-}
-
-// Columnwise, pass 4, one thread per (column, lane): column c's nonzero-
-// valued entries in row order, each added to its bucket's cell of the
-// zeroed output.
-__global__ void __launch_bounds__(kThreads)
-sparse_cw_accum(const uint32_t* __restrict__ keys, const float* __restrict__ data,
-                const int* __restrict__ rows, const int* __restrict__ perm,
-                const int* __restrict__ hist, float* __restrict__ out, int64_t nnz, int64_t m,
-                int64_t T, int s, uint32_t mult) {
-  const int64_t b = blockIdx.y;
-  const int64_t c = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (c >= m) return;
-  const LaneKeys k = lane_keys(keys, b);
-  const int* hb = hist + b * (m * T + 1);
-  const int* pm = perm + b * nnz;
+  const int64_t r0 = (int64_t)blockIdx.x * kRunTile;
   const int* rw = rows + b * nnz;
+  const int64_t stop = end[b];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  // the tile's positions [span[0], span[1]): warps 0 and 1 search at once
+  if (warp < 2) {
+    const int64_t p = warp_lower_bound(rw, stop, r0 + warp * kRunTile, lane);
+    if (lane == 0) span[warp] = p;
+  }
+  for (int i = threadIdx.x; i < kRunTile; i += kSortThreads) slo[i] = shi[i] = 0;
+  __syncthreads();
+  const int64_t p0 = span[0], p1 = span[1];
+  for (int64_t j = p0 + threadIdx.x; j < p1; j += kSortThreads) {
+    const int r = rw[j];
+    if (j == p0 || rw[j - 1] != r) slo[r - r0] = (int)j;
+    if (j == p1 - 1 || rw[j + 1] != r) shi[r - r0] = (int)(j + 1);
+  }
+  __syncthreads();
+  const LaneKeys k = lane_keys(keys, b);
+  for (int i = threadIdx.x; i < kRunTile; i += kSortThreads) {
+    unsigned long long kk = ~0ull;
+    if (shi[i] > slo[i]) {
+      int h;
+      float v;
+      hash_coord(k, r0 + i, (uint32_t)s, mult, h, v);
+      kk = ((unsigned long long)h << kRunBits) | (unsigned)i;
+      sv[i] = v;
+    }
+    key[i] = kk;
+  }
+  __syncthreads();
+  // bitonic sort, ascending; the keys are distinct, so the order is r's
+  // within each bucket; thread t compares the pair (i, i + stride)
+  static_assert(2 * kSortThreads == kRunTile, "one pair a thread");
+  for (int size = 2; size <= kRunTile; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const int t = threadIdx.x;
+      const int i = 2 * t - (t & (stride - 1)), j = i + stride;
+      const unsigned long long x = key[i], y = key[j];
+      if ((x > y) == ((i & size) == 0)) {
+        key[i] = y;
+        key[j] = x;
+      }
+      __syncthreads();
+    }
+  const int64_t base = ((int64_t)b * gridDim.x + blockIdx.x) * kRunTile;
+  for (int i = threadIdx.x; i < kRunTile; i += kSortThreads) {
+    const unsigned long long kk = key[i];
+    if (kk == ~0ull) {
+      bucket[base + i] = 0x7FFFFFFF;
+      continue;
+    }
+    const int li = (int)(kk & (kRunTile - 1));
+    bucket[base + i] = (int)(kk >> kRunBits);
+    runs[base + i] = make_int4(slo[li], shi[li], __float_as_int(sv[li]), 0);
+  }
+}
+
+// The lane u of a warp whose inclusive prefix (non-decreasing over the
+// lanes) is the first above x, for x below lane 31's: a warp-wide binary
+// search by shuffles (every lane takes part).
+__device__ __forceinline__ int lane_above(int incl, int x) {
+  int u = 0;
+#pragma unroll
+  for (int step = 16; step; step >>= 1)
+    if (__shfl_sync(kFull, incl, u + step - 1) <= x) u += step;
+  return u;
+}
+
+__device__ __forceinline__ int warp_inclusive_sum(int x, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += y;
+  }
+  return x;
+}
+
+// Columnwise, pass 3, one warp per (lane, bucket h): the runs of the rows
+// hashed to h, tile by tile in increasing r, each nonzero-valued entry
+// added to its column's cell of output row h on chip, then the row
+// written whole.
+__global__ void __launch_bounds__(kAccWarps * 32)
+sparse_cw_accum(const float* __restrict__ data, const int* __restrict__ cols,
+                const int* __restrict__ bucket, const int4* __restrict__ runs,
+                float* __restrict__ out, int64_t nnz, int64_t n_rows, int64_t m, int s) {
+  __shared__ float buf[kAccWarps][kRowBuf];
+  const int64_t b = blockIdx.y;
+  const int w = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int64_t h = (int64_t)blockIdx.x * kAccWarps + w;
+  if (h >= s) return;  // whole warps
+  const int64_t T = (n_rows + kRunTile - 1) / kRunTile;
+  const int* bk = bucket + b * T * kRunTile;
+  const int4* rn = runs + b * T * kRunTile;
   const float* dt = data + b * nnz;
-  float* o = out + b * (int64_t)s * m + c;
-  const int end = hb[(c + 1) * T];
-  for (int q = hb[c * T]; q < end; ++q) {
-    const int j = pm[q];
-    int h;
-    float v;
-    hash_coord(k, rw[j], (uint32_t)s, mult, h, v);
-    o[(int64_t)h * m] = __fadd_rn(o[(int64_t)h * m], __fmul_rn(v, dt[j]));
+  const int* cl = cols + b * nnz;
+  float* o = out + (b * s + h) * m;
+  float* row = buf[w];
+  for (int64_t c0 = 0; c0 < m; c0 += kRowBuf) {
+    const int cw = (int)(m - c0 < kRowBuf ? m - c0 : kRowBuf);
+    for (int i = lane; i < cw; i += 32) row[i] = 0.0f;
+    __syncwarp();
+    for (int64_t t0 = 0; t0 < T; t0 += 32) {
+      // lane u: the bucket's segment [a, a + cnt) of tile t0 + u
+      int a = 0, cnt = 0;
+      if (t0 + lane < T) {
+        const int64_t t = t0 + lane;
+        const int64_t len = n_rows - t * kRunTile < kRunTile ? n_rows - t * kRunTile : kRunTile;
+        const int* tk = bk + t * kRunTile;
+        a = (int)lower_bound(tk, len, h);
+        while (a + cnt < len && tk[a + cnt] == h) ++cnt;  // a bucket's rows of a tile: few
+      }
+      const int incl = warp_inclusive_sum(cnt, lane);
+      const int excl = incl - cnt;
+      const int total = __shfl_sync(kFull, incl, 31);
+      // the segments' runs, 32 at a time in order: lane u takes run q0 + u
+      for (int q0 = 0; q0 < total; q0 += 32) {
+        const int q = q0 + lane;
+        const int u = lane_above(incl, q);
+        const int slot = __shfl_sync(kFull, a, u) + (q - __shfl_sync(kFull, excl, u));
+        int lo = 0, len = 0;
+        float v = 0.0f;
+        if (q < total) {
+          const int4 r = rn[(t0 + u) * kRunTile + slot];
+          lo = r.x;
+          len = r.y - r.x;
+          v = __int_as_float(r.z);
+        }
+        const int pin = warp_inclusive_sum(len, lane);
+        const int pex = pin - len;
+        const int ptotal = __shfl_sync(kFull, pin, 31);
+        // the runs' positions, 32 at a time in order
+        for (int p0 = 0; p0 < ptotal; p0 += 32) {
+          const int p = p0 + lane;
+          const int e = lane_above(pin, p);
+          const int j = __shfl_sync(kFull, lo, e) + (p - __shfl_sync(kFull, pex, e));
+          const float sign = __shfl_sync(kFull, v, e);
+          bool valid = false;
+          int c = -1;
+          float x = 0.0f;
+          if (p < ptotal) {
+            const float d = dt[j];
+            c = (int)(cl[j] - c0);
+            valid = d != 0.0f && c >= 0 && c < cw;
+            x = __fmul_rn(sign, d);
+          }
+          // entries sharing a column add in position order
+          const unsigned peers = __match_any_sync(kFull, valid ? c : -1);
+          const int rank = __popc(peers & ((1u << lane) - 1u));
+          int top = valid ? rank : 0;
+          for (int off = 16; off; off >>= 1) top = max(top, __shfl_xor_sync(kFull, top, off));
+          for (int r = 0; r <= top; ++r) {
+            if (valid && rank == r) row[c] = __fadd_rn(row[c], x);
+            __syncwarp();
+          }
+        }
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < cw; i += 32) o[c0 + i] = row[i];
+    __syncwarp();
   }
 }
 
@@ -311,29 +417,29 @@ extern "C" int sk_sparse_rowwise(const uint32_t* keys, const float* data, const 
   return (int)cudaGetLastError();
 }
 
-// Columnwise: out (B, s, m) must hold zeros; m = the lanes' (padded) column
-// count. Scratch, allocated by the caller: lrank and perm (B * nnz ints),
-// hist (B * (m * T + 1) ints, zeroed), T = ceil(nnz / 1024).
+// Columnwise: out (B, s, m), every cell written; m = the lanes' (padded)
+// column count, n_rows their (padded) row count. Scratch, allocated by the
+// caller: end (B ints, zeroed), bucket (B * T * 2048 ints) and runs (B * T
+// * 2048 int4), T = ceil(n_rows / 2048).
 extern "C" int sk_sparse_columnwise(const uint32_t* keys, const float* data, const int* rows,
-                                    const int* cols, float* out, int* lrank, int* hist,
-                                    int* perm, int64_t B, int64_t nnz, int64_t m, int64_t s,
-                                    uint32_t mult, cudaStream_t stream) {
-  const int64_t T = (nnz + kTile - 1) / kTile;
-  if (bad_shape(B, nnz, m, s) || T > 0x7FFFFFFF || m * T >= 0x7FFFFFFF ||
-      (m + kThreads - 1) / kThreads > 0x7FFFFFFF)
+                                    const int* cols, float* out, int* end, int* bucket,
+                                    int* runs, int64_t B, int64_t nnz, int64_t n_rows, int64_t m,
+                                    int64_t s, uint32_t mult, cudaStream_t stream) {
+  const int64_t T = (n_rows + kRunTile - 1) / kRunTile;
+  if (bad_shape(B, nnz, m, s) || n_rows < 1 || n_rows >= 0x7FFFFFFF ||
+      (s + kAccWarps - 1) / kAccWarps > 0x7FFFFFFF)
     return (int)cudaErrorInvalidValue;
-  const dim3 tiles((unsigned)T, (unsigned)B);
-  sparse_cw_rank<<<tiles, kThreads, 0, stream>>>(data, cols, nnz, m, lrank, hist);
+  sparse_lane_end<<<dim3((unsigned)((nnz + kTile - 1) / kTile), (unsigned)B), kThreads, 0,
+                    stream>>>(data, nnz, end);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sparse_cw_scan<<<(unsigned)B, kScan, 0, stream>>>(hist, m * T);
+  int4* rn = reinterpret_cast<int4*>(runs);
+  sparse_cw_sort<<<dim3((unsigned)T, (unsigned)B), kSortThreads, 0, stream>>>(
+      keys, rows, end, nnz, (int)s, mult, bucket, rn);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sparse_cw_place<<<tiles, kThreads, 0, stream>>>(data, cols, lrank, hist, nnz, m, perm);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((m + kThreads - 1) / kThreads), (unsigned)B);
-  sparse_cw_accum<<<grid, kThreads, 0, stream>>>(keys, data, rows, perm, hist, out, nnz, m, T,
-                                                 (int)s, mult);
+  const dim3 grid((unsigned)((s + kAccWarps - 1) / kAccWarps), (unsigned)B);
+  sparse_cw_accum<<<grid, kAccWarps * 32, 0, stream>>>(data, cols, bucket, rn, out, nnz, n_rows,
+                                                       m, (int)s);
   return (int)cudaGetLastError();
 }

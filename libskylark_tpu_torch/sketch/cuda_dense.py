@@ -12,16 +12,18 @@ serve cohort, each lane with its own key and scale
 (:func:`serve_batched_apply`), one call for all lanes.
 
 The contraction regime (``precision``, the reference's names, default the
-package's ``sketch/params.py`` regime) decides the route on the card:
+package's ``sketch/params.py`` regime) decides the passes on the card. In
+every regime a generation kernel writes the operator's planes (hi, and lo
+for bf16x3 and f32) for one chunk of n into a workspace this module
+allocates (at most 64 MiB of bf16 planes per lane, or as many tf32
+entries, whatever n is), then a warp-specialised wgmma kernel contracts
+A, split into hi/lo in registers, against them; n split across blocks for
+thin outputs, the partial sums added in a fixed order:
 
-- ``"bf16x3"`` (default), ``"bf16gen2"``, ``"bf16"``: a generation kernel
-  writes the operator's bf16 planes (hi, and lo for bf16x3) for one chunk
-  of n into a workspace this module allocates (at most 64 MiB per lane,
-  whatever n is), then a warp-specialised wgmma kernel contracts A,
-  split into bf16 hi/lo in registers, against them; n split across blocks
-  for thin outputs, the partial sums added in a fixed order;
-- ``"f32"``: the fp32-FMA kernel, which generates its operator tile per
-  m-tile.
+- ``"bf16x3"`` (default), ``"bf16gen2"``, ``"bf16"``: bf16 planes and
+  passes;
+- ``"f32"``: 3×TF32, hi·hi + hi·lo + lo·hi with hi and lo rounded to tf32
+  (the reference's ``Precision.HIGHEST`` to about 2⁻²¹ per term).
 
 Rules of the wrappers:
 
@@ -31,8 +33,8 @@ Rules of the wrappers:
 - a CUDA tensor launches the kernel or raises — no fallback;
 - ``launches[...]`` counts wrapper calls that launched their kernels,
   ``by_regime[...]`` the same calls by regime, and ``generated["entries"]``
-  the operator entries the bf16 regimes' generation kernel made (s_dim · n
-  per lane and call).
+  the operator entries the generation kernel made (s_dim · n per lane and
+  call, in every regime).
 """
 
 from __future__ import annotations
@@ -119,21 +121,12 @@ def _load():
         p, i64, u32, f32, c_int = (ctypes.c_void_p, ctypes.c_int64,
                                    ctypes.c_uint32, ctypes.c_float,
                                    ctypes.c_int)
-        sig = [p, u32, u32, p, i64, i64, i64, i64, c_int, f32, p]
-        for fn in (lib.sk_dense_rowwise, lib.sk_dense_columnwise):
-            fn.argtypes = sig
-        lib.sk_dense_rowwise_cos.argtypes = [p, u32, u32, p, p, p, i64, i64,
-                                             i64, i64, c_int, f32, f32, p]
-        lib.sk_dense_batched.argtypes = [c_int, p, p, p, p, i64, i64, i64,
-                                         i64, c_int, p]
         lib.sk_dense_tc_plan.argtypes = [i64, i64, i64, c_int,
                                          ctypes.POINTER(i64)]
         lib.sk_dense_tc.argtypes = [c_int, c_int, c_int, p, i64, u32, u32, p,
                                     p, i64, i64, i64, i64, f32, p, p, f32, p,
                                     p, p, p]
-        for fn in (lib.sk_dense_rowwise, lib.sk_dense_columnwise,
-                   lib.sk_dense_rowwise_cos, lib.sk_dense_batched,
-                   lib.sk_dense_tc_plan, lib.sk_dense_tc):
+        for fn in (lib.sk_dense_tc_plan, lib.sk_dense_tc):
             fn.restype = c_int
         _lib = lib
     return _lib
@@ -165,7 +158,7 @@ def _launch_tc(A, out, rowwise: bool, precision: str, dist, B: int, m: int,
                n: int, s_dim: int, *, key=(0, 0), keys=None, scales=None,
                scale: float = 1.0, sc=None, sh=None,
                outscale: float = 0.0) -> None:
-    """One call of the bf16 regimes' route (sk_dense_tc): the plan's
+    """One call of the kernels' route (sk_dense_tc): the plan's
     workspace and partial sums allocated here, on A's device. The kernel
     reads A through a TMA tensor map, whose rows must be 16 bytes apart:
     an operand whose rows are not (least squares' [A | b] has 513
@@ -217,17 +210,8 @@ def _apply(key, dist, A, s_dim: int, scale: float, precision, rowwise: bool):
                       dtype=torch.float32, device=A.device)
     if m == 0:
         return out
-    from libskylark_tpu_torch.kernels import launch
-
-    if p == "f32":
-        lib = _load()
-        fn = lib.sk_dense_rowwise if rowwise else lib.sk_dense_columnwise
-        launch.call(fn, A.device, A.data_ptr(), *key_words(key),
-                    out.data_ptr(), m, n, s_dim, A.shape[1],
-                    _DIST_KINDS[type(dist)], float(scale))
-    else:
-        _launch_tc(A, out, rowwise, p, dist, 1, m, n, s_dim,
-                   key=key_words(key), scale=scale)
+    _launch_tc(A, out, rowwise, p, dist, 1, m, n, s_dim, key=key_words(key),
+               scale=scale)
     _count("dense_rowwise" if rowwise else "dense_columnwise", p)
     return out
 
@@ -265,16 +249,8 @@ def rft_rowwise_apply(key, dist, A: torch.Tensor, s_dim: int, inscale: float,
     out = torch.empty((m, s_dim), dtype=torch.float32, device=A.device)
     if m == 0:
         return out
-    from libskylark_tpu_torch.kernels import launch
-
-    if p == "f32":
-        launch.call(_load().sk_dense_rowwise_cos, A.device, A.data_ptr(),
-                    *key_words(key), sc.data_ptr(), sh.data_ptr(),
-                    out.data_ptr(), m, n, s_dim, A.shape[1],
-                    _DIST_KINDS[type(dist)], float(inscale), float(outscale))
-    else:
-        _launch_tc(A, out, True, p, dist, 1, m, n, s_dim, key=key_words(key),
-                   scale=inscale, sc=sc, sh=sh, outscale=outscale)
+    _launch_tc(A, out, True, p, dist, 1, m, n, s_dim, key=key_words(key),
+               scale=inscale, sc=sc, sh=sh, outscale=outscale)
     _count("dense_rowwise_cos", p)
     return out
 
@@ -293,12 +269,19 @@ def serve_batched_plain(key_data, scale, A: torch.Tensor, dist, s_dim: int,
                         for i in range(A.shape[0])])
 
 
+def host_to(t: torch.Tensor, device) -> torch.Tensor:
+    """A small host tensor on ``device``, copied without waiting for the
+    device: CUDA stages a pageable source at once, so the caller may
+    reuse it, and the caller's launches queue behind the copy."""
+    return t.to(device, non_blocking=True)
+
+
 def lane_keys(key_data, device) -> torch.Tensor:
     """(B, 2) uint32 key words as an int32 tensor on ``device`` (the
     kernels read the bits as uint32)."""
     kd = np.ascontiguousarray(np.asarray(key_data, dtype=np.uint32)
                               .reshape(-1, 2))
-    return torch.from_numpy(kd.view(np.int32)).to(device)
+    return host_to(torch.from_numpy(kd.view(np.int32)), device)
 
 
 def serve_batched_apply(key_data, scale, A: torch.Tensor, dist, s_dim: int,
@@ -308,9 +291,9 @@ def serve_batched_apply(key_data, scale, A: torch.Tensor, dist, s_dim: int,
     m, s_dim), A (B, n, m) columnwise → (B, s_dim, m); lane b under the
     key ``key_data[b]`` ((B, 2) uint32 words) and scaled by ``scale[b]``,
     the product in the regime ``precision`` (the reference's argument;
-    default: the package's). The bf16 regimes scale the operator entries
-    before they are rounded, as the reference does; f32 scales the
-    finished sum. Lane b's result does not depend on B."""
+    default: the package's). Every regime scales the operator entries
+    before they are rounded, as the reference does. Lane b's result does
+    not depend on B."""
     p = _regime(precision)
     cpu = _check(dist, A, s_dim, ndim=3)
     kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
@@ -327,17 +310,10 @@ def serve_batched_apply(key_data, scale, A: torch.Tensor, dist, s_dim: int,
                       dtype=torch.float32, device=A.device)
     if B == 0 or m == 0:
         return out
-    from libskylark_tpu_torch.kernels import launch
-
     keys = lane_keys(kd, A.device)
-    scales = torch.from_numpy(sc.copy()).to(A.device)
-    if p == "f32":
-        launch.call(_load().sk_dense_batched, A.device, int(rowwise),
-                    A.data_ptr(), keys.data_ptr(), scales.data_ptr(),
-                    out.data_ptr(), B, m, n, s_dim, _DIST_KINDS[type(dist)])
-    else:
-        _launch_tc(A, out, rowwise, p, dist, B, m, n, s_dim, keys=keys,
-                   scales=scales)
+    scales = host_to(torch.from_numpy(sc.copy()), A.device)
+    _launch_tc(A, out, rowwise, p, dist, B, m, n, s_dim, keys=keys,
+               scales=scales)
     _count("dense_batched_rowwise" if rowwise
            else "dense_batched_columnwise", p)
     return out

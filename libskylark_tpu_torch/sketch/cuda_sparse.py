@@ -32,9 +32,9 @@ from libskylark_tpu_torch.sketch.cuda_dense import lane_keys
 
 launches = {"sparse_rowwise": 0, "sparse_columnwise": 0}
 
-# nonzeros per sort tile of the columnwise kernel (csrc/sparse_sketch.cu:
-# kTile)
-TILE = 1024
+# rows per sort tile of the columnwise kernel (csrc/sparse_sketch.cu:
+# kRunTile)
+RUN_TILE = 2048
 
 _lib = None
 
@@ -63,7 +63,7 @@ def _load():
         lib = build.load("sparse_sketch")
         p, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
         lib.sk_sparse_rowwise.argtypes = [p] * 6 + [i64] * 4 + [u32, p]
-        lib.sk_sparse_columnwise.argtypes = [p] * 8 + [i64] * 4 + [u32, p]
+        lib.sk_sparse_columnwise.argtypes = [p] * 8 + [i64] * 5 + [u32, p]
         for fn in (lib.sk_sparse_rowwise, lib.sk_sparse_columnwise):
             fn.restype = ctypes.c_int
         _lib = lib
@@ -100,30 +100,32 @@ def cwt_sparse_apply_batched(key_data, data: torch.Tensor,
     n_rows, n_cols = int(shape[0]), int(shape[1])
     m = n_rows if rowwise else n_cols
     dev = data.device
-    out = torch.zeros((B, m, s_dim) if rowwise else (B, s_dim, m),
-                      dtype=torch.float32, device=dev)
+    # the columnwise kernel writes every cell; the rowwise one adds into
+    # zeros
+    out = (torch.zeros((B, m, s_dim), dtype=torch.float32, device=dev)
+           if rowwise else torch.empty((B, s_dim, m), dtype=torch.float32,
+                                       device=dev))
     if B == 0 or nnz == 0:
-        return out
+        return out.zero_()
     data = data.contiguous()
     rows = rows.to(torch.int32).contiguous()
     cols = cols.to(torch.int32).contiguous()
     keys = lane_keys(kd, dev)
     mult = randgen.randint_multiplier(s_dim)
     lib = _load()
+    end = torch.zeros(B, dtype=torch.int32, device=dev)
     if rowwise:
-        end = torch.zeros(B, dtype=torch.int32, device=dev)
         launch.call(lib.sk_sparse_rowwise, dev, keys.data_ptr(),
                     data.data_ptr(), rows.data_ptr(), cols.data_ptr(),
                     out.data_ptr(), end.data_ptr(), B, nnz, m, s_dim, mult)
     else:
-        T = -(-nnz // TILE)
-        lrank = torch.empty((B, nnz), dtype=torch.int32, device=dev)
-        perm = torch.empty((B, nnz), dtype=torch.int32, device=dev)
-        hist = torch.zeros(B * (m * T + 1), dtype=torch.int32, device=dev)
+        slots = -(-n_rows // RUN_TILE) * RUN_TILE
+        bucket = torch.empty((B, slots), dtype=torch.int32, device=dev)
+        runs = torch.empty((B, slots, 4), dtype=torch.int32, device=dev)
         launch.call(lib.sk_sparse_columnwise, dev, keys.data_ptr(),
                     data.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-                    out.data_ptr(), lrank.data_ptr(), hist.data_ptr(),
-                    perm.data_ptr(), B, nnz, m, s_dim, mult)
+                    out.data_ptr(), end.data_ptr(), bucket.data_ptr(),
+                    runs.data_ptr(), B, nnz, n_rows, m, s_dim, mult)
     launch.count(launches,
                  "sparse_rowwise" if rowwise else "sparse_columnwise")
     return out

@@ -41,7 +41,8 @@ def set_auto_block_bytes(b: int) -> None:
 
 # The reference's regimes (pallas_dense._dot). "bf16x3" (default) and
 # "f32" promise f32-grade rounding: the CUDA kernel runs "bf16x3" as three
-# bf16 tensor-core passes and "f32" as fp32 FMA. "bf16gen2" (the operator
+# bf16 tensor-core passes and "f32" as three tf32 ones (3×TF32, ≈ 2⁻²¹ a
+# term where bf16x3 keeps ≈ 2⁻¹⁶). "bf16gen2" (the operator
 # rounded to bf16, two passes) and "bf16" (one pass) trade accuracy for
 # speed and are opt-in.
 KERNEL_PRECISIONS = ("f32", "bf16x3", "bf16", "bf16gen2")

@@ -7,7 +7,10 @@ version of the regime it is given. These tests hold it to
 for p in f32, bf16x3, bf16gen2 and bf16, with Normal, Cauchy and
 Rademacher operators, at small ragged shapes (37×700 → 48 and 1000×3000 →
 300, and their transposes): ``rowwise_apply``, ``columnwise_apply``,
-``rft_rowwise_apply`` and ``serve_batched_apply``.
+``rft_rowwise_apply`` and ``serve_batched_apply`` (the last two in
+``test_torch_dense_regimes_cos.py`` and ``…_batched.py``, which import
+this module's helpers: under the test runner's one-file-per-worker
+schedule the three files run side by side).
 
 Tolerance, per output entry, the sum of:
 
@@ -31,6 +34,11 @@ shapes and keys: ≤ 4.9% and 3 ulps for Normal, ≤ 3.9% and 1 ulp for
 Cauchy, none for Rademacher). A wrong generator fails there; past it, an
 entry's bf16 values differ by at most one bf16 ulp, and the term stays
 below 2⁻⁷ · Σ |a_k| · |S_k| over at most GEN_SHARE of the k.
+
+The two operators of a (key, distribution, s, n) are generated once per
+module (the ``operators`` fixture): every regime's case of one shape and
+distribution contracts the same operator, and the reference's eager
+generation was most of a case's time.
 
 Both sides split and round the same operands the same way
 (``dense.regime_matmul`` is ``pallas_dense._dot`` term for term); beyond
@@ -84,16 +92,27 @@ def _assert_generators_agree(S_ref, S):
     assert (ulps > 0).mean() <= GEN_SHARE
 
 
-def _operators(jkey, key, jd, d, s, n, scale=1.0):
-    """(S_ref, S_port) in float64, each entry times ``scale``, once the
-    generators are seen to agree as the doc says."""
-    S_ref = np.asarray(jrandgen.dense_panel(jkey, jd, s, 0, n, BLOCK_COLS),
-                       np.float32)
-    S = randgen.dense_panel(key, d, s, 0, n, BLOCK_COLS).numpy().astype(
-        np.float32)
-    _assert_generators_agree(S_ref, S)
-    return ((scale * S_ref).astype(np.float64),
-            (scale * S).astype(np.float64))
+@pytest.fixture(scope="module")
+def operators():
+    """``get(jkey, key, jd, d, s, n, scale=1.0)``: (S_ref, S_port) in
+    float64, each entry times ``scale``, once the generators are seen to
+    agree as the doc says; each pair generated once per module."""
+    made = {}
+
+    def get(jkey, key, jd, d, s, n, scale=1.0):
+        tag = (np.asarray(key, np.uint32).tobytes(), type(d).__name__, s, n)
+        if tag not in made:
+            S_ref = np.asarray(jrandgen.dense_panel(jkey, jd, s, 0, n,
+                                                    BLOCK_COLS), np.float32)
+            S = randgen.dense_panel(key, d, s, 0, n, BLOCK_COLS).numpy(
+            ).astype(np.float32)
+            _assert_generators_agree(S_ref, S)
+            made[tag] = S_ref, S
+        S_ref, S = made[tag]
+        return ((scale * S_ref).astype(np.float64),
+                (scale * S).astype(np.float64))
+
+    return get
 
 
 def _bf16(x):
@@ -144,7 +163,8 @@ def _no_launches():
 @pytest.mark.parametrize("precision", REGIMES)
 @pytest.mark.parametrize("dist", list(DISTS))
 @pytest.mark.parametrize("m,n,s", SHAPES)
-def test_rowwise_regime_matches_interpreted_kernel(precision, dist, m, n, s):
+def test_rowwise_regime_matches_interpreted_kernel(precision, dist, m, n, s,
+                                                   operators):
     jd, d = DISTS[dist]
     jkey, key = _keys(10 + s)
     A = _data((m, n), 1)
@@ -153,7 +173,7 @@ def test_rowwise_regime_matches_interpreted_kernel(precision, dist, m, n, s):
                              precision=precision, interpret=True)
     got = cuda_dense.rowwise_apply(key, d, torch.from_numpy(A), s, scale,
                                    precision=precision)
-    S_ref, S = _operators(jkey, key, jd, d, s, n)
+    S_ref, S = operators(jkey, key, jd, d, s, n)
     want = np.asarray(want, np.float64)
     _close(got, want, scale * _limit(A, S_ref, S, _oracle(want) / scale, dist,
                                      precision, True))
@@ -163,7 +183,7 @@ def test_rowwise_regime_matches_interpreted_kernel(precision, dist, m, n, s):
 @pytest.mark.parametrize("dist", list(DISTS))
 @pytest.mark.parametrize("m,n,s", SHAPES)
 def test_columnwise_regime_matches_interpreted_kernel(precision, dist, m, n,
-                                                      s):
+                                                      s, operators):
     jd, d = DISTS[dist]
     jkey, key = _keys(20 + s)
     A = _data((n, m), 2)
@@ -172,66 +192,10 @@ def test_columnwise_regime_matches_interpreted_kernel(precision, dist, m, n,
                                 precision=precision, interpret=True)
     got = cuda_dense.columnwise_apply(key, d, torch.from_numpy(A), s, scale,
                                       precision=precision)
-    S_ref, S = _operators(jkey, key, jd, d, s, n)
+    S_ref, S = operators(jkey, key, jd, d, s, n)
     want = np.asarray(want, np.float64)
     _close(got, want, scale * _limit(A, S_ref, S, _oracle(want) / scale,
                                      dist, precision, False))
-
-
-@pytest.mark.parametrize("precision", REGIMES)
-@pytest.mark.parametrize("dist", list(DISTS))
-@pytest.mark.parametrize("m,n,s", SHAPES)
-def test_cos_regime_matches_interpreted_kernel(precision, dist, m, n, s):
-    # inscale 1/n keeps Cauchy phases (|S| reaches ~1e4 here) within a few
-    # hundred radians, where f32 cos still resolves a 1e-4 change
-    jd, d = DISTS[dist]
-    jkey, key = _keys(30 + s)
-    A = _data((m, n), 3)
-    rng = np.random.default_rng(4)
-    sc = (0.5 + rng.random(s)).astype(np.float32)
-    sh = (2 * np.pi * rng.random(s)).astype(np.float32)
-    inscale, outscale = 1.0 / n, math.sqrt(2.0 / s)
-    want = jpd.rft_rowwise_apply(jkey, jd, jnp.asarray(A), s, inscale,
-                                 outscale, jnp.asarray(sc), jnp.asarray(sh),
-                                 precision=precision, interpret=True)
-    got = cuda_dense.rft_rowwise_apply(key, d, torch.from_numpy(A), s,
-                                       inscale, outscale,
-                                       torch.from_numpy(sc),
-                                       torch.from_numpy(sh),
-                                       precision=precision)
-    S_ref, S = _operators(jkey, key, jd, d, s, n)
-    want = np.asarray(want, np.float64)
-    # the phase's limit times the Lipschitz factor; the oracle term stays
-    # 1e-4 · max |features|
-    lip = outscale * inscale * sc
-    _close(got, want, lip * _limit(A, S_ref, S, _oracle(want) / lip, dist,
-                                   precision, True))
-
-
-@pytest.mark.parametrize("precision", REGIMES)
-@pytest.mark.parametrize("dist", list(DISTS))
-@pytest.mark.parametrize("rowwise", [True, False])
-def test_batched_regime_matches_interpreted_kernel(precision, dist, rowwise):
-    # three lanes of 37×700 → 48 (rowwise) or 700×37 (columnwise), each
-    # with its own key and a scale that is not a power of two
-    jd, d = DISTS[dist]
-    m, n, s = SHAPES[0]
-    ctx = Context(40)
-    kd = np.stack([ctx.allocate().key for _ in range(3)]).astype(np.uint32)
-    scale = np.array([0.3, 1.0, 1.7], np.float32)
-    A = _data((3, m, n) if rowwise else (3, n, m), 5)
-    want = jpd.serve_batched_apply(jnp.asarray(kd), jnp.asarray(scale),
-                                   jnp.asarray(A), dist=jd, s_dim=s,
-                                   rowwise=rowwise, precision=precision,
-                                   interpret=True)
-    got = cuda_dense.serve_batched_apply(kd, scale, torch.from_numpy(A), d,
-                                         s, rowwise, precision=precision)
-    want = np.asarray(want, np.float64)
-    for b in range(3):
-        S_ref, S = _operators(jax.random.wrap_key_data(jnp.asarray(kd[b])),
-                              kd[b], jd, d, s, n, scale[b])
-        _close(got[b], want[b], _limit(A[b], S_ref, S, _oracle(want),
-                                       dist, precision, rowwise))
 
 
 def test_regimes_differ_as_the_reference_says():

@@ -14,7 +14,12 @@
   columnwise, bit-equal to the reference's (the CPU scatter adds in CSR
   order, as XLA's does); MMT within ROADMAP C2 (its Cauchy values differ
   by backend at ~1e-5 relative), max |Δ| ≤ 1e-4·max|ref|; and
-  ``apply_sparse`` equal to the reference's.
+  ``apply_sparse`` equal to the reference's;
+- the CSR-lane CountSketch of the serve layer (``sketch/cuda_sparse.py``
+  on a CPU tensor: the plain scatter of kernel B3) bit-equal to the
+  reference's ``cwt_sparse_serve_apply`` on hand-made lanes: duplicate
+  (row, column) entries inside a row, adjacent and not, explicit zeros,
+  an empty row and the lane padding, at s = 7.
 """
 
 import numpy as np
@@ -27,6 +32,7 @@ from libskylark_tpu import sketch as jsk
 from libskylark_tpu.base.context import Context as JContext
 from libskylark_tpu.base.sparse import SparseMatrix as JSparse
 from libskylark_tpu.io import libsvm as jlibsvm
+from libskylark_tpu.sketch import sparse_serve as jsparse_serve
 from libskylark_tpu_torch import sketch as sk
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.context import Context
@@ -34,6 +40,7 @@ from libskylark_tpu_torch.base.device import (default_device,
                                               set_default_device)
 from libskylark_tpu_torch.base.sparse import SparseMatrix, as_sparse
 from libskylark_tpu_torch.io import libsvm
+from libskylark_tpu_torch.sketch import cuda_sparse, sparse_serve
 
 ORACLE = 1e-4
 
@@ -245,3 +252,49 @@ def test_sparse_apply_checks_its_extent():
     with pytest.raises(errors.NotImplementedYetError):
         sk.JLT(40, 8, Context(0)).apply(A, sk.ROWWISE, device="cpu")
     assert jax.default_backend() == "cpu"
+
+
+def _lanes_with_duplicates(rows, cols, nnz_pad, seed):
+    """CSR lanes (data, indices, indptr) of a rows × cols operand padded
+    to nnz_pad: row r holds ⌈cols/2⌉ entries at random columns with
+    repeats (duplicates inside the row, adjacent and not), a few explicit
+    zeros, row 2 empty; value 0.0 at column 0 past the true nnz, indptr
+    padded with it."""
+    g = np.random.default_rng(seed)
+    data, indices, indptr = [], [], [0]
+    for r in range(rows):
+        k = 0 if r == 2 else (cols + 1) // 2
+        c = g.integers(0, cols, k)
+        c[1::5] = c[0::5][:len(c[1::5])]  # adjacent repeats
+        v = g.standard_normal(k).astype(np.float32)
+        v[3::7] = 0.0
+        data += list(v)
+        indices += list(c)
+        indptr.append(len(data))
+    nnz = len(data)
+    assert nnz <= nnz_pad
+    d = np.zeros(nnz_pad, np.float32)
+    d[:nnz] = data
+    idx = np.zeros(nnz_pad, np.int32)
+    idx[:nnz] = indices
+    return d, idx, np.asarray(indptr, np.int32)
+
+
+@pytest.mark.parametrize("rowwise", [False, True])
+def test_serve_scatter_with_duplicates_and_zeros_bit_equal(rowwise):
+    shape, s_dim = (40, 24), 7
+    d, idx, ptr = _lanes_with_duplicates(*shape, 1024, seed=5)
+    kd = np.asarray(Context(11).allocate().key, np.uint32)
+    want = np.asarray(jsparse_serve.cwt_sparse_serve_apply(
+        kd, jax.numpy.asarray(d), jax.numpy.asarray(idx),
+        jax.numpy.asarray(ptr), s_dim=s_dim, rowwise=rowwise, shape=shape))
+    data, cols, indptr = (torch.from_numpy(x) for x in (d, idx, ptr))
+    rows = sparse_serve.csr_row_ids(indptr.long(), len(d))
+    got = cuda_sparse.cwt_sparse_apply(kd, data, rows, cols, s_dim, rowwise,
+                                       shape)
+    assert got.shape == want.shape and np.array_equal(got.numpy(), want)
+    assert torch.equal(got, sparse_serve.cwt_sparse_serve_apply(
+        kd, data, cols, indptr.long(), s_dim=s_dim, rowwise=rowwise,
+        shape=shape))
+    assert not any(cuda_sparse.launches.values())
+
