@@ -25,19 +25,25 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             - cos (B1-cos): random sc/sh, every regime, ≤ 1e-4·max|plain|;
             - fastfood (B4, B4-split): ≤ 1e-4·max|plain| at 16384×4096 →
               4096, d = 1000 → 3000 (padding, 3 blocks, truncation), an
-              odd log2 NB (d = 2048) and m = 37;
+              odd log2 NB (d = 2048), m = 37, NB = 16384 and NB = 2; and
+              B4-split's first kernel output W torch.equal to
+              fut._wht_butterfly(B ⊙ x) at every case (the redesigned
+              WHT keeps the butterfly's sum order);
             - batched (B1-batched in every regime, B4-batched): the serve
               buckets' capacity-8 stacks (the ct-cw shape with Cauchy and
               with Normal draws) and ragged lanes zero-padded into them,
               against the per-lane serve program with B1's limits, and every
-              lane bit-equal to a launch of that lane alone;
+              lane bit-equal to a launch of that lane alone (B4-batched
+              also at m = 3001 and m = 37 with NB = 128, neither a
+              multiple of a block's rows);
             - sparse (B3): CSR lanes at config 2's shape (rcv1.binary:
               47,236 features, 0.16% dense) both ways, s = 300 and s = 7,
               bit-equal to the plain scatter on a CPU copy, every lane
               bit-equal to its launch alone; also duplicate (row,
               column) entries inside a row, a row of more than 1024
-              nonzeros, an all-padding lane, and columnwise outputs
-              wider than the kernel's on-chip row of 1024 columns;
+              nonzeros, an all-padding lane, and outputs wider than the
+              kernels' on-chip row of 1024 columns both ways (rowwise s =
+              2048 and 8192), and rowwise 2^21 columns at s = 300;
             - f32 exact (B1 in f32): config 3's Laplacian projection on
               2048 rows through the kernel against the float64 product,
               entry by entry within 1e-4·(|S|·|A|), the plain version's
@@ -406,11 +412,21 @@ def check_fastfood(torch, P, cases) -> list:
     from libskylark_tpu_torch import sketch as sk
     from libskylark_tpu_torch.sketch import cuda_fastfood as cf
 
+    from libskylark_tpu_torch.sketch.fut import _wht_butterfly
+
     results = []
     for i, (m, d, s_dim) in enumerate(cases):
         T = sk.FastGaussianRFT(d, s_dim, P.Context(500 + i),
                                sigma=math.sqrt(d))
         A = make_operand(torch, (m, d), 5000 + i)
+        # B4-split's first kernel: W = H(B ⊙ x), x zero-padded to NB, laid
+        # out (nb, m, NB), in the butterfly's sum order bit for bit
+        bdiag = cf.kernel_streams(T, A.device)[0]
+        W = cf.split_pre(A, bdiag)
+        X = torch.nn.functional.pad(A, (0, T._NB - d))
+        w_equal = bool(torch.equal(W, _wht_butterfly(
+            bdiag[:, None, :] * X[None], axis=2)))
+        del W, X
         want = cf.fastfood_plain(T, A)
         for name, variant in (("fastfood", "fused"),
                               ("fastfood_split", "split")):
@@ -420,12 +436,15 @@ def check_fastfood(torch, P, cases) -> list:
                   f"{name} output not finite")
             err = float((got - want).abs().max())
             rel = err / float(want.abs().max())
+            split = variant == "split"
             results.append({"kernel": name, "shape": [m, d], "s_dim": s_dim,
                             "NB": T._NB, "blocks": T._numblks,
                             "max_abs_err": err, "max_rel_err": rel,
-                            "ok": rel <= TOL})
+                            **({"w_bit_equal": w_equal} if split else {}),
+                            "ok": rel <= TOL and (w_equal or not split)})
         del A, want
-    emit("check", tolerance=f"B4: max|kernel-plain| <= {TOL} * max|plain|",
+    emit("check", tolerance=f"B4: max|kernel-plain| <= {TOL} * max|plain|; "
+                            "B4-split's W torch.equal to the butterfly",
          cases=results)
     bad = [r for r in results if not r["ok"]]
     check(not bad, f"Fastfood kernel disagrees with its plain version: {bad}")
@@ -1144,8 +1163,8 @@ def csr_operand(rows: int, cols: int, density: float, seed: int):
 
 def csr_lanes(torch, ops, nnz_class: int, rows_pad: int):
     """Stacked (data, rows, cols) lanes of SparseMatrix operands on the
-    card, packed as the serve layer packs them; returns them and the
-    operands' true nnz."""
+    card, packed as the serve layer packs them (rows int32, as its kernel
+    route asks for them); returns them and the operands' true nnz."""
     import numpy as np
 
     from libskylark_tpu_torch.engine.serve import MicrobatchExecutor
@@ -1155,7 +1174,7 @@ def csr_lanes(torch, ops, nnz_class: int, rows_pad: int):
                                            np.float32) for A in ops]
     data, idx, ptr = (torch.from_numpy(np.stack(x)).cuda()
                       for x in zip(*packed))
-    rows = sparse_serve.csr_row_ids(ptr, nnz_class)
+    rows = sparse_serve.csr_row_ids(ptr, nnz_class, torch.int32)
     return data, rows, idx, sum(A.nnz for A in ops)
 
 
@@ -1718,15 +1737,19 @@ BATCHED_CASES = [
     ("dense_batched_columnwise", "normal", 3, (700, 37), 300, True),
 ]
 # (B, m, d, S): the fastfood bucket's capacity-8 shape; padding, 3 blocks
-# and truncation
-FASTFOOD_BATCHED_CASES = [(8, 2048, 4096, 4096), (3, 37, 1000, 3000)]
+# and truncation; rows not a multiple of a block's rows (2 rows a group
+# at m = 3001; 32 groups of 8 threads at NB = 128)
+FASTFOOD_BATCHED_CASES = [(8, 2048, 4096, 4096), (3, 37, 1000, 3000),
+                          (2, 3001, 4096, 4096), (3, 37, 100, 300)]
 # (kernel, B, rows, cols, density, s_dim[, variant]): the sparse buckets'
 # capacity-8 shapes at rcv1's density; then s = 300 (randint's multiplier
 # is not 0) and s = 7 (many nonzeros of a row or column share a bucket);
 # then duplicate (row, column) entries inside a row, a row of more than
 # 1024 nonzeros, an all-padding lane (:func:`sparse_lanes`), and
 # columnwise outputs wider than the kernel's on-chip row of 1024 columns
-# (2048 and 8192 padded columns)
+# (2048 and 8192 padded columns); rowwise: outputs wider than its on-chip
+# row (s = 2048, 8192), a row of more than 1024 nonzeros, an all-padding
+# lane, and 2^21 columns (512 stream chunks) at s = 300
 SPARSE_CASES = [
     ("sparse_rowwise", 8, 4096, RCV1_D, RCV1_DENSITY, 1024),
     ("sparse_columnwise", 8, RCV1_D, 512, RCV1_DENSITY, 1024),
@@ -1739,6 +1762,11 @@ SPARSE_CASES = [
     ("sparse_columnwise", 2, 3000, 1500, 0.002, 64, "long_row"),
     ("sparse_columnwise", 3, 5000, 300, 0.02, 300, "empty_lane"),
     ("sparse_columnwise", 2, 2000, 5000, 0.005, 1024),
+    ("sparse_rowwise", 2, 500, 3000, 0.01, 2048),
+    ("sparse_rowwise", 2, 300, 2000, 0.01, 8192),
+    ("sparse_rowwise", 2, 300, 1500, 0.002, 64, "long_row"),
+    ("sparse_rowwise", 3, 300, 5000, 0.02, 300, "empty_lane"),
+    ("sparse_rowwise", 2, 64, 1 << 21, 2e-4, 300),
 ]
 
 
@@ -1802,9 +1830,10 @@ FWHT_CASES = [
 
 COS_CASES = [(RFT_SHAPE, RFT_S), ((37, 700), 48), ((1000, 3000), 300)]
 # (m, d, S): config 3; NB = 1024 with 3 blocks, padding and truncation;
-# odd log2 NB; few rows
+# odd log2 NB; few rows; the largest NB (16384: 1024 threads a row); the
+# smallest (2, three blocks, 256 rows a block)
 FASTFOOD_CASES = [(*RFT_SHAPE, RFT_S), (512, 1000, 3000), (512, 2048, 2048),
-                  (37, 4096, 4096)]
+                  (37, 4096, 4096), (64, 16384, 16384), (37, 2, 5)]
 
 CSRC = "libskylark_tpu_torch/csrc/"
 # kernel: (source, the TPU kernel it replaces)
@@ -1866,7 +1895,8 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          sources={k: {"seconds": v["seconds"],
                       "ptxas": [ln for ln in v["ptxas"].splitlines()
-                                if "registers" in ln or "spill" in ln]}
+                                if "registers" in ln or "spill" in ln
+                                or "entry function" in ln]}
                   for k, v in report.items()})
 
     import numpy as np

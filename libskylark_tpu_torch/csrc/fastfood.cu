@@ -17,20 +17,44 @@
 // (nb, NB) device arrays, scal already folded into G and Sm and the shifts
 // zero-padded past S, exactly as the TPU kernel receives them.
 //
-// Design: one block per (row, Fastfood block). The row's NB-vector lives in
-// shared memory (x zero-padded to NB on the load), the Walsh-Hadamard
-// transform runs as log2(NB) radix-2 butterfly stages in place (natural
-// Sylvester order, the order fut.wht's butterfly uses), the gather
-// out[j] = in[perm[j]] is a shared-memory read into a second buffer, and
-// the diagonals and the cos are applied in registers at the load and the
-// store. Each feature goes straight to its block-major column b*NB + j of
-// the (m, S) output, dropped past S. Only A is read from device memory and
-// only the features written (the streams, 5 * NB floats per block, are
-// re-read by every row from L2).
+// Bound on this card: bytes. At the main path's 16384 x 4096 -> 4096 only
+// A (268 MB) and the features (268 MB) must cross device memory: 0.16 ms.
+// The chain's 2 * m * NB * log2(NB) adds take ~0.05 ms at the fp32 add
+// rate. Between the two lies on-chip traffic (a radix-2 WHT in shared
+// memory makes 12 passes and 12 barriers a WHT), which the design cuts:
+// - The WHT runs in registers. With NB = 2^k, each thread holds V = 2^L
+//   values (L = min(4, k)), T = NB / V threads a row. A phase applies the
+//   L levels whose index bits are the thread's own "window" of bits
+//   [lo, lo + L): value j of thread t is element
+//   (t mod 2^lo) | j << lo | (t >> lo) << (lo + L). Between phases one
+//   shared-memory exchange (each value written once, read once) re-deals
+//   the values so the next window is local. NB = 4096 takes three phases
+//   and two exchanges a WHT where a radix-2 kernel takes twelve stages.
+//   The last window is [k - L, k) (it may repeat levels of the one before
+//   and applies only the new ones), so the last phase leaves element
+//   t + j * T in value j: the stores are coalesced.
+// - The levels keep the butterfly's order (h = 1, 2, ..., NB/2, each
+//   butterfly (a + b, a - b)), so every WHT output is the same sum tree as
+//   fut._wht_butterfly's, bit for bit.
+// - The gather Pi is placed in an exchange: WHT1's last phase writes u in
+//   natural order, and each thread reads u[perm[i]] for the positions of
+//   WHT2's first window.
+// - The exchange buffer is swizzled (swz) so that every exchange of the
+//   main path's windows is free of bank conflicts. An exchange whose
+//   elements stay in their warp (window 0 to 4 at NB = 4096; all of them,
+//   the gather too, when a row group fits in a warp) takes warp barriers
+//   only; the others alternate between two buffers with one __syncthreads
+//   each. NB = 4096 takes three block barriers a row.
+// - A block takes R rows of one Fastfood block (R * G rows, G groups of T
+//   threads when a row needs fewer than 256 threads), so its streams are
+//   re-read from L1, not from L2. Loading the next row's A during the
+//   current one gains nothing: other blocks on the SM hide it.
 //
-// Bound on this card: bytes. At the main path's 16384 x 4096 -> 4096 the
-// chain's 2 * m * NB * log2(NB) adds take ~0.05 ms at the fp32 add rate
-// against ~0.16 ms to move A and the features.
+// What holds it back now (0.47 ms on an H100): latency, not bytes or
+// instruction rate. A 256-thread row group holds a row in registers, and
+// registers (the chain needs ~128 a thread without spills) allow two such
+// blocks a SM, so few rows are in flight to cover each row's chain of
+// exchanges, stream loads and barriers.
 //
 // Numerics: every product and sum is rounded on its own (no FMA
 // contraction) in the reference's operation order, and cos is the accurate
@@ -43,192 +67,401 @@
 
 namespace {
 
-constexpr int kMaxNB = 16384;     // two NB-float buffers: 128 KiB of shared memory
-constexpr int kMaxThreads = 512;
+constexpr int kMaxNB = 16384;
+constexpr int kMaxL = 4;           // a thread holds at most 16 values of a row
+constexpr int kBlockThreads = 256; // threads of a block whose rows need fewer
 
-// In-place unnormalized WHT of s[0:NB] by the block's threads; ends synced.
-__device__ __forceinline__ void wht_shared(float* s, int NB) {
-  for (int h = 1; h < NB; h <<= 1) {
-    for (int k = threadIdx.x; k < NB / 2; k += blockDim.x) {
-      const int i = ((k & ~(h - 1)) << 1) | (k & (h - 1));
-      const float a = s[i], b = s[i + h];
-      s[i] = __fadd_rn(a, b);
-      s[i + h] = __fsub_rn(a, b);
+enum Mode { kFused = 0, kPre = 1, kPost = 2 };
+
+struct Args {
+  const float* src;  // A (m, lda), or W (nb, m, NB) for kPost
+  int64_t lda, d, m, s_dim;
+  int NB, R;         // NB a power of two; R rows per group
+  const float* bdiag;
+  const int32_t* perm;
+  const float* gdiag;
+  const float* smdiag;
+  const float* shift;
+  float scale;
+  float* out;        // features (m, s_dim), or W for kPre
+  int64_t src_lane, out_lane, stream_lane;  // per-lane strides (blockIdx.z)
+};
+
+// Swizzled shared-memory slot of block-wide element n: bits 0-4 (the bank)
+// XOR bits 5-8 and bit 8 again into bit 4. Conflict-free for the windows
+// [0, 4) (a warp's lanes on bits 4-8), [4, 8) (bits 0-3 and 8) and any
+// window at or above bit 5 (bits 0-4). It is linear over XOR: for n = a | b
+// with a, b on disjoint bits, swz(n) = swz(a) ^ swz(b), so a thread's slot
+// is its own part, computed once, XOR a constant per value.
+__host__ __device__ constexpr int swz(int n) {
+  return n ^ (((n >> 5) & 15) | (((n >> 8) & 1) << 4));
+}
+
+// The block shape of NB = 2^K (sketch/cuda_fastfood.py plan() mirrors it):
+// V = 2^L values a thread, T threads a row, G row groups a block; windows
+// [lo, lo + L) of index bits, the last one [K - L, K).
+template <int K>
+struct Shape {
+  static constexpr int L = K < kMaxL ? K : kMaxL;
+  static constexpr int V = 1 << L;
+  static constexpr int T = 1 << (K - L);
+  static constexpr int G = T >= kBlockThreads ? 1 : kBlockThreads / T;
+  static constexpr int LAST = K - L;
+  static constexpr int BLOCK = G * T;
+  // two 256-thread blocks a SM at least (128 registers a thread: the
+  // chain spills below that); one block of 512 or 1024 threads
+  static constexpr int MIN_BLOCKS = BLOCK == kBlockThreads ? 2 : 1;
+};
+
+// Thread t's bits of its elements in window [lo, lo + L): element
+// tpart | j << lo holds value j.
+template <int L>
+__device__ __forceinline__ int tpart(int t, int lo) {
+  return (t & ((1 << lo) - 1)) | ((t >> lo) << (lo + L));
+}
+
+// Levels lo + q for q in [qa, qb) on the thread's values, in increasing
+// order, each butterfly (a + b, a - b).
+template <int L>
+__device__ __forceinline__ void levels(float (&x)[1 << L], int qa, int qb) {
+#pragma unroll
+  for (int q = 0; q < L; ++q) {
+    if (q < qa || q >= qb) continue;
+#pragma unroll
+    for (int j = 0; j < (1 << L); ++j) {
+      if (j & (1 << q)) continue;
+      const float a = x[j], b = x[j | (1 << q)];
+      x[j] = __fadd_rn(a, b);
+      x[j | (1 << q)] = __fsub_rn(a, b);
     }
+  }
+}
+
+// Element bits that select the warp holding an element in window lo's
+// layout: thread bit q >= 5 is element bit q (q < lo) or q + L (q >= lo).
+template <int K>
+__host__ __device__ constexpr unsigned warp_bits(int lo) {
+  unsigned m = 0;
+  for (int q = 5; q < K - Shape<K>::L; ++q) m |= 1u << (q < lo ? q : q + Shape<K>::L);
+  return m;
+}
+
+// True when every element stays in its warp from window lo to window nlo
+// (always when a row group fits in a warp): the exchange then needs no
+// block barrier.
+template <int K>
+__host__ __device__ constexpr bool warp_local(int lo, int nlo) {
+  return Shape<K>::T <= 32 || warp_bits<K>(lo) == warp_bits<K>(nlo);
+}
+
+// x to the exchange buffer at window lo's slots and back at window nlo's.
+// A warp-local exchange uses the third buffer with warp barriers (a warp
+// touches only its own elements there); the others alternate between the
+// first two with one block barrier each, so a buffer is written again only
+// after the next block barrier, when every read of it is done.
+template <int K>
+__device__ __forceinline__ void exchange(float (&x)[Shape<K>::V], float* buf, int stride,
+                                         int& parity, int base, int t, int lo, int nlo) {
+  constexpr int L = Shape<K>::L, V = Shape<K>::V;
+  const bool local = warp_local<K>(lo, nlo);
+  float* e = buf + (local ? 2 : parity) * stride;
+  if (local)
+    __syncwarp();
+  else
+    parity ^= 1;
+  const int wb = swz(base | tpart<L>(t, lo));
+#pragma unroll
+  for (int j = 0; j < V; ++j) e[wb ^ swz(j << lo)] = x[j];
+  if (local)
+    __syncwarp();
+  else
     __syncthreads();
+  const int rb = swz(base | tpart<L>(t, nlo));
+#pragma unroll
+  for (int j = 0; j < V; ++j) x[j] = e[rb ^ swz(j << nlo)];
+}
+
+// Unnormalized WHT of a row, values in window 0's layout on entry and in
+// window K - L's on return, an exchange between windows. Every index is a
+// compile-time constant but the thread's own parts.
+template <int K>
+__device__ __forceinline__ void wht(float (&x)[Shape<K>::V], float* buf, int stride,
+                                    int& parity, int base, int t) {
+  constexpr int L = Shape<K>::L;
+  levels<L>(x, 0, L);
+  int lo = 0;
+#pragma unroll
+  for (int p = L; p < K; p += L) {
+    const int nlo = p < K - L ? p : K - L;
+    exchange<K>(x, buf, stride, parity, base, t, lo, nlo);
+    levels<L>(x, p - nlo, (p + L < K ? p + L : K) - nlo);
+    lo = nlo;
   }
 }
 
-// u = B_b . x, x = row r of A zero-padded from d to NB; then u = H u.
-__device__ __forceinline__ void stage_pre(float* u, const float* __restrict__ A, int64_t lda,
-                                          int64_t r, int64_t d, int NB,
-                                          const float* __restrict__ bdiag) {
-  const float* a = A + r * lda;
-  for (int j = threadIdx.x; j < NB; j += blockDim.x)
-    u[j] = j < d ? __fmul_rn(bdiag[j], __ldg(a + j)) : 0.0f;
-  __syncthreads();
-  wht_shared(u, NB);
+// V consecutive floats a[i0 .. i0 + V), zero past len (or all zero when
+// !valid); 16-byte loads where aligned.
+template <int V>
+__device__ __forceinline__ void load_row(float (&x)[V], const float* __restrict__ a, int64_t len,
+                                         int i0, bool vec, bool valid) {
+  if (!valid) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) x[j] = 0.0f;
+    return;
+  }
+  if constexpr (V >= 4) {
+    if (vec && i0 + V <= len) {
+#pragma unroll
+      for (int j = 0; j < V; j += 4) {
+        const float4 q = __ldg(reinterpret_cast<const float4*>(a + i0 + j));
+        x[j] = q.x;
+        x[j + 1] = q.y;
+        x[j + 2] = q.z;
+        x[j + 3] = q.w;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) x[j] = i0 + j < len ? __ldg(a + i0 + j) : 0.0f;
 }
 
-// v = H v (v already holds scal*G times the gathered vector), then the
-// features scale * cos((scal*Sm) * v + shift) of block b, row r.
-__device__ __forceinline__ void stage_post(float* v, int NB, int b, int64_t r, int64_t s_dim,
-                                           const float* __restrict__ smdiag,
-                                           const float* __restrict__ shift, float scale,
-                                           float* __restrict__ out) {
-  wht_shared(v, NB);
-  for (int j = threadIdx.x; j < NB; j += blockDim.x) {
-    const int64_t f = (int64_t)b * NB + j;
-    if (f >= s_dim) break;
-    const float z = __fadd_rn(__fmul_rn(smdiag[j], v[j]), shift[j]);
-    out[r * s_dim + f] = __fmul_rn(scale, cosf(z));
+// x[j] *= s[i0 + j] (a stream in window 0's layout), each product
+// rounded on its own; NB is a multiple of V and the streams are 16-byte
+// aligned. Four entries are live at a time.
+template <int V>
+__device__ __forceinline__ void scale_by(float (&x)[V], const float* __restrict__ s, int i0) {
+  if constexpr (V >= 4) {
+#pragma unroll
+    for (int j = 0; j < V; j += 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(s + i0 + j));
+      x[j] = __fmul_rn(q.x, x[j]);
+      x[j + 1] = __fmul_rn(q.y, x[j + 1]);
+      x[j + 2] = __fmul_rn(q.z, x[j + 2]);
+      x[j + 3] = __fmul_rn(q.w, x[j + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) x[j] = __fmul_rn(__ldg(s + i0 + j), x[j]);
   }
 }
 
-// The whole chain for row blockIdx.x and Fastfood block blockIdx.y.
-__device__ __forceinline__ void fused_chain(const float* __restrict__ A, int64_t lda, int64_t d,
-                                            int NB, int64_t s_dim,
-                                            const float* __restrict__ bdiag,
-                                            const int32_t* __restrict__ perm,
-                                            const float* __restrict__ gdiag,
-                                            const float* __restrict__ smdiag,
-                                            const float* __restrict__ shift, float scale,
-                                            float* __restrict__ out) {
+// The gather's slots: pv[j] = swz(perm[i0 + j]), to be XORed with the
+// group's swz(base).
+template <int V>
+__device__ __forceinline__ void load_perm(int (&pv)[V], const int32_t* __restrict__ perm,
+                                          int i0) {
+  if constexpr (V >= 4) {
+#pragma unroll
+    for (int j = 0; j < V; j += 4) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(perm + i0 + j));
+      pv[j] = swz(q.x);
+      pv[j + 1] = swz(q.y);
+      pv[j + 2] = swz(q.z);
+      pv[j + 3] = swz(q.w);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) pv[j] = swz(__ldg(perm + i0 + j));
+  }
+}
+
+// One kernel for the three entry points, NB = 2^K. Block (x, b, z): rows
+// x * R * G + it * G + g (it < R) of lane z, Fastfood block b; group g of
+// T threads per row.
+template <int K, int MODE>
+__global__ void __launch_bounds__(Shape<K>::BLOCK, Shape<K>::MIN_BLOCKS)
+    fastfood_kernel(const Args a) {
+  using S = Shape<K>;
+  constexpr int L = S::L, V = S::V, T = S::T, NB = 1 << K, LAST = S::LAST;
   extern __shared__ float smem[];
-  float* u = smem;
-  float* v = smem + NB;
-  const int64_t r = blockIdx.x;
+  const int g = threadIdx.x / T, t = threadIdx.x % T;
   const int b = blockIdx.y;
-  const int64_t off = (int64_t)b * NB;
-  stage_pre(u, A, lda, r, d, NB, bdiag + off);
-  for (int j = threadIdx.x; j < NB; j += blockDim.x)
-    v[j] = __fmul_rn(gdiag[off + j], u[perm[off + j]]);
-  __syncthreads();
-  stage_post(v, NB, b, r, s_dim, smdiag + off, shift + off, scale, out);
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-fastfood_fused(const float* __restrict__ A, int64_t lda, int64_t d, int NB, int64_t m,
-               int64_t s_dim, const float* __restrict__ bdiag, const int32_t* __restrict__ perm,
-               const float* __restrict__ gdiag, const float* __restrict__ smdiag,
-               const float* __restrict__ shift, float scale, float* __restrict__ out) {
-  fused_chain(A, lda, d, NB, s_dim, bdiag, perm, gdiag, smdiag, shift, scale, out);
-}
-
-// Lane blockIdx.z of a stacked cohort: A (B, m, d), streams (B, nb, NB),
-// out (B, m, s_dim).
-__global__ void __launch_bounds__(kMaxThreads)
-fastfood_batched(const float* __restrict__ A, int64_t d, int NB, int nb, int64_t m,
-                 int64_t s_dim, const float* __restrict__ bdiag,
-                 const int32_t* __restrict__ perm, const float* __restrict__ gdiag,
-                 const float* __restrict__ smdiag, const float* __restrict__ shift, float scale,
-                 float* __restrict__ out) {
   const int64_t z = blockIdx.z;
-  const int64_t so = z * nb * NB;
-  fused_chain(A + z * m * d, d, d, NB, s_dim, bdiag + so, perm + so, gdiag + so, smdiag + so,
-              shift + so, scale, out + z * m * s_dim);
+  const int64_t so = z * a.stream_lane + (int64_t)b * NB;
+  const float* __restrict__ bd = a.bdiag + so;
+  const int32_t* __restrict__ pm = a.perm + so;
+  const float* __restrict__ gd = a.gdiag + so;
+  const float* __restrict__ sm = a.smdiag + so;
+  const float* __restrict__ sh = a.shift + so;
+  const float* __restrict__ src = a.src + z * a.src_lane;
+  float* __restrict__ out = a.out + z * a.out_lane;
+  const int stride = S::G * NB;
+  const int base = g * NB;
+  const int i0 = t << L;  // window 0: elements i0 .. i0 + V
+  int parity = 0;
+  const int64_t len = MODE == kPost ? NB : a.d;
+  const int64_t pitch = MODE == kPost ? NB : a.lda;
+  const float* rows = MODE == kPost ? src + (int64_t)b * a.m * NB : src;
+  const bool vec = (pitch & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+
+  int64_t r = (int64_t)blockIdx.x * S::G * a.R + g;
+  for (int it = 0; it < a.R; ++it, r += S::G) {
+    float x[V];
+    load_row<V>(x, rows + r * pitch, len, i0, vec, r < a.m);
+    if (MODE != kPost) {
+      scale_by<V>(x, bd, i0);
+      wht<K>(x, smem, stride, parity, base, t);
+      if (MODE == kPre) {
+        if (r < a.m) {
+          float* w = out + ((int64_t)b * a.m + r) * NB + t;
+#pragma unroll
+          for (int j = 0; j < V; ++j) w[j * T] = x[j];  // element t + j * T
+        }
+        continue;
+      }
+      // the gather: u in natural order to the buffer, u[perm[i]] back
+      // (within the warp when a row group fits in one)
+      constexpr bool local = T <= 32;
+      float* e = smem + (local ? 2 : parity) * stride;
+      if (local)
+        __syncwarp();
+      else
+        parity ^= 1;
+      const int wb = swz(base | tpart<L>(t, LAST));
+#pragma unroll
+      for (int j = 0; j < V; ++j) e[wb ^ swz(j << LAST)] = x[j];
+      int pv[V];
+      load_perm<V>(pv, pm, i0);
+      if (local)
+        __syncwarp();
+      else
+        __syncthreads();
+      const int sb = swz(base);
+#pragma unroll
+      for (int j = 0; j < V; ++j) x[j] = e[sb ^ pv[j]];
+    }
+    scale_by<V>(x, gd, i0);
+    wht<K>(x, smem, stride, parity, base, t);
+    if (r < a.m) {
+      // value j is element t + j * T of block b
+      float* o = out + r * a.s_dim + (int64_t)b * NB + t;
+      const int64_t last = a.s_dim - (int64_t)b * NB - t;  // values kept: j * T < last
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if (j * T < last) {
+          const float zz =
+              __fadd_rn(__fmul_rn(__ldg(sm + t + j * T), x[j]), __ldg(sh + t + j * T));
+          o[j * T] = __fmul_rn(a.scale, cosf(zz));
+        }
+      }
+    }
+  }
 }
 
-// Split, first kernel: W[b, r, :] = H(B_b . x_r).
-__global__ void __launch_bounds__(kMaxThreads)
-fastfood_pre(const float* __restrict__ A, int64_t lda, int64_t d, int NB, int64_t m,
-             const float* __restrict__ bdiag, float* __restrict__ W) {
-  extern __shared__ float smem[];
-  const int64_t r = blockIdx.x;
-  const int b = blockIdx.y;
-  stage_pre(smem, A, lda, r, d, NB, bdiag + (int64_t)b * NB);
-  float* w = W + ((int64_t)b * m + r) * NB;
-  for (int j = threadIdx.x; j < NB; j += blockDim.x) w[j] = smem[j];
+template <int K, int MODE>
+cudaError_t go(const Args& a, int64_t nb, int64_t B, cudaStream_t stream) {
+  using S = Shape<K>;
+  const size_t smem = 3 * (size_t)S::G * (1 << K) * sizeof(float);
+  const int64_t per = (int64_t)S::G * a.R;
+  const int64_t gx = (a.m + per - 1) / per;
+  if (gx > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  auto kern = fastfood_kernel<K, MODE>;
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<dim3((unsigned)gx, (unsigned)nb, (unsigned)B), S::G * S::T, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
-// Split, second kernel, on the gathered W: the chain after the gather.
-__global__ void __launch_bounds__(kMaxThreads)
-fastfood_post(const float* __restrict__ W, int NB, int64_t m, int64_t s_dim,
-              const float* __restrict__ gdiag, const float* __restrict__ smdiag,
-              const float* __restrict__ shift, float scale, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int64_t r = blockIdx.x;
-  const int b = blockIdx.y;
-  const int64_t off = (int64_t)b * NB;
-  const float* w = W + ((int64_t)b * m + r) * NB;
-  for (int j = threadIdx.x; j < NB; j += blockDim.x)
-    smem[j] = __fmul_rn(gdiag[off + j], w[j]);
-  __syncthreads();
-  stage_post(smem, NB, b, r, s_dim, smdiag + off, shift + off, scale, out);
+template <int MODE>
+int launch(const Args& a, int64_t nb, int64_t B, cudaStream_t stream) {
+  int k = 0;
+  while ((1 << k) < a.NB) ++k;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (k) {
+#define SK_FF_K(K) \
+  case K: err = go<K, MODE>(a, nb, B, stream); break;
+    SK_FF_K(1) SK_FF_K(2) SK_FF_K(3) SK_FF_K(4) SK_FF_K(5) SK_FF_K(6) SK_FF_K(7)
+    SK_FF_K(8) SK_FF_K(9) SK_FF_K(10) SK_FF_K(11) SK_FF_K(12) SK_FF_K(13) SK_FF_K(14)
+#undef SK_FF_K
+  }
+  return (int)err;
 }
 
-bool bad_geometry(int64_t m, int64_t NB, int64_t nb) {
+bool bad_geometry(int64_t m, int64_t NB, int64_t nb, int64_t R) {
   return m <= 0 || m > 0x7FFFFFFF || NB < 2 || NB > kMaxNB || (NB & (NB - 1)) || nb <= 0 ||
-         nb > 65535;
+         nb > 65535 || R < 1 || R > 65535;
 }
 
-int threads_for(int64_t NB) {
-  const int64_t t = NB / 2 < 32 ? 32 : NB / 2;
-  return (int)(t > kMaxThreads ? kMaxThreads : t);
-}
-
-// Opt in to more than the default 48 KiB of dynamic shared memory.
-template <typename K>
-cudaError_t smem_attr(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+Args make_args(const float* src, int64_t lda, int64_t m, int64_t d, int64_t NB, int64_t s_dim,
+               int64_t R, const float* bdiag, const int32_t* perm, const float* gdiag,
+               const float* smdiag, const float* shift, float scale, float* out) {
+  Args a;
+  a.src = src;
+  a.lda = lda;
+  a.d = d;
+  a.m = m;
+  a.s_dim = s_dim;
+  a.NB = (int)NB;
+  a.R = (int)R;
+  a.bdiag = bdiag;
+  a.perm = perm;
+  a.gdiag = gdiag;
+  a.smdiag = smdiag;
+  a.shift = shift;
+  a.scale = scale;
+  a.out = out;
+  a.src_lane = a.out_lane = a.stream_lane = 0;
+  return a;
 }
 
 }  // namespace
 
+// rows: R, the rows each group of a block takes (sketch/cuda_fastfood.py
+// plan()); it changes no bit of the result.
 extern "C" int sk_fastfood_fused(const float* A, int64_t lda, int64_t m, int64_t d, int64_t NB,
-                                 int64_t nb, int64_t s_dim, const float* bdiag,
+                                 int64_t nb, int64_t s_dim, int64_t rows, const float* bdiag,
                                  const int32_t* perm, const float* gdiag, const float* smdiag,
                                  const float* shift, float scale, float* out,
                                  cudaStream_t stream) {
-  if (bad_geometry(m, NB, nb) || d > NB || lda < d || s_dim <= (nb - 1) * NB ||
-      s_dim > nb * NB)
+  if (bad_geometry(m, NB, nb, rows) || d > NB || d < 1 || lda < d ||
+      s_dim <= (nb - 1) * NB || s_dim > nb * NB)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = 2 * (size_t)NB * sizeof(float);
-  cudaError_t err = smem_attr(fastfood_fused, bytes);
-  if (err != cudaSuccess) return (int)err;
-  fastfood_fused<<<dim3((unsigned)m, (unsigned)nb), threads_for(NB), bytes, stream>>>(
-      A, lda, d, (int)NB, m, s_dim, bdiag, perm, gdiag, smdiag, shift, scale, out);
-  return (int)cudaGetLastError();
+  return launch<kFused>(make_args(A, lda, m, d, NB, s_dim, rows, bdiag, perm, gdiag, smdiag,
+                                  shift, scale, out),
+                        nb, 1, stream);
 }
 
+// Lane blockIdx.z of a stacked cohort: A (B, m, d), streams (B, nb, NB),
+// out (B, m, s_dim).
 extern "C" int sk_fastfood_batched(const float* A, int64_t B, int64_t m, int64_t d, int64_t NB,
-                                   int64_t nb, int64_t s_dim, const float* bdiag,
+                                   int64_t nb, int64_t s_dim, int64_t rows, const float* bdiag,
                                    const int32_t* perm, const float* gdiag, const float* smdiag,
                                    const float* shift, float scale, float* out,
                                    cudaStream_t stream) {
-  if (bad_geometry(m, NB, nb) || B < 1 || B > 65535 || d > NB || d < 1 ||
+  if (bad_geometry(m, NB, nb, rows) || B < 1 || B > 65535 || d > NB || d < 1 ||
       s_dim <= (nb - 1) * NB || s_dim > nb * NB)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = 2 * (size_t)NB * sizeof(float);
-  cudaError_t err = smem_attr(fastfood_batched, bytes);
-  if (err != cudaSuccess) return (int)err;
-  fastfood_batched<<<dim3((unsigned)m, (unsigned)nb, (unsigned)B), threads_for(NB), bytes,
-                     stream>>>(A, d, (int)NB, (int)nb, m, s_dim, bdiag, perm, gdiag, smdiag,
-                               shift, scale, out);
-  return (int)cudaGetLastError();
+  Args a = make_args(A, d, m, d, NB, s_dim, rows, bdiag, perm, gdiag, smdiag, shift, scale, out);
+  a.src_lane = m * d;
+  a.out_lane = m * s_dim;
+  a.stream_lane = nb * NB;
+  return launch<kFused>(a, nb, B, stream);
 }
 
+// Split, first kernel: W[b, r, :] = H(B_b . x_r).
 extern "C" int sk_fastfood_pre(const float* A, int64_t lda, int64_t m, int64_t d, int64_t NB,
-                               int64_t nb, const float* bdiag, float* W, cudaStream_t stream) {
-  if (bad_geometry(m, NB, nb) || d > NB || lda < d) return (int)cudaErrorInvalidValue;
-  const size_t bytes = (size_t)NB * sizeof(float);
-  cudaError_t err = smem_attr(fastfood_pre, bytes);
-  if (err != cudaSuccess) return (int)err;
-  fastfood_pre<<<dim3((unsigned)m, (unsigned)nb), threads_for(NB), bytes, stream>>>(
-      A, lda, d, (int)NB, m, bdiag, W);
-  return (int)cudaGetLastError();
+                               int64_t nb, int64_t rows, const float* bdiag, float* W,
+                               cudaStream_t stream) {
+  if (bad_geometry(m, NB, nb, rows) || d > NB || d < 1 || lda < d)
+    return (int)cudaErrorInvalidValue;
+  return launch<kPre>(make_args(A, lda, m, d, NB, nb * NB, rows, bdiag, nullptr, nullptr,
+                                nullptr, nullptr, 0.0f, W),
+                      nb, 1, stream);
 }
 
+// Split, second kernel, on the gathered W (nb, m, NB): the chain after the
+// gather.
 extern "C" int sk_fastfood_post(const float* W, int64_t m, int64_t NB, int64_t nb, int64_t s_dim,
-                                const float* gdiag, const float* smdiag, const float* shift,
-                                float scale, float* out, cudaStream_t stream) {
-  if (bad_geometry(m, NB, nb) || s_dim <= (nb - 1) * NB || s_dim > nb * NB)
+                                int64_t rows, const float* gdiag, const float* smdiag,
+                                const float* shift, float scale, float* out,
+                                cudaStream_t stream) {
+  if (bad_geometry(m, NB, nb, rows) || s_dim <= (nb - 1) * NB || s_dim > nb * NB)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = (size_t)NB * sizeof(float);
-  cudaError_t err = smem_attr(fastfood_post, bytes);
-  if (err != cudaSuccess) return (int)err;
-  fastfood_post<<<dim3((unsigned)m, (unsigned)nb), threads_for(NB), bytes, stream>>>(
-      W, (int)NB, m, s_dim, gdiag, smdiag, shift, scale, out);
-  return (int)cudaGetLastError();
+  return launch<kPost>(make_args(W, NB, m, NB, NB, s_dim, rows, nullptr, nullptr, gdiag,
+                                 smdiag, shift, scale, out),
+                       nb, 1, stream);
 }

@@ -9,23 +9,26 @@
 // h is UniformInt(0, s-1) of sub-stream 0 and v Rademacher of sub-stream 1
 // of the lane's key, in base/randgen.py's counter-stream layout. They are
 // derived here at the hashed coordinates that hold nonzeros only (each
-// nonzero's column rowwise, each row run columnwise): the chunk key of
-// coordinate j's chunk j / 4096 and randint's split pair, as
-// csrc/hash_sketch.cu derives them, so the cipher work is O(nnz), not O(n).
+// nonzero's column rowwise, each row run columnwise), so the cipher work
+// is O(nnz), not O(n). Columnwise derives coordinate j's chunk key (chunk
+// j / 4096) and randint's split pair per row, as csrc/hash_sketch.cu
+// does; rowwise derives them once per (lane, chunk) into a table (2-3
+// stream words a nonzero instead of 8-9 cipher calls).
 //
 // Contract: bit-equal to the plain scatter (sketch/sparse_serve.py
 // cwt_sparse_serve_apply on the CPU), which adds each output cell's terms
 // in CSR row-major order. Every v * val is exact (v = +-1), so only the
 // order of the adds matters, and the kernel keeps it:
 // - rowwise: output row r takes row r's nonzeros only, a contiguous range
-//   of the lane (rows are non-decreasing in CSR order; the range is found
-//   by binary search). One warp per (lane, row): the 32 lanes hash 32
-//   nonzeros at once, then add them in order, the nonzeros that share a
-//   bucket one after another in position order (__match_any_sync ranks
-//   them), into the zeroed output row. The warp reads the range's values
-//   1024 at a time and hashes only the 32-entry batches that hold a
-//   nonzero value; a first pass finds each lane's last nonzero value, and
-//   every range is cut there.
+//   of the lane (rows are non-decreasing in CSR order). A first pass finds
+//   each lane's last nonzero value (every range is cut there) and writes
+//   the lane's chunk table. One block per 8 rows finds the rows' ranges by
+//   two 32-ary warp searches and one scan; one warp per (lane, row) hashes
+//   32 nonzeros at once, then adds them in order, the nonzeros that share
+//   a bucket one after another in position order (__match_any_sync ranks
+//   them), into an on-chip copy of the output row (kRowBuf columns, a
+//   wider row walked in column tiles), and writes the row whole with
+//   16-byte stores: the output needs no zero-fill.
 // - columnwise: cell (h[r], c) takes the terms of the rows r hashed to
 //   bucket h, in increasing r. In a CSR lane a row is one contiguous run of
 //   positions, so each row is hashed once (O(rows) cipher calls, not one
@@ -54,7 +57,9 @@
 // bit-equal to the plain scatter, which adds them, at every capacity.
 //
 // Bound on this card: bytes (the lanes read once, the output written
-// once); a few Threefry calls per nonzero are far below the integer rate.
+// once). Rowwise, deriving each nonzero's keys (8-9 Threefry calls) and
+// adding into a zero-filled output in device memory would cost more than
+// the bytes; the chunk table and the on-chip row avoid both.
 // The TPU kernel's "mxu" (one-hot) fast mode becomes shared-memory atomic
 // accumulation in a later design; only the exact mode is here.
 
@@ -74,6 +79,8 @@ constexpr int kRunTile = 1 << kRunBits;  // rows per sort tile, columnwise
 constexpr int kSortThreads = 1024;
 constexpr int kAccWarps = 8;   // buckets per accumulation block
 constexpr int kRowBuf = 1024;  // output columns a warp holds on chip
+constexpr int kRwBatch = 4;    // 32-position batches a rowwise warp loads at once
+constexpr int kPrepTile = 4096;  // positions per block of sparse_rw_prep
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // The lane's sub-stream keys: bucket stream fold_in(key, 0), value stream
@@ -163,54 +170,163 @@ sparse_lane_end(const float* __restrict__ data, int64_t nnz, int* __restrict__ e
   if (threadIdx.x == 0 && top) atomicMax(end + b, top);
 }
 
-// Rowwise, pass 2: one warp per (lane, row).
+// Rowwise, pass 1, one block per (4096-position tile, lane): end[b] as
+// sparse_lane_end computes it, and lane b's chunk table, one thread per chunk c of the
+// hashed columns: randint's low-draw key fold_in(chunk_key(hk, c), 1) and
+// high-draw key fold_in(chunk_key(hk, c), 0), and the value stream's
+// chunk_key(vk, c) (hk, vk the lane's bucket and value stream keys), eight
+// words a chunk (two unused). A nonzero then costs two or three stream
+// words instead of eight or nine cipher calls.
 __global__ void __launch_bounds__(kThreads)
-sparse_rw_kernel(const uint32_t* __restrict__ keys, const float* __restrict__ data,
+sparse_rw_prep(const uint32_t* __restrict__ keys, const float* __restrict__ data, int64_t nnz,
+               int64_t n_chunks, int* __restrict__ end, uint4* __restrict__ table) {
+  __shared__ int top;
+  const int64_t b = blockIdx.y;
+  if (threadIdx.x == 0) top = 0;
+  __syncthreads();
+  int mine = 0;
+  const float* dt = data + b * nnz;
+  if ((nnz & 3) == 0) {  // 16-byte loads: the lane starts 16-byte aligned
+    for (int e = 4 * threadIdx.x; e < kPrepTile; e += 4 * kThreads) {
+      const int64_t j = (int64_t)blockIdx.x * kPrepTile + e;
+      if (j >= nnz) break;
+      const float4 q = *reinterpret_cast<const float4*>(dt + j);
+      if (q.w != 0.0f) mine = (int)j + 4;
+      else if (q.z != 0.0f) mine = (int)j + 3;
+      else if (q.y != 0.0f) mine = (int)j + 2;
+      else if (q.x != 0.0f) mine = (int)j + 1;
+    }
+  } else {
+    for (int e = threadIdx.x; e < kPrepTile; e += kThreads) {
+      const int64_t j = (int64_t)blockIdx.x * kPrepTile + e;
+      if (j < nnz && dt[j] != 0.0f) mine = (int)j + 1;
+    }
+  }
+  if (mine) atomicMax(&top, mine);
+  const int64_t c = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (c < n_chunks) {
+    const LaneKeys k = lane_keys(keys, b);
+    uint32_t hk0 = k.h0, hk1 = k.h1;
+    sk::chunk_key(hk0, hk1, c);
+    uint32_t lk0 = hk0, lk1 = hk1;
+    sk::fold_in(hk0, hk1, 0u);
+    sk::fold_in(lk0, lk1, 1u);
+    uint32_t vk0 = k.v0, vk1 = k.v1;
+    sk::chunk_key(vk0, vk1, c);
+    table[(b * n_chunks + c) * 2] = make_uint4(lk0, lk1, hk0, hk1);
+    table[(b * n_chunks + c) * 2 + 1] = make_uint4(vk0, vk1, 0u, 0u);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && top) atomicMax(end + b, top);
+}
+
+// Rowwise, pass 2, one block per (kWarps rows, lane), one warp per row.
+// The block's rows' first positions come from two 32-ary warp searches and
+// one coalesced scan of the positions between them. Each warp adds its
+// row's nonzeros, 32 at a time in position order (those that share a
+// bucket one after another, ranked by __match_any_sync), into an on-chip
+// copy of its output row (kRowBuf columns; a wider row is walked in column
+// tiles, the row's nonzeros hashed again for each), then writes the row
+// whole, zeros included: the output needs no zero-fill.
+__global__ void __launch_bounds__(kThreads)
+sparse_rw_kernel(const uint4* __restrict__ table, const float* __restrict__ data,
                  const int* __restrict__ rows, const int* __restrict__ cols,
                  const int* __restrict__ end, float* __restrict__ out, int64_t nnz, int64_t m,
-                 int s, uint32_t mult) {
+                 int s, uint32_t mult, int64_t n_chunks) {
+  __shared__ __align__(16) float buf[kWarps][kRowBuf];
+  __shared__ int64_t start[kWarps + 1];
   const int64_t b = blockIdx.y;
-  const int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (r >= m) return;  // whole warps
-  const LaneKeys k = lane_keys(keys, b);
+  const int64_t r0 = (int64_t)blockIdx.x * kWarps;
+  const int w = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int* rw = rows + b * nnz;
   const int* cl = cols + b * nnz;
   const float* dt = data + b * nnz;
-  // the row's range, cut at the lane's last nonzero value
+  const uint4* tb = table + b * n_chunks * 2;
+  // positions [p0, p1) of rows r0 .. r0 + kWarps, cut at the lane's last
+  // nonzero value
   const int64_t stop = end[b];
-  const int64_t hi = lower_bound(rw, stop, r + 1);
-  const int64_t lo = lower_bound(rw, hi, r);
+  if (w < 2) {
+    const int64_t p = warp_lower_bound(rw, stop, r0 + w * kWarps, lane);
+    if (lane == 0) start[w * kWarps] = p;
+  }
+  __syncthreads();
+  const int64_t p0 = start[0], p1 = start[kWarps];
+  __syncthreads();
+  for (int i = threadIdx.x; i < kWarps; i += kThreads) start[i] = p1;
+  __syncthreads();
+  // a row's first position is where the row id rises to it; a row with no
+  // position starts where the next one does
+  for (int64_t j = p0 + threadIdx.x; j < p1; j += kThreads) {
+    const int r = rw[j];
+    if (j == p0 || rw[j - 1] != r) start[r - r0] = j;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = kWarps - 1; i >= 0; --i)
+      if (start[i + 1] < start[i]) start[i] = start[i + 1];
+  __syncthreads();
+  const int64_t r = r0 + w;
+  if (r >= m) return;  // whole warps; no barrier follows
+  const int64_t lo = start[w], hi = start[w + 1];
+  const uint32_t span = (uint32_t)s;
   float* o = out + (b * m + r) * s;
-  for (int64_t sb = lo; sb < hi; sb += 32 * 32) {
-    // bit u of mine: entry sb + 32u + lane lies in the row and is nonzero
-    unsigned mine = 0;
-#pragma unroll 8
-    for (int u = 0; u < 32; ++u) {
-      const int64_t j = sb + 32 * u + lane;
-      if (j < hi && dt[j] != 0.0f) mine |= 1u << u;
-    }
-    for (unsigned todo = __reduce_or_sync(0xFFFFFFFFu, mine); todo; todo &= todo - 1) {
-      const int u = __ffs(todo) - 1;
-      const int64_t j = sb + 32 * u + lane;
-      const bool valid = (mine >> u) & 1u;
-      int h = -1;
-      float x = 0.0f;
-      if (valid) {
-        float v;
-        hash_coord(k, cl[j], (uint32_t)s, mult, h, v);
-        x = __fmul_rn(v, dt[j]);
+  float* row = buf[w];
+  for (int c0 = 0; c0 < s; c0 += kRowBuf) {
+    const int cw = s - c0 < kRowBuf ? s - c0 : kRowBuf;
+    for (int i = lane; i < cw; i += 32) row[i] = 0.0f;
+    __syncwarp();
+    for (int64_t j0 = lo; j0 < hi; j0 += 32 * kRwBatch) {
+      // kRwBatch batches of 32 positions: loads and hashes side by side,
+      // then the adds batch by batch in position order
+      float dv[kRwBatch];
+      int cc[kRwBatch];
+#pragma unroll
+      for (int u = 0; u < kRwBatch; ++u) {
+        const int64_t j = j0 + 32 * u + lane;
+        dv[u] = j < hi ? dt[j] : 0.0f;
+        cc[u] = j < hi ? cl[j] : 0;
       }
-      // nonzeros sharing a bucket add in position order
-      const unsigned peers = __match_any_sync(0xFFFFFFFFu, h);
-      const int rank = __popc(peers & ((1u << lane) - 1u));
-      int top = valid ? rank : 0;
-      for (int off = 16; off; off >>= 1) top = max(top, __shfl_xor_sync(0xFFFFFFFFu, top, off));
-      for (int q = 0; q <= top; ++q) {
-        if (valid && rank == q) o[h] = __fadd_rn(o[h], x);
-        __syncwarp();
+      int h[kRwBatch];
+      float x[kRwBatch];
+#pragma unroll
+      for (int u = 0; u < kRwBatch; ++u) {
+        h[u] = -1;
+        x[u] = 0.0f;
+        if (dv[u] != 0.0f) {
+          const int c = cc[u];
+          const uint4 k0 = __ldg(tb + 2 * (c / kChunk));
+          const uint4 k1 = __ldg(tb + 2 * (c / kChunk) + 1);
+          const uint32_t p = (uint32_t)(c % kChunk);
+          uint32_t hh = sk::stream_bits(k0.x, k0.y, p) % span;
+          if (mult) hh = ((sk::stream_bits(k0.z, k0.w, p) % span) * mult + hh) % span;
+          h[u] = (int)hh - c0;
+          if (h[u] < 0 || h[u] >= cw) h[u] = -1;
+          x[u] = __fmul_rn(sk::rademacher(sk::stream_bits(k1.x, k1.y, p)), dv[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRwBatch; ++u) {
+        if (j0 + 32 * u >= hi) break;  // warp-uniform
+        // nonzeros sharing a bucket add in position order
+        const bool valid = h[u] >= 0;
+        const unsigned peers = __match_any_sync(kFull, h[u]);
+        const int rank = __popc(peers & ((1u << lane) - 1u));
+        int top = valid ? rank : 0;
+        for (int off = 16; off; off >>= 1) top = max(top, __shfl_xor_sync(kFull, top, off));
+        for (int q = 0; q <= top; ++q) {
+          if (valid && rank == q) row[h[u]] = __fadd_rn(row[h[u]], x[u]);
+          __syncwarp();
+        }
       }
     }
+    if ((s & 3) == 0) {
+      float4* o4 = reinterpret_cast<float4*>(o + c0);
+      const float4* r4 = reinterpret_cast<const float4*>(row);
+      for (int i = lane; i < cw / 4; i += 32) o4[i] = r4[i];
+    } else {
+      for (int i = lane; i < cw; i += 32) o[c0 + i] = row[i];
+    }
+    __syncwarp();
   }
 }
 
@@ -400,20 +516,28 @@ bool bad_shape(int64_t B, int64_t nnz, int64_t m, int64_t s) {
 
 }  // namespace
 
-// Rowwise: out (B, m, s) must hold zeros; m = the lanes' (padded) row
-// count. Scratch, allocated by the caller: end (B ints, zeroed).
+// Rowwise: out (B, m, s), every cell written; m = the lanes' (padded)
+// row count, n their (padded) column count. Scratch, allocated by the
+// caller in one int tensor: end (B ints, zeroed), then at a 16-byte
+// boundary the chunk table (B * ceil(n / 4096) * 8 words).
 extern "C" int sk_sparse_rowwise(const uint32_t* keys, const float* data, const int* rows,
-                                 const int* cols, float* out, int* end, int64_t B, int64_t nnz,
-                                 int64_t m, int64_t s, uint32_t mult, cudaStream_t stream) {
-  if (bad_shape(B, nnz, m, s) || (m + kWarps - 1) / kWarps > 0x7FFFFFFF)
+                                 const int* cols, float* out, int* end, int* table, int64_t B,
+                                 int64_t nnz, int64_t m, int64_t n, int64_t s, uint32_t mult,
+                                 cudaStream_t stream) {
+  if (bad_shape(B, nnz, m, s) || n < 1 || n >= 0x7FFFFFFF ||
+      (m + kWarps - 1) / kWarps > 0x7FFFFFFF || (reinterpret_cast<uintptr_t>(table) & 15))
     return (int)cudaErrorInvalidValue;
-  sparse_lane_end<<<dim3((unsigned)((nnz + kTile - 1) / kTile), (unsigned)B), kThreads, 0,
-                    stream>>>(data, nnz, end);
+  const int64_t n_chunks = (n + kChunk - 1) / kChunk;
+  const int64_t tiles = (nnz + kPrepTile - 1) / kPrepTile;
+  const int64_t chunk_blocks = (n_chunks + kThreads - 1) / kThreads;
+  uint4* tb = reinterpret_cast<uint4*>(table);
+  sparse_rw_prep<<<dim3((unsigned)(tiles > chunk_blocks ? tiles : chunk_blocks), (unsigned)B),
+                   kThreads, 0, stream>>>(keys, data, nnz, n_chunks, end, tb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((m + kWarps - 1) / kWarps), (unsigned)B);
-  sparse_rw_kernel<<<grid, kThreads, 0, stream>>>(keys, data, rows, cols, end, out, nnz, m,
-                                                  (int)s, mult);
+  sparse_rw_kernel<<<grid, kThreads, 0, stream>>>(tb, data, rows, cols, end, out, nnz, m,
+                                                  (int)s, mult, n_chunks);
   return (int)cudaGetLastError();
 }
 

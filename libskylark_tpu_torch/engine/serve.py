@@ -330,7 +330,8 @@ def run_flush(ctx: dict, route: str, kd: np.ndarray, scale: np.ndarray,
         data, indices, indptr = (arrays["data"], arrays["indices"],
                                  arrays["indptr"])
         if family == "CWT":
-            rows = sparse_serve.csr_row_ids(indptr, data.shape[1])
+            rows = sparse_serve.csr_row_ids(indptr, data.shape[1],
+                                            torch.int32)
             fn = (cuda_sparse.cwt_sparse_apply_batched if kernel
                   else cuda_sparse.cwt_sparse_plain)
             return fn(kd, data, rows, indices, s_dim, rowwise, ctx["padded"])

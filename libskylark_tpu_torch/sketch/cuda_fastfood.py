@@ -40,11 +40,37 @@ from libskylark_tpu_torch.base import errors
 
 launches = {"fastfood": 0, "fastfood_split": 0, "fastfood_batched": 0}
 
-# The largest block the kernel serves: one row's two NB-float buffers in
-# shared memory (csrc/fastfood.cu: kMaxNB).
+# The largest block the kernel serves (csrc/fastfood.cu: kMaxNB): 1024
+# threads of 16 values and three NB-float exchange buffers.
 MAX_NB = 16384
+# Blocks along one lane's rows that the plan aims for: enough to fill the
+# card's 132 SMs several times over from a single lane and block.
+ROW_BLOCKS = 1024
+_MAX_ROWS = 16
 
 _lib = None
+
+
+def plan(NB: int, m: int) -> dict:
+    """The kernel's block shape for one lane of m rows and Fastfood blocks
+    of NB (csrc/fastfood.cu ``Shape``; only ``rows`` is passed to it):
+    ``levels`` L = min(4, log2 NB), each thread holding 2^L values of a
+    row; ``threads`` per row group NB / 2^L; ``groups`` row groups a block
+    (a block has at least 256 threads); ``rows`` each group takes, so a
+    block reads its streams once for ``rows·groups`` rows; ``smem`` the
+    three exchange buffers' bytes (two for the exchanges that cross warps,
+    one for those that stay in a warp); ``grid_rows`` blocks along the
+    rows. It reads one lane's shape, never the lane count, and changes no
+    bit of the result."""
+    k = NB.bit_length() - 1
+    L = min(4, k)
+    T = NB >> L
+    groups = 1 if T >= 256 else 256 // T
+    rows = max(1, min(_MAX_ROWS, m // (groups * ROW_BLOCKS)))
+    return {"levels": L, "threads": T, "groups": groups,
+            "block": groups * T, "rows": rows,
+            "smem": 3 * groups * NB * 4,
+            "grid_rows": -(-m // (groups * rows))}
 
 
 def supported(NB: int, dtype) -> bool:
@@ -81,13 +107,13 @@ def _load():
 
         lib = build.load("fastfood")
         p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-        lib.sk_fastfood_fused.argtypes = [p, i64, i64, i64, i64, i64, i64,
-                                          p, p, p, p, p, f32, p, p]
-        lib.sk_fastfood_pre.argtypes = [p, i64, i64, i64, i64, i64, p, p, p]
-        lib.sk_fastfood_post.argtypes = [p, i64, i64, i64, i64, p, p, p, f32,
-                                         p, p]
-        lib.sk_fastfood_batched.argtypes = [p, i64, i64, i64, i64, i64, i64,
-                                            p, p, p, p, p, f32, p, p]
+        lib.sk_fastfood_fused.argtypes = [p] + [i64] * 7 + [p] * 5 + [
+            f32, p, p]
+        lib.sk_fastfood_pre.argtypes = [p] + [i64] * 6 + [p, p, p]
+        lib.sk_fastfood_post.argtypes = [p] + [i64] * 5 + [p, p, p, f32, p,
+                                                           p]
+        lib.sk_fastfood_batched.argtypes = [p] + [i64] * 7 + [p] * 5 + [
+            f32, p, p]
         for fn in (lib.sk_fastfood_fused, lib.sk_fastfood_pre,
                    lib.sk_fastfood_post, lib.sk_fastfood_batched):
             fn.restype = ctypes.c_int
@@ -148,23 +174,38 @@ def apply_streams(A: torch.Tensor, streams, scale: float, s_dim: int,
     if m == 0:
         return out
     lib = _load()
+    rows = plan(NB, m)["rows"]
     if variant == "split":
-        W = torch.empty((nb, m, NB), dtype=torch.float32, device=A.device)
-        launch.call(lib.sk_fastfood_pre, A.device, A.data_ptr(), d, m, d, NB,
-                    nb, bdiag.data_ptr(), W.data_ptr())
+        W = split_pre(A, bdiag)
         W = torch.gather(W, 2, perms[:, None, :].expand(nb, m, NB))
         launch.call(lib.sk_fastfood_post, A.device, W.data_ptr(), m, NB, nb,
-                    s_dim, gdiag.data_ptr(), smdiag.data_ptr(), sh.data_ptr(),
-                    float(scale), out.data_ptr())
+                    s_dim, rows, gdiag.data_ptr(), smdiag.data_ptr(),
+                    sh.data_ptr(), float(scale), out.data_ptr())
         launch.count(launches, "fastfood_split")
         return out
     perms = perms.to(torch.int32)
     launch.call(lib.sk_fastfood_fused, A.device, A.data_ptr(), d, m, d, NB,
-                nb, s_dim, bdiag.data_ptr(), perms.data_ptr(),
+                nb, s_dim, rows, bdiag.data_ptr(), perms.data_ptr(),
                 gdiag.data_ptr(), smdiag.data_ptr(), sh.data_ptr(),
                 float(scale), out.data_ptr())
     launch.count(launches, "fastfood")
     return out
+
+
+def split_pre(A: torch.Tensor, bdiag: torch.Tensor) -> torch.Tensor:
+    """B4-split's first kernel on A (m, d) CUDA float32 (contiguous) and
+    B (numblks, NB): W (numblks, m, NB), W[b, r] = H(B_b ⊙ x_r) with x_r
+    zero-padded to NB — in the butterfly's sum order, bit for bit.
+    :func:`apply_streams` gathers W and launches the second kernel; its
+    launch counter counts the pair."""
+    from libskylark_tpu_torch.kernels import launch
+
+    nb, NB = bdiag.shape
+    m, d = A.shape
+    W = torch.empty((nb, m, NB), dtype=torch.float32, device=A.device)
+    launch.call(_load().sk_fastfood_pre, A.device, A.data_ptr(), d, m, d, NB,
+                nb, plan(NB, m)["rows"], bdiag.data_ptr(), W.data_ptr())
+    return W
 
 
 def serve_features_plain(key_data, A: torch.Tensor, n_dim: int, s_dim: int,
@@ -267,7 +308,8 @@ def apply_streams_batched(A: torch.Tensor, streams, scale: float,
     from libskylark_tpu_torch.kernels import launch
 
     launch.call(_load().sk_fastfood_batched, A.device, A.data_ptr(), B, m,
-                d, NB, nb, s_dim, bdiag.data_ptr(), perms.data_ptr(),
+                d, NB, nb, s_dim, plan(NB, m)["rows"], bdiag.data_ptr(),
+                perms.data_ptr(),
                 gdiag.data_ptr(), smdiag.data_ptr(), sh.data_ptr(),
                 float(scale), out.data_ptr())
     launch.count(launches, "fastfood_batched")

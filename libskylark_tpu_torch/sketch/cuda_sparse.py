@@ -39,6 +39,53 @@ RUN_TILE = 2048
 _lib = None
 
 
+def rowwise_chunks(n: int) -> int:
+    """Stream chunks of n hashed columns: the rows of the rowwise kernel's
+    chunk table (one per 4096 columns, ``randgen.CHUNK``)."""
+    return -(-int(n) // randgen.CHUNK)
+
+
+def chunk_table(key_data, n: int) -> np.ndarray:
+    """The rowwise kernel's chunk table of one lane, on the host: for each
+    chunk c of n hashed columns, randint's low-draw key
+    fold_in(chunk_key(kh, c), 1) and high-draw key fold_in(chunk_key(kh,
+    c), 0), then the value stream's chunk_key(kv, c), with kh, kv =
+    fold_in(key, 0), fold_in(key, 1): a (chunks, 6) uint32 array (the
+    kernel pads each entry to eight words)."""
+    k = np.asarray(key_data, dtype=np.uint32).reshape(1, 2)
+    c = rowwise_chunks(n)
+    kh = randgen.chunk_keys_batched(randgen.fold_in_batched(k, 0), 0, c)[0]
+    kv = randgen.chunk_keys_batched(randgen.fold_in_batched(k, 1), 0, c)[0]
+    hi = randgen.fold_in_batched(kh, 0)
+    lo = randgen.fold_in_batched(kh, 1)
+    return np.concatenate([lo, hi, kv], axis=1)
+
+
+def hash_columns(table: np.ndarray, cols, s_dim: int):
+    """(h, v) of the columns ``cols`` from a :func:`chunk_table`, as the
+    rowwise kernel derives them per nonzero: two stream words (three when
+    randint's multiplier is not zero) at p = col mod 4096 under the
+    column's chunk keys. h int64, v float32 ±1."""
+    from libskylark_tpu_torch.base import threefry as tf
+
+    cols = np.asarray(cols, dtype=np.int64)
+    t = table.astype(np.int64)[cols // randgen.CHUNK]
+    p = cols % randgen.CHUNK
+
+    def word(k0, k1):
+        x0, x1 = tf.threefry2x32(k0, k1, np.zeros_like(p), p)
+        return (x0 ^ x1) & tf.MASK32
+
+    h = word(t[:, 0], t[:, 1]) % s_dim
+    mult = randgen.randint_multiplier(s_dim)
+    if mult:
+        h = ((((word(t[:, 2], t[:, 3]) % s_dim) * mult) & tf.MASK32) + h) \
+            & tf.MASK32
+        h = h % s_dim
+    v = np.where(word(t[:, 4], t[:, 5]) >> 31, -1.0, 1.0).astype(np.float32)
+    return torch.from_numpy(h), torch.from_numpy(v)
+
+
 def supported(dtype) -> bool:
     """The kernel's dispatch rule: float32 values."""
     return dtype == torch.float32
@@ -62,7 +109,7 @@ def _load():
 
         lib = build.load("sparse_sketch")
         p, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
-        lib.sk_sparse_rowwise.argtypes = [p] * 6 + [i64] * 4 + [u32, p]
+        lib.sk_sparse_rowwise.argtypes = [p] * 7 + [i64] * 5 + [u32, p]
         lib.sk_sparse_columnwise.argtypes = [p] * 8 + [i64] * 5 + [u32, p]
         for fn in (lib.sk_sparse_rowwise, lib.sk_sparse_columnwise):
             fn.restype = ctypes.c_int
@@ -100,11 +147,9 @@ def cwt_sparse_apply_batched(key_data, data: torch.Tensor,
     n_rows, n_cols = int(shape[0]), int(shape[1])
     m = n_rows if rowwise else n_cols
     dev = data.device
-    # the columnwise kernel writes every cell; the rowwise one adds into
-    # zeros
-    out = (torch.zeros((B, m, s_dim), dtype=torch.float32, device=dev)
-           if rowwise else torch.empty((B, s_dim, m), dtype=torch.float32,
-                                       device=dev))
+    # both kernels write every cell
+    shape_out = (B, m, s_dim) if rowwise else (B, s_dim, m)
+    out = torch.empty(shape_out, dtype=torch.float32, device=dev)
     if B == 0 or nnz == 0:
         return out.zero_()
     data = data.contiguous()
@@ -113,12 +158,19 @@ def cwt_sparse_apply_batched(key_data, data: torch.Tensor,
     keys = lane_keys(kd, dev)
     mult = randgen.randint_multiplier(s_dim)
     lib = _load()
-    end = torch.zeros(B, dtype=torch.int32, device=dev)
     if rowwise:
+        # one scratch tensor: end (B ints, zeroed), then the chunk table at
+        # a 16-byte boundary
+        head = -(-B // 4) * 4
+        scratch = torch.zeros(head + B * rowwise_chunks(n_cols) * 8,
+                              dtype=torch.int32, device=dev)
         launch.call(lib.sk_sparse_rowwise, dev, keys.data_ptr(),
                     data.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-                    out.data_ptr(), end.data_ptr(), B, nnz, m, s_dim, mult)
+                    out.data_ptr(), scratch.data_ptr(),
+                    scratch.data_ptr() + 4 * head, B, nnz, m, n_cols, s_dim,
+                    mult)
     else:
+        end = torch.zeros(B, dtype=torch.int32, device=dev)
         slots = -(-n_rows // RUN_TILE) * RUN_TILE
         bucket = torch.empty((B, slots), dtype=torch.int32, device=dev)
         runs = torch.empty((B, slots, 4), dtype=torch.int32, device=dev)

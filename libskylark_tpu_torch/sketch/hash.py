@@ -150,7 +150,7 @@ class CWT(HashTransform):
         other dtypes through the plain CSR-order scatter."""
         data, indices, indptr = (torch.tensor(x, device=device)
                                  for x in A.csr_parts())
-        rows = sparse_serve.csr_row_ids(indptr, data.shape[0])
+        rows = sparse_serve.csr_row_ids(indptr, data.shape[0], torch.int32)
         if cuda_sparse.supported(data.dtype):
             return cuda_sparse.cwt_sparse_apply(
                 self._alloc.key, data, rows, indices, self._S, rowwise,

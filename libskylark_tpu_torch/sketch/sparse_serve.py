@@ -24,16 +24,18 @@ import torch
 from libskylark_tpu_torch.sketch import cuda_hash
 
 
-def csr_row_ids(indptr: torch.Tensor, nnz_pad: int) -> torch.Tensor:
+def csr_row_ids(indptr: torch.Tensor, nnz_pad: int,
+                dtype=torch.int64) -> torch.Tensor:
     """The row of each of the first ``nnz_pad`` lane positions, from a
-    (rows+1,) ``indptr`` or a (B, rows+1) stack of them (int64). Positions
-    past the true nnz clamp to the last row; their data is 0.0."""
+    (rows+1,) ``indptr`` or a (B, rows+1) stack of them, as ``dtype``
+    (int32 is what the sparse kernel reads). Positions past the true nnz
+    clamp to the last row; their data is 0.0."""
     j = torch.arange(int(nnz_pad), dtype=indptr.dtype, device=indptr.device)
     ends = indptr[..., 1:].contiguous()
     if indptr.ndim == 2:
         j = j.expand(indptr.shape[0], -1).contiguous()
     rows = torch.searchsorted(ends, j, right=True)
-    return torch.clamp_max(rows, indptr.shape[-1] - 2).to(torch.int64)
+    return torch.clamp_max(rows, indptr.shape[-1] - 2).to(dtype)
 
 
 def cwt_scatter_rows(key_data, data: torch.Tensor, rows: torch.Tensor,
