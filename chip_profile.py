@@ -3,7 +3,8 @@
 
 Run from the root of a checkout, with one CUDA card: ``python3
 chip_profile.py``. For each main-path cell of chip_smoke.py — JLT.apply
-rowwise and columnwise on 8192×8192 → 1024, approximate_svd of the SVD
+rowwise and columnwise, CWT.apply and FJLT(fut="wht").apply rowwise, on
+8192×8192 → 1024, approximate_svd of the SVD
 cell's 8192×8192 matrix at rank 64 (k' = 128, two power iterations),
 approximate_least_squares on 65536×512 with the JLT, the default FJLT and
 the CWT, solve_l2_sketched with FJLT(fut="wht") (the SRHT) on the same
@@ -126,6 +127,11 @@ def main() -> int:
             lambda: sk.JLT(8192, 1024, ctx[42]).apply(A, sk.ROWWISE),
         "jlt_columnwise_8192x8192_to_1024":
             lambda: sk.JLT(8192, 1024, ctx[48]).apply(A, sk.COLUMNWISE),
+        "cwt_rowwise_8192x8192_to_1024":
+            lambda: sk.CWT(8192, 1024, ctx[49]).apply(A, sk.ROWWISE),
+        "fjlt_wht_rowwise_8192x8192_to_1024":
+            lambda: sk.FJLT(8192, 1024, ctx[51], fut="wht").apply(
+                A, sk.ROWWISE),
         "svd_8192x8192_rank64_q2":
             lambda: nla.approximate_svd(Asvd, 64, ctx[43], params),
         "lstsq_jlt_65536x512_s2048":

@@ -19,9 +19,15 @@ chip_smoke.py``. In order, each phase printing one JSON line:
               heavy tail puts max|plain| far above a typical entry);
             - hash (B2): bit-equal (torch.equal) to the plain scatter run
               on a CPU copy of the operand, also at a span that is not a
-              power of two (s = 300) and at ragged n;
+              power of two (s = 300) and at ragged n; and cohorts through
+              the batched entry point (B ∈ {1, 3, 8}, ragged lanes, an
+              all-padding lane, s = 7), every lane also bit-equal to a
+              launch of that lane alone;
             - fwht (B5): bit-equal on dyadic data (integers in [−8, 8],
-              n = 4096, s = 256), ≤ 1e-4·max|plain| on Gaussian data;
+              n = 4096 and 65536, both ways), ≤ 1e-4·max|plain| on
+              Gaussian data; cohorts as for B2 at every segment plan
+              (whole rows at n = 128 and 8192, folded segments at n =
+              65536 both ways), every lane bit-equal to its launch alone;
             - cos (B1-cos): random sc/sh, every regime, ≤ 1e-4·max|plain|;
             - fastfood (B4, B4-split): ≤ 1e-4·max|plain| at 16384×4096 →
               4096, d = 1000 → 3000 (padding, 3 blocks, truncation), an
@@ -80,7 +86,10 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             launch counters set to 0 before and read after; every request
             held to its capacity-1 plain flush (≤ 1e-4·max|plain|, CT's
             Cauchy draws entry by entry; CWT torch.equal on the CPU) and
-            bit-equal to its capacity-1 kernel flush; then each bucket's flush cell (warm ms, device ms, busy);
+            bit-equal to its capacity-1 kernel flush, and each serve-cwt
+            and serve-srht flush exactly one hash_batched or fwht_batched
+            launch; then each bucket's flush cell (warm ms, device ms,
+            busy);
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
@@ -92,7 +101,8 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             kernels, whose streams are made outside them, are timed on
             streams made beforehand, and their wrappers with new streams
             per call beside them); the serve kernels at their buckets'
-            capacity-8 shapes;
+            capacity-8 shapes (B2's and B5's batched entry points at the
+            cwt and srht buckets' capacity-4 shape);
 6. the ``{"kernels": [...]}`` line (``max_abs_err``: the worst of every
    check at the kernel's main-path shapes, all distributions and ragged
    variants), the card's name and power limit, and
@@ -326,10 +336,81 @@ def check_hash(torch, P, cases) -> list:
                         "bit_equal": bool(torch.equal(got, want)),
                         "max_abs_err": float((got - want).abs().max())})
         del A
+    results += check_cohorts(torch, P, HASH_BATCHED_CASES, "hash_batched")
     emit("check", tolerance="B2: torch.equal with the plain scatter on a "
-                            "CPU copy", cases=results)
-    bad = [r for r in results if not r["bit_equal"]]
+                            "CPU copy; every lane of a cohort torch.equal "
+                            "to its launch alone", cases=results)
+    bad = [r for r in results
+           if not r["bit_equal"] or not r.get("capacity_invariant", True)]
     check(not bad, f"CountSketch kernel differs from its plain version: {bad}")
+    return results
+
+
+def cohort_operand(torch, g, B, shape, rowwise, variant, dyadic, seed):
+    """A stacked cohort (B, *shape): lanes with fewer vectors on the free
+    axis zero-padded into it ("ragged"), or lane 1 all padding
+    ("empty_lane"); integers in [−8, 8] when ``dyadic``."""
+    free = 0 if rowwise else 1
+    lanes = []
+    for b in range(B):
+        sh = list(shape)
+        if variant == "ragged":
+            sh[free] = int(g.integers(max(1, shape[free] // 2),
+                                      shape[free] + 1))
+        if dyadic:
+            gen = torch.Generator(device="cuda").manual_seed(seed + b)
+            lane = torch.randint(-8, 9, tuple(sh), generator=gen,
+                                 device="cuda").float()
+        else:
+            lane = make_operand(torch, tuple(sh), seed + b)
+        if variant == "empty_lane" and b == 1:
+            lane.zero_()
+        pad = [0, 0, 0, 0]
+        pad[3 - 2 * free] = shape[free] - sh[free]
+        lanes.append(torch.nn.functional.pad(lane, pad))
+    return torch.stack(lanes)
+
+
+def check_cohorts(torch, P, cases, name) -> list:
+    """Phase 3, the batched entry points of B2 (``hash_batched``) and B5
+    (``fwht_batched``): each cohort against the plain version lane by lane
+    (B2 on a CPU copy, torch.equal; B5 on the card, torch.equal on dyadic
+    data, else ≤ TOL·max|plain|), and every lane torch.equal to a launch of
+    that lane alone (B = 1)."""
+    import numpy as np
+
+    from libskylark_tpu_torch.sketch import cuda_fwht as cf
+    from libskylark_tpu_torch.sketch import cuda_hash as ch
+
+    hash_ = name == "hash_batched"
+    fn = ch.cwt_apply_batched if hash_ else cf.srht_apply_batched
+    plain = ch.cwt_apply_batched_plain if hash_ else cf.srht_apply_batched_plain
+    g = np.random.default_rng(7000 if hash_ else 7100)
+    results = []
+    for i, (rowwise, B, shape, s_dim, variant, dyadic) in enumerate(cases):
+        kd = new_keys(np, P.Context((710 if hash_ else 720) + i), B)
+        A = cohort_operand(torch, g, B, shape, rowwise, variant, dyadic,
+                           (7200 if hash_ else 7300) + 10 * i)
+        got = fn(kd, A, s_dim, rowwise)
+        alone = [fn(kd[b:b + 1], A[b:b + 1], s_dim, rowwise)[0]
+                 for b in range(B)]
+        want = plain(kd, A.cpu() if hash_ else A, s_dim, rowwise)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{name} output not finite")
+        got_c = got.cpu() if hash_ else got
+        err = float((got_c - want).abs().max())
+        top = float(want.abs().max())
+        equal = bool(torch.equal(got_c, want))
+        inv = all(bool(torch.equal(got[b], alone[b])) for b in range(B))
+        ok = (equal if hash_ or dyadic else err <= TOL * top) and inv
+        results.append({"kernel": name, "rowwise": rowwise,
+                        "shape": [B, *shape], "s_dim": s_dim,
+                        "variant": variant, "dyadic": dyadic,
+                        "max_abs_err": err,
+                        "max_rel_err": err / top if top else 0.0,
+                        "bit_equal": equal,
+                        "capacity_invariant": inv, "ok": ok})
+        del A, got, alone, want
     return results
 
 
@@ -352,15 +433,23 @@ def check_fwht(torch, P, cases) -> list:
         want = cf.srht_apply_plain(key, A, s_dim, rowwise)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), "SRHT kernel output not finite")
+        n, m = (shape[1], shape[0]) if rowwise else shape
+        runs = cf._load().sk_fwht_groups(m, n, int(rowwise))
+        check(runs == cf.plan(n, m, rowwise)["groups"],
+              f"SRHT {name} {shape}: the kernel cuts {runs} runs, the "
+              "CPU replay's plan() another count")
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
         ok = bool(torch.equal(got, want)) if dyadic else rel <= TOL
         results.append({"kernel": name, "shape": list(shape), "s_dim": s_dim,
-                        "dyadic": dyadic, "max_abs_err": err,
-                        "max_rel_err": rel, "ok": ok})
+                        "dyadic": dyadic, "runs": runs,
+                        "max_abs_err": err, "max_rel_err": rel, "ok": ok})
         del A
+    results += check_cohorts(torch, P, FWHT_BATCHED_CASES, "fwht_batched")
     emit("check", tolerance=f"B5: torch.equal on dyadic data, else "
-                            f"max|kernel-plain| <= {TOL} * max|plain|",
+                            f"max|kernel-plain| <= {TOL} * max|plain|; "
+                            "every lane of a cohort torch.equal to its "
+                            "launch alone",
          cases=results)
     bad = [r for r in results if not r["ok"]]
     check(not bad, f"SRHT kernel disagrees with its plain version: {bad}")
@@ -1438,7 +1527,9 @@ def storm(ex, reqs, threads: int = 4):
 # the kernels the serve phase must launch
 SERVE_KERNELS = ("dense_batched_rowwise", "dense_batched_columnwise",
                  "fastfood_batched", "sparse_rowwise", "sparse_columnwise",
-                 "hash_rowwise", "fwht_rowwise")
+                 "hash_batched", "fwht_batched")
+# serve buckets whose flush is one launch of one batched kernel
+ONE_LAUNCH_BUCKETS = {"cwt": "hash_batched", "srht": "fwht_batched"}
 # buckets whose result is held bit-equal to the plain program on the CPU
 EXACT_BUCKETS = ("sparse-rw", "sparse-cw", "cwt")
 
@@ -1465,6 +1556,7 @@ def serve_phase(torch, P, np) -> dict:
     with engine.MicrobatchExecutor(max_batch=8, linger_us=5000,
                                    device="cuda") as ex:
         storm(ex, reqs)
+        ex.flush()  # the last flush's counters land after its futures
         torch.cuda.synchronize()
         warm = ex.stats()
     with engine.MicrobatchExecutor(max_batch=8, linger_us=5000,
@@ -1476,6 +1568,7 @@ def serve_phase(torch, P, np) -> dict:
         results, times = storm(ex, reqs)
         torch.cuda.synchronize()
         out["storm_seconds"] = time.perf_counter() - t0
+        ex.flush()
         out["launches"] = launch_counts()
         st = ex.stats()
     check(warm["failed"] == 0, f"warm-up storm failed: {warm['failed']}")
@@ -1503,6 +1596,14 @@ def serve_phase(torch, P, np) -> dict:
     for k in SERVE_KERNELS:
         check(out["launches"][k] > 0, f"kernel {k} never launched by the "
                                       "serve phase")
+    for b, k in ONE_LAUNCH_BUCKETS.items():
+        check(out["launches"][k] == out["buckets"][b]["flushes"],
+              f"{b}: {out['launches'][k]} {k} launches for "
+              f"{out['buckets'][b]['flushes']} flushes, not one a flush")
+    for k in ("hash_rowwise", "hash_columnwise", "fwht_rowwise",
+              "fwht_columnwise"):
+        check(out["launches"][k] == 0,
+              f"the serve phase launched {k}: a flush went lane by lane")
 
     # references: capacity-1 flushes, plain and through the kernel
     with engine.MicrobatchExecutor(max_batch=1, kernel="plain",
@@ -1694,6 +1795,69 @@ def time_serve_kernels(torch, P, np, peaks: dict) -> list[dict]:
                      **bound(2.0 * nnz, peaks["fp32_flops"],
                              12.0 * nnz + 4.0 * B * m * s_dim, peaks)})
         del data, r, c, lin, vals
+
+    rows += time_cohorts(torch, P, np, peaks)
+    return rows
+
+
+def time_cohorts(torch, P, np, peaks: dict) -> list[dict]:
+    """Phase 5, B2's and B5's batched entry points at the serve-cwt and
+    serve-srht buckets' capacity-4 shape (the first case of
+    HASH_BATCHED_CASES, FWHT_BATCHED_CASES): kernel (new keys per lane
+    and call), plain version, and the library chain on streams made
+    beforehand — B2 one index_add_ of v·A at lane·s + h over the lanes'
+    columns; B5 the D multiply, the kron two-matmul WHT (TF32 off), a
+    gather at idx and the scale."""
+    from libskylark_tpu_torch.sketch import cuda_fwht as cf
+    from libskylark_tpu_torch.sketch import cuda_hash as ch
+    from libskylark_tpu_torch.sketch import fut
+
+    rows = []
+    for name, cases in (("hash_batched", HASH_BATCHED_CASES),
+                        ("fwht_batched", FWHT_BATCHED_CASES)):
+        rowwise, B, shape, s_dim, _, _ = cases[0]
+        hash_ = name == "hash_batched"
+        A = make_operand(torch, (B, *shape), 9300 + hash_)
+        ctx = P.Context(930 + hash_)
+        fn = ch.cwt_apply_batched if hash_ else cf.srht_apply_batched
+        plain = (ch.cwt_apply_batched_plain if hash_
+                 else cf.srht_apply_batched_plain)
+        n, m = (shape[1], shape[0]) if rowwise else shape
+        ms = event_ms(torch, lambda: fn(new_keys(np, ctx, B), A, s_dim,
+                                        rowwise))
+        dev_ms = profiled_device_ms(torch, lambda: fn(
+            new_keys(np, ctx, B), A, s_dim, rowwise))
+        plain_ms = event_ms(torch, lambda: plain(new_keys(np, ctx, B), A,
+                                                 s_dim, rowwise))
+        keys = new_keys(np, ctx, B)
+        if hash_:
+            hv = [ch.streams(k, n, s_dim, A.device) for k in keys]
+            lane = torch.arange(B, device=A.device)[:, None]
+            lin = (lane * s_dim + torch.stack([x[0] for x in hv])).reshape(-1)
+            v = torch.stack([x[1] for x in hv])
+            X = (A * v[:, None, :]).permute(1, 0, 2).reshape(m, B * n)
+            library_ms = event_ms(torch, lambda: torch.zeros(
+                m, B * s_dim, device=A.device).index_add_(1, lin, X))
+            # a sign flip and an add per element of A
+            b = bound(2.0 * B * m * n, peaks["fp32_flops"],
+                      4.0 * B * (m * n + m * s_dim), peaks)
+        else:
+            st = [cf.streams(k, n, s_dim, device=A.device) for k in keys]
+            D = torch.stack([x[0] for x in st])
+            idx = torch.stack([x[1] for x in st])
+            fs, ss = cf.scales(n, s_dim)
+            library_ms = event_ms(torch, lambda: ss * torch.gather(
+                fut.wht(fs * D[:, None, :] * A, axis=2), 2,
+                idx[:, None, :].expand(B, m, s_dim)))
+            # n·log2(n) adds per row at the fp32 add rate
+            b = bound(float(B) * m * n * math.log2(n),
+                      peaks["fp32_flops"] / 2,
+                      4.0 * B * (m * n + m * s_dim), peaks)
+        rows.append({"kernel": name, "use": f"serve {'cwt' if hash_ else 'srht'}",
+                     "main_path": True, "shape": [B, *shape],
+                     "s_dim": s_dim, "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms, **b})
+        del A
     return rows
 
 
@@ -1819,14 +1983,41 @@ HASH_CASES = [(name, shape, s) for name, _, shape, s in HASH_SHAPES] + [
     ("hash_columnwise", (5000, 37), 300), ("hash_rowwise", (37, 5000), 300),
     ("hash_columnwise", (12305, 70), 2048),
     ("hash_rowwise", (70, 12305), 1500)]
-# dyadic at n = 4096, s = 256; Gaussian at 8192 → 1024 and 65536 → 2048
+# dyadic at n = 4096, s = 256 and at n = 65536 (the folded segments);
+# Gaussian at 8192 → 1024 and 65536 → 2048
 FWHT_CASES = [
     ("fwht_columnwise", (4096, 64), 256, True),
     ("fwht_rowwise", (64, 4096), 256, True),
     ("fwht_columnwise", (8192, 300), 1024, False),
     ("fwht_rowwise", (8192, 8192), 1024, False),
     ("fwht_columnwise", (65536, 513), 2048, False),
-    ("fwht_rowwise", (64, 65536), 2048, False)]
+    ("fwht_rowwise", (64, 65536), 2048, False),
+    ("fwht_columnwise", (65536, 24), 2048, True),
+    ("fwht_rowwise", (16, 65536), 2048, True)]
+# cohorts of the batched entry points: (rowwise, B, one lane's shape, s,
+# variant, dyadic). The serve buckets' capacity-4 shape (timed); ragged
+# lanes zero-padded on the free axis; an all-padding lane; s = 300 (a
+# nonzero randint multiplier), s = 7 (many equal buckets in a row), ragged
+# n; for B5 every segment plan: whole rows at n = 128 (32 rows a block)
+# and 8192, folded segments in runs (n = 65536 both ways), dyadic ones
+# bit-equal
+HASH_BATCHED_CASES = [
+    (True, 4, (512, 8192), 1024, None, False),
+    (True, 3, (300, 5000), 300, "ragged", False),
+    (True, 8, (64, 4096), 7, "empty_lane", False),
+    (True, 1, (70, 12305), 1500, None, False),
+    (False, 3, (5000, 37), 300, "ragged", False),
+    (False, 8, (12305, 70), 2048, "empty_lane", False),
+    (False, 1, (65536, 513), 2048, None, False)]
+FWHT_BATCHED_CASES = [
+    (True, 4, (512, 8192), 1024, None, False),
+    (True, 3, (64, 4096), 256, "ragged", True),
+    (True, 8, (37, 128), 64, "empty_lane", False),
+    (True, 3, (37, 65536), 2048, "ragged", True),
+    (False, 3, (4096, 64), 256, "empty_lane", True),
+    (False, 8, (8192, 37), 1024, "ragged", False),
+    (False, 2, (65536, 20), 2048, None, True),
+    (False, 1, (128, 9), 16, None, False)]
 
 COS_CASES = [(RFT_SHAPE, RFT_S), ((37, 700), 48), ((1000, 3000), 300)]
 # (m, d, S): config 3; NB = 1024 with 3 blocks, padding and truncation;
@@ -1866,6 +2057,10 @@ KERNELS = {
                        "libskylark_tpu/sketch/pallas_sparse.py:225"),
     "sparse_columnwise": (CSRC + "sparse_sketch.cu",
                           "libskylark_tpu/sketch/pallas_sparse.py:225"),
+    "hash_batched": (CSRC + "hash_sketch.cu",
+                     "libskylark_tpu/sketch/pallas_hash.py:423"),
+    "fwht_batched": (CSRC + "fwht_sketch.cu",
+                     "libskylark_tpu/sketch/pallas_fwht.py:314"),
 }
 
 
@@ -1940,7 +2135,13 @@ def main() -> int:
                   "fastfood_batched": "the fastfood chain over the cohort "
                                       "on streams made beforehand",
                   "sparse": "one index_add_ of v·data at (row, h[col]) or "
-                            "(h[row], col), h and v gathered beforehand"},
+                            "(h[row], col), h and v gathered beforehand",
+                  "hash_batched": "one index_add_ of v·A at lane·s + h over "
+                                  "the lanes' columns, h and v made "
+                                  "beforehand",
+                  "fwht_batched": "the fwht chain over the cohort (kron "
+                                  "two-torch.matmul WHT, TF32 off; a gather "
+                                  "at idx), D and idx made beforehand"},
          rows=rows)
 
     kernels = []

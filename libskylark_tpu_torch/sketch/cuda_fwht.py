@@ -8,8 +8,8 @@ coordinates idx = UniformInt(0, n−1) of sub-stream 1 of the transform's
 key, in ``randgen.stream_slice``'s layout: the function the reference's
 ``fjlt.srht_serve_apply`` computes, and ``FJLT(n, s, fut="wht").apply``.
 n is a power of two ≥ 128 and s ≤ 2048. :func:`srht_apply_batched` serves
-a stacked serve cohort with one launch per lane (the kernel has no lane
-axis yet).
+a stacked serve cohort with one launch, the lane a grid axis of the
+kernel, as the reference's ``pallas_fwht.srht_apply_batched``.
 
 Rules of the wrappers:
 
@@ -28,9 +28,10 @@ import torch
 
 from libskylark_tpu_torch.base import errors, randgen
 from libskylark_tpu_torch.base.context import fold_in, key_words
+from libskylark_tpu_torch.kernels import launch
 from libskylark_tpu_torch.sketch import fut
 
-launches = {"fwht_rowwise": 0, "fwht_columnwise": 0}
+launches = {"fwht_rowwise": 0, "fwht_columnwise": 0, "fwht_batched": 0}
 
 MIN_N = 128
 MAX_S = 2048
@@ -70,79 +71,112 @@ def supported(n: int, s_dim: int, dtype) -> bool:
             and dtype == torch.float32)
 
 
+def plan(n: int, m: int, rowwise: bool) -> dict:
+    """The order of a lane's adds, which the CPU replay of the kernel reads:
+    ``seg_bits`` K, the segment length 2^K (the whole vector rowwise up to
+    2^14, columnwise up to 2^11); ``segments`` n / 2^K; ``groups``, the
+    runs the segments are cut into, each run's sums added in run order by
+    a second kernel. It mirrors ``lane_groups`` of csrc/fwht_sketch.cu,
+    the one the wrapper asks (``sk_fwht_groups``): a fold's blocks take 1
+    row or 8 columns, and the runs double until a lane has 132 blocks (an
+    H100's SMs; a constant, so a lane's bits depend on its shape alone,
+    never on the card or the lane count)."""
+    k = n.bit_length() - 1
+    K = min(k, 14 if rowwise else 11)
+    segments = 1 << (k - K)
+    blocks = m if rowwise else -(-m // 8)
+    groups = 1
+    while groups < segments and blocks * groups < 132:
+        groups *= 2
+    return {"seg_bits": K, "segments": segments, "groups": groups}
+
+
 def _load():
     global _lib
     if _lib is None:
         from libskylark_tpu_torch.kernels import build
 
         lib = build.load("fwht_sketch")
-        p, i64, u32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
-                            ctypes.c_float)
-        lib.sk_fwht_rowwise.argtypes = [p, u32, u32, p, p, p, i64, i64, i64,
-                                        i64, f32, f32, p]
-        lib.sk_fwht_columnwise.argtypes = [p, u32, u32, p, p, p, p, i64, i64,
-                                           i64, i64, f32, f32, p]
-        for fn in (lib.sk_fwht_rowwise, lib.sk_fwht_columnwise):
-            fn.restype = ctypes.c_int
+        p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+        lib.sk_fwht_apply.argtypes = [p] * 6 + [i64] * 4 + [ctypes.c_int,
+                                                          f32, f32, p]
+        lib.sk_fwht_apply.restype = ctypes.c_int
+        lib.sk_fwht_groups.argtypes = [i64, i64, ctypes.c_int]
+        lib.sk_fwht_groups.restype = i64
         _lib = lib
     return _lib
+
+
+def _check(A: torch.Tensor, s_dim: int, rowwise: bool, ndim: int) -> None:
+    if A.ndim != ndim:
+        raise errors.InvalidParametersError(
+            f"need a {ndim}-D operand, got {tuple(A.shape)}")
+    n = A.shape[-1] if rowwise else A.shape[-2]
+    if not supported(n, s_dim, A.dtype):
+        raise errors.UnsupportedError(
+            f"SRHT kernel takes float32, n a power of two >= {MIN_N} and "
+            f"1 <= s <= {MAX_S}; got {A.dtype}, n={n}, s={s_dim}")
+    if A.device.type not in ("cpu", "cuda"):
+        raise errors.UnsupportedError(
+            f"SRHT kernel runs on CUDA or CPU, got {A.device}")
+
+
+def _launch(kd: np.ndarray, A: torch.Tensor, s_dim: int, rowwise: bool,
+            counter: str) -> torch.Tensor:
+    """One launch over the stacked lanes A (B, ., .) on the card, counted
+    under ``counter``; an empty operand launches and counts nothing."""
+    if not A.is_contiguous():
+        raise errors.InvalidParametersError(
+            "SRHT kernel needs a contiguous operand")
+    from libskylark_tpu_torch.sketch.cuda_dense import lane_keys
+
+    B = A.shape[0]
+    n, m = (A.shape[2], A.shape[1]) if rowwise else A.shape[1:]
+    out = torch.empty((B, m, s_dim) if rowwise else (B, s_dim, m),
+                      dtype=torch.float32, device=A.device)
+    if m == 0 or B == 0:
+        return out
+    lib = _load()
+    groups = lib.sk_fwht_groups(m, n, int(rowwise))
+    keys = lane_keys(kd, A.device)
+    D = torch.empty((B, n), dtype=torch.float32, device=A.device)
+    idx = torch.empty((B, s_dim), dtype=torch.int32, device=A.device)
+    part = (torch.empty((B, groups, m * s_dim), dtype=torch.float32,
+                        device=A.device) if groups > 1 else None)
+    launch.call(lib.sk_fwht_apply, A.device, A.data_ptr(),
+                keys.data_ptr(), D.data_ptr(), idx.data_ptr(),
+                None if part is None else part.data_ptr(), out.data_ptr(),
+                B, m, n, s_dim, int(rowwise), *scales(n, s_dim))
+    launch.count(launches, counter)
+    return out
 
 
 def srht_apply(key, A: torch.Tensor, s_dim: int,
                rowwise: bool) -> torch.Tensor:
     """SRHT of A: (n, m) → (s_dim, m) columnwise, (m, n) → (m, s_dim)
-    rowwise."""
-    if A.ndim != 2:
-        raise errors.InvalidParametersError(
-            f"need a 2-D operand, got {tuple(A.shape)}")
-    n, m = (A.shape[1], A.shape[0]) if rowwise else A.shape
-    if not supported(n, s_dim, A.dtype):
-        raise errors.UnsupportedError(
-            f"SRHT kernel takes float32, n a power of two >= {MIN_N} and "
-            f"1 <= s <= {MAX_S}; got {A.dtype}, n={n}, s={s_dim}")
+    rowwise: the batched kernel with one lane."""
+    _check(A, s_dim, rowwise, 2)
     if A.device.type == "cpu":
         return srht_apply_plain(key, A, s_dim, rowwise)
-    if A.device.type != "cuda":
-        raise errors.UnsupportedError(
-            f"SRHT kernel runs on CUDA or CPU, got {A.device}")
-    if not A.is_contiguous():
-        raise errors.InvalidParametersError(
-            "SRHT kernel needs a contiguous operand")
-    from libskylark_tpu_torch.kernels import launch
-
-    out = torch.empty((m, s_dim) if rowwise else (s_dim, m),
-                      dtype=torch.float32, device=A.device)
-    if m == 0:
-        return out
-    D = torch.empty(n, dtype=torch.float32, device=A.device)
-    idx = torch.empty(s_dim, dtype=torch.int32, device=A.device)
-    fut_scale, samp_scale = scales(n, s_dim)
-    lib = _load()
-    if rowwise:
-        launch.call(lib.sk_fwht_rowwise, A.device, A.data_ptr(),
-                    *key_words(key), D.data_ptr(), idx.data_ptr(),
-                    out.data_ptr(), m, n, s_dim, A.shape[1], fut_scale,
-                    samp_scale)
-    else:
-        Y = torch.empty((n, m), dtype=torch.float32, device=A.device)
-        launch.call(lib.sk_fwht_columnwise, A.device, A.data_ptr(),
-                    *key_words(key), D.data_ptr(), idx.data_ptr(),
-                    Y.data_ptr(), out.data_ptr(), m, n, s_dim, A.shape[1],
-                    fut_scale, samp_scale)
-    launch.count(launches,
-                 "fwht_rowwise" if rowwise else "fwht_columnwise")
-    return out
+    kd = np.asarray(key_words(key), dtype=np.uint32).reshape(1, 2)
+    return _launch(kd, A[None], s_dim, rowwise,
+                   "fwht_rowwise" if rowwise else "fwht_columnwise")[0]
 
 
 def srht_apply_batched(key_data, A: torch.Tensor, s_dim: int,
                        rowwise: bool) -> torch.Tensor:
-    """SRHT of a stacked serve cohort A (B, ., .), lane b under the key
-    ``key_data[b]`` ((B, 2) uint32 words): one :func:`srht_apply` per
-    lane, so one counted launch per lane on the card (the kernel has no
-    lane axis yet)."""
+    """SRHT of a stacked serve cohort A (B, m, n) rowwise or (B, n, m)
+    columnwise, lane b under the key ``key_data[b]`` ((B, 2) uint32
+    words): one counted launch on the card, the lane a grid axis, each
+    lane's bits those of a launch of that lane alone."""
+    _check(A, s_dim, rowwise, 3)
     kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
-    return torch.stack([srht_apply(kd[i], A[i], s_dim, rowwise)
-                        for i in range(A.shape[0])])
+    if kd.shape[0] != A.shape[0]:
+        raise errors.InvalidParametersError(
+            f"{kd.shape[0]} keys for {A.shape[0]} lanes")
+    if A.device.type == "cpu":
+        return srht_apply_batched_plain(kd, A, s_dim, rowwise)
+    return _launch(kd, A, s_dim, rowwise, "fwht_batched")
 
 
 def srht_apply_batched_plain(key_data, A: torch.Tensor, s_dim: int,

@@ -9,7 +9,8 @@ value stream v = Rademacher of sub-stream 1 of the transform's key —
 ``hash.cwt_serve_apply``. The kernel adds each output's terms in
 increasing coordinate order, as the plain scatter does, and every v·a is
 exact: the two are bit-equal. :func:`cwt_apply_batched` serves a stacked
-serve cohort with one launch per lane (the kernel has no lane axis yet).
+serve cohort with one launch, the lane a grid axis of the kernel, as the
+reference's ``pallas_hash.cwt_apply_batched``.
 
 Rules of the wrappers:
 
@@ -27,10 +28,12 @@ import torch
 
 from libskylark_tpu_torch.base import errors, randgen
 from libskylark_tpu_torch.base.context import fold_in, key_words
+from libskylark_tpu_torch.kernels import launch
 
-launches = {"hash_rowwise": 0, "hash_columnwise": 0}
+launches = {"hash_rowwise": 0, "hash_columnwise": 0, "hash_batched": 0}
 
-# coordinates per sort tile of the kernel (csrc/hash_sketch.cu: kTile)
+# coordinates per columnwise sort tile of the kernel (csrc/hash_sketch.cu:
+# kTile)
 TILE = 1024
 
 _lib = None
@@ -78,64 +81,86 @@ def _load():
         from libskylark_tpu_torch.kernels import build
 
         lib = build.load("hash_sketch")
-        p, u32 = ctypes.c_void_p, ctypes.c_uint32
-        sig = [p, u32, u32] + [p] * 4 + [ctypes.c_int64] * 4 + [u32, p]
-        for fn in (lib.sk_hash_rowwise, lib.sk_hash_columnwise):
-            fn.argtypes = sig
-            fn.restype = ctypes.c_int
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.sk_hash_apply.argtypes = ([p] * 5 + [i64] * 4
+                                      + [ctypes.c_uint32, ctypes.c_int, p])
+        lib.sk_hash_apply.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _check(A: torch.Tensor, s_dim: int, ndim: int) -> None:
+    if A.ndim != ndim or s_dim <= 0:
+        raise errors.InvalidParametersError(
+            f"need a {ndim}-D operand and s_dim > 0, got {tuple(A.shape)}, "
+            f"s_dim={s_dim}")
+    if not supported(A.dtype):
+        raise errors.UnsupportedError(
+            f"CountSketch kernel takes float32, got {A.dtype}")
+    if A.device.type not in ("cpu", "cuda"):
+        raise errors.UnsupportedError(
+            f"CountSketch kernel runs on CUDA or CPU, got {A.device}")
+
+
+def _launch(kd: np.ndarray, A: torch.Tensor, s_dim: int, rowwise: bool,
+            counter: str) -> torch.Tensor:
+    """One launch over the stacked lanes A (B, ., .) on the card, counted
+    under ``counter``; an empty operand launches and counts nothing."""
+    if not A.is_contiguous():
+        raise errors.InvalidParametersError(
+            "CountSketch kernel needs a contiguous operand")
+    from libskylark_tpu_torch.sketch.cuda_dense import lane_keys
+
+    B = A.shape[0]
+    n, m = (A.shape[2], A.shape[1]) if rowwise else A.shape[1:]
+    out = torch.empty((B, m, s_dim) if rowwise else (B, s_dim, m),
+                      dtype=torch.float32, device=A.device)
+    if m == 0 or n == 0 or B == 0:
+        return out.zero_()
+    keys = lane_keys(kd, A.device)
+    if rowwise:
+        s0 = torch.empty(B * n * 2, dtype=torch.int32, device=A.device)
+        s1 = None
+    else:
+        tiles = -(-n // TILE)
+        s0 = torch.empty(B * tiles * (s_dim + 1), dtype=torch.int32,
+                         device=A.device)
+        s1 = torch.empty(B * tiles * TILE, dtype=torch.int32,
+                         device=A.device)
+    launch.call(_load().sk_hash_apply, A.device, A.data_ptr(),
+                keys.data_ptr(), out.data_ptr(), s0.data_ptr(),
+                None if s1 is None else s1.data_ptr(), B, m, n, s_dim,
+                randgen.randint_multiplier(s_dim), int(rowwise))
+    launch.count(launches, counter)
+    return out
 
 
 def cwt_apply(key, A: torch.Tensor, s_dim: int,
               rowwise: bool) -> torch.Tensor:
     """CountSketch of A: (n, m) → (s_dim, m) columnwise, (m, n) → (m,
-    s_dim) rowwise."""
-    if A.ndim != 2 or s_dim <= 0:
-        raise errors.InvalidParametersError(
-            f"need a 2-D operand and s_dim > 0, got {tuple(A.shape)}, "
-            f"s_dim={s_dim}")
-    if not supported(A.dtype):
-        raise errors.UnsupportedError(
-            f"CountSketch kernel takes float32, got {A.dtype}")
+    s_dim) rowwise: the batched kernel with one lane."""
+    _check(A, s_dim, 2)
     if A.device.type == "cpu":
         return cwt_apply_plain(key, A, s_dim, rowwise)
-    if A.device.type != "cuda":
-        raise errors.UnsupportedError(
-            f"CountSketch kernel runs on CUDA or CPU, got {A.device}")
-    if not A.is_contiguous():
-        raise errors.InvalidParametersError(
-            "CountSketch kernel needs a contiguous operand")
-    from libskylark_tpu_torch.kernels import launch
-
-    n, m = (A.shape[1], A.shape[0]) if rowwise else A.shape
-    out = torch.empty((m, s_dim) if rowwise else (s_dim, m),
-                      dtype=torch.float32, device=A.device)
-    if m == 0 or n == 0:
-        return out.zero_()
-    tiles = -(-n // TILE)
-    off = torch.empty(tiles * (s_dim + 1), dtype=torch.int32, device=A.device)
-    idx = torch.empty(tiles * TILE, dtype=torch.int32, device=A.device)
-    val = torch.empty(tiles * TILE, dtype=torch.float32, device=A.device)
-    lib = _load()
-    fn = lib.sk_hash_rowwise if rowwise else lib.sk_hash_columnwise
-    launch.call(fn, A.device, A.data_ptr(), *key_words(key), out.data_ptr(),
-                off.data_ptr(), idx.data_ptr(), val.data_ptr(), m, n, s_dim,
-                A.shape[1], randgen.randint_multiplier(s_dim))
-    launch.count(launches,
-                 "hash_rowwise" if rowwise else "hash_columnwise")
-    return out
+    kd = np.asarray(key_words(key), dtype=np.uint32).reshape(1, 2)
+    return _launch(kd, A[None], s_dim, rowwise,
+                   "hash_rowwise" if rowwise else "hash_columnwise")[0]
 
 
 def cwt_apply_batched(key_data, A: torch.Tensor, s_dim: int,
                       rowwise: bool) -> torch.Tensor:
-    """CountSketch of a stacked serve cohort A (B, ., .), lane b under the
-    key ``key_data[b]`` ((B, 2) uint32 words): one :func:`cwt_apply` per
-    lane, so one counted launch per lane on the card (the kernel has no
-    lane axis yet)."""
+    """CountSketch of a stacked serve cohort A (B, m, n) rowwise or (B, n,
+    m) columnwise, lane b under the key ``key_data[b]`` ((B, 2) uint32
+    words): one counted launch on the card, the lane a grid axis, each
+    lane's bits those of a launch of that lane alone."""
+    _check(A, s_dim, 3)
     kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
-    return torch.stack([cwt_apply(kd[i], A[i], s_dim, rowwise)
-                        for i in range(A.shape[0])])
+    if kd.shape[0] != A.shape[0]:
+        raise errors.InvalidParametersError(
+            f"{kd.shape[0]} keys for {A.shape[0]} lanes")
+    if A.device.type == "cpu":
+        return cwt_apply_batched_plain(kd, A, s_dim, rowwise)
+    return _launch(kd, A, s_dim, rowwise, "hash_batched")
 
 
 def cwt_apply_batched_plain(key_data, A: torch.Tensor, s_dim: int,

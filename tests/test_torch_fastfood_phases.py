@@ -1,6 +1,6 @@
-"""Kernel B4's phase plan (csrc/fastfood.cu), modelled in torch on the
-CPU, against the butterfly it must reproduce bit for bit and against the
-JAX package.
+"""Kernel B4's phase plan (csrc/fastfood.cu, its register WHT in
+csrc/wht.cuh), modelled in torch on the CPU, against the butterfly it
+must reproduce bit for bit and against the JAX package.
 
 The CUDA kernel cannot run here, so these tests hold the arithmetic it
 depends on:
@@ -41,13 +41,13 @@ ALL_NB = [1 << k for k in range(1, 15)]
 
 
 def swz(n):
-    """csrc/fastfood.cu ``swz``."""
+    """csrc/wht.cuh ``swz``."""
     return n ^ (((n >> 5) & 15) | (((n >> 8) & 1) << 4))
 
 
 def lay(t, j, lo, L):
     """The element that value j of thread t holds in window [lo, lo + L)
-    (csrc/fastfood.cu: ``tpart(t, lo) | j << lo``)."""
+    (csrc/wht.cuh: ``tpart(t, lo) | j << lo``)."""
     return (t & ((1 << lo) - 1)) | (j << lo) | ((t >> lo) << (lo + L))
 
 
@@ -199,7 +199,7 @@ def test_swizzle_splits_into_thread_part_and_value_constant(NB):
 
 
 def warp_local(NB, lo, nlo):
-    """csrc/fastfood.cu ``warp_local``: the element bits that select the
+    """csrc/wht.cuh ``warp_local``: the element bits that select the
     holder's warp are the same in both windows (or a row group fits in a
     warp)."""
     p = cf.plan(NB, 1)

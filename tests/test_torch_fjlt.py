@@ -123,7 +123,8 @@ def test_srht_matches_reference_serve_apply(rowwise, integer, n, s):
             np.testing.assert_array_equal(got.numpy(), want)
         else:
             _close(got, want)
-    assert cuda_fwht.launches == {"fwht_rowwise": 0, "fwht_columnwise": 0}
+    assert cuda_fwht.launches == {"fwht_rowwise": 0, "fwht_columnwise": 0,
+                                  "fwht_batched": 0}
 
 
 def test_srht_kernel_route_rule():

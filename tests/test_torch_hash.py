@@ -85,7 +85,8 @@ def test_cwt_apply_bit_equal_to_reference(rowwise, n, s):
                                                  torch.from_numpy(A), s,
                                                  rowwise)):
         np.testing.assert_array_equal(fn().numpy(), want)
-    assert cuda_hash.launches == {"hash_rowwise": 0, "hash_columnwise": 0}
+    assert cuda_hash.launches == {"hash_rowwise": 0, "hash_columnwise": 0,
+                                  "hash_batched": 0}
 
 
 def test_cwt_zero_padding_past_n_is_exact():

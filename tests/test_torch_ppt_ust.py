@@ -87,7 +87,8 @@ def test_ppt_cwts_take_the_countsketch_route(monkeypatch):
     sk.PPT(40, 32, Context(0), q=3).apply(_operand(4, 40), sk.ROWWISE,
                                           device="cpu")
     assert calls == [False, False, False]  # columnwise, once per CWT
-    assert cuda_hash.launches == {"hash_rowwise": 0, "hash_columnwise": 0}
+    assert cuda_hash.launches == {"hash_rowwise": 0, "hash_columnwise": 0,
+                                  "hash_batched": 0}
 
 
 def test_ppt_parameters_and_json():

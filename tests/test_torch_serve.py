@@ -112,6 +112,7 @@ def reference():
                                     kernel="xla")
     try:
         out = _storm(ex, jsk, JContext, reqs)
+        ex.flush()  # the counters of the last cohort land after its futures
         stats = ex.stats()
     finally:
         ex.shutdown()
@@ -126,6 +127,7 @@ def test_executor_matches_the_reference(reference):
     reqs, want, jstats = reference
     with _cpu(max_batch=4, linger_us=20000) as ex:
         got = _storm(ex, sk, Context, reqs)
+        ex.flush()
         st = ex.stats()
     assert st["completed"] == len(reqs) == jstats["completed"]
     assert st["failed"] == 0 and st["submitted"] == len(reqs)
@@ -147,6 +149,7 @@ def test_requests_coalesce():
         futs = [_submit(ex, sk, Context, r) for r in reqs]
         for f in futs:
             f.result(timeout=60)
+        ex.flush()
         st = ex.stats()
     assert st["flushes"] < len(reqs)
     assert st["coalesced"] >= 2
@@ -235,6 +238,7 @@ def test_sparse_auto_densify_at_a_quarter(density):
     with _cpu(max_batch=2) as ex:
         got = ex.submit_sparse(T, sp.csr_matrix(A),
                                dimension=sk.ROWWISE).result(timeout=60)
+        ex.flush()
         st = ex.stats()
     assert st["sparse"]["densified"] == (1 if density >= 0.25 else 0)
     assert torch.equal(got, T.apply(A, sk.ROWWISE, device="cpu"))
@@ -270,6 +274,7 @@ def test_a_failing_lane_is_isolated(monkeypatch):
             else:
                 assert torch.equal(f.result(timeout=60),
                                    want[i].result(timeout=60))
+        ex.flush()
         st = ex.stats()
     assert st["failed"] == 1 and st["poisoned"] == 1
     assert st["completed"] == 7 and st["isolation_retries"] >= 2
@@ -288,6 +293,7 @@ def test_a_flush_exception_reaches_the_futures(monkeypatch):
         for f in futs:
             with pytest.raises(ValueError, match="broke"):
                 f.result(timeout=60)
+        ex.flush()
         assert ex.stats()["failed"] == 3
 
 
@@ -312,6 +318,7 @@ def test_a_lane_whose_unpad_raises_counts_as_failed(monkeypatch):
                     f.result(timeout=60)
             else:
                 assert f.result(timeout=60).shape == (4, 16)
+        ex.flush()
         st = ex.stats()
     assert st["completed"] == 3 and st["failed"] == 1
     assert st["completed"] + st["failed"] == st["submitted"] == 4
@@ -401,6 +408,7 @@ def test_many_threads_under_a_short_switch_interval():
                 t.join(timeout=60)
             assert not any(t.is_alive() for t in ts)
             got = [f.result(timeout=60) for f in futs]
+            ex.flush()
             st = ex.stats()
     finally:
         sys.setswitchinterval(old)
