@@ -40,6 +40,15 @@ MicrobatchExecutor on the card (capacity 4 for the smaller buckets),
 ``device_ms`` its kernels' time under torch.profiler, ``busy`` their
 ratio, and ``requests_per_s`` = requests / warm time.
 
+Then one ``sparse-<cell>`` line per timed entry point of chip_smoke.py's
+sparse phase (config 2, ``sparse_cells``): each transform's rowwise apply
+of the 20,242×47,236 CSR (JLT, CT, UST and CWT → 1024, GaussianRFT and
+LaplacianRFT → 4096), approximate_svd of the weighted operand at rank 64
+(q = 2), and on the 262,144×1,024 CSR: approximate_least_squares (CWT),
+Blendenpik and LSRN (with ``iterations`` and ``idle_ms_per_iteration``),
+sparse_solve_serve (CWT, s = 4096; JLT, s = 2048) and condest (on the
+host), with the same fields as above.
+
 It ends with the card's name and power limit as nvidia-smi gives them.
 It exits non-zero without a CUDA device. It imports neither jax nor
 libskylark_tpu.
@@ -87,6 +96,57 @@ def profile_call(torch, fn, top=8) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"profiled_ms": wall, "device_ms": device,
             "top": [[name, ms] for name, ms in ranked]}
+
+
+def sparse_cells(torch, P, np) -> dict:
+    """The timed entry points of chip_smoke.py's sparse phase on its
+    operands, each call with a new key from the cell's one Context."""
+    import scipy.sparse as sp
+
+    from libskylark_tpu_torch import algorithms, nla, sketch as sk
+    from libskylark_tpu_torch.base import sprand
+    from libskylark_tpu_torch.base.sparse import SparseMatrix, spmm
+    from libskylark_tpu_torch.sketch import sparse_serve
+
+    cs = chip_smoke
+    A = sprand.sample(cs.RCV1_N, cs.RCV1_D, cs.RCV1_DENSITY, cs.DYADIC,
+                      (1, 1, 1), P.Context(70))
+    c, q = cs.SVD_WEIGHT
+    W = SparseMatrix.from_scipy(sp.diags(1.0 + c * q ** np.arange(cs.RCV1_N))
+                                @ A.to_scipy())
+    m, n, dens = cs.SPARSE_LS
+    L = sprand.sample(m, n, dens, cs.DYADIC, (1, 1, 1), P.Context(81))
+    g = torch.Generator(device="cuda").manual_seed(82)
+    b = (spmm(L, torch.randn(n, generator=g, device="cuda"))
+         + 0.1 * torch.randn(m, generator=g, device="cuda"))
+    data, indices, indptr = (t.clone() for t in L.csr())
+    ctx = {seed: P.Context(seed) for seed in range(300, 320)}
+    cells = {}
+    for i, (name, s, kw) in enumerate(cs.SPARSE_SKETCHES):
+        cells[f"{name.lower()}_rowwise_rcv1_to_{s}"] = (
+            lambda name=name, s=s, kw=kw, i=i: getattr(sk, name)(
+                cs.RCV1_D, s, ctx[300 + i], **kw).apply(A, sk.ROWWISE))
+    params = nla.ApproximateSVDParams(num_iterations=2)
+    cells["svd_rcv1_weighted_rank64_q2"] = (
+        lambda: nla.approximate_svd(W, 64, ctx[310], params))
+    cells[f"lstsq_cwt_{m}x{n}_s{4 * n}"] = (
+        lambda: nla.approximate_least_squares(L, b, ctx[311]))
+    cells[f"blendenpik_{m}x{n}"] = (
+        lambda: algorithms.solve_l2_accelerated(L, b, ctx[312]))
+    cells[f"lsrn_{m}x{n}"] = (
+        lambda: algorithms.solve_l2_accelerated(L, b, ctx[313],
+                                                method="lsrn"))
+    for name, s, seed in (("CWT", 4 * n, 314), ("JLT", 2 * n, 315)):
+        def solve(name=name, s=s, seed=seed):
+            T = getattr(sk, name)(m, s, ctx[seed])
+            return sparse_serve.sparse_solve_serve(
+                T.allocation.key, getattr(T, "scale", 1.0), data, indices,
+                indptr, b[:, None], sketch_type=name, s_dim=s, method="qr",
+                shape=(m, n))
+        cells[f"serve_solve_{name.lower()}_{m}x{n}_s{s}"] = solve
+    cells[f"condest_{m}x{n}_host"] = (
+        lambda: nla.estimate_condition(L, ctx[316]))
+    return cells
 
 
 def main() -> int:
@@ -174,6 +234,15 @@ def main() -> int:
     del A, Asvd, Als, b, Ak, bk, X, qrft, precond, Acw
     for name, row in chip_smoke.serve_cells(torch, np).items():
         print(json.dumps({"cell": f"serve-{name}", **row}), flush=True)
+    for name, fn in sparse_cells(torch, P, np).items():
+        row = {"cell": f"sparse-{name}", "warm_ms": warm_ms(torch, fn)}
+        row.update(profile_call(torch, fn))
+        row["busy"] = row["device_ms"] / row["warm_ms"]
+        if name.startswith(("blendenpik", "lsrn")):
+            row["iterations"] = fn()[1]
+            row["idle_ms_per_iteration"] = ((row["warm_ms"] - row["device_ms"])
+                                            / row["iterations"])
+        print(json.dumps(row), flush=True)
     chip_smoke.check("jax" not in sys.modules
                      and "libskylark_tpu" not in sys.modules,
                      "the port imported jax or libskylark_tpu")

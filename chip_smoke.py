@@ -90,6 +90,27 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             and serve-srht flush exactly one hash_batched or fwht_batched
             launch; then each bucket's flush cell (warm ms, device ms,
             busy);
+4c. sparse — config 2 end to end at full width (LIBSVM rcv1.binary's
+            20,242 × 47,236 at 0.16%): a sprand.sample operand with
+            dyadic values written by write_libsvm and read back by
+            read_libsvm(sparse=True) through the native parser (CSR
+            torch.equal, an arc-list file likewise); JLT, CT, UST, CWT
+            → 1024 and GaussianRFT, LaplacianRFT → 4096 rowwise on the
+            CSR against each transform's dense apply of the densified
+            operand (≤ 1e-4·max|dense|, CT and LaplacianRFT entry by
+            entry, UST and CWT torch.equal, CWT also to B3's plain
+            version on the CPU); approximate_svd at rank 64, q = 2, of
+            the operand with weighted documents (SVD_WEIGHT), never
+            densified, σ within 1e-3 of the float64 eigenvalues of its
+            Gram matrix and the reconstruction within 1.01 × the optimal
+            tail; on a 262,144 × 1,024 CSR at 0.5%:
+            approximate_least_squares (CWT: B3-cw on A, B2-cw on b),
+            solve_l2_accelerated blendenpik and lsrn, sparse_solve_serve
+            (CWT and JLT) against solve_l2_sketched on the same key,
+            condest against the float64 singular values, condest_serve
+            against condest; every product on the CSR route (cuSPARSE),
+            B3 both ways and B2-cw launched; spmm/spmm_t timed at the
+            SVD's and LSQR's shapes beside their bytes bound;
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
@@ -1931,6 +1952,8 @@ SPARSE_CASES = [
     ("sparse_rowwise", 2, 300, 1500, 0.002, 64, "long_row"),
     ("sparse_rowwise", 3, 300, 5000, 0.02, 300, "empty_lane"),
     ("sparse_rowwise", 2, 64, 1 << 21, 2e-4, 300),
+    # the sparse phase's sketch-and-solve: S·A of its 262,144 × 1,024 CSR
+    ("sparse_columnwise", 1, 262144, 1024, 0.005, 4096),
 ]
 
 
@@ -1982,7 +2005,9 @@ def check_cases() -> list:
 HASH_CASES = [(name, shape, s) for name, _, shape, s in HASH_SHAPES] + [
     ("hash_columnwise", (5000, 37), 300), ("hash_rowwise", (37, 5000), 300),
     ("hash_columnwise", (12305, 70), 2048),
-    ("hash_rowwise", (70, 12305), 1500)]
+    ("hash_rowwise", (70, 12305), 1500),
+    # the sparse phase's sketch-and-solve: S·b, one column
+    ("hash_columnwise", (262144, 1), 4096)]
 # dyadic at n = 4096, s = 256 and at n = 65536 (the folded segments);
 # Gaussian at 8192 → 1024 and 65536 → 2048
 FWHT_CASES = [
@@ -2025,6 +2050,312 @@ COS_CASES = [(RFT_SHAPE, RFT_S), ((37, 700), 48), ((1000, 3000), 300)]
 # smallest (2, three blocks, 256 rows a block)
 FASTFOOD_CASES = [(*RFT_SHAPE, RFT_S), (512, 1000, 3000), (512, 2048, 2048),
                   (37, 4096, 4096), (64, 16384, 16384), (37, 2, 5)]
+
+# Config 2 at full width (BASELINE.md:32, LIBSVM rcv1.binary's training
+# set): 20,242 documents × 47,236 features at 0.16% density; the values
+# are dyadic, so the libsvm text round trip is exact. The least-squares
+# operand is a tall hashed-feature design matrix.
+RCV1_N = 20242
+DYADIC = (0.25, 0.5, 1.0)
+SPARSE_LS = (262144, 1024, 0.005)
+# The SVD operand weights document i by 1 + 30·0.97^i: the unweighted
+# operand's spectrum is flat past its first value (its bulk edge holds
+# σ2 … σ129 within a few percent), where no q = 2 sketch meets the SVD
+# limit (tests/test_torch_sparse_nla.py shows both cases).
+SVD_WEIGHT = (30.0, 0.97)
+SPARSE_SKETCHES = (("JLT", 1024, {}), ("CT", 1024, {}),
+                   ("GaussianRFT", 4096, {"sigma": 8.0}),
+                   ("LaplacianRFT", 4096, {"sigma": 100.0}),
+                   ("UST", 1024, {}), ("CWT", 1024, {}))
+
+
+def sparse_products() -> dict:
+    from libskylark_tpu_torch.base import sparse as bs
+
+    return {**bs.products, **bs.conversions}
+
+
+def feature_limit(torch, T, Xabs, W):
+    """Entry by entry limit of a random-feature map against another
+    projection order: the phase's elementwise limit TOL·(|X|·|W|ᵀ), W the
+    scaled frequency matrix (``w_panel``), times cos's Lipschitz factor
+    outscale (per-feature scales 1)."""
+    return T.outscale * TOL * (Xabs @ W.abs().double().T)
+
+
+def spmm_bound(peaks, nnz, b_rows, k, out_rows) -> dict:
+    """spmm's bytes bound on the CSR route it times: each nonzero's value
+    and column (8 bytes), the row pointers (the CSR's rows are the
+    output's), the dense operand read once and the output written once.
+    ``bound_ms_nnz12`` counts 12 bytes a nonzero (value, column, row)
+    instead, the COO form's count."""
+    dense = 4.0 * k * (b_rows + out_rows)
+    out = bound(0.0, 1.0, 8.0 * nnz + 4.0 * (out_rows + 1) + dense, peaks)
+    out["bound_ms_nnz12"] = bound(0.0, 1.0, 12.0 * nnz + dense,
+                                  peaks)["bound_ms"]
+    return out
+
+
+def sketch_equal(torch, T, A, dimension) -> dict:
+    """T.apply(A) on the card against the same apply on the CPU, where
+    the CountSketch wrappers run their plain versions (which add in the
+    reference's order): torch.equal."""
+    got = T.apply(A, dimension).cpu()
+    want = T.apply(A.cpu() if isinstance(A, torch.Tensor) else A, dimension,
+                   device="cpu")
+    return {"shape": list(want.shape), "bit_equal": bool(torch.equal(
+        got, want)), "max_abs_err": float((got - want).abs().max())}
+
+
+def sparse_phase(torch, P, np, peaks) -> dict:
+    """Phase 4c: config 2 end to end on the card through the public entry
+    points, with every launch counter, the product routes and the
+    densification count set to 0 before and read after."""
+    import tempfile
+
+    from libskylark_tpu_torch import algorithms, io, nla, sketch as sk
+    from libskylark_tpu_torch.base import sparse as bs, sprand
+    from libskylark_tpu_torch.base.sparse import SparseMatrix, spmm, spmm_t
+    from libskylark_tpu_torch.io import native
+    from libskylark_tpu_torch.sketch import sparse_serve
+
+    for c in counters() + [bs.products, bs.conversions, native.runs]:
+        for k in c:
+            c[k] = 0
+    t_phase = time.perf_counter()
+    out = {"launches_by_step": {}, "products_by_step": {}}
+
+    def step(name, fn):
+        before, prod = launch_counts(), sparse_products()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_seconds"] = time.perf_counter() - t0
+        out["launches_by_step"][name] = {
+            k: v - before[k] for k, v in launch_counts().items()
+            if v != before[k]}
+        out["products_by_step"][name] = {
+            k: v - prod[k] for k, v in sparse_products().items()
+            if v != prod[k]}
+        return result
+
+    # 1. the operand, written as libsvm text and read back natively
+    A0 = sprand.sample(RCV1_N, RCV1_D, RCV1_DENSITY, DYADIC, (1, 1, 1),
+                       P.Context(70))
+    labels = np.where(np.arange(RCV1_N) % 3 == 0, 1.0, -1.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/rcv1.svm"
+        io.write_libsvm(path, A0, labels)
+        A, y = step("read_libsvm", lambda: io.read_libsvm(
+            path, sparse=True, min_d=RCV1_D))
+        G = sprand.sample(3000, 3000, 0.002, DYADIC, (1, 1, 1),
+                          P.Context(71))
+        io.write_arc_list(f"{tmp}/graph.arcs", G)
+        G2 = io.read_arc_list(f"{tmp}/graph.arcs")
+    out["rcv1_nnz"], out["native_runs"] = A.nnz, dict(native.runs)
+    for name, (X, Y) in (("libsvm", (A0, A)), ("arc_list", (G, G2))):
+        check(X.shape == Y.shape and all(
+            torch.equal(torch.tensor(a), torch.tensor(b))
+            for a, b in zip(X.csr_parts(), Y.csr_parts())),
+            f"{name} round trip changed the CSR")
+    check(bool(np.array_equal(y, labels)), "libsvm labels changed")
+    check(native.runs == {"native": 2, "python": 0},
+          f"the native parser did not read: {native.runs}")
+    del A0, G, G2
+
+    # 2. every transform with a sparse apply, rowwise on the CSR, against
+    # its dense apply of the densified operand
+    Ad = A.todense()
+    Aabs = Ad.double().abs()
+    sketches = {}
+    for i, (name, s, kw) in enumerate(SPARSE_SKETCHES):
+        T = getattr(sk, name)(RCV1_D, s, P.Context(72 + i), **kw)
+        Z = step(f"{name.lower()}_sparse", lambda: T.apply(A, sk.ROWWISE))
+        want = T.apply(Ad, sk.ROWWISE)
+        check(tuple(Z.shape) == (RCV1_N, s)
+              and bool(torch.isfinite(Z).all()), f"{name} sparse output")
+        if name in ("UST", "CWT"):
+            ok = bool(torch.equal(Z, want))
+            r = {"max_abs_err": float((Z - want).abs().max()), "ok": ok}
+            if name == "CWT":
+                r["cpu_equal"] = bool(torch.equal(
+                    Z.cpu(), T.apply(A, sk.ROWWISE, device="cpu")))
+                r["ok"] = ok and r["cpu_equal"]
+        elif name == "CT":
+            r = held(torch, Z, want, elementwise_limit(
+                torch, T.allocation.key, T.dist, Ad, s, T.scale, True))
+        elif name == "LaplacianRFT":
+            W = T.w_panel(0, RCV1_D, torch.float32, Ad.device)
+            r = held(torch, Z, want, feature_limit(torch, T, Aabs, W))
+            del W
+        else:
+            r = held(torch, Z, want)
+        sketches[name] = r
+        check(r["ok"], f"{name} sparse apply vs its dense apply: {r}")
+        del Z, want
+    out["sketches"] = sketches
+    del Ad, Aabs
+
+    # 3. randomized SVD of the weighted operand, never densified
+    c, q = SVD_WEIGHT
+    import scipy.sparse as sp
+
+    W = SparseMatrix.from_scipy(sp.diags(1.0 + c * q ** np.arange(RCV1_N))
+                                @ A.to_scipy())
+    Wd = W.todense(dtype=np.float64)
+    w2 = torch.linalg.eigvalsh(Wd @ Wd.T).flip(0).clamp_min(0)
+    sigma = w2.sqrt()
+    k = 64
+    bs.conversions["todense"] = 0
+    U, S, V = step("svd_sparse", lambda: nla.approximate_svd(
+        W, k, P.Context(80), nla.ApproximateSVDParams(num_iterations=2)))
+    out["svd_todense"] = bs.conversions["todense"]
+    check(out["svd_todense"] == 0, "the sparse SVD densified its operand")
+    check(tuple(U.shape) == (RCV1_N, k) and tuple(V.shape) == (RCV1_D, k),
+          "sparse SVD output shapes")
+    out["svd_sigma_rel_err"] = float(
+        ((S.double() - sigma[:k]).abs() / sigma[:k]).max())
+    recon = float(torch.linalg.norm(Wd - (U.double() * S.double())
+                                    @ V.double().T) / torch.linalg.norm(sigma))
+    tail = float(torch.linalg.norm(sigma[k:]) / torch.linalg.norm(sigma))
+    out["svd_recon_rel"], out["svd_recon_optimal"] = recon, tail
+    check(out["svd_sigma_rel_err"] <= 1e-3, "sparse SVD sigma rel err > 1e-3")
+    check(recon <= 1.01 * tail + 1e-4, "sparse SVD reconstruction")
+    del Wd, U, V
+    # spmm and spmm_t at the SVD's shape: the power iteration's products
+    # with the tall transposed operand (47236 × 20242), k' = 128 columns
+    Wt = W.transpose()
+    Q = torch.randn(RCV1_N, 2 * k, device="cuda")
+    Q2 = torch.randn(RCV1_D, 2 * k, device="cuda")
+    timings = [
+        {"product": "spmm", "use": "SVD power iteration Aᵀ-tall · Q",
+         "shape": list(Wt.shape), "nnz": Wt.nnz, "k": 2 * k,
+         "ms": event_ms(torch, lambda: spmm(Wt, Q)),
+         **spmm_bound(peaks, Wt.nnz, RCV1_N, 2 * k, RCV1_D)},
+        {"product": "spmm_t", "use": "SVD power iteration (Aᵀ-tall)ᵀ · Q",
+         "shape": list(Wt.shape), "nnz": Wt.nnz, "k": 2 * k,
+         "ms": event_ms(torch, lambda: spmm_t(Wt, Q2)),
+         **spmm_bound(peaks, Wt.nnz, RCV1_D, 2 * k, RCV1_N)}]
+    del W, Wt, Q, Q2, A
+
+    # 4. a tall sparse least-squares problem
+    m, n, dens = SPARSE_LS
+    L = sprand.sample(m, n, dens, DYADIC, (1, 1, 1), P.Context(81))
+    g = torch.Generator(device="cuda").manual_seed(82)
+    x0 = torch.randn(n, generator=g, device="cuda")
+    b = spmm(L, x0) + 0.1 * torch.randn(m, generator=g, device="cuda")
+    Ld = L.todense(dtype=np.float64)
+    xe = torch.linalg.lstsq(Ld, b.double()[:, None]).solution[:, 0]
+    best = float(torch.linalg.norm(Ld @ xe - b.double()))
+    sv_exact = torch.linalg.svdvals(torch.linalg.qr(Ld, mode="r").R)
+    out["ls_nnz"], out["ls_residual_lstsq"] = L.nnz, best
+    del Ld, xe
+
+    def resid(x):
+        return float(torch.linalg.norm(spmm(L, x) - b)) / best
+
+    x = step("ls_sparse", lambda: nla.approximate_least_squares(
+        L, b, P.Context(83)))
+    out["ls_sparse_residual_ratio"] = resid(x)
+    check(out["ls_sparse_residual_ratio"] <= 1.5,
+          f"sparse sketch-and-solve ratio {out['ls_sparse_residual_ratio']}")
+    check({"sparse_columnwise", "hash_columnwise"}
+          <= set(out["launches_by_step"]["ls_sparse"]),
+          "sparse sketch-and-solve did not take B3-cw and B2-cw")
+    # its two sketches on the same key, outside the path's steps: SA (B3-cw
+    # on L) and SB (B2-cw on b as one column), each held to its plain
+    # version at the path's shapes
+    T = sk.CWT(m, 4 * n, P.Context(83))
+    out["ls_sketches"] = {
+        "SA": sketch_equal(torch, T, L, sk.COLUMNWISE),
+        "SB": sketch_equal(torch, T, b[:, None], sk.COLUMNWISE)}
+    check(all(r["bit_equal"] for r in out["ls_sketches"].values()),
+          f"sketch-and-solve's CountSketches differ from their plain "
+          f"versions: {out['ls_sketches']}")
+    iter_lim = max(20, 2 * n)
+    for meth in ("blendenpik", "lsrn"):
+        x, it = step(f"{meth}_sparse", lambda: algorithms.solve_l2_accelerated(
+            L, b, P.Context(84), method=meth))
+        out[f"{meth}_sparse_residual_ratio"] = resid(x)
+        out[f"{meth}_sparse_iterations"] = it
+        check(0 < it < iter_lim, f"sparse {meth} iterations {it}")
+        check(out[f"{meth}_sparse_residual_ratio"] <= 1 + 1e-3,
+              f"sparse {meth} ratio {out[f'{meth}_sparse_residual_ratio']}")
+
+    # sparse_solve_serve at one request against the transform's own
+    # sketch-and-solve on the same key (JLT at s = 2n: one whole panel)
+    data, indices, indptr = (t.clone() for t in L.csr())
+    for name, s in (("CWT", 4 * n), ("JLT", 2 * n)):
+        T = getattr(sk, name)(m, s, P.Context(85))
+        scale = getattr(T, "scale", 1.0)
+        xs = step(f"serve_{name.lower()}_solve", lambda: (
+            sparse_serve.sparse_solve_serve(
+                T.allocation.key, scale, data, indices, indptr, b[:, None],
+                sketch_type=name, s_dim=s, method="qr", shape=(m, n))))
+        xo = algorithms.solve_l2_sketched(L, b, T)
+        r = held(torch, xs[:, 0], xo)
+        out[f"serve_{name.lower()}_solve"] = r
+        check(r["ok"], f"sparse_solve_serve {name} vs solve_l2_sketched: {r}")
+    check("sparse_columnwise" in out["launches_by_step"]["serve_cwt_solve"]
+          and "hash_columnwise" in out["launches_by_step"]["serve_cwt_solve"],
+          "sparse_solve_serve CWT did not take B3-cw and B2-cw")
+
+    # condest on the host in float64, and its device twin on a block
+    cond, smax, smin = step("condest_sparse", lambda: nla.estimate_condition(
+        L, P.Context(86)))
+    out["condest"] = {"cond": cond, "sigma_max": smax, "sigma_min": smin,
+                      "exact_max": float(sv_exact[0]),
+                      "exact_min": float(sv_exact[-1])}
+    for got, want in ((smax, sv_exact[0]), (smin, sv_exact[-1])):
+        check(abs(got - float(want)) <= 1e-3 * float(want),
+              f"condest vs exact: {out['condest']}")
+    block = torch.randn(512, 64, generator=g, device="cuda").cpu().numpy()
+    ref = nla.estimate_condition(block, P.Context(87))
+    twin = step("condest_serve", lambda: nla.condest_serve(block, steps=8,
+                                                            seed=1))
+    cpu_twin = nla.condest_serve(block, steps=8, seed=1, device="cpu")
+    out["condest_serve"] = {"card": twin, "cpu": cpu_twin, "condest": ref}
+    check(abs(twin[1] - ref[1]) <= 0.2 * ref[1]
+          and 1.0 <= twin[0] <= 3.0 * ref[0],
+          f"condest_serve vs condest: {out['condest_serve']}")
+    check(all(abs(a - c_) <= TOL * abs(c_) for a, c_ in zip(twin, cpu_twin)),
+          f"condest_serve card vs CPU: {out['condest_serve']}")
+
+    # spmm and spmm_t at LSQR's shape: one matrix-vector product each way
+    xv, bv = torch.randn(n, 1, device="cuda"), b[:, None].contiguous()
+    timings += [
+        {"product": "spmm", "use": "LSQR A·v", "shape": [m, n],
+         "nnz": L.nnz, "k": 1, "ms": event_ms(torch, lambda: spmm(L, xv)),
+         **spmm_bound(peaks, L.nnz, n, 1, m)},
+        {"product": "spmm_t", "use": "LSQR Aᵀ·u", "shape": [m, n],
+         "nnz": L.nnz, "k": 1, "ms": event_ms(torch, lambda: spmm_t(L, bv)),
+         **spmm_bound(peaks, L.nnz, m, 1, n)}]
+    for t in timings:
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["bound_share_nnz12"] = t["bound_ms_nnz12"] / t["ms"]
+    out["spmm_times"] = timings
+    out["seconds"] = time.perf_counter() - t_phase
+    # the path's launches and products: its steps', not the comparisons'
+    out["launches"] = {k_: sum(s.get(k_, 0) for s in
+                               out["launches_by_step"].values())
+                       for k_ in launch_counts()}
+    out["products"] = {k_: sum(s.get(k_, 0) for s in
+                               out["products_by_step"].values())
+                       for k_ in sparse_products()}
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    emit("sparse", **out)
+    for k_ in SPARSE_KERNELS:
+        check(out["launches"][k_] > 0,
+              f"kernel {k_} never launched on the sparse path")
+    check(out["products"]["plain_calls"] == 0
+          and out["products"]["csr_calls"] > 0,
+          f"a product left the CSR route: {out['products']}")
+    return out
+
+
+# the kernels the sparse phase must launch: B3 both ways, B2 columnwise
+SPARSE_KERNELS = ("sparse_rowwise", "sparse_columnwise", "hash_columnwise")
+
 
 CSRC = "libskylark_tpu_torch/csrc/"
 # kernel: (source, the TPU kernel it replaces)
@@ -2106,6 +2437,7 @@ def main() -> int:
     main = main_path(torch, P)
     serve = serve_phase(torch, P, np)
     emit("serve_cells", cells=serve_cells(torch, np))
+    sparse = sparse_phase(torch, P, np, peaks)
     rows = (time_kernels(torch, P, MAIN_SHAPES, True, peaks)
             + time_kernels(torch, P, SPLIT_LS_SHAPES, False, peaks)
             + time_hash(torch, P, HASH_SHAPES, peaks)
@@ -2157,7 +2489,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": main["launches"][name] + serve["launches"][name],
+            "launches": (main["launches"][name] + serve["launches"][name]
+                         + sparse["launches"][name]),
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],
             "ms": head["ms"], "device_ms": head["device_ms"],

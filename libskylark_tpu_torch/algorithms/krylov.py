@@ -4,8 +4,9 @@ libskylark_tpu/algorithms/krylov.py).
 The reference runs the iteration as a ``lax.while_loop``; here it is a
 Python loop over the same ``body``. Each pass reads one device flag, "all
 columns done", to decide whether to go on: one host synchronisation per
-iteration. Operators are matrices or (matvec, rmatvec) callable pairs.
-CG, FlexibleCG and Chebyshev are not ported yet.
+iteration. Operators are matrices, sparse matrices (whose products are
+``spmm``/``spmm_t``, base/sparse.py) or (matvec, rmatvec) callable
+pairs. CG, FlexibleCG and Chebyshev are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from libskylark_tpu_torch.algorithms.precond import IdPrecond, Precond
 from libskylark_tpu_torch.base.device import as_tensor
+from libskylark_tpu_torch.base.sparse import linear_ops, place
 from libskylark_tpu_torch.base.params import Params
 from libskylark_tpu_torch.base.precision import with_solver_precision
 
@@ -30,10 +32,9 @@ class KrylovParams(Params):
 
 
 def _as_ops(A: Operator):
-    """(mv, rmv) of an explicit pair or a matrix."""
-    if isinstance(A, tuple):
-        return A
-    return (lambda x: A @ x), (lambda x: A.T @ x)
+    """(mv, rmv) of an explicit pair, a :class:`SparseMatrix` or a
+    matrix."""
+    return A if isinstance(A, tuple) else linear_ops(A)
 
 
 def _colnorms(X):
@@ -131,8 +132,7 @@ def lsqr(A: Operator, B, params: Optional[KrylovParams] = None,
     columns, each with its own recurrence and stopping state. Returns
     (X, iterations)."""
     if not isinstance(A, tuple):
-        A = as_tensor(A, device)
-        device = A.device
+        A, device = place(A, device)
     B = as_tensor(B, device)
     state, body, meta = lsqr_parts(A, B, params, precond, shape)
     # one device read per iteration: the stopping test

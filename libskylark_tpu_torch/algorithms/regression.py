@@ -6,6 +6,12 @@ The reference compiles the accelerated solvers as two engine executables
 (preconditioner build, LSQR) with one host read between them, the
 condition estimate that decides the fallback; here they are plain calls
 with the same single read, and LSQR's own per-iteration stopping test.
+
+A :class:`~libskylark_tpu_torch.base.sparse.SparseMatrix` design matrix
+takes the reference's direct path: the sketch's sparse apply to A and
+its dense apply to B, LSQR on ``spmm``/``spmm_t``, an FJLT sketch turned
+into a CWT (the FJLT has no sparse apply), and a densified A only in the
+exact fallback.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from libskylark_tpu_torch.algorithms.precond import (MatPrecond, Precond,
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.context import Context
 from libskylark_tpu_torch.base.device import as_tensor
+from libskylark_tpu_torch.base.sparse import is_sparse_operand, place
 from libskylark_tpu_torch.base.params import Params
 from libskylark_tpu_torch.base.precision import with_solver_precision
 
@@ -69,9 +76,17 @@ def solve_l2_sketched(A, B, transform, method: str = "qr",
 
     A and B are sketched in one apply, so a virtual operator is generated
     once for both rather than once more for B's few columns; the copy
-    into [A | B] costs one pass over A."""
+    into [A | B] costs one pass over A. A sparse A is sketched by the
+    transform's sparse apply and B by its dense apply, on ``device``."""
     from libskylark_tpu_torch.sketch import COLUMNWISE
 
+    if is_sparse_operand(A):
+        A, d = place(A, device)
+        B = as_tensor(B, d).to(A.tensor_dtype)
+        X = solve_l2_exact(transform.apply(A, COLUMNWISE, device=d),
+                           transform.apply(B, COLUMNWISE, device=d),
+                           method=method, device=d)
+        return X[:, 0] if B.ndim == 1 else X
     A = as_tensor(A, device)
     B = as_tensor(B, A.device).to(A.dtype)
     squeeze = B.ndim == 1
@@ -114,20 +129,20 @@ def _accel_transform(m: int, n: int, context: Context,
     raise errors.InvalidParametersError(f"unknown sketch {params.sketch!r}")
 
 
-def _blendenpik_r(A, T) -> torch.Tensor:
+def _blendenpik_r(A, T, device) -> torch.Tensor:
     """R factor of the sketched operand: the right preconditioner."""
     from libskylark_tpu_torch.sketch import COLUMNWISE
 
-    return torch.linalg.qr(T.apply(A, COLUMNWISE, device=A.device),
+    return torch.linalg.qr(T.apply(A, COLUMNWISE, device=device),
                            mode="r").R
 
 
-def _lsrn_parts(A, T) -> tuple[torch.Tensor, torch.Tensor]:
+def _lsrn_parts(A, T, device) -> tuple[torch.Tensor, torch.Tensor]:
     """LSRN preconditioner N = V·Σ⁻¹ from the SVD of the sketch, and the
     singular values."""
     from libskylark_tpu_torch.sketch import COLUMNWISE
 
-    SA = T.apply(A, COLUMNWISE, device=A.device)
+    SA = T.apply(A, COLUMNWISE, device=device)
     _, sv, Vt = torch.linalg.svd(SA, full_matrices=False)
     floor = sv[0] * torch.finfo(SA.dtype).eps
     return Vt.T * (1.0 / torch.maximum(sv, floor))[None, :], sv
@@ -137,8 +152,9 @@ def _lsrn_parts(A, T) -> tuple[torch.Tensor, torch.Tensor]:
 def build_blendenpik_precond(A, context: Context, params: AcceleratedParams,
                              device=None) -> tuple[Precond, torch.Tensor]:
     """Sketch A and QR the sketch; R is the right preconditioner."""
-    A = as_tensor(A, device)
-    R = _blendenpik_r(A, _accel_transform(*A.shape, context, params))
+    A, device = place(A, device)
+    R = _blendenpik_r(A, _accel_transform(*A.shape, context, params),
+                      device)
     return TriInversePrecond(R), R
 
 
@@ -146,9 +162,9 @@ def build_blendenpik_precond(A, context: Context, params: AcceleratedParams,
 def build_lsrn_precond(A, context: Context, params: AcceleratedParams,
                        device=None) -> tuple[Precond, torch.Tensor]:
     """LSRN: Gaussian sketch, SVD of the sketch, preconditioner V·Σ⁻¹."""
-    A = as_tensor(A, device)
+    A, device = place(A, device)
     T = _accel_transform(*A.shape, context, params, gaussian=True)
-    Ninv, sv = _lsrn_parts(A, T)
+    Ninv, sv = _lsrn_parts(A, T, device)
     return MatPrecond(Ninv), sv
 
 
@@ -161,25 +177,30 @@ def solve_l2_accelerated(A, B, context: Context, method: str = "blendenpik",
     is not finite or exceeds ``params.cond_threshold``.
 
     Returns (X, iterations); iterations == 0 signals the exact fallback.
-    Reading the condition is the one host synchronisation before LSQR."""
+    Reading the condition is the one host synchronisation before LSQR.
+    A sparse A turns an FJLT sketch into a CWT and is densified only for
+    the exact fallback."""
     params = params or AcceleratedParams()
-    A = as_tensor(A, device)
-    B = as_tensor(B, A.device)
+    A, device = place(A, device)
+    B = as_tensor(B, device)
+    if is_sparse_operand(A) and params.sketch == "fjlt":
+        params = dataclasses.replace(params, sketch="cwt")
     if method == "simplified_blendenpik":
         params = dataclasses.replace(params, sketch="cwt")
     if method in ("blendenpik", "simplified_blendenpik"):
         precond, R = build_blendenpik_precond(A, context, params,
-                                              device=A.device)
+                                              device=device)
         cond = float(torch.linalg.cond(R))
     elif method == "lsrn":
-        precond, sv = build_lsrn_precond(A, context, params, device=A.device)
+        precond, sv = build_lsrn_precond(A, context, params, device=device)
         cond = float(sv[0] / torch.clamp_min(sv[-1],
-                                             torch.finfo(A.dtype).tiny))
+                                             torch.finfo(sv.dtype).tiny))
     else:
         raise errors.InvalidParametersError(
             f"unknown accelerated method {method!r}")
     if not math.isfinite(cond) or cond > params.cond_threshold:
-        return solve_l2_exact(A, B, method="svd", device=A.device), 0
+        Ad = A.todense(device=device) if is_sparse_operand(A) else A
+        return solve_l2_exact(Ad, B, method="svd", device=device), 0
     kp = krylov.KrylovParams(tolerance=params.tolerance,
                              iter_lim=params.iter_lim)
-    return krylov.lsqr(A, B, params=kp, precond=precond, device=A.device)
+    return krylov.lsqr(A, B, params=kp, precond=precond, device=device)

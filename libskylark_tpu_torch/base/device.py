@@ -26,24 +26,24 @@ def default_device() -> torch.device:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` (or the package default) as a torch.device; raises
-    when it names CUDA and no CUDA device is available."""
+    """``device`` (or the package default) as a torch.device, the CUDA
+    index filled in: the device that a tensor made there reports, so two
+    spellings of one card compare equal. Raises when it names CUDA and no
+    CUDA device is available."""
     d = torch.device(device) if device is not None else _default
-    if d.type == "cuda" and not torch.cuda.is_available():
-        raise errors.UnsupportedError(
-            "no CUDA device is available; pass device='cpu' or call "
-            "set_default_device('cpu') to run on the CPU")
+    if d.type == "cuda":
+        if not torch.cuda.is_available():
+            raise errors.UnsupportedError(
+                "no CUDA device is available; pass device='cpu' or call "
+                "set_default_device('cpu') to run on the CPU")
+        if d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
     return d
-
-
-def _on(t: torch.Tensor, d: torch.device) -> bool:
-    return t.device.type == d.type and (d.index is None
-                                        or t.device.index == d.index)
 
 
 def as_tensor(x, device=None) -> torch.Tensor:
     """``x`` as a tensor on the resolved device (moved only if needed)."""
     d = resolve_device(device)
     if isinstance(x, torch.Tensor):
-        return x if _on(x, d) else x.to(d)
+        return x if x.device == d else x.to(d)
     return torch.as_tensor(np.asarray(x), device=d)

@@ -389,8 +389,6 @@ class MicrobatchExecutor:
             raise ValueError(f"kernel must be one of {KERNEL_CHOICES} or "
                              f"None, got {kernel!r}")
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
         if kernel == "cuda" and self.device.type != "cuda":
             raise errors.UnsupportedError(
                 f"kernel='cuda' needs a CUDA executor, got device "

@@ -12,8 +12,10 @@ Format, as the reference reads it:
 - ``max_n`` caps the number of examples.
 
 The host parses into numpy (dense) or a :class:`SparseMatrix` (CSC);
-placing the data on a device is the caller's. The native parser and the
-chunked, streaming and HDF5 readers are not ported yet.
+placing the data on a device is the caller's. The native parser
+(io/native.py, built by g++ at first use) reads when it can, the Python
+parser otherwise (``native.runs`` counts which ran). The chunked,
+streaming and HDF5 readers are not ported yet.
 """
 
 from __future__ import annotations
@@ -82,8 +84,13 @@ def read_libsvm(source, direction: str = ROWS, sparse: bool = False,
     (transposed with COLUMNS)."""
     if direction not in (ROWS, COLUMNS):
         raise errors.InvalidParametersError(f"bad direction {direction!r}")
-    targets, indices, values, d, nt = _parse_lines(_open_lines(source),
-                                                   max_n)
+    from libskylark_tpu_torch.io import native
+
+    parsed = native.parse_libsvm(source, max_n)
+    native.count_run(parsed is not None)
+    if parsed is None:
+        parsed = _parse_lines(_open_lines(source), max_n)
+    targets, indices, values, d, nt = parsed
     n = len(targets)
     d = max(d, min_d)
     Y = np.zeros((n, nt), dtype=np.float64)

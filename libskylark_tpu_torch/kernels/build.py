@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host libraries.
 
 Each ``csrc/<name>.cu`` compiles with nvcc, for Hopper only (sm_90a), into
 a shared library with a plain C interface, ``build/torch_kernels/
@@ -6,6 +6,12 @@ lib<name>.so`` under the checkout's root; the wrappers load it with ctypes.
 A library is built at first use and again whenever its source, or a
 shared header ``csrc/*.cuh``, is newer.
 A failed build raises with nvcc's output: nothing falls back.
+
+Each ``csrc/<name>.cpp`` is host code (the IO parsers), built by g++ into
+``build/torch_host/lib<name>.so`` at first use (:func:`load_host`). Its
+callers keep the reference's contract: without a toolchain, or when the
+build fails, :func:`load_host` returns None and they take their Python
+version.
 """
 
 from __future__ import annotations
@@ -22,11 +28,14 @@ from libskylark_tpu_torch.base import errors
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+HOST_BUILD_DIR = BUILD_DIR.parent / "torch_host"
+HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_host_libs: dict[str, ctypes.CDLL | None] = {}
 
 
 class KernelBuildError(errors.UnsupportedError):
@@ -103,3 +112,41 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def host_library_path(name: str) -> Path:
+    return HOST_BUILD_DIR / f"lib{name}.so"
+
+
+def build_host(name: str, force: bool = False) -> Path:
+    """Build ``csrc/<name>.cpp`` with g++ when its library is missing or
+    older than the source; raises KernelBuildError with g++'s output."""
+    src, so = CSRC / f"{name}.cpp", host_library_path(name)
+    if (not force and so.exists()
+            and so.stat().st_mtime >= src.stat().st_mtime):
+        return so
+    gxx = shutil.which("g++") or shutil.which("c++")
+    if gxx is None:
+        raise KernelBuildError("g++ not found on PATH")
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = HOST_BUILD_DIR / f".lib{name}.{os.getpid()}.so"
+    p = subprocess.run([gxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                       capture_output=True, text=True, timeout=300)
+    if p.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"g++ failed for {name}.cpp (exit {p.returncode}):\n{p.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def load_host(name: str) -> ctypes.CDLL | None:
+    """The loaded host library ``name``, built first if needed; None when
+    it cannot be built or loaded."""
+    with _lock:
+        if name not in _host_libs:
+            try:
+                _host_libs[name] = ctypes.CDLL(str(build_host(name)))
+            except (KernelBuildError, OSError, subprocess.SubprocessError):
+                _host_libs[name] = None
+        return _host_libs[name]

@@ -4,7 +4,10 @@ libskylark_tpu/ml/kernels.py).
 Each kernel offers:
 
 - ``gram(X, Y=None, device=None)``: K[i, j] = k(xᵢ, yⱼ), rows are
-  examples, on dense operands (sparse operands are not ported yet);
+  examples. A :class:`~libskylark_tpu_torch.base.sparse.SparseMatrix`
+  operand stays sparse for the inner-product kernels (linear,
+  polynomial: X·Yᵀ by ``spmm``, O(nnz)) and is densified on the device
+  for the distance-based ones, whose Gram matrix is dense anyway;
 - ``create_rft(S, context, tag)``: the random feature map, a
   SketchTransform whose rowwise apply maps (n, N) data to (n, S) features
   with E[Z·Zᵀ] ≈ gram; the tags are "regular", "fast", "quasi" and
@@ -26,7 +29,7 @@ import torch
 
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.context import Allocation, Context
-from libskylark_tpu_torch.base.device import as_tensor
+from libskylark_tpu_torch.base.device import as_tensor, resolve_device
 from libskylark_tpu_torch.base.distance import (euclidean_distance_matrix,
                                                 l1_distance_matrix)
 
@@ -36,9 +39,34 @@ _KERNEL_REGISTRY: dict[str, type["Kernel"]] = {}
 _BROADCAST_ELEMENTS = 1 << 26
 
 
+def _as_dense(X, device) -> torch.Tensor:
+    """A dense tensor on ``device``; a :class:`SparseMatrix` densified
+    there."""
+    from libskylark_tpu_torch.base.sparse import is_sparse_operand
+
+    if is_sparse_operand(X):
+        return X.todense(device=device)
+    return as_tensor(X, device)
+
+
 def _operands(X, Y, device):
+    X = _as_dense(X, device)
+    return X, X if Y is None else _as_dense(Y, X.device)
+
+
+def _inner_gram(X, Y, device) -> torch.Tensor:
+    """X·Yᵀ for the inner-product kernels, O(nnz) when X or Y is a
+    :class:`SparseMatrix`: spmm against the other operand (densified when
+    both are sparse, as in the reference)."""
+    from libskylark_tpu_torch.base.sparse import is_sparse_operand, spmm
+
+    if is_sparse_operand(X):
+        d = resolve_device(device)
+        return spmm(X, _as_dense(X if Y is None else Y, d).T)
     X = as_tensor(X, device)
-    return X, X if Y is None else as_tensor(Y, X.device)
+    if is_sparse_operand(Y):
+        return spmm(Y, X.T).T
+    return X @ (X if Y is None else as_tensor(Y, X.device)).T
 
 
 def _register(cls: type["Kernel"]) -> type["Kernel"]:
@@ -102,8 +130,7 @@ class Linear(Kernel):
     kernel_type = "linear"
 
     def gram(self, X, Y=None, device=None):
-        X, Y = _operands(X, Y, device)
-        return X @ Y.T
+        return _inner_gram(X, Y, device)
 
     def create_rft(self, S, context, tag="regular"):
         from libskylark_tpu_torch import sketch as sk
@@ -165,8 +192,7 @@ class Polynomial(Kernel):
         self._gamma = float(gamma)
 
     def gram(self, X, Y=None, device=None):
-        X, Y = _operands(X, Y, device)
-        return (self._gamma * (X @ Y.T) + self._c) ** self._q
+        return (self._gamma * _inner_gram(X, Y, device) + self._c) ** self._q
 
     def create_rft(self, S, context, tag="regular"):
         from libskylark_tpu_torch import sketch as sk

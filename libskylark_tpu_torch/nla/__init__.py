@@ -1,6 +1,9 @@
-"""NLA layer: randomized SVD, CholeskyQR2, least squares."""
+"""NLA layer: randomized SVD, CholeskyQR2, least squares, condition
+estimation."""
 
-from libskylark_tpu_torch.nla import least_squares, svd, tsqr
+from libskylark_tpu_torch.nla import condest, least_squares, svd, tsqr
+from libskylark_tpu_torch.nla.condest import condest as estimate_condition
+from libskylark_tpu_torch.nla.condest import condest_serve
 from libskylark_tpu_torch.nla.least_squares import (
     approximate_least_squares,
     fast_least_squares,
@@ -13,7 +16,8 @@ from libskylark_tpu_torch.nla.svd import (
 )
 
 __all__ = [
-    "least_squares", "svd", "tsqr", "approximate_least_squares",
-    "fast_least_squares", "ApproximateSVDParams", "approximate_svd",
-    "approximate_symmetric_svd", "power_iteration",
+    "condest", "least_squares", "svd", "tsqr", "estimate_condition",
+    "condest_serve", "approximate_least_squares", "fast_least_squares",
+    "ApproximateSVDParams", "approximate_svd", "approximate_symmetric_svd",
+    "power_iteration",
 ]

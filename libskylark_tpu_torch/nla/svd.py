@@ -7,6 +7,10 @@ Range sketch → power iteration with re-orthogonalization → Rayleigh-Ritz
 CUDA tensor it runs the fused rowwise kernel (sketch/cuda_dense.py); the
 other large products are plain matmuls. A wide matrix is factored as its
 transpose.
+
+A :class:`~libskylark_tpu_torch.base.sparse.SparseMatrix` operand is
+never densified (the reference's sparse branch): its range sketch is the
+JLT's sparse apply, and every product with A is ``spmm``/``spmm_t``.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch
 
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.context import Context
-from libskylark_tpu_torch.base.device import as_tensor
+from libskylark_tpu_torch.base.sparse import (is_sparse_operand,
+                                              linear_ops, place)
 from libskylark_tpu_torch.base.params import Params
 from libskylark_tpu_torch.base.precision import with_solver_precision
 from libskylark_tpu_torch.nla.tsqr import cholesky_qr2
@@ -63,14 +68,34 @@ def _oversampled(params: ApproximateSVDParams, k: int, limit: int) -> int:
     return max(kp, k)
 
 
+def _transposed(A):
+    """Aᵀ: the operand's kept transpose for a sparse operand (made once,
+    sharing A's device CSR forms), a view otherwise."""
+    return A.transpose() if is_sparse_operand(A) else A.T
+
+
+def _operand(A, device, dtype=None):
+    """(A, device) as :func:`~libskylark_tpu_torch.base.sparse.place`
+    gives them, a dense A cast to ``dtype``; the override raises for a
+    sparse operand, which computes at its device dtype."""
+    if dtype is not None and is_sparse_operand(A):
+        raise errors.InvalidParametersError(
+            "dtype override is only supported for dense operands; "
+            "sparse operands compute at their device dtype")
+    A, device = place(A, device)
+    return (A.to(dtype) if dtype is not None else A), device
+
+
 @with_solver_precision
-def power_iteration(A: torch.Tensor, Q: torch.Tensor, num_iterations: int,
+def power_iteration(A, Q: torch.Tensor, num_iterations: int,
                     orthogonalize: bool = True, adjoint: bool = False,
                     ortho: str = "qr") -> torch.Tensor:
     """(A·Aᵀ)^q · Q (or (Aᵀ·A)^q · Q when ``adjoint``), re-orthogonalized
-    between products unless disabled."""
+    between products unless disabled. ``A`` is a dense tensor or a
+    :class:`SparseMatrix`."""
+    mv, rmv = linear_ops(A)
     for _ in range(num_iterations):
-        Q = A.T @ (A @ Q) if adjoint else A @ (A.T @ Q)
+        Q = rmv(mv(Q)) if adjoint else mv(rmv(Q))
         if orthogonalize:
             Q = _orthonormalize(Q, ortho)
     return Q
@@ -83,12 +108,12 @@ def approximate_svd(A, rank: int, context: Context,
     """Rank-``rank`` approximate SVD: (U, S, V) with A ≈ U·diag(S)·Vᵀ.
 
     ``A`` is a numpy array or tensor, moved to ``device`` (default: the
-    package default device); ``dtype`` casts it first."""
+    package default device); ``dtype`` casts it first. A
+    :class:`SparseMatrix` stays sparse and the factors land on
+    ``device``; ``dtype`` raises for it."""
     params = params or ApproximateSVDParams()
     _validate_params(params)
-    A = as_tensor(A, device)
-    if dtype is not None:
-        A = A.to(dtype)
+    A, device = _operand(A, device, dtype)
     m, n = A.shape
     k = int(rank)
     if k <= 0:
@@ -96,14 +121,15 @@ def approximate_svd(A, rank: int, context: Context,
     kp = _oversampled(params, k, min(m, n))
 
     if m < n:
-        V, S, U = approximate_svd(A.T, rank, context, params, dtype=dtype,
-                                  device=A.device)
+        V, S, U = approximate_svd(_transposed(A), rank, context, params,
+                                  dtype=dtype, device=device)
         return U, S, V
 
     from libskylark_tpu_torch.sketch import ROWWISE, JLT
 
+    _, rmv = linear_ops(A)
     T = JLT(n, kp, context)
-    Q = T.apply(A, ROWWISE, device=A.device)          # range sketch (m, kp)
+    Q = T.apply(A, ROWWISE, device=device)            # range sketch (m, kp)
     if not params.skip_qr:
         Q = _orthonormalize(Q, params.ortho)
     Q = power_iteration(A, Q, params.num_iterations,
@@ -112,7 +138,7 @@ def approximate_svd(A, rank: int, context: Context,
         # one final orthogonalization is always required before projection
         Q = _orthonormalize(Q, params.ortho)
 
-    Bt = A.T @ Q                                      # (n, kp); B = Btᵀ
+    Bt = rmv(Q)                                       # (n, kp); B = Btᵀ
     if params.rr == "svd":
         Ub, S, Vt = torch.linalg.svd(Bt.T, full_matrices=False)
         return Q @ Ub[:, :k], S[:k], Vt[:k, :].T
@@ -128,10 +154,11 @@ def approximate_symmetric_svd(A, rank: int, context: Context,
                               params: Optional[ApproximateSVDParams] = None,
                               device=None):
     """Approximate eigendecomposition of symmetric A: (V, S) with
-    A ≈ V·diag(S)·Vᵀ, the k largest-magnitude eigenpairs, descending."""
+    A ≈ V·diag(S)·Vᵀ, the k largest-magnitude eigenpairs, descending.
+    ``A`` is dense or a :class:`SparseMatrix`."""
     params = params or ApproximateSVDParams()
     _validate_params(params)
-    A = as_tensor(A, device)
+    A, device = _operand(A, device)
     n, n2 = A.shape
     if n != n2:
         raise errors.InvalidParametersError(
@@ -143,17 +170,18 @@ def approximate_symmetric_svd(A, rank: int, context: Context,
 
     from libskylark_tpu_torch.sketch import ROWWISE, JLT
 
+    mv, _ = linear_ops(A)
     T = JLT(n, kp, context)
-    Q = _orthonormalize(T.apply(A, ROWWISE, device=A.device), params.ortho)
+    Q = _orthonormalize(T.apply(A, ROWWISE, device=device), params.ortho)
     for _ in range(params.num_iterations):
-        Q = A @ Q
+        Q = mv(Q)
         if not params.skip_qr:
             Q = _orthonormalize(Q, params.ortho)
     if params.skip_qr:
         Q = _orthonormalize(Q, params.ortho)
 
     # Rayleigh-Ritz: eigendecomposition of QᵀAQ
-    G = Q.T @ (A @ Q)
+    G = Q.T @ mv(Q)
     G = 0.5 * (G + G.T)
     w, Z = torch.linalg.eigh(G)
     order = torch.argsort(-torch.abs(w))[:k]

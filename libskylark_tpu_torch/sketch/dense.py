@@ -12,6 +12,11 @@ is never stored. Applies take one of three routes, in this order:
 - a pinned operator (OperatorCache) when one exists on A's device;
 - otherwise the plain path: S materialized whole, or panel by panel when
   ``blocksize`` (or the auto-blocking threshold) asks for it.
+
+A sparse operand (:class:`~libskylark_tpu_torch.base.sparse.SparseMatrix`)
+is never densified and never takes the fused kernel, as in the
+reference: the pinned operator, else S whole or panel by panel under the
+same schedule, contracted by ``spmm``/``spmm_t`` (base/sparse.py).
 """
 
 from __future__ import annotations
@@ -170,6 +175,49 @@ class DenseTransform(OperatorCache, SketchTransform):
         if blocksize:
             return self._apply_rowwise_blocked(A, blocksize)
         return A @ self.s_panel(0, self._N, A.dtype, A.device).T
+
+    # -- sparse input: spmm against the operator --
+
+    def _apply_columnwise_sparse(self, A, device) -> torch.Tensor:
+        """S·A = (Aᵀ·Sᵀ)ᵀ; blocked, the panel loop runs over Aᵀ, whose
+        columns are A's rows, the sketched dimension."""
+        from libskylark_tpu_torch.base.sparse import spmm_t
+
+        dt = A.tensor_dtype
+        S = self._cached_op(dt, device)
+        if S is not None:
+            return spmm_t(A, S.T).T
+        blocksize = self._effective_blocksize(dt)
+        if blocksize:
+            return self._sparse_panel_loop(A.transpose(), blocksize,
+                                           device).T
+        return spmm_t(A, self.s_panel(0, self._N, dt, device).T).T
+
+    def _apply_rowwise_sparse(self, A, device) -> torch.Tensor:
+        """A·Sᵀ."""
+        from libskylark_tpu_torch.base.sparse import spmm
+
+        dt = A.tensor_dtype
+        S = self._cached_op(dt, device)
+        if S is not None:
+            return spmm(A, S.T)
+        blocksize = self._effective_blocksize(dt)
+        if blocksize:
+            return self._sparse_panel_loop(A, blocksize, device)
+        return spmm(A, self.s_panel(0, self._N, dt, device).T)
+
+    def _sparse_panel_loop(self, A, blocksize: int, device) -> torch.Tensor:
+        """A·Sᵀ for a sparse (m, N) A with no more of S than one (S_dim ×
+        panel) block made at a time: Σ_p A[:, p]·S[:, p]ᵀ over the column
+        views of A."""
+        from libskylark_tpu_torch.base.sparse import spmm
+
+        dt = A.tensor_dtype
+        acc = torch.zeros((A.height, self._S), dtype=dt, device=device)
+        for p0, p1 in self._panel_bounds(blocksize):
+            acc += spmm(A.column_view(p0, p1),
+                        self.s_panel(p0, p1, dt, device).T)
+        return acc
 
     # -- blocked (memory-bounded) apply: one virtual panel at a time --
 

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors, randgen
-from libskylark_tpu_torch.sketch import cuda_hash, cuda_sparse, sparse_serve
+from libskylark_tpu_torch.sketch import cuda_hash, sparse_serve
 from libskylark_tpu_torch.sketch.transform import SketchTransform, register
 
 
@@ -146,17 +146,10 @@ class CWT(HashTransform):
         return cuda_hash.supported(A.dtype)
 
     def _apply_sparse_dense_out(self, A, device, rowwise: bool):
-        """The CSR-lane CountSketch: float32 through the kernel's route,
-        other dtypes through the plain CSR-order scatter."""
-        data, indices, indptr = (torch.tensor(x, device=device)
-                                 for x in A.csr_parts())
-        rows = sparse_serve.csr_row_ids(indptr, data.shape[0], torch.int32)
-        if cuda_sparse.supported(data.dtype):
-            return cuda_sparse.cwt_sparse_apply(
-                self._alloc.key, data, rows, indices, self._S, rowwise,
-                A.shape)
-        return sparse_serve.cwt_scatter_rows(
-            self._alloc.key, data, rows, indices, s_dim=self._S,
+        """The CSR-lane CountSketch of A's kept device CSR, by the route
+        that ``sparse_serve.cwt_sparse_lane`` chooses."""
+        return sparse_serve.cwt_sparse_lane(
+            self._alloc.key, *A.csr(device=device), s_dim=self._S,
             rowwise=rowwise, shape=A.shape)
 
 

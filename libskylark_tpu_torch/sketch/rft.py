@@ -21,6 +21,10 @@ dense-block format of base/randgen.py (sub-stream 0), b ~ U[0, 2π)
   reference's XLA path does. A pinned operator (OperatorCache) serves
   only that last path: no setting routes a CUDA tensor past a kernel.
 
+A sparse operand projects by ``spmm``/``spmm_t`` against the pinned W
+or W made whole (float32, whatever the distribution), then the same
+featurization, as the reference's sparse branch does.
+
 MaternRFT needs jax.random's Gamma sampler, which is not ported: it
 raises on construction and on deserialization.
 """
@@ -128,6 +132,25 @@ class RFT(OperatorCache, SketchTransform):
                 self.shifts(torch.float32, A.device))
         return self._featurize(self._project(A, rowwise=True),
                                feature_axis=1)
+
+    # -- sparse input: project with spmm, then featurize --
+
+    def _sparse_operator(self, A, device) -> torch.Tensor:
+        W = self._cached_op(A.tensor_dtype, device)
+        return W if W is not None else self.w_panel(0, self._N,
+                                                    A.tensor_dtype, device)
+
+    def _apply_columnwise_sparse(self, A, device) -> torch.Tensor:
+        from libskylark_tpu_torch.base.sparse import spmm_t
+
+        W = self._sparse_operator(A, device)
+        return self._featurize(spmm_t(A, W.T).T, feature_axis=0)
+
+    def _apply_rowwise_sparse(self, A, device) -> torch.Tensor:
+        from libskylark_tpu_torch.base.sparse import spmm
+
+        W = self._sparse_operator(A, device)
+        return self._featurize(spmm(A, W.T), feature_axis=1)
 
 
 class _SigmaRFT(RFT):

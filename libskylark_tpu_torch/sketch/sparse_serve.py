@@ -14,7 +14,11 @@ functions here are the per-lane plain programs of those flushes:
   serve layer runs kernel B3 (sketch/cuda_sparse.py) there.
 - JLT/CT (:func:`dense_sparse_serve_apply`): the lanes scattered to the
   padded dense shape (:func:`scatter_dense`, exact: canonical CSR has no
-  duplicate coordinates), then ``dense.serve_apply``.
+  duplicate coordinates), then ``dense.serve_apply``;
+- sketch-and-solve with a CSR design matrix (:func:`sparse_solve_serve`):
+  SA from the sparse columnwise sketch above, SB from the dense serve
+  sketch of the target block, then ``solve_l2_exact``. Its CWT branch
+  runs float32 through the kernels' routes (B3 for SA, B2 for SB).
 """
 
 from __future__ import annotations
@@ -72,6 +76,25 @@ def cwt_sparse_serve_apply(key_data, data: torch.Tensor,
                             rowwise=rowwise, shape=shape)
 
 
+def cwt_sparse_lane(key_data, data: torch.Tensor, indices: torch.Tensor,
+                    indptr: torch.Tensor, *, s_dim: int, rowwise: bool,
+                    shape: tuple) -> torch.Tensor:
+    """One CSR lane's CountSketch by the route of its dtype: float32
+    through kernel B3's wrapper (sketch/cuda_sparse.py, which runs its
+    plain version on a CPU tensor), other dtypes through the plain
+    CSR-order scatter. The one dispatch of ``CWT``'s sparse apply and of
+    :func:`sparse_solve_serve`."""
+    from libskylark_tpu_torch.sketch import cuda_sparse
+
+    rows = csr_row_ids(indptr, data.shape[0], torch.int32)
+    if cuda_sparse.supported(data.dtype):
+        return cuda_sparse.cwt_sparse_apply(
+            key_data, data, rows, indices.to(torch.int32), s_dim, rowwise,
+            shape)
+    return cwt_scatter_rows(key_data, data, rows, indices, s_dim=s_dim,
+                            rowwise=rowwise, shape=shape)
+
+
 def scatter_dense(data: torch.Tensor, indices: torch.Tensor,
                   indptr: torch.Tensor, *, shape: tuple) -> torch.Tensor:
     """CSR lanes densified to ``shape``, or a (B, nnz) stack of lanes to
@@ -100,3 +123,36 @@ def dense_sparse_serve_apply(key_data, scale, data: torch.Tensor,
     A = scatter_dense(data, indices, indptr, shape=shape)
     return serve_apply(key_data, scale, A, dist=dist, s_dim=s_dim,
                        rowwise=rowwise)
+
+
+def sparse_solve_serve(key_data, scale, data: torch.Tensor,
+                       indices: torch.Tensor, indptr: torch.Tensor,
+                       B: torch.Tensor, *, sketch_type: str, s_dim: int,
+                       method: str, shape: tuple) -> torch.Tensor:
+    """One request's sketch-and-solve with a CSR design matrix of padded
+    ``shape`` (rows, cols) and a dense target block B (rows, k): the
+    compressed problem min ‖SA·X − SB‖ solved by ``solve_l2_exact``.
+    Zero-padded rows add nothing through either sketch; the feature
+    extent is exact (a zero column would make the small problem
+    singular)."""
+    from libskylark_tpu_torch.algorithms.regression import solve_l2_exact
+    from libskylark_tpu_torch.base import errors, randgen
+    from libskylark_tpu_torch.sketch import dense
+    from libskylark_tpu_torch.sketch import hash as sketch_hash
+
+    if sketch_type == "CWT":
+        SA = cwt_sparse_lane(key_data, data, indices, indptr, s_dim=s_dim,
+                             rowwise=False, shape=shape)
+        SB = sketch_hash.cwt_serve_apply(key_data, B, s_dim=s_dim,
+                                         rowwise=False)
+    elif sketch_type == "JLT":
+        SA = dense_sparse_serve_apply(
+            key_data, scale, data, indices, indptr, dist=randgen.Normal(),
+            s_dim=s_dim, rowwise=False, shape=shape)
+        SB = dense.serve_apply(key_data, scale, B, dist=randgen.Normal(),
+                               s_dim=s_dim, rowwise=False)
+    else:
+        raise errors.InvalidParametersError(
+            f"sparse solve serve path supports JLT/CWT sketches, got "
+            f"{sketch_type!r}")
+    return solve_l2_exact(SA, SB, method=method, device=SA.device)

@@ -159,7 +159,9 @@ class SketchTransform:
         ``device`` (default: the package default device). A
         :class:`~libskylark_tpu_torch.base.sparse.SparseMatrix` (or scipy
         sparse) operand takes the transform's sparse apply and gives a
-        dense result."""
+        dense result on ``device``; the transforms without one (FJLT,
+        Fastfood, QRFT, PPT, as in the reference) raise
+        NotImplementedYetError."""
         if is_sparse_operand(A) or _is_scipy_sparse(A):
             A = as_sparse(A)
             n = A.height if dimension == COLUMNWISE else A.width

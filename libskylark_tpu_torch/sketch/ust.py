@@ -3,7 +3,9 @@ port of libskylark_tpu/sketch/ust.py).
 
 With replacement: S_dim independent uniform indices (sub-stream 0).
 Without: the first S_dim entries of ``randgen.permutation`` of [0, N)
-under sub-stream 1, jax.random.permutation's own shuffle.
+under sub-stream 1, jax.random.permutation's own shuffle. A sparse
+operand is gathered on the host (sampling keeps it sparse) and the small
+sampled result densified on the device.
 """
 
 from __future__ import annotations
@@ -38,6 +40,19 @@ class UST(SketchTransform):
 
     def _apply_rowwise(self, A: torch.Tensor) -> torch.Tensor:
         return A.index_select(1, self.sample_indices(A.device))
+
+    def _sampled_sparse(self, A, device, rowwise: bool) -> torch.Tensor:
+        idx = self.sample_indices(device).cpu().numpy()
+        M = A.to_scipy()
+        M = M[:, idx] if rowwise else M[idx, :]
+        return torch.as_tensor(M.toarray().astype(A.device_dtype),
+                               device=device)
+
+    def _apply_columnwise_sparse(self, A, device) -> torch.Tensor:
+        return self._sampled_sparse(A, device, rowwise=False)
+
+    def _apply_rowwise_sparse(self, A, device) -> torch.Tensor:
+        return self._sampled_sparse(A, device, rowwise=True)
 
     def _extra_params(self) -> dict[str, Any]:
         return {"replace": self._replace}

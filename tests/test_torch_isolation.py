@@ -48,7 +48,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "sketch.qrft", "sketch.ppt", "sketch.ust", "base.quasirand",
                 "base.distance", "ml.kernels", "base.sparse", "io.libsvm",
                 "engine.bucket", "engine.serve", "sketch.sparse_serve",
-                "sketch.cuda_sparse"):
+                "sketch.cuda_sparse", "base.sprand", "nla.condest",
+                "io.native", "io.arclist"):
         assert f"libskylark_tpu_torch.{mod}" in report["modules"]
 
 

@@ -249,8 +249,11 @@ def test_sparse_apply_checks_its_extent():
     A = _csr(30, 40, 0.1, 1)
     with pytest.raises(errors.SketchError):
         sk.CWT(41, 8, Context(0)).apply(A, sk.ROWWISE, device="cpu")
+    with pytest.raises(errors.SketchError):
+        sk.JLT(41, 8, Context(0)).apply(A, sk.ROWWISE, device="cpu")
+    # the FJLT has no sparse apply, in the reference either
     with pytest.raises(errors.NotImplementedYetError):
-        sk.JLT(40, 8, Context(0)).apply(A, sk.ROWWISE, device="cpu")
+        sk.FJLT(40, 8, Context(0)).apply(A, sk.ROWWISE, device="cpu")
     assert jax.default_backend() == "cpu"
 
 
