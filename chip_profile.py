@@ -49,6 +49,14 @@ Blendenpik and LSRN (with ``iterations`` and ``idle_ms_per_iteration``),
 sparse_solve_serve (CWT, s = 4096; JLT, s = 2048) and condest (on the
 host), with the same fields as above.
 
+Then one ``ml-<cell>`` line per solver of chip_smoke.py's ml phase
+(config 5 at MNIST's shape, ``ml_cells``): approximate_kernel_rlsc at s =
+8192, large_scale_kernel_rlsc over 4 blocks, faster_kernel_rlsc on
+16,384 rows with the s = 2048 preconditioner, and BlockADMMSolver's 10
+iterations, with the same fields as above; the BCD and the PCG also with
+``iterations`` (sweeps, CG iterations) and ``idle_ms_per_iteration``, the
+card's idle time per iteration, where the host reads the stopping test.
+
 It ends with the card's name and power limit as nvidia-smi gives them.
 It exits non-zero without a CUDA device. It imports neither jax nor
 libskylark_tpu.
@@ -56,6 +64,7 @@ libskylark_tpu.
 
 from __future__ import annotations
 
+import io
 import json
 import statistics
 import sys
@@ -147,6 +156,50 @@ def sparse_cells(torch, P, np) -> dict:
     cells[f"condest_{m}x{n}_host"] = (
         lambda: nla.estimate_condition(L, ctx[316]))
     return cells
+
+
+def ml_cells(torch, P) -> dict:
+    """The ml phase's four solvers on its data (config 5 at MNIST's
+    shape), each call with a new key from the cell's one Context: name ->
+    (fn, log) where ``fn(log)`` runs the solver once, logging to ``log``
+    when it is given (the iteration count: CG iterations or BCD sweeps;
+    ADMM runs a fixed count)."""
+    from libskylark_tpu_torch import ml
+    from libskylark_tpu_torch.algorithms import prox
+
+    cs = chip_smoke
+    size = cs.ML_FULL
+    X, y, _, _ = cs.ml_data(torch, size, "cuda")
+    k = cs.ml_kernel(ml, size)
+    s, rows = size["s"], size["faster_rows"]
+    ctx = {seed: P.Context(seed) for seed in range(620, 624)}
+
+    def params(log, **kw):
+        return ml.RlscParams(am_i_printing=log is not None, log_level=3,
+                             log_stream=log, **kw)
+
+    def admm(log):
+        solver = ml.BlockADMMSolver.from_kernel(
+            ctx[623], prox.HingeLoss(), prox.L2Regularizer(), cs.ADMM_LAM,
+            s, k, num_partitions=size["partitions"])
+        solver.maxiter, solver.tol = size["admm_iters"], 0.0
+        return solver.train(X, y)
+
+    return {
+        f"rlsc_approximate_{size['n']}x{size['d']}_s{s}":
+            lambda log: ml.approximate_kernel_rlsc(
+                k, X, y, cs.ML_LAM, s, ctx[620], params(log)),
+        f"rlsc_large_scale_{size['n']}x{size['d']}_s{s}_4blocks":
+            lambda log: ml.large_scale_kernel_rlsc(
+                k, X, y, cs.ML_LAM, s, ctx[621], params(
+                    log, max_split=size["max_split"],
+                    tolerance=cs.ML_BCD_TOLERANCE)),
+        f"rlsc_faster_{rows}x{size['d']}_s{size['faster_s']}":
+            lambda log: ml.faster_kernel_rlsc(
+                k, X[:rows], y[:rows], cs.ML_LAM, size["faster_s"],
+                ctx[622], params(log, tolerance=cs.ML_CG_TOLERANCE)),
+        f"admm_{size['n']}x{size['d']}_s{s}_{size['admm_iters']}it": admm,
+    }
 
 
 def main() -> int:
@@ -242,6 +295,19 @@ def main() -> int:
             row["iterations"] = fn()[1]
             row["idle_ms_per_iteration"] = ((row["warm_ms"] - row["device_ms"])
                                             / row["iterations"])
+        print(json.dumps(row), flush=True)
+    for name, fn in ml_cells(torch, P).items():
+        row = {"cell": f"ml-{name}",
+               "warm_ms": warm_ms(torch, lambda: fn(None))}
+        row.update(profile_call(torch, lambda: fn(None)))
+        row["busy"] = row["device_ms"] / row["warm_ms"]
+        log = io.StringIO()
+        fn(log)
+        iterations = chip_smoke.ml_iterations(log.getvalue())
+        if iterations is not None:
+            row["iterations"] = iterations
+            row["idle_ms_per_iteration"] = (
+                (row["warm_ms"] - row["device_ms"]) / row["iterations"])
         print(json.dumps(row), flush=True)
     chip_smoke.check("jax" not in sys.modules
                      and "libskylark_tpu" not in sys.modules,

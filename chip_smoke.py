@@ -19,19 +19,25 @@ chip_smoke.py``. In order, each phase printing one JSON line:
               heavy tail puts max|plain| far above a typical entry);
             - hash (B2): bit-equal (torch.equal) to the plain scatter run
               on a CPU copy of the operand, also at a span that is not a
-              power of two (s = 300) and at ragged n; and cohorts through
-              the batched entry point (B ∈ {1, 3, 8}, ragged lanes, an
-              all-padding lane, s = 7), every lane also bit-equal to a
-              launch of that lane alone;
+              power of two (s = 300), at ragged n, and at config 5's
+              sketched regression (60000×8192 and 60000×10 → 32768); and
+              cohorts through the batched entry point (B ∈ {1, 3, 8},
+              ragged lanes, an all-padding lane, s = 7), every lane also
+              bit-equal to a launch of that lane alone;
             - fwht (B5): bit-equal on dyadic data (integers in [−8, 8],
               n = 4096 and 65536, both ways), ≤ 1e-4·max|plain| on
               Gaussian data; cohorts as for B2 at every segment plan
               (whole rows at n = 128 and 8192, folded segments at n =
               65536 both ways), every lane bit-equal to its launch alone;
-            - cos (B1-cos): random sc/sh, every regime, ≤ 1e-4·max|plain|;
+            - cos (B1-cos): random sc/sh, every regime, ≤ 1e-4·max|plain|,
+              also at config 5's 60000×784 → 2047, 2048, 2051 and 8192
+              and at its other row counts, 16384 and 10000 → 2048 (d =
+              784 is no multiple of the block columns);
             - fastfood (B4, B4-split): ≤ 1e-4·max|plain| at 16384×4096 →
               4096, d = 1000 → 3000 (padding, 3 blocks, truncation), an
-              odd log2 NB (d = 2048), m = 37, NB = 16384 and NB = 2; and
+              odd log2 NB (d = 2048), m = 37, NB = 16384, NB = 2 and
+              config 5's 60000×784 and 10000×784 → 8192 (NB = 1024, 8
+              blocks); and
               B4-split's first kernel output W torch.equal to
               fut._wht_butterfly(B ⊙ x) at every case (the redesigned
               WHT keeps the butterfly's sum order);
@@ -111,12 +117,33 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             against condest; every product on the CSR route (cuSPARSE),
             B3 both ways and B2-cw launched; spmm/spmm_t timed at the
             SVD's and LSQR's shapes beside their bytes bound;
+4d. ml   — BASELINE config 5 at MNIST's shape (60,000 training and
+            10,000 held-out rows, d = 784, 10 classes; generated with a
+            16-dimensional latent class structure), Gaussian kernel,
+            through the public ml entry points, each step's launches
+            required to be exactly its feature maps' and sketches'
+            (B1-cos, B4, B2-cw): approximate_kernel_rlsc at s = 8192 with
+            Gaussian features, with the regression sketched by the CWT and
+            by the FJLT (DCT), and with Fastfood features, each W held to
+            its normal equations in float64 with the features made again
+            by the plain route (≤ 1e-3·‖ZᵀY‖_F); large_scale_kernel_rlsc
+            (BCD over 4 blocks, tolerance 1e-3, 4 B1-cos launches a sweep,
+            ≤ 1e-2); faster_kernel_rlsc on 16,384 rows with the
+            random-features preconditioner (s = 2048) and without,
+            against kernel_rlsc's Cholesky (rtol 1e-2, atol 1e-3), with
+            fewer CG iterations; BlockADMMSolver.from_kernel (hinge, L2,
+            λ = 0.01, 4 partitions, 10 iterations) against the same maps
+            on their plain route (coefficients ≤ 1e-3·max|coef|, each
+            iteration's objective ≤ 1e-4 relative); every model's
+            held-out accuracy, required above 5× chance; and the ADMM
+            model saved, loaded and predicting torch.equal;
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
             the f32 regime's time and each regime's bound beside it, the
             fp32-FMA bound of f32 too; the LaplacianRFT shape in f32, its
-            route); every
+            route; B1-cos also at config 5's 60000×784 → 2048 and 8192);
+            every
             timed call of a kernel or a plain version draws a new key from
             one Context, as a user solving again does (the Fastfood
             kernels, whose streams are made outside them, are timed on
@@ -1140,42 +1167,45 @@ def time_fwht(torch, P, shapes, peaks: dict) -> list[dict]:
 
 
 def time_cos(torch, P, peaks: dict) -> list[dict]:
-    """Phase 5, B1-cos at config 3's shape: kernel, plain version, and the
-    torch chain on S, sc and sh made beforehand (torch.matmul, TF32 off,
-    then the epilogue's elementwise ops and torch.cos)."""
+    """Phase 5, B1-cos at each of COS_TIME_SHAPES: kernel, plain version,
+    and the torch chain on S, sc and sh made beforehand (torch.matmul,
+    TF32 off, then the epilogue's elementwise ops and torch.cos)."""
     from libskylark_tpu_torch.base import randgen
     from libskylark_tpu_torch.sketch import cuda_dense as cd
     from libskylark_tpu_torch.sketch.dense import virtual_panel
 
-    (m, n), s_dim = RFT_SHAPE, RFT_S
-    A = make_operand(torch, (m, n), 14)
-    dist, ctx = randgen.Normal(), P.Context(16)
-    g = torch.Generator(device="cuda").manual_seed(17)
-    sc = torch.ones(s_dim, device="cuda")
-    sh = 2 * math.pi * torch.rand(s_dim, generator=g, device="cuda")
-    inscale, outscale = 1.0 / math.sqrt(n), math.sqrt(2.0 / s_dim)
+    rows = []
+    for i, ((m, n), s_dim, use) in enumerate(COS_TIME_SHAPES):
+        A = make_operand(torch, (m, n), 14 + 10 * i)
+        dist, ctx = randgen.Normal(), P.Context(16 + 10 * i)
+        g = torch.Generator(device="cuda").manual_seed(17 + 10 * i)
+        sc = torch.ones(s_dim, device="cuda")
+        sh = 2 * math.pi * torch.rand(s_dim, generator=g, device="cuda")
+        inscale, outscale = 1.0 / math.sqrt(n), math.sqrt(2.0 / s_dim)
 
-    def args():
-        return (ctx.allocate().key, dist, A, s_dim, inscale, outscale, sc,
-                sh)
+        def args():
+            return (ctx.allocate().key, dist, A, s_dim, inscale, outscale,
+                    sc, sh)
 
-    ms = event_ms(torch, lambda: cd.rft_rowwise_apply(*args()))
-    f32_ms = event_ms(torch, lambda: cd.rft_rowwise_apply(*args(),
-                                                          precision="f32"))
-    dev_ms = profiled_device_ms(torch, lambda: cd.rft_rowwise_apply(*args()))
-    plain_ms = event_ms(torch, lambda: cd.rft_apply_plain(*args()))
-    S = virtual_panel(ctx.allocate().key, dist, s_dim, 0, n, 1.0,
-                      device=A.device)
-    library_ms = event_ms(torch, lambda: outscale * torch.cos(
-        torch.matmul(A, S.T) * inscale * sc + sh))
-    del A, S
-    # the epilogue's m·s cos aside
-    return [{"kernel": "dense_rowwise_cos", "use": "GaussianRFT.apply "
-             "rowwise", "main_path": True, "shape": [m, n], "s_dim": s_dim,
-             "ms": ms, "f32_ms": f32_ms, "device_ms": dev_ms,
-             "plain_ms": plain_ms, "library_ms": library_ms,
-             **dense_bounds(2.0 * m * n * s_dim, 4.0 * (m * n + m * s_dim),
-                            peaks)}]
+        ms = event_ms(torch, lambda: cd.rft_rowwise_apply(*args()))
+        f32_ms = event_ms(torch, lambda: cd.rft_rowwise_apply(
+            *args(), precision="f32"))
+        dev_ms = profiled_device_ms(torch,
+                                    lambda: cd.rft_rowwise_apply(*args()))
+        plain_ms = event_ms(torch, lambda: cd.rft_apply_plain(*args()))
+        S = virtual_panel(ctx.allocate().key, dist, s_dim, 0, n, 1.0,
+                          device=A.device)
+        library_ms = event_ms(torch, lambda: outscale * torch.cos(
+            torch.matmul(A, S.T) * inscale * sc + sh))
+        del A, S
+        # the epilogue's m·s cos aside
+        rows.append({"kernel": "dense_rowwise_cos", "use": use,
+                     "main_path": True, "shape": [m, n], "s_dim": s_dim,
+                     "ms": ms, "f32_ms": f32_ms, "device_ms": dev_ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     **dense_bounds(2.0 * m * n * s_dim,
+                                    4.0 * (m * n + m * s_dim), peaks)})
+    return rows
 
 
 def wht_chain(torch, A, streams, scale, s_dim):
@@ -2007,7 +2037,11 @@ HASH_CASES = [(name, shape, s) for name, _, shape, s in HASH_SHAPES] + [
     ("hash_columnwise", (12305, 70), 2048),
     ("hash_rowwise", (70, 12305), 1500),
     # the sparse phase's sketch-and-solve: S·b, one column
-    ("hash_columnwise", (262144, 1), 4096)]
+    ("hash_columnwise", (262144, 1), 4096),
+    # config 5's sketched regression: CWT of Z (60000 × 8192) and of Y
+    # (60000 × 10, the class coding) to 4·8192
+    ("hash_columnwise", (60000, 8192), 32768),
+    ("hash_columnwise", (60000, 10), 32768)]
 # dyadic at n = 4096, s = 256 and at n = 65536 (the folded segments);
 # Gaussian at 8192 → 1024 and 65536 → 2048
 FWHT_CASES = [
@@ -2044,12 +2078,31 @@ FWHT_BATCHED_CASES = [
     (False, 2, (65536, 20), 2048, None, True),
     (False, 1, (128, 9), 16, None, False)]
 
-COS_CASES = [(RFT_SHAPE, RFT_S), ((37, 700), 48), ((1000, 3000), 300)]
+COS_CASES = [(RFT_SHAPE, RFT_S), ((37, 700), 48), ((1000, 3000), 300),
+             # config 5 (the ml phase): d = 784 is no multiple of B1's
+             # block columns; the ADMM blocks, the BCD's first three
+             # blocks (a last column tile with 127 of 128 columns live)
+             # and its last (3 live), and the whole map
+             ((60000, 784), 2048), ((60000, 784), 2047),
+             ((60000, 784), 2051), ((60000, 784), 8192),
+             # its other row counts: faster_kernel_rlsc's preconditioner
+             # map and the held-out rows' predictions
+             ((16384, 784), 2048), ((10000, 784), 2048)]
+# B1-cos's timed shapes: config 3's, then config 5's at d = 784 (the
+# ADMM blocks and approximate_kernel_rlsc's whole map)
+COS_TIME_SHAPES = [(RFT_SHAPE, RFT_S, "GaussianRFT.apply rowwise"),
+                   ((60000, 784), 2048, "config 5: an ADMM block"),
+                   ((60000, 784), 8192, "config 5: approximate_kernel_rlsc")]
+
+
 # (m, d, S): config 3; NB = 1024 with 3 blocks, padding and truncation;
 # odd log2 NB; few rows; the largest NB (16384: 1024 threads a row); the
 # smallest (2, three blocks, 256 rows a block)
 FASTFOOD_CASES = [(*RFT_SHAPE, RFT_S), (512, 1000, 3000), (512, 2048, 2048),
-                  (37, 4096, 4096), (64, 16384, 16384), (37, 2, 5)]
+                  (37, 4096, 4096), (64, 16384, 16384), (37, 2, 5),
+                  # config 5: d = 784 padded to NB = 1024, 8 blocks; the
+                  # training rows and the held-out rows
+                  (60000, 784, 8192), (10000, 784, 8192)]
 
 # Config 2 at full width (BASELINE.md:32, LIBSVM rcv1.binary's training
 # set): 20,242 documents × 47,236 features at 0.16% density; the values
@@ -2110,7 +2163,9 @@ def sketch_equal(torch, T, A, dimension) -> dict:
 def sparse_phase(torch, P, np, peaks) -> dict:
     """Phase 4c: config 2 end to end on the card through the public entry
     points, with every launch counter, the product routes and the
-    densification count set to 0 before and read after."""
+    densification count set to 0 before and read after, and the card's
+    memory high-water mark reset before, so that the phase reports its own
+    peak."""
     import tempfile
 
     from libskylark_tpu_torch import algorithms, io, nla, sketch as sk
@@ -2122,6 +2177,7 @@ def sparse_phase(torch, P, np, peaks) -> dict:
     for c in counters() + [bs.products, bs.conversions, native.runs]:
         for k in c:
             c[k] = 0
+    torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     out = {"launches_by_step": {}, "products_by_step": {}}
 
@@ -2357,6 +2413,341 @@ def sparse_phase(torch, P, np, peaks) -> dict:
 SPARSE_KERNELS = ("sparse_rowwise", "sparse_columnwise", "hash_columnwise")
 
 
+# BASELINE config 5 (BASELINE.md:35, "KRR + BlockADMM RLSC";
+# benchmarks/run_all.py bench_admm) at the shape of the reference's
+# skylark_ml demo data, MNIST: 60,000 training and 10,000 held-out rows,
+# d = 784, 10 classes. MNIST is not in the repo; the rows are generated
+# from a seed with MNIST's trait that matters to the solvers, a low
+# intrinsic dimension: a latent z = center_c + N(0, I_16) of class c,
+# mixed into 784 pixels by a fixed Gaussian matrix, plus unit pixel
+# noise. The Gaussian kernel with σ = √(16·784) separates the classes,
+# and its Gram matrix has the decaying spectrum that faster_kernel_rlsc's
+# random-features preconditioner is for.
+ML_FULL = {"n": 60000, "test": 10000, "d": 784, "classes": 10,
+           "latent": 16, "center": 1.0, "noise": 1.0,
+           "s": 8192, "partitions": 4,
+           # the reference's split schedule gives the last block the
+           # remainder: max_split 4095 makes blocks of 2047, 2047, 2047 and
+           # 2051 (4096 would make 2048, 2048 and 4096)
+           "max_split": 4095,
+           "faster_rows": 16384, "faster_s": 2048, "admm_iters": 10}
+ML_LAM = 1.0        # RLSC's λ
+ADMM_LAM = 0.01     # bench_admm's
+# limits of the ml phase, each with its reason
+ML_LIMITS = {
+    # W solves (ZᵀZ + λI)W = ZᵀY in float32 (Cholesky, TF32 off); Z made
+    # again by the plain route (float64 check): 1e-3 of ‖ZᵀY‖_F leaves
+    # room for κ(ZᵀZ + λI)·ε32 at the planted spectrum (4.1e-7 on an H100)
+    "normal_equations": 1e-3,
+    # the BCD stops on the relative update (the reference's default
+    # tolerance 1e-3), not on the residual (2.4e-4 after 141 sweeps on an
+    # H100); the reference's own test holds its residual to 1e-2
+    "bcd_normal_equations": 1e-2,
+    # faster_kernel_rlsc (PCG, tolerance 1e-6) against kernel_rlsc's
+    # Cholesky: the reference's tests/test_ml_krr.py:59
+    "cg_rtol": 1e-2, "cg_atol": 1e-3,
+    # ADMM on the kernel route against the plain route on the same maps:
+    # the features differ by ≤ 1e-4·max|plain| (the check phase), which
+    # ten iterations carry into the coefficients
+    "admm_coef": 1e-3, "admm_objective": 1e-4,
+}
+ML_BCD_TOLERANCE = 1e-3
+ML_CG_TOLERANCE = 1e-6
+
+
+def ml_data(torch, size, device):
+    """(X, y, X_test, y_test) of the ml phase on ``device``, from seed 600:
+    float32 rows, int64 labels."""
+    g = torch.Generator(device=device).manual_seed(600)
+    n, m, d, c, r = (size[k] for k in ("n", "test", "d", "classes",
+                                       "latent"))
+    mix = torch.randn(r, d, generator=g, device=device)
+    centers = size["center"] * torch.randn(c, r, generator=g, device=device)
+    labels = torch.randint(0, c, (n + m,), generator=g, device=device)
+    z = centers[labels] + torch.randn(n + m, r, generator=g, device=device)
+    X = z @ mix + size["noise"] * torch.randn(n + m, d, generator=g,
+                                               device=device)
+    return X[:n].contiguous(), labels[:n], X[n:].contiguous(), labels[n:]
+
+
+def ml_kernel(ml, size):
+    return ml.Gaussian(size["d"], math.sqrt(size["latent"] * size["d"]))
+
+
+def plain_features(torch, T, X):
+    """T's rowwise features on the plain route on X's device: B1-cos's
+    plain version on the same key for a GaussianRFT, the torch chain for a
+    FastGaussianRFT."""
+    from libskylark_tpu_torch.sketch import cuda_dense, cuda_fastfood
+
+    if hasattr(T, "_NB"):
+        return cuda_fastfood.fastfood_plain(T, X)
+    return cuda_dense.rft_apply_plain(
+        T.subkey(0), T.dist, X, T.sketch_dim, T.inscale, T.outscale,
+        T.row_scales(torch.float32, X.device),
+        T.shifts(torch.float32, X.device))
+
+
+class PlainMap:
+    """A feature map whose rowwise apply takes the plain route: the ADMM
+    comparison trains on the same maps with no kernel."""
+
+    def __init__(self, torch, T):
+        self._torch, self.T = torch, T
+        self.sketch_dim, self.input_dim = T.sketch_dim, T.input_dim
+
+    def apply(self, X, dimension=None, device=None):
+        return plain_features(self._torch, self.T, X)
+
+
+def normal_residual(torch, Z, W, Y, lam) -> float:
+    """‖(ZᵀZ + λI)W − ZᵀY‖_F / ‖ZᵀY‖_F in float64."""
+    Z, W, Y = Z.double(), W.double(), Y.double()
+    ZtY = Z.T @ Y
+    r = Z.T @ (Z @ W) + lam * W - ZtY
+    return float(torch.linalg.norm(r) / torch.linalg.norm(ZtY))
+
+
+def held_limit(value, limit) -> dict:
+    return {"value": value, "limit": limit, "ok": value <= limit}
+
+
+def ml_iterations(log_text):
+    """The iteration count a KRR/RLSC solver logs at level 2: the BCD's
+    sweeps ("large_scale_krr: N sweeps, ...") or PCG's iterations
+    ("faster_krr: N CG iterations"); None where the log has neither."""
+    import re
+
+    found = re.search(r"(?:large_scale_krr: (\d+) sweeps|"
+                      r"faster_krr: (\d+) CG iterations)", log_text)
+    return None if found is None else int(found.group(1) or found.group(2))
+
+
+def ml_launch_checks(out) -> None:
+    """Every feature apply and sketch of the ml path took its kernel:
+    each step's launches are exactly the expected ones (a plain route on
+    a CUDA tensor would launch nothing)."""
+    P4 = out["size"]["partitions"]
+    want = {
+        "rlsc_approximate": {"dense_rowwise_cos": 1},
+        "rlsc_sketched_cwt": {"dense_rowwise_cos": 1, "hash_columnwise": 2},
+        "rlsc_sketched_fjlt": {"dense_rowwise_cos": 1},
+        "rlsc_fast": {"fastfood": 1},
+        "rlsc_large_scale": {"dense_rowwise_cos": 4 * out["bcd_sweeps"]},
+        "rlsc_kernel": {},
+        "rlsc_faster": {"dense_rowwise_cos": 1},
+        "rlsc_faster_s0": {},
+        "admm_train": {"dense_rowwise_cos":
+                       P4 * (1 + out["size"]["admm_iters"])},
+        "admm_predict": {"dense_rowwise_cos": P4},
+        "model_load_predict": {"dense_rowwise_cos": P4},
+    }
+    check(out["launches_by_step"] == want,
+          f"ml path launches {out['launches_by_step']}, expected {want}")
+    for k_ in ML_KERNELS:
+        check(out["launches"][k_] > 0,
+              f"kernel {k_} never launched on the ml path")
+
+
+# the kernels the ml phase must launch
+ML_KERNELS = ("dense_rowwise_cos", "fastfood", "hash_columnwise")
+
+
+def ml_phase(torch, P, np, size=ML_FULL, device="cuda") -> dict:
+    """Phase 4d: config 5 on one card through the public entry points, at
+    MNIST's shape, with every launch counter set to 0 before and read
+    after each step (comparisons run outside the steps)."""
+    import contextlib
+    import io as stdio
+    import tempfile
+
+    from libskylark_tpu_torch import ml, sketch as sk
+    from libskylark_tpu_torch.algorithms import prox
+    from libskylark_tpu_torch.sketch import cuda_hash
+
+    for c in counters():
+        for k in c:
+            c[k] = 0
+    if device == "cuda":  # the phase's own peak, not the process's
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    out = {"size": dict(size), "launches_by_step": {}, "step_seconds": {},
+           "checks": {}, "accuracy": {}, "cg_iterations": {}}
+    sync = (lambda: torch.cuda.synchronize()) if device == "cuda" else (
+        lambda: None)
+
+    def step(name, fn):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        out["step_seconds"][name] = time.perf_counter() - t0
+        out["launches_by_step"][name] = {
+            k: v - before[k] for k, v in launch_counts().items()
+            if v != before[k]}
+        return result
+
+    n, s = size["n"], size["s"]
+    X, y, Xte, yte = ml_data(torch, size, device)
+    k = ml_kernel(ml, size)
+    Y = ml.dummy_coding(y, device=device)[0]
+    lim = ML_LIMITS
+
+    def accuracy(name, scores, coding):
+        out["accuracy"][name] = ml.classification_accuracy(
+            ml.dummy_decode(scores, coding), yte)
+
+    # 1. random-features RLSC, s features, and its sketched regressions
+    S, W, coding = step("rlsc_approximate", lambda: ml.approximate_kernel_rlsc(
+        k, X, y, ML_LAM, s, P.Context(601), device=device))
+    Zp = plain_features(torch, S, X)
+    out["checks"]["rlsc_approximate"] = held_limit(
+        normal_residual(torch, Zp, W, Y, ML_LAM), lim["normal_equations"])
+    accuracy("rlsc_approximate",
+             S.apply(Xte, sk.ROWWISE, device=device) @ W, coding)
+    for name, seed, fast in (("rlsc_sketched_cwt", 602, True),
+                             ("rlsc_sketched_fjlt", 603, False)):
+        params = ml.RlscParams(sketched_rls=True, fast_sketch=fast)
+        S2, W2, _ = step(name, lambda: ml.approximate_kernel_rlsc(
+            k, X, y, ML_LAM, s, P.Context(seed), params, device=device))
+        # the sketch the solver drew: the allocation after its map's
+        ctx = P.Context(seed)
+        check(k.create_rft(s, ctx).to_dict() == S2.to_dict(),
+              f"{name}: the feature map is not the context's first")
+        R = sk.CWT(n, 4 * s, ctx) if fast else sk.FJLT(n, 4 * s, ctx)
+        Zp2 = plain_features(torch, S2, X)
+        if fast:  # B2's plain scatter on the card (unordered, allclose)
+            key = R.allocation.key
+            SZ = cuda_hash.cwt_apply_plain(key, Zp2, 4 * s, False)
+            SY = cuda_hash.cwt_apply_plain(key, Y, 4 * s, False)
+        else:  # the FJLT (DCT mixer) has no kernel
+            SZ = R.apply(Zp2, sk.COLUMNWISE, device=device)
+            SY = R.apply(Y, sk.COLUMNWISE, device=device)
+        del Zp2
+        out["checks"][name] = held_limit(
+            normal_residual(torch, SZ, W2, SY, ML_LAM),
+            lim["normal_equations"])
+        del SZ, SY
+    # 2. the same with Fastfood features (B4 at d = 784: NB = 1024)
+    S4, W4, coding4 = step("rlsc_fast", lambda: ml.approximate_kernel_rlsc(
+        k, X, y, ML_LAM, s, P.Context(604), ml.RlscParams(use_fast=True),
+        device=device))
+    del Zp
+    Zp = plain_features(torch, S4, X)
+    out["checks"]["rlsc_fast"] = held_limit(
+        normal_residual(torch, Zp, W4, Y, ML_LAM), lim["normal_equations"])
+    accuracy("rlsc_fast", S4.apply(Xte, sk.ROWWISE, device=device) @ W4,
+             coding4)
+    del Zp
+    # 3. block coordinate descent over 4 blocks
+    log = stdio.StringIO()
+    params = ml.RlscParams(max_split=size["max_split"],
+                           tolerance=ML_BCD_TOLERANCE, am_i_printing=True,
+                           log_level=3, log_stream=log)
+    maps, W5, coding5 = step("rlsc_large_scale",
+                             lambda: ml.large_scale_kernel_rlsc(
+                                 k, X, y, ML_LAM, s, P.Context(605), params,
+                                 device=device))
+    out["bcd_blocks"] = [T.sketch_dim for T in maps]
+    out["bcd_sweeps"] = ml_iterations(log.getvalue())
+    check(len(maps) == 4 and out["bcd_sweeps"] < params.iter_lim,
+          f"BCD: blocks {out['bcd_blocks']}, sweeps {out['bcd_sweeps']}")
+    Zp = torch.cat([plain_features(torch, T, X) for T in maps], 1)
+    out["checks"]["rlsc_large_scale"] = held_limit(
+        normal_residual(torch, Zp, W5, Y, ML_LAM),
+        lim["bcd_normal_equations"])
+    del Zp
+    accuracy("rlsc_large_scale", torch.cat(
+        [T.apply(Xte, sk.ROWWISE, device=device) for T in maps], 1) @ W5,
+        coding5)
+    # 4. exact Gram on the first rows: Cholesky, and PCG with and without
+    # the random-features preconditioner
+    rows = size["faster_rows"]
+    Xf, yf = X[:rows], y[:rows]
+    A, codingf = step("rlsc_kernel", lambda: ml.kernel_rlsc(
+        k, Xf, yf, ML_LAM, device=device))
+    for name, sf, seed in (("rlsc_faster", size["faster_s"], 606),
+                           ("rlsc_faster_s0", 0, 607)):
+        log = stdio.StringIO()
+        params = ml.RlscParams(tolerance=ML_CG_TOLERANCE, am_i_printing=True,
+                               log_level=3, log_stream=log)
+        Acg, _ = step(name, lambda: ml.faster_kernel_rlsc(
+            k, Xf, yf, ML_LAM, sf, P.Context(seed), params, device=device))
+        it = ml_iterations(log.getvalue())
+        out["cg_iterations"][name] = it
+        diff = (Acg - A).abs().double()
+        excess = float((diff - lim["cg_rtol"] * A.abs().double()).max())
+        out["checks"][name] = {
+            "max_abs_err": float(diff.max()), "excess": excess,
+            "limit": f"|Δ| <= {lim['cg_atol']} + {lim['cg_rtol']}·|A|",
+            "iterations": it, "ok": excess <= lim["cg_atol"]
+            and 0 < it < params.iter_lim}
+    check(out["cg_iterations"]["rlsc_faster"]
+          < out["cg_iterations"]["rlsc_faster_s0"],
+          f"the preconditioner saved no CG iterations: "
+          f"{out['cg_iterations']}")
+    accuracy("rlsc_kernel", ml.krr_predict(k, Xte, Xf, A, device=device),
+             codingf)
+    # 5. Block-ADMM: bench_admm's settings on the kernel route, and on the
+    # plain route with the same maps
+    solver = ml.BlockADMMSolver.from_kernel(
+        P.Context(608), prox.HingeLoss(), prox.L2Regularizer(), ADMM_LAM, s,
+        k, num_partitions=size["partitions"])
+    plain = ml.BlockADMMSolver.with_maps(
+        prox.HingeLoss(), prox.L2Regularizer(),
+        [PlainMap(torch, T) for T in solver.feature_maps], ADMM_LAM)
+    objectives = {}
+    models = {}
+    for name, sv in (("admm_train", solver), ("admm_plain", plain)):
+        sv.maxiter, sv.tol = size["admm_iters"], 0.0
+        buf = stdio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            models[name] = (step(name, lambda: sv.train(X, y, verbose=True,
+                                                        device=device))
+                            if name == "admm_train"
+                            else sv.train(X, y, verbose=True, device=device))
+        objectives[name] = [float(ln.split()[3])
+                            for ln in buf.getvalue().splitlines()]
+    model, pmodel = models["admm_train"], models["admm_plain"]
+    coef_err = float((model.coef - pmodel.coef).abs().max()
+                     / pmodel.coef.abs().max())
+    obj_err = max(abs(a - b) / abs(b) for a, b in
+                  zip(objectives["admm_train"], objectives["admm_plain"]))
+    check(len(objectives["admm_train"]) == size["admm_iters"],
+          f"ADMM printed {len(objectives['admm_train'])} objectives")
+    out["admm_objectives"] = objectives["admm_train"]
+    out["checks"]["admm_coef"] = held_limit(coef_err, lim["admm_coef"])
+    out["checks"]["admm_objective"] = held_limit(obj_err,
+                                                 lim["admm_objective"])
+    labels, DV = step("admm_predict", lambda: model.predict(Xte))
+    out["accuracy"]["admm"] = ml.classification_accuracy(labels, yte)
+    out["accuracy"]["admm_plain"] = ml.classification_accuracy(
+        pmodel.predict(Xte)[0], yte)
+    # 6. the trained model saved, loaded and predicting the same bits
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/model.json"
+        model.save(path, header="chip_smoke ml phase")
+        loaded = step("model_load_predict", lambda: ml.HilbertModel.load(
+            path, device=device).predict(Xte))
+    out["checks"]["model_round_trip"] = {
+        "ok": bool(torch.equal(loaded[0], labels)
+                   and torch.equal(loaded[1], DV))}
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = {k_: sum(st.get(k_, 0) for st in
+                               out["launches_by_step"].values())
+                       for k_ in launch_counts()}
+    if device == "cuda":
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    emit("ml", **out)
+    bad = {name: c for name, c in out["checks"].items() if not c["ok"]}
+    check(not bad, f"ml phase checks failed: {bad}")
+    chance = 100.0 / size["classes"]
+    check(all(a > 5 * chance for a in out["accuracy"].values()),
+          f"held-out accuracy near chance: {out['accuracy']}")
+    ml_launch_checks(out)
+    return out
+
+
 CSRC = "libskylark_tpu_torch/csrc/"
 # kernel: (source, the TPU kernel it replaces)
 KERNELS = {
@@ -2438,6 +2829,7 @@ def main() -> int:
     serve = serve_phase(torch, P, np)
     emit("serve_cells", cells=serve_cells(torch, np))
     sparse = sparse_phase(torch, P, np, peaks)
+    ml_path = ml_phase(torch, P, np)
     rows = (time_kernels(torch, P, MAIN_SHAPES, True, peaks)
             + time_kernels(torch, P, SPLIT_LS_SHAPES, False, peaks)
             + time_hash(torch, P, HASH_SHAPES, peaks)
@@ -2490,7 +2882,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (main["launches"][name] + serve["launches"][name]
-                         + sparse["launches"][name]),
+                         + sparse["launches"][name]
+                         + ml_path["launches"][name]),
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],
             "ms": head["ms"], "device_ms": head["device_ms"],

@@ -41,13 +41,19 @@ class NLAError(SkylarkError):
     code = 109
 
 
+class MLError(SkylarkError):
+    """ML-layer error."""
+
+    code = 110
+
+
 class IOError_(SkylarkError):
     """Data IO error."""
 
     code = 111
 
 
-class NotImplementedYetError(SkylarkError):
+class NotImplementedYetError(SkylarkError, NotImplementedError):
     """Declared in the API surface but not yet implemented."""
 
     code = 112

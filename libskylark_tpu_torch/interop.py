@@ -3,7 +3,8 @@
 The system has no weights: a transform's state is its allocation (seed,
 counter, path), N, S and extra hyper-parameters (CT's C), all in its JSON
 form, plus the raw (2,) uint32 key data the serve path passes around; a
-kernel's is its type, N and parameters, in its JSON form.
+kernel's is its type, N and parameters, in its JSON form. A trained
+model's weights are its coefficient matrix beside its maps' JSON forms.
 These helpers take what ``libskylark_tpu`` writes and return the port's
 objects; nothing here imports the JAX package.
 """
@@ -18,6 +19,7 @@ import numpy as np
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.context import Context
 from libskylark_tpu_torch.ml.kernels import Kernel, deserialize_kernel
+from libskylark_tpu_torch.ml.model import HilbertModel
 from libskylark_tpu_torch.sketch.transform import (SketchTransform,
                                                    deserialize_sketch)
 
@@ -30,6 +32,14 @@ def transform_from_reference(d: Union[dict[str, Any], str]) -> SketchTransform:
 def kernel_from_reference(d: Union[dict[str, Any], str]) -> Kernel:
     """The port's kernel for a reference ``Kernel.to_dict()``/JSON."""
     return deserialize_kernel(d)
+
+
+def hilbert_model_from_reference(d: Union[dict[str, Any], str],
+                                 device=None) -> HilbertModel:
+    """The port's model for a reference ``HilbertModel.to_dict()``, its
+    JSON text or a model file's path; the coefficients land on
+    ``device``."""
+    return HilbertModel.load(d, device)
 
 
 def key_from_numpy(kd) -> np.ndarray:

@@ -1,0 +1,36 @@
+"""Dominant-subspace approximation by two-level sketching (the port of
+``approximate_dominant_subspace_basis`` of libskylark_tpu/nla/lowrank.py,
+which ml.nonlinear's SketchPCR uses; its serve endpoint is not ported):
+sketch twice (sizes s and t), QR the first sketch, SVD the cross product,
+truncate."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from libskylark_tpu_torch.base.context import Context
+
+
+def approximate_dominant_subspace_basis(
+    A, k: int, s: int, t: int, context: Context, kernel=None,
+    tag: str = "regular", device=None,
+) -> Tuple[torch.Tensor, object, torch.Tensor, torch.Tensor]:
+    """Returns (Z, S, R, V) with Z = QR(S(A)).Q·V; S is the feature
+    transform kept so that test points map through the same sketch.
+    ``s = Ω(k/ε)``, ``t = Ω(k/ε²)`` give the (1+ε)‖A_k − A‖_F
+    guarantee."""
+    from libskylark_tpu_torch import sketch as sk
+    from libskylark_tpu_torch.ml.kernels import Linear
+
+    if kernel is None:
+        kernel = Linear(A.shape[1])
+    S = kernel.create_rft(s, context, tag)
+    X = S.apply(A, sk.ROWWISE, device=device)
+    T = kernel.create_rft(t, context, tag)
+    Y = T.apply(A, sk.ROWWISE, device=X.device)
+    U, R = torch.linalg.qr(X)
+    M = torch.linalg.svd(U.T @ Y, full_matrices=False)[0]
+    V = M[:, :k]
+    return U @ V, S, R, V

@@ -49,7 +49,10 @@ def test_port_and_chip_smoke_import_no_jax():
                 "base.distance", "ml.kernels", "base.sparse", "io.libsvm",
                 "engine.bucket", "engine.serve", "sketch.sparse_serve",
                 "sketch.cuda_sparse", "base.sprand", "nla.condest",
-                "io.native", "io.arclist"):
+                "io.native", "io.arclist", "algorithms.prox", "ml.coding",
+                "ml.metrics", "ml.krr", "ml.rlsc", "ml.model", "ml.admm",
+                "ml.nonlinear", "ml.modeling", "nla.lowrank",
+                "telemetry.metrics", "utility.timer"):
         assert f"libskylark_tpu_torch.{mod}" in report["modules"]
 
 
