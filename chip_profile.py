@@ -57,6 +57,17 @@ iterations, with the same fields as above; the BCD and the PCG also with
 ``iterations`` (sweeps, CG iterations) and ``idle_ms_per_iteration``, the
 card's idle time per iteration, where the host reads the stopping test.
 
+Then one ``a3-<cell>`` line per cell of chip_smoke.py's a3 phase
+(``a3_cells``): MaternRFT and FastMaternRFT (ν = 1.5, l = 64) on config
+3's X 16384×4096 → 4096, each call drawing its Gamma scales on the card;
+BlockADMMSolver's 10 iterations on Matern(784, ν = 1.5) at config 5;
+randomized_svd at rank 64 (q = 2) of the 8192² gap operand;
+lobpcg_rand_evd (CWT) on the 65536×512 least-squares operand, whose
+LOBPCG runs on the host; approximate_ase (k = 6, q = 2, the sparse route)
+of the scale-18 R-MAT graph; rand_block_fcg on the 16,384-row Gaussian
+Gram system, with ``iterations`` and ``idle_ms_per_iteration``; the same
+fields as above.
+
 It ends with the card's name and power limit as nvidia-smi gives them.
 It exits non-zero without a CUDA device. It imports neither jax nor
 libskylark_tpu.
@@ -202,6 +213,75 @@ def ml_cells(torch, P) -> dict:
     }
 
 
+def a3_cells(torch, P, np) -> dict:
+    """The a3 phase's cells on its operands, each call with a new key from
+    the cell's one Context: name -> fn."""
+    from libskylark_tpu_torch import algorithms, ml, nla, sketch as sk
+    from libskylark_tpu_torch.algorithms import krylov, prox
+
+    cs = chip_smoke
+    size = cs.A3_FULL
+    m, d, s = size["rft_rows"], size["rft_d"], size["rft_s"]
+    X = cs.make_operand(torch, (m, d), 12)
+    asz = size["admm"]
+    Xa, ya, _, _ = cs.ml_data(torch, asz, "cuda")
+    matern = ml.Matern(asz["d"], nu=size["admm_nu"],
+                       l=(asz["latent"] * asz["d"]) ** 0.5)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    n, r, k = size["krank_n"], size["krank_r"], size["rank"]
+    U0 = torch.linalg.qr(torch.randn(n, r, generator=g, device="cuda"))[0]
+    V0 = torch.linalg.qr(torch.randn(n, r, generator=g, device="cuda"))[0]
+    i = torch.arange(r, device="cuda", dtype=torch.float32)
+    sigma = torch.where(i < k, 1.0 - i / (2 * k),
+                        cs.A3_GAP[0] * cs.A3_GAP[1] ** (i - k))
+    Ak = (U0 * sigma) @ V0.T
+    del U0, V0
+    Als, _ = cs.ls_operands(torch)
+    src, dst = cs.rmat_edges(np, size["graph_scale"],
+                             size["graph_edge_factor"],
+                             (0.57, 0.19, 0.19, 0.05), 750)
+    G = ml.Graph()
+    for u, v in zip(src.tolist(), dst.tolist()):
+        G.add_edge(u, v)
+    Kb = cs.ml_kernel(ml, asz).gram(Xa[:size["block_rows"]], device="cuda")
+    Kb.diagonal().add_(1.0)
+    Bb = torch.nn.functional.one_hot(ya[:size["block_rows"]],
+                                     asz["classes"]).float()
+    ctx = {seed: P.Context(seed) for seed in range(780, 787)}
+    ase = nla.ApproximateSVDParams(num_iterations=2, oversampling_ratio=2)
+    kprm = krylov.KrylovParams(tolerance=size["fcg_tolerance"],
+                               iter_lim=size["fcg_iter_lim"])
+
+    def admm():
+        solver = ml.BlockADMMSolver.from_kernel(
+            ctx[782], prox.HingeLoss(), prox.L2Regularizer(), cs.ADMM_LAM,
+            asz["s"], matern, num_partitions=asz["partitions"])
+        solver.maxiter, solver.tol = asz["admm_iters"], 0.0
+        return solver.train(Xa, ya)
+
+    def lobpcg():
+        import warnings
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return nla.lobpcg_rand_evd(Als, size["evd_k"], ctx[784],
+                                       sketch="cwt")
+
+    return {
+        "matern-rft": lambda: sk.MaternRFT(
+            d, s, ctx[780], nu=1.5, l=d ** 0.5).apply(X, sk.ROWWISE),
+        "fast-matern": lambda: sk.FastMaternRFT(
+            d, s, ctx[781], nu=1.5, l=d ** 0.5).apply(X, sk.ROWWISE),
+        "admm-matern": admm,
+        "krank": lambda: nla.randomized_svd(Ak, k, ctx[783], q=2),
+        "lobpcg-cwt": lobpcg,
+        "graph-ase": lambda: ml.approximate_ase(G, size["ase_k"], ctx[785],
+                                                ase, sparse=True),
+        "asynch-fcg": lambda: algorithms.asynch.rand_block_fcg(
+            Kb, Bb, ctx[786], algorithms.asynch.RandBlockParams(), kprm),
+    }
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -308,6 +388,15 @@ def main() -> int:
             row["iterations"] = iterations
             row["idle_ms_per_iteration"] = (
                 (row["warm_ms"] - row["device_ms"]) / row["iterations"])
+        print(json.dumps(row), flush=True)
+    for name, fn in a3_cells(torch, P, np).items():
+        row = {"cell": f"a3-{name}", "warm_ms": warm_ms(torch, fn)}
+        row.update(profile_call(torch, fn))
+        row["busy"] = row["device_ms"] / row["warm_ms"]
+        if name == "asynch-fcg":
+            row["iterations"] = fn()[1]
+            row["idle_ms_per_iteration"] = ((row["warm_ms"] - row["device_ms"])
+                                            / row["iterations"])
         print(json.dumps(row), flush=True)
     chip_smoke.check("jax" not in sys.modules
                      and "libskylark_tpu" not in sys.modules,

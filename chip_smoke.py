@@ -137,6 +137,25 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             iteration's objective ≤ 1e-4 relative); every model's
             held-out accuracy, required above 5× chance; and the ADMM
             model saved, loaded and predicting torch.equal;
+4e. a3   — the rest of the single-card ML and NLA, each step's launches
+            required to be exactly its kernels': jax.random's Gamma
+            sampler on the card against the CPU route (10⁵ samples at
+            shapes 0.3–10: at most one flip in 10⁴, the rest within 1e-5
+            relative); MaternRFT (B1-cos with Gamma-derived scales) and
+            FastMaternRFT (B4 with the Matern Sm) at config 3's shape, ν ∈
+            {0.5, 1.5, 2.5}, each held to Matern.gram on 512 rows;
+            Block-ADMM on Matern(784, ν = 1.5) with the ml phase's
+            settings against the same maps on their plain route; the
+            five range finders, RangeAssistedSVD/EVD and randomized_svd
+            on an 8192² operand with a spectral gap at rank 64;
+            lobpcg_rand_evd (CWT, JLT, FJLT) and power_iterations_rand_evd
+            on the 65536×512 least-squares operand against the same
+            iterations from the kernel's plain sketch or in float64;
+            approximate_ase (sparse and dense routes) on a scale-18 R-MAT
+            graph against a float64 replay, find_local_cluster from three
+            seeds, and the graph serve programs against float64 replays;
+            rand_block_gauss_seidel and rand_block_fcg on a 16,384-row
+            Gaussian Gram system against the same sweeps in float64;
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
@@ -508,53 +527,95 @@ def check_cos(torch, P, cases) -> list:
     """Phase 3, B1-cos: each case in every regime against rft_apply_plain
     of that regime on the same inputs, with random per-feature scales and
     shifts (they are indexed by the output column), inscale 1/√n and
-    outscale √(2/s)."""
+    outscale √(2/s). A case with a third entry ν takes a MaternRFT's
+    inputs instead (l = √n): its Gamma-derived scales √(2ν/χ²(2ν)),
+    heavy-tailed at small ν, multiply the phase, so it is held entry by
+    entry within the phase's elementwise limit times cos's Lipschitz
+    factor, outscale·sc_j·TOL·(|A|·|S|ᵀ)_ij."""
+    from libskylark_tpu_torch import sketch as sk
     from libskylark_tpu_torch.base import randgen
     from libskylark_tpu_torch.sketch import cuda_dense as cd
 
     results = []
-    for i, (shape, s_dim) in enumerate(cases):
+    for i, case in enumerate(cases):
+        shape, s_dim = case[:2]
+        nu = case[2] if len(case) > 2 else None
         key = P.Context(400 + i).allocate().key
         A = make_operand(torch, shape, 4000 + i)
         g = torch.Generator(device="cuda").manual_seed(4100 + i)
         sc = 0.5 + torch.rand(s_dim, generator=g, device="cuda")
         sh = 2 * math.pi * torch.rand(s_dim, generator=g, device="cuda")
-        args = (key, randgen.Normal(), A, s_dim, 1.0 / math.sqrt(shape[1]),
-                math.sqrt(2.0 / s_dim), sc, sh)
+        inscale, outscale = 1.0 / math.sqrt(shape[1]), math.sqrt(2.0 / s_dim)
+        limit = None
+        if nu is not None:
+            T = sk.MaternRFT(shape[1], s_dim, P.Context(400 + i), nu=nu,
+                             l=math.sqrt(shape[1]))
+            key, inscale = T.subkey(0), T.inscale
+            sc, sh = T.row_scales(device="cuda"), T.shifts(device="cuda")
+            limit = outscale * sc.double()[None, :] * elementwise_limit(
+                torch, key, randgen.Normal(), A, s_dim, inscale, True)
+        args = (key, randgen.Normal(), A, s_dim, inscale, outscale, sc, sh)
         for p in REGIMES:
             got = cd.rft_rowwise_apply(*args, precision=p)
             want = cd.rft_apply_plain(*args, precision=p)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()),
                   "cos kernel output not finite")
-            err = float((got - want).abs().max())
-            rel = err / float(want.abs().max())
             results.append({"kernel": "dense_rowwise_cos", "regime": p,
                             "shape": list(shape), "s_dim": s_dim,
-                            "max_abs_err": err, "max_rel_err": rel,
-                            "ok": rel <= TOL})
+                            **({"matern_nu": nu} if nu is not None else {}),
+                            **held(torch, got, want, limit)})
             del got, want
-        del A
+        del A, limit
     emit("check", tolerance=f"B1-cos: max|kernel-plain| <= {TOL} * "
-                            "max|plain|", cases=results)
+                            "max|plain|; Matern scales entry by entry, "
+                            f"outscale·sc·{TOL}·(|A|·|S|ᵀ)", cases=results)
     bad = [r for r in results if not r["ok"]]
     check(not bad, f"cos kernel disagrees with its plain version: {bad}")
     return results
 
 
+def fastfood_limit(torch, T, A):
+    """The Fastfood phase's elementwise limit times cos's Lipschitz
+    factor: the phase of feature j (block b) is scal·Sm_j times the last
+    WHT's sum of ±scal·G_k·W_π(k), W = H(B ⊙ x); |Δ| ≤ outscale ·
+    |scal·Sm_j| · TOL · Σ_k |scal·G_k|·|W_π(k)| (m, S), in float64, W made
+    by the plain butterfly."""
+    from libskylark_tpu_torch.sketch import cuda_fastfood as cf
+    from libskylark_tpu_torch.sketch.fut import _wht_butterfly
+
+    bdiag, perms, gdiag, smdiag, _ = cf.kernel_streams(T, A.device)
+    nb, NB = bdiag.shape
+    m = A.shape[0]
+    X = torch.nn.functional.pad(A, (0, NB - A.shape[1]))
+    W = _wht_butterfly(bdiag[:, None, :] * X[None], axis=2).abs()
+    W = torch.gather(W, 2, perms[:, None, :].expand(nb, m, NB)).double()
+    R = (W * gdiag.double().abs()[:, None, :]).sum(2)          # (nb, m)
+    del W, X
+    lim = TOL * T.scale * (R[:, :, None]
+                           * smdiag.double().abs()[:, None, :])
+    return lim.permute(1, 0, 2).reshape(m, nb * NB)[:, :T._S]
+
+
 def check_fastfood(torch, P, cases) -> list:
     """Phase 3, B4 and B4-split: each case's FastGaussianRFT (σ = √d)
     through both variants against fastfood_plain, the torch chain, on the
-    same operand."""
+    same operand. A case with a fourth entry ν is a FastMaternRFT (l =
+    √d) with its Gamma-derived Sm, held entry by entry within
+    :func:`fastfood_limit`."""
     from libskylark_tpu_torch import sketch as sk
     from libskylark_tpu_torch.sketch import cuda_fastfood as cf
 
     from libskylark_tpu_torch.sketch.fut import _wht_butterfly
 
     results = []
-    for i, (m, d, s_dim) in enumerate(cases):
-        T = sk.FastGaussianRFT(d, s_dim, P.Context(500 + i),
-                               sigma=math.sqrt(d))
+    for i, case in enumerate(cases):
+        m, d, s_dim = case[:3]
+        nu = case[3] if len(case) > 3 else None
+        T = (sk.FastGaussianRFT(d, s_dim, P.Context(500 + i),
+                                sigma=math.sqrt(d)) if nu is None
+             else sk.FastMaternRFT(d, s_dim, P.Context(500 + i), nu=nu,
+                                   l=math.sqrt(d)))
         A = make_operand(torch, (m, d), 5000 + i)
         # B4-split's first kernel: W = H(B ⊙ x), x zero-padded to NB, laid
         # out (nb, m, NB), in the butterfly's sum order bit for bit
@@ -565,22 +626,24 @@ def check_fastfood(torch, P, cases) -> list:
             bdiag[:, None, :] * X[None], axis=2)))
         del W, X
         want = cf.fastfood_plain(T, A)
+        limit = None if nu is None else fastfood_limit(torch, T, A)
         for name, variant in (("fastfood", "fused"),
                               ("fastfood_split", "split")):
             got = cf.features_rows(T, A, variant)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()),
                   f"{name} output not finite")
-            err = float((got - want).abs().max())
-            rel = err / float(want.abs().max())
+            h = held(torch, got, want, limit)
             split = variant == "split"
             results.append({"kernel": name, "shape": [m, d], "s_dim": s_dim,
                             "NB": T._NB, "blocks": T._numblks,
-                            "max_abs_err": err, "max_rel_err": rel,
+                            **({"matern_nu": nu} if nu is not None else {}),
+                            **h,
                             **({"w_bit_equal": w_equal} if split else {}),
-                            "ok": rel <= TOL and (w_equal or not split)})
-        del A, want
+                            "ok": h["ok"] and (w_equal or not split)})
+        del A, want, limit
     emit("check", tolerance=f"B4: max|kernel-plain| <= {TOL} * max|plain|; "
+                            "Matern Sm entry by entry (fastfood_limit); "
                             "B4-split's W torch.equal to the butterfly",
          cases=results)
     bad = [r for r in results if not r["ok"]]
@@ -1169,17 +1232,26 @@ def time_fwht(torch, P, shapes, peaks: dict) -> list[dict]:
 def time_cos(torch, P, peaks: dict) -> list[dict]:
     """Phase 5, B1-cos at each of COS_TIME_SHAPES: kernel, plain version,
     and the torch chain on S, sc and sh made beforehand (torch.matmul,
-    TF32 off, then the epilogue's elementwise ops and torch.cos)."""
+    TF32 off, then the epilogue's elementwise ops and torch.cos); then at
+    config 3's shape again with a MaternRFT's Gamma-derived scales (ν =
+    0.5, phases up to ~10⁴ rad: cosf's argument reduction does more work
+    than at GaussianRFT's phases of a few rad)."""
     from libskylark_tpu_torch.base import randgen
     from libskylark_tpu_torch.sketch import cuda_dense as cd
     from libskylark_tpu_torch.sketch.dense import virtual_panel
 
     rows = []
-    for i, ((m, n), s_dim, use) in enumerate(COS_TIME_SHAPES):
+    from libskylark_tpu_torch import sketch as sk
+
+    matern = (RFT_SHAPE, RFT_S, "MaternRFT.apply rowwise (nu = 0.5)")
+    for i, ((m, n), s_dim, use) in enumerate(COS_TIME_SHAPES + [matern]):
         A = make_operand(torch, (m, n), 14 + 10 * i)
         dist, ctx = randgen.Normal(), P.Context(16 + 10 * i)
         g = torch.Generator(device="cuda").manual_seed(17 + 10 * i)
         sc = torch.ones(s_dim, device="cuda")
+        if use.startswith("MaternRFT"):
+            sc = sk.MaternRFT(n, s_dim, P.Context(19), nu=0.5,
+                              l=math.sqrt(n)).row_scales(device="cuda")
         sh = 2 * math.pi * torch.rand(s_dim, generator=g, device="cuda")
         inscale, outscale = 1.0 / math.sqrt(n), math.sqrt(2.0 / s_dim)
 
@@ -1200,7 +1272,8 @@ def time_cos(torch, P, peaks: dict) -> list[dict]:
         del A, S
         # the epilogue's m·s cos aside
         rows.append({"kernel": "dense_rowwise_cos", "use": use,
-                     "main_path": True, "shape": [m, n], "s_dim": s_dim,
+                     "main_path": not use.startswith("MaternRFT"),
+                     "shape": [m, n], "s_dim": s_dim,
                      "ms": ms, "f32_ms": f32_ms, "device_ms": dev_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      **dense_bounds(2.0 * m * n * s_dim,
@@ -2027,6 +2100,13 @@ def check_cases() -> list:
                   ("dense_columnwise", dist, (1024, 8192), 1024),
                   ("dense_rowwise", dist, (1000, 3000), 300),
                   ("dense_columnwise", dist, (3000, 1000), 300)]
+    # the a3 phase: lobpcg_rand_evd's JLT sketch, the power-iteration
+    # EVD's range sketch, and the dense ASE's at k' = 12 (its subgraph has
+    # at most 2048 vertices: whole and ragged)
+    cases += [("dense_columnwise", "normal", (65536, 512), 2048),
+              ("dense_rowwise", "normal", (65536, 512), 10),
+              ("dense_rowwise", "normal", (2048, 2048), 12),
+              ("dense_rowwise", "normal", (1531, 1531), 12)]
     return cases
 
 
@@ -2087,7 +2167,12 @@ COS_CASES = [(RFT_SHAPE, RFT_S), ((37, 700), 48), ((1000, 3000), 300),
              ((60000, 784), 2051), ((60000, 784), 8192),
              # its other row counts: faster_kernel_rlsc's preconditioner
              # map and the held-out rows' predictions
-             ((16384, 784), 2048), ((10000, 784), 2048)]
+             ((16384, 784), 2048), ((10000, 784), 2048),
+             # the a3 phase: MaternRFT at config 3's shape (ν = 0.5 takes
+             # the Gamma boost), and Block-ADMM on Matern(784, ν = 1.5)
+             (RFT_SHAPE, RFT_S, 0.5), (RFT_SHAPE, RFT_S, 1.5),
+             (RFT_SHAPE, RFT_S, 2.5), ((60000, 784), 2048, 1.5),
+             ((10000, 784), 2048, 1.5)]
 # B1-cos's timed shapes: config 3's, then config 5's at d = 784 (the
 # ADMM blocks and approximate_kernel_rlsc's whole map)
 COS_TIME_SHAPES = [(RFT_SHAPE, RFT_S, "GaussianRFT.apply rowwise"),
@@ -2102,7 +2187,10 @@ FASTFOOD_CASES = [(*RFT_SHAPE, RFT_S), (512, 1000, 3000), (512, 2048, 2048),
                   (37, 4096, 4096), (64, 16384, 16384), (37, 2, 5),
                   # config 5: d = 784 padded to NB = 1024, 8 blocks; the
                   # training rows and the held-out rows
-                  (60000, 784, 8192), (10000, 784, 8192)]
+                  (60000, 784, 8192), (10000, 784, 8192),
+                  # the a3 phase: FastMaternRFT at config 3's shape
+                  (*RFT_SHAPE, RFT_S, 0.5), (*RFT_SHAPE, RFT_S, 1.5),
+                  (*RFT_SHAPE, RFT_S, 2.5)]
 
 # Config 2 at full width (BASELINE.md:32, LIBSVM rcv1.binary's training
 # set): 20,242 documents × 47,236 features at 0.16% density; the values
@@ -2748,6 +2836,589 @@ def ml_phase(torch, P, np, size=ML_FULL, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 4e (a3): the rest of the single-card ML and NLA
+# ---------------------------------------------------------------------------
+
+# The a3 phase's sizes. Matern features at config 3's shape (l = σ of its
+# GaussianRFT, √d); Block-ADMM on Matern(784, ν = 1.5) at config 5 (the
+# ml phase's data and settings, l = that phase's σ); krank on config 4's
+# 8192² SVD operand shape with a gap at the rank; randlobpcg on the
+# least-squares operand; an R-MAT graph of Graph500's generator at scale
+# 18 and edge factor 4 (SNAP com-DBLP's size, the kind of graph that
+# TD-PPR community detection runs on); the block solvers on the Gaussian
+# Gram matrix of ml-rlsc-faster's 16,384 rows.
+A3_FULL = {"rft_rows": 16384, "rft_d": 4096, "rft_s": 4096,
+           "gram_rows": 512, "nus": (0.5, 1.5, 2.5),
+           "gamma_n": 100000,
+           "gamma_shapes": (0.3, 0.5, 1.0, 1.5, 2.5, 10.0),
+           "admm": ML_FULL, "admm_nu": 1.5,
+           "krank_n": 8192, "krank_r": 512, "rank": 64,
+           "adaptive_eps": 0.5, "adaptive_r": 10, "adaptive_iters": 200,
+           "ls_rows": 65536, "ls_cols": 512, "evd_k": 10,
+           "graph_scale": 18, "graph_edge_factor": 4,
+           "dense_sub": 2048, "serve_sub": 4096, "cluster_seeds": 3,
+           "ase_k": 6, "block_rows": 16384, "fcg_tolerance": 1e-5,
+           "fcg_iter_lim": 500}
+# limits of the a3 phase, each with its reason
+A3_LIMITS = {
+    # Gamma on the card against the CPU route: an element whose accept
+    # test (a backend-rounded log) flips takes another draw; at most one
+    # in 10^4 samples may, and the rest agree within 1e-5 relative
+    # (ROADMAP C2)
+    "gamma_flips_per_sample": 1e-4, "gamma_rel": 1e-5,
+    # the Monte-Carlo Gram limits of the feature maps (PERF.md §2)
+    "gram_max": 0.1, "gram_mean": 0.02,
+    # the ml phase's ADMM limits
+    "admm_coef": 1e-3, "admm_objective": 1e-4,
+    # krank: σ and λ within 1e-3 of the operand's, reconstruction within
+    # 1.01 × the optimal tail + 1e-4 (the main path's SVD limits)
+    "sigma_rel": 1e-3, "recon_factor": 1.01, "recon_add": 1e-4,
+    # the port against the same algorithm replayed in float64 from the
+    # same random draws
+    "replay_rel": 1e-3, "ase_rel": 1e-3, "serve_rel": 1e-4,
+    "block_rel": 1e-3,
+}
+# the krank operand's spectrum: 64 values from 1 down to 0.51, then a gap
+# to 0.05·0.95^j (ROADMAP C8: the 1e-3 limit needs a spectral gap at the
+# rank)
+A3_GAP = (0.05, 0.95)
+# the kernels the a3 phase must launch
+A3_KERNELS = ("dense_rowwise_cos", "fastfood", "dense_rowwise",
+              "dense_columnwise", "hash_columnwise")
+
+
+def a3_limit(value, limit) -> dict:
+    return {"value": value, "limit": limit, "ok": bool(value <= limit)}
+
+
+def rmat_edges(np, scale: int, edge_factor: int, abcd, seed: int):
+    """Graph500's Kronecker (R-MAT) generator: edge_factor·2^scale edges,
+    each endpoint pair chosen bit by bit from the quadrants (a, b, c, d),
+    then the vertex ids permuted; (src, dst) int64, with the duplicates
+    and self-loops the generator makes."""
+    rng = np.random.default_rng(seed)
+    m = edge_factor << scale
+    a, b, c, _ = abcd
+    src = np.zeros(m, np.int64)
+    dst = np.zeros(m, np.int64)
+    for level in range(scale):
+        u = rng.random(m)
+        right = ((u >= a) & (u < a + b)) | (u >= a + b + c)
+        down = u >= a + b
+        src |= down.astype(np.int64) << level
+        dst |= right.astype(np.int64) << level
+    perm = rng.permutation(1 << scale)
+    return perm[src], perm[dst]
+
+
+def induced_subgraph(ml, G, count: int):
+    """The subgraph of G induced on its first ``count`` vertices, edges
+    added in G's order."""
+    keep = G.vertices[:count]
+    inside = set(keep)
+    H = ml.Graph()
+    for u in keep:
+        for v in G.neighbors(u):
+            if v in inside:
+                H.add_edge(u, v)
+    return H
+
+
+def align_signs(torch, X, ref):
+    """X's columns with the signs that best match ref's."""
+    s = torch.sign((X * ref).sum(0))
+    return X * torch.where(s == 0, torch.ones_like(s), s)
+
+
+def ase_replay(torch, A64, S64, k, iters):
+    """approximate_symmetric_svd's algorithm in float64 from the JLT's
+    operator S (k' × n): Q = orth(A·Sᵀ), ``iters`` rounds of Q =
+    orth(A·Q), the Rayleigh–Ritz eigenpairs of QᵀAQ, the k of largest
+    |λ|; X = V·√|λ|."""
+    Q = torch.linalg.qr(A64 @ S64.T.contiguous())[0]
+    for _ in range(iters):
+        Q = torch.linalg.qr(A64 @ Q)[0]
+    G = Q.T @ (A64 @ Q)
+    w, Z = torch.linalg.eigh(0.5 * (G + G.T))
+    order = torch.argsort(-w.abs())[:k]
+    return (Q @ Z[:, order]) * w[order].abs().sqrt()[None, :], w[order]
+
+
+def conductance(G, cluster) -> float:
+    """cut(S)/min(vol(S), vol(G) − vol(S)), as find_local_cluster
+    computes it (1 for an empty side)."""
+    vol = sum(G.degree(v) for v in cluster)
+    cut = sum(1 for v in cluster for u in G.neighbors(v) if u not in cluster)
+    denom = min(vol, G.num_edges() - vol)
+    return cut / denom if denom > 0 else 1.0
+
+
+def a3_launch_checks(out) -> None:
+    """Every step launched exactly its kernels: B1-cos for each MaternRFT
+    apply and ADMM's maps, B4 for each FastMaternRFT apply, B2-cw and
+    B1-cw once per LOBPCG sketch, B1-rw for the power-iteration EVD's
+    sketch and the dense ASE; nothing elsewhere (the krank test matrices
+    are stored, the sparse ASE runs spmm, the host steps launch
+    nothing)."""
+    size = out["size"]
+    P4 = size["admm"]["partitions"]
+    want = {}
+    for nu in size["nus"]:
+        want[f"matern_rft_{nu}"] = {"dense_rowwise_cos": 1}
+        want[f"fast_matern_{nu}"] = {"fastfood": 1}
+    want["admm_matern_train"] = {
+        "dense_rowwise_cos": P4 * (1 + size["admm"]["admm_iters"])}
+    want["admm_matern_predict"] = {"dense_rowwise_cos": P4}
+    want["lobpcg_cwt"] = {"hash_columnwise": 1}
+    want["lobpcg_jlt"] = {"dense_columnwise": 1}
+    want["power_evd"] = {"dense_rowwise": 1}
+    want["graph_ase_dense"] = {"dense_rowwise": 1}
+    got = {k: v for k, v in out["launches_by_step"].items() if v}
+    check(got == want, f"a3 path launches {got}, expected {want}")
+    for k_ in A3_KERNELS:
+        check(out["launches"][k_] > 0,
+              f"kernel {k_} never launched on the a3 path")
+
+
+def a3_phase(torch, P, np, size=A3_FULL, device="cuda") -> dict:
+    """Phase 4e: the a3 slice on one card through the public entry
+    points, each step's launches read (counters set to 0 before the
+    phase), the phase's own peak memory; comparisons run outside the
+    steps."""
+    import contextlib
+    import io as stdio
+    import warnings
+
+    from libskylark_tpu_torch import algorithms, ml, nla, sketch as sk
+    from libskylark_tpu_torch.algorithms import asynch, krylov, prox
+    from libskylark_tpu_torch.base import randgen, sparse as bs
+    from libskylark_tpu_torch.base.context import seed_key
+    from libskylark_tpu_torch.sketch import cuda_dense as cd, cuda_hash
+    from libskylark_tpu_torch.sketch.dense import virtual_panel
+
+    for c in counters() + [bs.products]:
+        for k in c:
+            c[k] = 0
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    out = {"size": {k: v for k, v in size.items()}, "launches_by_step": {},
+           "step_seconds": {}, "checks": {}, "recorded": {}}
+    lim = A3_LIMITS
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def step(name, fn):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        out["step_seconds"][name] = time.perf_counter() - t0
+        out["launches_by_step"][name] = {
+            k: v - before[k] for k, v in launch_counts().items()
+            if v != before[k]}
+        return result
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    # 1. Gamma on the card against the CPU route
+    flips, worst = {}, 0.0
+    for i, a in enumerate(size["gamma_shapes"]):
+        key = P.Context(700 + i).allocate().key
+        dist = randgen.Gamma(shape_param=a, scale=2.0)
+        got = step(f"gamma_{a}", lambda: randgen.stream_slice(
+            key, dist, 0, size["gamma_n"], device=device)).cpu().double()
+        want = randgen.stream_slice(key, dist, 0, size["gamma_n"],
+                                    device="cpu").double()
+        rel = (got - want).abs() / want.abs().clamp_min(1e-300)
+        flipped = rel > lim["gamma_rel"]
+        flips[a] = int(flipped.sum())
+        worst = max(worst, float(rel[~flipped].max()))
+    out["recorded"]["gamma_flips"] = flips
+    out["checks"]["gamma_flips"] = a3_limit(
+        max(flips.values()) / size["gamma_n"],
+        lim["gamma_flips_per_sample"])
+    out["checks"]["gamma_unflipped_rel"] = a3_limit(worst, lim["gamma_rel"])
+
+    # 2. Matern features at config 3's shape, each held to its kernel's
+    # Gram matrix on sampled rows
+    m, d, s = size["rft_rows"], size["rft_d"], size["rft_s"]
+    X = torch.randn((m, d), generator=gen(12), device=device)
+    rows = torch.randperm(m, generator=gen(13), device=device)[
+        :size["gram_rows"]]
+    Xr = X[rows].double()
+    for j, nu in enumerate(size["nus"]):
+        kern = ml.Matern(d, nu=nu, l=math.sqrt(d))
+        K = kern.gram(Xr, device=device)
+        top = float(K.abs().max())
+        for tag, name in (("regular", f"matern_rft_{nu}"),
+                          ("fast", f"fast_matern_{nu}")):
+            T = kern.create_rft(s, P.Context(710 + 2 * j
+                                             + (tag == "fast")), tag)
+            Z = step(name, lambda: T.apply(X, sk.ROWWISE, device=device))
+            check(tuple(Z.shape) == (m, s) and bool(torch.isfinite(Z).all()),
+                  f"{name} output")
+            Zs = Z[rows].double()
+            err = (Zs @ Zs.T - K).abs()
+            out["checks"][f"{name}_gram_max"] = a3_limit(
+                float(err.max()) / top, lim["gram_max"])
+            out["checks"][f"{name}_gram_mean"] = a3_limit(
+                float(err.mean()) / top, lim["gram_mean"])
+            del Z, Zs
+    del X, Xr
+
+    # 3. Block-ADMM on a Matern kernel at config 5: the ml phase's
+    # settings, its kernel swapped; the same maps on their plain route
+    asz = size["admm"]
+    Xa, ya, Xte, yte = ml_data(torch, asz, device)
+    kern = ml.Matern(asz["d"], nu=size["admm_nu"],
+                     l=math.sqrt(asz["latent"] * asz["d"]))
+    solver = ml.BlockADMMSolver.from_kernel(
+        P.Context(720), prox.HingeLoss(), prox.L2Regularizer(), ADMM_LAM,
+        asz["s"], kern, num_partitions=asz["partitions"])
+    plain = ml.BlockADMMSolver.with_maps(
+        prox.HingeLoss(), prox.L2Regularizer(),
+        [PlainMap(torch, T) for T in solver.feature_maps], ADMM_LAM)
+    objectives, models = {}, {}
+    for name, sv in (("admm_matern_train", solver), ("plain", plain)):
+        sv.maxiter, sv.tol = asz["admm_iters"], 0.0
+        buf = stdio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train = lambda: sv.train(Xa, ya, verbose=True,  # noqa: E731
+                                     device=device)
+            models[name] = (step(name, train) if name != "plain"
+                            else train())
+        objectives[name] = [float(ln.split()[3])
+                            for ln in buf.getvalue().splitlines()]
+    model, pmodel = models["admm_matern_train"], models["plain"]
+    check(len(objectives["plain"]) == asz["admm_iters"],
+          "ADMM printed the wrong number of objectives")
+    out["checks"]["admm_matern_coef"] = a3_limit(
+        float((model.coef - pmodel.coef).abs().max()
+              / pmodel.coef.abs().max()), lim["admm_coef"])
+    out["checks"]["admm_matern_objective"] = a3_limit(
+        max(abs(a - b) / abs(b) for a, b in zip(
+            objectives["admm_matern_train"], objectives["plain"])),
+        lim["admm_objective"])
+    labels, _ = step("admm_matern_predict", lambda: model.predict(Xte))
+    acc = ml.classification_accuracy(labels, yte)
+    out["recorded"]["admm_matern_accuracy"] = acc
+    out["checks"]["admm_matern_accuracy"] = {
+        "value": acc, "limit": f"> {5 * 100.0 / asz['classes']}",
+        "ok": acc > 5 * 100.0 / asz["classes"]}
+    del Xa, ya, Xte, yte, model, pmodel, solver, plain
+
+    # 4. krank on an 8192² operand of rank 512 with a gap at rank 64
+    n, r, k = size["krank_n"], size["krank_r"], size["rank"]
+    g = gen(2)
+    U0 = torch.linalg.qr(torch.randn(n, r, generator=g, device=device))[0]
+    V0 = torch.linalg.qr(torch.randn(n, r, generator=g, device=device))[0]
+    i = torch.arange(r, device=device, dtype=torch.float32)
+    sigma = torch.where(i < k, 1.0 - i / (2 * k),
+                        A3_GAP[0] * A3_GAP[1] ** (i - k))
+    A = (U0 * sigma) @ V0.T
+    normA = float(torch.linalg.norm(sigma.double()))
+    tail = float(torch.linalg.norm(sigma[k:].double())) / normA
+    s_k = 2 * k
+
+    def svd_checks(name, U, S, Vt, recon=True):
+        kk = min(k, S.shape[0])
+        out["checks"][f"{name}_sigma"] = a3_limit(float(
+            ((S[:kk] - sigma[:kk]).abs() / sigma[:kk]).max()),
+            lim["sigma_rel"])
+        if recon:
+            rec = float(torch.linalg.norm(A - (U[:, :kk] * S[:kk])
+                                          @ Vt[:kk])) / normA
+            out["checks"][f"{name}_recon"] = a3_limit(
+                rec, lim["recon_factor"] * tail + lim["recon_add"])
+
+    finders = (("generic", {"s": s_k}),
+               ("power_iteration", {"s": s_k, "q": 2}),
+               ("subspace_iteration", {"s": s_k, "q": 2}),
+               ("fast_generic", {"s": s_k}),
+               ("adaptive", {"epsilon": size["adaptive_eps"],
+                             "r": size["adaptive_r"],
+                             "max_iters": size["adaptive_iters"]}))
+    Qs = {}
+    for j, (method, prm) in enumerate(finders):
+        Q = step(f"krank_{method}", lambda: nla.RandomizedRangeFinder(
+            A, method, prm, P.Context(730 + j), device=device).compute())
+        Qs[method] = Q
+        orth = float((Q.T @ Q - torch.eye(Q.shape[1], device=device))
+                     .abs().max())
+        out["recorded"][f"krank_{method}_columns"] = Q.shape[1]
+        out["checks"][f"krank_{method}_orthonormal"] = a3_limit(orth, 1e-4)
+        U, S, Vt = nla.RangeAssistedSVD(A, Q, device=device).compute()
+        svd_checks(f"krank_{method}", U, S, Vt,
+                   recon=method != "adaptive")
+        if method == "adaptive":
+            out["checks"]["krank_adaptive_eps"] = a3_limit(
+                float(torch.linalg.norm(A - Q @ (Q.T @ A))),
+                size["adaptive_eps"])
+    U, S, Vt = step("krank_svd_row_extraction", lambda: nla.RangeAssistedSVD(
+        A, Qs["subspace_iteration"], "row_extraction",
+        device=device).compute())
+    svd_checks("krank_svd_row_extraction", U, S, Vt)
+    U, S, Vt = step("randomized_svd", lambda: nla.randomized_svd(
+        A, k, P.Context(736), q=2, device=device))
+    svd_checks("randomized_svd", U, S, Vt)
+    del A, U, Vt, Qs
+    Sym = (U0 * sigma) @ U0.T
+    Q = nla.RandomizedRangeFinder(Sym, "subspace_iteration",
+                                  {"s": s_k, "q": 2}, P.Context(737),
+                                  device=device).compute()
+    for method, prm in (("direct", None), ("nystrom", None),
+                        ("one_pass", {"s": 2 * s_k})):
+        w, _ = step(f"krank_evd_{method}", lambda: nla.RangeAssistedEVD(
+            Sym, Q, method, prm, context=P.Context(738),
+            device=device).compute())
+        w = torch.sort(w, descending=True).values[:k]
+        out["checks"][f"krank_evd_{method}_lambda"] = a3_limit(float(
+            ((w - sigma[:k]).abs() / sigma[:k]).max()), lim["sigma_rel"])
+    del Sym, Q, U0, V0
+
+    # 5. randlobpcg on the least-squares operand: LOBPCG's host
+    # iteration is the reference's (float32, scipy's default 20
+    # iterations), so the port is held against that iteration from the
+    # same sketch made by the kernel's plain version; the distance to the
+    # float64 σ² is recorded (ROADMAP C11)
+    mr, nr, ke = size["ls_rows"], size["ls_cols"], size["evd_k"]
+    A = torch.randn((mr, nr), generator=gen(3), device=device)
+    A64 = A.double()
+    lam = torch.linalg.svdvals(A64)[:ke] ** 2
+    Ah = A.cpu().numpy()
+    for j, name in enumerate(("cwt", "jlt", "fjlt")):
+        ctx_seed = 740 + j
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            got, _ = step(f"lobpcg_{name}", lambda: nla.lobpcg_rand_evd(
+                A, ke, P.Context(ctx_seed), sketch=name, device=device))
+            T = {"cwt": sk.CWT, "jlt": sk.JLT, "fjlt": sk.FJLT}[name](
+                mr, 4 * nr, P.Context(ctx_seed))
+            if name == "cwt":  # B2's plain scatter, in order, on the CPU
+                Bp = cuda_hash.cwt_apply_plain(T.allocation.key, A.cpu(),
+                                               4 * nr, False)
+            elif name == "jlt":
+                Bp = cd.dense_apply_plain(T.allocation.key, T.dist, A,
+                                          4 * nr, T.scale, False)
+            else:  # the FJLT's DCT chain has no kernel
+                Bp = T.apply(A, sk.COLUMNWISE, device=device)
+            want = lobpcg_replay(np, Ah, Bp.cpu().numpy(), ke)
+        got_t = torch.as_tensor(got, dtype=torch.float64)
+        want_t = torch.as_tensor(want, dtype=torch.float64)
+        out["checks"][f"lobpcg_{name}_replay"] = a3_limit(float(
+            ((got_t - want_t).abs() / want_t).max()), lim["replay_rel"])
+        out["recorded"][f"lobpcg_{name}_vs_sigma2"] = float(
+            ((got_t - lam.cpu()).abs() / lam.cpu()).max())
+        del Bp
+    got, _ = step("power_evd", lambda: nla.power_iterations_rand_evd(
+        A, ke, P.Context(743), device=device))
+    T = sk.JLT(nr, ke, P.Context(743))
+    Y = A64 @ virtual_panel(T.allocation.key, T.dist, ke, 0, nr, T.scale,
+                            torch.float64, device).T
+    for _ in range(2):
+        Y = A64 @ (A64.T @ Y)
+    Qy = torch.linalg.qr(Y)[0]
+    want = torch.linalg.svdvals(Qy.T @ A64) ** 2
+    out["checks"]["power_evd_replay"] = a3_limit(float(
+        ((got.double() - want).abs() / want).max()), lim["replay_rel"])
+    out["recorded"]["power_evd_vs_sigma2"] = float(
+        ((got.double() - lam).abs() / lam).max())
+    del A, A64, Ah, Y, Qy
+
+    # 6. graph: an R-MAT graph built by add_edge as skylark_graph_se does
+    src, dst = rmat_edges(np, size["graph_scale"], size["graph_edge_factor"],
+                          (0.57, 0.19, 0.19, 0.05), 750)
+    t0 = time.perf_counter()
+    G = ml.Graph()
+    for u, v in zip(src.tolist(), dst.tolist()):
+        G.add_edge(u, v)
+    out["recorded"]["graph_build_seconds"] = time.perf_counter() - t0
+    out["recorded"]["graph"] = {"vertices": G.num_vertices(),
+                                "volume": G.num_edges(),
+                                "generated_edges": int(len(src))}
+    params = nla.ApproximateSVDParams(num_iterations=2,
+                                      oversampling_ratio=2)
+    kg = size["ase_k"]
+    kp = 2 * kg
+
+    def ase_check(name, G_, sparse, seed):
+        X, index = step(name, lambda: ml.approximate_ase(
+            G_, kg, P.Context(seed), params, sparse=sparse, device=device))
+        Asp = G_.adjacency_sparse()[0]
+        T = sk.JLT(len(index), kp, P.Context(seed))
+        S64 = virtual_panel(T.allocation.key, T.dist, kp, 0, len(index),
+                            T.scale, torch.float64, device)
+        if sparse:
+            data, idx, ptr = Asp.csr(np.float64, device)
+            A64 = torch.sparse_csr_tensor(ptr.long(), idx.long(), data,
+                                          Asp.shape)
+        else:
+            A64 = torch.as_tensor(Asp.to_scipy().toarray(),
+                                  dtype=torch.float64, device=device)
+        want, w = ase_replay(torch, A64, S64, kg, params.num_iterations)
+        Xd = align_signs(torch, X.double(), want)
+        out["checks"][f"{name}_replay"] = a3_limit(
+            float((Xd - want).abs().max() / want.abs().max()),
+            lim["ase_rel"])
+        return X, Asp, w
+
+    X, Asp, w = ase_check("graph_ase_sparse", G, True, 751)
+    from scipy.sparse.linalg import eigsh
+
+    t0 = time.perf_counter()
+    ev = eigsh(Asp.to_scipy().astype(np.float64), k=kg, which="LM",
+               return_eigenvectors=False)
+    out["recorded"]["eigsh_seconds"] = time.perf_counter() - t0
+    ev = np.sort(np.abs(ev))[::-1]
+    lam_port = np.sort((X.double() ** 2).sum(0).cpu().numpy())[::-1]
+    out["recorded"]["ase_abs_lambda_vs_eigsh"] = float(
+        np.max(np.abs(lam_port - ev) / ev))
+    del X, Asp
+    sub = induced_subgraph(ml, G, size["dense_sub"])
+    ase_check("graph_ase_dense", sub, False, 752)
+    # local clusters from seeds of degree 5-50
+    rng = np.random.default_rng(753)
+    pool = [v for v in G.vertices if 5 <= G.degree(v) <= 50]
+    seeds = [pool[int(j)] for j in rng.choice(len(pool),
+                                              size["cluster_seeds"],
+                                              replace=False)]
+    clusters = []
+    for j, v in enumerate(seeds):
+        cl, cond = step(f"local_cluster_{j}", lambda: ml.find_local_cluster(
+            G, [v]))
+        clusters.append({"seed_degree": G.degree(v), "size": len(cl),
+                         "conductance": cond,
+                         "seconds": out["step_seconds"][
+                             f"local_cluster_{j}"]})
+        recomputed = conductance(G, cl)
+        out["checks"][f"local_cluster_{j}_conductance"] = {
+            "value": cond, "recomputed": recomputed,
+            "ok": cond == recomputed}
+    out["recorded"]["clusters"] = clusters
+    # the serve programs on a 4096-vertex induced subgraph
+    sub = induced_subgraph(ml, G, size["serve_sub"])
+    Xs, index = step("graph_ase_serve", lambda: ml.graph.graph_ase_serve(
+        sub, kg, seed=754, iters=2, device=device))
+    Ssub = sub.adjacency_sparse()[0]
+    A64 = torch.as_tensor(Ssub.to_scipy().toarray(), dtype=torch.float64,
+                          device=device)
+    nv = A64.shape[0]
+    npad = 1 << max(3, (nv - 1).bit_length())
+    Om = randgen.Normal().sample(seed_key(754),
+                                 (npad, kg), device=device).double()[:nv]
+    Q = torch.linalg.qr(A64 @ Om)[0]
+    Q = torch.linalg.qr(A64 @ Q)[0]
+    Bq = Q.T @ (A64 @ Q)
+    wq, Uq = torch.linalg.eigh(0.5 * (Bq + Bq.T))
+    order = torch.argsort(-wq.abs())
+    want = (Q @ Uq[:, order]) * wq[order].abs().sqrt()[None, :]
+    got = align_signs(torch, torch.as_tensor(Xs, device=device).double(),
+                      want)
+    out["checks"]["graph_ase_serve"] = a3_limit(
+        float((got - want).abs().max() / want.abs().max()), lim["serve_rel"])
+    svec = np.zeros(nv, np.float32)
+    svec[:8] = 1.0
+    p, _ = step("graph_ppr_serve", lambda: ml.graph.graph_ppr_serve(
+        sub, svec, device=device))
+    deg = A64.sum(0)
+    inv = torch.where(deg > 0, 1.0 / deg.clamp_min(1e-30),
+                      torch.zeros_like(deg))
+    s64 = torch.as_tensor(svec, dtype=torch.float64, device=device)
+    s64 = s64 / s64.sum()
+    pw = s64
+    for _ in range(16):
+        pw = 0.15 * s64 + 0.85 * (A64 @ (pw * inv))
+    out["checks"]["graph_ppr_serve"] = a3_limit(
+        float((torch.as_tensor(p, device=device).double() - pw).abs().max()
+              / pw.abs().max()), lim["serve_rel"])
+    del G, sub, A64, Q
+
+    # 7. the block solvers on K + λI, K the Gaussian Gram of the rows of
+    # ml-rlsc-faster, the right-hand sides the one-hot class columns
+    asz = size["admm"]
+    Xb, yb, _, _ = ml_data(torch, asz, device)
+    nb_ = size["block_rows"]
+    Kb = ml_kernel(ml, asz).gram(Xb[:nb_], device=device)
+    Kb.diagonal().add_(1.0)
+    Bb = torch.nn.functional.one_hot(yb[:nb_], asz["classes"]).float()
+    del Xb, yb
+    prm = asynch.RandBlockParams()
+    Xg, sweeps = step("rand_block_gauss_seidel",
+                      lambda: algorithms.asynch.rand_block_gauss_seidel(
+                          Kb, Bb, P.Context(760), prm, device=device))
+    K64, B64 = Kb.double(), Bb.double()
+    X64, _ = asynch.rand_block_gauss_seidel(
+        K64, B64, P.Context(760),
+        asynch.RandBlockParams(tolerance=0.0,
+                               max_outer=sweeps // prm.sweeps),
+        device=device)
+    out["recorded"]["gauss_seidel_sweeps"] = sweeps
+    out["recorded"]["gauss_seidel_residual"] = float(
+        torch.linalg.norm(B64 - K64 @ Xg.double()) / torch.linalg.norm(B64))
+    out["checks"]["gauss_seidel_replay"] = a3_limit(float(
+        torch.linalg.norm(Xg.double() - X64) / torch.linalg.norm(X64)),
+        lim["block_rel"])
+    kprm = krylov.KrylovParams(tolerance=size["fcg_tolerance"],
+                               iter_lim=size["fcg_iter_lim"])
+    Xf, its = step("rand_block_fcg", lambda: asynch.rand_block_fcg(
+        Kb, Bb, P.Context(761), prm, kprm, device=device))
+    X64, _ = asynch.rand_block_fcg(
+        K64, B64, P.Context(761), prm,
+        krylov.KrylovParams(tolerance=0.0, iter_lim=its), device=device)
+    out["recorded"]["fcg_iterations"] = its
+    out["recorded"]["fcg_residual"] = float(
+        torch.linalg.norm(B64 - K64 @ Xf.double()) / torch.linalg.norm(B64))
+    out["checks"]["fcg_iterations"] = {
+        "value": its, "limit": f"< {size['fcg_iter_lim']}",
+        "ok": 0 < its < size["fcg_iter_lim"]}
+    out["checks"]["fcg_replay"] = a3_limit(float(
+        torch.linalg.norm(Xf.double() - X64) / torch.linalg.norm(X64)),
+        lim["block_rel"])
+    del Kb, Bb, K64, B64, X64
+
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = {k_: sum(st.get(k_, 0) for st in
+                               out["launches_by_step"].values())
+                       for k_ in launch_counts()}
+    out["products"] = dict(bs.products)
+    if on_card:
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    emit("a3", **out)
+    bad = {name: c for name, c in out["checks"].items() if not c["ok"]}
+    check(not bad, f"a3 phase checks failed: {bad}")
+    a3_launch_checks(out)
+    return out
+
+
+def lobpcg_replay(np, A, B, k):
+    """lobpcg_rand_evd's host iteration from the sketch B (s × n) of A,
+    in their precision: the start Vt[:k] of B's SVD, the (RᵀR)⁻¹
+    preconditioner of qr(B), scipy's LOBPCG on AᵀA; the eigenvalues,
+    descending."""
+    import scipy.linalg as sla
+    from scipy.sparse.linalg import LinearOperator, lobpcg
+
+    n = A.shape[1]
+    _, _, Vt = np.linalg.svd(B, full_matrices=False)
+    _, R = np.linalg.qr(B)
+
+    def amul(x):
+        return A.T @ (A @ x)
+
+    def precond(y):
+        return sla.solve_triangular(
+            R, sla.solve_triangular(R.T, y, lower=True), lower=False)
+
+    lam, _ = lobpcg(LinearOperator((n, n), matvec=amul, matmat=amul),
+                    Vt[:k].T.copy(),
+                    M=LinearOperator((n, n), matvec=precond,
+                                     matmat=precond), largest=True)
+    return np.sort(lam)[::-1].copy()
+
+
 CSRC = "libskylark_tpu_torch/csrc/"
 # kernel: (source, the TPU kernel it replaces)
 KERNELS = {
@@ -2830,6 +3501,7 @@ def main() -> int:
     emit("serve_cells", cells=serve_cells(torch, np))
     sparse = sparse_phase(torch, P, np, peaks)
     ml_path = ml_phase(torch, P, np)
+    a3 = a3_phase(torch, P, np)
     rows = (time_kernels(torch, P, MAIN_SHAPES, True, peaks)
             + time_kernels(torch, P, SPLIT_LS_SHAPES, False, peaks)
             + time_hash(torch, P, HASH_SHAPES, peaks)
@@ -2877,13 +3549,17 @@ def main() -> int:
         at = {(tuple(r["shape"]), r["s_dim"]) for r in mine}
         cs = [c for c in checked if c["kernel"] == name
               and (tuple(c["shape"]), c["s_dim"]) in at]
+        # the Matern cases, held entry by entry, apart
+        matern = [c for c in cs if "matern_nu" in c]
+        cs = [c for c in cs if "matern_nu" not in c]
         check(bool(cs), f"{name}: no check at its main-path shapes")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (main["launches"][name] + serve["launches"][name]
                          + sparse["launches"][name]
-                         + ml_path["launches"][name]),
+                         + ml_path["launches"][name]
+                         + a3["launches"][name]),
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],
             "ms": head["ms"], "device_ms": head["device_ms"],
@@ -2891,7 +3567,14 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             **{k: head[k] for k in ("regime", "f32_ms", "bounds")
-               if k in head}})
+               if k in head},
+            **({"matern": {
+                "max_abs_err": max(c["max_abs_err"] for c in matern),
+                "max_err_over_limit": max(c["max_err_over_limit"]
+                                          for c in matern),
+                "ms": [r["ms"] for r in rows if r["kernel"] == name
+                       and r.get("use", "").startswith("MaternRFT")]}}
+               if matern else {})})
     check("jax" not in sys.modules and "libskylark_tpu" not in sys.modules,
           "the port imported jax or libskylark_tpu")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,14 +23,16 @@ install_default_matmul_precision()
 
 from libskylark_tpu_torch.base import errors  # noqa: E402
 from libskylark_tpu_torch.base.context import Context  # noqa: E402
+from libskylark_tpu_torch.base.sparse import SparseMatrix  # noqa: E402
 from libskylark_tpu_torch.base.device import (  # noqa: E402
     default_device,
     set_default_device,
 )
 from libskylark_tpu_torch import (  # noqa: E402
-    algorithms, engine, io, ml, nla, sketch)
+    algorithms, engine, io, ml, nla, sketch, telemetry)
 
 __all__ = [
-    "Context", "errors", "default_device", "set_default_device",
-    "algorithms", "engine", "io", "ml", "nla", "sketch", "__version__",
+    "Context", "errors", "SparseMatrix", "default_device",
+    "set_default_device", "algorithms", "engine", "io", "ml", "nla",
+    "sketch", "telemetry", "__version__",
 ]

@@ -1,7 +1,9 @@
 """Algorithms: preconditioners, the Krylov solvers (LSQR, CG, FlexibleCG,
-Chebyshev), prox operators and the regression solvers."""
+Chebyshev), prox operators, the regression solvers and the randomized
+block solvers (asynch)."""
 
-from libskylark_tpu_torch.algorithms import krylov, precond, prox, regression
+from libskylark_tpu_torch.algorithms import (asynch, krylov, precond, prox,
+                                             regression)
 from libskylark_tpu_torch.algorithms.krylov import (KrylovParams, cg,
                                                    chebyshev, flexible_cg,
                                                    lsqr)
@@ -14,6 +16,7 @@ from libskylark_tpu_torch.algorithms.precond import (
 )
 from libskylark_tpu_torch.algorithms.regression import (
     AcceleratedParams,
+    RegressionProblem,
     build_blendenpik_precond,
     build_lsrn_precond,
     solve_l2_accelerated,
@@ -22,7 +25,8 @@ from libskylark_tpu_torch.algorithms.regression import (
 )
 
 __all__ = [
-    "krylov", "precond", "prox", "regression", "KrylovParams", "cg",
+    "asynch", "krylov", "precond", "prox", "regression", "KrylovParams",
+    "cg", "RegressionProblem",
     "chebyshev", "flexible_cg", "lsqr", "Precond",
     "IdPrecond", "MatPrecond", "TriInversePrecond", "FunctionPrecond",
     "AcceleratedParams", "build_blendenpik_precond", "build_lsrn_precond",

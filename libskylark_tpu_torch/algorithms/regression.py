@@ -35,6 +35,18 @@ from libskylark_tpu_torch.base.precision import with_solver_precision
 _solve = torch.linalg.solve_triangular
 
 
+@dataclasses.dataclass
+class RegressionProblem:
+    """min ‖A·x − b‖ with the reference's problem algebra: ``kind``
+    linear, polynomial or kernel; ``penalty`` l2, l1 or lp; an optional
+    ``regularization``. A plain record: the solvers take A and b."""
+
+    A: object
+    kind: str = "linear"
+    penalty: str = "l2"
+    regularization: Optional[str] = None
+
+
 @with_solver_precision
 def solve_l2_exact(A, B, method: str = "qr", device=None) -> torch.Tensor:
     """Exact least squares min ‖A·X − B‖ by the algorithm tag: "qr",

@@ -110,6 +110,11 @@ class Context:
         self._counter += 1
         return alloc
 
+    def random_value(self, sampler, **kwargs):
+        """``sampler(key, **kwargs)`` under the next allocation's key data
+        (e.g. ``randgen.Normal().sample`` with ``shape=()``)."""
+        return sampler(self.allocate().key, **kwargs)
+
     def to_dict(self) -> dict[str, Any]:
         return {
             "skylark_object_type": "context",

@@ -16,9 +16,25 @@ import functools
 import torch
 
 
+_INSTALLED_AMBIENT = "highest"
+
+
+def ambient_matmul_precision() -> str:
+    """The float32 matmul precision in effect
+    (``torch.get_float32_matmul_precision()``)."""
+    return torch.get_float32_matmul_precision()
+
+
+def ambient_precision_pinned_by_user() -> bool:
+    """True when the float32 matmul precision differs from the one the
+    package installed at import ("highest"): a caller set another. A pin
+    equal to it is not detected, as in the reference."""
+    return ambient_matmul_precision() != _INSTALLED_AMBIENT
+
+
 def install_default_matmul_precision() -> None:
     """Full float32 for every f32 matmul and convolution (TF32 off)."""
-    torch.set_float32_matmul_precision("highest")
+    torch.set_float32_matmul_precision(_INSTALLED_AMBIENT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -21,7 +21,8 @@ Two formats, both pure functions of the allocation key:
 
 The chunk key is ``chunk_key(key, c)`` = fold_in(fold_in(key, c>>31),
 c & (2^31−1)) in both. :func:`permutation` is jax.random.permutation's
-sort shuffle. Gamma is not ported yet.
+sort shuffle. :class:`Gamma` is jax.random.gamma's Marsaglia–Tsang
+rejection sampler, run as one masked loop over all elements.
 """
 
 from __future__ import annotations
@@ -164,6 +165,18 @@ class Distribution:
         raise errors.NotImplementedYetError(
             f"the {self.name} sampler is not ported yet")
 
+    def sample(self, key, shape, dtype=None, device=None) -> torch.Tensor:
+        """``sample(key, shape)`` of the reference: this distribution's
+        jax.random sampler under the (2,) uint32 key data ``key``, over the
+        flat row-major index of ``shape``, on ``device``; ``dtype`` None
+        keeps the sampler's own (f32, or int64 for integers)."""
+        shape = (tuple(int(d) for d in shape)
+                 if isinstance(shape, (tuple, list)) else (int(shape),))
+        keys = torch.tensor([list(key_words(key))], dtype=torch.int64,
+                            device=device)
+        vals = self.sample_chunks(keys, int(np.prod(shape))).reshape(shape)
+        return vals if dtype is None else vals.to(dtype)
+
     def to_dict(self) -> dict[str, Any]:
         d = dataclasses.asdict(self)  # type: ignore[call-overload]
         d["distribution"] = self.name
@@ -283,13 +296,97 @@ class StandardLevy(Distribution):
         return 1.0 / torch.clamp_min(z * z, _TINY)
 
 
+@dataclasses.dataclass(frozen=True)
+class Gamma(Distribution):
+    """Gamma(shape_param, scale): ``scale`` times jax.random.gamma's
+    standard draw. Element i of ``sample(k, (L,))`` runs Marsaglia–Tsang
+    under the i-th key of ``split(k, L)`` (:func:`gamma_standard`)."""
+
+    shape_param: float = 1.0
+    scale: float = 1.0
+    name = "gamma"
+
+    def sample_chunks(self, keys, length):
+        ctr = torch.arange(int(length), dtype=torch.int64, device=keys.device)
+        x0, x1 = tf.threefry2x32(keys[:, :1], keys[:, 1:], 0, ctr)
+        ek = torch.stack([x0.reshape(-1), x1.reshape(-1)], 1)
+        g = gamma_standard(ek, self.shape_param)
+        return (self.scale * g).reshape(keys.shape[0], int(length))
+
+
+def _split3(keys: torch.Tensor):
+    """``jax.random.split(k, 3)`` of each row of ``keys``."""
+    ctr = torch.arange(3, dtype=torch.int64, device=keys.device)
+    x0, x1 = tf.threefry2x32(keys[:, :1], keys[:, 1:], 0, ctr)
+    return [torch.stack([x0[:, i], x1[:, i]], 1) for i in range(3)]
+
+
+def _scalar_uniform(keys: torch.Tensor) -> torch.Tensor:
+    """``jax.random.uniform(k, ())`` for each row k of ``keys``."""
+    return _uniform(chunk_bits(keys, 1)[:, 0], 0.0, 1.0)
+
+
+def gamma_standard(keys: torch.Tensor, alpha: float) -> torch.Tensor:
+    """jax.random.gamma's standard draw (``_gamma_one``, JAX 0.9) under
+    each row of ``keys`` ((n, 2) int64 words), shape ``alpha``: f32 (n,).
+
+    Per element: alpha < 1 is boosted to alpha + 1; d = alpha − 1/3,
+    c = (1/3)/√d; (key, sub) = split(k); each outer round splits key in
+    three (key, x_key, u_key), then draws x = normal(s) with (x_key, s) =
+    split(x_key) until v = 1 + x·c > 0, and U = uniform(u_key); it
+    rejects while U ≥ 1 − 0.0331·X² and log U ≥ X/2 + d·(1 − V + log V)
+    (X = x², V = v³). The sample is d·V, times (1 − uniform(sub))^(1/alpha)
+    when boosted. Both of JAX's loops run here as one masked loop: each
+    round every element still rejecting takes one normal draw, and the
+    host reads one flag a round (any element still rejecting?)."""
+    f32 = torch.float32
+    a0 = np.float32(alpha)
+    boost = bool(a0 < 1)
+    a = np.float32(a0 + np.float32(1)) if boost else a0
+    d = np.float32(a - np.float32(1.0 / 3.0))
+    c = np.float32(np.float32(1.0 / 3.0) / np.sqrt(d, dtype=np.float32))
+    key, sub = split_keys(keys)
+    key, xk, uk = _split3(key)
+    n = keys.shape[0]
+    V = torch.zeros(n, dtype=f32, device=keys.device)
+    todo = torch.ones(n, dtype=torch.bool, device=keys.device)
+    while True:
+        xk_next, s = split_keys(xk)
+        x = Normal().sample_chunks(s, 1)[:, 0]
+        v = 1.0 + x * float(c)
+        drawn = todo & (v > 0)
+        X = x * x
+        V3 = v * v * v
+        U = _scalar_uniform(uk)
+        reject = ((U >= 1.0 - float(np.float32(0.0331)) * (X * X))
+                  & (torch.log(U) >= X * 0.5 + float(d) * (
+                      (1.0 - V3) + torch.log(V3))))
+        done = drawn & ~reject
+        V = torch.where(done, V3, V)
+        again = drawn & reject
+        nkey, nxk, nuk = _split3(key)
+        key = torch.where(again[:, None], nkey, key)
+        uk = torch.where(again[:, None], nuk, uk)
+        xk = torch.where(again[:, None], nxk,
+                         torch.where((todo & ~drawn)[:, None], xk_next, xk))
+        todo = todo & ~done
+        if not bool(todo.any()):
+            break
+    out = float(d) * V
+    if boost:
+        u = 1.0 - _scalar_uniform(sub)
+        out = out * torch.pow(u, float(np.float32(np.float32(1) / a0)))
+    return out
+
+
 _SQRT2 = float(np.float32(np.sqrt(2)))
 _TINY = float(np.finfo(np.float32).tiny)
 _PI = float(np.float32(np.pi))
 
 _DIST_REGISTRY = {cls.name: cls
                   for cls in [Normal, Uniform, UniformInt, Cauchy,
-                              Rademacher, StandardLevy, Exponential]}
+                              Rademacher, StandardLevy, Exponential,
+                              Gamma]}
 
 
 # ---------------------------------------------------------------------------
@@ -298,13 +395,14 @@ _DIST_REGISTRY = {cls.name: cls
 
 
 def stream_chunks(key, dist: Distribution, first_cid: int, n_chunks: int,
-                  dtype=None, device=None) -> torch.Tensor:
+                  dtype=None, device=None, chunk: int = CHUNK) -> torch.Tensor:
     """Whole chunks first_cid..first_cid+n_chunks−1 of the stream, flat:
-    (n_chunks·CHUNK,) on ``device``; ``dtype`` None keeps the sampler's
-    own (f32, or int64 for integers)."""
+    (n_chunks·chunk,) on ``device``; ``dtype`` None keeps the sampler's
+    own (f32, or int64 for integers). ``chunk`` is part of the stream's
+    format: another value makes another stream."""
     keys = torch.from_numpy(
         chunk_keys(key, first_cid, n_chunks).astype(np.int64)).to(device)
-    vals = dist.sample_chunks(keys, CHUNK).reshape(-1)
+    vals = dist.sample_chunks(keys, int(chunk)).reshape(-1)
     return vals if dtype is None else vals.to(dtype)
 
 
@@ -361,17 +459,17 @@ def stream_slice_batched(keys, dist: Distribution, start: int, stop: int,
 
 
 def stream_slice(key, dist: Distribution, start: int, stop: int, dtype=None,
-                 device=None) -> torch.Tensor:
+                 device=None, chunk: int = CHUNK) -> torch.Tensor:
     """Elements [start, stop) of the virtual stream, made from their
     covering chunks alone: the result does not depend on what other
     slices anyone makes."""
-    start, stop = int(start), int(stop)
+    start, stop, chunk = int(start), int(stop), int(chunk)
     if stop <= start:
         return torch.zeros((0,), dtype=dtype or torch.float32, device=device)
-    c0 = start // CHUNK
-    c1 = -(-stop // CHUNK)
-    flat = stream_chunks(key, dist, c0, c1 - c0, dtype, device)
-    return flat[start - c0 * CHUNK:stop - c0 * CHUNK]
+    c0 = start // chunk
+    c1 = -(-stop // chunk)
+    flat = stream_chunks(key, dist, c0, c1 - c0, dtype, device, chunk)
+    return flat[start - c0 * chunk:stop - c0 * chunk]
 
 
 # ---------------------------------------------------------------------------

@@ -3,10 +3,12 @@
 The system has no weights: a transform's state is its allocation (seed,
 counter, path), N, S and extra hyper-parameters (CT's C), all in its JSON
 form, plus the raw (2,) uint32 key data the serve path passes around; a
-kernel's is its type, N and parameters, in its JSON form. A trained
-model's weights are its coefficient matrix beside its maps' JSON forms.
-These helpers take what ``libskylark_tpu`` writes and return the port's
-objects; nothing here imports the JAX package.
+kernel's is its type, N and parameters, in its JSON form (Matern's
+transforms and kernels included). A trained model's weights are its
+coefficient matrix beside its maps' JSON forms. A graph's state is its
+vertices in insertion order and their adjacency. These helpers take what
+``libskylark_tpu`` writes and return the port's objects; nothing here
+imports the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.context import Context
+from libskylark_tpu_torch.ml.graph import Graph
 from libskylark_tpu_torch.ml.kernels import Kernel, deserialize_kernel
 from libskylark_tpu_torch.ml.model import HilbertModel
 from libskylark_tpu_torch.sketch.transform import (SketchTransform,
@@ -55,3 +58,15 @@ def key_from_numpy(kd) -> np.ndarray:
 def context_from_reference(d: Union[dict[str, Any], str]) -> Context:
     """The port's Context for a reference ``Context.to_dict()``/JSON."""
     return Context.from_dict(json.loads(d) if isinstance(d, str) else d)
+
+
+def graph_from_reference(G) -> Graph:
+    """The port's :class:`Graph` for a reference ``Graph``: the same
+    vertices in the same order and each vertex's neighbors in the same
+    order, so the index map, the push queue and the sweep order agree.
+    Reads only the reference graph's public queries."""
+    out = Graph()
+    for u in G.vertices:
+        out._adj[u] = dict.fromkeys(G.neighbors(u))
+    out._num_edges = G.num_edges()
+    return out

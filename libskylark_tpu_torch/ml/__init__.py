@@ -1,12 +1,15 @@
 """ML layer: kernels and their random feature maps (``Gaussian(N,
 sigma).create_rft(S, context, "fast")``), KRR and RLSC in five regimes,
 the Block-ADMM kernel machines, Hilbert-space models, and the nonlinear
-RLS toolkit. ``ml/graph.py`` is not ported yet."""
+RLS toolkit, and graph spectral embedding and local clustering."""
 
-from libskylark_tpu_torch.ml import (admm, coding, kernels, krr, metrics,
-                                     model, modeling, nonlinear, rlsc)
+from libskylark_tpu_torch.ml import (admm, coding, graph, kernels, krr,
+                                     metrics, model, modeling, nonlinear, rlsc)
 from libskylark_tpu_torch.ml.admm import BlockADMMSolver
 from libskylark_tpu_torch.ml.coding import dummy_coding, dummy_decode
+from libskylark_tpu_torch.ml.graph import (Graph, approximate_ase,
+                                           find_local_cluster,
+                                           time_dependent_ppr)
 from libskylark_tpu_torch.ml.kernels import (
     KERNELS,
     ExpSemigroup,
@@ -55,5 +58,6 @@ __all__ = [
     "faster_kernel_ridge", "large_scale_kernel_ridge", "RlscParams",
     "kernel_rlsc", "approximate_kernel_rlsc",
     "sketched_approximate_kernel_rlsc", "faster_kernel_rlsc",
-    "large_scale_kernel_rlsc",
+    "large_scale_kernel_rlsc", "graph", "Graph", "approximate_ase",
+    "time_dependent_ppr", "find_local_cluster",
 ]

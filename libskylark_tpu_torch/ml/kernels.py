@@ -13,9 +13,6 @@ Each kernel offers:
   with E[Z·Zᵀ] ≈ gram; the tags are "regular", "fast", "quasi" and
   "sparse", as each kernel defines them;
 - the reference's JSON form (``to_dict``/``deserialize_kernel``).
-
-Matern's feature maps need the Gamma sampler, which is not ported: its
-``create_rft`` raises NotImplementedYetError; its Gram matrix is ported.
 """
 
 from __future__ import annotations
@@ -271,7 +268,8 @@ class ExpSemigroup(Kernel):
 class Matern(Kernel):
     """The Matérn kernel k(r) = 2^{1−ν}/Γ(ν)·(√(2ν)·r/l)^ν·K_ν(√(2ν)·r/l):
     closed forms at ν ∈ {1/2, 3/2, 5/2}, scipy's Bessel K_ν on the host
-    otherwise. Its feature maps (MaternRFT, FastMaternRFT) raise."""
+    otherwise. Its feature maps are MaternRFT ("regular") and
+    FastMaternRFT ("fast")."""
 
     kernel_type = "matern"
 

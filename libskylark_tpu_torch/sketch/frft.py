@@ -1,4 +1,4 @@
-"""Fastfood random features: FastGaussianRFT (the port of
+"""Fastfood random features: FastGaussianRFT, FastMaternRFT (the port of
 libskylark_tpu/sketch/frft.py).
 
 Le–Sarlós–Smola Fastfood: each block of NB features is
@@ -7,7 +7,8 @@ permutation Π and three diagonals, an implicit Gaussian-like frequency
 matrix in O(NB log NB) per block; the features are scale·cos(w + shift),
 block-major, truncated to S. Sub-streams of the allocation: 0 shifts,
 1 B (Rademacher), 2 G (Normal), 3 the block permutations
-(``randgen.permutation(fold_in(subkey(3), i), NB)``), 4 Sm (Matern).
+(``randgen.permutation(fold_in(subkey(3), i), NB)``), 4 Sm (Matern:
+√(2ν/χ²(2ν))/(l√NB), χ²(2ν) = Gamma(ν, scale 2)).
 
 Routes, decided before any launch: ``fut="wht"`` with an NB the kernel
 serves and float32 takes the Fastfood kernel's route
@@ -15,9 +16,6 @@ serves and float32 takes the Fastfood kernel's route
 tensor); ``fut="dct"`` and every other NB take the torch chain
 (:func:`_chain_rows` on ``torch.fft`` or the WHT), the reference's own
 XLA chain. The columnwise apply is the rowwise apply of Aᵀ, transposed.
-
-FastMaternRFT needs jax.random's Gamma sampler, which is not ported: it
-raises on construction and on deserialization.
 """
 
 from __future__ import annotations
@@ -32,7 +30,21 @@ from libskylark_tpu_torch.base import errors, randgen
 from libskylark_tpu_torch.base.context import fold_in
 from libskylark_tpu_torch.sketch import cuda_fastfood
 from libskylark_tpu_torch.sketch.fut import make_fut
+from libskylark_tpu_torch.sketch.rft import matern_scales
 from libskylark_tpu_torch.sketch.transform import SketchTransform, register
+
+
+def fut_apply_policy(fut_obj, fut_name: str, W: torch.Tensor) -> torch.Tensor:
+    """The FUT along W's last (contiguous) axis, shared by the transform
+    and the serve apply. The reference picks a TPU matmul precision for
+    the WHT here; the port's matmuls are full float32 whatever the name."""
+    return fut_obj.apply(W, axis=-1)
+
+
+def matern_sm(chi2: torch.Tensor, nu: float, el: float,
+              NB: int) -> torch.Tensor:
+    """FastMaternRFT's Sm from its χ²(2ν) draws: √(2ν/χ²)/(l√NB)."""
+    return matern_scales(chi2, nu) / (float(el) * math.sqrt(NB))
 
 
 def _chain_rows(Ap, bdiag, gdiag, smdiag, perms, shifts, out_scale, scal,
@@ -61,19 +73,19 @@ def block_geometry(n_dim: int, s_dim: int, fut: str = "wht"
     return NB, 1 + (s_dim - 1) // NB
 
 
-def serve_streams(key_data, dtype=torch.float32, *, NB: int, nb: int,
+def serve_streams(key, dtype=torch.float32, *, NB: int, nb: int,
                   s_dim: int, sm_kind: str, sm_param, device=None):
     """Every Fastfood stream of a cohort of transforms, as a function of
-    their raw keys ``key_data`` ((B, 2) uint32 words): (bdiag, gdiag,
+    their raw keys ``key`` ((B, 2) uint32 words, or one (2,) key): (bdiag, gdiag,
     smdiag, perms, shifts), shaped (B, nb, NB) (B, nb, NB) (B, nb·NB)
     (B, nb, NB) (B, s_dim) — lane b bit-equal to the transform's ``_B``,
     ``_G``, ``_Sm``, ``_perms`` and ``shifts`` (sub-streams 1, 2, the
     Sm spec, 3 and 0). Made for all lanes at once: one Threefry pass per
     stream over the lanes' chunk keys, and each permutation round one
     row-wise stable sort over the B·nb block rows. ``sm_kind`` is
-    ``"ones"`` or ``"gauss"`` (``sm_param`` = σ); ``"matern"`` needs the
-    Gamma sampler, which is not ported, and raises."""
-    keys = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    ``"ones"``, ``"gauss"`` (``sm_param`` = σ) or ``"matern"``
+    (``sm_param`` = (ν, l))."""
+    keys = np.asarray(key, dtype=np.uint32).reshape(-1, 2)
     B = keys.shape[0]
 
     def sub(tag):
@@ -98,9 +110,11 @@ def serve_streams(key_data, dtype=torch.float32, *, NB: int, nb: int,
                             1.0 / (float(sm_param) * math.sqrt(NB)),
                             dtype=dtype, device=device)
     elif sm_kind == "matern":
-        raise errors.NotImplementedYetError(
-            "the Matern Fastfood streams need the Gamma sampler "
-            "(jax.random.gamma), which is not ported yet")
+        nu, el = sm_param
+        chi2 = randgen.stream_slice_batched(
+            sub(4), randgen.Gamma(shape_param=float(nu), scale=2.0), 0,
+            nb * NB, dtype, device)
+        smdiag = matern_sm(chi2, float(nu), float(el), NB)
     else:
         raise errors.InvalidParametersError(
             f"unknown Sm spec kind {sm_kind!r}")
@@ -127,7 +141,7 @@ def fastfood_serve_apply(key_data, A: torch.Tensor, *, n_dim: int,
         sm_param=sm_param, device=A.device)
     return _chain_rows(Ap, bdiag[0], gdiag[0], smdiag[0], perms[0],
                        shifts[0], math.sqrt(2.0 / s_dim), scal, NB, nb,
-                       lambda W: fut_obj.apply(W, axis=-1))
+                       lambda W: fut_apply_policy(fut_obj, fut, W))
 
 
 class FastRFT(SketchTransform):
@@ -190,7 +204,7 @@ class FastRFT(SketchTransform):
                           device=device)
 
     def _fut_apply(self, W: torch.Tensor) -> torch.Tensor:
-        return self._fut.apply(W, axis=-1)
+        return fut_apply_policy(self._fut, self._fut_name, W)
 
     def _features_rows(self, At: torch.Tensor) -> torch.Tensor:
         """The (m, S) feature map of row-major At (m, N) by the torch
@@ -251,17 +265,29 @@ class FastGaussianRFT(FastRFT):
 
 @register
 class FastMaternRFT(FastRFT):
-    """Fastfood for the Matern kernel. Its Sm is √(2ν/χ²(2ν)) samples of
-    jax.random's Gamma sampler, which the port does not carry:
-    construction and deserialization raise."""
+    """Fastfood for the Matern kernel: Sm = √(2ν/χ²(2ν))/(l√NB), χ²(2ν)
+    = Gamma(ν, scale 2) on sub-stream 4. The Fastfood kernel takes this
+    Sm as it takes FastGaussianRFT's."""
 
     sketch_type = "FastMaternRFT"
 
     def __init__(self, N, S, context, nu: float = 1.0, l: float = 1.0,
                  fut: str = "wht"):
-        raise errors.NotImplementedYetError(
-            "FastMaternRFT needs the Gamma sampler (jax.random.gamma), "
-            "which is not ported yet")
+        self._nu = float(nu)
+        self._l = float(l)
+        super().__init__(N, S, context, fut=fut)
+
+    def _Sm(self, dtype, device=None) -> torch.Tensor:
+        chi2 = randgen.stream_slice(
+            self.subkey(4), randgen.Gamma(shape_param=self._nu, scale=2.0),
+            0, self._numblks * self._NB, dtype, device)
+        return matern_sm(chi2, self._nu, self._l, self._NB)
+
+    def _sm_spec(self) -> tuple:
+        return ("matern", (self._nu, self._l))
+
+    def _extra_params(self) -> dict[str, Any]:
+        return {"nu": self._nu, "l": self._l, "fut": self._fut_name}
 
     @classmethod
     def _from_parts(cls, N, S, alloc, d):

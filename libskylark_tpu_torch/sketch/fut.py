@@ -119,9 +119,11 @@ def _wht_butterfly(A: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return torch.movedim(x.reshape(shape), 0, axis)
 
 
-def wht(A: torch.Tensor, axis: int = 0) -> torch.Tensor:
+def wht(A: torch.Tensor, axis: int = 0, precision=None) -> torch.Tensor:
     """Unnormalized Walsh-Hadamard transform (natural ordering) along
-    ``axis``; the length must be a power of two."""
+    ``axis``; the length must be a power of two. ``precision`` is the
+    reference's matmul-precision knob, accepted and ignored: the port's
+    float32 matmuls are always full float32 (TF32 off)."""
     n = A.shape[axis]
     if n & (n - 1):
         raise errors.InvalidParametersError(
@@ -137,10 +139,11 @@ fwht = wht
 
 def fwht_sketch(A: torch.Tensor, diag: torch.Tensor, idx: torch.Tensor,
                 fut_scale: float, samp_scale: float,
-                axis: int = 0) -> torch.Tensor:
+                axis: int = 0, precision=None) -> torch.Tensor:
     """samp_scale · gather(fwht((fut_scale · diag) ⊙ A, axis), idx): the
     panel-free SRHT, in the reference's op order. ``axis`` 0 takes
-    columnwise operands (n, m), 1 rowwise ones (m, n)."""
+    columnwise operands (n, m), 1 rowwise ones (m, n). ``precision`` is
+    accepted and ignored, as in :func:`wht`."""
     if axis == 0:
         mixed = wht(fut_scale * diag[:, None] * A, axis=0)
         return samp_scale * mixed.index_select(0, idx)
@@ -203,7 +206,8 @@ class WHT(FUT):
     def scale(self) -> float:
         return 1.0 / math.sqrt(self.n)
 
-    def apply(self, A, axis=0):
+    def apply(self, A, axis=0, precision=None):
+        """``precision`` is accepted and ignored, as in :func:`wht`."""
         return wht(A, axis)
 
     apply_inverse = apply

@@ -6,8 +6,9 @@ an apply whose full operator would exceed this many bytes runs
 panel-blocked anyway. ``auto_materialize`` — the Nth plain-path apply of
 one transform pins its operator (bounded by ``auto_materialize_bytes``);
 applies that take the fused kernel's route are never auto-switched
-(sketch/dense.py). ``kernel_precision`` — contraction regime of the fused
-kernel, with the reference's regime names.
+(sketch/dense.py). ``pallas_precision`` — contraction regime of the fused
+kernel, with the reference's knob and regime names (the port's own
+``kernel_precision`` names are aliases of the same knob).
 """
 
 from libskylark_tpu_torch.base import errors
@@ -46,24 +47,39 @@ def set_auto_block_bytes(b: int) -> None:
 # rounded to bf16, two passes) and "bf16" (one pass) trade accuracy for
 # speed and are opt-in.
 KERNEL_PRECISIONS = ("f32", "bf16x3", "bf16", "bf16gen2")
-_kernel_precision = "bf16x3"
+_PALLAS_PRECISION_DEFAULT = "bf16x3"
+_kernel_precision = _PALLAS_PRECISION_DEFAULT
+
+
+class PrecisionNameError(errors.InvalidParametersError, ValueError):
+    """An unknown regime name: a ValueError, as in the reference."""
 
 
 def check_kernel_precision(p: str) -> str:
     """``p`` if it names a kernel regime; raises otherwise."""
     if p in KERNEL_PRECISIONS:
         return p
-    raise errors.InvalidParametersError(
-        f"kernel_precision must be one of {KERNEL_PRECISIONS}, got {p!r}")
+    raise PrecisionNameError(
+        f"pallas_precision must be one of {KERNEL_PRECISIONS}, got {p!r}")
 
 
-def get_kernel_precision() -> str:
+def get_pallas_precision() -> str:
     return _kernel_precision
 
 
-def set_kernel_precision(p: str) -> None:
+def set_pallas_precision(p: str) -> None:
     global _kernel_precision
     _kernel_precision = check_kernel_precision(p)
+
+
+def pallas_precision_overridden() -> bool:
+    """True when the regime differs from the shipping default (a pin
+    equal to the default is not detected, as in the reference)."""
+    return _kernel_precision != _PALLAS_PRECISION_DEFAULT
+
+
+get_kernel_precision = get_pallas_precision
+set_kernel_precision = set_pallas_precision
 
 
 _auto_materialize = True

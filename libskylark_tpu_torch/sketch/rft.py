@@ -1,12 +1,15 @@
 """Random Fourier and Laplace feature transforms: GaussianRFT,
-LaplacianRFT, ExpSemigroupRLT (the port of libskylark_tpu/sketch/rft.py).
+LaplacianRFT, MaternRFT, ExpSemigroupRLT (the port of
+libskylark_tpu/sketch/rft.py).
 
 Rahimi–Recht features z(x) = outscale · cos(scales ⊙ (W x) + b), W the
 lazy (S × N) frequency matrix inscale · (i.i.d. ``dist``) in the
 dense-block format of base/randgen.py (sub-stream 0), b ~ U[0, 2π)
-(sub-stream 1), per-feature scales 1. Routes, decided before any launch:
+(sub-stream 1), per-feature scales 1 but for MaternRFT's √(2ν/χ²(2ν))
+(sub-stream 2, the Gamma sampler). Routes, decided before any launch:
 
-- rowwise, standard Normal frequencies, float32: the cos-epilogue kernel
+- rowwise, standard Normal frequencies (Gaussian, Matern), float32: the
+  cos-epilogue kernel
   (sketch/cuda_dense.py ``rft_rowwise_apply``, B1-cos on a CUDA tensor,
   its plain version on a CPU tensor). Cauchy frequencies (Laplacian) make
   heavy-tailed phases where f32 cos turns a contraction-order difference
@@ -24,9 +27,6 @@ dense-block format of base/randgen.py (sub-stream 0), b ~ U[0, 2π)
 A sparse operand projects by ``spmm``/``spmm_t`` against the pinned W
 or W made whole (float32, whatever the distribution), then the same
 featurization, as the reference's sparse branch does.
-
-MaternRFT needs jax.random's Gamma sampler, which is not ported: it
-raises on construction and on deserialization.
 """
 
 from __future__ import annotations
@@ -36,11 +36,20 @@ from typing import Any
 
 import torch
 
-from libskylark_tpu_torch.base import errors, randgen
+from libskylark_tpu_torch.base import randgen
 from libskylark_tpu_torch.sketch import cuda_dense
 from libskylark_tpu_torch.sketch.dense import BLOCK_COLS
 from libskylark_tpu_torch.sketch.transform import (OperatorCache,
                                                    SketchTransform, register)
+
+
+def matern_scales(chi2: torch.Tensor, nu: float) -> torch.Tensor:
+    """√(2ν / max(χ², tiny)) in χ²'s dtype, the division rounded once as
+    the reference's (a Python scalar over a tensor would take the
+    reciprocal first)."""
+    tiny = torch.finfo(chi2.dtype).tiny
+    num = torch.tensor(2.0 * nu, dtype=chi2.dtype, device=chi2.device)
+    return torch.sqrt(torch.div(num, torch.clamp_min(chi2, tiny)))
 
 
 class RFT(OperatorCache, SketchTransform):
@@ -190,18 +199,31 @@ class LaplacianRFT(_SigmaRFT):
 
 @register
 class MaternRFT(RFT):
-    """Matern-kernel random features. Their per-feature scales are
-    √(2ν/χ²(2ν)) samples of jax.random's Gamma sampler (rejection loops
-    whose accept test takes backend-rounded logs), which the port does
-    not carry: construction and deserialization raise."""
+    """Matern-kernel random features: multivariate-t frequencies, normal
+    W (inscale 1/l) with per-feature scales √(2ν/χ²(2ν)), χ²(2ν) =
+    Gamma(ν, scale 2) on sub-stream 2. Its rowwise apply takes the
+    cos-epilogue kernel as GaussianRFT's does, the scales as ``sc``."""
 
     sketch_type = "MaternRFT"
     dist = randgen.Normal()
 
     def __init__(self, N, S, context, nu: float = 1.0, l: float = 1.0):
-        raise errors.NotImplementedYetError(
-            "MaternRFT needs the Gamma sampler (jax.random.gamma), which "
-            "is not ported yet")
+        self._nu = float(nu)
+        self._l = float(l)
+        super().__init__(N, S, context)
+
+    @property
+    def inscale(self) -> float:
+        return 1.0 / self._l
+
+    def row_scales(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        chi2 = randgen.stream_slice(
+            self.subkey(2), randgen.Gamma(shape_param=self._nu, scale=2.0),
+            0, self._S, dtype, device)
+        return matern_scales(chi2, self._nu)
+
+    def _extra_params(self) -> dict[str, Any]:
+        return {"nu": self._nu, "l": self._l}
 
     @classmethod
     def _from_parts(cls, N, S, alloc, d):

@@ -1,5 +1,6 @@
 """Process-wide metrics registry: named counters and gauges (the port of
-the parts of libskylark_tpu/telemetry/metrics.py that the ML layer uses).
+the counters and gauges of libskylark_tpu/telemetry/metrics.py, which the
+ML layer records to).
 
 A disabled ``inc``/``set`` is one call and one branch: nothing is
 recorded, and callers gate any host read of a device value on
@@ -40,15 +41,28 @@ class Metric:
 
     kind = "untyped"
 
-    def __init__(self, name: str, help: str = ""):  # noqa: A002
+    def __init__(self, name: str, help: str = "",  # noqa: A002
+                 registry: "Optional[MetricsRegistry]" = None):
         self.name = name
         self.help = help
         self._lock = threading.Lock()
         self._values: Dict[Tuple, float] = {}
+        self._registry = registry
 
     def value(self, **labels) -> Optional[float]:
         with self._lock:
             return self._values.get(_label_key(labels))
+
+    def to_dict(self) -> dict:
+        """{"type", "help", "values": [{"labels", "value"}, ...]}."""
+        with self._lock:
+            return {"type": self.kind, "help": self.help,
+                    "values": [{"labels": dict(k), "value": v}
+                               for k, v in sorted(self._values.items())]}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._values.clear()
 
 
 class Counter(Metric):
@@ -59,9 +73,18 @@ class Counter(Metric):
     def inc(self, n: float = 1, **labels) -> None:
         if not enabled():
             return
+        self.inc_always(n, **labels)
+
+    def inc_always(self, n: float = 1, **labels) -> None:
+        """Record whatever the global switch says."""
         k = _label_key(labels)
         with self._lock:
             self._values[k] = self._values.get(k, 0) + n
+
+    def value(self, **labels) -> float:
+        """The count (0 before the first ``inc``)."""
+        with self._lock:
+            return self._values.get(_label_key(labels), 0)
 
 
 class Gauge(Metric):
@@ -72,8 +95,19 @@ class Gauge(Metric):
     def set(self, v: float, **labels) -> None:
         if not enabled():
             return
+        self.set_always(v, **labels)
+
+    def set_always(self, v: float, **labels) -> None:
+        """Record whatever the global switch says."""
         with self._lock:
             self._values[_label_key(labels)] = float(v)
+
+    def add(self, n: float = 1, **labels) -> None:
+        if not enabled():
+            return
+        k = _label_key(labels)
+        with self._lock:
+            self._values[k] = self._values.get(k, 0) + n
 
 
 class MetricsRegistry:
@@ -88,7 +122,7 @@ class MetricsRegistry:
         with self._lock:
             m = self._metrics.get(name)
             if m is None:
-                m = self._metrics[name] = cls(name, help)
+                m = self._metrics[name] = cls(name, help, registry=self)
             elif not isinstance(m, cls):
                 raise ValueError(
                     f"metric {name!r} already registered as {m.kind}, "

@@ -19,6 +19,7 @@ float64, the block-major order and truncation, the routes, and the
 serialized form.
 """
 
+import json
 import math
 
 import jax.numpy as jnp
@@ -212,8 +213,11 @@ def test_reference_json_loads_to_same_transform(fut):
 
 
 def test_fast_matern_raises():
-    with pytest.raises(errors.NotImplementedYetError, match="Gamma"):
-        sk.FastMaternRFT(64, 16, Context(0))
+    """FastMaternRFT raised while the Gamma sampler was missing; now it
+    constructs, and the reference's JSON carries across to the same
+    transform (its features are held in test_torch_matern.py)."""
+    T = sk.FastMaternRFT(64, 16, Context(0), nu=1.5)
     ref = jsk.FastMaternRFT(64, 16, JContext(0), nu=1.5).to_json()
-    with pytest.raises(errors.NotImplementedYetError):
-        interop.transform_from_reference(ref)
+    got = interop.transform_from_reference(ref)
+    assert type(got) is sk.FastMaternRFT
+    assert got.to_dict() == T.to_dict() == json.loads(ref)

@@ -130,7 +130,7 @@ def test_check_cases_cover_every_ml_launch_shape(chip_smoke):
     assert blocks == [2047, 2047, 2047, 2051] and parts == [2048] * 4
     cos = {(n, d, w) for w in [s] + blocks + parts} | {
         (size["faster_rows"], d, size["faster_s"]), (m, d, parts[0])}
-    assert cos <= {(*shape, w) for shape, w in chip_smoke.COS_CASES}
+    assert cos <= {(*shape, w) for shape, w, *_ in chip_smoke.COS_CASES}
     assert {(n, d, s), (m, d, s)} <= set(chip_smoke.FASTFOOD_CASES)
     assert {("hash_columnwise", (n, s), 4 * s),
             ("hash_columnwise", (n, size["classes"]), 4 * s)} <= set(

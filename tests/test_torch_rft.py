@@ -196,12 +196,15 @@ def test_reference_json_loads_to_same_transform(name):
 
 
 def test_matern_raises():
-    with pytest.raises(errors.NotImplementedYetError, match="Gamma"):
-        sk.MaternRFT(64, 16, Context(0), nu=1.5)
+    """MaternRFT raised while the Gamma sampler was missing; now it
+    constructs, and the reference's JSON carries across to the same
+    transform (its scales are held in test_torch_matern.py)."""
+    T = sk.MaternRFT(64, 16, Context(0), nu=1.5, l=2.0)
     ref = jsk.MaternRFT(64, 16, JContext(0), nu=1.5, l=2.0).to_json()
     assert json.loads(ref)["sketch_type"] == "MaternRFT"
-    with pytest.raises(errors.NotImplementedYetError):
-        interop.transform_from_reference(ref)
+    got = interop.transform_from_reference(ref)
+    assert type(got) is sk.MaternRFT
+    assert got.to_dict() == T.to_dict() == json.loads(ref)
 
 
 def test_cuda_device_without_a_card_raises():

@@ -93,11 +93,20 @@ def test_serve_streams(sm_kind, sm_param, NB, nb, s_dim):
 
 
 def test_serve_streams_refuse_matern():
-    from libskylark_tpu_torch.base import errors
+    """The Matern Sm kind raised while the Gamma sampler was missing; now
+    each lane's Sm is FastMaternRFT's: √(2ν/χ²(2ν))/(l√NB), χ²(2ν) =
+    Gamma(ν, scale 2) on sub-stream 4 of the lane's key."""
+    from libskylark_tpu_torch.base import randgen
+    from libskylark_tpu_torch.base.context import fold_in
 
-    with pytest.raises(errors.NotImplementedYetError):
-        frft.serve_streams(_keys(1), NB=8, nb=1, s_dim=8, sm_kind="matern",
-                           sm_param=(1.5, 1.0))
+    keys = _keys(2, 2)
+    sm = frft.serve_streams(keys, NB=8, nb=2, s_dim=12, sm_kind="matern",
+                            sm_param=(1.5, 2.0))[2]
+    assert tuple(sm.shape) == (2, 16)
+    for b in range(2):
+        chi2 = randgen.stream_slice(fold_in(keys[b], 4),
+                                    randgen.Gamma(1.5, 2.0), 0, 16)
+        assert torch.equal(sm[b], frft.matern_sm(chi2, 1.5, 2.0, 8))
 
 
 @pytest.mark.parametrize("fut", ["wht", "dct"])
