@@ -68,6 +68,11 @@ of the scale-18 R-MAT graph; rand_block_fcg on the 16,384-row Gaussian
 Gram system, with ``iterations`` and ``idle_ms_per_iteration``; the same
 fields as above.
 
+``python3 chip_profile.py --lobpcg-seeds R`` prints instead, for R
+rounds of Context seeds, the a3 phase's randlobpcg measures for each
+sketch (``lobpcg_spread``): the spread across seeds of what the phase
+holds to its limits.
+
 It ends with the card's name and power limit as nvidia-smi gives them.
 It exits non-zero without a CUDA device. It imports neither jax nor
 libskylark_tpu.
@@ -221,32 +226,16 @@ def a3_cells(torch, P, np) -> dict:
 
     cs = chip_smoke
     size = cs.A3_FULL
-    m, d, s = size["rft_rows"], size["rft_d"], size["rft_s"]
-    X = cs.make_operand(torch, (m, d), 12)
+    d, s, k = size["rft_d"], size["rft_s"], size["rank"]
+    X = cs.a3_matern_operand(torch, size, "cuda")
     asz = size["admm"]
     Xa, ya, _, _ = cs.ml_data(torch, asz, "cuda")
     matern = ml.Matern(asz["d"], nu=size["admm_nu"],
                        l=(asz["latent"] * asz["d"]) ** 0.5)
-    g = torch.Generator(device="cuda").manual_seed(2)
-    n, r, k = size["krank_n"], size["krank_r"], size["rank"]
-    U0 = torch.linalg.qr(torch.randn(n, r, generator=g, device="cuda"))[0]
-    V0 = torch.linalg.qr(torch.randn(n, r, generator=g, device="cuda"))[0]
-    i = torch.arange(r, device="cuda", dtype=torch.float32)
-    sigma = torch.where(i < k, 1.0 - i / (2 * k),
-                        cs.A3_GAP[0] * cs.A3_GAP[1] ** (i - k))
-    Ak = (U0 * sigma) @ V0.T
-    del U0, V0
-    Als, _ = cs.ls_operands(torch)
-    src, dst = cs.rmat_edges(np, size["graph_scale"],
-                             size["graph_edge_factor"],
-                             (0.57, 0.19, 0.19, 0.05), 750)
-    G = ml.Graph()
-    for u, v in zip(src.tolist(), dst.tolist()):
-        G.add_edge(u, v)
-    Kb = cs.ml_kernel(ml, asz).gram(Xa[:size["block_rows"]], device="cuda")
-    Kb.diagonal().add_(1.0)
-    Bb = torch.nn.functional.one_hot(ya[:size["block_rows"]],
-                                     asz["classes"]).float()
+    Ak = cs.a3_krank_operand(torch, size, "cuda")[0]
+    Als = cs.a3_lobpcg_operand(torch, size, "cuda")
+    G = cs.a3_graph(ml, np, size)[0]
+    Kb, Bb = cs.a3_block_system(torch, ml, size, "cuda")
     ctx = {seed: P.Context(seed) for seed in range(780, 787)}
     ase = nla.ApproximateSVDParams(num_iterations=2, oversampling_ratio=2)
     kprm = krylov.KrylovParams(tolerance=size["fcg_tolerance"],
@@ -282,6 +271,36 @@ def a3_cells(torch, P, np) -> dict:
     }
 
 
+def lobpcg_spread(torch, P, np, rounds: int) -> None:
+    """The a3 phase's randlobpcg measures (chip_smoke.lobpcg_values) over
+    ``rounds`` sets of Context seeds: round r gives sketch j (CWT, JLT,
+    FJLT) the seed 740 + 3r + j, so round 0 is the phase's own. One JSON
+    line per sketch and round."""
+    import warnings
+
+    from libskylark_tpu_torch import nla
+
+    cs = chip_smoke
+    size = cs.A3_FULL
+    k = size["evd_k"]
+    A = cs.a3_lobpcg_operand(torch, size, "cuda")
+    lam = torch.linalg.svdvals(A.double())[:k] ** 2
+    for r in range(rounds):
+        for j, name in enumerate(("cwt", "jlt", "fjlt")):
+            seed = 740 + 3 * r + j
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                got, _ = nla.lobpcg_rand_evd(A, k, P.Context(seed),
+                                             sketch=name)
+            host_s = time.perf_counter() - t0
+            vals = cs.lobpcg_values(torch, np, P, A, k, name, seed, got, lam,
+                                    "cuda")
+            print(json.dumps({"cell": f"lobpcg-spread-{name}",
+                              "context_seed": seed, "seconds": host_s,
+                              **vals}), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -295,6 +314,11 @@ def main() -> int:
     from libskylark_tpu_torch.kernels import build
 
     build.build()
+    if "--lobpcg-seeds" in sys.argv:
+        rounds = int(sys.argv[sys.argv.index("--lobpcg-seeds") + 1])
+        lobpcg_spread(torch, P, np, rounds)
+        print(chip_smoke.smi("name,power.limit"), flush=True)
+        return 0
     A = chip_smoke.make_operand(torch, (8192, 8192), 1)
     Asvd, _ = chip_smoke.svd_operand(torch)
     Als, b = chip_smoke.ls_operands(torch)

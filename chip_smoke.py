@@ -2863,10 +2863,12 @@ A3_FULL = {"rft_rows": 16384, "rft_d": 4096, "rft_s": 4096,
 # limits of the a3 phase, each with its reason
 A3_LIMITS = {
     # Gamma on the card against the CPU route: an element whose accept
-    # test (a backend-rounded log) flips takes another draw; at most one
-    # in 10^4 samples may, and the rest agree within 1e-5 relative
-    # (ROADMAP C2)
-    "gamma_flips_per_sample": 1e-4, "gamma_rel": 1e-5,
+    # test (a backend-rounded log) flips takes another draw, an unrelated
+    # sample more than 1e-2 relative off; at most one in 10^4 samples
+    # may, and the rest agree within 1e-5 relative times their condition
+    # factor (gamma_condition; ROADMAP C2)
+    "gamma_flips_per_sample": 1e-4, "gamma_flip_rel": 1e-2,
+    "gamma_rel": 1e-5,
     # the Monte-Carlo Gram limits of the feature maps (PERF.md §2)
     "gram_max": 0.1, "gram_mean": 0.02,
     # the ml phase's ADMM limits
@@ -2876,7 +2878,15 @@ A3_LIMITS = {
     "sigma_rel": 1e-3, "recon_factor": 1.01, "recon_add": 1e-4,
     # the port against the same algorithm replayed in float64 from the
     # same random draws
-    "replay_rel": 1e-3, "ase_rel": 1e-3, "serve_rel": 1e-4,
+    "replay_rel": 1e-3,
+    # LOBPCG's eigenvalues are Ritz values, at most σ² but for float32
+    # rounding; its 20 float32 iterations stopped 0.09-1.5% short of σ²
+    # over 15 seeds on the H100 (chip_profile.py --lobpcg-seeds 5), and
+    # are held to 5%
+    "ritz_excess": 1e-5, "lobpcg_reach": 5e-2,
+    # a sketch made on the card against the same sketch made by an
+    # independent route (the check phase's kernel limit)
+    "sketch_rel": 1e-4, "ase_rel": 1e-3, "serve_rel": 1e-4,
     "block_rel": 1e-3,
 }
 # the krank operand's spectrum: 64 values from 1 down to 0.51, then a gap
@@ -2886,6 +2896,95 @@ A3_GAP = (0.05, 0.95)
 # the kernels the a3 phase must launch
 A3_KERNELS = ("dense_rowwise_cos", "fastfood", "dense_rowwise",
               "dense_columnwise", "hash_columnwise")
+
+
+def gamma_condition(torch, np, key, a: float, scale: float, want, start=0):
+    """The condition factor of each Gamma(a, scale) sample of the stream
+    under ``key`` from element ``start`` on, ``want`` its values: max(1,
+    1/(4v)). A sample is d·v³ (times the boost (1 − U)^(1/a) when a < 1),
+    v = 1 + c·x with x the element's normal draw; two routes compute x a
+    few ulp apart, and where v is small the sum cancels, so the relative
+    error of v³ grows as 3·|c·x|/v. Below v = 1/4 the 1e-5 limit scales
+    by 1/(4v). V = sample/(scale·d·boost), with the boost made from the
+    element's own key as the sampler makes it."""
+    from libskylark_tpu_torch.base import randgen, threefry as tf
+
+    want = np.asarray(want, np.float64)
+    n = want.size
+    boosted = a < 1
+    d = (a + 1 if boosted else a) - 1.0 / 3.0
+    boost = np.ones(n)
+    if boosted:
+        L = randgen.CHUNK
+        c0, c1 = start // L, -(-(start + n) // L)
+        ck = torch.from_numpy(
+            randgen.chunk_keys(key, c0, c1 - c0).astype(np.int64))
+        x0, x1 = tf.threefry2x32(ck[:, :1], ck[:, 1:], 0,
+                                 torch.arange(L, dtype=torch.int64))
+        _, sub = randgen.split_keys(
+            torch.stack([x0.reshape(-1), x1.reshape(-1)], 1))
+        u = 1.0 - randgen._scalar_uniform(sub).double().numpy()
+        boost = (u ** (1.0 / a))[start - c0 * L:start - c0 * L + n]
+    v = np.cbrt(np.maximum(want / (scale * d * boost), 0.0))
+    return np.maximum(1.0, 1.0 / np.maximum(4.0 * v, 1e-30))
+
+
+def a3_generator(torch, seed, device):
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def a3_matern_operand(torch, size, device):
+    """Config 3's X (rft_rows × rft_d), seed 12."""
+    return torch.randn((size["rft_rows"], size["rft_d"]),
+                       generator=a3_generator(torch, 12, device),
+                       device=device)
+
+
+def a3_krank_operand(torch, size, device):
+    """krank's operand U0·diag(σ)·V0ᵀ (krank_n², rank krank_r): σ from 1
+    down to 0.51 over the first ``rank`` values, then A3_GAP's decay;
+    (A, U0, σ)."""
+    n, r, k = size["krank_n"], size["krank_r"], size["rank"]
+    g = a3_generator(torch, 2, device)
+    U0 = torch.linalg.qr(torch.randn(n, r, generator=g, device=device))[0]
+    V0 = torch.linalg.qr(torch.randn(n, r, generator=g, device=device))[0]
+    i = torch.arange(r, device=device, dtype=torch.float32)
+    sigma = torch.where(i < k, 1.0 - i / (2 * k),
+                        A3_GAP[0] * A3_GAP[1] ** (i - k))
+    return (U0 * sigma) @ V0.T, U0, sigma
+
+
+def a3_lobpcg_operand(torch, size, device):
+    """The least-squares operand (ls_rows × ls_cols, seed 3: on the card
+    ls_operands' A)."""
+    return torch.randn((size["ls_rows"], size["ls_cols"]),
+                       generator=a3_generator(torch, 3, device),
+                       device=device)
+
+
+def a3_graph(ml, np, size):
+    """The R-MAT graph (Graph500's probabilities, seed 750) built by
+    add_edge as skylark_graph_se does; (G, generated edges, seconds the
+    build took)."""
+    src, dst = rmat_edges(np, size["graph_scale"], size["graph_edge_factor"],
+                          (0.57, 0.19, 0.19, 0.05), 750)
+    t0 = time.perf_counter()
+    G = ml.Graph()
+    for u, v in zip(src.tolist(), dst.tolist()):
+        G.add_edge(u, v)
+    return G, len(src), time.perf_counter() - t0
+
+
+def a3_block_system(torch, ml, size, device):
+    """The block solvers' K + λI (λ = 1), K the Gaussian Gram of the
+    first block_rows rows of the ml data, and the one-hot class columns;
+    (K + λI, B)."""
+    asz = size["admm"]
+    X, y, _, _ = ml_data(torch, asz, device)
+    nb = size["block_rows"]
+    K = ml_kernel(ml, asz).gram(X[:nb], device=device)
+    K.diagonal().add_(1.0)
+    return K, torch.nn.functional.one_hot(y[:nb], asz["classes"]).float()
 
 
 def a3_limit(value, limit) -> dict:
@@ -3021,10 +3120,12 @@ def a3_phase(torch, P, np, size=A3_FULL, device="cuda") -> dict:
         return result
 
     def gen(seed):
-        return torch.Generator(device=device).manual_seed(seed)
+        return a3_generator(torch, seed, device)
 
-    # 1. Gamma on the card against the CPU route
-    flips, worst = {}, 0.0
+    # 1. Gamma on the card against the CPU route: a flip is a sample more
+    # than 1e-2 relative off (an unrelated draw); every other sample is
+    # held within 1e-5 relative times its condition factor
+    flips, worst, worst_plain = {}, 0.0, 0.0
     for i, a in enumerate(size["gamma_shapes"]):
         key = P.Context(700 + i).allocate().key
         dist = randgen.Gamma(shape_param=a, scale=2.0)
@@ -3032,20 +3133,24 @@ def a3_phase(torch, P, np, size=A3_FULL, device="cuda") -> dict:
             key, dist, 0, size["gamma_n"], device=device)).cpu().double()
         want = randgen.stream_slice(key, dist, 0, size["gamma_n"],
                                     device="cpu").double()
-        rel = (got - want).abs() / want.abs().clamp_min(1e-300)
-        flipped = rel > lim["gamma_rel"]
+        rel = ((got - want).abs() / want.abs().clamp_min(1e-300)).numpy()
+        flipped = rel > lim["gamma_flip_rel"]
+        cond = gamma_condition(torch, np, key, a, 2.0, want.numpy())
         flips[a] = int(flipped.sum())
-        worst = max(worst, float(rel[~flipped].max()))
+        worst = max(worst, float((rel / cond)[~flipped].max()))
+        worst_plain = max(worst_plain, float(rel[~flipped].max()))
     out["recorded"]["gamma_flips"] = flips
+    out["recorded"]["gamma_unflipped_max_rel"] = worst_plain
     out["checks"]["gamma_flips"] = a3_limit(
         max(flips.values()) / size["gamma_n"],
         lim["gamma_flips_per_sample"])
-    out["checks"]["gamma_unflipped_rel"] = a3_limit(worst, lim["gamma_rel"])
+    out["checks"]["gamma_unflipped_rel_over_condition"] = a3_limit(
+        worst, lim["gamma_rel"])
 
     # 2. Matern features at config 3's shape, each held to its kernel's
     # Gram matrix on sampled rows
     m, d, s = size["rft_rows"], size["rft_d"], size["rft_s"]
-    X = torch.randn((m, d), generator=gen(12), device=device)
+    X = a3_matern_operand(torch, size, device)
     rows = torch.randperm(m, generator=gen(13), device=device)[
         :size["gram_rows"]]
     Xr = X[rows].double()
@@ -3111,14 +3216,8 @@ def a3_phase(torch, P, np, size=A3_FULL, device="cuda") -> dict:
     del Xa, ya, Xte, yte, model, pmodel, solver, plain
 
     # 4. krank on an 8192² operand of rank 512 with a gap at rank 64
-    n, r, k = size["krank_n"], size["krank_r"], size["rank"]
-    g = gen(2)
-    U0 = torch.linalg.qr(torch.randn(n, r, generator=g, device=device))[0]
-    V0 = torch.linalg.qr(torch.randn(n, r, generator=g, device=device))[0]
-    i = torch.arange(r, device=device, dtype=torch.float32)
-    sigma = torch.where(i < k, 1.0 - i / (2 * k),
-                        A3_GAP[0] * A3_GAP[1] ** (i - k))
-    A = (U0 * sigma) @ V0.T
+    k = size["rank"]
+    A, U0, sigma = a3_krank_operand(torch, size, device)
     normA = float(torch.linalg.norm(sigma.double()))
     tail = float(torch.linalg.norm(sigma[k:].double())) / normA
     s_k = 2 * k
@@ -3177,42 +3276,41 @@ def a3_phase(torch, P, np, size=A3_FULL, device="cuda") -> dict:
         w = torch.sort(w, descending=True).values[:k]
         out["checks"][f"krank_evd_{method}_lambda"] = a3_limit(float(
             ((w - sigma[:k]).abs() / sigma[:k]).max()), lim["sigma_rel"])
-    del Sym, Q, U0, V0
+    del Sym, Q, U0
 
-    # 5. randlobpcg on the least-squares operand: LOBPCG's host
+    # 5. randlobpcg on the least-squares operand. LOBPCG's host
     # iteration is the reference's (float32, scipy's default 20
-    # iterations), so the port is held against that iteration from the
-    # same sketch made by the kernel's plain version; the distance to the
-    # float64 σ² is recorded (ROADMAP C11)
+    # iterations): it stops short of σ², and where it stops moves by up
+    # to 1e-2 with a 1e-6 change of the sketch (ROADMAP C11), so no
+    # replay of it can be held to 1e-3. Each sketch is held instead
+    # (lobpcg_values): the card's sketch against one made by an
+    # independent route; the converged quantity, LOBPCG in float64 from
+    # the card's sketch run to its end, against the float64 σ²; and the
+    # port's eigenvalues as Ritz values, at most σ² (to rounding) and
+    # within the reach of the reference's 20 iterations
     mr, nr, ke = size["ls_rows"], size["ls_cols"], size["evd_k"]
-    A = torch.randn((mr, nr), generator=gen(3), device=device)
+    A = a3_lobpcg_operand(torch, size, device)
     A64 = A.double()
     lam = torch.linalg.svdvals(A64)[:ke] ** 2
-    Ah = A.cpu().numpy()
     for j, name in enumerate(("cwt", "jlt", "fjlt")):
         ctx_seed = 740 + j
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             got, _ = step(f"lobpcg_{name}", lambda: nla.lobpcg_rand_evd(
                 A, ke, P.Context(ctx_seed), sketch=name, device=device))
-            T = {"cwt": sk.CWT, "jlt": sk.JLT, "fjlt": sk.FJLT}[name](
-                mr, 4 * nr, P.Context(ctx_seed))
-            if name == "cwt":  # B2's plain scatter, in order, on the CPU
-                Bp = cuda_hash.cwt_apply_plain(T.allocation.key, A.cpu(),
-                                               4 * nr, False)
-            elif name == "jlt":
-                Bp = cd.dense_apply_plain(T.allocation.key, T.dist, A,
-                                          4 * nr, T.scale, False)
-            else:  # the FJLT's DCT chain has no kernel
-                Bp = T.apply(A, sk.COLUMNWISE, device=device)
-            want = lobpcg_replay(np, Ah, Bp.cpu().numpy(), ke)
-        got_t = torch.as_tensor(got, dtype=torch.float64)
-        want_t = torch.as_tensor(want, dtype=torch.float64)
-        out["checks"][f"lobpcg_{name}_replay"] = a3_limit(float(
-            ((got_t - want_t).abs() / want_t).max()), lim["replay_rel"])
-        out["recorded"][f"lobpcg_{name}_vs_sigma2"] = float(
-            ((got_t - lam.cpu()).abs() / lam.cpu()).max())
-        del Bp
+        vals = lobpcg_values(torch, np, P, A, ke, name, ctx_seed, got, lam,
+                             device)
+        out["checks"][f"lobpcg_{name}_sketch"] = a3_limit(
+            vals["sketch"], lim["sketch_rel"])
+        out["checks"][f"lobpcg_{name}_converged"] = a3_limit(
+            vals["converged"], lim["sigma_rel"])
+        out["checks"][f"lobpcg_{name}_ritz_excess"] = a3_limit(
+            vals["ritz_excess"], lim["ritz_excess"])
+        out["checks"][f"lobpcg_{name}_vs_sigma2"] = a3_limit(
+            vals["vs_sigma2"], lim["lobpcg_reach"])
+        out["recorded"][f"lobpcg_{name}_converged_iterations"] = vals[
+            "iterations"]
+        out["recorded"][f"lobpcg_{name}_replay"] = vals["replay"]
     got, _ = step("power_evd", lambda: nla.power_iterations_rand_evd(
         A, ke, P.Context(743), device=device))
     T = sk.JLT(nr, ke, P.Context(743))
@@ -3226,19 +3324,14 @@ def a3_phase(torch, P, np, size=A3_FULL, device="cuda") -> dict:
         ((got.double() - want).abs() / want).max()), lim["replay_rel"])
     out["recorded"]["power_evd_vs_sigma2"] = float(
         ((got.double() - lam).abs() / lam).max())
-    del A, A64, Ah, Y, Qy
+    del A, A64, Y, Qy
 
     # 6. graph: an R-MAT graph built by add_edge as skylark_graph_se does
-    src, dst = rmat_edges(np, size["graph_scale"], size["graph_edge_factor"],
-                          (0.57, 0.19, 0.19, 0.05), 750)
-    t0 = time.perf_counter()
-    G = ml.Graph()
-    for u, v in zip(src.tolist(), dst.tolist()):
-        G.add_edge(u, v)
-    out["recorded"]["graph_build_seconds"] = time.perf_counter() - t0
+    G, generated, out["recorded"]["graph_build_seconds"] = a3_graph(
+        ml, np, size)
     out["recorded"]["graph"] = {"vertices": G.num_vertices(),
                                 "volume": G.num_edges(),
-                                "generated_edges": int(len(src))}
+                                "generated_edges": int(generated)}
     params = nla.ApproximateSVDParams(num_iterations=2,
                                       oversampling_ratio=2)
     kg = size["ase_k"]
@@ -3338,13 +3431,7 @@ def a3_phase(torch, P, np, size=A3_FULL, device="cuda") -> dict:
 
     # 7. the block solvers on K + λI, K the Gaussian Gram of the rows of
     # ml-rlsc-faster, the right-hand sides the one-hot class columns
-    asz = size["admm"]
-    Xb, yb, _, _ = ml_data(torch, asz, device)
-    nb_ = size["block_rows"]
-    Kb = ml_kernel(ml, asz).gram(Xb[:nb_], device=device)
-    Kb.diagonal().add_(1.0)
-    Bb = torch.nn.functional.one_hot(yb[:nb_], asz["classes"]).float()
-    del Xb, yb
+    Kb, Bb = a3_block_system(torch, ml, size, device)
     prm = asynch.RandBlockParams()
     Xg, sweeps = step("rand_block_gauss_seidel",
                       lambda: algorithms.asynch.rand_block_gauss_seidel(
@@ -3391,6 +3478,108 @@ def a3_phase(torch, P, np, size=A3_FULL, device="cuda") -> dict:
     check(not bad, f"a3 phase checks failed: {bad}")
     a3_launch_checks(out)
     return out
+
+
+def lobpcg_sketch_plain(torch, np, name, T, A, device):
+    """The sketch S·A (s × n) that ``lobpcg_rand_evd(sketch=name)``
+    makes, by a route independent of the card's: CWT by B2's plain
+    scatter in order on the CPU; JLT by the dense kernel's plain version;
+    FJLT by its definition in float64, √(N/s)·C·(D ⊙ A)/√(2N), with C
+    the sampled rows of the unnormalized DCT-II written out as cosines,
+    2·cos(π·idx_k·(2j + 1)/(2N)), in column panels."""
+    from libskylark_tpu_torch.sketch import cuda_dense as cd, cuda_hash
+
+    s = T.sketch_dim
+    if name == "cwt":
+        return cuda_hash.cwt_apply_plain(T.allocation.key, A.cpu(), s,
+                                         False).double()
+    if name == "jlt":
+        return cd.dense_apply_plain(T.allocation.key, T.dist, A, s,
+                                    T.scale, False).double()
+    N = A.shape[0]
+    idx = T.sample_indices(device)
+    DA = T.diagonal(torch.float64, device)[:, None] * A.double()
+    out = torch.zeros((s, A.shape[1]), dtype=torch.float64, device=device)
+    step_ = 8192
+    for j0 in range(0, N, step_):
+        j = torch.arange(j0, min(j0 + step_, N), device=device)
+        r = (idx[:, None] * (2 * j[None, :] + 1)) % (4 * N)
+        C = 2.0 * torch.cos(math.pi * r.double() / (2 * N))
+        out += C @ DA[j0:j0 + len(j)]
+    return math.sqrt(N / s) / math.sqrt(2 * N) * out
+
+
+def lobpcg_values(torch, np, P, A, k, name, ctx_seed, got, lam, device,
+                  maxiter=200) -> dict:
+    """The measures ``lobpcg_rand_evd(A, k, Context(ctx_seed),
+    sketch=name)`` is held to, its eigenvalues ``got`` and the float64
+    σ² ``lam``: "sketch", max|card − independent|/max|independent| of
+    the sketch (lobpcg_sketch_plain); "converged", the largest relative
+    distance from σ² of float64 LOBPCG from the card's sketch, at most
+    ``maxiter`` iterations (lobpcg_converged), with its "iterations";
+    "vs_sigma2", that of ``got``; "ritz_excess", max((got − σ²)/σ²),
+    which a Ritz value keeps ≤ 0 but for rounding; and, recorded only,
+    "replay", the largest relative distance of ``got`` from the
+    reference's float32 iteration replayed on the independent sketch
+    (lobpcg_replay), which the unconverged iteration's sensitivity to its
+    sketch keeps from being a limit (ROADMAP C11)."""
+    import warnings
+
+    from libskylark_tpu_torch import sketch as sk
+
+    m, n = A.shape
+    T = {"cwt": sk.CWT, "jlt": sk.JLT, "fjlt": sk.FJLT}[name](
+        m, 4 * n, P.Context(ctx_seed))
+    B = T.apply(A, sk.COLUMNWISE, device=device).double()
+    Bp = lobpcg_sketch_plain(torch, np, name, T, A, device).to(B.device)
+    got = torch.as_tensor(np.asarray(got), dtype=torch.float64)
+    lam = lam.double().cpu()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        conv, its = lobpcg_converged(torch, np, A.double(),
+                                     B.cpu().numpy(), k, maxiter)
+        want = torch.as_tensor(lobpcg_replay(
+            np, A.cpu().numpy(), Bp.float().cpu().numpy(), k))
+    return {"sketch": float((B - Bp).abs().max() / Bp.abs().max()),
+            "replay": float(((got - want).abs() / want).max()),
+            "converged": float(((conv - lam).abs() / lam).max()),
+            "iterations": its,
+            "vs_sigma2": float(((got - lam).abs() / lam).max()),
+            "ritz_excess": float(((got - lam) / lam).max())}
+
+
+def lobpcg_converged(torch, np, A64, B, k, maxiter):
+    """lobpcg_rand_evd's iteration in float64 and run to its end: the
+    start Vt[:k] and the (RᵀR)⁻¹ preconditioner from the sketch B (s ×
+    n), AᵀA applied on A64's device, at most ``maxiter`` iterations to a
+    residual of 1e-7·‖A‖²; (the eigenvalues descending, the iterations
+    taken)."""
+    import scipy.linalg as sla
+    from scipy.sparse.linalg import LinearOperator, lobpcg
+
+    n = A64.shape[1]
+    B = np.asarray(B, np.float64)
+    _, _, Vt = np.linalg.svd(B, full_matrices=False)
+    _, R = np.linalg.qr(B)
+
+    def amul(x):
+        xt = torch.as_tensor(np.asarray(x), device=A64.device)
+        return (A64.T @ (A64 @ xt)).cpu().numpy()
+
+    def precond(y):
+        return sla.solve_triangular(
+            R, sla.solve_triangular(R.T, y, lower=True), lower=False)
+
+    top = float(torch.linalg.matrix_norm(A64, 2)) ** 2
+    lam, _, hist = lobpcg(LinearOperator((n, n), matvec=amul, matmat=amul,
+                                         dtype=np.float64),
+                          Vt[:k].T.copy(),
+                          M=LinearOperator((n, n), matvec=precond,
+                                           matmat=precond,
+                                           dtype=np.float64),
+                          largest=True, tol=1e-7 * top, maxiter=maxiter,
+                          retLambdaHistory=True)
+    return (torch.as_tensor(np.sort(lam)[::-1].copy()), len(hist) - 1)
 
 
 def lobpcg_replay(np, A, B, k):

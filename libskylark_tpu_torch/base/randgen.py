@@ -36,6 +36,7 @@ import torch
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base import threefry as tf
 from libskylark_tpu_torch.base.context import fold_in, key_words
+from libskylark_tpu_torch.base.device import resolve_device
 
 # Elements per stream chunk; part of the stream format.
 CHUNK = 4096
@@ -168,12 +169,13 @@ class Distribution:
     def sample(self, key, shape, dtype=None, device=None) -> torch.Tensor:
         """``sample(key, shape)`` of the reference: this distribution's
         jax.random sampler under the (2,) uint32 key data ``key``, over the
-        flat row-major index of ``shape``, on ``device``; ``dtype`` None
-        keeps the sampler's own (f32, or int64 for integers)."""
+        flat row-major index of ``shape``, on ``device`` (the package
+        default when None); ``dtype`` None keeps the sampler's own (f32,
+        or int64 for integers)."""
         shape = (tuple(int(d) for d in shape)
                  if isinstance(shape, (tuple, list)) else (int(shape),))
         keys = torch.tensor([list(key_words(key))], dtype=torch.int64,
-                            device=device)
+                            device=resolve_device(device))
         vals = self.sample_chunks(keys, int(np.prod(shape))).reshape(shape)
         return vals if dtype is None else vals.to(dtype)
 

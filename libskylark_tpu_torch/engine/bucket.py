@@ -118,3 +118,20 @@ def padded_elements(padded_shape: Sequence[int], capacity: int) -> int:
 
 def real_elements(shapes: Sequence[Sequence[int]]) -> int:
     return int(sum(int(np.prod([int(e) for e in s])) for s in shapes))
+
+
+def result_nbytes(value) -> int:
+    """Bytes of one serve result, for cache and residency quotas: an
+    array or tensor counts its buffer, a tuple, list or dict 64 bytes
+    plus its members, bytes their length, anything else 64."""
+    if isinstance(value, np.ndarray):
+        return int(value.nbytes)
+    if isinstance(value, torch.Tensor):
+        return int(value.numel() * value.element_size())
+    if isinstance(value, (tuple, list)):
+        return 64 + sum(result_nbytes(v) for v in value)
+    if isinstance(value, dict):
+        return 64 + sum(result_nbytes(v) for v in value.values())
+    if isinstance(value, (bytes, bytearray)):
+        return len(value)
+    return 64

@@ -36,8 +36,9 @@ from libskylark_tpu_torch.sketch.transform import SketchTransform, register
 
 def fut_apply_policy(fut_obj, fut_name: str, W: torch.Tensor) -> torch.Tensor:
     """The FUT along W's last (contiguous) axis, shared by the transform
-    and the serve apply. The reference picks a TPU matmul precision for
-    the WHT here; the port's matmuls are full float32 whatever the name."""
+    and the serve apply. ``fut_name`` is the reference's parameter, where
+    it picks a matmul precision for the WHT; the port's matmuls are full
+    float32 for every FUT, so it selects nothing here."""
     return fut_obj.apply(W, axis=-1)
 
 

@@ -1,7 +1,9 @@
 """Global sketch tuning knobs (the port of libskylark_tpu/sketch/params.py).
 
 ``blocksize`` — column-panel width for the memory-bounded dense apply
-(0 disables blocking). ``auto_block_bytes`` — with ``blocksize`` unset,
+(0 disables blocking). ``factor`` — the reference's regime-selection
+threshold of the distributed apply (kept for it; the one-card applies do
+not read it). ``auto_block_bytes`` — with ``blocksize`` unset,
 an apply whose full operator would exceed this many bytes runs
 panel-blocked anyway. ``auto_materialize`` — the Nth plain-path apply of
 one transform pins its operator (bounded by ``auto_materialize_bytes``);
@@ -14,6 +16,7 @@ kernel, with the reference's knob and regime names (the port's own
 from libskylark_tpu_torch.base import errors
 
 _blocksize = 0
+_factor = 20
 
 
 def get_blocksize() -> int:
@@ -23,6 +26,15 @@ def get_blocksize() -> int:
 def set_blocksize(b: int) -> None:
     global _blocksize
     _blocksize = int(b)
+
+
+def get_factor() -> int:
+    return _factor
+
+
+def set_factor(f: int) -> None:
+    global _factor
+    _factor = int(f)
 
 
 _auto_block_bytes = 2 << 30  # 2 GiB

@@ -37,7 +37,10 @@ def _label_key(labels: dict) -> Tuple[Tuple[str, str], ...]:
 
 
 class Metric:
-    """Name, help text and a lock-guarded value per label set."""
+    """Name, help text and a lock-guarded value per label set.
+    ``registry`` is the reference's parameter (the registry that made the
+    metric); a port registry finds its metrics by name, so it is not
+    kept."""
 
     kind = "untyped"
 
@@ -47,7 +50,6 @@ class Metric:
         self.help = help
         self._lock = threading.Lock()
         self._values: Dict[Tuple, float] = {}
-        self._registry = registry
 
     def value(self, **labels) -> Optional[float]:
         with self._lock:

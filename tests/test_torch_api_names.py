@@ -6,8 +6,10 @@ function, class or method must be accepted by the port's counterpart
 (``inspect.signature`` on the CPU; a port signature with ``**kwargs``
 accepts any keyword). A module's public names are the functions and
 classes it defines, its upper-case constants, and a package's
-``__all__``. Only what ROADMAP defers to a later item is exempt; each
-exemption names that item.
+``__all__``. Only what ROADMAP defers is exempt, each exemption with its
+item: DenseTransform's s_block, the serve.py endpoints and telemetry
+beyond counters and gauges (A5-A7), and the names of reference modules
+not ported yet (C12).
 """
 
 from __future__ import annotations
@@ -35,68 +37,28 @@ _SERVE_A7 = ("sessions", "open_sketch_session", "session_append",
              "qos_reset_bucket_obs")
 
 # "module:name" (a name, a Class.member or a callable's "(param)") -> the
-# ROADMAP item that brings it
+# ROADMAP item that brings it. The deferred kinds: s_block on
+# DenseTransform (A5), the serve.py endpoints with the serve programs
+# only they run (A6, A5 and A7 by endpoint), and telemetry beyond
+# counters and gauges (A7). Every other name the port lacks is C12: a
+# module of the reference not yet ported, each named there with the A
+# item that brings it.
 EXEMPT = {
-    # A5: multi-GPU
-    ":DistSparseMatrix": "A5", ":distribute_sparse": "A5",
-    "base:DistSparseMatrix": "A5", "base:distribute_sparse": "A5",
-    "base.errors:SkylarkError.append_trace": "A5",
-    "base.errors:SkylarkError.trace": "A5",
+    # A5: DenseTransform.s_block, the distributed panel size
     "sketch:DenseTransform.s_block": "A5",
     "sketch.dense:DenseTransform.s_block": "A5",
-    "sketch.params:get_factor": "A5", "sketch.params:set_factor": "A5",
-    # A6: the engine (the rest of serve.py, compile, cache, tune)
-    "engine:aot": "A6", "engine:warmup": "A6", "engine:cache": "A6",
-    "engine:CacheEntry": "A6", "engine:EngineStats": "A6",
-    "engine:ExecutableCache": "A6", "engine:compiled": "A6",
-    "engine:CompiledFn": "A6", "engine:code_version": "A6",
-    "engine:digest": "A6", "engine:donation_enabled": "A6",
-    "engine:dump_stats": "A6", "engine:enable_persistent_cache": "A6",
-    "engine:maybe_donate": "A6", "engine:plan_fingerprint": "A6",
-    "engine:reset": "A6", "engine:stats": "A6", "engine:serve_stats": "A6",
+    # A6: the serve.py endpoints, their states and readers, and the
+    # serve programs of its solve and lowrank endpoints
     "engine:DEGRADED": "A6", "engine:DRAINING": "A6", "engine:SERVING": "A6",
-    "engine:STOPPED": "A6", "engine.serve:DEGRADED": "A6",
-    "engine.serve:dispatch_loop": "A6",
+    "engine:STOPPED": "A6", "engine:serve_stats": "A6",
+    "engine.serve:DEGRADED": "A6", "engine.serve:dispatch_loop": "A6",
     "engine.serve:default_cmm_transform": "A6",
     "engine.serve:request_digest": "A6", "engine.serve:serve_stats": "A6",
     "engine.serve:cache_stats": "A6", "engine.serve:qos_stats": "A7",
-    "engine.bucket:result_nbytes": "A6",
-    "base.precision:set_solver_precision": "A6",
-    "base.precision:get_solver_precision": "A6",
-    "base.precision:solver_precision": "A6",
     "algorithms.regression:sketched_solve_serve": "A6",
     "nla.lowrank:lowrank_serve": "A6",
     "nla.lowrank:lowrank_serve_apply": "A6",
-    # the use_pallas knob, the plan cache and effective_plan (B-i 2) come
-    # with tune/ (A6); these three helpers read them
-    "sketch.dense:pallas_ambient_ok": "A6",
-    "sketch.dense:pallas_serves_eager": "A6",
-    "sketch.dense:try_pallas_apply": "A6",
-    "sketch.params:get_use_pallas": "A6",
-    "sketch.params:set_use_pallas": "A6",
-    "sketch.params:get_use_plan_cache": "A6",
-    "sketch.params:set_use_plan_cache": "A6",
-    "sketch.params:get_pallas_m_tile": "A6",
-    "sketch.params:set_pallas_m_tile": "A6",
-    "sketch.params:pallas_m_tile_overridden": "A6",
-    # A7: the host-side service tiers (io/streaming.py, chunked.py,
-    # webhdfs.py)
-    "io:StreamingCWT": "A7", "io:iter_libsvm_batches": "A7",
-    "io:iter_hdf5_batches": "A7", "io:prefetch_batches": "A7",
-    "io:read_libsvm_sharded": "A7", "io:scan_libsvm_dims": "A7",
-    "io:stream_sketch_libsvm": "A7", "io:webhdfs_lines": "A7",
-    # the error codes' and the classes' readers are net/wire.py's (A7)
-    "base.errors:AllocationError": "A7",
-    "base.errors:CommunicationError": "A7", "base.errors:MeshError": "A7",
-    "base.errors:SparseError": "A7", "base.errors:RandgenError": "A7",
-    "base.errors:SessionEvictedError": "A7",
-    "base.errors:SketchCoverageError": "A7",
-    "base.errors:TenantQuotaError": "A7",
-    "base.errors:TrainBudgetExhaustedError": "A7",
-    "base.errors:WireProtocolError": "A7",
-    "base.errors:WIRE_OVERLOADED_CODE": "A7", "base.errors:strerror": "A7",
-    "base.errors:from_code": "A7",
-    # telemetry beyond counters and gauges (A7)
+    # A7: telemetry beyond counters and gauges
     "telemetry:DEFAULT_BUCKETS": "A7", "telemetry:Histogram": "A7",
     "telemetry:histogram": "A7", "telemetry:register_collector": "A7",
     "telemetry:registry": "A7", "telemetry:snapshot": "A7",
@@ -114,10 +76,41 @@ EXEMPT = {
     "telemetry.metrics:registry": "A7", "telemetry.metrics:histogram": "A7",
     "telemetry.metrics:register_collector": "A7",
     "telemetry.metrics:snapshot": "A7",
+    # C12: names of reference modules the port has not reached yet.
+    # parallel/ and dist/ (A5)
+    ":DistSparseMatrix": "C12", ":distribute_sparse": "C12",
+    "base:DistSparseMatrix": "C12", "base:distribute_sparse": "C12",
+    # engine/compile.py, cache.py and tune/ (A6)
+    "engine:aot": "C12", "engine:warmup": "C12", "engine:cache": "C12",
+    "engine:CacheEntry": "C12", "engine:EngineStats": "C12",
+    "engine:ExecutableCache": "C12", "engine:compiled": "C12",
+    "engine:CompiledFn": "C12", "engine:code_version": "C12",
+    "engine:digest": "C12", "engine:donation_enabled": "C12",
+    "engine:dump_stats": "C12", "engine:enable_persistent_cache": "C12",
+    "engine:maybe_donate": "C12", "engine:plan_fingerprint": "C12",
+    "engine:reset": "C12", "engine:stats": "C12",
+    # the kernel-dispatch knobs that read tune/'s plan cache or choose a
+    # route off the kernel, which the port's CUDA path does not have
+    # (A6)
+    "sketch.dense:pallas_ambient_ok": "C12",
+    "sketch.dense:pallas_serves_eager": "C12",
+    "sketch.dense:try_pallas_apply": "C12",
+    "sketch.params:get_use_pallas": "C12",
+    "sketch.params:set_use_pallas": "C12",
+    "sketch.params:get_use_plan_cache": "C12",
+    "sketch.params:set_use_plan_cache": "C12",
+    "sketch.params:get_pallas_m_tile": "C12",
+    "sketch.params:set_pallas_m_tile": "C12",
+    "sketch.params:pallas_m_tile_overridden": "C12",
+    # io/streaming.py, chunked.py and webhdfs.py (A7)
+    "io:StreamingCWT": "C12", "io:iter_libsvm_batches": "C12",
+    "io:iter_hdf5_batches": "C12", "io:prefetch_batches": "C12",
+    "io:read_libsvm_sharded": "C12", "io:scan_libsvm_dims": "C12",
+    "io:stream_sketch_libsvm": "C12", "io:webhdfs_lines": "C12",
     # utility/checkpoint.py (A7)
-    "utility:TrainCheckpointer": "A7", "utility:as_checkpointer": "A7",
-    "utility:device_state": "A7", "utility:load_sync": "A7",
-    "utility:save_sync": "A7",
+    "utility:TrainCheckpointer": "C12", "utility:as_checkpointer": "C12",
+    "utility:device_state": "C12", "utility:load_sync": "C12",
+    "utility:save_sync": "C12",
 }
 for _m in ("telemetry", "telemetry.metrics"):
     for _n in ("histogram", "register_collector", "unregister_collector",
@@ -134,6 +127,7 @@ for _m in ("engine", "engine.serve"):
         EXEMPT[f"{_m}:MicrobatchExecutor.{_n}"] = "A5"
     for _n in _SERVE_A7:
         EXEMPT[f"{_m}:MicrobatchExecutor.{_n}"] = "A7"
+
 
 def _modules(pkg) -> dict:
     out = {"": pkg.__name__}
@@ -227,8 +221,8 @@ def test_reference_names_exist_in_the_port(mod_key):
 
 
 def test_the_new_modules_are_compared():
-    """This PR's modules are among those both packages define, so the
-    parity test above covers them."""
+    """The NLA, graph, block-solver and HDF5 modules are among those both
+    packages define, so the parity test above covers them."""
     common = set(_common_modules())
     for m in ("nla.krank", "nla.randlobpcg", "nla.spectral", "ml.graph",
               "algorithms.asynch", "io.hdf5"):
@@ -236,7 +230,7 @@ def test_the_new_modules_are_compared():
 
 
 def test_every_exemption_names_a_later_roadmap_item():
-    assert set(EXEMPT.values()) <= {"A5", "A6", "A7", "A8"}
+    assert set(EXEMPT.values()) <= {"A5", "A6", "A7", "A8", "C12"}
 
 
 def test_pallas_precision_knob_has_the_reference_semantics():
@@ -281,6 +275,40 @@ def test_sample_and_random_value_match_the_reference():
     np.testing.assert_array_equal(pv.numpy(), np.asarray(rv))
 
 
+def test_sample_and_random_value_run_on_the_default_device():
+    """With no ``device=``, ``sample`` and ``random_value`` run on the
+    package default: the CPU once it is set so, and a CUDA default with
+    no card raises."""
+    import jax
+    import numpy as np
+    import torch
+
+    from libskylark_tpu.base import context as rctx, randgen as rr
+    from libskylark_tpu_torch.base import (context as pctx, device,
+                                           errors, randgen as pr)
+
+    key = jax.random.key(12)
+    kd = np.asarray(jax.random.key_data(key))
+    device.set_default_device("cpu")
+    try:
+        got = pr.Uniform().sample(kd, (6, 3))
+        assert got.device == torch.device("cpu")
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(rr.Uniform().sample(key, (6, 3))))
+        rv = rctx.Context(6).random_value(rr.Normal().sample, shape=(5,))
+        pv = pctx.Context(6).random_value(pr.Normal().sample, shape=(5,))
+        assert pv.device == torch.device("cpu")
+        np.testing.assert_allclose(pv.numpy(), np.asarray(rv), atol=1e-5,
+                                   rtol=0)
+    finally:
+        device.set_default_device("cuda")
+    if not torch.cuda.is_available():
+        with pytest.raises(errors.UnsupportedError):
+            pr.Uniform().sample(kd, (2,))
+        with pytest.raises(errors.UnsupportedError):
+            pctx.Context(6).random_value(pr.Normal().sample, shape=(5,))
+
+
 def test_stream_chunk_parameter_makes_the_reference_stream():
     import jax
     import numpy as np
@@ -319,3 +347,68 @@ def test_wht_accepts_and_ignores_precision():
     assert torch.equal(
         fut.fwht_sketch(A, d, idx, 1.0, 1.0, 0, precision="highest"),
         want[:4])
+
+
+def test_error_codes_and_readers_match_the_reference():
+    from libskylark_tpu.base import errors as re_
+    from libskylark_tpu_torch.base import errors as pe
+
+    for code in range(100, 120):
+        want, got = re_.from_code(code, "m"), pe.from_code(code, "m")
+        assert type(got).__name__ == type(want).__name__
+        assert got.code == want.code and str(got) == "m"
+        known = code in re_._CODE_TABLE
+        assert (code in pe._CODE_TABLE) == known
+        assert pe.strerror(code).startswith("unknown") != known
+    assert pe.WIRE_OVERLOADED_CODE == re_.WIRE_OVERLOADED_CODE
+    assert issubclass(pe.WireProtocolError, pe.CommunicationError)
+    e = pe.SketchCoverageError("low", coverage=0.5, missing=[(0, 4)])
+    assert e.code == 114 and e.coverage == 0.5 and e.missing == ((0, 4),)
+    assert pe.SparseError().append_trace("spmm").trace == ["spmm"]
+    assert isinstance(pe.NotImplementedYetError(), NotImplementedError)
+
+
+def test_solver_precision_holds_the_matmul_precision():
+    import torch
+
+    from libskylark_tpu_torch.base import precision
+
+    seen = []
+    probe = precision.with_solver_precision(
+        lambda: seen.append(torch.get_float32_matmul_precision()))
+    assert precision.get_solver_precision() == "highest"
+    before = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("medium")
+        probe()
+        precision.set_solver_precision("tensorfloat32")
+        probe()
+        precision.set_solver_precision("default")
+        probe()
+        with pytest.raises(ValueError):
+            precision.set_solver_precision("tf33")
+        assert torch.get_float32_matmul_precision() == "medium"
+    finally:
+        precision.set_solver_precision("highest")
+        torch.set_float32_matmul_precision(before)
+    assert seen == ["highest", "high", "medium"]
+
+
+def test_factor_knob_and_result_nbytes():
+    import numpy as np
+    import torch
+
+    from libskylark_tpu.engine import bucket as rb
+    from libskylark_tpu.sketch import params as rp
+    from libskylark_tpu_torch.engine import bucket as pb
+    from libskylark_tpu_torch.sketch import params as pp
+
+    assert pp.get_factor() == rp.get_factor() == 20
+    try:
+        pp.set_factor(7)
+        assert pp.get_factor() == 7
+    finally:
+        pp.set_factor(20)
+    value = (np.zeros((3, 4), np.float32), {"a": b"xyz", "b": 1.0}, [])
+    assert pb.result_nbytes(value) == rb.result_nbytes(value)
+    assert pb.result_nbytes(torch.zeros(3, 4)) == 48

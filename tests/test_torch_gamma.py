@@ -6,11 +6,24 @@ keys; the port runs both loops as one masked loop over all elements on
 its Threefry. The accept test takes ``log`` of values rounded by the
 backend and the boost (shape < 1) takes ``pow``, so an element can
 accept in one package and take another draw in the other: a "flip",
-which gives an unrelated sample. Bounds: every unflipped sample within
-1e-5 relative; at most 1 flip per 10⁴ samples, counted over 10⁵ samples
-at each shape 0.3, 0.5, 1, 1.5, 2.5, 10 (ROADMAP C2 records the count).
+which gives an unrelated sample, one that differs by more than 1e-2
+relative. At most 1 flip per 10⁴ samples, counted over 10⁵ samples at
+each shape 0.3, 0.5, 1, 1.5, 2.5, 10 (ROADMAP C2 records the count).
+
+Every other sample is held within 1e-5 relative times its condition
+number. The sample is d·v³ (times the boost), v = 1 + c·x with x the
+normal draw, which the packages compute to a few ulp apart (C2: erfinv's
+log1p). Where v is small the sum cancels and the relative error of v³
+is 3·|c·x|/v times that of x: for v ≥ 1/4 that stays below 1e-5, and
+below 1/4 the bound grows as 1/(4v) (``chip_smoke.gamma_condition``,
+which the card's check uses too). So a 1e-4
+error on a sample with v ≥ 1/4 fails.
 The keys are fixed: seed 2026 folded with the shape's index.
 """
+
+import functools
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +37,17 @@ from libskylark_tpu_torch.base import randgen
 SHAPES = (0.3, 0.5, 1.0, 1.5, 2.5, 10.0)
 N = 100_000
 REL = 1e-5
+FLIP_REL = 1e-2
 FLIPS_PER_SAMPLE = 1e-4
+
+
+@functools.lru_cache(maxsize=1)
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _key(i):
@@ -32,11 +55,17 @@ def _key(i):
     return k, np.asarray(jax.random.key_data(k))
 
 
-def _flips(got, want):
+def _condition(kd, a, scale, want):
+    return _chip_smoke().gamma_condition(torch, np, kd, a, scale, want)
+
+
+def _flips(got, want, cond=1.0):
+    """(flips, the largest error of the others over its bound)."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-300)
-    flipped = rel > REL
-    return int(flipped.sum()), float(rel[~flipped].max())
+    flipped = rel > FLIP_REL
+    ratio = rel / (REL * np.broadcast_to(cond, rel.shape))
+    return int(flipped.sum()), float(ratio[~flipped].max())
 
 
 @pytest.mark.parametrize("i,a", list(enumerate(SHAPES)))
@@ -47,9 +76,10 @@ def test_stream_matches_jax_gamma(i, a):
                                device="cpu")
     assert got.dtype == torch.float32 and got.shape == (N,)
     assert bool(torch.isfinite(got).all()) and bool((got >= 0).all())
-    flips, worst = _flips(got.numpy(), want)
+    flips, worst = _flips(got.numpy(), want,
+                          _condition(kd, a, 2.0, want))
     assert flips <= FLIPS_PER_SAMPLE * N, flips
-    assert worst <= REL
+    assert worst <= 1.0
 
 
 @pytest.mark.parametrize("a", [0.5, 3.0])
@@ -59,7 +89,7 @@ def test_sample_matches_jax_gamma_over_a_shape(a):
     got = randgen.Gamma(a, 1.5).sample(kd, (37, 11), device="cpu")
     assert tuple(got.shape) == (37, 11)
     flips, worst = _flips(got.numpy(), want)
-    assert flips == 0 and worst <= REL
+    assert flips == 0 and worst <= 1.0
 
 
 def test_unaligned_slice_is_part_of_the_stream():
@@ -106,4 +136,4 @@ def test_scale_multiplies_the_standard_draw():
     want = np.asarray(3.0 * jax.random.gamma(_key(43)[0], 1.7, (500,),
                                              jnp.float32))
     flips, worst = _flips(three.numpy(), want)
-    assert flips == 0 and worst <= REL
+    assert flips == 0 and worst <= 1.0

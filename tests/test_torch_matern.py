@@ -3,9 +3,11 @@ JAX package, on the CPU.
 
 Both packages draw the same transform from the same Context seed. A
 feature column whose scale came from a flipped Gamma sample (see
-test_torch_gamma.py) is unrelated between the packages: such columns are
-excluded from the comparison and counted (at most one here). Bounds on
-the rest, relative to max|features|:
+test_torch_gamma.py) is unrelated between the packages, its scale more
+than 1e-2 relative from the reference's: such columns are excluded from
+the comparison and counted (at most one here). Every other scale agrees
+within 1e-5 relative. Bounds on the features of those columns, relative
+to max|features|:
 - MaternRFT in the "f32" regime (the reference's CPU arithmetic) within
   1e-5, in the default "bf16x3" within 1e-4 (ROADMAP C9); FastMaternRFT
   within 1e-5 (no B1 regime: the torch chain);
@@ -38,6 +40,7 @@ from libskylark_tpu_torch.sketch import params as sketch_params
 
 N, S, M = 40, 256, 60
 GAMMA_REL = 1e-5
+FLIP_REL = 1e-2
 TOL = {"f32": 1e-5, "bf16x3": 1e-4}
 
 
@@ -55,10 +58,12 @@ def _X(m=M, n=N, seed=0):
 
 
 def _unflipped(got, want):
-    """Columns whose scale agrees within 1e-5 relative; and the count of
-    the others."""
+    """Columns whose scale is not a flip (within 1e-2 relative), and the
+    count of the flips; the unflipped scales must agree within 1e-5."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    ok = np.abs(got - want) <= GAMMA_REL * np.abs(want)
+    rel = np.abs(got - want) / np.abs(want)
+    ok = rel <= FLIP_REL
+    assert (rel[ok] <= GAMMA_REL).all(), rel[ok].max()
     return ok, int((~ok).sum())
 
 
