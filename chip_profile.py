@@ -68,6 +68,15 @@ of the scale-18 R-MAT graph; rand_block_fcg on the 16,384-row Gaussian
 Gram system, with ``iterations`` and ``idle_ms_per_iteration``; the same
 fields as above.
 
+Then two ``dist-<cell>`` lines, A5's explicit half: ``dist-shard-ls``,
+the least-squares sketch S·[A | b] (65536 × 513 → 2048) as 4 ranks
+emulated in this process (each rank's partial kernel at its own block
+offset, scaled and summed in rank order, a new key per call), and
+``dist-sparse-svd``, approximate_svd (rank 64, q = 2) of chip_smoke.py's
+weighted config-2 CSR as a DistSparseMatrix on two gloo processes
+sharing the card (rank 0's figures; rank 1's beside them); the same
+fields as above.
+
 ``python3 chip_profile.py --lobpcg-seeds R`` prints instead, for R
 rounds of Context seeds, the a3 phase's randlobpcg measures for each
 sketch (``lobpcg_spread``): the spread across seeds of what the phase
@@ -301,6 +310,81 @@ def lobpcg_spread(torch, P, np, rounds: int) -> None:
                               **vals}), flush=True)
 
 
+def dist_shard_ls(torch, P):
+    """The emulated 4-rank least-squares sketch: a new key per call."""
+    from libskylark_tpu_torch.base import randgen
+    from libskylark_tpu_torch.sketch import cuda_dense as cd
+
+    way, shape, s = chip_smoke.DIST_SHAPES[0]
+    A = chip_smoke.make_operand(torch, shape, 4000)
+    p = chip_smoke.DIST_TIME_P
+    bps = shape[0] // (p * 256)
+    shards = [A[r * bps * 256:(r + 1) * bps * 256] for r in range(p)]
+    ctx, d, scale = P.Context(470), randgen.Normal(), s ** -0.5
+
+    def run():
+        key = ctx.allocate().key
+        total = scale * cd.fused_partial(key, d, shards[0], s, 0, 0)
+        for r in range(1, p):
+            total += scale * cd.fused_partial(key, d, shards[r], s, 0,
+                                              r * bps)
+        return total
+    return run
+
+
+def dist_svd_child(rank: int, world: int, port: int) -> int:
+    """One gloo rank of the ``dist-sparse-svd`` cell: prints its row."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(chip_smoke.ROOT))
+    import libskylark_tpu_torch as P
+    from libskylark_tpu_torch import nla, parallel as par
+    from libskylark_tpu_torch.base.dist_sparse import distribute_sparse
+    from libskylark_tpu_torch.parallel import multihost
+
+    torch.cuda.set_device(0)
+    multihost.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                     connect_timeout=120.0, backend="gloo")
+    _, W, _ = chip_smoke.dist_operands(torch, P, np)
+    D = distribute_sparse(W, par.make_mesh((world, 1)), row_axis="rows",
+                          col_axis="cols")
+    ctx, params = P.Context(480), nla.ApproximateSVDParams(num_iterations=2)
+
+    def fn():
+        return nla.approximate_svd(D, 64, ctx, params)
+    row = {"rank": rank, "warm_ms": warm_ms(torch, fn)}
+    row.update(profile_call(torch, fn))
+    row["busy"] = row["device_ms"] / row["warm_ms"]
+    print("DIST_ROW " + json.dumps(row), flush=True)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_sparse_svd() -> dict:
+    """Spawn the two ranks of ``dist-sparse-svd``; rank 0's row, rank
+    1's beside it."""
+    import subprocess
+
+    world, port = 2, chip_smoke.free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--dist-svd-child", str(r), str(world),
+         str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    chip_smoke.check(all(p.returncode == 0 for p in procs),
+                     "dist-sparse-svd rank failed:\n"
+                     + "\n".join(x[-3000:] for x in logs))
+    rows = [json.loads(next(ln for ln in x.splitlines()
+                            if ln.startswith("DIST_ROW "))[9:])
+            for x in logs]
+    return {**rows[0], "rank1": {k: rows[1][k] for k in
+                                 ("warm_ms", "device_ms", "busy")}}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -308,6 +392,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dist-svd-child"]:
+        return dist_svd_child(*(int(a) for a in sys.argv[2:5]))
     sys.path.insert(0, str(chip_smoke.ROOT))
     import libskylark_tpu_torch as P
     from libskylark_tpu_torch import algorithms, nla, sketch as sk
@@ -422,6 +508,14 @@ def main() -> int:
             row["idle_ms_per_iteration"] = ((row["warm_ms"] - row["device_ms"])
                                             / row["iterations"])
         print(json.dumps(row), flush=True)
+    fn = dist_shard_ls(torch, P)
+    row = {"cell": "dist-shard-ls", "warm_ms": warm_ms(torch, fn)}
+    row.update(profile_call(torch, fn))
+    row["busy"] = row["device_ms"] / row["warm_ms"]
+    print(json.dumps(row), flush=True)
+    del fn
+    print(json.dumps({"cell": "dist-sparse-svd", **dist_sparse_svd()}),
+          flush=True)
     chip_smoke.check("jax" not in sys.modules
                      and "libskylark_tpu" not in sys.modules,
                      "the port imported jax or libskylark_tpu")

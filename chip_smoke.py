@@ -156,6 +156,27 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             seeds, and the graph serve programs against float64 replays;
             rand_block_gauss_seidel and rand_block_fcg on a 16,384-row
             Gaussian Gram system against the same sweeps in float64;
+4f. dist — A5's explicit half (about 30 s): B1's partial kernel for p ∈
+            {1, 2, 4, 8} ranks and 5 with N padded, emulated in this
+            process at config 4's S·[A | b] (65536 × 513 → 2048) and
+            config 1's JLT (8192² → 1024 rowwise), Normal, Rademacher and
+            Cauchy: each rank's launch at its own block0 against its plain
+            version, the scaled partials summed in rank order against
+            B1's one-shot apply and the plain partials' sum, p launches and
+            s·n_loc generated entries a rank; then the main path with the
+            counters set to 0: a one-rank NCCL group joined through
+            multihost.initialize_distributed (the public shard_apply both
+            ways against B1's one-shot apply, use_pallas=False refused,
+            a 1 × 1 DistSparseMatrix's CWT and spmm against the
+            SparseMatrix route), and two processes sharing the card
+            through gloo (``chip_smoke.py --dist-child <rank> 2 <port>``:
+            shard_apply both ways; config 2's CSR on (2, 1) and (1, 2)
+            meshes through CWT, JLT and GaussianRFT both ways and
+            spmm/spmm_t; the sparse SVD at rank 64, q = 2, of the weighted
+            operand; condest's device route on the 262,144 × 1,024 CSR),
+            each against the one-process route (1e-4·max, σ 1e-3), both
+            ranks' results byte-equal; the phase's seconds and peak
+            memory on its line;
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
@@ -169,7 +190,8 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             streams made beforehand, and their wrappers with new streams
             per call beside them); the serve kernels at their buckets'
             capacity-8 shapes (B2's and B5's batched entry points at the
-            cwt and srht buckets' capacity-4 shape);
+            cwt and srht buckets' capacity-4 shape); B1's partial at p =
+            4's per-rank shapes;
 6. the ``{"kernels": [...]}`` line (``max_abs_err``: the worst of every
    check at the kernel's main-path shapes, all distributions and ragged
    variants), the card's name and power limit, and
@@ -3608,6 +3630,441 @@ def lobpcg_replay(np, A, B, k):
     return np.sort(lam)[::-1].copy()
 
 
+# -- 4f. the dist phase: A5's explicit half ---------------------------------
+
+# Sequence-parallel cells at full width: config 4's least-squares sketch
+# S·[A | b] (65536 × 513 → 2048, columnwise) and config 1's JLT (8192² →
+# 1024, rowwise); the ranks' counts, p = 5 with N padded to a multiple of
+# 5·256 (ragged).
+DIST_SHAPES = (("columnwise", (65536, 513), 2048),
+               ("rowwise", (8192, 8192), 1024))
+DIST_P = (1, 2, 4, 8, 5)
+DIST_DISTS = ("normal", "rademacher", "cauchy")
+DIST_TIME_P = 4  # the per-rank shapes the kernel rows time
+DIST_KERNELS = ("dense_partial_rowwise", "dense_partial_columnwise")
+# every dist-sparse sketch on config 2's CSR, both ways (s_dim, kwargs)
+DIST_SKETCHES = (("CWT", 1024, {}), ("JLT", 1024, {}),
+                 ("GaussianRFT", 1024, {"sigma": 8.0}))
+
+
+def dist_partial_limit(torch, key, dist, Ar, s_dim, seq, block0):
+    """TOL·(|S_r|·|A_r|) (columnwise) or TOL·(|A_r|·|S_r|ᵀ) (rowwise) of
+    one rank's unscaled partial, S_r the operator's columns from block
+    block0: the entry-by-entry limit of Cauchy draws."""
+    from libskylark_tpu_torch.sketch.dense import virtual_panel
+
+    n = Ar.shape[seq]
+    S = virtual_panel(key, dist, s_dim, 256 * block0, 256 * block0 + n, 1.0,
+                      device=Ar.device).double().abs()
+    Aa = Ar.double().abs()
+    return TOL * ((S @ Aa) if seq == 0 else (Aa @ S.T))
+
+
+def dist_emulated(torch, P) -> list:
+    """Step 1: p ranks emulated in this process. Each rank's partial
+    kernel (``cuda_dense.fused_partial``) at its own block0 against its
+    plain version, and the partials scaled and summed in rank order
+    against B1's one-shot apply and against the plain partials' sum, with
+    the counters showing p launches and s·n_loc generated entries a rank.
+    These launches compare kernels; they are not the main path's."""
+    import torch.nn.functional as F
+
+    from libskylark_tpu_torch.base import randgen
+    from libskylark_tpu_torch.sketch import cuda_dense as cd
+
+    dists = {"normal": randgen.Normal(), "rademacher": randgen.Rademacher(),
+             "cauchy": randgen.Cauchy()}
+    results = []
+    for i, (way, shape, s) in enumerate(DIST_SHAPES):
+        seq = 0 if way == "columnwise" else 1
+        name = f"dense_partial_{way}"
+        A = make_operand(torch, shape, 4000 + i)
+        N, scale = shape[seq], 1.0 / math.sqrt(s)
+        for j, dname in enumerate(DIST_DISTS):
+            d = dists[dname]
+            key = P.Context(400 + 10 * i + j).allocate().key
+            one = (cd.columnwise_apply if seq == 0 else cd.rowwise_apply)(
+                key, d, A, s, scale)
+            limit = (elementwise_limit(torch, key, d, A, s, scale, seq == 1)
+                     if dname == "cauchy" else None)
+            for p in DIST_P:
+                bps = -(-N // (p * 256))
+                pad = [0, 0, 0, 0]
+                pad[2 * (1 - seq) + 1] = p * bps * 256 - N
+                Ap = F.pad(A, pad) if any(pad) else A
+                for c in (cd.launches, cd.generated):
+                    for k in c:
+                        c[k] = 0
+                total = plain_total = None
+                per_rank = []
+                for r in range(p):
+                    Ar = Ap.narrow(seq, r * bps * 256, bps * 256).contiguous()
+                    part = cd.fused_partial(key, d, Ar, s, seq, r * bps)
+                    plain = cd.partial_plain(key, d, Ar, s, seq, r * bps)
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(part).all()),
+                          f"{name} output not finite")
+                    lim = (dist_partial_limit(torch, key, d, Ar, s, seq,
+                                              r * bps)
+                           if dname == "cauchy" else None)
+                    per_rank.append(held(torch, part, plain, lim))
+                    total = scale * part if total is None else (
+                        total + scale * part)
+                    plain_total = scale * plain if plain_total is None else (
+                        plain_total + scale * plain)
+                    del Ar, part, plain, lim
+                launched = cd.launches[name]
+                entries = cd.generated["entries"]
+                vs_one = held(torch, total, one, limit)
+                vs_plain = held(torch, total, plain_total, limit)
+                rank_shape = list(shape)
+                rank_shape[seq] = bps * 256
+                results.append({
+                    "kernel": name, "dist": dname, "p": p,
+                    "shape": rank_shape, "s_dim": s,
+                    "max_abs_err": max(c["max_abs_err"] for c in per_rank),
+                    "ranks_ok": all(c["ok"] for c in per_rank),
+                    "sum_vs_one_shot": vs_one, "sum_vs_plain": vs_plain,
+                    "launches": launched, "generated_entries": entries,
+                    "ok": (all(c["ok"] for c in per_rank) and vs_one["ok"]
+                           and vs_plain["ok"] and launched == p
+                           and entries == p * s * bps * 256)})
+                del Ap, total, plain_total
+            del one, limit
+        del A
+    return results
+
+
+def dist_one_rank(torch, P, np, A_csr) -> dict:
+    """Step 2: a one-rank NCCL group joined through
+    ``multihost.initialize_distributed`` on localhost; the public
+    shard_apply both ways on it against B1's one-shot apply (and
+    use_pallas=False refused on a CUDA tensor), and a DistSparseMatrix of
+    config 2's CSR on a 1 × 1 mesh against the one-process SparseMatrix
+    route. The counters are read after the dist calls, before the
+    one-process references run."""
+    import torch.distributed as dist
+
+    from libskylark_tpu_torch import parallel as par, sketch as sk
+    from libskylark_tpu_torch.base import errors
+    from libskylark_tpu_torch.base.dist_sparse import distribute_sparse
+    from libskylark_tpu_torch.base.sparse import spmm
+    from libskylark_tpu_torch.parallel import multihost, shard_apply
+
+    out = {"applies": {}}
+    multihost.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                     connect_timeout=120.0)
+    try:
+        out["backend"] = str(dist.get_backend())
+        check(out["backend"] == "nccl", f"one-rank group on {out['backend']}")
+        mesh = par.make_mesh()
+        for c in counters():
+            for k in c:
+                c[k] = 0
+        got, ops = {}, {}
+        for i, (way, shape, s) in enumerate(DIST_SHAPES):
+            A = make_operand(torch, shape, 4100 + i)
+            T = sk.JLT(shape[0 if way == "columnwise" else 1], s,
+                       P.Context(430 + i))
+            ops[way] = (T, A)
+            got[way] = getattr(shard_apply, way)(T, A, mesh)
+        try:
+            T, A = ops["columnwise"]
+            shard_apply.columnwise(T, A, mesh, use_pallas=False)
+            refused = False
+        except errors.InvalidParametersError:
+            refused = True
+        check(refused, "use_pallas=False on a CUDA tensor was not refused")
+        grid = par.make_mesh((1, 1))
+        D = distribute_sparse(A_csr, grid, row_axis="rows", col_axis="cols")
+        Tc = sk.CWT(RCV1_D, 1024, P.Context(440))
+        g = torch.Generator(device="cuda").manual_seed(441)
+        B = torch.randn(RCV1_D, 64, generator=g, device="cuda")
+        dgot = {"cwt": Tc.apply(D, sk.ROWWISE), "spmm": D.spmm(B)}
+        torch.cuda.synchronize()
+        out["launches"] = launch_counts()
+        for way, (T, A) in ops.items():
+            want = T.apply(A, sk.COLUMNWISE if way == "columnwise"
+                           else sk.ROWWISE)
+            out["applies"][way] = held(torch, got[way], want)
+        want = {"cwt": Tc.apply(A_csr, sk.ROWWISE), "spmm": spmm(A_csr, B)}
+        for k, v in dgot.items():
+            out["applies"][f"dist_sparse_1x1_{k}"] = {
+                **held(torch, v, want[k]),
+                "bit_equal": bool(torch.equal(v, want[k]))}
+    finally:
+        dist.destroy_process_group()
+    bad = {k: v for k, v in out["applies"].items() if not v["ok"]}
+    check(not bad, f"one-rank group: {bad}")
+    check(out["applies"]["dist_sparse_1x1_cwt"]["bit_equal"],
+          "1 × 1 DistSparseMatrix CWT differs from the SparseMatrix route")
+    for k in DIST_KERNELS:
+        check(out["launches"][k] == 1, f"one-rank group: {k} launches "
+              f"{out['launches'][k]}, not 1")
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_operands(torch, P, np):
+    """Config 2's CSR (the sparse phase's rcv1 operand), its weighted SVD
+    form, and the 262,144 × 1,024 least-squares CSR."""
+    import scipy.sparse as sp
+
+    from libskylark_tpu_torch.base import sprand
+    from libskylark_tpu_torch.base.sparse import SparseMatrix
+
+    A = sprand.sample(RCV1_N, RCV1_D, RCV1_DENSITY, DYADIC, (1, 1, 1),
+                      P.Context(70))
+    c, q = SVD_WEIGHT
+    W = SparseMatrix.from_scipy(sp.diags(1.0 + c * q ** np.arange(RCV1_N))
+                                @ A.to_scipy())
+    m, n, dens = SPARSE_LS
+    L = sprand.sample(m, n, dens, DYADIC, (1, 1, 1), P.Context(81))
+    return A, W, L
+
+
+def digest(torch, t) -> str:
+    """A rank's result as bytes, hashed: equal on every rank of a group."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def dist_child(rank: int, world: int, port: int) -> int:
+    """Step 3, one of two processes sharing the card through gloo: the
+    public shard_apply both ways at step 1's shapes; a DistSparseMatrix
+    of config 2's CSR on (2, 1) and (1, 2) meshes through CWT, JLT and
+    GaussianRFT both ways, and spmm/spmm_t; the sparse SVD (rank 64, q =
+    2) of the weighted operand; and condest's device route on the
+    262,144 × 1,024 CSR. Each against the one-process route, computed
+    after the dist calls and their launch counts; prints one JSON line."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import libskylark_tpu_torch as P
+    from libskylark_tpu_torch import nla, parallel as par, sketch as sk
+    from libskylark_tpu_torch.base.dist_sparse import distribute_sparse
+    from libskylark_tpu_torch.base.sparse import spmm, spmm_t
+    from libskylark_tpu_torch.parallel import multihost, shard_apply
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    multihost.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                     connect_timeout=120.0, backend="gloo")
+    A_csr, W, L = dist_operands(torch, P, np)
+    meshes = {"2x1": par.make_mesh((world, 1)),
+              "1x2": par.make_mesh((1, world))}
+    line = par.make_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters():
+        for k in c:
+            c[k] = 0
+    t1 = time.perf_counter()
+    got, refs = {}, {}
+    for i, (way, shape, s) in enumerate(DIST_SHAPES):
+        A = make_operand(torch, shape, 4100 + i)
+        T = sk.JLT(shape[0 if way == "columnwise" else 1], s,
+                   P.Context(430 + i))
+        got[f"shard_{way}"] = getattr(shard_apply, way)(T, A, line)
+        refs[f"shard_{way}"] = lambda T=T, A=A, way=way: T.apply(
+            A, sk.COLUMNWISE if way == "columnwise" else sk.ROWWISE)
+    g = torch.Generator(device="cuda").manual_seed(442)
+    Bw = torch.randn(RCV1_D, 128, generator=g, device="cuda")
+    Bh = torch.randn(RCV1_N, 128, generator=g, device="cuda")
+    for mname, mesh in meshes.items():
+        D = distribute_sparse(A_csr, mesh, row_axis="rows", col_axis="cols")
+        for i, (name, s, kw) in enumerate(DIST_SKETCHES):
+            for way, dim, n in (("rw", sk.ROWWISE, RCV1_D),
+                                ("cw", sk.COLUMNWISE, RCV1_N)):
+                T = getattr(sk, name)(n, s, P.Context(460 + i), **kw)
+                key = f"{mname}_{name.lower()}_{way}"
+                got[key] = T.apply(D, dim)
+                refs[key] = lambda T=T, dim=dim: T.apply(A_csr, dim)
+        got[f"{mname}_spmm"] = D.spmm(Bw)
+        refs[f"{mname}_spmm"] = lambda: spmm(A_csr, Bw)
+        got[f"{mname}_spmm_t"] = D.spmm_t(Bh)
+        refs[f"{mname}_spmm_t"] = lambda: spmm_t(A_csr, Bh)
+        del D
+    params = nla.ApproximateSVDParams(num_iterations=2)
+    Dw = distribute_sparse(W, meshes["2x1"], row_axis="rows",
+                           col_axis="cols")
+    t2 = time.perf_counter()
+    _, S_dist, _ = nla.approximate_svd(Dw, 64, P.Context(80), params)
+    torch.cuda.synchronize()
+    svd_s = time.perf_counter() - t2
+    Dl = distribute_sparse(L, meshes["2x1"], row_axis="rows",
+                           col_axis="cols")
+    Dl.to_local = None  # the device route never gathers the operand
+    t2 = time.perf_counter()
+    cond = nla.estimate_condition(Dl, P.Context(86))
+    condest_s = time.perf_counter() - t2
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    dist_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    checks = {}
+    for key, v in got.items():
+        want = refs[key]()
+        r = {**held(torch, v, want), "digest": digest(torch, v)}
+        if "cwt" in key:
+            r["bit_equal"] = bool(torch.equal(v, want))
+        checks[key] = r
+    _, S_one, _ = nla.approximate_svd(W, 64, P.Context(80), params)
+    svd_rel = float(((S_dist.double() - S_one.double()).abs()
+                     / S_one.double()).max())
+    host = nla.estimate_condition(L, P.Context(86))
+    cond_rel = [abs(a - b) / abs(b) for a, b in zip(cond[1:], host[1:])]
+    print("DIST_CHILD " + json.dumps({
+        "rank": rank, "checks": checks, "launches": launches,
+        "svd": {"sigma_rel_vs_one_process": svd_rel,
+                "digest": digest(torch, S_dist), "seconds": svd_s},
+        "condest": {"device": list(cond), "host": list(host),
+                    "sigma_rel": cond_rel, "seconds": condest_s},
+        "seconds": {"setup": t1 - t0, "dist_calls": dist_s},
+        "peak_memory_gib": peak,
+        "imports_jax": "jax" in sys.modules or "libskylark_tpu" in
+        sys.modules}), flush=True)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_two_ranks(torch) -> dict:
+    """Step 3: spawn :func:`dist_child` twice (two gloo ranks on the one
+    card), wait, and hold what they report: every check within the
+    sparse phase's limits (applies 1e-4·max|one-process|, the SVD's σ and
+    condest's σmax, σmin within 1e-3), the CWT cells that no rank sums
+    bit-equal, every result the same on both ranks, and the partial
+    kernel launched."""
+    world, port = 2, free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dist-child",
+         str(r), str(world), str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          "dist child failed:\n" + "\n".join(x[-3000:] for x in logs))
+    reports = [json.loads(next(ln for ln in x.splitlines()
+                               if ln.startswith("DIST_CHILD "))[11:])
+               for x in logs]
+    r0 = reports[0]
+    bad = [k for k, v in r0["checks"].items() if not v["ok"]]
+    # no rank adds another's partial: rowwise on (2, 1), columnwise on
+    # (1, 2)
+    exact = [k for k in r0["checks"] if k in ("2x1_cwt_rw", "1x2_cwt_cw")]
+    bad += [k for k in exact if not r0["checks"][k]["bit_equal"]]
+    bad += [k for k in r0["checks"]
+            if any(r["checks"][k]["digest"] != r0["checks"][k]["digest"]
+                   for r in reports)]
+    check(not bad, f"two-rank gloo group: {bad}: {r0['checks']}")
+    check(all(r["svd"]["digest"] == r0["svd"]["digest"] for r in reports)
+          and r0["svd"]["sigma_rel_vs_one_process"] <= 1e-3,
+          f"two-rank sparse SVD: {r0['svd']}")
+    check(max(r0["condest"]["sigma_rel"]) <= 1e-3,
+          f"two-rank condest: {r0['condest']}")
+    check(not any(r["imports_jax"] for r in reports),
+          "a dist child imported jax or libskylark_tpu")
+    for k in DIST_KERNELS:
+        check(all(r["launches"][k] == 1 for r in reports),
+              f"two-rank group: {k} launches "
+              f"{[r['launches'][k] for r in reports]}")
+    launches = {k: sum(r["launches"][k] for r in reports)
+                for k in r0["launches"]}
+    return {"reports": reports, "launches": launches}
+
+
+def time_partials(torch, P, peaks: dict) -> list[dict]:
+    """Phase 5 rows of the partial kernel at p = 4's per-rank shapes
+    (rank 1's block offset), a new key per call; ``library_ms``:
+    torch.matmul against the rank's panel of S made beforehand."""
+    from libskylark_tpu_torch.base import randgen
+    from libskylark_tpu_torch.sketch import cuda_dense as cd
+    from libskylark_tpu_torch.sketch.dense import virtual_panel
+
+    rows = []
+    for way, shape, s in DIST_SHAPES:
+        seq = 0 if way == "columnwise" else 1
+        bps = -(-shape[seq] // (DIST_TIME_P * 256))
+        rank = list(shape)
+        rank[seq] = bps * 256
+        A = make_operand(torch, tuple(rank), 7)
+        d, ctx = randgen.Normal(), P.Context(9)
+        n, m = rank[seq], rank[1 - seq]
+
+        def kernel():
+            return cd.fused_partial(ctx.allocate().key, d, A, s, seq, bps)
+
+        S = virtual_panel(ctx.allocate().key, d, s, 256 * bps,
+                          256 * bps + n, 1.0, device=A.device)
+        rows.append({
+            "kernel": f"dense_partial_{way}",
+            "use": f"rank 1 of {DIST_TIME_P}: shard_apply.{way}",
+            "main_path": True, "shape": rank, "s_dim": s,
+            "ms": event_ms(torch, kernel),
+            "device_ms": profiled_device_ms(torch, kernel),
+            "plain_ms": event_ms(torch, lambda: cd.partial_plain(
+                ctx.allocate().key, d, A, s, seq, bps)),
+            "library_ms": event_ms(torch, (lambda: torch.matmul(S, A))
+                                   if seq == 0 else
+                                   (lambda: torch.matmul(A, S.T))),
+            **dense_bounds(2.0 * m * n * s, 4.0 * (m * n + m * s), peaks)})
+        del A, S
+    return rows
+
+
+def dist_phase(torch, P, np, peaks) -> dict:
+    """Phase 4f: A5's explicit half on the card. Step 1 (emulated ranks)
+    checks the partial kernel; steps 2 and 3 are the main path, through
+    the public entry points, with every launch counter set to 0 before
+    (the children start from 0) and read after; step 4 times the kernel.
+    Prints its seconds and the card's peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    emulated = dist_emulated(torch, P)
+    bad = [r for r in emulated if not r["ok"]]
+    check(not bad, f"partial kernel: {bad}")
+    from libskylark_tpu_torch.base import sprand
+
+    A_csr = sprand.sample(RCV1_N, RCV1_D, RCV1_DENSITY, DYADIC, (1, 1, 1),
+                          P.Context(70))
+    t1 = time.perf_counter()
+    one = dist_one_rank(torch, P, np, A_csr)
+    two = dist_two_ranks(torch)
+    launches = {k: one["launches"][k] + two["launches"][k]
+                for k in one["launches"]}
+    main_s = time.perf_counter() - t1
+    rows = time_partials(torch, P, peaks)
+    out = {"emulated": emulated, "one_rank": one,
+           "two_ranks": two["reports"], "launches": launches,
+           "rows": rows, "main_path_seconds": main_s,
+           "seconds": time.perf_counter() - t0,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit("dist", **{k: v for k, v in out.items() if k != "rows"})
+    for k in DIST_KERNELS:
+        check(launches[k] > 0, f"kernel {k} never launched on the dist path")
+    return out
+
+
 CSRC = "libskylark_tpu_torch/csrc/"
 # kernel: (source, the TPU kernel it replaces)
 KERNELS = {
@@ -3643,6 +4100,10 @@ KERNELS = {
                      "libskylark_tpu/sketch/pallas_hash.py:423"),
     "fwht_batched": (CSRC + "fwht_sketch.cu",
                      "libskylark_tpu/sketch/pallas_fwht.py:314"),
+    "dense_partial_rowwise": (CSRC + "dense_sketch.cu",
+                              "libskylark_tpu/sketch/pallas_dense.py:786"),
+    "dense_partial_columnwise": (CSRC + "dense_sketch.cu",
+                                 "libskylark_tpu/sketch/pallas_dense.py:786"),
 }
 
 
@@ -3652,6 +4113,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dist-child"]:
+        return dist_child(*(int(a) for a in sys.argv[2:5]))
     sys.path.insert(0, str(ROOT))
     import libskylark_tpu_torch as P
 
@@ -3691,12 +4154,14 @@ def main() -> int:
     sparse = sparse_phase(torch, P, np, peaks)
     ml_path = ml_phase(torch, P, np)
     a3 = a3_phase(torch, P, np)
+    dphase = dist_phase(torch, P, np, peaks)
+    checked += dphase["emulated"]
     rows = (time_kernels(torch, P, MAIN_SHAPES, True, peaks)
             + time_kernels(torch, P, SPLIT_LS_SHAPES, False, peaks)
             + time_hash(torch, P, HASH_SHAPES, peaks)
             + time_fwht(torch, P, FWHT_SHAPES, peaks)
             + time_cos(torch, P, peaks) + time_fastfood(torch, P, peaks)
-            + time_serve_kernels(torch, P, np, peaks))
+            + time_serve_kernels(torch, P, np, peaks) + dphase["rows"])
     emit("time", method="ms: CUDA events around each of 10 back-to-back "
                         "calls after 3 warm-ups, median; device_ms: the "
                         "kernels' own time per call under torch.profiler, "
@@ -3726,7 +4191,9 @@ def main() -> int:
                                   "beforehand",
                   "fwht_batched": "the fwht chain over the cohort (kron "
                                   "two-torch.matmul WHT, TF32 off; a gather "
-                                  "at idx), D and idx made beforehand"},
+                                  "at idx), D and idx made beforehand",
+                  "dense_partial": "torch.matmul against the rank's panel "
+                                   "of S made beforehand (TF32 off)"},
          rows=rows)
 
     kernels = []
@@ -3748,7 +4215,8 @@ def main() -> int:
             "launches": (main["launches"][name] + serve["launches"][name]
                          + sparse["launches"][name]
                          + ml_path["launches"][name]
-                         + a3["launches"][name]),
+                         + a3["launches"][name]
+                         + dphase["launches"][name]),
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],
             "ms": head["ms"], "device_ms": head["device_ms"],

@@ -24,6 +24,10 @@ install_default_matmul_precision()
 from libskylark_tpu_torch.base import errors  # noqa: E402
 from libskylark_tpu_torch.base.context import Context  # noqa: E402
 from libskylark_tpu_torch.base.sparse import SparseMatrix  # noqa: E402
+from libskylark_tpu_torch.base.dist_sparse import (  # noqa: E402
+    DistSparseMatrix,
+    distribute_sparse,
+)
 from libskylark_tpu_torch.base.device import (  # noqa: E402
     default_device,
     set_default_device,
@@ -32,7 +36,8 @@ from libskylark_tpu_torch import (  # noqa: E402
     algorithms, engine, io, ml, nla, sketch, telemetry)
 
 __all__ = [
-    "Context", "errors", "SparseMatrix", "default_device",
+    "Context", "errors", "SparseMatrix", "DistSparseMatrix",
+    "distribute_sparse", "default_device",
     "set_default_device", "algorithms", "engine", "io", "ml", "nla",
     "sketch", "telemetry", "__version__",
 ]

@@ -292,17 +292,26 @@ def _canonical_parts(A):
     return parts
 
 
+def _is_dist(A) -> bool:
+    from libskylark_tpu_torch.base.dist_sparse import DistSparseMatrix
+
+    return isinstance(A, DistSparseMatrix)
+
+
 def is_sparse_operand(A) -> bool:
-    """True for the port's sparse matrix kind, the shared predicate of
-    operand dispatch in the solver layers (``DistSparseMatrix`` is not
-    ported yet)."""
-    return isinstance(A, SparseMatrix)
+    """True for the port's sparse matrix kinds — a local
+    :class:`SparseMatrix` or a mesh-distributed ``DistSparseMatrix`` — the
+    shared predicate of operand dispatch in the solver layers."""
+    return isinstance(A, SparseMatrix) or _is_dist(A)
 
 
 def place(A, device=None):
     """(A, device) for the solver layers: a sparse operand stays as it is,
-    beside the resolved device; anything else becomes a tensor on
-    ``device`` and comes with its own."""
+    beside the resolved device (a distributed one beside its rank's own
+    device); anything else becomes a tensor on ``device`` and comes with
+    its own."""
+    if _is_dist(A):
+        return A, A.device
     if is_sparse_operand(A):
         return A, resolve_device(device)
     A = as_tensor(A, device)
@@ -311,7 +320,10 @@ def place(A, device=None):
 
 def linear_ops(A):
     """(mv, rmv): X ↦ A·X and X ↦ Aᵀ·X, by spmm/spmm_t for a sparse
-    operand (never densified), by matmul for a tensor."""
+    operand (never densified; a distributed one by its own collective
+    products), by matmul for a tensor."""
+    if _is_dist(A):
+        return A.spmm, A.spmm_t
     if is_sparse_operand(A):
         return (lambda X: spmm(A, X)), (lambda X: spmm_t(A, X))
     return (lambda X: A @ X), (lambda X: A.T @ X)

@@ -12,6 +12,12 @@
 //              out[b] = A[b] * (scale[b] S_b)^T  or  (scale[b] S_b) * A[b]
 //   over a stacked microbatch cohort, each lane b with its own key and
 //   scale.
+//   the unscaled partial of a shard (fused_partial, through _fused_call or
+//   _fused_call_cw on a slice of the block-key table): the rowwise or
+//   columnwise launch at scale 1 whose operator starts at column block
+//   block0 of S, so A_loc's column (or row) j meets S's column 256*block0
+//   + j. One rank of a sequence-parallel apply contracts its own shard;
+//   the caller scales and all-reduces.
 // S (s_dim x n) is the virtual dense-block operator of base/randgen.py,
 // generated on the card from the transform's 2-word key and never stored
 // whole: block k's key is chunk_key(key, k), and one Threefry-2x32-20 call
@@ -227,6 +233,7 @@ struct GenArgs {
   const uint32_t* keys;  // (B, 2) lane keys, or nullptr: key0, key1
   const float* scales;   // (B,) entry scales, or nullptr: none
   int64_t n, c0;         // operator columns; this chunk's first
+  int64_t block0;        // S's column block of local column 0 (a shard's)
   int s_dim, s_pad, planes;
   uint8_t* ws;
   int64_t ws_lane, plane;  // bytes
@@ -237,7 +244,9 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
 }
 
 // Columns [c0 + 256*blockIdx.x, + 256) of operator rows 16*blockIdx.y + [0,
-// 16) of lane blockIdx.z, as hi (and lo) planes in the swizzled k-block
+// 16) of lane blockIdx.z (S's column block block0 + c0/256 + blockIdx.x,
+// the columns masked against the local n), as hi (and lo) planes in the
+// swizzled k-block
 // layout. bf16: element (r, k) of the chunk at ((k/64)*s_pad + r)*64 +
 // (((k%64)/8) ^ (r%8))*8 + k%8; TF32 (tf32 values stored as fp32):
 // ((k/32)*s_pad + r)*32 + (((k%32)/4) ^ (r%8))*4 + k%4. Thread (row,
@@ -252,7 +261,7 @@ __global__ void __launch_bounds__(256) dense_gen_kernel(const GenArgs g) {
   if (threadIdx.x == 0) {
     uint32_t k0 = g.keys ? g.keys[2 * lane] : g.key0;
     uint32_t k1 = g.keys ? g.keys[2 * lane + 1] : g.key1;
-    sk::chunk_key(k0, k1, kb);
+    sk::chunk_key(k0, k1, g.block0 + kb);
     key[0] = k0;
     key[1] = k1;
   }
@@ -684,11 +693,12 @@ extern "C" int sk_dense_tc_plan(int64_t m, int64_t n, int64_t s_dim, int regime,
 // scaled by ``scale`` (sc, sh: the cos epilogue, rowwise only). A cohort:
 // keys (B, 2) and scales (B,) on the card, each lane's operator entries
 // scaled before they are rounded. ws and part hold B times the sizes that
-// sk_dense_tc_plan gives.
+// sk_dense_tc_plan gives. block0 is the column block of S that A's first
+// contracted column meets (0 but for a shard's partial).
 extern "C" int sk_dense_tc(int rowwise, int regime, int dist, const float* A, int64_t ld,
                            uint32_t key0, uint32_t key1, const uint32_t* keys,
                            const float* scales, int64_t B, int64_t m, int64_t n, int64_t s_dim,
-                           float scale, const float* sc,
+                           int64_t block0, float scale, const float* sc,
                            const float* sh, float outscale, float* out, void* ws, void* part,
                            cudaStream_t stream) {
   if (m <= 0 || n <= 0 || s_dim <= 0 || B < 1 || regime < kF32 || regime > kBf16 ||
@@ -696,6 +706,7 @@ extern "C" int sk_dense_tc(int rowwise, int regime, int dist, const float* A, in
       (sc == nullptr) != (sh == nullptr) || (sc != nullptr && (!rowwise || keys != nullptr)) ||
       (keys == nullptr) != (scales == nullptr) || (keys == nullptr && B != 1) ||
       ws == nullptr || ld < (rowwise ? n : m) || ld % 4 != 0 || n >= (1ll << 31) - 256 ||
+      block0 < 0 || block0 > (1ll << 40) ||
       reinterpret_cast<uintptr_t>(A) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   int sms = 0;
@@ -712,6 +723,7 @@ extern "C" int sk_dense_tc(int rowwise, int regime, int dist, const float* A, in
   g.keys = keys;
   g.scales = scales;
   g.n = n;
+  g.block0 = block0;
   g.s_dim = (int)s_dim;
   g.s_pad = (int)pl.s_pad;
   g.planes = pl.planes;

@@ -14,7 +14,7 @@ host reads a device value in an iteration only where the reference does:
 ``verbose``.
 
 Not in this port yet: ``train(checkpoint=...)`` with its resume identity
-and preemption drain (ROADMAP A7), and a sharded X (ROADMAP A5).
+and preemption drain (ROADMAP A7), and a sharded X (ROADMAP A5b).
 """
 
 from __future__ import annotations
@@ -238,7 +238,7 @@ class BlockADMMSolver:
         if getattr(X, "device_mesh", None) is not None:
             raise errors.NotImplementedYetError(
                 "BlockADMMSolver.train on a sharded X is not ported yet "
-                "(ROADMAP A5)")
+                "(ROADMAP A5b)")
         X = as_tensor(X, device)
         Y = as_tensor(Y, X.device).reshape(-1)
         n, d = X.shape

@@ -13,12 +13,15 @@ extremes stabilise to a relative ``tol``.
   densified), full two-sided reorthogonalization, and a start vector
   from the port's own Normal sampler (jax.random.normal's, C2) under the
   context's next allocation.
+- a :class:`~libskylark_tpu_torch.base.dist_sparse.DistSparseMatrix`
+  takes :func:`_condest_device`: the same recurrence in float32 on each
+  rank's device through the operand's ``spmm``/``spmm_t`` (an all-reduce
+  each), the reorthogonalization as device dots against the stored
+  Krylov vectors; only the two norms a step and the small bidiagonal's
+  SVD reach the host. The operand is never gathered.
 - :func:`condest_serve_apply` is its fixed-step device twin, in torch on
   the operand's device; :func:`condest_serve` pads the operand to the
   serve layer's class as the reference's eager twin does.
-
-The distributed form (the reference's ``_condest_device`` over a
-``DistSparseMatrix``) comes with the multi-card port.
 """
 
 from __future__ import annotations
@@ -47,7 +50,12 @@ def condest(A, context: Context, max_iter: int = 100,
             tol: float = 1e-3) -> Tuple[float, float, float]:
     """Estimate (cond, sigma_max, sigma_min) of A (m ≥ n recommended) on
     the host in float64. ``A`` is a numpy array, a tensor or a
-    :class:`SparseMatrix`; deterministic given the context."""
+    :class:`SparseMatrix`; a :class:`DistSparseMatrix` runs on the card
+    (:func:`_condest_device`). Deterministic given the context."""
+    from libskylark_tpu_torch.base.dist_sparse import DistSparseMatrix
+
+    if isinstance(A, DistSparseMatrix):
+        return _condest_device(A, context, max_iter, tol)
     if is_sparse_operand(A):
         M = A.to_scipy().astype(np.float64)
     elif isinstance(A, torch.Tensor):
@@ -61,6 +69,23 @@ def condest(A, context: Context, max_iter: int = 100,
         shape=(m, n), max_iter=max_iter, tol=tol,
         dot=lambda x, y: float(x @ y),
         norm=lambda x: float(np.linalg.norm(x)))
+
+
+def _condest_device(D, context: Context, max_iter: int, tol: float
+                    ) -> Tuple[float, float, float]:
+    """Golub-Kahan against a DistSparseMatrix on each rank's device, in
+    float32: u and v are whole vectors on every rank (the products'
+    results), the reorthogonalization coefficients stay device scalars,
+    and only the two norms a step read to the host, for the breakdown and
+    convergence tests. Full two-sided reorthogonalization holds the
+    bidiagonal at the moderate k this estimator needs, as in the
+    reference."""
+    m, n = D.shape
+    b = _normal(context.allocate().key, m, torch.float32, D.device)
+    return _golub_kahan(
+        matvec=D.spmm, rmatvec=D.spmm_t, b=b, shape=(m, n),
+        max_iter=max_iter, tol=tol, dot=torch.vdot,
+        norm=lambda x: float(torch.linalg.norm(x)))
 
 
 def _golub_kahan(matvec: Callable, rmatvec: Callable, b,

@@ -2,14 +2,17 @@
 plain versions, and their launch counters.
 
 Replaces libskylark_tpu/sketch/pallas_dense.py (``_fused_call``,
-``_fused_call_cw``, ``_fused_call_cos`` and ``_batched_call``): out =
-scale · A·Sᵀ (rowwise) or scale · S·A (columnwise) with S the virtual
-dense-block operator of base/randgen.py, generated on the card from the
-transform's key and never stored whole; the random Fourier feature map
-outscale · cos((A·Sᵀ)·inscale·sc + sh), the rowwise kernel with a cos
-epilogue (:func:`rft_rowwise_apply`); and the batched sketch of a stacked
-serve cohort, each lane with its own key and scale
-(:func:`serve_batched_apply`), one call for all lanes.
+``_fused_call_cw``, ``_fused_call_cos``, ``_batched_call`` and
+``fused_partial``): out = scale · A·Sᵀ (rowwise) or scale · S·A
+(columnwise) with S the virtual dense-block operator of base/randgen.py,
+generated on the card from the transform's key and never stored whole;
+the random Fourier feature map outscale · cos((A·Sᵀ)·inscale·sc + sh), the
+rowwise kernel with a cos epilogue (:func:`rft_rowwise_apply`); the
+batched sketch of a stacked serve cohort, each lane with its own key and
+scale (:func:`serve_batched_apply`), one call for all lanes; and one
+shard's unscaled partial against S's columns from a block offset
+(:func:`fused_partial`), which a sequence-parallel apply sums over ranks
+(parallel/shard_apply.py).
 
 The contraction regime (``precision``, the reference's names, default the
 package's ``sketch/params.py`` regime) decides the passes on the card. In
@@ -61,7 +64,8 @@ _REGIMES = {"f32": 0, "bf16x3": 1, "bf16gen2": 2, "bf16": 3}
 
 launches = {"dense_rowwise": 0, "dense_columnwise": 0,
             "dense_rowwise_cos": 0, "dense_batched_rowwise": 0,
-            "dense_batched_columnwise": 0}
+            "dense_batched_columnwise": 0, "dense_partial_rowwise": 0,
+            "dense_partial_columnwise": 0}
 generated = {"entries": 0}
 by_regime = {p: 0 for p in _REGIMES}  # the same launches by regime
 
@@ -124,8 +128,8 @@ def _load():
         lib.sk_dense_tc_plan.argtypes = [i64, i64, i64, c_int,
                                          ctypes.POINTER(i64)]
         lib.sk_dense_tc.argtypes = [c_int, c_int, c_int, p, i64, u32, u32, p,
-                                    p, i64, i64, i64, i64, f32, p, p, f32, p,
-                                    p, p, p]
+                                    p, i64, i64, i64, i64, i64, f32, p, p,
+                                    f32, p, p, p, p]
         for fn in (lib.sk_dense_tc_plan, lib.sk_dense_tc):
             fn.restype = c_int
         _lib = lib
@@ -156,14 +160,15 @@ def _check(dist, A, s_dim: int, ndim: int = 2) -> bool:
 
 def _launch_tc(A, out, rowwise: bool, precision: str, dist, B: int, m: int,
                n: int, s_dim: int, *, key=(0, 0), keys=None, scales=None,
-               scale: float = 1.0, sc=None, sh=None,
-               outscale: float = 0.0) -> None:
+               scale: float = 1.0, sc=None, sh=None, outscale: float = 0.0,
+               block0: int = 0) -> None:
     """One call of the kernels' route (sk_dense_tc): the plan's
     workspace and partial sums allocated here, on A's device. The kernel
     reads A through a TMA tensor map, whose rows must be 16 bytes apart:
     an operand whose rows are not (least squares' [A | b] has 513
     columns) is first copied into a buffer whose rows are, one pass over
-    A."""
+    A. ``block0`` is the column block of S that A's first contracted
+    column meets (a shard's partial)."""
     from libskylark_tpu_torch.kernels import launch
 
     cols = A.shape[-1]
@@ -188,7 +193,8 @@ def _launch_tc(A, out, rowwise: bool, precision: str, dist, B: int, m: int,
 
     launch.call(lib.sk_dense_tc, A.device, int(rowwise), code,
                 _DIST_KINDS[type(dist)], A.data_ptr(), A.shape[-1], *key,
-                ptr(keys), ptr(scales), B, m, n, s_dim, float(scale),
+                ptr(keys), ptr(scales), B, m, n, s_dim, int(block0),
+                float(scale),
                 ptr(sc), ptr(sh), float(outscale), out.data_ptr(),
                 ws.data_ptr(), ptr(part))
     launch.count(generated, "entries", B * s_dim * n)
@@ -226,6 +232,57 @@ def columnwise_apply(key, dist, A: torch.Tensor, s_dim: int, scale: float,
                      precision: str | None = None) -> torch.Tensor:
     """out = scale · S @ A for A (N, m) float32 → (s_dim, m)."""
     return _apply(key, dist, A, s_dim, scale, precision, rowwise=False)
+
+
+def partial_plain(key, dist, A_loc: torch.Tensor, s_dim: int,
+                  seq_axis: int, block0: int,
+                  precision: str | None = None) -> torch.Tensor:
+    """The plain PyTorch version of :func:`fused_partial`: the unscaled
+    operator's columns [256·block0, 256·block0 + n_loc) made on A_loc's
+    device, then the regime's product."""
+    from libskylark_tpu_torch.sketch.dense import virtual_panel
+
+    p = _regime(precision)
+    n = A_loc.shape[seq_axis]
+    c0 = BLOCK_COLS * int(block0)
+    S = virtual_panel(key, dist, s_dim, c0, c0 + n, 1.0, torch.float32,
+                      A_loc.device)
+    return (regime_matmul(A_loc, S.T, p, 1) if seq_axis == 1
+            else regime_matmul(S, A_loc, p, 0))
+
+
+def fused_partial(key, dist, A_loc: torch.Tensor, s_dim: int, seq_axis: int,
+                  block0: int, precision: str | None = None) -> torch.Tensor:
+    """One shard's UNSCALED contraction with the operator's columns
+    [256·block0, 256·block0 + n_loc): A_loc·S_locᵀ (m, s_dim) for
+    ``seq_axis`` 1, S_loc·A_loc (s_dim, m) for 0, n_loc = A_loc's extent
+    on ``seq_axis`` (a multiple of 256 but for the last shard, which may
+    end anywhere: the operator's columns past n_loc meet nothing). The
+    reference's ``pallas_dense.fused_partial`` takes the shard's slice of
+    the block-key table; here the kernel derives block block0 + b's key on
+    the card. The caller scales and sums the partials over ranks
+    (parallel/shard_apply.py). A CPU tensor takes :func:`partial_plain`; a
+    CUDA tensor launches the kernel at scale 1 or raises."""
+    if seq_axis not in (0, 1):
+        raise errors.InvalidParametersError(
+            f"seq_axis must be 0 or 1, got {seq_axis}")
+    if int(block0) < 0:
+        raise errors.InvalidParametersError(
+            f"block0 must be non-negative, got {block0}")
+    p = _regime(precision)
+    if _check(dist, A_loc, s_dim):
+        return partial_plain(key, dist, A_loc, s_dim, seq_axis, block0, p)
+    rowwise = seq_axis == 1
+    n, m = (A_loc.shape[1], A_loc.shape[0]) if rowwise else A_loc.shape
+    out = torch.empty((m, s_dim) if rowwise else (s_dim, m),
+                      dtype=torch.float32, device=A_loc.device)
+    if m == 0 or n == 0:
+        return out.zero_()
+    _launch_tc(A_loc, out, rowwise, p, dist, 1, m, n, s_dim,
+               key=key_words(key), block0=int(block0))
+    _count("dense_partial_rowwise" if rowwise
+           else "dense_partial_columnwise", p)
+    return out
 
 
 def rft_rowwise_apply(key, dist, A: torch.Tensor, s_dim: int, inscale: float,

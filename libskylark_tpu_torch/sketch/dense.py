@@ -16,7 +16,9 @@ is never stored. Applies take one of three routes, in this order:
 A sparse operand (:class:`~libskylark_tpu_torch.base.sparse.SparseMatrix`)
 is never densified and never takes the fused kernel, as in the
 reference: the pinned operator, else S whole or panel by panel under the
-same schedule, contracted by ``spmm``/``spmm_t`` (base/sparse.py).
+same schedule, contracted by ``spmm``/``spmm_t`` (base/sparse.py). A
+:class:`~libskylark_tpu_torch.base.dist_sparse.DistSparseMatrix` takes
+sketch/dist_sparse_apply.py: each rank's cell against its own panel of S.
 """
 
 from __future__ import annotations
@@ -114,6 +116,15 @@ class DenseTransform(OperatorCache, SketchTransform):
         """Materialize S[:, col_start:col_stop]."""
         return virtual_panel(self._alloc.key, self.dist, self._S,
                              col_start, col_stop, self.scale, dtype, device)
+
+    def s_block(self, block_id: int, dtype=torch.float32,
+                device=None) -> torch.Tensor:
+        """Column block ``block_id`` of S (S_dim × BLOCK_COLS): the block
+        protocol of the sequence-parallel apply (parallel/shard_apply.py)
+        and of the distributed-sparse panels."""
+        return self.scale * randgen.dense_block(
+            self._alloc.key, self.dist, self._S, block_id, BLOCK_COLS, dtype,
+            device)
 
     def _full_operator(self, dtype, device) -> torch.Tensor:
         return self.s_panel(0, self._N, dtype, device)
@@ -218,6 +229,18 @@ class DenseTransform(OperatorCache, SketchTransform):
             acc += spmm(A.column_view(p0, p1),
                         self.s_panel(p0, p1, dt, device).T)
         return acc
+
+    # -- distributed sparse input: per-cell virtual panels + all-reduce --
+
+    def _apply_columnwise_dist_sparse(self, A) -> torch.Tensor:
+        from libskylark_tpu_torch.sketch import dist_sparse_apply as dsa
+
+        return dsa.dense_columnwise(self, A)
+
+    def _apply_rowwise_dist_sparse(self, A) -> torch.Tensor:
+        from libskylark_tpu_torch.sketch import dist_sparse_apply as dsa
+
+        return dsa.dense_rowwise(self, A)
 
     # -- blocked (memory-bounded) apply: one virtual panel at a time --
 

@@ -22,8 +22,12 @@ version on the CPU), which adds each output cell's terms in the
 reference's order, other dtypes through that plain version directly
 (unordered on CUDA). MMT and WZT take ``index_add_`` over the COO
 triplets (CSC order), ordered on the CPU, unordered on CUDA.
-``apply_sparse`` gives a sparse result, on the host. Distributed sparse
-operands are not ported yet.
+``apply_sparse`` gives a sparse result, on the host. A
+:class:`~libskylark_tpu_torch.base.dist_sparse.DistSparseMatrix` takes
+sketch/dist_sparse_apply.py: each rank's cell by the same routes (CWT in
+float32 by B3 at the cell's global offset, the others by ``index_add_``,
+unordered on CUDA), then an all-reduce over the ranks; ``apply_sparse``
+of one stays distributed.
 """
 
 from __future__ import annotations
@@ -106,13 +110,32 @@ class HashTransform(SketchTransform):
     def _apply_rowwise_sparse(self, A, device):
         return self._apply_sparse_dense_out(A, device, rowwise=True)
 
+    # -- distributed sparse input: each rank's cell, then an all-reduce --
+
+    def _apply_columnwise_dist_sparse(self, A):
+        from libskylark_tpu_torch.sketch import dist_sparse_apply as dsa
+
+        return dsa.hash_columnwise(self, A)
+
+    def _apply_rowwise_dist_sparse(self, A):
+        from libskylark_tpu_torch.sketch import dist_sparse_apply as dsa
+
+        return dsa.hash_rowwise(self, A)
+
     def apply_sparse(self, A, dimension=None):
         """Sparse → sparse apply on the host: a :class:`SparseMatrix` with
         duplicates summed, equal elementwise to ``apply``'s dense
-        result."""
+        result. A :class:`DistSparseMatrix` gives a distributed sparse
+        result (the SpParMat → SpParMat analog)."""
+        from libskylark_tpu_torch.base.dist_sparse import DistSparseMatrix
         from libskylark_tpu_torch.base.sparse import SparseMatrix, as_sparse
         from libskylark_tpu_torch.sketch.transform import COLUMNWISE
 
+        if isinstance(A, DistSparseMatrix):
+            from libskylark_tpu_torch.sketch import dist_sparse_apply as dsa
+
+            return dsa.hash_apply_sparse(
+                self, A, columnwise=(dimension or COLUMNWISE) == COLUMNWISE)
         A = as_sparse(A)
         dimension = dimension or COLUMNWISE
         n = A.height if dimension == COLUMNWISE else A.width

@@ -26,7 +26,10 @@ dense-block format of base/randgen.py (sub-stream 0), b ~ U[0, 2π)
 
 A sparse operand projects by ``spmm``/``spmm_t`` against the pinned W
 or W made whole (float32, whatever the distribution), then the same
-featurization, as the reference's sparse branch does.
+featurization, as the reference's sparse branch does; a
+:class:`~libskylark_tpu_torch.base.dist_sparse.DistSparseMatrix` projects
+each rank's cell against its own panel of W (sketch/dist_sparse_apply.py),
+then featurizes.
 """
 
 from __future__ import annotations
@@ -160,6 +163,19 @@ class RFT(OperatorCache, SketchTransform):
 
         W = self._sparse_operator(A, device)
         return self._featurize(spmm(A, W.T), feature_axis=1)
+
+    # -- distributed sparse input: per-cell panels of W, then featurize --
+
+    def _apply_columnwise_dist_sparse(self, A) -> torch.Tensor:
+        from libskylark_tpu_torch.sketch import dist_sparse_apply as dsa
+
+        return self._featurize(dsa.dense_columnwise(self, A),
+                               feature_axis=0)
+
+    def _apply_rowwise_dist_sparse(self, A) -> torch.Tensor:
+        from libskylark_tpu_torch.sketch import dist_sparse_apply as dsa
+
+        return self._featurize(dsa.dense_rowwise(self, A), feature_axis=1)
 
 
 class _SigmaRFT(RFT):

@@ -161,7 +161,18 @@ class SketchTransform:
         sparse) operand takes the transform's sparse apply and gives a
         dense result on ``device``; the transforms without one (FJLT,
         Fastfood, QRFT, PPT, as in the reference) raise
-        NotImplementedYetError."""
+        NotImplementedYetError. A
+        :class:`~libskylark_tpu_torch.base.dist_sparse.DistSparseMatrix`
+        takes the transform's distributed apply and gives the whole dense
+        result on every rank, on the rank's device (``device`` is not
+        read); the transforms without one raise NotImplementedYetError."""
+        from libskylark_tpu_torch.base.dist_sparse import DistSparseMatrix
+
+        if isinstance(A, DistSparseMatrix):
+            # dimension validation lives in dist_sparse_apply._check_dim
+            if dimension == COLUMNWISE:
+                return self._apply_columnwise_dist_sparse(A)
+            return self._apply_rowwise_dist_sparse(A)
         if is_sparse_operand(A) or _is_scipy_sparse(A):
             A = as_sparse(A)
             n = A.height if dimension == COLUMNWISE else A.width
@@ -204,6 +215,16 @@ class SketchTransform:
     def _apply_rowwise_sparse(self, A, device) -> torch.Tensor:
         raise errors.NotImplementedYetError(
             f"{self.sketch_type}: rowwise sparse apply not implemented")
+
+    def _apply_columnwise_dist_sparse(self, A) -> torch.Tensor:
+        raise errors.NotImplementedYetError(
+            f"{self.sketch_type}: columnwise distributed-sparse apply "
+            "not implemented")
+
+    def _apply_rowwise_dist_sparse(self, A) -> torch.Tensor:
+        raise errors.NotImplementedYetError(
+            f"{self.sketch_type}: rowwise distributed-sparse apply "
+            "not implemented")
 
     def _extra_params(self) -> dict[str, Any]:
         """Transform-specific hyper-params to serialize."""

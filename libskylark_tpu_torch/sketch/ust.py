@@ -5,7 +5,9 @@ With replacement: S_dim independent uniform indices (sub-stream 0).
 Without: the first S_dim entries of ``randgen.permutation`` of [0, N)
 under sub-stream 1, jax.random.permutation's own shuffle. A sparse
 operand is gathered on the host (sampling keeps it sparse) and the small
-sampled result densified on the device.
+sampled result densified on the device; a distributed sparse operand
+gathers each rank's sampled rows or columns of its cell
+(sketch/dist_sparse_apply.py).
 """
 
 from __future__ import annotations
@@ -53,6 +55,16 @@ class UST(SketchTransform):
 
     def _apply_rowwise_sparse(self, A, device) -> torch.Tensor:
         return self._sampled_sparse(A, device, rowwise=True)
+
+    def _apply_columnwise_dist_sparse(self, A) -> torch.Tensor:
+        from libskylark_tpu_torch.sketch import dist_sparse_apply as dsa
+
+        return dsa.ust_columnwise(self, A)
+
+    def _apply_rowwise_dist_sparse(self, A) -> torch.Tensor:
+        from libskylark_tpu_torch.sketch import dist_sparse_apply as dsa
+
+        return dsa.ust_rowwise(self, A)
 
     def _extra_params(self) -> dict[str, Any]:
         return {"replace": self._replace}

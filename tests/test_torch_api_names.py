@@ -7,9 +7,8 @@ function, class or method must be accepted by the port's counterpart
 accepts any keyword). A module's public names are the functions and
 classes it defines, its upper-case constants, and a package's
 ``__all__``. Only what ROADMAP defers is exempt, each exemption with its
-item: DenseTransform's s_block, the serve.py endpoints and telemetry
-beyond counters and gauges (A5-A7), and the names of reference modules
-not ported yet (C12).
+item: the serve.py endpoints and telemetry beyond counters and gauges
+(A6, A7), and the names of reference modules not ported yet (C12).
 """
 
 from __future__ import annotations
@@ -30,23 +29,20 @@ _SERVE_LATER = (
     "register_operand", "unregister_operand", "resident_operands",
     "bucket_targets", "set_bucket_targets", "restore_kernel_choice",
     "load_warmup_pack", "queue_depth", "latency_quantile")
-_SERVE_A5 = ("submit_dist_sketch", "submit_dist_lstsq", "submit_dist_svd")
+# the dist endpoints run the reference's dist/ package (A7)
+_SERVE_DIST = ("submit_dist_sketch", "submit_dist_lstsq", "submit_dist_svd")
 _SERVE_A7 = ("sessions", "open_sketch_session", "session_append",
              "session_finalize", "train_jobs", "submit_train_job",
              "resume_train_job", "train_job_status", "qos_bucket_obs",
              "qos_reset_bucket_obs")
 
 # "module:name" (a name, a Class.member or a callable's "(param)") -> the
-# ROADMAP item that brings it. The deferred kinds: s_block on
-# DenseTransform (A5), the serve.py endpoints with the serve programs
-# only they run (A6, A5 and A7 by endpoint), and telemetry beyond
-# counters and gauges (A7). Every other name the port lacks is C12: a
-# module of the reference not yet ported, each named there with the A
-# item that brings it.
+# ROADMAP item that brings it. The deferred kinds: the serve.py
+# endpoints with the serve programs only they run (A6 and A7 by
+# endpoint), and telemetry beyond counters and gauges (A7). Every other
+# name the port lacks is C12: a module of the reference not yet ported,
+# each named there with the A item that brings it.
 EXEMPT = {
-    # A5: DenseTransform.s_block, the distributed panel size
-    "sketch:DenseTransform.s_block": "A5",
-    "sketch.dense:DenseTransform.s_block": "A5",
     # A6: the serve.py endpoints, their states and readers, and the
     # serve programs of its solve and lowrank endpoints
     "engine:DEGRADED": "A6", "engine:DRAINING": "A6", "engine:SERVING": "A6",
@@ -77,9 +73,6 @@ EXEMPT = {
     "telemetry.metrics:register_collector": "A7",
     "telemetry.metrics:snapshot": "A7",
     # C12: names of reference modules the port has not reached yet.
-    # parallel/ and dist/ (A5)
-    ":DistSparseMatrix": "C12", ":distribute_sparse": "C12",
-    "base:DistSparseMatrix": "C12", "base:distribute_sparse": "C12",
     # engine/compile.py, cache.py and tune/ (A6)
     "engine:aot": "C12", "engine:warmup": "C12", "engine:cache": "C12",
     "engine:CacheEntry": "C12", "engine:EngineStats": "C12",
@@ -123,8 +116,8 @@ for _m in ("engine", "engine.serve"):
         EXEMPT[f"{_m}:MicrobatchExecutor({_p})"] = "A6"
     for _n in _SERVE_LATER:
         EXEMPT[f"{_m}:MicrobatchExecutor.{_n}"] = "A6"
-    for _n in _SERVE_A5:
-        EXEMPT[f"{_m}:MicrobatchExecutor.{_n}"] = "A5"
+    for _n in _SERVE_DIST:
+        EXEMPT[f"{_m}:MicrobatchExecutor.{_n}"] = "A7"
     for _n in _SERVE_A7:
         EXEMPT[f"{_m}:MicrobatchExecutor.{_n}"] = "A7"
 
@@ -221,11 +214,13 @@ def test_reference_names_exist_in_the_port(mod_key):
 
 
 def test_the_new_modules_are_compared():
-    """The NLA, graph, block-solver and HDF5 modules are among those both
-    packages define, so the parity test above covers them."""
+    """The NLA, graph, block-solver, HDF5 and parallel modules are among
+    those both packages define, so the parity test above covers them."""
     common = set(_common_modules())
     for m in ("nla.krank", "nla.randlobpcg", "nla.spectral", "ml.graph",
-              "algorithms.asynch", "io.hdf5"):
+              "algorithms.asynch", "io.hdf5", "parallel", "parallel.mesh",
+              "parallel.multihost", "parallel.shard_apply",
+              "base.dist_sparse", "sketch.dist_sparse_apply"):
         assert m in common, m
 
 

@@ -91,7 +91,9 @@ def test_plain_version_matches_interpreted_pallas_kernel(family, rowwise, n,
                                    "dense_columnwise": 0,
                                    "dense_rowwise_cos": 0,
                                    "dense_batched_rowwise": 0,
-                                   "dense_batched_columnwise": 0}
+                                   "dense_batched_columnwise": 0,
+                                   "dense_partial_rowwise": 0,
+                                   "dense_partial_columnwise": 0}
 
 
 @pytest.mark.parametrize("rowwise", [True, False])
@@ -154,7 +156,9 @@ def test_cpu_tensor_leaves_launch_counters_at_zero():
                                    "dense_columnwise": 0,
                                    "dense_rowwise_cos": 0,
                                    "dense_batched_rowwise": 0,
-                                   "dense_batched_columnwise": 0}
+                                   "dense_batched_columnwise": 0,
+                                   "dense_partial_rowwise": 0,
+                                   "dense_partial_columnwise": 0}
 
 
 def test_dispatch_rule_is_the_reference_rule():
@@ -250,4 +254,6 @@ def test_cuda_device_without_a_card_raises():
                                    "dense_columnwise": 0,
                                    "dense_rowwise_cos": 0,
                                    "dense_batched_rowwise": 0,
-                                   "dense_batched_columnwise": 0}
+                                   "dense_batched_columnwise": 0,
+                                   "dense_partial_rowwise": 0,
+                                   "dense_partial_columnwise": 0}
