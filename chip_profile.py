@@ -77,6 +77,17 @@ weighted config-2 CSR as a DistSparseMatrix on two gloo processes
 sharing the card (rank 0's figures; rank 1's beside them); the same
 fields as above.
 
+Then three ``sharded-<cell>`` lines, A5b: ``sharded-lsqr`` (LSQR on the
+65536 × 512 least-squares operand), ``sharded-svd`` (approximate_svd,
+rank 64, q = 2, of the 8192² SVD operand) and ``sharded-krr``
+(approximate_kernel_ridge at config 5, s = 8192), each operand
+row-sharded over two gloo processes sharing the card (rank 0's figures,
+rank 1's times beside them), the same fields as above, plus the
+collectives one call issues (``collectives``, ``collective_bytes``: a
+rank's bytes into them) and ``one_process_warm_ms`` /
+``one_process_device_ms``: the same call on the whole operands, timed on
+rank 0 while rank 1 waits.
+
 ``python3 chip_profile.py --lobpcg-seeds R`` prints instead, for R
 rounds of Context seeds, the a3 phase's randlobpcg measures for each
 sketch (``lobpcg_spread``): the spread across seeds of what the phase
@@ -385,6 +396,87 @@ def dist_sparse_svd() -> dict:
                                  ("warm_ms", "device_ms", "busy")}}
 
 
+def sharded_child(rank: int, world: int, port: int) -> int:
+    """One gloo rank of the ``sharded-*`` cells (A5b): LSQR on the
+    least-squares operand, approximate_svd (rank 64, q = 2) of the SVD
+    operand, and approximate_kernel_ridge at config 5, each on its
+    operands row-sharded over the two ranks; per cell the warm and
+    profiled times, the collectives one call issues (count and bytes) and,
+    on rank 0 while rank 1 waits, the same call's one-process time."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(chip_smoke.ROOT))
+    import libskylark_tpu_torch as P
+    from libskylark_tpu_torch import algorithms as alg, ml, nla
+    from libskylark_tpu_torch import parallel as par
+    from libskylark_tpu_torch.parallel import mesh as pmesh, multihost
+
+    torch.cuda.set_device(0)
+    multihost.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                     connect_timeout=120.0, backend="gloo")
+    size = chip_smoke.SHARDED_FULL
+    ops = chip_smoke.sharded_operands(torch, size, "cuda")
+    rows = par.row_sharded(par.make_mesh())
+    d = {k: par.distribute(ops[k], rows) for k in ("A", "b", "S", "X", "Y")}
+    kern = chip_smoke.ml_kernel(ml, size["ml"])
+    lsqr = alg.KrylovParams(tolerance=size["lsqr_tolerance"],
+                            iter_lim=size["lsqr_iter_lim"])
+    svd = nla.ApproximateSVDParams(num_iterations=size["q"])
+    ctx = {name: P.Context(seed) for name, seed in
+           (("lsqr", 520), ("svd", 521), ("krr", 522))}
+    cells = {
+        "lsqr": lambda o: alg.lsqr(o["A"], o["b"], lsqr),
+        "svd": lambda o: nla.approximate_svd(o["S"], size["rank"],
+                                             ctx["svd"], svd),
+        "krr": lambda o: ml.approximate_kernel_ridge(
+            kern, o["X"], o["Y"], chip_smoke.ML_LAM, size["ml"]["s"],
+            ctx["krr"]),
+    }
+    for name, fn in cells.items():
+        row = {"cell": f"sharded-{name}", "rank": rank,
+               "warm_ms": warm_ms(torch, lambda: fn(d))}
+        row.update(profile_call(torch, lambda: fn(d)))
+        row["busy"] = row["device_ms"] / row["warm_ms"]
+        for k in pmesh.collectives:
+            pmesh.collectives[k] = pmesh.collective_bytes[k] = 0
+        fn(d)
+        row["collectives"] = dict(pmesh.collectives)
+        row["collective_bytes"] = dict(pmesh.collective_bytes)
+        dist.barrier()
+        if rank == 0:
+            row["one_process_warm_ms"] = warm_ms(torch, lambda: fn(ops))
+            row.update({f"one_process_{k}": v for k, v in profile_call(
+                torch, lambda: fn(ops)).items() if k == "device_ms"})
+        dist.barrier()
+        print("SHARDED_ROW " + json.dumps(row), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_cells() -> list:
+    """Spawn the two ranks of the ``sharded-*`` cells; rank 0's rows, rank
+    1's times beside them."""
+    import subprocess
+
+    world, port = 2, chip_smoke.free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--sharded-child", str(r), str(world),
+         str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = [p.communicate(timeout=900)[0] for p in procs]
+    chip_smoke.check(all(p.returncode == 0 for p in procs),
+                     "sharded cell rank failed:\n"
+                     + "\n".join(x[-3000:] for x in logs))
+    rows = [[json.loads(ln[12:]) for ln in x.splitlines()
+             if ln.startswith("SHARDED_ROW ")] for x in logs]
+    return [{**r0, "rank1": {k: r1[k] for k in
+                             ("warm_ms", "device_ms", "busy")}}
+            for r0, r1 in zip(*rows)]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -394,6 +486,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--dist-svd-child"]:
         return dist_svd_child(*(int(a) for a in sys.argv[2:5]))
+    if sys.argv[1:2] == ["--sharded-child"]:
+        return sharded_child(*(int(a) for a in sys.argv[2:5]))
     sys.path.insert(0, str(chip_smoke.ROOT))
     import libskylark_tpu_torch as P
     from libskylark_tpu_torch import algorithms, nla, sketch as sk
@@ -516,6 +610,8 @@ def main() -> int:
     del fn
     print(json.dumps({"cell": "dist-sparse-svd", **dist_sparse_svd()}),
           flush=True)
+    for row in sharded_cells():
+        print(json.dumps(row), flush=True)
     chip_smoke.check("jax" not in sys.modules
                      and "libskylark_tpu" not in sys.modules,
                      "the port imported jax or libskylark_tpu")

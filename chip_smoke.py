@@ -177,6 +177,42 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             each against the one-process route (1e-4·max, σ 1e-3), both
             ranks' results byte-equal; the phase's seconds and peak
             memory on its line;
+4g. sharded — A5b, mesh-sharded dense operands (DTensors) through the
+            public entry points (about 60 s): B2 with a shard's row offset
+            n0 for p ∈ {1, 2, 4, 5} ranks of torch's split (ragged),
+            emulated in this process at config 4's S·[A | b] (65536 ×
+            513 → 2048) and config 1's CWT (8192² → 1024 rowwise), each
+            rank's launch torch.equal to the plain scatter at its offset
+            on a CPU copy, the ranks' sketches summed in rank order
+            within 1e-4·max of the one-shot B2 (torch.equal at p = 1);
+            then the main path with the counters set to 0: a one-rank
+            NCCL group with a 1 × 1 mesh, where every entry point of the
+            slice (those below, and MMT, WZT, LaplacianRFT, MaternRFT,
+            ExpSemigroupRLT, power_iteration, CG, flexible CG,
+            Chebyshev, exact and split-sketched KRR, RangeAssistedEVD,
+            the dominant subspace) must be torch.equal to its
+            one-process route (MMT and WZT, whose scatter is atomic on
+            CUDA, within 1e-4·max) and issue no collective, and two
+            processes sharing the card through gloo (``chip_smoke.py
+            --sharded-child <rank> 2 <port>``) with the operands
+            row-sharded: JLT, CT, CWT, GaussianRFT, UST and FJLT(wht)
+            columnwise on config 4's [A | b], CWT sketch-and-solve and
+            LSQR on its 65536 × 512 operand, cholesky_qr2 of that tall
+            operand, approximate_svd (rank 64, q = 2) of the 8192² SVD
+            operand, approximate_kernel_ridge at config 5 (60,000 × 784,
+            σ = 112, s = 8192), BlockADMMSolver at the ml-admm cell's
+            settings, krank's randomized_svd (rank 64) of its gap
+            operand and lobpcg_rand_evd (CWT, k = 10) of the LS operand;
+            each held to the one-process route with the one-process
+            phases' limits (applies 1e-4·max, CT entry by entry, UST
+            torch.equal; σ 1e-3; the LS residual ratios; KRR's normal
+            equations 1e-3·‖ZᵀY‖_F; ADMM coef 1e-3·max and objectives
+            1e-4; LOBPCG by C11's measures), both ranks' results
+            byte-equal, each entry point's collectives (the port's own
+            count and CommDebugMode's) its design's list (no gather of a
+            tall operand), and each rank's launches of B1's partial, B1,
+            B1-cos, B5 and B2 (at its offset on rank 1) exactly the
+            path's; the phase's seconds and peak memory on its line;
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
@@ -191,7 +227,8 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             per call beside them); the serve kernels at their buckets'
             capacity-8 shapes (B2's and B5's batched entry points at the
             cwt and srht buckets' capacity-4 shape); B1's partial at p =
-            4's per-rank shapes;
+            4's per-rank shapes; B2 at rank 1 of 2's offset (32768 × 513
+            → 2048, n0 = 32768);
 6. the ``{"kernels": [...]}`` line (``max_abs_err``: the worst of every
    check at the kernel's main-path shapes, all distributions and ragged
    variants), the card's name and power limit, and
@@ -4065,6 +4102,655 @@ def dist_phase(torch, P, np, peaks) -> dict:
     return out
 
 
+# -- 4g. the sharded phase: A5b, mesh-sharded dense operands (DTensors) ------
+
+# B2 at a shard's offset, as torch's split gives p ranks their rows:
+# config 4's S·[A | b] (65536 × 513 → 2048, columnwise) and config 1's
+# CWT (8192² → 1024, rowwise); p = 5 ragged (shards not 1024-aligned)
+SHARDED_HASH = (("columnwise", (65536, 513), 2048),
+                ("rowwise", (8192, 8192), 1024))
+SHARDED_P = (1, 2, 4, 5)
+# the entry points' operands at full width: config 4's least-squares
+# operand and sketch size, the SVD cell's 8192² (rank 64, q = 2), krank's
+# gap operand, config 5 (60,000 × 784, Gaussian σ = 112, s = 8192, λ = 1;
+# Block-ADMM at the ml-admm cell's settings)
+SHARDED_FULL = {"ls_rows": 65536, "ls_cols": 512, "s": 2048,
+                "svd_n": 8192, "svd_r": 512, "rank": 64, "q": 2,
+                "rft_sigma": 256.0, "lsqr_tolerance": 1e-6,
+                "lsqr_iter_lim": 100, "krank_n": 8192, "krank_r": 512,
+                "evd_k": 10, "ml": ML_FULL}
+# limits of the two-rank step against the one-process route, each the
+# one-process phases' own (the 1 × 1 mesh is held torch.equal)
+SHARDED_LIMITS = {"sigma": 1e-3, "sketch_solve": 1.5,
+                  "lsqr_residual": 1 + 1e-3,
+                  "normal_equations": ML_LIMITS["normal_equations"],
+                  "admm_coef": ML_LIMITS["admm_coef"],
+                  "admm_objective": ML_LIMITS["admm_objective"],
+                  "lobpcg_sketch": 1e-4, "lobpcg_converged": 1e-3,
+                  "lobpcg_vs_sigma2": 0.05, "lobpcg_ritz": 1e-5}
+# the kernels each rank launches on its own block in one run of the
+# entry points: B1's partial (JLT, CT, GaussianRFT columnwise), B1 (the
+# SVD's range sketch), B1-cos (KRR's map, ADMM's 4 maps at 11 applies),
+# B5 (FJLT after its all-to-all), B2 (CWT, sketch-and-solve, LOBPCG's
+# sketch): at offset 0 on rank 0, at its offset on the others
+SHARDED_KERNELS = ("dense_partial_columnwise", "dense_rowwise",
+                   "dense_rowwise_cos", "hash_offset")
+
+
+def sharded_launches(rank: int, world: int, size) -> dict:
+    """Each kernel's launches on ``rank`` of ``world`` in one run of the
+    entry points: on one rank nothing is split, so the columnwise
+    sketches take B1's one-shot launch, not its partial."""
+    P4, it = size["ml"]["partitions"], size["ml"]["admm_iters"]
+    split = 3 if world > 1 else 0
+    return {"dense_partial_columnwise": split,
+            "dense_columnwise": 3 - split, "dense_rowwise": 1,
+            "dense_rowwise_cos": 1 + P4 * (1 + it),
+            "fwht_columnwise": 1,
+            "hash_columnwise": 3 if rank == 0 else 0,
+            "hash_offset": 0 if rank == 0 else 3}
+
+
+def sharded_emulated(torch, P) -> list:
+    """Step 1: B2 with ``n0`` on each rank's block of torch's split,
+    emulated in this process, torch.equal to the plain scatter at the same
+    offset on a CPU copy; the blocks' sketches summed in rank order
+    against the one-shot B2 (≤ 1e-4·max, torch.equal at p = 1), with p − 1
+    offset launches and one at offset 0. These launches compare kernels;
+    they are not the main path's."""
+    from libskylark_tpu_torch.sketch import cuda_hash as ch
+
+    results = []
+    for i, (way, shape, s) in enumerate(SHARDED_HASH):
+        rowwise = way == "rowwise"
+        seq = 1 if rowwise else 0
+        A = make_operand(torch, shape, 4200 + i)
+        key = P.Context(490 + i).allocate().key
+        one = ch.cwt_apply(key, A, s, rowwise)
+        N = shape[seq]
+        for p in SHARDED_P:
+            chunk = -(-N // p)
+            for k in ch.launches:
+                ch.launches[k] = 0
+            total, zero_ok = None, True
+            for r in range(p):
+                lo, hi = min(r * chunk, N), min((r + 1) * chunk, N)
+                Ar = A.narrow(seq, lo, hi - lo).contiguous()
+                got = ch.cwt_apply(key, Ar, s, rowwise, lo)
+                plain = ch.cwt_apply_plain(key, Ar.cpu(), s, rowwise, lo)
+                equal = bool(torch.equal(got.cpu(), plain))
+                if lo:
+                    results.append({
+                        "kernel": "hash_offset", "way": way, "p": p,
+                        "rank": r, "n0": lo, "shape": list(Ar.shape),
+                        "s_dim": s, "bit_equal": equal,
+                        "max_abs_err": float((got.cpu() - plain).abs().max()),
+                        "ok": equal})
+                else:
+                    zero_ok = zero_ok and equal
+                total = got if total is None else total + got
+                del Ar, got, plain
+            launched = dict(ch.launches)
+            vs_one = held(torch, total, one)
+            vs_one["bit_equal"] = bool(torch.equal(total, one))
+            results.append({
+                "kernel": "hash_offset_sum", "way": way, "p": p,
+                "shape": list(shape), "s_dim": s, "sum_vs_one_shot": vs_one,
+                "launches": launched,
+                "ok": (zero_ok and vs_one["ok"]
+                       and (p > 1 or vs_one["bit_equal"])
+                       and launched["hash_offset"] == p - 1
+                       and launched[f"hash_{way}"] == 1)})
+            del total
+        del A, one
+    return results
+
+
+def sharded_operands(torch, size, device):
+    """The phase's operands, made on ``device`` from seeds (the same in
+    every process): the least-squares [A | b] (b = A·x0 + 0.1·noise), the
+    SVD operand (rank svd_r, σ = 0.95^i) with its σ, krank's gap operand
+    with its σ, and config 5's X, labels y and ±1 targets Y."""
+    g = torch.Generator(device=device).manual_seed(3)
+    m, n = size["ls_rows"], size["ls_cols"]
+    A = torch.randn(m, n, generator=g, device=device)
+    x0 = torch.randn(n, generator=g, device=device)
+    b = A @ x0 + 0.1 * torch.randn(m, generator=g, device=device)
+    g = torch.Generator(device=device).manual_seed(2)
+    N, r = size["svd_n"], size["svd_r"]
+    U0 = torch.linalg.qr(torch.randn(N, r, generator=g, device=device))[0]
+    V0 = torch.linalg.qr(torch.randn(N, r, generator=g, device=device))[0]
+    sig = 0.95 ** torch.arange(r, device=device, dtype=torch.float32)
+    K, _, ksig = a3_krank_operand(torch, size, device)
+    X, y, _, _ = ml_data(torch, size["ml"], device)
+    Y = 2.0 * torch.nn.functional.one_hot(
+        y, size["ml"]["classes"]).to(torch.float32) - 1.0
+    Ab = torch.cat([A, b[:, None]], 1).contiguous()
+    # an SPD system for CG and Chebyshev (spectrum in [1, spd_top]), a
+    # start for power_iteration, a subset for exact KRR's n × n Gram
+    B = A[:2048]
+    spd = B @ B.T / n + torch.eye(2048, device=device)
+    return {"Ab": Ab, "Ab_abs": Ab.abs(), "A": A, "b": b,
+            "S": (U0 * sig) @ V0.T, "sigma": sig, "K": K, "ksigma": ksig,
+            "X": X, "y": y, "Y": Y, "spd": spd, "spd_b": b[:2048, None],
+            "spd_top": torch.linalg.eigvalsh(spd.double())[-1] * 1.01,
+            "Q0": torch.linalg.qr(A[:N, :2 * size["rank"]])[0],
+            "Xk": X[:4096], "Yk": Y[:4096]}
+
+
+def sharded_cases(torch, P, ops, size):
+    """The entry points of the slice: name -> fn(operands) for a DTensor
+    or a tensor operand (the same call both ways), and each one's
+    collectives per mesh dimension that splits the rows, (all_reduce,
+    all_gather, all_to_all); None where the count depends on the
+    iteration (LSQR, LOBPCG)."""
+    import contextlib
+    import io as stdio
+
+    from libskylark_tpu_torch import algorithms as alg, ml, nla
+    from libskylark_tpu_torch import sketch as sk
+    from libskylark_tpu_torch.algorithms import prox
+    from libskylark_tpu_torch.nla import tsqr
+
+    m, n, s = size["ls_rows"], size["ls_cols"], size["s"]
+    ms, mp = size["ml"], size["ml"]["partitions"]
+    cw = sk.COLUMNWISE
+    kern = ml_kernel(ml, ms)
+
+    def admm(o):
+        sv = ml.BlockADMMSolver.from_kernel(
+            P.Context(608), prox.HingeLoss(), prox.L2Regularizer(),
+            ADMM_LAM, ms["s"], kern, num_partitions=mp)
+        sv.maxiter, sv.tol = ms["admm_iters"], 0.0
+        buf = stdio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            model = sv.train(o["X"], o["y"], verbose=True)
+        return model.coef, [float(ln.split()[3])
+                            for ln in buf.getvalue().splitlines()]
+
+    def sketch_solve(o):
+        SAb = sk.CWT(m, s, P.Context(503)).apply(o["Ab"], cw)
+        SAb = SAb.to_local() if hasattr(SAb, "to_local") else SAb
+        return alg.solve_l2_exact(SAb[:, :n], SAb[:, n:])[:, 0]
+
+    svd = nla.ApproximateSVDParams(num_iterations=size["q"])
+    return {
+        "jlt_cw": (lambda o: sk.JLT(m, s, P.Context(500)).apply(o["Ab"], cw),
+                   (1, 0, 0)),
+        "ct_cw": (lambda o: sk.CT(m, s, P.Context(501)).apply(o["Ab"], cw),
+                  (1, 0, 0)),
+        "cwt_cw": (lambda o: sk.CWT(m, s, P.Context(502)).apply(o["Ab"], cw),
+                   (1, 0, 0)),
+        "gaussianrft_cw": (lambda o: sk.GaussianRFT(
+            m, s, P.Context(504), sigma=size["rft_sigma"]).apply(o["Ab"], cw),
+            (1, 0, 0)),
+        "ust_cw": (lambda o: sk.UST(m, s, P.Context(505)).apply(o["Ab"], cw),
+                   (1, 0, 0)),
+        "fjlt_cw": (lambda o: sk.FJLT(m, s, P.Context(506), fut="wht").apply(
+            o["Ab"], cw), (0, 0, 1)),
+        "ls_cwt": (sketch_solve, (1, 0, 0)),
+        "lsqr": (lambda o: alg.lsqr(o["A"], o["b"], alg.KrylovParams(
+            tolerance=size["lsqr_tolerance"],
+            iter_lim=size["lsqr_iter_lim"])), None),
+        "cqr2": (lambda o: tsqr.cholesky_qr2(o["A"]), (2, 0, 0)),
+        "svd": (lambda o: nla.approximate_svd(o["S"], size["rank"],
+                                              P.Context(507), svd),
+                (9, 0, 0)),
+        "akrr": (lambda o: ml.approximate_kernel_ridge(
+            kern, o["X"], o["Y"], ML_LAM, ms["s"], P.Context(509)),
+            (2, 0, 0)),
+        "admm": (admm, (1 + mp + ms["admm_iters"] * (2 * mp + 1), 0, 0)),
+        # q products Aᵀ·Y, the QR's gather of the (m × 2k) panel, Qᵀ·A
+        "krank_svd": (lambda o: nla.randomized_svd(
+            o["K"], size["rank"], P.Context(510), q=size["q"]),
+            (size["q"] + 1, 1, 0)),
+        "lobpcg": (lambda o: nla.lobpcg_rand_evd(
+            o["A"], size["evd_k"], P.Context(511), sketch="cwt"), None),
+    }
+
+
+def sharded_one_rank_cases(torch, P, size):
+    """The slice's other entry points, held on the 1 × 1 mesh only (the
+    CPU tests hold each on meshes of 2–7 ranks against the JAX package):
+    name -> (fn(operands), whether its one-process route is deterministic
+    on the card; MMT and WZT scatter with CUDA atomics)."""
+    from libskylark_tpu_torch import algorithms as alg, ml, nla
+    from libskylark_tpu_torch import sketch as sk
+    from libskylark_tpu_torch.nla import lowrank
+
+    m, s = size["ls_rows"], size["s"]
+    ms, cw = size["ml"], sk.COLUMNWISE
+    kern = ml_kernel(ml, ms)
+    kp = alg.KrylovParams(tolerance=1e-6, iter_lim=200)
+
+    def cheb(o):
+        return alg.chebyshev(o["spd"], o["spd_b"], 1.0,
+                             float(o["spd_top"]), alg.KrylovParams(
+                                 iter_lim=30))
+
+    def evd(o):
+        Q = nla.RandomizedRangeFinder(o["spd"], "generic", {"s": 64},
+                                      P.Context(519)).compute()
+        return nla.RangeAssistedEVD(o["spd"], Q).compute()
+
+    return {
+        "mmt_cw": (lambda o: sk.MMT(m, s, P.Context(512)).apply(o["Ab"], cw),
+                   False),
+        "wzt_cw": (lambda o: sk.WZT(m, s, P.Context(513), p=1.5).apply(
+            o["Ab"], cw), False),
+        "laplacianrft_cw": (lambda o: sk.LaplacianRFT(
+            m, s, P.Context(514), sigma=4.0 * m).apply(o["Ab"], cw), True),
+        "maternrft_cw": (lambda o: sk.MaternRFT(
+            m, s, P.Context(515), nu=1.5, l=size["rft_sigma"]).apply(
+                o["Ab"], cw), True),
+        "expsemigroup_cw": (lambda o: sk.ExpSemigroupRLT(
+            m, s, P.Context(516), beta=0.01).apply(o["Ab_abs"], cw), True),
+        "power_iteration": (lambda o: nla.power_iteration(
+            o["S"], o["Q0"], size["q"]), True),
+        "cg": (lambda o: alg.cg(o["spd"], o["spd_b"], kp), True),
+        "flexible_cg": (lambda o: alg.flexible_cg(o["spd"], o["spd_b"], kp),
+                        True),
+        "chebyshev": (cheb, True),
+        "kernel_ridge": (lambda o: ml.kernel_ridge(kern, o["Xk"], o["Yk"],
+                                                   ML_LAM), True),
+        "sketched_krr": (lambda o: ml.sketched_approximate_kernel_ridge(
+            kern, o["X"], o["Y"], ML_LAM, s, P.Context(517)), True),
+        "range_assisted_evd": (evd, True),
+        "dominant_subspace": (
+            lambda o: lowrank.approximate_dominant_subspace_basis(
+                o["A"], size["evd_k"], 64, 128, P.Context(518)), True),
+    }
+
+
+def counted_call(torch, fn):
+    """(fn(), [all_reduce, all_gather, all_to_all, every collective
+    CommDebugMode saw]): the port's own count of the collectives it
+    issued (parallel.mesh.collectives) and torch's, which also sees any a
+    DTensor op would insert."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from libskylark_tpu_torch.parallel import mesh as pmesh
+
+    for k in pmesh.collectives:
+        pmesh.collectives[k] = 0
+    with CommDebugMode() as mode:
+        out = fn()
+    return out, [pmesh.collectives[k] for k in
+                 ("all_reduce", "all_gather", "all_to_all")] + [
+                     mode.get_total_counts()]
+
+
+def whole_of(torch, x):
+    """A result as tensors every rank holds whole: a DTensor read with
+    ``parallel.to_host`` (a collective, outside the counted calls) and
+    put back on its block's device."""
+    from libskylark_tpu_torch import parallel as par
+
+    if isinstance(x, (tuple, list)):
+        return type(x)(whole_of(torch, v) for v in x)
+    if hasattr(x, "to_local"):
+        return torch.from_numpy(par.to_host(x)).to(x.to_local().device)
+    return x
+
+
+def sharded_run(torch, P, np, mesh, size, device,
+                extras: bool = False) -> dict:
+    """Every entry point on the operands laid out row_sharded on ``mesh``
+    (the main path: launch counters set to 0 before, read after), then
+    the same calls on the whole operands (the one-process route). Returns
+    the results, each call's collectives and seconds, the launches; with
+    ``extras`` (the 1 × 1 mesh) also sharded_one_rank_cases', after the
+    launches are read."""
+    from libskylark_tpu_torch import parallel as par
+
+    ops = sharded_operands(torch, size, device)
+    rows = par.row_sharded(mesh)
+    dops = {k: (v if k in ("y", "sigma", "ksigma", "Q0", "spd_top")
+                else par.distribute(v, rows)) for k, v in ops.items()}
+    cases = sharded_cases(torch, P, ops, size)
+    for c in counters():
+        for k in c:
+            c[k] = 0
+    got, colls, seconds = {}, {}, {}
+    for name, (fn, _) in cases.items():
+        t0 = time.perf_counter()
+        got[name], colls[name] = counted_call(torch, lambda: fn(dops))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    launches = launch_counts()
+    got = {k: whole_of(torch, v) for k, v in got.items()}
+    want = {name: fn(ops) for name, (fn, _) in cases.items()
+            if name != "lobpcg" or mesh.size() == 1}
+    extra = {}
+    if extras:
+        for name, (fn, exact) in sharded_one_rank_cases(torch, P,
+                                                        size).items():
+            g, c = counted_call(torch, lambda: fn(dops))
+            extra[name] = (whole_of(torch, g), fn(ops), exact, c)
+    return {"ops": ops, "cases": cases, "got": got, "want": want,
+            "collectives": colls, "seconds": seconds, "launches": launches,
+            "extra": extra}
+
+
+def sharded_values(torch, x) -> list:
+    """A result's values as host arrays, in order: tensors, arrays and
+    numbers (a returned transform is left out)."""
+    import numpy as np
+
+    if isinstance(x, (tuple, list)):
+        return [a for v in x for a in sharded_values(torch, v)]
+    if isinstance(x, torch.Tensor):
+        return [x.detach().contiguous().cpu().numpy()]
+    if isinstance(x, (np.ndarray, np.generic, int, float)):
+        return [np.asarray(x)]
+    return []
+
+
+def sharded_digest(torch, x) -> str:
+    import hashlib
+
+    return hashlib.sha256(b"".join(
+        v.tobytes() for v in sharded_values(torch, x))).hexdigest()[:16]
+
+
+def sharded_equal(torch, got, want) -> bool:
+    """Every value of a result equal to the bit (torch.equal)."""
+    import numpy as np
+
+    a, b = sharded_values(torch, got), sharded_values(torch, want)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and bool(np.array_equal(x, y))
+        for x, y in zip(a, b))
+
+
+def sharded_checks(torch, P, np, run, size, lobpcg_lam) -> dict:
+    """The two-rank results against the one-process route with the
+    one-process phases' limits (module docstring, phase 4g)."""
+    got, want, ops = run["got"], run["want"], run["ops"]
+    lim = SHARDED_LIMITS
+    out = {}
+    for name in ("jlt_cw", "cwt_cw", "gaussianrft_cw", "fjlt_cw"):
+        out[name] = {**held(torch, got[name], want[name]),
+                     "bit_equal": bool(torch.equal(got[name], want[name]))}
+    T = P.Context(501)
+    from libskylark_tpu_torch import sketch as sk
+    from libskylark_tpu_torch.base import randgen
+
+    Tct = sk.CT(size["ls_rows"], size["s"], T)
+    out["ct_cw"] = held(torch, got["ct_cw"], want["ct_cw"], elementwise_limit(
+        torch, Tct.allocation.key, randgen.Cauchy(), ops["Ab"], size["s"],
+        Tct.scale, False))
+    out["ust_cw"] = {"bit_equal": bool(torch.equal(got["ust_cw"],
+                                                   want["ust_cw"]))}
+    out["ust_cw"]["ok"] = out["ust_cw"]["bit_equal"]
+    exact = lstsq_residual(torch, ops["A"], ops["b"])
+    for name, bound_ in (("ls_cwt", lim["sketch_solve"]),
+                         ("lsqr", lim["lsqr_residual"])):
+        x = got[name][0] if name == "lsqr" else got[name]
+        xw = want[name][0] if name == "lsqr" else want[name]
+        ratio = float(torch.linalg.norm(ops["A"].double() @ x.double()
+                                        - ops["b"].double())) / exact
+        out[name] = {**held(torch, x, xw), "residual_ratio": ratio}
+        out[name]["ok"] = out[name]["ok"] and ratio <= bound_
+    out["lsqr"]["iterations"] = [got["lsqr"][1], want["lsqr"][1]]
+    Q, R = got["cqr2"]
+    out["cqr2"] = {"Q": held(torch, Q, want["cqr2"][0]),
+                   "R": held(torch, R, want["cqr2"][1])}
+    out["cqr2"]["ok"] = out["cqr2"]["Q"]["ok"] and out["cqr2"]["R"]["ok"]
+    k = size["rank"]
+    for name, sig in (("svd", ops["sigma"][:k]), ("krank_svd",
+                                                  ops["ksigma"][:k])):
+        S, S1 = got[name][1].double(), want[name][1].double()
+        vs_one = float(((S - S1).abs() / S1).max())
+        vs_true = float(((S - sig.double()).abs() / sig.double()).max())
+        out[name] = {"sigma_vs_one_process": vs_one, "sigma_vs_true": vs_true,
+                     "ok": max(vs_one, vs_true) <= lim["sigma"]}
+    S, W = got["akrr"]
+    Z = S.apply(ops["X"], sk.ROWWISE)
+    res = normal_residual(torch, Z, W, ops["Y"], ML_LAM)
+    out["akrr"] = {"normal_residual": res,
+                   "one_process": normal_residual(torch, Z, want["akrr"][1],
+                                                  ops["Y"], ML_LAM),
+                   "ok": res <= lim["normal_equations"]}
+    coef, objs = got["admm"]
+    coef1, objs1 = want["admm"]
+    cerr = float((coef - coef1).abs().max() / coef1.abs().max())
+    oerr = max(abs(a - b) / abs(b) for a, b in zip(objs, objs1))
+    out["admm"] = {"coef": cerr, "objective": oerr,
+                   "iterations": len(objs),
+                   "ok": (cerr <= lim["admm_coef"]
+                          and oerr <= lim["admm_objective"]
+                          and len(objs) == size["ml"]["admm_iters"])}
+    vals = lobpcg_values(torch, np, P, ops["A"], size["evd_k"], "cwt", 511,
+                         got["lobpcg"][0], lobpcg_lam, ops["A"].device)
+    out["lobpcg"] = {**vals, "ok": (
+        vals["sketch"] <= lim["lobpcg_sketch"]
+        and vals["converged"] <= lim["lobpcg_converged"]
+        and vals["vs_sigma2"] <= lim["lobpcg_vs_sigma2"]
+        and vals["ritz_excess"] <= lim["lobpcg_ritz"])}
+    return out
+
+
+def sharded_expected(cases, got, collectives, split: int) -> list:
+    """The entries whose collectives differ from their design's: each
+    case's per-dimension list times the splitting dimensions (LSQR: 2
+    all_reduces a step and 2 to start; LOBPCG: the sketch's and one a
+    product, no gather), and CommDebugMode's total equal to the port's."""
+    bad = []
+    for name, (_, want) in cases.items():
+        c = collectives[name]
+        if name == "lsqr":
+            want = (2 + 2 * int(got["lsqr"][1]), 0, 0)
+        if name == "lobpcg":
+            ok = (c[1] == c[2] == 0 and c[0] >= 2 * split
+                  and (split == 0) == (c[0] == 0))
+        else:
+            ok = list(c[:3]) == [w * split for w in want]
+        if not ok or c[3] != sum(c[:3]):
+            bad.append((name, c))
+    return bad
+
+
+def sharded_one_rank(torch, P, np, size) -> dict:
+    """Step 2: a one-rank NCCL group and a 1 × 1 mesh: every entry point
+    of the slice on DTensors against its one-process route, torch.equal
+    (each route is deterministic and a 1 × 1 mesh sums nothing), no
+    collective issued, each kernel of the path launched."""
+    import torch.distributed as dist
+
+    from libskylark_tpu_torch import parallel as par
+    from libskylark_tpu_torch.parallel import multihost
+
+    multihost.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                     connect_timeout=120.0)
+    try:
+        backend = str(dist.get_backend())
+        run = sharded_run(torch, P, np, par.make_mesh((1, 1)), size, "cuda",
+                          extras=True)
+    finally:
+        dist.destroy_process_group()
+    check(backend == "nccl", f"one-rank group on {backend}")
+    equal = {k: sharded_equal(torch, run["got"][k], run["want"][k])
+             for k in run["want"]}
+    extra = {}
+    for k, (g, w, exact, c) in run["extra"].items():
+        extra[k] = {"bit_equal": sharded_equal(torch, g, w),
+                    "collectives": c}
+        if not exact:
+            extra[k].update(held(torch, g, w))
+        extra[k]["ok"] = ((extra[k]["bit_equal"] if exact
+                           else extra[k]["ok"]) and not any(c))
+    bad = [k for k, v in equal.items() if not v] + [
+        k for k, v in extra.items() if not v["ok"]]
+    check(not bad, f"1 × 1 mesh differs from the one-process route: {bad}")
+    bad = sharded_expected(run["cases"], run["got"], run["collectives"], 0)
+    check(not bad, f"1 × 1 mesh issued collectives: {bad}")
+    want = sharded_launches(0, 1, size)
+    bad = {k: (run["launches"][k], v) for k, v in want.items()
+           if run["launches"][k] != v}
+    check(not bad, f"1 × 1 mesh launches (got, expected): {bad}")
+    return {"backend": backend, "bit_equal": equal, "others": extra,
+            "collectives": run["collectives"], "launches": run["launches"],
+            "seconds": run["seconds"]}
+
+
+def sharded_child(rank: int, world: int, port: int) -> int:
+    """Step 3, one of two processes sharing the card through gloo: every
+    entry point on the operands row_sharded over the two ranks, then the
+    one-process route in this process; prints one SHARDED_CHILD line with
+    the checks, each result's digest, the collectives, the launches, the
+    seconds and the peak memory."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import libskylark_tpu_torch as P
+    from libskylark_tpu_torch import parallel as par
+    from libskylark_tpu_torch.parallel import multihost
+
+    import warnings
+
+    # scipy's LOBPCG warns that it stops at its 20 iterations (C11)
+    warnings.simplefilter("ignore", UserWarning)
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    multihost.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                     connect_timeout=120.0, backend="gloo")
+    mesh = par.make_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    run = sharded_run(torch, P, np, mesh, SHARDED_FULL, "cuda")
+    dist_s = sum(run["seconds"].values())
+    A = run["ops"]["A"].double()
+    lam = torch.linalg.eigvalsh(A.T @ A).flip(0)[:SHARDED_FULL["evd_k"]]
+    checks = sharded_checks(torch, P, np, run, SHARDED_FULL, lam)
+    print("SHARDED_CHILD " + json.dumps({
+        "rank": rank, "checks": checks,
+        "digests": {k: sharded_digest(torch, v)
+                    for k, v in run["got"].items()},
+        "collectives": run["collectives"],
+        "collectives_bad": sharded_expected(run["cases"], run["got"],
+                                            run["collectives"], 1),
+        "launches": run["launches"], "call_seconds": run["seconds"],
+        "seconds": {"setup": t1 - t0, "dist_calls": dist_s,
+                    "total": time.perf_counter() - t0},
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "imports_jax": "jax" in sys.modules or "libskylark_tpu" in
+        sys.modules}, default=float), flush=True)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_two_ranks(torch) -> dict:
+    """Step 3: spawn :func:`sharded_child` twice (two gloo ranks on the
+    one card) and hold what they report: every check within its limit,
+    each entry point's collectives its design's list, every result the
+    same bytes on both ranks, each rank's kernels launched on its block."""
+    world, port = 2, free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sharded-child",
+         str(r), str(world), str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"sharded child failed, rcs {[p.returncode for p in procs]}:\n"
+          + "\n".join(x[max(x.rfind("Traceback"), 0):][-4000:]
+                      for x in logs))
+    reports = [json.loads(next(ln for ln in x.splitlines()
+                               if ln.startswith("SHARDED_CHILD "))[14:])
+               for x in logs]
+    r0 = reports[0]
+    bad = [k for k, v in r0["checks"].items() if not v["ok"]]
+    check(not bad, f"two-rank sharded group: {bad}: {r0['checks']}")
+    bad = [k for k in r0["digests"]
+           if any(r["digests"][k] != r0["digests"][k] for r in reports)]
+    check(not bad, f"two-rank sharded group: ranks differ on {bad}")
+    check(not any(r["collectives_bad"] for r in reports),
+          f"collectives: {[r['collectives_bad'] for r in reports]}")
+    for r in reports:
+        want = sharded_launches(r["rank"], world, SHARDED_FULL)
+        bad = {k: (r["launches"][k], v) for k, v in want.items()
+               if r["launches"][k] != v}
+        check(not bad, f"rank {r['rank']} launches (got, expected): {bad}")
+    check(not any(r["imports_jax"] for r in reports),
+          "a sharded child imported jax or libskylark_tpu")
+    launches = {k: sum(r["launches"][k] for r in reports)
+                for k in r0["launches"]}
+    return {"reports": reports, "launches": launches}
+
+
+def time_offset(torch, P, peaks: dict) -> list[dict]:
+    """Phase 5 row of B2 at a shard's offset: rank 1 of 2's block of
+    config 4's S·[A | b] (32768 × 513 → 2048 at n0 = 32768), a new key
+    per call; ``library_ms``: index_add_ against h and v of the block's
+    coordinates made beforehand."""
+    from libskylark_tpu_torch.sketch import cuda_hash as ch
+
+    way, shape, s = SHARDED_HASH[0]
+    n0 = shape[0] // 2
+    A = make_operand(torch, (shape[0] - n0, shape[1]), 8)
+    ctx = P.Context(11)
+    n, m = A.shape
+    h, v = ch.streams(ctx.allocate().key, n, s, A.device, n0)
+    row = {"kernel": "hash_offset",
+           "use": "rank 1 of 2: CWT columnwise on a DTensor",
+           "main_path": True, "shape": list(A.shape), "s_dim": s, "n0": n0,
+           "ms": event_ms(torch, lambda: ch.cwt_apply(
+               ctx.allocate().key, A, s, False, n0)),
+           "device_ms": profiled_device_ms(torch, lambda: ch.cwt_apply(
+               ctx.allocate().key, A, s, False, n0)),
+           "plain_ms": event_ms(torch, lambda: ch.cwt_apply_plain(
+               ctx.allocate().key, A, s, False, n0)),
+           "library_ms": event_ms(torch, lambda: ch.scatter(h, v, A, s,
+                                                            False)),
+           **bound(2.0 * m * n, peaks["fp32_flops"], 4.0 * (m * n + m * s),
+                   peaks)}
+    del A
+    return [row]
+
+
+def sharded_phase(torch, P, np, peaks) -> dict:
+    """Phase 4g: A5b on the card. Step 1 (emulated ranks) checks B2 at a
+    shard's offset; steps 2 and 3 are the main path through the public
+    entry points on DTensors, with every launch counter set to 0 before
+    (the children start from 0) and read after; step 4 times B2 at an
+    offset. Prints its seconds and the card's peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    emulated = sharded_emulated(torch, P)
+    bad = [r for r in emulated if not r["ok"]]
+    check(not bad, f"B2 at an offset: {bad}")
+    t1 = time.perf_counter()
+    one = sharded_one_rank(torch, P, np, SHARDED_FULL)
+    two = sharded_two_ranks(torch)
+    launches = {k: one["launches"][k] + two["launches"][k]
+                for k in one["launches"]}
+    main_s = time.perf_counter() - t1
+    rows = time_offset(torch, P, peaks)
+    out = {"emulated": emulated, "one_rank": one,
+           "two_ranks": two["reports"], "launches": launches,
+           "rows": rows, "main_path_seconds": main_s,
+           "seconds": time.perf_counter() - t0,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit("sharded", **{k: v for k, v in out.items() if k != "rows"})
+    for k in SHARDED_KERNELS:
+        check(launches[k] > 0, f"kernel {k} never launched on the sharded "
+                               "path")
+    return out
+
+
 CSRC = "libskylark_tpu_torch/csrc/"
 # kernel: (source, the TPU kernel it replaces)
 KERNELS = {
@@ -4104,6 +4790,8 @@ KERNELS = {
                               "libskylark_tpu/sketch/pallas_dense.py:786"),
     "dense_partial_columnwise": (CSRC + "dense_sketch.cu",
                                  "libskylark_tpu/sketch/pallas_dense.py:786"),
+    "hash_offset": (CSRC + "hash_sketch.cu",
+                    "libskylark_tpu/sketch/pallas_hash.py:423"),
 }
 
 
@@ -4115,6 +4803,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--dist-child"]:
         return dist_child(*(int(a) for a in sys.argv[2:5]))
+    if sys.argv[1:2] == ["--sharded-child"]:
+        return sharded_child(*(int(a) for a in sys.argv[2:5]))
     sys.path.insert(0, str(ROOT))
     import libskylark_tpu_torch as P
 
@@ -4156,12 +4846,15 @@ def main() -> int:
     a3 = a3_phase(torch, P, np)
     dphase = dist_phase(torch, P, np, peaks)
     checked += dphase["emulated"]
+    sphase = sharded_phase(torch, P, np, peaks)
+    checked += sphase["emulated"]
     rows = (time_kernels(torch, P, MAIN_SHAPES, True, peaks)
             + time_kernels(torch, P, SPLIT_LS_SHAPES, False, peaks)
             + time_hash(torch, P, HASH_SHAPES, peaks)
             + time_fwht(torch, P, FWHT_SHAPES, peaks)
             + time_cos(torch, P, peaks) + time_fastfood(torch, P, peaks)
-            + time_serve_kernels(torch, P, np, peaks) + dphase["rows"])
+            + time_serve_kernels(torch, P, np, peaks) + dphase["rows"]
+            + sphase["rows"])
     emit("time", method="ms: CUDA events around each of 10 back-to-back "
                         "calls after 3 warm-ups, median; device_ms: the "
                         "kernels' own time per call under torch.profiler, "
@@ -4193,7 +4886,9 @@ def main() -> int:
                                   "two-torch.matmul WHT, TF32 off; a gather "
                                   "at idx), D and idx made beforehand",
                   "dense_partial": "torch.matmul against the rank's panel "
-                                   "of S made beforehand (TF32 off)"},
+                                   "of S made beforehand (TF32 off)",
+                  "hash_offset": "index_add_ of v·A at h, h and v of the "
+                                 "block's coordinates made beforehand"},
          rows=rows)
 
     kernels = []
@@ -4216,7 +4911,8 @@ def main() -> int:
                          + sparse["launches"][name]
                          + ml_path["launches"][name]
                          + a3["launches"][name]
-                         + dphase["launches"][name]),
+                         + dphase["launches"][name]
+                         + sphase["launches"][name]),
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],
             "ms": head["ms"], "device_ms": head["device_ms"],

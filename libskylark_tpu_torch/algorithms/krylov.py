@@ -7,6 +7,16 @@ columns done", to decide whether to go on: one host synchronisation per
 iteration. Chebyshev runs a fixed count and reads nothing. Operators are
 matrices, sparse matrices (whose products are ``spmm``/``spmm_t``,
 base/sparse.py) or (matvec, rmatvec) callable pairs.
+
+A DTensor A whose rows are split over a mesh (parallel/mesh.py) is never
+gathered. LSQR keeps B and U on each rank's rows and V, X whole: A·X is
+local, Aᵀ·U and the column norms of U are local sums and one all_reduce
+each (``mesh._Blocks``). CG, flexible CG and Chebyshev keep every vector
+whole on every rank: each product A·P is the rank's rows A_loc·P and one
+all_gather of the (n × k) result, the ``A @ X`` that XLA gathers for too.
+Every rank computes the same replicated scalars, so every rank reads the
+same stopping flag and stops at the same iteration. X comes back
+Replicate().
 """
 
 from __future__ import annotations
@@ -17,10 +27,12 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 
 from libskylark_tpu_torch.algorithms.precond import IdPrecond, Precond
+from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.device import as_tensor
 from libskylark_tpu_torch.base.sparse import linear_ops, place
 from libskylark_tpu_torch.base.params import Params
 from libskylark_tpu_torch.base.precision import with_solver_precision
+from libskylark_tpu_torch.parallel import mesh as pmesh
 
 Operator = Union[torch.Tensor, Tuple[Callable, Callable]]
 
@@ -32,9 +44,38 @@ class KrylovParams(Params):
 
 
 def _as_ops(A: Operator):
-    """(mv, rmv) of an explicit pair, a :class:`SparseMatrix` or a
-    matrix."""
+    """(mv, rmv) of an explicit pair, a :class:`SparseMatrix`, a matrix or
+    a DTensor's blocks (local products, summed over the ranks)."""
+    if isinstance(A, pmesh._Blocks):
+        return A.mv, A.rmv
     return A if isinstance(A, tuple) else linear_ops(A)
+
+
+def _row_blocks(A):
+    """A DTensor operand's blocks, its columns whole (the layouts the
+    solvers take)."""
+    B = pmesh._Blocks(A)
+    if B.cols.split:
+        raise errors.NotImplementedYetError(
+            "Krylov solvers on a DTensor with split columns (ROADMAP A5b)")
+    return B
+
+
+def _gathered_ops(A):
+    """(mv, rmv) on whole vectors for a row-split DTensor A: A_loc·X, then
+    an all_gather of the (n × k) product (square systems: CG, flexible
+    CG, Chebyshev)."""
+    B = _row_blocks(A)
+    return (lambda X: B.rows.gather(B.mv(X)),
+            lambda Y: B.rmv(B.rows.take(Y)))
+
+
+def _whole(B, device):
+    """A right-hand side or start as every rank's whole tensor: a DTensor
+    is gathered (n × k, small)."""
+    if B is None or not pmesh._is_sharded(B):
+        return None if B is None else as_tensor(B, device)
+    return pmesh._whole(B)
 
 
 def _columns(B):
@@ -44,7 +85,11 @@ def _columns(B):
 
 def _operands(A, B, X0, device):
     """(A, B, X0) on one device: A placed (a pair stays as it is), B and
-    X0 as tensors there."""
+    X0 as tensors there. A DTensor A becomes its gathered-product pair
+    (:func:`_gathered_ops`) and B, X0 whole tensors on its device."""
+    if pmesh._is_sharded(A):
+        dev = A.to_local().device
+        return _gathered_ops(A), _whole(B, dev), _whole(X0, dev)
     if not isinstance(A, tuple):
         A, device = place(A, device)
     B = as_tensor(B, device)
@@ -65,6 +110,9 @@ def lsqr_parts(A: Operator, B: torch.Tensor,
     ``squeeze``, ``extract``). :func:`lsqr` runs ``body`` until every
     column is done or ``iter_lim`` is reached."""
     params = params or KrylovParams()
+    if pmesh._is_sharded(A):
+        A = _row_blocks(A)
+        B = A.row_block(B)
     mv, rmv = _as_ops(A)
     R = precond or IdPrecond()
     B, squeeze = _columns(B)
@@ -75,12 +123,19 @@ def lsqr_parts(A: Operator, B: torch.Tensor,
     m, n = shape
     k = B.shape[1]
     dt = B.dtype
+    # norms of the vectors on A's rows (B, U): summed over the ranks that
+    # split them
+    if isinstance(A, pmesh._Blocks):
+        def unorms(X):
+            return torch.sqrt(A.rows.sum(torch.sum(X * X, dim=0)))
+    else:
+        unorms = _colnorms
 
     eps = 32 * torch.finfo(dt).eps
     tol = min(max(params.tolerance, eps), 1.0 - eps)
     iter_lim = params.iter_lim if params.iter_lim > 0 else max(20, 2 * min(m, n))
 
-    beta = _colnorms(B)
+    beta = unorms(B)
     U = B / torch.clamp_min(beta, eps)[None, :]
     V = R.apply_adjoint(rmv(U))
     alpha = _colnorms(V)
@@ -98,7 +153,7 @@ def lsqr_parts(A: Operator, B: torch.Tensor,
     def body(s):
         # bidiagonalization step
         U = mv(s["Z"]) - s["alpha"][None, :] * s["U"]
-        beta = _colnorms(U)
+        beta = unorms(U)
         U = U / torch.clamp_min(beta, eps)[None, :]
         V = R.apply_adjoint(rmv(U)) - beta[None, :] * s["V"]
         alpha = _colnorms(V)
@@ -143,6 +198,9 @@ def lsqr(A: Operator, B, params: Optional[KrylovParams] = None,
     accumulates in the original space through Z = R·V. B may have k
     columns, each with its own recurrence and stopping state. Returns
     (X, iterations)."""
+    if pmesh._is_sharded(A):
+        X, it = _run(*lsqr_parts(A, B, params, precond, shape))
+        return pmesh._like(A, X), it
     A, B, _ = _operands(A, B, None, device)
     return _run(*lsqr_parts(A, B, params, precond, shape))
 
@@ -206,8 +264,10 @@ def cg(A: Operator, B, params: Optional[KrylovParams] = None,
        shape: Optional[Tuple[int, int]] = None, device=None):
     """Preconditioned conjugate gradient for SPD A, each column of B with
     its own recurrence and stopping state. Returns (X, iterations)."""
+    A0 = A
     A, B, X0 = _operands(A, B, X0, device)
-    return _run(*cg_parts(A, B, params, precond, X0, shape))
+    X, it = _run(*cg_parts(A, B, params, precond, X0, shape))
+    return pmesh._like(A0, X), it
 
 
 @with_solver_precision
@@ -218,6 +278,7 @@ def flexible_cg(A: Operator, B, params: Optional[KrylovParams] = None,
     a callable ``(R, it) -> Z`` (an inner iterative solve). Returns (X,
     iterations)."""
     params = params or KrylovParams()
+    A0 = A
     A, B, X0 = _operands(A, B, X0, device)
     mv, _ = _as_ops(A)
     B, squeeze = _columns(B)
@@ -258,7 +319,8 @@ def flexible_cg(A: Operator, B, params: Optional[KrylovParams] = None,
 
     meta = dict(iter_lim=iter_lim,
                 extract=lambda s: s["X"][:, 0] if squeeze else s["X"])
-    return _run(state, body, meta)
+    X, it = _run(state, body, meta)
+    return pmesh._like(A0, X), it
 
 
 @with_solver_precision
@@ -270,6 +332,7 @@ def chebyshev(A: Operator, B, lambda_min: float, lambda_max: float,
     depends on the bounds alone, so it runs on the host in B's precision
     and the loop reads nothing from the device. Returns (X, iterations)."""
     params = params or KrylovParams()
+    A0 = A
     A, B, X0 = _operands(A, B, X0, device)
     mv, _ = _as_ops(A)
     M = precond or IdPrecond()
@@ -292,4 +355,4 @@ def chebyshev(A: Operator, B, lambda_min: float, lambda_max: float,
             alpha = f(1.0) / (f(d) - beta / alpha)
         P = Z + float(beta) * P
         X = X + float(alpha) * P
-    return (X[:, 0] if squeeze else X), iter_lim
+    return pmesh._like(A0, X[:, 0] if squeeze else X), iter_lim

@@ -3,7 +3,7 @@
 Entry points take numpy arrays or tensors and run on the package default
 device, "cuda" unless :func:`set_default_device` changed it, unless the
 call passes ``device=``. A CUDA device with no card present raises; the
-port never carries on silently on the CPU.
+port never carries on silently on the CPU. A DTensor stays on its mesh.
 """
 
 from __future__ import annotations
@@ -42,7 +42,13 @@ def resolve_device(device=None) -> torch.device:
 
 
 def as_tensor(x, device=None) -> torch.Tensor:
-    """``x`` as a tensor on the resolved device (moved only if needed)."""
+    """``x`` as a tensor on the resolved device (moved only if needed). A
+    DTensor (parallel/mesh.py) passes unchanged, on its mesh's device:
+    ``device`` is not read for it."""
+    from libskylark_tpu_torch.parallel.mesh import _is_sharded
+
+    if _is_sharded(x):
+        return x
     d = resolve_device(device)
     if isinstance(x, torch.Tensor):
         return x if x.device == d else x.to(d)

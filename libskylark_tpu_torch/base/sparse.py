@@ -308,10 +308,15 @@ def is_sparse_operand(A) -> bool:
 def place(A, device=None):
     """(A, device) for the solver layers: a sparse operand stays as it is,
     beside the resolved device (a distributed one beside its rank's own
-    device); anything else becomes a tensor on ``device`` and comes with
+    device); a DTensor too, beside its block's device (``device`` is not
+    read); anything else becomes a tensor on ``device`` and comes with
     its own."""
     if _is_dist(A):
         return A, A.device
+    from libskylark_tpu_torch.parallel.mesh import _is_sharded
+
+    if _is_sharded(A):
+        return A, A.to_local().device
     if is_sparse_operand(A):
         return A, resolve_device(device)
     A = as_tensor(A, device)
@@ -321,9 +326,29 @@ def place(A, device=None):
 def linear_ops(A):
     """(mv, rmv): X ↦ A·X and X ↦ Aᵀ·X, by spmm/spmm_t for a sparse
     operand (never densified; a distributed one by its own collective
-    products), by matmul for a tensor."""
+    products), by matmul for a tensor. For a DTensor A (rows sharded,
+    columns whole) mv takes X whole (a tensor or a Replicate() DTensor)
+    and gives A·X sharded like A's rows, with no traffic; rmv takes Y
+    sharded like A's rows and gives Aᵀ·Y Replicate(): the local
+    A_locᵀ·Y_loc, then one all_reduce (the reference's (Yᵀ·A)ᵀ)."""
     if _is_dist(A):
         return A.spmm, A.spmm_t
+    from libskylark_tpu_torch.parallel import mesh as pmesh
+
+    if pmesh._is_sharded(A):
+        B = pmesh._Blocks(A)
+        if B.cols.split:
+            raise errors.NotImplementedYetError(
+                "linear_ops of a DTensor with split columns (ROADMAP A5b)")
+
+        def mv(X):
+            X = X.to_local() if pmesh._is_sharded(X) else X
+            return B.rows.wrap(B.mv(X))
+
+        def rmv(Y):
+            return B.cols.wrap(B.rmv(B.row_block(Y)))
+
+        return mv, rmv
     if is_sparse_operand(A):
         return (lambda X: spmm(A, X)), (lambda X: spmm_t(A, X))
     return (lambda X: A @ X), (lambda X: A.T @ X)

@@ -42,6 +42,15 @@
 //   rows in flight. The strip is sized to m (at most 256 columns, 8 a
 //   lane), so no strip is nearly empty.
 // Ragged n is masked, not padded: coordinates past n are never added.
+//
+// A shard (n0 > 0): the operand holds the contracted coordinates
+// [n0, n0 + n) of a longer axis, a rank's block of a mesh-distributed
+// operand. Coordinate j of the lane is hashed as n0 + j, in the streams'
+// layout an add to the counter (chunk (n0 + j) / 4096, word (n0 + j) %
+// 4096), so the shard meets exactly its own buckets and signs and the
+// ranks' partials sum to the whole operand's sketch. Columnwise sort tiles
+// stay aligned to the global axis (a tile lies in one chunk): the first
+// tile starts n0 % 1024 entries before the shard and masks them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,16 +120,17 @@ __device__ __forceinline__ float signed_value(float a, uint32_t word) {
 // 32 coordinates: (word, rank | top << 8), rank = the batch's earlier
 // coordinates with the same bucket, top = the batch's largest rank.
 __global__ void __launch_bounds__(kThreads)
-hash_table_kernel(const uint32_t* __restrict__ keys, int64_t n, uint32_t span, uint32_t mult,
-                  uint2* __restrict__ words) {
+hash_table_kernel(const uint32_t* __restrict__ keys, int64_t n, int64_t n0, uint32_t span,
+                  uint32_t mult, uint2* __restrict__ words) {
   const int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t z = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const bool valid = j < n;
   uint32_t wd = 0;
   if (valid) {
-    const ChunkKeys k = chunk_keys(keys, z, j / kChunk);
-    wd = hash_word(k, (uint32_t)(j % kChunk), span, mult);
+    const int64_t g = n0 + j;  // the coordinate's global index
+    const ChunkKeys k = chunk_keys(keys, z, g / kChunk);
+    wd = hash_word(k, (uint32_t)(g % kChunk), span, mult);
   }
   const unsigned peers = __match_any_sync(kFull, valid ? (int)(wd & ~kSign) : -1 - lane);
   const unsigned rank = __popc(peers & ((1u << lane) - 1u));
@@ -184,19 +194,25 @@ hash_rw_kernel(const float* __restrict__ A, const uint2* __restrict__ words,
 }
 
 // Columnwise, pass 1, one block per (tile, lane): the tile's words sorted
-// by (bucket, j), as j | sign (bit 31), and off[b] = the first sorted
-// position whose bucket is >= b, for b <= s.
+// by (bucket, e), as e | sign (bit 31), e the position in the tile, and
+// off[b] = the first sorted position whose bucket is >= b, for b <= s.
+// Tile t holds the global coordinates (n0 / 1024 + t) * 1024 + e, those of
+// the shard [n0, n0 + n) valid.
 __global__ void __launch_bounds__(kSortThreads)
-hash_sort_kernel(const uint32_t* __restrict__ keys, int64_t n, int s, uint32_t mult,
-                 int* __restrict__ off, uint32_t* __restrict__ sorted) {
+hash_sort_kernel(const uint32_t* __restrict__ keys, int64_t n, int64_t n0, int s,
+                 uint32_t mult, int* __restrict__ off, uint32_t* __restrict__ sorted) {
   __shared__ unsigned long long key[kTile];
   const int64_t z = blockIdx.y, t = blockIdx.x, tiles = gridDim.x;
-  const int64_t base = t * kTile;
-  const int len = (int)(n - base < kTile ? n - base : kTile);
+  const int front = (int)(n0 % kTile);
+  const int64_t base = (n0 / kTile + t) * kTile;  // global index of entry 0
+  const int first = t == 0 ? front : 0;
+  const int64_t rest = n + front - t * kTile;
+  const int last = (int)(rest < kTile ? rest : kTile);
+  const int len = last - first;
   const ChunkKeys k = chunk_keys(keys, z, base / kChunk);  // a tile lies in one chunk
   for (int e = threadIdx.x; e < kTile; e += kSortThreads) {
     unsigned long long kk = ~0ull;
-    if (e < len) {
+    if (e >= first && e < last) {
       const uint32_t wd = hash_word(k, (uint32_t)((base + e) % kChunk), (uint32_t)s, mult);
       // (bucket, j), the sign below j
       kk = ((unsigned long long)(wd & ~kSign) << (kTileBits + 1)) | ((unsigned)e << 1) |
@@ -258,18 +274,18 @@ __device__ __forceinline__ int lane_above(int incl, int x) {
 // to the lane's cpl columns c0 + lane + 32 q in registers, then written.
 // Block x takes strip x % strips of buckets (x / strips) * 8 .. + 8: the
 // strips of one row of A are read by neighbouring blocks at about the
-// same time.
+// same time. Entry e of tile t is row t * 1024 + e - front of A.
 __global__ void __launch_bounds__(kThreads)
 hash_cw_kernel(const float* __restrict__ A, const int* __restrict__ off,
                const uint32_t* __restrict__ sorted, float* __restrict__ out, int64_t m,
-               int64_t n, int s, int width, int cpl, int strips) {
+               int64_t n, int front, int s, int width, int cpl, int strips) {
   const int64_t z = blockIdx.y;
   const int w = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int b = (int)(blockIdx.x / strips) * kWarps + w;
   if (b >= s) return;  // whole warps
   const int64_t c0 = (int64_t)(blockIdx.x % strips) * width;
   const int64_t cend = c0 + width < m ? c0 + width : m;
-  const int64_t tiles = (n + kTile - 1) / kTile;
+  const int64_t tiles = (n + front + kTile - 1) / kTile;
   const float* __restrict__ Az = A + z * n * m;
   const int* __restrict__ oz = off + z * tiles * (s + 1);
   const uint32_t* __restrict__ sz = sorted + z * tiles * kTile;
@@ -294,7 +310,7 @@ hash_cw_kernel(const float* __restrict__ A, const int* __restrict__ off,
       const int slot = __shfl_sync(kFull, a, u) + (q - __shfl_sync(kFull, excl, u));
       uint32_t wd = 0;
       if (q < total) wd = __ldg(sz + (t0 + u) * kTile + slot);
-      const int64_t jj = (t0 + u) * kTile + (wd & (kTile - 1));
+      const int64_t jj = (t0 + u) * kTile + (wd & (kTile - 1)) - front;
       const int batch = total - q0 < 32 ? total - q0 : 32;
       // kCoords rows of A in flight, added in order
       for (int e0 = 0; e0 < batch; e0 += kCoords) {
@@ -331,16 +347,17 @@ hash_cw_kernel(const float* __restrict__ A, const int* __restrict__ off,
 }  // namespace
 
 // CountSketch of a stacked cohort: keys (B, 2) words; A (B, m, n) rowwise
-// or (B, n, m) columnwise, contiguous; out (B, m, s) or (B, s, m), every
-// cell written. mult: randint's multiplier for the span s. Scratch,
+// or (B, n, m) columnwise, contiguous, its n contracted coordinates the
+// global [n0, n0 + n) of every lane's streams; out (B, m, s) or (B, s, m),
+// every cell written. mult: randint's multiplier for the span s. Scratch,
 // allocated by the caller: rowwise, s0 = the words (B * n * 2 ints);
 // columnwise, s0 = off (B * T * (s + 1) ints) and s1 = the sorted words
-// (B * T * 1024 ints), T = ceil(n / 1024).
+// (B * T * 1024 ints), T = ceil((n0 % 1024 + n) / 1024).
 extern "C" int sk_hash_apply(const float* A, const uint32_t* keys, float* out, int* s0, int* s1,
-                             int64_t B, int64_t m, int64_t n, int64_t s, uint32_t mult,
-                             int rowwise, cudaStream_t stream) {
-  if (B < 1 || B > 65535 || m <= 0 || n <= 0 || s <= 0 || s >= 0x7FFFFFFF ||
-      n >= 0x7FFFFFFF)
+                             int64_t B, int64_t m, int64_t n, int64_t n0, int64_t s,
+                             uint32_t mult, int rowwise, cudaStream_t stream) {
+  if (B < 1 || B > 65535 || m <= 0 || n <= 0 || s <= 0 || s >= 0x7FFFFFFF || n0 < 0 ||
+      n0 + n >= 0x7FFFFFFF)
     return (int)cudaErrorInvalidValue;
   const uint32_t span = (uint32_t)s;
   if (rowwise) {
@@ -348,7 +365,7 @@ extern "C" int sk_hash_apply(const float* A, const uint32_t* keys, float* out, i
     if (rows > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
     uint2* words = reinterpret_cast<uint2*>(s0);
     hash_table_kernel<<<dim3((unsigned)((n + kThreads - 1) / kThreads), (unsigned)B), kThreads,
-                        0, stream>>>(keys, n, span, mult, words);
+                        0, stream>>>(keys, n, n0, span, mult, words);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int buf_w = (int)(((s < kRowBuf ? s : kRowBuf) + 3) / 4 * 4);
@@ -357,7 +374,8 @@ extern "C" int sk_hash_apply(const float* A, const uint32_t* keys, float* out, i
                                                                       (int)s, buf_w);
     return (int)cudaGetLastError();
   }
-  const int64_t tiles = (n + kTile - 1) / kTile;
+  const int front = (int)(n0 % kTile);
+  const int64_t tiles = (front + n + kTile - 1) / kTile;
   // column strips of at most 32 * kMaxCpl columns, as even as m allows
   const int64_t strips = (m + 32 * kMaxCpl - 1) / (32 * kMaxCpl);
   const int64_t width = (m + strips - 1) / strips;
@@ -366,10 +384,10 @@ extern "C" int sk_hash_apply(const float* A, const uint32_t* keys, float* out, i
   if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   uint32_t* sorted = reinterpret_cast<uint32_t*>(s1);
   hash_sort_kernel<<<dim3((unsigned)tiles, (unsigned)B), kSortThreads, 0, stream>>>(
-      keys, n, (int)s, mult, s0, sorted);
+      keys, n, n0, (int)s, mult, s0, sorted);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   hash_cw_kernel<<<dim3((unsigned)blocks, (unsigned)B), kThreads, 0, stream>>>(
-      A, s0, sorted, out, m, n, (int)s, (int)width, cpl, (int)strips);
+      A, s0, sorted, out, m, n, front, (int)s, (int)width, cpl, (int)strips);
   return (int)cudaGetLastError();
 }

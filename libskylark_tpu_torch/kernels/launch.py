@@ -1,7 +1,9 @@
-"""What every kernel wrapper does around a launch: call the C function on
-PyTorch's current stream, and raise on a CUDA error (the launch never
-ran). The kernels take the transform's 2-word key and derive every chunk
-key on the card, so a launch needs no table from the host."""
+"""What every kernel wrapper does around a launch: take each tensor
+argument's pointer through one gate (a DTensor is refused), call the C
+function on PyTorch's current stream, and raise on a CUDA error (the
+launch never ran). The kernels take the transform's 2-word key and
+derive every chunk key on the card, so a launch needs no table from the
+host."""
 
 from __future__ import annotations
 
@@ -12,9 +14,32 @@ import torch
 from libskylark_tpu_torch.base import errors
 
 
+def refuse_dtensor(*tensors) -> None:
+    """Raise TypeError for a DTensor among ``tensors``: its own
+    ``data_ptr()`` is 0, not its storage. A kernel takes a rank's block,
+    ``to_local()``; the sharded entry points pass it."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and hasattr(t, "to_local") and hasattr(
+                t, "device_mesh"):
+            raise TypeError(
+                "a kernel wrapper got a DTensor, whose data_ptr() is not its "
+                "storage: pass its local block, x.to_local()")
+
+
+def ptr(t) -> int | None:
+    """The device pointer of a kernel argument (None for none), after
+    :func:`refuse_dtensor`: the one way a tensor reaches a kernel."""
+    if t is None:
+        return None
+    refuse_dtensor(t)
+    return t.data_ptr()
+
+
 def call(fn, device, *args) -> None:
-    """``fn(*args, stream)`` on ``device``'s current stream; raises
-    SketchError with the CUDA error code when the launch failed."""
+    """``fn(*args, stream)`` on ``device``'s current stream, each tensor
+    argument passed as its :func:`ptr`; raises SketchError with the CUDA
+    error code when the launch failed."""
+    args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)

@@ -1,6 +1,6 @@
 """Block-ADMM solver for kernel machines (the port of
-libskylark_tpu/ml/admm.py): consensus ADMM over feature-block partitions,
-on one card. Per iteration: prox of the loss on the predictions, prox of
+libskylark_tpu/ml/admm.py): consensus ADMM over feature-block
+partitions. Per iteration: prox of the loss on the predictions, prox of
 the regularizer on the consensus weights, then a per-block ridge solve
 against a cached factor of (ZⱼᵀZⱼ + I), with consensus by averaging.
 
@@ -13,8 +13,18 @@ host reads a device value in an iteration only where the reference does:
 ``reldel`` when ``tol > 0``, the objective when telemetry is on or
 ``verbose``.
 
+X may be a DTensor whose rows (examples) are split over a mesh
+(parallel/mesh.py), the reference's sharded data. The consensus state
+(Wbar, mu, the per-block weights) is whole on every rank, as the
+reference replicates it on X's devices (``_on_data_devices``); the
+per-example state (O, Obar, nu) stays on each rank's examples. Each
+partition's map runs on the rank's rows (B1-cos on the card); every sum
+over examples (ZⱼᵀZⱼ, Zⱼᵀ·dsum, Zⱼᵀ·o, the loss) is the rank's local sum
+and one all_reduce. Every rank so computes the same consensus iterate,
+and the model's coefficients are whole on every rank.
+
 Not in this port yet: ``train(checkpoint=...)`` with its resume identity
-and preemption drain (ROADMAP A7), and a sharded X (ROADMAP A5b).
+and preemption drain (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from libskylark_tpu_torch.base.precision import with_solver_precision
 from libskylark_tpu_torch.ml.coding import host_array
 from libskylark_tpu_torch.ml.kernels import Kernel
 from libskylark_tpu_torch.ml.model import HilbertModel
+from libskylark_tpu_torch.parallel import mesh as pmesh
 from libskylark_tpu_torch.sketch import ROWWISE, SketchTransform
 from libskylark_tpu_torch.telemetry import metrics as _telemetry_metrics
 from libskylark_tpu_torch.utility.timer import get_timer, timers_enabled
@@ -147,27 +158,33 @@ class BlockADMMSolver:
         return (z(D, k), z(k, n), z(k, n), z(k, n), z(D, k), z(D, k),
                 z(D, k), z(k, n))
 
-    def build_caches(self, X, dt, timer=None):
+    def build_caches(self, X, dt, timer=None, total=None):
         """Per-block Cholesky factors of (ZⱼᵀZⱼ + I). Returns
         ``(cache_mats, cache_lowers, Zs)``: the factors, their lower
-        flags, and the Zⱼ themselves when ``cache_transforms`` is on."""
+        flags, and the Zⱼ themselves when ``cache_transforms`` is on.
+        ``total`` sums a product over examples across the ranks that hold
+        X's rows (None: X is whole)."""
+        total = total or (lambda t: t)
         cache_mats, cache_lowers, Zs = [], [], []
         for j, sj in enumerate(self.block_sizes):
             with timer.phase("TRANSFORM") if timer else nullcontext():
                 Z = self._block_features(X, j)
             with timer.phase("FACTORIZATION") if timer else nullcontext():
                 L = torch.linalg.cholesky(
-                    Z.T @ Z + torch.eye(sj, dtype=dt, device=Z.device))
+                    total(Z.T @ Z) + torch.eye(sj, dtype=dt, device=Z.device))
             cache_mats.append(L)
             cache_lowers.append(True)
             if self.cache_transforms:
                 Zs.append(Z)
         return cache_mats, tuple(cache_lowers), Zs
 
-    def make_step(self, n: int, k: int, dt, cache_lowers: tuple):
+    def make_step(self, n: int, k: int, dt, cache_lowers: tuple,
+                  total=None):
         """One consensus-ADMM iteration as a function ``(carry, X, Y,
         cache_mats, Zs) -> (carry, (objective, reldel))``, both scalars
-        left on the device."""
+        left on the device. ``total`` sums over the ranks that hold X's
+        rows (n: this rank's examples), as in :meth:`build_caches`."""
+        total = total or (lambda t: t)
         loss, reg = self.loss, self.regularizer
         lam, rho = self.lam, self.rho
         starts, sizes = self.starts, self.block_sizes
@@ -193,18 +210,18 @@ class BlockADMMSolver:
                 Z = Zs[j] if self.cache_transforms else \
                     self._block_features(X, j)
                 wbar_output = wbar_output + (Z @ Wbar[sl]).T
-                rhs = Wbar[sl] - mu_ij[sl] + ZtObar_ij[sl] + Z.T @ dsum
+                rhs = Wbar[sl] - mu_ij[sl] + ZtObar_ij[sl] + total(Z.T @ dsum)
                 Wi_J = torch.cholesky_solve(rhs, cache_mats[j],
                                             upper=not cache_lowers[j])
                 o = (Z @ Wi_J).T                     # (k, n)
                 mu_ij[sl] += Wi_J
-                new_ZtObar[sl] = Z.T @ o.T
+                new_ZtObar[sl] = total(Z.T @ o.T)
                 Wi[sl] = Wi_J
                 sum_o = sum_o + o
 
             sum_o = O - sum_o
             del_o = sum_o
-            objective = (loss.evaluate(wbar_output, Y)
+            objective = (total(loss.evaluate(wbar_output, Y))
                          + lam * reg.evaluate(Wbar))
 
             Obar = O - sum_o / (P + 1.0)
@@ -235,22 +252,35 @@ class BlockADMMSolver:
             raise errors.NotImplementedYetError(
                 "BlockADMMSolver.train(checkpoint=...): checkpoint/resume "
                 "and the preemption drain are not ported yet (ROADMAP A7)")
-        if getattr(X, "device_mesh", None) is not None:
-            raise errors.NotImplementedYetError(
-                "BlockADMMSolver.train on a sharded X is not ported yet "
-                "(ROADMAP A5b)")
-        X = as_tensor(X, device)
-        Y = as_tensor(Y, X.device).reshape(-1)
+        total = None
+        if pmesh._is_sharded(X):
+            # each rank trains on its examples; sums over examples are
+            # all-reduced (module docstring)
+            B = pmesh._Blocks(X)
+            if B.cols.split:
+                raise errors.NotImplementedYetError(
+                    "BlockADMMSolver.train on a DTensor whose features are "
+                    "split (ROADMAP A5b)")
+            X, Y, total = B.local, B.row_block(Y).reshape(-1), B.rows.sum
+        else:
+            X = as_tensor(X, device)
+            Y = as_tensor(Y, X.device).reshape(-1)
         n, d = X.shape
         if regression:
             k = 1
         else:
-            if int(torch.min(Y)) < 0:
+            # the labels' range over every rank's examples
+            lo_hi = torch.stack([-Y.min(), Y.max()]) if n else torch.full(
+                (2,), torch.iinfo(torch.int64).min, device=X.device)
+            lo_hi = lo_hi.to(torch.int64)
+            if total is not None:
+                pmesh._reduce_partial(lo_hi, B.mesh, B.rows.split, op="max")
+            if int(-lo_hi[0]) < 0:
                 raise errors.InvalidParametersError(
                     "classification labels must be integers in 0..k-1 "
                     "(recode ±1 labels to 0/1)")
             k = (int(num_targets) if num_targets is not None
-                 else int(torch.max(Y)) + 1)
+                 else int(lo_hi[1]) + 1)
         dt = X.dtype
         model = HilbertModel(self.feature_maps, self.scale_maps,
                              self.num_features, k, regression,
@@ -259,8 +289,9 @@ class BlockADMMSolver:
         timer = get_timer("admm")
         timer.reset()
         carry = self.init_carry(n, k, dt, X.device)
-        cache_mats, cache_lowers, Zs = self.build_caches(X, dt, timer=timer)
-        step = self.make_step(n, k, dt, cache_lowers)
+        cache_mats, cache_lowers, Zs = self.build_caches(X, dt, timer=timer,
+                                                         total=total)
+        step = self.make_step(n, k, dt, cache_lowers, total=total)
 
         for it in range(1, self.maxiter + 1):
             with timer.phase("ITERATIONS"):

@@ -13,10 +13,17 @@ Each kernel offers:
   with E[Z·Zᵀ] ≈ gram; the tags are "regular", "fast", "quasi" and
   "sparse", as each kernel defines them;
 - the reference's JSON form (``to_dict``/``deserialize_kernel``).
+
+``gram`` of a DTensor X whose rows are split over a mesh
+(parallel/mesh.py) gives the rank's row block of K against the whole Y,
+a DTensor split like X's rows; Y may be whole on every rank or a DTensor
+split on its rows, which is gathered (an all_gather of Y, n × d: every
+column of K needs every row of Y).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 from typing import Any, Union
@@ -64,6 +71,34 @@ def _inner_gram(X, Y, device) -> torch.Tensor:
     if is_sparse_operand(Y):
         return spmm(Y, X.T).T
     return X @ (X if Y is None else as_tensor(Y, X.device)).T
+
+
+def _row_blocks(gram):
+    """``gram`` on a DTensor X: the rank's rows of K against Y whole
+    (module docstring)."""
+
+    @functools.wraps(gram)
+    def wrapper(self, X, Y=None, device=None):
+        from libskylark_tpu_torch.parallel import mesh as pmesh
+
+        if not pmesh._is_sharded(X):
+            if pmesh._is_sharded(Y):
+                raise errors.NotImplementedYetError(
+                    "gram of a whole X against a DTensor Y (ROADMAP A5b)")
+            return gram(self, X, Y, device)
+        B = pmesh._Blocks(X)
+        if B.cols.split:
+            raise errors.NotImplementedYetError(
+                "gram of a DTensor whose features are split (ROADMAP A5b)")
+        Y = X if Y is None else Y
+        if pmesh._is_sharded(Y):
+            Yb = pmesh._Blocks(Y)
+            Y = Yb.rows.gather(Yb.local)
+        else:
+            Y = as_tensor(Y, B.local.device)
+        return B.rows.wrap(gram(self, B.local, Y, B.local.device))
+
+    return wrapper
 
 
 def _register(cls: type["Kernel"]) -> type["Kernel"]:
@@ -126,6 +161,7 @@ class Linear(Kernel):
 
     kernel_type = "linear"
 
+    @_row_blocks
     def gram(self, X, Y=None, device=None):
         return _inner_gram(X, Y, device)
 
@@ -155,6 +191,7 @@ class Gaussian(Kernel):
     def sigma(self) -> float:
         return self._sigma
 
+    @_row_blocks
     def gram(self, X, Y=None, device=None):
         X, Y = _operands(X, Y, device)
         return torch.exp(-euclidean_distance_matrix(X, Y)
@@ -188,6 +225,7 @@ class Polynomial(Kernel):
         self._c = float(c)
         self._gamma = float(gamma)
 
+    @_row_blocks
     def gram(self, X, Y=None, device=None):
         return (self._gamma * _inner_gram(X, Y, device) + self._c) ** self._q
 
@@ -213,6 +251,7 @@ class Laplacian(Kernel):
         super().__init__(N)
         self._sigma = float(sigma)
 
+    @_row_blocks
     def gram(self, X, Y=None, device=None):
         X, Y = _operands(X, Y, device)
         return torch.exp(-l1_distance_matrix(X, Y) / self._sigma)
@@ -242,6 +281,7 @@ class ExpSemigroup(Kernel):
         super().__init__(N)
         self._beta = float(beta)
 
+    @_row_blocks
     def gram(self, X, Y=None, device=None):
         X, Y = _operands(X, Y, device)
         # the (rows, n, d) broadcast, a bounded number of rows at a time
@@ -278,6 +318,7 @@ class Matern(Kernel):
         self._nu = float(nu)
         self._l = float(l)
 
+    @_row_blocks
     def gram(self, X, Y=None, device=None):
         X, Y = _operands(X, Y, device)
         r = torch.sqrt(euclidean_distance_matrix(X, Y))

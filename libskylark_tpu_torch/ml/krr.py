@@ -25,6 +25,19 @@ reference's order, so one Context gives both packages the same maps.
 The iterative regimes read one scalar per iteration on the host to decide
 whether to go on: the PCG's stopping flag (``algorithms.krylov.cg``) and
 the BCD sweep's relative update.
+
+X may be a DTensor whose rows (examples) are split over a mesh
+(parallel/mesh.py); Y then comes split the same way or whole on every
+rank (each rank takes its rows). The random-features regimes never
+gather X: each rank featurizes its rows (B1-cos on the card), ZᵀZ and
+ZᵀY are local products summed by one all_reduce each (s × s, s × t), a
+regression sketch contracts the split rows by its own DTensor route
+(CWT: B2 with the rank's offset; FJLT: one all-to-all, then the sketched
+panel's split columns gathered), and the ridge solve runs on every rank;
+W comes back Replicate(). Exact ``kernel_ridge`` solves the whole n × n
+system on every rank, as XLA's replicated Cholesky does: the examples
+are gathered once (an all_gather of X, n × d) to form it, and A comes
+back split like X's rows.
 """
 
 from __future__ import annotations
@@ -40,8 +53,10 @@ from libskylark_tpu_torch.algorithms.precond import FunctionPrecond, IdPrecond
 from libskylark_tpu_torch.base.context import Context
 from libskylark_tpu_torch.base.device import as_tensor
 from libskylark_tpu_torch.base.params import Params
+from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.precision import with_solver_precision
 from libskylark_tpu_torch.ml.kernels import Kernel
+from libskylark_tpu_torch.parallel import mesh as pmesh
 
 
 @dataclasses.dataclass
@@ -64,10 +79,28 @@ def _eye(s: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(s, dtype=like.dtype, device=like.device)
 
 
-def _ridge_solve(Z: torch.Tensor, Y: torch.Tensor, lam) -> torch.Tensor:
-    """W = argmin ‖Z·W − Y‖²_F + λ‖W‖²_F, by Cholesky of ZᵀZ + λI."""
-    G = Z.T @ Z + lam * _eye(Z.shape[1], Z)
-    return torch.cholesky_solve(Z.T @ Y, torch.linalg.cholesky(G))
+def _panel(Z):
+    """(the rows of Z this rank holds, the sum over the ranks that split
+    them): a tensor whole, a DTensor's block, its columns gathered where
+    they are split (a sketched FJLT panel, t × s, small)."""
+    if not pmesh._is_sharded(Z):
+        return Z, None
+    B = pmesh._Blocks(Z)
+    loc = B.local if not B.cols.split else B.cols.gather(B.local.T).T
+    return loc, B.rows.sum
+
+
+def _ridge_solve(Z, Y, lam) -> torch.Tensor:
+    """W = argmin ‖Z·W − Y‖²_F + λ‖W‖²_F, by Cholesky of ZᵀZ + λI. Z and
+    Y may be DTensors split alike on their rows: ZᵀZ and ZᵀY are then the
+    ranks' local products summed, and W is whole on every rank."""
+    Z, total = _panel(Z)
+    Y, _ = _panel(Y)
+    G, ZtY = Z.T @ Z, Z.T @ Y
+    if total is not None:
+        G, ZtY = total(G), total(ZtY)
+    G = G + lam * _eye(Z.shape[1], Z)
+    return torch.cholesky_solve(ZtY, torch.linalg.cholesky(G))
 
 
 def _split_sizes(s: int, d: int, max_split: int) -> list[int]:
@@ -83,10 +116,24 @@ def _split_sizes(s: int, d: int, max_split: int) -> list[int]:
 
 
 def _data(X, Y, device):
-    """X as a tensor on ``device`` and Y beside it as (n, t)."""
+    """X as a tensor on ``device`` and Y beside it as (n, t). A DTensor X
+    (rows split) stays; Y becomes a DTensor split like X's rows (its
+    rows taken where it is whole)."""
+    if pmesh._is_sharded(X):
+        B = _example_blocks(X)
+        Y = B.row_block(Y)
+        return X, B.rows.wrap(Y[:, None] if Y.ndim == 1 else Y)
     X = as_tensor(X, device)
     Y = as_tensor(Y, X.device)
     return X, (Y[:, None] if Y.ndim == 1 else Y)
+
+
+def _example_blocks(X) -> pmesh._Blocks:
+    B = pmesh._Blocks(X)
+    if B.cols.split:
+        raise errors.NotImplementedYetError(
+            "KRR on a DTensor whose features are split (ROADMAP A5b)")
+    return B
 
 
 @with_solver_precision
@@ -98,6 +145,13 @@ def kernel_ridge(k: Kernel, X, Y, lam: float,
     params = params or KrrParams()
     X, Y = _data(X, Y, device)
     params.log(1, "kernel_ridge: solving (K + lambda I) A = Y")
+    if pmesh._is_sharded(X):
+        # the whole system on every rank: the examples gathered once
+        B = _example_blocks(X)
+        Xw, Yw = pmesh._whole(X), pmesh._whole(Y)
+        K = k.symmetric_gram(Xw, Xw.device) + lam * _eye(Xw.shape[0], Xw)
+        A = torch.cholesky_solve(Yw, torch.linalg.cholesky(K))
+        return B.rows.wrap(B.rows.take(A))
     K = k.symmetric_gram(X, X.device) + lam * _eye(X.shape[0], X)
     return torch.cholesky_solve(Y, torch.linalg.cholesky(K))
 
@@ -150,7 +204,7 @@ def approximate_kernel_ridge(k: Kernel, X, Y, lam: float, s: int,
     if R is not None:
         Z, Y = (R.apply(Z, sk.COLUMNWISE, device=X.device),
                 R.apply(Y, sk.COLUMNWISE, device=X.device))
-    return S, _ridge_solve(Z, Y, lam)
+    return S, pmesh._like(X, _ridge_solve(Z, Y, lam))
 
 
 @with_solver_precision
@@ -173,11 +227,17 @@ def sketched_approximate_kernel_ridge(k: Kernel, X, Y, lam: float, s: int,
     transforms = [k.create_rft(thiss, context, _feature_tag(params))
                   for thiss in _split_sizes(s, d, params.max_split)]
     SY = R.apply(Y, sk.COLUMNWISE, device=X.device)
-    SZ = torch.cat([R.apply(S.apply(X, sk.ROWWISE, device=X.device)
-                            * math.sqrt(S.sketch_dim / s), sk.COLUMNWISE,
-                            device=X.device)
-                    for S in transforms], dim=1)
-    return transforms, _ridge_solve(SZ, SY, lam)
+    B = _example_blocks(X) if pmesh._is_sharded(X) else None
+    parts = []
+    for S in transforms:
+        Z = S.apply(X, sk.ROWWISE, device=X.device)
+        scale = math.sqrt(S.sketch_dim / s)
+        # scale the rank's rows: no traffic
+        Z = B.rows.wrap(Z.to_local() * scale) if B else Z * scale
+        # the sketched (t × s_c) block is whole on every rank
+        parts.append(_panel(R.apply(Z, sk.COLUMNWISE, device=X.device))[0])
+    SZ = torch.cat(parts, dim=1)
+    return transforms, pmesh._like(X, _ridge_solve(SZ, _panel(SY)[0], lam))
 
 
 class FeatureMapPrecond(FunctionPrecond):

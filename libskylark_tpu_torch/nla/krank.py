@@ -11,6 +11,17 @@ The SRFT's mixer is the real DCT (``fut.dct``), the reference's choice.
 Dense linear algebra runs on the operand's device; the adaptive finder's
 recurrence and the interpolative-decomposition variants run on the host
 (numpy, scipy), as in the reference.
+
+A DTensor operand whose rows are split over a mesh (parallel/mesh.py) is
+never gathered: the stored test matrices (whole on every rank) multiply
+each rank's rows, Aᵀ·Y is the ranks' local products and one all_reduce,
+and the basis Q stays on each rank's rows (Shard(0)). Each QR of a tall
+panel is the reference's Householder QR, which XLA replicates: the
+panel (m × s) is gathered, factored on every rank, and each keeps its
+rows (``_qr``). ``RangeAssistedSVD``/``RangeAssistedEVD`` take the
+``direct`` method on such operands (Qᵀ·A summed over the ranks, the small
+factorization on every rank); the adaptive finder and the host variants
+raise NotImplementedYetError (ROADMAP A5b).
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ from libskylark_tpu_torch.base import errors, randgen
 from libskylark_tpu_torch.base.context import Allocation, Context
 from libskylark_tpu_torch.base.device import as_tensor, resolve_device
 from libskylark_tpu_torch.base.precision import with_solver_precision
+from libskylark_tpu_torch.parallel import mesh as pmesh
 
 
 def _normal(alloc: Allocation, n: int, cols: int, dtype,
@@ -80,41 +92,47 @@ class RandomizedRangeFinder:
             raise errors.InvalidParametersError(
                 f"missing arguments {missing} for method {method!r}")
         self.A = as_tensor(A, device)
+        self._B = _row_blocks(self.A, method, ("adaptive",))
         self.method = method
         self.kwargs = kwargs
         self.context = context
 
     @with_solver_precision
     def compute(self) -> torch.Tensor:
-        return getattr(self, f"_{self.method}")()
+        Q = getattr(self, f"_{self.method}")()
+        return self._B.rows.wrap(Q) if self._B.sharded else Q
 
     def _test_matrix(self, s: int) -> torch.Tensor:
-        return _normal(self.context.allocate(), self.A.shape[1], s,
-                       self.A.dtype, self.A.device)
+        B = self._B
+        return _normal(self.context.allocate(), B.shape[1], s,
+                       B.local.dtype, B.local.device)
 
     def _generic(self):
         S = self._test_matrix(int(self.kwargs["s"]))
-        return torch.linalg.qr(self.A @ S)[0]
+        return _qr(self._B, self._B.mv(S))
 
     def _power_iteration(self):
+        B = self._B
         S = self._test_matrix(int(self.kwargs["s"]))
-        Y = self.A @ S
+        Y = B.mv(S)
         for _ in range(int(self.kwargs["q"])):
-            Y = self.A @ (self.A.T @ Y)
-        return torch.linalg.qr(Y)[0]
+            Y = B.mv(B.rmv(Y))
+        return _qr(B, Y)
 
     def _subspace_iteration(self):
+        B = self._B
         S = self._test_matrix(int(self.kwargs["s"]))
-        Q = torch.linalg.qr(self.A @ S)[0]
+        Q = _qr(B, B.mv(S))
         for _ in range(int(self.kwargs["q"])):
-            W = torch.linalg.qr(self.A.T @ Q)[0]
-            Q = torch.linalg.qr(self.A @ W)[0]
+            W = torch.linalg.qr(B.rmv(Q))[0]
+            Q = _qr(B, B.mv(W))
         return Q
 
     def _fast_generic(self):
-        S = srft_matrix(self.A.shape[1], int(self.kwargs["s"]), self.context,
-                        self.A.dtype, self.A.device)
-        return torch.linalg.qr(self.A @ S)[0]
+        B = self._B
+        S = srft_matrix(B.shape[1], int(self.kwargs["s"]), self.context,
+                        B.local.dtype, B.local.device)
+        return _qr(B, B.mv(S))
 
     def _adaptive(self):
         """Alg 4.2: grow Q one vector at a time until the residual norms
@@ -152,6 +170,33 @@ class RandomizedRangeFinder:
         return torch.from_numpy(Q).to(self.A.device)
 
 
+def _row_blocks(A, method: str, host: tuple) -> pmesh._Blocks:
+    """A's blocks (``mesh._Blocks``); a DTensor must keep its columns
+    whole and take a method that runs on its blocks."""
+    B = pmesh._Blocks(A)
+    if B.sharded and (B.cols.split or method in host):
+        raise errors.NotImplementedYetError(
+            f"{method!r} on a DTensor (columns split or a host method) "
+            "(ROADMAP A5b)")
+    return B
+
+
+def _qr(B: pmesh._Blocks, Y: torch.Tensor) -> torch.Tensor:
+    """Q of the Householder QR of the panel on A's rows whose local rows
+    are ``Y``: the reference's QR, which XLA replicates, so a split panel
+    is gathered (m × s), factored on every rank, and each keeps its
+    rows."""
+    return B.rows.take(torch.linalg.qr(B.rows.gather(Y))[0])
+
+
+def _local_rows(B: pmesh._Blocks, Q):
+    """This rank's rows of a basis on A's rows: a DTensor's block, or a
+    whole tensor's slice."""
+    if pmesh._is_sharded(Q):
+        return pmesh._local_block(Q, 0)[0]
+    return B.rows.take(as_tensor(Q, B.local.device))
+
+
 def _row_id(Q: np.ndarray, dtype):
     """Row interpolative decomposition of Q (k columns): (Xr, J) with
     Q ≈ Xr·Q[J, :] (scipy, the reference's routine)."""
@@ -174,7 +219,9 @@ class RangeAssistedSVD:
         if method not in self.args:
             raise errors.InvalidParametersError(f"unknown method {method!r}")
         self.A = as_tensor(A, device)
-        self.Q = as_tensor(Q, self.A.device)
+        self._B = _row_blocks(self.A, method, ("row_extraction",))
+        self.Q = (_local_rows(self._B, Q) if self._B.sharded
+                  else as_tensor(Q, self.A.device))
         self.method = method
 
     @with_solver_precision
@@ -182,9 +229,11 @@ class RangeAssistedSVD:
         return getattr(self, f"_{self.method}")()
 
     def _direct(self):
-        U, sigma, Vt = torch.linalg.svd(self.Q.T @ self.A,
+        B = self._B
+        # Qᵀ·A: the ranks' local products, summed
+        U, sigma, Vt = torch.linalg.svd(B.rows.sum(self.Q.T @ B.local),
                                         full_matrices=False)
-        return self.Q @ U, sigma, Vt
+        return B.rows.wrap(self.Q @ U), B.whole(sigma), B.whole(Vt)
 
     def _row_extraction(self):
         A = self.A.cpu().numpy()
@@ -218,7 +267,10 @@ class RangeAssistedEVD:
         if method == "one_pass" and context is None:
             raise errors.InvalidParametersError("one_pass needs a context")
         self.A = as_tensor(A, device)
-        self.Q = as_tensor(Q, self.A.device)
+        self._B = _row_blocks(self.A, method,
+                              ("row_extraction", "nystrom", "one_pass"))
+        self.Q = (_local_rows(self._B, Q) if self._B.sharded
+                  else as_tensor(Q, self.A.device))
         self.method = method
         self.kwargs = kwargs
         self.context = context
@@ -228,8 +280,12 @@ class RangeAssistedEVD:
         return getattr(self, f"_{self.method}")()
 
     def _direct(self):
-        w, V = torch.linalg.eigh(self.Q.T @ (self.A @ self.Q))
-        return w, self.Q @ V
+        B = self._B
+        # Qᵀ·A·Q of a square A split on its rows: A's columns need the
+        # whole basis (an all_gather of the n × s panel, not of A)
+        AQ = B.mv(B.rows.gather(self.Q))
+        w, V = torch.linalg.eigh(B.rows.sum(self.Q.T @ AQ))
+        return B.whole(w), B.rows.wrap(self.Q @ V)
 
     def _row_extraction(self):
         A = self.A.cpu().numpy()
@@ -274,4 +330,8 @@ def randomized_svd(A, k: int, context: Context, q: int = 1, device=None):
         context, device=A.device)
     U, sigma, Vt = RangeAssistedSVD(A, finder.compute(),
                                     device=A.device).compute()
+    if pmesh._is_sharded(A):
+        B = pmesh._Blocks(A)
+        return (B.rows.wrap(U.to_local()[:, :k]),
+                B.whole(sigma.to_local()[:k]), B.whole(Vt.to_local()[:k, :]))
     return U[:, :k], sigma[:k], Vt[:k, :]

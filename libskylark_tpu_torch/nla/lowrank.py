@@ -2,7 +2,14 @@
 ``approximate_dominant_subspace_basis`` of libskylark_tpu/nla/lowrank.py,
 which ml.nonlinear's SketchPCR uses; its serve endpoint is not ported):
 sketch twice (sizes s and t), QR the first sketch, SVD the cross product,
-truncate."""
+truncate.
+
+A DTensor A whose rows are split over a mesh (parallel/mesh.py) is
+sketched rank by rank (the maps' DTensor applies); the QR is the
+reference's Householder QR, which XLA replicates, so the (m × s) sketch
+is gathered for it and each rank keeps its rows; Uᵀ·Y is the ranks' local
+products and one all_reduce. Z comes back split like A's rows, R and V
+Replicate()."""
 
 from __future__ import annotations
 
@@ -11,6 +18,7 @@ from typing import Tuple
 import torch
 
 from libskylark_tpu_torch.base.context import Context
+from libskylark_tpu_torch.parallel import mesh as pmesh
 
 
 def approximate_dominant_subspace_basis(
@@ -30,7 +38,12 @@ def approximate_dominant_subspace_basis(
     X = S.apply(A, sk.ROWWISE, device=device)
     T = kernel.create_rft(t, context, tag)
     Y = T.apply(A, sk.ROWWISE, device=X.device)
-    U, R = torch.linalg.qr(X)
-    M = torch.linalg.svd(U.T @ Y, full_matrices=False)[0]
+    blocks = pmesh._Blocks(X)
+    rows = blocks.rows
+    if blocks.sharded:
+        Y = Y.to_local()
+    U, R = torch.linalg.qr(rows.gather(blocks.local))
+    U = rows.take(U)
+    M = torch.linalg.svd(rows.sum(U.T @ Y), full_matrices=False)[0]
     V = M[:, :k]
-    return U @ V, S, R, V
+    return rows.wrap(U @ V), S, rows.whole(R), rows.whole(V)

@@ -9,6 +9,15 @@ does: a small k-dimensional iteration over matvecs. The host copy of A
 and the iteration are the reference's. ``power_iterations_rand_evd``
 runs on A's device: a JLT range sketch (the dense kernel, rowwise), power
 iterations, QR and an SVD.
+
+A DTensor A whose rows are split over a mesh (parallel/mesh.py) is never
+gathered: the sketch S·A is the transform's DTensor apply (each rank's
+partial, one all_reduce: Replicate(), s × n); LOBPCG runs on the host of
+every rank with AᵀA·x as the rank's host rows' product and one
+all_reduce, so every rank iterates on the same numbers and returns the
+same bytes. ``power_iterations_rand_evd`` keeps Y on each rank's rows,
+its QR the reference's replicated Householder QR of the gathered (m × k)
+panel.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.context import Context
 from libskylark_tpu_torch.base.device import as_tensor
 from libskylark_tpu_torch.base.precision import with_solver_precision
+from libskylark_tpu_torch.parallel import mesh as pmesh
 
 
 def _tall(A, k: int) -> None:
@@ -56,14 +66,25 @@ def lobpcg_rand_evd(A, k: int, context: Context, s: Optional[int] = None,
         raise errors.InvalidParametersError(
             f"sketch must be one of {sorted(sketches)}, got {sketch!r}")
     T = sketches[sketch](m, s, context)
-    B = T.apply(A, sk.COLUMNWISE, device=A.device).cpu().numpy()
+    B = T.apply(A, sk.COLUMNWISE, device=A.device)
+    blocks = pmesh._Blocks(A)
+    if blocks.cols.split:
+        raise errors.NotImplementedYetError(
+            "lobpcg_rand_evd of a DTensor with split columns (ROADMAP A5b)")
+    B = (B.to_local() if blocks.sharded else B).cpu().numpy()
     _, _, Vt = np.linalg.svd(B, full_matrices=False)
     _, R = np.linalg.qr(B)
 
-    Ah = A.cpu().numpy()
+    Ah = blocks.local.cpu().numpy()
 
     def amul(x):
-        return Ah.T @ (Ah @ x)
+        y = Ah.T @ (Ah @ x)
+        if blocks.rows.split:
+            # Σ over the ranks of A_locᵀ·A_loc·x
+            t = torch.from_numpy(np.ascontiguousarray(y)).to(
+                blocks.local.device)
+            y = blocks.rows.sum(t).cpu().numpy()
+        return y
 
     def precond(y):
         # (RᵀR)⁻¹ y by two triangular solves
@@ -90,8 +111,16 @@ def power_iterations_rand_evd(A, k: int, context: Context,
     _tall(A, k)
     T = sk.JLT(A.shape[1], k, context)
     Y = T.apply(A, sk.ROWWISE, device=A.device)          # A·Sᵀ (m, k)
+    B = pmesh._Blocks(A)
+    if B.cols.split:
+        raise errors.NotImplementedYetError(
+            "power_iterations_rand_evd of a DTensor with split columns "
+            "(ROADMAP A5b)")
+    if B.sharded:
+        Y = Y.to_local()
     for _ in range(power_iters):
-        Y = A @ (A.T @ Y)
-    Q = torch.linalg.qr(Y)[0]
-    _, Sigma, Vt = torch.linalg.svd(Q.T @ A, full_matrices=False)
-    return Sigma**2, Vt
+        Y = B.mv(B.rmv(Y))
+    Q = B.rows.take(torch.linalg.qr(B.rows.gather(Y))[0])
+    _, Sigma, Vt = torch.linalg.svd(B.rows.sum(Q.T @ B.local),
+                                    full_matrices=False)
+    return B.whole(Sigma**2), B.whole(Vt)

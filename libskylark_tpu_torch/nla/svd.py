@@ -11,6 +11,18 @@ transpose.
 A :class:`~libskylark_tpu_torch.base.sparse.SparseMatrix` operand is
 never densified (the reference's sparse branch): its range sketch is the
 JLT's sparse apply, and every product with A is ``spmm``/``spmm_t``.
+
+A DTensor operand (parallel/mesh.py) is never gathered: each rank keeps
+the rows of the panels that live on its rows of A (Q, U) and its columns
+(Bᵀ, V). The range sketch is the JLT's DTensor apply (B1 on each rank's
+rows of a row-sharded A), A·X and Aᵀ·Y are local products summed over the
+ranks that split the contracted axis (``mesh._Blocks``), and CholeskyQR2
+sums its k × k Grams the same way. ``ortho="qr"`` is the reference's
+Householder QR, which XLA replicates: the panel is gathered explicitly
+(an all_gather of the m × k' panel, not of A). U comes back sharded like
+A's rows (Shard(0)), V like its columns (Replicate() for a row-sharded
+A), σ Replicate(); a wide A is factored as its transpose, whose split
+moves from Shard(0) to Shard(1).
 """
 
 from __future__ import annotations
@@ -26,7 +38,8 @@ from libskylark_tpu_torch.base.sparse import (is_sparse_operand,
                                               linear_ops, place)
 from libskylark_tpu_torch.base.params import Params
 from libskylark_tpu_torch.base.precision import with_solver_precision
-from libskylark_tpu_torch.nla.tsqr import cholesky_qr2
+from libskylark_tpu_torch.nla.tsqr import _cholesky_qr2
+from libskylark_tpu_torch.parallel import mesh as pmesh
 
 
 @dataclasses.dataclass
@@ -44,13 +57,19 @@ class ApproximateSVDParams(Params):
     rr: str = "cqr2"
 
 
-def _orthonormalize(Q: torch.Tensor, method: str) -> torch.Tensor:
+def _orthonormalize(Q: torch.Tensor, method: str,
+                    space: pmesh._Space) -> torch.Tensor:
+    """An orthonormal basis of the panel whose local rows ``Q`` lie on
+    ``space`` (a whole axis: Q is whole): CholeskyQR2 with its Grams
+    summed over the ranks that split the axis, or the Householder QR of
+    the panel, which the reference replicates: gathered, factored, and
+    this rank's rows kept."""
     if method == "cqr2":
-        return cholesky_qr2(Q)[0]
+        return _cholesky_qr2(Q, space.sum)[0]
     if method != "qr":
         raise errors.InvalidParametersError(
             f"ortho must be 'qr' or 'cqr2', got {method!r}")
-    return torch.linalg.qr(Q)[0]
+    return space.take(torch.linalg.qr(space.gather(Q))[0])
 
 
 def _validate_params(params: ApproximateSVDParams) -> None:
@@ -70,8 +89,11 @@ def _oversampled(params: ApproximateSVDParams, k: int, limit: int) -> int:
 
 def _transposed(A):
     """Aᵀ: the operand's kept transpose for a sparse operand (made once,
-    sharing A's device CSR forms), a view otherwise."""
-    return A.transpose() if is_sparse_operand(A) else A.T
+    sharing A's device CSR forms), a DTensor's with its split moved to
+    the other axis, a view otherwise."""
+    if is_sparse_operand(A):
+        return A.transpose()
+    return pmesh._transpose(A) if pmesh._is_sharded(A) else A.T
 
 
 def _operand(A, device, dtype=None):
@@ -83,7 +105,24 @@ def _operand(A, device, dtype=None):
             "dtype override is only supported for dense operands; "
             "sparse operands compute at their device dtype")
     A, device = place(A, device)
-    return (A.to(dtype) if dtype is not None else A), device
+    if dtype is None:
+        return A, device
+    if pmesh._is_sharded(A):
+        return pmesh._from_local(A.to_local().to(dtype), A.device_mesh,
+                                 A.placements, A.shape), device
+    return A.to(dtype), device
+
+
+def _power(B: pmesh._Blocks, Q: torch.Tensor, num_iterations: int,
+           orthogonalize: bool, adjoint: bool, ortho: str) -> torch.Tensor:
+    """The iteration on local blocks: Q lives on A's rows (on its columns
+    when ``adjoint``)."""
+    space = B.cols if adjoint else B.rows
+    for _ in range(num_iterations):
+        Q = B.rmv(B.mv(Q)) if adjoint else B.mv(B.rmv(Q))
+        if orthogonalize:
+            Q = _orthonormalize(Q, ortho, space)
+    return Q
 
 
 @with_solver_precision
@@ -91,14 +130,18 @@ def power_iteration(A, Q: torch.Tensor, num_iterations: int,
                     orthogonalize: bool = True, adjoint: bool = False,
                     ortho: str = "qr") -> torch.Tensor:
     """(A·Aᵀ)^q · Q (or (Aᵀ·A)^q · Q when ``adjoint``), re-orthogonalized
-    between products unless disabled. ``A`` is a dense tensor or a
-    :class:`SparseMatrix`."""
-    mv, rmv = linear_ops(A)
-    for _ in range(num_iterations):
-        Q = rmv(mv(Q)) if adjoint else mv(rmv(Q))
-        if orthogonalize:
-            Q = _orthonormalize(Q, ortho)
-    return Q
+    between products unless disabled. ``A`` is a dense tensor, a
+    :class:`SparseMatrix` or a DTensor; for a DTensor, Q is a DTensor
+    split like A's rows (its columns when ``adjoint``) or a tensor every
+    rank holds whole, and so is the result."""
+    B = pmesh._Blocks(A)
+    if not B.sharded:
+        return _power(B, Q, num_iterations, orthogonalize, adjoint, ortho)
+    space = B.cols if adjoint else B.rows
+    Q = (pmesh._local_block(Q, 0)[0] if pmesh._is_sharded(Q)
+         else space.take(Q))
+    return space.wrap(_power(B, Q, num_iterations, orthogonalize, adjoint,
+                             ortho))
 
 
 @with_solver_precision
@@ -127,26 +170,30 @@ def approximate_svd(A, rank: int, context: Context,
 
     from libskylark_tpu_torch.sketch import ROWWISE, JLT
 
-    _, rmv = linear_ops(A)
+    B = pmesh._Blocks(A)
     T = JLT(n, kp, context)
     Q = T.apply(A, ROWWISE, device=device)            # range sketch (m, kp)
+    Q = Q.to_local() if B.sharded else Q
     if not params.skip_qr:
-        Q = _orthonormalize(Q, params.ortho)
-    Q = power_iteration(A, Q, params.num_iterations,
-                        orthogonalize=not params.skip_qr, ortho=params.ortho)
+        Q = _orthonormalize(Q, params.ortho, B.rows)
+    Q = _power(B, Q, params.num_iterations, not params.skip_qr, False,
+               params.ortho)
     if params.skip_qr:
         # one final orthogonalization is always required before projection
-        Q = _orthonormalize(Q, params.ortho)
+        Q = _orthonormalize(Q, params.ortho, B.rows)
 
-    Bt = rmv(Q)                                       # (n, kp); B = Btᵀ
+    Bt = B.rmv(Q)                                     # (n, kp); B = Btᵀ
     if params.rr == "svd":
-        Ub, S, Vt = torch.linalg.svd(Bt.T, full_matrices=False)
-        return Q @ Ub[:, :k], S[:k], Vt[:k, :].T
+        Ub, S, Vt = torch.linalg.svd(B.cols.gather(Bt).T,
+                                     full_matrices=False)
+        return (B.rows.wrap(Q @ Ub[:, :k]), B.whole(S[:k]),
+                B.cols.wrap(B.cols.take(Vt[:k, :].T)))
     # Bᵀ = Qb·Rb ⇒ B = Rbᵀ·Qbᵀ; SVD only the k'×k' factor:
     # Rbᵀ = Ur·S·Vrᵀ ⇒ B = Ur·S·(Qb·Vr)ᵀ
-    Qb, Rb = cholesky_qr2(Bt)
+    Qb, Rb = _cholesky_qr2(Bt, B.cols.sum)
     Ur, S, Vrt = torch.linalg.svd(Rb.T, full_matrices=False)
-    return Q @ Ur[:, :k], S[:k], Qb @ Vrt.T[:, :k]
+    return (B.rows.wrap(Q @ Ur[:, :k]), B.whole(S[:k]),
+            B.cols.wrap(Qb @ Vrt.T[:, :k]))
 
 
 @with_solver_precision
@@ -158,6 +205,9 @@ def approximate_symmetric_svd(A, rank: int, context: Context,
     ``A`` is dense or a :class:`SparseMatrix`."""
     params = params or ApproximateSVDParams()
     _validate_params(params)
+    if pmesh._is_sharded(A):
+        raise errors.NotImplementedYetError(
+            "approximate_symmetric_svd of a DTensor (ROADMAP A5b)")
     A, device = _operand(A, device)
     n, n2 = A.shape
     if n != n2:
@@ -171,14 +221,16 @@ def approximate_symmetric_svd(A, rank: int, context: Context,
     from libskylark_tpu_torch.sketch import ROWWISE, JLT
 
     mv, _ = linear_ops(A)
+    whole = pmesh._Space(n)
     T = JLT(n, kp, context)
-    Q = _orthonormalize(T.apply(A, ROWWISE, device=device), params.ortho)
+    Q = _orthonormalize(T.apply(A, ROWWISE, device=device), params.ortho,
+                        whole)
     for _ in range(params.num_iterations):
         Q = mv(Q)
         if not params.skip_qr:
-            Q = _orthonormalize(Q, params.ortho)
+            Q = _orthonormalize(Q, params.ortho, whole)
     if params.skip_qr:
-        Q = _orthonormalize(Q, params.ortho)
+        Q = _orthonormalize(Q, params.ortho, whole)
 
     # Rayleigh-Ritz: eigendecomposition of QᵀAQ
     G = Q.T @ mv(Q)

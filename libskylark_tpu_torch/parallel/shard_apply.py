@@ -17,7 +17,7 @@ N is zero-padded to a multiple of p·BLOCK_COLS and rank r takes blocks
   its local shard with no copy when the shard is block-aligned (torch's
   even split of N); an unaligned shard is zero-padded at its front to
   its first block, locally. A DTensor in any other layout is gathered
-  first (``full_tensor``).
+  first (``mesh._whole``).
 
 Routes of a rank's partial, decided before any launch:
 
@@ -57,17 +57,14 @@ def _shard(A, mesh, axis: str, seq_axis: int, N: int):
     step = p * BLOCK_COLS
     bps = -(-N // step)
     dim = mesh.mesh_dim_names.index(axis)
-    if hasattr(A, "to_local"):
+    if pmesh._is_sharded(A):
         from torch.distributed.tensor import Replicate, Shard
 
         want = [Replicate()] * mesh.ndim
         want[dim] = Shard(seq_axis)
         if A.device_mesh == mesh and list(A.placements) == want:
-            # torch's split: ceil(N/p) entries a rank, the last ones short
-            chunk = -(-N // p)
-            lo = min(r * chunk, N)
-            return A.to_local(), lo
-        A = A.full_tensor()
+            return pmesh._local_block(A, seq_axis)
+        A = pmesh._whole(A)
     else:
         A = torch.as_tensor(A, device=pmesh._mesh_device(mesh))
     lo = min(r * bps * BLOCK_COLS, N)
@@ -105,13 +102,39 @@ def _kernel_route(device_type: str, use_pallas: bool | None,
     return bool(use_pallas) and serves
 
 
+def _aligned(A_loc: torch.Tensor, lo: int, seq_axis: int):
+    """(A_loc padded to whole blocks, its first block): zeros in front to
+    the block that global index ``lo`` falls in (a shard of torch's
+    uneven split), behind to a block multiple."""
+    block0 = lo // BLOCK_COLS
+    front = lo - block0 * BLOCK_COLS
+    n = front + A_loc.shape[seq_axis]
+    back = max(-(-n // BLOCK_COLS), 1) * BLOCK_COLS - n
+    if front or back:
+        pad = [0, 0, 0, 0]
+        pad[2 * (1 - seq_axis)] = front
+        pad[2 * (1 - seq_axis) + 1] = back
+        A_loc = torch.nn.functional.pad(A_loc, pad)
+    return A_loc, block0
+
+
+def _partial(key, dist, s_dim: int, A_loc: torch.Tensor, lo: int,
+             seq_axis: int, precision: str | None = None) -> torch.Tensor:
+    """A shard's UNSCALED partial against the operator's columns from
+    global index ``lo``: B1's partial kernel (its plain version on a CPU
+    tensor) on the shard padded to whole blocks."""
+    from libskylark_tpu_torch.sketch import cuda_dense
+
+    A_loc, block0 = _aligned(A_loc, lo, seq_axis)
+    return cuda_dense.fused_partial(key, dist, A_loc.contiguous(), s_dim,
+                                    seq_axis, block0, precision)
+
+
 def _pipeline(T, A, mesh, axis: str, seq_axis: int,
               use_pallas: bool | None = None,
               interpret: bool = False) -> torch.Tensor:
     """Shared schedule: this rank's partial over its blocks, scaled, then
     one all-reduce over ``axis``'s group (module docstring)."""
-    from libskylark_tpu_torch.sketch import cuda_dense
-
     if not isinstance(T, DenseTransform):
         raise errors.UnsupportedError(
             "sequence-parallel apply needs a DenseTransform-backed sketch; "
@@ -122,23 +145,12 @@ def _pipeline(T, A, mesh, axis: str, seq_axis: int,
             f"sequence axis has {A.shape[seq_axis]} entries, transform "
             f"expects {N} (A is {tuple(A.shape)})")
     A_loc, lo = _shard(A, mesh, axis, seq_axis, N)
-    block0 = lo // BLOCK_COLS
-    # pad the shard to whole blocks: in front to its first block (an
-    # unaligned DTensor shard), behind to a block multiple
-    front = lo - block0 * BLOCK_COLS
-    n = front + A_loc.shape[seq_axis]
-    back = max(-(-n // BLOCK_COLS), 1) * BLOCK_COLS - n
-    if front or back:
-        pad = [0, 0, 0, 0]
-        pad[2 * (1 - seq_axis)] = front
-        pad[2 * (1 - seq_axis) + 1] = back
-        A_loc = torch.nn.functional.pad(A_loc, pad)
     if _kernel_route(A_loc.device.type, use_pallas,
                      T._kernel_serves(A_loc)):
-        part = T.scale * cuda_dense.fused_partial(
-            T._alloc.key, T.dist, A_loc.contiguous(), T.sketch_dim,
-            seq_axis, block0)
+        part = T.scale * _partial(T._alloc.key, T.dist, T.sketch_dim, A_loc,
+                                  lo, seq_axis)
     else:
+        A_loc, block0 = _aligned(A_loc, lo, seq_axis)
         part = _block_loop(T, A_loc, block0, seq_axis)
     return pmesh.all_reduce(part, mesh, axis)
 

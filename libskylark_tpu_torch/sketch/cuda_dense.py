@@ -139,6 +139,9 @@ def _load():
 def _check(dist, A, s_dim: int, ndim: int = 2) -> bool:
     """Checks shared by the wrappers; True when A lies on the CPU (the
     plain version's case)."""
+    from libskylark_tpu_torch.kernels import launch
+
+    launch.refuse_dtensor(A)
     if not supported(dist, A.dtype):
         raise errors.UnsupportedError(
             f"dense sketch kernel takes standard normal/cauchy/rademacher "
@@ -188,15 +191,10 @@ def _launch_tc(A, out, rowwise: bool, precision: str, dist, B: int, m: int,
     part = (torch.empty(B * plan[1], dtype=torch.uint8, device=A.device)
             if plan[1] else None)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     launch.call(lib.sk_dense_tc, A.device, int(rowwise), code,
-                _DIST_KINDS[type(dist)], A.data_ptr(), A.shape[-1], *key,
-                ptr(keys), ptr(scales), B, m, n, s_dim, int(block0),
-                float(scale),
-                ptr(sc), ptr(sh), float(outscale), out.data_ptr(),
-                ws.data_ptr(), ptr(part))
+                _DIST_KINDS[type(dist)], A, A.shape[-1], *key, keys, scales,
+                B, m, n, s_dim, int(block0), float(scale), sc, sh,
+                float(outscale), out, ws, part)
     launch.count(generated, "entries", B * s_dim * n)
 
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors
+from libskylark_tpu_torch.kernels import launch
 
 launches = {"fastfood": 0, "fastfood_split": 0, "fastfood_batched": 0}
 
@@ -126,6 +127,7 @@ def features_rows(transform, A: torch.Tensor,
     """The (m, S) Fastfood features of A (m, N) float32: the transform's
     streams made on A's device, then :func:`apply_streams`."""
     T = transform
+    launch.refuse_dtensor(A)
     if T._fut_name != "wht" or not supported(T._NB, A.dtype):
         raise errors.UnsupportedError(
             f"Fastfood kernel takes the wht core, a power-of-two NB <= "
@@ -148,6 +150,7 @@ def apply_streams(A: torch.Tensor, streams, scale: float, s_dim: int,
     """The kernel on A (m, d) CUDA float32 and the (numblks, NB) streams
     of :func:`kernel_streams`: ``"fused"``/``"auto"`` one launch,
     ``"split"`` a launch, ``torch.gather``, a launch."""
+    launch.refuse_dtensor(A, *streams)
     bdiag, perms, gdiag, smdiag, sh = streams
     nb, NB = bdiag.shape
     if A.device.type != "cuda":
@@ -168,8 +171,6 @@ def apply_streams(A: torch.Tensor, streams, scale: float, s_dim: int,
             and (nb - 1) * NB < s_dim <= nb * NB):
         raise errors.InvalidParametersError(
             f"Fastfood geometry: d={d}, NB={NB}, numblks={nb}, S={s_dim}")
-    from libskylark_tpu_torch.kernels import launch
-
     out = torch.empty((m, s_dim), dtype=torch.float32, device=A.device)
     if m == 0:
         return out
@@ -178,16 +179,13 @@ def apply_streams(A: torch.Tensor, streams, scale: float, s_dim: int,
     if variant == "split":
         W = split_pre(A, bdiag)
         W = torch.gather(W, 2, perms[:, None, :].expand(nb, m, NB))
-        launch.call(lib.sk_fastfood_post, A.device, W.data_ptr(), m, NB, nb,
-                    s_dim, rows, gdiag.data_ptr(), smdiag.data_ptr(),
-                    sh.data_ptr(), float(scale), out.data_ptr())
+        launch.call(lib.sk_fastfood_post, A.device, W, m, NB, nb, s_dim,
+                    rows, gdiag, smdiag, sh, float(scale), out)
         launch.count(launches, "fastfood_split")
         return out
     perms = perms.to(torch.int32)
-    launch.call(lib.sk_fastfood_fused, A.device, A.data_ptr(), d, m, d, NB,
-                nb, s_dim, rows, bdiag.data_ptr(), perms.data_ptr(),
-                gdiag.data_ptr(), smdiag.data_ptr(), sh.data_ptr(),
-                float(scale), out.data_ptr())
+    launch.call(lib.sk_fastfood_fused, A.device, A, d, m, d, NB, nb, s_dim,
+                rows, bdiag, perms, gdiag, smdiag, sh, float(scale), out)
     launch.count(launches, "fastfood")
     return out
 
@@ -198,13 +196,11 @@ def split_pre(A: torch.Tensor, bdiag: torch.Tensor) -> torch.Tensor:
     zero-padded to NB — in the butterfly's sum order, bit for bit.
     :func:`apply_streams` gathers W and launches the second kernel; its
     launch counter counts the pair."""
-    from libskylark_tpu_torch.kernels import launch
-
     nb, NB = bdiag.shape
     m, d = A.shape
     W = torch.empty((nb, m, NB), dtype=torch.float32, device=A.device)
-    launch.call(_load().sk_fastfood_pre, A.device, A.data_ptr(), d, m, d, NB,
-                nb, plan(NB, m)["rows"], bdiag.data_ptr(), W.data_ptr())
+    launch.call(_load().sk_fastfood_pre, A.device, A, d, m, d, NB, nb,
+                plan(NB, m)["rows"], bdiag, W)
     return W
 
 
@@ -305,12 +301,8 @@ def apply_streams_batched(A: torch.Tensor, streams, scale: float,
     out = torch.empty((B, m, s_dim), dtype=torch.float32, device=A.device)
     if B == 0 or m == 0:
         return out
-    from libskylark_tpu_torch.kernels import launch
-
-    launch.call(_load().sk_fastfood_batched, A.device, A.data_ptr(), B, m,
-                d, NB, nb, s_dim, plan(NB, m)["rows"], bdiag.data_ptr(),
-                perms.data_ptr(),
-                gdiag.data_ptr(), smdiag.data_ptr(), sh.data_ptr(),
-                float(scale), out.data_ptr())
+    launch.call(_load().sk_fastfood_batched, A.device, A, B, m, d, NB, nb,
+                s_dim, plan(NB, m)["rows"], bdiag, perms, gdiag, smdiag, sh,
+                float(scale), out)
     launch.count(launches, "fastfood_batched")
     return out

@@ -108,6 +108,7 @@ def _load():
 
 
 def _check(A: torch.Tensor, s_dim: int, rowwise: bool, ndim: int) -> None:
+    launch.refuse_dtensor(A)
     if A.ndim != ndim:
         raise errors.InvalidParametersError(
             f"need a {ndim}-D operand, got {tuple(A.shape)}")
@@ -143,10 +144,8 @@ def _launch(kd: np.ndarray, A: torch.Tensor, s_dim: int, rowwise: bool,
     idx = torch.empty((B, s_dim), dtype=torch.int32, device=A.device)
     part = (torch.empty((B, groups, m * s_dim), dtype=torch.float32,
                         device=A.device) if groups > 1 else None)
-    launch.call(lib.sk_fwht_apply, A.device, A.data_ptr(),
-                keys.data_ptr(), D.data_ptr(), idx.data_ptr(),
-                None if part is None else part.data_ptr(), out.data_ptr(),
-                B, m, n, s_dim, int(rowwise), *scales(n, s_dim))
+    launch.call(lib.sk_fwht_apply, A.device, A, keys, D, idx, part, out, B,
+                m, n, s_dim, int(rowwise), *scales(n, s_dim))
     launch.count(launches, counter)
     return out
 

@@ -8,9 +8,12 @@ value stream v = Rademacher of sub-stream 1 of the transform's key —
 ``randgen.stream_slice``'s layout, so the result equals the reference's
 ``hash.cwt_serve_apply``. The kernel adds each output's terms in
 increasing coordinate order, as the plain scatter does, and every v·a is
-exact: the two are bit-equal. :func:`cwt_apply_batched` serves a stacked
-serve cohort with one launch, the lane a grid axis of the kernel, as the
-reference's ``pallas_hash.cwt_apply_batched``.
+exact: the two are bit-equal. ``n0`` makes the operand a shard: its
+contracted coordinates are [n0, n0 + n) of the streams, a rank's block of
+a mesh-distributed operand (sketch/dtensor_apply.py), whose partials sum
+over the ranks to the whole operand's sketch. :func:`cwt_apply_batched`
+serves a stacked serve cohort with one launch, the lane a grid axis of
+the kernel, as the reference's ``pallas_hash.cwt_apply_batched``.
 
 Rules of the wrappers:
 
@@ -30,7 +33,10 @@ from libskylark_tpu_torch.base import errors, randgen
 from libskylark_tpu_torch.base.context import fold_in, key_words
 from libskylark_tpu_torch.kernels import launch
 
-launches = {"hash_rowwise": 0, "hash_columnwise": 0, "hash_batched": 0}
+# a launch at a shard's offset (n0 > 0) counts under "hash_offset", both
+# ways, and not under "hash_rowwise"/"hash_columnwise"
+launches = {"hash_rowwise": 0, "hash_columnwise": 0, "hash_batched": 0,
+            "hash_offset": 0}
 
 # coordinates per columnwise sort tile of the kernel (csrc/hash_sketch.cu:
 # kTile)
@@ -39,13 +45,13 @@ TILE = 1024
 _lib = None
 
 
-def streams(key, n: int, s_dim: int, device=None):
+def streams(key, n: int, s_dim: int, device=None, n0: int = 0):
     """(h, v): the bucket stream (int64) and the ±1 value stream (f32) of
-    the first ``n`` coordinates, on ``device``."""
+    the coordinates [n0, n0 + n), on ``device``."""
     h = randgen.stream_slice(fold_in(key, 0), randgen.UniformInt(0, s_dim - 1),
-                             0, n, device=device)
-    v = randgen.stream_slice(fold_in(key, 1), randgen.Rademacher(), 0, n,
-                             device=device)
+                             n0, n0 + n, device=device)
+    v = randgen.stream_slice(fold_in(key, 1), randgen.Rademacher(), n0,
+                             n0 + n, device=device)
     return h, v
 
 
@@ -61,12 +67,12 @@ def scatter(h, v, A: torch.Tensor, s_dim: int, rowwise: bool) -> torch.Tensor:
     return out.index_add_(0, h, v[:, None] * A)
 
 
-def cwt_apply_plain(key, A: torch.Tensor, s_dim: int,
-                    rowwise: bool) -> torch.Tensor:
-    """The plain PyTorch version of both kernels: the streams made on A's
-    device, then :func:`scatter`."""
+def cwt_apply_plain(key, A: torch.Tensor, s_dim: int, rowwise: bool,
+                    n0: int = 0) -> torch.Tensor:
+    """The plain PyTorch version of both kernels: the streams of the
+    coordinates [n0, n0 + n) made on A's device, then :func:`scatter`."""
     h, v = streams(key, A.shape[1] if rowwise else A.shape[0], s_dim,
-                   A.device)
+                   A.device, n0)
     return scatter(h, v, A, s_dim, rowwise)
 
 
@@ -82,7 +88,7 @@ def _load():
 
         lib = build.load("hash_sketch")
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.sk_hash_apply.argtypes = ([p] * 5 + [i64] * 4
+        lib.sk_hash_apply.argtypes = ([p] * 5 + [i64] * 5
                                       + [ctypes.c_uint32, ctypes.c_int, p])
         lib.sk_hash_apply.restype = ctypes.c_int
         _lib = lib
@@ -90,6 +96,7 @@ def _load():
 
 
 def _check(A: torch.Tensor, s_dim: int, ndim: int) -> None:
+    launch.refuse_dtensor(A)
     if A.ndim != ndim or s_dim <= 0:
         raise errors.InvalidParametersError(
             f"need a {ndim}-D operand and s_dim > 0, got {tuple(A.shape)}, "
@@ -103,9 +110,10 @@ def _check(A: torch.Tensor, s_dim: int, ndim: int) -> None:
 
 
 def _launch(kd: np.ndarray, A: torch.Tensor, s_dim: int, rowwise: bool,
-            counter: str) -> torch.Tensor:
+            counter: str, n0: int = 0) -> torch.Tensor:
     """One launch over the stacked lanes A (B, ., .) on the card, counted
-    under ``counter``; an empty operand launches and counts nothing."""
+    under ``counter``, the contracted coordinates [n0, n0 + n); an empty
+    operand launches and counts nothing."""
     if not A.is_contiguous():
         raise errors.InvalidParametersError(
             "CountSketch kernel needs a contiguous operand")
@@ -122,29 +130,33 @@ def _launch(kd: np.ndarray, A: torch.Tensor, s_dim: int, rowwise: bool,
         s0 = torch.empty(B * n * 2, dtype=torch.int32, device=A.device)
         s1 = None
     else:
-        tiles = -(-n // TILE)
+        tiles = -(-(n0 % TILE + n) // TILE)
         s0 = torch.empty(B * tiles * (s_dim + 1), dtype=torch.int32,
                          device=A.device)
         s1 = torch.empty(B * tiles * TILE, dtype=torch.int32,
                          device=A.device)
-    launch.call(_load().sk_hash_apply, A.device, A.data_ptr(),
-                keys.data_ptr(), out.data_ptr(), s0.data_ptr(),
-                None if s1 is None else s1.data_ptr(), B, m, n, s_dim,
-                randgen.randint_multiplier(s_dim), int(rowwise))
+    launch.call(_load().sk_hash_apply, A.device, A, keys, out, s0, s1, B, m,
+                n, n0, s_dim, randgen.randint_multiplier(s_dim),
+                int(rowwise))
     launch.count(launches, counter)
     return out
 
 
-def cwt_apply(key, A: torch.Tensor, s_dim: int,
-              rowwise: bool) -> torch.Tensor:
+def cwt_apply(key, A: torch.Tensor, s_dim: int, rowwise: bool,
+              n0: int = 0) -> torch.Tensor:
     """CountSketch of A: (n, m) → (s_dim, m) columnwise, (m, n) → (m,
-    s_dim) rowwise: the batched kernel with one lane."""
+    s_dim) rowwise, its n contracted coordinates [n0, n0 + n) of the
+    streams: the batched kernel with one lane."""
     _check(A, s_dim, 2)
+    if int(n0) < 0:
+        raise errors.InvalidParametersError(
+            f"n0 must be non-negative, got {n0}")
     if A.device.type == "cpu":
-        return cwt_apply_plain(key, A, s_dim, rowwise)
+        return cwt_apply_plain(key, A, s_dim, rowwise, int(n0))
     kd = np.asarray(key_words(key), dtype=np.uint32).reshape(1, 2)
-    return _launch(kd, A[None], s_dim, rowwise,
-                   "hash_rowwise" if rowwise else "hash_columnwise")[0]
+    counter = ("hash_offset" if n0 else
+               "hash_rowwise" if rowwise else "hash_columnwise")
+    return _launch(kd, A[None], s_dim, rowwise, counter, int(n0))[0]
 
 
 def cwt_apply_batched(key_data, A: torch.Tensor, s_dim: int,

@@ -125,6 +125,9 @@ def cwt_sparse_apply_batched(key_data, data: torch.Tensor,
     nnz_pad), ``key_data`` (B, 2) uint32 words, ``shape`` the lanes'
     padded (rows, cols). Returns (B, rows, s_dim) rowwise, (B, s_dim,
     cols) columnwise. Lane b's result does not depend on B."""
+    from libskylark_tpu_torch.kernels import launch
+
+    launch.refuse_dtensor(data, rows, cols)
     kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
     if not supported(data.dtype):
         raise errors.UnsupportedError(
@@ -141,8 +144,6 @@ def cwt_sparse_apply_batched(key_data, data: torch.Tensor,
         raise errors.UnsupportedError(
             f"sparse CountSketch kernel runs on CUDA or CPU, got "
             f"{data.device}")
-    from libskylark_tpu_torch.kernels import launch
-
     B, nnz = data.shape
     n_rows, n_cols = int(shape[0]), int(shape[1])
     m = n_rows if rowwise else n_cols
@@ -164,20 +165,16 @@ def cwt_sparse_apply_batched(key_data, data: torch.Tensor,
         head = -(-B // 4) * 4
         scratch = torch.zeros(head + B * rowwise_chunks(n_cols) * 8,
                               dtype=torch.int32, device=dev)
-        launch.call(lib.sk_sparse_rowwise, dev, keys.data_ptr(),
-                    data.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-                    out.data_ptr(), scratch.data_ptr(),
-                    scratch.data_ptr() + 4 * head, B, nnz, m, n_cols, s_dim,
-                    mult)
+        launch.call(lib.sk_sparse_rowwise, dev, keys, data, rows, cols, out,
+                    scratch, launch.ptr(scratch) + 4 * head, B, nnz, m,
+                    n_cols, s_dim, mult)
     else:
         end = torch.zeros(B, dtype=torch.int32, device=dev)
         slots = -(-n_rows // RUN_TILE) * RUN_TILE
         bucket = torch.empty((B, slots), dtype=torch.int32, device=dev)
         runs = torch.empty((B, slots, 4), dtype=torch.int32, device=dev)
-        launch.call(lib.sk_sparse_columnwise, dev, keys.data_ptr(),
-                    data.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-                    out.data_ptr(), end.data_ptr(), bucket.data_ptr(),
-                    runs.data_ptr(), B, nnz, n_rows, m, s_dim, mult)
+        launch.call(lib.sk_sparse_columnwise, dev, keys, data, rows, cols,
+                    out, end, bucket, runs, B, nnz, n_rows, m, s_dim, mult)
     launch.count(launches,
                  "sparse_rowwise" if rowwise else "sparse_columnwise")
     return out

@@ -19,6 +19,9 @@ reference: the pinned operator, else S whole or panel by panel under the
 same schedule, contracted by ``spmm``/``spmm_t`` (base/sparse.py). A
 :class:`~libskylark_tpu_torch.base.dist_sparse.DistSparseMatrix` takes
 sketch/dist_sparse_apply.py: each rank's cell against its own panel of S.
+A DTensor whose sketched axis is split takes B1's partial kernel on each
+rank's block at its global offset, an all_reduce, then the scale
+(sketch/dtensor_apply.py).
 """
 
 from __future__ import annotations
@@ -241,6 +244,23 @@ class DenseTransform(OperatorCache, SketchTransform):
         from libskylark_tpu_torch.sketch import dist_sparse_apply as dsa
 
         return dsa.dense_rowwise(self, A)
+
+    # -- DTensor input, sketched axis split: partial, all_reduce, scale --
+
+    def _split_axis_apply(self, A_loc, lo, rowwise, reduce):
+        """B1's unscaled partial against S's columns from ``lo`` (the
+        shard padded to whole blocks, parallel/shard_apply.py), summed
+        over the ranks, then scaled; a distribution or dtype B1 does not
+        take contracts against the panel of S."""
+        seq = 1 if rowwise else 0
+        if self._kernel_serves(A_loc):
+            from libskylark_tpu_torch.parallel import shard_apply
+
+            return self.scale * reduce(shard_apply._partial(
+                self._alloc.key, self.dist, self._S, A_loc, lo, seq))
+        S = self.s_panel(lo, lo + A_loc.shape[seq], A_loc.dtype,
+                         A_loc.device)
+        return reduce(A_loc @ S.T if rowwise else S @ A_loc)
 
     # -- blocked (memory-bounded) apply: one virtual panel at a time --
 

@@ -27,7 +27,9 @@ triplets (CSC order), ordered on the CPU, unordered on CUDA.
 sketch/dist_sparse_apply.py: each rank's cell by the same routes (CWT in
 float32 by B3 at the cell's global offset, the others by ``index_add_``,
 unordered on CUDA), then an all-reduce over the ranks; ``apply_sparse``
-of one stays distributed.
+of one stays distributed. A DTensor whose sketched axis is split hashes
+each rank's block by its coordinates' global indices (CWT in float32: B2
+with ``n0``), then an all-reduce (sketch/dtensor_apply.py).
 """
 
 from __future__ import annotations
@@ -59,15 +61,19 @@ class HashTransform(SketchTransform):
 
     sketch_type = "HashTransform"
 
-    def _value_stream(self, dtype, device) -> torch.Tensor:
-        """Per-coordinate values v[0:N]; overridden per transform."""
+    def _value_stream(self, dtype, device, lo: int = 0,
+                      hi: int | None = None) -> torch.Tensor:
+        """Per-coordinate values v[lo:hi] (default all N); overridden per
+        transform."""
         raise NotImplementedError
 
-    def bucket_indices(self, device=None) -> torch.Tensor:
-        """h[0:N], the bucket of each input coordinate (sub-stream 0)."""
+    def bucket_indices(self, device=None, lo: int = 0,
+                       hi: int | None = None) -> torch.Tensor:
+        """h[lo:hi] (default all N), the bucket of each input coordinate
+        (sub-stream 0)."""
         return randgen.stream_slice(
-            self.subkey(0), randgen.UniformInt(0, self._S - 1), 0, self._N,
-            device=device)
+            self.subkey(0), randgen.UniformInt(0, self._S - 1), lo,
+            self._N if hi is None else hi, device=device)
 
     def values(self, dtype=torch.float32, device=None) -> torch.Tensor:
         return self._value_stream(dtype, device)
@@ -88,6 +94,20 @@ class HashTransform(SketchTransform):
 
     def _apply_rowwise(self, A):
         return self._apply(A, rowwise=True)
+
+    # -- DTensor input, sketched axis split: each rank's coordinates --
+
+    def _split_axis_apply(self, A_loc, lo, rowwise, reduce):
+        """This rank's coordinates [lo, lo + n) hashed by their global
+        index (CWT in float32: B2 with ``n0 = lo``; else the scatter on
+        the sliced streams), summed over the ranks."""
+        if self._kernel_serves(A_loc):
+            return reduce(cuda_hash.cwt_apply(
+                self._alloc.key, A_loc.contiguous(), self._S, rowwise, lo))
+        hi = lo + A_loc.shape[1 if rowwise else 0]
+        h = self.bucket_indices(A_loc.device, lo, hi)
+        v = self._value_stream(A_loc.dtype, A_loc.device, lo, hi)
+        return reduce(cuda_hash.scatter(h, v, A_loc, self._S, rowwise))
 
     # -- sparse input: O(nnz) scatter over the nonzeros --
 
@@ -161,9 +181,10 @@ class CWT(HashTransform):
 
     sketch_type = "CWT"
 
-    def _value_stream(self, dtype, device):
-        return randgen.stream_slice(self.subkey(1), randgen.Rademacher(), 0,
-                                    self._N, dtype, device)
+    def _value_stream(self, dtype, device, lo=0, hi=None):
+        return randgen.stream_slice(self.subkey(1), randgen.Rademacher(), lo,
+                                    self._N if hi is None else hi, dtype,
+                                    device)
 
     def _kernel_serves(self, A):
         return cuda_hash.supported(A.dtype)
@@ -182,9 +203,10 @@ class MMT(HashTransform):
 
     sketch_type = "MMT"
 
-    def _value_stream(self, dtype, device):
-        return randgen.stream_slice(self.subkey(1), randgen.Cauchy(), 0,
-                                    self._N, dtype, device)
+    def _value_stream(self, dtype, device, lo=0, hi=None):
+        return randgen.stream_slice(self.subkey(1), randgen.Cauchy(), lo,
+                                    self._N if hi is None else hi, dtype,
+                                    device)
 
 
 @register
@@ -201,11 +223,12 @@ class WZT(HashTransform):
         self._p = float(p)
         super().__init__(N, S, context)
 
-    def _value_stream(self, dtype, device):
-        e = randgen.stream_slice(self.subkey(1), randgen.Exponential(), 0,
-                                 self._N, dtype, device)
-        pm = randgen.stream_slice(self.subkey(2), randgen.Rademacher(), 0,
-                                  self._N, dtype, device)
+    def _value_stream(self, dtype, device, lo=0, hi=None):
+        hi = self._N if hi is None else hi
+        e = randgen.stream_slice(self.subkey(1), randgen.Exponential(), lo,
+                                 hi, dtype, device)
+        pm = randgen.stream_slice(self.subkey(2), randgen.Rademacher(), lo,
+                                  hi, dtype, device)
         return pm * torch.pow(1.0 / e, 1.0 / self._p)
 
     def _extra_params(self) -> dict[str, Any]:

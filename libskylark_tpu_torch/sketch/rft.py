@@ -29,7 +29,10 @@ or W made whole (float32, whatever the distribution), then the same
 featurization, as the reference's sparse branch does; a
 :class:`~libskylark_tpu_torch.base.dist_sparse.DistSparseMatrix` projects
 each rank's cell against its own panel of W (sketch/dist_sparse_apply.py),
-then featurizes.
+then featurizes. A DTensor featurizes each rank's rows by the one-process
+route (B1-cos on the card), or, where its sketched axis is split, sums
+the ranks' partial projections (B1's partial kernel) by an all_reduce and
+featurizes the sum (sketch/dtensor_apply.py).
 """
 
 from __future__ import annotations
@@ -163,6 +166,28 @@ class RFT(OperatorCache, SketchTransform):
 
         W = self._sparse_operator(A, device)
         return self._featurize(spmm(A, W.T), feature_axis=1)
+
+    # -- DTensor input, sketched axis split: partial, all_reduce, epilogue --
+
+    def _split_axis_apply(self, A_loc, lo, rowwise, reduce):
+        """The projection's partial on this rank's block (B1's unscaled
+        partial kernel where it generates the distribution, "f32" for
+        Cauchy frequencies as the one-process route; else the panel of
+        W), summed over the ranks, then inscale, the shifts, the
+        per-feature scales, cos and outscale on the sum."""
+        seq = 1 if rowwise else 0
+        if self._projection_kernel_serves(A_loc):
+            from libskylark_tpu_torch.parallel import shard_apply
+
+            heavy = isinstance(self.dist, randgen.Cauchy)
+            WA = self.inscale * reduce(shard_apply._partial(
+                self.subkey(0), self.dist, self._S, A_loc, lo, seq,
+                precision="f32" if heavy else None))
+        else:
+            W = self.w_panel(lo, lo + A_loc.shape[seq], A_loc.dtype,
+                             A_loc.device)
+            WA = reduce(A_loc @ W.T if rowwise else W @ A_loc)
+        return self._featurize(WA, feature_axis=1 if rowwise else 0)
 
     # -- distributed sparse input: per-cell panels of W, then featurize --
 

@@ -165,14 +165,23 @@ class SketchTransform:
         :class:`~libskylark_tpu_torch.base.dist_sparse.DistSparseMatrix`
         takes the transform's distributed apply and gives the whole dense
         result on every rank, on the rank's device (``device`` is not
-        read); the transforms without one raise NotImplementedYetError."""
+        read); the transforms without one raise NotImplementedYetError. A
+        DTensor (parallel/mesh.py) takes sketch/dtensor_apply.py and gives
+        a DTensor: each rank's block through the one-process route, or its
+        partial and an all_reduce where the sketched axis is split
+        (``device`` is not read)."""
         from libskylark_tpu_torch.base.dist_sparse import DistSparseMatrix
+        from libskylark_tpu_torch.parallel.mesh import _is_sharded
 
         if isinstance(A, DistSparseMatrix):
             # dimension validation lives in dist_sparse_apply._check_dim
             if dimension == COLUMNWISE:
                 return self._apply_columnwise_dist_sparse(A)
             return self._apply_rowwise_dist_sparse(A)
+        if _is_sharded(A):
+            if dimension == COLUMNWISE:
+                return self._apply_columnwise_dtensor(A)
+            return self._apply_rowwise_dtensor(A)
         if is_sparse_operand(A) or _is_scipy_sparse(A):
             A = as_sparse(A)
             n = A.height if dimension == COLUMNWISE else A.width
@@ -225,6 +234,26 @@ class SketchTransform:
         raise errors.NotImplementedYetError(
             f"{self.sketch_type}: rowwise distributed-sparse apply "
             "not implemented")
+
+    def _apply_columnwise_dtensor(self, A):
+        from libskylark_tpu_torch.sketch import dtensor_apply
+
+        return dtensor_apply.apply(self, A, rowwise=False)
+
+    def _apply_rowwise_dtensor(self, A):
+        from libskylark_tpu_torch.sketch import dtensor_apply
+
+        return dtensor_apply.apply(self, A, rowwise=True)
+
+    def _split_axis_apply(self, A_loc: torch.Tensor, lo: int, rowwise: bool,
+                          reduce) -> torch.Tensor:
+        """The apply of a DTensor whose sketched axis is split: this
+        rank's partial over its block (global start ``lo`` on the
+        sketched axis), ``reduce`` (the sum over the ranks), then the
+        epilogue (sketch/dtensor_apply.py)."""
+        raise errors.NotImplementedYetError(
+            f"{self.sketch_type}: apply of a DTensor whose sketched axis is "
+            "split (ROADMAP A5b)")
 
     def _extra_params(self) -> dict[str, Any]:
         """Transform-specific hyper-params to serialize."""

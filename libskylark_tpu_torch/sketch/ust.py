@@ -7,7 +7,9 @@ under sub-stream 1, jax.random.permutation's own shuffle. A sparse
 operand is gathered on the host (sampling keeps it sparse) and the small
 sampled result densified on the device; a distributed sparse operand
 gathers each rank's sampled rows or columns of its cell
-(sketch/dist_sparse_apply.py).
+(sketch/dist_sparse_apply.py); a DTensor split on the sampled axis
+gathers each rank's own samples, then an all-reduce of the disjoint
+parts (sketch/dtensor_apply.py).
 """
 
 from __future__ import annotations
@@ -42,6 +44,20 @@ class UST(SketchTransform):
 
     def _apply_rowwise(self, A: torch.Tensor) -> torch.Tensor:
         return A.index_select(1, self.sample_indices(A.device))
+
+    def _split_axis_apply(self, A_loc, lo, rowwise, reduce):
+        """The samples that fall in this rank's coordinates [lo, lo + n)
+        gathered, zeros elsewhere, summed over the ranks: each sample has
+        one writer, so the sum is exact."""
+        seq = 1 if rowwise else 0
+        n = A_loc.shape[seq]
+        idx = self.sample_indices(A_loc.device)
+        sel = ((idx >= lo) & (idx < lo + n)).nonzero().flatten()
+        shape = list(A_loc.shape)
+        shape[seq] = self._S
+        out = A_loc.new_zeros(shape)
+        out.index_copy_(seq, sel, A_loc.index_select(seq, idx[sel] - lo))
+        return reduce(out)
 
     def _sampled_sparse(self, A, device, rowwise: bool) -> torch.Tensor:
         idx = self.sample_indices(device).cpu().numpy()

@@ -86,7 +86,7 @@ def test_cwt_apply_bit_equal_to_reference(rowwise, n, s):
                                                  rowwise)):
         np.testing.assert_array_equal(fn().numpy(), want)
     assert cuda_hash.launches == {"hash_rowwise": 0, "hash_columnwise": 0,
-                                  "hash_batched": 0}
+                                  "hash_batched": 0, "hash_offset": 0}
 
 
 def test_cwt_zero_padding_past_n_is_exact():
@@ -97,6 +97,28 @@ def test_cwt_zero_padding_past_n_is_exact():
         phash.cwt_serve_apply(T.allocation.key, padded, s_dim=48,
                               rowwise=False).numpy(),
         T.apply(A, sk.COLUMNWISE, device="cpu").numpy())
+
+
+@pytest.mark.parametrize("rowwise", [False, True])
+@pytest.mark.parametrize("n0,n", [(0, 700), (300, 400), (1000, 4096),
+                                  (4090, 9), (5000, 3000)])
+def test_cwt_offset_scatter_is_its_rows_of_the_whole(rowwise, n0, n):
+    """B2's plain version with ``n0``: a shard's coordinates [n0, n0 + n)
+    hashed by their global index equal, bit for bit, the scatter of a
+    full-length operand that holds the shard at rows n0… and zeros
+    elsewhere (over chunk boundaries, and a shard inside one chunk)."""
+    key = Context(9).allocate().key
+    N, s = 8192, 300
+    shard = _operand(n, 5, rowwise, seed=3)
+    whole = np.zeros((5, N) if rowwise else (N, 5), np.float32)
+    if rowwise:
+        whole[:, n0:n0 + n] = shard
+    else:
+        whole[n0:n0 + n] = shard
+    got = cuda_hash.cwt_apply(key, torch.from_numpy(shard), s, rowwise, n0)
+    want = cuda_hash.cwt_apply_plain(key, torch.from_numpy(whole), s,
+                                     rowwise)
+    assert torch.equal(got, want)
 
 
 def test_cwt_vector_operand():

@@ -4,12 +4,14 @@
 joins a gloo group of ``world`` CPU processes through the port's own
 bootstrap (``parallel.multihost.initialize_distributed``), builds every
 mesh of :data:`MESHES` (each over the first ranks of the group), runs
-every case of ``task`` ("parallel" or "dist_sparse") on the meshes this
-rank belongs to, and writes the results as ``<outdir>/<rank>.npz``: a
-numpy array per case, or the name of the exception class a case asks to
-see. The test files spawn one group per file (:func:`run_group`), hold
-rank 0's results against the JAX package in the pytest process, and
-check that every rank of a mesh returned the same value.
+every case of ``task`` ("parallel", "dist_sparse", "sharded" or
+"sharded_ml") on the meshes this rank belongs to, and writes the results
+as ``<outdir>/<rank>.npz``: a numpy array per case, or the name of the
+exception class a case asks to see. The sharded tasks also write each
+case's collective counts (:func:`_put`). The test files spawn one
+group per file (:func:`run_group`), hold rank 0's results against the JAX
+package in the pytest process, and check that every rank of a mesh
+returned the same value.
 
 The inputs are made here and in the test files by the same seeded numpy
 functions below, so both packages see the same data.
@@ -28,9 +30,10 @@ import scipy.sparse as sp
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORLD = 5
-# name -> (shape, ranks): the group shapes (1,), (2,), (4,), (5,) and (2, 2)
+# name -> (shape, ranks): the group shapes (1,), (2,), (4,), (5,), (2, 2)
+# and, in a group of 7 (the sharded ML file), (7,)
 MESHES = {"m1": ((1,), 1), "m2": ((2,), 2), "m4": ((4,), 4),
-          "m5": ((5,), 5), "g22": ((2, 2), 4)}
+          "m5": ((5,), 5), "g22": ((2, 2), 4), "m7": ((7,), 7)}
 # the reference's _grids (tests/test_dist_sparse.py:36): 1D rows, 1D
 # cols, the 2D grid, ragged 5
 GRIDS = [("m4", {"row_axis": "rows"}), ("m2", {"col_axis": "rows"}),
@@ -293,7 +296,306 @@ def _dist_sparse_cases(P, meshes, out):
                 ce.condest(D, P.Context(seed=43)))
 
 
-TASKS = {"parallel": _parallel_cases, "dist_sparse": _dist_sparse_cases}
+# -- the sharded (DTensor) cases ---------------------------------------------
+
+SHARDED_MESHES = ("m1", "m2", "m4", "m5", "g22")
+ML_MESHES = SHARDED_MESHES + ("m7",)
+# the reference's ALL_TRANSFORMS (tests/test_sketch_core.py:38-50) and
+# FJLT, each with its oracle atol
+TRANSFORMS = {
+    "JLT": 1e-4, "CT": 1e-4, "CWT": 1e-4, "MMT": 1e-4, "WZT": 1e-4,
+    "UST_replace": 1e-4, "UST_noreplace": 1e-4, "GaussianRFT": 1e-4,
+    "LaplacianRFT": 1e-3, "MaternRFT": 1e-4, "ExpSemigroupRLT": 1e-3,
+    "FJLT": 1e-4}
+# layout -> (rowwise, placement helper): the sketched axis split
+# (cw_rows, rw_cols; rw_grid on the 2 × 2 grid) or whole (rw_grid on a
+# line)
+LAYOUTS = {"cw_rows": (False, "row_sharded"), "rw_grid": (True, "grid2d"),
+           "rw_cols": (True, "col_sharded")}
+TN, TS, TM = 128, 32, 16
+
+
+def make_transform(sk, name, ctx):
+    """The transform ``name`` of either package's sketch module, as the
+    reference's ALL_TRANSFORMS builds it (N = 128, S = 32)."""
+    N, S = TN, TS
+    return {
+        "JLT": lambda: sk.JLT(N, S, ctx),
+        "CT": lambda: sk.CT(N, S, ctx, C=2.0),
+        "CWT": lambda: sk.CWT(N, S, ctx),
+        "MMT": lambda: sk.MMT(N, S, ctx),
+        "WZT": lambda: sk.WZT(N, S, ctx, p=1.5),
+        "UST_replace": lambda: sk.UST(N, S, ctx, replace=True),
+        "UST_noreplace": lambda: sk.UST(N, S, ctx, replace=False),
+        "GaussianRFT": lambda: sk.GaussianRFT(N, S, ctx, sigma=2.0),
+        "LaplacianRFT": lambda: sk.LaplacianRFT(N, S, ctx, sigma=2.0),
+        "MaternRFT": lambda: sk.MaternRFT(N, S, ctx, nu=1.5, l=2.0),
+        "ExpSemigroupRLT": lambda: sk.ExpSemigroupRLT(N, S, ctx, beta=0.5),
+        "FJLT": lambda: sk.FJLT(N, S, ctx),
+    }[name]()
+
+
+def transform_operand(rowwise):
+    """The reference's sharded-oracle operands (test_sketch_core.py:75,
+    :91)."""
+    return normal((TM, TN), 2) if rowwise else normal((TN, TM), 1)
+
+
+def tsqr_panel(m=512, k=24, cond=1e3, seed=2):
+    """The reference's ``_panel`` (tests/test_tsqr.py:17)."""
+    rng = np.random.default_rng(seed)
+    U, _ = np.linalg.qr(rng.standard_normal((m, k)))
+    V, _ = np.linalg.qr(rng.standard_normal((k, k)))
+    s = np.logspace(0, -np.log10(cond), k)
+    return ((U * s) @ V.T).astype(np.float32)
+
+
+def lowrank(m, n, r, seed):
+    """The reference's ``_lowrank`` (tests/test_nla.py:18)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((m, r)) @ rng.standard_normal((r, n))
+            ).astype(np.float32)
+
+
+def lsqr_problem():
+    """The reference's ``problem`` (tests/test_krylov_sharded.py:25)."""
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((96, 24)).astype(np.float32)
+    return A, rng.standard_normal((96, 3)).astype(np.float32)
+
+
+def spd(n=48, seed=1):
+    """The reference's ``_spd`` (tests/test_krylov_sharded.py:71)."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((n, n)).astype(np.float32)
+    A = M @ M.T + n * np.eye(n, dtype=np.float32)
+    return A, rng.standard_normal((n, 2)).astype(np.float32)
+
+
+def extras_operand():
+    """The reference's ``A_np`` (tests/test_nla_extras_sharded.py:26)."""
+    rng = np.random.default_rng(11)
+    U = np.linalg.qr(rng.standard_normal((192, 8)))[0]
+    V = np.linalg.qr(rng.standard_normal((32, 8)))[0]
+    s = 0.7 ** np.arange(8)
+    A = (U * s) @ V.T + 1e-5 * rng.standard_normal((192, 32))
+    return A.astype(np.float32)
+
+
+def ml_data():
+    """The reference's ``data`` (tests/test_ml_sharded.py:18)."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((256, 8)).astype(np.float32)
+    return X, np.sin(X[:, 0]).astype(np.float32)
+
+
+SVD_Q = 2
+CHEB_ITERS = 80
+ADMM = {"partitions": 2, "maxiter": 6, "lam": 0.01, "features": 64}
+KRR = {"sigma": 2.0, "lam": 0.01, "s": 64, "t": 128}
+
+
+def _host(x):
+    from libskylark_tpu_torch import parallel as par
+
+    return par.to_host(x)
+
+
+def _put(out, key, fn, host):
+    """Run a case; store its host value (a dict: one array a field,
+    ``key/field``) and its collectives: [all_reduce, all_gather,
+    all_to_all] as the port counts them, and the total torch's
+    CommDebugMode saw, which also sees any a DTensor op would insert
+    (``chip_smoke.counted_call``)."""
+    import torch
+
+    import chip_smoke
+
+    res, counts = chip_smoke.counted_call(torch, fn)
+    h = host(res)
+    for k, v in (h.items() if isinstance(h, dict) else [("", h)]):
+        out[f"{key}/{k}" if k else key] = np.asarray(v)
+    out[key + "/counts"] = np.array(counts)
+
+
+def _sharded_cases(P, meshes, out):
+    import torch
+
+    from libskylark_tpu_torch import algorithms as alg, nla
+    from libskylark_tpu_torch import parallel as par, sketch as sk
+    from libskylark_tpu_torch.nla import krank, lowrank as plr, tsqr
+    from libskylark_tpu_torch.nla.randlobpcg import lobpcg_rand_evd
+
+    def put(key, fn, host=_host):
+        _put(out, key, fn, host)
+
+    for mname in SHARDED_MESHES:
+        mesh = meshes.get(mname)
+        if mesh is None:
+            continue
+        for name in TRANSFORMS:
+            for lay, (rowwise, helper) in LAYOUTS.items():
+                X = transform_operand(rowwise)
+                T = make_transform(sk, name, P.Context(seed=7))
+                dX = par.distribute(X, getattr(par, helper)(mesh))
+                dim = sk.ROWWISE if rowwise else sk.COLUMNWISE
+                put(f"{name}/{lay}/{mname}", lambda: T.apply(dX, dim))
+        rows = par.row_sharded(mesh)
+        A = par.distribute(tsqr_panel(), rows)
+        put(f"cqr2/{mname}", lambda: tsqr.cholesky_qr2(A),
+            host=lambda r: {"Q": _host(r[0]), "R": _host(r[1])})
+        params = nla.ApproximateSVDParams(num_iterations=SVD_Q)
+        qr = nla.ApproximateSVDParams(num_iterations=SVD_Q, ortho="qr")
+        L = lowrank(256, 64, 4, 6)
+        for case, A, prm in (("svd", L, params), ("svd_qr", L, qr),
+                             ("svd_wide", np.ascontiguousarray(L.T),
+                              params)):
+            dA = par.distribute(A, rows)
+            put(f"{case}/{mname}",
+                lambda: nla.approximate_svd(dA, 4, P.Context(seed=17), prm),
+                host=lambda r: {
+                    "rec": (_host(r[0]) * _host(r[1])[None]) @ _host(r[2]).T,
+                    "S": _host(r[1])})
+        A, B = lsqr_problem()
+        dA, dB = par.distribute(A, rows), par.distribute(B, rows)
+        kp = alg.KrylovParams(tolerance=1e-8, iter_lim=200)
+        put(f"lsqr/{mname}", lambda: alg.lsqr(dA, dB, kp),
+            host=lambda r: {"X": _host(r[0]), "it": r[1]})
+        for case, fn, seed in (("cg", alg.cg, 1), ("fcg", alg.flexible_cg,
+                                                    4)):
+            A, B = spd(seed=seed)
+            dA, dB = par.distribute(A, rows), par.distribute(B, rows)
+            kp = alg.KrylovParams(tolerance=1e-10, iter_lim=300)
+            put(f"{case}/{mname}", lambda: fn(dA, dB, kp),
+                host=lambda r: {"X": _host(r[0]), "it": r[1]})
+        A, B = spd(seed=5)
+        w = np.linalg.eigvalsh(A)
+        dA, dB = par.distribute(A, rows), par.distribute(B, rows)
+        put(f"cheb/{mname}", lambda: alg.chebyshev(
+            dA, dB, float(w[0]) * 0.9, float(w[-1]) * 1.1,
+            alg.KrylovParams(iter_lim=CHEB_ITERS)),
+            host=lambda r: _host(r[0]))
+        dA = par.distribute(extras_operand(), rows)
+        put(f"range_finder/{mname}", lambda: krank.RandomizedRangeFinder(
+            dA, "power_iteration", {"s": 8, "q": 1},
+            P.Context(seed=21)).compute())
+        put(f"krank_svd/{mname}", lambda: krank.randomized_svd(
+            dA, 6, P.Context(seed=22), q=1), host=lambda r: _host(r[1]))
+        put(f"lobpcg/{mname}", lambda: lobpcg_rand_evd(
+            dA, 4, P.Context(seed=23), s=128), host=lambda r: r[0])
+        put(f"lowrank/{mname}",
+            lambda: plr.approximate_dominant_subspace_basis(
+                dA, k=4, s=16, t=24, context=P.Context(seed=24)),
+            host=lambda r: _host(r[0]))
+    m1 = meshes.get("m1")
+    if m1 is not None:
+        _gate_cases(P, m1, out)
+
+
+def _gate_cases(P, mesh, out):
+    """Every kernel wrapper handed a DTensor: each refuses it (TypeError)
+    before any pointer is taken, and so does the launch gate itself."""
+    import torch
+
+    from libskylark_tpu_torch import parallel as par, sketch as sk
+    from libskylark_tpu_torch.base import randgen
+    from libskylark_tpu_torch.kernels import launch
+    from libskylark_tpu_torch.sketch import (cuda_dense, cuda_fastfood,
+                                             cuda_fwht, cuda_hash,
+                                             cuda_sparse)
+
+    key = P.Context(seed=1).allocate().key
+    d = par.distribute(normal((8, 256), 3), par.row_sharded(mesh))
+    d3 = par.distribute(normal((1, 8, 256), 3), par.replicated(mesh))
+    sc = torch.ones(16)
+    ff = sk.FastGaussianRFT(256, 16, P.Context(seed=2), fut="wht")
+    data = par.distribute(np.ones((1, 4), np.float32), par.replicated(mesh))
+    idx = torch.zeros((1, 4), dtype=torch.int64)
+    calls = {
+        "launch.ptr": lambda: launch.ptr(d),
+        "dense_rowwise": lambda: cuda_dense.rowwise_apply(
+            key, randgen.Normal(), d, 16, 1.0),
+        "dense_columnwise": lambda: cuda_dense.columnwise_apply(
+            key, randgen.Normal(), d, 16, 1.0),
+        "dense_partial": lambda: cuda_dense.fused_partial(
+            key, randgen.Normal(), d, 16, 1, 0),
+        "dense_rowwise_cos": lambda: cuda_dense.rft_rowwise_apply(
+            key, randgen.Normal(), d, 16, 1.0, 1.0, sc, sc),
+        "dense_batched": lambda: cuda_dense.serve_batched_apply(
+            np.zeros((1, 2), np.uint32), [1.0], d3, randgen.Normal(), 16,
+            True),
+        "hash": lambda: cuda_hash.cwt_apply(key, d, 16, True, 3),
+        "hash_batched": lambda: cuda_hash.cwt_apply_batched(
+            np.zeros((1, 2), np.uint32), d3, 16, True),
+        "fwht": lambda: cuda_fwht.srht_apply(key, d, 16, True),
+        "fastfood": lambda: cuda_fastfood.features_rows(ff, d),
+        "sparse": lambda: cuda_sparse.cwt_sparse_apply_batched(
+            np.zeros((1, 2), np.uint32), data, idx, idx, 16, True, (1, 8)),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+            out[f"gate/{name}"] = np.array("none")
+        except TypeError as e:
+            out[f"gate/{name}"] = np.array(
+                "TypeError" if "to_local()" in str(e) else str(e))
+
+
+def _sharded_ml_cases(P, meshes, out):
+    from libskylark_tpu_torch import parallel as par
+    from libskylark_tpu_torch.algorithms.prox import (HingeLoss,
+                                                       L2Regularizer,
+                                                       SquaredLoss)
+    from libskylark_tpu_torch.ml import admm, kernels, krr
+
+    X, Y = ml_data()
+    y = (Y > 0).astype(np.int64)
+    k = kernels.Gaussian(X.shape[1], sigma=KRR["sigma"])
+
+    def put(key, fn, host=_host):
+        _put(out, key, fn, host)
+
+    for mname in ML_MESHES:
+        mesh = meshes.get(mname)
+        if mesh is None:
+            continue
+        Xs = par.distribute(X, par.row_sharded(mesh))
+        Ys = par.distribute(Y, par.vec_sharded(mesh))
+        lam, s = KRR["lam"], KRR["s"]
+        put(f"krr/{mname}", lambda: krr.kernel_ridge(k, Xs, Ys, lam))
+        put(f"akrr/{mname}", lambda: krr.approximate_kernel_ridge(
+            k, Xs, Y, lam, s=s, context=P.Context(seed=3)),
+            host=lambda r: _host(r[1]))
+        cwt = krr.KrrParams(sketched_rr=True, fast_sketch=True,
+                            sketch_size=KRR["t"])
+        put(f"akrr_cwt/{mname}", lambda: krr.approximate_kernel_ridge(
+            k, Xs, Ys, lam, s=s, context=P.Context(seed=4), params=cwt),
+            host=lambda r: _host(r[1]))
+        put(f"sakrr/{mname}", lambda: krr.sketched_approximate_kernel_ridge(
+            k, Xs, Ys, lam, s=s, context=P.Context(seed=5), t=KRR["t"]),
+            host=lambda r: _host(r[1]))
+
+        def linear():
+            S = admm.BlockADMMSolver(SquaredLoss(), L2Regularizer(),
+                                     ADMM["lam"], X.shape[1],
+                                     num_partitions=ADMM["partitions"])
+            S.maxiter, S.tol = ADMM["maxiter"], 0.0
+            return S.train(Xs, y).coef
+
+        def kernel():
+            S = admm.BlockADMMSolver.from_kernel(
+                P.Context(seed=6), HingeLoss(), L2Regularizer(),
+                ADMM["lam"], ADMM["features"], k, "regular",
+                ADMM["partitions"])
+            S.maxiter, S.tol = ADMM["maxiter"], 0.0
+            return S.train(Xs, y).coef
+
+        put(f"admm/{mname}", linear)
+        put(f"admm_kernel/{mname}", kernel)
+
+
+TASKS = {"parallel": _parallel_cases, "dist_sparse": _dist_sparse_cases,
+         "sharded": _sharded_cases, "sharded_ml": _sharded_ml_cases}
 
 
 def main() -> None:
@@ -308,6 +610,8 @@ def main() -> None:
                                      connect_timeout=60.0)
     meshes = {}
     for name, (shape, n) in MESHES.items():
+        if n > world:
+            continue
         m = make_mesh(shape, devices=list(range(n)))
         if rank < n:
             meshes[name] = m
