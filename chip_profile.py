@@ -38,7 +38,13 @@ phase (``chip_smoke.serve_cells``): ``warm_ms``, the median host time of
 one synchronous capacity-8 flush of the bucket's requests through a
 MicrobatchExecutor on the card (capacity 4 for the smaller buckets),
 ``device_ms`` its kernels' time under torch.profiler, ``busy`` their
-ratio, and ``requests_per_s`` = requests / warm time.
+ratio, and ``requests_per_s`` = requests / warm time. The same for each
+bucket of the serve-solve phase (``chip_smoke.serve_solve_cells``:
+``serve-solve-jlt``, ``serve-solve-cwt``, ``serve-sparse-solve-cwt``,
+``serve-sparse-solve-jlt``, ``serve-cmm-srht``, ``serve-cmm-cwt-sparse``,
+``serve-lowrank``, ``serve-krr-predict``, ``serve-rlsc-predict``,
+``serve-condest``, ``serve-graph-ase``, ``serve-graph-ppr``), at capacity
+8 (4 for the sparse solves).
 
 Then one ``sparse-<cell>`` line per timed entry point of chip_smoke.py's
 sparse phase (config 2, ``sparse_cells``): each transform's rowwise apply
@@ -570,6 +576,8 @@ def main() -> int:
         print(json.dumps(row), flush=True)
     del A, Asvd, Als, b, Ak, bk, X, qrft, precond, Acw
     for name, row in chip_smoke.serve_cells(torch, np).items():
+        print(json.dumps({"cell": f"serve-{name}", **row}), flush=True)
+    for name, row in chip_smoke.serve_solve_cells(torch, P, np).items():
         print(json.dumps({"cell": f"serve-{name}", **row}), flush=True)
     for name, fn in sparse_cells(torch, P, np).items():
         row = {"cell": f"sparse-{name}", "warm_ms": warm_ms(torch, fn)}

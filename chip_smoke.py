@@ -96,6 +96,36 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             and serve-srht flush exactly one hash_batched or fwht_batched
             launch; then each bucket's flush cell (warm ms, device ms,
             busy);
+4b'. serve_solve — the nine solve-family endpoints at full width, the
+            same storm (4 threads, max_batch 8, warm-up then measured with
+            every launch counter and the torch panel counter set to 0):
+            solve JLT and CWT (16 each, 49,153–65,536 × 512, b = A·x₀ +
+            0.1·noise, s = 2048), sparse solve CWT (s = 4096) and JLT
+            (s = 2048) on 4 sprand CSRs of 262,144 × 1,024 at 0.5%,
+            compressed matmul by SRHT (8, 1,025–2,048 × 8,192 · 8,192 ×
+            256, s = 1024) and by CWT of rcv1-shaped CSR rows (8,
+            1,025–2,048 × 47,236 at 0.16%), lowrank (8, rows 4,097–8,192
+            of config 4's SVD operand, JLT 8192 → 128 and → 512, k = 64),
+            KRR and RLSC predict (16 each, 129–256 query rows, config 5's
+            Gaussian model on 16,384 rows held on the host, coef from
+            kernel_rlsc), condest (8, 8,193–16,384 × 512, 8 steps), ASE
+            (k = 6, 2 iterations) and PPR (α = 0.85, 16 iterations) on a
+            scale-16 R-MAT graph (8 each). Every served request
+            torch.equal to its capacity-1 flush through the kernel route;
+            the kernel-routed ones held to their capacity-1 plain flush
+            (SOLVE_LIMITS: solves 1e-4·max|x|, lowrank projector 1e-4,
+            cmm 1e-4·max and the bound 1e-6 relative); each solve's
+            residual ≤ 1.5 × the exact float64 one; condest within the
+            reference's bounds of the operand's singular values; the cmm
+            estimate's Frobenius error reported beside its bound; exactly
+            one batched launch per operand per flush (SOLVE_ROUTES) and no
+            other launch, no torch operator panel, no declined bucket, the
+            sketch-free endpoints on the library route, one model upload
+            per KRR/RLSC bucket; each kernel-routed bucket's sketches at
+            its flush shape against their plain versions (B2, B3
+            torch.equal on CPU copies; B1, B5 1e-4·max); requests/s,
+            p50/p99, flushes, padding waste, H2D bytes per flush and the
+            phase's peak memory on its line;
 4c. sparse — config 2 end to end at full width (LIBSVM rcv1.binary's
             20,242 × 47,236 at 0.16%): a sprand.sample operand with
             dyadic values written by write_libsvm and read back by
@@ -333,21 +363,29 @@ def card_peaks(torch) -> dict:
             "mem_clock_mhz": mem_hz / 1e6, "bus_bits": bus_bits}
 
 
-def make_operand(torch, shape, seed):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randn(shape, generator=g, device="cuda",
+def release_cache(torch) -> None:
+    """Hand the blocks this process's allocator caches back to the card,
+    before child processes that share it allocate their own."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def make_operand(torch, shape, seed, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device,
                        dtype=torch.float32)
 
 
-def svd_operand(torch):
-    """The SVD cell's 8192×8192 matrix of rank 512 with singular values
-    0.95^i and random singular vectors, built on the card; returns
-    (A, sigma)."""
-    g = torch.Generator(device="cuda").manual_seed(2)
-    r = 512
-    U0 = torch.linalg.qr(torch.randn(8192, r, generator=g, device="cuda"))[0]
-    V0 = torch.linalg.qr(torch.randn(8192, r, generator=g, device="cuda"))[0]
-    sigma = 0.95 ** torch.arange(r, device="cuda", dtype=torch.float32)
+def svd_operand(torch, n: int = 8192, r: int = 512, device="cuda"):
+    """The SVD cell's 8192×8192 matrix (n × n) of rank 512 (r) with
+    singular values 0.95^i and random singular vectors, built on the card;
+    returns (A, sigma)."""
+    g = torch.Generator(device=device).manual_seed(2)
+    U0 = torch.linalg.qr(torch.randn(n, r, generator=g, device=device))[0]
+    V0 = torch.linalg.qr(torch.randn(n, r, generator=g, device=device))[0]
+    sigma = 0.95 ** torch.arange(r, device=device, dtype=torch.float32)
     return (U0 * sigma) @ V0.T, sigma
 
 
@@ -1681,22 +1719,26 @@ def submit(ex, endpoint, T, A, dim):
     return ex.submit_sketch(T, A, dimension=dim)
 
 
-def storm(ex, reqs, threads: int = 4):
-    """Submit every request from ``threads`` threads, interleaved; returns
-    the results and, per request, (submit time, completion time)."""
+def storm(ex, reqs, threads: int = 4, call=None):
+    """Submit every request from ``threads`` threads, interleaved, each by
+    ``call(ex, request)`` (default: :func:`submit` of a serve-phase
+    request); returns the results and, per request, (submit time,
+    completion time)."""
     import threading
 
     futs = [None] * len(reqs)
     times = [[0.0, 0.0] for _ in reqs]
+    if call is None:
+        def call(ex, r):
+            return submit(ex, *r[1:])
 
     def done(i):
         return lambda f: times[i].__setitem__(1, time.perf_counter())
 
     def worker(t):
         for i in range(t, len(reqs), threads):
-            _, endpoint, T, A, dim = reqs[i]
             times[i][0] = time.perf_counter()
-            futs[i] = submit(ex, endpoint, T, A, dim)
+            futs[i] = call(ex, reqs[i])
             futs[i].add_done_callback(done(i))
 
     ts = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
@@ -1825,15 +1867,22 @@ def serve_phase(torch, P, np) -> dict:
     return out
 
 
-def flush_cell(torch, ex, bucket_reqs, reps: int = 5, warmup: int = 2):
+def flush_cell(torch, ex, bucket_reqs, reps: int = 5, warmup: int = 2,
+               call=None):
     """One bucket's capacity-8 flush through ``ex`` (max_batch 16, a long
     linger, so 8 submits wait for :meth:`flush`): ``warm_ms``, the median
     host time of the synchronous flush; ``device_ms``, its kernels' time
-    under torch.profiler in one more flush; ``busy`` = device/warm."""
+    under torch.profiler in one more flush; ``busy`` = device/warm.
+    ``call(ex, request)`` submits one request (default: the serve phase's
+    :func:`submit`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    if call is None:
+        def call(ex, r):
+            return submit(ex, *r[1:])
+
     def one():
-        futs = [submit(ex, e, T, A, dim) for _, e, T, A, dim in bucket_reqs]
+        futs = [call(ex, r) for r in bucket_reqs]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ex.flush()
@@ -2600,6 +2649,497 @@ ML_LIMITS = {
 }
 ML_BCD_TOLERANCE = 1e-3
 ML_CG_TOLERANCE = 1e-6
+
+
+# Phase 4b': the solve-family serve endpoints at full width. Shapes:
+# config 4's LS cell (ls), the sparse LS cell (sparse), config 1's n and s
+# (cmm-srht), config 2's rcv1 rows (cmm-cwt-sparse), config 4's SVD
+# operand (lowrank), config 5's model on the ml phase's first 16,384 rows
+# (krr, rlsc), the LS operand's width (condest), and the a3 phase's R-MAT
+# generator at scale 16 with skylark_graph_se's defaults (graph).
+SOLVE_FULL = {"ls_rows": (49153, 65537), "ls_cols": 512, "ls_s": 2048,
+              "ls_requests": 16, "sparse_requests": 4,
+              "sparse_s": {"CWT": 4096, "JLT": 2048},
+              "cmm_rows": (1025, 2049), "cmm_n": 8192, "cmm_p": 256,
+              "cmm_s": 1024, "cmm_requests": 8,
+              "lowrank_rows": (4097, 8193), "lowrank_s": 128,
+              "lowrank_t": 512, "lowrank_k": 64, "lowrank_requests": 8,
+              "krr_rows": (129, 257), "krr_train": 16384,
+              "krr_requests": 16, "condest_rows": (8193, 16385),
+              "condest_cols": 512, "condest_steps": 8,
+              "condest_requests": 8, "graph_scale": 16,
+              "graph_edge_factor": 4, "ase_k": 6, "ase_iters": 2,
+              "ppr_alpha": 0.85, "ppr_iters": 16, "graph_requests": 8,
+              "sparse_ls": SPARSE_LS, "rcv1_d": RCV1_D, "svd_n": 8192,
+              "svd_rank": 512, "ml": ML_FULL}
+# the phase's limits, each with its reason
+SOLVE_LIMITS = {
+    # the LS cell's: s = 4d gives ≈ 1.15, s = 2d (sparse JLT) ≈ 1.41
+    "residual_ratio": 1.5,
+    # kernel against plain: the reference's oracle, on x, Z·Zᵀ and the
+    # cmm estimate; the bound is host arithmetic on both routes
+    "solve": TOL, "projector": TOL, "cmm": TOL, "cmm_bound_rel": 1e-6,
+    # condest: the reference's qos bounds (σmax within 0.2; cond in
+    # [1, 3·exact]); Golub–Kahan's σmin is a Ritz value, not below the
+    # true one beyond rounding
+    "condest_max_rel": 0.2, "condest_cond": 3.0, "condest_min_rel": 1e-3}
+# bucket -> (kernel, launches per flush) of its flush's sketches
+SOLVE_ROUTES = {
+    "solve-jlt": {"dense_batched_columnwise": 2},
+    "solve-cwt": {"hash_batched": 2},
+    "sparse-solve-cwt": {"sparse_columnwise": 1, "hash_batched": 1},
+    "sparse-solve-jlt": {"dense_batched_columnwise": 2},
+    "cmm-srht": {"fwht_batched": 2},
+    "cmm-cwt-sparse": {"sparse_rowwise": 1, "hash_batched": 1},
+    "lowrank": {"dense_batched_rowwise": 2},
+}
+LIBRARY_BUCKETS = ("krr-predict", "rlsc-predict", "condest", "graph-ase",
+                   "graph-ppr")
+
+
+def rmat_adjacency(np, scale: int, edge_factor: int, seed: int):
+    """The a3 phase's R-MAT edges (Graph500's probabilities) as a binary
+    symmetric scipy CSR adjacency without self-loops, 2^scale vertices."""
+    import scipy.sparse as sp
+
+    src, dst = rmat_edges(np, scale, edge_factor, (0.57, 0.19, 0.19, 0.05),
+                          seed)
+    keep = src != dst
+    n = 1 << scale
+    A = sp.coo_matrix((np.ones(int(keep.sum()), np.float32),
+                       (src[keep], dst[keep])), shape=(n, n)).tocsr()
+    A = ((A + A.T) > 0).astype(np.float32)
+    A.sort_indices()
+    return A
+
+
+def serve_solve_requests(torch, P, np, size=SOLVE_FULL,
+                         device="cuda") -> tuple:
+    """The serve-solve phase's requests and what its checks need: a list
+    of (bucket, submit method, kwargs, check data) and the shared
+    operands, dense ones on ``device``, CSR and KRR ones on the host."""
+    from libskylark_tpu_torch import ml, sketch as sk
+    from libskylark_tpu_torch.base import sprand
+    from libskylark_tpu_torch.base.sparse import spmm
+
+    g = np.random.default_rng(900)
+    reqs, ops = [], {}
+    # the LS cell: one operand per request, sketched by JLT and by CWT
+    d, s = size["ls_cols"], size["ls_s"]
+    for i in range(size["ls_requests"]):
+        n = int(g.integers(*size["ls_rows"]))
+        A = make_operand(torch, (n, d), 9000 + i, device)
+        x0 = make_operand(torch, (d,), 9100 + i, device)
+        b = A @ x0 + 0.1 * make_operand(torch, (n,), 9200 + i, device)
+        for fam in ("JLT", "CWT"):
+            T = getattr(sk, fam)(n, s, P.Context(910 + i % 8))
+            reqs.append((f"solve-{fam.lower()}", "submit_solve",
+                         {"A": A, "B": b, "transform": T}, {"op": i}))
+        ops[("ls", i)] = (A, b)
+    # the sparse LS cell
+    m, n, dens = size["sparse_ls"]
+    for i in range(size["sparse_requests"]):
+        L = sprand.sample(m, n, dens, DYADIC, (1, 1, 1), P.Context(920 + i),
+                          device=device)
+        gt = torch.Generator(device=device).manual_seed(930 + i)
+        x0 = torch.randn(n, generator=gt, device=device)
+        b = spmm(L, x0) + 0.1 * torch.randn(m, generator=gt, device=device)
+        for fam, s in size["sparse_s"].items():
+            T = getattr(sk, fam)(m, s, P.Context(940 + i))
+            reqs.append((f"sparse-solve-{fam.lower()}", "submit_sparse_solve",
+                         {"A": L, "B": b, "transform": T}, {"op": i}))
+        ops[("sparse", i)] = (L, b)
+    # compressed matmul: dense SRHT and rcv1-shaped CSR by CWT
+    cn, cp, cs = size["cmm_n"], size["cmm_p"], size["cmm_s"]
+    for i in range(size["cmm_requests"]):
+        rows = int(g.integers(*size["cmm_rows"]))
+        A = make_operand(torch, (rows, cn), 9300 + i, device)
+        B = make_operand(torch, (cn, cp), 9400 + i, device)
+        reqs.append(("cmm-srht", "submit_compressed_matmul",
+                     {"A": A, "B": B, "transform": sk.FJLT(
+                         cn, cs, P.Context(950 + i), fut="wht")}, {}))
+        rows = int(g.integers(*size["cmm_rows"]))
+        As = csr_operand(rows, size["rcv1_d"], RCV1_DENSITY, 9500 + i)
+        Bs = make_operand(torch, (size["rcv1_d"], cp), 9600 + i, device)
+        reqs.append(("cmm-cwt-sparse", "submit_compressed_matmul",
+                     {"A": As, "B": Bs, "transform": sk.CWT(
+                         size["rcv1_d"], cs, P.Context(960 + i))}, {}))
+    # lowrank on the rows of config 4's SVD operand
+    Asvd, _ = svd_operand(torch, size["svd_n"], size["svd_rank"], device)
+    lin = ml.kernels.Linear(Asvd.shape[1])
+    for i in range(size["lowrank_requests"]):
+        rows = int(g.integers(*size["lowrank_rows"]))
+        ctx = P.Context(970 + i)
+        Ts = lin.create_rft(size["lowrank_s"], ctx)
+        Tt = lin.create_rft(size["lowrank_t"], ctx)
+        reqs.append(("lowrank", "submit_lowrank",
+                     {"transform_s": Ts, "transform_t": Tt,
+                      "A": Asvd[:rows], "k": size["lowrank_k"]}, {}))
+    # KRR and RLSC: config 5's model on the first rows of the ml phase,
+    # held on the host as a server would hold it
+    X, y, Xq, _ = ml_data(torch, size["ml"], device)
+    X, y = X[:size["krr_train"]], y[:size["krr_train"]]
+    kern = ml_kernel(ml, size["ml"])
+    coef, coding = ml.kernel_rlsc(kern, X, y, ML_LAM, device=device)
+    model = (X.cpu().numpy(), coef.cpu().numpy())
+    Xq = Xq.cpu().numpy()
+    at = 0
+    for i in range(size["krr_requests"]):
+        for ep, method in (("krr-predict", "submit_krr_predict"),
+                           ("rlsc-predict", "submit_rlsc_predict")):
+            rows = int(g.integers(*size["krr_rows"]))
+            q = Xq[at % (Xq.shape[0] - rows):][:rows]
+            at += rows
+            reqs.append((ep, method, {"kernel": kern, "X_new": q,
+                                      "X_train": model[0],
+                                      "coef": model[1]}, {}))
+    ops["model"] = model
+    del X, y, coef
+    # condest on Gaussian operands of the LS operand's width
+    for i in range(size["condest_requests"]):
+        rows = int(g.integers(*size["condest_rows"]))
+        reqs.append(("condest", "submit_condest",
+                     {"A": make_operand(torch, (rows, size["condest_cols"]),
+                                        9700 + i, device),
+                      "steps": size["condest_steps"], "seed": i}, {}))
+    # the graph endpoints on one R-MAT adjacency
+    G = rmat_adjacency(np, size["graph_scale"], size["graph_edge_factor"],
+                       980)
+    nv = G.shape[0]
+    for i in range(size["graph_requests"]):
+        reqs.append(("graph-ase", "submit_graph_ase",
+                     {"A": G, "k": size["ase_k"], "seed": 990 + i,
+                      "iters": size["ase_iters"]}, {}))
+        svec = np.zeros(nv, np.float32)
+        svec[g.choice(nv, 8, replace=False)] = 1.0
+        reqs.append(("graph-ppr", "submit_graph_ppr",
+                     {"A": G, "s": svec, "alpha": size["ppr_alpha"],
+                      "iters": size["ppr_iters"]}, {}))
+    ops["graph_nnz"] = G.nnz
+    return reqs, ops
+
+
+def cusparse_repeat(torch, np, size, device) -> dict:
+    """Recorded, not a check: torch's cuSPARSE product of the phase's
+    R-MAT adjacency (CSR) with a Gaussian (n, 6) block, made twice on the
+    same inputs: whether the two agree bit for bit, and by how much they
+    differ. The graph lanes sum in CSR order instead (ROADMAP C17)."""
+    from libskylark_tpu_torch.base.sparse import SparseMatrix
+
+    S = SparseMatrix.from_scipy(rmat_adjacency(
+        np, size["graph_scale"], size["graph_edge_factor"], 980))
+    data, indices, indptr = (torch.from_numpy(x).to(device)
+                             for x in S.csr_parts(np.dtype(np.float32)))
+    A = torch.sparse_csr_tensor(indptr.long(), indices.long(), data,
+                                S.shape)
+    X = torch.randn(S.shape[1], size["ase_k"], device=device)
+    runs = [A @ X for _ in range(5)]
+    return {"equal": all(bool(torch.equal(runs[0], r)) for r in runs),
+            "max_abs_diff": max(float((runs[0] - r).abs().max())
+                                for r in runs),
+            "max_abs": float(runs[0].abs().max())}
+
+
+# the endpoint each submit method of the phase reaches (none of the
+# phase's CSR operands is dense enough to go densified)
+SOLVE_ENDPOINTS = {"submit_solve": "solve_l2_sketched",
+                   "submit_sparse_solve": "sparse_solve_l2_sketched",
+                   "submit_compressed_matmul": "compressed_matmul",
+                   "submit_lowrank": "lowrank",
+                   "submit_krr_predict": "krr_predict",
+                   "submit_rlsc_predict": "rlsc_predict",
+                   "submit_condest": "condest", "submit_graph_ase": "graph_ase",
+                   "submit_graph_ppr": "graph_ppr"}
+
+
+def solve_call(ex, req):
+    _, method, kw, _ = req
+    return getattr(ex, method)(**kw)
+
+
+def solve_prepare(ex, req) -> tuple:
+    """(bucket key, ctx, request) of a phase request, packed by the
+    executor's own code and not queued."""
+    _, method, kw, _ = req
+    return ex._prepare(SOLVE_ENDPOINTS[method], **kw)
+
+
+def same(torch, a, b) -> bool:
+    """torch.equal of two served results (a tuple's members, a host array
+    by value)."""
+    if isinstance(a, tuple):
+        return all(same(torch, x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return bool(torch.equal(a, b))
+    return bool((a == b).all()) if hasattr(a, "all") else a == b
+
+
+def flush_inputs(ex, reqs):
+    """(ctx, kd, scale, arrays) of one flush of those of ``reqs`` that
+    share the first one's executor bucket, stacked by the executor."""
+    prepared = [solve_prepare(ex, r) for r in reqs]
+    key, ctx, _ = prepared[0]
+    cohort = [q for k, _, q in prepared if k == key]
+    kd, scale, arrays, _ = ex._stack_cohort(ctx, cohort, len(cohort))
+    return ctx, kd, scale, arrays
+
+
+def solve_sketch_checks(torch, ex, reqs) -> list:
+    """Each kernel-routed bucket's sketches at its first flush's shape
+    (8 lanes; 4 sparse): the batched kernels against their plain versions
+    on the same stacked operands — B1-batched and B5-batched on the card
+    within TOL·max|plain|, B2-batched and B3 torch.equal to the plain
+    scatter on CPU copies."""
+    from libskylark_tpu_torch.engine import serve
+
+    results = []
+    for b in SOLVE_ROUTES:
+        mine = [r for r in reqs if r[0] == b][:8]
+        ctx, kd, scale, arrays = flush_inputs(ex, mine)
+        got = serve.sketch_stage(ctx, kd, scale, arrays)
+        exact = ctx["family"] == "CWT"
+        if exact:
+            host = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                    for k, v in arrays.items()}
+            want = serve.sketch_stage(ctx, kd, scale, host, plain=True)
+        else:
+            want = serve.sketch_stage(ctx, kd, scale, arrays, plain=True)
+        for name, gt, wt in zip(("A", "B"), got, want):
+            if exact:
+                ok = bool(torch.equal(gt.cpu(), wt))
+                err = float((gt.cpu() - wt).abs().max())
+                h = {"max_abs_err": err, "ok": ok}
+            else:
+                h = held(torch, gt, wt)
+            results.append({"bucket": b, "operand": name,
+                            "shape": list(arrays["A" if "A" in arrays
+                                                 else "data"].shape),
+                            "out": list(gt.shape), **h})
+        del got, want, arrays
+    return results
+
+
+def serve_solve_route_checks(out, st) -> None:
+    """The card's routes of the measured storm: every sketch bucket on its
+    kernels (none declined), the endpoints without a sketch on the
+    library route, exactly one batched launch per operand per flush and
+    no other launch, and no operator panel made in torch."""
+    check(set(st["kernel"]["by_backend"]) == {"cuda"}
+          and not st["kernel"]["by_reason"],
+          f"a kernel bucket flushed on the plain program: {st['kernel']}")
+    for b, v in out["buckets"].items():
+        want = "library" if b in LIBRARY_BUCKETS else "cuda"
+        check(v["route"] == want, f"{b} took route {v['route']}, not {want}")
+    expected = {k: 0 for k in out["launches"]}
+    for b, per in SOLVE_ROUTES.items():
+        for k, n in per.items():
+            expected[k] += n * out["buckets"][b]["flushes"]
+    out["launches_expected"] = expected
+    check(out["launches"] == expected,
+          f"serve-solve launches {out['launches']} != one batched launch "
+          f"per operand per flush {expected}")
+    check(out["panels"] == 0,
+          f"the kernel routes made {out['panels']} torch operator panels")
+
+
+def serve_solve_phase(torch, P, np, size=SOLVE_FULL, device="cuda") -> dict:
+    """Phase 4b': the nine solve-family endpoints at full width. The
+    storm of :func:`serve_phase` (4 threads, max_batch 8, a warm-up storm
+    on one executor, then a measured one on another with every launch
+    counter and the torch panel counter set to 0 just before and read
+    just after); then every served request held to its capacity-1 flush
+    through the kernel route (torch.equal) and, on the kernel-routed
+    buckets, to its capacity-1 plain flush (SOLVE_LIMITS); each solve's
+    residual against the exact least-squares residual in float64;
+    condest against the operand's singular values; each kernel-routed
+    bucket's sketches against their plain versions at its flush shape.
+    Fails on any check."""
+    from libskylark_tpu_torch import engine
+    from libskylark_tpu_torch.base import randgen
+    from libskylark_tpu_torch.base.sparse import spmm
+
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reqs, ops = serve_solve_requests(torch, P, np, size, device)
+    names = list(dict.fromkeys(r[0] for r in reqs))
+    lim = SOLVE_LIMITS
+    out = {"limits": lim, "card": smi("name,power.limit") if cuda else None,
+           "buckets": {}, "setup_seconds": time.perf_counter() - t_phase}
+    with engine.MicrobatchExecutor(max_batch=8, linger_us=5000,
+                                   device=device) as ex:
+        storm(ex, reqs, call=solve_call)
+        ex.flush()
+        warm = ex.stats()
+    check(warm["failed"] == 0, f"serve-solve warm-up failed: "
+                               f"{warm['failed']}")
+    with engine.MicrobatchExecutor(max_batch=8, linger_us=5000,
+                                   device=device) as ex:
+        for c in counters():
+            for k in c:
+                c[k] = 0
+        panels0 = randgen.panels["dense_panel"]
+        t0 = time.perf_counter()
+        results, times = storm(ex, reqs, call=solve_call)
+        out["storm_seconds"] = time.perf_counter() - t0
+        ex.flush()
+        out["launches"] = launch_counts()
+        out["panels"] = randgen.panels["dense_panel"] - panels0
+        st = ex.stats()
+    out["stats"] = {k: st[k] for k in (
+        "submitted", "completed", "failed", "flushes", "coalesced",
+        "isolation_retries", "kernel", "library", "models", "sparse",
+        "padding_waste_ratio", "latency_s", "batch_capacity_hist")}
+    # the executor's bucket keys of each phase bucket (a KRR/RLSC key
+    # carries the model's ids; cmm-cwt-sparse's rows span two nnz classes)
+    statics = {}
+    for r in reqs:
+        statics.setdefault(r[0], set()).add(repr(solve_prepare(ex, r)[0]))
+    for b in names:
+        mine = [i for i, r in enumerate(reqs) if r[0] == b]
+        lat = sorted(times[i][1] - times[i][0] for i in mine)
+        span = (max(times[i][1] for i in mine)
+                - min(times[i][0] for i in mine))
+        keys = [st["by_bucket"][k] for k in sorted(statics[b])]
+        out["buckets"][b] = {
+            "requests": len(mine), "requests_per_s": len(mine) / span,
+            "latency_p50_ms": 1e3 * statistics.median(lat),
+            "latency_p99_ms": 1e3 * lat[-1],
+            "route": "/".join(sorted({v["route"] for v in keys})),
+            "flushes": sum(v["flushes"] for v in keys),
+            "completed": sum(v["completed"] for v in keys),
+            "executor_buckets": keys}
+    check(sum(v["flushes"] for v in out["buckets"].values())
+          == st["flushes"], "a flush of the storm is in no phase bucket")
+    check(st["failed"] == 0 and st["completed"] == len(reqs)
+          and st["submitted"] == len(reqs),
+          f"serve-solve storm: {st['submitted']} submitted, "
+          f"{st['completed']} completed, {st['failed']} failed of "
+          f"{len(reqs)}")
+    serve_solve_route_checks(out, st)
+    check(st["library"]["flushes"] == sum(
+        out["buckets"][b]["flushes"] for b in LIBRARY_BUCKETS),
+        f"library flushes {st['library']} differ from the buckets'")
+    check(st["models"]["uploads"] == 2,
+          f"KRR/RLSC models uploaded {st['models']['uploads']} times, not "
+          "once per bucket")
+    # references: capacity-1 flushes through the kernel route and plain
+    worst = {}
+    with engine.MicrobatchExecutor(max_batch=1, device=device) as one, \
+            engine.MicrobatchExecutor(max_batch=1, kernel="plain",
+                                      device=device) as plain:
+        for r, got in zip(reqs, results):
+            b = r[0]
+            alone = solve_call(one, r).result(timeout=600)
+            check(same(torch, got, alone),
+                  f"{b}: a lane of a capacity-8 flush differs from its "
+                  "capacity-1 flush through the kernel")
+            if b in LIBRARY_BUCKETS:
+                continue
+            want = solve_call(plain, r).result(timeout=600)
+            if b == "lowrank":
+                P1, P2 = got.double() @ got.double().T, \
+                    want.double() @ want.double().T
+                err, limit = float((P1 - P2).abs().max()), lim["projector"]
+                del P1, P2
+            elif b.startswith("cmm"):
+                rel = abs(got[1] - want[1]) / abs(want[1])
+                check(rel <= lim["cmm_bound_rel"],
+                      f"{b}: bound {got[1]} vs plain {want[1]}")
+                err = float((got[0] - want[0]).abs().max()
+                            / want[0].abs().max())
+                limit = lim["cmm"]
+            else:
+                err = float((got - want).abs().max() / want.abs().max())
+                limit = lim["solve"]
+            check(err <= limit, f"{b}: served result vs its plain flush "
+                                f"{err} > {limit}")
+            worst[b] = max(worst.get(b, 0.0), err)
+    out["max_err_vs_plain"] = worst
+
+    # algorithm contracts
+    ratios = {}
+    exact = {}
+    for (kind, i), (A, b) in ((k, v) for k, v in ops.items()
+                              if isinstance(k, tuple)):
+        if kind == "ls":
+            exact[(kind, i)] = lstsq_residual(torch, A, b)
+        else:
+            Ld = A.todense(dtype=np.float64, device=device)
+            xe = torch.linalg.lstsq(Ld, b.double()[:, None]).solution
+            exact[(kind, i)] = float(torch.linalg.norm(
+                Ld @ xe[:, 0] - b.double()))
+            del Ld, xe
+    for r, x in zip(reqs, results):
+        b = r[0]
+        if "solve" not in b:
+            continue
+        kind = "sparse" if b.startswith("sparse") else "ls"
+        A, rhs = ops[(kind, r[3]["op"])]
+        res = (spmm(A, x) if kind == "sparse" else A @ x) - rhs
+        ratio = float(torch.linalg.norm(res.double())) / exact[(kind,
+                                                                r[3]["op"])]
+        ratios.setdefault(b, []).append(ratio)
+        check(ratio <= lim["residual_ratio"],
+              f"{b}: residual ratio {ratio} > {lim['residual_ratio']}")
+    out["residual_ratio"] = {b: {"max": max(v), "min": min(v)}
+                             for b, v in ratios.items()}
+    cond = []
+    for r, got in zip(reqs, results):
+        if r[0] != "condest":
+            continue
+        sv = torch.linalg.svdvals(r[2]["A"].double())
+        smax, smin = float(sv[0]), float(sv[-1])
+        c, gmax, gmin = (float(v) for v in got)
+        cond.append({"cond": c, "sigma_max": gmax, "sigma_min": gmin,
+                     "exact_max": smax, "exact_min": smin})
+        check(abs(gmax - smax) <= lim["condest_max_rel"] * smax
+              and 1.0 <= c <= lim["condest_cond"] * smax / smin
+              and gmin >= smin * (1 - lim["condest_min_rel"]),
+              f"condest outside the reference's bounds: {cond[-1]}")
+    out["condest"] = cond
+    cmm = []
+    for r, got in zip(reqs, results):
+        if not r[0].startswith("cmm"):
+            continue
+        (est, bound), A, B = got, r[2]["A"], r[2]["B"]
+        exact_ab = (spmm(A, B) if r[0].endswith("sparse") else A @ B)
+        cmm.append({"bucket": r[0], "frobenius_error": float(
+            torch.linalg.norm(est - exact_ab)), "bound": bound})
+    out["cmm_error_vs_bound"] = cmm
+    del results
+    out["cusparse_repeat"] = cusparse_repeat(torch, np, size, device)
+
+    # each kernel-routed bucket's sketches against their plain versions
+    with engine.MicrobatchExecutor(max_batch=8, device=device) as ex:
+        out["sketch_checks"] = solve_sketch_checks(torch, ex, reqs)
+    bad = [c for c in out["sketch_checks"] if not c["ok"]]
+    check(not bad, f"serve-solve sketches disagree with their plain "
+                   f"versions: {bad}")
+    out["seconds"] = time.perf_counter() - t_phase
+    if cuda:
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del reqs, ops
+        release_cache(torch)
+    emit("serve_solve", **out)
+    return out
+
+
+def serve_solve_cells(torch, P, np) -> dict:
+    """Every serve-solve bucket's flush cell (:func:`flush_cell`) on its
+    first 8 requests (the sparse buckets: their 4)."""
+    from libskylark_tpu_torch import engine
+
+    reqs, _ = serve_solve_requests(torch, P, np)
+    cells = {}
+    with engine.MicrobatchExecutor(max_batch=16, linger_us=60_000_000,
+                                   device="cuda") as ex:
+        for b in dict.fromkeys(r[0] for r in reqs):
+            cells[b] = flush_cell(torch, ex, [r for r in reqs
+                                              if r[0] == b][:8],
+                                  call=solve_call)
+    return cells
 
 
 def ml_data(torch, size, device):
@@ -3985,6 +4525,7 @@ def dist_two_ranks(torch) -> dict:
     condest's σmax, σmin within 1e-3), the CWT cells that no rank sums
     bit-equal, every result the same on both ranks, and the partial
     kernel launched."""
+    release_cache(torch)
     world, port = 2, free_port()
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--dist-child",
@@ -4650,6 +5191,7 @@ def sharded_two_ranks(torch) -> dict:
     one card) and hold what they report: every check within its limit,
     each entry point's collectives its design's list, every result the
     same bytes on both ranks, each rank's kernels launched on its block."""
+    release_cache(torch)
     world, port = 2, free_port()
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--sharded-child",
@@ -4841,6 +5383,7 @@ def main() -> int:
     main = main_path(torch, P)
     serve = serve_phase(torch, P, np)
     emit("serve_cells", cells=serve_cells(torch, np))
+    ssolve = serve_solve_phase(torch, P, np)
     sparse = sparse_phase(torch, P, np, peaks)
     ml_path = ml_phase(torch, P, np)
     a3 = a3_phase(torch, P, np)
@@ -4908,6 +5451,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (main["launches"][name] + serve["launches"][name]
+                         + ssolve["launches"][name]
                          + sparse["launches"][name]
                          + ml_path["launches"][name]
                          + a3["launches"][name]

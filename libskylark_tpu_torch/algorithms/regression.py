@@ -1,6 +1,6 @@
 """Regression: exact, sketch-and-solve and sketch-accelerated L2 solvers
-(the port of libskylark_tpu/algorithms/regression.py; the serve program
-``sketched_solve_serve`` is not ported yet).
+(the port of libskylark_tpu/algorithms/regression.py), and
+``sketched_solve_serve``, one served solve request's program.
 
 The reference compiles the accelerated solvers as two engine executables
 (preconditioner build, LSQR) with one host read between them, the
@@ -108,6 +108,37 @@ def solve_l2_sketched(A, B, transform, method: str = "qr",
     X = solve_l2_exact(SAB[:, :n], SAB[:, n:], method=method,
                        device=A.device)
     return X[:, 0] if squeeze else X
+
+
+def sketched_solve_serve(key_data, scale, A, B, *, sketch_type: str,
+                         s_dim: int, method: str = "qr") -> torch.Tensor:
+    """One served sketch-and-solve request as a function of the
+    transform's raw key data ((2,) uint32) and its scale: the columnwise
+    sketch of A (n, d) and of B (n, t) from the key, JLT by
+    ``dense.serve_apply`` (the operator made in torch) or CWT by
+    ``hash.cwt_serve_apply``, then ``solve_l2_exact`` of the small
+    problem. Zero-padded rows of A and B add nothing through either
+    sketch; d and t are exact (a zero column would make the small
+    problem singular). The serve layer's plain flush runs it lane by
+    lane; its kernel flush sketches the whole cohort in one launch per
+    operand (engine/serve.py)."""
+    from libskylark_tpu_torch.base import randgen
+    from libskylark_tpu_torch.sketch import dense, hash as sketch_hash
+
+    if sketch_type == "CWT":
+        SA = sketch_hash.cwt_serve_apply(key_data, A, s_dim=s_dim,
+                                         rowwise=False)
+        SB = sketch_hash.cwt_serve_apply(key_data, B, s_dim=s_dim,
+                                         rowwise=False)
+    elif sketch_type == "JLT":
+        SA = dense.serve_apply(key_data, scale, A, dist=randgen.Normal(),
+                               s_dim=s_dim, rowwise=False)
+        SB = dense.serve_apply(key_data, scale, B, dist=randgen.Normal(),
+                               s_dim=s_dim, rowwise=False)
+    else:
+        raise errors.InvalidParametersError(
+            f"serve path supports JLT/CWT sketches, got {sketch_type!r}")
+    return solve_l2_exact(SA, SB, method=method, device=SA.device)
 
 
 # -- accelerated solvers (Blendenpik, LSRN) --

@@ -35,12 +35,14 @@ def key_words(key) -> tuple[int, int]:
 
 
 def seed_key(seed: int) -> np.ndarray:
-    """Key data of ``jax.random.key(seed)``."""
+    """Key data of ``jax.random.key(seed)`` as JAX makes it with 64-bit
+    types off, its default: the seed taken as an int64 and cut to its low
+    32 bits, the high word 0. A seed outside int64 raises OverflowError,
+    as there."""
     s = int(seed)
-    if -(1 << 31) <= s < (1 << 31):
-        return np.array([0, s & MASK32], np.uint32)
-    s &= (1 << 64) - 1  # a 64-bit seed is bit-cast to (hi, lo)
-    return np.array([s >> 32, s & MASK32], np.uint32)
+    if not -(1 << 63) <= s < (1 << 63):
+        raise OverflowError(f"seed {s} does not fit in an int64")
+    return np.array([0, s & MASK32], np.uint32)
 
 
 def fold_in(key, data: int) -> np.ndarray:

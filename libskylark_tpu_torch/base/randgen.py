@@ -28,6 +28,7 @@ rejection sampler, run as one masked loop over all elements.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any
 
 import numpy as np
@@ -42,6 +43,12 @@ from libskylark_tpu_torch.base.device import resolve_device
 CHUNK = 4096
 
 _MASK31 = (1 << 31) - 1
+
+# dense-block panels made in torch (:func:`dense_panel`, the operator of
+# every plain dense route): the kernels' routes never make one, which the
+# serve layer's flushes are held to
+panels = {"dense_panel": 0}
+_panel_lock = threading.Lock()
 
 
 def chunk_key(key, cid: int) -> np.ndarray:
@@ -490,7 +497,10 @@ def dense_panel(
     device=None,
 ) -> torch.Tensor:
     """Columns [col_start, col_stop) of the virtual (rows × n) matrix in
-    the dense-block format, generated on ``device`` (CPU by default)."""
+    the dense-block format, generated on ``device`` (CPU by default);
+    counted in ``panels``."""
+    with _panel_lock:
+        panels["dense_panel"] += 1
     b0 = col_start // block_cols
     b1 = -(-col_stop // block_cols)
     keys = torch.from_numpy(

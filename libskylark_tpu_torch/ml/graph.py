@@ -11,7 +11,9 @@ rowwise; a sparse one takes the JLT's sparse apply and ``spmm``), while
 the time-dependent PPR push over a small active set and the sweep cut
 run on the host in numpy. The serve programs ``ase_serve_apply`` and
 ``ppr_serve_apply`` are the pure per-request functions over CSR lanes,
-with eager twins ``graph_ase_serve`` and ``graph_ppr_serve``.
+with eager twins ``graph_ase_serve`` and ``graph_ppr_serve``. Where the
+reference densifies a lane, they multiply by its CSR entries in CSR order
+(``_csr_product``): at 65,536 vertices the dense lane would be 16 GiB.
 """
 
 from __future__ import annotations
@@ -281,24 +283,51 @@ def find_local_cluster(G: Graph, seeds: Iterable[Hashable],
 # ---------------------------------------------------------------------------
 
 
+def _csr_product(data: torch.Tensor, indices: torch.Tensor,
+                indptr: torch.Tensor, X: torch.Tensor,
+                nnz=None) -> torch.Tensor:
+    """A·X for one request's CSR lanes (A of ``len(indptr) − 1`` rows):
+    each entry's product with its row of X, summed row by row in CSR
+    order by ``segment_reduce``, a fixed order on the card too (cuSPARSE's
+    product, as torch calls it, does not give the same bits twice on the
+    H100, ROADMAP C17). ``nnz``: the lanes' true nonzeros (read from
+    ``indptr`` when not given, a host read on the card); the padding past
+    them is left out."""
+    nnz = int(indptr[-1]) if nnz is None else int(nnz)
+    terms = data[:nnz, None] * X[indices[:nnz].long()]
+    return torch.segment_reduce(terms, "sum", lengths=indptr[1:] - indptr[:-1],
+                                axis=0, unsafe=True)
+
+
+def _in_degree(data: torch.Tensor, indices: torch.Tensor, n: int,
+              nnz=None) -> torch.Tensor:
+    """Column sums (n,) of one request's CSR lanes, added in CSR order on
+    the CPU (``index_add_``; on the card its adds are atomic, exact for
+    integer weights): the degrees of :func:`ppr_serve_apply`."""
+    nnz = data.shape[0] if nnz is None else int(nnz)
+    return torch.zeros(int(n), dtype=data.dtype, device=data.device
+                       ).index_add_(0, indices[:nnz].long(), data[:nnz])
+
+
 def ase_serve_apply(key_data, data: torch.Tensor, indices: torch.Tensor,
                     indptr: torch.Tensor, *, k: int, iters: int,
-                    shape) -> torch.Tensor:
+                    shape, nnz=None) -> torch.Tensor:
     """One request's adjacency spectral embedding X = V·√|w| from its raw
-    key and its padded CSR lanes: the exact densify, ``iters`` rounds of
-    QR subspace iteration from a key-derived Gaussian block
-    (``Normal().sample(key, (n, k))``), then the k × k Rayleigh–Ritz
-    eigendecomposition, dominant |eigenvalue| first. Rows past the true
-    n are exact zeros."""
-    from libskylark_tpu_torch.sketch.sparse_serve import scatter_dense
+    key and its padded CSR lanes: ``iters`` rounds of QR subspace
+    iteration from a key-derived Gaussian block (``Normal().sample(key,
+    (n, k))``), each a product with the lanes (:func:`_csr_product`), then
+    the k × k Rayleigh–Ritz eigendecomposition, dominant |eigenvalue|
+    first. Rows past the true n are exact zeros. ``nnz``: the lanes' true
+    nonzeros, when the caller knows them."""
+    def A(X):
+        return _csr_product(data, indices, indptr, X, nnz)
 
-    A = scatter_dense(data, indices, indptr, shape=tuple(shape))
-    Omega = randgen.Normal().sample(key_data, (A.shape[1], int(k)),
-                                    device=A.device).to(A.dtype)
-    Q = torch.linalg.qr(A @ Omega)[0]
+    Omega = randgen.Normal().sample(key_data, (int(shape[1]), int(k)),
+                                    device=data.device).to(data.dtype)
+    Q = torch.linalg.qr(A(Omega))[0]
     for _ in range(max(int(iters), 1) - 1):
-        Q = torch.linalg.qr(A @ Q)[0]
-    B = Q.T @ (A @ Q)
+        Q = torch.linalg.qr(A(Q))[0]
+    B = Q.T @ A(Q)
     w, U = torch.linalg.eigh(0.5 * (B + B.T))
     order = torch.argsort(-torch.abs(w), stable=True)
     return (Q @ U[:, order]) * torch.sqrt(torch.abs(w[order]))[None, :]
@@ -306,21 +335,23 @@ def ase_serve_apply(key_data, data: torch.Tensor, indices: torch.Tensor,
 
 def ppr_serve_apply(data: torch.Tensor, indices: torch.Tensor,
                     indptr: torch.Tensor, s: torch.Tensor, *, alpha: float,
-                    iters: int, shape) -> torch.Tensor:
+                    iters: int, shape, nnz=None, deg=None) -> torch.Tensor:
     """One request's personalized PageRank by ``iters`` power steps over
-    the CSR adjacency, p ← (1 − α)·s + α·W·p with W the degree-normalized
-    walk matrix. Padded coordinates have degree 0 and score exactly 0."""
-    from libskylark_tpu_torch.sketch.sparse_serve import scatter_dense
-
-    A = scatter_dense(data, indices, indptr, shape=tuple(shape))
-    deg = torch.sum(A, dim=0)
-    one = torch.ones((), dtype=A.dtype, device=A.device)
+    the CSR adjacency, p ← (1 − α)·s + α·A·D⁻¹·p with D the column sums
+    (``deg``, from :func:`_in_degree` of the lanes when not given).
+    Padded coordinates have degree 0 and score exactly 0."""
+    nnz = int(indptr[-1]) if nnz is None else int(nnz)
+    if deg is None:
+        deg = _in_degree(data, indices, int(shape[1]), nnz)
+    one = torch.ones((), dtype=data.dtype, device=data.device)
     inv_deg = torch.where(deg > 0, one / torch.clamp_min(deg, 1e-30),
-                          torch.zeros((), dtype=A.dtype, device=A.device))
+                          torch.zeros((), dtype=data.dtype,
+                                      device=data.device))
     s = s / torch.clamp_min(torch.sum(s), 1e-30)
     p = s
     for _ in range(max(int(iters), 1)):
-        p = (1.0 - alpha) * s + alpha * (A @ (p * inv_deg))
+        p = (1.0 - alpha) * s + alpha * _csr_product(
+            data, indices, indptr, (p * inv_deg)[:, None], nnz)[:, 0]
     return p
 
 
@@ -346,9 +377,9 @@ def coerce_adjacency(A, dtype=np.float32):
 def _eager_csr_endpoint(S: SparseMatrix, dtype, fn, *, seed: int,
                         device=None) -> np.ndarray:
     """Pack ``S`` as the serve layer packs a CSR request (pow2-padded
-    extent, pow2 nnz class, indptr padded with the true nnz) and run
-    ``fn(key_data, (data, indices, indptr), shape)`` on ``device``; the
-    result comes back to the host."""
+    extent, pow2 nnz class, indptr padded with the true nnz; the column
+    sums made on the host) and run ``fn(key_data, (data, indices, indptr),
+    shape, nnz, deg)`` on ``device``; the result comes back to the host."""
     from libskylark_tpu_torch.engine import bucket as bucketing
     from libskylark_tpu_torch.engine.serve import (SPARSE_NNZ_FLOOR,
                                                    MicrobatchExecutor)
@@ -356,10 +387,12 @@ def _eager_csr_endpoint(S: SparseMatrix, dtype, fn, *, seed: int,
     dev = resolve_device(device)
     shape = bucketing.pad_shape(S.shape, (0, 1))
     nnz_cls = bucketing.nnz_class(S.nnz, SPARSE_NNZ_FLOOR)
-    lanes = MicrobatchExecutor._pack_csr(S, shape[0], nnz_cls,
-                                         np.dtype(dtype))
-    lanes = tuple(torch.from_numpy(x).to(dev) for x in lanes)
-    return fn(seed_key(int(seed)), lanes, shape).cpu().numpy()
+    lanes = tuple(torch.from_numpy(x) for x in MicrobatchExecutor._pack_csr(
+        S, shape[0], nnz_cls, np.dtype(dtype)))
+    deg = _in_degree(lanes[0], lanes[1], shape[1], S.nnz)
+    lanes = tuple(x.to(dev) for x in lanes)
+    return fn(seed_key(int(seed)), lanes, shape, S.nnz,
+              deg.to(dev)).cpu().numpy()
 
 
 def graph_ase_serve(A, k: int, *, seed: int = 0, iters: int = 2,
@@ -372,8 +405,8 @@ def graph_ase_serve(A, k: int, *, seed: int = 0, iters: int = 2,
     S, indexmap = coerce_adjacency(A, dtype)
     X = _eager_csr_endpoint(
         S, dtype,
-        lambda kd, lanes, shape: ase_serve_apply(
-            kd, *lanes, k=int(k), iters=int(iters), shape=shape),
+        lambda kd, lanes, shape, nnz, deg: ase_serve_apply(
+            kd, *lanes, k=int(k), iters=int(iters), shape=shape, nnz=nnz),
         seed=seed, device=device)[: S.height, :]
     return (X, indexmap) if indexmap is not None else X
 
@@ -389,11 +422,12 @@ def graph_ppr_serve(A, s, *, alpha: float = 0.85, iters: int = 16,
         raise errors.InvalidParametersError(
             f"personalization vector shape {s.shape} != ({S.height},)")
 
-    def run(kd, lanes, shape):
+    def run(kd, lanes, shape, nnz, deg):
         sp = torch.from_numpy(np.pad(s, (0, shape[0] - S.height))).to(
             lanes[0].device)
         return ppr_serve_apply(*lanes, sp, alpha=float(alpha),
-                               iters=int(iters), shape=shape)
+                               iters=int(iters), shape=shape, nnz=nnz,
+                               deg=deg)
 
     p = _eager_csr_endpoint(S, dtype, run, seed=0, device=device)[: S.height]
     return (p, indexmap) if indexmap is not None else p

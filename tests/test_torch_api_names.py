@@ -23,12 +23,9 @@ import libskylark_tpu
 import libskylark_tpu_torch
 
 _SERVE_LATER = (
-    "submit_solve", "submit_sparse_solve", "submit_krr_predict",
-    "submit_rlsc_predict", "submit_condest", "submit_lowrank",
-    "submit_graph_ase", "submit_graph_ppr", "submit_compressed_matmul",
     "register_operand", "unregister_operand", "resident_operands",
     "bucket_targets", "set_bucket_targets", "restore_kernel_choice",
-    "load_warmup_pack", "queue_depth", "latency_quantile")
+    "load_warmup_pack")
 # the dist endpoints run the reference's dist/ package (A7)
 _SERVE_DIST = ("submit_dist_sketch", "submit_dist_lstsq", "submit_dist_svd")
 _SERVE_A7 = ("sessions", "open_sketch_session", "session_append",
@@ -43,17 +40,12 @@ _SERVE_A7 = ("sessions", "open_sketch_session", "session_append",
 # name the port lacks is C12: a module of the reference not yet ported,
 # each named there with the A item that brings it.
 EXEMPT = {
-    # A6: the serve.py endpoints, their states and readers, and the
-    # serve programs of its solve and lowrank endpoints
+    # A6: the serve.py endpoints still to port, their states and readers
     "engine:DEGRADED": "A6", "engine:DRAINING": "A6", "engine:SERVING": "A6",
     "engine:STOPPED": "A6", "engine:serve_stats": "A6",
     "engine.serve:DEGRADED": "A6", "engine.serve:dispatch_loop": "A6",
-    "engine.serve:default_cmm_transform": "A6",
     "engine.serve:request_digest": "A6", "engine.serve:serve_stats": "A6",
     "engine.serve:cache_stats": "A6", "engine.serve:qos_stats": "A7",
-    "algorithms.regression:sketched_solve_serve": "A6",
-    "nla.lowrank:lowrank_serve": "A6",
-    "nla.lowrank:lowrank_serve_apply": "A6",
     # A7: telemetry beyond counters and gauges
     "telemetry:DEFAULT_BUCKETS": "A7", "telemetry:Histogram": "A7",
     "telemetry:histogram": "A7", "telemetry:register_collector": "A7",
