@@ -44,7 +44,14 @@ bucket of the serve-solve phase (``chip_smoke.serve_solve_cells``:
 ``serve-sparse-solve-jlt``, ``serve-cmm-srht``, ``serve-cmm-cwt-sparse``,
 ``serve-lowrank``, ``serve-krr-predict``, ``serve-rlsc-predict``,
 ``serve-condest``, ``serve-graph-ase``, ``serve-graph-ppr``), at capacity
-8 (4 for the sparse solves).
+8 (4 for the sparse solves). Then the cache and residency cells of the
+serve-solve-jlt bucket with its operands on the host
+(``chip_smoke.serve_qos_cells``): ``serve-solve-jlt-hit``, the warm ms of
+one request served from the cache (its digest, ``digest_ms``, the lookup
+and the clone); ``serve-solve-jlt-resident``, a capacity-8 flush of
+submits by OperandRef; ``serve-solve-jlt-by-value``, the same flush with A
+shipped from the host by every lane; each with its H2D bytes per flush by
+operand.
 
 Then one ``sparse-<cell>`` line per timed entry point of chip_smoke.py's
 sparse phase (config 2, ``sparse_cells``): each transform's rowwise apply
@@ -578,6 +585,8 @@ def main() -> int:
     for name, row in chip_smoke.serve_cells(torch, np).items():
         print(json.dumps({"cell": f"serve-{name}", **row}), flush=True)
     for name, row in chip_smoke.serve_solve_cells(torch, P, np).items():
+        print(json.dumps({"cell": f"serve-{name}", **row}), flush=True)
+    for name, row in chip_smoke.serve_qos_cells(torch, P, np).items():
         print(json.dumps({"cell": f"serve-{name}", **row}), flush=True)
     for name, fn in sparse_cells(torch, P, np).items():
         row = {"cell": f"sparse-{name}", "warm_ms": warm_ms(torch, fn)}

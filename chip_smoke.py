@@ -126,6 +126,33 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             torch.equal on CPU copies; B1, B5 1e-4·max); requests/s,
             p50/p99, flushes, padding waste, H2D bytes per flush and the
             phase's peak memory on its line;
+4b''. serve_qos — the executor's production layer at full width, with
+            the lock-order witness on (``check_witness`` raises nothing):
+            64 identical serve-solve-jlt requests (65,536 × 512 host
+            operands, s = 2048) from 8 threads through a cache-on
+            executor make one flush of 2 B1-batched launches, the rest
+            hits or coalesced followers, every result its own tensor
+            ``torch.equal`` to a cache-off executor's (a caller's
+            in-place write reaches no later hit), another seed misses;
+            ``register_operand(A)`` uploads A once, 16 submits by
+            OperandRef ship 0 bytes of A and equal their by-value twins,
+            a sketch pinned with the registration is served with 0
+            launches; 4 requests with a 10 ms deadline queued behind a
+            long flush expire unlaunched; a fault plan on ``serve.flush``
+            (no launch) degrades the executor, a health subscriber sees
+            SERVING → DEGRADED, best_effort past its class bound is shed,
+            interactive requests are served ``torch.equal`` to their
+            capacity-1 flush with the cache bypassed, and the executor
+            recovers; an interactive and a best_effort tenant queued on
+            one worker on the serve-dense-rw bucket, interactive's mean
+            queue wait no larger, and a tenant of burst 4 refused exactly
+            8 of 12; the adaptive controller ticks, keeps its targets in
+            bounds and changes no result; one flush profiled, its
+            ``serve.flush`` range enclosing the B1-batched launch; storm
+            requests/s with the cache on and off, the H2D bytes residency
+            saved, per-class waits and latencies, expired, shed and
+            rate-limited counts, the transitions, the seconds and the
+            peak memory on its line;
 4c. sparse — config 2 end to end at full width (LIBSVM rcv1.binary's
             20,242 × 47,236 at 0.16%): a sprand.sample operand with
             dyadic values written by write_libsvm and read back by
@@ -3142,6 +3169,605 @@ def serve_solve_cells(torch, P, np) -> dict:
     return cells
 
 
+# ---------------------------------------------------------------------------
+# phase 4b'': the serve executor's production layer (A6/A7, serve_qos)
+# ---------------------------------------------------------------------------
+
+# config 4's serve-solve-jlt bucket (65,536 × 512, s = 2048) for the cache
+# storm, residency and deadlines; the serve phase's dense-rw bucket (JLT
+# 8192 → 1024 rowwise on 1,537–2,048 rows) for DEGRADED, QoS, the
+# adaptive controller and the profiled flush
+QOS_FULL = {"ls_rows": 65536, "ls_cols": 512, "ls_s": 2048,
+            "storm": 64, "storm_threads": 8, "ref_requests": 16,
+            "rw_rows": (1537, 2049), "rw_n": 8192, "rw_s": 1024,
+            "rw_operands": 8, "deadline_requests": 4, "deadline_s": 0.01,
+            "degrade_failures": 4, "max_queue": 64, "qos_requests": 32,
+            "burst": 4, "rate_requests": 12, "adaptive_requests": 32,
+            "adapt_interval_s": 0.05, "hold_s": 0.0}
+
+
+def qos_launches(before: dict) -> dict:
+    """Every kernel's launches since ``before`` (a :func:`launch_counts`)."""
+    now = launch_counts()
+    return {k: now[k] - before.get(k, 0) for k in now}
+
+
+def add_launches(total: dict, delta: dict) -> None:
+    for k, v in delta.items():
+        total[k] = total.get(k, 0) + v
+
+
+def qos_storm(ex, call, n: int, threads: int):
+    """``n`` calls of ``call(ex, i)`` from ``threads`` threads; (futures in
+    call order, seconds until every future resolved)."""
+    import threading
+
+    futs = [None] * n
+
+    def worker(t):
+        for i in range(t, n, threads):
+            futs[i] = call(ex, i)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    for f in futs:
+        f.exception(timeout=600)
+    return futs, time.perf_counter() - t0
+
+
+def qos_outcome(f) -> str:
+    """The name of a resolved future's exception, or "ok"."""
+    e = f.exception(timeout=600)
+    return "ok" if e is None else type(e).__name__
+
+
+def profiled_flush_checks(torch, prof, device) -> dict:
+    """The profiled flush's ``serve.flush`` range: exactly one, and the
+    work it encloses — on the card, the device kernels of the batched
+    launch lie inside the range; on the CPU, the plain program's torch
+    operators do."""
+    events = list(prof.events())
+    # the host's range (on the card the trace repeats it as a device-side
+    # annotation)
+    flush = [e for e in events if e.name == "serve.flush"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    check(len(flush) == 1, f"{len(flush)} serve.flush ranges in the "
+                           "profiled flush, not 1")
+    lo, hi = flush[0].time_range.start, flush[0].time_range.end
+    if device == "cuda":
+        inner = [e for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "dense" in e.name]
+    else:
+        inner = [e for e in events if e.name.startswith("aten::")]
+    inside = [e.name for e in inner
+              if lo <= e.time_range.start and e.time_range.end <= hi]
+    check(bool(inside) and (device != "cuda" or len(inside) == len(inner)),
+          f"serve.flush [{lo}, {hi}] encloses {len(inside)} of the flush's "
+          f"{len(inner)} launches")
+    return {"range_us": hi - lo, "enclosed": sorted(set(inside))}
+
+
+def serve_qos_phase(torch, P, np, size=QOS_FULL, device="cuda") -> dict:
+    """Phase 4b'': the executor's production layer at full width, with
+    the lock-order witness on. Cache storm: ``storm`` identical solve
+    requests (config 4's bucket) from ``storm_threads`` threads make one
+    flush of one B1-batched launch per operand, every other request a
+    hit or a coalesced follower, each result its own tensor torch.equal
+    to a cache-off executor's; the same bytes under another seed miss.
+    Residency: a registered A is uploaded once, ``ref_requests`` submits by
+    OperandRef ship none of its bytes and equal their by-value twins, a
+    pinned sketch is served with no launch. Deadlines: requests queued
+    behind a long flush expire and never launch. DEGRADED: a fault plan
+    on ``serve.flush`` degrades the executor (a subscriber sees it),
+    best_effort past its class bound is shed, interactive requests are
+    served torch.equal to their capacity-1 flush with the cache
+    bypassed, and the executor recovers. QoS: interactive and best_effort
+    tenants saturate one worker, interactive waits no longer on average;
+    a burst-limited tenant is refused exactly past its burst. The adaptive
+    controller ticks, keeps its targets in bounds and changes no result.
+    One flush is profiled: its ``serve.flush`` range encloses the launch.
+    Fails on any check."""
+    import os
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from libskylark_tpu_torch import engine, qos, sketch as sk, telemetry
+    from libskylark_tpu_torch.base import errors, locks
+    from libskylark_tpu_torch.engine import serve
+    from libskylark_tpu_torch.resilience import faults, health
+
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    locks.reset_witness()
+    locks.enable_witness(True)
+    g = np.random.default_rng(1500)
+    n, d, s = size["ls_rows"], size["ls_cols"], size["ls_s"]
+    A = g.standard_normal((n, d), dtype=np.float32)
+    x0 = g.standard_normal(d, dtype=np.float32)
+    b = A @ x0 + 0.1 * g.standard_normal(n, dtype=np.float32)
+    T = sk.JLT(n, s, P.Context(1500))
+    rw = []
+    for i in range(size["rw_operands"]):
+        rows = int(g.integers(*size["rw_rows"]))
+        rw.append((make_operand(torch, (rows, size["rw_n"]), 15000 + i,
+                                device),
+                   sk.JLT(size["rw_n"], size["rw_s"], P.Context(1510 + i))))
+
+    def rw_call(ex, i, **kw):
+        Ai, Ti = rw[i % len(rw)]
+        return ex.submit_sketch(Ti, Ai, dimension=sk.ROWWISE, **kw)
+
+    launches = {k: 0 for k in launch_counts()}
+    out = {"card": smi("name,power.limit") if cuda else None,
+           "step_seconds": {}}
+    executors = []
+    t_step = [time.perf_counter()]
+
+    def mark(step):
+        now = time.perf_counter()
+        out["step_seconds"][step] = now - t_step[0]
+        t_step[0] = now
+
+    def executor(**kw):
+        ex = engine.MicrobatchExecutor(device=device, **kw)
+        executors.append(ex)
+        return ex
+
+    try:
+        # -- the cache storm -------------------------------------------
+        off = executor(max_batch=8, linger_us=5000, cache=False)
+        on = executor(max_batch=8, linger_us=5000, cache=True)
+        want = off.submit_solve(A, b, T).result(timeout=600)   # warm-up
+        futs, t_off = qos_storm(off, lambda ex, i: ex.submit_solve(A, b, T),
+                                size["storm"], size["storm_threads"])
+        check(all(same(torch, f.result(), want) for f in futs),
+              "the cache-off storm's results differ from one another")
+        before = launch_counts()
+        futs, t_on = qos_storm(on, lambda ex, i: ex.submit_solve(A, b, T),
+                               size["storm"], size["storm_threads"])
+        storm_launches = qos_launches(before)
+        add_launches(launches, storm_launches)
+        got = [f.result() for f in futs]
+        st = on.stats()
+        c = st["cache"]
+        resolved = sum(f.done() and f.exception() is None for f in futs)
+        storm = {"requests": size["storm"], "completed": resolved,
+                 "flushes": st["flushes"], "flushed_lanes": st["completed"],
+                 "hits": c["hits"], "coalesced": c["single_flight_coalesced"],
+                 "misses": c["misses"], "launches": {
+                     k: v for k, v in storm_launches.items() if v},
+                 "requests_per_s_cache_on": size["storm"] / t_on,
+                 "requests_per_s_cache_off": size["storm"] / t_off,
+                 "digest_d2h_bytes": c["digest_d2h_bytes"]}
+        check(storm["flushes"] == 1 and resolved == size["storm"]
+              and c["hits"] + c["single_flight_coalesced"]
+              == size["storm"] - 1 and c["misses"] == 1,
+              f"cache storm: {storm}")
+        kernel_launches = {k: v for k, v in storm_launches.items() if v}
+        check(kernel_launches == ({"dense_batched_columnwise": 2} if cuda
+                                  else {}),
+              f"cache storm launched {kernel_launches}, not one "
+              "B1-batched launch per operand")
+        check(all(same(torch, x, want) for x in got),
+              "a storm result differs from the cache-off executor's")
+        ptrs = {x.data_ptr() for x in got}
+        check(len(ptrs) == len(got),
+              "two storm results share one tensor")
+        got[0].add_(1.0)
+        late = on.submit_solve(A, b, T).result(timeout=600)
+        check(same(torch, late, want) and late.data_ptr() not in ptrs,
+              "mutating a served result reached a later hit")
+        T2 = sk.JLT(n, s, P.Context(1501))
+        misses = on.stats()["cache"]["misses"]
+        on.submit_solve(A, b, T2).result(timeout=600)
+        check(on.stats()["cache"]["misses"] == misses + 1,
+              "the same bytes under another seed did not miss")
+        out["storm"] = storm
+        mark("setup_and_storm")
+
+        # -- residency ---------------------------------------------------
+        key = repr(on._prepare("solve_l2_sketched", A=A, B=b,
+                               transform=T)[0])
+        bs = [A @ g.standard_normal(d, dtype=np.float32)
+              + 0.1 * g.standard_normal(n, dtype=np.float32)
+              for _ in range(size["ref_requests"])]
+        h0 = on.stats()["by_bucket"][key]["h2d_bytes_by_operand"]
+        ref = on.register_operand(A)
+        res = on.stats()["cache"]["residency"]
+        check(res["uploads"] == 1 and res["upload_bytes"] == A.nbytes,
+              f"register_operand uploaded {res}, not A once")
+        before = launch_counts()
+        by_ref, _ = qos_storm(on, lambda ex, i: ex.submit_solve(ref, bs[i], T),
+                              len(bs), size["storm_threads"])
+        by_ref = [f.result(timeout=600) for f in by_ref]
+        add_launches(launches, qos_launches(before))
+        h1 = on.stats()["by_bucket"][key]["h2d_bytes_by_operand"]
+        shipped_a = h1["A"] - h0["A"]
+        by_value = [f.result(timeout=600) for f in
+                    [off.submit_solve(A, bi, T) for bi in bs]]
+        check(all(same(torch, x, y) for x, y in zip(by_ref, by_value)),
+              "a submit by OperandRef differs from its by-value twin")
+        check(shipped_a == 0, f"submits by OperandRef shipped {shipped_a} "
+                              "bytes of A host→device")
+        off_bucket = off.stats()["by_bucket"][key]
+        Tsk = sk.JLT(n, s, P.Context(1502))
+        before = launch_counts()
+        sref = on.register_operand(A, transform=Tsk,
+                                   dimension=sk.COLUMNWISE)
+        add_launches(launches, qos_launches(before))
+        check(sref == ref, "registering A again gave another digest")
+        before = launch_counts()
+        pinned = on.submit_sketch(Tsk, ref, dimension=sk.COLUMNWISE
+                                  ).result(timeout=600)
+        pinned_launches = {k: v for k, v in qos_launches(before).items()
+                           if v}
+        check(not pinned_launches,
+              f"a pinned sketch launched {pinned_launches}")
+        check(same(torch, pinned, off.submit_sketch(
+            Tsk, A, dimension=sk.COLUMNWISE).result(timeout=600)),
+            "the pinned sketch differs from a by-value sketch")
+        out["residency"] = {
+            "requests": size["ref_requests"], "a_bytes_shipped": shipped_a,
+            "b_bytes_shipped": h1["B"] - h0["B"],
+            "h2d_bytes_saved": size["ref_requests"] * A.nbytes,
+            "by_value_h2d_bytes_per_flush":
+                off_bucket["h2d_bytes_per_flush"],
+            "residency": on.stats()["cache"]["residency"],
+            "digest_d2h_bytes": on.stats()["cache"]["digest_d2h_bytes"]}
+        check(out["residency"]["digest_d2h_bytes"] == 0,
+              "a digest copied bytes off the card")
+        on.unregister_operand(ref)
+        on._cache.clear()
+        mark("residency")
+        del got, futs, by_ref, by_value, pinned, late, want
+
+        # -- deadlines ---------------------------------------------------
+        dl = executor(max_batch=8, linger_us=1000, workers=1)
+        xs = [A @ g.standard_normal(d, dtype=np.float32) for _ in range(8)]
+        before = launch_counts()
+        slow = [dl.submit_solve(A, xi, T) for xi in xs]
+        late = [rw_call(dl, i, deadline=size["deadline_s"])
+                for i in range(size["deadline_requests"])]
+        for f in slow + late:
+            f.exception(timeout=600)
+        dl_launches = qos_launches(before)
+        add_launches(launches, dl_launches)
+        dst = dl.stats()
+        expired = sum(isinstance(f.exception(), serve.ServeOverloadedError)
+                      for f in late)
+        check(expired == size["deadline_requests"]
+              and dst["expired"] == expired
+              and all(f.exception() is None for f in slow),
+              f"deadlines: {expired} of {len(late)} expired, stats "
+              f"{dst['expired']}")
+        flushed = {k: v for k, v in dl_launches.items() if v}
+        check(flushed == ({"dense_batched_columnwise": 2} if cuda else {})
+              and dst["flushes"] == 1 and dst["completed"] == len(slow),
+              f"deadlines: launches {flushed}, flushes {dst['flushes']}: "
+              "an expired request launched")
+        out["deadlines"] = {"requests": len(late), "expired": expired,
+                            "deadline_s": size["deadline_s"],
+                            "flushes": dst["flushes"]}
+        del xs, slow, late
+        mark("deadlines")
+
+        # -- DEGRADED ----------------------------------------------------
+        reg = qos.TenantRegistry()
+        reg.register("ui", qos.INTERACTIVE)
+        reg.register("bulk", qos.BEST_EFFORT)
+        deg = executor(max_batch=8, linger_us=60_000_000,
+                       max_queue=size["max_queue"], cache=True, tenants=reg)
+        one = executor(max_batch=1, linger_us=0)
+        seen = []
+        unsubscribe = health.subscribe(
+            lambda src, old, new: seen.append((old, new)) if src is deg
+            else None)
+        plan = {"seed": 1, "faults": [{"site": "serve.flush",
+                                       "error": "IOError_", "tag": "fail"}]}
+        before = launch_counts()
+        try:
+            with faults.fault_plan(plan) as fp:
+                with faults.tag("fail"):
+                    for i in range(size["degrade_failures"]):
+                        f = rw_call(deg, i, tenant="ui")
+                        deg.flush()
+                        check(qos_outcome(f) == "IOError_",
+                              f"a faulted flush gave {qos_outcome(f)}")
+                fired = len(fp.fired)
+            fault_launches = {k: v for k, v in qos_launches(before).items()
+                              if v}
+            check(not fault_launches,
+                  f"a flush failed by the fault plan launched "
+                  f"{fault_launches}")
+            check(deg.state == serve.DEGRADED
+                  and ("SERVING", "DEGRADED") in seen,
+                  f"state {deg.state}, transitions {seen}")
+            cache0 = deg.stats()["cache"]
+            bound = deg._class_shed_bound(qos.BEST_EFFORT)
+            best = [rw_call(deg, i, tenant="bulk") for i in range(bound)]
+            shed = 0
+            for i in range(2):
+                try:
+                    rw_call(deg, i, tenant="bulk")
+                except serve.ServeOverloadedError:
+                    shed += 1
+            check(shed == 2, f"best_effort past its bound {bound}: {shed} "
+                             "of 2 shed")
+            # the last one repeats the first: no cache, so both flush
+            picks = [0, 1, 2, 3, 0]
+            inter = [rw_call(deg, i, tenant="ui") for i in picks]
+            before = launch_counts()
+            deg.flush()
+            add_launches(launches, qos_launches(before))
+            check(all(qos_outcome(f) == "ok" for f in best + inter),
+                  "a request admitted while DEGRADED failed")
+            for i, f in zip(picks, inter):
+                check(same(torch, f.result(), rw_call(one, i).result(600)),
+                      "an interactive request served while DEGRADED "
+                      "differs from its capacity-1 flush")
+            cache1 = deg.stats()["cache"]
+            check(all(cache1[k] == cache0[k] for k in (
+                "hits", "misses", "single_flight_coalesced", "insertions")),
+                f"the cache was consulted while DEGRADED: {cache0} → "
+                f"{cache1}")
+            recovered = 0
+            while deg.state == serve.DEGRADED and recovered < 32:
+                before = launch_counts()
+                rw_call(deg, recovered, tenant="ui")
+                deg.flush()
+                add_launches(launches, qos_launches(before))
+                recovered += 1
+            check(deg.state == serve.SERVING
+                  and seen[-1] == ("DEGRADED", "SERVING"),
+                  f"after the plan: state {deg.state}, transitions {seen}")
+        finally:
+            unsubscribe()
+        dstats = deg.stats()
+        out["degraded"] = {"fired": fired, "transitions": seen,
+                           "best_effort_bound": bound, "shed": shed,
+                           "served_while_degraded": len(best + inter),
+                           "flushes_to_recover": recovered,
+                           "qos": {c: {k: v for k, v in blk.items()
+                                       if k in ("admitted", "shed")}
+                                   for c, blk in
+                                   dstats["qos"]["by_class"].items()}}
+        mark("degraded")
+
+        # -- QoS: two tenants on one worker, and a rate limit -------------
+        qx = executor(max_batch=8, linger_us=2000, workers=1, tenants=reg)
+        per = size["qos_requests"]
+
+        def tenant_call(ex, i):
+            return rw_call(ex, i // 2, tenant="ui" if i % 2 else "bulk")
+
+        # a long flush (8 solve lanes shipping 8 × A) holds the one worker
+        # while both tenants queue; ``hold_s`` stalls it at its fault site
+        # too, where a flush is short (the CPU rehearsal)
+        hold = {"faults": [{"site": "serve.flush", "tag": "hold",
+                            "stall_s": size["hold_s"]}]}
+        before = launch_counts()
+        with faults.fault_plan(hold):
+            with faults.tag("hold"):
+                block = [qx.submit_solve(A, bs[i % len(bs)], T)
+                         for i in range(qx.max_batch)]
+            futs, t_qos = qos_storm(qx, tenant_call, 2 * per, 2)
+            for f in block:
+                f.result(timeout=600)
+        add_launches(launches, qos_launches(before))
+        check(all(qos_outcome(f) == "ok" for f in futs),
+              "a QoS storm request failed")
+        qb = qx.stats()["qos"]["by_class"]
+        wait_i = qb["interactive"]["queue_wait_s"]["mean"]
+        wait_b = qb["best_effort"]["queue_wait_s"]["mean"]
+        check(wait_i <= wait_b, f"interactive waited {wait_i} s on average, "
+                                f"best_effort {wait_b} s")
+        reg.register("capped", qos.STANDARD, rate=1e-6,
+                     burst=size["burst"])
+        refused, admitted = 0, []
+        before = launch_counts()
+        for i in range(size["rate_requests"]):
+            try:
+                admitted.append(rw_call(qx, i, tenant="capped"))
+            except errors.TenantQuotaError:
+                refused += 1
+        for f in admitted:
+            f.result(timeout=600)
+        add_launches(launches, qos_launches(before))
+        check(refused == size["rate_requests"] - size["burst"]
+              and qx.stats()["qos"]["by_class"]["standard"]["rate_limited"]
+              == refused,
+              f"{refused} of {size['rate_requests']} refused past a burst of "
+              f"{size['burst']}")
+        out["qos"] = {
+            "requests": 2 * per, "seconds": t_qos,
+            "by_class": {c: {"queue_wait_mean_ms": 1e3 * (
+                qb[c]["queue_wait_s"]["mean"] or 0.0),
+                "latency_p50_ms": 1e3 * (qb[c]["latency_s"]["p50"] or 0.0),
+                "latency_p99_ms": 1e3 * (qb[c]["latency_s"]["p99"] or 0.0)}
+                for c in ("interactive", "best_effort")},
+            "rate_limited": refused, "burst": size["burst"],
+            "scheduler": qx.stats()["qos"]["scheduler"]}
+        mark("qos")
+
+        # -- the adaptive controller --------------------------------------
+        saved = os.environ.get("SKYLARK_QOS_ADAPT_INTERVAL")
+        os.environ["SKYLARK_QOS_ADAPT_INTERVAL"] = str(
+            size["adapt_interval_s"])
+        try:
+            ad = executor(max_batch=8, linger_us=2000, adaptive=True)
+        finally:
+            if saved is None:
+                del os.environ["SKYLARK_QOS_ADAPT_INTERVAL"]
+            else:
+                os.environ["SKYLARK_QOS_ADAPT_INTERVAL"] = saved
+        before = launch_counts()
+        futs, _ = qos_storm(ad, rw_call, size["adaptive_requests"], 4)
+        add_launches(launches, qos_launches(before))
+        t_end = time.perf_counter() + 10 * size["adapt_interval_s"] + 5
+        while (ad._controller.stats()["ticks"] < 1
+               and time.perf_counter() < t_end):
+            time.sleep(size["adapt_interval_s"])
+        cstats = ad._controller.stats()
+        check(cstats["ticks"] >= 1, "the adaptive controller never ticked")
+        targets = {}
+        for statics in ad.qos_bucket_obs():
+            linger, cap = ad.bucket_targets(statics)
+            targets[statics[0]] = (linger, cap)
+            check(0.0 <= linger <= 8 * ad.linger + 1e-12
+                  and 1 <= cap <= ad.max_batch,
+                  f"adaptive targets out of bounds: {linger}, {cap}")
+        for i, f in enumerate(futs):
+            check(same(torch, f.result(), rw_call(one, i).result(600)),
+                  "a result under the adaptive controller differs from "
+                  "its capacity-1 flush")
+        out["adaptive"] = {"controller": cstats, "targets": targets}
+        mark("adaptive")
+
+        # -- one profiled flush, spans on --------------------------------
+        tele = telemetry.enabled()
+        telemetry.set_enabled(True)
+        try:
+            px = executor(max_batch=8, linger_us=60_000_000)
+            pf = [rw_call(px, i) for i in range(4)]
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if cuda else [])
+            before = launch_counts()
+            with profile(activities=acts) as prof:
+                px.flush()
+            add_launches(launches, qos_launches(before))
+            for f in pf:
+                f.result(timeout=600)
+        finally:
+            telemetry.set_enabled(tele)
+        out["profiled_flush"] = profiled_flush_checks(torch, prof, device)
+        mark("profiled_flush")
+        spans = [sp for sp in telemetry.finished_spans()
+                 if sp.name == "serve.flush"]
+        check(bool(spans) and len(spans[-1].attrs["request_ids"]) == 4,
+              "the profiled flush left no serve.flush span with its "
+              "requests' ids")
+        stats = {"serve": serve.serve_stats(), "qos": serve.qos_stats(),
+                 "cache": serve.cache_stats()}
+        check(stats["serve"]["executors"] >= len(executors)
+              and stats["cache"]["caches"] >= 2,
+              "serve_stats/cache_stats missed an executor")
+        out["stats"] = {
+            "serve": {k: stats["serve"][k] for k in (
+                "executors", "submitted", "completed", "failed", "shed",
+                "expired", "flushes", "states")},
+            "qos": stats["qos"]["by_class"],
+            "cache": {k: stats["cache"][k] for k in (
+                "hits", "misses", "single_flight_coalesced", "bytes_saved",
+                "digest_d2h_bytes", "residency")}}
+        locks.check_witness()
+        out["lock_witness"] = {k: v for k, v in
+                               locks.witness_report().items()
+                               if k != "violations"}
+    finally:
+        locks.enable_witness(False)
+        for ex in executors:
+            if ex._cache is not None:
+                ex._cache.clear()
+            for dg in ex.resident_operands():
+                ex.unregister_operand(dg)
+            ex.shutdown()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    if cuda:
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del executors, rw, A
+        release_cache(torch)
+    emit("serve_qos", **out)
+    return out
+
+
+def serve_qos_cells(torch, P, np) -> dict:
+    """The cache and residency cells of config 4's serve-solve-jlt bucket
+    (65,536 × 512 host operands, s = 2048), each a :func:`flush_cell` row
+    or like one: ``solve-jlt-hit``, one request served from the cache
+    (submit to result: its digest of the host operand, the lookup and the
+    clone; ``device_ms`` the clone's); ``solve-jlt-resident``, a
+    capacity-8 flush of 8 submits by OperandRef (one resident A, 8 b's);
+    ``solve-jlt-by-value``, the same flush with A passed by value from
+    the host, each lane shipping A. Each row carries its flush's H2D
+    bytes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from libskylark_tpu_torch import engine, sketch as sk
+    from libskylark_tpu_torch.engine import serve
+
+    size = QOS_FULL
+    g = np.random.default_rng(1600)
+    n, d, s = size["ls_rows"], size["ls_cols"], size["ls_s"]
+    A = g.standard_normal((n, d), dtype=np.float32)
+    bs = [A @ g.standard_normal(d, dtype=np.float32)
+          + 0.1 * g.standard_normal(n, dtype=np.float32) for _ in range(8)]
+    T = sk.JLT(n, s, P.Context(1600))
+    cells = {}
+    with engine.MicrobatchExecutor(max_batch=16, linger_us=60_000_000,
+                                   cache=True, device="cuda") as ex:
+        f = ex.submit_solve(A, bs[0], T)
+        ex.flush()
+        f.result()
+
+        def hit():
+            return ex.submit_solve(A, bs[0], T).result()
+
+        warm = [0.0] * 7
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hit()
+            warm[i] = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            hit()
+        device = sum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        # the digest alone: derive_request and blake2b over the request
+        kw = {"A": A, "B": bs[0], "transform": T}
+        t0 = time.perf_counter()
+        serve.request_digest("solve_l2_sketched", serve.derive_request(
+            "solve_l2_sketched", **kw), kw)
+        digest_ms = (time.perf_counter() - t0) * 1e3
+        st = ex.stats()["cache"]
+        cells["solve-jlt-hit"] = {
+            "warm_ms": statistics.median(warm[2:]), "device_ms": device,
+            "busy": device / statistics.median(warm[2:]),
+            "hits": st["hits"], "digest_d2h_bytes": st["digest_d2h_bytes"],
+            "digest_ms": digest_ms}
+        ex._cache.clear()
+    with engine.MicrobatchExecutor(max_batch=16, linger_us=60_000_000,
+                                   device="cuda") as ex:
+        ref = ex.register_operand(A)
+        key = repr(ex._prepare("solve_l2_sketched", A=A, B=bs[0],
+                               transform=T)[0])
+        for name, arg in (("solve-jlt-resident", ref),
+                          ("solve-jlt-by-value", A)):
+            before = ex.stats()["by_bucket"].get(key, {}).get(
+                "h2d_bytes_by_operand", {})
+            flushes0 = ex.stats()["by_bucket"].get(key, {}).get("flushes", 0)
+            row = flush_cell(torch, ex, bs, call=lambda e, b, a=arg:
+                             e.submit_solve(a, b, T))
+            after = ex.stats()["by_bucket"][key]
+            flushes = after["flushes"] - flushes0
+            row["h2d_bytes_per_flush"] = {
+                k: (v - before.get(k, 0)) / flushes
+                for k, v in after["h2d_bytes_by_operand"].items()}
+            cells[name] = row
+        ex.unregister_operand(ref)
+    del A, bs
+    release_cache(torch)
+    return cells
+
+
 def ml_data(torch, size, device):
     """(X, y, X_test, y_test) of the ml phase on ``device``, from seed 600:
     float32 rows, int64 labels."""
@@ -5384,6 +6010,7 @@ def main() -> int:
     serve = serve_phase(torch, P, np)
     emit("serve_cells", cells=serve_cells(torch, np))
     ssolve = serve_solve_phase(torch, P, np)
+    sqos = serve_qos_phase(torch, P, np)
     sparse = sparse_phase(torch, P, np, peaks)
     ml_path = ml_phase(torch, P, np)
     a3 = a3_phase(torch, P, np)
@@ -5452,6 +6079,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": (main["launches"][name] + serve["launches"][name]
                          + ssolve["launches"][name]
+                         + sqos["launches"][name]
                          + sparse["launches"][name]
                          + ml_path["launches"][name]
                          + a3["launches"][name]

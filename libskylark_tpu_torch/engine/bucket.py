@@ -17,7 +17,7 @@ so its bits do not depend on the capacity. ``padding_waste`` is
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,12 +75,15 @@ def capacity_ladder(max_batch: int, multiple: int = 1) -> tuple:
 
 
 def stack_pad(arrays: Sequence[np.ndarray], padded_shape: Sequence[int],
-              capacity: int, dtype) -> np.ndarray:
+              capacity: int, dtype, out: Optional[np.ndarray] = None
+              ) -> np.ndarray:
     """One host (capacity, *padded_shape) buffer holding every request's
     operand zero-padded into its leading corner, filler lanes replicating
-    the last real request."""
+    the last real request (written into ``out``, zeros of that shape and
+    dtype, when given)."""
     padded_shape = tuple(int(e) for e in padded_shape)
-    out = np.zeros((int(capacity),) + padded_shape, dtype=dtype)
+    if out is None:
+        out = np.zeros((int(capacity),) + padded_shape, dtype=dtype)
     for i, a in enumerate(arrays):
         a = np.asarray(a)
         out[(i,) + tuple(slice(0, e) for e in a.shape)] = a
@@ -98,10 +101,15 @@ def stack_pad_tensor(arrays: Sequence, padded_shape: Sequence[int],
     device = torch.device(device)
     if all(not isinstance(a, torch.Tensor) or a.device.type == "cpu"
            for a in arrays):
-        host = stack_pad([a.numpy() if isinstance(a, torch.Tensor) else a
-                          for a in arrays], padded_shape, capacity,
-                         torch.empty((), dtype=dtype).numpy().dtype)
-        return torch.from_numpy(host).to(device)
+        # torch's allocator aligns the host buffer (64 bytes) as it aligns
+        # a lane's fresh copy, so the CPU programs see one alignment
+        host = torch.zeros((int(capacity),) + tuple(int(e) for e in
+                                                    padded_shape),
+                           dtype=dtype)
+        stack_pad([a.numpy() if isinstance(a, torch.Tensor) else a
+                   for a in arrays], padded_shape, capacity, None,
+                  out=host.numpy())
+        return host.to(device)
     out = torch.zeros((int(capacity),) + tuple(int(e) for e in padded_shape),
                       dtype=dtype, device=device)
     for i, a in enumerate(arrays):

@@ -88,11 +88,56 @@ with ``coding`` to a host array of labels. Flusher and worker threads set
 the executor's device, since CUDA's current device is per thread; the
 kernels launch on that thread's current stream.
 
-Not ported yet (later slices): deadlines and DEGRADED shedding, the
-result cache and residency, ``serve_stats``/``cache_stats``/
-``request_digest``, QoS tenants and scheduling, the adaptive controller,
-sessions and training jobs, the dist endpoints and mesh sharding,
-telemetry spans, warmup packs and AOT.
+**Deadlines and health.** ``submit(deadline=...)`` (seconds or a
+:class:`~libskylark_tpu_torch.resilience.Deadline`) bounds a request's
+queued life: before every execution attempt, bisection retries included,
+expired requests resolve to :class:`ServeOverloadedError` and are never
+stacked or launched. Each root attempt's outcome feeds a window of
+``failure_window`` flushes; at a failure ratio of ``degraded_threshold``
+the executor is ``DEGRADED`` and sheds intake class by class (best_effort
+first, interactive last, at ``max_queue`` times the class's shed
+fraction), and it returns to ``SERVING`` as flushes succeed. Every
+transition (``SERVING``, ``DEGRADED``, ``DRAINING``, ``STOPPED``) is
+published through :mod:`libskylark_tpu_torch.resilience.health`. The
+fault sites ``qos.admit`` (once per submit) and ``serve.flush`` (once per
+attempt, before anything is stacked or launched) make this testable. A
+failed flush is never re-run on the plain program, and DEGRADED never
+reroutes a bucket: a CUDA bucket stays on its kernels.
+
+**QoS.** A request's ``tenant=`` resolves, through a
+:class:`~libskylark_tpu_torch.qos.TenantRegistry` (``tenants=``, else
+the process-wide one), to a priority class and charges the tenant's
+token bucket (:class:`~libskylark_tpu_torch.base.errors.
+TenantQuotaError` when empty). The class rides the bucket key, so classes
+queue apart and share programs; the flusher drains the class queues by
+weighted-fair deficit round robin (8:4:1). ``adaptive=True`` starts a
+:class:`~libskylark_tpu_torch.qos.AdaptiveController`, which moves each
+bucket's linger and batch targets and never what a lane computes.
+
+**Result cache and residency** (:mod:`libskylark_tpu_torch.engine.
+resultcache`; ``cache=True`` or ``SKYLARK_CACHE``). A request's content
+address (:func:`request_digest`, the reference's hex) is looked up in
+the pinned results, then the byte-bounded cache of device tensors, then
+the single-flight table, where identical concurrent requests coalesce
+onto one leader: one flush serves them all, and each caller gets its own
+clone. A failed leader fans its exception to every follower. All of it
+is bypassed while DEGRADED. :meth:`MicrobatchExecutor.register_operand`
+uploads an operand once and returns an
+:class:`~libskylark_tpu_torch.engine.resultcache.OperandRef`; a submit
+that passes the ref as ``A=`` ships no bytes of A, and a flush stacks the
+resident operand by a device-to-device copy.
+
+**Statistics and tracing.** :meth:`MicrobatchExecutor.stats` (with its
+``qos`` and ``cache`` blocks), and across every live executor
+:func:`serve_stats`, :func:`qos_stats` and :func:`cache_stats`, also the
+``serve``, ``qos`` and ``cache`` collectors of ``telemetry.snapshot()``.
+With telemetry on, ``serve.submit`` and ``serve.flush`` spans carry each
+request's id across the thread hop, and a ``serve.flush`` span's
+``torch.profiler`` range encloses the flush's launches.
+
+Not ported yet (later slices): the executor's ``mesh`` and the
+kernel-selection precedence, warmup packs and AOT (ROADMAP A6); sessions,
+training jobs and the dist endpoints (A7).
 """
 
 from __future__ import annotations
@@ -100,22 +145,35 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import itertools
 import math
 import queue
 import threading
 import time
+import weakref
 from concurrent.futures import Future
 from typing import Optional
 
 import numpy as np
 import torch
 
+from libskylark_tpu_torch import telemetry as _telemetry
+from libskylark_tpu_torch.base import env as _env
 from libskylark_tpu_torch.base import errors
+from libskylark_tpu_torch.base import locks as _locks
 from libskylark_tpu_torch.base.context import Allocation, seed_key
 from libskylark_tpu_torch.base.device import resolve_device
 from libskylark_tpu_torch.base.sparse import SparseMatrix, as_sparse
 from libskylark_tpu_torch.engine import bucket as bucketing
+from libskylark_tpu_torch.engine import resultcache as _rcache
+from libskylark_tpu_torch.qos import scheduler as _qsched
+from libskylark_tpu_torch.qos import tenants as _qtenants
+from libskylark_tpu_torch.resilience import faults
+from libskylark_tpu_torch.resilience import health as _health
+from libskylark_tpu_torch.resilience.policy import Deadline
+from libskylark_tpu_torch.telemetry import metrics as _metrics
+from libskylark_tpu_torch.telemetry import trace as _trace
 
 ENDPOINTS = ("sketch_apply", "fastfood_features", "solve_l2_sketched",
              "krr_predict", "sparse_sketch_apply",
@@ -130,13 +188,49 @@ _SKETCH_ENDPOINTS = ("sketch_apply", "fastfood_features",
 _LIBRARY_ENDPOINTS = ("krr_predict", "rlsc_predict", "condest",
                       "graph_ase", "graph_ppr")
 
-# the reference's SKYLARK_SPARSE_NNZ_FLOOR, SKYLARK_SPARSE_MIN_DENSITY and
-# SKYLARK_FWHT_CM_SDIM defaults
-SPARSE_NNZ_FLOOR = 64
-SPARSE_MIN_DENSITY = 0.25
-FWHT_CM_SDIM = 256
+_SPARSE_SUBMITS = _metrics.counter(
+    "serve.sparse_submits",
+    "Sparse (CSR) serve submissions accepted by submit_sparse / "
+    "submit_sparse_solve, before the densify decision")
+_SPARSE_DENSIFIED = _metrics.counter(
+    "serve.sparse_densified",
+    "Sparse submissions densified onto the dense serve path (operand "
+    "density >= SKYLARK_SPARSE_MIN_DENSITY)")
+_SPARSE_KERNEL_FLUSHES = _metrics.counter(
+    "serve.sparse_kernel_flushes",
+    "Sparse-bucket flushes by route (cuda = B3, plain = its plain "
+    "version)")
+_SPARSE_NNZ_HIST = _metrics.histogram(
+    "serve.sparse_nnz_class",
+    "pow2 nnz class of accepted sparse submissions",
+    buckets=tuple(float(1 << p) for p in range(6, 21)))
+_FWHT_FLUSHES = _metrics.counter(
+    "serve.fwht_flushes",
+    "SRHT sketch_apply flushes by route (cuda = B5)")
+_CM_SUBMITS = _metrics.counter(
+    "serve.compressed_matmul_submits",
+    "Compressed-matmul submissions reaching the flush path (cache hits "
+    "are not counted)")
+_QOS_ADMITTED = _metrics.counter(
+    "qos.admitted",
+    "Requests admitted past QoS admission, by priority class and tenant")
+_QOS_SHED = _metrics.counter(
+    "qos.shed",
+    "Requests shed by the class-ordered shed policy (DEGRADED or queue "
+    "pressure), by priority class and tenant")
+_QOS_RATE_LIMITED = _metrics.counter(
+    "qos.rate_limited",
+    "Requests refused at admission by a tenant token bucket "
+    "(TenantQuotaError), by priority class and tenant")
+_QOS_QUEUE_DEPTH = _metrics.gauge(
+    "qos.queue_depth",
+    "Queued (not yet dispatched) requests, by priority class and replica")
+_QOS_LATENCY = _metrics.histogram(
+    "qos.request_latency",
+    "Request latency (submit to resolve, seconds), by priority class")
 
 SERVING = "SERVING"
+DEGRADED = "DEGRADED"
 DRAINING = "DRAINING"
 STOPPED = "STOPPED"
 
@@ -144,8 +238,9 @@ _EX_SEQ = itertools.count()
 
 
 class ServeOverloadedError(RuntimeError):
-    """The queue stayed at ``max_queue`` past the submit timeout, or the
-    executor is draining or stopped."""
+    """The queue stayed at ``max_queue`` past the submit timeout, a load
+    shed (DEGRADED, queue pressure, draining), a request whose deadline
+    expired while queued, or a stopped executor."""
 
 
 @dataclasses.dataclass
@@ -155,17 +250,39 @@ class _Request:
     meta: dict              # endpoint bits: orientation, true extents
     future: Future = dataclasses.field(default_factory=Future)
     t_submit: float = dataclasses.field(default_factory=time.monotonic)
+    deadline: Optional[Deadline] = None   # expires-while-queued bound
+    tags: frozenset = frozenset()         # fault-injection tags
+    request_id: Optional[str] = None      # telemetry request identity
+    tctx: Optional[object] = None         # telemetry SpanContext handoff
+    qos_class: str = "standard"           # resolved priority class
+    tenant: str = ""                      # resolved tenant name
+    flight: Optional[object] = None       # the single-flight it leads
 
 
 @dataclasses.dataclass
 class _Bucket:
-    key: tuple
+    key: tuple              # the queue: statics (+ model ids) + class
+    statics: tuple          # routes, targets and stats (no class)
     ctx: dict               # what the flush program needs
     reqs: list = dataclasses.field(default_factory=list)
+    qos_class: str = "standard"
 
     @property
     def oldest(self) -> float:
         return self.reqs[0].t_submit if self.reqs else float("inf")
+
+
+def dispatch_loop(workq) -> None:
+    """Flush-worker loop over a dispatch queue of ``(executor, (bucket,
+    cohort))`` items (``None`` stops one worker): each executor's own
+    workers run it, and so do the threads of whoever owns a queue handed
+    to several executors as ``dispatch_queue=``."""
+    while True:
+        item = workq.get()
+        if item is None:
+            return
+        ex, work = item
+        ex._dispatch_cohort(*work)
 
 
 def _percentile(sorted_vals: list, q: float) -> Optional[float]:
@@ -310,7 +427,7 @@ def _sparse_sketch_statics(transform, A, dimension, pad_floor):
         raise errors.UnsupportedError(
             "sparse_sketch_apply serves CWT, JLT and CT")
     padded = bucketing.pad_shape(A.shape, (0, 1), pad_floor)
-    nnz_cls = bucketing.nnz_class(A.nnz, SPARSE_NNZ_FLOOR)
+    nnz_cls = bucketing.nnz_class(A.nnz, _env.SPARSE_NNZ_FLOOR.get())
     dtype = str(np.dtype(A.device_dtype))
     statics = ("sparse_sketch_apply", family, repr(dist),
                transform.sketch_dim, rowwise, dtype, padded, nnz_cls)
@@ -362,7 +479,7 @@ def _sparse_solve_statics(transform, A, B, method, pad_floor):
         raise TypeError(f"sparse solve serve path supports JLT/CWT, got "
                         f"{family}")
     n_pad = bucketing.pow2_pad(A.height, pad_floor)
-    nnz_cls = bucketing.nnz_class(A.nnz, SPARSE_NNZ_FLOOR)
+    nnz_cls = bucketing.nnz_class(A.nnz, _env.SPARSE_NNZ_FLOOR.get())
     dtype = str(np.dtype(A.device_dtype))
     statics = ("sparse_solve_l2_sketched", family, transform.sketch_dim,
                method, A.width, B.shape[1], dtype, n_pad, nnz_cls)
@@ -384,7 +501,7 @@ def _graph_ase_statics(A, k, iters, pad_floor):
 
     S = coerce_adjacency(A)[0]
     padded = bucketing.pad_shape(S.shape, (0, 1), pad_floor)
-    nnz_cls = bucketing.nnz_class(S.nnz, SPARSE_NNZ_FLOOR)
+    nnz_cls = bucketing.nnz_class(S.nnz, _env.SPARSE_NNZ_FLOOR.get())
     dtype = str(np.dtype(S.device_dtype))
     k = int(k)
     iters = max(int(iters), 1)
@@ -402,7 +519,7 @@ def _graph_ppr_statics(A, s, alpha, iters, pad_floor):
 
     S = coerce_adjacency(A)[0]
     padded = bucketing.pad_shape(S.shape, (0, 1), pad_floor)
-    nnz_cls = bucketing.nnz_class(S.nnz, SPARSE_NNZ_FLOOR)
+    nnz_cls = bucketing.nnz_class(S.nnz, _env.SPARSE_NNZ_FLOOR.get())
     dtype = str(np.dtype(S.device_dtype))
     s = _host(s, dtype)
     if s.shape != (S.height,):
@@ -471,10 +588,12 @@ def _lowrank_key_data(transform, dtype):
 
 
 def _kernel_identity(kernel) -> str:
-    """What keys a KRR/RLSC bucket's kernel: its JSON serialization (the
-    reference keys on ``engine.digest`` of it)."""
+    """What keys a KRR/RLSC bucket's kernel: the reference's
+    ``engine.digest``, the first 16 hex digits of the sha256 of its JSON
+    serialization (of its ``repr`` without one)."""
     to_json = getattr(kernel, "to_json", None)
-    return to_json() if callable(to_json) else repr(kernel)
+    doc = to_json() if callable(to_json) else repr(kernel)
+    return hashlib.sha256(str(doc).encode()).hexdigest()[:16]
 
 
 def _krr_statics(kernel, X_new, X_train, coef, pad_floor,
@@ -504,10 +623,10 @@ def default_cmm_transform(A, *, s_dim: Optional[int] = None,
                           seed: int = 0):
     """The transform ``submit_compressed_matmul`` builds when the caller
     holds none: SRHT (FJLT, ``wht``) when A's contraction dim is a power
-    of two, CWT otherwise, at ``s_dim`` (default ``FWHT_CM_SDIM``), from
-    the allocation (seed, 0)."""
+    of two, CWT otherwise, at ``s_dim`` (default ``SKYLARK_FWHT_CM_SDIM``),
+    from the allocation (seed, 0)."""
     n = int(A.shape[1] if hasattr(A, "shape") else np.asarray(A).shape[1])
-    s = int(s_dim or FWHT_CM_SDIM)
+    s = int(s_dim or _env.FWHT_CM_SDIM.get())
     alloc = Allocation(int(seed), 0)
     if n & (n - 1):
         from libskylark_tpu_torch.sketch.hash import CWT
@@ -560,8 +679,8 @@ def _cmm_statics(transform, A, B, pad_floor):
     bound = norm_a * _fro(B) * math.sqrt(2.0 / s_dim)
     m_pad = bucketing.pow2_pad(m, pad_floor)
     p_pad = bucketing.pow2_pad(B.shape[1], pad_floor)
-    nnz_cls = (bucketing.nnz_class(A.nnz, SPARSE_NNZ_FLOOR) if sparse
-               else 0)
+    nnz_cls = (bucketing.nnz_class(A.nnz, _env.SPARSE_NNZ_FLOOR.get())
+               if sparse else 0)
     statics = ("compressed_matmul", family, s_dim, sparse, n, dtype, m_pad,
                p_pad, nnz_cls)
     return statics, {"A": A, "B": B, "family": family, "sparse": sparse,
@@ -574,8 +693,12 @@ def _cmm_statics(transform, A, B, pad_floor):
 def derive_request(endpoint: str, *, pad_floor: int = bucketing.PAD_FLOOR,
                    **kwargs) -> tuple:
     """``(statics, info)`` of a request: the bucket statics and what the
-    executor's packing reuses."""
-    kwargs.pop("timeout", None)
+    executor's packing reuses. Transport keywords (``timeout``,
+    ``deadline``, ``request_id``, ``tenant``, ``qos_class``, ``_digest``)
+    are ignored."""
+    for transport in ("timeout", "deadline", "request_id", "tenant",
+                      "qos_class", "_digest"):
+        kwargs.pop(transport, None)
     if endpoint == "sketch_apply":
         return _sketch_statics(kwargs["transform"], kwargs["A"],
                                kwargs.get("dimension"), pad_floor)
@@ -625,6 +748,86 @@ def request_statics(endpoint: str, *, pad_floor: int = bucketing.PAD_FLOOR,
     shape class, ...), as the reference's executor keys them (a KRR/RLSC
     kernel by its JSON where the reference has its digest)."""
     return derive_request(endpoint, pad_floor=pad_floor, **kwargs)[0]
+
+
+def request_digest(endpoint: str, derived: tuple, kwargs: dict, *,
+                   host: Optional[dict] = None, d2h=None) -> str:
+    """The request's content address, the reference's hex: blake2b-256
+    over the bucket statics and everything else that reaches the flush —
+    the transform's key data (the same operand under another seed is
+    another request), its scale, the operand bytes (CSR operands by their
+    (data, indices, indptr) parts, never densified), and the model or
+    seed material of each endpoint.
+
+    ``derived`` is :func:`derive_request`'s ``(statics, info)`` and
+    ``kwargs`` the endpoint keywords it was derived from. ``host`` maps
+    an operand name to host bytes to hash in its place (a resident
+    operand's, so that a submit by reference copies nothing off the
+    card); ``d2h`` receives the bytes of each CUDA tensor copied to the
+    host to be hashed."""
+    statics, info = derived
+    kd = MicrobatchExecutor._key_data
+    host = host or {}
+
+    def scale_of(t):
+        return np.float64(getattr(t, "scale", 1.0))
+
+    def csr(A, dtype):
+        data, indices, indptr = A.csr_parts(np.dtype(dtype))
+        return [("shape", repr(tuple(A.shape))), ("data", data),
+                ("indices", indices), ("indptr", indptr)]
+
+    def operand(name):
+        a = info[name]
+        h = host.get(name)
+        return a if h is None else np.reshape(h, tuple(a.shape))
+
+    if endpoint in ("sketch_apply", "fastfood_features"):
+        t = kwargs["transform"]
+        parts = [("kd", kd(t)), ("scale", scale_of(t)),
+                 ("A", operand("A"))]
+    elif endpoint == "solve_l2_sketched":
+        t = kwargs["transform"]
+        parts = [("kd", kd(t)), ("scale", scale_of(t)),
+                 ("A", operand("A")), ("B", info["B"])]
+    elif endpoint in ("krr_predict", "rlsc_predict"):
+        # the model's content is part of the address (the bucket key's
+        # object ids only keep cohorts unmixed)
+        parts = [("Xq", info["X_new"]),
+                 ("X_train", _rcache.host_bytes(kwargs["X_train"], d2h)),
+                 ("coef", _rcache.host_bytes(kwargs["coef"], d2h)),
+                 ("coding", repr(kwargs.get("coding")))]
+    elif endpoint in ("sparse_sketch_apply", "sparse_solve_l2_sketched"):
+        t = kwargs["transform"]
+        parts = [("kd", kd(t)), ("scale", scale_of(t))]
+        parts += csr(info["A"], info["dtype"])
+        if endpoint == "sparse_solve_l2_sketched":
+            parts.append(("B", info["B"]))
+    elif endpoint == "graph_ase":
+        parts = [("seed", repr(int(kwargs.get("seed", 0))))]
+        parts += csr(info["A"], info["dtype"])
+    elif endpoint == "graph_ppr":
+        parts = csr(info["A"], info["dtype"]) + [("s", info["s"])]
+    elif endpoint == "condest":
+        parts = [("seed", repr(int(kwargs.get("seed", 0)))),
+                 ("A", operand("A"))]
+    elif endpoint == "lowrank":
+        ts, tt = kwargs["transform_s"], kwargs["transform_t"]
+        parts = [("kd_s", kd(ts)), ("scale_s", scale_of(ts)),
+                 ("kd_t", kd(tt)), ("scale_t", scale_of(tt)),
+                 ("A", operand("A"))]
+    elif endpoint == "compressed_matmul":
+        t = kwargs["transform"]
+        parts = [("kd", kd(t)), ("scale", scale_of(t))]
+        if info["sparse"]:
+            parts += csr(info["A"], info["dtype"])
+        else:
+            parts.append(("A", operand("A")))
+        parts.append(("B", info["B"]))
+    else:
+        raise ValueError(f"unknown serve endpoint {endpoint!r}; "
+                         f"expected one of {ENDPOINTS}")
+    return _rcache.operand_digest(parts, statics=statics, d2h=d2h)
 
 
 # ---------------------------------------------------------------------------
@@ -789,8 +992,9 @@ def _lane_stage(ctx: dict, sketched: tuple) -> list:
 
 def _plain_lanes(ctx: dict, kd, scale, arrays: dict) -> list:
     """The plain program of a solve or lowrank flush: the single-request
-    program lane by lane. A compressed matmul's is the kernels' plain
-    versions, then its lanes' products, as the sketch endpoints'."""
+    program lane by lane, each on a fresh copy of its lane. A compressed
+    matmul's is the kernels' plain versions, then its lanes' products, as
+    the sketch endpoints'."""
     from libskylark_tpu_torch.algorithms.regression import \
         sketched_solve_serve
     from libskylark_tpu_torch.nla.lowrank import lowrank_serve_apply
@@ -801,19 +1005,19 @@ def _plain_lanes(ctx: dict, kd, scale, arrays: dict) -> list:
     for i in range(len(kd)):
         if endpoint == "solve_l2_sketched":
             out.append(sketched_solve_serve(
-                kd[i], scale[i], arrays["A"][i], arrays["B"][i],
+                kd[i], scale[i], _lane(arrays["A"][i]), _lane(arrays["B"][i]),
                 sketch_type=ctx["family"], s_dim=ctx["s_dim"],
                 method=ctx["method"]))
         elif endpoint == "sparse_solve_l2_sketched":
             out.append(sparse_solve_serve(
-                kd[i], scale[i], arrays["data"][i], arrays["indices"][i],
-                arrays["indptr"][i], arrays["B"][i],
+                kd[i], scale[i], *(_lane(arrays[n][i]) for n in (
+                    "data", "indices", "indptr", "B")),
                 sketch_type=ctx["family"], s_dim=ctx["s_dim"],
                 method=ctx["method"], shape=ctx["padded_A"]))
         else:
             out.append(lowrank_serve_apply(
                 kd[i], scale[i], arrays["kd_t"][i], arrays["scale_t"][i],
-                arrays["A"][i], dist=ctx["dist"], s=ctx["s_dim"],
+                _lane(arrays["A"][i]), dist=ctx["dist"], s=ctx["s_dim"],
                 t=ctx["t_dim"], k=ctx["k"]))
     return out
 
@@ -934,20 +1138,42 @@ class MicrobatchExecutor:
     "cuda", unless given); ``kernel`` is None (each qualified bucket's
     kernel on a CUDA executor), ``"cuda"`` (the same, refused on a CPU
     executor) or ``"plain"`` (the plain programs). ``workers`` flush
-    cohorts concurrently. Submission is a host-side pack and a queue
-    append, safe from any thread.
+    cohorts concurrently; with ``dispatch_queue`` (a ``queue.Queue``)
+    the executor puts its cohorts there instead and starts no workers, and
+    the queue's owner runs :func:`dispatch_loop` threads (several
+    executors may share one). ``degraded_threshold``, ``failure_window``
+    and ``shed_fraction`` set the DEGRADED detector and its shed bounds;
+    ``tenants`` the :class:`~libskylark_tpu_torch.qos.TenantRegistry`;
+    ``adaptive`` starts the adaptive batching controller; ``cache`` (None:
+    ``SKYLARK_CACHE``) turns on the result cache of ``cache_bytes``
+    (None: ``SKYLARK_CACHE_MAX_BYTES``) bytes of device memory.
+    Submission is a host-side pack and a queue append, safe from any
+    thread.
     """
 
     def __init__(self, max_batch: int = 8, linger_us: int = 2000,
                  max_queue: int = 1024, workers: int = 1,
                  pad_floor: int = bucketing.PAD_FLOOR,
-                 kernel: Optional[str] = None, name: Optional[str] = None,
+                 degraded_threshold: float = 0.5,
+                 failure_window: int = 32,
+                 shed_fraction: float = 0.25,
+                 name: Optional[str] = None,
+                 dispatch_queue=None,
+                 kernel: Optional[str] = None,
+                 tenants=None,
+                 adaptive: bool = False,
+                 cache: Optional[bool] = None,
+                 cache_bytes: Optional[int] = None,
                  device=None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if kernel is not None and kernel not in KERNEL_CHOICES:
             raise ValueError(f"kernel must be one of {KERNEL_CHOICES} or "
                              f"None, got {kernel!r}")
+        if not 0.0 < degraded_threshold <= 1.0:
+            raise ValueError("degraded_threshold must be in (0, 1]")
+        if not 0.0 < shed_fraction <= 1.0:
+            raise ValueError("shed_fraction must be in (0, 1]")
         self.device = resolve_device(device)
         if kernel == "cuda" and self.device.type != "cuda":
             raise errors.UnsupportedError(
@@ -959,8 +1185,10 @@ class MicrobatchExecutor:
         self.max_queue = int(max_queue)
         self.pad_floor = int(pad_floor)
         self.kernel = kernel
+        self.degraded_threshold = float(degraded_threshold)
+        self.shed_fraction = float(shed_fraction)
 
-        self._lock = threading.Lock()
+        self._lock = _locks.make_lock("serve.state")
         self._work_cv = threading.Condition(self._lock)
         self._space_cv = threading.Condition(self._lock)
         self._idle_cv = threading.Condition(self._lock)
@@ -970,52 +1198,191 @@ class MicrobatchExecutor:
         self._inflight = 0
         self._stop = False
         self._draining = False
+        # QoS: the registry resolves tenants to classes and charges their
+        # buckets; the deficit scheduler orders the class queues; the
+        # per-bucket (linger, cap) targets move only under the controller
+        self._tenants = (tenants if tenants is not None
+                         else _qtenants.get_registry())
+        self._sched = _qsched.DeficitScheduler(quantum=self.max_batch)
+        self._class_pending = collections.Counter()     # under _lock
+        self._qos_targets: dict[tuple, list] = {}      # under _lock
 
-        self._stats_lock = threading.Lock()
+        self._stats_lock = _locks.make_lock("serve.stats")
         self._counts = collections.Counter()
         self._kernel_sel = collections.Counter()
         self._kernel_dec = collections.Counter()
         self._sparse_sel = collections.Counter()
         self._sparse_nnz_hist = collections.Counter()
+        self._fwht_sel = collections.Counter()
         self._batch_hist = collections.Counter()
         self._cohort_hist = collections.Counter()
         self._pad_real = 0
         self._pad_total = 0
         self._latency = collections.deque(maxlen=8192)
         self._by_bucket: dict[tuple, collections.Counter] = {}
+        # QoS accounting: (kind, class, tenant) counts, per-class latency
+        # and queue-wait windows, per-bucket controller observations
+        self._qos_counts = collections.Counter()
+        self._latency_by_class = {
+            c: collections.deque(maxlen=4096) for c in _qtenants.CLASSES}
+        self._wait_by_class = {
+            c: collections.deque(maxlen=4096) for c in _qtenants.CLASSES}
+        self._bucket_obs: dict = {}
+        # the DEGRADED detector's evidence: root flush outcomes, 1.0 failed
+        self._health = collections.deque(maxlen=max(int(failure_window), 4))
+        self._pub_lock = _locks.make_lock("serve.pub")
+        self._published_state = SERVING
         # KRR/RLSC models on the device, one per bucket key, each pinned
         # with the caller's objects whose ids key it
         self._models: dict[tuple, tuple] = {}
+        # the result cache (opt-in) and the residency table (always: an
+        # OperandRef must resolve on a cache-off executor too)
+        if cache is None:
+            cache = bool(_env.CACHE.get())
+        self._cache = (_rcache.ResultCache(name=self.name,
+                                           max_bytes=cache_bytes)
+                       if cache else None)
+        self._residency = _rcache.ResidencyTable(name=self.name,
+                                                 device=self.device)
 
-        self._workq: queue.Queue = queue.Queue()
-        self._workers = [
-            threading.Thread(target=self._worker_loop,
-                             name=f"skylark-serve-worker-{i}", daemon=True)
-            for i in range(max(int(workers), 1))]
-        for t in self._workers:
-            t.start()
+        if dispatch_queue is not None:
+            self._workq = dispatch_queue
+            self._workers = []
+        else:
+            self._workq = queue.Queue()
+            self._workers = [
+                threading.Thread(target=dispatch_loop, args=(self._workq,),
+                                 name=f"skylark-serve-worker-{i}",
+                                 daemon=True)
+                for i in range(max(int(workers), 1))]
+            for t in self._workers:
+                t.start()
         self._flusher = threading.Thread(target=self._flusher_loop,
                                          name="skylark-serve-flusher",
                                          daemon=True)
         self._flusher.start()
+        self._controller = None
+        if adaptive:
+            from libskylark_tpu_torch.qos.controller import \
+                AdaptiveController
+
+            self._controller = AdaptiveController(self)
+        _EXECUTORS.add(self)
 
     # ------------------------------------------------------------------
     # intake
     # ------------------------------------------------------------------
 
+    def _device_scope(self):
+        """The executor's CUDA device as the current one (CUDA's current
+        device is per thread), or nothing on a CPU executor."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _admit(self, endpoint: str, tenant, qos_class) -> tuple:
+        """(tenant, class) of a request past QoS admission: a tenant's
+        class from the registry, its token bucket charged
+        (:class:`~libskylark_tpu_torch.base.errors.TenantQuotaError` when
+        empty); a request with ``qos_class=`` was admitted by a front
+        door already and is not charged again."""
+        if qos_class is None:
+            try:
+                tenant, qos_class = self._tenants.admit(tenant)
+            except errors.TenantQuotaError as e:
+                cls = self._tenants.resolve(tenant)[1]
+                with self._stats_lock:
+                    self._qos_counts[("rate_limited", cls, e.tenant)] += 1
+                _QOS_RATE_LIMITED.inc(**{"class": cls, "tenant": e.tenant})
+                raise
+            # unregistered names account under the anonymous tenant, so
+            # label sets cannot grow with arbitrary caller strings
+            tenant = self._tenants.accounting_name(tenant)
+        else:
+            qos_class = _qtenants.coerce_class(qos_class)
+            tenant = str(tenant) if tenant else ""
+        faults.check("qos.admit", tags=faults.current_tags(),
+                     detail=f"{endpoint} {tenant or '-'} {qos_class}")
+        return tenant, qos_class
+
     def submit(self, endpoint: str, /, **kwargs) -> Future:
         """Queue one request; the future resolves to what the endpoint's
         sequential program returns, as a tensor on the executor's device.
-        ``timeout`` (seconds, default 30) bounds the backpressure wait."""
+        ``timeout`` (seconds, default 30) bounds the backpressure wait;
+        ``deadline`` (seconds or a
+        :class:`~libskylark_tpu_torch.resilience.Deadline`) bounds the
+        request's queued life; ``tenant`` (or a front door's resolved
+        ``qos_class``) its priority class; ``request_id`` names it in the
+        trace. An ``A=`` that is an :class:`~libskylark_tpu_torch.engine.
+        resultcache.OperandRef` takes the resident operand."""
         timeout = kwargs.pop("timeout", 30.0)
-        key, ctx, req = self._prepare(endpoint, **kwargs)
-        self._enqueue(key, ctx, req, timeout)
-        return req.future
+        deadline = Deadline.coerce(kwargs.pop("deadline", None))
+        rid = kwargs.pop("request_id", None)
+        tenant, qos_class = self._admit(endpoint, kwargs.pop("tenant", None),
+                                        kwargs.pop("qos_class", None))
+        digest = kwargs.pop("_digest", None)
+        host = None
+        if _rcache.is_ref(kwargs.get("A")):
+            d = _rcache.as_ref(kwargs["A"]).digest
+            host = {"A": self._residency.host(d)}
+            kwargs["A"] = self._residency.resolve(d)
+        derived = None
+        flight = None
+        leader = Future()
+        if self._cache is not None and not self._is_degraded():
+            if digest is None:
+                derived = derive_request(endpoint, pad_floor=self.pad_floor,
+                                         **kwargs)
+                digest = request_digest(endpoint, derived, kwargs, host=host,
+                                        d2h=self._cache.note_digest_d2h)
+            pinned = self._residency.result(digest)
+            if pinned is not None:
+                self._cache.note_hit(qos_class, pinned)
+                return self._bypass_future(qos_class, pinned)
+            kind, got = self._cache.claim(digest, qos_class, leader)
+            if kind == "hit":
+                return self._bypass_future(qos_class, got)
+            if kind == "follow":
+                with self._lock:
+                    self._sched.note_bypass(qos_class)
+                return got
+            flight = got
+        if rid is None and _telemetry.enabled():
+            rid = _trace.new_request_id()
+        try:
+            # the submit span covers pack and enqueue; its context rides
+            # the request into the flush thread
+            with _trace.span("serve.submit", attrs={"endpoint": endpoint},
+                             request_id=rid) as sp:
+                key, ctx, req = self._prepare(endpoint, _derived=derived,
+                                              **kwargs)
+                req.future = leader
+                req.deadline = deadline
+                req.request_id = rid
+                req.qos_class = qos_class
+                req.tenant = tenant or ""
+                req.flight = flight
+                if sp is not None:
+                    req.tctx = sp.context()
+                req.tags = faults.current_tags()
+                self._enqueue(key, ctx, req, timeout)
+        except BaseException as e:
+            if flight is not None:
+                self._cache.abort_flight(flight, e)
+            raise
+        if flight is not None:
+            leader.add_done_callback(
+                lambda f, _fl=flight: self._cache.settle_flight(
+                    _fl, f, insert=not self._is_degraded()))
+        return leader
 
-    def _prepare(self, endpoint: str, **kwargs) -> tuple:
-        """(bucket key, ctx, request) of one request, packed on the host."""
-        statics, info = derive_request(endpoint, pad_floor=self.pad_floor,
-                                       **kwargs)
+    def _prepare(self, endpoint: str, _derived=None, **kwargs) -> tuple:
+        """(bucket key, ctx, request) of one request, packed on the host
+        (``_derived``: its :func:`derive_request`, when already made)."""
+        if _derived is None:
+            _derived = derive_request(endpoint, pad_floor=self.pad_floor,
+                                      **kwargs)
+        statics, info = _derived
         prep = {"sketch_apply": self._prep_sketch,
                 "fastfood_features": self._prep_fastfood,
                 "sparse_sketch_apply": self._prep_sparse,
@@ -1029,6 +1396,79 @@ class MicrobatchExecutor:
                 "graph_ase": self._prep_graph,
                 "graph_ppr": self._prep_graph}[endpoint]
         return prep(statics, info, kwargs)
+
+    def _bypass_future(self, cls: str, value) -> Future:
+        """A request served without a flush (a pinned result or a cache
+        hit): a resolved future holding the caller's own clone, made on
+        the executor's device and finished, and noted in the scheduler's
+        fairness ledger."""
+        with self._lock:
+            self._sched.note_bypass(cls)
+        with self._device_scope():
+            out = _rcache.handout_synced(value)
+        f: Future = Future()
+        f.set_result(out)
+        return f
+
+    # -- residency -----------------------------------------------------
+
+    def register_operand(self, A, transform=None, dimension=None,
+                         **kw) -> "_rcache.OperandRef":
+        """Pin ``A`` resident on the executor's device (uploaded once) and
+        return its :class:`~libskylark_tpu_torch.engine.resultcache.
+        OperandRef`, the digest of its bytes. A later submit may pass the
+        ref as ``A=`` of any dense endpoint: no bytes of A are shipped, the
+        flush stacks the resident operand by a device-to-device copy, and
+        with the cache on the request digest is that of the raw bytes.
+        With ``transform=`` the operand is sketched once, by an ordinary
+        submit, and the sketch pinned under the request's digest: a later
+        ``submit_sketch(transform, ref)`` on a cache-on executor is served
+        from the pin with no launch. Pins live until
+        :meth:`unregister_operand`; registering the same bytes again is a
+        no-op. A CUDA ``A`` is copied to the host once to be digested."""
+        host = _rcache.host_bytes(
+            A, self._cache.note_digest_d2h if self._cache is not None
+            else None)
+        d = _rcache.operand_digest([("A", host)])
+        resident = (A if isinstance(A, torch.Tensor)
+                    and A.device.type != "cpu" else None)
+        self._residency.pin(d, host, resident=resident)
+        ref = _rcache.OperandRef(d)
+        if transform is not None:
+            value = self.submit("sketch_apply", transform=transform, A=ref,
+                                dimension=dimension, **kw).result()
+            kwargs = {"transform": transform,
+                      "A": self._residency.resolve(d),
+                      "dimension": dimension}
+            derived = derive_request("sketch_apply",
+                                     pad_floor=self.pad_floor, **kwargs)
+            rd = request_digest("sketch_apply", derived, kwargs,
+                                host={"A": host})
+            self._residency.pin_result(rd, value, owner=d)
+        return ref
+
+    def unregister_operand(self, ref) -> bool:
+        """Unpin a registered operand and every result pinned with it;
+        whether it was resident. Cache entries of its requests stay
+        (ordinary quota-bounded entries)."""
+        return self._residency.unpin(_rcache.as_ref(ref).digest)
+
+    def resident_operands(self) -> list:
+        """Digests of the operands pinned here, sorted."""
+        return self._residency.digests()
+
+    def _cache_stats_block(self) -> Optional[dict]:
+        """The ``stats()["cache"]`` block: the cache's counters and the
+        residency sub-block; None on a cache-off executor with nothing
+        pinned."""
+        res = self._residency.stats()
+        if self._cache is None:
+            if not res["resident_operands"] and not res["pinned_results"]:
+                return None
+            return {"residency": res}
+        blk = self._cache.stats()
+        blk["residency"] = res
+        return blk
 
     def submit_sketch(self, transform, A, dimension=None, **kw) -> Future:
         return self.submit("sketch_apply", transform=transform, A=A,
@@ -1051,15 +1491,19 @@ class MicrobatchExecutor:
 
     def _note_sparse_intake(self, A) -> bool:
         """Count one sparse submission; whether to densify it (density at
-        or above ``SPARSE_MIN_DENSITY``: the padded CSR lanes would carry
-        more bytes than the dense operand)."""
-        densify = A.density >= SPARSE_MIN_DENSITY
+        or above ``SKYLARK_SPARSE_MIN_DENSITY``: the padded CSR lanes
+        would carry more bytes than the dense operand)."""
+        nnz_cls = bucketing.nnz_class(A.nnz, _env.SPARSE_NNZ_FLOOR.get())
+        densify = A.density >= _env.SPARSE_MIN_DENSITY.get()
+        _SPARSE_SUBMITS.inc_always()
+        _SPARSE_NNZ_HIST.observe_always(float(nnz_cls))
         with self._stats_lock:
             self._counts["sparse_submits"] += 1
-            self._sparse_nnz_hist[bucketing.nnz_class(
-                A.nnz, SPARSE_NNZ_FLOOR)] += 1
+            self._sparse_nnz_hist[nnz_cls] += 1
             if densify:
                 self._counts["sparse_densified"] += 1
+        if densify:
+            _SPARSE_DENSIFIED.inc_always()
         return densify
 
     @staticmethod
@@ -1069,7 +1513,7 @@ class MicrobatchExecutor:
     def submit_sparse(self, transform, A, dimension=None, **kw) -> Future:
         """Sparse sketch endpoint: ``A`` a SparseMatrix or scipy sparse
         operand; resolves to ``transform.apply(A.todense(), dimension)``.
-        An operand at or above the density ``SPARSE_MIN_DENSITY`` goes
+        An operand at or above ``SKYLARK_SPARSE_MIN_DENSITY`` goes
         densified through the dense endpoint (counted as ``densified``)."""
         A = as_sparse(A)
         if self._note_sparse_intake(A):
@@ -1277,6 +1721,9 @@ class MicrobatchExecutor:
         return statics, ctx, req
 
     def _prep_cmm(self, statics, info, kw):
+        _CM_SUBMITS.inc_always()
+        with self._stats_lock:
+            self._counts["cm_submits"] += 1
         transform, dtype = kw["transform"], info["dtype"]
         A = info["A"]
         B = self._operand(_cast(info["B"], dtype))
@@ -1421,15 +1868,54 @@ class MicrobatchExecutor:
         return r
 
     def _refuse_if_unavailable_locked(self) -> None:
-        if self._stop or self._draining:
+        if self._draining and not self._stop:
+            with self._stats_lock:
+                self._counts["shed"] += 1
             raise ServeOverloadedError(
-                f"executor {self.name!r} is "
-                f"{'draining' if self._draining else 'stopped'}")
+                f"executor {self.name!r} is draining: request refused")
+        if self._stop:
+            raise ServeOverloadedError(f"executor {self.name!r} is stopped")
+
+    def _class_shed_bound(self, cls: str) -> int:
+        """The DEGRADED shed bound (queued plus in-flight requests) of one
+        class: ``max_queue`` times the class's shed fraction, scaled by
+        ``shed_fraction`` over the standard class's declared default (the
+        reference's rule: the constructor's knob moves all three bounds,
+        each ``SKYLARK_QOS_SHED_*`` its own)."""
+        scale = self.shed_fraction / float(_env.QOS_SHED_STANDARD.default)
+        return max(1, int(self.max_queue * _qtenants.shed_fraction(cls)
+                          * scale))
+
+    def _note_shed(self, req: _Request) -> None:
+        with self._stats_lock:
+            self._counts["shed"] += 1
+            self._qos_counts[("shed", req.qos_class, req.tenant)] += 1
+        _QOS_SHED.inc(**{"class": req.qos_class, "tenant": req.tenant})
 
     def _enqueue(self, key, ctx, req, timeout) -> None:
         deadline = time.monotonic() + (timeout or 0)
+        degraded = self._is_degraded()
+        cls = req.qos_class
+        shed_bound = self._class_shed_bound(cls)
+        pressure = _qtenants.PRESSURE_FRACTIONS.get(cls, 1.0)
         with self._lock:
             self._refuse_if_unavailable_locked()
+            exposure = self._pending + self._inflight
+            if degraded and exposure >= shed_bound:
+                # DEGRADED shed, class-ordered: best_effort's bound is the
+                # smallest, interactive's the largest
+                self._note_shed(req)
+                raise ServeOverloadedError(
+                    f"load shed: executor DEGRADED and exposure at "
+                    f"{exposure} >= {cls} shed bound {shed_bound}")
+            if pressure < 1.0 and exposure >= max(
+                    1, int(self.max_queue * pressure)):
+                # queue-pressure shed: best_effort stops at its fraction of
+                # the bound even on a healthy executor
+                self._note_shed(req)
+                raise ServeOverloadedError(
+                    f"load shed: {cls} exposure at {exposure} >= "
+                    f"pressure bound {int(self.max_queue * pressure)}")
             while self._pending >= self.max_queue:
                 wait = deadline - time.monotonic() if timeout else None
                 if (timeout and wait <= 0) or not self._space_cv.wait(wait):
@@ -1439,89 +1925,157 @@ class MicrobatchExecutor:
                         f"serve queue at bound ({self.max_queue}) for "
                         f"{timeout}s")
                 self._refuse_if_unavailable_locked()
-            b = self._buckets.get(key)
+            qkey = tuple(key) + (cls,)
+            b = self._buckets.get(qkey)
             if b is None:
                 self._route_locked(key, ctx)
-                b = self._buckets[key] = _Bucket(key=key, ctx=ctx)
+                b = self._buckets[qkey] = _Bucket(key=qkey, statics=key,
+                                                  ctx=ctx, qos_class=cls)
             b.reqs.append(req)
             self._pending += 1
+            self._class_pending[cls] += 1
+            _QOS_QUEUE_DEPTH.set(float(self._class_pending[cls]),
+                                 **{"class": cls, "replica": self.name})
             with self._stats_lock:
                 self._counts["submitted"] += 1
                 self._counts["queued_peak"] = max(
                     self._counts["queued_peak"], self._pending)
-            # a full cohort goes straight to the workers; the flusher owns
-            # linger expiry, drain and partial flushes
-            if len(b.reqs) >= self.max_batch:
-                self._workq.put(self._pop_cohort_locked(key))
+                self._qos_counts[("admitted", cls, req.tenant)] += 1
+            _QOS_ADMITTED.inc(**{"class": cls, "tenant": req.tenant})
+            # a full cohort goes straight to a free worker (under the
+            # lock, so a racing shutdown's stop items queue behind it)
+            # unless a higher class has pending work: then the flusher's
+            # deficit scheduler decides
+            higher = any(self._class_pending.get(c, 0) > 0 for c in
+                         _qtenants.CLASSES[:_qtenants.CLASSES.index(cls)])
+            if len(b.reqs) >= self._bucket_cap_locked(b.statics) \
+                    and not higher and self._worker_free_locked():
+                work = self._pop_cohort_locked(qkey)
+                self._sched.charge(cls, len(work[1]))
+                self._workq.put((self, work))
             else:
                 self._work_cv.notify_all()
 
-    def _pop_cohort_locked(self, key) -> tuple:
-        b = self._buckets[key]
-        cohort, b.reqs = b.reqs[:self.max_batch], b.reqs[self.max_batch:]
+    def _bucket_targets_locked(self, statics: tuple) -> tuple:
+        """(linger seconds, cohort cap) of one bucket: the static config
+        unless the adaptive controller moved them."""
+        t = self._qos_targets.get(statics)
+        if t is None:
+            return self.linger, self.max_batch
+        return float(t[0]), int(t[1])
+
+    def _bucket_cap_locked(self, statics: tuple) -> int:
+        t = self._qos_targets.get(statics)
+        return self.max_batch if t is None else int(t[1])
+
+    def bucket_targets(self, statics) -> tuple:
+        """(linger_s, batch_cap) of one bucket (the controller's read)."""
+        with self._lock:
+            return self._bucket_targets_locked(tuple(statics))
+
+    def set_bucket_targets(self, statics, *, linger_s=None,
+                           batch_cap=None) -> None:
+        """Move one bucket's targets (the controller's write):
+        ``batch_cap`` clamps to [1, max_batch]; the flusher re-evaluates
+        at once."""
+        statics = tuple(statics)
+        with self._lock:
+            cur = list(self._bucket_targets_locked(statics))
+            if linger_s is not None:
+                cur[0] = max(float(linger_s), 0.0)
+            if batch_cap is not None:
+                cur[1] = max(1, min(int(batch_cap), self.max_batch))
+            self._qos_targets[statics] = cur
+            self._work_cv.notify_all()
+
+    def _worker_free_locked(self) -> bool:
+        """Whether one of the executor's own workers is free. Cohorts stay
+        in their class queues until one is, so that under load the deficit
+        scheduler, not the order of a FIFO, decides which class runs next.
+        An executor on a shared ``dispatch_queue`` cannot see its workers
+        and hands every ready cohort over."""
+        return not self._workers or self._inflight < len(self._workers)
+
+    def _pop_cohort_locked(self, key) -> Optional[tuple]:
+        b = self._buckets.get(key)
+        if b is None or not b.reqs:
+            return None
+        cap = self._bucket_cap_locked(b.statics)
+        cohort, b.reqs = b.reqs[:cap], b.reqs[cap:]
         if not b.reqs:
             del self._buckets[key]
         self._pending -= len(cohort)
+        self._class_pending[b.qos_class] -= len(cohort)
+        _QOS_QUEUE_DEPTH.set(float(max(self._class_pending[b.qos_class], 0)),
+                             **{"class": b.qos_class, "replica": self.name})
         self._inflight += 1
         self._space_cv.notify_all()
         return b, cohort
 
     def _cohort_done_locked(self) -> None:
         self._inflight -= 1
+        self._work_cv.notify_all()
         if self._pending == 0 and self._inflight == 0:
             self._idle_cv.notify_all()
 
     def _flusher_loop(self) -> None:
-        """Dispatch every bucket that is full, has lingered out, or must
-        go because the executor drains or stops — the oldest first."""
+        """Dispatch ready cohorts (full, lingered out, or flushed by drain
+        or stop) as workers free up: the oldest ready bucket of each class
+        is a candidate, and the deficit scheduler picks the class."""
         while True:
+            work = None
             with self._lock:
                 if self._stop and not self._buckets:
                     break
                 now = time.monotonic()
-                wait, ready = None, None
+                wait = None
+                ready: dict = {}          # class -> its oldest ready key
                 for key, b in self._buckets.items():
-                    if (len(b.reqs) >= self.max_batch or self._stop
-                            or self._draining
-                            or now - b.oldest >= self.linger):
-                        if ready is None or b.oldest < \
-                                self._buckets[ready].oldest:
-                            ready = key
+                    linger, cap = self._bucket_targets_locked(b.statics)
+                    if (len(b.reqs) >= cap or self._stop or self._draining
+                            or now - b.oldest >= linger):
+                        prev = ready.get(b.qos_class)
+                        if prev is None or b.oldest < \
+                                self._buckets[prev].oldest:
+                            ready[b.qos_class] = key
                     else:
-                        w = b.oldest + self.linger - now
+                        w = b.oldest + linger - now
                         wait = w if wait is None else min(wait, w)
-                if ready is None:
-                    self._work_cv.wait(timeout=wait)
+                if ready and self._worker_free_locked():
+                    backlog = {c: self._class_pending.get(c, 0)
+                               for c in ready}
+
+                    def cost(c):
+                        b0 = self._buckets[ready[c]]
+                        return min(len(b0.reqs),
+                                   self._bucket_cap_locked(b0.statics))
+
+                    cls = self._sched.next_class(backlog, cost)
+                    if cls is not None:
+                        work = self._pop_cohort_locked(ready[cls])
+                        if work is not None:
+                            self._sched.charge(cls, len(work[1]))
+                if work is None:
+                    if not self._stop or ready:
+                        self._work_cv.wait(timeout=wait)
                     continue
-                self._workq.put(self._pop_cohort_locked(ready))
+                self._workq.put((self, work))
         for _ in self._workers:
             self._workq.put(None)
 
-    def _worker_loop(self) -> None:
-        broken = None
-        try:
-            if self.device.type == "cuda":
-                torch.cuda.set_device(self.device)
-        except Exception as e:  # noqa: BLE001 — fanned to the futures
-            broken = e
-        while True:
-            work = self._workq.get()
-            if work is None:
-                return
-            if broken is None:
-                self._dispatch_cohort(*work)
-                continue
-            b, cohort = work
-            for r in cohort:
-                r.future.set_exception(broken)
-            with self._lock:
-                self._cohort_done_locked()
-
     def _dispatch_cohort(self, b: _Bucket, cohort: list) -> None:
-        """Run one cohort through the isolating executor; an exception
-        that escapes it reaches every unresolved future."""
+        """Run one cohort through the isolating executor, on the
+        executor's device; an exception that escapes it reaches every
+        unresolved future. Each request's queue wait, submit to the start
+        of its flush, is recorded by class."""
+        now = time.monotonic()
+        with self._stats_lock:
+            waits = self._wait_by_class[b.qos_class]
+            for r in cohort:
+                waits.append(now - r.t_submit)
         try:
-            self._run_cohort(b, cohort)
+            with self._device_scope():
+                self._run_cohort(b, cohort)
         except (KeyboardInterrupt, SystemExit):
             raise
         except BaseException as e:  # noqa: BLE001 — fanned to the futures
@@ -1537,65 +2091,118 @@ class MicrobatchExecutor:
     def flush(self) -> None:
         """Flush every pending cohort from the calling thread, and return
         once every in-flight cohort has resolved too."""
-        with (torch.cuda.device(self.device) if self.device.type == "cuda"
-              else contextlib.nullcontext()):
-            while True:
-                with self._lock:
-                    work = (self._pop_cohort_locked(next(iter(self._buckets)))
-                            if self._buckets else None)
-                if work is None:
-                    break
-                self._dispatch_cohort(*work)
+        while True:
+            with self._lock:
+                work = (self._pop_cohort_locked(next(iter(self._buckets)))
+                        if self._buckets else None)
+            if work is None:
+                break
+            self._dispatch_cohort(*work)
         with self._lock:
             while self._inflight:
                 self._idle_cv.wait(timeout=0.1)
 
     # ------------------------------------------------------------------
-    # failure isolation: bisection converges on the failing request
+    # deadlines, failure isolation and health
     # ------------------------------------------------------------------
+
+    def _drop_expired(self, cohort: list) -> list:
+        """Resolve deadline-expired requests to ServeOverloadedError and
+        return the others; runs before every execution attempt, so an
+        expired request is never stacked, launched or retried."""
+        live, expired = [], 0
+        for r in cohort:
+            if r.deadline is not None and r.deadline.expired:
+                expired += 1
+                if not r.future.done():
+                    r.future.set_exception(ServeOverloadedError(
+                        f"request deadline expired after "
+                        f"{time.monotonic() - r.t_submit:.3f}s in queue"))
+            else:
+                live.append(r)
+        if expired:
+            with self._stats_lock:
+                self._counts["expired"] += expired
+        return live
 
     def _run_cohort(self, b: _Bucket, cohort: list, depth: int = 0) -> None:
         """Execute a cohort; on failure split it in half and execute each
         half, until the failure pins to single requests, which alone get
         the exception (every lane runs the same program at any capacity,
-        so the survivors' bits are those of the full flush)."""
-        try:
-            self._execute(b, cohort)
-        except (KeyboardInterrupt, SystemExit):
-            raise
-        except BaseException as e:  # noqa: BLE001 — isolated below
-            with self._stats_lock:
-                self._counts["flush_failures"] += 1
-            if len(cohort) == 1:
-                if not cohort[0].future.done():
-                    cohort[0].future.set_exception(e)
+        so the survivors' bits are those of the full flush). Only root
+        attempts feed the health window: a bisection's correlated
+        failures are one incident."""
+        cohort = self._drop_expired(cohort)
+        if not cohort:
+            return
+        span_cm = _trace.span(
+            "serve.flush" if depth == 0 else "serve.isolation",
+            parent=cohort[0].tctx if depth == 0 else None)
+        with span_cm as sp:
+            if sp is not None:
+                sp.set_attr("endpoint", b.statics[0])
+                sp.set_attr("cohort", len(cohort))
+                sp.set_attr("depth", depth)
+                sp.set_attr("request_ids", [r.request_id for r in cohort
+                                            if r.request_id is not None])
+            try:
+                self._execute(b, cohort)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:  # noqa: BLE001 — isolated below
+                if sp is not None:
+                    sp.status = "error"
+                    sp.error = repr(e)
                 with self._stats_lock:
-                    self._counts["failed"] += 1
-                    self._counts["poisoned"] += 1
-                return
-            mid = len(cohort) // 2
-            with self._stats_lock:
-                self._counts["isolation_retries"] += 2
-                self._counts["isolation_depth_peak"] = max(
-                    self._counts["isolation_depth_peak"], depth + 1)
-            self._run_cohort(b, cohort[:mid], depth + 1)
-            self._run_cohort(b, cohort[mid:], depth + 1)
+                    self._counts["flush_failures"] += 1
+                    if depth == 0:
+                        self._health.append(1.0)
+                if depth == 0:
+                    self._maybe_publish_state()
+                if len(cohort) == 1:
+                    if not cohort[0].future.done():
+                        cohort[0].future.set_exception(e)
+                    with self._stats_lock:
+                        self._counts["failed"] += 1
+                        self._counts["poisoned"] += 1
+                    return
+                mid = len(cohort) // 2
+                with self._stats_lock:
+                    self._counts["isolation_retries"] += 2
+                    self._counts["isolation_depth_peak"] = max(
+                        self._counts["isolation_depth_peak"], depth + 1)
+                self._run_cohort(b, cohort[:mid], depth + 1)
+                self._run_cohort(b, cohort[mid:], depth + 1)
+            else:
+                if depth == 0:
+                    with self._stats_lock:
+                        self._health.append(0.0)
+                    self._maybe_publish_state()
+
+    def _is_degraded(self) -> bool:
+        with self._stats_lock:
+            n = len(self._health)
+            if n < 4:
+                return False
+            return sum(self._health) / n >= self.degraded_threshold
 
     # ------------------------------------------------------------------
     # one flush: stack → program → unpad
     # ------------------------------------------------------------------
 
     def _stack_cohort(self, ctx: dict, cohort: list, capacity: int) -> tuple:
-        """(kd, scale, arrays, h2d bytes) of one flush: the keys and scales
-        and ``ctx["host"]``'s arrays stacked on the host, ``ctx["stack"]``'s
-        operands stacked as tensors on the device (host operands in one
-        buffer and one copy, whose bytes are counted)."""
+        """(kd, scale, arrays, h2d bytes by operand) of one flush: keys,
+        scales and ``ctx["host"]``'s arrays stacked on the host,
+        ``ctx["stack"]``'s operands stacked as tensors on the device. An
+        operand whose lanes are all on the host ships as one buffer (its
+        bytes counted); otherwise resident lanes are copied on the device
+        and each host lane ships alone (its own bytes counted)."""
         kd = bucketing.stack_pad([r.arrays["kd"] for r in cohort], (2,),
                                  capacity, np.uint32)
         scale = bucketing.stack_pad([np.float64(r.arrays["scale"])
                                      for r in cohort], (), capacity,
                                     np.dtype(ctx["dtype"]))
-        arrays, h2d = {}, 0
+        arrays, h2d = {}, {}
         for name, (shape, dtype) in ctx.get("host", {}).items():
             arrays[name] = bucketing.stack_pad(
                 [r.arrays[name] for r in cohort], shape, capacity,
@@ -1604,10 +2211,14 @@ class MicrobatchExecutor:
             ops = [r.arrays[name] for r in cohort]
             t = bucketing.stack_pad_tensor(ops, shape, capacity,
                                            getattr(torch, dtype), self.device)
-            if self.device.type == "cuda" and all(
-                    not isinstance(a, torch.Tensor) or a.device.type == "cpu"
-                    for a in ops):
-                h2d += t.numel() * t.element_size()
+            hosted = [a for a in ops if not isinstance(a, torch.Tensor)
+                      or a.device.type == "cpu"]
+            if self.device.type != "cuda" or not hosted:
+                h2d[name] = 0
+            elif len(hosted) == len(ops):
+                h2d[name] = t.numel() * t.element_size()
+            else:
+                h2d[name] = sum(bucketing.result_nbytes(a) for a in hosted)
             arrays[name] = t
         return kd, scale, arrays, h2d
 
@@ -1616,21 +2227,36 @@ class MicrobatchExecutor:
         capacity = bucketing.capacity_class(k, self.max_batch)
         ctx = b.ctx
         endpoint = ctx["endpoint"]
+        # the fault site fires per attempt, with the cohort's tags, before
+        # anything is stacked or launched
+        faults.check("serve.flush",
+                     tags=frozenset().union(*(r.tags for r in cohort)),
+                     detail=f"{endpoint} k={k} cap={capacity}")
         with self._lock:
-            route, declined = self._route_locked(b.key, ctx)
+            route, declined = self._route_locked(b.statics, ctx)
         kd, scale, arrays, h2d = self._stack_cohort(ctx, cohort, capacity)
         out = run_flush(ctx, route, kd, scale, arrays)
+        values = []
+        for i, r in enumerate(cohort):
+            try:
+                values.append((_unpad(endpoint, out, i, r), None))
+            except Exception as e:  # noqa: BLE001 — reaches its future
+                values.append((None, e))
+        # a single-flight leader's followers and the cache get a compact
+        # copy, made before the synchronise below covers it
+        for r, (v, e) in zip(cohort, values):
+            if r.flight is not None and e is None:
+                r.flight.frozen = _rcache.freeze_result(v)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         now = time.monotonic()
         done = 0
-        for i, r in enumerate(cohort):
-            try:
-                r.future.set_result(_unpad(endpoint, out, i, r))
+        for r, (v, e) in zip(cohort, values):
+            if e is None:
+                r.future.set_result(v)
                 done += 1
-            except Exception as e:  # noqa: BLE001 — reaches its future
-                if not r.future.done():
-                    r.future.set_exception(e)
+            elif not r.future.done():
+                r.future.set_exception(e)
         primary = ctx["primary"]
         with self._stats_lock:
             self._counts["flushes"] += 1
@@ -1646,6 +2272,10 @@ class MicrobatchExecutor:
                 self._kernel_dec[declined] += 1
             if endpoint == "sparse_sketch_apply":
                 self._sparse_sel[route] += 1
+                _SPARSE_KERNEL_FLUSHES.inc_always(backend=route)
+            if endpoint == "sketch_apply" and ctx.get("family") == "SRHT":
+                self._fwht_sel[route] += 1
+                _FWHT_FLUSHES.inc_always(backend=route)
             self._batch_hist[capacity] += 1
             self._cohort_hist[k] += 1
             pad_total = bucketing.padded_elements(ctx["stack"][primary][0],
@@ -1654,11 +2284,30 @@ class MicrobatchExecutor:
                 [r.true_shapes[primary] for r in cohort])
             self._pad_total += pad_total
             self._pad_real += pad_real
-            obs = self._by_bucket.setdefault(b.key, collections.Counter())
+            obs = self._by_bucket.setdefault(b.statics, collections.Counter())
             obs.update(flushes=1, requests=done, capacity=capacity,
-                       pad_real=pad_real, pad_total=pad_total, h2d=h2d)
+                       pad_real=pad_real, pad_total=pad_total,
+                       h2d=sum(h2d.values()),
+                       **{f"h2d:{n}": v for n, v in h2d.items()})
+            # the adaptive controller's observations: latencies, the
+            # capacities flushed at, padding and the classes carried
+            qo = self._bucket_obs.get(b.statics)
+            if qo is None:
+                qo = self._bucket_obs[b.statics] = {
+                    "lat": collections.deque(maxlen=512), "caps": set(),
+                    "classes": set(), "pad_real": 0, "pad_total": 0, "n": 0}
+            qo["caps"].add(int(capacity))
+            qo["classes"].add(b.qos_class)
+            qo["pad_total"] += pad_total
+            qo["pad_real"] += pad_real
+            qo["n"] += k
             for r in cohort:
-                self._latency.append(now - r.t_submit)
+                lat = now - r.t_submit
+                self._latency.append(lat)
+                self._latency_by_class[r.qos_class].append(lat)
+                qo["lat"].append(lat)
+        for r in cohort:
+            _QOS_LATENCY.observe(now - r.t_submit, **{"class": r.qos_class})
 
     # ------------------------------------------------------------------
     # state, stats, drain and shutdown
@@ -1666,11 +2315,16 @@ class MicrobatchExecutor:
 
     @property
     def state(self) -> str:
-        """``SERVING`` | ``DRAINING`` | ``STOPPED``."""
+        """``SERVING`` | ``DEGRADED`` | ``DRAINING`` | ``STOPPED``.
+        DEGRADED: the root-flush failure ratio over the last
+        ``failure_window`` attempts is at ``degraded_threshold`` or past
+        it; successful flushes bring it back to SERVING."""
         with self._lock:
             if self._stop:
                 return STOPPED
-            return DRAINING if self._draining else SERVING
+            if self._draining:
+                return DRAINING
+        return DEGRADED if self._is_degraded() else SERVING
 
     def queue_depth(self) -> int:
         """Pending requests plus in-flight cohorts: the live load
@@ -1685,6 +2339,90 @@ class MicrobatchExecutor:
             lat = sorted(self._latency)
         return _percentile(lat, q)
 
+    def qos_bucket_obs(self) -> dict:
+        """Per-bucket controller observations: ``statics -> {p99,
+        padding_waste, caps, classes, n}``."""
+        with self._stats_lock:
+            snap = {statics: (sorted(o["lat"]), frozenset(o["caps"]),
+                              frozenset(o["classes"]), o["pad_real"],
+                              o["pad_total"], o["n"])
+                    for statics, o in self._bucket_obs.items()}
+        return {
+            statics: {
+                "p99": _percentile(lat, 0.99),
+                "padding_waste": (round(1.0 - real / total, 4)
+                                  if total else None),
+                "caps": caps, "classes": classes, "n": n}
+            for statics, (lat, caps, classes, real, total, n)
+            in snap.items()}
+
+    def qos_reset_bucket_obs(self, statics) -> None:
+        """Drop one bucket's latency window and padding counts (its warm
+        capacities and classes stay): the controller scores the evidence
+        after its step, not the burst that caused it."""
+        with self._stats_lock:
+            o = self._bucket_obs.get(tuple(statics))
+            if o is not None:
+                o["lat"].clear()
+                o["pad_real"] = 0
+                o["pad_total"] = 0
+
+    def _qos_stats_block(self) -> dict:
+        """The ``stats()["qos"]`` block: per-class admission, shed and
+        rate-limit counts, queue depths, latency and queue-wait
+        percentiles, per-tenant counts, the scheduler's state, the live
+        targets and the controller's counts."""
+        with self._stats_lock:
+            qc = dict(self._qos_counts)
+            lat_cls = {c: sorted(d) for c, d in
+                       self._latency_by_class.items()}
+            wait_cls = {c: list(d) for c, d in self._wait_by_class.items()}
+        with self._lock:
+            depth = {c: int(self._class_pending.get(c, 0))
+                     for c in _qtenants.CLASSES}
+            targets = {str(statics[0]): {"linger_s": round(float(t[0]), 6),
+                                         "batch": int(t[1])}
+                       for statics, t in self._qos_targets.items()}
+            sched = self._sched.stats()
+        by_class = {c: {"admitted": 0, "shed": 0, "rate_limited": 0,
+                        "queue_depth": depth[c]} for c in _qtenants.CLASSES}
+        by_tenant: dict = {}
+        for (kind, cls, tenant), n in qc.items():
+            by_class[cls][kind] += n
+            if tenant:
+                t = by_tenant.setdefault(tenant, {"admitted": 0, "shed": 0,
+                                                  "rate_limited": 0})
+                t[kind] += n
+        for c, lat in lat_cls.items():
+            by_class[c]["latency_s"] = {"p50": _percentile(lat, 0.50),
+                                        "p99": _percentile(lat, 0.99),
+                                        "n": len(lat)}
+            w = wait_cls[c]
+            by_class[c]["queue_wait_s"] = {
+                "mean": sum(w) / len(w) if w else None,
+                "p99": _percentile(sorted(w), 0.99), "n": len(w)}
+        return {
+            "by_class": by_class,
+            "by_tenant": dict(sorted(by_tenant.items())),
+            "scheduler": sched,
+            "targets": targets,
+            "controller": (self._controller.stats()
+                           if self._controller is not None else None),
+        }
+
+    def _maybe_publish_state(self) -> None:
+        """Publish a state transition, if one happened, through
+        :mod:`libskylark_tpu_torch.resilience.health`. The state is read
+        under the publish lock, so racing workers publish transitions in
+        order and never one twice."""
+        with self._pub_lock:
+            new = self.state
+            old = self._published_state
+            if new == old:
+                return
+            self._published_state = new
+            _health.publish(self, old, new)
+
     def stats(self) -> dict:
         """Snapshot of the serving counters, under the reference's names
         where the reference has them."""
@@ -1694,6 +2432,7 @@ class MicrobatchExecutor:
             ksel, kdec = dict(self._kernel_sel), dict(self._kernel_dec)
             sp_sel = dict(self._sparse_sel)
             sp_nnz = dict(sorted(self._sparse_nnz_hist.items()))
+            fw_sel = dict(self._fwht_sel)
             batch_hist = dict(sorted(self._batch_hist.items()))
             cohort_hist = dict(sorted(self._cohort_hist.items()))
             pad_real, pad_total = self._pad_real, self._pad_total
@@ -1703,7 +2442,10 @@ class MicrobatchExecutor:
                 "mean_capacity": v["capacity"] / v["flushes"],
                 "padding_waste_ratio": round(
                     1.0 - v["pad_real"] / v["pad_total"], 4),
-                "h2d_bytes_per_flush": v["h2d"] / v["flushes"]}
+                "h2d_bytes_per_flush": v["h2d"] / v["flushes"],
+                "h2d_bytes_by_operand": {
+                    n[4:]: int(x) for n, x in sorted(v.items())
+                    if n.startswith("h2d:")}}
                 for k, v in self._by_bucket.items()}
             models = len(self._models)
         with self._lock:
@@ -1715,6 +2457,8 @@ class MicrobatchExecutor:
             "completed": c.get("completed", 0),
             "failed": c.get("failed", 0),
             "rejected": c.get("rejected", 0),
+            "shed": c.get("shed", 0),
+            "expired": c.get("expired", 0),
             "poisoned": c.get("poisoned", 0),
             "flush_failures": c.get("flush_failures", 0),
             "isolation_retries": c.get("isolation_retries", 0),
@@ -1740,6 +2484,11 @@ class MicrobatchExecutor:
                                for k, v in sorted(sp_sel.items())},
                 "nnz_class_hist": sp_nnz,
             },
+            "fwht": {
+                "by_backend": {k: {"flushes": int(v)}
+                               for k, v in sorted(fw_sel.items())},
+                "cm_submits": c.get("cm_submits", 0),
+            },
             "by_bucket": by_bucket,
             "batch_capacity_hist": batch_hist,
             "cohort_size_hist": cohort_hist,
@@ -1751,39 +2500,47 @@ class MicrobatchExecutor:
                 "mean": (sum(lat) / len(lat)) if lat else None,
                 "n": len(lat),
             },
+            "qos": self._qos_stats_block(),
+            "cache": self._cache_stats_block(),
         }
 
     def drain(self, timeout: Optional[float] = 30.0) -> bool:
         """Stop intake (new submits raise :class:`ServeOverloadedError`),
-        flush every queued cohort, wait for every in-flight future, then
-        stop the threads. Returns whether that finished inside
-        ``timeout``; the executor stops either way."""
-        end = None if timeout is None else time.monotonic() + timeout
+        publish DRAINING, flush every queued cohort, wait for every
+        in-flight future, then stop the threads. Returns whether that
+        finished inside ``timeout``; the executor stops either way. What
+        the preemption handler calls on SIGTERM."""
+        dl = Deadline.after(timeout)
         with self._lock:
             if self._stop:
                 return True
             self._draining = True
             self._work_cv.notify_all()
             self._space_cv.notify_all()
+        self._maybe_publish_state()
+        with self._lock:
             drained = True
             while self._pending or self._inflight or self._buckets:
-                rem = None if end is None else end - time.monotonic()
-                if rem is not None and rem <= 0:
+                rem = dl.remaining()
+                if rem <= 0:
                     drained = False
                     break
-                self._idle_cv.wait(timeout=0.1 if rem is None
-                                   else min(rem, 0.1))
+                self._idle_cv.wait(timeout=min(rem, 0.1))
         self.shutdown(wait=drained)
         return drained
 
     def shutdown(self, wait: bool = True) -> None:
-        """Stop intake, flush everything pending, join the threads."""
+        """Stop intake, flush everything pending, join the threads, and
+        publish STOPPED."""
         with self._lock:
             if self._stop:
                 return
             self._stop = True
             self._work_cv.notify_all()
             self._space_cv.notify_all()
+        self._maybe_publish_state()
+        if self._controller is not None:
+            self._controller.close()
         if wait:
             self._flusher.join()
             for t in self._workers:
@@ -1794,3 +2551,109 @@ class MicrobatchExecutor:
 
     def __exit__(self, *exc) -> None:
         self.shutdown()
+
+
+_EXECUTORS: "weakref.WeakSet[MicrobatchExecutor]" = weakref.WeakSet()
+
+
+def _merge_qos_blocks(blocks) -> dict:
+    """Cross-executor merge of ``stats()["qos"]`` blocks: counts and
+    queue depths sum, tenants union, served counts sum."""
+    qos_class = {c: collections.Counter() for c in _qtenants.CLASSES}
+    qos_tenant: dict = {}
+    qos_served = collections.Counter()
+    for q in blocks:
+        for cc, blk in q["by_class"].items():
+            for kk in ("admitted", "shed", "rate_limited", "queue_depth"):
+                qos_class[cc][kk] += blk.get(kk, 0)
+        for tname, blk in q["by_tenant"].items():
+            qos_tenant.setdefault(tname, collections.Counter()).update(blk)
+        qos_served.update(q["scheduler"]["served"])
+    return {
+        "by_class": {c: dict(qos_class[c]) for c in _qtenants.CLASSES},
+        "by_tenant": {t: dict(v) for t, v in sorted(qos_tenant.items())},
+        "served": dict(qos_served),
+    }
+
+
+def serve_stats() -> dict:
+    """Counters summed across every live executor in the process, each
+    executor's own :meth:`~MicrobatchExecutor.stats` under
+    ``by_replica``: monotone counters sum, peaks take the maximum,
+    histograms merge bin by bin, padding waste and latency percentiles
+    come from the pooled raw counts and samples, ``states`` counts
+    executors per state."""
+    sum_keys = ("submitted", "completed", "failed", "rejected", "shed",
+                "expired", "poisoned", "flush_failures",
+                "isolation_retries", "queued", "coalesced", "flushes")
+    max_keys = ("queued_peak", "isolation_depth_peak")
+    sums = collections.Counter({k: 0 for k in sum_keys})
+    maxes = {k: 0 for k in max_keys}
+    batch_hist, cohort_hist = collections.Counter(), collections.Counter()
+    states, ksel, kdec = (collections.Counter(), collections.Counter(),
+                          collections.Counter())
+    qos_blocks, cache_blocks, by_replica, lat_all = [], [], {}, []
+    waste_real = waste_total = 0
+    for ex in list(_EXECUTORS):
+        s = ex.stats()
+        for k in sum_keys:
+            sums[k] += s[k]
+        for k in max_keys:
+            maxes[k] = max(maxes[k], s[k])
+        batch_hist.update(s["batch_capacity_hist"])
+        cohort_hist.update(s["cohort_size_hist"])
+        for kk, vv in s["kernel"]["by_backend"].items():
+            ksel[kk] += vv["flushes"]
+        for kk, vv in s["kernel"]["by_reason"].items():
+            kdec[kk] += vv["declined_flushes"]
+        qos_blocks.append(s["qos"])
+        cache_blocks.append(s["cache"])
+        states[s["state"]] += 1
+        with ex._stats_lock:
+            waste_real += ex._pad_real
+            waste_total += ex._pad_total
+            lat_all.extend(ex._latency)
+        name = ex.name
+        while name in by_replica:
+            name += "+"
+        by_replica[name] = s
+    lat_all.sort()
+    return {
+        "executors": len(by_replica), **sums, **maxes,
+        "batch_capacity_hist": dict(sorted(batch_hist.items())),
+        "cohort_size_hist": dict(sorted(cohort_hist.items())),
+        "kernel": {"by_backend": {k: {"flushes": int(v)}
+                                  for k, v in sorted(ksel.items())},
+                   "by_reason": {k: {"declined_flushes": int(v)}
+                                 for k, v in sorted(kdec.items())}},
+        "qos": _merge_qos_blocks(qos_blocks),
+        "cache": _rcache.merge_cache_blocks(cache_blocks),
+        "states": dict(sorted(states.items())),
+        "padding_waste_ratio": (round(1.0 - waste_real / waste_total, 4)
+                                if waste_total else None),
+        "latency_s": {"p50": _percentile(lat_all, 0.50),
+                      "p99": _percentile(lat_all, 0.99),
+                      "n": len(lat_all)},
+        "by_replica": dict(sorted(by_replica.items())),
+    }
+
+
+def qos_stats() -> dict:
+    """Multi-tenant QoS across every live executor, with the process-wide
+    tenant registry's tenants and token balances."""
+    agg = _merge_qos_blocks([ex._qos_stats_block()
+                             for ex in list(_EXECUTORS)])
+    agg["registry"] = _qtenants.get_registry().stats()
+    return agg
+
+
+def cache_stats() -> dict:
+    """The result caches and residency tables across every live
+    executor (cache-off executors with nothing pinned add nothing)."""
+    return _rcache.merge_cache_blocks(
+        [ex._cache_stats_block() for ex in list(_EXECUTORS)])
+
+
+_telemetry.register_collector("serve", serve_stats)
+_telemetry.register_collector("qos", qos_stats)
+_telemetry.register_collector("cache", cache_stats)

@@ -380,13 +380,13 @@ def _eager_csr_endpoint(S: SparseMatrix, dtype, fn, *, seed: int,
     extent, pow2 nnz class, indptr padded with the true nnz; the column
     sums made on the host) and run ``fn(key_data, (data, indices, indptr),
     shape, nnz, deg)`` on ``device``; the result comes back to the host."""
+    from libskylark_tpu_torch.base import env
     from libskylark_tpu_torch.engine import bucket as bucketing
-    from libskylark_tpu_torch.engine.serve import (SPARSE_NNZ_FLOOR,
-                                                   MicrobatchExecutor)
+    from libskylark_tpu_torch.engine.serve import MicrobatchExecutor
 
     dev = resolve_device(device)
     shape = bucketing.pad_shape(S.shape, (0, 1))
-    nnz_cls = bucketing.nnz_class(S.nnz, SPARSE_NNZ_FLOOR)
+    nnz_cls = bucketing.nnz_class(S.nnz, env.SPARSE_NNZ_FLOOR.get())
     lanes = tuple(torch.from_numpy(x) for x in MicrobatchExecutor._pack_csr(
         S, shape[0], nnz_cls, np.dtype(dtype)))
     deg = _in_degree(lanes[0], lanes[1], shape[1], S.nnz)

@@ -1,35 +1,64 @@
-"""Process-wide metrics registry: named counters and gauges (the port of
-the counters and gauges of libskylark_tpu/telemetry/metrics.py, which the
-ML layer records to).
+"""Process-wide metrics registry: labeled counters, gauges and
+histograms, collectors and one snapshot (the port of
+libskylark_tpu/telemetry/metrics.py).
 
-A disabled ``inc``/``set`` is one call and one branch: nothing is
-recorded, and callers gate any host read of a device value on
-:func:`enabled`. Enablement: ``SKYLARK_TELEMETRY`` (any value but empty or
-``0``) or ``SKYLARK_TELEMETRY_DIR`` set, read once, or :func:`set_enabled`.
+Subsystems either record directly (a :class:`Counter`, :class:`Gauge` or
+:class:`Histogram` made once at module import) or register a collector
+(a zero-argument callable that returns an existing stats block when a
+snapshot is taken, so a number the system already counts appears once).
+:func:`snapshot` returns both under one document. The serve executor, the
+QoS layer and the result cache register the ``serve``, ``qos`` and
+``cache`` collectors; the ML layer records ADMM's iterations.
+
+A disabled ``inc``/``set``/``observe`` is one call and one branch: no
+lock, no allocation, and callers gate any host read of a device value on
+:func:`enabled`. Collectors run only at snapshot time and always (they
+read counters their subsystems keep anyway). Enablement:
+``SKYLARK_TELEMETRY`` (any value but empty or ``0``) or
+``SKYLARK_TELEMETRY_DIR`` set, read once through ``base.env``, or
+:func:`set_enabled`.
 """
 
 from __future__ import annotations
 
-import os
-import threading
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+from libskylark_tpu_torch.base import env as _env
+from libskylark_tpu_torch.base import locks as _locks
+
+# ---------------------------------------------------------------------------
+# enablement: one module-level bool, read without a lock on the hot path
+# ---------------------------------------------------------------------------
 
 _ENABLED: Optional[bool] = None
 
 
 def enabled() -> bool:
-    """Whether telemetry recording is on."""
+    """Whether telemetry recording is on (``SKYLARK_TELEMETRY=1`` /
+    ``SKYLARK_TELEMETRY_DIR`` set / :func:`set_enabled`)."""
     global _ENABLED
     if _ENABLED is None:
-        _ENABLED = (os.environ.get("SKYLARK_TELEMETRY", "") not in ("", "0")
-                    or bool(os.environ.get("SKYLARK_TELEMETRY_DIR")))
+        _ENABLED = (bool(_env.TELEMETRY.get())
+                    or bool(_env.TELEMETRY_DIR.get()))
     return _ENABLED
 
 
 def set_enabled(on: bool) -> None:
-    """Programmatic switch (overrides the environment)."""
+    """Programmatic switch (overrides the environment gate)."""
     global _ENABLED
     _ENABLED = bool(on)
+
+
+# ---------------------------------------------------------------------------
+# instruments
+# ---------------------------------------------------------------------------
+
+#: Default histogram bucket bounds (seconds-flavored: compile times,
+#: flush latencies). A fixed, shared vector keeps every histogram
+#: mergeable and the record path allocation-free.
+DEFAULT_BUCKETS: Tuple[float, ...] = (
+    0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0,
+)
 
 
 def _label_key(labels: dict) -> Tuple[Tuple[str, str], ...]:
@@ -37,38 +66,68 @@ def _label_key(labels: dict) -> Tuple[Tuple[str, str], ...]:
 
 
 class Metric:
-    """Name, help text and a lock-guarded value per label set.
-    ``registry`` is the reference's parameter (the registry that made the
-    metric); a port registry finds its metrics by name, so it is not
-    kept."""
+    """Common base: name, help text, a lock-guarded per-label store."""
 
     kind = "untyped"
 
-    def __init__(self, name: str, help: str = "",  # noqa: A002
+    def __init__(self, name: str, help: str = "",  # noqa: A002 - prom idiom
                  registry: "Optional[MetricsRegistry]" = None):
         self.name = name
         self.help = help
-        self._lock = threading.Lock()
+        self._lock = _locks.make_lock("telemetry.metric")
         self._values: Dict[Tuple, float] = {}
+        self._registry = registry
 
-    def value(self, **labels) -> Optional[float]:
-        with self._lock:
-            return self._values.get(_label_key(labels))
+    def _base_doc(self) -> dict:
+        return {"type": self.kind, "help": self.help}
 
     def to_dict(self) -> dict:
-        """{"type", "help", "values": [{"labels", "value"}, ...]}."""
         with self._lock:
-            return {"type": self.kind, "help": self.help,
-                    "values": [{"labels": dict(k), "value": v}
-                               for k, v in sorted(self._values.items())]}
+            doc = self._base_doc()
+            doc["values"] = [
+                {"labels": dict(k), "value": v}
+                for k, v in sorted(self._values.items())
+            ]
+        return doc
 
     def reset(self) -> None:
         with self._lock:
             self._values.clear()
 
 
+class LifetimeCounter:
+    """Process-lifetime event totals that survive their owning object.
+
+    Collectors report *live* objects only (routers, autoscalers live
+    in WeakSets), so a snapshot taken after an episode's object is
+    gone would silently drop its events; subsystems keep one of these
+    at module level and fold :meth:`snapshot` into their collector
+    block. Always on (the counted event dwarfs the bump), never
+    reset."""
+
+    __slots__ = ("_lock", "_values")
+
+    def __init__(self, site: str, kinds: Sequence[str] = ()):
+        self._lock = _locks.make_lock(site)
+        # pre-seeded kinds always appear in the snapshot, zero or not
+        # — consumers key off their presence
+        self._values: Dict[str, int] = {k: 0 for k in kinds}
+
+    def inc(self, kind: str, n: int = 1) -> None:
+        with self._lock:
+            self._values[kind] = self._values.get(kind, 0) + n
+
+    def get(self, kind: str) -> int:
+        with self._lock:
+            return self._values.get(kind, 0)
+
+    def snapshot(self, prefix: str = "lifetime_") -> Dict[str, int]:
+        with self._lock:
+            return {prefix + k: v for k, v in sorted(self._values.items())}
+
+
 class Counter(Metric):
-    """A monotonically increasing count."""
+    """Monotonically increasing count. ``inc()`` is the only mutator."""
 
     kind = "counter"
 
@@ -78,19 +137,20 @@ class Counter(Metric):
         self.inc_always(n, **labels)
 
     def inc_always(self, n: float = 1, **labels) -> None:
-        """Record whatever the global switch says."""
+        """Record regardless of the global gate — for adapters counting
+        events a host subsystem already pays for (a fired fault, a
+        health transition: the event itself dwarfs the counter bump)."""
         k = _label_key(labels)
         with self._lock:
             self._values[k] = self._values.get(k, 0) + n
 
     def value(self, **labels) -> float:
-        """The count (0 before the first ``inc``)."""
         with self._lock:
             return self._values.get(_label_key(labels), 0)
 
 
 class Gauge(Metric):
-    """A value that goes up and down (the last objective)."""
+    """A value that goes up and down (queue depth, last objective)."""
 
     kind = "gauge"
 
@@ -100,7 +160,6 @@ class Gauge(Metric):
         self.set_always(v, **labels)
 
     def set_always(self, v: float, **labels) -> None:
-        """Record whatever the global switch says."""
         with self._lock:
             self._values[_label_key(labels)] = float(v)
 
@@ -111,20 +170,92 @@ class Gauge(Metric):
         with self._lock:
             self._values[k] = self._values.get(k, 0) + n
 
+    def value(self, **labels) -> Optional[float]:
+        with self._lock:
+            return self._values.get(_label_key(labels))
+
+
+class Histogram(Metric):
+    """Fixed-bucket histogram: cumulative bucket counts + sum + count
+    per label set (the Prometheus classic-histogram layout)."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, help: str = "",  # noqa: A002
+                 buckets: Sequence[float] = DEFAULT_BUCKETS,
+                 registry: "Optional[MetricsRegistry]" = None):
+        super().__init__(name, help, registry)
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+        # per-label-key: [bucket counts..., +Inf count], sum
+        self._hist: Dict[Tuple, list] = {}
+
+    def observe(self, v: float, **labels) -> None:
+        if not enabled():
+            return
+        self.observe_always(v, **labels)
+
+    def observe_always(self, v: float, **labels) -> None:
+        v = float(v)
+        k = _label_key(labels)
+        with self._lock:
+            cell = self._hist.get(k)
+            if cell is None:
+                cell = self._hist[k] = [[0] * (len(self.buckets) + 1), 0.0]
+            counts, _ = cell
+            for i, b in enumerate(self.buckets):
+                if v <= b:
+                    counts[i] += 1
+                    break
+            else:
+                counts[-1] += 1
+            cell[1] += v
+
+    def to_dict(self) -> dict:
+        with self._lock:
+            doc = self._base_doc()
+            doc["buckets"] = list(self.buckets)
+            doc["values"] = [
+                {"labels": dict(k),
+                 "counts": list(counts),
+                 "count": sum(counts),
+                 "sum": total}
+                for k, (counts, total) in sorted(self._hist.items())
+            ]
+        return doc
+
+    def reset(self) -> None:
+        with self._lock:
+            self._hist.clear()
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
 
 class MetricsRegistry:
-    """Get-or-create store of instruments, idempotent by name."""
+    """Get-or-create store of instruments plus named collectors.
+
+    Instruments are created once (idempotent by name — a second
+    ``counter("x")`` returns the first) and live for the process;
+    collectors are ``name -> zero-arg callable`` returning a JSON-able
+    dict, consulted at :meth:`snapshot` time. A collector that raises
+    contributes an ``{"error": ...}`` block instead of failing the
+    snapshot — telemetry must never be a failure mode.
+    """
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _locks.make_lock("telemetry.registry")
         self._metrics: Dict[str, Metric] = {}
+        self._collectors: Dict[str, Callable[[], dict]] = {}
 
-    def _get_or_create(self, cls, name: str,
-                       help: str) -> Metric:  # noqa: A002
+    def _get_or_create(self, cls, name: str, help: str,  # noqa: A002
+                       **kw) -> Metric:
         with self._lock:
             m = self._metrics.get(name)
             if m is None:
-                m = self._metrics[name] = cls(name, help, registry=self)
+                m = self._metrics[name] = cls(name, help, registry=self,
+                                              **kw)
             elif not isinstance(m, cls):
                 raise ValueError(
                     f"metric {name!r} already registered as {m.kind}, "
@@ -137,8 +268,66 @@ class MetricsRegistry:
     def gauge(self, name: str, help: str = "") -> Gauge:  # noqa: A002
         return self._get_or_create(Gauge, name, help)
 
+    def histogram(self, name: str, help: str = "",  # noqa: A002
+                  buckets: Sequence[float] = DEFAULT_BUCKETS) -> Histogram:
+        return self._get_or_create(Histogram, name, help, buckets=buckets)
+
+    def register_collector(self, name: str,
+                           fn: Callable[[], dict]) -> None:
+        """Adapter seam: re-home an existing stats block (engine cache
+        counters, serve executor stats, ...) under the unified snapshot
+        without double-counting. Idempotent per name (latest wins, so a
+        test can stub one out)."""
+        with self._lock:
+            self._collectors[name] = fn
+
+    def unregister_collector(self, name: str) -> None:
+        with self._lock:
+            self._collectors.pop(name, None)
+
+    def metrics(self) -> Dict[str, Metric]:
+        with self._lock:
+            return dict(self._metrics)
+
+    def snapshot(self) -> dict:
+        """The whole registry as one JSON-able document: direct
+        instruments under ``"metrics"``, adapter blocks under
+        ``"collectors"``."""
+        with self._lock:
+            metrics = dict(self._metrics)
+            collectors = dict(self._collectors)
+        doc: dict = {
+            "enabled": enabled(),
+            "metrics": {name: m.to_dict()
+                        for name, m in sorted(metrics.items())},
+            "collectors": {},
+        }
+        for name, fn in sorted(collectors.items()):
+            try:
+                doc["collectors"][name] = fn()
+            except Exception as e:  # noqa: BLE001 — snapshot never fails
+                doc["collectors"][name] = {"error": repr(e)}
+        return doc
+
+    def reset(self) -> None:
+        """Zero every instrument's values (tests). Instruments and
+        collectors stay registered — module-level handles must survive
+        a reset."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        for m in metrics:
+            m.reset()
+
 
 _REGISTRY = MetricsRegistry()
+
+
+def registry() -> MetricsRegistry:
+    """The process-global registry every wired subsystem records to."""
+    return _REGISTRY
+
+
+# module-level conveniences bound to the global registry
 
 
 def counter(name: str, help: str = "") -> Counter:  # noqa: A002
@@ -147,3 +336,24 @@ def counter(name: str, help: str = "") -> Counter:  # noqa: A002
 
 def gauge(name: str, help: str = "") -> Gauge:  # noqa: A002
     return _REGISTRY.gauge(name, help)
+
+
+def histogram(name: str, help: str = "",  # noqa: A002
+              buckets: Sequence[float] = DEFAULT_BUCKETS) -> Histogram:
+    return _REGISTRY.histogram(name, help, buckets)
+
+
+def register_collector(name: str, fn: Callable[[], dict]) -> None:
+    _REGISTRY.register_collector(name, fn)
+
+
+def snapshot() -> dict:
+    return _REGISTRY.snapshot()
+
+
+__all__ = [
+    "Counter", "DEFAULT_BUCKETS", "Gauge", "Histogram",
+    "LifetimeCounter", "Metric", "MetricsRegistry", "counter",
+    "enabled", "gauge", "histogram", "register_collector", "registry",
+    "set_enabled", "snapshot",
+]

@@ -2,8 +2,8 @@
 port of libskylark_tpu/utility/timer.py), as BlockADMM uses them.
 
 Enablement: ``SKYLARK_TPU_PROFILE`` (any value but empty or ``0``), read
-once, or :func:`set_enabled`. A disabled phase costs one call and one
-branch. Phases measure host time: CUDA work is asynchronous, so a phase
+once through ``base.env``, or :func:`set_enabled`. A disabled phase costs
+one call and one branch. Phases measure host time: CUDA work is asynchronous, so a phase
 that only enqueues work looks free and the next synchronising one absorbs
 its cost; a phase that must own its device time ends in a synchronise
 (ADMM does so for its iterations only).
@@ -11,10 +11,11 @@ its cost; a phase that must own its device time ends in a synchronise
 
 from __future__ import annotations
 
-import os
 import time
 from contextlib import contextmanager
 from typing import Dict, Optional
+
+from libskylark_tpu_torch.base import env as _env
 
 _ENABLED: Optional[bool] = None
 
@@ -22,7 +23,7 @@ _ENABLED: Optional[bool] = None
 def timers_enabled() -> bool:
     global _ENABLED
     if _ENABLED is None:
-        _ENABLED = os.environ.get("SKYLARK_TPU_PROFILE", "") not in ("", "0")
+        _ENABLED = bool(_env.TPU_PROFILE.get())
     return _ENABLED
 
 

@@ -7,8 +7,10 @@ function, class or method must be accepted by the port's counterpart
 accepts any keyword). A module's public names are the functions and
 classes it defines, its upper-case constants, and a package's
 ``__all__``. Only what ROADMAP defers is exempt, each exemption with its
-item: the serve.py endpoints and telemetry beyond counters and gauges
-(A6, A7), and the names of reference modules not ported yet (C12).
+item: what the serve executor still lacks (its ``mesh`` and the
+kernel-selection precedence, A6; sessions, training jobs and the dist
+endpoints, A7), the telemetry exporter (A7), and the names of reference
+modules not ported yet (C12).
 """
 
 from __future__ import annotations
@@ -22,48 +24,25 @@ import pytest
 import libskylark_tpu
 import libskylark_tpu_torch
 
-_SERVE_LATER = (
-    "register_operand", "unregister_operand", "resident_operands",
-    "bucket_targets", "set_bucket_targets", "restore_kernel_choice",
-    "load_warmup_pack")
+# the kernel-selection precedence (plan cache, warmup packs) (A6)
+_SERVE_A6 = ("restore_kernel_choice", "load_warmup_pack")
 # the dist endpoints run the reference's dist/ package (A7)
 _SERVE_DIST = ("submit_dist_sketch", "submit_dist_lstsq", "submit_dist_svd")
 _SERVE_A7 = ("sessions", "open_sketch_session", "session_append",
              "session_finalize", "train_jobs", "submit_train_job",
-             "resume_train_job", "train_job_status", "qos_bucket_obs",
-             "qos_reset_bucket_obs")
+             "resume_train_job", "train_job_status")
 
 # "module:name" (a name, a Class.member or a callable's "(param)") -> the
-# ROADMAP item that brings it. The deferred kinds: the serve.py
-# endpoints with the serve programs only they run (A6 and A7 by
-# endpoint), and telemetry beyond counters and gauges (A7). Every other
-# name the port lacks is C12: a module of the reference not yet ported,
-# each named there with the A item that brings it.
+# ROADMAP item that brings it. The deferred kinds: what the serve
+# executor still lacks (A6 and A7 by feature), and the telemetry
+# exporter (A7). Every other name the port lacks is C12: a module of the
+# reference not yet ported, each named there with the A item that brings
+# it.
 EXEMPT = {
-    # A6: the serve.py endpoints still to port, their states and readers
-    "engine:DEGRADED": "A6", "engine:DRAINING": "A6", "engine:SERVING": "A6",
-    "engine:STOPPED": "A6", "engine:serve_stats": "A6",
-    "engine.serve:DEGRADED": "A6", "engine.serve:dispatch_loop": "A6",
-    "engine.serve:request_digest": "A6", "engine.serve:serve_stats": "A6",
-    "engine.serve:cache_stats": "A6", "engine.serve:qos_stats": "A7",
-    # A7: telemetry beyond counters and gauges
-    "telemetry:DEFAULT_BUCKETS": "A7", "telemetry:Histogram": "A7",
-    "telemetry:histogram": "A7", "telemetry:register_collector": "A7",
-    "telemetry:registry": "A7", "telemetry:snapshot": "A7",
-    "telemetry:Span": "A7", "telemetry:SpanContext": "A7",
-    "telemetry:add_event": "A7", "telemetry:add_sink": "A7",
-    "telemetry:attach": "A7", "telemetry:clear_finished": "A7",
-    "telemetry:current_span": "A7", "telemetry:finished_spans": "A7",
-    "telemetry:get_context": "A7", "telemetry:new_request_id": "A7",
-    "telemetry:span": "A7", "telemetry:JsonlExporter": "A7",
+    # A7: telemetry/export.py, the JSONL exporter and Prometheus renderer
+    "telemetry:JsonlExporter": "A7",
     "telemetry:get_exporter": "A7", "telemetry:install_exporter": "A7",
     "telemetry:prometheus_text": "A7", "telemetry:shutdown_exporter": "A7",
-    "telemetry.metrics:DEFAULT_BUCKETS": "A7",
-    "telemetry.metrics:LifetimeCounter": "A7",
-    "telemetry.metrics:Histogram": "A7",
-    "telemetry.metrics:registry": "A7", "telemetry.metrics:histogram": "A7",
-    "telemetry.metrics:register_collector": "A7",
-    "telemetry.metrics:snapshot": "A7",
     # C12: names of reference modules the port has not reached yet.
     # engine/compile.py, cache.py and tune/ (A6)
     "engine:aot": "C12", "engine:warmup": "C12", "engine:cache": "C12",
@@ -97,16 +76,9 @@ EXEMPT = {
     "utility:device_state": "C12", "utility:load_sync": "C12",
     "utility:save_sync": "C12",
 }
-for _m in ("telemetry", "telemetry.metrics"):
-    for _n in ("histogram", "register_collector", "unregister_collector",
-               "metrics", "snapshot", "reset"):
-        EXEMPT[f"{_m}:MetricsRegistry.{_n}"] = "A7"
 for _m in ("engine", "engine.serve"):
-    for _p in ("mesh", "degraded_threshold", "failure_window",
-               "shed_fraction", "dispatch_queue", "tenants", "adaptive",
-               "cache", "cache_bytes"):
-        EXEMPT[f"{_m}:MicrobatchExecutor({_p})"] = "A6"
-    for _n in _SERVE_LATER:
+    EXEMPT[f"{_m}:MicrobatchExecutor(mesh)"] = "A6"
+    for _n in _SERVE_A6:
         EXEMPT[f"{_m}:MicrobatchExecutor.{_n}"] = "A6"
     for _n in _SERVE_DIST:
         EXEMPT[f"{_m}:MicrobatchExecutor.{_n}"] = "A7"
@@ -206,14 +178,25 @@ def test_reference_names_exist_in_the_port(mod_key):
 
 
 def test_the_new_modules_are_compared():
-    """The NLA, graph, block-solver, HDF5 and parallel modules are among
-    those both packages define, so the parity test above covers them."""
+    """The NLA, graph, block-solver, HDF5, parallel, and the serve
+    production layer's modules are among those both packages define, so
+    the parity test above covers them; none of the last has an
+    exemption."""
     common = set(_common_modules())
     for m in ("nla.krank", "nla.randlobpcg", "nla.spectral", "ml.graph",
               "algorithms.asynch", "io.hdf5", "parallel", "parallel.mesh",
               "parallel.multihost", "parallel.shard_apply",
               "base.dist_sparse", "sketch.dist_sparse_apply"):
         assert m in common, m
+    serve_layer = ("base.env", "base.locks", "telemetry.names",
+                   "telemetry.trace", "telemetry.metrics", "resilience",
+                   "resilience.policy", "resilience.faults",
+                   "resilience.health", "resilience.preemption", "qos",
+                   "qos.tenants", "qos.scheduler", "qos.controller",
+                   "engine.resultcache")
+    for m in serve_layer:
+        assert m in common, m
+        assert not [k for k in EXEMPT if k.split(":")[0] == m], m
 
 
 def test_every_exemption_names_a_later_roadmap_item():

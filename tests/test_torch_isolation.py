@@ -52,7 +52,12 @@ def test_port_and_chip_smoke_import_no_jax():
                 "io.native", "io.arclist", "algorithms.prox", "ml.coding",
                 "ml.metrics", "ml.krr", "ml.rlsc", "ml.model", "ml.admm",
                 "ml.nonlinear", "ml.modeling", "nla.lowrank",
-                "telemetry.metrics", "utility.timer"):
+                "telemetry.metrics", "utility.timer", "base.env",
+                "base.locks", "telemetry.names", "telemetry.trace",
+                "resilience", "resilience.policy", "resilience.faults",
+                "resilience.health", "resilience.preemption", "qos",
+                "qos.tenants", "qos.scheduler", "qos.controller",
+                "engine.resultcache"):
         assert f"libskylark_tpu_torch.{mod}" in report["modules"]
 
 

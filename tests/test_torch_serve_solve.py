@@ -30,6 +30,7 @@ rule of ``submit_sparse_solve``; one model upload per KRR bucket; the
 errors of bad shapes and families those of the reference.
 """
 
+import hashlib
 import threading
 
 import jax.numpy as jnp
@@ -52,7 +53,7 @@ from libskylark_tpu.sketch import sparse_serve as jss
 from libskylark_tpu_torch import engine, ml
 from libskylark_tpu_torch import sketch as sk
 from libskylark_tpu_torch.algorithms import regression
-from libskylark_tpu_torch.base import randgen
+from libskylark_tpu_torch.base import env, randgen
 from libskylark_tpu_torch.base.context import Context
 from libskylark_tpu_torch.engine import bucket, serve
 from libskylark_tpu_torch.nla import lowrank
@@ -589,8 +590,11 @@ def test_krr_statics_match_the_reference_but_for_the_kernel_identity(
                                  X_new=q, X_train=X, coef=coef)
     want = jengine.request_statics(endpoint, kernel=jml.Gaussian(6, 2.0),
                                    X_new=q, X_train=X, coef=coef)
-    assert got[:1] + got[2:] == want[:1] + want[2:]
-    assert got[1] == ml.kernels.Gaussian(6, 2.0).to_json()
+    # the kernel identity is now the reference's too: the first 16 hex
+    # digits of the sha256 of the kernel's JSON
+    assert got == want
+    assert got[1] == hashlib.sha256(
+        ml.kernels.Gaussian(6, 2.0).to_json().encode()).hexdigest()[:16]
     assert got[1] != engine.request_statics(
         endpoint, kernel=ml.kernels.Gaussian(6, 3.0), X_new=q, X_train=X,
         coef=coef)[1]
@@ -611,7 +615,7 @@ def test_default_cmm_transform_is_the_reference_operator():
         T = serve.default_cmm_transform(A, seed=9)
         J = jserve.default_cmm_transform(A, seed=9)
         assert type(T).__name__ == type(J).__name__ == cls
-        assert T.sketch_dim == J.sketch_dim == serve.FWHT_CM_SDIM
+        assert T.sketch_dim == J.sketch_dim == env.FWHT_CM_SDIM.get()
         assert np.array_equal(T.allocation.key, jserve.MicrobatchExecutor.
                               _key_data(J))
 
@@ -629,7 +633,7 @@ def test_sparse_solve_densifies_at_a_quarter(density):
         ex.flush()
         st = ex.stats()
         dense = ex.submit_solve(A, b, T).result(60)
-    dens = density >= serve.SPARSE_MIN_DENSITY
+    dens = density >= env.SPARSE_MIN_DENSITY.get()
     assert st["sparse"]["densified"] == (1 if dens else 0)
     endpoint = ("solve_l2_sketched" if dens else "sparse_solve_l2_sketched")
     assert [eval(k)[0] for k in st["by_bucket"]] == [endpoint]
