@@ -70,6 +70,16 @@ iterations, with the same fields as above; the BCD and the PCG also with
 ``iterations`` (sweeps, CG iterations) and ``idle_ms_per_iteration``, the
 card's idle time per iteration, where the host reads the stopping test.
 
+Then one ``compiled-<entry>`` line per entry of chip_smoke.py's compiled
+phase (``chip_smoke.compiled_cells``: approximate_svd, the symmetric SVD,
+sketch-and-solve by JLT, CWT and FJLT(wht), the Blendenpik and LSRN
+preconditioner builds, approximate_kernel_ridge, kernel_ridge and
+krr_predict at the phase's full width): ``cold_ms`` (the first call:
+warm-up and CUDA-graph capture), ``replay_warm_ms``/``replay_device_ms``/
+``replay_busy`` of the CompiledFn's hit beside ``eager_warm_ms``/
+``eager_device_ms``/``eager_busy`` of its body called directly, and the
+graph's ``pool_bytes``; every check of the phase holds there too.
+
 Then one ``a3-<cell>`` line per cell of chip_smoke.py's a3 phase
 (``a3_cells``): MaternRFT and FastMaternRFT (ν = 1.5, l = 64) on config
 3's X 16384×4096 → 4096, each call drawing its Gamma scales on the card;
@@ -582,6 +592,9 @@ def main() -> int:
                                             / row["iterations"])
         print(json.dumps(row), flush=True)
     del A, Asvd, Als, b, Ak, bk, X, qrft, precond, Acw
+    # the cells reach the solver entry points through the executable
+    # cache: each group ends by dropping its graphs
+    chip_smoke.release_cache(torch)
     for name, row in chip_smoke.serve_cells(torch, np).items():
         print(json.dumps({"cell": f"serve-{name}", **row}), flush=True)
     for name, row in chip_smoke.serve_solve_cells(torch, P, np).items():
@@ -610,6 +623,11 @@ def main() -> int:
             row["idle_ms_per_iteration"] = (
                 (row["warm_ms"] - row["device_ms"]) / row["iterations"])
         print(json.dumps(row), flush=True)
+    chip_smoke.release_cache(torch)
+    entries, _ = chip_smoke.compiled_cells(torch, P)
+    for name, row in entries.items():
+        print(json.dumps({"cell": f"compiled-{name}", **row}), flush=True)
+    chip_smoke.release_cache(torch)
     for name, fn in a3_cells(torch, P, np).items():
         row = {"cell": f"a3-{name}", "warm_ms": warm_ms(torch, fn)}
         row.update(profile_call(torch, fn))
@@ -619,6 +637,7 @@ def main() -> int:
             row["idle_ms_per_iteration"] = ((row["warm_ms"] - row["device_ms"])
                                             / row["iterations"])
         print(json.dumps(row), flush=True)
+    chip_smoke.release_cache(torch)
     fn = dist_shard_ls(torch, P)
     row = {"cell": "dist-shard-ls", "warm_ms": warm_ms(torch, fn)}
     row.update(profile_call(torch, fn))

@@ -270,6 +270,29 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             tall operand), and each rank's launches of B1's partial, B1,
             B1-cos, B5 and B2 (at its offset on rank 1) exactly the
             path's; the phase's seconds and peak memory on its line;
+4h. compiled — the executable cache (engine/compiled.py) at full width
+            (about 40 s): approximate_svd (rank 64, q = 2) of config 4's
+            8192² rank-512 operand and approximate_symmetric_svd (rank
+            64) of its symmetric part, solve_l2_sketched with the JLT, the
+            CWT and FJLT(fut="wht") on the LS cell's 65536×512 operand (s
+            = 2048), the Blendenpik and LSRN preconditioner builds on it,
+            approximate_kernel_ridge at config 5 (60,000 × 784, σ = 112, s
+            = 8192, 10 classes), kernel_ridge and krr_predict on
+            ml-rlsc-faster's 16,384 rows (10,000 held-out queries); for
+            each, the CompiledFn against its eager body (the ``_pipeline``
+            function or the closure, called directly): the first call
+            (warm-up plus capture), a replay and a replay under a second
+            seed (a new λ or new coefficients where there is no seed) each
+            torch.equal to the eager body, the first result unchanged by
+            the later calls, the entry point's Context counter equal to
+            the eager route's, exactly one miss and one capture for the
+            key and hits after it (the public entry point's call among
+            them), the launches of one replay equal to the eager body's
+            (B1-rw, B1-cw, B1-cos, B2-cw and B5-cw each inside a replay),
+            and a hit under ``torch.cuda.set_sync_debug_mode("error")``;
+            each entry's cold, replay and eager warm ms, device ms and
+            busy, and its graph's pool bytes, the phase's seconds and
+            peak memory on its line;
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
@@ -392,9 +415,13 @@ def card_peaks(torch) -> dict:
 
 def release_cache(torch) -> None:
     """Hand the blocks this process's allocator caches back to the card,
-    before child processes that share it allocate their own."""
+    before child processes that share it allocate their own: the
+    executable cache's graphs, their static buffers and pools first."""
     import gc
 
+    from libskylark_tpu_torch import engine
+
+    engine.reset()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3183,7 +3210,7 @@ QOS_FULL = {"ls_rows": 65536, "ls_cols": 512, "ls_s": 2048,
             "rw_operands": 8, "deadline_requests": 4, "deadline_s": 0.01,
             "degrade_failures": 4, "max_queue": 64, "qos_requests": 32,
             "burst": 4, "rate_requests": 12, "adaptive_requests": 32,
-            "adapt_interval_s": 0.05, "hold_s": 0.0}
+            "adapt_interval_s": 0.05, "hold_s": 1.0}
 
 
 def qos_launches(before: dict) -> dict:
@@ -3549,8 +3576,11 @@ def serve_qos_phase(torch, P, np, size=QOS_FULL, device="cuda") -> dict:
             return rw_call(ex, i // 2, tenant="ui" if i % 2 else "bulk")
 
         # a long flush (8 solve lanes shipping 8 × A) holds the one worker
-        # while both tenants queue; ``hold_s`` stalls it at its fault site
-        # too, where a flush is short (the CPU rehearsal)
+        # while both tenants queue; ``hold_s`` first stalls it at its fault
+        # site, so that every request of both tenants is queued before the
+        # worker frees: without the stall the storm's submissions took as
+        # long as the flush on the card, and the classes' mean waits then
+        # followed which thread submitted when, not the scheduler's order
         hold = {"faults": [{"site": "serve.flush", "tag": "hold",
                             "stall_s": size["hold_s"]}]}
         before = launch_counts()
@@ -5919,6 +5949,272 @@ def sharded_phase(torch, P, np, peaks) -> dict:
     return out
 
 
+# phase 4h: the executable cache at full width (configs 4 and 5, the LS
+# cell); "exact_rows" is ml-rlsc-faster's 16,384 rows
+COMPILED_FULL = {"svd_n": 8192, "svd_r": 512, "rank": 64, "q": 2,
+                 "ls_rows": 65536, "ls_cols": 512, "ls_s": 2048,
+                 "n": 60000, "test": 10000, "d": 784, "classes": 10,
+                 "latent": 16, "center": 1.0, "noise": 1.0, "s": 8192,
+                 "exact_rows": 16384, "reps": 5}
+# each compiled entry's kernel, which must launch from inside its replay
+COMPILED_KERNELS = {"svd": "dense_rowwise", "symmetric_svd": "dense_rowwise",
+                    "solve_jlt": "dense_columnwise",
+                    "solve_cwt": "hash_columnwise",
+                    "solve_fjlt_wht": "fwht_columnwise",
+                    "precond_lsrn": "dense_columnwise",
+                    "approximate_krr": "dense_rowwise_cos"}
+
+
+def compiled_cases(torch, P, size, device) -> dict:
+    """name -> (CompiledFn, make(ctx, variant) -> (args, statics), the
+    eager body, entry(ctx), the public entry point's call): the compiled
+    entries of the phase. ``make`` allocates what the entry point
+    allocates from ``ctx``, in its order; ``variant`` 1 is another input
+    where a body has no seed (λ for kernel_ridge, the coefficients for
+    krr_predict)."""
+    from libskylark_tpu_torch import algorithms, engine, ml, nla, sketch as sk
+    from libskylark_tpu_torch.algorithms import regression as reg
+    from libskylark_tpu_torch.ml import krr
+    from libskylark_tpu_torch.nla import svd as nsvd
+
+    n, k, q = size["svd_n"], size["rank"], size["q"]
+    A, _ = svd_operand(torch, n, size["svd_r"], device)
+    Asym = 0.5 * (A + A.T)
+    params = nla.ApproximateSVDParams(num_iterations=q)
+    kp = 2 * k
+    st_svd = dict(k=k, kp=kp, num_iterations=q, skip_qr=False,
+                  ortho="cqr2", rr="cqr2")
+    st_sym = {key: v for key, v in st_svd.items() if key != "rr"}
+    m, c, s = size["ls_rows"], size["ls_cols"], size["ls_s"]
+    g = torch.Generator(device=device).manual_seed(3)
+    Als = torch.randn(m, c, generator=g, device=device)
+    bls = Als @ torch.randn(c, generator=g, device=device) + 0.1 * torch.randn(
+        m, generator=g, device=device)
+    accel = algorithms.AcceleratedParams()
+    X, y, Xte, _ = ml_data(torch, size, device)
+    kern = ml_kernel(ml, size)
+    Y = ml.dummy_coding(y, device=device)[0]
+    ne = size["exact_rows"]
+    Xe, Ye = X[:ne].contiguous(), Y[:ne].contiguous()
+
+    def lam_of(variant):
+        return torch.as_tensor(ML_LAM * (1 + variant),
+                               dtype=X.dtype).to(device)
+
+    exact = engine.compiled(krr._exact_program(kern), name="kernel_ridge",
+                            donate_argnums=(0, 1), donate="auto",
+                            key_fn=lambda *a, **kw: (engine.digest(kern),))
+    coef = exact(Xe, Ye, lam_of(0))
+    predict = engine.compiled(krr._predict_program(kern), name="krr_predict",
+                              key_fn=lambda *a: (engine.digest(kern),))
+    features = engine.compiled(krr._features_ridge,
+                               name="approximate_kernel_ridge",
+                               donate_argnums=(0, 1), donate="auto",
+                               key_fn=lambda *a, **kw: ())
+    solve = reg._sketch_and_solve_compiled
+
+    def solve_case(family, **kw):
+        return (solve,
+                lambda ctx, v: ((Als, bls[:, None], family(m, s, ctx, **kw)),
+                                {"method": "qr"}),
+                reg._sketch_and_solve,
+                lambda ctx: algorithms.solve_l2_sketched(
+                    Als, bls, family(m, s, ctx, **kw), device=device))
+
+    return {
+        "svd": (nsvd._svd_compiled,
+                lambda ctx, v: ((A, sk.JLT(n, kp, ctx)), st_svd),
+                nsvd._svd_pipeline,
+                lambda ctx: nla.approximate_svd(A, k, ctx, params,
+                                                device=device)),
+        "symmetric_svd": (nsvd._symmetric_svd_compiled,
+                          lambda ctx, v: ((Asym, sk.JLT(n, kp, ctx)),
+                                          st_sym),
+                          nsvd._symmetric_svd_pipeline,
+                          lambda ctx: nla.approximate_symmetric_svd(
+                              Asym, k, ctx, params, device=device)),
+        "solve_jlt": solve_case(sk.JLT),
+        "solve_cwt": solve_case(sk.CWT),
+        "solve_fjlt_wht": solve_case(sk.FJLT, fut="wht"),
+        "precond_blendenpik": (
+            reg._precond_compiled,
+            lambda ctx, v: ((Als, reg._accel_transform(m, c, ctx, accel)),
+                            {"method": "blendenpik"}),
+            reg._precond_body,
+            lambda ctx: algorithms.build_blendenpik_precond(
+                Als, ctx, accel, device=device)),
+        "precond_lsrn": (
+            reg._precond_compiled,
+            lambda ctx, v: ((Als, reg._accel_transform(m, c, ctx, accel,
+                                                       gaussian=True)),
+                            {"method": "lsrn"}),
+            reg._precond_body,
+            lambda ctx: algorithms.build_lsrn_precond(
+                Als, ctx, accel, device=device)),
+        "approximate_krr": (
+            features,
+            lambda ctx, v: ((X, Y, lam_of(0),
+                             kern.create_rft(size["s"], ctx, "regular")),
+                            {}),
+            krr._features_ridge,
+            lambda ctx: ml.approximate_kernel_ridge(
+                kern, X, Y, ML_LAM, size["s"], ctx, device=device)),
+        "kernel_ridge": (
+            exact, lambda ctx, v: ((Xe, Ye, lam_of(v)), {}),
+            krr._exact_program(kern),
+            lambda ctx: ml.kernel_ridge(kern, Xe, Ye, ML_LAM, device=device)),
+        "krr_predict": (
+            predict, lambda ctx, v: ((Xte, Xe, coef * (1 + v)), {}),
+            krr._predict_program(kern),
+            lambda ctx: ml.krr_predict(kern, Xte, Xe, coef, device=device)),
+    }
+
+
+def clone_tree(torch, x):
+    return (tuple(clone_tree(torch, t) for t in x) if isinstance(x, tuple)
+            else x.clone())
+
+
+def compiled_entry(torch, P, name, case, cuda: bool, reps: int) -> dict:
+    """The checks and figures of one compiled entry (module docstring,
+    phase 4h); the engine is reset first, so its counters are this
+    entry's."""
+    from libskylark_tpu_torch import engine
+
+    cf, make, body, entry = case
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    kernel = COMPILED_KERNELS.get(name)
+    engine.reset()
+    launched = {key: 0 for key in launch_counts()}
+
+    def counted(fn, route=False):
+        for cs in counters():
+            for key in cs:
+                cs[key] = 0
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        dt = (time.perf_counter() - t0) * 1e3
+        got = launch_counts()
+        if route:  # launches of the compiled route, for the phase's total
+            for key, v in got.items():
+                launched[key] += v
+        return r, got, dt
+
+    args1, st = make(P.Context(1601), 0)
+    ref1, eager_counts, _ = counted(lambda: body(*args1, **st))
+    out1, _, cold_ms = counted(lambda: cf(*args1, **st), True)
+    check(same(torch, out1, ref1),
+          f"compiled {name}: the first call differs from the eager body")
+    first = clone_tree(torch, out1)
+    out1b, replay_counts, _ = counted(lambda: cf(*args1, **st), True)
+    check(same(torch, out1b, ref1),
+          f"compiled {name}: a replay differs from the eager body")
+    check(replay_counts == eager_counts,
+          f"compiled {name}: a replay's launches {replay_counts} are not "
+          f"the eager body's {eager_counts}")
+    if cuda and kernel:
+        check(replay_counts[kernel] >= 1,
+              f"compiled {name}: no {kernel} launch inside the replay")
+    args2, st2 = make(P.Context(1602), 1)
+    ref2, _, _ = counted(lambda: body(*args2, **st2))
+    out2, _, _ = counted(lambda: cf(*args2, **st2), True)
+    check(same(torch, out2, ref2),
+          f"compiled {name}: a replay under a second seed (or input) "
+          "differs from the eager body")
+    check(not same(torch, ref2, ref1),
+          f"compiled {name}: the second seed's result is the first's")
+    check(same(torch, out1, first),
+          f"compiled {name}: the first result changed after later calls")
+    c_entry, c_eager = P.Context(1603), P.Context(1603)
+    counted(lambda: entry(c_entry), True)
+    make(c_eager, 0)
+    check(c_entry.counter == c_eager.counter,
+          f"compiled {name}: the entry point advanced its Context to "
+          f"{c_entry.counter}, the eager route to {c_eager.counter}")
+    if cuda:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cf(*args2, **st2)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sync()
+    stats = engine.stats()
+    entries = engine.cache().snapshot()
+    check(stats.misses == 1 and stats.compiles == 1 and len(entries) == 1,
+          f"compiled {name}: {stats.misses} misses, {stats.compiles} "
+          f"materializations and {len(entries)} entries, not 1")
+    check(stats.hits == (4 if cuda else 3),
+          f"compiled {name}: {stats.hits} hits")
+    row = {"cold_ms": cold_ms, "pool_bytes": entries[0]["pool_bytes"],
+           "replay_launches": {key: v for key, v in replay_counts.items()
+                               if v},
+           "launches": launched}
+    if cuda:
+        row.update(compiled_times(torch, lambda: cf(*args2, **st2),
+                                  lambda: body(*args2, **st2), reps))
+    return row
+
+
+def compiled_times(torch, replay, eager, reps: int) -> dict:
+    """Warm host ms (median of ``reps`` synchronized calls after one),
+    device ms (torch.profiler, mean of 3) and busy of the replay and of
+    the eager body."""
+    out = {}
+    for label, fn in (("replay", replay), ("eager", eager)):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        warm = statistics.median(times)
+        dev = profiled_device_ms(torch, fn, reps=3)
+        out[f"{label}_warm_ms"] = warm
+        out[f"{label}_device_ms"] = dev
+        out[f"{label}_busy"] = dev / warm
+    return out
+
+
+def compiled_cells(torch, P, size=COMPILED_FULL, device="cuda") -> tuple:
+    """(entry rows, the compiled routes' launches): every compiled entry
+    through :func:`compiled_entry`, the engine reset after each."""
+    from libskylark_tpu_torch import engine
+
+    cuda = device == "cuda"
+    entries = {}
+    launches = {key: 0 for key in launch_counts()}
+    for name, case in compiled_cases(torch, P, size, device).items():
+        entries[name] = compiled_entry(torch, P, name, case, cuda,
+                                       size["reps"])
+        for key, v in entries[name].pop("launches").items():
+            launches[key] += v
+        engine.reset()
+    return entries, launches
+
+
+def compiled_phase(torch, P, np, size=COMPILED_FULL, device="cuda") -> dict:
+    """Phase 4h: the executable cache at full width: each compiled entry
+    point's replay against its eager body (module docstring)."""
+    cuda = device == "cuda"
+    if cuda:  # the phase's own peak, not the process's
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    entries, launches = compiled_cells(torch, P, size, device)
+    for key in COMPILED_KERNELS.values():
+        check(not cuda or launches[key] > 0,
+              f"compiled phase: no {key} launch")
+    out = {"size": dict(size), "entries": entries, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    if cuda:
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["card"] = smi("name,power.limit")
+    emit("compiled", **out)
+    return out
+
+
 CSRC = "libskylark_tpu_torch/csrc/"
 # kernel: (source, the TPU kernel it replaces)
 KERNELS = {
@@ -6006,18 +6302,31 @@ def main() -> int:
                + check_fastfood(torch, P, FASTFOOD_CASES)
                + check_batched(torch, P, np) + check_sparse(torch, P, np)
                + check_f32_exact(torch, P))
+    # every phase reaches the solver entry points through the executable
+    # cache: each ends by dropping its graphs (release_cache)
     main = main_path(torch, P)
+    release_cache(torch)
     serve = serve_phase(torch, P, np)
     emit("serve_cells", cells=serve_cells(torch, np))
+    release_cache(torch)
     ssolve = serve_solve_phase(torch, P, np)
+    release_cache(torch)
     sqos = serve_qos_phase(torch, P, np)
+    release_cache(torch)
     sparse = sparse_phase(torch, P, np, peaks)
+    release_cache(torch)
     ml_path = ml_phase(torch, P, np)
+    release_cache(torch)
     a3 = a3_phase(torch, P, np)
+    release_cache(torch)
     dphase = dist_phase(torch, P, np, peaks)
     checked += dphase["emulated"]
+    release_cache(torch)
     sphase = sharded_phase(torch, P, np, peaks)
     checked += sphase["emulated"]
+    release_cache(torch)
+    cphase = compiled_phase(torch, P, np)
+    release_cache(torch)
     rows = (time_kernels(torch, P, MAIN_SHAPES, True, peaks)
             + time_kernels(torch, P, SPLIT_LS_SHAPES, False, peaks)
             + time_hash(torch, P, HASH_SHAPES, peaks)
@@ -6084,7 +6393,8 @@ def main() -> int:
                          + ml_path["launches"][name]
                          + a3["launches"][name]
                          + dphase["launches"][name]
-                         + sphase["launches"][name]),
+                         + sphase["launches"][name]
+                         + cphase["launches"][name]),
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],
             "ms": head["ms"], "device_ms": head["device_ms"],

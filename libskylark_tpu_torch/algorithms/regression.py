@@ -2,10 +2,17 @@
 (the port of libskylark_tpu/algorithms/regression.py), and
 ``sketched_solve_serve``, one served solve request's program.
 
-The reference compiles the accelerated solvers as two engine executables
-(preconditioner build, LSQR) with one host read between them, the
-condition estimate that decides the fallback; here they are plain calls
-with the same single read, and LSQR's own per-iteration stopping test.
+Dense tensor operands run through the engine's executable cache
+(engine/compiled.py; CUDA graphs on the card, the sketch's key a graph
+input): sketch-and-solve as ``"solve_l2_sketched"`` (the sketch of
+[A | B] and, for the "qr" and "sne" methods, the small solve), and the
+preconditioner builds of the accelerated solvers as
+``"ls_accel_precond"`` (Blendenpik: the sketch and its R factor; LSRN:
+the sketch). What reads a convergence flag on the host stays eager
+after it (ROADMAP C20): LSRN's SVD of the sketch, the "ne" and "svd"
+small solves, and the condition estimate, the one host read before
+LSQR that decides the fallback, as in the reference. LSQR itself runs
+eagerly with its per-iteration stopping test (ROADMAP B-ii 7).
 
 A :class:`~libskylark_tpu_torch.base.sparse.SparseMatrix` design matrix
 takes the reference's direct path: the sketch's sparse apply to A and
@@ -22,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from libskylark_tpu_torch import engine
 from libskylark_tpu_torch.algorithms import krylov
 from libskylark_tpu_torch.algorithms.precond import (MatPrecond, Precond,
                                                      TriInversePrecond)
@@ -31,6 +39,7 @@ from libskylark_tpu_torch.base.device import as_tensor
 from libskylark_tpu_torch.base.sparse import is_sparse_operand, place
 from libskylark_tpu_torch.base.params import Params
 from libskylark_tpu_torch.base.precision import with_solver_precision
+from libskylark_tpu_torch.parallel import mesh as pmesh
 
 _solve = torch.linalg.solve_triangular
 
@@ -79,12 +88,37 @@ def solve_l2_exact(A, B, method: str = "qr", device=None) -> torch.Tensor:
     return X[:, 0] if squeeze else X
 
 
+# the small solves a capture takes: torch's "ne" Cholesky and "svd" read
+# their info on the host
+_CAPTURED_METHODS = ("qr", "sne")
+
+
+def _sketch_and_solve(A: torch.Tensor, B: torch.Tensor, T, *, method: str):
+    """The body of ``"solve_l2_sketched"``: [A | B] sketched in one
+    columnwise apply and, for the captured methods, the small problem
+    solved; otherwise the sketch, solved by the caller."""
+    from libskylark_tpu_torch.sketch import COLUMNWISE
+
+    SAB = T.apply(torch.cat([A, B], dim=1), COLUMNWISE, device=A.device)
+    if method not in _CAPTURED_METHODS:
+        return SAB
+    n = A.shape[1]
+    return solve_l2_exact(SAB[:, :n], SAB[:, n:], method=method,
+                          device=A.device)
+
+
+_sketch_and_solve_compiled = engine.compiled(
+    _sketch_and_solve, static_argnames=("method",), donate_argnums=(0, 1),
+    donate="auto", name="solve_l2_sketched")
+
+
 @with_solver_precision
 def solve_l2_sketched(A, B, transform, method: str = "qr",
                       device=None) -> torch.Tensor:
     """Sketch-and-solve: compress the rows of [A | B] with a columnwise
     sketch, then solve the small problem exactly. On a CUDA tensor a
-    dense sketch runs the fused columnwise kernel.
+    dense sketch runs the fused columnwise kernel, inside the captured
+    ``"solve_l2_sketched"`` body.
 
     A and B are sketched in one apply, so a virtual operator is generated
     once for both rather than once more for B's few columns; the copy
@@ -102,11 +136,14 @@ def solve_l2_sketched(A, B, transform, method: str = "qr",
     A = as_tensor(A, device)
     B = as_tensor(B, A.device).to(A.dtype)
     squeeze = B.ndim == 1
-    AB = torch.cat([A, B[:, None] if squeeze else B], dim=1)
-    SAB = transform.apply(AB, COLUMNWISE, device=A.device)
-    n = A.shape[1]
-    X = solve_l2_exact(SAB[:, :n], SAB[:, n:], method=method,
-                       device=A.device)
+    # a DTensor runs the body eagerly (its sketches' own collective routes)
+    run = (_sketch_and_solve if pmesh._is_sharded(A)
+           else _sketch_and_solve_compiled)
+    X = run(A, B[:, None] if squeeze else B, transform, method=method)
+    if method not in _CAPTURED_METHODS:
+        n = A.shape[1]
+        X = solve_l2_exact(X[:, :n], X[:, n:], method=method,
+                           device=A.device)
     return X[:, 0] if squeeze else X
 
 
@@ -180,15 +217,36 @@ def _blendenpik_r(A, T, device) -> torch.Tensor:
                            mode="r").R
 
 
-def _lsrn_parts(A, T, device) -> tuple[torch.Tensor, torch.Tensor]:
+def _lsrn_parts(SA: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """LSRN preconditioner N = V·Σ⁻¹ from the SVD of the sketch, and the
     singular values."""
-    from libskylark_tpu_torch.sketch import COLUMNWISE
-
-    SA = T.apply(A, COLUMNWISE, device=device)
     _, sv, Vt = torch.linalg.svd(SA, full_matrices=False)
     floor = sv[0] * torch.finfo(SA.dtype).eps
     return Vt.T * (1.0 / torch.maximum(sv, floor))[None, :], sv
+
+
+def _precond_body(A, T, *, method: str, device=None) -> torch.Tensor:
+    """The body of ``"ls_accel_precond"``: Blendenpik's R, or LSRN's
+    sketch (its SVD reads convergence info on the host: eager after), on
+    ``device`` (default: A's)."""
+    from libskylark_tpu_torch.sketch import COLUMNWISE
+
+    device = A.device if device is None else device
+    if method == "lsrn":
+        return T.apply(A, COLUMNWISE, device=device)
+    return _blendenpik_r(A, T, device)
+
+
+_precond_compiled = engine.compiled(
+    _precond_body, static_argnames=("method",), name="ls_accel_precond")
+
+
+def _precond_part(A, T, method: str, device) -> torch.Tensor:
+    """:func:`_precond_body` from the executable cache for a dense
+    tensor, directly for a sparse operand or a DTensor."""
+    if is_sparse_operand(A) or pmesh._is_sharded(A):
+        return _precond_body(A, T, method=method, device=device)
+    return _precond_compiled(A, T, method=method)
 
 
 @with_solver_precision
@@ -196,8 +254,8 @@ def build_blendenpik_precond(A, context: Context, params: AcceleratedParams,
                              device=None) -> tuple[Precond, torch.Tensor]:
     """Sketch A and QR the sketch; R is the right preconditioner."""
     A, device = place(A, device)
-    R = _blendenpik_r(A, _accel_transform(*A.shape, context, params),
-                      device)
+    R = _precond_part(A, _accel_transform(*A.shape, context, params),
+                      "blendenpik", device)
     return TriInversePrecond(R), R
 
 
@@ -207,7 +265,7 @@ def build_lsrn_precond(A, context: Context, params: AcceleratedParams,
     """LSRN: Gaussian sketch, SVD of the sketch, preconditioner V·Σ⁻¹."""
     A, device = place(A, device)
     T = _accel_transform(*A.shape, context, params, gaussian=True)
-    Ninv, sv = _lsrn_parts(A, T, device)
+    Ninv, sv = _lsrn_parts(_precond_part(A, T, "lsrn", device))
     return MatPrecond(Ninv), sv
 
 

@@ -190,24 +190,27 @@ TPU_PROFILE = declare(
 EXEC_CACHE_SIZE = declare(
     "SKYLARK_EXEC_CACHE_SIZE", default=128, parser=parse_positive_int,
     kind="int",
-    doc="Capacity of the executable cache; no reader in the port until "
-        "ROADMAP A6 (engine/compiled.py).")
+    doc="Capacity of the executable cache (``engine.compiled``'s LRU of "
+        "captured CUDA graphs, read once at import).")
 
 ENGINE_DONATE = declare(
     "SKYLARK_ENGINE_DONATE", default=False, parser=parse_one, kind="flag",
-    doc="Operand donation of the solver entry points; no reader in the "
-        "port until ROADMAP A6 (engine/compiled.py).")
+    doc="Operand donation of the solver entry points "
+        "(``engine.donation_enabled``, read at every call of a "
+        "``donate=\"auto\"`` site): a donated tensor is consumed.")
 
 EXEC_CACHE_DIR = declare(
     "SKYLARK_EXEC_CACHE_DIR", default=None, parser=parse_path_or_off,
     kind="path", propagate=True,
-    doc="jax's persistent compilation cache: no meaning on the card, "
-        "declared so that both packages see one set of names.")
+    doc="jax's persistent compilation cache: no meaning on the card (a "
+        "CUDA graph cannot be serialized); ``engine."
+        "enable_persistent_cache`` reads it, warns once and returns "
+        "False. Declared so that both packages see one set of names.")
 
 ENGINE_STATS_DUMP = declare(
     "SKYLARK_ENGINE_STATS_DUMP", default=None, kind="path",
-    doc="Path of the engine's stats rollup at exit; no reader in the port "
-        "until ROADMAP A6 (engine/compiled.py).")
+    doc="Path of the engine's stats rollup, written at exit "
+        "(``engine.dump_stats``; read once at import).")
 
 AOT_DIR = declare(
     "SKYLARK_AOT_DIR", default=None, parser=parse_path_or_off,

@@ -51,6 +51,15 @@ panels = {"dense_panel": 0}
 _panel_lock = threading.Lock()
 
 
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """A small host-made tensor (key words, chunk keys) on ``device``,
+    copied without waiting for the device: CUDA stages a pageable source
+    at once, so the source may go, and the caller's launches queue behind
+    the copy. No host sync, so a hit of a compiled body that refills its
+    per-seed streams makes none (engine/compiled.py)."""
+    return t.to(device, non_blocking=True)
+
+
 def chunk_key(key, cid: int) -> np.ndarray:
     """Key data for chunk (or column block) ``cid`` of a stream."""
     cid = int(cid)
@@ -118,8 +127,8 @@ def chunk_bits(keys: torch.Tensor, length: int) -> torch.Tensor:
 
 def bits(key, length: int, device=None) -> torch.Tensor:
     """``jax.random.bits(key, (length,))`` as an int64 tensor."""
-    keys = torch.tensor([list(key_words(key))], dtype=torch.int64,
-                        device=device)
+    keys = upload(torch.tensor([list(key_words(key))], dtype=torch.int64),
+                  device)
     return chunk_bits(keys, length)[0]
 
 
@@ -410,7 +419,8 @@ def stream_chunks(key, dist: Distribution, first_cid: int, n_chunks: int,
     own (f32, or int64 for integers). ``chunk`` is part of the stream's
     format: another value makes another stream."""
     keys = torch.from_numpy(
-        chunk_keys(key, first_cid, n_chunks).astype(np.int64)).to(device)
+        chunk_keys(key, first_cid, n_chunks).astype(np.int64))
+    keys = upload(keys, device)
     vals = dist.sample_chunks(keys, int(chunk)).reshape(-1)
     return vals if dtype is None else vals.to(dtype)
 
@@ -443,7 +453,8 @@ def permutation_batched(keys, n: int, device=None) -> torch.Tensor:
                          / np.log(np.iinfo(np.uint32).max)))
     for _ in range(rounds):
         k, sub = split_keys(k)
-        words = chunk_bits(torch.from_numpy(sub.astype(np.int64)).to(device),
+        words = chunk_bits(upload(torch.from_numpy(sub.astype(np.int64)),
+                                  device),
                            n)
         x = torch.gather(x, 1, torch.sort(words, dim=1, stable=True).indices)
     return x
@@ -462,7 +473,7 @@ def stream_slice_batched(keys, dist: Distribution, start: int, stop: int,
     c1 = -(-stop // CHUNK)
     ck = chunk_keys_batched(keys, c0, c1 - c0).reshape(-1, 2)
     vals = dist.sample_chunks(
-        torch.from_numpy(ck.astype(np.int64)).to(device), CHUNK)
+        upload(torch.from_numpy(ck.astype(np.int64)), device), CHUNK)
     vals = vals.reshape(B, -1)[:, start - c0 * CHUNK:stop - c0 * CHUNK]
     return vals if dtype is None else vals.to(dtype)
 
@@ -486,6 +497,16 @@ def stream_slice(key, dist: Distribution, start: int, stop: int, dtype=None,
 # ---------------------------------------------------------------------------
 
 
+def block_keys(key, col_start: int, col_stop: int, block_cols: int,
+               device=None) -> torch.Tensor:
+    """The chunk keys of the column blocks that cover [col_start,
+    col_stop): (blocks, 2) int64 words on ``device``."""
+    b0 = col_start // block_cols
+    b1 = -(-col_stop // block_cols)
+    return upload(torch.from_numpy(
+        chunk_keys(key, b0, b1 - b0).astype(np.int64)), device)
+
+
 def dense_panel(
     key,
     dist: Distribution,
@@ -495,16 +516,18 @@ def dense_panel(
     block_cols: int,
     dtype=torch.float32,
     device=None,
+    keys=None,
 ) -> torch.Tensor:
     """Columns [col_start, col_stop) of the virtual (rows × n) matrix in
     the dense-block format, generated on ``device`` (CPU by default);
-    counted in ``panels``."""
+    counted in ``panels``. ``keys``: the blocks' :func:`block_keys`, when
+    made beforehand (a compiled body's input), else made here."""
     with _panel_lock:
         panels["dense_panel"] += 1
     b0 = col_start // block_cols
     b1 = -(-col_stop // block_cols)
-    keys = torch.from_numpy(
-        chunk_keys(key, b0, b1 - b0).astype(np.int64)).to(device)
+    if keys is None:
+        keys = block_keys(key, col_start, col_stop, block_cols, device)
     if type(dist).from_bits is Distribution.from_bits or block_cols % 2:
         # the legacy format: the sampler over each block's flat index
         blocks = dist.sample_chunks(keys, rows * block_cols).reshape(

@@ -689,10 +689,11 @@ extern "C" int sk_dense_tc_plan(int64_t m, int64_t n, int64_t s_dim, int regime,
 // Every regime, one lane or a stacked cohort. Rowwise A (B, m, n) ->
 // out (B, m, s_dim); columnwise A (B, n, m) -> out (B, s_dim, m); A's rows
 // ld floats apart, ld a multiple of 4, lanes contiguous in that layout, A
-// 16-byte aligned. One lane: keys == nullptr, key0/key1 its key, and out is
-// scaled by ``scale`` (sc, sh: the cos epilogue, rowwise only). A cohort:
-// keys (B, 2) and scales (B,) on the card, each lane's operator entries
-// scaled before they are rounded. ws and part hold B times the sizes that
+// 16-byte aligned. One lane: key0/key1 its key, or keys (1, 2) on the card
+// with scales == nullptr (the route of a captured body: the key is a graph
+// input), and out is scaled by ``scale`` (sc, sh: the cos epilogue,
+// rowwise only). A cohort: keys (B, 2) and scales (B,) on the card, each
+// lane's operator entries scaled before they are rounded. ws and part hold B times the sizes that
 // sk_dense_tc_plan gives. block0 is the column block of S that A's first
 // contracted column meets (0 but for a shard's partial).
 extern "C" int sk_dense_tc(int rowwise, int regime, int dist, const float* A, int64_t ld,
@@ -703,8 +704,9 @@ extern "C" int sk_dense_tc(int rowwise, int regime, int dist, const float* A, in
                            cudaStream_t stream) {
   if (m <= 0 || n <= 0 || s_dim <= 0 || B < 1 || regime < kF32 || regime > kBf16 ||
       dist < kNormal || dist > kRademacher || s_dim * kHalf > 0xFFFFFFFFLL ||
-      (sc == nullptr) != (sh == nullptr) || (sc != nullptr && (!rowwise || keys != nullptr)) ||
-      (keys == nullptr) != (scales == nullptr) || (keys == nullptr && B != 1) ||
+      (sc == nullptr) != (sh == nullptr) ||
+      (sc != nullptr && (!rowwise || scales != nullptr || B != 1)) ||
+      (scales != nullptr && keys == nullptr) || (scales == nullptr && B != 1) ||
       ws == nullptr || ld < (rowwise ? n : m) || ld % 4 != 0 || n >= (1ll << 31) - 256 ||
       block0 < 0 || block0 > (1ll << 40) ||
       reinterpret_cast<uintptr_t>(A) % 16 != 0)
@@ -751,7 +753,7 @@ extern "C" int sk_dense_tc(int rowwise, int regime, int dist, const float* A, in
   a.oi = rowwise ? s_dim : 1;
   a.oj = rowwise ? 1 : m;
   a.out_lane = m * s_dim;
-  a.scale = keys != nullptr ? 1.0f : scale;
+  a.scale = scales != nullptr ? 1.0f : scale;
   a.outscale = outscale;
   a.sc = sc;
   a.sh = sh;

@@ -3,10 +3,18 @@ argument's pointer through one gate (a DTensor is refused), call the C
 function on PyTorch's current stream, and raise on a CUDA error (the
 launch never ran). The kernels take the transform's 2-word key and
 derive every chunk key on the card, so a launch needs no table from the
-host."""
+host. A key may also come as an int32 tensor already on the card (the
+route of a captured body, engine/compiled.py), read by the kernel from
+device memory.
+
+Launch counts go through :func:`count`; while a thread captures a CUDA
+graph (:func:`recording`) its counts are recorded instead of added, since
+a capture launches nothing, and each replay adds them
+(:func:`add_counts`)."""
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -49,11 +57,38 @@ def call(fn, device, *args) -> None:
 
 
 _count_lock = threading.Lock()
+_tls = threading.local()
 
 
 def count(counters: dict, name: str, n: int = 1) -> None:
     """Add ``n`` (one launch, by default) to ``name`` in a wrapper's
     counter dict; the serve executor's worker threads launch
-    concurrently."""
+    concurrently. Inside :func:`recording` the count is recorded for this
+    thread instead."""
+    rec = getattr(_tls, "record", None)
+    if rec is not None:
+        rec.append((counters, name, n))
+        return
     with _count_lock:
         counters[name] += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Record this thread's counts in the yielded list of (counters,
+    name, n) instead of adding them: what one replay of a graph captured
+    in the block launches."""
+    rec = []
+    prev = getattr(_tls, "record", None)
+    _tls.record = rec
+    try:
+        yield rec
+    finally:
+        _tls.record = prev
+
+
+def add_counts(recorded) -> None:
+    """Add counts recorded by :func:`recording` (one replay's)."""
+    with _count_lock:
+        for counters, name, n in recorded:
+            counters[name] += n

@@ -18,13 +18,20 @@ libskylark_tpu/ml/krr.py):
 Rows are examples: X is (n, d), Y is (n, t); feature maps apply ROWWISE
 giving Z (n, s); W is (s, t); Gram coefficients A are (n, t).
 
-The reference compiles each regime into one program served from its
-executable cache; here each runs eagerly on the device of X (``device=``,
-else the package default). The feature maps are allocated first, in the
-reference's order, so one Context gives both packages the same maps.
-The iterative regimes read one scalar per iteration on the host to decide
-whether to go on: the PCG's stopping flag (``algorithms.krylov.cg``) and
-the BCD sweep's relative update.
+The regimes run on the device of X (``device=``, else the package
+default). The feature maps are allocated first, in the reference's
+order, so one Context gives both packages the same maps. As in the
+reference, ``kernel_ridge``, ``approximate_kernel_ridge``,
+``sketched_approximate_kernel_ridge`` and ``krr_predict`` each run as one
+program from the engine's executable cache (engine/compiled.py): a CUDA
+graph on the card, captured once per (shapes, kernel, the feature maps'
+and sketch's signatures), their keys and per-seed streams graph inputs
+and λ an input too, so a new seed or λ replays it. Their Cholesky
+factors are unchecked (``cholesky_ex``), as the reference's are. The
+iterative regimes stay eager and read one scalar per iteration on the
+host to decide whether to go on: the PCG's stopping flag
+(``algorithms.krylov.cg``) and the BCD sweep's relative update (ROADMAP
+B-ii 7).
 
 X may be a DTensor whose rows (examples) are split over a mesh
 (parallel/mesh.py); Y then comes split the same way or whole on every
@@ -48,6 +55,7 @@ from typing import Optional
 
 import torch
 
+from libskylark_tpu_torch import engine
 from libskylark_tpu_torch.algorithms.krylov import KrylovParams, cg
 from libskylark_tpu_torch.algorithms.precond import FunctionPrecond, IdPrecond
 from libskylark_tpu_torch.base.context import Context
@@ -100,7 +108,7 @@ def _ridge_solve(Z, Y, lam) -> torch.Tensor:
     if total is not None:
         G, ZtY = total(G), total(ZtY)
     G = G + lam * _eye(Z.shape[1], Z)
-    return torch.cholesky_solve(ZtY, torch.linalg.cholesky(G))
+    return torch.cholesky_solve(ZtY, torch.linalg.cholesky_ex(G).L)
 
 
 def _split_sizes(s: int, d: int, max_split: int) -> list[int]:
@@ -128,6 +136,21 @@ def _data(X, Y, device):
     return X, (Y[:, None] if Y.ndim == 1 else Y)
 
 
+def _run_compiled(fn, name: str, extras: tuple, X, Y, lam, *transforms,
+                  **statics):
+    """``fn(X, Y, lam, *transforms, **statics)`` from the executable
+    cache, keyed on ``extras`` (digests of what ``fn`` closes over, never
+    a transform: those pass positionally, keyed by their seed-free
+    signatures). λ becomes a 0-dim tensor of X's dtype, as in the
+    reference: an input, not a key. The operands are donated only when
+    the user opted in (donate="auto")."""
+    lam = torch.as_tensor(lam, dtype=X.dtype).to(X.device, non_blocking=True)
+    cf = engine.compiled(fn, name=name, donate_argnums=(0, 1),
+                         donate="auto", static_argnames=tuple(statics),
+                         key_fn=lambda *a, **k: extras)
+    return cf(X, Y, lam, *transforms, **statics)
+
+
 def _example_blocks(X) -> pmesh._Blocks:
     B = pmesh._Blocks(X)
     if B.cols.split:
@@ -152,8 +175,29 @@ def kernel_ridge(k: Kernel, X, Y, lam: float,
         K = k.symmetric_gram(Xw, Xw.device) + lam * _eye(Xw.shape[0], Xw)
         A = torch.cholesky_solve(Yw, torch.linalg.cholesky(K))
         return B.rows.wrap(B.rows.take(A))
-    K = k.symmetric_gram(X, X.device) + lam * _eye(X.shape[0], X)
-    return torch.cholesky_solve(Y, torch.linalg.cholesky(K))
+    return _run_compiled(_exact_program(k), "kernel_ridge",
+                         (engine.digest(k),), X, Y, lam)
+
+
+def _exact_program(k: Kernel):
+    """The body of ``"kernel_ridge"`` for kernel ``k``: the Gram matrix
+    plus λI, its Cholesky factor (unchecked, as the reference's), the
+    solve."""
+
+    def solve(X, Y, lam):
+        K = k.symmetric_gram(X, X.device) + lam * _eye(X.shape[0], X)
+        return torch.cholesky_solve(Y, torch.linalg.cholesky_ex(K).L)
+
+    return solve
+
+
+def _predict_program(k: Kernel):
+    """The body of ``"krr_predict"`` for kernel ``k``."""
+
+    def run(X_new, X_train, A):
+        return krr_predict_kernel(k, X_new, X_train, A)
+
+    return run
 
 
 def krr_predict_kernel(k: Kernel, X_new: torch.Tensor,
@@ -169,7 +213,13 @@ def krr_predict(k: Kernel, X_new, X_train, A, device=None) -> torch.Tensor:
     X_train = as_tensor(X_train, X_new.device)
     A = as_tensor(A, X_new.device)
     squeeze = A.ndim == 1
-    out = krr_predict_kernel(k, X_new, X_train, A[:, None] if squeeze else A)
+    A = A[:, None] if squeeze else A
+    if any(pmesh._is_sharded(t) for t in (X_new, X_train, A)):
+        out = krr_predict_kernel(k, X_new, X_train, A)
+    else:
+        out = engine.compiled(_predict_program(k), name="krr_predict",
+                              key_fn=lambda *a: (engine.digest(k),))(
+            X_new, X_train, A)
     return out[:, 0] if squeeze else out
 
 
@@ -200,11 +250,23 @@ def approximate_kernel_ridge(k: Kernel, X, Y, lam: float, s: int,
     if params.sketched_rr:
         t = 4 * s if params.sketch_size == -1 else params.sketch_size
         R = _regression_sketch(X.shape[0], t, context, params)
+    maps = (S,) if R is None else (S, R)
+    if pmesh._is_sharded(X):
+        return S, pmesh._like(X, _features_ridge(X, Y, lam, *maps))
+    return S, _run_compiled(_features_ridge, "approximate_kernel_ridge", (),
+                            X, Y, lam, *maps)
+
+
+def _features_ridge(X, Y, lam, S, R=None):
+    """The body of ``"approximate_kernel_ridge"``: the features, the
+    regression sketch when there is one, the ridge solve."""
+    from libskylark_tpu_torch import sketch as sk
+
     Z = S.apply(X, sk.ROWWISE, device=X.device)
     if R is not None:
         Z, Y = (R.apply(Z, sk.COLUMNWISE, device=X.device),
                 R.apply(Y, sk.COLUMNWISE, device=X.device))
-    return S, pmesh._like(X, _ridge_solve(Z, Y, lam))
+    return _ridge_solve(Z, Y, lam)
 
 
 @with_solver_precision
@@ -226,18 +288,35 @@ def sketched_approximate_kernel_ridge(k: Kernel, X, Y, lam: float, s: int,
     R = _regression_sketch(n, t, context, params)
     transforms = [k.create_rft(thiss, context, _feature_tag(params))
                   for thiss in _split_sizes(s, d, params.max_split)]
+    if not pmesh._is_sharded(X):
+        return transforms, _run_compiled(
+            _split_features_ridge, "sketched_approximate_kernel_ridge", (),
+            X, Y, lam, R, *transforms, s=s)
     SY = R.apply(Y, sk.COLUMNWISE, device=X.device)
-    B = _example_blocks(X) if pmesh._is_sharded(X) else None
+    B = _example_blocks(X)
     parts = []
     for S in transforms:
         Z = S.apply(X, sk.ROWWISE, device=X.device)
         scale = math.sqrt(S.sketch_dim / s)
         # scale the rank's rows: no traffic
-        Z = B.rows.wrap(Z.to_local() * scale) if B else Z * scale
+        Z = B.rows.wrap(Z.to_local() * scale)
         # the sketched (t × s_c) block is whole on every rank
         parts.append(_panel(R.apply(Z, sk.COLUMNWISE, device=X.device))[0])
     SZ = torch.cat(parts, dim=1)
     return transforms, pmesh._like(X, _ridge_solve(SZ, _panel(SY)[0], lam))
+
+
+def _split_features_ridge(X, Y, lam, R, *transforms, s: int):
+    """The body of ``"sketched_approximate_kernel_ridge"``: each map's
+    block scaled by √(s_c/s) and sketched by R at once, then the ridge
+    solve of the sketched problem."""
+    from libskylark_tpu_torch import sketch as sk
+
+    SY = R.apply(Y, sk.COLUMNWISE, device=X.device)
+    parts = [R.apply(S.apply(X, sk.ROWWISE, device=X.device)
+                     * math.sqrt(S.sketch_dim / s), sk.COLUMNWISE,
+                     device=X.device) for S in transforms]
+    return _ridge_solve(torch.cat(parts, dim=1), SY, lam)
 
 
 class FeatureMapPrecond(FunctionPrecond):

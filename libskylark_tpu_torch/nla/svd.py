@@ -8,6 +8,16 @@ CUDA tensor it runs the fused rowwise kernel (sketch/cuda_dense.py); the
 other large products are plain matmuls. A wide matrix is factored as its
 transpose.
 
+A dense tensor operand runs through the engine's executable cache
+(engine/compiled.py): ``_svd_pipeline`` (the range sketch, the power
+iteration, Bᵀ = Aᵀ·Q and its CholeskyQR2) and
+``_symmetric_svd_pipeline`` (through the Rayleigh-Ritz matrix QᵀAQ) are
+captured once per (shape, dtype, statics) as CUDA graphs on the card,
+the JLT's key a graph input, so every seed replays the same graph. The
+k'×k' SVD or eigendecomposition and the rotations that follow run
+eagerly after it: torch's ``linalg.svd`` and ``linalg.eigh`` read their
+convergence info on the host, which a capture refuses (ROADMAP C20).
+
 A :class:`~libskylark_tpu_torch.base.sparse.SparseMatrix` operand is
 never densified (the reference's sparse branch): its range sketch is the
 JLT's sparse apply, and every product with A is ``spmm``/``spmm_t``.
@@ -32,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from libskylark_tpu_torch import engine
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.context import Context
 from libskylark_tpu_torch.base.sparse import (is_sparse_operand,
@@ -144,6 +155,89 @@ def power_iteration(A, Q: torch.Tensor, num_iterations: int,
                              ortho))
 
 
+def _svd_pipeline(A: torch.Tensor, T, *, k: int, kp: int,
+                  num_iterations: int, skip_qr: bool, ortho: str, rr: str):
+    """The captured part of the tall dense randomized SVD: the range
+    sketch A·Tᵀ (B1-rw on the card, T's key a graph input), the power
+    iteration, Bᵀ = Aᵀ·Q and, for ``rr="cqr2"``, Bᵀ's CholeskyQR2.
+    Returns (Q, Bᵀ) for "svd", (Q, Qb, Rb) for "cqr2";
+    :func:`_svd_finish` takes the rest."""
+    from libskylark_tpu_torch.sketch import ROWWISE
+
+    B = pmesh._Blocks(A)
+    Q = T.apply(A, ROWWISE, device=A.device)          # range sketch (m, kp)
+    if not skip_qr:
+        Q = _orthonormalize(Q, ortho, B.rows)
+    Q = _power(B, Q, num_iterations, not skip_qr, False, ortho)
+    if skip_qr:
+        # one final orthogonalization is always required before projection
+        Q = _orthonormalize(Q, ortho, B.rows)
+    Bt = B.rmv(Q)                                     # (n, kp); B = Btᵀ
+    if rr == "svd":
+        return Q, Bt
+    return (Q, *_cholesky_qr2(Bt, B.cols.sum))
+
+
+def _svd_finish(parts, k: int, rr: str):
+    """(U, S, V) from :func:`_svd_pipeline`'s parts: the small SVD and
+    the rotations, eagerly."""
+    if rr == "svd":
+        Q, Bt = parts
+        Ub, S, Vt = torch.linalg.svd(Bt.T, full_matrices=False)
+        return Q @ Ub[:, :k], S[:k], Vt[:k, :].T
+    # Bᵀ = Qb·Rb ⇒ B = Rbᵀ·Qbᵀ; SVD only the k'×k' factor:
+    # Rbᵀ = Ur·S·Vrᵀ ⇒ B = Ur·S·(Qb·Vr)ᵀ
+    Q, Qb, Rb = parts
+    Ur, S, Vrt = torch.linalg.svd(Rb.T, full_matrices=False)
+    return Q @ Ur[:, :k], S[:k], Qb @ Vrt.T[:, :k]
+
+
+def _symmetric_svd_pipeline(A: torch.Tensor, T, *, k: int, kp: int,
+                            num_iterations: int, skip_qr: bool, ortho: str):
+    """The captured part of the dense symmetric variant: the range sketch
+    (B1-rw), the power iteration and the Rayleigh-Ritz matrix G =
+    sym(QᵀAQ). Returns (Q, G); :func:`_symmetric_svd_finish` takes the
+    rest."""
+    from libskylark_tpu_torch.sketch import ROWWISE
+
+    mv, _ = linear_ops(A)
+    whole = pmesh._Space(A.shape[0])
+    Q = _orthonormalize(T.apply(A, ROWWISE, device=A.device), ortho, whole)
+    for _ in range(num_iterations):
+        Q = mv(Q)
+        if not skip_qr:
+            Q = _orthonormalize(Q, ortho, whole)
+    if skip_qr:
+        Q = _orthonormalize(Q, ortho, whole)
+    G = Q.T @ mv(Q)
+    return Q, 0.5 * (G + G.T)
+
+
+def _symmetric_svd_finish(parts, k: int):
+    """(V, S): the eigendecomposition of G, the k largest-magnitude pairs
+    descending, rotated back, eagerly."""
+    Q, G = parts
+    w, Z = torch.linalg.eigh(G)
+    order = torch.argsort(-torch.abs(w))[:k]
+    return Q @ Z[:, order], w[order]
+
+
+# donate="auto": the operand is consumed only when the user opted in
+# (SKYLARK_ENGINE_DONATE=1)
+_STATIC_SVD = ("k", "kp", "num_iterations", "skip_qr", "ortho", "rr")
+_svd_compiled = engine.compiled(
+    _svd_pipeline, static_argnames=_STATIC_SVD, donate_argnums=(0,),
+    donate="auto", name="approximate_svd")
+_symmetric_svd_compiled = engine.compiled(
+    _symmetric_svd_pipeline, static_argnames=_STATIC_SVD[:-1],
+    donate_argnums=(0,), donate="auto", name="approximate_symmetric_svd")
+
+
+def _served(A) -> bool:
+    """A dense, unsharded operand: the executable cache's route."""
+    return not is_sparse_operand(A) and not pmesh._is_sharded(A)
+
+
 @with_solver_precision
 def approximate_svd(A, rank: int, context: Context,
                     params: Optional[ApproximateSVDParams] = None,
@@ -151,8 +245,9 @@ def approximate_svd(A, rank: int, context: Context,
     """Rank-``rank`` approximate SVD: (U, S, V) with A ≈ U·diag(S)·Vᵀ.
 
     ``A`` is a numpy array or tensor, moved to ``device`` (default: the
-    package default device); ``dtype`` casts it first. A
-    :class:`SparseMatrix` stays sparse and the factors land on
+    package default device); ``dtype`` casts it first. A dense tensor
+    runs ``_svd_pipeline`` from the executable cache, then the small SVD.
+    A :class:`SparseMatrix` stays sparse and the factors land on
     ``device``; ``dtype`` raises for it."""
     params = params or ApproximateSVDParams()
     _validate_params(params)
@@ -170,8 +265,13 @@ def approximate_svd(A, rank: int, context: Context,
 
     from libskylark_tpu_torch.sketch import ROWWISE, JLT
 
-    B = pmesh._Blocks(A)
     T = JLT(n, kp, context)
+    if _served(A):
+        parts = _svd_compiled(
+            A, T, k=k, kp=kp, num_iterations=int(params.num_iterations),
+            skip_qr=bool(params.skip_qr), ortho=params.ortho, rr=params.rr)
+        return _svd_finish(parts, k, params.rr)
+    B = pmesh._Blocks(A)
     Q = T.apply(A, ROWWISE, device=device)            # range sketch (m, kp)
     Q = Q.to_local() if B.sharded else Q
     if not params.skip_qr:
@@ -220,9 +320,14 @@ def approximate_symmetric_svd(A, rank: int, context: Context,
 
     from libskylark_tpu_torch.sketch import ROWWISE, JLT
 
+    T = JLT(n, kp, context)
+    if _served(A):
+        parts = _symmetric_svd_compiled(
+            A, T, k=k, kp=kp, num_iterations=int(params.num_iterations),
+            skip_qr=bool(params.skip_qr), ortho=params.ortho)
+        return _symmetric_svd_finish(parts, k)
     mv, _ = linear_ops(A)
     whole = pmesh._Space(n)
-    T = JLT(n, kp, context)
     Q = _orthonormalize(T.apply(A, ROWWISE, device=device), params.ortho,
                         whole)
     for _ in range(params.num_iterations):
@@ -234,7 +339,4 @@ def approximate_symmetric_svd(A, rank: int, context: Context,
 
     # Rayleigh-Ritz: eigendecomposition of QᵀAQ
     G = Q.T @ mv(Q)
-    G = 0.5 * (G + G.T)
-    w, Z = torch.linalg.eigh(G)
-    order = torch.argsort(-torch.abs(w))[:k]
-    return Q @ Z[:, order], w[order]
+    return _symmetric_svd_finish((Q, 0.5 * (G + G.T)), k)

@@ -5,6 +5,11 @@ For an (m × k) panel with m ≫ k: G = AᵀA, R = chol(G), Q = A·R⁻¹, twice
 the second pass repairs the squared-condition loss of the first
 (Yamamoto et al. 2015). Every O(m·k²) flop is a matmul.
 
+The Cholesky factor is not checked on the host (``cholesky_ex``, as
+the reference's ``jnp.linalg.cholesky`` does not raise): a Gram that is
+not positive definite even after the diagonal lift gives an unusable
+factor (the reference's is NaN), never an error.
+
 A DTensor panel whose rows are split over a mesh (parallel/mesh.py) is
 never gathered: each rank forms its G_loc = A_locᵀ·A_loc, one all_reduce
 of the k × k Gram sums them, the Cholesky runs on every rank, and Q =
@@ -31,7 +36,9 @@ def _cholesky_qr(A: torch.Tensor, total=None):
     eps = torch.finfo(A.dtype).eps
     eye = torch.eye(G.shape[0], dtype=A.dtype, device=A.device)
     G = G + (eps * torch.trace(G)) * eye
-    R = torch.linalg.cholesky(G, upper=True)
+    # unchecked, as the reference's jnp.linalg.cholesky (no host read:
+    # the pass runs inside captured bodies, ROADMAP C20)
+    R = torch.linalg.cholesky_ex(G, upper=True).L
     # Q = A·R⁻¹ through an explicit k×k triangular inverse and one matmul
     # (the reference's choice: a gemm over the tall operand, not a
     # triangular solve over it)

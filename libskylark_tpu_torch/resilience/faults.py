@@ -9,16 +9,20 @@ packages.
 
 Sites planted in the port:
 
-=============  ==========================================================
-``serve.flush``  the microbatch flush, once per cohort execution attempt
-                 before anything is stacked or launched (``engine.serve``;
-                 bisection retries enter the site again)
-``qos.admit``    the QoS admission point, once per submit after the
-                 tenant is resolved (``engine.serve``): a fired fault
-                 refuses one admission without touching the queue
-=============  ==========================================================
+==================  =====================================================
+``serve.flush``     the microbatch flush, once per cohort execution
+                    attempt before anything is stacked or launched
+                    (``engine.serve``; bisection retries enter the site
+                    again)
+``qos.admit``       the QoS admission point, once per submit after the
+                    tenant is resolved (``engine.serve``): a fired fault
+                    refuses one admission without touching the queue
+``engine.compile``  a cold key's materialization (``engine.compiled``),
+                    before the warm-up and the capture: a fired fault
+                    aborts the single-flight and releases its waiters
+==================  =====================================================
 
-The reference's other sites (``engine.compile``, ``io.*``,
+The reference's other sites (``io.*``,
 ``checkpoint.save``, ``session.append``, ``dist.*``, ``fleet.route``,
 ``train.slice``, ``net.*``) come with the modules that hold them
 (ROADMAP A6, A7); a plan may name them already.

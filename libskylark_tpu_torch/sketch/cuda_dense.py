@@ -34,6 +34,10 @@ Rules of the wrappers:
   :func:`dense_apply_plain`, :func:`rft_apply_plain` or
   :func:`serve_batched_plain` (``dense.regime_matmul`` term for term);
 - a CUDA tensor launches the kernel or raises — no fallback;
+- ``key`` is the transform's key data by value, or (a single apply's
+  route inside a captured body, engine/compiled.py) the same two words
+  as an int32 tensor on A's device (:func:`device_key`), which the
+  kernel reads from device memory: the two give the same bits;
 - ``launches[...]`` counts wrapper calls that launched their kernels,
   ``by_regime[...]`` the same calls by regime, and ``generated["entries"]``
   the operator entries the generation kernel made (s_dim · n per lane and
@@ -198,6 +202,25 @@ def _launch_tc(A, out, rowwise: bool, precision: str, dist, B: int, m: int,
     launch.count(generated, "entries", B * s_dim * n)
 
 
+def device_key(key, device) -> torch.Tensor:
+    """The (2,) uint32 key words as an int32 tensor on ``device``: the
+    form in which a captured body gets its key as a graph input."""
+    return lane_keys(np.asarray(key_words(key), dtype=np.uint32),
+                     device)[0]
+
+
+def _key_args(key, device) -> dict:
+    """The launch's key arguments: the words by value, or ``keys``, a
+    (2,) int32 tensor already on ``device``."""
+    if not isinstance(key, torch.Tensor):
+        return {"key": key_words(key)}
+    if key.device != device or key.dtype != torch.int32 or key.numel() != 2:
+        raise errors.InvalidParametersError(
+            f"a key tensor must be 2 int32 words on {device}, got "
+            f"{key.numel()} {key.dtype} on {key.device}")
+    return {"keys": key.contiguous()}
+
+
 def _count(name: str, precision: str) -> None:
     from libskylark_tpu_torch.kernels import launch
 
@@ -214,8 +237,8 @@ def _apply(key, dist, A, s_dim: int, scale: float, precision, rowwise: bool):
                       dtype=torch.float32, device=A.device)
     if m == 0:
         return out
-    _launch_tc(A, out, rowwise, p, dist, 1, m, n, s_dim, key=key_words(key),
-               scale=scale)
+    _launch_tc(A, out, rowwise, p, dist, 1, m, n, s_dim,
+               **_key_args(key, A.device), scale=scale)
     _count("dense_rowwise" if rowwise else "dense_columnwise", p)
     return out
 
@@ -304,8 +327,9 @@ def rft_rowwise_apply(key, dist, A: torch.Tensor, s_dim: int, inscale: float,
     out = torch.empty((m, s_dim), dtype=torch.float32, device=A.device)
     if m == 0:
         return out
-    _launch_tc(A, out, True, p, dist, 1, m, n, s_dim, key=key_words(key),
-               scale=inscale, sc=sc, sh=sh, outscale=outscale)
+    _launch_tc(A, out, True, p, dist, 1, m, n, s_dim,
+               **_key_args(key, A.device), scale=inscale, sc=sc, sh=sh,
+               outscale=outscale)
     _count("dense_rowwise_cos", p)
     return out
 

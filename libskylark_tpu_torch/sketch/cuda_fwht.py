@@ -29,6 +29,7 @@ import torch
 from libskylark_tpu_torch.base import errors, randgen
 from libskylark_tpu_torch.base.context import fold_in, key_words
 from libskylark_tpu_torch.kernels import launch
+from libskylark_tpu_torch.sketch.cuda_dense import _key_args
 from libskylark_tpu_torch.sketch import fut
 
 launches = {"fwht_rowwise": 0, "fwht_columnwise": 0, "fwht_batched": 0}
@@ -122,10 +123,12 @@ def _check(A: torch.Tensor, s_dim: int, rowwise: bool, ndim: int) -> None:
             f"SRHT kernel runs on CUDA or CPU, got {A.device}")
 
 
-def _launch(kd: np.ndarray, A: torch.Tensor, s_dim: int, rowwise: bool,
+def _launch(kd, A: torch.Tensor, s_dim: int, rowwise: bool,
             counter: str) -> torch.Tensor:
     """One launch over the stacked lanes A (B, ., .) on the card, counted
-    under ``counter``; an empty operand launches and counts nothing."""
+    under ``counter``; ``kd`` the (B, 2) key words on the host, or
+    already on the card as int32 (``cuda_dense.device_key``); an empty
+    operand launches and counts nothing."""
     if not A.is_contiguous():
         raise errors.InvalidParametersError(
             "SRHT kernel needs a contiguous operand")
@@ -139,7 +142,8 @@ def _launch(kd: np.ndarray, A: torch.Tensor, s_dim: int, rowwise: bool,
         return out
     lib = _load()
     groups = lib.sk_fwht_groups(m, n, int(rowwise))
-    keys = lane_keys(kd, A.device)
+    keys = (kd.reshape(B, 2) if isinstance(kd, torch.Tensor)
+            else lane_keys(kd, A.device))
     D = torch.empty((B, n), dtype=torch.float32, device=A.device)
     idx = torch.empty((B, s_dim), dtype=torch.int32, device=A.device)
     part = (torch.empty((B, groups, m * s_dim), dtype=torch.float32,
@@ -153,11 +157,14 @@ def _launch(kd: np.ndarray, A: torch.Tensor, s_dim: int, rowwise: bool,
 def srht_apply(key, A: torch.Tensor, s_dim: int,
                rowwise: bool) -> torch.Tensor:
     """SRHT of A: (n, m) → (s_dim, m) columnwise, (m, n) → (m, s_dim)
-    rowwise: the batched kernel with one lane."""
+    rowwise: the batched kernel with one lane. ``key`` is the key data,
+    or its words as an int32 tensor on A's device
+    (``cuda_dense.device_key``)."""
     _check(A, s_dim, rowwise, 2)
     if A.device.type == "cpu":
         return srht_apply_plain(key, A, s_dim, rowwise)
-    kd = np.asarray(key_words(key), dtype=np.uint32).reshape(1, 2)
+    kd = (_key_args(key, A.device)["keys"] if isinstance(key, torch.Tensor)
+          else np.asarray(key_words(key), dtype=np.uint32).reshape(1, 2))
     return _launch(kd, A[None], s_dim, rowwise,
                    "fwht_rowwise" if rowwise else "fwht_columnwise")[0]
 

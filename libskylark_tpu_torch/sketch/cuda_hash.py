@@ -32,6 +32,7 @@ import torch
 from libskylark_tpu_torch.base import errors, randgen
 from libskylark_tpu_torch.base.context import fold_in, key_words
 from libskylark_tpu_torch.kernels import launch
+from libskylark_tpu_torch.sketch.cuda_dense import _key_args
 
 # a launch at a shard's offset (n0 > 0) counts under "hash_offset", both
 # ways, and not under "hash_rowwise"/"hash_columnwise"
@@ -109,11 +110,13 @@ def _check(A: torch.Tensor, s_dim: int, ndim: int) -> None:
             f"CountSketch kernel runs on CUDA or CPU, got {A.device}")
 
 
-def _launch(kd: np.ndarray, A: torch.Tensor, s_dim: int, rowwise: bool,
+def _launch(kd, A: torch.Tensor, s_dim: int, rowwise: bool,
             counter: str, n0: int = 0) -> torch.Tensor:
     """One launch over the stacked lanes A (B, ., .) on the card, counted
-    under ``counter``, the contracted coordinates [n0, n0 + n); an empty
-    operand launches and counts nothing."""
+    under ``counter``, the contracted coordinates [n0, n0 + n); ``kd``
+    the (B, 2) key words on the host, or already on the card as int32
+    (``cuda_dense.device_key``); an empty operand launches and counts
+    nothing."""
     if not A.is_contiguous():
         raise errors.InvalidParametersError(
             "CountSketch kernel needs a contiguous operand")
@@ -125,7 +128,8 @@ def _launch(kd: np.ndarray, A: torch.Tensor, s_dim: int, rowwise: bool,
                       dtype=torch.float32, device=A.device)
     if m == 0 or n == 0 or B == 0:
         return out.zero_()
-    keys = lane_keys(kd, A.device)
+    keys = (kd.reshape(B, 2) if isinstance(kd, torch.Tensor)
+            else lane_keys(kd, A.device))
     if rowwise:
         s0 = torch.empty(B * n * 2, dtype=torch.int32, device=A.device)
         s1 = None
@@ -146,14 +150,17 @@ def cwt_apply(key, A: torch.Tensor, s_dim: int, rowwise: bool,
               n0: int = 0) -> torch.Tensor:
     """CountSketch of A: (n, m) → (s_dim, m) columnwise, (m, n) → (m,
     s_dim) rowwise, its n contracted coordinates [n0, n0 + n) of the
-    streams: the batched kernel with one lane."""
+    streams: the batched kernel with one lane. ``key`` is the key data,
+    or its words as an int32 tensor on A's device
+    (``cuda_dense.device_key``)."""
     _check(A, s_dim, 2)
     if int(n0) < 0:
         raise errors.InvalidParametersError(
             f"n0 must be non-negative, got {n0}")
     if A.device.type == "cpu":
         return cwt_apply_plain(key, A, s_dim, rowwise, int(n0))
-    kd = np.asarray(key_words(key), dtype=np.uint32).reshape(1, 2)
+    kd = (_key_args(key, A.device)["keys"] if isinstance(key, torch.Tensor)
+          else np.asarray(key_words(key), dtype=np.uint32).reshape(1, 2))
     counter = ("hash_offset" if n0 else
                "hash_rowwise" if rowwise else "hash_columnwise")
     return _launch(kd, A[None], s_dim, rowwise, counter, int(n0))[0]

@@ -34,7 +34,8 @@ import torch
 from libskylark_tpu_torch.base import randgen
 from libskylark_tpu_torch.sketch import params as sketch_params
 from libskylark_tpu_torch.sketch.transform import (OperatorCache,
-                                                   SketchTransform, register)
+                                                   SketchTransform, register,
+                                                   seeded)
 
 # Width of a virtual-S column block; part of the stream format.
 BLOCK_COLS = 256
@@ -42,11 +43,13 @@ BLOCK_COLS = 256
 
 def virtual_panel(key, dist, s_dim: int, col_start: int, col_stop: int,
                   scale: float, dtype=torch.float32,
-                  device=None) -> torch.Tensor:
+                  device=None, keys=None) -> torch.Tensor:
     """Columns [col_start, col_stop) of the scaled virtual (s_dim × N)
-    operator — the one definition of the stream, BLOCK_COLS included."""
+    operator — the one definition of the stream, BLOCK_COLS included
+    (``keys``: its blocks' keys made beforehand, ``randgen.dense_panel``)."""
     return scale * randgen.dense_panel(
-        key, dist, s_dim, col_start, col_stop, BLOCK_COLS, dtype, device)
+        key, dist, s_dim, col_start, col_stop, BLOCK_COLS, dtype, device,
+        keys)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -118,7 +121,15 @@ class DenseTransform(OperatorCache, SketchTransform):
                 device=None) -> torch.Tensor:
         """Materialize S[:, col_start:col_stop]."""
         return virtual_panel(self._alloc.key, self.dist, self._S,
-                             col_start, col_stop, self.scale, dtype, device)
+                             col_start, col_stop, self.scale, dtype, device,
+                             self._panel_keys(col_start, col_stop, device))
+
+    @seeded
+    def _panel_keys(self, col_start: int, col_stop: int,
+                    device=None) -> torch.Tensor:
+        """The keys of the column blocks of S[:, col_start:col_stop]."""
+        return randgen.block_keys(self._alloc.key, col_start, col_stop,
+                                  BLOCK_COLS, device)
 
     def s_block(self, block_id: int, dtype=torch.float32,
                 device=None) -> torch.Tensor:
@@ -164,7 +175,7 @@ class DenseTransform(OperatorCache, SketchTransform):
             from libskylark_tpu_torch.sketch import cuda_dense
 
             return cuda_dense.columnwise_apply(
-                self._alloc.key, self.dist, A.contiguous(), self._S,
+                self.kernel_key(), self.dist, A.contiguous(), self._S,
                 self.scale)
         S = self._cached_op(A.dtype, A.device)
         if S is not None:
@@ -180,7 +191,7 @@ class DenseTransform(OperatorCache, SketchTransform):
             from libskylark_tpu_torch.sketch import cuda_dense
 
             return cuda_dense.rowwise_apply(
-                self._alloc.key, self.dist, A.contiguous(), self._S,
+                self.kernel_key(), self.dist, A.contiguous(), self._S,
                 self.scale)
         S = self._cached_op(A.dtype, A.device)
         if S is not None:

@@ -25,7 +25,8 @@ import torch
 from libskylark_tpu_torch.base import errors, randgen
 from libskylark_tpu_torch.sketch import cuda_fwht
 from libskylark_tpu_torch.sketch import fut as fut_mod
-from libskylark_tpu_torch.sketch.transform import SketchTransform, register
+from libskylark_tpu_torch.sketch.transform import (SketchTransform, register,
+                                                   seeded)
 
 
 def srht_serve_apply(key_data, A: torch.Tensor, *, s_dim: int,
@@ -67,6 +68,7 @@ class RFUT(SketchTransform):
         self._fut = fut_mod.make_fut(fut, N)
         super().__init__(N, N, context)
 
+    @seeded
     def diagonal(self, dtype=torch.float32, device=None) -> torch.Tensor:
         return randgen.stream_slice(self.subkey(0), randgen.Rademacher(), 0,
                                     self._N, dtype, device)
@@ -100,11 +102,13 @@ class FJLT(SketchTransform):
         self._panel_idx_cache = None
         super().__init__(N, S, context)
 
+    @seeded
     def diagonal(self, dtype=torch.float32, device=None) -> torch.Tensor:
         """The Rademacher mixing diagonal (sub-stream 0)."""
         return randgen.stream_slice(self.subkey(0), randgen.Rademacher(), 0,
                                     self._N, dtype, device)
 
+    @seeded
     def sample_indices(self, device=None) -> torch.Tensor:
         """The S_dim sampled coordinates (sub-stream 1), int64."""
         return randgen.stream_slice(
@@ -194,7 +198,7 @@ class FJLT(SketchTransform):
 
     def _apply(self, A: torch.Tensor, rowwise: bool) -> torch.Tensor:
         if self._kernel_serves(A):
-            return cuda_fwht.srht_apply(self._alloc.key, A.contiguous(),
+            return cuda_fwht.srht_apply(self.kernel_key(), A.contiguous(),
                                         self._S, rowwise)
         axis = 1 if rowwise else 0
         D = self.diagonal(A.dtype, A.device)

@@ -31,7 +31,8 @@ from libskylark_tpu_torch.base.context import fold_in
 from libskylark_tpu_torch.sketch import cuda_fastfood
 from libskylark_tpu_torch.sketch.fut import make_fut
 from libskylark_tpu_torch.sketch.rft import matern_scales
-from libskylark_tpu_torch.sketch.transform import SketchTransform, register
+from libskylark_tpu_torch.sketch.transform import (SketchTransform, register,
+                                                   seeded)
 
 
 def fut_apply_policy(fut_obj, fut_name: str, W: torch.Tensor) -> torch.Tensor:
@@ -175,23 +176,27 @@ class FastRFT(SketchTransform):
         (not exactly 1 when log₂NB is odd)."""
         return math.sqrt(self._NB) * self._fut.scale()
 
+    @seeded
     def shifts(self, dtype=torch.float32, device=None) -> torch.Tensor:
         return randgen.stream_slice(
             self.subkey(0), randgen.Uniform(0.0, 2.0 * math.pi), 0, self._S,
             dtype, device)
 
+    @seeded
     def _B(self, dtype, device=None) -> torch.Tensor:
         return randgen.stream_slice(
             self.subkey(1), randgen.Rademacher(), 0,
             self._numblks * self._NB, dtype, device,
         ).reshape(self._numblks, self._NB)
 
+    @seeded
     def _G(self, dtype, device=None) -> torch.Tensor:
         return randgen.stream_slice(
             self.subkey(2), randgen.Normal(), 0, self._numblks * self._NB,
             dtype, device,
         ).reshape(self._numblks, self._NB)
 
+    @seeded
     def _perms(self, device=None) -> torch.Tensor:
         """(numblks, NB) int64: block i's permutation."""
         key = self.subkey(3)
@@ -199,6 +204,7 @@ class FastRFT(SketchTransform):
                                                 device)
                             for i in range(self._numblks)])
 
+    @seeded
     def _Sm(self, dtype, device=None) -> torch.Tensor:
         """Per-feature scaling (numblks·NB,); base: ones."""
         return torch.ones((self._numblks * self._NB,), dtype=dtype,
@@ -247,6 +253,7 @@ class FastGaussianRFT(FastRFT):
         self._sigma = float(sigma)
         super().__init__(N, S, context, fut=fut)
 
+    @seeded
     def _Sm(self, dtype, device=None) -> torch.Tensor:
         v = 1.0 / (self._sigma * math.sqrt(self._NB))
         return torch.full((self._numblks * self._NB,), v, dtype=dtype,
@@ -278,6 +285,7 @@ class FastMaternRFT(FastRFT):
         self._l = float(l)
         super().__init__(N, S, context, fut=fut)
 
+    @seeded
     def _Sm(self, dtype, device=None) -> torch.Tensor:
         chi2 = randgen.stream_slice(
             self.subkey(4), randgen.Gamma(shape_param=self._nu, scale=2.0),

@@ -41,7 +41,8 @@ import torch
 
 from libskylark_tpu_torch.base import errors, randgen
 from libskylark_tpu_torch.sketch import cuda_hash, sparse_serve
-from libskylark_tpu_torch.sketch.transform import SketchTransform, register
+from libskylark_tpu_torch.sketch.transform import (SketchTransform, register,
+                                                   seeded)
 
 
 def cwt_serve_apply(key_data, A: torch.Tensor, *, s_dim: int,
@@ -67,6 +68,7 @@ class HashTransform(SketchTransform):
         transform."""
         raise NotImplementedError
 
+    @seeded
     def bucket_indices(self, device=None, lo: int = 0,
                        hi: int | None = None) -> torch.Tensor:
         """h[lo:hi] (default all N), the bucket of each input coordinate
@@ -83,7 +85,7 @@ class HashTransform(SketchTransform):
 
     def _apply(self, A: torch.Tensor, rowwise: bool) -> torch.Tensor:
         if self._kernel_serves(A):
-            return cuda_hash.cwt_apply(self._alloc.key, A.contiguous(),
+            return cuda_hash.cwt_apply(self.kernel_key(), A.contiguous(),
                                        self._S, rowwise)
         h = self.bucket_indices(A.device)
         v = self.values(A.dtype, A.device)
@@ -181,6 +183,7 @@ class CWT(HashTransform):
 
     sketch_type = "CWT"
 
+    @seeded
     def _value_stream(self, dtype, device, lo=0, hi=None):
         return randgen.stream_slice(self.subkey(1), randgen.Rademacher(), lo,
                                     self._N if hi is None else hi, dtype,
@@ -203,6 +206,7 @@ class MMT(HashTransform):
 
     sketch_type = "MMT"
 
+    @seeded
     def _value_stream(self, dtype, device, lo=0, hi=None):
         return randgen.stream_slice(self.subkey(1), randgen.Cauchy(), lo,
                                     self._N if hi is None else hi, dtype,
@@ -223,6 +227,7 @@ class WZT(HashTransform):
         self._p = float(p)
         super().__init__(N, S, context)
 
+    @seeded
     def _value_stream(self, dtype, device, lo=0, hi=None):
         hi = self._N if hi is None else hi
         e = randgen.stream_slice(self.subkey(1), randgen.Exponential(), lo,

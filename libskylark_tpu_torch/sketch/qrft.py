@@ -21,7 +21,8 @@ from scipy import special as sps
 from libskylark_tpu_torch.base.quasirand import (LeapedHaltonSequence,
                                                  QMCSequence)
 from libskylark_tpu_torch.sketch.transform import (OperatorCache,
-                                                   SketchTransform, register)
+                                                   SketchTransform, register,
+                                                   seeded)
 
 
 def _normal_quantile(p: np.ndarray) -> np.ndarray:
@@ -70,9 +71,11 @@ class QRFT(OperatorCache, SketchTransform):
         self._W_host = self.inscale * self._quantile(coords)
         self._shifts_host = 2.0 * math.pi * panel[:, self._N]
 
+    @seeded
     def w_matrix(self, dtype=torch.float32, device=None) -> torch.Tensor:
         return torch.from_numpy(self._W_host).to(device=device, dtype=dtype)
 
+    @seeded
     def shifts(self, dtype=torch.float32, device=None) -> torch.Tensor:
         return torch.from_numpy(self._shifts_host).to(device=device,
                                                       dtype=dtype)

@@ -46,7 +46,8 @@ from libskylark_tpu_torch.base import randgen
 from libskylark_tpu_torch.sketch import cuda_dense
 from libskylark_tpu_torch.sketch.dense import BLOCK_COLS
 from libskylark_tpu_torch.sketch.transform import (OperatorCache,
-                                                   SketchTransform, register)
+                                                   SketchTransform, register,
+                                                   seeded)
 
 
 def matern_scales(chi2: torch.Tensor, nu: float) -> torch.Tensor:
@@ -77,7 +78,15 @@ class RFT(OperatorCache, SketchTransform):
         """W[:, col_start:col_stop] of the lazy (S × N) frequency matrix."""
         return self.inscale * randgen.dense_panel(
             self.subkey(0), self.dist, self._S, col_start, col_stop,
-            BLOCK_COLS, dtype, device)
+            BLOCK_COLS, dtype, device,
+            self._panel_keys(col_start, col_stop, device))
+
+    @seeded
+    def _panel_keys(self, col_start: int, col_stop: int,
+                    device=None) -> torch.Tensor:
+        """The keys of the column blocks of W[:, col_start:col_stop]."""
+        return randgen.block_keys(self.subkey(0), col_start, col_stop,
+                                  BLOCK_COLS, device)
 
     def s_block(self, block_id: int, dtype=torch.float32,
                 device=None) -> torch.Tensor:
@@ -86,11 +95,13 @@ class RFT(OperatorCache, SketchTransform):
             self.subkey(0), self.dist, self._S, block_id, BLOCK_COLS, dtype,
             device)
 
+    @seeded
     def shifts(self, dtype=torch.float32, device=None) -> torch.Tensor:
         return randgen.stream_slice(
             self.subkey(1), randgen.Uniform(0.0, 2.0 * math.pi), 0, self._S,
             dtype, device)
 
+    @seeded
     def row_scales(self, dtype=torch.float32, device=None) -> torch.Tensor:
         """Per-feature scaling: 1."""
         return torch.ones((self._S,), dtype=dtype, device=device)
@@ -125,7 +136,7 @@ class RFT(OperatorCache, SketchTransform):
             fn = (cuda_dense.rowwise_apply if rowwise
                   else cuda_dense.columnwise_apply)
             heavy = isinstance(self.dist, randgen.Cauchy)
-            return fn(self.subkey(0), self.dist, A.contiguous(), self._S,
+            return fn(self.kernel_key(0), self.dist, A.contiguous(), self._S,
                       self.inscale, precision="f32" if heavy else None)
         W = self._cached_op(A.dtype, A.device)
         if W is None:
@@ -141,7 +152,7 @@ class RFT(OperatorCache, SketchTransform):
         self._note_eager_apply(A, seq_axis=1)
         if self._cos_kernel_serves(A):
             return cuda_dense.rft_rowwise_apply(
-                self.subkey(0), self.dist, A.contiguous(), self._S,
+                self.kernel_key(0), self.dist, A.contiguous(), self._S,
                 self.inscale, self.outscale,
                 self.row_scales(torch.float32, A.device),
                 self.shifts(torch.float32, A.device))
@@ -257,6 +268,7 @@ class MaternRFT(RFT):
     def inscale(self) -> float:
         return 1.0 / self._l
 
+    @seeded
     def row_scales(self, dtype=torch.float32, device=None) -> torch.Tensor:
         chi2 = randgen.stream_slice(
             self.subkey(2), randgen.Gamma(shape_param=self._nu, scale=2.0),

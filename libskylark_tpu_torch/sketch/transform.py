@@ -8,14 +8,26 @@ The port of libskylark_tpu/sketch/transform.py. Dimension convention:
 ``to_dict()`` writes the reference's fields, version and stream format,
 so a sketch serialized by either package loads in the other and names the
 same operator.
+
+Per-seed inputs: every method that makes a tensor (or the key data a
+kernel takes) from the transform's seed is marked :func:`seeded`. A
+compiled body on the card (engine/compiled.py) runs under a
+:class:`SeedBinding`: the first run makes each such value outside the
+graph and keeps it in a buffer on the card, the capture reads the
+buffers, and every later call refills them from its own transforms, so
+one graph serves every seed of one signature (:func:`signature`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import enum
+import functools
 import json
+import threading
 from typing import Any, Union
 
+import numpy as np
 import torch
 
 from libskylark_tpu_torch import __version__
@@ -34,6 +46,112 @@ COLUMNWISE = Dimension.COLUMNWISE
 ROWWISE = Dimension.ROWWISE
 
 _REGISTRY: dict[str, type["SketchTransform"]] = {}
+
+_bound = threading.local()
+
+
+def seeded(method):
+    """Mark a transform method whose result is a pure function of the
+    transform's seed and the method's arguments: a tensor, or key data
+    (a (2,) uint32 array) that a kernel takes. Outside a compiled body
+    the method runs as written; inside one the active
+    :class:`SeedBinding` serves it."""
+
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        binding = getattr(_bound, "binding", None)
+        if binding is None:
+            return method(self, *args, **kwargs)
+        return binding.take(self, method, args, kwargs)
+
+    return wrapped
+
+
+def signature(T: "SketchTransform") -> str:
+    """The transform without its seed: class, dimensions and
+    hyper-parameters (its ``to_dict()`` but for the creation context and
+    the package version). Two transforms of one signature take the same
+    routes and the same per-seed shapes."""
+    d = {k: v for k, v in T.to_dict().items()
+         if k not in ("creation_context", "skylark_version")}
+    return json.dumps(d, sort_keys=True)
+
+
+class SeedBinding:
+    """The per-seed inputs of one compiled body on ``device``. Slot i is
+    the body's i-th :func:`seeded` call: (the argument index of its
+    transform, the method, its arguments) and a buffer on the card.
+
+    - ``with binding.active():`` the first run records: each call runs
+      its method (the binding off, so the method's own seeded calls are
+      plain) and keeps the value in a new buffer, which it returns;
+    - ``with binding.active(replay=True):`` (the capture) returns the
+      buffers in the same order, checking each call against its slot;
+    - :meth:`refill` makes every slot's value again from another call's
+      transforms, outside any capture, and copies it into the buffer.
+
+    A seeded call on a transform that is not one of the body's arguments
+    raises: its values would be baked into the graph."""
+
+    def __init__(self, args, device):
+        self.device = torch.device(device)
+        self._index = {id(a): i for i, a in enumerate(args)
+                       if isinstance(a, SketchTransform)}
+        self.slots: list = []
+        self._cursor = None
+
+    @contextlib.contextmanager
+    def active(self, replay: bool = False):
+        prev = getattr(_bound, "binding", None)
+        _bound.binding = self
+        self._cursor = 0 if replay else None
+        try:
+            yield self
+        finally:
+            _bound.binding = prev
+
+    def _make(self, T, method, args, kwargs):
+        prev = getattr(_bound, "binding", None)
+        _bound.binding = None
+        try:
+            value = method(T, *args, **kwargs)
+        finally:
+            _bound.binding = prev
+        if isinstance(value, torch.Tensor):
+            return value.to(self.device)
+        words = np.ascontiguousarray(np.asarray(value, dtype=np.uint32))
+        return torch.from_numpy(words.view(np.int32)).to(self.device,
+                                                         non_blocking=True)
+
+    def take(self, T, method, args, kwargs):
+        idx = self._index.get(id(T))
+        if idx is None:
+            raise errors.UnsupportedError(
+                f"a compiled body made {method.__qualname__} of a "
+                f"{T.sketch_type} that is not one of its arguments: pass "
+                "the transform positionally")
+        if self._cursor is None:
+            buf = self._make(T, method, args, kwargs).clone()
+            self.slots.append((idx, method, args, kwargs, buf))
+            return buf
+        i, m, a, k, buf = self.slots[self._cursor]
+        if (i, m, a, k) != (idx, method, args, kwargs):
+            raise errors.UnsupportedError(
+                f"a compiled body's seeded call {self._cursor} differs "
+                f"between its runs ({method.__qualname__})")
+        self._cursor += 1
+        return buf
+
+    def refill(self, args) -> None:
+        """Every slot made again from ``args`` (this call's arguments,
+        the transforms at the recorded indices) into its buffer."""
+        for idx, method, a, k, buf in self.slots:
+            buf.copy_(self._make(args[idx], method, a, k), non_blocking=True)
+
+
+def binding_active() -> bool:
+    """Whether a compiled body runs in this thread under a binding."""
+    return getattr(_bound, "binding", None) is not None
 
 
 def register(cls: type["SketchTransform"]) -> type["SketchTransform"]:
@@ -74,7 +192,11 @@ class OperatorCache:
                           seq_axis: int | None = None) -> None:
         """Auto-materialize dispatch (sketch/params.py): the Nth apply of
         this instance pins its operator when it fits the budget — unless
-        pinning would change the numerics of later applies."""
+        pinning would change the numerics of later applies. A compiled
+        body's applies are not counted: a pin would change what its
+        graph computes."""
+        if binding_active():
+            return
         c = self._op_cache
         if (c is not None and c.device == A.device
                 and A.dtype.itemsize <= c.dtype.itemsize):
@@ -151,6 +273,17 @@ class SketchTransform:
     def subkey(self, tag: int):
         """Key data of sub-stream ``tag``: fold_in(allocation key, tag)."""
         return fold_in(self._alloc.key, tag)
+
+    @seeded
+    def kernel_key(self, *path):
+        """The key data a kernel takes: the allocation key folded with
+        each tag of ``path`` (``kernel_key(0)`` is ``subkey(0)``). Inside
+        a compiled body on the card, the same words as an int32 tensor
+        there (:class:`SeedBinding`)."""
+        k = self._alloc.key
+        for tag in path:
+            k = fold_in(k, tag)
+        return k
 
     def apply(self, A, dimension: Dimension = COLUMNWISE,
               device=None) -> torch.Tensor:

@@ -44,15 +44,8 @@ EXEMPT = {
     "telemetry:get_exporter": "A7", "telemetry:install_exporter": "A7",
     "telemetry:prometheus_text": "A7", "telemetry:shutdown_exporter": "A7",
     # C12: names of reference modules the port has not reached yet.
-    # engine/compile.py, cache.py and tune/ (A6)
-    "engine:aot": "C12", "engine:warmup": "C12", "engine:cache": "C12",
-    "engine:CacheEntry": "C12", "engine:EngineStats": "C12",
-    "engine:ExecutableCache": "C12", "engine:compiled": "C12",
-    "engine:CompiledFn": "C12", "engine:code_version": "C12",
-    "engine:digest": "C12", "engine:donation_enabled": "C12",
-    "engine:dump_stats": "C12", "engine:enable_persistent_cache": "C12",
-    "engine:maybe_donate": "C12", "engine:plan_fingerprint": "C12",
-    "engine:reset": "C12", "engine:stats": "C12",
+    # engine/aot.py and warmup.py (A6, the next slice)
+    "engine:aot": "C12", "engine:warmup": "C12",
     # the kernel-dispatch knobs that read tune/'s plan cache or choose a
     # route off the kernel, which the port's CUDA path does not have
     # (A6)

@@ -57,7 +57,7 @@ def test_port_and_chip_smoke_import_no_jax():
                 "resilience", "resilience.policy", "resilience.faults",
                 "resilience.health", "resilience.preemption", "qos",
                 "qos.tenants", "qos.scheduler", "qos.controller",
-                "engine.resultcache"):
+                "engine.resultcache", "engine.cache", "engine.compiled"):
         assert f"libskylark_tpu_torch.{mod}" in report["modules"]
 
 
