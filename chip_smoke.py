@@ -144,8 +144,10 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             interactive requests are served ``torch.equal`` to their
             capacity-1 flush with the cache bypassed, and the executor
             recovers; an interactive and a best_effort tenant queued on
-            one worker on the serve-dense-rw bucket, interactive's mean
-            queue wait no larger, and a tenant of burst 4 refused exactly
+            one worker on the serve-dense-rw bucket, every request of both
+            queued while a held flush runs, then every interactive cohort
+            started before any best_effort one (their mean queue waits
+            reported), and a tenant of burst 4 refused exactly
             8 of 12; the adaptive controller ticks, keeps its targets in
             bounds and changes no result; one flush profiled, its
             ``serve.flush`` range enclosing the B1-batched launch; storm
@@ -274,11 +276,15 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             (about 40 s): approximate_svd (rank 64, q = 2) of config 4's
             8192² rank-512 operand and approximate_symmetric_svd (rank
             64) of its symmetric part, solve_l2_sketched with the JLT, the
-            CWT and FJLT(fut="wht") on the LS cell's 65536×512 operand (s
-            = 2048), the Blendenpik and LSRN preconditioner builds on it,
-            approximate_kernel_ridge at config 5 (60,000 × 784, σ = 112, s
-            = 8192, 10 classes), kernel_ridge and krr_predict on
-            ml-rlsc-faster's 16,384 rows (10,000 held-out queries); for
+            CWT, FJLT(fut="wht") and the UST on the LS cell's 65536×512
+            operand (s = 2048), and with a JLT whose operator is pinned
+            (materialize(), float64, no kernel's route) on its first
+            16,384 rows, the Blendenpik and LSRN preconditioner builds on
+            it, approximate_kernel_ridge at config 5 (60,000 × 784, σ =
+            112, s = 8192, 10 classes) and with the polynomial kernel
+            (PPT, s = 2048: its CountSketches are sub-transforms) on
+            ml-rlsc-faster's 16,384 rows, kernel_ridge and krr_predict on
+            those rows (10,000 held-out queries); for
             each, the CompiledFn against its eager body (the ``_pipeline``
             function or the closure, called directly): the first call
             (warm-up plus capture), a replay and a replay under a second
@@ -291,8 +297,13 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             (B1-rw, B1-cw, B1-cos, B2-cw and B5-cw each inside a replay),
             and a hit under ``torch.cuda.set_sync_debug_mode("error")``;
             each entry's cold, replay and eager warm ms, device ms and
-            busy, and its graph's pool bytes, the phase's seconds and
-            peak memory on its line;
+            busy, its replay's warm ms when every call brings a new
+            operand (copied in), and its graph's pool bytes; then the
+            cache's memory bound: 8 sketch-and-solve widths captured with
+            no reset under a 1 GiB budget, what the graphs hold within it
+            after every call, the least recent evicted, and the memory
+            allocated grown by no more than the budget; the phase's
+            seconds and peak memory on its line;
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
@@ -3224,9 +3235,10 @@ def add_launches(total: dict, delta: dict) -> None:
         total[k] = total.get(k, 0) + v
 
 
-def qos_storm(ex, call, n: int, threads: int):
+def qos_storm(ex, call, n: int, threads: int, submitted=None):
     """``n`` calls of ``call(ex, i)`` from ``threads`` threads; (futures in
-    call order, seconds until every future resolved)."""
+    call order, seconds until every future resolved). ``submitted(futs)``,
+    when given, runs once every call has returned, before any wait."""
     import threading
 
     futs = [None] * n
@@ -3241,6 +3253,8 @@ def qos_storm(ex, call, n: int, threads: int):
         t.start()
     for t in ts:
         t.join()
+    if submitted is not None:
+        submitted(futs)
     for f in futs:
         f.exception(timeout=600)
     return futs, time.perf_counter() - t0
@@ -3575,30 +3589,53 @@ def serve_qos_phase(torch, P, np, size=QOS_FULL, device="cuda") -> dict:
         def tenant_call(ex, i):
             return rw_call(ex, i // 2, tenant="ui" if i % 2 else "bulk")
 
-        # a long flush (8 solve lanes shipping 8 × A) holds the one worker
-        # while both tenants queue; ``hold_s`` first stalls it at its fault
-        # site, so that every request of both tenants is queued before the
-        # worker frees: without the stall the storm's submissions took as
-        # long as the flush on the card, and the classes' mean waits then
-        # followed which thread submitted when, not the scheduler's order
+        # a long flush (8 solve lanes shipping 8 × A), first stalled
+        # ``hold_s`` at its fault site, holds the one worker while both
+        # tenants queue. The check's premise is asserted, not assumed:
+        # every request of both tenants is queued while the hold still
+        # runs. Then the scheduler must start every interactive cohort
+        # before any best_effort one (deficit round robin at weights 8:1,
+        # a quantum of max_batch: one round's credit covers interactive's
+        # whole queue), the order in which it charges cohorts, which no
+        # submission timing moves. Each tenant submits from its own
+        # thread, so the classes' mean waits also follow which thread ran
+        # ahead; they are reported, not compared.
         hold = {"faults": [{"site": "serve.flush", "tag": "hold",
                             "stall_s": size["hold_s"]}]}
+        started, charge = [], qx._sched.charge
+
+        def charged(cls, n):
+            started.append(cls)
+            charge(cls, n)
+
+        def all_queued(futs):
+            st = qx.stats()
+            check(st["queued"] == 2 * per
+                  and not any(f.done() for f in block + futs),
+                  f"QoS: {st['queued']} of {2 * per} requests queued when "
+                  f"the storm's submissions ended, the hold "
+                  f"{'over' if any(f.done() for f in block) else 'running'}")
+
         before = launch_counts()
         with faults.fault_plan(hold):
             with faults.tag("hold"):
                 block = [qx.submit_solve(A, bs[i % len(bs)], T)
                          for i in range(qx.max_batch)]
-            futs, t_qos = qos_storm(qx, tenant_call, 2 * per, 2)
+            qx._sched.charge = charged
+            try:
+                futs, t_qos = qos_storm(qx, tenant_call, 2 * per, 2,
+                                        all_queued)
+            finally:
+                qx._sched.charge = charge
             for f in block:
                 f.result(timeout=600)
         add_launches(launches, qos_launches(before))
         check(all(qos_outcome(f) == "ok" for f in futs),
               "a QoS storm request failed")
+        check(sorted(set(started)) == ["best_effort", "interactive"]
+              and "interactive" not in started[started.index("best_effort"):],
+              f"QoS: cohorts started in class order {started}")
         qb = qx.stats()["qos"]["by_class"]
-        wait_i = qb["interactive"]["queue_wait_s"]["mean"]
-        wait_b = qb["best_effort"]["queue_wait_s"]["mean"]
-        check(wait_i <= wait_b, f"interactive waited {wait_i} s on average, "
-                                f"best_effort {wait_b} s")
         reg.register("capped", qos.STANDARD, rate=1e-6,
                      burst=size["burst"])
         refused, admitted = 0, []
@@ -3624,6 +3661,7 @@ def serve_qos_phase(torch, P, np, size=QOS_FULL, device="cuda") -> dict:
                 "latency_p99_ms": 1e3 * (qb[c]["latency_s"]["p99"] or 0.0)}
                 for c in ("interactive", "best_effort")},
             "rate_limited": refused, "burst": size["burst"],
+            "started": started,
             "scheduler": qx.stats()["qos"]["scheduler"]}
         mark("qos")
 
@@ -5955,14 +5993,17 @@ COMPILED_FULL = {"svd_n": 8192, "svd_r": 512, "rank": 64, "q": 2,
                  "ls_rows": 65536, "ls_cols": 512, "ls_s": 2048,
                  "n": 60000, "test": 10000, "d": 784, "classes": 10,
                  "latent": 16, "center": 1.0, "noise": 1.0, "s": 8192,
-                 "exact_rows": 16384, "reps": 5}
+                 "exact_rows": 16384, "poly_s": 2048, "pinned_rows": 16384,
+                 "reps": 5, "budget_shapes": 8, "budget_gib": 1.0}
 # each compiled entry's kernel, which must launch from inside its replay
 COMPILED_KERNELS = {"svd": "dense_rowwise", "symmetric_svd": "dense_rowwise",
                     "solve_jlt": "dense_columnwise",
                     "solve_cwt": "hash_columnwise",
                     "solve_fjlt_wht": "fwht_columnwise",
                     "precond_lsrn": "dense_columnwise",
-                    "approximate_krr": "dense_rowwise_cos"}
+                    "approximate_krr": "dense_rowwise_cos",
+                    # PPT's CountSketches, sub-transforms of the argument
+                    "approximate_krr_poly": "hash_columnwise"}
 
 
 def compiled_cases(torch, P, size, device) -> dict:
@@ -6013,13 +6054,21 @@ def compiled_cases(torch, P, size, device) -> dict:
                                key_fn=lambda *a, **kw: ())
     solve = reg._sketch_and_solve_compiled
 
-    def solve_case(family, **kw):
+    def solve_case(family, A=Als, b=bls, **kw):
         return (solve,
-                lambda ctx, v: ((Als, bls[:, None], family(m, s, ctx, **kw)),
+                lambda ctx, v: ((A, b[:, None], family(A.shape[0], s, ctx,
+                                                       **kw)),
                                 {"method": "qr"}),
                 reg._sketch_and_solve,
                 lambda ctx: algorithms.solve_l2_sketched(
-                    Als, bls, family(m, s, ctx, **kw), device=device))
+                    A, b, family(A.shape[0], s, ctx, **kw), device=device))
+
+    def pinned(N, S, ctx):
+        # a pinned operator (materialize()) on a route no kernel takes
+        return sk.JLT(N, S, ctx).materialize(torch.float64, device)
+
+    mp = size["pinned_rows"]
+    poly = ml.Polynomial(size["d"], q=3, c=1.0, gamma=1.0 / size["d"])
 
     return {
         "svd": (nsvd._svd_compiled,
@@ -6036,6 +6085,9 @@ def compiled_cases(torch, P, size, device) -> dict:
         "solve_jlt": solve_case(sk.JLT),
         "solve_cwt": solve_case(sk.CWT),
         "solve_fjlt_wht": solve_case(sk.FJLT, fut="wht"),
+        "solve_ust": solve_case(sk.UST),
+        "solve_pinned": solve_case(pinned, Als[:mp].double(),
+                                   bls[:mp].double()),
         "precond_blendenpik": (
             reg._precond_compiled,
             lambda ctx, v: ((Als, reg._accel_transform(m, c, ctx, accel)),
@@ -6059,6 +6111,14 @@ def compiled_cases(torch, P, size, device) -> dict:
             krr._features_ridge,
             lambda ctx: ml.approximate_kernel_ridge(
                 kern, X, Y, ML_LAM, size["s"], ctx, device=device)),
+        "approximate_krr_poly": (
+            features,
+            lambda ctx, v: ((Xe, Ye, lam_of(0),
+                             poly.create_rft(size["poly_s"], ctx, "regular")),
+                            {}),
+            krr._features_ridge,
+            lambda ctx: ml.approximate_kernel_ridge(
+                poly, Xe, Ye, ML_LAM, size["poly_s"], ctx, device=device)),
         "kernel_ridge": (
             exact, lambda ctx, v: ((Xe, Ye, lam_of(v)), {}),
             krr._exact_program(kern),
@@ -6079,6 +6139,8 @@ def compiled_entry(torch, P, name, case, cuda: bool, reps: int) -> dict:
     """The checks and figures of one compiled entry (module docstring,
     phase 4h); the engine is reset first, so its counters are this
     entry's."""
+    import itertools
+
     from libskylark_tpu_torch import engine
 
     cf, make, body, entry = case
@@ -6153,15 +6215,24 @@ def compiled_entry(torch, P, name, case, cuda: bool, reps: int) -> dict:
     if cuda:
         row.update(compiled_times(torch, lambda: cf(*args2, **st2),
                                   lambda: body(*args2, **st2), reps))
+        # a new operand every call: each hit copies its tensors in
+        other = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                      for a in args2)
+        calls = itertools.cycle((other, args2))
+        row["replay_copy_warm_ms"] = compiled_times(
+            torch, lambda: cf(*next(calls), **st2), None,
+            reps)["replay_warm_ms"]
     return row
 
 
 def compiled_times(torch, replay, eager, reps: int) -> dict:
     """Warm host ms (median of ``reps`` synchronized calls after one),
     device ms (torch.profiler, mean of 3) and busy of the replay and of
-    the eager body."""
+    the eager body (None: not timed)."""
     out = {}
     for label, fn in (("replay", replay), ("eager", eager)):
+        if fn is None:
+            continue
         fn()
         times = []
         for _ in range(reps):
@@ -6195,6 +6266,53 @@ def compiled_cells(torch, P, size=COMPILED_FULL, device="cuda") -> tuple:
     return entries, launches
 
 
+def compiled_budget(torch, P, size) -> dict:
+    """The executable cache's device-memory bound: sketch-and-solve at
+    ``budget_shapes`` distinct widths of the LS operand, one capture each,
+    with no reset between them under a budget of ``budget_gib``; what
+    the cached graphs hold stays within it, the least recent entries are
+    evicted, and the memory allocated after the last call is within the
+    budget of what it was before the first (plus that call's result)."""
+    from libskylark_tpu_torch import algorithms, engine, sketch as sk
+
+    m, c, s = size["ls_rows"], size["ls_cols"], size["ls_s"]
+    budget = int(size["budget_gib"] * 2**30)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    A = torch.randn(m, c, generator=g, device="cuda")
+    b = torch.randn(m, generator=g, device="cuda")
+    saved, engine.cache().max_bytes = engine.cache().max_bytes, budget
+    engine.reset()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    held, x = [], None
+    try:
+        for i in range(size["budget_shapes"]):
+            w = c - 8 * i
+            x = algorithms.solve_l2_sketched(A[:, :w], b,
+                                             sk.JLT(m, s, P.Context(i)),
+                                             device="cuda")
+            held.append(engine.cache().nbytes())
+            check(held[-1] <= budget or len(engine.cache()) == 1,
+                  f"compiled budget: the cache holds {held[-1]} bytes past "
+                  f"its budget of {budget}")
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - base
+    finally:
+        engine.cache().max_bytes = saved
+    st = engine.stats()
+    misses, evictions = st.misses, st.evictions
+    check(misses == size["budget_shapes"] and evictions > 0,
+          f"compiled budget: {misses} misses, {evictions} evictions")
+    check(grown <= budget + x.numel() * x.element_size(),
+          f"compiled budget: {grown} bytes more allocated after "
+          f"{size['budget_shapes']} captures, budget {budget}")
+    kept = len(engine.cache())
+    engine.reset()
+    return {"budget_bytes": budget, "held_bytes": held,
+            "evictions": evictions, "grown_bytes": grown,
+            "entries": kept}
+
+
 def compiled_phase(torch, P, np, size=COMPILED_FULL, device="cuda") -> dict:
     """Phase 4h: the executable cache at full width: each compiled entry
     point's replay against its eager body (module docstring)."""
@@ -6206,8 +6324,10 @@ def compiled_phase(torch, P, np, size=COMPILED_FULL, device="cuda") -> dict:
     for key in COMPILED_KERNELS.values():
         check(not cuda or launches[key] > 0,
               f"compiled phase: no {key} launch")
-    out = {"size": dict(size), "entries": entries, "launches": launches,
-           "seconds": time.perf_counter() - t_phase}
+    out = {"size": dict(size), "entries": entries, "launches": launches}
+    if cuda:
+        out["budget"] = compiled_budget(torch, P, size)
+    out["seconds"] = time.perf_counter() - t_phase
     if cuda:
         out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
         out["card"] = smi("name,power.limit")

@@ -11,12 +11,20 @@ key algebra, derived here with the Threefry cipher alone (no JAX):
 
 So one (seed, counter, path) names the same operator in both packages,
 and the JSON form is the reference's.
+
+While a thread runs a compiled body (engine/compiled.py) its allocations'
+keys are sealed (:func:`keys_sealed`): a value made from a key there
+would be baked into the captured graph, so reading one raises, and only
+the transforms' ``@seeded`` methods, which the body's binding makes
+outside the graph, unseal it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import threading
 from typing import Any
 
 import numpy as np
@@ -55,6 +63,21 @@ def fold_in(key, data: int) -> np.ndarray:
     return np.array(threefry2x32(k0, k1, 0, d), np.uint32)
 
 
+_sealed = threading.local()
+
+
+@contextlib.contextmanager
+def keys_sealed(on: bool = True):
+    """Seal (or, ``on=False``, unseal) this thread's allocation keys for
+    the block: a sealed :attr:`Allocation.key` raises."""
+    prev = getattr(_sealed, "on", False)
+    _sealed.on = on
+    try:
+        yield
+    finally:
+        _sealed.on = prev
+
+
 @dataclasses.dataclass(frozen=True)
 class Allocation:
     """A reserved slot of the context's random space, reconstructible
@@ -68,6 +91,11 @@ class Allocation:
     @property
     def key(self) -> np.ndarray:
         """The (2,) uint32 key data of this allocation."""
+        if getattr(_sealed, "on", False):
+            raise errors.UnsupportedError(
+                "a compiled body read a sketch key outside a @seeded "
+                "method: what it makes from it would be baked into the "
+                "captured graph (sketch/transform.py, SeedBinding)")
         k = fold_in(seed_key(self.seed), self.counter)
         for p in self.path:
             k = fold_in(k, p)

@@ -110,8 +110,11 @@ class ExecutableCache:
     cold key produce ONE miss + one compile + N−1 hits, never N
     materializations of the same executable."""
 
-    def __init__(self, maxsize: int = 128):
+    def __init__(self, maxsize: int = 128, max_bytes: Optional[int] = None):
         self.maxsize = int(maxsize)
+        # device bytes the executables may hold together (trim()); None:
+        # the engine's default for the device
+        self.max_bytes = max_bytes
         self._entries: "OrderedDict[Hashable, CacheEntry]" = OrderedDict()
         self._seen: set = set()
         self._lock = _locks.make_lock("engine.cache")
@@ -174,6 +177,29 @@ class ExecutableCache:
             ev = self._inflight.pop(key, None)
         if ev is not None:
             ev.set()
+
+    def nbytes(self) -> int:
+        """Device bytes the entries' executables hold together (a
+        captured graph's ``nbytes``; a CPU body holds none)."""
+        with self._lock:
+            return sum(getattr(e.executable, "nbytes", 0)
+                       for e in self._entries.values())
+
+    def trim(self, max_bytes: int) -> int:
+        """Evict least recently used entries while their executables
+        hold more than ``max_bytes``, never the most recent one; returns
+        how many went. An evicted graph's memory is freed once no call
+        still replays it."""
+        evicted = 0
+        with self._lock:
+            total = sum(getattr(e.executable, "nbytes", 0)
+                        for e in self._entries.values())
+            while total > max_bytes and len(self._entries) > 1:
+                _, entry = self._entries.popitem(last=False)
+                total -= getattr(entry.executable, "nbytes", 0)
+                self.stats.evictions += 1
+                evicted += 1
+        return evicted
 
     def abort(self, key: Hashable) -> None:
         """Release an :meth:`acquire`-owned compile that failed; blocked
@@ -243,6 +269,7 @@ class ExecutableCache:
                 {"name": e.name, "calls": e.calls,
                  "compile_seconds": round(e.compile_seconds, 4),
                  "loaded": e.loaded,
-                 "pool_bytes": getattr(e.executable, "pool_bytes", 0)}
+                 "pool_bytes": getattr(e.executable, "pool_bytes", 0),
+                 "nbytes": getattr(e.executable, "nbytes", 0)}
                 for e in self._entries.values()
             ]

@@ -11,13 +11,18 @@ What an executable is depends on where the call's tensors lie:
   results, then captures the body (``capture_error_mode="thread_local"``:
   other threads may launch meanwhile) and records the kernel wrappers'
   launch counts of one replay. A hit, under the entry's lock and on its
-  stream: copy the arguments in, refill the per-seed inputs, replay, add
-  the recorded launch counts, and return clones of the outputs (the next
-  replay overwrites its output buffers). There is no eager route on the
-  card: a body that cannot be captured raises, and its single-flight is
-  released.
-- **On the CPU, the body itself**, keyed and counted the same way: the
-  kernels' plain versions, which is what the tests run.
+  stream: copy in each argument that is not the tensor copied in last
+  time, unchanged since (the same object at the same version), refill
+  the per-seed inputs, replay, add the recorded launch counts, and
+  return clones of the outputs (the next replay overwrites its output
+  buffers). There is no eager route on the card: a body that cannot be
+  captured raises, and its single-flight is released. The graphs' device
+  memory is bounded (:func:`byte_budget`: ``cache().max_bytes``, default
+  half the card): past it the least recently used are evicted.
+- **On the CPU, the body itself**, keyed and counted the same way and run
+  under a binding of its own as a capture is, so a per-seed value made
+  outside a seeded method raises here too: the kernels' plain versions,
+  which is what the tests run.
 
 Positional arguments are tensors (one device for all), numbers (made
 0-dim tensors on that device: a new λ is a new input, not a new graph)
@@ -57,6 +62,7 @@ import json
 import os
 import time
 import warnings
+import weakref
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -118,6 +124,14 @@ def reset() -> None:
     """Drop every executable (and with it each graph's static buffers and
     memory pool) and zero the counters (tests, benches, chip phases)."""
     _CACHE.reset()
+
+
+def byte_budget(device) -> int:
+    """Device bytes the cached graphs may hold together: the cache's
+    ``max_bytes`` when set, else half of ``device``'s memory."""
+    if _CACHE.max_bytes is not None:
+        return int(_CACHE.max_bytes)
+    return torch.cuda.get_device_properties(device).total_memory // 2
 
 
 def donation_enabled() -> bool:
@@ -307,7 +321,9 @@ class _Body:
         self._kwargs = kwargs
 
     def __call__(self, args, donate):
-        out = self._fn(*args, **self._kwargs)
+        device = next(a for a in args if isinstance(a, torch.Tensor)).device
+        with SeedBinding(args, device).active():
+            out = self._fn(*args, **self._kwargs)
         _consume(args, donate)
         return out
 
@@ -331,6 +347,7 @@ class _Graph:
             self.binding = SeedBinding(args, device)
             with self.binding.active():
                 first = fn(*self.static, **kwargs)
+        self._sources = [self._source(a) for a in args]
         leaves, spec = _flatten(first)
         # a warm-up output that shares a static buffer's storage would be
         # overwritten by the next copy-in
@@ -363,6 +380,27 @@ class _Graph:
         self.counts = counts
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.out, self.spec = _flatten(out)
+        held = [t for t in self.static if isinstance(t, torch.Tensor)]
+        held += [slot[-1] for slot in self.binding.slots
+                 if slot[-1] is not None]
+        self.nbytes = self.pool_bytes + sum(
+            t.untyped_storage().nbytes() for t in held)
+
+    @staticmethod
+    def _source(a):
+        """What identifies a tensor argument copied into a static buffer:
+        the object (weakly) and its version counter; None for an
+        inference tensor, which keeps no version (always copied in)."""
+        if not isinstance(a, torch.Tensor) or a.is_inference():
+            return None
+        return weakref.ref(a), a._version
+
+    def _holds(self, i: int, a) -> bool:
+        """Whether static buffer ``i`` already holds ``a``: the tensor
+        copied in last time, not written since (an in-place write, or one
+        through a view, moves its version)."""
+        src = self._sources[i]
+        return src is not None and src[0]() is a and a._version == src[1]
 
     def __call__(self, args, donate):
         cur = torch.cuda.current_stream(self.device)
@@ -370,9 +408,10 @@ class _Graph:
             self.stream.wait_stream(cur)
             with torch.cuda.device(self.device), \
                     torch.cuda.stream(self.stream):
-                for buf, a in zip(self.static, args):
-                    if isinstance(buf, torch.Tensor):
+                for i, (buf, a) in enumerate(zip(self.static, args)):
+                    if isinstance(buf, torch.Tensor) and not self._holds(i, a):
                         buf.copy_(a)
+                        self._sources[i] = self._source(a)
                 self.binding.refill(args)
                 self.graph.replay()
                 outs = [t.clone() for t in self.out]
@@ -463,6 +502,8 @@ class CompiledFn:
         entry = CacheEntry(executable=executable, name=self.name,
                            compile_seconds=dt)
         _CACHE.insert(key, entry)
+        if device.type == "cuda":
+            _CACHE.trim(byte_budget(device))
         return entry, first
 
     def __call__(self, *args, **kwargs):

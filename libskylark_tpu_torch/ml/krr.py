@@ -136,14 +136,17 @@ def _data(X, Y, device):
     return X, (Y[:, None] if Y.ndim == 1 else Y)
 
 
-def _run_compiled(fn, name: str, extras: tuple, X, Y, lam, *transforms,
-                  **statics):
-    """``fn(X, Y, lam, *transforms, **statics)`` from the executable
-    cache, keyed on ``extras`` (digests of what ``fn`` closes over, never
-    a transform: those pass positionally, keyed by their seed-free
-    signatures). λ becomes a 0-dim tensor of X's dtype, as in the
-    reference: an input, not a key. The operands are donated only when
+def _run_program(fn, name: str, extras: tuple, X, Y, lam, *transforms,
+                 **statics):
+    """``fn(X, Y, lam, *transforms, **statics)``: for a DTensor X called
+    directly, its result replicated on X's mesh; otherwise from the
+    executable cache, keyed on ``extras`` (digests of what ``fn`` closes
+    over, never a transform: those pass positionally, keyed by their
+    seed-free signatures), λ a 0-dim tensor of X's dtype as in the
+    reference (an input, not a key), and the operands donated only when
     the user opted in (donate="auto")."""
+    if pmesh._is_sharded(X):
+        return pmesh._like(X, fn(X, Y, lam, *transforms, **statics))
     lam = torch.as_tensor(lam, dtype=X.dtype).to(X.device, non_blocking=True)
     cf = engine.compiled(fn, name=name, donate_argnums=(0, 1),
                          donate="auto", static_argnames=tuple(statics),
@@ -175,7 +178,7 @@ def kernel_ridge(k: Kernel, X, Y, lam: float,
         K = k.symmetric_gram(Xw, Xw.device) + lam * _eye(Xw.shape[0], Xw)
         A = torch.cholesky_solve(Yw, torch.linalg.cholesky(K))
         return B.rows.wrap(B.rows.take(A))
-    return _run_compiled(_exact_program(k), "kernel_ridge",
+    return _run_program(_exact_program(k), "kernel_ridge",
                          (engine.digest(k),), X, Y, lam)
 
 
@@ -241,8 +244,6 @@ def approximate_kernel_ridge(k: Kernel, X, Y, lam: float, s: int,
     solve for W, optionally after sketching the (n, s) regression down to
     (t, s) rows with FJLT (or CWT when ``fast_sketch``). Returns (S, W);
     predict with S.apply(X_new, ROWWISE)·W."""
-    from libskylark_tpu_torch import sketch as sk
-
     params = params or KrrParams()
     X, Y = _data(X, Y, device)
     S = k.create_rft(s, context, _feature_tag(params))
@@ -251,10 +252,8 @@ def approximate_kernel_ridge(k: Kernel, X, Y, lam: float, s: int,
         t = 4 * s if params.sketch_size == -1 else params.sketch_size
         R = _regression_sketch(X.shape[0], t, context, params)
     maps = (S,) if R is None else (S, R)
-    if pmesh._is_sharded(X):
-        return S, pmesh._like(X, _features_ridge(X, Y, lam, *maps))
-    return S, _run_compiled(_features_ridge, "approximate_kernel_ridge", (),
-                            X, Y, lam, *maps)
+    return S, _run_program(_features_ridge, "approximate_kernel_ridge", (),
+                           X, Y, lam, *maps)
 
 
 def _features_ridge(X, Y, lam, S, R=None):
@@ -279,8 +278,6 @@ def sketched_approximate_kernel_ridge(k: Kernel, X, Y, lam: float, s: int,
     a shared row sketch R to t rows, so the (n, s) feature matrix never
     exists. Returns (transforms, W); at predict time apply each map,
     scale by √(s_c/s), and concatenate."""
-    from libskylark_tpu_torch import sketch as sk
-
     params = params or KrrParams()
     X, Y = _data(X, Y, device)
     n, d = X.shape
@@ -288,22 +285,9 @@ def sketched_approximate_kernel_ridge(k: Kernel, X, Y, lam: float, s: int,
     R = _regression_sketch(n, t, context, params)
     transforms = [k.create_rft(thiss, context, _feature_tag(params))
                   for thiss in _split_sizes(s, d, params.max_split)]
-    if not pmesh._is_sharded(X):
-        return transforms, _run_compiled(
-            _split_features_ridge, "sketched_approximate_kernel_ridge", (),
-            X, Y, lam, R, *transforms, s=s)
-    SY = R.apply(Y, sk.COLUMNWISE, device=X.device)
-    B = _example_blocks(X)
-    parts = []
-    for S in transforms:
-        Z = S.apply(X, sk.ROWWISE, device=X.device)
-        scale = math.sqrt(S.sketch_dim / s)
-        # scale the rank's rows: no traffic
-        Z = B.rows.wrap(Z.to_local() * scale)
-        # the sketched (t × s_c) block is whole on every rank
-        parts.append(_panel(R.apply(Z, sk.COLUMNWISE, device=X.device))[0])
-    SZ = torch.cat(parts, dim=1)
-    return transforms, pmesh._like(X, _ridge_solve(SZ, _panel(SY)[0], lam))
+    return transforms, _run_program(
+        _split_features_ridge, "sketched_approximate_kernel_ridge", (),
+        X, Y, lam, R, *transforms, s=s)
 
 
 def _split_features_ridge(X, Y, lam, R, *transforms, s: int):
@@ -313,10 +297,16 @@ def _split_features_ridge(X, Y, lam, R, *transforms, s: int):
     from libskylark_tpu_torch import sketch as sk
 
     SY = R.apply(Y, sk.COLUMNWISE, device=X.device)
-    parts = [R.apply(S.apply(X, sk.ROWWISE, device=X.device)
-                     * math.sqrt(S.sketch_dim / s), sk.COLUMNWISE,
-                     device=X.device) for S in transforms]
-    return _ridge_solve(torch.cat(parts, dim=1), SY, lam)
+    B = _example_blocks(X) if pmesh._is_sharded(X) else None
+    parts = []
+    for S in transforms:
+        Z = S.apply(X, sk.ROWWISE, device=X.device)
+        scale = math.sqrt(S.sketch_dim / s)
+        # a DTensor scales its rank's rows: no traffic
+        Z = B.rows.wrap(Z.to_local() * scale) if B else Z * scale
+        # the sketched (t × s_c) block is whole on every rank
+        parts.append(_panel(R.apply(Z, sk.COLUMNWISE, device=X.device))[0])
+    return _ridge_solve(torch.cat(parts, dim=1), _panel(SY)[0], lam)
 
 
 class FeatureMapPrecond(FunctionPrecond):

@@ -155,17 +155,20 @@ def power_iteration(A, Q: torch.Tensor, num_iterations: int,
                              ortho))
 
 
-def _svd_pipeline(A: torch.Tensor, T, *, k: int, kp: int,
-                  num_iterations: int, skip_qr: bool, ortho: str, rr: str):
-    """The captured part of the tall dense randomized SVD: the range
-    sketch A·Tᵀ (B1-rw on the card, T's key a graph input), the power
-    iteration, Bᵀ = Aᵀ·Q and, for ``rr="cqr2"``, Bᵀ's CholeskyQR2.
-    Returns (Q, Bᵀ) for "svd", (Q, Qb, Rb) for "cqr2";
-    :func:`_svd_finish` takes the rest."""
+def _svd_pipeline(A, T, *, k: int, kp: int, num_iterations: int,
+                  skip_qr: bool, ortho: str, rr: str, device=None):
+    """The part of the tall randomized SVD that the executable cache
+    captures for a dense operand: the range sketch A·Tᵀ (B1-rw on the
+    card, T's key a graph input), the power iteration, Bᵀ = Aᵀ·Q and, for
+    ``rr="cqr2"``, Bᵀ's CholeskyQR2. Returns (Q, Bᵀ) for "svd" (Bᵀ
+    whole), (Q, Qb, Rb) for "cqr2", each on local blocks;
+    :func:`_svd_finish` takes the rest. A sparse operand or a DTensor
+    runs it directly, with the range sketch on ``device`` (default: A's)."""
     from libskylark_tpu_torch.sketch import ROWWISE
 
     B = pmesh._Blocks(A)
-    Q = T.apply(A, ROWWISE, device=A.device)          # range sketch (m, kp)
+    Q = T.apply(A, ROWWISE, device=A.device if device is None else device)
+    Q = Q.to_local() if B.sharded else Q              # range sketch (m, kp)
     if not skip_qr:
         Q = _orthonormalize(Q, ortho, B.rows)
     Q = _power(B, Q, num_iterations, not skip_qr, False, ortho)
@@ -174,35 +177,40 @@ def _svd_pipeline(A: torch.Tensor, T, *, k: int, kp: int,
         Q = _orthonormalize(Q, ortho, B.rows)
     Bt = B.rmv(Q)                                     # (n, kp); B = Btᵀ
     if rr == "svd":
-        return Q, Bt
+        return Q, B.cols.gather(Bt)
     return (Q, *_cholesky_qr2(Bt, B.cols.sum))
 
 
-def _svd_finish(parts, k: int, rr: str):
+def _svd_finish(parts, k: int, rr: str, B: pmesh._Blocks):
     """(U, S, V) from :func:`_svd_pipeline`'s parts: the small SVD and
-    the rotations, eagerly."""
+    the rotations, eagerly, each factor laid out as ``B``'s spaces."""
     if rr == "svd":
         Q, Bt = parts
         Ub, S, Vt = torch.linalg.svd(Bt.T, full_matrices=False)
-        return Q @ Ub[:, :k], S[:k], Vt[:k, :].T
+        return (B.rows.wrap(Q @ Ub[:, :k]), B.whole(S[:k]),
+                B.cols.wrap(B.cols.take(Vt[:k, :].T)))
     # Bᵀ = Qb·Rb ⇒ B = Rbᵀ·Qbᵀ; SVD only the k'×k' factor:
     # Rbᵀ = Ur·S·Vrᵀ ⇒ B = Ur·S·(Qb·Vr)ᵀ
     Q, Qb, Rb = parts
     Ur, S, Vrt = torch.linalg.svd(Rb.T, full_matrices=False)
-    return Q @ Ur[:, :k], S[:k], Qb @ Vrt.T[:, :k]
+    return (B.rows.wrap(Q @ Ur[:, :k]), B.whole(S[:k]),
+            B.cols.wrap(Qb @ Vrt.T[:, :k]))
 
 
-def _symmetric_svd_pipeline(A: torch.Tensor, T, *, k: int, kp: int,
-                            num_iterations: int, skip_qr: bool, ortho: str):
-    """The captured part of the dense symmetric variant: the range sketch
-    (B1-rw), the power iteration and the Rayleigh-Ritz matrix G =
-    sym(QᵀAQ). Returns (Q, G); :func:`_symmetric_svd_finish` takes the
-    rest."""
+def _symmetric_svd_pipeline(A, T, *, k: int, kp: int, num_iterations: int,
+                            skip_qr: bool, ortho: str, device=None):
+    """The captured part of the symmetric variant for a dense operand:
+    the range sketch (B1-rw), the power iteration and the Rayleigh-Ritz
+    matrix G = sym(QᵀAQ). Returns (Q, G); :func:`_symmetric_svd_finish`
+    takes the rest. A sparse operand runs it directly, with the range
+    sketch on ``device`` (default: A's)."""
     from libskylark_tpu_torch.sketch import ROWWISE
 
     mv, _ = linear_ops(A)
     whole = pmesh._Space(A.shape[0])
-    Q = _orthonormalize(T.apply(A, ROWWISE, device=A.device), ortho, whole)
+    Q = _orthonormalize(
+        T.apply(A, ROWWISE, device=A.device if device is None else device),
+        ortho, whole)
     for _ in range(num_iterations):
         Q = mv(Q)
         if not skip_qr:
@@ -263,37 +271,15 @@ def approximate_svd(A, rank: int, context: Context,
                                   dtype=dtype, device=device)
         return U, S, V
 
-    from libskylark_tpu_torch.sketch import ROWWISE, JLT
+    from libskylark_tpu_torch.sketch import JLT
 
     T = JLT(n, kp, context)
-    if _served(A):
-        parts = _svd_compiled(
-            A, T, k=k, kp=kp, num_iterations=int(params.num_iterations),
-            skip_qr=bool(params.skip_qr), ortho=params.ortho, rr=params.rr)
-        return _svd_finish(parts, k, params.rr)
-    B = pmesh._Blocks(A)
-    Q = T.apply(A, ROWWISE, device=device)            # range sketch (m, kp)
-    Q = Q.to_local() if B.sharded else Q
-    if not params.skip_qr:
-        Q = _orthonormalize(Q, params.ortho, B.rows)
-    Q = _power(B, Q, params.num_iterations, not params.skip_qr, False,
-               params.ortho)
-    if params.skip_qr:
-        # one final orthogonalization is always required before projection
-        Q = _orthonormalize(Q, params.ortho, B.rows)
-
-    Bt = B.rmv(Q)                                     # (n, kp); B = Btᵀ
-    if params.rr == "svd":
-        Ub, S, Vt = torch.linalg.svd(B.cols.gather(Bt).T,
-                                     full_matrices=False)
-        return (B.rows.wrap(Q @ Ub[:, :k]), B.whole(S[:k]),
-                B.cols.wrap(B.cols.take(Vt[:k, :].T)))
-    # Bᵀ = Qb·Rb ⇒ B = Rbᵀ·Qbᵀ; SVD only the k'×k' factor:
-    # Rbᵀ = Ur·S·Vrᵀ ⇒ B = Ur·S·(Qb·Vr)ᵀ
-    Qb, Rb = _cholesky_qr2(Bt, B.cols.sum)
-    Ur, S, Vrt = torch.linalg.svd(Rb.T, full_matrices=False)
-    return (B.rows.wrap(Q @ Ur[:, :k]), B.whole(S[:k]),
-            B.cols.wrap(Qb @ Vrt.T[:, :k]))
+    statics = dict(k=k, kp=kp, num_iterations=int(params.num_iterations),
+                   skip_qr=bool(params.skip_qr), ortho=params.ortho,
+                   rr=params.rr)
+    parts = (_svd_compiled(A, T, **statics) if _served(A)
+             else _svd_pipeline(A, T, device=device, **statics))
+    return _svd_finish(parts, k, params.rr, pmesh._Blocks(A))
 
 
 @with_solver_precision
@@ -318,25 +304,11 @@ def approximate_symmetric_svd(A, rank: int, context: Context,
         raise errors.InvalidParametersError(f"rank must be positive, got {rank}")
     kp = _oversampled(params, k, n)
 
-    from libskylark_tpu_torch.sketch import ROWWISE, JLT
+    from libskylark_tpu_torch.sketch import JLT
 
     T = JLT(n, kp, context)
-    if _served(A):
-        parts = _symmetric_svd_compiled(
-            A, T, k=k, kp=kp, num_iterations=int(params.num_iterations),
-            skip_qr=bool(params.skip_qr), ortho=params.ortho)
-        return _symmetric_svd_finish(parts, k)
-    mv, _ = linear_ops(A)
-    whole = pmesh._Space(n)
-    Q = _orthonormalize(T.apply(A, ROWWISE, device=device), params.ortho,
-                        whole)
-    for _ in range(params.num_iterations):
-        Q = mv(Q)
-        if not params.skip_qr:
-            Q = _orthonormalize(Q, params.ortho, whole)
-    if params.skip_qr:
-        Q = _orthonormalize(Q, params.ortho, whole)
-
-    # Rayleigh-Ritz: eigendecomposition of QᵀAQ
-    G = Q.T @ mv(Q)
-    return _symmetric_svd_finish((Q, 0.5 * (G + G.T)), k)
+    statics = dict(k=k, kp=kp, num_iterations=int(params.num_iterations),
+                   skip_qr=bool(params.skip_qr), ortho=params.ortho)
+    parts = (_symmetric_svd_compiled(A, T, **statics) if _served(A)
+             else _symmetric_svd_pipeline(A, T, device=device, **statics))
+    return _symmetric_svd_finish(parts, k)

@@ -120,7 +120,8 @@ class DenseTransform(OperatorCache, SketchTransform):
     def s_panel(self, col_start: int, col_stop: int, dtype=torch.float32,
                 device=None) -> torch.Tensor:
         """Materialize S[:, col_start:col_stop]."""
-        return virtual_panel(self._alloc.key, self.dist, self._S,
+        # the blocks' keys come from the seeded _panel_keys alone
+        return virtual_panel(None, self.dist, self._S,
                              col_start, col_stop, self.scale, dtype, device,
                              self._panel_keys(col_start, col_stop, device))
 

@@ -18,7 +18,8 @@ import torch
 from libskylark_tpu_torch.base import errors, randgen
 from libskylark_tpu_torch.sketch.hash import CWT
 from libskylark_tpu_torch.sketch.transform import (COLUMNWISE,
-                                                   SketchTransform, register)
+                                                   SketchTransform, register,
+                                                   seeded)
 
 
 @register
@@ -43,11 +44,16 @@ class PPT(SketchTransform):
         self._cwts = [CWT(self._N, self._S, self._alloc.child(i))
                       for i in range(self._q)]
 
+    def _children(self) -> tuple:
+        return tuple(self._cwts)
+
+    @seeded
     def _hash_idx(self, device=None) -> torch.Tensor:
         return randgen.stream_slice(
             self.subkey(100), randgen.UniformInt(0, self._S - 1), 0, self._q,
             device=device)
 
+    @seeded
     def _hash_val(self, dtype, device=None) -> torch.Tensor:
         return randgen.stream_slice(self.subkey(101), randgen.Rademacher(),
                                     0, self._q, dtype, device)
@@ -62,7 +68,11 @@ class PPT(SketchTransform):
         P = None
         for i, cwt in enumerate(self._cwts):
             W = sqrt_gamma * cwt.apply(A, COLUMNWISE, device=A.device)
-            W[hidx[i], :] += sqrt_c * hval[i]
+            # the lift as an index_add_ (a 0-dim index would be read on
+            # the host, which a captured body cannot do)
+            W.index_add_(0, hidx[i:i + 1],
+                         (sqrt_c * hval[i:i + 1])[:, None].expand(
+                             1, W.shape[1]))
             FW = torch.fft.fft(W, dim=0)
             P = FW if P is None else P * FW
         return torch.fft.ifft(P, dim=0).real.to(dt)

@@ -76,8 +76,9 @@ class RFT(OperatorCache, SketchTransform):
     def w_panel(self, col_start: int, col_stop: int, dtype=torch.float32,
                 device=None) -> torch.Tensor:
         """W[:, col_start:col_stop] of the lazy (S × N) frequency matrix."""
+        # the blocks' keys come from the seeded _panel_keys alone
         return self.inscale * randgen.dense_panel(
-            self.subkey(0), self.dist, self._S, col_start, col_stop,
+            None, self.dist, self._S, col_start, col_stop,
             BLOCK_COLS, dtype, device,
             self._panel_keys(col_start, col_stop, device))
 

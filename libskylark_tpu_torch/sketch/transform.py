@@ -32,7 +32,8 @@ import torch
 
 from libskylark_tpu_torch import __version__
 from libskylark_tpu_torch.base import errors
-from libskylark_tpu_torch.base.context import Allocation, Context, fold_in
+from libskylark_tpu_torch.base.context import (Allocation, Context,
+                                                fold_in, keys_sealed)
 from libskylark_tpu_torch.base.device import as_tensor, resolve_device
 from libskylark_tpu_torch.base.sparse import as_sparse, is_sparse_operand
 
@@ -70,33 +71,59 @@ def seeded(method):
 def signature(T: "SketchTransform") -> str:
     """The transform without its seed: class, dimensions and
     hyper-parameters (its ``to_dict()`` but for the creation context and
-    the package version). Two transforms of one signature take the same
-    routes and the same per-seed shapes."""
+    the package version), and the dtype and device of a pinned operator
+    (``materialize()``), which changes the route. Two transforms of one
+    signature take the same routes and the same per-seed shapes."""
     d = {k: v for k, v in T.to_dict().items()
          if k not in ("creation_context", "skylark_version")}
+    pinned = getattr(T, "_op_cache", None)
+    if pinned is not None:
+        d["pinned"] = [str(pinned.dtype), str(pinned.device)]
     return json.dumps(d, sort_keys=True)
+
+
+def _members(T: "SketchTransform", path: tuple = ()):
+    """(path, transform) of ``T`` and of its sub-transforms, depth first:
+    a path is the child indices from ``T`` down."""
+    yield path, T
+    for i, child in enumerate(T._children()):
+        yield from _members(child, path + (i,))
+
+
+def _resolve(T: "SketchTransform", path: tuple) -> "SketchTransform":
+    for i in path:
+        T = T._children()[i]
+    return T
 
 
 class SeedBinding:
     """The per-seed inputs of one compiled body on ``device``. Slot i is
     the body's i-th :func:`seeded` call: (the argument index of its
-    transform, the method, its arguments) and a buffer on the card.
+    transform and the path to it among that argument's sub-transforms,
+    the method, its arguments) and a buffer on the card.
 
     - ``with binding.active():`` the first run records: each call runs
-      its method (the binding off, so the method's own seeded calls are
-      plain) and keeps the value in a new buffer, which it returns;
+      its method (the binding off and the keys unsealed, so the method's
+      own reads are plain) and keeps the value in a new buffer, which it
+      returns;
     - ``with binding.active(replay=True):`` (the capture) returns the
       buffers in the same order, checking each call against its slot;
     - :meth:`refill` makes every slot's value again from another call's
       transforms, outside any capture, and copies it into the buffer.
 
-    A seeded call on a transform that is not one of the body's arguments
-    raises: its values would be baked into the graph."""
+    While a binding is active the allocation keys are sealed
+    (``base.context.keys_sealed``): a per-seed value made anywhere but in
+    a seeded method raises, as does a seeded call on a transform that is
+    neither one of the body's arguments nor a sub-transform of one. A
+    seeded method may return None (no pinned operator): its slot then
+    holds None, and a refill that gets a tensor there raises."""
 
     def __init__(self, args, device):
         self.device = torch.device(device)
-        self._index = {id(a): i for i, a in enumerate(args)
-                       if isinstance(a, SketchTransform)}
+        self._index = {id(t): (i, path)
+                       for i, a in enumerate(args)
+                       if isinstance(a, SketchTransform)
+                       for path, t in _members(a)}
         self.slots: list = []
         self._cursor = None
 
@@ -106,36 +133,42 @@ class SeedBinding:
         _bound.binding = self
         self._cursor = 0 if replay else None
         try:
-            yield self
+            with keys_sealed():
+                yield self
         finally:
             _bound.binding = prev
 
-    def _make(self, T, method, args, kwargs):
+    @staticmethod
+    def _value(T, method, args, kwargs):
+        """The method's value, made with the binding off and the keys
+        unsealed; key data as its words in an int32 host tensor."""
         prev = getattr(_bound, "binding", None)
         _bound.binding = None
         try:
-            value = method(T, *args, **kwargs)
+            with keys_sealed(False):
+                value = method(T, *args, **kwargs)
         finally:
             _bound.binding = prev
-        if isinstance(value, torch.Tensor):
-            return value.to(self.device)
+        if value is None or isinstance(value, torch.Tensor):
+            return value
         words = np.ascontiguousarray(np.asarray(value, dtype=np.uint32))
-        return torch.from_numpy(words.view(np.int32)).to(self.device,
-                                                         non_blocking=True)
+        return torch.from_numpy(words.view(np.int32))
 
     def take(self, T, method, args, kwargs):
-        idx = self._index.get(id(T))
-        if idx is None:
+        where = self._index.get(id(T))
+        if where is None:
             raise errors.UnsupportedError(
                 f"a compiled body made {method.__qualname__} of a "
                 f"{T.sketch_type} that is not one of its arguments: pass "
                 "the transform positionally")
         if self._cursor is None:
-            buf = self._make(T, method, args, kwargs).clone()
-            self.slots.append((idx, method, args, kwargs, buf))
+            buf = self._value(T, method, args, kwargs)
+            buf = None if buf is None else buf.to(
+                self.device, non_blocking=True, copy=True)
+            self.slots.append((where, method, args, kwargs, buf))
             return buf
-        i, m, a, k, buf = self.slots[self._cursor]
-        if (i, m, a, k) != (idx, method, args, kwargs):
+        w, m, a, k, buf = self.slots[self._cursor]
+        if (w, m, a, k) != (where, method, args, kwargs):
             raise errors.UnsupportedError(
                 f"a compiled body's seeded call {self._cursor} differs "
                 f"between its runs ({method.__qualname__})")
@@ -144,9 +177,16 @@ class SeedBinding:
 
     def refill(self, args) -> None:
         """Every slot made again from ``args`` (this call's arguments,
-        the transforms at the recorded indices) into its buffer."""
-        for idx, method, a, k, buf in self.slots:
-            buf.copy_(self._make(args[idx], method, a, k), non_blocking=True)
+        the transforms at the recorded indices and paths) into its
+        buffer."""
+        for (idx, path), method, a, k, buf in self.slots:
+            value = self._value(_resolve(args[idx], path), method, a, k)
+            if (value is None) != (buf is None):
+                raise errors.UnsupportedError(
+                    f"{method.__qualname__} gave a value on one call of a "
+                    "compiled body and None on another")
+            if buf is not None:
+                buf.copy_(value, non_blocking=True)
 
 
 def binding_active() -> bool:
@@ -220,9 +260,12 @@ class OperatorCache:
         cached-operator matmul). Default False."""
         return False
 
+    @seeded
     def _cached_op(self, dtype, device):
         """The pinned operator on ``device``, cast to ``dtype``; None when
-        there is none there, or when ``dtype`` is wider than the cache."""
+        there is none there, or when ``dtype`` is wider than the cache.
+        Seeded: inside a compiled body the pinned operator is an input
+        (its presence is part of :func:`signature`)."""
         c = self._op_cache
         if c is None or c.device != device or dtype.itemsize > c.dtype.itemsize:
             return None
@@ -257,6 +300,12 @@ class SketchTransform:
         """Derive what the transform needs from its dimensions and
         allocation (block geometry, sub-transforms, host sample arrays).
         Default: nothing."""
+
+    def _children(self) -> tuple:
+        """The sub-transforms this one applies (PPT's CountSketches): a
+        compiled body's binding reaches their seeded values through
+        their parent's argument. Default: none."""
+        return ()
 
     @property
     def input_dim(self) -> int:

@@ -19,7 +19,8 @@ from typing import Any
 import torch
 
 from libskylark_tpu_torch.base import randgen
-from libskylark_tpu_torch.sketch.transform import SketchTransform, register
+from libskylark_tpu_torch.sketch.transform import (SketchTransform, register,
+                                                   seeded)
 
 
 @register
@@ -30,6 +31,7 @@ class UST(SketchTransform):
         self._replace = bool(replace)
         super().__init__(N, S, context)
 
+    @seeded
     def sample_indices(self, device=None) -> torch.Tensor:
         """The S_dim sampled coordinates, int64."""
         if self._replace:

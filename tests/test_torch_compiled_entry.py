@@ -27,10 +27,11 @@ from libskylark_tpu_torch.base.context import Context
 SIZE = {"svd_n": 256, "svd_r": 64, "rank": 8, "q": 2, "ls_rows": 1024,
         "ls_cols": 32, "ls_s": 128, "n": 600, "test": 100, "d": 40,
         "classes": 3, "latent": 4, "center": 1.0, "noise": 1.0, "s": 128,
-        "exact_rows": 300, "reps": 2}
+        "exact_rows": 300, "poly_s": 64, "pinned_rows": 512, "reps": 2}
 ENTRIES = ("svd", "symmetric_svd", "solve_jlt", "solve_cwt",
-           "solve_fjlt_wht", "precond_blendenpik", "precond_lsrn",
-           "approximate_krr", "kernel_ridge", "krr_predict")
+           "solve_fjlt_wht", "solve_ust", "solve_pinned",
+           "precond_blendenpik", "precond_lsrn", "approximate_krr",
+           "approximate_krr_poly", "kernel_ridge", "krr_predict")
 REL = 1e-4
 
 
@@ -76,7 +77,7 @@ def _ls(seed=8, m=1024, n=12):
 
 
 @pytest.mark.parametrize("family,kw", [("CWT", {}), ("FJLT", {"fut": "wht"}),
-                                       ("FJLT", {})])
+                                       ("FJLT", {}), ("UST", {})])
 def test_solve_l2_sketched_matches_reference(family, kw):
     A, b = _ls()
     want = jregression.solve_l2_sketched(
@@ -146,6 +147,19 @@ def _rowwise(A, T):
      torch.float32),
     (lambda c: sk.FastGaussianRFT(256, 32, c, sigma=8.0), _rowwise,
      torch.float32),
+    (lambda c: sk.UST(256, 32, c), _columnwise, torch.float32),
+    (lambda c: sk.UST(256, 32, c, replace=False), _rowwise, torch.float32),
+    (lambda c: sk.PPT(256, 32, c, q=3, c=1.0, gamma=0.5), _rowwise,
+     torch.float32),
+    (lambda c: sk.WZT(256, 32, c, p=1.5), _columnwise, torch.float32),
+    (lambda c: sk.MaternRFT(256, 32, c, nu=1.5, l=8.0), _rowwise,
+     torch.float32),
+    (lambda c: sk.FastMaternRFT(256, 32, c, nu=1.5, l=8.0), _rowwise,
+     torch.float32),
+    (lambda c: sk.JLT(256, 32, c).materialize(torch.float64, "cpu"),
+     _columnwise, torch.float64),
+    (lambda c: sk.GaussianRFT(256, 32, c, sigma=8.0).materialize(
+        torch.float64, "cpu"), _rowwise, torch.float64),
 ])
 def test_seed_binding_hoists_every_per_seed_value(make, body, dtype):
     """A body run under a SeedBinding whose slots were refilled from a
@@ -168,3 +182,21 @@ def test_seed_binding_hoists_every_per_seed_value(make, body, dtype):
         second = body(A, T1)
     assert torch.equal(second, body(A, T2))
     assert not torch.equal(second, first)
+
+
+def test_seed_binding_hoists_the_quasi_random_operator():
+    """QRFT's W and shifts are seed-free host arrays: under a binding they
+    too are made outside the body (no host-to-device copy inside a
+    capture), and a replay serves them unchanged."""
+    from libskylark_tpu_torch.sketch.transform import SeedBinding
+
+    A = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (64, 256))).float()
+    T = sk.GaussianQRFT(256, 32, Context(11), sigma=8.0)
+    binding = SeedBinding((A, T), "cpu")
+    with binding.active():
+        first = _rowwise(A, T)
+    assert len(binding.slots) >= 2
+    with binding.active(replay=True):
+        assert torch.equal(_rowwise(A, T), first)
+    assert torch.equal(first, _rowwise(A, T))

@@ -101,6 +101,42 @@ class TestCompiledWrapper:
         s = engine.stats()
         assert s.misses == 3 and s.hits == 1
 
+    def test_a_seed_read_outside_a_seeded_method_raises(self, fresh_engine):
+        """A body that makes a per-seed value from a key itself would bake
+        it into a captured graph: the CPU body runs under the same binding
+        and sealed keys as a capture, so it raises here too."""
+        from libskylark_tpu_torch.base import errors, randgen
+
+        @engine.compiled
+        def f(A, T):
+            return A + randgen.stream_slice(T.subkey(7), randgen.Normal(),
+                                            0, A.shape[0])
+
+        with pytest.raises(errors.UnsupportedError, match="@seeded"):
+            f(torch.ones(8), sk.JLT(8, 4, Context(1)))
+        sk.JLT(8, 4, Context(1)).subkey(7)   # unsealed outside the body
+
+    def test_pinned_operator_is_keyed_and_an_input(self, fresh_engine):
+        """A pinned operator changes the route: it is part of the
+        signature, and inside the body an input made per call, so a
+        second pinned transform gets its own operator, not the first's."""
+        @engine.compiled
+        def f(A, T):
+            return T.apply(A, sk.COLUMNWISE, device=A.device)
+
+        A = torch.ones((64, 3), dtype=torch.float64)
+        ctx = Context(10)
+        T1 = sk.JLT(64, 8, ctx).materialize(torch.float64, "cpu")
+        T2 = sk.JLT(64, 8, ctx).materialize(torch.float64, "cpu")
+        T3 = sk.JLT(64, 8, ctx)
+        assert sk.transform.signature(T1) != sk.transform.signature(T3)
+        for T in (T1, T2, T3):
+            assert torch.equal(f(A, T), T.apply(A, sk.COLUMNWISE,
+                                                device="cpu"))
+        assert not torch.equal(f(A, T1), f(A, T2))
+        s = engine.stats()
+        assert s.misses == 2 and s.hits == 3
+
     def test_other_arguments_refused(self, fresh_engine):
         @engine.compiled
         def f(A, x):
@@ -189,6 +225,45 @@ class TestExecutableCacheLRU:
         assert c.lookup("b") is None            # thrash: seen before
         assert c.stats.recompiles == 1
         assert len(c) == 2
+
+    @pytest.mark.parametrize("sizes,budget,kept", [
+        ((30, 30, 30), 100, 3), ((40, 40, 40), 100, 2),
+        ((10, 200, 10), 100, 1), ((60, 60, 60, 60), 60, 1)])
+    def test_byte_budget_evicts_least_recent(self, sizes, budget, kept):
+        """Past the byte budget the least recently used entries go, never
+        the newest, however large."""
+        class Exe:
+            def __init__(self, nbytes):
+                self.nbytes = nbytes
+
+        c = ExecutableCache(maxsize=16)
+        for i, n in enumerate(sizes):
+            c.acquire(i)
+            c.insert(i, CacheEntry(executable=Exe(n), name=str(i),
+                                   compile_seconds=0.0))
+            c.trim(budget)
+            assert c.nbytes() <= budget or len(c) == 1
+        assert c.keys() == list(range(len(sizes)))[-kept:]
+        assert c.stats.evictions == len(sizes) - kept
+
+    def test_graph_copy_in_skips_the_same_unchanged_tensor(self):
+        """A hit copies an argument into its static buffer unless it is
+        the tensor copied in last time at the same version."""
+        from libskylark_tpu_torch.engine.compiled import _Graph
+
+        g = object.__new__(_Graph)
+        a, b = torch.ones(4), torch.ones(4)
+        g._sources = [_Graph._source(a), None]
+        assert g._holds(0, a) and not g._holds(0, b)
+        assert not g._holds(1, a)
+        a.add_(1)
+        assert not g._holds(0, a)
+        g._sources[0] = _Graph._source(a)
+        a[1:].mul_(2)                          # a write through a view
+        assert not g._holds(0, a)
+        with torch.inference_mode():
+            c = torch.ones(4)
+        assert _Graph._source(c) is None       # no version: copied in
 
     def test_reset_clears_seen_and_keeps_lifetime(self):
         c = ExecutableCache(maxsize=4)
