@@ -149,8 +149,9 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             started before any best_effort one (their mean queue waits
             reported), and a tenant of burst 4 refused exactly
             8 of 12; the adaptive controller ticks, keeps its targets in
-            bounds and changes no result; one flush profiled, its
-            ``serve.flush`` range enclosing the B1-batched launch; storm
+            bounds and changes no result; one flush profiled, in a
+            process of its own, its ``serve.flush`` range enclosing the
+            launches of its B1-batched kernels; storm
             requests/s with the cache on and off, the H2D bytes residency
             saved, per-class waits and latencies, expired, shed and
             rate-limited counts, the transitions, the seconds and the
@@ -3268,29 +3269,132 @@ def qos_outcome(f) -> str:
 
 def profiled_flush_checks(torch, prof, device) -> dict:
     """The profiled flush's ``serve.flush`` range: exactly one, and the
-    work it encloses — on the card, the device kernels of the batched
-    launch lie inside the range; on the CPU, the plain program's torch
-    operators do."""
+    work it encloses. On the card, every B1 kernel in the trace was
+    launched inside the host's range: each kernel's launch record is
+    found by its correlation id and compared on the host's clock, never
+    the kernel's device timestamps with the host's; the trace's
+    device-side ``serve.flush`` annotation holds every kernel. On the
+    CPU, the plain program's torch operators lie inside the range."""
     events = list(prof.events())
-    # the host's range (on the card the trace repeats it as a device-side
-    # annotation)
-    flush = [e for e in events if e.name == "serve.flush"
-             and e.device_type == torch.autograd.DeviceType.CPU]
+    cpu, gpu = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    flush = [e for e in events
+             if e.name == "serve.flush" and e.device_type == cpu]
     check(len(flush) == 1, f"{len(flush)} serve.flush ranges in the "
                            "profiled flush, not 1")
     lo, hi = flush[0].time_range.start, flush[0].time_range.end
-    if device == "cuda":
-        inner = [e for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "dense" in e.name]
-    else:
-        inner = [e for e in events if e.name.startswith("aten::")]
-    inside = [e.name for e in inner
-              if lo <= e.time_range.start and e.time_range.end <= hi]
-    check(bool(inside) and (device != "cuda" or len(inside) == len(inner)),
-          f"serve.flush [{lo}, {hi}] encloses {len(inside)} of the flush's "
-          f"{len(inner)} launches")
-    return {"range_us": hi - lo, "enclosed": sorted(set(inside))}
+    if device != "cuda":
+        inside = [e.name for e in events if e.name.startswith("aten::")
+                  and lo <= e.time_range.start and e.time_range.end <= hi]
+        check(bool(inside), f"serve.flush [{lo}, {hi}] encloses none of "
+                            "the flush's operators")
+        return {"range_us": hi - lo, "enclosed": sorted(set(inside))}
+    kernels = [e for e in events
+               if e.device_type == gpu and "dense" in e.name]
+    launch = {e.id: e for e in events if e.device_type == cpu
+              and e.name.startswith(("cudaLaunch", "cuLaunch"))}
+    annot = [e for e in events
+             if e.name == "serve.flush" and e.device_type == gpu]
+    check(bool(kernels) and len(annot) == 1,
+          f"the profiled flush's trace holds {len(kernels)} B1 kernels and "
+          f"{len(annot)} device-side serve.flush annotations")
+    dlo, dhi = annot[0].time_range.start, annot[0].time_range.end
+    inside = [k.name for k in kernels if k.id in launch
+              and lo <= launch[k.id].time_range.start
+              and launch[k.id].time_range.end <= hi
+              and dlo <= k.time_range.start and k.time_range.end <= dhi]
+    check(len(inside) == len(kernels),
+          f"serve.flush [{lo}, {hi}] encloses the launches of {len(inside)} "
+          f"of the flush's {len(kernels)} kernels")
+    return {"range_us": hi - lo, "device_range_us": dhi - dlo,
+            "enclosed": sorted(set(inside))}
+
+
+def qos_rw_operands(torch, P, g, size, device) -> list:
+    """The dense-rw bucket's ``rw_operands`` (operand, JLT) pairs: rows
+    drawn from ``g`` in ``rw_rows``, each operand and transform from its
+    own seed."""
+    from libskylark_tpu_torch import sketch as sk
+
+    rw = []
+    for i in range(size["rw_operands"]):
+        rows = int(g.integers(*size["rw_rows"]))
+        rw.append((make_operand(torch, (rows, size["rw_n"]), 15000 + i,
+                                device),
+                   sk.JLT(size["rw_n"], size["rw_s"], P.Context(1510 + i))))
+    return rw
+
+
+def profiled_flush(torch, rw, device) -> tuple:
+    """Four dense-rw requests held for one :meth:`flush` under
+    torch.profiler, spans on: (:func:`profiled_flush_checks`' result,
+    the flush's launches). Fails unless the flush's ``serve.flush`` span
+    carries its four requests' ids."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from libskylark_tpu_torch import engine, sketch as sk, telemetry
+
+    tele = telemetry.enabled()
+    telemetry.set_enabled(True)
+    try:
+        px = engine.MicrobatchExecutor(max_batch=8, linger_us=60_000_000,
+                                       device=device)
+        try:
+            pf = [px.submit_sketch(T, A, dimension=sk.ROWWISE)
+                  for A, T in (rw[i % len(rw)] for i in range(4))]
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if device == "cuda" else [])
+            before = launch_counts()
+            with profile(activities=acts) as prof:
+                px.flush()
+            launched = qos_launches(before)
+            for f in pf:
+                f.result(timeout=600)
+        finally:
+            px.shutdown()
+    finally:
+        telemetry.set_enabled(tele)
+    checked = profiled_flush_checks(torch, prof, device)
+    spans = [sp for sp in telemetry.finished_spans()
+             if sp.name == "serve.flush"]
+    check(bool(spans) and len(spans[-1].attrs["request_ids"]) == 4,
+          "the profiled flush left no serve.flush span with its "
+          "requests' ids")
+    return checked, launched
+
+
+def flush_child(size: dict) -> int:
+    """The serve-qos phase's profiled flush on the card, in a process
+    whose first profiler session it is: late in a long process,
+    torch.profiler loses some or all of a session's device records.
+    Prints one JSON line."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import libskylark_tpu_torch as P
+
+    rw = qos_rw_operands(torch, P, np.random.default_rng(1501), size,
+                         "cuda")
+    checked, launched = profiled_flush(torch, rw, "cuda")
+    print("FLUSH_CHILD " + json.dumps({"profiled_flush": checked,
+                                       "launches": launched}), flush=True)
+    return 0
+
+
+def profiled_flush_in_child(size: dict) -> tuple:
+    """:func:`flush_child` run at ``size``'s dense-rw bucket: its
+    (checks, launches). Fails if the child does."""
+    keys = ("rw_rows", "rw_n", "rw_s", "rw_operands")
+    run = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--flush-child",
+         json.dumps({k: size[k] for k in keys})],
+        capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, "the profiled-flush child failed:\n"
+          + (run.stdout + run.stderr)[-3000:])
+    line = next(ln for ln in run.stdout.splitlines()
+                if ln.startswith("FLUSH_CHILD "))
+    report = json.loads(line[len("FLUSH_CHILD "):])
+    return report["profiled_flush"], report["launches"]
 
 
 def serve_qos_phase(torch, P, np, size=QOS_FULL, device="cuda") -> dict:
@@ -3311,14 +3415,12 @@ def serve_qos_phase(torch, P, np, size=QOS_FULL, device="cuda") -> dict:
     tenants saturate one worker, interactive waits no longer on average;
     a burst-limited tenant is refused exactly past its burst. The adaptive
     controller ticks, keeps its targets in bounds and changes no result.
-    One flush is profiled: its ``serve.flush`` range encloses the launch.
-    Fails on any check."""
+    One flush is profiled, on the card in a process of its own
+    (:func:`flush_child`): its ``serve.flush`` range encloses the
+    launches. Fails on any check."""
     import os
-    import threading
 
-    from torch.profiler import ProfilerActivity, profile
-
-    from libskylark_tpu_torch import engine, qos, sketch as sk, telemetry
+    from libskylark_tpu_torch import engine, qos, sketch as sk
     from libskylark_tpu_torch.base import errors, locks
     from libskylark_tpu_torch.engine import serve
     from libskylark_tpu_torch.resilience import faults, health
@@ -3335,12 +3437,7 @@ def serve_qos_phase(torch, P, np, size=QOS_FULL, device="cuda") -> dict:
     x0 = g.standard_normal(d, dtype=np.float32)
     b = A @ x0 + 0.1 * g.standard_normal(n, dtype=np.float32)
     T = sk.JLT(n, s, P.Context(1500))
-    rw = []
-    for i in range(size["rw_operands"]):
-        rows = int(g.integers(*size["rw_rows"]))
-        rw.append((make_operand(torch, (rows, size["rw_n"]), 15000 + i,
-                                device),
-                   sk.JLT(size["rw_n"], size["rw_s"], P.Context(1510 + i))))
+    rw = qos_rw_operands(torch, P, g, size, device)
 
     def rw_call(ex, i, **kw):
         Ai, Ti = rw[i % len(rw)]
@@ -3589,11 +3686,12 @@ def serve_qos_phase(torch, P, np, size=QOS_FULL, device="cuda") -> dict:
         def tenant_call(ex, i):
             return rw_call(ex, i // 2, tenant="ui" if i % 2 else "bulk")
 
-        # a long flush (8 solve lanes shipping 8 × A), first stalled
-        # ``hold_s`` at its fault site, holds the one worker while both
-        # tenants queue. The check's premise is asserted, not assumed:
-        # every request of both tenants is queued while the hold still
-        # runs. Then the scheduler must start every interactive cohort
+        # one solve request's flush, stalled ``hold_s`` at its fault site,
+        # holds the one worker while both tenants queue: the tenants
+        # submit once it has left the queue (one request, so no linger
+        # can split it into two cohorts). The check's premise is
+        # asserted, not assumed: every request of both tenants is queued
+        # while the hold still runs. Then the scheduler must start every interactive cohort
         # before any best_effort one (deficit round robin at weights 8:1,
         # a quantum of max_batch: one round's credit covers interactive's
         # whole queue), the order in which it charges cohorts, which no
@@ -3619,8 +3717,10 @@ def serve_qos_phase(torch, P, np, size=QOS_FULL, device="cuda") -> dict:
         before = launch_counts()
         with faults.fault_plan(hold):
             with faults.tag("hold"):
-                block = [qx.submit_solve(A, bs[i % len(bs)], T)
-                         for i in range(qx.max_batch)]
+                block = [qx.submit_solve(A, bs[0], T)]
+            t_end = time.perf_counter() + 60
+            while qx.stats()["queued"] and time.perf_counter() < t_end:
+                time.sleep(0.001)
             qx._sched.charge = charged
             try:
                 futs, t_qos = qos_storm(qx, tenant_call, 2 * per, 2,
@@ -3700,28 +3800,13 @@ def serve_qos_phase(torch, P, np, size=QOS_FULL, device="cuda") -> dict:
         mark("adaptive")
 
         # -- one profiled flush, spans on --------------------------------
-        tele = telemetry.enabled()
-        telemetry.set_enabled(True)
-        try:
-            px = executor(max_batch=8, linger_us=60_000_000)
-            pf = [rw_call(px, i) for i in range(4)]
-            acts = [ProfilerActivity.CPU] + (
-                [ProfilerActivity.CUDA] if cuda else [])
-            before = launch_counts()
-            with profile(activities=acts) as prof:
-                px.flush()
-            add_launches(launches, qos_launches(before))
-            for f in pf:
-                f.result(timeout=600)
-        finally:
-            telemetry.set_enabled(tele)
-        out["profiled_flush"] = profiled_flush_checks(torch, prof, device)
+        if cuda:
+            out["profiled_flush"], flushed = profiled_flush_in_child(size)
+        else:
+            out["profiled_flush"], flushed = profiled_flush(torch, rw,
+                                                            device)
+        add_launches(launches, flushed)
         mark("profiled_flush")
-        spans = [sp for sp in telemetry.finished_spans()
-                 if sp.name == "serve.flush"]
-        check(bool(spans) and len(spans[-1].attrs["request_ids"]) == 4,
-              "the profiled flush left no serve.flush span with its "
-              "requests' ids")
         stats = {"serve": serve.serve_stats(), "qos": serve.qos_stats(),
                  "cache": serve.cache_stats()}
         check(stats["serve"]["executors"] >= len(executors)
@@ -6389,6 +6474,8 @@ def main() -> int:
         return dist_child(*(int(a) for a in sys.argv[2:5]))
     if sys.argv[1:2] == ["--sharded-child"]:
         return sharded_child(*(int(a) for a in sys.argv[2:5]))
+    if sys.argv[1:2] == ["--flush-child"]:
+        return flush_child(json.loads(sys.argv[2]))
     sys.path.insert(0, str(ROOT))
     import libskylark_tpu_torch as P
 

@@ -67,13 +67,28 @@ _ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                   0.00943887047, 1.00167406, 2.83297682)
 
 
+def _sqrt(w: torch.Tensor) -> torch.Tensor:
+    """sqrt(w) rounded to float32 the same on every call. On the CPU,
+    torch's float32 sqrt is not always correctly rounded, and in a
+    threaded process a call may come back ~1e-4 off; two Newton steps in
+    float64 reach the float64 root from either, and it rounds to one
+    float32."""
+    if w.device.type != "cpu":
+        return torch.sqrt(w)
+    w = w.double()
+    r = torch.sqrt(w)
+    for _ in range(2):
+        r = 0.5 * (r + w / r)
+    return r.to(torch.float32)
+
+
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     """f32 erfinv by the reference's own algorithm (XLA's ErfInv32). It
     agrees with ``lax.erf_inv`` to a few ulp, where ``torch.erfinv``
     differs by up to ~1.5e-5 near ±1."""
     w = -torch.log1p(-x * x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, _sqrt(w) - 3.0)
     coef = [torch.where(lt, a, b).to(torch.float32)
             for a, b in zip(_ERFINV_W_LT_5, _ERFINV_W_GE_5)]
     p = coef[0]

@@ -97,3 +97,56 @@ def test_the_phase_fails_when_a_storm_flushes_twice(chip_smoke,
     with pytest.raises(RuntimeError, match="cache storm"):
         chip_smoke.serve_qos_phase(torch, P, np, size=_small(chip_smoke),
                                    device="cpu")
+
+
+class _Range:
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+
+class _Event:
+    def __init__(self, name, device, start, end, id=0):
+        self.name, self.device_type, self.id = name, device, id
+        self.time_range = _Range(start, end)
+
+
+class _Trace:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+def _card_trace(launch_at, kernels=True):
+    """A profiled flush's trace on the card: the host's serve.flush range
+    [100, 900] µs, one launch record at ``launch_at``, and its kernel at
+    device timestamps past the host range (the two clocks are never
+    compared), inside the device-side annotation."""
+    cpu, gpu = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = [_Event("serve.flush", cpu, 100.0, 900.0),
+              _Event("cudaLaunchKernel", cpu, launch_at, launch_at + 5.0,
+                     id=7)]
+    if kernels:
+        events += [_Event("serve.flush", gpu, 2000.0, 2600.0),
+                   _Event("dense_tc_kernel", gpu, 2100.0, 2500.0, id=7)]
+    return _Trace(events)
+
+
+def test_profiled_flush_checks_match_kernels_to_their_launches(chip_smoke):
+    out = chip_smoke.profiled_flush_checks(torch, _card_trace(400.0), "cuda")
+    assert out["enclosed"] == ["dense_tc_kernel"]
+    assert out["range_us"] == 800.0 and out["device_range_us"] == 600.0
+
+
+@pytest.mark.parametrize("launch_at, kernels, match", [
+    (950.0, True, "encloses the launches of 0 of the flush's 1"),
+    (400.0, False, "holds 0 B1 kernels"),
+])
+def test_profiled_flush_checks_fail_on_the_card(chip_smoke, launch_at,
+                                                kernels, match):
+    """A launch outside the host's range, or a trace without the flush's
+    kernels, fails the check."""
+    with pytest.raises(RuntimeError, match=match):
+        chip_smoke.profiled_flush_checks(
+            torch, _card_trace(launch_at, kernels), "cuda")

@@ -97,3 +97,14 @@ def test_key_from_numpy_round_trips_reference_key_data():
                                   Allocation(11, 2, (4,)).key)
     with pytest.raises(errors.InvalidParametersError):
         interop.key_from_numpy(np.zeros(3, np.uint32))
+
+
+def test_normal_tail_sqrt_is_correctly_rounded_on_the_cpu():
+    """The w >= 5 branch of erfinv_f32 takes its sqrt in float64 with two
+    Newton steps on the CPU: the float32 root is the correctly rounded
+    one, whatever torch's float32 sqrt returned on that call."""
+    w = torch.from_numpy(np.random.default_rng(16).uniform(
+        5.0, 17.0, 1 << 17).astype(np.float32))
+    want = torch.from_numpy(np.sqrt(w.numpy().astype(np.float64))
+                            .astype(np.float32))
+    assert torch.equal(threefry._sqrt(w), want)
