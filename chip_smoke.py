@@ -94,8 +94,28 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             Cauchy draws entry by entry; CWT torch.equal on the CPU) and
             bit-equal to its capacity-1 kernel flush, and each serve-cwt
             and serve-srht flush exactly one hash_batched or fwht_batched
-            launch; then each bucket's flush cell (warm ms, device ms,
-            busy);
+            launch; every flush of the five captured buckets (dense-rw,
+            ct-cw, fastfood, cwt, srht) through the executable cache; then
+            each captured bucket's flush, by its CompiledFn, torch.equal
+            to the same flush run eagerly on the same stacked inputs: the
+            first cohort captures, the second (other seeds, the same
+            operands) replays, a hit launching the bucket's kernel once
+            and giving another result; then each bucket's flush cell (warm
+            ms, device ms, busy);
+4b-iii. warmup — a warmup pack (engine/warmup.py) at the serve cells'
+            widths: JLT 8192 → 1024 rowwise on 2045–2048 rows and CT
+            columnwise on 125–128 columns, capacities 1 and 8; CWT 8192 →
+            1024 rowwise on 509–512 rows, 1 and 4; FastGaussianRFT 4096 →
+            4096 (σ = 64) on 2045–2048 rows, 1 and 8; every entry captured
+            on the kernel route with its capture record; each entry's
+            cold flush (warm-up and capture), replay and eager flush
+            (median ms, device ms under torch.profiler, busy) and its
+            graph's pool MB; then two fresh processes (``python -m
+            libskylark_tpu_torch.cli.skylark_warmup boot-probe``) serve
+            every packed cohort, cold (one capture per entry) and booted
+            from the pack (every entry loaded and its route restored, then
+            no capture and a hit per entry), both bit-equal to the
+            builder's results, with their time to first result;
 4b'. serve_solve — the nine solve-family endpoints at full width, the
             same storm (4 threads, max_batch 8, warm-up then measured with
             every launch counter and the torch panel counter set to 0):
@@ -150,8 +170,9 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             reported), and a tenant of burst 4 refused exactly
             8 of 12; the adaptive controller ticks, keeps its targets in
             bounds and changes no result; one flush profiled, in a
-            process of its own, its ``serve.flush`` range enclosing the
-            launches of its B1-batched kernels; storm
+            process of its own (the bucket's second flush, a graph
+            replay), its ``serve.flush`` range enclosing the launches of
+            its B1-batched kernels (their cudaGraphLaunch record); storm
             requests/s with the cache on and off, the H2D bytes residency
             saved, per-class waits and latencies, expired, shed and
             rate-limited counts, the transitions, the seconds and the
@@ -323,7 +344,9 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             → 2048, n0 = 32768);
 6. the ``{"kernels": [...]}`` line (``max_abs_err``: the worst of every
    check at the kernel's main-path shapes, all distributions and ragged
-   variants), the card's name and power limit, and
+   variants; ``replay_launches``: the launches made inside graph replays,
+   required for the five serve kernels of the captured flushes), the
+   card's name and power limit, and
    ``{"ok": true, ...}`` as the last line.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -1731,12 +1754,18 @@ def check_sparse(torch, P, np) -> list:
     return results
 
 
-def serve_requests(torch, np) -> list:
+def serve_requests(torch, np, seed_offset: int = 0) -> list:
     """The serve phase's requests: (bucket, endpoint, transform, operand,
     dimension), 16 per main bucket with 8 distinct seeds, 4 per smaller
     bucket. Dense operands are made on the card; CSR operands on the host,
-    as a SparseMatrix."""
-    from libskylark_tpu_torch import Context, sketch as sk
+    as a SparseMatrix. ``seed_offset`` moves every transform's seed and
+    keeps the operands."""
+    from libskylark_tpu_torch import sketch as sk
+
+    def Context(seed):
+        from libskylark_tpu_torch import Context as C
+
+        return C(seed + seed_offset)
 
     g = np.random.default_rng(800)
     reqs = []
@@ -1823,6 +1852,9 @@ SERVE_KERNELS = ("dense_batched_rowwise", "dense_batched_columnwise",
 ONE_LAUNCH_BUCKETS = {"cwt": "hash_batched", "srht": "fwht_batched"}
 # buckets whose result is held bit-equal to the plain program on the CPU
 EXACT_BUCKETS = ("sparse-rw", "sparse-cw", "cwt")
+# the serve sketch cells whose flushes are captured graphs (the sparse
+# flushes stay eager, ROADMAP B-ii 10)
+CAPTURED_BUCKETS = ("dense-rw", "ct-cw", "fastfood", "cwt", "srht")
 
 
 def serve_phase(torch, P, np) -> dict:
@@ -1929,7 +1961,86 @@ def serve_phase(torch, P, np) -> dict:
             worst[b] = max(worst.get(b, 0.0), err)
     out["max_abs_err_vs_plain"] = worst
     out["max_err_over_elementwise_limit"] = over
+    out["capture"] = st["capture"]
+    check(st["capture"]["captured_flushes"] == sum(
+        out["buckets"][b]["flushes"] for b in CAPTURED_BUCKETS),
+        f"the captured buckets' flushes were not all captured: "
+        f"{st['capture']}")
+    out["captured"] = captured_flush_checks(torch, np)
     emit("serve", **out)
+    return out
+
+
+def _prepare_request(ex, r):
+    """(bucket key, ctx, request) of a serve-phase request, packed by the
+    executor's own code and not queued."""
+    _, endpoint, T, A, dim = r
+    kw = {} if endpoint == "fastfood_features" else {"dimension": dim}
+    return ex._prepare(endpoint, transform=T, A=A, **kw)
+
+
+def captured_flush_checks(torch, np, device="cuda") -> dict:
+    """Each captured serve sketch cell's flush (CAPTURED_BUCKETS) through
+    its CompiledFn against the same flush run eagerly on the same stacked
+    inputs, torch.equal: the first cohort (the bucket's first 8 requests,
+    the smaller buckets' 4) captures the graph, the second (the same
+    operands under transforms of other seeds) replays it, a hit that
+    launches the bucket's kernel exactly once, inside the replay, and
+    gives another result than the first. Per bucket: the capture's and
+    the replay's ms, the replay's launches and the graph's pool MB."""
+    from libskylark_tpu_torch import engine
+    from libskylark_tpu_torch.engine import serve
+
+    first = serve_requests(torch, np)
+    second = serve_requests(torch, np, seed_offset=1000)
+    out = {}
+    with engine.MicrobatchExecutor(max_batch=8, linger_us=60_000_000,
+                                   device=device) as ex:
+        for b in CAPTURED_BUCKETS:
+            row, results = {}, []
+            for tag, reqs in (("capture", first), ("replay", second)):
+                mine = [r for r in reqs if r[0] == b][:8]
+                prepared = [_prepare_request(ex, r) for r in mine]
+                key, ctx, _ = prepared[0]
+                kd, scale, arrays, _ = ex._stack_cohort(
+                    ctx, [q for _, _, q in prepared], len(mine))
+                eager = serve.run_flush(ctx, "cuda", kd, scale,
+                                        {"A": arrays["A"].clone()})
+                with ex._lock:
+                    fn, why = ex._flush_fn_locked(key, ctx, "cuda")
+                check(fn is not None, f"{b}: the flush is not captured "
+                                      f"({why})")
+                before, hits = launch_counts(), engine.stats().hits
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = serve.run_flush(dict(ctx, flush_fn=fn), "cuda", kd,
+                                      scale, arrays)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                row[tag + "_ms"] = (time.perf_counter() - t0) * 1e3
+                launched = {k: v for k, v in qos_launches(before).items()
+                            if v}
+                check(bool(torch.equal(got, eager)),
+                      f"{b}: the {tag}'s flush differs from the same flush "
+                      "run eagerly")
+                if tag == "replay":
+                    check(engine.stats().hits == hits + 1,
+                          f"{b}: the second cohort's flush was no hit")
+                    check(device != "cuda"
+                          or list(launched.values()) == [1],
+                          f"{b}: the replay launched {launched}, not its "
+                          "kernel once")
+                    row["replay_launches"] = launched
+                    entry = engine.cache().snapshot()[-1]
+                    row["pool_mb"] = entry["pool_bytes"] / 2**20
+                    row["graph_mb"] = entry["nbytes"] / 2**20
+                results.append(got)
+            check(not torch.equal(results[0], results[1]),
+                  f"{b}: the replay under other keys repeated the captured "
+                  "result")
+            out[b] = row
+            del results
     return out
 
 
@@ -1966,6 +2077,181 @@ def flush_cell(torch, ex, bucket_reqs, reps: int = 5, warmup: int = 2,
                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     return {"warm_ms": warm, "device_ms": device, "busy": device / warm,
             "requests_per_s": len(bucket_reqs) / (warm / 1e3)}
+
+
+# the warmup phase's pack: PERF.md §4's serve cells at their own shapes
+# (SRHT is no family of the reference's builder: its flush is captured and
+# checked in the serve phase)
+WARMUP_SPECS = [
+    {"endpoint": "sketch_apply", "family": "JLT", "n": 8192, "m": 2048,
+     "s_dim": 1024, "rowwise": True, "capacities": [1, 8], "seed": 1700},
+    {"endpoint": "sketch_apply", "family": "CT", "n": 8192, "m": 128,
+     "s_dim": 1024, "rowwise": False, "capacities": [1, 8], "seed": 1710},
+    {"endpoint": "sketch_apply", "family": "CWT", "n": 8192, "m": 512,
+     "s_dim": 1024, "rowwise": True, "capacities": [1, 4], "seed": 1720},
+    {"endpoint": "fastfood_features", "family": "FastGaussianRFT",
+     "n": 4096, "m": 2048, "s_dim": 4096, "sigma": 64.0,
+     "capacities": [1, 8], "seed": 1730},
+]
+
+
+def warmup_cell(torch, spec, cap: int, device: str, reps: int = 5) -> dict:
+    """One packed (bucket, capacity)'s flush through a fresh executor on
+    its canonical cohort, the operands on the device: the cold flush
+    (warm-up and capture, the cache reset first), the median of ``reps``
+    replays, and the median of ``reps`` eager flushes (the capture turned
+    off); device ms of a replay and of an eager flush under
+    torch.profiler, busy = device / warm; the graph's pool and total MB."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from libskylark_tpu_torch import engine
+    from libskylark_tpu_torch.engine import serve, warmup
+
+    cuda = device == "cuda"
+    reqs = [(T, torch.from_numpy(A).to(device))
+            for T, A in warmup._spec_requests(spec, cap)]
+
+    def flush_ms(ex):
+        futs = [warmup._submit(ex, spec, T, A) for T, A in reqs]
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.flush()
+        ms = (time.perf_counter() - t0) * 1e3
+        for f in futs:
+            f.result(timeout=600)
+        return ms
+
+    def device_ms(ex):
+        if not cuda:
+            return None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush_ms(ex)
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+    row = {}
+    engine.reset()
+    # max_batch 2·cap: the cohort waits for flush(), its class is cap
+    with engine.MicrobatchExecutor(max_batch=2 * cap, linger_us=60_000_000,
+                                   device=device) as ex:
+        row["cold_ms"] = flush_ms(ex)
+        row["replay_ms"] = statistics.median(flush_ms(ex)
+                                             for _ in range(reps))
+        row["replay_device_ms"] = device_ms(ex)
+        (entry,) = engine.cache().snapshot()
+        row["pool_mb"] = entry["pool_bytes"] / 2**20
+        row["graph_mb"] = entry["nbytes"] / 2**20
+    captured = serve._CAPTURED_ENDPOINTS
+    serve._CAPTURED_ENDPOINTS = ()
+    try:
+        with engine.MicrobatchExecutor(max_batch=2 * cap,
+                                       linger_us=60_000_000,
+                                       device=device) as ex:
+            flush_ms(ex)
+            row["eager_ms"] = statistics.median(flush_ms(ex)
+                                                for _ in range(reps))
+            row["eager_device_ms"] = device_ms(ex)
+            check(ex.stats()["capture"]["captured_flushes"] == 0,
+                  "an eager flush went through the executable cache")
+    finally:
+        serve._CAPTURED_ENDPOINTS = captured
+    if cuda:
+        row["busy_replay"] = row["replay_device_ms"] / row["replay_ms"]
+        row["busy_eager"] = row["eager_device_ms"] / row["eager_ms"]
+    engine.reset()
+    return row
+
+
+def warmup_phase(torch, P, np, specs=WARMUP_SPECS, device="cuda") -> dict:
+    """Phase 4b-iii, warmup packs at full width: a pack built from
+    WARMUP_SPECS (each bucket at capacities 1 and 8, CWT 1 and 4), every
+    entry captured on the kernel route with its capture record written;
+    each entry's cold, replay and eager flush (:func:`warmup_cell`); then
+    two fresh processes serve every packed cohort (on the CPU: this one,
+    the cache reset between), cold and booted from the pack: the cold one
+    must capture each entry once (compiles = misses = entries), the
+    packed one load every entry (loaded = aot_loads = kernel_restored =
+    entries) and then serve with no capture (compiles = misses = 0, a hit
+    per entry), both bit-equal to the builder's results."""
+    import shutil
+
+    from libskylark_tpu_torch import engine
+    from libskylark_tpu_torch.engine import warmup
+
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+    specs = [warmup.BucketSpec.from_dict(s) for s in specs]
+    pack = ROOT / "build" / "warmup_pack"
+    shutil.rmtree(pack, ignore_errors=True)
+    before = launch_counts()
+    out = {"card": smi("name,power.limit") if cuda else None}
+    t0 = time.perf_counter()
+    manifest = warmup.build_pack(str(pack), specs, device=device)
+    out["build_seconds"] = time.perf_counter() - t0
+    n = len(manifest["entries"])
+    route = "cuda" if cuda else "plain"
+    check(n == sum(len(s.capacities) for s in specs)
+          and not manifest["uncaptured"],
+          f"the pack holds {n} entries, uncaptured: "
+          f"{manifest['uncaptured']}")
+    check(all(e["kernel"] == route and not e.get("artifact_missing")
+              for e in manifest["entries"]),
+          "a packed entry is off the kernel route or has no record")
+    out["entries"] = [{k: e[k] for k in ("name", "capacity", "kernel",
+                                         "digest")}
+                      for e in manifest["entries"]]
+    if cuda:
+        # the pack's graphs, all resident after the build, within the
+        # executable cache's device-memory bound
+        from libskylark_tpu_torch.engine.compiled import byte_budget
+
+        held = engine.cache().nbytes()
+        budget = byte_budget(torch.device("cuda",
+                                          torch.cuda.current_device()))
+        out["graphs_mb"], out["budget_mb"] = held / 2**20, budget / 2**20
+        check(len(engine.cache()) == n and held <= budget,
+              f"the pack's {len(engine.cache())} graphs hold {held} bytes "
+              f"against a budget of {budget}")
+    out["cells"] = {f"{s.family}-{'rw' if s.rowwise else 'cw'}-{c}":
+                    warmup_cell(torch, s, c, device)
+                    for s in specs for c in s.capacities}
+    out["launches"] = qos_launches(before)
+    if cuda:
+        release_cache(torch)
+        cold = warmup.spawn_boot_probe(str(pack), load=False, timeout=600)
+        packed = warmup.spawn_boot_probe(str(pack), load=True, timeout=600)
+    else:
+        engine.reset()
+        cold = warmup.serve_probe(str(pack), load=False, device=device)
+        engine.reset()
+        packed = warmup.serve_probe(str(pack), load=True, device=device)
+        engine.reset()
+    ce, pe, w = cold["engine"], packed["engine"], packed["warmup"] or {}
+    check(cold["bit_equal"] and ce["compiles"] == n and ce["misses"] == n,
+          f"cold boot probe: bit_equal {cold['bit_equal']}, {ce}")
+    check(packed["bit_equal"] and w.get("skipped") is None
+          and not w.get("failed") and w.get("loaded") == n
+          and w.get("kernel_restored") == n,
+          f"packed boot probe: bit_equal {packed['bit_equal']}, {w}")
+    check(pe["compiles"] == 0 and pe["misses"] == 0 and pe["hits"] == n
+          and pe["aot_loads"] == n,
+          f"the packed boot probe captured during traffic: {pe}")
+    keys = ("t_first_result_s", "t_total_s", "wall_since_spawn_s",
+            "flush_ms")
+    out["boot_probe"] = {
+        name: {**{k: r.get(k) for k in keys},
+               **{k: r["engine"][k] for k in (
+                   "compiles", "misses", "hits", "aot_loads",
+                   "compile_seconds", "load_seconds")},
+               "bit_equal": r["bit_equal"]}
+        for name, r in (("cold", cold), ("packed", packed))}
+    out["seconds"] = time.perf_counter() - t_phase
+    if cuda:
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        release_cache(torch)
+    emit("warmup", **out)
+    return out
 
 
 def serve_cells(torch, np) -> dict:
@@ -3290,23 +3576,31 @@ def profiled_flush_checks(torch, prof, device) -> dict:
         return {"range_us": hi - lo, "enclosed": sorted(set(inside))}
     kernels = [e for e in events
                if e.device_type == gpu and "dense" in e.name]
+    # a replayed graph's kernels share its cudaGraphLaunch record
     launch = {e.id: e for e in events if e.device_type == cpu
-              and e.name.startswith(("cudaLaunch", "cuLaunch"))}
-    annot = [e for e in events
+              and e.name.startswith(("cudaLaunch", "cuLaunch",
+                                     "cudaGraphLaunch", "cuGraphLaunch"))}
+    # the device-side annotation: one span per run of kernels (a
+    # replayed graph's kernels may each get their own)
+    annot = [(e.time_range.start, e.time_range.end) for e in events
              if e.name == "serve.flush" and e.device_type == gpu]
-    check(bool(kernels) and len(annot) == 1,
+    check(bool(kernels) and bool(annot),
           f"the profiled flush's trace holds {len(kernels)} B1 kernels and "
           f"{len(annot)} device-side serve.flush annotations")
-    dlo, dhi = annot[0].time_range.start, annot[0].time_range.end
+    dlo, dhi = min(a for a, _ in annot), max(b for _, b in annot)
     inside = [k.name for k in kernels if k.id in launch
               and lo <= launch[k.id].time_range.start
               and launch[k.id].time_range.end <= hi
-              and dlo <= k.time_range.start and k.time_range.end <= dhi]
+              and any(a <= k.time_range.start and k.time_range.end <= b
+                      for a, b in annot)]
     check(len(inside) == len(kernels),
           f"serve.flush [{lo}, {hi}] encloses the launches of {len(inside)} "
           f"of the flush's {len(kernels)} kernels")
     return {"range_us": hi - lo, "device_range_us": dhi - dlo,
-            "enclosed": sorted(set(inside))}
+            "device_annotations": len(annot),
+            "enclosed": sorted(set(inside)),
+            "launch_records": sorted({launch[k.id].name for k in kernels
+                                      if k.id in launch})}
 
 
 def qos_rw_operands(torch, P, g, size, device) -> list:
@@ -3325,10 +3619,11 @@ def qos_rw_operands(torch, P, g, size, device) -> list:
 
 
 def profiled_flush(torch, rw, device) -> tuple:
-    """Four dense-rw requests held for one :meth:`flush` under
+    """Four dense-rw requests held for one :meth:`flush`, twice: the first
+    flush captures the bucket's graph, the second, a replay, runs under
     torch.profiler, spans on: (:func:`profiled_flush_checks`' result,
-    the flush's launches). Fails unless the flush's ``serve.flush`` span
-    carries its four requests' ids."""
+    the two flushes' launches). Fails unless the profiled flush's
+    ``serve.flush`` span carries its four requests' ids."""
     from torch.profiler import ProfilerActivity, profile
 
     from libskylark_tpu_torch import engine, sketch as sk, telemetry
@@ -3339,21 +3634,32 @@ def profiled_flush(torch, rw, device) -> tuple:
         px = engine.MicrobatchExecutor(max_batch=8, linger_us=60_000_000,
                                        device=device)
         try:
-            pf = [px.submit_sketch(T, A, dimension=sk.ROWWISE)
-                  for A, T in (rw[i % len(rw)] for i in range(4))]
+            def cohort():
+                return [px.submit_sketch(T, A, dimension=sk.ROWWISE)
+                        for A, T in (rw[i % len(rw)] for i in range(4))]
+
             acts = [ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if device == "cuda" else [])
             before = launch_counts()
+            pf = cohort()
+            px.flush()
+            for f in pf:
+                f.result(timeout=600)
+            hits = engine.stats().hits
+            pf = cohort()
             with profile(activities=acts) as prof:
                 px.flush()
             launched = qos_launches(before)
             for f in pf:
                 f.result(timeout=600)
+            check(engine.stats().hits == hits + 1,
+                  "the profiled flush was not a replay")
         finally:
             px.shutdown()
     finally:
         telemetry.set_enabled(tele)
     checked = profiled_flush_checks(torch, prof, device)
+    checked["profiled"] = "the bucket's second flush, a graph replay"
     spans = [sp for sp in telemetry.finished_spans()
              if sp.name == "serve.flush"]
     check(bool(spans) and len(spans[-1].attrs["request_ids"]) == 4,
@@ -6420,6 +6726,10 @@ def compiled_phase(torch, P, np, size=COMPILED_FULL, device="cuda") -> dict:
     return out
 
 
+# the serve kernels of the captured sketch flushes: each must launch
+# inside a graph replay (kernels.launch.replayed)
+REPLAYED_KERNELS = ("dense_batched_rowwise", "dense_batched_columnwise",
+                    "hash_batched", "fwht_batched", "fastfood_batched")
 CSRC = "libskylark_tpu_torch/csrc/"
 # kernel: (source, the TPU kernel it replaces)
 KERNELS = {
@@ -6481,7 +6791,7 @@ def main() -> int:
 
     check(Path(P.__file__).resolve().parent.parent == ROOT,
           f"libskylark_tpu_torch imported from {P.__file__}, not {ROOT}")
-    from libskylark_tpu_torch.kernels import build
+    from libskylark_tpu_torch.kernels import build, launch
 
     card = smi("name,power.limit")
     peaks = card_peaks(torch)
@@ -6515,6 +6825,8 @@ def main() -> int:
     release_cache(torch)
     serve = serve_phase(torch, P, np)
     emit("serve_cells", cells=serve_cells(torch, np))
+    release_cache(torch)
+    wphase = warmup_phase(torch, P, np)
     release_cache(torch)
     ssolve = serve_solve_phase(torch, P, np)
     release_cache(torch)
@@ -6594,6 +6906,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (main["launches"][name] + serve["launches"][name]
+                         + wphase["launches"][name]
                          + ssolve["launches"][name]
                          + sqos["launches"][name]
                          + sparse["launches"][name]
@@ -6602,6 +6915,7 @@ def main() -> int:
                          + dphase["launches"][name]
                          + sphase["launches"][name]
                          + cphase["launches"][name]),
+            "replay_launches": launch.replayed[name],
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],
             "ms": head["ms"], "device_ms": head["device_ms"],
@@ -6617,6 +6931,9 @@ def main() -> int:
                 "ms": [r["ms"] for r in rows if r["kernel"] == name
                        and r.get("use", "").startswith("MaternRFT")]}}
                if matern else {})})
+    for name in REPLAYED_KERNELS:
+        check(launch.replayed[name] > 0,
+              f"{name} was never launched inside a graph replay")
     check("jax" not in sys.modules and "libskylark_tpu" not in sys.modules,
           "the port imported jax or libskylark_tpu")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -205,7 +205,9 @@ EXEC_CACHE_DIR = declare(
     doc="jax's persistent compilation cache: no meaning on the card (a "
         "CUDA graph cannot be serialized); ``engine."
         "enable_persistent_cache`` reads it, warns once and returns "
-        "False. Declared so that both packages see one set of names.")
+        "False. Alone (without ``SKYLARK_AOT_DIR``) it is the deprecated "
+        "alias of the capture-record store at ``<dir>/aot`` "
+        "(``engine.aot.aot_dir``).")
 
 ENGINE_STATS_DUMP = declare(
     "SKYLARK_ENGINE_STATS_DUMP", default=None, kind="path",
@@ -215,37 +217,43 @@ ENGINE_STATS_DUMP = declare(
 AOT_DIR = declare(
     "SKYLARK_AOT_DIR", default=None, parser=parse_path_or_off,
     kind="path", propagate=True,
-    doc="AOT artifact store; no reader in the port until ROADMAP A6 "
-        "(engine/aot.py).")
+    doc="Store of capture records (``engine.aot.aot_dir``): with it set, "
+        "each capture of the executable cache writes its key's record "
+        "there; an off-word disables the store.")
 
 AOT_LOCK_STALE = declare(
     "SKYLARK_AOT_LOCK_STALE", default=600.0, parser=parse_float,
     kind="float",
-    doc="Age past which a peer's AOT file lock is broken; ROADMAP A6.")
+    doc="Age past which a peer's file lock is taken over "
+        "(``engine.aot.FileLock``: capture records, kernel builds).")
 
 AOT_LOCK_TIMEOUT = declare(
     "SKYLARK_AOT_LOCK_TIMEOUT", default=600.0, parser=parse_float,
     kind="float",
-    doc="Wait on the cross-process AOT compile lock; ROADMAP A6.")
+    doc="Wait on a cross-process file lock (a capture record's, a "
+        "kernel library's build) before going on without it.")
 
 # -- serving / fleet --------------------------------------------------------
 
 #: The reference's flush-kernel backends, the values its env parsers
 #: accept; the port's executor names its routes ``cuda``/``plain``
-#: (``engine.serve.KERNEL_CHOICES``), and their mapping comes with the
-#: kernel-selection precedence (ROADMAP A6).
+#: (``engine.serve.KERNEL_CHOICES``): ``pallas`` is ``cuda`` and ``xla``
+#: is ``plain``.
 SERVE_KERNEL_BACKENDS = ("pallas", "xla")
 
 SERVE_KERNEL = declare(
     "SKYLARK_SERVE_KERNEL", default=None, kind="choice", propagate=True,
     parser=_choice(SERVE_KERNEL_BACKENDS, None),
-    doc="Flush-kernel override of the reference's precedence (``pallas`` "
-        "| ``xla``); no reader in the port until ROADMAP A6's kernel "
-        "selection.")
+    doc="Flush-route pin of the sketch endpoints' buckets (``pallas``: "
+        "the kernel, ``xla``: the plain program), after the executor's "
+        "``kernel=`` and before a warmup pack's decision "
+        "(``engine.serve``).")
 
 BOOT_T0 = declare(
     "SKYLARK_BOOT_T0", default=None, parser=parse_float, kind="float",
-    doc="Parent's spawn time of a replica; ROADMAP A7 (fleet/).")
+    doc="Parent's spawn time of a boot probe (``skylark_warmup "
+        "boot-probe`` reports the wall time since it); a replica's "
+        "comes with ROADMAP A7 (fleet/).")
 
 #: The fleet replica backends.
 FLEET_BACKENDS = ("thread", "process", "auto")
@@ -430,7 +438,9 @@ PLAN_CACHE = declare(
 USE_PLAN_CACHE = declare(
     "SKYLARK_USE_PLAN_CACHE", default=True, parser=parse_bool_default_on,
     kind="flag",
-    doc="Consult the plan cache at dispatch; ROADMAP A6 (tune/).")
+    doc="Consult the plan cache at dispatch; the port has no plan cache "
+        "yet (ROADMAP A6, tune/), and with it off an executor declines a "
+        "warmup pack's route decisions (``restore_kernel_choice``).")
 
 COST_CALIB = declare(
     "SKYLARK_COST_CALIB", default=None, parser=parse_path_or_off,
@@ -456,16 +466,16 @@ SPARSE_NNZ_FLOOR = declare(
 SPARSE_KERNEL = declare(
     "SKYLARK_SPARSE_KERNEL", default=None, kind="choice", propagate=True,
     parser=_choice(SERVE_KERNEL_BACKENDS, None),
-    doc="Flush-kernel pin of the sparse serve family; no reader in the "
-        "port until ROADMAP A6's kernel selection.")
+    doc="Flush-route pin of the sparse serve buckets, ahead of "
+        "``SKYLARK_SERVE_KERNEL`` (``engine.serve``).")
 
 # -- panel-free FWHT tier ---------------------------------------------------
 
 FWHT_KERNEL = declare(
     "SKYLARK_FWHT_KERNEL", default=None, kind="choice", propagate=True,
     parser=_choice(SERVE_KERNEL_BACKENDS, None),
-    doc="Flush-kernel pin of the SRHT serve family; no reader in the "
-        "port until ROADMAP A6's kernel selection.")
+    doc="Flush-route pin of the SRHT serve buckets, ahead of "
+        "``SKYLARK_SERVE_KERNEL`` (``engine.serve``).")
 
 FWHT_MIN_N = declare(
     "SKYLARK_FWHT_MIN_N", default=4096, parser=parse_positive_int,

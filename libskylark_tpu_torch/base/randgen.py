@@ -73,9 +73,26 @@ def chunk_keys(key, first: int, count: int) -> np.ndarray:
     return chunk_keys_batched(np.array([[k0, k1]]), first, count)[0]
 
 
-def chunk_keys_batched(keys, first: int, count: int) -> np.ndarray:
+def key_tensor(keys) -> torch.Tensor:
+    """(B, 2) key words held in a tensor, as int64 uint32 values: the
+    kernels' int32 form (the bits of uint32 words) or int64 words."""
+    k = keys.reshape(-1, 2)
+    return k.to(torch.int64) & tf.MASK32 if k.dtype == torch.int32 else k
+
+
+def chunk_keys_batched(keys, first: int, count: int):
     """:func:`chunk_keys` for each row of ``keys`` ((B, 2) uint32 words):
-    a (B, count, 2) uint32 array."""
+    a (B, count, 2) uint32 array. Keys held in a tensor
+    (:func:`key_tensor`) stay on its device: the result is an int64
+    tensor there, made with no host read or copy (the form a captured
+    serve flush makes its streams in, engine/serve.py)."""
+    if isinstance(keys, torch.Tensor):
+        k = key_tensor(keys)
+        cids = torch.arange(int(first), int(first) + int(count),
+                            dtype=torch.int64, device=k.device)
+        h0, h1 = tf.threefry2x32(k[:, :1], k[:, 1:], 0, cids >> 31)
+        b0, b1 = tf.threefry2x32(h0, h1, 0, cids & _MASK31)
+        return torch.stack([b0, b1], dim=2)
     k = np.asarray(keys).astype(np.int64)
     cids = np.arange(int(first), int(first) + int(count), dtype=np.int64)
     zero = np.zeros_like(cids)
@@ -84,9 +101,15 @@ def chunk_keys_batched(keys, first: int, count: int) -> np.ndarray:
     return np.stack([b0, b1], axis=2).astype(np.uint32)
 
 
-def fold_in_batched(keys, data) -> np.ndarray:
+def fold_in_batched(keys, data):
     """``fold_in(k, d)`` for each row k of ``keys`` ((B, 2) uint32 words)
-    with ``data`` a scalar or a (B,) array: (B, 2) uint32."""
+    with ``data`` a scalar or a (B,) array: (B, 2) uint32. Keys held in a
+    tensor give an int64 tensor on its device (``data`` then a Python int
+    or a tensor there)."""
+    if isinstance(keys, torch.Tensor):
+        k = key_tensor(keys)
+        x0, x1 = tf.threefry2x32(k[:, 0], k[:, 1], 0, data)
+        return torch.stack([x0, x1], dim=1)
     k = np.asarray(keys).astype(np.int64)
     d = np.broadcast_to(np.asarray(data, dtype=np.int64), k.shape[:1])
     x0, x1 = tf.threefry2x32(k[:, 0], k[:, 1], np.zeros_like(d), d)
@@ -444,18 +467,23 @@ def permutation(key, n: int, device=None) -> torch.Tensor:
 def permutation_batched(keys, n: int, device=None) -> torch.Tensor:
     """:func:`permutation` for each row of ``keys`` ((R, 2) uint32 words),
     all rows at once: each round is one Threefry pass over the (R, n)
-    words and one row-wise stable sort. Returns (R, n) int64."""
+    words and one row-wise stable sort. Returns (R, n) int64, on the
+    device of ``keys`` when they are a tensor (:func:`key_tensor`)."""
     n = int(n)
-    k = np.asarray(keys).astype(np.int64)
+    if isinstance(keys, torch.Tensor):
+        k = key_tensor(keys)
+        device = k.device
+    else:
+        k = np.asarray(keys).astype(np.int64)
     x = torch.arange(n, dtype=torch.int64, device=device).expand(
         k.shape[0], n)
     rounds = int(np.ceil(3 * np.log(max(1, n))
                          / np.log(np.iinfo(np.uint32).max)))
     for _ in range(rounds):
         k, sub = split_keys(k)
-        words = chunk_bits(upload(torch.from_numpy(sub.astype(np.int64)),
-                                  device),
-                           n)
+        if not isinstance(sub, torch.Tensor):
+            sub = upload(torch.from_numpy(sub.astype(np.int64)), device)
+        words = chunk_bits(sub, n)
         x = torch.gather(x, 1, torch.sort(words, dim=1, stable=True).indices)
     return x
 
@@ -463,17 +491,23 @@ def permutation_batched(keys, n: int, device=None) -> torch.Tensor:
 def stream_slice_batched(keys, dist: Distribution, start: int, stop: int,
                          dtype=None, device=None) -> torch.Tensor:
     """:func:`stream_slice` of each row of ``keys`` ((B, 2) uint32 words),
-    made in one pass over all rows: (B, stop − start) on ``device``."""
+    made in one pass over all rows: (B, stop − start) on ``device``, or on
+    the device of ``keys`` when they are a tensor (:func:`key_tensor`):
+    then nothing is read or copied from the host."""
     start, stop = int(start), int(stop)
-    B = np.asarray(keys).shape[0]
+    if isinstance(keys, torch.Tensor):
+        keys = key_tensor(keys)
+        device = keys.device
+    B = keys.shape[0]
     if stop <= start:
         return torch.zeros((B, 0), dtype=dtype or torch.float32,
                            device=device)
     c0 = start // CHUNK
     c1 = -(-stop // CHUNK)
     ck = chunk_keys_batched(keys, c0, c1 - c0).reshape(-1, 2)
-    vals = dist.sample_chunks(
-        upload(torch.from_numpy(ck.astype(np.int64)), device), CHUNK)
+    if not isinstance(ck, torch.Tensor):
+        ck = upload(torch.from_numpy(ck.astype(np.int64)), device)
+    vals = dist.sample_chunks(ck, CHUNK)
     vals = vals.reshape(B, -1)[:, start - c0 * CHUNK:stop - c0 * CHUNK]
     return vals if dtype is None else vals.to(dtype)
 

@@ -18,13 +18,15 @@ Counter vocabulary:
     LRU entries dropped at capacity (``SKYLARK_EXEC_CACHE_SIZE``, default
     128 executables).
 ``compiles``
-    materializations: CUDA-graph captures on the card, keyed bodies on
-    the CPU. The port has no artifact store (``aot_loads`` and
-    ``aot_load_failures`` stay 0, kept for the reference's schema), so
-    this equals ``misses``.
+    materializations caused by traffic: CUDA-graph captures on the card,
+    keyed bodies on the CPU; equal to ``misses``.
+``aot_loads`` / ``aot_load_failures``
+    materializations a boot made from capture records before traffic
+    (a warmup pack's entries, ``engine.warmup.load_pack``: never a miss
+    or a compile), and records that could not be used.
 ``compile_seconds`` / ``load_seconds`` / ``execute_seconds``
-    cumulative wall time: warm-up plus capture, artifact loads (0), and
-    the calls' copy-in, replay and output clones.
+    cumulative wall time: warm-up plus capture of traffic's misses, of
+    the loads, and the calls' copy-in, replay and output clones.
 """
 
 from __future__ import annotations
@@ -93,7 +95,7 @@ class CacheEntry:
     name: str                 # wrapped solver name
     compile_seconds: float
     calls: int = 0
-    loaded: bool = False      # from an artifact store (none in the port)
+    loaded: bool = False      # captured from a record before traffic
 
 
 class ExecutableCache:
@@ -141,27 +143,31 @@ class ExecutableCache:
                 self.stats.recompiles += 1
             return None
 
-    def acquire(self, key: Hashable) -> Optional[CacheEntry]:
+    def acquire(self, key: Hashable,
+                count: bool = True) -> Optional[CacheEntry]:
         """Single-flight lookup: an entry on hit, else ``None`` exactly
         once per cold key — the calling thread owns the materialization
         and MUST
         finish with :meth:`insert` or :meth:`abort`. Concurrent callers
         of the same cold key block until the owner resolves it, then
         take the hit path (or inherit the compile if the owner
-        aborted)."""
+        aborted). ``count=False`` (a boot's load) counts neither the hit
+        nor the miss."""
         while True:
             with self._lock:
                 entry = self._entries.get(key)
                 if entry is not None:
                     self._entries.move_to_end(key)
-                    self.stats.hits += 1
+                    if count:
+                        self.stats.hits += 1
                     return entry
                 ev = self._inflight.get(key)
                 if ev is None:
                     self._inflight[key] = threading.Event()
-                    self.stats.misses += 1
-                    if key in self._seen:
-                        self.stats.recompiles += 1
+                    if count:
+                        self.stats.misses += 1
+                        if key in self._seen:
+                            self.stats.recompiles += 1
                     return None
             ev.wait()
 
@@ -216,15 +222,15 @@ class ExecutableCache:
             self.stats.compiles += 1
 
     def note_aot_load(self, seconds: float) -> None:
-        """Record one artifact load (the reference's artifact store; the
-        port has none yet, ROADMAP A6)."""
+        """Record one load: a capture made from a record before traffic
+        (``engine.compiled.loading``)."""
         with self._lock:
             self.stats.aot_loads += 1
             self.stats.load_seconds += seconds
 
     def note_aot_load_failure(self) -> None:
-        """Record one unusable artifact (the reference's store; none in
-        the port)."""
+        """Record one record that could not be used (compat, a torn file,
+        a capture that failed or landed on another key)."""
         with self._lock:
             self.stats.aot_load_failures += 1
 

@@ -48,18 +48,29 @@ donated tensor is consumed: once it is copied in (on the CPU, once the
 body ran) it lets go of its storage and becomes empty, so a later use of
 its shape raises.
 
-The reference's artifact store and persistent compilation cache have no
-counterpart: a CUDA graph cannot be serialized (:func:`enable_persistent_cache`;
-ROADMAP A6 brings aot.py and warmup.py).
+**Capture records** (:mod:`.aot`). A CUDA graph cannot be serialized, so
+where the reference writes each compiled executable into its artifact
+store, the port writes a capture record: with ``SKYLARK_AOT_DIR`` set,
+each capture writes its key's record (the key, the body's name, its
+arguments' shapes, dtypes and devices) under the key's per-digest file
+lock, so racing processes write it once. A record makes no graph by
+itself: a boot captures before traffic, by serving a warmup pack's
+canonical cohorts (:mod:`.warmup`) inside :func:`loading`, where the
+capture of a record's key counts as an ``aot_load`` (its warm-up and
+capture time in ``load_seconds``), never as a miss or a compile. jax's
+persistent compilation cache has no counterpart
+(:func:`enable_persistent_cache`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import inspect
 import json
 import os
+import threading
 import time
 import warnings
 import weakref
@@ -71,6 +82,7 @@ from libskylark_tpu_torch import telemetry as _telemetry
 from libskylark_tpu_torch.base import env as _env
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base import locks as _locks
+from libskylark_tpu_torch.engine import aot as _aot
 from libskylark_tpu_torch.engine.cache import (CacheEntry, EngineStats,
                                                ExecutableCache)
 from libskylark_tpu_torch.kernels import launch as _launch
@@ -152,9 +164,10 @@ _persist_warned = False
 def enable_persistent_cache(path: Optional[str] = None) -> bool:
     """The reference wires jax's persistent compilation cache at ``path``
     (or ``SKYLARK_EXEC_CACHE_DIR``). The port has nothing to wire: a CUDA
-    graph cannot be serialized, and the cross-process artifact comes with
-    ``engine/aot.py`` and ``warmup.py`` (ROADMAP A6). Returns False,
-    warning once when a path was asked for; never raises."""
+    graph cannot be serialized. Its cross-process artifact is the capture
+    record of ``SKYLARK_AOT_DIR`` (:mod:`.aot`), which a warmup pack
+    captures from before traffic (:mod:`.warmup`). Returns False, warning
+    once when a path was asked for; never raises."""
     global _persist_warned
     path = path or _env.EXEC_CACHE_DIR.raw()
     if not path or path.strip().lower() in _env.OFF_WORDS:
@@ -162,10 +175,41 @@ def enable_persistent_cache(path: Optional[str] = None) -> bool:
     if not _persist_warned:
         _persist_warned = True
         warnings.warn(
-            f"no persistent executable cache in the port (a CUDA graph "
-            f"cannot be serialized): {path!r} is not used",
+            f"no persistent compilation cache in the port (a CUDA graph "
+            f"cannot be serialized): {path!r} is not used; set "
+            f"SKYLARK_AOT_DIR for the store of capture records and boot "
+            f"from a warmup pack (engine.warmup)",
             RuntimeWarning, stacklevel=2)
     return False
+
+
+_LOAD_KEYS: set = set()
+_load_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def loading(keys):
+    """Within the block, a cold materialization of one of ``keys``, on
+    any thread (an executor's worker flushes too), is an AOT load: a boot
+    capturing what a record names before traffic. It counts
+    ``aot_loads`` and ``load_seconds`` (the warm-up and the capture),
+    never a miss, a compile or ``compile_seconds``, and its entry is
+    marked ``loaded``."""
+    keys = set(keys)
+    with _load_lock:
+        _LOAD_KEYS.update(keys)
+    try:
+        yield
+    finally:
+        with _load_lock:
+            _LOAD_KEYS.difference_update(keys)
+
+
+def _loading(key) -> bool:
+    if not _LOAD_KEYS:
+        return False
+    with _load_lock:
+        return key in _LOAD_KEYS
 
 
 # ---------------------------------------------------------------------------
@@ -476,10 +520,12 @@ class CompiledFn:
             device.type,
         )
 
-    def _materialize(self, key, args, kwargs, device, donate) -> tuple:
+    def _materialize(self, key, args, kwargs, device, donate,
+                     load: bool) -> tuple:
         """(entry, the call's result or None) for a cold key: the body
         itself on the CPU; on the card the warm-up, whose result this call
-        returns, and the capture."""
+        returns, and the capture. ``load``: a boot's capture of a record's
+        key (:func:`loading`), counted as an AOT load."""
         t0 = time.perf_counter()
         with _telemetry.span("engine.compile", attrs={"name": self.name}):
             _faults.check("engine.compile", detail=self.name)
@@ -494,17 +540,50 @@ class CompiledFn:
                     f"engine.compiled({self.name}) runs on CUDA or the CPU, "
                     f"got {device}")
         dt = time.perf_counter() - t0
-        _COMPILE_HIST.observe_always(dt, name=self.name)
-        with self._stats_lock:
-            self.stats.compiles += 1
-            self.stats.compile_seconds += dt
-        _CACHE.note_compile()
+        if load:
+            with self._stats_lock:
+                self.stats.aot_loads += 1
+                self.stats.load_seconds += dt
+            _CACHE.note_aot_load(dt)
+        else:
+            _COMPILE_HIST.observe_always(dt, name=self.name)
+            with self._stats_lock:
+                self.stats.compiles += 1
+                self.stats.compile_seconds += dt
+            _CACHE.note_compile()
         entry = CacheEntry(executable=executable, name=self.name,
-                           compile_seconds=dt)
+                           compile_seconds=0.0 if load else dt, loaded=load)
         _CACHE.insert(key, entry)
         if device.type == "cuda":
             _CACHE.trim(byte_budget(device))
+        self._persist(key, args, device, dt)
         return entry, first
+
+    def _persist(self, key, args, device, seconds: float) -> None:
+        """With the store on, write ``key``'s capture record unless it is
+        there, under the key's file lock (racing processes write it once;
+        a lock not won within ``SKYLARK_AOT_LOCK_TIMEOUT`` is gone
+        without). Never raises."""
+        if not _aot.enabled():
+            return
+        try:
+            path = _aot.artifact_path(_aot.key_digest(key))
+            lock = _aot.lock_for(key)
+            held = lock.acquire(timeout=_aot.lock_timeout())
+            try:
+                if not os.path.exists(path):
+                    _aot.save(key, {
+                        "name": self.name,
+                        "args": [_arg_key(a) for a in args],
+                        "statics": key[2], "extra": key[3],
+                        "donate": key[6], "device": str(device)},
+                        name=self.name, compile_seconds=seconds)
+            finally:
+                if held:
+                    lock.release()
+        except Exception as e:  # noqa: BLE001 — a record is optional
+            warnings.warn(f"capture record of {self.name!r} not written: "
+                          f"{e!r}", RuntimeWarning, stacklevel=2)
 
     def __call__(self, *args, **kwargs):
         statics = tuple(
@@ -517,14 +596,16 @@ class CompiledFn:
         args, device = _prepare(self.name, args)
         donate_argnums = self._effective_donate()
         key = self._key(args, statics, kwargs, donate_argnums, device)
-        entry = _CACHE.acquire(key)
+        load = _loading(key)
+        entry = _CACHE.acquire(key, count=not load)
         out = None
         if entry is None:
-            with self._stats_lock:
-                self.stats.misses += 1
+            if not load:
+                with self._stats_lock:
+                    self.stats.misses += 1
             try:
                 entry, out = self._materialize(key, args, kwargs, device,
-                                               donate_argnums)
+                                               donate_argnums, load)
             except BaseException:
                 _CACHE.abort(key)
                 raise

@@ -135,9 +135,37 @@ With telemetry on, ``serve.submit`` and ``serve.flush`` spans carry each
 request's id across the thread hop, and a ``serve.flush`` span's
 ``torch.profiler`` range encloses the flush's launches.
 
-Not ported yet (later slices): the executor's ``mesh`` and the
-kernel-selection precedence, warmup packs and AOT (ROADMAP A6); sessions,
-training jobs and the dist endpoints (A7).
+**Captured flushes.** The sketch endpoints' flushes, ``sketch_apply``
+(JLT, CT, CWT, SRHT) and ``fastfood_features``, run through the
+executable cache (:mod:`libskylark_tpu_torch.engine.compiled`), as the
+reference's ``_compiled_for`` runs them through ``engine_compile``: one
+``CompiledFn`` per bucket's statics and route, named
+``serve.sketch_apply`` / ``serve.fastfood_features`` and keyed on the
+statics plus ``("kernel", route)``, the stacked keys ((B, 2) int32 on the
+card), scales and operand its inputs, the operand donated. On the card the
+first flush of a (bucket, capacity) captures a CUDA graph of the kernel
+route and every later one replays it: the keys reach the kernels, and
+Fastfood's streams are made from them, on the card, inside the graph. On
+the CPU the body runs. Eager, with the reason counted under
+``stats()["capture"]``: the other endpoints' flushes (ROADMAP B-ii 10),
+FastMaternRFT's (its Gamma loop reads the host each round) and the plain
+route on the card (its programs make their streams on the host). A flush
+that cannot be captured raises to its futures; nothing reruns it eagerly.
+
+**Kernel selection.** A kernel bucket's route, per (bucket, capacity),
+follows the reference's precedence: the executor's ``kernel=``; then
+``SKYLARK_SERVE_KERNEL`` (``pallas`` is the port's ``cuda`` and ``xla``
+its ``plain``), with ``SKYLARK_FWHT_KERNEL`` for SRHT buckets and
+``SKYLARK_SPARSE_KERNEL`` for sparse ones ahead of it; then a decision a
+warmup pack restored (:meth:`MicrobatchExecutor.restore_kernel_choice`,
+declined under any pin); then :func:`qualify`. A ``cuda`` choice the
+bucket does not qualify for runs the plain program, its reason counted.
+``stats()["kernel"]["by_source"]`` counts each flush's source.
+:meth:`MicrobatchExecutor.load_warmup_pack` boots an executor from a pack
+(:mod:`libskylark_tpu_torch.engine.warmup`).
+
+Not ported yet (later slices): the executor's ``mesh`` (ROADMAP A6);
+sessions, training jobs and the dist endpoints (A7).
 """
 
 from __future__ import annotations
@@ -187,6 +215,16 @@ _SKETCH_ENDPOINTS = ("sketch_apply", "fastfood_features",
 # endpoints with no sketch, hence no kernel: their route is "library"
 _LIBRARY_ENDPOINTS = ("krr_predict", "rlsc_predict", "condest",
                       "graph_ase", "graph_ppr")
+# endpoints whose route the env pins and warmup packs decide (the
+# reference's _KERNEL_ENDPOINTS)
+_KERNEL_ENDPOINTS = ("sketch_apply", "fastfood_features",
+                     "sparse_sketch_apply")
+# endpoints whose flush runs through the executable cache
+_CAPTURED_ENDPOINTS = ("sketch_apply", "fastfood_features")
+# the reference's flush backends (env pins, pack tokens) as the port's
+# routes
+_BACKEND_ROUTES = {"pallas": "cuda", "xla": "plain", "cuda": "cuda",
+                   "plain": "plain"}
 
 _SPARSE_SUBMITS = _metrics.counter(
     "serve.sparse_submits",
@@ -1062,12 +1100,16 @@ def run_flush(ctx: dict, route: str, kd: np.ndarray, scale: np.ndarray,
     "plain" (the kernels' plain versions, or the single-request program
     lane by lane) or "library" (the endpoints with no sketch). ``kd`` (B,
     2) uint32 and ``scale`` (B,) are host arrays; ``arrays`` holds the
-    stacked operands, tensors and host arrays. Returns the (B, ...)
-    result."""
+    stacked operands, tensors and host arrays. A sketch flush whose ctx
+    holds the executor's ``flush_fn`` (a ``CompiledFn``) runs through it,
+    on :func:`flush_args`. Returns the (B, ...) result."""
     from libskylark_tpu_torch.base.precision import solver_precision
 
     endpoint = ctx["endpoint"]
     if endpoint in _SKETCH_ENDPOINTS:
+        fn = ctx.get("flush_fn")
+        if fn is not None:
+            return fn(*flush_args(ctx, kd, scale, arrays))
         return _sketch_flush(ctx, route == "cuda", kd, scale, arrays)
     # the solve and KRR programs run at the solvers' matmul precision,
     # as the reference's flushes of these endpoints do
@@ -1080,6 +1122,69 @@ def run_flush(ctx: dict, route: str, kd: np.ndarray, scale: np.ndarray,
             out = _lane_stage(ctx, sketch_stage(ctx, kd, scale, arrays,
                                                 plain=route == "plain"))
     return torch.stack(out)
+
+
+def flush_args(ctx: dict, kd: np.ndarray, scale: np.ndarray,
+               arrays: dict) -> tuple:
+    """A captured sketch flush's inputs on the operand's device: the keys
+    as the kernels' (B, 2) int32 words, the (B,) scales (not for
+    Fastfood) and the stacked operand."""
+    A = arrays["A"]
+    words = np.ascontiguousarray(np.asarray(kd, dtype=np.uint32))
+    keys = torch.from_numpy(words.view(np.int32)).to(A.device,
+                                                     non_blocking=True)
+    if ctx["endpoint"] == "fastfood_features":
+        return keys, A
+    scales = torch.from_numpy(np.ascontiguousarray(scale)).to(
+        A.device, non_blocking=True)
+    return keys, scales, A
+
+
+def _env_route(statics) -> Optional[str]:
+    """The route an environment pin names for a kernel bucket, or None:
+    ``SKYLARK_FWHT_KERNEL`` (SRHT buckets) and ``SKYLARK_SPARSE_KERNEL``
+    (sparse buckets) ahead of ``SKYLARK_SERVE_KERNEL``."""
+    statics = tuple(statics)
+    if not statics or statics[0] not in _KERNEL_ENDPOINTS:
+        return None
+    pins = []
+    if statics[0] == "sketch_apply" and len(statics) > 1 \
+            and statics[1] == "SRHT":
+        pins.append(_env.FWHT_KERNEL.get())
+    if statics[0] == "sparse_sketch_apply":
+        pins.append(_env.SPARSE_KERNEL.get())
+    pins.append(_env.SERVE_KERNEL.get())
+    for pin in pins:
+        if pin is not None:
+            return _BACKEND_ROUTES[pin]
+    return None
+
+
+def _build_flush_fn(statics, ctx: dict, route: str):
+    """The ``CompiledFn`` of a sketch bucket's flush on ``route``, keyed
+    on its statics plus ``("kernel", route)`` (the reference's
+    ``_compiled_for``), the stacked operand donated: the executor stacked
+    it for this flush alone."""
+    from libskylark_tpu_torch.engine.compiled import compiled
+
+    kernel = route == "cuda"
+    extra = tuple(statics) + ("kernel", route)
+
+    def key_fn(*args):
+        return extra
+
+    if ctx["endpoint"] == "fastfood_features":
+        def batched_fastfood(kd, A):
+            return _sketch_flush(ctx, kernel, kd, None, {"A": A})
+
+        return compiled(batched_fastfood, name="serve.fastfood_features",
+                        donate_argnums=(1,), key_fn=key_fn)
+
+    def batched_sketch(kd, scale, A):
+        return _sketch_flush(ctx, kernel, kd, scale, {"A": A})
+
+    return compiled(batched_sketch, name="serve.sketch_apply",
+                    donate_argnums=(2,), key_fn=key_fn)
 
 
 def _unpad(endpoint: str, out: torch.Tensor, lane: int, r: _Request):
@@ -1194,6 +1299,11 @@ class MicrobatchExecutor:
         self._idle_cv = threading.Condition(self._lock)
         self._buckets: dict[tuple, _Bucket] = {}
         self._routes: dict[tuple, tuple] = {}
+        self._qualified: dict[tuple, tuple] = {}
+        # (statics, capacity) -> route a warmup pack restored
+        self._restored: dict[tuple, str] = {}
+        # (statics, route) -> the flush's CompiledFn
+        self._compiled: dict[tuple, object] = {}
         self._pending = 0
         self._inflight = 0
         self._stop = False
@@ -1211,6 +1321,8 @@ class MicrobatchExecutor:
         self._counts = collections.Counter()
         self._kernel_sel = collections.Counter()
         self._kernel_dec = collections.Counter()
+        self._kernel_src = collections.Counter()
+        self._capture = collections.Counter()
         self._sparse_sel = collections.Counter()
         self._sparse_nnz_hist = collections.Counter()
         self._fwht_sel = collections.Counter()
@@ -1852,20 +1964,91 @@ class MicrobatchExecutor:
     # queueing and the flusher
     # ------------------------------------------------------------------
 
-    def _route_locked(self, statics, ctx) -> tuple:
-        """(route, decline reason or None) of a bucket, decided once, from
-        its statics, before anything of it is launched."""
-        r = self._routes.get(statics)
-        if r is None:
-            if ctx["endpoint"] in _LIBRARY_ENDPOINTS:
-                r = ("library", None)
-            elif self.device.type != "cuda" or self.kernel == "plain":
-                r = ("plain", None)
+    def _route_locked(self, statics, ctx, capacity: int = 0) -> tuple:
+        """(route, decline reason or None, source) of a bucket's flush at
+        ``capacity``, from its statics alone, before anything of it is
+        launched: the library route for the endpoints with no sketch, the
+        plain programs on a CPU executor; else the precedence of the
+        module docstring, a ``cuda`` choice then held to :func:`qualify`
+        (decided once per bucket)."""
+        if ctx["endpoint"] in _LIBRARY_ENDPOINTS:
+            r = ("library", None, "endpoint")
+        elif self.device.type != "cuda":
+            r = ("plain", None, "device")
+        else:
+            choice, source = self._choice_locked(statics, capacity)
+            if choice == "cuda":
+                q = self._qualified.get(statics)
+                if q is None:
+                    q = self._qualified[statics] = qualify(ctx)
+                r = ("cuda", None, source) if q[0] else ("plain", q[1],
+                                                          source)
             else:
-                ok, why = qualify(ctx)
-                r = ("cuda", None) if ok else ("plain", why)
-            self._routes[statics] = r
+                r = ("plain", None, source)
+        self._routes[statics] = r
         return r
+
+    def _choice_locked(self, statics, capacity: int) -> tuple:
+        """(route, source) the precedence names: ``kernel=``, an env pin,
+        a restored pack decision, else the kernel."""
+        if self.kernel is not None:
+            return self.kernel, "arg"
+        pin = _env_route(statics)
+        if pin is not None:
+            return pin, "env"
+        restored = self._restored.get((tuple(statics), int(capacity)))
+        if restored is not None:
+            return restored, "pack"
+        return "cuda", "qualify"
+
+    def restore_kernel_choice(self, statics, capacity: int,
+                              token: str) -> bool:
+        """Seed one (bucket statics, capacity)'s route with a warmup
+        pack's recorded decision (``cuda`` or ``plain``; the reference's
+        ``pallas`` and ``xla`` name the same). Returns whether it was
+        restored. An explicit pin outranks the pack, so under the
+        executor's ``kernel=`` or an environment pin for the bucket
+        (``SKYLARK_SERVE_KERNEL``, ``SKYLARK_FWHT_KERNEL``,
+        ``SKYLARK_SPARSE_KERNEL``) it declines, as it does with
+        ``SKYLARK_USE_PLAN_CACHE`` off (a pack's decisions stand for the
+        plan cache's) and for a token it does not know."""
+        statics = tuple(statics)
+        if self.kernel is not None or _env_route(statics) is not None:
+            return False
+        if not _env.USE_PLAN_CACHE.get():
+            return False
+        route = _BACKEND_ROUTES.get(token)
+        if route is None:
+            return False
+        with self._lock:
+            self._restored[(statics, int(capacity))] = route
+        return True
+
+    def load_warmup_pack(self, pack_dir: str, *,
+                         strict: bool = False) -> dict:
+        """Boot this executor from a warmup pack before traffic: capture
+        every packed (bucket, capacity) and restore its route
+        (:func:`libskylark_tpu_torch.engine.warmup.load_pack`). Returns
+        the loader's report."""
+        from libskylark_tpu_torch.engine import warmup as _warmup
+
+        return _warmup.load_pack(pack_dir, executors=(self,), strict=strict)
+
+    def _flush_fn_locked(self, statics, ctx, route) -> tuple:
+        """(the bucket's ``CompiledFn`` for ``route``, None), or (None, why
+        the flush runs eagerly)."""
+        endpoint = ctx["endpoint"]
+        if endpoint not in _CAPTURED_ENDPOINTS:
+            return None, "not captured yet (ROADMAP B-ii 10)"
+        if endpoint == "fastfood_features" and ctx["sm_kind"] == "matern":
+            return None, "FastMaternRFT: the Gamma loop reads the host"
+        if self.device.type == "cuda" and route != "cuda":
+            return None, "plain route: its streams are made on the host"
+        key = (tuple(statics), route)
+        fn = self._compiled.get(key)
+        if fn is None:
+            fn = self._compiled[key] = _build_flush_fn(statics, ctx, route)
+        return fn, None
 
     def _refuse_if_unavailable_locked(self) -> None:
         if self._draining and not self._stop:
@@ -1928,7 +2111,7 @@ class MicrobatchExecutor:
             qkey = tuple(key) + (cls,)
             b = self._buckets.get(qkey)
             if b is None:
-                self._route_locked(key, ctx)
+                self._route_locked(key, ctx, self.max_batch)
                 b = self._buckets[qkey] = _Bucket(key=qkey, statics=key,
                                                   ctx=ctx, qos_class=cls)
             b.reqs.append(req)
@@ -2233,9 +2416,13 @@ class MicrobatchExecutor:
                      tags=frozenset().union(*(r.tags for r in cohort)),
                      detail=f"{endpoint} k={k} cap={capacity}")
         with self._lock:
-            route, declined = self._route_locked(b.statics, ctx)
+            route, declined, source = self._route_locked(b.statics, ctx,
+                                                         capacity)
+            flush_fn, eager = self._flush_fn_locked(b.statics, ctx, route)
         kd, scale, arrays, h2d = self._stack_cohort(ctx, cohort, capacity)
-        out = run_flush(ctx, route, kd, scale, arrays)
+        out = run_flush(ctx if flush_fn is None
+                        else dict(ctx, flush_fn=flush_fn),
+                        route, kd, scale, arrays)
         values = []
         for i, r in enumerate(cohort):
             try:
@@ -2270,6 +2457,10 @@ class MicrobatchExecutor:
                 self._kernel_sel[route] += 1
             if declined:
                 self._kernel_dec[declined] += 1
+            if route != "library":
+                self._kernel_src[source] += 1
+            self._capture["captured" if flush_fn is not None
+                          else "eager: " + eager] += 1
             if endpoint == "sparse_sketch_apply":
                 self._sparse_sel[route] += 1
                 _SPARSE_KERNEL_FLUSHES.inc_always(backend=route)
@@ -2430,6 +2621,7 @@ class MicrobatchExecutor:
             lat = sorted(self._latency)
             c = dict(self._counts)
             ksel, kdec = dict(self._kernel_sel), dict(self._kernel_dec)
+            ksrc, capture = dict(self._kernel_src), dict(self._capture)
             sp_sel = dict(self._sparse_sel)
             sp_nnz = dict(sorted(self._sparse_nnz_hist.items()))
             fw_sel = dict(self._fwht_sel)
@@ -2472,6 +2664,14 @@ class MicrobatchExecutor:
                                for k, v in sorted(ksel.items())},
                 "by_reason": {k: {"declined_flushes": int(v)}
                               for k, v in sorted(kdec.items())},
+                "by_source": {k: {"flushes": int(v)}
+                              for k, v in sorted(ksrc.items())},
+            },
+            "capture": {
+                "captured_flushes": int(capture.get("captured", 0)),
+                "eager_flushes": {k[len("eager: "):]: int(v)
+                                  for k, v in sorted(capture.items())
+                                  if k != "captured"},
             },
             "library": {"flushes": c.get("library_flushes", 0)},
             "models": {"resident": models,

@@ -12,6 +12,12 @@ Each ``csrc/<name>.cpp`` is host code (the IO parsers), built by g++ into
 callers keep the reference's contract: without a toolchain, or when the
 build fails, :func:`load_host` returns None and they take their Python
 version.
+
+Processes that share a checkout build each library once: a build holds
+the library's file lock (``lib<name>.lock`` beside it, an
+``engine.aot.FileLock``), and a process that waited on it finds the
+library fresh and loads it. The threads of one process share a
+``threading.Lock``.
 """
 
 from __future__ import annotations
@@ -71,15 +77,42 @@ def _stale(name: str) -> bool:
     return so.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
 
+def _file_locks(paths) -> list:
+    """The cross-process locks of ``paths``' libraries, taken in name
+    order (two builders of overlapping sets cannot deadlock); one not won
+    within ``SKYLARK_AOT_LOCK_TIMEOUT`` is gone without."""
+    from libskylark_tpu_torch.engine.aot import FileLock, lock_timeout
+
+    held = []
+    for p in sorted(str(p) for p in paths):
+        lock = FileLock(p + ".lock")
+        if lock.acquire(timeout=lock_timeout()):
+            held.append(lock)
+    return held
+
+
 def build(names=None, force: bool = False) -> dict[str, dict]:
     """Build the named kernels (default: all) that are missing or stale,
-    one nvcc process per source, all started together. Returns
-    ``{name: {"seconds": s, "ptxas": text}}`` for what was built."""
+    one nvcc process per source, all started together, under each
+    library's file lock: a library a peer process built while this one
+    waited is not built again (unless ``force``). Returns ``{name:
+    {"seconds": s, "ptxas": text}}`` for what was built."""
     names = list(names) if names is not None else sources()
     todo = [n for n in names if force or _stale(n)]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    locks = _file_locks(library_path(n) for n in todo)
+    try:
+        if not force:
+            todo = [n for n in todo if _stale(n)]
+        return _build(todo) if todo else {}
+    finally:
+        for lock in locks:
+            lock.release()
+
+
+def _build(todo: list) -> dict[str, dict]:
     exe = nvcc()
     procs = {}
     t0 = time.perf_counter()
@@ -120,15 +153,31 @@ def host_library_path(name: str) -> Path:
 
 def build_host(name: str, force: bool = False) -> Path:
     """Build ``csrc/<name>.cpp`` with g++ when its library is missing or
-    older than the source; raises KernelBuildError with g++'s output."""
+    older than the source, under the library's file lock (as
+    :func:`build`); raises KernelBuildError with g++'s output."""
     src, so = CSRC / f"{name}.cpp", host_library_path(name)
-    if (not force and so.exists()
-            and so.stat().st_mtime >= src.stat().st_mtime):
+
+    def fresh() -> bool:
+        return (not force and so.exists()
+                and so.stat().st_mtime >= src.stat().st_mtime)
+
+    if fresh():
         return so
     gxx = shutil.which("g++") or shutil.which("c++")
     if gxx is None:
         raise KernelBuildError("g++ not found on PATH")
     HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    locks = _file_locks([so])
+    try:
+        if fresh():
+            return so
+        return _build_host(gxx, name, src, so)
+    finally:
+        for lock in locks:
+            lock.release()
+
+
+def _build_host(gxx: str, name: str, src: Path, so: Path) -> Path:
     tmp = HOST_BUILD_DIR / f".lib{name}.{os.getpid()}.so"
     p = subprocess.run([gxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
                        capture_output=True, text=True, timeout=300)

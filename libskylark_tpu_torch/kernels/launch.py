@@ -10,10 +10,12 @@ device memory.
 Launch counts go through :func:`count`; while a thread captures a CUDA
 graph (:func:`recording`) its counts are recorded instead of added, since
 a capture launches nothing, and each replay adds them
-(:func:`add_counts`)."""
+(:func:`add_counts`), also into :data:`replayed` by counter name: the
+launches made inside replays."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 
@@ -58,6 +60,8 @@ def call(fn, device, *args) -> None:
 
 _count_lock = threading.Lock()
 _tls = threading.local()
+# launches made inside graph replays, by counter name (add_counts)
+replayed: collections.Counter = collections.Counter()
 
 
 def count(counters: dict, name: str, n: int = 1) -> None:
@@ -88,7 +92,9 @@ def recording():
 
 
 def add_counts(recorded) -> None:
-    """Add counts recorded by :func:`recording` (one replay's)."""
+    """Add counts recorded by :func:`recording` (one replay's), to their
+    counters and to :data:`replayed`."""
     with _count_lock:
         for counters, name, n in recorded:
             counters[name] += n
+            replayed[name] += n

@@ -334,13 +334,31 @@ def rft_rowwise_apply(key, dist, A: torch.Tensor, s_dim: int, inscale: float,
     return out
 
 
+def host_words(key_data) -> np.ndarray:
+    """(B, 2) uint32 key words on the host, from words or from the
+    kernels' int32 key tensor (the plain versions' form; a CUDA tensor is
+    read back)."""
+    if isinstance(key_data, torch.Tensor):
+        kd = key_data.detach().cpu().numpy()
+        kd = kd.view(np.uint32) if kd.dtype == np.int32 else kd
+        return np.asarray(kd, dtype=np.uint32).reshape(-1, 2)
+    return np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+
+
+def host_values(values) -> np.ndarray:
+    """A (B,) vector of per-lane values (scales) on the host."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu().numpy()
+    return np.asarray(values).reshape(-1)
+
+
 def serve_batched_plain(key_data, scale, A: torch.Tensor, dist, s_dim: int,
                         rowwise: bool, precision: str | None = None
                         ) -> torch.Tensor:
     """The plain PyTorch version of the batched kernel: ``dense.serve_apply``
     lane by lane (the scaled operator, then the regime's product)."""
-    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
-    sc = np.asarray(scale).reshape(-1)
+    kd = host_words(key_data)
+    sc = host_values(scale)
     p = _regime(precision)
     return torch.stack([serve_apply(kd[i], float(sc[i]), A[i], dist=dist,
                                     s_dim=s_dim, rowwise=rowwise,
@@ -357,10 +375,44 @@ def host_to(t: torch.Tensor, device) -> torch.Tensor:
 
 def lane_keys(key_data, device) -> torch.Tensor:
     """(B, 2) uint32 key words as an int32 tensor on ``device`` (the
-    kernels read the bits as uint32)."""
+    kernels read the bits as uint32). Keys already in that form, an int32
+    tensor on ``device``, pass through untouched: nothing is read from or
+    copied off the host, so a captured serve flush takes its keys as a
+    graph input (engine/serve.py)."""
+    if isinstance(key_data, torch.Tensor):
+        return _device_lanes(key_data.reshape(-1, 2), torch.int32, device,
+                             "keys")
     kd = np.ascontiguousarray(np.asarray(key_data, dtype=np.uint32)
                               .reshape(-1, 2))
     return host_to(torch.from_numpy(kd.view(np.int32)), device)
+
+
+def lane_words(key_data, device):
+    """A cohort's keys as a batched wrapper takes them: the (B, 2) int32
+    key tensor on a CUDA ``device`` untouched (no host read), else (B, 2)
+    uint32 words on the host."""
+    if isinstance(key_data, torch.Tensor) and torch.device(
+            device).type == "cuda":
+        return lane_keys(key_data, device)
+    return host_words(key_data)
+
+
+def lane_scales(scale, device) -> torch.Tensor:
+    """(B,) float32 per-lane scales on ``device``; a float32 tensor on
+    ``device`` passes through untouched, as :func:`lane_keys`' keys do."""
+    if isinstance(scale, torch.Tensor):
+        return _device_lanes(scale.reshape(-1), torch.float32, device,
+                             "scales")
+    sc = np.asarray(scale, dtype=np.float32).reshape(-1)
+    return host_to(torch.from_numpy(sc.copy()), device)
+
+
+def _device_lanes(t: torch.Tensor, dtype, device, what: str) -> torch.Tensor:
+    if t.dtype != dtype or t.device != torch.device(device):
+        raise errors.InvalidParametersError(
+            f"lane {what} given as a tensor must be {dtype} on {device}, got "
+            f"{t.dtype} on {t.device}")
+    return t.contiguous()
 
 
 def serve_batched_apply(key_data, scale, A: torch.Tensor, dist, s_dim: int,
@@ -372,11 +424,14 @@ def serve_batched_apply(key_data, scale, A: torch.Tensor, dist, s_dim: int,
     the product in the regime ``precision`` (the reference's argument;
     default: the package's). Every regime scales the operator entries
     before they are rounded, as the reference does. Lane b's result does
-    not depend on B."""
+    not depend on B. ``key_data`` may be the (B, 2) int32 key tensor and
+    ``scale`` a (B,) float32 tensor on A's device (:func:`lane_keys`,
+    :func:`lane_scales`): the launch then reads both from device memory."""
     p = _regime(precision)
     cpu = _check(dist, A, s_dim, ndim=3)
-    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
-    sc = np.asarray(scale, dtype=np.float32).reshape(-1)
+    kd = lane_words(key_data, A.device)
+    sc = (scale.reshape(-1) if isinstance(scale, torch.Tensor) and not cpu
+          else host_values(scale).astype(np.float32))
     if kd.shape[0] != A.shape[0] or sc.shape[0] != A.shape[0]:
         raise errors.InvalidParametersError(
             f"need B keys and B scales for a (B, ., .) operand, got "
@@ -390,7 +445,7 @@ def serve_batched_apply(key_data, scale, A: torch.Tensor, dist, s_dim: int,
     if B == 0 or m == 0:
         return out
     keys = lane_keys(kd, A.device)
-    scales = host_to(torch.from_numpy(sc.copy()), A.device)
+    scales = lane_scales(sc, A.device)
     _launch_tc(A, out, rowwise, p, dist, B, m, n, s_dim, keys=keys,
                scales=scales)
     _count("dense_batched_rowwise" if rowwise

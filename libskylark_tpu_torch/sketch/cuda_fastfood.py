@@ -209,9 +209,10 @@ def serve_features_plain(key_data, A: torch.Tensor, n_dim: int, s_dim: int,
                          sm_param=None) -> torch.Tensor:
     """The plain PyTorch version of the batched kernel:
     ``frft.fastfood_serve_apply`` lane by lane."""
+    from libskylark_tpu_torch.sketch.cuda_dense import host_words
     from libskylark_tpu_torch.sketch.frft import fastfood_serve_apply
 
-    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    kd = host_words(key_data)
     return torch.stack([fastfood_serve_apply(
         kd[i], A[i], n_dim=n_dim, s_dim=s_dim, fut=fut, sm_kind=sm_kind,
         sm_param=sm_param) for i in range(A.shape[0])])
@@ -222,12 +223,16 @@ def batched_streams(key_data, n_dim: int, s_dim: int, fut: str = "wht",
     """(bdiag, perms, gdiag, smdiag, shifts) of a cohort, each (B, nb, NB)
     on ``device``, as the batched kernel takes them: the lanes' streams
     made at once (``frft.serve_streams``), scal folded into G and Sm, the
-    permutations int32, the shifts zero-padded past S."""
+    permutations int32, the shifts zero-padded past S. With ``key_data``
+    the (B, 2) int32 key tensor on the card, every stream is made there
+    from it with no host read or copy: the streams of a captured flush
+    are part of its graph, refilled by nothing."""
     from libskylark_tpu_torch.sketch.frft import block_geometry, serve_streams
     from libskylark_tpu_torch.sketch.fut import make_fut
 
     NB, nb = block_geometry(n_dim, s_dim, fut)
-    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    kd = (key_data.reshape(-1, 2) if isinstance(key_data, torch.Tensor)
+          else np.asarray(key_data, dtype=np.uint32).reshape(-1, 2))
     B = kd.shape[0]
     scal = math.sqrt(NB) * make_fut(fut, NB).scale()
     bdiag, gdiag, smdiag, perms, sh = serve_streams(
@@ -245,14 +250,15 @@ def serve_features_batched(key_data, A: torch.Tensor, n_dim: int,
                            sm_kind: str = "ones",
                            sm_param=None) -> torch.Tensor:
     """The (B, m, S) Fastfood features of a stacked cohort A (B, m, n_dim)
-    float32, lane b under the key ``key_data[b]`` ((B, 2) uint32 words):
-    the lanes' streams made at once on A's device
-    (:func:`batched_streams`), then one launch
+    float32, lane b under the key ``key_data[b]`` ((B, 2) uint32 words,
+    or their int32 tensor on A's device): the lanes' streams made at once
+    on A's device (:func:`batched_streams`), then one launch
     (:func:`apply_streams_batched`)."""
+    from libskylark_tpu_torch.sketch.cuda_dense import lane_words
     from libskylark_tpu_torch.sketch.frft import block_geometry
 
     NB, _ = block_geometry(n_dim, s_dim, fut)
-    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    kd = lane_words(key_data, A.device)
     if fut != "wht" or not supported(NB, A.dtype):
         raise errors.UnsupportedError(
             f"Fastfood kernel takes the wht core, a power-of-two NB <= "

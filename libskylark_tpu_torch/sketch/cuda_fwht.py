@@ -29,7 +29,8 @@ import torch
 from libskylark_tpu_torch.base import errors, randgen
 from libskylark_tpu_torch.base.context import fold_in, key_words
 from libskylark_tpu_torch.kernels import launch
-from libskylark_tpu_torch.sketch.cuda_dense import _key_args
+from libskylark_tpu_torch.sketch.cuda_dense import (_key_args, host_words,
+                                                   lane_words)
 from libskylark_tpu_torch.sketch import fut
 
 launches = {"fwht_rowwise": 0, "fwht_columnwise": 0, "fwht_batched": 0}
@@ -173,10 +174,11 @@ def srht_apply_batched(key_data, A: torch.Tensor, s_dim: int,
                        rowwise: bool) -> torch.Tensor:
     """SRHT of a stacked serve cohort A (B, m, n) rowwise or (B, n, m)
     columnwise, lane b under the key ``key_data[b]`` ((B, 2) uint32
-    words): one counted launch on the card, the lane a grid axis, each
-    lane's bits those of a launch of that lane alone."""
+    words, or their (B, 2) int32 tensor on A's device, which the launch
+    reads from device memory): one counted launch on the card, the lane a
+    grid axis, each lane's bits those of a launch of that lane alone."""
     _check(A, s_dim, rowwise, 3)
-    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    kd = lane_words(key_data, A.device)
     if kd.shape[0] != A.shape[0]:
         raise errors.InvalidParametersError(
             f"{kd.shape[0]} keys for {A.shape[0]} lanes")
@@ -188,6 +190,6 @@ def srht_apply_batched(key_data, A: torch.Tensor, s_dim: int,
 def srht_apply_batched_plain(key_data, A: torch.Tensor, s_dim: int,
                              rowwise: bool) -> torch.Tensor:
     """The plain version of :func:`srht_apply_batched`, lane by lane."""
-    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    kd = host_words(key_data)
     return torch.stack([srht_apply_plain(kd[i], A[i], s_dim, rowwise)
                         for i in range(A.shape[0])])

@@ -86,8 +86,15 @@ def serve_streams(key, dtype=torch.float32, *, NB: int, nb: int,
     stream over the lanes' chunk keys, and each permutation round one
     row-wise stable sort over the B·nb block rows. ``sm_kind`` is
     ``"ones"``, ``"gauss"`` (``sm_param`` = σ) or ``"matern"``
-    (``sm_param`` = (ν, l))."""
-    keys = np.asarray(key, dtype=np.uint32).reshape(-1, 2)
+    (``sm_param`` = (ν, l)). Keys held in a tensor ((B, 2) int32 words on
+    the card, the kernels' form) make every stream on their device with
+    no host read or copy, as a captured serve flush needs; a Matern Sm
+    still reads the host once a Gamma round."""
+    if isinstance(key, torch.Tensor):
+        keys = randgen.key_tensor(key)
+        device = keys.device
+    else:
+        keys = np.asarray(key, dtype=np.uint32).reshape(-1, 2)
     B = keys.shape[0]
 
     def sub(tag):
@@ -99,8 +106,13 @@ def serve_streams(key, dtype=torch.float32, *, NB: int, nb: int,
     gdiag = randgen.stream_slice_batched(
         sub(2), randgen.Normal(), 0, nb * NB, dtype, device
     ).reshape(B, nb, NB)
-    block_keys = randgen.fold_in_batched(np.repeat(sub(3), nb, axis=0),
-                                         np.tile(np.arange(nb), B))
+    if isinstance(keys, torch.Tensor):
+        block_keys = randgen.fold_in_batched(
+            sub(3).repeat_interleave(nb, dim=0),
+            torch.arange(nb, dtype=torch.int64, device=device).repeat(B))
+    else:
+        block_keys = randgen.fold_in_batched(
+            np.repeat(sub(3), nb, axis=0), np.tile(np.arange(nb), B))
     perms = randgen.permutation_batched(block_keys, NB, device).reshape(
         B, nb, NB)
     shifts = randgen.stream_slice_batched(

@@ -7,10 +7,9 @@ function, class or method must be accepted by the port's counterpart
 accepts any keyword). A module's public names are the functions and
 classes it defines, its upper-case constants, and a package's
 ``__all__``. Only what ROADMAP defers is exempt, each exemption with its
-item: what the serve executor still lacks (its ``mesh`` and the
-kernel-selection precedence, A6; sessions, training jobs and the dist
-endpoints, A7), the telemetry exporter (A7), and the names of reference
-modules not ported yet (C12).
+item: what the serve executor still lacks (its ``mesh``, A6; sessions,
+training jobs and the dist endpoints, A7), the telemetry exporter (A7),
+and the names of reference modules not ported yet (C12).
 """
 
 from __future__ import annotations
@@ -24,8 +23,6 @@ import pytest
 import libskylark_tpu
 import libskylark_tpu_torch
 
-# the kernel-selection precedence (plan cache, warmup packs) (A6)
-_SERVE_A6 = ("restore_kernel_choice", "load_warmup_pack")
 # the dist endpoints run the reference's dist/ package (A7)
 _SERVE_DIST = ("submit_dist_sketch", "submit_dist_lstsq", "submit_dist_svd")
 _SERVE_A7 = ("sessions", "open_sketch_session", "session_append",
@@ -44,8 +41,6 @@ EXEMPT = {
     "telemetry:get_exporter": "A7", "telemetry:install_exporter": "A7",
     "telemetry:prometheus_text": "A7", "telemetry:shutdown_exporter": "A7",
     # C12: names of reference modules the port has not reached yet.
-    # engine/aot.py and warmup.py (A6, the next slice)
-    "engine:aot": "C12", "engine:warmup": "C12",
     # the kernel-dispatch knobs that read tune/'s plan cache or choose a
     # route off the kernel, which the port's CUDA path does not have
     # (A6)
@@ -64,6 +59,12 @@ EXEMPT = {
     "io:iter_hdf5_batches": "C12", "io:prefetch_batches": "C12",
     "io:read_libsvm_sharded": "C12", "io:scan_libsvm_dims": "C12",
     "io:stream_sketch_libsvm": "C12", "io:webhdfs_lines": "C12",
+    # cli/__init__.py's helpers, which the other drivers share (A8)
+    "cli:LIBSVM_DENSE": "A8", "cli:LIBSVM_SPARSE": "A8",
+    "cli:HDF5_DENSE": "A8", "cli:HDF5_SPARSE": "A8",
+    "cli:read_dataset": "A8", "cli:honor_platform_env": "A8",
+    "cli:write_ascii_matrix": "A8", "cli:add_streaming_args": "A8",
+    "cli:read_streaming": "A8",
     # utility/checkpoint.py (A7)
     "utility:TrainCheckpointer": "C12", "utility:as_checkpointer": "C12",
     "utility:device_state": "C12", "utility:load_sync": "C12",
@@ -71,8 +72,6 @@ EXEMPT = {
 }
 for _m in ("engine", "engine.serve"):
     EXEMPT[f"{_m}:MicrobatchExecutor(mesh)"] = "A6"
-    for _n in _SERVE_A6:
-        EXEMPT[f"{_m}:MicrobatchExecutor.{_n}"] = "A6"
     for _n in _SERVE_DIST:
         EXEMPT[f"{_m}:MicrobatchExecutor.{_n}"] = "A7"
     for _n in _SERVE_A7:
@@ -172,9 +171,9 @@ def test_reference_names_exist_in_the_port(mod_key):
 
 def test_the_new_modules_are_compared():
     """The NLA, graph, block-solver, HDF5, parallel, and the serve
-    production layer's modules are among those both packages define, so
-    the parity test above covers them; none of the last has an
-    exemption."""
+    production layer's modules (the artifact store, warmup packs and
+    their CLI among them) are among those both packages define, so the
+    parity test above covers them; none of the last has an exemption."""
     common = set(_common_modules())
     for m in ("nla.krank", "nla.randlobpcg", "nla.spectral", "ml.graph",
               "algorithms.asynch", "io.hdf5", "parallel", "parallel.mesh",
@@ -186,7 +185,8 @@ def test_the_new_modules_are_compared():
                    "resilience.policy", "resilience.faults",
                    "resilience.health", "resilience.preemption", "qos",
                    "qos.tenants", "qos.scheduler", "qos.controller",
-                   "engine.resultcache")
+                   "engine.resultcache", "engine.aot", "engine.warmup",
+                   "cli.skylark_warmup")
     for m in serve_layer:
         assert m in common, m
         assert not [k for k in EXEMPT if k.split(":")[0] == m], m

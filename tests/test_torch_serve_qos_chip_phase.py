@@ -139,6 +139,24 @@ def test_profiled_flush_checks_match_kernels_to_their_launches(chip_smoke):
     assert out["range_us"] == 800.0 and out["device_range_us"] == 600.0
 
 
+def test_profiled_flush_checks_match_a_replays_kernels_to_its_graph(
+        chip_smoke):
+    """A replayed flush: both kernels carry the graph launch's correlation
+    id, each inside its own device-side annotation."""
+    cpu, gpu = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    trace = _Trace([_Event("serve.flush", cpu, 100.0, 900.0),
+                    _Event("cudaGraphLaunch", cpu, 400.0, 420.0, id=9),
+                    _Event("serve.flush", gpu, 2000.0, 2100.0),
+                    _Event("dense_gen_kernel", gpu, 2010.0, 2090.0, id=9),
+                    _Event("serve.flush", gpu, 2150.0, 2600.0),
+                    _Event("dense_tc_kernel", gpu, 2160.0, 2590.0, id=9)])
+    out = chip_smoke.profiled_flush_checks(torch, trace, "cuda")
+    assert out["enclosed"] == ["dense_gen_kernel", "dense_tc_kernel"]
+    assert out["launch_records"] == ["cudaGraphLaunch"]
+    assert out["device_annotations"] == 2
+    assert out["device_range_us"] == 600.0
+
+
 @pytest.mark.parametrize("launch_at, kernels, match", [
     (950.0, True, "encloses the launches of 0 of the flush's 1"),
     (400.0, False, "holds 0 B1 kernels"),
