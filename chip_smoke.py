@@ -326,6 +326,38 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             after every call, the least recent evicted, and the memory
             allocated grown by no more than the budget; the phase's
             seconds and peak memory on its line;
+4i. sessions — A7's durable state (about 45 s), under a session
+            directory (``SKYLARK_SESSION_DIR``) and a telemetry directory
+            made for it in the temp dir and removed at its end:
+            B2-accumulate (``cwt_apply(..., out=acc)``) torch.equal to its
+            plain version on a CPU copy at 4096-row batches of 65,536 ×
+            512 into s = 2048, at row offsets on and off the 1024-row
+            tile, with 37 rows (most buckets empty), 1 and 513 columns;
+            then, every launch counter set to 0: stream_sketch_libsvm of a
+            generated rcv1.binary-shaped file (20,242 × 47,236 at 0.16%,
+            values {¼, ½, 1}) into s = 1024 in 4096-row batches, with
+            prefetch and without, and a run checkpointed after batch 2
+            resumed by a fresh StreamingCWT, each torch.equal to CWT.apply
+            of the densified file, rows/s and busy; cwt, jlt, srht and
+            isvd sessions of the LS operand (b one target, s = 2048, 16
+            appends of 4096 host rows) and a krr session at config 5
+            (60,000 × 784, 10 one-hot targets, σ = 112, s = 8192, 15
+            appends of 4000, one B1-cos each) through a MicrobatchExecutor:
+            cwt torch.equal to the one-shot CWT, jlt and srht within
+            1e-4·max of the one-shot apply, isvd's σ within 1e-3 of the
+            one-shot sketch's, krr's normal-equation residual within
+            1e-3·‖ZᵀY‖_F; append (warm, device, busy), checkpoint (ms,
+            bytes) and finalize times; a child process that appends 7
+            batches to a cwt, a jlt and an srht session, checkpoints after
+            4 and is killed with SIGKILL, each resumed here (checkpoint +
+            journal tail) and finished torch.equal to the uninterrupted
+            session, resume ms; a drained executor's session checkpointed
+            and a stale registry fenced; Block-ADMM at ml-admm's settings
+            stopped after 5 iterations and resumed, torch.equal; the JSONL
+            exporter's spans of the phase and ``prometheus_text()``'s
+            session and io counters; then the counters read. It runs after
+            phase 5 (its profiler sessions would cost that phase device
+            records), before phase 6;
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
@@ -341,7 +373,10 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             capacity-8 shapes (B2's and B5's batched entry points at the
             cwt and srht buckets' capacity-4 shape); B1's partial at p =
             4's per-rank shapes; B2 at rank 1 of 2's offset (32768 × 513
-            → 2048, n0 = 32768);
+            → 2048, n0 = 32768); B2-accumulate at a session batch (4096 ×
+            512 into s = 2048 at n0 = 8192, its bound the batch read once
+            and the accumulator read and written once) beside B2-cw fresh
+            at the same shape;
 6. tune   — the autotuner (tune/) on the card, against a plan cache in
             a temporary file (the previous cache restored after): B1's
             ``make_plan`` mirror equal to ``sk_dense_tc_plan`` (all six
@@ -7121,6 +7156,610 @@ def tune_phase(torch, P, np) -> dict:
     return out
 
 
+# Phase 4i: A7's durable state on the card. The LS cell's operand (65536 ×
+# 512, b as one target, s = 2048, 16 appends of 4096 rows) through the
+# cwt, jlt, srht and isvd sessions; config 5 (60,000 × 784, 10 one-hot
+# targets, Gaussian σ = 112, s = 8192, 15 appends of 4000 rows) through
+# the krr session; config 2's rcv1.binary shape (20,242 × 47,236 at 0.16%,
+# values {¼, ½, 1}) streamed from a libsvm file into s = 1024 in 4096-row
+# batches; ml-admm's Block-ADMM stopped and resumed.
+SESSIONS_FULL = {"ls_rows": 65536, "ls_cols": 512, "s": 2048, "batch": 4096,
+                 "krr_rows": 60000, "krr_batch": 4000, "krr_s": 8192,
+                 "rcv1_rows": 20242, "stream_s": 1024,
+                 "stream_batch": 4096, "kill_appends": 7,
+                 "kill_checkpoint": 4, "isvd_k": 64, "admm": ML_FULL}
+SESSION_KINDS = ("cwt", "jlt", "srht", "isvd")
+KILLED_KINDS = ("cwt", "jlt", "srht")
+# limits of the sessions phase, each with its reason
+SESSIONS_LIMITS = {
+    # jlt/srht: the session's float32 matmul (or FWHT fold) against the
+    # one-shot apply's kernel (B1 in bf16x3, B5): the reference's oracle
+    "dense": 1e-4,
+    # isvd: σ of the maintained sketch against the SVD of the one-shot
+    # sketch, relative to each σ
+    "isvd_sigma": 1e-3,
+    # krr: ‖(ZᵀZ + λI)w − ZᵀY‖_F ≤ 1e-3·‖ZᵀY‖_F, the ml phase's limit
+    "krr_normal_equations": ML_LIMITS["normal_equations"],
+}
+# B2-accumulate against its plain version: (name, rows, columns, s, n0)
+ACCUMULATE_CASES = (
+    ("session", 4096, 512, 2048, 0), ("session", 4096, 512, 2048, 4096),
+    ("session", 4096, 512, 2048, 61440),
+    ("session_unaligned", 4096, 512, 2048, 1000),
+    ("session_unaligned", 4096, 512, 2048, 5000),
+    ("few_buckets", 37, 512, 2048, 3000),
+    ("one_column", 4096, 1, 2048, 777), ("wide", 4096, 513, 2048, 2500))
+
+
+def check_accumulate(torch, P, cases=ACCUMULATE_CASES, device="cuda"):
+    """B2-accumulate (``cwt_apply(..., out=acc)``) on the card against
+    its plain version (the scatter into a clone of the accumulator on a
+    CPU copy, in increasing row order), torch.equal, on an accumulator
+    that already holds random sums."""
+    from libskylark_tpu_torch.sketch import cuda_hash as ch
+
+    results = []
+    for i, (name, rows, cols, s, n0) in enumerate(cases):
+        key = P.Context(230 + i).allocate().key
+        A = make_operand(torch, (rows, cols), 2300 + i, device)
+        acc = make_operand(torch, (s, cols), 2400 + i, device)
+        want = ch.accumulate_plain(key, A.cpu(), s, acc.cpu(), n0)
+        got = ch.cwt_apply(key, A, s, False, n0=n0, out=acc.clone()).cpu()
+        results.append({"kernel": "hash_accumulate", "case": name,
+                        "shape": [rows, cols], "s_dim": s, "n0": n0,
+                        "bit_equal": bool(torch.equal(got, want)),
+                        "max_abs_err": float((got - want).abs().max())})
+    bad = [r for r in results if not r["bit_equal"]]
+    check(not bad, f"B2-accumulate differs from its plain version: {bad}")
+    return results
+
+
+def rcv1_libsvm(P, np, path: str, rows: int, device) -> tuple:
+    """Config 2's operand (rows × 47,236 at 0.16%, values {¼, ½, 1},
+    sprand.sample, its streams made on ``device``) with labels ±1,
+    written as libsvm text; returns the CSR and the labels."""
+    from libskylark_tpu_torch import io
+    from libskylark_tpu_torch.base import sprand
+
+    A = sprand.sample(rows, RCV1_D, RCV1_DENSITY, DYADIC, (1, 1, 1),
+                      P.Context(72), device=device)
+    y = np.where(np.arange(rows) % 3 == 0, 1.0, -1.0)
+    io.write_libsvm(path, A, y)
+    return A, y
+
+
+def busy_share(torch, fn, device="cuda") -> tuple:
+    """(result, wall s, device s, busy): ``fn`` run once under
+    torch.profiler, the device's kernel and copy time over the wall
+    time (no device time on the CPU)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device == "cuda"
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sum(e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    return result, wall, dev, (dev / wall if wall else None)
+
+
+def stream_checks(torch, P, np, size, tmp, device) -> dict:
+    """stream_sketch_libsvm over the rcv1-shaped file, prefetch on and
+    off, and a run checkpointed after batch 2 then resumed by a fresh
+    StreamingCWT: each torch.equal to CWT.apply of the densified file."""
+    import itertools
+
+    from libskylark_tpu_torch import io, sketch as sk
+
+    path = f"{tmp}/rcv1.svm"
+    A, y = rcv1_libsvm(P, np, path, size["rcv1_rows"], device)
+    s, br = size["stream_s"], size["stream_batch"]
+    # the width is the file's largest feature index, as the reader scans it
+    n, d, _ = io.scan_libsvm_dims(path)
+    T = sk.CWT(n, s, P.Context(73))
+    dense = A.todense(device=device)[:, :d].contiguous()
+    want_x = T.apply(dense, device=device)
+    want_y = T.apply(torch.as_tensor(y, dtype=torch.float32,
+                                     device=device)[:, None],
+                     device=device)[:, 0]
+    del dense
+    out = {"shape": [n, d], "nnz": A.nnz, "s": s, "batch_rows": br}
+    for name, depth in (("prefetch", 2), ("no_prefetch", 0)):
+        (SX, SY), wall, dev, busy = busy_share(
+            torch, lambda: io.stream_sketch_libsvm(
+                path, s, P.Context(73), batch_rows=br, prefetch_depth=depth,
+                device=device), device)
+        out[name] = {"seconds": wall, "rows_per_s": n / wall,
+                     "device_s": dev, "busy": busy,
+                     "equal": bool(torch.equal(SX, want_x)
+                                   and torch.equal(SY, want_y))}
+    ck = f"{tmp}/stream-ckpt"
+    first = io.StreamingCWT(n, s, P.Context(73), device=device)
+    first.sketch(itertools.islice(io.iter_libsvm_batches(
+        path, br, d=d), 2), checkpoint=ck, checkpoint_every=2)
+    t0 = time.perf_counter()
+    SX, SY = io.StreamingCWT(n, s, P.Context(73), device=device).sketch(
+        io.iter_libsvm_batches(path, br, d=d), checkpoint=ck)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["resumed"] = {"from_rows": 2 * br,
+                      "seconds": time.perf_counter() - t0,
+                      "equal": bool(torch.equal(SX, want_x)
+                                    and torch.equal(SY, want_y))}
+    check(all(out[k]["equal"] for k in ("prefetch", "no_prefetch",
+                                        "resumed")),
+          f"streamed CWT differs from the one-shot apply: {out}")
+    return out
+
+
+def session_operands(torch, size, device):
+    """The LS cell's operand, on ``device`` and as the host arrays a
+    client sends."""
+    g = torch.Generator(device=device).manual_seed(3)
+    A = torch.randn(size["ls_rows"], size["ls_cols"], generator=g,
+                    device=device)
+    b = A @ torch.randn(size["ls_cols"], generator=g, device=device)
+    return A, b, A.cpu().numpy(), b.cpu().numpy()[:, None]
+
+
+def session_spec(kind: str, size) -> dict:
+    return {"n": size["ls_rows"], "s_dim": size["s"], "d": size["ls_cols"],
+            "seed": 40 + SESSION_KINDS.index(kind),
+            "targets": 0 if kind == "isvd" else 1,
+            "k": size["isvd_k"] if kind == "isvd" else 0}
+
+
+def one_shot(torch, P, kind, size, A, b, device):
+    """The one-shot sketch of the whole operand a session of ``kind``
+    maintains: (SX, SY) or, for isvd, its singular values."""
+    from libskylark_tpu_torch import sketch as sk
+
+    spec = session_spec(kind, size)
+    ctx = P.Context(spec["seed"])
+    n, s = spec["n"], spec["s_dim"]
+    T = (sk.CWT(n, s, ctx) if kind == "cwt"
+         else sk.FJLT(n, s, ctx, fut="wht") if kind == "srht"
+         else sk.JLT(n, s, ctx))
+    SX = T.apply(A, device=device)
+    if kind == "isvd":
+        return torch.linalg.svdvals(SX)[:spec["k"]]
+    return SX, T.apply(b[:, None], device=device)
+
+
+def timed_appends(torch, ex, sid, X, Y, batch, device, first_seq=1,
+                  profile_last: int = 4) -> dict:
+    """Append ``X`` (host rows, ``Y`` their targets or None) in batches
+    through the executor; the wall ms of each, and the device time of the
+    last ``profile_last`` appends under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    starts = list(range(0, X.shape[0], batch))
+    walls = []
+
+    def append(i, lo):
+        t0 = time.perf_counter()
+        ex.session_append(sid, X[lo:lo + batch],
+                          None if Y is None else Y[lo:lo + batch],
+                          seq=first_seq + i).result()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    k = len(starts) - (profile_last if device == "cuda" else 0)
+    for i, lo in enumerate(starts[:k]):
+        append(i, lo)
+    dev = None
+    if k < len(starts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i, lo in enumerate(starts[k:], start=k):
+                append(i, lo)
+        dev = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  ) / 1e3 / (len(starts) - k)
+    warm = statistics.median(walls[1:]) * 1e3
+    return {"appends": len(walls), "first_ms": walls[0] * 1e3,
+            "warm_ms": warm, "device_ms": dev,
+            "busy": dev / warm if dev is not None else None}
+
+
+def session_child(args: dict) -> int:
+    """The killed process of the sessions phase: open a cwt, a jlt and
+    an srht session under ``SKYLARK_SESSION_DIR`` with the sessions
+    phase's specs on ``args["device"]``, append ``kill_appends`` batches
+    of the LS operand to each, checkpoint after ``kill_checkpoint``,
+    print ``ready`` and wait to be killed."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from libskylark_tpu_torch import engine
+
+    size, device = args["size"], args["device"]
+    _, _, Ah, bh = session_operands(torch, size, device)
+    ex = engine.MicrobatchExecutor(device=device, name="killed")
+    B = size["batch"]
+    for kind in KILLED_KINDS:
+        sid = ex.open_sketch_session(kind, session_id=f"killed-{kind}",
+                                     **session_spec(kind, size))
+        for i in range(size["kill_appends"]):
+            ex.session_append(sid, Ah[i * B:(i + 1) * B],
+                              bh[i * B:(i + 1) * B], seq=i + 1).result()
+            if i + 1 == size["kill_checkpoint"]:
+                ex.sessions.checkpoint(sid)
+    print("ready", flush=True)
+    time.sleep(600)
+    return 1
+
+
+def kill_and_resume(torch, size, Ah, bh, finished, device) -> dict:
+    """A child process opens a session of each killed kind, appends
+    ``kill_appends`` batches, checkpoints after ``kill_checkpoint`` and is
+    killed with SIGKILL; this process resumes each from the session
+    directory (checkpoint + journal tail), appends the rest, and the
+    result is torch.equal to the uninterrupted session's."""
+    import signal
+
+    from libskylark_tpu_torch import engine
+
+    if device == "cuda":
+        release_cache(torch)
+    args = json.dumps({"device": device, "size": {
+        k: v for k, v in size.items() if k != "admm"}})
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " import chip_smoke; sys.exit(chip_smoke.session_child("
+         "__import__('json').loads(sys.argv[2])))", str(ROOT), args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = child.stdout.readline()
+        while line and line.strip() != "ready":
+            line = child.stdout.readline()
+        check(line.strip() == "ready", "the session child never got ready")
+        child.send_signal(signal.SIGKILL)
+        rc = child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    out = {"child_rc": rc}
+    B, n_app = size["batch"], size["ls_rows"] // size["batch"]
+    ex = engine.MicrobatchExecutor(device=device, name="resumer")
+    try:
+        for kind in KILLED_KINDS:
+            sid = f"killed-{kind}"
+            t0 = time.perf_counter()
+            seq, rows = ex.sessions.rows(sid)
+            resume_s = time.perf_counter() - t0
+            check((seq, rows) == (size["kill_appends"],
+                                  size["kill_appends"] * B),
+                  f"{kind}: resumed at {(seq, rows)}")
+            for i in range(seq, n_app):
+                ex.session_append(sid, Ah[i * B:(i + 1) * B],
+                                  bh[i * B:(i + 1) * B],
+                                  seq=i + 1).result()
+            got = ex.session_finalize(sid).result()
+            want = finished[kind]
+            out[kind] = {"resume_ms": resume_s * 1e3,
+                         "equal": bool(torch.equal(got["SX"], want["SX"])
+                                       and torch.equal(got["SY"],
+                                                       want["SY"]))}
+        st = ex.stats()["sessions"]
+        out["resumed"], out["replayed_records"] = (st["resumed"],
+                                                   st["replayed_records"])
+    finally:
+        ex.shutdown()
+    check(rc == -9, f"the session child ended with {rc}, not SIGKILL")
+    check(all(out[k]["equal"] for k in KILLED_KINDS),
+          f"a killed session resumed to other bits: {out}")
+    check(out["replayed_records"] == len(KILLED_KINDS) * (
+        size["kill_appends"] - size["kill_checkpoint"]),
+          f"resume replayed {out['replayed_records']} records")
+    return out
+
+
+def drain_and_fence(torch, np, size, Ah, bh, device) -> dict:
+    """A drained executor's sessions are checkpointed; a second registry
+    that resumes a session fences the first, whose next append raises
+    SessionEvictedError."""
+    import os
+
+    from libskylark_tpu_torch import engine, sessions
+    from libskylark_tpu_torch.base import errors
+
+    B = size["batch"]
+    ex = engine.MicrobatchExecutor(device=device, name="drained")
+    sid = ex.open_sketch_session("cwt", **session_spec("cwt", size))
+    for i in range(2):
+        ex.session_append(sid, Ah[i * B:(i + 1) * B], bh[i * B:(i + 1) * B],
+                          seq=i + 1).result()
+    drained = ex.drain(timeout=30.0)
+    ckpt = os.path.join(ex.sessions.directory, f"{sid}.ckpt.npz")
+    out = {"drained": drained,
+           "checkpoints": ex.stats()["sessions"]["checkpoints"],
+           "checkpoint_on_disk": os.path.exists(ckpt)}
+    first = sessions.SessionRegistry(device=device)
+    second = sessions.SessionRegistry(device=device)
+    first.append(sid, Ah[2 * B:3 * B], bh[2 * B:3 * B], seq=3)
+    second.append(sid, Ah[3 * B:4 * B], bh[3 * B:4 * B], seq=4)
+    try:
+        first.append(sid, Ah[4 * B:5 * B], bh[4 * B:5 * B], seq=5)
+        out["fenced"] = False
+    except errors.SessionEvictedError:
+        out["fenced"] = True
+    out["fenced_count"] = first.stats()["fenced"]
+    second.finalize(sid)
+    check(out["drained"] and out["checkpoints"] == 1
+          and out["checkpoint_on_disk"],
+          f"the drain did not checkpoint its session: {out}")
+    check(out["fenced"], "the stale registry was not fenced")
+    return out
+
+
+def admm_resume(torch, P, size, device) -> dict:
+    """ml-admm's Block-ADMM (s = 8192 in 4 partitions, 10 iterations, tol
+    0) uninterrupted, then stopped after 5 iterations into a checkpoint
+    and resumed: the coefficients torch.equal."""
+    import tempfile
+
+    from libskylark_tpu_torch import ml
+    from libskylark_tpu_torch.algorithms import prox
+
+    asz = size["admm"]
+    X, y, _, _ = ml_data(torch, asz, device)
+    k = ml_kernel(ml, asz)
+
+    def solver(iters):
+        s = ml.BlockADMMSolver.from_kernel(
+            P.Context(608), prox.HingeLoss(), prox.L2Regularizer(),
+            ADMM_LAM, asz["s"], k, num_partitions=asz["partitions"])
+        s.maxiter, s.tol = iters, 0.0
+        return s
+
+    full = solver(asz["admm_iters"]).train(X, y, device=device).coef
+    half = asz["admm_iters"] // 2
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        solver(half).train(X, y, device=device, checkpoint=ck)
+        stopped_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = solver(asz["admm_iters"]).train(X, y, device=device,
+                                              checkpoint=ck).coef
+        resumed_s = time.perf_counter() - t0
+    out = {"iterations": asz["admm_iters"], "stopped_at": half,
+           "stopped_s": stopped_s, "resumed_s": resumed_s,
+           "equal": bool(torch.equal(got, full))}
+    check(out["equal"], "ADMM resumed from its checkpoint to other bits")
+    return out
+
+
+def krr_session(torch, P, ex, size, device) -> dict:
+    """Config 5 through a krr session: 15 appends of 4000 rows, one
+    B1-cos launch each; the coefficients' normal-equation residual on the
+    one-shot features within the ml phase's limit."""
+    from libskylark_tpu_torch import sketch as sk
+    from libskylark_tpu_torch.sketch import cuda_dense
+
+    asz = size["admm"]
+    X, y, _, _ = ml_data(torch, asz, device)
+    X = X[:size["krr_rows"]].contiguous()
+    y = y[:size["krr_rows"]]
+    Y = torch.nn.functional.one_hot(y, asz["classes"]).to(torch.float32)
+    sigma = math.sqrt(asz["latent"] * asz["d"])
+    sid = ex.open_sketch_session("krr", n=X.shape[0], s_dim=size["krr_s"],
+                                 d=X.shape[1], seed=50,
+                                 targets=asz["classes"], lam=ML_LAM,
+                                 sigma=sigma)
+    Xh, Yh = X.cpu().numpy(), Y.cpu().numpy()
+    before = cuda_dense.launches["dense_rowwise_cos"]
+    out = timed_appends(torch, ex, sid, Xh, Yh, size["krr_batch"], device)
+    out["b1_cos_launches"] = (cuda_dense.launches["dense_rowwise_cos"]
+                              - before)
+    t0 = time.perf_counter()
+    res = ex.session_finalize(sid).result()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["finalize_ms"] = (time.perf_counter() - t0) * 1e3
+    T = sk.GaussianRFT(X.shape[1], size["krr_s"], P.Context(50),
+                       sigma=sigma)
+    Z = T.apply(X, sk.ROWWISE, device=device)
+    ZtY = Z.T @ Y
+    lhs = Z.T @ Z
+    lhs.diagonal().add_(ML_LAM)
+    resid = float(torch.linalg.norm(lhs @ res["coef"] - ZtY)
+                  / torch.linalg.norm(ZtY))
+    out["normal_equations"] = held_limit(
+        resid, SESSIONS_LIMITS["krr_normal_equations"])
+    n_app = -(-X.shape[0] // size["krr_batch"])
+    check(device != "cuda" or out["b1_cos_launches"] == n_app,
+          f"krr appends launched B1-cos {out['b1_cos_launches']} times, "
+          f"not {n_app}")
+    check(out["normal_equations"]["ok"],
+          f"krr normal equations: {out['normal_equations']}")
+    return out
+
+
+def time_accumulate(torch, P, peaks, device="cuda") -> dict:
+    """B2-accumulate at the session shape (a 4096×512 batch into s =
+    2048 at a row offset past 0): kernel, plain version, index_add_ into
+    a carried output (h and v made beforehand), and B2-cw fresh at the
+    same shape; bound: the batch read once and the accumulator read and
+    written once."""
+    from libskylark_tpu_torch.sketch import cuda_hash as ch
+
+    rows, cols, s, n0 = 4096, 512, 2048, 8192
+    A = make_operand(torch, (rows, cols), 8, device)
+    acc = make_operand(torch, (s, cols), 9, device)
+    ctx = P.Context(11)
+    ms = event_ms(torch, lambda: ch.cwt_apply(ctx.allocate().key, A, s,
+                                              False, n0=n0, out=acc))
+    dev_ms = profiled_device_ms(torch, lambda: ch.cwt_apply(
+        ctx.allocate().key, A, s, False, n0=n0, out=acc))
+    plain_ms = event_ms(torch, lambda: ch.accumulate_plain(
+        ctx.allocate().key, A, s, acc, n0))
+    cw_ms = event_ms(torch, lambda: ch.cwt_apply(ctx.allocate().key, A, s,
+                                                 False))
+    cw_dev_ms = profiled_device_ms(torch, lambda: ch.cwt_apply(
+        ctx.allocate().key, A, s, False))
+    h, v = ch.streams(ctx.allocate().key, rows, s, A.device, n0)
+    vA = v[:, None] * A
+    library_ms = event_ms(torch, lambda: acc.index_add_(0, h, vA))
+    return {"kernel": "hash_accumulate", "main_path": True,
+            "use": "session/stream fold: a batch added into the carried "
+                   "accumulator at its row offset",
+            "shape": [rows, cols], "s_dim": s, "n0": n0, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "cw_ms": cw_ms,
+            "cw_device_ms": cw_dev_ms,
+            **bound(2.0 * rows * cols, peaks["fp32_flops"],
+                    4.0 * (rows * cols + 2 * s * cols), peaks)}
+
+
+def sessions_phase(torch, P, np, size=SESSIONS_FULL,
+                   device="cuda") -> dict:
+    """Phase 4i: A7's durable state on the card, through the public entry
+    points, under a session directory and a telemetry directory of its
+    own (removed at the end): B2-accumulate against its plain version,
+    then — every launch counter set to 0 — the streamed libsvm sketch,
+    the five session kinds through a MicrobatchExecutor, a session
+    killed with SIGKILL in a child and resumed here, a drain's
+    checkpoint and a fence, and Block-ADMM stopped and resumed; then the
+    counters read. It runs after the time phase: its profiler sessions
+    would cost that phase device records (PERF.md §7)."""
+    import os
+    import shutil
+    import tempfile
+
+    from libskylark_tpu_torch import engine, telemetry
+    from libskylark_tpu_torch.telemetry import export, metrics
+
+    card = smi("name,power.limit") if device == "cuda" else "cpu"
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    checked = check_accumulate(torch, P, device=device) \
+        if device == "cuda" else []
+    tmp = tempfile.mkdtemp(prefix="skylark-sessions-")
+    env_before = os.environ.get("SKYLARK_SESSION_DIR")
+    os.environ["SKYLARK_SESSION_DIR"] = f"{tmp}/sessions"
+    tele_before = metrics._ENABLED
+    telemetry.set_enabled(True)
+    exporter = export.install_exporter(f"{tmp}/telemetry")
+    out = {"card": card, "session_dir": f"{tmp}/sessions",
+           "limits": SESSIONS_LIMITS}
+    for c in counters():
+        for k in c:
+            c[k] = 0
+
+    def step(name, fn):
+        with telemetry.span(f"chip.sessions.{name}"):
+            t0 = time.perf_counter()
+            result = fn()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out[f"{name}_seconds"] = time.perf_counter() - t0
+        return result
+
+    try:
+        out["stream"] = step("stream", lambda: stream_checks(
+            torch, P, np, size, tmp, device))
+        A, b, Ah, bh = session_operands(torch, size, device)
+        ex = engine.MicrobatchExecutor(device=device, name="sessions")
+        finished, out["kinds"] = {}, {}
+        try:
+            for kind in SESSION_KINDS:
+                spec = session_spec(kind, size)
+
+                def run(kind=kind, spec=spec):
+                    sid = ex.open_sketch_session(kind, **spec)
+                    rec = timed_appends(torch, ex, sid, Ah,
+                                        bh if spec["targets"] else None,
+                                        size["batch"], device)
+                    t0 = time.perf_counter()
+                    ex.sessions.checkpoint(sid)
+                    rec["checkpoint_ms"] = (time.perf_counter() - t0) * 1e3
+                    rec["checkpoint_bytes"] = os.path.getsize(os.path.join(
+                        ex.sessions.directory, f"{sid}.ckpt.npz"))
+                    t0 = time.perf_counter()
+                    res = ex.session_finalize(sid).result()
+                    if device == "cuda":
+                        torch.cuda.synchronize()
+                    rec["finalize_ms"] = (time.perf_counter() - t0) * 1e3
+                    return rec, res
+
+                rec, res = step(f"session_{kind}", run)
+                want = one_shot(torch, P, kind, size, A, b, device)
+                if kind == "cwt":
+                    rec["equal"] = bool(torch.equal(res["SX"], want[0])
+                                        and torch.equal(res["SY"], want[1]))
+                    check(rec["equal"], "cwt session != one-shot CWT")
+                elif kind == "isvd":
+                    err = float(((res["singular_values"] - want).abs()
+                                 / want).max())
+                    rec["sigma"] = held_limit(err,
+                                              SESSIONS_LIMITS["isvd_sigma"])
+                    check(rec["sigma"]["ok"], f"isvd sigma: {rec['sigma']}")
+                else:
+                    err = max(float((res[k] - w).abs().max()
+                                    / w.abs().max())
+                              for k, w in zip(("SX", "SY"), want))
+                    rec["sketch"] = held_limit(err, SESSIONS_LIMITS["dense"])
+                    check(rec["sketch"]["ok"], f"{kind}: {rec['sketch']}")
+                finished[kind] = res
+                out["kinds"][kind] = rec
+                del want
+            out["kinds"]["krr"] = step("session_krr", lambda: krr_session(
+                torch, P, ex, size, device))
+            out["executor"] = {k: ex.stats()[k] for k in
+                               ("sessions", "session_shed")}
+        finally:
+            ex.shutdown()
+        out["killed"] = step("kill_resume", lambda: kill_and_resume(
+            torch, size, Ah, bh, finished, device))
+        out["drain"] = step("drain_fence", lambda: drain_and_fence(
+            torch, np, size, Ah, bh, device))
+        out["admm"] = step("admm_resume", lambda: admm_resume(
+            torch, P, size, device))
+        launches = launch_counts()
+        exporter.flush_sync()
+        with open(exporter.span_path) as fh:
+            names = {json.loads(ln)["name"] for ln in fh}
+        text = telemetry.prometheus_text()
+        prom = {ln.split(" ")[0]: float(ln.split(" ")[1])
+                for ln in text.splitlines()
+                if ln.startswith(("skylark_sessions_", "skylark_io_"))}
+        out["telemetry"] = {"spans": sorted(n for n in names
+                                            if n.startswith("chip.")),
+                            "prometheus": prom}
+        check({f"chip.sessions.{s}" for s in ("stream", "session_cwt",
+                                               "session_krr", "admm_resume")}
+              <= names, f"the exporter missed the phase's spans: {names}")
+        check(prom.get("skylark_sessions_appends_total", 0) > 0
+              and prom.get('skylark_io_chunked_batches_total'
+                           '{source="libsvm"}', 0) > 0,
+              f"prometheus_text lacks the session and io counters: {prom}")
+    finally:
+        export.shutdown_exporter()
+        metrics._ENABLED = tele_before
+        if env_before is None:
+            os.environ.pop("SKYLARK_SESSION_DIR", None)
+        else:
+            os.environ["SKYLARK_SESSION_DIR"] = env_before
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["removed_session_dir"] = not os.path.exists(tmp)
+    if device == "cuda":
+        check(launches["hash_accumulate"] > 0,
+              "B2-accumulate was never launched on the main path")
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("sessions", **out)
+    return {"launches": launches, "checked": checked}
+
+
 # the serve kernels of the captured sketch flushes: each must launch
 # inside a graph replay (kernels.launch.replayed)
 REPLAYED_KERNELS = ("dense_batched_rowwise", "dense_batched_columnwise",
@@ -7166,6 +7805,10 @@ KERNELS = {
                                  "libskylark_tpu/sketch/pallas_dense.py:786"),
     "hash_offset": (CSRC + "hash_sketch.cu",
                     "libskylark_tpu/sketch/pallas_hash.py:423"),
+    # the reference folds a batch into its carried accumulator by an XLA
+    # scatter, outside any Pallas kernel; the site of its one-shot twin
+    "hash_accumulate": (CSRC + "hash_sketch.cu",
+                        "libskylark_tpu/sketch/pallas_hash.py:423"),
 }
 
 
@@ -7247,7 +7890,7 @@ def main() -> int:
             + time_fwht(torch, P, FWHT_SHAPES, peaks)
             + time_cos(torch, P, peaks) + time_fastfood(torch, P, peaks)
             + time_serve_kernels(torch, P, np, peaks) + dphase["rows"]
-            + sphase["rows"])
+            + sphase["rows"] + [time_accumulate(torch, P, peaks)])
     emit("time", method="ms: CUDA events around each of 10 back-to-back "
                         "calls after 3 warm-ups, median; device_ms: the "
                         "kernels' own time per call under torch.profiler, "
@@ -7281,8 +7924,14 @@ def main() -> int:
                   "dense_partial": "torch.matmul against the rank's panel "
                                    "of S made beforehand (TF32 off)",
                   "hash_offset": "index_add_ of v·A at h, h and v of the "
-                                 "block's coordinates made beforehand"},
+                                 "block's coordinates made beforehand",
+                  "hash_accumulate": "index_add_ of v·A into the carried "
+                                     "accumulator at h, h and v of the "
+                                     "batch's rows made beforehand"},
          rows=rows)
+    release_cache(torch)
+    sess = sessions_phase(torch, P, np)
+    checked += sess["checked"]
     release_cache(torch)
     tune_phase(torch, P, np)
     release_cache(torch)
@@ -7312,7 +7961,8 @@ def main() -> int:
                          + a3["launches"][name]
                          + dphase["launches"][name]
                          + sphase["launches"][name]
-                         + cphase["launches"][name]),
+                         + cphase["launches"][name]
+                         + sess["launches"][name]),
             "replay_launches": launch.replayed[name],
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],

@@ -177,8 +177,9 @@ TELEMETRY = declare(
 
 TELEMETRY_DIR = declare(
     "SKYLARK_TELEMETRY_DIR", default=None, kind="path", propagate=True,
-    doc="Enables telemetry (``telemetry.metrics.enabled``). The JSONL "
-        "exporter that writes there is ROADMAP A7 (telemetry/export.py).")
+    doc="Directory for the JSONL telemetry exporter "
+        "(``telemetry.export``); setting it both enables telemetry and "
+        "installs the exporter at first import.")
 
 TPU_PROFILE = declare(
     "SKYLARK_TPU_PROFILE", default=False, parser=parse_flag, kind="flag",
@@ -333,17 +334,25 @@ FLEET_HEDGE_VERIFY = declare(
 SESSION_DIR = declare(
     "SKYLARK_SESSION_DIR", default=None, parser=parse_path_or_off,
     kind="path", propagate=True,
-    doc="Durability root of the serve sessions; ROADMAP A7 (sessions/).")
+    doc="Durability root of the stateful serve sessions (``sessions``): "
+        "per-session journals, checkpoints, meta and lease files live "
+        "here, and a peer resumes a drained or crashed session from it. "
+        "Unset: a private directory under the system temp dir.")
 
 SESSION_TTL = declare(
     "SKYLARK_SESSION_TTL", default=600.0, parser=parse_float,
     kind="float",
-    doc="Idle TTL of a serve session; ROADMAP A7 (sessions/).")
+    doc="Default idle TTL in seconds of a stateful serve session: one "
+        "untouched this long is evicted (artifacts removed, later verbs "
+        "raise ``SessionEvictedError``). ``ttl_s`` overrides per "
+        "session.")
 
 SESSION_FSYNC_EVERY = declare(
     "SKYLARK_SESSION_FSYNC_EVERY", default=8, parser=parse_positive_int,
     kind="int",
-    doc="Journal fsync cadence of sessions; ROADMAP A7 (sessions/).")
+    doc="Journal fsync batching: every Nth session append also fsyncs "
+        "the journal (every append reaches the page cache). 1 = fsync "
+        "every append.")
 
 # -- training jobs ----------------------------------------------------------
 
@@ -691,13 +700,13 @@ AUTO_MATERIALIZE = declare(
 
 STREAM_PREFETCH = declare(
     "SKYLARK_STREAM_PREFETCH", default=2, parser=parse_int, kind="int",
-    doc="Prefetch depth of the streaming readers; ROADMAP A7 "
-        "(io/chunked.py).")
+    doc="Prefetch depth of the double-buffered streaming overlap "
+        "(``io.chunked``); 0 disables the overlap.")
 
 WEBHDFS_RETRIES = declare(
     "SKYLARK_WEBHDFS_RETRIES", default=4, parser=parse_int, kind="int",
-    doc="Attempt bound of the WebHDFS transport; ROADMAP A7 "
-        "(io/webhdfs.py).")
+    doc="Attempt bound of the WebHDFS transport's default retry "
+        "policy (``io.webhdfs``).")
 
 
 __all__ = [

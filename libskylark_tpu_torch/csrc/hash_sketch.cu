@@ -43,6 +43,14 @@
 //   lane), so no strip is nearly empty.
 // Ragged n is masked, not padded: coordinates past n are never added.
 //
+// Accumulate (columnwise): each (bucket, column) cell of out starts at its
+// value on entry instead of 0, and the batch's rows are added to it in
+// increasing j, the order of a sequential scatter into a carried
+// accumulator. A bucket that no coordinate of the batch hits keeps its
+// value: its warp adds nothing and writes back what it read. A stream
+// folded batch by batch so adds every cell's terms in the order of the
+// one-shot sketch of all its rows, and the two are bit-equal.
+//
 // A shard (n0 > 0): the operand holds the contracted coordinates
 // [n0, n0 + n) of a longer axis, a rank's block of a mesh-distributed
 // operand. Coordinate j of the lane is hashed as n0 + j, in the streams'
@@ -278,7 +286,7 @@ __device__ __forceinline__ int lane_above(int incl, int x) {
 __global__ void __launch_bounds__(kThreads)
 hash_cw_kernel(const float* __restrict__ A, const int* __restrict__ off,
                const uint32_t* __restrict__ sorted, float* __restrict__ out, int64_t m,
-               int64_t n, int front, int s, int width, int cpl, int strips) {
+               int64_t n, int front, int s, int width, int cpl, int strips, int accumulate) {
   const int64_t z = blockIdx.y;
   const int w = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int b = (int)(blockIdx.x / strips) * kWarps + w;
@@ -289,9 +297,13 @@ hash_cw_kernel(const float* __restrict__ A, const int* __restrict__ off,
   const float* __restrict__ Az = A + z * n * m;
   const int* __restrict__ oz = off + z * tiles * (s + 1);
   const uint32_t* __restrict__ sz = sorted + z * tiles * kTile;
+  float* o = out + (z * s + b) * m;
   float acc[kMaxCpl];
 #pragma unroll
-  for (int q = 0; q < kMaxCpl; ++q) acc[q] = 0.0f;
+  for (int q = 0; q < kMaxCpl; ++q) {
+    const int64_t col = c0 + lane + 32 * q;
+    acc[q] = accumulate && q < cpl && col < cend ? o[col] : 0.0f;
+  }
   for (int64_t t0 = 0; t0 < tiles; t0 += 32) {
     // lane u: the bucket's run [a, a + cnt) of tile t0 + u
     int a = 0, cnt = 0;
@@ -336,7 +348,6 @@ hash_cw_kernel(const float* __restrict__ A, const int* __restrict__ off,
       }
     }
   }
-  float* o = out + (z * s + b) * m;
 #pragma unroll
   for (int c = 0; c < kMaxCpl; ++c) {
     const int64_t col = c0 + lane + 32 * c;
@@ -349,15 +360,18 @@ hash_cw_kernel(const float* __restrict__ A, const int* __restrict__ off,
 // CountSketch of a stacked cohort: keys (B, 2) words; A (B, m, n) rowwise
 // or (B, n, m) columnwise, contiguous, its n contracted coordinates the
 // global [n0, n0 + n) of every lane's streams; out (B, m, s) or (B, s, m),
-// every cell written. mult: randint's multiplier for the span s. Scratch,
+// every cell written. mult: randint's multiplier for the span s.
+// accumulate (columnwise only): out holds the carried sums on entry and
+// each cell adds the batch's terms to its own value. Scratch,
 // allocated by the caller: rowwise, s0 = the words (B * n * 2 ints);
 // columnwise, s0 = off (B * T * (s + 1) ints) and s1 = the sorted words
 // (B * T * 1024 ints), T = ceil((n0 % 1024 + n) / 1024).
 extern "C" int sk_hash_apply(const float* A, const uint32_t* keys, float* out, int* s0, int* s1,
                              int64_t B, int64_t m, int64_t n, int64_t n0, int64_t s,
-                             uint32_t mult, int rowwise, cudaStream_t stream) {
+                             uint32_t mult, int rowwise, int accumulate,
+                             cudaStream_t stream) {
   if (B < 1 || B > 65535 || m <= 0 || n <= 0 || s <= 0 || s >= 0x7FFFFFFF || n0 < 0 ||
-      n0 + n >= 0x7FFFFFFF)
+      n0 + n >= 0x7FFFFFFF || (rowwise && accumulate))
     return (int)cudaErrorInvalidValue;
   const uint32_t span = (uint32_t)s;
   if (rowwise) {
@@ -388,6 +402,6 @@ extern "C" int sk_hash_apply(const float* A, const uint32_t* keys, float* out, i
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   hash_cw_kernel<<<dim3((unsigned)blocks, (unsigned)B), kThreads, 0, stream>>>(
-      A, s0, sorted, out, m, n, front, (int)s, (int)width, cpl, (int)strips);
+      A, s0, sorted, out, m, n, front, (int)s, (int)width, cpl, (int)strips, accumulate);
   return (int)cudaGetLastError();
 }

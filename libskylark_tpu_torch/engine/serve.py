@@ -170,8 +170,22 @@ each flush's source (``arg``, ``env``, ``pack``, ``plan``, ``qualify``).
 :meth:`MicrobatchExecutor.load_warmup_pack` boots an executor from a pack
 (:mod:`libskylark_tpu_torch.engine.warmup`).
 
+**Stateful sessions** (:mod:`libskylark_tpu_torch.sessions`): the
+executor also hosts sketch sessions that live across requests —
+:meth:`MicrobatchExecutor.open_sketch_session`,
+:meth:`~MicrobatchExecutor.session_append` and
+:meth:`~MicrobatchExecutor.session_finalize` on its registry
+(:attr:`~MicrobatchExecutor.sessions`, built on first use, its
+accumulators on the executor's device). Every accepted append is
+journaled under ``SKYLARK_SESSION_DIR`` before its future resolves; a
+drain checkpoints every live session, so a peer executor resumes a
+drained, or killed, executor's sessions from checkpoint plus journal
+tail, bit-equal, a duplicate sequence number a no-op. DRAINING refuses
+appends; DEGRADED sheds them before any one-shot traffic (counted
+``session_shed``); an expired deadline resolves without a journal write.
+
 Not ported yet (later slices): the executor's ``mesh`` (ROADMAP A6);
-sessions, training jobs and the dist endpoints (A7).
+training jobs and the dist endpoints (A7).
 """
 
 from __future__ import annotations
@@ -185,6 +199,7 @@ import math
 import queue
 import threading
 import time
+import warnings
 import weakref
 from concurrent.futures import Future
 from typing import Optional
@@ -1368,6 +1383,8 @@ class MicrobatchExecutor:
                        if cache else None)
         self._residency = _rcache.ResidencyTable(name=self.name,
                                                  device=self.device)
+        # the session registry, built by the first session verb
+        self._session_registry = None
 
         if dispatch_queue is not None:
             self._workq = dispatch_queue
@@ -1972,6 +1989,116 @@ class MicrobatchExecutor:
         req = _Request(arrays={"kd": kd, "scale": 1.0, **arrays},
                        true_shapes={"data": (S.nnz,)}, meta={"n": S.height})
         return statics, ctx, req
+
+    # ------------------------------------------------------------------
+    # stateful sketch sessions
+    # ------------------------------------------------------------------
+
+    @property
+    def sessions(self):
+        """This executor's
+        :class:`~libskylark_tpu_torch.sessions.registry.SessionRegistry`
+        (built on first use, under the shared ``SKYLARK_SESSION_DIR`` root,
+        which is what makes drain handoff and crash replay possible)."""
+        if self._session_registry is None:
+            from libskylark_tpu_torch.sessions import SessionRegistry
+
+            with self._lock:
+                if self._session_registry is None:
+                    self._session_registry = SessionRegistry(
+                        name=self.name, device=self.device)
+        return self._session_registry
+
+    def open_sketch_session(self, kind: str, *, n: int, s_dim: int,
+                            d: int, seed: int = 0,
+                            dtype: str = "float32", targets: int = 0,
+                            k: int = 0, lam: float = 1e-3,
+                            sigma: float = 1.0,
+                            ttl_s: Optional[float] = None,
+                            session_id: Optional[str] = None) -> str:
+        """Open a stateful sketch session and return its id. ``kind`` is
+        one of :data:`libskylark_tpu_torch.sessions.KINDS` but ``train``
+        (``cwt`` / ``jlt`` / ``srht`` appenders, ``isvd``, ``krr``); the
+        other arguments are the
+        :class:`~libskylark_tpu_torch.sessions.SessionSpec` fields.
+        Refused, like any intake, on a draining or stopped executor."""
+        from libskylark_tpu_torch.sessions import SessionSpec
+
+        with self._lock:
+            self._refuse_if_unavailable_locked()
+        spec = SessionSpec(kind=kind, n=int(n), s_dim=int(s_dim),
+                           d=int(d), seed=int(seed), dtype=str(dtype),
+                           targets=int(targets), k=int(k),
+                           lam=float(lam), sigma=float(sigma),
+                           ttl_s=ttl_s)
+        return self.sessions.open(spec, session_id=session_id)
+
+    def session_append(self, session_id: str, X, Y=None,
+                       seq: Optional[int] = None,
+                       deadline=None) -> Future:
+        """Fold one row batch into a session; the future resolves to
+        ``(seq, rows)`` once the append is journaled (durable) and folded.
+        A duplicate sequence number resolves to the current position, a
+        no-op. Resolved on the future, never raised here: DRAINING
+        refuses; DEGRADED sheds session appends before one-shot traffic;
+        an expired ``deadline`` gives :class:`ServeOverloadedError`
+        without a journal write; an evicted or unknown session gives
+        :class:`~libskylark_tpu_torch.base.errors.SessionEvictedError`."""
+        fut: Future = Future()
+        try:
+            with self._lock:
+                self._refuse_if_unavailable_locked()
+            if self._is_degraded():
+                with self._stats_lock:
+                    self._counts["session_shed"] += 1
+                raise ServeOverloadedError(
+                    "executor DEGRADED: session appends shed before "
+                    "interactive traffic")
+            dl = Deadline.coerce(deadline)
+            if dl is not None and dl.expired:
+                with self._stats_lock:
+                    self._counts["expired"] += 1
+                raise ServeOverloadedError(
+                    "session append deadline expired before execution")
+            with self._device_scope():
+                out = self.sessions.append(session_id, X, Y=Y, seq=seq,
+                                           tags=faults.current_tags())
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except BaseException as e:  # noqa: BLE001 — resolve, don't leak
+            fut.set_exception(e)
+            return fut
+        fut.set_result(out)
+        return fut
+
+    def session_finalize(self, session_id: str) -> Future:
+        """The session's result (the maintained sketch, the iSVD factors
+        or the KRR coefficients, tensors on the executor's device); its
+        artifacts are removed and its id tombstoned. An evicted or
+        unknown id resolves to
+        :class:`~libskylark_tpu_torch.base.errors.SessionEvictedError`."""
+        fut: Future = Future()
+        try:
+            with self._lock:
+                if self._stop:
+                    raise RuntimeError("MicrobatchExecutor is shut down")
+            with self._device_scope():
+                out = self.sessions.finalize(session_id)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except BaseException as e:  # noqa: BLE001
+            fut.set_exception(e)
+            return fut
+        fut.set_result(out)
+        return fut
+
+    def _checkpoint_sessions(self) -> None:
+        """The drain's hook: checkpoint every live session (journal fsync
+        + accumulator snapshot), so a peer resumes from state instead of
+        a whole journal replay. Nothing when no session was opened."""
+        reg = self._session_registry
+        if reg is not None:
+            reg.checkpoint_all()
 
     # ------------------------------------------------------------------
     # queueing and the flusher
@@ -2725,6 +2852,7 @@ class MicrobatchExecutor:
             "failed": c.get("failed", 0),
             "rejected": c.get("rejected", 0),
             "shed": c.get("shed", 0),
+            "session_shed": c.get("session_shed", 0),
             "expired": c.get("expired", 0),
             "poisoned": c.get("poisoned", 0),
             "flush_failures": c.get("flush_failures", 0),
@@ -2776,15 +2904,20 @@ class MicrobatchExecutor:
                 "n": len(lat),
             },
             "qos": self._qos_stats_block(),
+            # None until the first session verb; the cross-registry rollup
+            # is the "sessions" telemetry collector
+            "sessions": (self._session_registry.stats()
+                         if self._session_registry is not None else None),
             "cache": self._cache_stats_block(),
         }
 
     def drain(self, timeout: Optional[float] = 30.0) -> bool:
         """Stop intake (new submits raise :class:`ServeOverloadedError`),
         publish DRAINING, flush every queued cohort, wait for every
-        in-flight future, then stop the threads. Returns whether that
-        finished inside ``timeout``; the executor stops either way. What
-        the preemption handler calls on SIGTERM."""
+        in-flight future, checkpoint every live session, then stop the
+        threads. Returns whether the flushes finished inside ``timeout``;
+        the executor stops either way. What the preemption handler calls
+        on SIGTERM."""
         dl = Deadline.after(timeout)
         with self._lock:
             if self._stop:
@@ -2801,6 +2934,14 @@ class MicrobatchExecutor:
                     drained = False
                     break
                 self._idle_cv.wait(timeout=min(rem, 0.1))
+        # live sessions are checkpointed here, before the executor stops,
+        # even after a drain timeout: the journal holds every accepted
+        # append, the checkpoint bounds the peer's replay
+        try:
+            self._checkpoint_sessions()
+        except Exception as e:  # noqa: BLE001 — the drain must finish
+            warnings.warn(f"session checkpoint during drain failed: {e}",
+                          RuntimeWarning, stacklevel=2)
         self.shutdown(wait=drained)
         return drained
 
@@ -2820,6 +2961,14 @@ class MicrobatchExecutor:
             self._flusher.join()
             for t in self._workers:
                 t.join()
+        # sync the session journals without deleting anything: a peer, or
+        # a restart, resumes them from disk
+        reg = self._session_registry
+        if reg is not None:
+            try:
+                reg.close()
+            except Exception:  # noqa: BLE001 — shutdown must finish
+                pass
 
     def __enter__(self) -> "MicrobatchExecutor":
         return self
@@ -2859,7 +3008,7 @@ def serve_stats() -> dict:
     come from the pooled raw counts and samples, ``states`` counts
     executors per state."""
     sum_keys = ("submitted", "completed", "failed", "rejected", "shed",
-                "expired", "poisoned", "flush_failures",
+                "session_shed", "expired", "poisoned", "flush_failures",
                 "isolation_retries", "queued", "coalesced", "flushes")
     max_keys = ("queued_peak", "isolation_depth_peak")
     sums = collections.Counter({k: 0 for k in sum_keys})

@@ -23,8 +23,16 @@ over examples (ZⱼᵀZⱼ, Zⱼᵀ·dsum, Zⱼᵀ·o, the loss) is the rank's l
 and one all_reduce. Every rank so computes the same consensus iterate,
 and the model's coefficients are whole on every rank.
 
-Not in this port yet: ``train(checkpoint=...)`` with its resume identity
-and preemption drain (ROADMAP A7).
+``train(checkpoint=...)`` saves the carry through a
+:class:`~libskylark_tpu_torch.utility.TrainCheckpointer` every
+``checkpoint_every`` iterations and at the end, and stops at an
+iteration boundary once a preemption signal has arrived. A rerun over
+the same checkpoint resumes after the saved iteration and ends
+``torch.equal`` to the uninterrupted run; it refuses a checkpoint of
+another run (data, maps, losses or hyper-parameters), one past
+``maxiter``, and a converged one under another ``tol``. A DTensor X
+does not checkpoint (its per-example state lies on every rank; ROADMAP
+C23).
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ from libskylark_tpu_torch.ml.coding import host_array
 from libskylark_tpu_torch.ml.kernels import Kernel
 from libskylark_tpu_torch.ml.model import HilbertModel
 from libskylark_tpu_torch.parallel import mesh as pmesh
+from libskylark_tpu_torch.resilience.preemption import (
+    preemption_requested as _preemption_requested)
 from libskylark_tpu_torch.sketch import ROWWISE, SketchTransform
 from libskylark_tpu_torch.telemetry import metrics as _telemetry_metrics
 from libskylark_tpu_torch.utility.timer import get_timer, timers_enabled
@@ -59,6 +69,11 @@ _ADMM_OBJECTIVE = _telemetry_metrics.gauge(
 _ADMM_RELDEL = _telemetry_metrics.gauge(
     "ml.admm.reldel",
     "Most recent relative consensus-iterate change (convergence signal)")
+
+# Resume-identity scheme, the reference's: bumped whenever the identity's
+# inputs change meaning. A checkpoint of another scheme refuses with a
+# format diagnosis.
+_IDENTITY_SCHEME = 4
 
 
 def _partition(num_features: int, num_partitions: int) -> list[int]:
@@ -248,12 +263,12 @@ class BlockADMMSolver:
         classification. Returns the trained model, on X's device; with
         ``verbose``, prints the objective per iteration and, given (Xv,
         Yv), the validation error or accuracy."""
-        if checkpoint is not None:
-            raise errors.NotImplementedYetError(
-                "BlockADMMSolver.train(checkpoint=...): checkpoint/resume "
-                "and the preemption drain are not ported yet (ROADMAP A7)")
         total = None
         if pmesh._is_sharded(X):
+            if checkpoint is not None:
+                raise errors.UnsupportedError(
+                    "BlockADMMSolver.train(checkpoint=...) on a DTensor: "
+                    "the per-example state lies on every rank (ROADMAP C23)")
             # each rank trains on its examples; sums over examples are
             # all-reduced (module docstring)
             B = pmesh._Blocks(X)
@@ -289,37 +304,160 @@ class BlockADMMSolver:
         timer = get_timer("admm")
         timer.reset()
         carry = self.init_carry(n, k, dt, X.device)
-        cache_mats, cache_lowers, Zs = self.build_caches(X, dt, timer=timer,
-                                                         total=total)
+
+        ckpt, ident = None, None
+        ckpt_owned = False
+        start_it = 1
+        resume_finished = False
+        if checkpoint is not None:
+            from libskylark_tpu_torch.utility.checkpoint import (
+                TrainCheckpointer, as_checkpointer)
+
+            ident = self._identity(X, Y, k, regression)
+            # a path means this train() owns the checkpointer: it finishes
+            # the writes before returning
+            ckpt_owned = not isinstance(checkpoint, TrainCheckpointer)
+            ckpt = as_checkpointer(checkpoint)
+            try:
+                carry, start_it, resume_finished = self._resume(
+                    ckpt, checkpoint, ident, carry)
+            except BaseException:
+                if ckpt_owned:
+                    ckpt.close()
+                raise
+
+        # the factors are built only when iterations will run: resuming a
+        # finished run returns without them
+        cache_mats, cache_lowers, Zs = [], (), []
+        if not resume_finished and start_it <= self.maxiter:
+            cache_mats, cache_lowers, Zs = self.build_caches(
+                X, dt, timer=timer, total=total)
         step = self.make_step(n, k, dt, cache_lowers, total=total)
 
-        for it in range(1, self.maxiter + 1):
-            with timer.phase("ITERATIONS"):
-                carry, (objective, reldel) = step(carry, X, Y, cache_mats,
-                                                  Zs)
-                if timers_enabled() and X.is_cuda:
-                    torch.cuda.synchronize(X.device)  # device time here
-            if _telemetry_metrics.enabled():
-                _ADMM_ITERS.inc()
-                _ADMM_OBJECTIVE.set(float(objective))
-                _ADMM_RELDEL.set(float(reldel))
-            model.coef = carry[0]
-            if verbose:
-                msg = f"iteration {it} objective {float(objective):.6g}"
-                if Xv is not None:
-                    with timer.phase("PREDICTION"):
-                        acc = self._validate(model, Xv, Yv, regression)
-                    msg += f" accuracy {acc:.4g}"
-                print(msg)
-            # convergence on the relative change of the consensus iterate;
-            # tol = 0 forces maxiter iterations
-            if self.tol > 0 and it > 1 and float(reldel) <= self.tol:
-                break
+        def _save(it, carry, converged=False):
+            with timer.phase("CHECKPOINT"):
+                ckpt.save(it, list(carry),
+                          {"identity": ident,
+                           "identity_scheme": _IDENTITY_SCHEME,
+                           "iteration": int(it),
+                           "converged": bool(converged),
+                           "tol": float(self.tol)})
+
+        it = start_it - 1
+        converged = False
+        try:
+            for it in [] if resume_finished else range(start_it,
+                                                       self.maxiter + 1):
+                carry, converged = self._iterate(
+                    it, step, carry, X, Y, Zs, cache_mats, model, timer,
+                    verbose, Xv, Yv, regression)
+                if converged:
+                    break
+                if ckpt is not None and _preemption_requested():
+                    # stop at this iteration boundary: the final save below
+                    # and the close make it durable; a rerun resumes at it+1
+                    break
+                if ckpt is not None and checkpoint_every > 0 \
+                        and it % int(checkpoint_every) == 0 \
+                        and it < self.maxiter:
+                    _save(it, carry)
+            if ckpt is not None and it >= start_it:
+                _save(it, carry, converged)
+        finally:
+            if ckpt is not None and ckpt_owned:
+                ckpt.close()
 
         model.coef = carry[0]
         if timers_enabled():
             timer.report(stream=sys.stdout)
         return model
+
+    def _identity(self, X, Y, k: int, regression: bool) -> str:
+        """Resume identity of a run: the losses and regularizer with their
+        state, the hyper-parameters, the maps, the shapes, the dtype, and
+        the data's :func:`sample_digest`."""
+        import hashlib
+
+        from libskylark_tpu_torch.utility.checkpoint import sample_digest
+
+        loss, reg = self.loss, self.regularizer
+        n, d = X.shape
+        h = hashlib.sha256()
+        h.update(repr((
+            type(loss).__name__, sorted(vars(loss).items()),
+            type(reg).__name__, sorted(vars(reg).items()),
+            self.lam, self.rho, list(self.block_sizes), self.scale_maps,
+            int(self.num_features), int(k), int(n), int(d),
+            bool(regression), str(X.dtype),
+        )).encode())
+        for fm in self.feature_maps:
+            h.update(fm.to_json().encode())
+        h.update(sample_digest(X).encode())
+        h.update(sample_digest(Y).encode())
+        return h.hexdigest()
+
+    def _resume(self, ckpt, where, ident: str, carry: tuple):
+        """``(carry, first iteration, finished)`` from the newest
+        checkpoint of this run, or the zero carry when there is none.
+        Refuses another scheme, another run, a step past ``maxiter``, and
+        a converged run under another ``tol``."""
+        if ckpt.latest_step() is None:
+            return carry, 1, False
+        step0, meta = ckpt.metadata()
+        if meta.get("identity_scheme") != _IDENTITY_SCHEME:
+            raise errors.InvalidParametersError(
+                f"checkpoint at {where} was written by an older build "
+                "(incompatible resume-identity scheme) — retrain from "
+                "scratch")
+        if meta.get("identity") != ident:
+            raise errors.InvalidParametersError(
+                f"checkpoint at {where} belongs to a different training "
+                "run (data, feature maps or hyperparameters differ) — "
+                "refusing to resume")
+        if step0 > self.maxiter:
+            raise errors.InvalidParametersError(
+                f"checkpoint at {where} is at iteration {step0} > "
+                f"maxiter={self.maxiter}; returning it would silently "
+                "over-train — raise maxiter or point at a fresh directory")
+        _, state, _ = ckpt.restore(step0, target=list(carry))
+        # a run that stopped on convergence is done; a rerun asking for
+        # another tol refuses instead of returning it as it is
+        finished = bool(meta.get("converged", False))
+        saved_tol = meta.get("tol")
+        if finished and saved_tol is not None and \
+                saved_tol != float(self.tol):
+            raise errors.InvalidParametersError(
+                f"checkpoint at {where} finished by converging at "
+                f"tol={saved_tol}; this run requests tol={self.tol}. "
+                "Refusing to return the converged model as-is — use a "
+                "fresh checkpoint directory to re-train with the new "
+                "tolerance")
+        return tuple(state), step0 + 1, finished
+
+    def _iterate(self, it, step, carry, X, Y, Zs, cache_mats, model, timer,
+                 verbose, Xv, Yv, regression):
+        """One iteration with its telemetry and printing: ``(carry,
+        converged)``."""
+        with timer.phase("ITERATIONS"):
+            carry, (objective, reldel) = step(carry, X, Y, cache_mats, Zs)
+            if timers_enabled() and X.is_cuda:
+                torch.cuda.synchronize(X.device)  # device time here
+        if _telemetry_metrics.enabled():
+            _ADMM_ITERS.inc()
+            _ADMM_OBJECTIVE.set(float(objective))
+            _ADMM_RELDEL.set(float(reldel))
+        model.coef = carry[0]
+        if verbose:
+            msg = f"iteration {it} objective {float(objective):.6g}"
+            if Xv is not None:
+                with timer.phase("PREDICTION"):
+                    acc = self._validate(model, Xv, Yv, regression)
+                msg += f" accuracy {acc:.4g}"
+            print(msg)
+        # convergence on the relative change of the consensus iterate;
+        # tol = 0 forces maxiter iterations
+        converged = self.tol > 0 and it > 1 and float(reldel) <= self.tol
+        return carry, converged
 
     @staticmethod
     def _validate(model: HilbertModel, Xv, Yv, regression: bool) -> float:

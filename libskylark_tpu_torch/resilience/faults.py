@@ -20,12 +20,18 @@ Sites planted in the port:
 ``engine.compile``  a cold key's materialization (``engine.compiled``),
                     before the warm-up and the capture: a fired fault
                     aborts the single-flight and releases its waiters
+``checkpoint.save`` every checkpoint write (``utility.checkpoint``)
+``session.append``  a session append, before its journal write
+                    (``sessions.registry``)
+``io.chunked.*``    a libsvm batch (``batch``) and an HDF5 slice read
+                    (``read``, retried) of ``io.chunked``
+``io.webhdfs.*``    a WebHDFS connection attempt (``open``) and chunk
+                    read (``read``, reconnect-resume)
 ==================  =====================================================
 
-The reference's other sites (``io.*``,
-``checkpoint.save``, ``session.append``, ``dist.*``, ``fleet.route``,
+The reference's other sites (``dist.*``, ``fleet.route``,
 ``train.slice``, ``net.*``) come with the modules that hold them
-(ROADMAP A6, A7); a plan may name them already.
+(ROADMAP A7); a plan may name them already.
 
 A plan is a JSON document (or the equivalent dict)::
 

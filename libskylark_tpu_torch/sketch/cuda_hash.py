@@ -15,6 +15,16 @@ over the ranks to the whole operand's sketch. :func:`cwt_apply_batched`
 serves a stacked serve cohort with one launch, the lane a grid axis of
 the kernel, as the reference's ``pallas_hash.cwt_apply_batched``.
 
+``cwt_apply(..., out=acc)`` folds a batch of rows into a carried
+columnwise accumulator: the kernel starts each (bucket, column) cell at
+its value in ``acc`` and adds the batch's rows to it in increasing j, as
+the reference's ``SX.at[h].add(v[:, None] * X)`` does
+(libskylark_tpu/sessions/state.py, io/streaming.py). Folding a stream
+batch by batch at the batches' row offsets so gives the one-shot sketch
+of all its rows, bit for bit; ``acc + partial`` would reassociate the
+sums and ``index_add_`` on CUDA adds in no fixed order. Its plain version
+is the scatter into a clone of ``acc``, in increasing j on the CPU.
+
 Rules of the wrappers:
 
 - a CPU tensor takes the plain version, :func:`cwt_apply_plain`;
@@ -38,7 +48,7 @@ from libskylark_tpu_torch.sketch.cuda_dense import (_key_args, host_words,
 # a launch at a shard's offset (n0 > 0) counts under "hash_offset", both
 # ways, and not under "hash_rowwise"/"hash_columnwise"
 launches = {"hash_rowwise": 0, "hash_columnwise": 0, "hash_batched": 0,
-            "hash_offset": 0}
+            "hash_offset": 0, "hash_accumulate": 0}
 
 # coordinates per columnwise sort tile of the kernel (csrc/hash_sketch.cu:
 # kTile)
@@ -78,6 +88,15 @@ def cwt_apply_plain(key, A: torch.Tensor, s_dim: int, rowwise: bool,
     return scatter(h, v, A, s_dim, rowwise)
 
 
+def accumulate_plain(key, A: torch.Tensor, s_dim: int, acc: torch.Tensor,
+                     n0: int = 0) -> torch.Tensor:
+    """The plain version of the accumulate mode: the rows of A, the
+    coordinates [n0, n0 + n) of the streams, scattered into a clone of
+    ``acc`` (s_dim, m) by ``index_add_`` (in increasing j on the CPU)."""
+    h, v = streams(key, A.shape[0], s_dim, A.device, n0)
+    return acc.clone().index_add_(0, h, v.to(A.dtype)[:, None] * A)
+
+
 def supported(dtype) -> bool:
     """The kernel's dispatch rule: float32 operands."""
     return dtype == torch.float32
@@ -91,7 +110,8 @@ def _load():
         lib = build.load("hash_sketch")
         p, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.sk_hash_apply.argtypes = ([p] * 5 + [i64] * 5
-                                      + [ctypes.c_uint32, ctypes.c_int, p])
+                                      + [ctypes.c_uint32, ctypes.c_int,
+                                         ctypes.c_int, p])
         lib.sk_hash_apply.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -112,12 +132,13 @@ def _check(A: torch.Tensor, s_dim: int, ndim: int) -> None:
 
 
 def _launch(kd, A: torch.Tensor, s_dim: int, rowwise: bool,
-            counter: str, n0: int = 0) -> torch.Tensor:
+            counter: str, n0: int = 0, out=None) -> torch.Tensor:
     """One launch over the stacked lanes A (B, ., .) on the card, counted
     under ``counter``, the contracted coordinates [n0, n0 + n); ``kd``
     the (B, 2) key words on the host, or already on the card as int32
     (``cuda_dense.device_key``); an empty operand launches and counts
-    nothing."""
+    nothing. ``out`` (B, s_dim, m), columnwise only: the carried sums,
+    which the launch adds the lanes' rows to in place."""
     if not A.is_contiguous():
         raise errors.InvalidParametersError(
             "CountSketch kernel needs a contiguous operand")
@@ -125,10 +146,12 @@ def _launch(kd, A: torch.Tensor, s_dim: int, rowwise: bool,
 
     B = A.shape[0]
     n, m = (A.shape[2], A.shape[1]) if rowwise else A.shape[1:]
-    out = torch.empty((B, m, s_dim) if rowwise else (B, s_dim, m),
-                      dtype=torch.float32, device=A.device)
+    accumulate = out is not None
+    if not accumulate:
+        out = torch.empty((B, m, s_dim) if rowwise else (B, s_dim, m),
+                          dtype=torch.float32, device=A.device)
     if m == 0 or n == 0 or B == 0:
-        return out.zero_()
+        return out if accumulate else out.zero_()
     keys = (kd.reshape(B, 2) if isinstance(kd, torch.Tensor)
             else lane_keys(kd, A.device))
     if rowwise:
@@ -142,7 +165,7 @@ def _launch(kd, A: torch.Tensor, s_dim: int, rowwise: bool,
                          device=A.device)
     launch.call(_load().sk_hash_apply, A.device, A, keys, out, s0, s1, B, m,
                 n, n0, s_dim, randgen.randint_multiplier(s_dim),
-                int(rowwise))
+                int(rowwise), int(accumulate))
     launch.count(launches, counter)
     return out
 
@@ -167,21 +190,45 @@ def consult_plan(sketch_type: str, A: torch.Tensor, s_dim: int,
         count_lookup("ignored")
 
 
+def _check_out(out, A: torch.Tensor, s_dim: int, rowwise: bool) -> None:
+    if rowwise:
+        raise errors.InvalidParametersError(
+            "the CountSketch accumulate mode is columnwise only")
+    if (not isinstance(out, torch.Tensor) or out.dtype != A.dtype
+            or out.device != A.device
+            or tuple(out.shape) != (s_dim, A.shape[1])
+            or not out.is_contiguous()):
+        raise errors.InvalidParametersError(
+            f"out must be a contiguous ({s_dim}, {A.shape[1]}) {A.dtype} "
+            f"tensor on {A.device}, got "
+            f"{getattr(out, 'shape', type(out))}")
+
+
 def cwt_apply(key, A: torch.Tensor, s_dim: int, rowwise: bool,
-              n0: int = 0) -> torch.Tensor:
+              n0: int = 0, out=None) -> torch.Tensor:
     """CountSketch of A: (n, m) → (s_dim, m) columnwise, (m, n) → (m,
     s_dim) rowwise, its n contracted coordinates [n0, n0 + n) of the
     streams: the batched kernel with one lane. ``key`` is the key data,
     or its words as an int32 tensor on A's device
-    (``cuda_dense.device_key``)."""
+    (``cuda_dense.device_key``). ``out`` (columnwise): the carried
+    accumulator, updated in place and returned (module docstring),
+    counted under ``hash_accumulate``."""
     _check(A, s_dim, 2)
     if int(n0) < 0:
         raise errors.InvalidParametersError(
             f"n0 must be non-negative, got {n0}")
+    if out is not None:
+        _check_out(out, A, s_dim, rowwise)
     if A.device.type == "cpu":
+        if out is not None:
+            return out.copy_(accumulate_plain(key, A, s_dim, out, int(n0)))
         return cwt_apply_plain(key, A, s_dim, rowwise, int(n0))
     kd = (_key_args(key, A.device)["keys"] if isinstance(key, torch.Tensor)
           else np.asarray(key_words(key), dtype=np.uint32).reshape(1, 2))
+    if out is not None:
+        _launch(kd, A[None], s_dim, False, "hash_accumulate", int(n0),
+                out[None])
+        return out
     counter = ("hash_offset" if n0 else
                "hash_rowwise" if rowwise else "hash_columnwise")
     return _launch(kd, A[None], s_dim, rowwise, counter, int(n0))[0]

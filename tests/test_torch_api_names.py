@@ -7,9 +7,9 @@ function, class or method must be accepted by the port's counterpart
 accepts any keyword). A module's public names are the functions and
 classes it defines, its upper-case constants, and a package's
 ``__all__``. Only what ROADMAP defers is exempt, each exemption with its
-item: what the serve executor still lacks (its ``mesh``, A6; sessions,
-training jobs and the dist endpoints, A7), the telemetry exporter (A7),
-and the names of reference modules not ported yet (C12).
+item: what the serve executor still lacks (its ``mesh``, A6; training
+jobs and the dist endpoints, A7), the CLI helpers (A8), and the names of
+reference modules not ported yet (C12).
 """
 
 from __future__ import annotations
@@ -25,37 +25,22 @@ import libskylark_tpu_torch
 
 # the dist endpoints run the reference's dist/ package (A7)
 _SERVE_DIST = ("submit_dist_sketch", "submit_dist_lstsq", "submit_dist_svd")
-_SERVE_A7 = ("sessions", "open_sketch_session", "session_append",
-             "session_finalize", "train_jobs", "submit_train_job",
-             "resume_train_job", "train_job_status")
+# the training jobs run the reference's train/ package (A7)
+_SERVE_A7 = ("train_jobs", "submit_train_job", "resume_train_job",
+             "train_job_status")
 
 # "module:name" (a name, a Class.member or a callable's "(param)") -> the
 # ROADMAP item that brings it. The deferred kinds: what the serve
-# executor still lacks (A6 and A7 by feature), and the telemetry
-# exporter (A7). Every other name the port lacks is C12: a module of the
-# reference not yet ported, each named there with the A item that brings
-# it.
+# executor still lacks (A6 and A7 by feature), and the CLI helpers (A8).
+# Every other name the port lacks is C12: a module of the reference not
+# yet ported, each named there with the A item that brings it.
 EXEMPT = {
-    # A7: telemetry/export.py, the JSONL exporter and Prometheus renderer
-    "telemetry:JsonlExporter": "A7",
-    "telemetry:get_exporter": "A7", "telemetry:install_exporter": "A7",
-    "telemetry:prometheus_text": "A7", "telemetry:shutdown_exporter": "A7",
-    # C12: names of reference modules the port has not reached yet.
-    # io/streaming.py, chunked.py and webhdfs.py (A7)
-    "io:StreamingCWT": "C12", "io:iter_libsvm_batches": "C12",
-    "io:iter_hdf5_batches": "C12", "io:prefetch_batches": "C12",
-    "io:read_libsvm_sharded": "C12", "io:scan_libsvm_dims": "C12",
-    "io:stream_sketch_libsvm": "C12", "io:webhdfs_lines": "C12",
     # cli/__init__.py's helpers, which the other drivers share (A8)
     "cli:LIBSVM_DENSE": "A8", "cli:LIBSVM_SPARSE": "A8",
     "cli:HDF5_DENSE": "A8", "cli:HDF5_SPARSE": "A8",
     "cli:read_dataset": "A8", "cli:honor_platform_env": "A8",
     "cli:write_ascii_matrix": "A8", "cli:add_streaming_args": "A8",
     "cli:read_streaming": "A8",
-    # utility/checkpoint.py (A7)
-    "utility:TrainCheckpointer": "C12", "utility:as_checkpointer": "C12",
-    "utility:device_state": "C12", "utility:load_sync": "C12",
-    "utility:save_sync": "C12",
 }
 for _m in ("engine", "engine.serve"):
     EXEMPT[f"{_m}:MicrobatchExecutor(mesh)"] = "A6"
@@ -173,7 +158,10 @@ def test_the_new_modules_are_compared():
                    "resilience.health", "resilience.preemption", "qos",
                    "qos.tenants", "qos.scheduler", "qos.controller",
                    "engine.resultcache", "engine.aot", "engine.warmup",
-                   "cli.skylark_warmup")
+                   "cli.skylark_warmup", "telemetry.export",
+                   "utility.checkpoint", "io.chunked", "io.webhdfs",
+                   "io.streaming", "sessions", "sessions.journal",
+                   "sessions.state", "sessions.registry")
     for m in serve_layer:
         assert m in common, m
         assert not [k for k in EXEMPT if k.split(":")[0] == m], m

@@ -86,7 +86,8 @@ def test_cwt_apply_bit_equal_to_reference(rowwise, n, s):
                                                  rowwise)):
         np.testing.assert_array_equal(fn().numpy(), want)
     assert cuda_hash.launches == {"hash_rowwise": 0, "hash_columnwise": 0,
-                                  "hash_batched": 0, "hash_offset": 0}
+                                  "hash_batched": 0, "hash_offset": 0,
+                                  "hash_accumulate": 0}
 
 
 def test_cwt_zero_padding_past_n_is_exact():

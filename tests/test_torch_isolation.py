@@ -57,7 +57,10 @@ def test_port_and_chip_smoke_import_no_jax():
                 "resilience", "resilience.policy", "resilience.faults",
                 "resilience.health", "resilience.preemption", "qos",
                 "qos.tenants", "qos.scheduler", "qos.controller",
-                "engine.resultcache", "engine.cache", "engine.compiled"):
+                "engine.resultcache", "engine.cache", "engine.compiled",
+                "telemetry.export", "utility.checkpoint", "io.chunked",
+                "io.webhdfs", "io.streaming", "sessions",
+                "sessions.journal", "sessions.state", "sessions.registry"):
         assert f"libskylark_tpu_torch.{mod}" in report["modules"]
 
 

@@ -214,12 +214,17 @@ def test_verbose_objective_and_tolerance_match_reference():
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
+    """Checkpointing is ported: a run with ``checkpoint=`` trains the
+    same model, and a rerun of another run over its checkpoint refuses;
+    bad labels and maps that miss features still refuse."""
     X, labels, _ = _data()
     s = _solver(PORT, 33, CASES["hinge_l2"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        s.train(X, labels, checkpoint=str(tmp_path), device="cpu")
-    with pytest.raises(errors.NotImplementedYetError, match="A7"):
-        s.train(X, labels, checkpoint=str(tmp_path), device="cpu")
+    want = s.train(X, labels, device="cpu").coef
+    got = s.train(X, labels, checkpoint=str(tmp_path), device="cpu").coef
+    assert torch.equal(got, want)
+    other = _solver(PORT, 34, CASES["hinge_l2"])
+    with pytest.raises(errors.InvalidParametersError, match="different"):
+        other.train(X, labels, checkpoint=str(tmp_path), device="cpu")
     with pytest.raises(errors.InvalidParametersError):
         s.train(X, labels - 1, device="cpu")
     with pytest.raises(errors.InvalidParametersError):

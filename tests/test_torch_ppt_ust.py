@@ -88,7 +88,8 @@ def test_ppt_cwts_take_the_countsketch_route(monkeypatch):
                                           device="cpu")
     assert calls == [False, False, False]  # columnwise, once per CWT
     assert cuda_hash.launches == {"hash_rowwise": 0, "hash_columnwise": 0,
-                                  "hash_batched": 0, "hash_offset": 0}
+                                  "hash_batched": 0, "hash_offset": 0,
+                                  "hash_accumulate": 0}
 
 
 def test_ppt_parameters_and_json():

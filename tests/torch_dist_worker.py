@@ -594,8 +594,67 @@ def _sharded_ml_cases(P, meshes, out):
         put(f"admm_kernel/{mname}", kernel)
 
 
+def io_libsvm_lines(n: int = 23, d: int = 9, targets: int = 1,
+                    seed: int = 5) -> list:
+    """A seeded libsvm text (``n`` lines, features 1..d, 0-4 nonzeros a
+    row on a 1/4 grid, ``targets`` label columns), as a list of lines."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for _ in range(n):
+        ys = " ".join(str(int(y)) for y in rng.integers(0, 3, targets))
+        cols = np.sort(rng.choice(d, rng.integers(0, 5), replace=False))
+        feats = " ".join(f"{c + 1}:{0.25 * rng.integers(-8, 9)}"
+                         for c in cols)
+        lines.append(f"{ys} {feats}".rstrip() + "\n")
+    return lines
+
+
+# read_libsvm_sharded cases: name -> (mesh, axis, lines kwargs, reader
+# kwargs, source: "path", "stream" or "stream_dims")
+IO_CASES = {
+    "m2_rows": ("m2", "rows", {}, {"batch_rows": 4}, "path"),
+    "m4_ragged": ("m4", "rows", {"n": 6}, {"batch_rows": 5}, "path"),
+    "g22_rows": ("g22", "rows", {"targets": 2}, {"batch_rows": 7}, "path"),
+    "g22_cols": ("g22", "cols", {}, {"batch_rows": 3}, "path"),
+    "m4_stream_max_n": ("m4", "rows", {}, {"batch_rows": 6, "max_n": 17},
+                        "stream_dims"),
+}
+
+
+def _io_sharded_cases(P, meshes, out):
+    """read_libsvm_sharded on each case's mesh, from a path (each rank
+    writes its own copy) or a one-shot stream with ``dims`` from a scan
+    of another copy; every rank stores the whole X and Y, and its own
+    block's row count under ``rows/``."""
+    from libskylark_tpu_torch import io as pio
+    from libskylark_tpu_torch import parallel as par
+
+    outdir = os.environ["SKYLARK_TEST_OUTDIR"]
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    for name, (mname, axis, lkw, rkw, src) in IO_CASES.items():
+        mesh = meshes.get(mname)
+        if mesh is None:
+            continue
+        lines = io_libsvm_lines(**lkw)
+        if src == "path":
+            path = os.path.join(outdir, f"{name}.{rank}.libsvm")
+            with open(path, "w") as fh:
+                fh.writelines(lines)
+            X, Y = pio.read_libsvm_sharded(path, mesh, axis=axis, **rkw)
+        else:
+            dims = pio.scan_libsvm_dims(iter(lines))
+            X, Y = pio.read_libsvm_sharded(iter(lines), mesh, axis=axis,
+                                           dims=dims, **rkw)
+        out[f"x/{name}"] = par.to_host(X)
+        out[f"y/{name}"] = par.to_host(Y)
+        out[f"rows/{name}"] = np.asarray(X.to_local().shape[0])
+
+
 TASKS = {"parallel": _parallel_cases, "dist_sparse": _dist_sparse_cases,
-         "sharded": _sharded_cases, "sharded_ml": _sharded_ml_cases}
+         "sharded": _sharded_cases, "sharded_ml": _sharded_ml_cases,
+         "io_sharded": _io_sharded_cases}
 
 
 def main() -> None:
@@ -648,6 +707,7 @@ def _run_group(task: str, world: int, timeout: float):
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
     env["OMP_NUM_THREADS"] = "1"
     with tempfile.TemporaryDirectory() as outdir:
+        env["SKYLARK_TEST_OUTDIR"] = outdir
         port = _free_port()
         procs = [subprocess.Popen(
             [sys.executable, os.path.join(HERE, "torch_dist_worker.py"),
