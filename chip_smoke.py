@@ -358,6 +358,43 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             session and io counters; then the counters read. It runs after
             phase 5 (its profiler sessions would cost that phase device
             records), before phase 6;
+4j. train_dist — A7's training jobs and distributed sketches (about
+            30 s), under a session directory made for it in the temp dir
+            and removed at its end: B2-accumulate torch.equal to its
+            plain version at the cwt shards' shapes (8192 × 512 and × 1
+            into s = 2048 at their offsets); then, every launch counter
+            set to 0: config 5's Block-ADMM (60,000 × 784, 10 classes as
+            labels, σ = 112, 8192 features in 4 partitions, λ = 0.01, a
+            budget of 20 iterations in slices of 5, a checkpoint every 2
+            slices) submitted to a MicrobatchExecutor while an
+            interactive storm of the dense-rw bucket runs: the storm
+            defers its slices (preemptions > 0), its coefficients
+            torch.equal to the engine stepped straight and within
+            1e-4·max of BlockADMMSolver.train at the same settings; LSQR
+            on the LS cell (b = A·x₀ + 0.1·noise) with Blendenpik's JLT
+            (s = 2048), tolerance 1e-6, in slices of 8, torch.equal to
+            the straight engine, its residual within 1e-4 of foreground
+            lsqr's; a child process that runs 2 slices of that job,
+            checkpoints and is killed with SIGKILL, its job resumed here
+            (resume_train_job) torch.equal to the uninterrupted one; the
+            LS operand [A | b] sketched in 8 shards of 8192 rows into s
+            = 2048 by cwt, jlt, srht and ust through submit_dist_sketch,
+            torch.equal to sketch_local and to merge_partials over
+            shuffled partials; two in-process replicas with one
+            injected dist.shard fault (retried, reassigned, still
+            torch.equal); a shard whose storage is lost (a standard
+            request refused by SketchCoverageError, an interactive one
+            a DegradedSketchResult of coverage 7/8 with its exact
+            missing range); an identical resubmit a cache hit;
+            submit_dist_lstsq (cwt) within 1e-4 of solving the merged
+            sketch here and submit_dist_svd (jlt, rank 64, the 8192² SVD
+            operand in shards of 1024 rows) within 1e-3 of the SVD of
+            sketch_local's sketch; ms a slice warm, device and busy,
+            checkpoint and resume ms, the storm's median latency idle and
+            with the job, ms a shard, merge ms and busy of each dist
+            kind; then the counters read (B1-cos, B1-cw and
+            B2-accumulate required). After phase 4i, for the same
+            reason;
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
@@ -869,6 +906,34 @@ def counters():
 
 def launch_counts() -> dict:
     return {k: v for c in counters() for k, v in c.items()}
+
+
+class MainRuns:
+    """The launches of a phase's main-path runs alone: each run counted
+    from 0 just before it and read just after, so that the reference and
+    comparison runs between them count nothing."""
+
+    def __init__(self):
+        self.total = {k: 0 for k in launch_counts()}
+        self.by_run = {}
+
+    def run(self, label, fn):
+        """``fn()`` with every counter set to 0 just before it; its
+        launches are kept under ``label`` and added to the total."""
+        for c in counters():
+            for k in c:
+                c[k] = 0
+        result = fn()
+        got = launch_counts()
+        self.by_run[label] = {k: v for k, v in got.items() if v}
+        for k, v in got.items():
+            self.total[k] += v
+        return result
+
+    def require(self, label, name):
+        check(self.by_run.get(label, {}).get(name, 0) > 0,
+              f"{name} was never launched in the main-path run {label}: "
+              f"{self.by_run.get(label)}")
 
 
 def dense_counts() -> dict:
@@ -7231,16 +7296,20 @@ def rcv1_libsvm(P, np, path: str, rows: int, device) -> tuple:
 def busy_share(torch, fn, device="cuda") -> tuple:
     """(result, wall s, device s, busy): ``fn`` run once under
     torch.profiler, the device's kernel and copy time over the wall
-    time (no device time on the CPU)."""
+    time. On the CPU there is no device to trace: ``fn`` runs unprofiled,
+    with device time 0."""
     from torch.profiler import ProfilerActivity, profile
 
-    cuda = device == "cuda"
-    with profile(activities=[ProfilerActivity.CPU]
-                 + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+    if device != "cuda":
         t0 = time.perf_counter()
         result = fn()
-        if cuda:
-            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return result, wall, 0.0, 0.0 if wall else None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = sum(e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
@@ -7760,6 +7829,631 @@ def sessions_phase(torch, P, np, size=SESSIONS_FULL,
     return {"launches": launches, "checked": checked}
 
 
+# ---------------------------------------------------------------------------
+# Phase 4j: A7's training jobs and distributed sketches
+# ---------------------------------------------------------------------------
+
+# Training jobs: config 5's Block-ADMM KRR (ml-admm's data with the 10
+# classes as labels, Gaussian σ = 112, 8192 features in 4 partitions, λ =
+# 0.01, squared loss) with a budget of 20 iterations in slices of 5, a
+# checkpoint every 2 slices; LSQR on the LS cell's 65,536 × 512 operand
+# (b = A·x₀ + 0.1·noise) with Blendenpik's JLT preconditioner (s = 2048),
+# tolerance 1e-6, in slices of 8. Distributed sketches of [A | b] (s =
+# 2048, 8 shards of 8192 rows) for cwt, jlt, srht and ust, and the SVD
+# operand's (8192², rank 64, shards of 1024 rows). The interactive storm
+# is the serve phase's dense-rw bucket (JLT 8192 → 1024 rowwise).
+TRAIN_DIST_FULL = {"ls_rows": 65536, "ls_cols": 512, "s": 2048,
+                   "shard_rows": 8192, "lsqr_slice": 8, "lsqr_budget": 64,
+                   "admm": ML_FULL, "admm_features": 8192,
+                   "admm_partitions": 4, "admm_iters": 20, "admm_slice": 5,
+                   "ckpt_every": 2, "svd_n": 8192, "svd_r": 512,
+                   "svd_rank": 64, "svd_shard_rows": 1024,
+                   "storm_threads": 4, "storm_requests": 48,
+                   "storm_rows": 2048, "storm_n": 8192, "storm_s": 1024}
+DIST_KINDS = ("cwt", "jlt", "srht", "ust")
+# limits of the train_dist phase, each with its reason
+TRAIN_DIST_LIMITS = {
+    # the job's coefficients against BlockADMMSolver.train at the same
+    # settings and the same maps: the same parts in the same order, held to
+    # the reference's oracle (ROADMAP C9), relative to max|coef|
+    "admm_foreground": 1e-4,
+    # the job's ‖Ax − b‖/‖b‖ against foreground lsqr's with the same
+    # preconditioner, relative
+    "lsqr_residual": 1e-4,
+    # submit_dist_lstsq's coefficients against solving the merged sketch
+    # here, relative to max|coef|
+    "dist_lstsq": 1e-4,
+    # submit_dist_svd's σ against the SVD of sketch_local's sketch,
+    # relative to each σ
+    "dist_svd_sigma": 1e-3,
+}
+# B2-accumulate at the cwt shards' shapes and offsets (the rows and the
+# target column of a shard, each folded at the shard's first row)
+TRAIN_DIST_ACCUMULATE = (("dist_shard", 8192, 512, 2048, 8192),
+                         ("dist_shard", 8192, 512, 2048, 57344),
+                         ("dist_shard_target", 8192, 1, 2048, 24576))
+KILLED_JOB = "killed-lsqr"
+
+
+def train_ls_operands(torch, size, device):
+    """The LS cell's operand with b = A·x₀ + 0.1·noise, as the host
+    arrays a client sends (made on ``device``)."""
+    g = torch.Generator(device=device).manual_seed(5)
+    A = torch.randn(size["ls_rows"], size["ls_cols"], generator=g,
+                    device=device)
+    x0 = torch.randn(size["ls_cols"], generator=g, device=device)
+    b = A @ x0 + 0.1 * torch.randn(size["ls_rows"], generator=g,
+                                   device=device)
+    return A.cpu().numpy(), b.cpu().numpy()
+
+
+def lsqr_job(size) -> dict:
+    """The lsqr job's TrainJobSpec fields."""
+    return {"solver": "lsqr",
+            "hyper": {"tolerance": 1e-6, "precond": "blendenpik",
+                      "sketch": "jlt", "seed": 61,
+                      "sketch_size_factor": size["s"] / size["ls_cols"]},
+            "budget_iters": size["lsqr_budget"],
+            "slice_iters": size["lsqr_slice"],
+            "checkpoint_every": size["ckpt_every"]}
+
+
+def train_child(args: dict) -> int:
+    """The killed process of the train_dist phase: submit the lsqr job
+    under ``SKYLARK_SESSION_DIR`` on ``args["device"]`` with its third
+    slice held at the ``train.slice`` fault site, wait until two slices
+    are journaled and checkpointed, print ``ready`` and wait to be
+    killed."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from libskylark_tpu_torch import engine
+    from libskylark_tpu_torch.resilience import faults
+    from libskylark_tpu_torch.train import TrainJobSpec
+
+    size, device = args["size"], args["device"]
+    Ah, bh = train_ls_operands(torch, size, device)
+    ex = engine.MicrobatchExecutor(device=device, name="train-killed")
+    with faults.fault_plan({"seed": 1, "faults": [
+            {"site": "train.slice", "stall_s": 600.0, "on_hit": 3}]}):
+        h = ex.submit_train_job(TrainJobSpec(**lsqr_job(size)),
+                                {"A": Ah, "B": bh}, session_id=KILLED_JOB)
+        ckpt = os.path.join(ex.sessions.directory, f"{KILLED_JOB}.ckpt.npz")
+        while True:
+            check(not h.future.done(), "the killed job ended before slice 3")
+            if (ex.train_job_status(h.job_id)["slices_done"] >= 2
+                    and os.path.exists(ckpt)):
+                break
+            time.sleep(0.01)
+        print("ready", flush=True)
+        time.sleep(600)
+    return 1
+
+
+def spawn_train_child(torch, size, device):
+    """Start :func:`train_child` (``python -c`` importing chip_smoke, so the
+    CPU rehearsal spawns it too)."""
+    args = json.dumps({"device": device, "size": {
+        k: v for k, v in size.items() if k != "admm"}})
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " import chip_smoke; sys.exit(chip_smoke.train_child("
+         "__import__('json').loads(sys.argv[2])))", str(ROOT), args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def kill_train_child(child) -> int:
+    """Wait for the child's ``ready``, kill it with SIGKILL, return its
+    exit code."""
+    import signal
+
+    try:
+        lines = []
+        line = child.stdout.readline()
+        while line and line.strip() != "ready":
+            lines.append(line)
+            line = child.stdout.readline()
+        check(line.strip() == "ready",
+              f"the train child never got ready: {''.join(lines)[-2000:]}")
+        child.send_signal(signal.SIGKILL)
+        return child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def straight(eng, k: int, budget: int):
+    """An engine stepped ``k`` iterations at a time from its start until
+    it converges or ``budget`` iterations were requested (the job's slice
+    boundaries); returns the state and each step's wall ms."""
+    st, done, walls = eng.init(), 0, []
+    while done < budget and not eng.info(st)["converged"]:
+        t0 = time.perf_counter()
+        st = eng.step(st, min(k, budget - done))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        done += k
+    return st, walls
+
+
+def storm_requests(torch, P, size, device) -> list:
+    """The interactive storm's requests: the dense-rw bucket's JLT (8
+    seeds) on 8 operands of its shape."""
+    from libskylark_tpu_torch import sketch as sk
+
+    return [(sk.JLT(size["storm_n"], size["storm_s"], P.Context(900 + i)),
+             make_operand(torch, (size["storm_rows"], size["storm_n"]),
+                          9000 + i, device)) for i in range(8)]
+
+
+def interactive_storm(ex, reqs, size, until=None) -> list:
+    """``storm_threads`` threads, each submitting one interactive request
+    and waiting for it, ``storm_requests`` times or until ``until`` is
+    done; returns each request's latency in ms."""
+    import threading
+
+    from libskylark_tpu_torch import sketch as sk
+
+    lat, lock = [], threading.Lock()
+
+    def worker(t):
+        for i in range(size["storm_requests"]):
+            if until is not None and until.done():
+                return
+            T, A = reqs[(t + i) % len(reqs)]
+            t0 = time.perf_counter()
+            ex.submit_sketch(T, A, dimension=sk.ROWWISE,
+                             qos_class="interactive").result(timeout=300)
+            with lock:
+                lat.append((time.perf_counter() - t0) * 1e3)
+
+    ts = [threading.Thread(target=worker, args=(t,))
+          for t in range(size["storm_threads"])]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return lat
+
+
+def admm_train_job(torch, P, ex, size, device, runs) -> dict:
+    """Config 5's Block-ADMM as a train job while an interactive storm
+    runs: the job's slices yield to the storm (``preemptions`` > 0), its
+    coefficients torch.equal to the engine stepped straight here and
+    within 1e-4·max of BlockADMMSolver.train at the same settings. tol is
+    the relative change the tol-0 run reaches at its 20th iteration, so
+    the job converges inside its budget. Only the job and the storm
+    beside it count in ``runs`` (``admm_job``)."""
+    from libskylark_tpu_torch import ml
+    from libskylark_tpu_torch.algorithms import prox
+    from libskylark_tpu_torch.train import TrainJobSpec, make_engine
+
+    asz = size["admm"]
+    X, y, _, _ = ml_data(torch, asz, device)
+    ops = {"X": X.cpu().numpy(), "Y": y.cpu().numpy()}
+    sigma = math.sqrt(asz["latent"] * asz["d"])
+    hyper = {"sigma": sigma, "num_features": size["admm_features"],
+             "num_partitions": size["admm_partitions"], "lam": ADMM_LAM,
+             "regression": False, "num_targets": asz["classes"],
+             "seed": 62, "tol": 0.0}
+    iters, k = size["admm_iters"], size["admm_slice"]
+    eng = make_engine("admm_krr", hyper, ops, device=device)
+    st, walls = straight(eng, k, iters)
+    _, _, dev, busy = busy_share(torch, lambda: eng.step(st, k), device)
+    hyper["tol"] = float(eng.info(st)["residual"])
+    out = {"iterations": iters, "slice_iters": k, "tol": hyper["tol"],
+           "slice_ms": walls, "slice_warm_ms": statistics.median(walls[1:]),
+           "slice_device_ms": dev * 1e3, "slice_busy": busy}
+    eng = make_engine("admm_krr", hyper, ops, device=device)
+    st, _ = straight(eng, k, iters)
+    want = eng.result(st)
+    del eng
+    reg = ex.sessions
+    reg_checkpoint, ckpt_ms = reg.checkpoint, []
+
+    def timed_checkpoint(sid):
+        t0 = time.perf_counter()
+        reg_checkpoint(sid)
+        ckpt_ms.append((time.perf_counter() - t0) * 1e3)
+
+    reg.checkpoint = timed_checkpoint
+    reqs = storm_requests(torch, P, size, device)
+    try:
+        idle = interactive_storm(ex, reqs, size)
+
+        def job():
+            t0 = time.perf_counter()
+            h = ex.submit_train_job(TrainJobSpec(
+                solver="admm_krr", hyper=hyper, budget_iters=iters,
+                slice_iters=k, checkpoint_every=size["ckpt_every"]), ops)
+            out["submit_ms"] = (time.perf_counter() - t0) * 1e3
+            lat = interactive_storm(ex, reqs, size, until=h.future)
+            got = h.result(timeout=600)
+            out["job_s"] = time.perf_counter() - t0
+            return got, lat
+
+        got, busy_lat = runs.run("admm_job", job)
+    finally:
+        del reg.checkpoint
+    tr = ex.stats()["train"]
+    out.update({
+        "job_iterations": got["iterations"], "converged": got["converged"],
+        "checkpoint_ms": ckpt_ms, "preemptions": tr["preemptions"],
+        "slices_run": tr["slices_run"],
+        "interactive_ms": {"idle_median": statistics.median(idle),
+                           "job_median": (statistics.median(busy_lat)
+                                          if busy_lat else None),
+                           "idle_n": len(idle), "job_n": len(busy_lat)},
+        "equal": bool(torch.equal(got["coef"], want["coef"]))})
+    solver = ml.BlockADMMSolver.from_kernel(
+        P.Context(62), prox.SquaredLoss(), prox.L2Regularizer(), ADMM_LAM,
+        size["admm_features"], ml.Gaussian(asz["d"], sigma),
+        num_partitions=size["admm_partitions"])
+    solver.maxiter, solver.tol = iters, hyper["tol"]
+    fg = solver.train(X, y, regression=False, num_targets=asz["classes"],
+                      device=device).coef
+    out["foreground"] = held_limit(
+        float((got["coef"] - fg).abs().max() / fg.abs().max()),
+        TRAIN_DIST_LIMITS["admm_foreground"])
+    check(got["converged"] and got["iterations"] <= iters,
+          f"the admm job ended unconverged: {out}")
+    check(out["equal"], "the admm job != the engine stepped straight")
+    check(out["foreground"]["ok"], f"admm vs train(): {out['foreground']}")
+    check(out["preemptions"] > 0,
+          "the interactive storm never deferred a slice")
+    check(len(ckpt_ms) >= 1, "the admm job never checkpointed")
+    return out
+
+
+def lsqr_train_jobs(torch, P, ex, size, device, child, runs) -> dict:
+    """The lsqr job through the executor, torch.equal to the engine stepped
+    straight, its residual within 1e-4 of foreground lsqr's with the same
+    preconditioner; then the killed child's job resumed here and finished
+    torch.equal to the uninterrupted job. Only the job (``lsqr_job``) and
+    the resume (``lsqr_resume``) count in ``runs``."""
+    from libskylark_tpu_torch.algorithms import krylov, regression
+    from libskylark_tpu_torch.train import TrainJobSpec, make_engine
+
+    Ah, bh = train_ls_operands(torch, size, device)
+    job = lsqr_job(size)
+    eng = make_engine("lsqr", job["hyper"], {"A": Ah, "B": bh},
+                      device=device)
+    st, walls = straight(eng, job["slice_iters"], job["budget_iters"])
+    _, _, dev, busy = busy_share(
+        torch, lambda: eng.step(eng.init(), job["slice_iters"]), device)
+    want = eng.result(st)
+    del eng
+    t0 = time.perf_counter()
+    got = runs.run("lsqr_job", lambda: ex.submit_train_job(
+        TrainJobSpec(**job), {"A": Ah, "B": bh}).result(timeout=600))
+    out = {"job_s": time.perf_counter() - t0, "slice_ms": walls,
+           "slice_warm_ms": (statistics.median(walls[1:])
+                             if len(walls) > 1 else None),
+           "slice_device_ms": dev * 1e3, "slice_busy": busy,
+           "iterations": got["iterations"], "converged": got["converged"],
+           "equal": bool(torch.equal(got["X"], want["X"]))}
+    A = torch.as_tensor(Ah, device=device)
+    b = torch.as_tensor(bh, device=device)
+    params = regression.AcceleratedParams(
+        sketch_size_factor=job["hyper"]["sketch_size_factor"], sketch="jlt")
+    precond, _ = regression.build_blendenpik_precond(
+        A, P.Context(job["hyper"]["seed"]), params, device=device)
+    xf, it = krylov.lsqr(A, b, params=krylov.KrylovParams(tolerance=1e-6),
+                         precond=precond, device=device)
+    res_job = float(torch.linalg.norm(A @ got["X"] - b)
+                    / torch.linalg.norm(b))
+    res_fg = float(torch.linalg.norm(A @ xf - b) / torch.linalg.norm(b))
+    out["foreground_iterations"] = int(it)
+    out["residual"] = {"job": res_job, "foreground": res_fg,
+                       **held_limit(abs(res_job - res_fg) / res_fg,
+                                    TRAIN_DIST_LIMITS["lsqr_residual"])}
+    check(out["converged"], f"the lsqr job did not converge: {out}")
+    check(out["equal"], "the lsqr job != the engine stepped straight")
+    check(out["residual"]["ok"], f"lsqr residual: {out['residual']}")
+    # the killed child's job: resumed here from checkpoint + journal
+    rc = kill_train_child(child)
+
+    def resume():
+        t0 = time.perf_counter()
+        h2 = ex.resume_train_job(KILLED_JOB)
+        resume_ms = (time.perf_counter() - t0) * 1e3
+        status = ex.train_job_status(KILLED_JOB)
+        t0 = time.perf_counter()
+        ex.sessions.checkpoint(KILLED_JOB)
+        ckpt_ms = (time.perf_counter() - t0) * 1e3
+        return h2.result(timeout=600), resume_ms, status, ckpt_ms
+
+    resumed, resume_ms, status, ckpt_ms = runs.run("lsqr_resume", resume)
+    out["killed"] = {"child_rc": rc, "resume_ms": resume_ms,
+                     "checkpoint_ms": ckpt_ms,
+                     "resumed_at_slice": status["slices_done"],
+                     "resumed_at_iteration": status["iterations_requested"],
+                     "equal": bool(torch.equal(resumed["X"], got["X"]))}
+    check(rc == -9, f"the train child ended with {rc}, not SIGKILL")
+    check(status["slices_done"] == 2,
+          f"the killed job resumed at slice {status['slices_done']}")
+    check(out["killed"]["equal"],
+          "the killed lsqr job resumed to other bits than the straight run")
+    return out
+
+
+class StubReplica:
+    """An in-process replica for the coordinator: shard tasks computed on
+    a worker thread of its own on ``device``."""
+
+    def __init__(self, name, device):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.name, self.device, self.tasks = name, device, []
+        self._tpe = ThreadPoolExecutor(1)
+
+    def state(self):
+        return "SERVING"
+
+    def shard(self, task):
+        from libskylark_tpu_torch.dist import plan as dp
+
+        self.tasks.append(int(task["index"]))
+        return self._tpe.submit(dp.execute_task, task, self.device)
+
+    def close(self):
+        self._tpe.shutdown()
+
+
+class LosesShard:
+    """A row source whose shard starting at ``bad`` always fails to read
+    (its storage lost); the others read from ``inner``."""
+
+    def __init__(self, inner, bad):
+        self.inner, self.bad = inner, bad
+        self.n, self.d, self.targets = inner.n, inner.d, inner.targets
+
+    def read(self, lo, hi):
+        if lo == self.bad:
+            raise RuntimeError(f"rows from {lo}: storage lost")
+        return self.inner.read(lo, hi)
+
+    def subrange(self, lo, hi):
+        return self
+
+
+def dist_sketches(torch, P, np, size, device, runs) -> dict:
+    """The dist endpoints at full width on a cache-on executor (module
+    docstring, 4j). Only the endpoints' and the coordinator's runs count
+    in ``runs``; sketch_local and compute_shard, their references, do
+    not."""
+    import random
+
+    from libskylark_tpu_torch import dist, engine
+    from libskylark_tpu_torch.base import errors
+    from libskylark_tpu_torch.dist import plan as dp
+    from libskylark_tpu_torch.dist import serve as dserve
+    from libskylark_tpu_torch.resilience import faults
+
+    Ah, bh = train_ls_operands(torch, size, device)
+    src = dp.ArraySource(Ah, bh)
+    n_sh = size["ls_rows"] // size["shard_rows"]
+    out = {"kinds": {}, "shards": n_sh}
+    ex = engine.MicrobatchExecutor(device=device, name="dist", cache=True)
+    rng = random.Random(7)
+    try:
+        for i, kind in enumerate(DIST_KINDS):
+            plan = dp.ShardPlan(kind=kind, n=size["ls_rows"],
+                                s_dim=size["s"], d=size["ls_cols"],
+                                seed=70 + i, targets=1,
+                                shard_rows=size["shard_rows"])
+            want, wall, dev, busy = busy_share(
+                torch, lambda: dp.sketch_local(plan, src, device=device),
+                device)
+            t0 = time.perf_counter()
+            got = runs.run(f"dist_{kind}", lambda: ex.submit_dist_sketch(
+                plan, src).result(timeout=600))
+            job_s = time.perf_counter() - t0
+            parts = {j: dp.compute_shard(plan, j, src, device=device)
+                     for j in range(n_sh)}
+            order = list(range(n_sh))
+            rng.shuffle(order)
+            t0 = time.perf_counter()
+            merged = dp.merge_partials(plan, {j: parts[j] for j in order})
+            if device == "cuda":
+                torch.cuda.synchronize()
+            merge_ms = (time.perf_counter() - t0) * 1e3
+            rec = {"local_s": wall, "shard_ms": wall * 1e3 / n_sh,
+                   "device_s": dev, "busy": busy, "job_s": job_s,
+                   "merge_ms": merge_ms, "order": order,
+                   "equal": bool(torch.equal(got.SX, want.SX)
+                                 and torch.equal(got.SY, want.SY)),
+                   "merge_equal": bool(
+                       torch.equal(merged["SX"], want.SX)
+                       and torch.equal(merged["SY"], want.SY))}
+            check(rec["equal"] and rec["merge_equal"],
+                  f"dist {kind}: the job or the shuffled merge != "
+                  f"sketch_local: {rec}")
+            out["kinds"][kind] = rec
+            if kind == "cwt":
+                cwt = (plan, want, parts)
+            del want, got, parts, merged
+        plan, want, parts = cwt
+        # two in-process replicas, dist.shard injected once
+        reps = [StubReplica("r0", device), StubReplica("r1", device)]
+        co = dist.DistSketchCoordinator(replicas=reps, retries=3,
+                                        max_inflight=1)
+
+        def on_replicas():
+            try:
+                with faults.fault_plan({"seed": 7, "faults": [
+                        {"site": "dist.shard", "error": "IOError_",
+                         "on_hit": 3}]}) as fp:
+                    return co.sketch(plan, src), fp
+            finally:
+                for r in reps:
+                    r.close()
+
+        res, fp = runs.run("dist_replicas", on_replicas)
+        st = co.stats()
+        out["replicas"] = {"fired": len(fp.fired), "retried": st["retried"],
+                           "reassigned": st["reassigned"],
+                           "by_replica": st["by_replica"],
+                           "equal": bool(torch.equal(res.SX, want.SX)
+                                         and torch.equal(res.SY, want.SY))}
+        check(out["replicas"]["equal"] and st["retried"] >= 1
+              and len(fp.fired) == 1,
+              f"replicas with an injected fault: {out['replicas']}")
+        # one shard's storage lost: a standard request is refused, an
+        # interactive one resolves degraded
+        bad = 3 * size["shard_rows"]
+        lost = LosesShard(src, bad)
+
+        def degraded():
+            try:
+                ex.submit_dist_sketch(plan, lost, qos_class="standard"
+                                      ).result(timeout=600)
+                refused = None
+            except errors.SketchCoverageError as e:
+                refused = {"coverage": e.coverage,
+                           "missing": list(e.missing)}
+            return refused, ex.submit_dist_sketch(
+                plan, lost, qos_class="interactive",
+                min_coverage=0.8).result(timeout=600)
+
+        refused, deg = runs.run("dist_degraded", degraded)
+        kept = dp.build_result(plan, {j: p for j, p in parts.items()
+                                      if j != 3})
+        out["degraded"] = {
+            "refused": refused, "type": type(deg).__name__,
+            "coverage": deg.coverage, "missing": list(deg.missing),
+            "equal": bool(torch.equal(deg.SX, kept.SX))}
+        check(refused is not None and isinstance(
+                  deg, dp.DegradedSketchResult)
+              and deg.coverage == (n_sh - 1) / n_sh
+              and deg.missing == ((bad, bad + size["shard_rows"]),)
+              and out["degraded"]["equal"],
+              f"the degraded merge: {out['degraded']}")
+        # an identical resubmit is a cache hit
+        t0 = time.perf_counter()
+        again = runs.run("dist_cache_hit", lambda: ex.submit_dist_sketch(
+            plan, dp.ArraySource(Ah, bh)))
+        hit_ms = (time.perf_counter() - t0) * 1e3
+        c = ex.stats()["cache"]["by_class"]["standard"]
+        out["cache"] = {"hit_ms": hit_ms, "hits": c["hits"],
+                        "insertions": c["insertions"],
+                        "done_at_submit": again.done(),
+                        "equal": bool(torch.equal(again.result().SX,
+                                                  want.SX))}
+        check(again.done() and c["hits"] == 1 and out["cache"]["equal"],
+              f"the resubmit was no cache hit: {out['cache']}")
+        del parts
+        # submit_dist_lstsq (cwt) against solving the merged sketch here
+        t0 = time.perf_counter()
+        ls = runs.run("dist_lstsq", lambda: ex.submit_dist_lstsq(
+            src, s_dim=size["s"], seed=70,
+            shard_rows=size["shard_rows"]).result(timeout=600))
+        ls_s = time.perf_counter() - t0
+        here = dserve.solve_lstsq(want)["coef"]
+        err = float((ls["coef"] - here).abs().max() / here.abs().max())
+        out["lstsq"] = {"seconds": ls_s, "coverage": ls["coverage"],
+                        **held_limit(err, TRAIN_DIST_LIMITS["dist_lstsq"])}
+        check(out["lstsq"]["ok"], f"dist lstsq: {out['lstsq']}")
+        # submit_dist_svd (jlt, rank 64) of the SVD operand
+        A_svd, _ = svd_operand(torch, size["svd_n"], size["svd_r"], device)
+        svd_src = dp.ArraySource(A_svd.cpu().numpy())
+        del A_svd
+        t0 = time.perf_counter()
+        sv = runs.run("dist_svd", lambda: ex.submit_dist_svd(
+            svd_src, size["svd_rank"], seed=71,
+            shard_rows=size["svd_shard_rows"]).result(timeout=600))
+        svd_s = time.perf_counter() - t0
+        splan = dist.svd_plan(svd_src, size["svd_rank"], seed=71,
+                              shard_rows=size["svd_shard_rows"])
+        ref = torch.linalg.svdvals(dp.sketch_local(
+            splan, svd_src, device=device).SX)[:size["svd_rank"]]
+        err = float(((sv["singular_values"] - ref).abs() / ref).max())
+        out["svd"] = {"seconds": svd_s, "s_dim": splan.s_dim,
+                      "shards": splan.num_shards,
+                      **held_limit(err, TRAIN_DIST_LIMITS["dist_svd_sigma"])}
+        check(out["svd"]["ok"], f"dist svd: {out['svd']}")
+        out["executor"] = ex.stats()["dist"]
+    finally:
+        ex.shutdown()
+    return out
+
+
+def train_dist_phase(torch, P, np, size=TRAIN_DIST_FULL,
+                     device="cuda") -> dict:
+    """Phase 4j: A7's training jobs and distributed sketches on the card,
+    through the public entry points, under a session directory of its
+    own (removed at the end): B2-accumulate against its plain version at
+    the cwt shards' shapes; then the admm_krr job under an interactive
+    storm, the lsqr job and the killed child's job resumed here, the four
+    dist kinds, replicas with a fault, a lost shard, a cache hit, and the
+    lstsq and SVD endpoints. Each of those runs is counted from 0 just
+    before it and read just after (:class:`MainRuns`), so the straight,
+    foreground and local references between them count nothing: B1-cos
+    must launch in the admm job, B1-cw in the lsqr job and in its resume,
+    B2-accumulate in the cwt dist sketch. After the sessions phase, for
+    the same reason."""
+    import os
+    import shutil
+    import tempfile
+
+    from libskylark_tpu_torch import engine
+
+    card = smi("name,power.limit") if device == "cuda" else "cpu"
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    checked = (check_accumulate(torch, P, TRAIN_DIST_ACCUMULATE, device)
+               if device == "cuda" else [])
+    tmp = tempfile.mkdtemp(prefix="skylark-train-")
+    env_before = os.environ.get("SKYLARK_SESSION_DIR")
+    os.environ["SKYLARK_SESSION_DIR"] = f"{tmp}/sessions"
+    out = {"card": card, "session_dir": f"{tmp}/sessions",
+           "limits": TRAIN_DIST_LIMITS}
+    # the killed child runs beside the first steps
+    child = spawn_train_child(torch, size, device)
+    runs = MainRuns()
+    try:
+        ex = engine.MicrobatchExecutor(device=device, name="train")
+        try:
+            t0 = time.perf_counter()
+            out["admm"] = admm_train_job(torch, P, ex, size, device, runs)
+            out["admm_seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["lsqr"] = lsqr_train_jobs(torch, P, ex, size, device, child,
+                                          runs)
+            out["lsqr_seconds"] = time.perf_counter() - t0
+            out["train"] = ex.stats()["train"]
+        finally:
+            ex.shutdown()
+        t0 = time.perf_counter()
+        out["dist"] = dist_sketches(torch, P, np, size, device, runs)
+        out["dist_seconds"] = time.perf_counter() - t0
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        if env_before is None:
+            os.environ.pop("SKYLARK_SESSION_DIR", None)
+        else:
+            os.environ["SKYLARK_SESSION_DIR"] = env_before
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {k: v for k, v in runs.total.items() if v}
+    out["launches_by_run"] = runs.by_run
+    out["removed_session_dir"] = not os.path.exists(tmp)
+    if device == "cuda":
+        for label, name in (("admm_job", "dense_rowwise_cos"),
+                            ("lsqr_job", "dense_columnwise"),
+                            ("lsqr_resume", "dense_columnwise"),
+                            ("dist_cwt", "hash_accumulate")):
+            runs.require(label, name)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("train_dist", **out)
+    return {"launches": runs.total, "checked": checked}
+
+
 # the serve kernels of the captured sketch flushes: each must launch
 # inside a graph replay (kernels.launch.replayed)
 REPLAYED_KERNELS = ("dense_batched_rowwise", "dense_batched_columnwise",
@@ -7933,6 +8627,9 @@ def main() -> int:
     sess = sessions_phase(torch, P, np)
     checked += sess["checked"]
     release_cache(torch)
+    tdist = train_dist_phase(torch, P, np)
+    checked += tdist["checked"]
+    release_cache(torch)
     tune_phase(torch, P, np)
     release_cache(torch)
 
@@ -7962,7 +8659,8 @@ def main() -> int:
                          + dphase["launches"][name]
                          + sphase["launches"][name]
                          + cphase["launches"][name]
-                         + sess["launches"][name]),
+                         + sess["launches"][name]
+                         + tdist["launches"][name]),
             "replay_launches": launch.replayed[name],
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],

@@ -354,78 +354,110 @@ SESSION_FSYNC_EVERY = declare(
         "the journal (every append reaches the page cache). 1 = fsync "
         "every append.")
 
-# -- training jobs ----------------------------------------------------------
+# -- training jobs (libskylark_tpu_torch/train) -----------------------------
 
 TRAIN_SLICE_ITERS = declare(
     "SKYLARK_TRAIN_SLICE_ITERS", default=8, parser=parse_positive_int,
     kind="int", propagate=True,
-    doc="Solver iterations per training slice; ROADMAP A7 (train/).")
+    doc="Default solver iterations per training slice, the unit of "
+        "preemption and checkpointing of a train job: a slice is never "
+        "interrupted mid-step, so this bounds how long a job holds an "
+        "idle scheduler slot and how much work a crash loses past the "
+        "last checkpoint. A job's ``slice_iters`` overrides it.")
 
 TRAIN_RETRY_BUDGET = declare(
     "SKYLARK_TRAIN_RETRY_BUDGET", default=3, parser=parse_int,
     kind="int", propagate=True,
-    doc="Failed slices a training job absorbs; ROADMAP A7 (train/).")
+    doc="Failed slices a training job absorbs (requeued and re-run from "
+        "the journaled state) before it fails terminally. A resume on a "
+        "peer does not spend it.")
 
 TRAIN_CKPT_EVERY = declare(
     "SKYLARK_TRAIN_CKPT_EVERY", default=4, parser=parse_positive_int,
     kind="int", propagate=True,
-    doc="Checkpoint cadence of training jobs; ROADMAP A7 (train/).")
+    doc="Checkpoint cadence of training jobs: every Nth slice boundary "
+        "writes the solver state through the session checkpoint, so a "
+        "crash replays at most N slices of journal. 1 = every slice.")
 
 TRAIN_DEADLINE_S = declare(
     "SKYLARK_TRAIN_DEADLINE_S", default=600.0, parser=parse_float,
     kind="float", propagate=True,
-    doc="Wall-clock deadline of a training job; ROADMAP A7 (train/).")
+    doc="Default wall-clock deadline in seconds of a training job, from "
+        "its submit: past it the job fails with "
+        "``TrainBudgetExhaustedError`` at the next slice boundary, with "
+        "the exact iterations completed. A job's ``deadline_s`` "
+        "overrides it.")
 
-# -- distributed sketching --------------------------------------------------
+# -- distributed sketching (libskylark_tpu_torch/dist) ----------------------
 
 DIST_SHARD_ROWS = declare(
     "SKYLARK_DIST_SHARD_ROWS", default=8192, parser=parse_positive_int,
     kind="int",
-    doc="Rows per shard task; ROADMAP A7 (dist/).")
+    doc="Default rows per shard task when a ``ShardPlan`` does not pin "
+        "``shard_rows``: the unit of re-executable work of a distributed "
+        "sketch.")
 
 DIST_RETRIES = declare(
     "SKYLARK_DIST_RETRIES", default=3, parser=parse_int, kind="int",
-    doc="Per-shard retry budget; ROADMAP A7 (dist/).")
+    doc="Per-shard retry budget of the distributed-sketch coordinator: "
+        "how often a failed shard task is re-executed (reassigned to the "
+        "next ring-preference replica) before it is abandoned into the "
+        "degraded-merge accounting.")
 
 DIST_MIN_COVERAGE = declare(
     "SKYLARK_DIST_MIN_COVERAGE", default=1.0, parser=parse_float,
     kind="float",
-    doc="Coverage gate of a distributed merge; ROADMAP A7 (dist/).")
+    doc="Default ``min_coverage`` gate of a distributed merge: a coverage "
+        "(the fraction of the declared rows folded in) below it raises "
+        "``SketchCoverageError`` instead of returning a degraded result. "
+        "1.0 = any abandoned shard raises.")
 
 DIST_HEDGE = declare(
     "SKYLARK_DIST_HEDGE", default=False, parser=parse_flag, kind="flag",
-    doc="Hedging of straggler shard tasks; ROADMAP A7 (dist/).")
+    doc="Mirror a straggling shard task to the next ring-preference "
+        "replica after ``SKYLARK_DIST_HEDGE_DELAY_MS`` and take the first "
+        "result (bit-equal by construction: a partial is a function of "
+        "the plan).")
 
 DIST_HEDGE_DELAY_MS = declare(
     "SKYLARK_DIST_HEDGE_DELAY_MS", default=1000.0, parser=parse_float,
     kind="float",
-    doc="Straggler threshold of shard hedging; ROADMAP A7 (dist/).")
+    doc="Straggler threshold of shard hedging: an unresolved shard task "
+        "older than this is mirrored when ``SKYLARK_DIST_HEDGE`` is on.")
 
 DIST_SERVE_PIPELINE = declare(
     "SKYLARK_DIST_SERVE_PIPELINE", default=0, parser=parse_int,
     kind="int", propagate=True,
-    doc="Pipeline depth of a dist-serve job; ROADMAP A7 (the dist "
-        "endpoints).")
+    doc="Pipeline depth of a dist-serve job (``submit_dist_sketch`` and "
+        "the others): the most shard tasks outstanding at once. 0 = the "
+        "coordinator's ``max_inflight`` (default twice the replicas, at "
+        "least 2).")
 
 DIST_SERVE_MERGE_FANIN = declare(
     "SKYLARK_DIST_SERVE_MERGE_FANIN", default=8,
     parser=parse_positive_int, kind="int", propagate=True,
-    doc="Merge fan-in of the dist-serve merger; ROADMAP A7.")
+    doc="Ready merge combines a dist-serve job folds per landed partial "
+        "(the rest drain later); it never changes the merge tree, so "
+        "never the bits.")
 
 DIST_SERVE_MIN_COVERAGE_INTERACTIVE = declare(
     "SKYLARK_DIST_SERVE_MIN_COVERAGE_INTERACTIVE", default=1.0,
     parser=parse_float, kind="float", propagate=True,
-    doc="Coverage gate of interactive dist-serve requests; ROADMAP A7.")
+    doc="Coverage gate of interactive dist-serve requests; below 1.0 an "
+        "interactive job may resolve early and degraded once every "
+        "unresolved shard has failed at least once.")
 
 DIST_SERVE_MIN_COVERAGE_STANDARD = declare(
     "SKYLARK_DIST_SERVE_MIN_COVERAGE_STANDARD", default=1.0,
     parser=parse_float, kind="float", propagate=True,
-    doc="Coverage gate of standard dist-serve requests; ROADMAP A7.")
+    doc="Coverage gate of standard dist-serve requests (checked on the "
+        "final merge).")
 
 DIST_SERVE_MIN_COVERAGE_BEST_EFFORT = declare(
     "SKYLARK_DIST_SERVE_MIN_COVERAGE_BEST_EFFORT", default=1.0,
     parser=parse_float, kind="float", propagate=True,
-    doc="Coverage gate of best_effort dist-serve requests; ROADMAP A7.")
+    doc="Coverage gate of best_effort dist-serve requests (checked on "
+        "the final merge).")
 
 FAULT_PLAN = declare(
     "SKYLARK_FAULT_PLAN", default=None, kind="json",

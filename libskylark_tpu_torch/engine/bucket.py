@@ -17,6 +17,7 @@ so its bits do not depend on the capacity. ``padding_waste`` is
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
@@ -131,7 +132,8 @@ def real_elements(shapes: Sequence[Sequence[int]]) -> int:
 def result_nbytes(value) -> int:
     """Bytes of one serve result, for cache and residency quotas: an
     array or tensor counts its buffer, a tuple, list or dict 64 bytes
-    plus its members, bytes their length, anything else 64."""
+    plus its members (a dataclass result its fields), bytes their length,
+    anything else 64."""
     if isinstance(value, np.ndarray):
         return int(value.nbytes)
     if isinstance(value, torch.Tensor):
@@ -142,4 +144,7 @@ def result_nbytes(value) -> int:
         return 64 + sum(result_nbytes(v) for v in value.values())
     if isinstance(value, (bytes, bytearray)):
         return len(value)
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return 64 + sum(result_nbytes(getattr(value, f.name))
+                        for f in dataclasses.fields(value))
     return 64

@@ -58,6 +58,7 @@ its health before touching any cache lock.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import hashlib
 import time
 from concurrent.futures import Future
@@ -184,7 +185,8 @@ def freeze_result(value):
     """A compact private copy of one result: a tensor cloned into its own
     contiguous storage on its device (a served result may be a view into
     its whole flush buffer), a host array copied and marked read-only,
-    containers memberwise (lists become tuples)."""
+    containers and dataclass results memberwise (lists become
+    tuples)."""
     if isinstance(value, torch.Tensor):
         return value.detach().clone(memory_format=torch.contiguous_format)
     if isinstance(value, np.ndarray):
@@ -195,6 +197,8 @@ def freeze_result(value):
         return tuple(freeze_result(v) for v in value)
     if isinstance(value, dict):
         return {k: freeze_result(v) for k, v in value.items()}
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return _map_fields(value, freeze_result)
     return value
 
 
@@ -208,7 +212,17 @@ def handout(value):
         return tuple(handout(v) for v in value)
     if isinstance(value, dict):
         return {k: handout(v) for k, v in value.items()}
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return _map_fields(value, handout)
     return value
+
+
+def _map_fields(value, fn):
+    """A copy of a dataclass result (a dist sketch) with ``fn`` applied
+    to each field."""
+    return dataclasses.replace(value, **{
+        f.name: fn(getattr(value, f.name))
+        for f in dataclasses.fields(value) if f.init})
 
 
 def _synchronize(value) -> None:
@@ -226,6 +240,9 @@ def _synchronize(value) -> None:
         elif isinstance(v, dict):
             for x in v.values():
                 walk(x)
+        elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+            for f in dataclasses.fields(v):
+                walk(getattr(v, f.name))
 
     walk(value)
     for d in devices:

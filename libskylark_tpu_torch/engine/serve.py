@@ -184,8 +184,28 @@ tail, bit-equal, a duplicate sequence number a no-op. DRAINING refuses
 appends; DEGRADED sheds them before any one-shot traffic (counted
 ``session_shed``); an expired deadline resolves without a journal write.
 
-Not ported yet (later slices): the executor's ``mesh`` (ROADMAP A6);
-training jobs and the dist endpoints (A7).
+**Training jobs** (:mod:`libskylark_tpu_torch.train`):
+:meth:`MicrobatchExecutor.submit_train_job` opens a ``kind="train"``
+session on the registry (operands persisted first) and runs the job's
+slices as best-effort work: the flusher offers the deficit scheduler a
+train entry only when no higher class has pending work, so a slice runs
+in an idle slot and interactive traffic displaces the job at the next
+slice boundary (counted as ``preemptions``). A killed executor's job
+resumes elsewhere (:meth:`~MicrobatchExecutor.resume_train_job`) from its
+checkpoint and journal tail, bit-equal; a drain checkpoints and releases
+the jobs. DEGRADED sheds train submits (``stats()["train"]["shed"]``).
+
+**Distributed sketches** (:mod:`libskylark_tpu_torch.dist`):
+:meth:`MicrobatchExecutor.submit_dist_sketch`,
+:meth:`~MicrobatchExecutor.submit_dist_lstsq` and
+:meth:`~MicrobatchExecutor.submit_dist_svd` admit a job through QoS and
+the result cache (content-addressed by the source and the plan; single
+flight; a degraded result is never cached), then drive a
+:class:`~libskylark_tpu_torch.dist.serve.DistServeJob` on a thread of its
+own, its shards on explicit ``replicas=`` or, with none, on the
+executor's device.
+
+Not ported yet (later slices): the executor's ``mesh`` (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -289,6 +309,11 @@ _QOS_QUEUE_DEPTH = _metrics.gauge(
 _QOS_LATENCY = _metrics.histogram(
     "qos.request_latency",
     "Request latency (submit to resolve, seconds), by priority class")
+
+#: the flusher's stand-in "bucket" for a training slice: offered to the
+#: deficit scheduler as best-effort work, and routed by
+#: ``_dispatch_cohort`` to the train manager
+_TRAIN_KEY = object()
 
 SERVING = "SERVING"
 DEGRADED = "DEGRADED"
@@ -1383,8 +1408,14 @@ class MicrobatchExecutor:
                        if cache else None)
         self._residency = _rcache.ResidencyTable(name=self.name,
                                                  device=self.device)
-        # the session registry, built by the first session verb
+        # the session registry, built by the first session verb; the
+        # train manager, by the first train verb
         self._session_registry = None
+        self._train_mgr = None
+        # the dist endpoints' local coordinator (made once) and their
+        # shard dispatches by replica
+        self._dist_local_co = None
+        self._dist_by_replica = collections.Counter()
 
         if dispatch_queue is not None:
             self._workq = dispatch_queue
@@ -2101,6 +2132,233 @@ class MicrobatchExecutor:
             reg.checkpoint_all()
 
     # ------------------------------------------------------------------
+    # training jobs
+    # ------------------------------------------------------------------
+
+    @property
+    def train_jobs(self):
+        """This executor's :class:`~libskylark_tpu_torch.train.jobs.
+        TrainManager` (built on first use, like :attr:`sessions`)."""
+        if self._train_mgr is None:
+            from libskylark_tpu_torch.train.jobs import TrainManager
+
+            with self._lock:
+                if self._train_mgr is None:
+                    self._train_mgr = TrainManager(self)
+        return self._train_mgr
+
+    def _wake_flusher(self) -> None:
+        """Nudge the flusher: training work became runnable (a submit, a
+        resume or a requeued slice)."""
+        with self._lock:
+            self._work_cv.notify_all()
+
+    def submit_train_job(self, spec, operands: Optional[dict] = None,
+                         *, session_id: Optional[str] = None):
+        """Submit a training job: its operands and session open durably
+        here, then its slices run as best-effort work in idle scheduler
+        slots, on the executor's device. Returns a
+        :class:`~libskylark_tpu_torch.train.jobs.TrainJobHandle` whose
+        future resolves to the trained model (tensors on the executor's
+        device), or raises
+        :class:`~libskylark_tpu_torch.base.errors.TrainBudgetExhaustedError`
+        with the exact progress when the iteration or deadline budget
+        runs out first. Refused on a draining or stopped executor; shed,
+        like session appends, on a DEGRADED one."""
+        with self._lock:
+            self._refuse_if_unavailable_locked()
+        if self._is_degraded():
+            with self._stats_lock:
+                self._counts["train_shed"] += 1
+            raise ServeOverloadedError(
+                "executor DEGRADED: train submits shed before "
+                "interactive traffic")
+        return self.train_jobs.submit(spec, operands=operands,
+                                      session_id=session_id)
+
+    def resume_train_job(self, session_id: str):
+        """Adopt a training job from its on-disk session (a drain's
+        handoff or a crash's replay) and run its remaining slices here.
+        The availability gates of a submit apply."""
+        with self._lock:
+            self._refuse_if_unavailable_locked()
+        return self.train_jobs.resume(session_id)
+
+    def train_job_status(self, session_id: str) -> dict:
+        """Progress of a job live on this executor (raises
+        :class:`~libskylark_tpu_torch.base.errors.SessionEvictedError`
+        when it is not)."""
+        mgr = self._train_mgr
+        if mgr is None:
+            raise errors.SessionEvictedError(
+                f"train job {session_id!r} is not live on this "
+                "replica (no jobs were ever submitted here)")
+        return mgr.status(session_id)
+
+    # ------------------------------------------------------------------
+    # distributed sketches
+    # ------------------------------------------------------------------
+
+    def _submit_dist(self, endpoint: str, plan, source, *,
+                     tenant=None, qos_class=None, min_coverage=None,
+                     deadline=None, timeout=None, request_id=None,
+                     pool=None, replicas=None, coordinator=None,
+                     pipeline=None, _digest=None, solve=None,
+                     digest_extra=()) -> Future:
+        """The dist endpoints' common path: QoS admission, the result
+        cache (a dist result is a function of the source's digest and the
+        plan), then a :class:`~libskylark_tpu_torch.dist.serve.
+        DistServeJob` on a thread of its own under a ``serve.submit``
+        span, whose request id parents every ``dist.shard_task`` span."""
+        from libskylark_tpu_torch.dist import serve as _dserve
+        from libskylark_tpu_torch.dist.coordinator import (
+            DistSketchCoordinator)
+
+        plan.validate()
+        if source.n < plan.n:
+            raise errors.InvalidParametersError(
+                f"source holds {source.n} rows < plan.n={plan.n}")
+        tenant, qos_class = self._admit(endpoint, tenant, qos_class)
+        with self._stats_lock:
+            self._counts["dist_jobs"] += 1
+        # the effective gate is part of the request's identity: a caller
+        # gating at 0.9 and one gating at 1.0 must not share a cache or
+        # single-flight key
+        gate = (_dserve.class_min_coverage(qos_class)
+                if min_coverage is None else float(min_coverage))
+        flight = None
+        cache_key = None
+        if self._cache is not None and not self._is_degraded():
+            cache_key = _digest or _dserve.dist_request_digest(
+                endpoint, plan, source,
+                extra=(*tuple(digest_extra), ("gate", gate)))
+            pinned = self._residency.result(cache_key)
+            if pinned is not None:
+                self._cache.note_hit(qos_class, pinned)
+                return self._bypass_future(qos_class, pinned)
+            hit = self._cache.lookup(cache_key, qos_class)
+            if hit is not _rcache.MISS:
+                return self._bypass_future(qos_class, hit)
+            follower = self._cache.join_flight(cache_key, qos_class)
+            if follower is not None:
+                with self._lock:
+                    self._sched.note_bypass(qos_class)
+                return follower
+        rid = request_id
+        if rid is None and _telemetry.enabled():
+            rid = _trace.new_request_id()
+        fut: Future = Future()
+        with _trace.span("serve.submit", attrs={"endpoint": endpoint},
+                         request_id=rid) as sp:
+            co = coordinator
+            if co is None and (pool is not None or replicas is not None):
+                co = DistSketchCoordinator(pool=pool, replicas=replicas,
+                                           device=self.device)
+            if co is None:
+                with self._lock:
+                    if self._dist_local_co is None:
+                        self._dist_local_co = DistSketchCoordinator(
+                            device=self.device)
+                    co = self._dist_local_co
+            job = _dserve.DistServeJob(
+                plan, source, coordinator=co, qos_class=qos_class,
+                tenant=tenant, registry=self._tenants,
+                min_coverage=min_coverage,
+                deadline=deadline if deadline is not None else timeout,
+                pipeline=pipeline, request_id=rid,
+                parent_ctx=sp.context() if sp is not None else None)
+
+            def _settle(j, exc):
+                with self._stats_lock:
+                    self._counts["dist_completed" if exc is None
+                                 else "dist_failed"] += 1
+                    if j.stats.get("early_resolved"):
+                        self._counts["dist_early_resolves"] += 1
+                    self._dist_by_replica.update(
+                        j.stats.get("by_replica", {}))
+
+            # with a flight, the job resolves an inner future, and the
+            # caller's resolves only once the flight has settled: an
+            # identical request made after the result is a cache hit
+            inner = fut
+            if cache_key is not None:
+                flight = self._cache.lead_flight(cache_key, qos_class,
+                                                 fut)
+                inner = Future()
+                inner.add_done_callback(
+                    lambda f, _fl=flight: self._settle_dist(_fl, f, fut))
+            try:
+                _dserve.run_job_into(job, inner, solve=solve,
+                                     on_done=_settle)
+            except BaseException as e:
+                if flight is not None:
+                    self._cache.abort_flight(flight, e)
+                raise
+        return fut
+
+    def _settle_dist(self, flight, inner: Future, fut: Future) -> None:
+        """Settle a dist job's flight, then resolve the caller's future
+        with the job's outcome. A degraded result reflects which shards
+        failed this time, not the content: it goes to the flight's
+        followers but is never cached."""
+        exc = inner.exception()
+        insert = exc is None and not self._is_degraded()
+        if insert:
+            v = inner.result()
+            insert = not (v.get("degraded") if isinstance(v, dict)
+                          else getattr(v, "degraded", False))
+        self._cache.settle_flight(flight, inner, insert=insert)
+        if exc is not None:
+            fut.set_exception(exc)
+        else:
+            fut.set_result(inner.result())
+
+    def submit_dist_sketch(self, plan, source, **kw) -> Future:
+        """Pipelined distributed sketch: the shard tasks of ``plan`` go to
+        the coordinator's replicas (``pool=`` / ``replicas=`` /
+        ``coordinator=``; with none, a private thread pool computes them
+        on the executor's device) and merge as they land. Resolves to the
+        :class:`~libskylark_tpu_torch.dist.plan.DistSketchResult`, at full
+        coverage the bits of :func:`~libskylark_tpu_torch.dist.plan.
+        sketch_local`. Per-class ``min_coverage`` gates apply: an
+        interactive request may resolve early with a quantified
+        :class:`~libskylark_tpu_torch.dist.plan.DegradedSketchResult`."""
+        return self._submit_dist("dist_sketch", plan, source, **kw)
+
+    def submit_dist_lstsq(self, source, *, s_dim: int, seed: int = 0,
+                          kind: str = "cwt", shard_rows: int = 0,
+                          **kw) -> Future:
+        """Distributed sketch-and-solve least squares
+        (:func:`~libskylark_tpu_torch.dist.algorithms.sketched_lstsq` as
+        an endpoint): the joint ``[X | Y]`` sketch is merged from the
+        shards, and only the ``s_dim`` system is solved here. Resolves to
+        ``{"coef", "coverage", "missing", "degraded"}``."""
+        from libskylark_tpu_torch.dist import serve as _dserve
+        from libskylark_tpu_torch.dist.algorithms import lstsq_plan
+
+        plan = lstsq_plan(source, s_dim=s_dim, seed=seed, kind=kind,
+                          shard_rows=shard_rows)
+        return self._submit_dist("dist_lstsq", plan, source,
+                                 solve=_dserve.solve_lstsq, **kw)
+
+    def submit_dist_svd(self, source, rank: int, *, s_dim=None,
+                        seed: int = 0, kind: str = "jlt",
+                        shard_rows: int = 0, **kw) -> Future:
+        """Distributed randomized SVD
+        (:func:`~libskylark_tpu_torch.dist.algorithms.randomized_svd` as
+        an endpoint): resolves to ``{"singular_values", "Vt",
+        "coverage", "missing", "degraded"}``."""
+        from libskylark_tpu_torch.dist import serve as _dserve
+        from libskylark_tpu_torch.dist.algorithms import svd_plan
+
+        plan = svd_plan(source, rank, s_dim=s_dim, seed=seed,
+                        kind=kind, shard_rows=shard_rows)
+        return self._submit_dist(
+            "dist_svd", plan, source,
+            solve=lambda r: _dserve.solve_svd(r, rank),
+            digest_extra=(("rank", int(rank)),), **kw)
+
+    # ------------------------------------------------------------------
     # queueing and the flusher
     # ------------------------------------------------------------------
 
@@ -2426,17 +2684,42 @@ class MicrobatchExecutor:
                     else:
                         w = b.oldest + linger - now
                         wait = w if wait is None else min(wait, w)
+                # a training slice is best-effort work, offered only when
+                # no higher class has pending requests: idle slots feed
+                # training, and one interactive request displaces it at
+                # the next slice boundary
+                train_mgr = self._train_mgr
+                if (train_mgr is not None and not self._stop
+                        and not self._draining
+                        and train_mgr.has_runnable()):
+                    if any(self._class_pending.get(c, 0) > 0
+                           for c in _qtenants.CLASSES
+                           if c != _qtenants.BEST_EFFORT):
+                        train_mgr.note_deferred()
+                    elif _qtenants.BEST_EFFORT not in ready:
+                        ready[_qtenants.BEST_EFFORT] = _TRAIN_KEY
+                    if _TRAIN_KEY not in ready.values():
+                        # displaced: poll for the idle window
+                        wait = 0.05 if wait is None else min(wait, 0.05)
                 if ready and self._worker_free_locked():
                     backlog = {c: self._class_pending.get(c, 0)
-                               for c in ready}
+                               + (ready[c] is _TRAIN_KEY) for c in ready}
 
                     def cost(c):
+                        if ready[c] is _TRAIN_KEY:
+                            return 1
                         b0 = self._buckets[ready[c]]
                         return min(len(b0.reqs),
                                    self._bucket_cap_locked(b0.statics))
 
                     cls = self._sched.next_class(backlog, cost)
-                    if cls is not None:
+                    if cls is not None and ready[cls] is _TRAIN_KEY:
+                        job = train_mgr.claim_next()
+                        if job is not None:
+                            self._inflight += 1
+                            self._sched.charge(cls, 1)
+                            work = (_TRAIN_KEY, job)
+                    elif cls is not None:
                         work = self._pop_cohort_locked(ready[cls])
                         if work is not None:
                             self._sched.charge(cls, len(work[1]))
@@ -2452,7 +2735,19 @@ class MicrobatchExecutor:
         """Run one cohort through the isolating executor, on the
         executor's device; an exception that escapes it reaches every
         unresolved future. Each request's queue wait, submit to the start
-        of its flush, is recorded by class."""
+        of its flush, is recorded by class. A training slice (``b`` the
+        train entry, ``cohort`` the claimed job) goes to the manager,
+        which resolves or requeues the job whatever happens."""
+        if b is _TRAIN_KEY:
+            try:
+                mgr = self._train_mgr
+                if mgr is not None:
+                    with self._device_scope():
+                        mgr.run_slice(cohort)
+            finally:
+                with self._lock:
+                    self._cohort_done_locked()
+            return
         now = time.monotonic()
         with self._stats_lock:
             waits = self._wait_by_class[b.qos_class]
@@ -2842,6 +3137,7 @@ class MicrobatchExecutor:
                     if n.startswith("h2d:")}}
                 for k, v in self._by_bucket.items()}
             models = len(self._models)
+            dist_by = dict(self._dist_by_replica)
         with self._lock:
             queued = self._pending
         return {
@@ -2892,6 +3188,16 @@ class MicrobatchExecutor:
                                for k, v in sorted(fw_sel.items())},
                 "cm_submits": c.get("cm_submits", 0),
             },
+            # the dist endpoints' jobs and their shard dispatches by
+            # replica
+            "dist": {
+                "jobs": c.get("dist_jobs", 0),
+                "completed": c.get("dist_completed", 0),
+                "failed": c.get("dist_failed", 0),
+                "early_resolves": c.get("dist_early_resolves", 0),
+                "by_replica": {k: {"shard_tasks": int(v)}
+                               for k, v in sorted(dist_by.items())},
+            },
             "by_bucket": by_bucket,
             "batch_capacity_hist": batch_hist,
             "cohort_size_hist": cohort_hist,
@@ -2908,16 +3214,23 @@ class MicrobatchExecutor:
             # is the "sessions" telemetry collector
             "sessions": (self._session_registry.stats()
                          if self._session_registry is not None else None),
+            # None until the first train verb (the cross-executor rollup
+            # is the "train" telemetry collector); ``shed`` counts the
+            # submits a DEGRADED executor refused before the manager
+            "train": (dict(self._train_mgr.stats(),
+                           shed=c.get("train_shed", 0))
+                      if self._train_mgr is not None else None),
             "cache": self._cache_stats_block(),
         }
 
     def drain(self, timeout: Optional[float] = 30.0) -> bool:
         """Stop intake (new submits raise :class:`ServeOverloadedError`),
         publish DRAINING, flush every queued cohort, wait for every
-        in-flight future, checkpoint every live session, then stop the
-        threads. Returns whether the flushes finished inside ``timeout``;
-        the executor stops either way. What the preemption handler calls
-        on SIGTERM."""
+        in-flight future (a running train slice included; no new slice
+        starts), checkpoint every live session (train jobs included),
+        then stop the threads, releasing the train jobs. Returns whether
+        the flushes finished inside ``timeout``; the executor stops either
+        way. What the preemption handler calls on SIGTERM."""
         dl = Deadline.after(timeout)
         with self._lock:
             if self._stop:
@@ -2961,6 +3274,17 @@ class MicrobatchExecutor:
             self._flusher.join()
             for t in self._workers:
                 t.join()
+        # live training jobs are released, not failed: their sessions stay
+        # on disk (a drain checkpointed them) and each unresolved job
+        # future breaks with CommunicationError, for a peer to resume
+        mgr = self._train_mgr
+        if mgr is not None:
+            try:
+                mgr.release_jobs(
+                    f"executor {self.name!r} stopped mid-job; the "
+                    "session remains on disk for a peer to resume")
+            except Exception:  # noqa: BLE001 — shutdown must finish
+                pass
         # sync the session journals without deleting anything: a peer, or
         # a restart, resumes them from disk
         reg = self._session_registry
@@ -3007,10 +3331,20 @@ def serve_stats() -> dict:
     histograms merge bin by bin, padding waste and latency percentiles
     come from the pooled raw counts and samples, ``states`` counts
     executors per state."""
+    # dist/ imports the engine package, not the other way round
+    from libskylark_tpu_torch.dist.coordinator import dist_stats
+    from libskylark_tpu_torch.dist.serve import dist_serve_stats
+
     sum_keys = ("submitted", "completed", "failed", "rejected", "shed",
                 "session_shed", "expired", "poisoned", "flush_failures",
                 "isolation_retries", "queued", "coalesced", "flushes")
     max_keys = ("queued_peak", "isolation_depth_peak")
+    dist_keys = ("jobs", "completed", "failed", "early_resolves")
+    train_keys = ("jobs_submitted", "slices_run", "preemptions", "resumes",
+                  "budget_exhausted", "completed", "failed", "retries",
+                  "active", "queued", "shed")
+    dist_sums, dist_by = collections.Counter(), collections.Counter()
+    train_sums, train_seen = collections.Counter(), False
     sums = collections.Counter({k: 0 for k in sum_keys})
     maxes = {k: 0 for k in max_keys}
     batch_hist, cohort_hist = collections.Counter(), collections.Counter()
@@ -3030,6 +3364,14 @@ def serve_stats() -> dict:
             ksel[kk] += vv["flushes"]
         for kk, vv in s["kernel"]["by_reason"].items():
             kdec[kk] += vv["declined_flushes"]
+        for kk in dist_keys:
+            dist_sums[kk] += s["dist"][kk]
+        for kk, vv in s["dist"]["by_replica"].items():
+            dist_by[kk] += vv["shard_tasks"]
+        if s["train"] is not None:
+            train_seen = True
+            for kk in train_keys:
+                train_sums[kk] += int(s["train"].get(kk, 0))
         qos_blocks.append(s["qos"])
         cache_blocks.append(s["cache"])
         states[s["state"]] += 1
@@ -3050,6 +3392,17 @@ def serve_stats() -> dict:
                                   for k, v in sorted(ksel.items())},
                    "by_reason": {k: {"declined_flushes": int(v)}
                                  for k, v in sorted(kdec.items())}},
+        # the dist jobs and their shard placement across executors, and
+        # the process-lifetime rollups of the coordinators and dist jobs
+        "dist": {**{k: int(dist_sums[k]) for k in dist_keys},
+                 "by_replica": {k: {"shard_tasks": int(v)}
+                                for k, v in sorted(dist_by.items())},
+                 "lifetime": {"coordinator": dist_stats(),
+                              "serve": dist_serve_stats()}},
+        # monotone counters and live occupancy summed across executors;
+        # None when no executor ever ran a job
+        "train": ({k: int(train_sums[k]) for k in train_keys}
+                  if train_seen else None),
         "qos": _merge_qos_blocks(qos_blocks),
         "cache": _rcache.merge_cache_blocks(cache_blocks),
         "states": dict(sorted(states.items())),

@@ -27,11 +27,17 @@ Sites planted in the port:
                     (``read``, retried) of ``io.chunked``
 ``io.webhdfs.*``    a WebHDFS connection attempt (``open``) and chunk
                     read (``read``, reconnect-resume)
+``train.slice``     a training slice, before its journal write
+                    (``train.jobs``)
+``dist.shard``      a shard task's entry (``dist.plan.compute_shard``)
+``dist.ingest``     each batch a shard ingests (resumed at the consumed
+                    offset)
+``dist.merge``      a merge's entry (``dist.plan.merge_partials``, the
+                    incremental merger's result)
 ==================  =====================================================
 
-The reference's other sites (``dist.*``, ``fleet.route``,
-``train.slice``, ``net.*``) come with the modules that hold them
-(ROADMAP A7); a plan may name them already.
+The reference's other sites (``fleet.route``, ``net.*``) come with the
+modules that hold them (ROADMAP A7); a plan may name them already.
 
 A plan is a JSON document (or the equivalent dict)::
 

@@ -18,8 +18,8 @@ teardown:
 
 The handler does not exit the process; that is the host's decision. A
 previously installed Python handler of the same signal runs after ours.
-Live sessions and training jobs, which the reference's drain also
-checkpoints, come with ROADMAP A7 (sessions/, train/).
+Live sessions and training jobs are checkpointed by the executor's drain
+(:meth:`~libskylark_tpu_torch.engine.serve.MicrobatchExecutor.drain`).
 """
 
 from __future__ import annotations

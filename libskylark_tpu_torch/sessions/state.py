@@ -136,22 +136,22 @@ class SessionState:
         self.seq = 0
         dt = self.dtype = compute_dtype(spec.dtype)
         ctx = Context(seed=int(spec.seed))
-        self._key = self._jlt = self._srht = self._rft = None
+        self._t = self._diag = self._rft = None
         if spec.kind == "cwt":
             from libskylark_tpu_torch.sketch.hash import CWT
 
-            self._key = CWT(spec.n, spec.s_dim, ctx).kernel_key()
+            self._t = CWT(spec.n, spec.s_dim, ctx)
         elif spec.kind in ("jlt", "isvd"):
             from libskylark_tpu_torch.sketch.dense import JLT
 
-            self._jlt = JLT(spec.n, spec.s_dim, ctx)
+            self._t = JLT(spec.n, spec.s_dim, ctx)
         elif spec.kind == "srht":
             from libskylark_tpu_torch.sketch.fjlt import FJLT
 
             # the whole diagonal once, on the host: a session folds many
             # small appends, each reading its slice
-            t = FJLT(spec.n, spec.s_dim, ctx, fut="wht")
-            self._srht = (t, t.diagonal(dt).numpy())
+            self._t = FJLT(spec.n, spec.s_dim, ctx, fut="wht")
+            self._diag = self._t.diagonal(dt).numpy()
         else:  # krr
             from libskylark_tpu_torch.sketch.rft import GaussianRFT
 
@@ -215,30 +215,17 @@ class SessionState:
         """Fold one coerced batch into the maintained sketch at the
         current row position."""
         from libskylark_tpu_torch.base.precision import solver_precision
-        from libskylark_tpu_torch.io.streaming import fold_cwt
 
         s = self.spec
         lo, hi = self.rows, self.rows + X.shape[0]
         Xj = self._on_device(X)
         Yj = self._on_device(Y) if Y is not None else None
-        if s.kind == "cwt":
-            fold_cwt(self._key, Xj, self.acc["SX"], s.s_dim, lo)
+        if s.kind != "krr":
+            pairs = [(self.acc["SX"], Xj)]
             if Yj is not None:
-                fold_cwt(self._key, Yj, self.acc["SY"], s.s_dim, lo)
-        elif s.kind in ("jlt", "isvd"):
-            panel = self._jlt.s_panel(lo, hi, self.dtype, self.device)
-            with solver_precision():
-                self.acc["SX"] += panel @ Xj
-                if Yj is not None:
-                    self.acc["SY"] += panel @ Yj
-        elif s.kind == "srht":
-            t, diag = self._srht
-            self.acc["SX"] += t.fold_rows(Xj, lo, hi, self.dtype,
-                                          diagonal=diag)
-            if Yj is not None:
-                self.acc["SY"] += t.fold_rows(Yj, lo, hi, self.dtype,
-                                              diagonal=diag)
-        else:  # krr
+                pairs.append((self.acc["SY"], Yj))
+            fold_sketch(s.kind, self._t, pairs, lo, diagonal=self._diag)
+        else:
             from libskylark_tpu_torch.sketch import ROWWISE
 
             Z = self._rft.apply(Xj, ROWWISE, device=self.device)
@@ -296,17 +283,50 @@ class SessionState:
         return out
 
 
+def fold_sketch(kind: str, transform, pairs, lo: int, diagonal=None) -> None:
+    """Add the sketch of rows at the coordinates [lo, lo + m) into each
+    accumulator of ``pairs`` ((accumulator, rows) on one device), in
+    place: the fold of a session's append and of a distributed sketch's
+    shard (:mod:`libskylark_tpu_torch.dist.plan`), one bit pattern for
+    both. ``cwt`` by B2's accumulate mode, ``jlt``/``isvd`` by the
+    operator's column panel (made once) times the rows at the solver
+    precision, ``srht`` by ``FJLT.fold_rows`` (``diagonal``: its whole
+    host diagonal, or None to make the rows' slice)."""
+    from libskylark_tpu_torch.base.precision import solver_precision
+    from libskylark_tpu_torch.io.streaming import fold_cwt
+
+    acc0, X0 = pairs[0]
+    hi = lo + X0.shape[0]
+    if kind == "cwt":
+        key = transform.kernel_key()
+        for acc, X in pairs:
+            fold_cwt(key, X, acc, acc.shape[0], lo)
+    elif kind == "srht":
+        for acc, X in pairs:
+            acc += transform.fold_rows(X, lo, hi, acc.dtype,
+                                       diagonal=diagonal)
+    else:
+        panel = transform.s_panel(lo, hi, acc0.dtype, acc0.device)
+        with solver_precision():
+            for acc, X in pairs:
+                acc += panel @ X
+
+
 def make_state(spec: SessionSpec, directory: Optional[str] = None,
                sid: Optional[str] = None, device=None):
     """The state factory the registry goes through at open and at
-    resume. ``train`` sessions come with the training-job slice (ROADMAP
-    A7, train/) and raise until then."""
+    resume: a :class:`SessionState` for the sketch kinds, a
+    :class:`~libskylark_tpu_torch.train.state.TrainSessionState` for
+    ``train``, which needs the registry ``directory`` and ``sid`` to find
+    the job's operand sidecar (``<sid>.operands.npz``)."""
     spec = spec.validate()
     if spec.kind == "train":
-        raise errors.NotImplementedYetError(
-            "train sessions need the training-job layer (train/), not "
-            "ported yet (ROADMAP A7)")
+        from libskylark_tpu_torch.train.state import TrainSessionState
+
+        return TrainSessionState(spec, directory=directory, sid=sid,
+                                 device=device)
     return SessionState(spec, device=device)
 
 
-__all__ = ["KINDS", "SessionSpec", "SessionState", "make_state"]
+__all__ = ["KINDS", "SessionSpec", "SessionState", "fold_sketch",
+           "make_state"]

@@ -3,10 +3,10 @@
 Every counter, gauge and histogram recorded by either package is declared
 here once as (name, kind), the reference's list: a snapshot or a
 dashboard reads one set of names from a port replica and a reference one.
-Names whose subsystem the port has not reached yet (the AOT artifact
-store, tune/, io/'s readers, sessions/, dist/, fleet/, train/, net/) are
-declared for the ROADMAP item that brings them (A6, A7); the executable
-cache records ``engine.compile_seconds``.
+Names whose subsystem the port has not reached yet (fleet/'s pool,
+router and autoscaler, net/) are declared for the ROADMAP item that
+brings them (A7); the executable cache records
+``engine.compile_seconds``.
 
 Naming: ``<subsystem>.<noun>``.
 """

@@ -7,9 +7,8 @@ function, class or method must be accepted by the port's counterpart
 accepts any keyword). A module's public names are the functions and
 classes it defines, its upper-case constants, and a package's
 ``__all__``. Only what ROADMAP defers is exempt, each exemption with its
-item: what the serve executor still lacks (its ``mesh``, A6; training
-jobs and the dist endpoints, A7), the CLI helpers (A8), and the names of
-reference modules not ported yet (C12).
+item: what the serve executor still lacks (its ``mesh``, A6), the CLI
+helpers (A8), and the names of reference modules not ported yet (C12).
 """
 
 from __future__ import annotations
@@ -21,17 +20,12 @@ import pkgutil
 import pytest
 
 import libskylark_tpu
+import libskylark_tpu.fleet
 import libskylark_tpu_torch
-
-# the dist endpoints run the reference's dist/ package (A7)
-_SERVE_DIST = ("submit_dist_sketch", "submit_dist_lstsq", "submit_dist_svd")
-# the training jobs run the reference's train/ package (A7)
-_SERVE_A7 = ("train_jobs", "submit_train_job", "resume_train_job",
-             "train_job_status")
 
 # "module:name" (a name, a Class.member or a callable's "(param)") -> the
 # ROADMAP item that brings it. The deferred kinds: what the serve
-# executor still lacks (A6 and A7 by feature), and the CLI helpers (A8).
+# executor still lacks (A6), and the CLI helpers (A8).
 # Every other name the port lacks is C12: a module of the reference not
 # yet ported, each named there with the A item that brings it.
 EXEMPT = {
@@ -44,10 +38,11 @@ EXEMPT = {
 }
 for _m in ("engine", "engine.serve"):
     EXEMPT[f"{_m}:MicrobatchExecutor(mesh)"] = "A6"
-    for _n in _SERVE_DIST:
-        EXEMPT[f"{_m}:MicrobatchExecutor.{_n}"] = "A7"
-    for _n in _SERVE_A7:
-        EXEMPT[f"{_m}:MicrobatchExecutor.{_n}"] = "A7"
+# fleet/ is ported as far as its hash ring; the package's other names
+# (the pool, replicas, router, transport, autoscaler) are C12's
+for _n in libskylark_tpu.fleet.__all__:
+    if _n != "HashRing":
+        EXEMPT[f"fleet:{_n}"] = "C12"
 
 
 def _modules(pkg) -> dict:
@@ -144,8 +139,9 @@ def test_reference_names_exist_in_the_port(mod_key):
 def test_the_new_modules_are_compared():
     """The NLA, graph, block-solver, HDF5, parallel, and the serve
     production layer's modules (the artifact store, warmup packs and
-    their CLI among them) are among those both packages define, so the
-    parity test above covers them; none of the last has an exemption."""
+    their CLI, the training jobs, distributed sketching and the hash
+    ring among them) are among those both packages define, so the parity
+    test above covers them; none of the last has an exemption."""
     common = set(_common_modules())
     for m in ("nla.krank", "nla.randlobpcg", "nla.spectral", "ml.graph",
               "algorithms.asynch", "io.hdf5", "parallel", "parallel.mesh",
@@ -161,7 +157,10 @@ def test_the_new_modules_are_compared():
                    "cli.skylark_warmup", "telemetry.export",
                    "utility.checkpoint", "io.chunked", "io.webhdfs",
                    "io.streaming", "sessions", "sessions.journal",
-                   "sessions.state", "sessions.registry")
+                   "sessions.state", "sessions.registry", "train",
+                   "train.slices", "train.state", "train.jobs", "dist",
+                   "dist.plan", "dist.coordinator", "dist.algorithms",
+                   "dist.serve", "fleet.ring")
     for m in serve_layer:
         assert m in common, m
         assert not [k for k in EXEMPT if k.split(":")[0] == m], m

@@ -169,12 +169,27 @@ def test_float64_sessions_compute_in_float32(tmp_path):
 
 
 def test_train_kind_is_not_ported(tmp_path):
+    """A ``kind="train"`` spec builds a TrainSessionState over its
+    operand sidecar; without the sidecar the open refuses and leaves
+    nothing on disk."""
+    from libskylark_tpu_torch.train import TrainSessionState
+    from libskylark_tpu_torch.train import state as tstate
+
     P = _port_registry(tmp_path)
     spec = ps.SessionSpec(kind="train", n=4, s_dim=2, d=2,
-                          extra={"solver": "admm"})
-    with pytest.raises(errors.NotImplementedYetError, match="A7"):
-        P.open(spec)
+                          extra={"solver": "lsqr"})
+    with pytest.raises(errors.SessionEvictedError, match="sidecar"):
+        P.open(spec, session_id="t")
     assert os.listdir(tmp_path) == []
+    rng = np.random.default_rng(0)
+    tstate.save_operands(str(tmp_path), "t", {
+        "A": rng.standard_normal((12, 3)).astype(np.float32),
+        "B": rng.standard_normal(12).astype(np.float32)})
+    state = ps.state.make_state(spec, str(tmp_path), "t", device="cpu")
+    assert isinstance(state, TrainSessionState)
+    assert P.open(spec, session_id="t") == "t"
+    assert P.append("t", np.asarray([[2]]), seq=1) == (1, 2)
+    assert P.describe("t")["info"]["iterations"] == 2
 
 
 def test_sequence_numbers_and_the_extent(tmp_path):
