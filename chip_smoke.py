@@ -395,6 +395,34 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             kind; then the counters read (B1-cos, B1-cw and
             B2-accumulate required). After phase 4i, for the same
             reason;
+4k. cli_net — the command-line drivers and the network front door
+            (about 45 s), under a session directory of its own (removed
+            at the end). skylark_svd ``--profile 8192 8192 -k 64 -i 2``,
+            skylark_linear (default and ``-p``) on config 4's LS cell
+            and skylark_ml (train at ml-admm's settings, then
+            ``--testfile``) on config 5's data, both written as libsvm
+            text by numpy (a quarter of their rows: at full rows the
+            text's write and parses took over 20 s), each through
+            ``main(argv)`` with ``--device cuda`` and each output file
+            byte-identical to the library call it wraps made in-process on
+            the same inputs (the parsed arrays; the model file of
+            BlockADMMSolver.from_kernel(...).train(...), the printed
+            accuracy equal, B1-cos's launches equal to the direct
+            call's); then a NetServer on 127.0.0.1:0 fronting a
+            MicrobatchExecutor on the card and a NetClient in a child
+            process (started with the phase): the serve-dense-rw cell's
+            16 requests from 4 threads, a dist_sketch cwt of LS in 8
+            shards of 8192 rows, a cwt session (open, 4 appends,
+            finalize), ping and stats with its net block, and a drain
+            with a burst inflight (its first flush stalled 1 s by a
+            fault plan): every inflight request settles and the client
+            sees GOAWAY; each wire result byte-equal (sha256) to the same
+            request made in-process; per-request wall over the wire and
+            in-process, bytes shipped. Each driver run and the wire's
+            exchange are counted from 0 (:class:`MainRuns`): B1-rw in
+            skylark_svd, B1-cos in skylark_ml's train and test,
+            B1-batched rw and B2-accumulate on the wire required;
+            skylark_linear's FJLT (DCT mixer) launches none;
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
@@ -8454,6 +8482,609 @@ def train_dist_phase(torch, P, np, size=TRAIN_DIST_FULL,
     return {"launches": runs.total, "checked": checked}
 
 
+# Phase 4k: the command-line drivers and the network front door on the card
+
+CLI_NET_FULL = {
+    # skylark_svd --profile: config 4's SVD shape
+    "svd_n": 8192, "svd_k": 64, "svd_q": 2, "seed": 38734,
+    # skylark_linear on config 4's LS cell written as libsvm, and
+    # skylark_ml at ml-admm's settings on config 5's data (10,000 test
+    # rows) written as libsvm: both cut to a quarter of their rows, widths
+    # kept. At full rows the text took longer than 20 s to write and parse
+    # on the H100 host: LS's 538 MB file 6.0 s to write and 9.0 s a parse
+    # (three parses: the two driver runs and the in-process twin), config
+    # 5's 824 MB 8.7 s and 11.9 s a training parse.
+    "ls_rows": 16384, "ls_cols": 512,
+    "ml_rows": 15000, "ml_test": 2500, "ml_features": 8192,
+    "ml_parts": 4, "ml_iters": 10, "ml_seed": 12345,
+    # the wire: the serve-dense-rw cell, a dist cwt of LS, a cwt session
+    "net_requests": 16, "net_seeds": 8, "net_threads": 4, "net_n": 8192,
+    "net_s": 1024, "net_rows": (1537, 2049), "dist_rows": 65536,
+    "dist_cols": 512, "dist_s": 2048, "dist_shard_rows": 8192,
+    "session_appends": 4, "drain_burst": 4,
+}
+CLI_NET_KERNELS = {"cli_svd": ("dense_rowwise",),
+                   "cli_ml_train": ("dense_rowwise_cos",),
+                   "cli_ml_test": ("dense_rowwise_cos",),
+                   "net": ("dense_batched_rowwise", "hash_accumulate")}
+
+
+def write_dense_libsvm(np, path: str, X, y, decimals: int = 6) -> int:
+    """Write dense rows ``X`` with labels ``y`` as libsvm text, every
+    value in fixed point with ``decimals`` decimals and a sign, built by
+    numpy in one buffer (a Python loop over 33 M values would take
+    minutes); the indices right-aligned after a space. Returns the bytes
+    written."""
+    X = np.asarray(X, np.float64)
+    y = np.asarray(y, np.float64).reshape(-1)
+    n, d = X.shape
+    jw = len(str(d))
+    top = max(float(np.abs(X).max(initial=0.0)),
+              float(np.abs(y).max(initial=0.0)))
+    iw = 1
+    while 10 ** iw <= top + 1:
+        iw += 1
+    width = 2 + iw + decimals               # sign, digits, point, decimals
+    pw = 2 + jw                             # a space, the index, a colon
+    row = width + d * (pw + width) + 1
+    out = np.empty((n, row), np.uint8)
+    body = out[:, width:row - 1].reshape(n, d, pw + width)
+    body[:, :, :pw] = np.frombuffer("".join(
+        " " + str(j + 1).rjust(jw) + ":" for j in range(d)).encode(),
+        np.uint8).reshape(d, pw)
+    out[:, row - 1] = ord("\n")
+    digits = ([1 + k for k in range(iw)]
+              + [2 + iw + k for k in range(decimals)])
+
+    def put(dst, V):
+        q = np.rint(np.abs(V) * 10.0 ** decimals).astype(np.int64)
+        dst[..., 0] = np.where(V < 0, ord("-"), ord("+"))
+        dst[..., 1 + iw] = ord(".")
+        for c in reversed(digits):
+            dst[..., c] = (q % 10 + 48).astype(np.uint8)
+            q //= 10
+
+    put(out[:, :width], y)
+    put(body[:, :, pw:], X)
+    with open(path, "wb") as f:
+        out.tofile(f)
+    return out.nbytes
+
+
+def run_cli(main, argv) -> str:
+    """A driver's ``main(argv)`` with its standard output captured;
+    fails unless it returns 0."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    check(rc == 0, f"{main.__module__} {argv} exited {rc}: "
+                   f"{buf.getvalue()[-2000:]}")
+    return buf.getvalue()
+
+
+def same_files(prefix_a: str, prefix_b: str, suffixes) -> bool:
+    for s in suffixes:
+        with open(prefix_a + s, "rb") as fa, open(prefix_b + s, "rb") as fb:
+            if fa.read() != fb.read():
+                return False
+    return True
+
+
+def counted_apart(fn) -> tuple:
+    """(fn(), its launches) with every counter set to 0 just before and
+    restored after: a reference run whose launches are read, not added to
+    a phase's main-path runs."""
+    saved = [dict(c) for c in counters()]
+    for c in counters():
+        for k in c:
+            c[k] = 0
+    try:
+        result = fn()
+        got = {k: v for k, v in launch_counts().items() if v}
+    finally:
+        for c, s in zip(counters(), saved):
+            c.update(s)
+    return result, got
+
+
+def cli_drivers(torch, P, np, size, tmp, device, runs) -> dict:
+    """skylark_svd, skylark_linear (default and ``-p``) and skylark_ml
+    (train, then ``--testfile``) through ``main(argv)`` with ``--device``,
+    each held byte for byte to the library call it wraps, made here on
+    the same inputs with the same seed."""
+    from libskylark_tpu_torch.algorithms import prox
+    from libskylark_tpu_torch.cli import (skylark_linear, skylark_ml,
+                                          skylark_svd, write_ascii_matrix)
+    from libskylark_tpu_torch.io import read_libsvm
+    from libskylark_tpu_torch.ml import kernels as mk
+    from libskylark_tpu_torch.ml.admm import BlockADMMSolver
+    from libskylark_tpu_torch.ml.metrics import classification_accuracy
+    from libskylark_tpu_torch.ml.model import HilbertModel
+    from libskylark_tpu_torch.nla.least_squares import (
+        approximate_least_squares, fast_least_squares)
+    from libskylark_tpu_torch.nla.svd import (ApproximateSVDParams,
+                                              approximate_svd)
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    out = {}
+    dev = torch.device(device)
+    seed = size["seed"]
+    # -- skylark_svd --profile ---------------------------------------------
+    n, k, q = size["svd_n"], size["svd_k"], size["svd_q"]
+    t0 = time.perf_counter()
+    runs.run("cli_svd", lambda: run_cli(skylark_svd.main, [
+        "--profile", str(n), str(n), "-k", str(k), "-i", str(q),
+        "-s", str(seed), "--device", device, "--prefix", f"{tmp}/svd_cli"]))
+    out["svd_cli_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = torch.from_numpy(skylark_svd.profile_matrix(n, n, seed)).to(dev)
+    U, S, V = approximate_svd(A, k, P.Context(seed), ApproximateSVDParams(
+        num_iterations=q, oversampling_ratio=2, oversampling_additive=0,
+        skip_qr=False), device=dev)
+    for name, M in (("U", U), ("S", S), ("V", V)):
+        write_ascii_matrix(f"{tmp}/svd_direct.{name}.txt", M)
+    out["svd_direct_s"] = time.perf_counter() - t0
+    del A, U, S, V
+    check(same_files(f"{tmp}/svd_cli", f"{tmp}/svd_direct",
+                     (".U.txt", ".S.txt", ".V.txt")),
+          "skylark_svd: prefix.U/S/V.txt differ from approximate_svd's")
+    out["svd_identical"] = True
+    # -- skylark_linear ------------------------------------------------------
+    rows, cols = size["ls_rows"], size["ls_cols"]
+    A = make_operand(torch, (rows, cols), 3, device)
+    b = A @ make_operand(torch, (cols,), 4, device) \
+        + 0.1 * make_operand(torch, (rows,), 5, device)
+    path = f"{tmp}/ls.libsvm"
+    t0 = time.perf_counter()
+    nbytes = write_dense_libsvm(np, path, A.cpu().numpy(), b.cpu().numpy())
+    out["ls_file"] = {"rows": rows, "cols": cols, "bytes": nbytes,
+                      "write_s": time.perf_counter() - t0}
+    del A, b
+    for tag, flags in (("", []), ("_p", ["-p"])):
+        t0 = time.perf_counter()
+        runs.run(f"cli_linear{tag}", lambda: run_cli(
+            skylark_linear.main, [path, "--prefix", f"{tmp}/ls{tag}_cli",
+                                  "--device", device] + flags))
+        out[f"linear{tag}_cli_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    X, Y = read_libsvm(path)
+    out["ls_file"]["parse_s"] = time.perf_counter() - t0
+    x = approximate_least_squares(X, Y, P.Context(seed), device=dev)
+    write_ascii_matrix(f"{tmp}/ls_direct.x.txt", x)
+    x = fast_least_squares(X, Y, P.Context(seed), device=dev)[0]
+    write_ascii_matrix(f"{tmp}/ls_p_direct.x.txt", x)
+    del X, Y, x
+    for tag in ("", "_p"):
+        check(same_files(f"{tmp}/ls{tag}_cli", f"{tmp}/ls{tag}_direct",
+                         (".x.txt",)),
+              f"skylark_linear{tag}: prefix.x.txt differs from the "
+              "in-process solve")
+    out["linear_identical"] = True
+    # -- skylark_ml ----------------------------------------------------------
+    msize = dict(ML_FULL, n=size["ml_rows"], test=size["ml_test"])
+    X, y, Xt, yt = ml_data(torch, msize, device)
+    sigma = math.sqrt(msize["latent"] * msize["d"])
+    train, test = f"{tmp}/ml_train.libsvm", f"{tmp}/ml_test.libsvm"
+    t0 = time.perf_counter()
+    nbytes = (write_dense_libsvm(np, train, X.cpu().numpy(), y.cpu().numpy())
+              + write_dense_libsvm(np, test, Xt.cpu().numpy(),
+                                   yt.cpu().numpy()))
+    out["ml_file"] = {"rows": size["ml_rows"], "test": size["ml_test"],
+                      "cols": msize["d"], "bytes": nbytes,
+                      "write_s": time.perf_counter() - t0}
+    del X, y, Xt, yt
+    model_cli, model_direct = f"{tmp}/model_cli.json", \
+        f"{tmp}/model_direct.json"
+    t0 = time.perf_counter()
+    runs.run("cli_ml_train", lambda: run_cli(skylark_ml.main, [
+        train, model_cli, "-l", "2", "-r", "1", "-k", "1", "-g", str(sigma),
+        "-c", str(ADMM_LAM), "-f", str(size["ml_features"]), "-n",
+        str(size["ml_parts"]), "-i", str(size["ml_iters"]), "-e", "0",
+        "-s", str(size["ml_seed"]), "--device", device]))
+    sync()
+    out["ml_train_cli_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    printed = runs.run("cli_ml_test", lambda: run_cli(skylark_ml.main, [
+        "--testfile", test, "--modelfile", model_cli, "--device", device]))
+    out["ml_test_cli_s"] = time.perf_counter() - t0
+    accuracy = [ln for ln in printed.splitlines()
+                if ln.startswith("Accuracy")]
+    # the in-process twin: the same parsed arrays, label coding and solver
+    t0 = time.perf_counter()
+    X, Y = read_libsvm(train)
+    out["ml_file"]["parse_s"] = time.perf_counter() - t0
+    classes = np.unique(Y)
+    solver = BlockADMMSolver.from_kernel(
+        P.Context(size["ml_seed"]), prox.HingeLoss(), prox.L2Regularizer(),
+        ADMM_LAM, size["ml_features"], mk.Gaussian(msize["d"], sigma=sigma),
+        tag="regular", num_partitions=size["ml_parts"])
+    solver.rho, solver.maxiter, solver.tol = 1.0, size["ml_iters"], 0.0
+    solver.cache_transforms = False
+
+    def direct_train():
+        import contextlib
+        import io
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            m = solver.train(X, np.searchsorted(classes, Y),
+                             regression=False, verbose=True, device=dev)
+        sync()
+        return m
+
+    t0 = time.perf_counter()
+    model, direct = counted_apart(direct_train)
+    out["ml_train_direct_s"] = time.perf_counter() - t0
+    model.label_coding = classes.tolist()
+    model.save(model_direct,
+               header="trained by skylark_ml (libskylark_tpu_torch)")
+    check(same_files(model_cli, model_direct, ("",)),
+          "skylark_ml: the model file differs from BlockADMMSolver's")
+    cli_cos = runs.by_run["cli_ml_train"].get("dense_rowwise_cos", 0)
+    check(cli_cos == direct.get("dense_rowwise_cos", 0),
+          f"skylark_ml: B1-cos launched {cli_cos} times, the direct "
+          f"train {direct}")
+    Xt, Yt = read_libsvm(test)
+    labels, _ = HilbertModel.load(model_direct, device=dev).predict(Xt)
+    labels = np.asarray(classes)[labels.cpu().numpy().ravel()]
+    want = f"Accuracy = {classification_accuracy(labels, Yt):.2f} %"
+    check(accuracy == [want], f"skylark_ml: printed {accuracy}, the "
+                              f"in-process model {want!r}")
+    out.update(ml_identical=True, accuracy=want, b1_cos_train=cli_cos,
+               b1_cos_direct=direct.get("dense_rowwise_cos", 0))
+    return out
+
+
+def net_ls(np, size, seed: int = 3):
+    """The dist request's LS operand as a client holds it: host rows of
+    [A | b] from numpy's generator (the child and the in-process twin
+    make the same arrays)."""
+    g = np.random.default_rng(seed)
+    A = g.standard_normal((size["dist_rows"], size["dist_cols"]),
+                          dtype=np.float32)
+    b = (A @ g.standard_normal(size["dist_cols"], dtype=np.float32)
+         + np.float32(0.1) * g.standard_normal(size["dist_rows"],
+                                               dtype=np.float32))
+    return A, b[:, None]
+
+
+def net_requests(P, np, size) -> list:
+    """The serve-dense-rw cell as host requests: JLT 8192 → 1024 rowwise
+    on 1537–2048 rows, 8 seeds; (transform, A) each."""
+    from libskylark_tpu_torch import sketch as sk
+
+    g = np.random.default_rng(900)
+    lo, hi = size["net_rows"]
+    return [(sk.JLT(size["net_n"], size["net_s"],
+                    P.Context(900 + i % size["net_seeds"])),
+             np.random.default_rng(9000 + i).standard_normal(
+                 (int(g.integers(lo, hi)), size["net_n"]),
+                 dtype=np.float32))
+            for i in range(size["net_requests"])]
+
+
+def net_drain_requests(P, np, size) -> list:
+    """The drain's burst: small CWT sketches of 512 × 8192."""
+    from libskylark_tpu_torch import sketch as sk
+
+    return [(sk.CWT(size["net_n"], size["net_s"], P.Context(950 + i)),
+             np.random.default_rng(9500 + i).standard_normal(
+                 (512, size["net_n"]), dtype=np.float32))
+            for i in range(size["drain_burst"])]
+
+
+def net_session(size) -> dict:
+    return {"n": size["dist_rows"], "s_dim": size["dist_s"],
+            "d": size["dist_cols"], "seed": 41, "targets": 1}
+
+
+def net_plan(size):
+    from libskylark_tpu_torch.dist import plan as dp
+
+    return dp.ShardPlan(kind="cwt", n=size["dist_rows"], s_dim=size["dist_s"],
+                        d=size["dist_cols"], seed=70, targets=1,
+                        shard_rows=size["dist_shard_rows"])
+
+
+def value_digest(np, value) -> str:
+    """sha256 over a result's arrays (dtype, shape and bytes, in order) and
+    its scalars: equal digests, byte-equal results."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(v):
+        if isinstance(v, dict):
+            for k in sorted(v):
+                h.update(str(k).encode())
+                walk(v[k])
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+        elif hasattr(v, "shape"):
+            a = np.ascontiguousarray(v.cpu().numpy() if hasattr(v, "cpu")
+                                     else np.asarray(v))
+            h.update(f"{a.dtype}{a.shape}".encode())
+            h.update(a.tobytes())
+        else:
+            h.update(repr(v).encode())
+
+    walk(value)
+    return h.hexdigest()
+
+
+def net_child(args: dict) -> int:
+    """The client process of the cli_net phase, started with the phase
+    so that its imports and operands are made while the drivers run; no
+    card touched. Reads the server's address from stdin, sends every
+    request over the wire and prints one JSON line of results; then
+    waits for ``go`` on stdin, sends the drain's burst, prints ``burst``
+    and, once every burst future has settled, one last JSON line."""
+    import threading
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    import libskylark_tpu_torch as P
+    from libskylark_tpu_torch import net
+    from libskylark_tpu_torch import sketch as sk
+
+    size = args["size"]
+    out = {"requests": [], "import_s": time.time() - args["spawned"]}
+    t0 = time.perf_counter()
+    reqs = net_requests(P, np, size)
+    X, Y = net_ls(np, size)
+    out["make_s"] = time.perf_counter() - t0
+    address = tuple(json.loads(sys.stdin.readline()))
+    lock = threading.Lock()
+    threads = size["net_threads"]
+
+    def worker(t):
+        c = net.NetClient(address, seed=t)
+        try:
+            for i in range(t, len(reqs), threads):
+                T, A = reqs[i]
+                t0 = time.perf_counter()
+                r = c.submit("sketch_apply", transform=T, A=A,
+                             dimension=sk.ROWWISE).result(timeout=300)
+                wall = time.perf_counter() - t0
+                with lock:
+                    out["requests"].append(
+                        {"i": i, "wall_s": wall, "bytes": A.nbytes,
+                         "digest": value_digest(np, r)})
+        finally:
+            c.close()
+
+    ts = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    out["storm_s"] = time.perf_counter() - t0
+    c = net.NetClient(address, seed=99)
+    try:
+        out["ping"] = c.ping(timeout=60)
+        t0 = time.perf_counter()
+        res = c.submit("dist_sketch", plan=net_plan(size), X=X,
+                       Y=Y).result(timeout=300)
+        out["dist"] = {"wall_s": time.perf_counter() - t0,
+                       "bytes": X.nbytes + Y.nbytes,
+                       "digest": value_digest(np, {"SX": res["SX"],
+                                                   "SY": res["SY"]}),
+                       "coverage": res["coverage"],
+                       "degraded": res["degraded"]}
+        t0 = time.perf_counter()
+        sid = c.open_sketch_session("cwt", **net_session(size))
+        step = size["dist_rows"] // size["session_appends"]
+        for j in range(size["session_appends"]):
+            c.session_append(sid, X[j * step:(j + 1) * step],
+                             Y[j * step:(j + 1) * step],
+                             seq=j + 1).result(timeout=300)
+        fin = c.session_finalize(sid).result(timeout=300)
+        out["session"] = {"wall_s": time.perf_counter() - t0,
+                          "digest": value_digest(np, fin)}
+        st = c.stats(timeout=60)
+        out["stats_net"] = st.get("net")
+    finally:
+        c.close()
+    print(json.dumps(out), flush=True)
+    check(sys.stdin.readline().strip() == "go", "the parent sent no go")
+    c = net.NetClient(address, seed=98)
+    burst = net_drain_requests(P, np, size)
+    futs = [c.submit("sketch_apply", transform=T, A=A, dimension=sk.ROWWISE)
+            for T, A in burst]
+    print("burst", flush=True)
+    done = []
+    for f in futs:
+        try:
+            done.append(value_digest(np, f.result(timeout=120)))
+        except Exception as e:  # noqa: BLE001 — reported, then checked
+            done.append(f"{type(e).__name__}: {e}")
+    st = c.client_stats()
+    c.close()
+    print(json.dumps({"burst": done, "goaways_seen": st["goaways_seen"]}),
+          flush=True)
+    return 0
+
+
+def spawn_net_child(size):
+    """Start :func:`net_child` (``python -c`` importing chip_smoke, so the
+    CPU rehearsal spawns it too)."""
+    args = json.dumps({"size": size, "spawned": time.time()})
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " import chip_smoke; sys.exit(chip_smoke.net_child("
+         "__import__('json').loads(sys.argv[2])))", str(ROOT), args],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def net_wire(torch, P, np, size, device, runs, child) -> dict:
+    """A NetServer on 127.0.0.1:0 fronting a MicrobatchExecutor on the
+    card, and the NetClient of ``child`` (:func:`spawn_net_child`); the
+    child's requests, the drain, and then the same requests in-process,
+    each held byte for byte."""
+    from libskylark_tpu_torch import engine, net
+    from libskylark_tpu_torch import sketch as sk
+    from libskylark_tpu_torch.dist import plan as dp
+    from libskylark_tpu_torch.resilience import faults
+
+    out = {}
+    ex = engine.MicrobatchExecutor(device=device, name="net", cache=False)
+    srv = net.NetServer(ex, host="127.0.0.1", port=0)
+    try:
+        def over_the_wire():
+            child.stdin.write(json.dumps(list(srv.address)) + "\n")
+            child.stdin.flush()
+            first = child.stdout.readline()
+            if not first.startswith("{"):
+                child.kill()
+                check(False, f"the net child failed: {first}"
+                             f"{child.stdout.read()[-3000:]}")
+            wire = json.loads(first)
+            st0 = srv.stats()
+            # the burst's first flush stalls, so the drain finds it inflight
+            with faults.fault_plan({"seed": 1, "faults": [
+                    {"site": "serve.flush", "stall_s": 1.0, "on_hit": 1}]}):
+                child.stdin.write("go\n")
+                child.stdin.flush()
+                check(child.stdout.readline().strip() == "burst",
+                      "the net child sent no burst")
+                want = st0["responses_sent"] + size["drain_burst"]
+                deadline = time.monotonic() + 60
+                while True:
+                    s = srv.stats()
+                    if s["pending"] + s["responses_sent"] >= want:
+                        break
+                    check(time.monotonic() < deadline,
+                          "the burst never reached the server")
+                    time.sleep(0.002)
+                inflight = s["pending"]
+                t0 = time.perf_counter()
+                quiesced = srv.drain(timeout=60)
+                drain_s = time.perf_counter() - t0
+            last = json.loads(child.stdout.readline())
+            check(child.wait(timeout=60) == 0, "the net child failed")
+            return wire, last, inflight, quiesced, drain_s
+
+        t0 = time.perf_counter()
+        wire, last, inflight, quiesced, drain_s = runs.run(
+            "net", over_the_wire)
+        out["wire_s"] = time.perf_counter() - t0
+        st = srv.stats()
+    finally:
+        srv.close()
+    check(wire["ping"] == "pong", f"ping answered {wire['ping']!r}")
+    check(isinstance(wire["stats_net"], dict)
+          and wire["stats_net"]["requests"] >= size["net_requests"],
+          f"stats carried no net block: {wire['stats_net']}")
+    check(quiesced and inflight >= 1,
+          f"the drain found {inflight} inflight, quiesced {quiesced}")
+    check(last["goaways_seen"] >= 1, "the client saw no GOAWAY")
+    # the same requests in-process, on the same executor
+    reqs = net_requests(P, np, size)
+    inproc, times = storm(ex, reqs, threads=size["net_threads"],
+                          call=lambda e, r: e.submit_sketch(
+                              r[0], torch.from_numpy(r[1]),
+                              dimension=sk.ROWWISE))
+    by_i = {r["i"]: r for r in wire["requests"]}
+    check(len(by_i) == len(reqs), "a wire request is missing")
+    for i, r in enumerate(inproc):
+        check(by_i[i]["digest"] == value_digest(np, r),
+              f"wire request {i} differs from its in-process twin")
+    X, Y = net_ls(np, size)
+    res = ex.submit_dist_sketch(net_plan(size), dp.ArraySource(X, Y)).result(
+        timeout=300)
+    check(wire["dist"]["digest"] == value_digest(np, {"SX": res.SX,
+                                                     "SY": res.SY}),
+          "the wire's dist_sketch differs from submit_dist_sketch's")
+    sid = ex.open_sketch_session("cwt", **net_session(size))
+    step = size["dist_rows"] // size["session_appends"]
+    for j in range(size["session_appends"]):
+        ex.session_append(sid, X[j * step:(j + 1) * step],
+                          Y[j * step:(j + 1) * step], seq=j + 1).result(300)
+    check(wire["session"]["digest"] == value_digest(
+        np, ex.session_finalize(sid).result(300)),
+        "the wire's cwt session differs from the in-process session")
+    burst = [value_digest(np, ex.submit_sketch(
+        T, torch.from_numpy(A), dimension=sk.ROWWISE).result(120))
+        for T, A in net_drain_requests(P, np, size)]
+    check(last["burst"] == burst,
+          f"a drained request did not settle to its result: {last['burst']}")
+    ex.shutdown()
+    walls = sorted(r["wall_s"] for r in wire["requests"])
+    local = sorted(b - a for a, b in times)
+    out.update(
+        wire_ms={"p50": statistics.median(walls) * 1e3,
+                 "max": walls[-1] * 1e3},
+        inproc_ms={"p50": statistics.median(local) * 1e3,
+                   "max": local[-1] * 1e3},
+        storm_s=wire["storm_s"], child_import_s=wire["import_s"],
+        child_make_s=wire["make_s"],
+        request_mb=statistics.mean(r["bytes"] for r in wire["requests"])
+        / 2**20,
+        dist_wall_ms=wire["dist"]["wall_s"] * 1e3,
+        dist_mb=wire["dist"]["bytes"] / 2**20,
+        session_wall_ms=wire["session"]["wall_s"] * 1e3,
+        bytes_in=st["bytes_in"], bytes_out=st["bytes_out"],
+        requests=st["requests"], by_verb=st["by_verb"],
+        drain={"inflight": inflight, "quiesced": quiesced,
+               "seconds": drain_s, "goaways_seen": last["goaways_seen"],
+               "settled": len(last["burst"])},
+        identical=True)
+    return out
+
+
+def cli_net_phase(torch, P, np, size=CLI_NET_FULL, device="cuda") -> dict:
+    """Phase 4k: the command-line drivers and the network front door on
+    the card, through their entry points, each main-path run counted from
+    0 just before it and read just after (:class:`MainRuns`)."""
+    import os
+    import shutil
+    import tempfile
+
+    card = smi("name,power.limit") if device == "cuda" else "cpu"
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="skylark-cli-net-")
+    env_before = os.environ.get("SKYLARK_SESSION_DIR")
+    os.environ["SKYLARK_SESSION_DIR"] = f"{tmp}/sessions"
+    runs = MainRuns()
+    out = {"card": card, "size": size}
+    # the client process imports and makes its operands meanwhile
+    child = spawn_net_child(size)
+    try:
+        t0 = time.perf_counter()
+        out["cli"] = cli_drivers(torch, P, np, size, tmp, device, runs)
+        out["cli_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["net"] = net_wire(torch, P, np, size, device, runs, child)
+        out["net_seconds"] = time.perf_counter() - t0
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        if env_before is None:
+            os.environ.pop("SKYLARK_SESSION_DIR", None)
+        else:
+            os.environ["SKYLARK_SESSION_DIR"] = env_before
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {k: v for k, v in runs.total.items() if v}
+    out["launches_by_run"] = runs.by_run
+    if device == "cuda":
+        for label, names in CLI_NET_KERNELS.items():
+            for name in names:
+                runs.require(label, name)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("cli_net", **out)
+    return {"launches": runs.total}
+
+
 # the serve kernels of the captured sketch flushes: each must launch
 # inside a graph replay (kernels.launch.replayed)
 REPLAYED_KERNELS = ("dense_batched_rowwise", "dense_batched_columnwise",
@@ -8630,6 +9261,8 @@ def main() -> int:
     tdist = train_dist_phase(torch, P, np)
     checked += tdist["checked"]
     release_cache(torch)
+    clinet = cli_net_phase(torch, P, np)
+    release_cache(torch)
     tune_phase(torch, P, np)
     release_cache(torch)
 
@@ -8660,7 +9293,8 @@ def main() -> int:
                          + sphase["launches"][name]
                          + cphase["launches"][name]
                          + sess["launches"][name]
-                         + tdist["launches"][name]),
+                         + tdist["launches"][name]
+                         + clinet["launches"][name]),
             "replay_launches": launch.replayed[name],
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],

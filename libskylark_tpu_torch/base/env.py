@@ -527,9 +527,11 @@ FWHT_KERNEL = declare(
 FWHT_MIN_N = declare(
     "SKYLARK_FWHT_MIN_N", default=4096, parser=parse_positive_int,
     kind="int", propagate=True,
-    doc="Shortest transform of the in-kernel FWHT route; the port's B5 "
-        "holds its own floor (``sketch.cuda_fwht.MIN_N``), and a reader "
-        "of this knob comes with ROADMAP A6's kernel selection.")
+    doc="The reference's floor of the in-kernel SRHT serve route. Not "
+        "read by the port, a recorded departure (ROADMAP C26): B5 serves "
+        "every n from ``sketch.cuda_fwht.MIN_N`` (128), and declining a "
+        "CUDA bucket below this knob would send it to the plain version "
+        "(C22).")
 
 FWHT_CM_SDIM = declare(
     "SKYLARK_FWHT_CM_SDIM", default=256, parser=parse_positive_int,
@@ -689,14 +691,17 @@ PALLAS_MTILE = declare(
 
 MATMUL_PRECISION = declare(
     "SKYLARK_MATMUL_PRECISION", default=None, kind="choice",
-    doc="Ambient matmul precision installed at import; the port installs "
-        "true f32 (TF32 off) unconditionally, and a reader of this knob "
-        "comes with ROADMAP A6 (base/precision.py).")
+    doc="The reference's ambient matmul precision, installed at import. "
+        "Not read by the port, a recorded departure (ROADMAP C26): the "
+        "port installs true f32 (TF32 off) unconditionally, and TF32 "
+        "appears only in B1's ``f32`` regime.")
 
 FASTFOOD_PRECISION = declare(
     "SKYLARK_FASTFOOD_PRECISION", default=None, kind="choice",
-    doc="Contraction regime of the fused fastfood kernel; the port's B4 "
-        "runs f32, and a reader comes with ROADMAP A6 (tune/).")
+    doc="The reference's contraction regime of the fused Fastfood "
+        "kernel. Not read by the port, a recorded departure (ROADMAP "
+        "C26): B4's WHT adds and subtracts in f32 with no matmul, so "
+        "there is no regime to choose.")
 
 PALLAS_PIPELINE = declare(
     "SKYLARK_PALLAS_PIPELINE", default=None, kind="choice",
@@ -705,9 +710,11 @@ PALLAS_PIPELINE = declare(
 
 HASH_KERNEL = declare(
     "SKYLARK_HASH_KERNEL", default=None, kind="choice",
-    doc="The reference's CWT flush-kernel override; the port's CUDA "
-        "tensors always take B2, and a reader comes with ROADMAP A6's "
-        "kernel selection.")
+    doc="The reference's CWT kernel override (``mxu``, ``exact`` or "
+        "the XLA scatter). Not read by the port, a recorded departure "
+        "(ROADMAP C26): a CUDA tensor always takes B2's exact mode, since "
+        "``xla`` would route it off its kernel (C22) and ``mxu`` is not "
+        "ported (B-i 3).")
 
 PALLAS_VMEM_BUDGET = declare(
     "SKYLARK_PALLAS_VMEM_BUDGET", default=16 * 1024 * 1024,
@@ -724,9 +731,9 @@ PALLAS_SCRATCH_CAP = declare(
 AUTO_MATERIALIZE = declare(
     "SKYLARK_AUTO_MATERIALIZE", default=True,
     parser=parse_bool_default_on, kind="flag",
-    doc="Materialize-and-reuse dispatch of OperatorCache transforms; a "
-        "reader comes with ROADMAP A6 (sketch/params.py's dispatch "
-        "knobs).")
+    doc="Materialize-and-reuse dispatch: a transform pins its operator "
+        "after its Nth plain-route apply; ``0`` turns it off. Read at "
+        "import of ``sketch/params.py``, as the reference reads it.")
 
 # -- io ---------------------------------------------------------------------
 

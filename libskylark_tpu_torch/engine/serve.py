@@ -217,6 +217,7 @@ import hashlib
 import itertools
 import math
 import queue
+import sys
 import threading
 import time
 import warnings
@@ -3412,6 +3413,11 @@ def serve_stats() -> dict:
                       "p99": _percentile(lat_all, 0.99),
                       "n": len(lat_all)},
         "by_replica": dict(sorted(by_replica.items())),
+        # the network front door's rollup, only where the net tier is
+        # loaded: a process that serves in-process never imports it
+        **({"net": sys.modules["libskylark_tpu_torch.net.server"]
+            .net_stats()}
+           if "libskylark_tpu_torch.net.server" in sys.modules else {}),
     }
 
 

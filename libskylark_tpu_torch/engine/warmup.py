@@ -28,9 +28,9 @@ kernel-source change fails the compat probe, a plan-fingerprint change
 skips the pack. A skipped or partial pack is never an error unless
 ``strict=True``: boot degrades to capturing on first traffic.
 
-:func:`select_top_buckets` reads tune's plan cache in the reference; tune
-is not ported yet (ROADMAP A6), so it raises. Pass explicit
-:class:`BucketSpec`\\ s to :func:`build_pack`.
+:func:`select_top_buckets` ranks the serve entries of tune's plan cache
+for this card (``tune/``), as the reference's does; explicit
+:class:`BucketSpec`\\ s may be passed to :func:`build_pack` instead.
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@ Format, as the reference reads it:
 The host parses into numpy (dense) or a :class:`SparseMatrix` (CSC);
 placing the data on a device is the caller's. The native parser
 (io/native.py, built by g++ at first use) reads when it can, the Python
-parser otherwise (``native.runs`` counts which ran). The chunked,
-streaming and HDF5 readers are not ported yet.
+parser otherwise (``native.runs`` counts which ran). The chunked and
+sharded readers are in :mod:`~libskylark_tpu_torch.io.chunked`, the
+streaming sketch in :mod:`~libskylark_tpu_torch.io.streaming` and the
+HDF5 readers in :mod:`~libskylark_tpu_torch.io.hdf5`.
 """
 
 from __future__ import annotations

@@ -34,10 +34,20 @@ Sites planted in the port:
                     offset)
 ``dist.merge``      a merge's entry (``dist.plan.merge_partials``, the
                     incremental merger's result)
+``net.accept``      the TCP front door's accept path, once per accepted
+                    connection (``net.server``): a fired fault closes the
+                    fresh socket before any frame is read; the client's
+                    reconnect budget absorbs it
+``net.read``        one frame read on a server connection: a fired fault
+                    tears the connection down; inflight futures detach
+                    and the client's byte-identical re-send joins the
+                    original flight
+``net.write``       one frame write on a server connection, the same
+                    teardown from the response side
 ==================  =====================================================
 
-The reference's other sites (``fleet.route``, ``net.*``) come with the
-modules that hold them (ROADMAP A7); a plan may name them already.
+The reference's ``fleet.route`` site comes with the module that holds it
+(ROADMAP A7, ``fleet/``); a plan may name it already.
 
 A plan is a JSON document (or the equivalent dict)::
 

@@ -176,7 +176,10 @@ def set_pallas_m_tile(t: int) -> None:
     _pallas_m_tile = t
 
 
-_auto_materialize = True
+# SKYLARK_AUTO_MATERIALIZE=0 turns off the pinning of a transform's
+# operator after its Nth plain-route apply (read at import, as the
+# reference reads it)
+_auto_materialize = _env.AUTO_MATERIALIZE.get()
 _auto_materialize_after = 3
 _auto_materialize_bytes = 64 * 1024 * 1024
 

@@ -7,8 +7,8 @@ function, class or method must be accepted by the port's counterpart
 accepts any keyword). A module's public names are the functions and
 classes it defines, its upper-case constants, and a package's
 ``__all__``. Only what ROADMAP defers is exempt, each exemption with its
-item: what the serve executor still lacks (its ``mesh``, A6), the CLI
-helpers (A8), and the names of reference modules not ported yet (C12).
+item: what the serve executor still lacks (its ``mesh``, A6), and the
+names of reference modules not ported yet (C12).
 """
 
 from __future__ import annotations
@@ -24,18 +24,11 @@ import libskylark_tpu.fleet
 import libskylark_tpu_torch
 
 # "module:name" (a name, a Class.member or a callable's "(param)") -> the
-# ROADMAP item that brings it. The deferred kinds: what the serve
-# executor still lacks (A6), and the CLI helpers (A8).
-# Every other name the port lacks is C12: a module of the reference not
-# yet ported, each named there with the A item that brings it.
-EXEMPT = {
-    # cli/__init__.py's helpers, which the other drivers share (A8)
-    "cli:LIBSVM_DENSE": "A8", "cli:LIBSVM_SPARSE": "A8",
-    "cli:HDF5_DENSE": "A8", "cli:HDF5_SPARSE": "A8",
-    "cli:read_dataset": "A8", "cli:honor_platform_env": "A8",
-    "cli:write_ascii_matrix": "A8", "cli:add_streaming_args": "A8",
-    "cli:read_streaming": "A8",
-}
+# ROADMAP item that brings it. The deferred kind: what the serve executor
+# still lacks (A6). Every other name the port lacks is C12: a module of
+# the reference not yet ported, each named there with the A item that
+# brings it.
+EXEMPT = {}
 for _m in ("engine", "engine.serve"):
     EXEMPT[f"{_m}:MicrobatchExecutor(mesh)"] = "A6"
 # fleet/ is ported as far as its hash ring; the package's other names
@@ -139,9 +132,10 @@ def test_reference_names_exist_in_the_port(mod_key):
 def test_the_new_modules_are_compared():
     """The NLA, graph, block-solver, HDF5, parallel, and the serve
     production layer's modules (the artifact store, warmup packs and
-    their CLI, the training jobs, distributed sketching and the hash
-    ring among them) are among those both packages define, so the parity
-    test above covers them; none of the last has an exemption."""
+    their CLI, the training jobs, distributed sketching, the hash ring,
+    the command-line drivers and the network front door among them) are
+    among those both packages define, so the parity test above covers
+    them; none of the last has an exemption."""
     common = set(_common_modules())
     for m in ("nla.krank", "nla.randlobpcg", "nla.spectral", "ml.graph",
               "algorithms.asynch", "io.hdf5", "parallel", "parallel.mesh",
@@ -160,7 +154,11 @@ def test_the_new_modules_are_compared():
                    "sessions.state", "sessions.registry", "train",
                    "train.slices", "train.state", "train.jobs", "dist",
                    "dist.plan", "dist.coordinator", "dist.algorithms",
-                   "dist.serve", "fleet.ring")
+                   "dist.serve", "fleet.ring", "cli", "cli.skylark_svd",
+                   "cli.skylark_linear", "cli.skylark_ml",
+                   "cli.skylark_graph_se", "cli.skylark_community",
+                   "cli.skylark_convert2hdf5", "net", "net.wire",
+                   "net.client", "net.server")
     for m in serve_layer:
         assert m in common, m
         assert not [k for k in EXEMPT if k.split(":")[0] == m], m

@@ -326,11 +326,15 @@ def test_file_sources_read_ranges(data, tmp_path):
 
 class _Replica:
     """An in-process replica computing shard tasks on a worker thread on
-    the CPU. ``stall`` holds the first task's future on an event."""
+    the CPU. ``stall`` holds the first task's future on an event.
+    ``inline`` computes every other task before ``shard`` returns, so its
+    future is already settled: no such attempt is ever in flight, however
+    loaded the machine, and only the stalled one can age into a hedge."""
 
-    def __init__(self, name, stall=None):
+    def __init__(self, name, stall=None, inline=False):
         self.name = name
         self.stall = stall
+        self.inline = inline
         self.tasks = []
         self._tpe = ThreadPoolExecutor(1)
 
@@ -348,6 +352,13 @@ class _Replica:
                 fut.set_result(dp.execute_task(task, device="cpu"))
 
             threading.Thread(target=later, daemon=True).start()
+            return fut
+        if self.inline:
+            fut = Future()
+            try:
+                fut.set_result(dp.execute_task(task, device="cpu"))
+            except Exception as e:  # noqa: BLE001 — the attempt's failure
+                fut.set_exception(e)
             return fut
         return self._tpe.submit(dp.execute_task, task, "cpu")
 
@@ -424,7 +435,11 @@ def test_a_hedge_rescues_a_straggler(data):
     src = dp.ArraySource(A, Y)
     ref = dp.sketch_local(plan, src, device="cpu")
     release = threading.Event()
-    reps = [_Replica("slow", stall=release), _Replica("fast")]
+    # every attempt but the stalled one settles inside its dispatch, so
+    # the straggler is the only attempt that can age past the delay: the
+    # hedge count is exact under any load
+    reps = [_Replica("slow", stall=release, inline=True),
+            _Replica("fast", inline=True)]
     co = dist.DistSketchCoordinator(replicas=reps, retries=2, hedge=True,
                                     hedge_delay_s=0.01)
     try:
@@ -434,6 +449,8 @@ def test_a_hedge_rescues_a_straggler(data):
     assert co.stats()["hedged"] == 1
     stalled = reps[0].tasks[0]
     assert stalled in reps[1].tasks
+    # the stalled shard is the one mirrored: "fast" ran it as a hedge
+    assert reps[1].tasks.count(stalled) == 1
     assert torch.equal(res.SX, ref.SX) and torch.equal(res.SY, ref.SY)
 
 
