@@ -157,8 +157,9 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             ``register_operand(A)`` uploads A once, 16 submits by
             OperandRef ship 0 bytes of A and equal their by-value twins,
             a sketch pinned with the registration is served with 0
-            launches; 4 requests with a 10 ms deadline queued behind a
-            long flush expire unlaunched; a fault plan on ``serve.flush``
+            launches; 4 requests with a 10 ms deadline held queued past
+            it (beside a full cohort of 8 solves that flushes once)
+            expire unlaunched; a fault plan on ``serve.flush``
             (no launch) degrades the executor, a health subscriber sees
             SERVING → DEGRADED, best_effort past its class bound is shed,
             interactive requests are served ``torch.equal`` to their
@@ -423,6 +424,44 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             skylark_svd, B1-cos in skylark_ml's train and test,
             B1-batched rw and B2-accumulate on the wire required;
             skylark_linear's FJLT (DCT mixer) launches none;
+4l. fleet — the replicated serving tier (fleet/), about 75 s: two
+            process pools of 2 children each, one with 16 slots of
+            64 MiB (sized from /dev/shm's free space; the phase fails if
+            not one fits) and the result cache on, one with the default
+            1 MiB slots; the big-slot pool boots first, beside a client
+            process's imports and, on a thread of its own, a one-entry
+            warmup pack of the dense-rw bucket and a thread fleet (2
+            replicas behind a Router: the serve-dense-rw cell's 16
+            requests, JLT 8192 → 1024 rowwise on 1537–2048 host rows,
+            and the serve-cwt cell's 4, from 4 threads, each
+            torch.equal to one in-process executor's, each bucket class
+            on one replica, owner_of read-only); the default-slot pool
+            then boots beside the big pool's legs: a first storm (other
+            seeds) and the same requests (results tensors on the card,
+            torch.equal to in-process, every child bucket on the kernel
+            route), a dist cwt sketch of LS [A | b] in 8 shards
+            (torch.equal to sketch_local), a cwt session and
+            train_dist's lsqr job on one child with a dense-rw burst
+            queued behind the job's stalled slice and a real SIGTERM to
+            that child (no client-visible failure, DRAINING then
+            STOPPED on the hub, the session handed off and the job
+            resumed on the peer, each torch.equal to its one-process
+            twin); then the default-slot pool's first storm and the same
+            requests (torch.equal to in-process and to the big-slot
+            pool's; the big-slot pool's bytes all on the rings, the
+            default-slot pool's all pickled); a hedge there (the
+            primary's flush stalled 2.5 s by a tag-pinned fault in the
+            children's plan, the mirror after 50 ms wins, the verify
+            compares the two processes' bits: hedge_mismatches 0); kill
+            -9 of a child there (reaped), whose replacement an
+            Autoscaler at floor 2 boots from the one-entry pack while a
+            NetServer over the big pool's router serves the client
+            process (each result byte-equal in-process) and a torn
+            connection's resend (one flush in all, 1 transport retry);
+            then the replacement's first request: a hit, no capture. No
+            shared-memory name is left. Each run is counted from 0 here
+            and as a difference of every live child's counters
+            (:class:`FleetRuns`);
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
@@ -3825,8 +3864,10 @@ def serve_qos_phase(torch, P, np, size=QOS_FULL, device="cuda") -> dict:
     to a cache-off executor's; the same bytes under another seed miss.
     Residency: a registered A is uploaded once, ``ref_requests`` submits by
     OperandRef ship none of its bytes and equal their by-value twins, a
-    pinned sketch is served with no launch. Deadlines: requests queued
-    behind a long flush expire and never launch. DEGRADED: a fault plan
+    pinned sketch is served with no launch. Deadlines: requests held in
+    the queue (by their bucket's linger target) past their deadline
+    expire and never launch, beside 8 solves that flush as one full
+    cohort. DEGRADED: a fault plan
     on ``serve.flush`` degrades the executor (a subscriber sees it),
     best_effort past its class bound is shed, interactive requests are
     served torch.equal to their capacity-1 flush with the cache
@@ -3987,12 +4028,28 @@ def serve_qos_phase(torch, P, np, size=QOS_FULL, device="cuda") -> dict:
         del got, futs, by_ref, by_value, pinned, late, want
 
         # -- deadlines ---------------------------------------------------
+        # both buckets held by their targets, not by the clock: the 8
+        # solves flush as one full cohort, and the late requests stay
+        # queued until every deadline has passed, then are released
         dl = executor(max_batch=8, linger_us=1000, workers=1)
         xs = [A @ g.standard_normal(d, dtype=np.float32) for _ in range(8)]
+        held = {serve.request_statics("solve_l2_sketched",
+                                      pad_floor=dl.pad_floor, A=A, B=xs[0],
+                                      transform=T, method="qr")}
+        for i in range(size["deadline_requests"]):
+            Ai, Ti = rw[i % len(rw)]
+            held.add(serve.request_statics(
+                "sketch_apply", pad_floor=dl.pad_floor, transform=Ti, A=Ai,
+                dimension=sk.ROWWISE))
+        for statics in held:
+            dl.set_bucket_targets(statics, linger_s=3600.0)
         before = launch_counts()
         slow = [dl.submit_solve(A, xi, T) for xi in xs]
         late = [rw_call(dl, i, deadline=size["deadline_s"])
                 for i in range(size["deadline_requests"])]
+        time.sleep(size["deadline_s"])
+        for statics in held:
+            dl.set_bucket_targets(statics, linger_s=0.0)
         for f in slow + late:
             f.exception(timeout=600)
         dl_launches = qos_launches(before)
@@ -9085,6 +9142,890 @@ def cli_net_phase(torch, P, np, size=CLI_NET_FULL, device="cuda") -> dict:
     return {"launches": runs.total}
 
 
+FLEET_FULL = {
+    # the serve-dense-rw cell (JLT 8192 → 1024 rowwise on 1537–2048 rows,
+    # 8 seeds: 16 requests from 4 threads) and the serve-cwt cell's 4
+    # requests (CWT 8192 → 1024 rowwise on 257–512 rows)
+    "n": 8192, "s": 1024, "rw_requests": 16, "rw_seeds": 8,
+    "rw_rows": (1537, 2049), "cwt_requests": 4, "cwt_rows": (257, 513),
+    "threads": 4, "max_batch": 8, "linger_us": 5000,
+    # the big-slot pool's slots hold a whole 64 MiB operand; the other
+    # pool keeps the default slots (None: SKYLARK_FLEET_SHM_SLOT_BYTES,
+    # 1 MiB), so every operand and result falls back to the pipe
+    "big_slot_bytes": 64 << 20, "small_slot_bytes": None,
+    # the dist cwt of LS [A | b] (65536 × 513 → 2048, 8 shards), the cwt
+    # session on the same rows in 8 appends, and train_dist's lsqr job
+    "ls_rows": 65536, "ls_cols": 512, "ls_s": 2048, "shard_rows": 8192,
+    "session_appends": 8, "lsqr_slice": 8, "lsqr_budget": 64,
+    "ckpt_every": 2, "train_stall_s": 1.5,
+    # the drain's burst, the hedge's stall and delay, the wire's requests
+    "drain_burst": 4, "hedge_stall_s": 2.5, "hedge_delay_ms": 50,
+    "net_requests": 8, "net_threads": 2,
+}
+# each main-path run's required kernels, the children's launches included
+# (the drain's victim is gone when its window closes: the peer's session
+# appends and resumed job are what the drain run is held to)
+FLEET_KERNELS = {"thread": ("dense_batched_rowwise", "hash_batched"),
+                 "process_big": ("dense_batched_rowwise", "hash_batched"),
+                 "process_small": ("dense_batched_rowwise",
+                                   "hash_batched"),
+                 "dist": ("hash_accumulate",),
+                 "drain": ("hash_accumulate", "dense_columnwise"),
+                 "net": ("dense_batched_rowwise",),
+                 "hedge": ("dense_batched_rowwise",),
+                 "replacement": ("dense_batched_rowwise",)}
+
+
+class FleetRuns(MainRuns):
+    """:class:`MainRuns` with the children's launches: a process
+    replica's kernels count in its own process, so each run also reads
+    every live child's counters (``boot_info()["launches"]``) just before
+    and just after, and keeps the difference (a child gone by the end of
+    the run counts nothing)."""
+
+    def __init__(self):
+        super().__init__()
+        self.children = {}
+
+    def run(self, label, fn, pools=()):
+        def counts():
+            out = {}
+            for pool in pools:
+                for r in pool.replicas():
+                    if r.state() != "STOPPED":
+                        out[r.name + "@" + str(id(pool))] = (
+                            r.boot_info().get("launches", {}))
+            return out
+
+        before = counts()
+        result = super().run(label, fn)
+        after = counts()
+        kids = {}
+        for key, got in after.items():
+            was = before.get(key, {})
+            for k, v in got.items():
+                d = v - was.get(k, 0)
+                if d:
+                    kids[k] = kids.get(k, 0) + d
+        for k, v in kids.items():
+            self.total[k] = self.total.get(k, 0) + v
+            self.by_run[label][k] = self.by_run[label].get(k, 0) + v
+        self.children[label] = kids
+        return result
+
+
+def fleet_requests(P, np, size, seed_offset: int = 0) -> list:
+    """The dense-rw cell's and the cwt cell's requests as a client holds
+    them: (bucket, transform, host rows). ``seed_offset`` moves every
+    transform's seed and keeps the operands (a first storm with the same
+    cohorts that no cache answers later)."""
+    from libskylark_tpu_torch import sketch as sk
+
+    g = np.random.default_rng(1200)
+    reqs = []
+    lo, hi = size["rw_rows"]
+    for i in range(size["rw_requests"]):
+        reqs.append(("dense-rw", sk.JLT(size["n"], size["s"], P.Context(
+            1200 + seed_offset + i % size["rw_seeds"])),
+            np.random.default_rng(12000 + i).standard_normal(
+                (int(g.integers(lo, hi)), size["n"]), dtype=np.float32)))
+    lo, hi = size["cwt_rows"]
+    for i in range(size["cwt_requests"]):
+        reqs.append(("cwt", sk.CWT(size["n"], size["s"],
+                                   P.Context(1260 + seed_offset + i)),
+                     np.random.default_rng(12600 + i).standard_normal(
+                         (int(g.integers(lo, hi)), size["n"]),
+                         dtype=np.float32)))
+    return reqs
+
+
+def fleet_burst(P, np, size, seed: int) -> list:
+    """Dense-rw requests on seeds no earlier leg used (no cache hit)."""
+    from libskylark_tpu_torch import sketch as sk
+
+    lo, hi = size["rw_rows"]
+    g = np.random.default_rng(seed)
+    return [("dense-rw", sk.JLT(size["n"], size["s"], P.Context(seed + i)),
+             np.random.default_rng(seed * 10 + i).standard_normal(
+                 (int(g.integers(lo, hi)), size["n"]), dtype=np.float32))
+            for i in range(size["drain_burst"])]
+
+
+def fleet_storm(front, reqs, threads):
+    """The requests through ``front`` (a router or an executor) from
+    ``threads`` threads; results and each request's wall seconds."""
+    from libskylark_tpu_torch import sketch as sk
+
+    res, times = storm(front, reqs, threads=threads,
+                       call=lambda f, r: f.submit_sketch(
+                           r[1], r[2], dimension=sk.ROWWISE))
+    return res, [b - a for a, b in times]
+
+
+def fleet_net_child(args: dict) -> int:
+    """The client process of phase 4l, started with the phase: makes the
+    wire's dense-rw requests, reads the server's address from stdin,
+    sends them from two threads and prints one JSON line of digests and
+    walls. No card touched."""
+    import threading
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    import libskylark_tpu_torch as P
+    from libskylark_tpu_torch import net
+    from libskylark_tpu_torch import sketch as sk
+
+    size = args["size"]
+    out = {"requests": [], "import_s": time.time() - args["spawned"]}
+    reqs = fleet_burst(P, np, dict(size, drain_burst=size["net_requests"]),
+                       1500)
+    address = tuple(json.loads(sys.stdin.readline()))
+    lock = threading.Lock()
+    threads = size["net_threads"]
+
+    def worker(t):
+        c = net.NetClient(address, seed=t)
+        try:
+            for i in range(t, len(reqs), threads):
+                _, T, A = reqs[i]
+                t0 = time.perf_counter()
+                r = c.submit("sketch_apply", transform=T, A=A,
+                             dimension=sk.ROWWISE).result(timeout=300)
+                wall = time.perf_counter() - t0
+                with lock:
+                    out["requests"].append(
+                        {"i": i, "wall_s": wall, "bytes": A.nbytes,
+                         "digest": value_digest(np, r)})
+        finally:
+            c.close()
+
+    ts = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def spawn_fleet_net_child(size):
+    args = json.dumps({"size": size, "spawned": time.time()})
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " import chip_smoke; sys.exit(chip_smoke.fleet_net_child("
+         "__import__('json').loads(sys.argv[2])))", str(ROOT), args],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def card_used_gib(torch, device) -> float:
+    """Memory in use on the card by every process (total − free), GiB."""
+    if device != "cuda":
+        return 0.0
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 2**30
+
+
+def shm_slots_for(size) -> tuple:
+    """(slots, free bytes) of the big-slot pool, from what /dev/shm holds
+    on this machine: its two children map two rings each, and half of
+    the free space is the budget. Up to 16: a class's cohort (8) queued
+    on one child holds its operands' slots until its flush. Fails when
+    not even one slot of a whole operand fits, since the leg is there to
+    carry operands on the rings."""
+    import os
+
+    st = os.statvfs("/dev/shm")
+    free = int(st.f_bavail * st.f_frsize)
+    slots = min(16, free // 2 // (4 * size["big_slot_bytes"]))
+    check(slots >= 1, f"/dev/shm has {free} bytes free: too few for the "
+                      f"big-slot pool's rings of {size['big_slot_bytes']}"
+                      "-byte slots")
+    return int(slots), free
+
+
+def transport_totals(pool) -> dict:
+    """Bytes on the rings and on the pipe, both directions, over a pool's
+    live children (parent side plus each child's ``boot_info``)."""
+    out = {"shm_bytes": 0, "pickle_bytes": 0, "shm_sends": 0,
+           "fallbacks": 0}
+    for r in pool.replicas():
+        if r.state() == "STOPPED":
+            continue
+        for st in (r.transport_stats(), r.boot_info().get("shm")):
+            if st:
+                out["shm_bytes"] += st["sent_bytes"]
+                out["pickle_bytes"] += st["fallback_bytes"]
+                out["shm_sends"] += st["sends"]
+                out["fallbacks"] += st["fallbacks"]
+    return out
+
+
+def fleet_thread_leg(torch, P, np, size, device, runs, reqs, want) -> dict:
+    """Two thread replicas behind a router: every result torch.equal to
+    the in-process executor's, each bucket class on one replica, and
+    ``owner_of`` read-only."""
+    from libskylark_tpu_torch import fleet
+    from libskylark_tpu_torch import sketch as sk
+
+    pool = fleet.ReplicaPool(2, backend="thread", device=device,
+                             max_batch=size["max_batch"],
+                             linger_us=size["linger_us"])
+    router = fleet.Router(pool)
+    try:
+        got, walls = runs.run("thread", lambda: fleet_storm(
+            router, reqs, size["threads"]))
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(torch.equal(g, w),
+                  f"thread fleet request {i} != in-process")
+        st = router.stats()
+        check(st["affinity_hit_rate"] == 1.0 and st["failover"] == 0,
+              f"thread fleet routing: {st}")
+        # each bucket class on one replica: its executor alone flushed it
+        classes = {}
+        for name in pool.names():
+            for key in pool.get(name).stats()["by_bucket"]:
+                classes.setdefault(key, []).append(name)
+        check(len(classes) == 2
+              and all(len(v) == 1 for v in classes.values()),
+              f"a bucket class ran on two replicas: {classes}")
+        assign, owned = dict(router._assign), dict(router._owned)
+        T = sk.JLT(size["n"], size["s"], P.Context(1299))
+        probe = router.owner_of("sketch_apply", transform=T,
+                                A=np.zeros((100, size["n"]), np.float32),
+                                dimension=sk.ROWWISE)
+        check(probe in pool.names() and router._assign == assign
+              and dict(router._owned) == owned,
+              "owner_of changed the router's assignments")
+        return {"walls_s": walls, "by_replica": st["by_replica"],
+                "owners": {("dense-rw" if "JLT" in k else "cwt"): v[0]
+                           for k, v in classes.items()}}
+    finally:
+        router.close()
+        pool.shutdown()
+
+
+def fleet_process_leg(torch, P, np, size, device, runs, label, pool,
+                      router, reqs, want) -> dict:
+    """The same requests through a process fleet, after its first storm
+    (other seeds): results torch.equal on the pool's device, every child
+    bucket on the kernel route, launches counted in the children, the
+    transport's bytes, the children's captures during the storm."""
+    def engine_misses():
+        return sum(r.boot_info()["engine"]["misses"]
+                   for r in pool.replicas())
+
+    m0 = engine_misses()
+    t0 = transport_totals(pool)
+    got, walls = runs.run(label, lambda: fleet_storm(
+        router, reqs, size["threads"]), pools=(pool,))
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(isinstance(g, torch.Tensor) and g.device == w.device
+              and torch.equal(g, w),
+              f"{label}: request {i} != in-process")
+    t1 = transport_totals(pool)
+    routes = {}
+    for r in pool.replicas():
+        for key, b in r.stats()["by_bucket"].items():
+            routes[f"{r.name}:{key}"] = b["route"]
+    if device == "cuda":
+        check(routes and set(routes.values()) == {"cuda"},
+              f"{label}: a child's bucket is off the kernel: {routes}")
+    return {"walls_s": walls, "routes": routes,
+            "captures_in_storm": engine_misses() - m0,
+            "transport": {k: t1[k] - t0[k] for k in t1},
+            "boot_s": {r.name: r.boot_seconds for r in pool.replicas()},
+            "results": got}
+
+
+def fleet_drain_leg(torch, P, np, size, device, runs, pool, router,
+                    ls) -> dict:
+    """On the big-slot pool: a dist cwt sketch over both children; then a
+    cwt session and an lsqr job on one child, a dense-rw burst queued
+    there, and a real SIGTERM to it mid-everything: no client failure,
+    the burst resolves, DRAINING then STOPPED on the hub, the session
+    hands off and the job resumes on the peer, each torch.equal to its
+    one-process twin."""
+    from libskylark_tpu_torch import sketch as sk
+    from libskylark_tpu_torch.base import errors
+    from libskylark_tpu_torch.dist import plan as dp
+    from libskylark_tpu_torch.resilience import health
+    from libskylark_tpu_torch.train import TrainJobSpec, make_engine
+
+    Ah, bh = ls
+    out = {}
+    plan = dp.ShardPlan(kind="cwt", n=size["ls_rows"], s_dim=size["ls_s"],
+                        d=size["ls_cols"], seed=71, targets=1,
+                        shard_rows=size["shard_rows"])
+    src = dp.ArraySource(Ah, bh[:, None])
+    want = dp.sketch_local(plan, src, device=device)
+    t0 = time.perf_counter()
+    res = runs.run("dist", lambda: router.submit_dist_sketch(
+        plan, src).result(timeout=600), pools=(pool,))
+    out["dist_s"] = time.perf_counter() - t0
+    check(res.coverage == 1.0 and torch.equal(res.SX, want.SX)
+          and torch.equal(res.SY, want.SY),
+          "the fleet's dist sketch != sketch_local")
+    out["dist_by_replica"] = router.stats()["dist_coordinator"][
+        "by_replica"]
+    # the victim: the dense-rw class's owner; the session and the job are
+    # given ids that land on it too
+    burst = fleet_burst(P, np, size, 1400)
+    victim = router.owner_of("sketch_apply", transform=burst[0][1],
+                             A=burst[0][2], dimension=sk.ROWWISE)
+    peer = [n for n in pool.names() if n != victim][0]
+
+    def sid_on(prefix):
+        for k in range(1000):
+            sid = f"{prefix}-{k}"
+            if router._session_candidates(sid)[0] == victim:
+                return sid
+        check(False, f"no {prefix} id lands on {victim}")
+
+    sid, jid = sid_on("fleet-session"), sid_on("fleet-lsqr")
+    job = lsqr_job(dict(size, s=size["ls_s"]))
+    eng = make_engine("lsqr", job["hyper"], {"A": Ah, "B": bh},
+                      device=device)
+    st, _ = straight(eng, job["slice_iters"], job["budget_iters"])
+    job_want = eng.result(st)
+    del eng
+    X = np.concatenate([Ah, bh[:, None]], axis=1)
+    one_shot = sk.CWT(size["ls_rows"], size["ls_s"], P.Context(41)).apply(
+        torch.as_tensor(X, device=device), sk.COLUMNWISE, device=device)
+    step = size["ls_rows"] // size["session_appends"]
+    half = size["session_appends"] // 2
+    seen = []
+    unsub = health.subscribe(
+        lambda s, old, new: seen.append(new)
+        if s is pool.get(victim) else None)
+
+    def drained_run():
+        router.open_sketch_session(
+            "cwt", session_id=sid, n=size["ls_rows"], s_dim=size["ls_s"],
+            d=size["ls_cols"], seed=41, targets=1)
+        for j in range(half):
+            router.session_append(sid, Ah[j * step:(j + 1) * step],
+                                  bh[j * step:(j + 1) * step, None],
+                                  seq=j + 1).result(timeout=300)
+        jfut = router.submit_train_job(TrainJobSpec(**job),
+                                       {"A": Ah, "B": bh}, session_id=jid)
+        deadline = time.monotonic() + 300
+        while True:
+            check(not jfut.done() and time.monotonic() < deadline,
+                  "the job ended, or never sliced, before the drain")
+            try:
+                # the child starts the job on a thread of its own: until
+                # then it is not live there
+                if router.train_job_status(jid)["slices_done"] >= 1:
+                    break
+            except errors.SessionEvictedError:
+                pass
+            time.sleep(0.02)
+        # the victim's worker is in the job's stalled second slice: the
+        # burst queues behind it, in flight at the SIGTERM
+        bfuts = [router.submit_sketch(T, A, dimension=sk.ROWWISE)
+                 for _, T, A in burst]
+        t0 = time.perf_counter()
+        drained = pool.preempt_replica(victim, timeout=120)
+        drain_s = time.perf_counter() - t0
+        bres = []
+        for f in bfuts:
+            try:
+                bres.append(f.result(timeout=300))
+            except Exception as e:  # noqa: BLE001 — counted, checked
+                bres.append(e)
+        for j in range(half, size["session_appends"]):
+            router.session_append(sid, Ah[j * step:(j + 1) * step],
+                                  bh[j * step:(j + 1) * step, None],
+                                  seq=j + 1).result(timeout=300)
+        fin = router.session_finalize(sid).result(timeout=300)
+        return drained, drain_s, bres, fin, jfut.result(timeout=600)
+
+    t0 = time.perf_counter()
+    try:
+        drained, drain_s, bres, fin, job_got = runs.run(
+            "drain", drained_run, pools=(pool,))
+    finally:
+        unsub()
+    out["drain_leg_s"] = time.perf_counter() - t0
+    failures = [r for r in bres if isinstance(r, Exception)]
+    check(not failures, f"client-visible failures in the drain: "
+                        f"{failures}")
+    ref = ref_executor(device, size)
+    try:
+        bwant, _ = fleet_storm(ref, burst, 1)
+    finally:
+        ref.shutdown()
+    for i, (g, w) in enumerate(zip(bres, bwant)):
+        check(torch.equal(g, w), f"drained request {i} != in-process")
+    rst = router.stats()
+    check(drained and seen[-2:] == ["DRAINING", "STOPPED"],
+          f"the drain: quiesced {drained}, hub saw {seen}")
+    check(victim not in router.routable() and peer in router.routable(),
+          f"the ring after the drain: {router.routable()}")
+    check(rst["session_handoffs"] >= 1, "the session did not hand off")
+    check(torch.equal(fin["SX"], one_shot[:, :size["ls_cols"]])
+          and torch.equal(fin["SY"], one_shot[:, size["ls_cols"]:]),
+          "the handed-off session != the one-shot CWT")
+    check(rst["train_resumes"] >= 1, "the job did not resume on the peer")
+    check(torch.equal(job_got["X"], job_want["X"]),
+          "the resumed job != the engine stepped straight")
+    out.update(victim=victim, peer=peer, drain_s=drain_s, hub=seen,
+               burst=len(bres), session_handoffs=rst["session_handoffs"],
+               train_resumes=rst["train_resumes"],
+               job_iterations=job_got["iterations"],
+               crashed=pool.crashed_names())
+    return out
+
+
+def ref_executor(device, size):
+    from libskylark_tpu_torch import engine
+
+    return engine.MicrobatchExecutor(device=device, name="fleet-ref",
+                                     max_batch=size["max_batch"],
+                                     linger_us=size["linger_us"])
+
+
+def fleet_net_leg(torch, P, np, size, device, runs, pool, router,
+                  child) -> dict:
+    """A NetServer over the router: the child client's dense-rw requests,
+    each byte-equal to in-process; then a torn connection's byte-identical
+    resend, answered from the cache with one flush in all."""
+    from libskylark_tpu_torch import net
+    from libskylark_tpu_torch import sketch as sk
+    from libskylark_tpu_torch.engine import resultcache as rc
+
+    def fleet_cache():
+        live = [r for r in pool.replicas() if r.state() != "STOPPED"]
+        sts = [r.stats() for r in live]
+        merged = rc.merge_cache_blocks([s["cache"] for s in sts
+                                        if s.get("cache")])
+        merged["flushes"] = sum(s["flushes"] for s in sts)
+        return merged
+
+    srv = net.NetServer(router, host="127.0.0.1", port=0)
+    try:
+        def over_the_wire():
+            child.stdin.write(json.dumps(list(srv.address)) + "\n")
+            child.stdin.flush()
+            first = child.stdout.readline()
+            if not first.startswith("{"):
+                child.kill()
+                check(False, f"the fleet net child failed: {first}"
+                             f"{child.stdout.read()[-3000:]}")
+            check(child.wait(timeout=60) == 0, "the fleet net child failed")
+            return json.loads(first)
+
+        wire = runs.run("net", over_the_wire, pools=(pool,))
+        c = net.NetClient(srv.address, retry_backoff_s=0.01, seed=7)
+        try:
+            _, T, A = fleet_burst(P, np, size, 1600)[0]
+            f0 = fleet_cache()["flushes"]
+            first = c.submit("sketch_apply", transform=T, A=A,
+                             dimension=sk.ROWWISE).result(timeout=300)
+            deadline = time.monotonic() + 60
+            while fleet_cache()["entries"] < 1:
+                check(time.monotonic() < deadline, "no cache entry")
+                time.sleep(0.01)
+            with c._lock:
+                sock = c._sock
+            sock.close()
+            again = c.submit("sketch_apply", transform=T, A=A,
+                             dimension=sk.ROWWISE).result(timeout=300)
+            cst = fleet_cache()
+            retries = c.client_stats()["transport_retries"]
+        finally:
+            c.close()
+        sst = srv.stats()
+    finally:
+        srv.close()
+    check(np.array_equal(first, again), "the resend's bytes differ")
+    check(cst["flushes"] - f0 == 1 and cst["hits"] >= 1 and retries == 1,
+          f"the resend flushed {cst['flushes'] - f0} times, "
+          f"{retries} transport retries")
+    reqs = fleet_burst(P, np, dict(size, drain_burst=size["net_requests"]),
+                       1500)
+    ref = ref_executor(device, size)
+    try:
+        inproc, _ = fleet_storm(ref, reqs, 1)
+    finally:
+        ref.shutdown()
+    by_i = {r["i"]: r for r in wire["requests"]}
+    check(len(by_i) == len(reqs), "a wire request is missing")
+    for i, r in enumerate(inproc):
+        check(by_i[i]["digest"] == value_digest(np, r),
+              f"wire request {i} differs from its in-process twin")
+    walls = sorted(r["wall_s"] for r in wire["requests"])
+    return {"wire_ms": {"p50": statistics.median(walls) * 1e3,
+                        "max": walls[-1] * 1e3},
+            "child_import_s": wire["import_s"], "requests": sst["requests"],
+            "resend": {"flushes": cst["flushes"] - f0, "hits": cst["hits"],
+                       "transport_retries": retries}}
+
+
+def fleet_hedge_leg(torch, P, np, size, device, runs, pool) -> dict:
+    """On the small-slot pool: a hedge whose primary's flush is stalled (a
+    tag-pinned fault in the children's plan; the hedger's mirror carries
+    no tag): the mirror wins, and the verify compares the two processes'
+    bits."""
+    from libskylark_tpu_torch import fleet
+    from libskylark_tpu_torch import sketch as sk
+    from libskylark_tpu_torch.resilience import faults
+
+    hedger = fleet.Router(pool, hedge=True, hedge_verify=True,
+                          hedge_delay_ms=size["hedge_delay_ms"])
+    try:
+        _, T, A = fleet_burst(P, np, size, 1700)[0]
+        for name in pool.names():      # both children warm for the class
+            pool.get(name).submit("sketch_apply", transform=T, A=A,
+                                  dimension=sk.ROWWISE).result(timeout=300)
+        ref = ref_executor(device, size)
+        try:
+            hwant = ref.submit_sketch(T, A, dimension=sk.ROWWISE).result(300)
+        finally:
+            ref.shutdown()
+
+        def hedged():
+            t0 = time.perf_counter()
+            with faults.tag("fleet-hedge"):
+                fut = hedger.submit_sketch(T, A, dimension=sk.ROWWISE)
+            got = fut.result(timeout=300)
+            wall = time.perf_counter() - t0
+            deadline = time.monotonic() + 120
+            while hedger.stats()["hedge_verified"] < 1:
+                check(time.monotonic() < deadline,
+                      "the hedge never verified")
+                time.sleep(0.01)
+            return got, wall
+
+        got, wall = runs.run("hedge", hedged, pools=(pool,))
+        hst = hedger.stats()
+    finally:
+        hedger.close()
+    check(torch.equal(got, hwant), "the hedged result != in-process")
+    check(hst["hedged"] == 1 and hst["hedge_wins"] == 1
+          and hst["hedge_mismatches"] == 0, f"the hedge: {hst}")
+    return {"wall_ms": wall * 1e3, "stall_s": size["hedge_stall_s"],
+            "delay_ms": size["hedge_delay_ms"],
+            **{k: hst[k] for k in ("hedged", "hedge_wins",
+                                   "hedge_mismatches", "hedge_verified")}}
+
+
+def fleet_crash_start(pool, router, pack) -> dict:
+    """``kill -9`` of a child of the small-slot pool; once the pool reaped
+    it, an autoscaler at floor 2 boots its replacement from ``pack`` on a
+    thread of its own (the wire leg runs meanwhile)."""
+    import os
+    import signal
+    import threading
+
+    from libskylark_tpu_torch import fleet
+
+    victim = pool.get(pool.names()[0])
+    t0 = time.perf_counter()
+    os.kill(victim._proc.pid, signal.SIGKILL)
+    deadline = time.monotonic() + 60
+    while pool.crashed_names() != [victim.name]:
+        check(time.monotonic() < deadline,
+              "the killed child was not reaped")
+        time.sleep(0.005)
+    out = {"victim": victim.name, "reap_s": time.perf_counter() - t0}
+    pool.warmup_pack = pack
+    scaler = fleet.Autoscaler(pool, router, min_replicas=2, max_replicas=2,
+                              cooldown_s=0.0, start=False)
+
+    def tick():
+        t0 = time.perf_counter()
+        try:
+            scaler._tick()
+        except BaseException as e:  # noqa: BLE001 — checked at the join
+            out["error"] = e
+        out["replace_s"] = time.perf_counter() - t0
+
+    out["thread"] = threading.Thread(target=tick)
+    out["thread"].start()
+    out["scaler"] = scaler
+    return out
+
+
+def fleet_crash_finish(torch, P, np, size, device, runs, pool, router,
+                       crash) -> dict:
+    """The replacement joined the ring, loaded its pack, and its first
+    request is a hit with no capture, torch.equal to in-process."""
+    from libskylark_tpu_torch import sketch as sk
+
+    crash["thread"].join()
+    scaler = crash.pop("scaler")
+    scaler.close()
+    check("error" not in crash, f"the replacement failed: "
+                                f"{crash.get('error')!r}")
+    grown = scaler.stats()["events"][-1]["replica"]
+    new = pool.get(grown)
+    info = new.boot_info()
+    check(grown in router.routable(), "the replacement is not routable")
+    rep = info["warmup"] or {}
+    check(rep.get("loaded", 0) >= 1 and rep.get("failed", 1) == 0,
+          f"the replacement's pack load: {rep}")
+    e0 = info["engine"]
+    _, T, A = fleet_burst(P, np, size, 1800)[0]
+    got = runs.run("replacement", lambda: new.submit(
+        "sketch_apply", transform=T, A=A,
+        dimension=sk.ROWWISE).result(timeout=300), pools=(pool,))
+    e1 = new.boot_info()["engine"]
+    ref = ref_executor(device, size)
+    try:
+        want = ref.submit_sketch(T, A, dimension=sk.ROWWISE).result(300)
+    finally:
+        ref.shutdown()
+    check(torch.equal(got, want), "the replacement's result != in-process")
+    check(e1["misses"] == e0["misses"] and e1["hits"] > e0["hits"],
+          f"the replacement's first request captured: {e0} -> {e1}")
+    return {"reap_s": crash["reap_s"], "replace_s": crash["replace_s"],
+            "victim": crash["victim"], "replacement": grown,
+            "boot_s": new.boot_seconds,
+            "warmup": {k: rep.get(k) for k in
+                       ("entries", "loaded", "failed", "kernel_restored")},
+            "first_request": {"misses": e1["misses"] - e0["misses"],
+                              "hits": e1["hits"] - e0["hits"]},
+            "crashed": pool.crashed_names()}
+
+
+def set_env(values: dict) -> None:
+    """Set each environment variable of ``values`` (None: unset it)."""
+    import os
+
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+
+
+def fleet_phase(torch, P, np, size=FLEET_FULL, device="cuda") -> dict:
+    """Phase 4l: the replicated serving tier on the card. The big-slot
+    pool boots first, here, beside the thread leg on a thread of its
+    own; the default-slot pool boots beside the big pool's legs. A
+    ring's size is read from ``SKYLARK_FLEET_SHM_SLOTS`` /
+    ``SKYLARK_FLEET_SHM_SLOT_BYTES`` when its replica is built, so this
+    thread sets them before each pool's construction starts, and no
+    other replica is built meanwhile. Each main-path run is counted from
+    0 in this process and as a difference of every child's counters
+    (:class:`FleetRuns`)."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from libskylark_tpu_torch import fleet
+    from libskylark_tpu_torch.base import env as _env
+    from libskylark_tpu_torch.engine import warmup
+
+    card = smi("name,power.limit") if device == "cuda" else "cpu"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="skylark-fleet-")
+    slots_var, bytes_var = (_env.FLEET_SHM_SLOTS.name,
+                            _env.FLEET_SHM_SLOT_BYTES.name)
+    env_before = {k: os.environ.get(k) for k in
+                  ("SKYLARK_SESSION_DIR", slots_var, bytes_var)}
+    os.environ["SKYLARK_SESSION_DIR"] = f"{tmp}/sessions"
+    runs = FleetRuns()
+    out = {"card": card, "size": size}
+
+    def reserved():
+        return (torch.cuda.memory_reserved() / 2**30 if device == "cuda"
+                else 0.0)
+
+    used = {"start": card_used_gib(torch, device)}
+    own = {"start": reserved()}
+    slots, shm_free = shm_slots_for(size)
+    small_bytes = (size["small_slot_bytes"]
+                   or _env.FLEET_SHM_SLOT_BYTES.default)
+    out["shm"] = {"free_bytes": shm_free, "big_slots": slots,
+                  "big_slot_bytes": size["big_slot_bytes"],
+                  "small_slots": _env.FLEET_SHM_SLOTS.default,
+                  "small_slot_bytes": small_bytes}
+    common = dict(backend="process", device=device,
+                  max_batch=size["max_batch"], linger_us=size["linger_us"])
+    train_plan = _json.dumps({"seed": 1, "faults": [
+        {"site": "train.slice", "stall_s": size["train_stall_s"],
+         "on_hit": 2}]})
+    hedge_plan = _json.dumps({"seed": 1, "faults": [
+        {"site": "serve.flush", "stall_s": size["hedge_stall_s"],
+         "tag": "fleet-hedge"}]})
+    # the pack the crash's replacement boots from: the dense-rw bucket
+    rw_spec = {"endpoint": "sketch_apply", "family": "JLT", "n": size["n"],
+               "m": size["rw_rows"][1] - 1, "s_dim": size["s"],
+               "rowwise": True, "seed": 1750}
+    pack_rw = f"{tmp}/pack-rw"
+    pools, side, routers, crash = {}, {}, [], None
+    booting = []
+
+    def boot_small():
+        try:
+            t0 = time.perf_counter()
+            pools["small"] = fleet.ReplicaPool(
+                2, **common,
+                replica_env={"SKYLARK_FAULT_PLAN": hedge_plan})
+            side["small_s"] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 — checked at the join
+            side["small_error"] = e
+
+    def thread_side():
+        # the replacement's pack, the in-process twin and the thread leg
+        try:
+            t0 = time.perf_counter()
+            warmup.build_pack(pack_rw, [dict(rw_spec, capacities=[1])],
+                              device=device)
+            side["pack_s"] = time.perf_counter() - t0
+            side["reqs"] = reqs = fleet_requests(P, np, size)
+            ref = ref_executor(device, size)
+            try:
+                _, side["first_walls"] = fleet_storm(ref, reqs,
+                                                     size["threads"])
+                side["want"], side["ref_walls"] = fleet_storm(
+                    ref, reqs, size["threads"])
+            finally:
+                ref.shutdown()
+            side["thread"] = fleet_thread_leg(
+                torch, P, np, size, device, runs, reqs, side["want"])
+        except BaseException as e:  # noqa: BLE001 — checked at the join
+            side["thread_error"] = e
+
+    def first_storm(router):
+        # a child's first allocations and captures, under other seeds
+        t0 = time.perf_counter()
+        walls = fleet_storm(router, fleet_requests(
+            P, np, size, seed_offset=50), size["threads"])[1]
+        return walls, time.perf_counter() - t0
+
+    # the client process imports and makes its operands meanwhile
+    child = spawn_fleet_net_child(size)
+    try:
+        booting.append(threading.Thread(target=thread_side))
+        booting[-1].start()
+        set_env({slots_var: slots, bytes_var: size["big_slot_bytes"]})
+        t0 = time.perf_counter()
+        pools["big"] = big = fleet.ReplicaPool(
+            2, **common, cache=True,
+            replica_env={"SKYLARK_FAULT_PLAN": train_plan})
+        big_s = time.perf_counter() - t0
+        used["big_booted"] = card_used_gib(torch, device)
+        set_env({slots_var: _env.FLEET_SHM_SLOTS.default,
+                 bytes_var: small_bytes})
+        booting.append(threading.Thread(target=boot_small))
+        booting[-1].start()
+        t0 = time.perf_counter()
+        booting[0].join()
+        out["thread_wait_s"] = time.perf_counter() - t0
+        check("thread_error" not in side,
+              f"the thread leg failed: {side.get('thread_error')!r}")
+        out["pack"] = {"replacement_s": side["pack_s"]}
+        out["thread"] = side["thread"]
+        reqs, want = side["reqs"], side["want"]
+        ra = fleet.Router(big, cache=True)
+        routers.append(ra)
+        cold, first_s = {}, {}
+        cold["process_big"], first_s["process_big"] = first_storm(ra)
+        pa = fleet_process_leg(torch, P, np, size, device, runs,
+                               "process_big", big, ra, reqs, want)
+        used["big_served"], own["big_served"] = (
+            card_used_gib(torch, device), reserved())
+        ls = net_ls(np, {"dist_rows": size["ls_rows"],
+                         "dist_cols": size["ls_cols"]})
+        out["drain"] = fleet_drain_leg(torch, P, np, size, device, runs,
+                                       big, ra, (ls[0], ls[1][:, 0]))
+        used["dist"] = card_used_gib(torch, device)
+        t0 = time.perf_counter()
+        booting[1].join()
+        out["small_wait_s"] = time.perf_counter() - t0
+        check("small_error" not in side, f"the default-slot pool failed "
+                                         f"to boot: "
+                                         f"{side.get('small_error')!r}")
+        small = pools["small"]
+        rb = fleet.Router(small)
+        routers.append(rb)
+        out["boot_s"] = {"big_pool": big_s, "small_pool": side["small_s"],
+                         "children": {f"big:{r.name}": r.boot_seconds
+                                      for r in big.replicas()}
+                         | {f"small:{r.name}": r.boot_seconds
+                            for r in small.replicas()}}
+        cold["process_small"], first_s["process_small"] = first_storm(rb)
+        out["first_storms_s"] = first_s
+        pb = fleet_process_leg(torch, P, np, size, device, runs,
+                               "process_small", small, rb, reqs, want)
+        check(all(torch.equal(x, y) for x, y in zip(pa.pop("results"),
+                                                     pb.pop("results"))),
+              "the two transports gave different bytes")
+        ta, tb = pa["transport"], pb["transport"]
+        check(ta["shm_bytes"] > 0 and ta["fallbacks"] == 0,
+              f"the big-slot pool's operands left the rings: {ta}")
+        check(tb["shm_bytes"] == 0 and tb["pickle_bytes"] > 0,
+              f"the default-slot pool's operands rode the rings: {tb}")
+        out["process_big"], out["process_small"] = pa, pb
+        used["served"] = card_used_gib(torch, device)
+        out["hedge"] = fleet_hedge_leg(torch, P, np, size, device, runs,
+                                       small)
+        # the replacement boots beside the wire
+        crash = fleet_crash_start(small, rb, pack_rw)
+        out["net"] = fleet_net_leg(torch, P, np, size, device, runs, big,
+                                   ra, child)
+        out["crash"] = fleet_crash_finish(torch, P, np, size, device, runs,
+                                          small, rb, crash)
+        used["end"] = card_used_gib(torch, device)
+    finally:
+        if crash is not None:
+            crash["thread"].join()
+            if "scaler" in crash:
+                crash["scaler"].close()
+        for r in routers:
+            r.close()
+        for t in booting:
+            t.join()
+        for key in ("big", "small"):
+            if key in pools:
+                pools[key].shutdown()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        set_env(env_before)
+        shutil.rmtree(tmp, ignore_errors=True)
+    left = fleet.shm_entries(pid=os.getpid())
+    check(left == [], f"shared-memory entries left: {left}")
+    thread_walls = out["thread"].pop("walls_s")
+    med = {"in_process_first": statistics.median(side["first_walls"]) * 1e3,
+           "in_process": statistics.median(side["ref_walls"]) * 1e3,
+           "process_big_first": statistics.median(
+               cold["process_big"]) * 1e3,
+           "process_small_first": statistics.median(
+               cold["process_small"]) * 1e3,
+           "thread": statistics.median(thread_walls) * 1e3,
+           "process_big": statistics.median(
+               out["process_big"].pop("walls_s")) * 1e3,
+           "process_small": statistics.median(
+               out["process_small"].pop("walls_s")) * 1e3}
+    out["request_wall_ms_p50"] = med
+    out["card_used_gib"] = used
+    out["peak_used_gib"] = max(used.values())
+    # the big pool's two children once they served (a child makes its
+    # CUDA context at its first flush): what the card gained since the
+    # phase began, less what this process reserved meanwhile
+    out["context_gib_per_child"] = (
+        used["big_served"] - used["start"]
+        - (own["big_served"] - own["start"])) / 2
+    out["launches"] = {k: v for k, v in runs.total.items() if v}
+    out["launches_by_run"] = runs.by_run
+    out["children_launches"] = runs.children
+    if device == "cuda":
+        for label, names in FLEET_KERNELS.items():
+            for name in names:
+                runs.require(label, name)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("fleet", **out)
+    return {"launches": runs.total}
+
+
 # the serve kernels of the captured sketch flushes: each must launch
 # inside a graph replay (kernels.launch.replayed)
 REPLAYED_KERNELS = ("dense_batched_rowwise", "dense_batched_columnwise",
@@ -9263,6 +10204,8 @@ def main() -> int:
     release_cache(torch)
     clinet = cli_net_phase(torch, P, np)
     release_cache(torch)
+    fphase = fleet_phase(torch, P, np)
+    release_cache(torch)
     tune_phase(torch, P, np)
     release_cache(torch)
 
@@ -9294,7 +10237,8 @@ def main() -> int:
                          + cphase["launches"][name]
                          + sess["launches"][name]
                          + tdist["launches"][name]
-                         + clinet["launches"][name]),
+                         + clinet["launches"][name]
+                         + fphase["launches"].get(name, 0)),
             "replay_launches": launch.replayed[name],
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],

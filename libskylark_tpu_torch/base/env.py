@@ -253,8 +253,7 @@ SERVE_KERNEL = declare(
 BOOT_T0 = declare(
     "SKYLARK_BOOT_T0", default=None, parser=parse_float, kind="float",
     doc="Parent's spawn time of a boot probe (``skylark_warmup "
-        "boot-probe`` reports the wall time since it); a replica's "
-        "comes with ROADMAP A7 (fleet/).")
+        "boot-probe`` reports the wall time since it).")
 
 #: The fleet replica backends.
 FLEET_BACKENDS = ("thread", "process", "auto")
@@ -262,72 +261,91 @@ FLEET_BACKENDS = ("thread", "process", "auto")
 FLEET_BACKEND = declare(
     "SKYLARK_FLEET_BACKEND", default="thread", kind="choice",
     parser=_choice(FLEET_BACKENDS, "thread"),
-    doc="Default replica backend of a pool; ROADMAP A7 (fleet/).")
+    doc="Default ``fleet.ReplicaPool`` backend when the constructor "
+        "names none: ``thread`` | ``process`` | ``auto`` (process on "
+        "hosts with at least 4 cores, each child a CUDA context of its "
+        "own; thread below).")
 
 FLEET_SHM = declare(
     "SKYLARK_FLEET_SHM", default=True, parser=parse_bool_default_on,
     kind="flag",
-    doc="Shared-memory transport of process replicas; ROADMAP A7.")
+    doc="Shared-memory operand/result transport of process replicas "
+        "(``fleet.shm``; default on, ``0`` puts every payload on the "
+        "pickle pipe).")
 
 FLEET_SHM_MIN_BYTES = declare(
     "SKYLARK_FLEET_SHM_MIN_BYTES", default=16 * 1024,
     parser=parse_int, kind="bytes",
-    doc="Smallest array on the shared-memory ring; ROADMAP A7.")
+    doc="Arrays (and tensors) at or above this size ride a "
+        "shared-memory slot; smaller values stay on the pickle pipe.")
 
 FLEET_SHM_SLOTS = declare(
     "SKYLARK_FLEET_SHM_SLOTS", default=8, parser=parse_positive_int,
     kind="int",
-    doc="Slots per shared-memory ring direction; ROADMAP A7.")
+    doc="Slots per shared-memory ring direction of a process replica; "
+        "an exhausted ring falls back to the pickle pipe, never "
+        "blocks.")
 
 FLEET_SHM_SLOT_BYTES = declare(
     "SKYLARK_FLEET_SHM_SLOT_BYTES", default=1 << 20,
     parser=parse_positive_int, kind="bytes",
-    doc="Bytes per shared-memory slot; ROADMAP A7.")
+    doc="Bytes per shared-memory slot; a larger array falls back to "
+        "the pickle pipe (counted, not an error).")
 
 FLEET_AUTOSCALE_MIN = declare(
     "SKYLARK_FLEET_AUTOSCALE_MIN", default=1, parser=parse_positive_int,
     kind="int",
-    doc="Autoscaler floor; ROADMAP A7 (fleet/).")
+    doc="Default ``fleet.Autoscaler`` floor: the pool never drains "
+        "below it, and a reaped replica is replaced up to it.")
 
 FLEET_AUTOSCALE_MAX = declare(
     "SKYLARK_FLEET_AUTOSCALE_MAX", default=8, parser=parse_positive_int,
     kind="int",
-    doc="Autoscaler ceiling; ROADMAP A7 (fleet/).")
+    doc="Default ``fleet.Autoscaler`` ceiling: the pool never grows "
+        "past it.")
 
 FLEET_AUTOSCALE_INTERVAL = declare(
     "SKYLARK_FLEET_AUTOSCALE_INTERVAL", default=0.25, parser=parse_float,
     kind="float",
-    doc="Seconds between autoscaler ticks; ROADMAP A7 (fleet/).")
+    doc="Seconds between ``fleet.Autoscaler`` ticks.")
 
 FLEET_AUTOSCALE_UP_DEPTH = declare(
     "SKYLARK_FLEET_AUTOSCALE_UP_DEPTH", default=8, parser=parse_int,
     kind="int",
-    doc="Queue depth per replica that scales up; ROADMAP A7 (fleet/).")
+    doc="Mean queued and in-flight requests per replica at or above "
+        "which sustained ticks scale up (a pack boot).")
 
 FLEET_AUTOSCALE_DOWN_DEPTH = declare(
     "SKYLARK_FLEET_AUTOSCALE_DOWN_DEPTH", default=1, parser=parse_int,
     kind="int",
-    doc="Queue depth per replica that scales down; ROADMAP A7 (fleet/).")
+    doc="Mean queued and in-flight requests per replica at or below "
+        "which sustained ticks scale down (a SIGTERM drain).")
 
 FLEET_AUTOSCALE_COOLDOWN = declare(
     "SKYLARK_FLEET_AUTOSCALE_COOLDOWN", default=5.0, parser=parse_float,
     kind="float",
-    doc="Seconds between scale events; ROADMAP A7 (fleet/).")
+    doc="Seconds after a scale event before the autoscaler may act "
+        "again.")
 
 FLEET_HEDGE = declare(
     "SKYLARK_FLEET_HEDGE", default=False, parser=parse_flag, kind="flag",
     propagate=False,
-    doc="Router-level hedged requests; ROADMAP A7 (fleet/).")
+    doc="``fleet.Router`` hedged requests: a request unresolved after "
+        "the hedge delay is mirrored to the next ring-preference "
+        "replica and the first result wins.")
 
 FLEET_HEDGE_DELAY_MS = declare(
     "SKYLARK_FLEET_HEDGE_DELAY_MS", default=None, parser=parse_float,
     kind="float",
-    doc="Fixed hedge delay; ROADMAP A7 (fleet/).")
+    doc="Fixed hedge delay in milliseconds; unset, the router derives "
+        "it from the p99 of its request latencies.")
 
 FLEET_HEDGE_VERIFY = declare(
     "SKYLARK_FLEET_HEDGE_VERIFY", default=False, parser=parse_flag,
     kind="flag",
-    doc="Compare a hedge's two results bit for bit; ROADMAP A7 (fleet/).")
+    doc="Let a hedge's loser finish and compare the two results bit "
+        "for bit (``torch.equal``), counting ``fleet.hedge_mismatches`` "
+        "on a divergence.")
 
 # -- stateful serve sessions ------------------------------------------------
 
@@ -650,36 +668,37 @@ CACHE_SINGLE_FLIGHT_TIMEOUT = declare(
 
 NET_HOST = declare(
     "SKYLARK_NET_HOST", default="127.0.0.1", kind="str",
-    doc="Bind address of the TCP front door; ROADMAP A7 (net/).")
+    doc="Bind address of the TCP front door (``net.NetServer``).")
 
 NET_PORT = declare(
     "SKYLARK_NET_PORT", default=0, parser=parse_int, kind="int",
-    doc="Bind port of the TCP front door; ROADMAP A7 (net/).")
+    doc="Bind port of the TCP front door (0: an ephemeral port).")
 
 NET_MAX_CONNECTIONS = declare(
     "SKYLARK_NET_MAX_CONNECTIONS", default=256,
     parser=parse_positive_int, kind="int",
-    doc="Live-connection ceiling of the front door; ROADMAP A7 (net/).")
+    doc="Live-connection ceiling of the front door.")
 
 NET_INFLIGHT_WINDOW = declare(
     "SKYLARK_NET_INFLIGHT_WINDOW", default=32,
     parser=parse_positive_int, kind="int",
-    doc="Per-connection inflight window; ROADMAP A7 (net/).")
+    doc="Per-connection inflight window of the front door.")
 
 NET_DRAIN_TIMEOUT_S = declare(
     "SKYLARK_NET_DRAIN_TIMEOUT_S", default=10.0, parser=parse_float,
     kind="float",
-    doc="Socket-layer drain budget; ROADMAP A7 (net/).")
+    doc="Socket-layer drain budget of the front door, in seconds.")
 
 NET_RETRY_BUDGET = declare(
     "SKYLARK_NET_RETRY_BUDGET", default=3, parser=parse_int,
     kind="int",
-    doc="Client reconnect-resend attempts; ROADMAP A7 (net/).")
+    doc="Reconnect-resend attempts of ``net.NetClient``.")
 
 NET_RETRY_BACKOFF_S = declare(
     "SKYLARK_NET_RETRY_BACKOFF_S", default=0.05, parser=parse_float,
     kind="float",
-    doc="Base backoff of the client's retry loop; ROADMAP A7 (net/).")
+    doc="Base backoff of ``net.NetClient``'s retry loop, in "
+        "seconds.")
 
 # -- sketch kernels ---------------------------------------------------------
 

@@ -23,10 +23,14 @@ first:
   ``SKYLARK_DIST_MIN_COVERAGE``) the coordinator raises
   :class:`~libskylark_tpu_torch.base.errors.SketchCoverageError`.
 
-Replicas are an explicit list of objects answering ``shard(payload) ->
-Future`` and ``state()`` (in-process replicas, or stubs); with none the
-coordinator computes every shard locally on its ``device``. The replica
-pool of fleet/ comes with a later slice (ROADMAP A7).
+Replicas are a :class:`~libskylark_tpu_torch.fleet.ReplicaPool` (live
+membership) or an explicit list of objects answering ``shard(payload) ->
+Future`` and ``state()``; with none the coordinator computes every shard
+locally on its ``device``. A process replica's partial comes back as host
+arrays and is merged on the coordinator's ``device``
+(:func:`~libskylark_tpu_torch.dist.plan.partial_on`), through the same
+fixed pairwise tree, so the result is ``torch.equal`` to
+:func:`~libskylark_tpu_torch.dist.plan.sketch_local`.
 """
 
 from __future__ import annotations
@@ -101,8 +105,8 @@ class _Attempt:
 class DistSketchCoordinator:
     """Dispatch/retry/merge driver over replicas (module doc).
 
-    ``pool`` is a replica pool (live membership: reaped members leave the
-    candidate set; fleet/'s ``ReplicaPool`` comes with a later slice);
+    ``pool`` is a :class:`~libskylark_tpu_torch.fleet.ReplicaPool` (live
+    membership: reaped members leave the candidate set);
     ``replicas`` an explicit list of replica objects. With neither,
     every shard computes locally in dispatch order on ``device``
     (default: the package default) —
@@ -392,7 +396,10 @@ class DistSketchCoordinator:
                     continue            # a hedge twin already decided
                 exc = fut.exception()
                 if exc is None:
-                    settled[att.index] = fut.result()["partial"]
+                    # a process replica's partial arrives as host
+                    # arrays: merged on this coordinator's device
+                    settled[att.index] = _plan.partial_on(
+                        fut.result()["partial"], self.device)
                     # stop waiting on hedge twins of a settled shard:
                     # the loser thread finishes in the background and
                     # its (bit-identical) result is simply dropped

@@ -25,8 +25,9 @@ through B2's accumulate mode at the batch's row offset, ``jlt`` adds
 ``s_panel(lo, hi) @ X`` at the solver precision, ``srht`` adds
 ``FJLT.fold_rows``; ``ust`` collects its owned sampled rows. Partials, merges and results are tensors on
 the compute device (the package default unless ``device=`` names one);
-a partial that crosses a process needs host arrays, which come with
-fleet/'s process replicas (ROADMAP C24).
+a partial that crossed a process (a fleet process replica's shard task)
+arrives as host arrays, and :func:`partial_on` puts it on the merging
+device (ROADMAP C24, C28).
 
 The merged result of the full shard set equals :func:`sketch_local`,
 the one-shot execution of the same plan in one process, bit for bit,
@@ -43,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import warnings
 from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -375,8 +377,12 @@ class _Folder:
                            device=self.device)
 
     def _on_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device, self._dt)
+        with warnings.catch_warnings():
+            # rows that crossed a process are a read-only slot view; they
+            # are only read
+            warnings.simplefilter("ignore", UserWarning)
+            t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(self.device, self._dt)
 
     def fold(self, off: int, X, Y=None) -> None:
         from libskylark_tpu_torch.sessions.state import fold_sketch
@@ -480,6 +486,23 @@ def compute_shard(plan: ShardPlan, index: int, source: ShardSource,
             f"shard {index} expected {hi - lo} rows, source yielded "
             f"{folder.rows}")
     return folder.partial()
+
+
+def partial_on(partial: Mapping, device=None) -> dict:
+    """A shard's partial with its host arrays made tensors on ``device``
+    (default: the package default), one copy each: what a process
+    replica's shard task sends back. Tensors pass unchanged."""
+    from libskylark_tpu_torch.base.device import resolve_device
+
+    if not any(isinstance(v, np.ndarray) for v in partial.values()):
+        return dict(partial)
+    dev = resolve_device(device)
+    with warnings.catch_warnings():
+        # a received array may be read-only; it is only copied from
+        warnings.simplefilter("ignore", UserWarning)
+        return {k: (torch.from_numpy(v).to(dev, copy=True)
+                    if isinstance(v, np.ndarray) else v)
+                for k, v in partial.items()}
 
 
 def source_to_wire(source: ShardSource):
@@ -678,6 +701,7 @@ __all__ = [
     "ADDITIVE_KINDS", "ArraySource", "DegradedSketchResult",
     "DistSketchResult", "HDF5Source", "KINDS", "LibsvmSource",
     "ShardPlan", "ShardSource", "build_result", "compute_shard",
-    "execute_task", "merge_partials", "missing_ranges", "sketch_local",
+    "execute_task", "merge_partials", "missing_ranges", "partial_on",
+    "sketch_local",
     "source_from_wire", "source_to_wire",
 ]

@@ -615,7 +615,8 @@ class DistServeJob:
                     exc = fut.exception()
                     if exc is None:
                         self._close_span(att, "settled")
-                        merger.add(att.index, fut.result()["partial"])
+                        merger.add(att.index, _plan.partial_on(
+                            fut.result()["partial"], co.device))
                         for f2 in [f for f, a in inflight.items()
                                    if a.index == att.index]:
                             self._close_span(inflight.pop(f2), "dropped")

@@ -1494,18 +1494,22 @@ class MicrobatchExecutor:
         tenant, qos_class = self._admit(endpoint, kwargs.pop("tenant", None),
                                         kwargs.pop("qos_class", None))
         digest = kwargs.pop("_digest", None)
+        # a fleet router's derivation of this request (made once, for its
+        # routing), reused unless A is resident here
+        derived = kwargs.pop("_derived", None)
         host = None
         if _rcache.is_ref(kwargs.get("A")):
             d = _rcache.as_ref(kwargs["A"]).digest
             host = {"A": self._residency.host(d)}
             kwargs["A"] = self._residency.resolve(d)
-        derived = None
+            derived = None
         flight = None
         leader = Future()
         if self._cache is not None and not self._is_degraded():
             if digest is None:
-                derived = derive_request(endpoint, pad_floor=self.pad_floor,
-                                         **kwargs)
+                if derived is None:
+                    derived = derive_request(
+                        endpoint, pad_floor=self.pad_floor, **kwargs)
                 digest = request_digest(endpoint, derived, kwargs, host=host,
                                         d2h=self._cache.note_digest_d2h)
             pinned = self._residency.result(digest)

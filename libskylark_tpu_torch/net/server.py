@@ -2,10 +2,10 @@
 libskylark_tpu/net/server.py; docs/networking).
 
 ``NetServer`` adapts socket connections onto a router: anything with the
-executor's verbs, duck-typed. In the port that is a
-:class:`~libskylark_tpu_torch.engine.serve.MicrobatchExecutor` on the
-card, fronted directly (the fleet router is not ported yet). Every
-serve endpoint family plus the session / train / operand-residency
+executor's verbs, duck-typed: a :class:`~libskylark_tpu_torch.fleet.Router`
+over a replica pool on the card, or one
+:class:`~libskylark_tpu_torch.engine.serve.MicrobatchExecutor` fronted
+directly. Every serve endpoint family plus the session / train / operand-residency
 verbs crosses the wire as one :mod:`~libskylark_tpu_torch.net.wire`
 request frame and comes back as a result or structured-error frame. The server owns *no*
 scheduling policy of its own — QoS admission, affinity routing,
@@ -55,10 +55,10 @@ Where the port departs, each keeping the reference's bytes and verbs:
   peer hangs up at once is counted and forgotten like any other (the
   reference starts them first, and a quick death could leave the dead
   connection in the live set).
-- **The ``stats`` verb** answers the router's stats with the front
-  door's ``net`` block added when the router's has none (the reference's
-  router adds it itself; an executor's stats do not carry it), every
-  dict key a string (an executor's histograms are keyed by capacity).
+- **The ``stats`` verb** answers the router's stats, whose ``net`` block
+  a fleet router adds itself as the reference's does; an executor's
+  stats do not carry it, so the front door adds it there. Every dict key
+  is a string (an executor's histograms are keyed by capacity).
 """
 
 from __future__ import annotations

@@ -44,10 +44,16 @@ Sites planted in the port:
                     original flight
 ``net.write``       one frame write on a server connection, the same
                     teardown from the response side
+``fleet.route``     one route attempt of the fleet router
+                    (``fleet.router``: a request's owner or a failover
+                    candidate, a hedge's mirror, a session or train
+                    verb): a fired fault moves the request to the next
+                    replica in ring preference order
 ==================  =====================================================
 
-The reference's ``fleet.route`` site comes with the module that holds it
-(ROADMAP A7, ``fleet/``); a plan may name it already.
+A process replica's child reads the plan from its own environment
+(``SKYLARK_FAULT_PLAN``, through the pool's ``replica_env``), and a
+request's tags cross the pipe with it.
 
 A plan is a JSON document (or the equivalent dict)::
 

@@ -20,7 +20,6 @@ import pkgutil
 import pytest
 
 import libskylark_tpu
-import libskylark_tpu.fleet
 import libskylark_tpu_torch
 
 # "module:name" (a name, a Class.member or a callable's "(param)") -> the
@@ -31,11 +30,6 @@ import libskylark_tpu_torch
 EXEMPT = {}
 for _m in ("engine", "engine.serve"):
     EXEMPT[f"{_m}:MicrobatchExecutor(mesh)"] = "A6"
-# fleet/ is ported as far as its hash ring; the package's other names
-# (the pool, replicas, router, transport, autoscaler) are C12's
-for _n in libskylark_tpu.fleet.__all__:
-    if _n != "HashRing":
-        EXEMPT[f"fleet:{_n}"] = "C12"
 
 
 def _modules(pkg) -> dict:
@@ -158,7 +152,9 @@ def test_the_new_modules_are_compared():
                    "cli.skylark_linear", "cli.skylark_ml",
                    "cli.skylark_graph_se", "cli.skylark_community",
                    "cli.skylark_convert2hdf5", "net", "net.wire",
-                   "net.client", "net.server")
+                   "net.client", "net.server", "fleet", "fleet.shm",
+                   "fleet.replica", "fleet.pool", "fleet.router",
+                   "fleet.autoscale")
     for m in serve_layer:
         assert m in common, m
         assert not [k for k in EXEMPT if k.split(":")[0] == m], m

@@ -1,6 +1,6 @@
 """The port stands alone: importing ``libskylark_tpu_torch`` and every one
-of its modules, or the chip scripts, loads neither ``jax`` nor the JAX
-package ``libskylark_tpu``. Checked in a fresh interpreter, since this
+of its modules, or the chip scripts, or running a process replica's child
+entry, loads neither ``jax`` nor the JAX package ``libskylark_tpu``. Checked in a fresh interpreter, since this
 test process itself imports both."""
 
 import json
@@ -22,6 +22,27 @@ names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke, chip_profile
+# a process replica's child entry, run here over a pipe (its imports and
+# its executor's), driven by a thread that asks and then shuts it down
+import multiprocessing, threading
+from libskylark_tpu_torch.fleet import replica, shm
+parent, child = multiprocessing.Pipe()
+replies = []
+
+def drive():
+    for kind in ("stats", "env", "shutdown"):
+        parent.send_bytes(shm.pipe_dumps((kind, len(replies))))
+        while True:
+            msg = parent.recv()
+            if msg[0] == "rpc":
+                replies.append(msg[2])
+                break
+
+t = threading.Thread(target=drive)
+t.start()
+replica._worker_main(child, "iso", {{"device": "cpu"}}, None)
+t.join(60)
+assert len(replies) == 3 and "launches" in replies[1], replies
 print(json.dumps({{"modules": names, "loaded": sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "libskylark_tpu"))}}))
@@ -60,7 +81,9 @@ def test_port_and_chip_smoke_import_no_jax():
                 "engine.resultcache", "engine.cache", "engine.compiled",
                 "telemetry.export", "utility.checkpoint", "io.chunked",
                 "io.webhdfs", "io.streaming", "sessions",
-                "sessions.journal", "sessions.state", "sessions.registry"):
+                "sessions.journal", "sessions.state", "sessions.registry",
+                "fleet", "fleet.ring", "fleet.shm", "fleet.replica",
+                "fleet.pool", "fleet.router", "fleet.autoscale"):
         assert f"libskylark_tpu_torch.{mod}" in report["modules"]
 
 

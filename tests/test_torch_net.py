@@ -22,9 +22,14 @@ Oracles:
   the CPU serves ``sketch_apply`` and ``dist_sketch`` ``torch.equal`` to
   the same requests submitted in-process.
 
+- *behind a fleet router*: the reference's retry-coalescing tests (a
+  torn connection's byte-identical resend flushes once, a ``net.read``
+  fault absorbed by the client's retry) against a port ``fleet.Router``
+  over a one-replica pool with the cache on, and ``NetServer``'s docstring
+  example run as written.
+
 Every socket binds 127.0.0.1 on port 0; no sleep is longer than 50 ms and
-every wait ends within 5 s. The retry-coalescing tests of the reference
-need ``fleet.Router`` and come with the fleet slice (ROADMAP A).
+every wait ends within 5 s.
 """
 
 from __future__ import annotations
@@ -483,3 +488,110 @@ def test_requests_over_the_wire_equal_in_process(executor_server):
     assert dist["coverage"] == 1.0 and not dist["degraded"]
     # the executor's stats cross the wire with the front door's block
     assert st["net"]["requests"] >= 2 and st["completed"] >= 1
+
+
+# -- behind a fleet router: the reference's retry-coalescing tests ---------
+
+def _fleet_cache_stats(pool) -> dict:
+    blocks = [pool.get(n).executor.stats().get("cache")
+              for n in pool.names()]
+    merged = prc.merge_cache_blocks([b for b in blocks if b])
+    merged["flushes"] = sum(
+        pool.get(n).executor.stats()["flushes"] for n in pool.names())
+    return merged
+
+
+@pytest.fixture()
+def cached_fleet():
+    from libskylark_tpu_torch import fleet
+
+    pool = fleet.ReplicaPool(1, max_batch=8, linger_us=500, cache=True,
+                             device="cpu")
+    router = fleet.Router(pool, cache=True)
+    srv = net.NetServer(router)
+    yield pool, router, srv
+    srv.close()
+    router.close()
+    pool.shutdown()
+
+
+def test_reconnect_resend_flushes_exactly_once(cached_fleet):
+    """Compute once, tear the connection, send the identical request
+    again: the cache and single-flight tier answer, the engine never
+    flushes again, and the client recovers exactly once."""
+    pool, router, srv = cached_fleet
+    c = net.NetClient(srv.address, retry_backoff_s=0.01, seed=1)
+    try:
+        T = psk.CWT(128, 32, Context(seed=5))
+        A = np.random.default_rng(3).standard_normal(
+            (128, 4)).astype(np.float32)
+        first = c.submit("sketch_apply", transform=T, A=A,
+                         dimension=psk.COLUMNWISE).result(timeout=WAIT)
+        assert _until(lambda: _fleet_cache_stats(pool)["entries"] >= 1)
+        assert _fleet_cache_stats(pool)["flushes"] == 1
+        with c._lock:
+            sock = c._sock
+        sock.close()
+        again = c.submit("sketch_apply", transform=T, A=A,
+                         dimension=psk.COLUMNWISE).result(timeout=WAIT)
+        st = _fleet_cache_stats(pool)
+        assert st["flushes"] == 1 and st["hits"] >= 1
+        assert np.array_equal(first, again)
+        assert c.client_stats()["transport_retries"] == 1
+    finally:
+        c.close()
+
+
+def test_net_read_fault_absorbed_by_retry(cached_fleet):
+    """A ``net.read`` fault tears one server connection; the client's
+    reconnect-resend absorbs it, the result is the in-process one."""
+    from libskylark_tpu_torch.resilience import faults
+
+    pool, router, srv = cached_fleet
+    c = net.NetClient(srv.address, retry_budget=3, retry_backoff_s=0.01,
+                      seed=2)
+    try:
+        T = psk.CWT(128, 32, Context(seed=6))
+        A = np.random.default_rng(4).standard_normal(
+            (128, 4)).astype(np.float32)
+        plan = {"seed": 1, "faults": [
+            {"site": "net.read", "error": "IOError_", "times": 1}]}
+        with faults.fault_plan(plan):
+            out = c.submit("sketch_apply", transform=T, A=A,
+                           dimension=psk.COLUMNWISE).result(timeout=WAIT)
+            fired = faults.fired()
+        assert [f[0] for f in fired] == ["net.read"]
+        want = T.apply(A, psk.COLUMNWISE, device="cpu")
+        assert torch.equal(torch.from_numpy(out), want)
+        assert _fleet_cache_stats(pool)["flushes"] == 1
+        assert c.client_stats()["transport_retries"] >= 1
+        # the router's stats carry the front door's block themselves
+        st = router.stats()
+        assert st["net"]["requests"] >= 1
+    finally:
+        c.close()
+
+
+def test_the_servers_docstring_example_runs():
+    """``NetServer``'s example as written (a pool and a router with the
+    cache on), on the CPU by the package default."""
+    import textwrap
+
+    from libskylark_tpu_torch import fleet
+    from libskylark_tpu_torch.base import device as pdevice
+
+    block = net.NetServer.__doc__.split("::", 1)[1].split("``port=0``")[0]
+    code = "\n".join(ln for ln in textwrap.dedent(block).splitlines()
+                     if ln.strip() and ln.strip() != "...")
+    assert "fleet.Router(pool, cache=True)" in code
+    before = pdevice.default_device()
+    pdevice.set_default_device("cpu")
+    scope = {"fleet": fleet, "net": net}
+    try:
+        exec(compile(code, "<NetServer doc>", "exec"), scope)
+        assert scope["port"] > 0 and scope["host"] == "127.0.0.1"
+    finally:
+        pdevice.set_default_device(before)
+        scope["router"].close()
+        scope["pool"].shutdown()
+    assert scope["srv"]._draining

@@ -6,10 +6,9 @@ that name the card's launches take the CPU's (none).
 
 Small size: the solve bucket at 2,048 × 16 (s = 64), a storm of 24 from
 4 threads, 4 submits by reference, the dense-rw bucket at 33–64 × 256 →
-32 on 4 operands, a deadline of 0.5 ms (below the 1 ms linger, since a
-CPU flush is short), 16 requests a tenant queued behind a flush held
-0.3 s at its fault site (a CPU flush is short), and 16 under the
-controller.
+32 on 4 operands, a deadline of 0.5 ms, 16 requests a tenant queued
+behind a flush held 0.3 s at its fault site (a CPU flush is short), and
+16 under the controller.
 """
 
 import importlib.util
