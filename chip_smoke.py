@@ -462,6 +462,26 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             shared-memory name is left. Each run is counted from 0 here
             and as a difference of every live child's counters
             (:class:`FleetRuns`);
+4m. mesh  — the serve executor's ``mesh`` (engine/meshlink.py), about
+            25 s: two gloo ranks share the card (``python -c`` children,
+            ``SKYLARK_LOCK_WITNESS=1``), each builds ``make_mesh((2,))``
+            and the executor with ``mesh=``; rank 0, the front, serves
+            the serve-dense-rw cell's 16 requests (JLT 8192 → 1024
+            rowwise on 1537–2048 rows, 8 seeds) and the serve-cwt cell's
+            4 from 4 threads, and 12 KRR predicts on config 5's model
+            (16,384 training rows, replicated once), twice (other seeds
+            the second time), each torch.equal to a one-rank executor on
+            the card; every capacity even, each rank's launches of
+            B1-batched rw and ``hash_batched`` at half of each
+            capacity's lanes, a follower's submit refused, the drain
+            ending both ranks; the witness's violations ``[]`` and every
+            witnessed site one the port's static lock graph knows
+            (``serve.mesh`` among them); meanwhile the port's lint gate
+            (``python -m libskylark_tpu_torch.analysis``) exits 0 here.
+            Its line: per-flush walls of both executors and the bytes a
+            mesh flush moved between ranks, by bucket (warm, the second
+            run), each rank's peak card memory and launches, the gate's
+            seconds;
 5. time   — CUDA-event medians of each kernel, its plain version and one
             PyTorch call computing the same function, beside the card's
             bound, at the main-path shapes (B1 in its default regime, with
@@ -10078,6 +10098,303 @@ KERNELS = {
 }
 
 
+# phase 4m: the serve executor's mesh
+# ---------------------------------------------------------------------------
+# the serve-dense-rw and serve-cwt cells' requests, and 12 KRR predicts on
+# config 5's model (the serve_solve phase's krr bucket: its first 16,384
+# training rows, queries of 129-256 test rows)
+MESH_FULL = {"rw_requests": 16, "rw_n": 8192, "rw_s": 1024,
+             "rw_rows": (1537, 2049), "rw_seeds": 8, "cwt_requests": 4,
+             "cwt_n": 8192, "cwt_s": 1024, "cwt_rows": (257, 513),
+             "krr_requests": 12, "krr_rows": (129, 257),
+             "krr_train": 16384, "ml": ML_FULL, "max_batch": 8,
+             "threads": 4}
+# the kernels each rank must launch in its blocks
+MESH_KERNELS = ("dense_batched_rowwise", "hash_batched")
+
+
+def mesh_requests(torch, P, np, size, device, seed_offset: int = 0,
+                  model=None):
+    """({bucket: [(call, kwargs)]}, model): the dense-rw and cwt cells'
+    requests (operands on ``device``) and the KRR predicts (the model and
+    queries on the host, as a server holds them; ``model`` reuses one
+    made before). ``seed_offset`` moves every transform's seed and the
+    queries, and keeps the operands."""
+    from libskylark_tpu_torch import ml, sketch as sk
+
+    g = np.random.default_rng(1300)
+    reqs = {"dense-rw": [], "cwt": [], "krr": []}
+    for i in range(size["rw_requests"]):
+        rows = int(g.integers(*size["rw_rows"]))
+        reqs["dense-rw"].append(("submit_sketch", {
+            "transform": sk.JLT(size["rw_n"], size["rw_s"], P.Context(
+                1300 + i % size["rw_seeds"] + seed_offset)),
+            "A": make_operand(torch, (rows, size["rw_n"]), 13000 + i,
+                              device),
+            "dimension": sk.ROWWISE}))
+    for i in range(size["cwt_requests"]):
+        rows = int(g.integers(*size["cwt_rows"]))
+        reqs["cwt"].append(("submit_sketch", {
+            "transform": sk.CWT(size["cwt_n"], size["cwt_s"],
+                                P.Context(1320 + i + seed_offset)),
+            "A": make_operand(torch, (rows, size["cwt_n"]), 13200 + i,
+                              device),
+            "dimension": sk.ROWWISE}))
+    kern = ml_kernel(ml, size["ml"])
+    if model is None:
+        X, y, Xq, _ = ml_data(torch, size["ml"], device)
+        X, y = X[:size["krr_train"]], y[:size["krr_train"]]
+        coef, _ = ml.kernel_rlsc(kern, X, y, ML_LAM, device=device)
+        model = (X.cpu().numpy(), coef.cpu().numpy(), Xq.cpu().numpy())
+        del X, y, coef
+    Xq = model[2]
+    at = 0
+    for i in range(size["krr_requests"]):
+        rows = int(g.integers(*size["krr_rows"]))
+        q = Xq[(at + seed_offset) % (Xq.shape[0] - rows):][:rows]
+        at += rows
+        reqs["krr"].append(("submit_krr_predict", {
+            "kernel": kern, "X_new": q, "X_train": model[0],
+            "coef": model[1]}))
+    return reqs, model
+
+
+def mesh_storm(torch, ex, reqs, threads: int, device) -> tuple:
+    """Submit ``reqs`` from ``threads`` threads, flush what is left from
+    this thread, and wait: (results, wall seconds, flushes it took)."""
+    import threading
+
+    futs = [None] * len(reqs)
+    f0 = ex.stats()["flushes"]
+
+    def worker(t):
+        for i in range(t, len(reqs), threads):
+            call, kw = reqs[i]
+            futs[i] = getattr(ex, call)(**kw)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    ex.flush()
+    out = [f.result(timeout=300) for f in futs]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, ex.stats()["flushes"] - f0
+
+
+def mesh_child(args: dict) -> int:
+    """One rank of phase 4m (``python -c`` importing chip_smoke, so the
+    CPU rehearsal spawns it too): rank 0 serves every request on a
+    one-rank executor and then through the mesh executor, twice (the
+    second time on other seeds, timed warm); the other rank follows.
+    Prints one ``MESH_CHILD {json}`` line."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import libskylark_tpu_torch as P
+    from libskylark_tpu_torch import engine, parallel as par
+    from libskylark_tpu_torch.base import errors, locks
+    from libskylark_tpu_torch.parallel import multihost
+
+    rank, world, port = args["rank"], args["world"], args["port"]
+    size, device = args["size"], args["device"]
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        P.set_default_device("cpu")
+    multihost.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                     connect_timeout=120.0, backend="gloo")
+    mesh = par.make_mesh((world,), device=device)
+    report = {"rank": rank, "witness_on": locks.witness_enabled()}
+    kw = {"max_batch": size["max_batch"], "linger_us": 10_000_000,
+          "device": device}
+    if rank == 0:
+        first, model = mesh_requests(torch, P, np, size, device)
+        runs = [first, mesh_requests(torch, P, np, size, device, 100,
+                                     model)[0]]
+        one = engine.MicrobatchExecutor(**kw, name="one-rank")
+        want, one_walls = [], {}
+        for r, reqs in enumerate(runs):
+            for bucket, rq in reqs.items():
+                out, wall, n = mesh_storm(torch, one, rq, size["threads"],
+                                          device)
+                want.append(out)
+                if r:
+                    one_walls[bucket] = 1e3 * wall / max(n, 1)
+        one.shutdown()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ex = engine.MicrobatchExecutor(**kw, mesh=mesh, name="mesh")
+    for c in counters():
+        for k in c:
+            c[k] = 0
+    t1 = time.perf_counter()
+    if rank == 0:
+        got, walls = [], {}
+        for r, reqs in enumerate(runs):
+            for bucket, rq in reqs.items():
+                moved = dict(ex.stats()["mesh"]["bytes"])
+                out, wall, n = mesh_storm(torch, ex, rq, size["threads"],
+                                          device)
+                got.append(out)
+                if r:
+                    after = ex.stats()["mesh"]["bytes"]
+                    walls[bucket] = {
+                        "mesh_ms_per_flush": 1e3 * wall / max(n, 1),
+                        "flushes": n,
+                        "one_rank_ms_per_flush": one_walls[bucket],
+                        "bytes_per_flush": {
+                            k: (v - moved.get(k, 0)) / max(n, 1)
+                            for k, v in after.items()}}
+        report["equal"] = [all(torch.equal(a, b) for a, b in zip(g, w))
+                           for g, w in zip(got, want)]
+        report["walls"] = walls
+        st = ex.stats()
+        report["drained"] = ex.drain(timeout=120)
+    else:
+        try:
+            ex.submit_sketch(None, None)
+            report["follower_submit"] = ""
+        except errors.MeshError as e:
+            report["follower_submit"] = str(e)
+        ex.shutdown()
+        report["follower_alive"] = ex._follower.is_alive()
+        st = ex.stats()
+    report["launches"] = launch_counts()
+    report["seconds"] = {"setup": t1 - t0,
+                         "mesh": time.perf_counter() - t1}
+    report["capacities"] = sorted(st["batch_capacity_hist"])
+    report["mesh"] = st["mesh"]
+    report["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                          if device == "cuda" else None)
+    report["witness"] = locks.witness_report()
+    report["imports_jax"] = ("jax" in sys.modules
+                             or "libskylark_tpu" in sys.modules)
+    print("MESH_CHILD " + json.dumps(report), flush=True)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(torch, P, np, size=MESH_FULL, device="cuda") -> dict:
+    """Phase 4m: two gloo ranks of the serve executor's mesh on the card
+    (:func:`mesh_child`), and beside them the port's lint gate and its
+    static lock graph, each ``python -m libskylark_tpu_torch.analysis``
+    in a process of its own. Holds what the ranks report: every mesh
+    result torch.equal to the one-rank executor's, every capacity a
+    multiple of 2, each rank's blocks of capacity / 2 lanes launching
+    B1-batched rw and ``hash_batched``, the follower's submit refused,
+    both ranks ended by the drain, the witness clean and within the
+    static graph's sites."""
+    import os
+    import threading
+
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit") if device == "cuda" else "cpu"
+    release_cache(torch)
+    world, port = 2, free_port()
+    env = dict(os.environ, SKYLARK_LOCK_WITNESS="1")
+    t_lint = time.perf_counter()
+    lint = [subprocess.Popen(
+        [sys.executable, "-m", "libskylark_tpu_torch.analysis", *flags],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for flags in ([], ["--graph"])]
+    # the gate's own seconds, read when it exits
+    lint_s = []
+    waiter = threading.Thread(target=lambda: (
+        lint[0].wait(), lint_s.append(time.perf_counter() - t_lint)))
+    waiter.start()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " import chip_smoke; sys.exit(chip_smoke.mesh_child("
+         "__import__('json').loads(sys.argv[2])))", str(ROOT),
+         json.dumps({"rank": r, "world": world, "port": port,
+                     "size": size, "device": device})],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for r in range(world)]
+    logs, lint_out = [], []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+        for p in lint:
+            lint_out.append(p.communicate(timeout=600)[0])
+        waiter.join()
+    finally:
+        for p in procs + lint:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          "mesh child failed:\n" + "\n".join(x[-3000:] for x in logs))
+    reports = [json.loads(next(ln for ln in x.splitlines()
+                               if ln.startswith("MESH_CHILD "))[11:])
+               for x in logs]
+    check(lint[0].returncode == 0,
+          f"the port's lint gate failed here:\n{lint_out[0][-3000:]}")
+    graph = json.loads(lint_out[1][lint_out[1].index("{"):])
+    r0, r1 = reports
+    check(all(r0["equal"]), f"mesh results vs one rank: {r0['equal']}")
+    check(r0["capacities"] and all(c % world == 0
+                                   for c in r0["capacities"]),
+          f"mesh capacities {r0['capacities']}")
+    halves = sorted({c // world for c in r0["capacities"]})
+    for r in reports:
+        lanes = sorted(int(k) for k in r["mesh"]["lanes_hist"])
+        check(lanes == halves,
+              f"rank {r['rank']} ran blocks of {lanes} lanes, not {halves}")
+        check(r["mesh"]["flushes"] == r0["mesh"]["flushes"]
+              and r["mesh"]["failed_flushes"] == 0,
+              f"rank {r['rank']} mesh stats {r['mesh']}")
+        # (on the CPU the wrappers take their plain versions)
+        for k in MESH_KERNELS if device == "cuda" else ():
+            check(r["launches"].get(k, 0) > 0,
+                  f"rank {r['rank']} never launched {k}: {r['launches']}")
+        check(r["witness_on"] and r["witness"]["acquisitions"] > 0
+              and r["witness"]["violations"] == [],
+              f"rank {r['rank']} witness {r['witness']}")
+        known = set(graph["sites"]) | set(graph["named"])
+        witnessed = set(r["witness"]["edges"]) | {
+            b for bs in r["witness"]["edges"].values() for b in bs}
+        check(witnessed <= known,
+              f"rank {r['rank']} witnessed sites the static graph does not "
+              f"know: {sorted(witnessed - known)}")
+        check(not r["imports_jax"], "a mesh child imported jax")
+    check("serve.mesh" in r0["witness"]["edges"]
+          and "serve.mesh" in graph["sites"],
+          f"serve.mesh: witnessed {r0['witness']['edges']}, static "
+          f"{graph['sites']}")
+    check("mesh follower" in r1["follower_submit"]
+          and not r1["follower_alive"] and r0["drained"],
+          f"follower {r1['follower_submit']!r}, alive "
+          f"{r1['follower_alive']}, drained {r0['drained']}")
+    launches = {k: r0["launches"].get(k, 0) + r1["launches"].get(k, 0)
+                for k in set(r0["launches"]) | set(r1["launches"])}
+    out = {"card": card, "seconds": time.perf_counter() - t_phase,
+           "ranks": world, "walls_warm": r0["walls"],
+           "bytes": r0["mesh"]["bytes"],
+           "mesh_flushes": r0["mesh"]["flushes"],
+           "capacities": r0["capacities"],
+           "lanes_per_rank": halves,
+           "peak_gib": [r["peak_gib"] for r in reports],
+           "peak_gib_sum": (sum(r["peak_gib"] for r in reports)
+                            if device == "cuda" else None),
+           "launches_by_rank": [{k: v for k, v in r["launches"].items()
+                                 if v} for r in reports],
+           "witness_edges": [r["witness"]["edges"] for r in reports],
+           "child_seconds": [r["seconds"] for r in reports],
+           "lint": lint_out[0].strip().splitlines()[-1],
+           "lint_seconds": lint_s[0]}
+    emit("mesh", **out)
+    return {"launches": launches, **out}
+
+
 def main() -> int:
     import torch
 
@@ -10206,6 +10523,8 @@ def main() -> int:
     release_cache(torch)
     fphase = fleet_phase(torch, P, np)
     release_cache(torch)
+    mphase = mesh_phase(torch, P, np)
+    release_cache(torch)
     tune_phase(torch, P, np)
     release_cache(torch)
 
@@ -10238,7 +10557,8 @@ def main() -> int:
                          + sess["launches"][name]
                          + tdist["launches"][name]
                          + clinet["launches"][name]
-                         + fphase["launches"].get(name, 0)),
+                         + fphase["launches"].get(name, 0)
+                         + mphase["launches"].get(name, 0)),
             "replay_launches": launch.replayed[name],
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "shape": head["shape"], "s_dim": head["s_dim"],

@@ -28,13 +28,13 @@ rejection sampler, run as one masked loop over all elements.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Any
 
 import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors
+from libskylark_tpu_torch.base import locks as _locks
 from libskylark_tpu_torch.base import threefry as tf
 from libskylark_tpu_torch.base.context import fold_in, key_words
 from libskylark_tpu_torch.base.device import resolve_device
@@ -48,7 +48,7 @@ _MASK31 = (1 << 31) - 1
 # every plain dense route): the kernels' routes never make one, which the
 # serve layer's flushes are held to
 panels = {"dense_panel": 0}
-_panel_lock = threading.Lock()
+_panel_lock = _locks.make_lock("randgen.panels")
 
 
 def upload(t: torch.Tensor, device) -> torch.Tensor:

@@ -102,6 +102,14 @@ _COMPILE_HIST = _telemetry.histogram(
     "engine.compile_seconds",
     "Wall time of cold materializations (warm-up and CUDA-graph capture) "
     "through the executable cache")
+_LOAD_HIST = _telemetry.histogram(
+    "engine.load_seconds",
+    "Wall time of a boot's captures of capture-record keys (warm-up and "
+    "capture inside engine.compiled.loading) through the executable cache")
+_PERSIST_FAIL = _telemetry.counter(
+    "engine.persistent_cache_failures",
+    "enable_persistent_cache attempts that wired nothing (a CUDA graph "
+    "cannot be serialized)")
 
 
 def _lifetime_rollup() -> EngineStats:
@@ -166,12 +174,14 @@ def enable_persistent_cache(path: Optional[str] = None) -> bool:
     (or ``SKYLARK_EXEC_CACHE_DIR``). The port has nothing to wire: a CUDA
     graph cannot be serialized. Its cross-process artifact is the capture
     record of ``SKYLARK_AOT_DIR`` (:mod:`.aot`), which a warmup pack
-    captures from before traffic (:mod:`.warmup`). Returns False, warning
-    once when a path was asked for; never raises."""
+    captures from before traffic (:mod:`.warmup`). Returns False; when a
+    path was asked for, counts ``engine.persistent_cache_failures`` and
+    warns once. Never raises."""
     global _persist_warned
     path = path or _env.EXEC_CACHE_DIR.raw()
     if not path or path.strip().lower() in _env.OFF_WORDS:
         return False
+    _PERSIST_FAIL.inc_always(reason="unsupported")
     if not _persist_warned:
         _persist_warned = True
         warnings.warn(
@@ -184,7 +194,7 @@ def enable_persistent_cache(path: Optional[str] = None) -> bool:
 
 
 _LOAD_KEYS: set = set()
-_load_lock = threading.Lock()
+_load_lock = _locks.make_lock("engine.load_keys")
 
 
 @contextlib.contextmanager
@@ -547,6 +557,7 @@ class CompiledFn:
                     f"got {device}")
         dt = time.perf_counter() - t0
         if load:
+            _LOAD_HIST.observe_always(dt, name=self.name)
             with self._stats_lock:
                 self.stats.aot_loads += 1
                 self.stats.load_seconds += dt

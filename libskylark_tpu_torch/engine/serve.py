@@ -205,7 +205,23 @@ flight; a degraded result is never cached), then drive a
 own, its shards on explicit ``replicas=`` or, with none, on the
 executor's device.
 
-Not ported yet (later slices): the executor's ``mesh`` (ROADMAP A6).
+**Mesh** (:mod:`libskylark_tpu_torch.engine.meshlink`):
+``mesh=`` (a ``DeviceMesh`` from :func:`libskylark_tpu_torch.parallel.
+make_mesh`) shards every flush's batch dimension over the mesh's first
+dimension, as the reference's ``mesh`` does: capacity classes round up to
+its size, so each rank gets equal lanes, and KRR/RLSC models are
+replicated. The port's mesh is SPMD: every rank of the mesh builds the
+executor with the same arguments; the rank at coordinate 0 is the front
+(submits, cohorts, futures) and every other rank a follower, whose submit
+verbs raise :class:`~libskylark_tpu_torch.base.errors.MeshError` naming
+the front and whose thread runs its block of each of the front's flushes
+through its own kernels and captured bodies. A lane's bits do not depend
+on its cohort, so each request's result is ``torch.equal`` to the same
+request on a one-rank executor. A follower's failure fails the front's
+attempt like any flush error (bisection, health, fault site); nothing
+re-runs a block elsewhere. The front's ``shutdown``/``drain`` stops the
+followers; a follower's ``shutdown`` returns once that stop arrived. The
+dist, session and train verbs are not sharded, as in the reference.
 """
 
 from __future__ import annotations
@@ -1288,6 +1304,14 @@ class MicrobatchExecutor:
         SA = fut.result()
         ex.shutdown()
 
+    ``mesh`` (optional, a ``DeviceMesh`` from
+    :func:`libskylark_tpu_torch.parallel.make_mesh`) shards every flush's
+    batch dimension across the mesh's first dimension — capacity classes
+    round up to its size so each rank gets equal lanes; model operands
+    (KRR's training set and coefficients) are replicated. Every rank of
+    the mesh constructs the executor with the same arguments: the rank at
+    coordinate 0 serves, the others follow (module docstring, **Mesh**).
+
     ``device`` is where flushes run and results live (the package default,
     "cuda", unless given); ``kernel`` is None (each qualified bucket's
     kernel on a CUDA executor), ``"cuda"`` (the same, refused on a CPU
@@ -1307,7 +1331,7 @@ class MicrobatchExecutor:
 
     def __init__(self, max_batch: int = 8, linger_us: int = 2000,
                  max_queue: int = 1024, workers: int = 1,
-                 pad_floor: int = bucketing.PAD_FLOOR,
+                 mesh=None, pad_floor: int = bucketing.PAD_FLOOR,
                  degraded_threshold: float = 0.5,
                  failure_window: int = 32,
                  shed_fraction: float = 0.25,
@@ -1341,6 +1365,23 @@ class MicrobatchExecutor:
         self.kernel = kernel
         self.degraded_threshold = float(degraded_threshold)
         self.shed_fraction = float(shed_fraction)
+        # the mesh: this rank's link on the batch dimension (the mesh's
+        # first), the number of ranks a flush's lanes split over
+        self._mesh = mesh
+        self._batch_axis = None
+        self._ndev = 1
+        self._link = None
+        if mesh is not None:
+            from libskylark_tpu_torch.engine.meshlink import MeshLink
+
+            self._batch_axis = mesh.mesh_dim_names[0]
+            self._link = MeshLink(mesh, self.device)
+            self._ndev = self._link.ndev
+        self._mesh_lock = _locks.make_lock("serve.mesh")
+        self._mesh_stopped = False
+        self._mesh_models: dict = {}
+        self._mesh_error: Optional[BaseException] = None
+        self._mesh_counts = collections.Counter()
 
         self._lock = _locks.make_lock("serve.state")
         self._work_cv = threading.Condition(self._lock)
@@ -1434,6 +1475,12 @@ class MicrobatchExecutor:
                                          name="skylark-serve-flusher",
                                          daemon=True)
         self._flusher.start()
+        self._follower = None
+        if self._link is not None and not self._link.is_front:
+            self._follower = threading.Thread(
+                target=self._follow_loop, name="skylark-serve-mesh-follower",
+                daemon=True)
+            self._follower.start()
         self._controller = None
         if adaptive:
             from libskylark_tpu_torch.qos.controller import \
@@ -1459,6 +1506,7 @@ class MicrobatchExecutor:
         (:class:`~libskylark_tpu_torch.base.errors.TenantQuotaError` when
         empty); a request with ``qos_class=`` was admitted by a front
         door already and is not charged again."""
+        self._refuse_follower()
         if qos_class is None:
             try:
                 tenant, qos_class = self._tenants.admit(tenant)
@@ -1603,6 +1651,7 @@ class MicrobatchExecutor:
         from the pin with no launch. Pins live until
         :meth:`unregister_operand`; registering the same bytes again is a
         no-op. A CUDA ``A`` is copied to the host once to be digested."""
+        self._refuse_follower()
         host = _rcache.host_bytes(
             A, self._cache.note_digest_d2h if self._cache is not None
             else None)
@@ -1950,8 +1999,14 @@ class MicrobatchExecutor:
         with self._stats_lock:
             m = self._models.get(key)
         if m is None:
-            Xt = torch.as_tensor(_as_operand(X_train)).to(self.device)
-            C = torch.as_tensor(_as_operand(coef)).to(self.device)
+            # row-major copies made by torch's allocator: the layout a
+            # mesh rank's broadcast copy has (a column-major coef, as
+            # kernel_rlsc returns, would take another BLAS path and
+            # round another way)
+            Xt, C = (torch.as_tensor(_as_operand(t)).to(
+                self.device, copy=True,
+                memory_format=torch.contiguous_format)
+                for t in (X_train, coef))
             if C.ndim == 1:
                 C = C[:, None]
             with self._stats_lock:
@@ -2515,7 +2570,17 @@ class MicrobatchExecutor:
             fn = self._compiled[key] = _build_flush_fn(statics, ctx, route)
         return fn, None
 
+    def _refuse_follower(self) -> None:
+        """A mesh follower takes no submits: its front does."""
+        link = self._link
+        if link is not None and not link.is_front:
+            raise errors.MeshError(
+                f"executor {self.name!r} is a mesh follower (coordinate "
+                f"{link.index} of ranks {link.ranks}): submit to the front, "
+                f"rank {link.front}")
+
     def _refuse_if_unavailable_locked(self) -> None:
+        self._refuse_follower()
         if self._draining and not self._stop:
             with self._stats_lock:
                 self._counts["shed"] += 1
@@ -2909,7 +2974,8 @@ class MicrobatchExecutor:
 
     def _execute(self, b: _Bucket, cohort: list) -> None:
         k = len(cohort)
-        capacity = bucketing.capacity_class(k, self.max_batch)
+        capacity = bucketing.capacity_class(k, self.max_batch,
+                                            multiple=self._ndev)
         ctx = b.ctx
         endpoint = ctx["endpoint"]
         # the fault site fires per attempt, with the cohort's tags, before
@@ -2922,9 +2988,13 @@ class MicrobatchExecutor:
                                                          capacity)
             flush_fn, eager = self._flush_fn_locked(b.statics, ctx, route)
         kd, scale, arrays, h2d = self._stack_cohort(ctx, cohort, capacity)
-        out = run_flush(ctx if flush_fn is None
-                        else dict(ctx, flush_fn=flush_fn),
-                        route, kd, scale, arrays)
+        run_ctx = ctx if flush_fn is None else dict(ctx, flush_fn=flush_fn)
+        if self._link is None:
+            out = run_flush(run_ctx, route, kd, scale, arrays)
+        else:
+            out = self._mesh_flush(b.statics, run_ctx, route, kd, scale,
+                                   arrays, capacity, frozenset().union(
+                                       *(r.tags for r in cohort)))
         values = []
         for i, r in enumerate(cohort):
             try:
@@ -3001,6 +3071,156 @@ class MicrobatchExecutor:
                 qo["lat"].append(lat)
         for r in cohort:
             _QOS_LATENCY.observe(now - r.t_submit, **{"class": r.qos_class})
+
+    # ------------------------------------------------------------------
+    # the mesh: the front's flushes and the followers' blocks
+    # ------------------------------------------------------------------
+
+    def _mesh_flush(self, statics, ctx: dict, route: str, kd, scale,
+                    arrays: dict, capacity: int, tags: frozenset):
+        """The front's flush over the mesh (:mod:`.meshlink`): the header,
+        the model (once), each stacked operand's blocks, block 0 here,
+        every rank's status, then the result blocks. Raises the front's
+        own error, or a follower's as :class:`~libskylark_tpu_torch.base.
+        errors.MeshError`; no block is re-run anywhere."""
+        link = self._link
+        per = capacity // link.ndev
+        stack = sorted(ctx["stack"])
+        host = sorted(ctx.get("host", {}))
+        model = ctx.get("model")
+        with self._mesh_lock:
+            if self._mesh_stopped:
+                raise errors.MeshError(
+                    f"executor {self.name!r}: the mesh was stopped")
+            mkey = send = None
+            if model is not None:
+                mkey = (id(model[0]), id(model[1]))
+                send = mkey not in self._mesh_models
+            link.send_header({
+                "op": "flush", "statics": tuple(statics), "route": route,
+                "ctx": {k: v for k, v in ctx.items()
+                        if k not in ("model", "flush_fn")},
+                "per": per, "kd": kd, "scale": scale, "tags": tags,
+                "host": {n: arrays[n] for n in host},
+                "stack": {n: (tuple(arrays[n].shape[1:]), arrays[n].dtype)
+                          for n in stack},
+                "model": None if mkey is None else (
+                    mkey, send, [(tuple(t.shape), t.dtype) for t in model])})
+            if send:
+                for t in model:
+                    link.broadcast(t)
+                self._mesh_models[mkey] = model
+            local = {n: link.scatter(arrays[n], per) for n in stack}
+            local.update({n: arrays[n][:per] for n in host})
+            err = status = out = None
+            try:
+                out = run_flush(ctx, route, kd[:per], scale[:per], local)
+            except Exception as e:  # noqa: BLE001 — every rank learns it
+                err, status = e, f"{type(e).__name__}: {e}"
+            statuses = link.statuses(status)
+            failed = [(link.ranks[i], st) for i, st in enumerate(statuses)
+                      if st is not None]
+            if not failed:
+                out = link.gather(out)
+        with self._stats_lock:
+            self._mesh_counts["flushes"] += 1
+            self._mesh_counts[f"lanes:{per}"] += 1
+            if failed:
+                self._mesh_counts["failed_flushes"] += 1
+        if err is not None:
+            raise err
+        if failed:
+            rank, st = failed[0]
+            raise errors.MeshError(
+                f"mesh rank {rank} failed its block ({per} of {capacity} "
+                f"lanes) of {statics[0]}: {st}")
+        return out
+
+    def _follow_loop(self) -> None:
+        """A follower's thread: run its block of every flush the front
+        broadcasts, until the front's stop (or a broken group)."""
+        with self._device_scope():
+            while True:
+                try:
+                    header = self._link.recv_header()
+                except Exception as e:  # noqa: BLE001 — the group broke
+                    self._mesh_error = e
+                    return
+                if header["op"] == "stop":
+                    return
+                try:
+                    self._follow_flush(header)
+                except Exception as e:  # noqa: BLE001 — the group broke
+                    self._mesh_error = e
+                    return
+
+    def _follow_flush(self, h: dict) -> None:
+        """One block of the front's flush ``h`` on this follower, through
+        its own captured body (:meth:`_flush_fn_locked`) or program."""
+        link, per = self._link, h["per"]
+        lo, hi = link.index * per, (link.index + 1) * per
+        ctx = dict(h["ctx"])
+        if h["model"] is not None:
+            mkey, send, shapes = h["model"]
+            if send:
+                self._mesh_models[mkey] = tuple(
+                    link.broadcast(None, sh, dt) for sh, dt in shapes)
+            ctx["model"] = self._mesh_models[mkey]
+        local = {n: link.scatter(None, per, sh, dt)
+                 for n, (sh, dt) in sorted(h["stack"].items())}
+        local.update({n: a[lo:hi] for n, a in h["host"].items()})
+        status = out = None
+        try:
+            faults.check("serve.mesh_block", tags=h["tags"],
+                         detail=f"{h['statics'][0]} rank={link.index} "
+                                f"lanes={per}")
+            with self._lock:
+                flush_fn, _ = self._flush_fn_locked(h["statics"], ctx,
+                                                    h["route"])
+            out = run_flush(ctx if flush_fn is None
+                            else dict(ctx, flush_fn=flush_fn), h["route"],
+                            h["kd"][lo:hi], h["scale"][lo:hi], local)
+        except Exception as e:  # noqa: BLE001 — reported to the front
+            status = f"{type(e).__name__}: {e}"
+        statuses = link.statuses(status)
+        ok = all(st is None for st in statuses)
+        if ok:
+            link.gather(out)
+        with self._stats_lock:
+            self._mesh_counts["flushes"] += 1
+            self._mesh_counts[f"lanes:{per}"] += 1
+            if not ok:
+                self._mesh_counts["failed_flushes"] += 1
+
+    def _mesh_close(self) -> None:
+        """The front's stop to its followers, sent once; a later mesh
+        flush raises."""
+        with self._mesh_lock:
+            if self._mesh_stopped:
+                return
+            self._mesh_stopped = True
+            self._link.send_header({"op": "stop"})
+
+    def _mesh_stats_block(self) -> Optional[dict]:
+        link = self._link
+        if link is None:
+            return None
+        with self._stats_lock:
+            c = dict(self._mesh_counts)
+        return {
+            "ndev": link.ndev, "ranks": list(link.ranks),
+            "coordinate": link.index,
+            "role": "front" if link.is_front else "follower",
+            "batch_axis": self._batch_axis,
+            "flushes": c.get("flushes", 0),
+            "failed_flushes": c.get("failed_flushes", 0),
+            "lanes_hist": {int(k[6:]): v for k, v in sorted(c.items())
+                           if k.startswith("lanes:")},
+            "bytes": dict(link.bytes),
+            "models": len(self._mesh_models),
+            "error": (None if self._mesh_error is None
+                      else repr(self._mesh_error)),
+        }
 
     # ------------------------------------------------------------------
     # state, stats, drain and shutdown
@@ -3226,6 +3446,9 @@ class MicrobatchExecutor:
                            shed=c.get("train_shed", 0))
                       if self._train_mgr is not None else None),
             "cache": self._cache_stats_block(),
+            # None without a mesh: this rank's role, its lanes per flush
+            # and the bytes its link moved
+            "mesh": self._mesh_stats_block(),
         }
 
     def drain(self, timeout: Optional[float] = 30.0) -> bool:
@@ -3279,6 +3502,12 @@ class MicrobatchExecutor:
             self._flusher.join()
             for t in self._workers:
                 t.join()
+        # the mesh: the front stops its followers once its flushes are
+        # done; a follower returns once that stop has arrived
+        if self._link is not None and self._link.is_front:
+            self._mesh_close()
+        elif self._follower is not None and wait:
+            self._follower.join()
         # live training jobs are released, not failed: their sessions stay
         # on disk (a drain checkpointed them) and each unresolved job
         # future breaks with CommunicationError, for a peer to resume

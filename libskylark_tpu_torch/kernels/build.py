@@ -16,8 +16,8 @@ version.
 Processes that share a checkout build each library once: a build holds
 the library's file lock (``lib<name>.lock`` beside it, an
 ``engine.aot.FileLock``), and a process that waited on it finds the
-library fresh and loads it. The threads of one process share a
-``threading.Lock``.
+library fresh and loads it. The threads of one process share the
+named lock ``kernels.build`` (``base.locks.make_lock``).
 """
 
 from __future__ import annotations
@@ -26,11 +26,11 @@ import ctypes
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
 
 from libskylark_tpu_torch.base import errors
+from libskylark_tpu_torch.base import locks as _locks
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -39,7 +39,7 @@ HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = _locks.make_lock("kernels.build")
 _libs: dict[str, ctypes.CDLL] = {}
 _host_libs: dict[str, ctypes.CDLL | None] = {}
 

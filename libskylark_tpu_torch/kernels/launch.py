@@ -22,6 +22,7 @@ import threading
 import torch
 
 from libskylark_tpu_torch.base import errors
+from libskylark_tpu_torch.base import locks as _locks
 
 
 def refuse_dtensor(*tensors) -> None:
@@ -58,7 +59,7 @@ def call(fn, device, *args) -> None:
             f"{fn.__name__} launch failed: CUDA error {rc}")
 
 
-_count_lock = threading.Lock()
+_count_lock = _locks.make_lock("kernels.counts")
 _tls = threading.local()
 # launches made inside graph replays, by counter name (add_counts)
 replayed: collections.Counter = collections.Counter()

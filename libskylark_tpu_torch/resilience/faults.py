@@ -9,47 +9,51 @@ packages.
 
 Sites planted in the port:
 
-==================  =====================================================
-``serve.flush``     the microbatch flush, once per cohort execution
-                    attempt before anything is stacked or launched
-                    (``engine.serve``; bisection retries enter the site
-                    again)
-``qos.admit``       the QoS admission point, once per submit after the
-                    tenant is resolved (``engine.serve``): a fired fault
-                    refuses one admission without touching the queue
-``engine.compile``  a cold key's materialization (``engine.compiled``),
-                    before the warm-up and the capture: a fired fault
-                    aborts the single-flight and releases its waiters
-``checkpoint.save`` every checkpoint write (``utility.checkpoint``)
-``session.append``  a session append, before its journal write
-                    (``sessions.registry``)
-``io.chunked.*``    a libsvm batch (``batch``) and an HDF5 slice read
-                    (``read``, retried) of ``io.chunked``
-``io.webhdfs.*``    a WebHDFS connection attempt (``open``) and chunk
-                    read (``read``, reconnect-resume)
-``train.slice``     a training slice, before its journal write
-                    (``train.jobs``)
-``dist.shard``      a shard task's entry (``dist.plan.compute_shard``)
-``dist.ingest``     each batch a shard ingests (resumed at the consumed
-                    offset)
-``dist.merge``      a merge's entry (``dist.plan.merge_partials``, the
-                    incremental merger's result)
-``net.accept``      the TCP front door's accept path, once per accepted
-                    connection (``net.server``): a fired fault closes the
-                    fresh socket before any frame is read; the client's
-                    reconnect budget absorbs it
-``net.read``        one frame read on a server connection: a fired fault
-                    tears the connection down; inflight futures detach
-                    and the client's byte-identical re-send joins the
-                    original flight
-``net.write``       one frame write on a server connection, the same
-                    teardown from the response side
-``fleet.route``     one route attempt of the fleet router
-                    (``fleet.router``: a request's owner or a failover
-                    candidate, a hedge's mirror, a session or train
-                    verb): a fired fault moves the request to the next
-                    replica in ring preference order
-==================  =====================================================
+====================  =====================================================
+``serve.flush``       the microbatch flush, once per cohort execution
+                      attempt before anything is stacked or launched
+                      (``engine.serve``; bisection retries enter the site
+                      again)
+``serve.mesh_block``  a mesh follower's block of the front's flush, once
+                      per block before it runs (``engine.serve``; the
+                      front's cohort tags ride the block): a fired fault
+                      fails the front's attempt as a MeshError
+``qos.admit``         the QoS admission point, once per submit after the
+                      tenant is resolved (``engine.serve``): a fired fault
+                      refuses one admission without touching the queue
+``engine.compile``    a cold key's materialization (``engine.compiled``),
+                      before the warm-up and the capture: a fired fault
+                      aborts the single-flight and releases its waiters
+``checkpoint.save``   every checkpoint write (``utility.checkpoint``)
+``session.append``    a session append, before its journal write
+                      (``sessions.registry``)
+``io.chunked.*``      a libsvm batch (``batch``) and an HDF5 slice read
+                      (``read``, retried) of ``io.chunked``
+``io.webhdfs.*``      a WebHDFS connection attempt (``open``) and chunk
+                      read (``read``, reconnect-resume)
+``train.slice``       a training slice, before its journal write
+                      (``train.jobs``)
+``dist.shard``        a shard task's entry (``dist.plan.compute_shard``)
+``dist.ingest``       each batch a shard ingests (resumed at the consumed
+                      offset)
+``dist.merge``        a merge's entry (``dist.plan.merge_partials``, the
+                      incremental merger's result)
+``net.accept``        the TCP front door's accept path, once per accepted
+                      connection (``net.server``): a fired fault closes the
+                      fresh socket before any frame is read; the client's
+                      reconnect budget absorbs it
+``net.read``          one frame read on a server connection: a fired fault
+                      tears the connection down; inflight futures detach
+                      and the client's byte-identical re-send joins the
+                      original flight
+``net.write``         one frame write on a server connection, the same
+                      teardown from the response side
+``fleet.route``       one route attempt of the fleet router
+                      (``fleet.router``: a request's owner or a failover
+                      candidate, a hedge's mirror, a session or train
+                      verb): a fired fault moves the request to the next
+                      replica in ring preference order
+====================  =====================================================
 
 A process replica's child reads the plan from its own environment
 (``SKYLARK_FAULT_PLAN``, through the pool's ``replica_env``), and a

@@ -119,6 +119,9 @@ def check_kernel_precision(p: str) -> str:
 
 
 def get_pallas_precision() -> str:
+    # a captured body's regime: every capture key holds it (the precision
+    # fingerprint's params.get_kernel_precision(), engine/compiled.py)
+    # skylark-lint: disable=jit-purity
     return _kernel_precision
 
 

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from libskylark_tpu_torch.base import errors
+from libskylark_tpu_torch.base import locks as _locks
 from libskylark_tpu_torch.resilience import faults
 
 # ---------------------------------------------------------------------------
@@ -171,7 +172,7 @@ class TrainCheckpointer:
         os.makedirs(self._dir, exist_ok=True)
         self._keep = max(int(keep), 1)
         self._async = bool(async_save)
-        self._lock = threading.Lock()
+        self._lock = _locks.make_lock("checkpoint.writer")
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 

@@ -7,8 +7,8 @@ function, class or method must be accepted by the port's counterpart
 accepts any keyword). A module's public names are the functions and
 classes it defines, its upper-case constants, and a package's
 ``__all__``. Only what ROADMAP defers is exempt, each exemption with its
-item: what the serve executor still lacks (its ``mesh``, A6), and the
-names of reference modules not ported yet (C12).
+item. None is left: every module of the reference that the port has is
+compared whole, the serve executor's ``mesh`` (A6) included.
 """
 
 from __future__ import annotations
@@ -23,13 +23,9 @@ import libskylark_tpu
 import libskylark_tpu_torch
 
 # "module:name" (a name, a Class.member or a callable's "(param)") -> the
-# ROADMAP item that brings it. The deferred kind: what the serve executor
-# still lacks (A6). Every other name the port lacks is C12: a module of
-# the reference not yet ported, each named there with the A item that
-# brings it.
-EXEMPT = {}
-for _m in ("engine", "engine.serve"):
-    EXEMPT[f"{_m}:MicrobatchExecutor(mesh)"] = "A6"
+# ROADMAP item that brings it. Empty: the last exemption, the serve
+# executor's ``mesh`` (A6), came off when the mesh was ported.
+EXEMPT: dict = {}
 
 
 def _modules(pkg) -> dict:

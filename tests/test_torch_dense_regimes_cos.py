@@ -1,8 +1,9 @@
 """The cos-epilogue kernel's plain version in every contraction regime
 against the JAX package's Pallas kernel in interpret mode, on the CPU:
 ``cuda_dense.rft_rowwise_apply`` against ``pallas_dense.rft_rowwise_apply``
-at ``precision=p, interpret=True``. Shapes, operators and the tolerance
-are ``test_torch_dense_regimes.py``'s (see its doc)."""
+at ``precision=p, interpret=True``. Shapes, operators, the tolerance and
+the reference's row tile are ``test_torch_dense_regimes.py``'s (see its
+doc)."""
 
 import math
 
@@ -15,7 +16,7 @@ from libskylark_tpu.sketch import pallas_dense as jpd
 from libskylark_tpu_torch.sketch import cuda_dense
 from test_torch_dense_regimes import (  # noqa: F401 (fixtures)
     DISTS, REGIMES, SHAPES, _close, _data, _keys, _limit, _oracle,
-    _no_launches, operators)
+    _no_launches, one_row_tile, operators)
 
 
 @pytest.mark.parametrize("precision", REGIMES)
@@ -32,9 +33,11 @@ def test_cos_regime_matches_interpreted_kernel(precision, dist, m, n, s,
     sc = (0.5 + rng.random(s)).astype(np.float32)
     sh = (2 * np.pi * rng.random(s)).astype(np.float32)
     inscale, outscale = 1.0 / n, math.sqrt(2.0 / s)
-    want = jpd.rft_rowwise_apply(jkey, jd, jnp.asarray(A), s, inscale,
-                                 outscale, jnp.asarray(sc), jnp.asarray(sh),
-                                 precision=precision, interpret=True)
+    with one_row_tile():
+        want = jpd.rft_rowwise_apply(jkey, jd, jnp.asarray(A), s, inscale,
+                                     outscale, jnp.asarray(sc),
+                                     jnp.asarray(sh), precision=precision,
+                                     interpret=True)
     got = cuda_dense.rft_rowwise_apply(key, d, torch.from_numpy(A), s,
                                        inscale, outscale,
                                        torch.from_numpy(sc),

@@ -1,7 +1,8 @@
 """The port stands alone: importing ``libskylark_tpu_torch`` and every one
 of its modules, or the chip scripts, or running a process replica's child
-entry, loads neither ``jax`` nor the JAX package ``libskylark_tpu``. Checked in a fresh interpreter, since this
-test process itself imports both."""
+entry, loads neither ``jax`` nor the JAX package ``libskylark_tpu``, and its
+``analysis`` modules load nothing but the standard library. Checked in a
+fresh interpreter, since this test process itself imports both."""
 
 import json
 import shutil
@@ -83,7 +84,12 @@ def test_port_and_chip_smoke_import_no_jax():
                 "io.webhdfs", "io.streaming", "sessions",
                 "sessions.journal", "sessions.state", "sessions.registry",
                 "fleet", "fleet.ring", "fleet.shm", "fleet.replica",
-                "fleet.pool", "fleet.router", "fleet.autoscale"):
+                "fleet.pool", "fleet.router", "fleet.autoscale",
+                "engine.meshlink", "analysis", "analysis.core",
+                "analysis.callgraph", "analysis.rules",
+                "analysis.rules.env_registry", "analysis.rules.jit_purity",
+                "analysis.rules.lock_discipline",
+                "analysis.rules.metric_names", "analysis.__main__"):
         assert f"libskylark_tpu_torch.{mod}" in report["modules"]
 
 
@@ -110,3 +116,25 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     out = _run(["chip_smoke.py"], cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_the_analysis_package_is_stdlib_only():
+    """Loaded with the port's package root stubbed (as the reference's
+    ``script/lint`` loads its own), the analysis modules pull neither
+    torch, numpy, jax nor the reference: they read source only."""
+    root = str(ROOT)
+    code = (
+        "import sys, types, os\n"
+        f"sys.path.insert(0, {root!r})\n"
+        "m = types.ModuleType('libskylark_tpu_torch')\n"
+        f"m.__path__ = [os.path.join({root!r}, 'libskylark_tpu_torch')]\n"
+        "sys.modules['libskylark_tpu_torch'] = m\n"
+        "import libskylark_tpu_torch.analysis as a\n"
+        "import libskylark_tpu_torch.analysis.__main__\n"
+        "a.registered_rules()\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('torch', 'jax', 'numpy', 'libskylark_tpu'))\n"
+        "print(bad)\n")
+    out = _run(["-c", code], cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

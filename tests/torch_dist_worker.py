@@ -4,8 +4,8 @@
 joins a gloo group of ``world`` CPU processes through the port's own
 bootstrap (``parallel.multihost.initialize_distributed``), builds every
 mesh of :data:`MESHES` (each over the first ranks of the group), runs
-every case of ``task`` ("parallel", "dist_sparse", "sharded" or
-"sharded_ml") on the meshes this rank belongs to, and writes the results
+every case of ``task`` (a key of :data:`TASKS`) on the meshes this rank
+belongs to, and writes the results
 as ``<outdir>/<rank>.npz``: a numpy array per case, or the name of the
 exception class a case asks to see. The sharded tasks also write each
 case's collective counts (:func:`_put`). The test files spawn one
@@ -652,9 +652,135 @@ def _io_sharded_cases(P, meshes, out):
         out[f"rows/{name}"] = np.asarray(X.to_local().shape[0])
 
 
+def serve_mesh_operands(n_reqs: int = 16, seed: int = 11):
+    """The reference's ``_ragged_sketch_reqs`` operands
+    (tests/test_serve.py:57): request i is a JLT of input dim
+    40 + 9·(i % 3) to 16 under ``Context(seed)``, built in order, on an
+    (n, 3 + i % 4) operand."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_reqs):
+        n = 40 + (i % 3) * 9
+        out.append((n, rng.standard_normal((n, 3 + i % 4)).astype(
+            np.float32)))
+    return out
+
+
+def serve_mesh_krr(seed: int = 12):
+    """The reference's sharded KRR data (tests/test_serve.py:609): X (32,
+    4), Y (32, 1) and 12 query blocks of 3-6 rows."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((32, 4)).astype(np.float32)
+    Y = rng.standard_normal((32, 1)).astype(np.float32)
+    queries = [rng.standard_normal((3 + i % 4, 4)).astype(np.float32)
+               for i in range(12)]
+    return X, Y, queries
+
+
+def _serve_mesh_cases(P, meshes, out):
+    """The mesh executor on the (2,) and (4,) meshes: rank 0 (the front)
+    serves the reference's 16 ragged JLT requests and 12 KRR predicts,
+    a cohort with a request poisoned at the front's ``serve.flush`` and one
+    poisoned at a follower's ``serve.mesh_block``, then drains; every
+    follower first tries a submit (which must raise), then shuts down.
+    Rank 0 also serves the same requests on a one-rank executor."""
+    import torch.distributed as dist
+
+    from libskylark_tpu_torch import engine, ml, sketch as sk
+    from libskylark_tpu_torch.base import errors
+    from libskylark_tpu_torch.resilience import faults
+    from libskylark_tpu_torch.sketch import params
+
+    # the reference's test holds its executor's f32 route to T.apply at
+    # 1e-5; the port's plain route follows B1's regime (bf16x3 is held to
+    # 1e-4, ROADMAP C2), so this group runs the f32 regime
+    params.set_kernel_precision("f32")
+    rank = dist.get_rank()
+    ops = serve_mesh_operands()
+    X, Y, queries = serve_mesh_krr()
+    k = ml.Gaussian(4, sigma=1.5)
+    coef = ml.kernel_ridge(k, X, Y, 0.1, device="cpu")
+
+    def transforms():
+        ctx = P.Context(seed=11)
+        return [sk.JLT(n, 16, ctx) for n, _ in ops]
+
+    def serve(ex, tag):
+        futs = [ex.submit_sketch(T, A) for T, (_, A) in zip(transforms(),
+                                                              ops)]
+        futs += [ex.submit_krr_predict(k, q, X, coef) for q in queries]
+        ex.flush()
+        for i, f in enumerate(futs):
+            out[f"{tag}/{i}"] = f.result(timeout=120).numpy()
+
+    def poisoned(ex, site, tag):
+        plan = faults.FaultPlan({"seed": 3, "faults": [
+            {"site": site, "error": "SketchError", "tag": "poison"}]})
+        Ts = transforms()
+        futs = []
+        with faults.fault_plan(plan):
+            for i in range(4):
+                if i == 1:
+                    with faults.tag("poison"):
+                        futs.append(ex.submit_sketch(Ts[i], ops[i][1]))
+                else:
+                    futs.append(ex.submit_sketch(Ts[i], ops[i][1]))
+            ex.flush()
+        errs = [type(f.exception(timeout=120)).__name__
+                if f.exception(timeout=120) is not None else ""
+                for f in futs]
+        out[f"{tag}/errors"] = np.asarray(errs)
+        for i, e in enumerate(errs):
+            if not e:
+                out[f"{tag}/ok/{i}"] = futs[i].result().numpy()
+
+    if rank == 0:
+        out["coef"] = coef.numpy()
+        with engine.MicrobatchExecutor(max_batch=8, linger_us=10_000_000,
+                                       device="cpu") as one:
+            serve(one, "one")
+    # the follower's own plan: its block fails where the front's cohort
+    # carries the tag
+    follower_plan = faults.FaultPlan({"seed": 3, "faults": [
+        {"site": "serve.mesh_block", "error": "SketchError",
+         "tag": "poison"}]})
+    for mname in ("m2", "m4"):
+        mesh = meshes.get(mname)
+        if mesh is not None:
+            ex = engine.MicrobatchExecutor(max_batch=8,
+                                           linger_us=10_000_000, mesh=mesh,
+                                           device="cpu", name=mname)
+            if rank == 0:
+                serve(ex, mname)
+                poisoned(ex, "serve.flush", f"{mname}/front_fault")
+                poisoned(ex, "serve.mesh_block", f"{mname}/follower_fault")
+                st = ex.stats()
+                out[f"{mname}/caps"] = np.asarray(
+                    sorted(st["batch_capacity_hist"]))
+                out[f"{mname}/flush_failures"] = np.asarray(
+                    st["flush_failures"])
+                out[f"{mname}/drained"] = np.asarray(ex.drain(timeout=60))
+            else:
+                try:
+                    ex.submit_sketch(transforms()[0], ops[0][1])
+                    out[f"{mname}/follower_submit"] = np.asarray("")
+                except errors.MeshError as e:
+                    out[f"{mname}/follower_submit"] = np.asarray(str(e))
+                with faults.fault_plan(follower_plan):
+                    ex.shutdown()
+                out[f"{mname}/follower_alive"] = np.asarray(
+                    ex._follower.is_alive())
+            m = ex.stats()["mesh"]
+            out[f"{mname}/mesh"] = np.asarray(
+                [m["ndev"], m["coordinate"], m["flushes"],
+                 m["failed_flushes"]])
+            out[f"{mname}/lanes"] = np.asarray(sorted(m["lanes_hist"]))
+        dist.barrier()
+
+
 TASKS = {"parallel": _parallel_cases, "dist_sparse": _dist_sparse_cases,
          "sharded": _sharded_cases, "sharded_ml": _sharded_ml_cases,
-         "io_sharded": _io_sharded_cases}
+         "io_sharded": _io_sharded_cases, "serve_mesh": _serve_mesh_cases}
 
 
 def main() -> None:
