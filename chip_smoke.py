@@ -294,7 +294,32 @@ chip_smoke.py``. In order, each phase printing one JSON line:
             count and CommDebugMode's) its design's list (no gather of a
             tall operand), and each rank's launches of B1's partial, B1,
             B1-cos, B5 and B2 (at its offset on rank 1) exactly the
-            path's; the phase's seconds and peak memory on its line;
+            path's; then two more gloo processes (``chip_smoke.py
+            --sharded-cols-child <rank> 2 <port>``, about 60 s) with
+            each operand split on its columns or its sketched axis:
+            FastGaussianRFT and FastMaternRFT 4096 → 4096 rowwise on
+            config 3's X (16,384 × 4096, one all-to-all, then B4 on each
+            rank's rows), GaussianQRFT 4096 → 4096 on it (W's panel of
+            the rank's columns, one all_reduce), PPT (q = 3, s = 2048) on
+            16,384 × 784 (B2 at the block's offset, the stacked partials
+            reduced once, the lift once), RFUT(wht) columnwise on LS's
+            rows, cholesky_qr2 and LSQR (1e-6) on LS's columns,
+            approximate_kernel_ridge and BlockADMMSolver at config 5 on
+            its features (one all-to-all, then the row route, B1-cos),
+            approximate_symmetric_svd (rank 64, q = 2) of config 4's
+            8192² symmetric part row-sharded (B1-rw a rank),
+            lobpcg_rand_evd (CWT, k = 10) on LS's columns and krank's
+            adaptive finder on its gap operand's columns; each held to
+            the one-process route in the same child (applies
+            1e-4·max, σ 1e-3, LSQR 1 + 1e-3 of the exact residual, KRR's
+            normal equations 1e-3·‖ZᵀY‖_F, ADMM coef 1e-3·max and
+            objectives 1e-4, LOBPCG by C11's measures, the adaptive
+            basis orthonormal and within its ε), both ranks byte-equal,
+            the collectives their design's, and each rank's launches of
+            B4, B2 (at its offset), B1-rw and B1-cos exactly the path's;
+            the step's seconds and each case's wall ms, its twin's and
+            the bytes it moved on the line; the phase's seconds and peak
+            memory on its line;
 4h. compiled — the executable cache (engine/compiled.py) at full width
             (about 40 s): approximate_svd (rank 64, q = 2) of config 4's
             8192² rank-512 operand and approximate_symmetric_svd (rank
@@ -5943,14 +5968,15 @@ SHARDED_LIMITS = {"sigma": 1e-3, "sketch_solve": 1.5,
                   "admm_coef": ML_LIMITS["admm_coef"],
                   "admm_objective": ML_LIMITS["admm_objective"],
                   "lobpcg_sketch": 1e-4, "lobpcg_converged": 1e-3,
-                  "lobpcg_vs_sigma2": 0.05, "lobpcg_ritz": 1e-5}
+                  "lobpcg_vs_sigma2": 0.05, "lobpcg_ritz": 1e-5,
+                  "eigvec_cos": 1e-4}
 # the kernels each rank launches on its own block in one run of the
 # entry points: B1's partial (JLT, CT, GaussianRFT columnwise), B1 (the
 # SVD's range sketch), B1-cos (KRR's map, ADMM's 4 maps at 11 applies),
 # B5 (FJLT after its all-to-all), B2 (CWT, sketch-and-solve, LOBPCG's
 # sketch): at offset 0 on rank 0, at its offset on the others
 SHARDED_KERNELS = ("dense_partial_columnwise", "dense_rowwise",
-                   "dense_rowwise_cos", "hash_offset")
+                   "dense_rowwise_cos", "hash_offset", "fastfood")
 
 
 def sharded_launches(rank: int, world: int, size) -> dict:
@@ -6280,6 +6306,43 @@ def sharded_equal(torch, got, want) -> bool:
         for x, y in zip(a, b))
 
 
+def sharded_ml_checks(torch, got, want, ops, size) -> dict:
+    """KRR's W against its normal equations (1e-3·‖ZᵀY‖_F, Z made again
+    on the whole X) and ADMM's coef (1e-3·max) and objectives (1e-4)
+    against the one-process route's."""
+    from libskylark_tpu_torch import sketch as sk
+
+    lim = SHARDED_LIMITS
+    S, W = got["akrr"]
+    Z = S.apply(ops["X"], sk.ROWWISE)
+    res = normal_residual(torch, Z, W, ops["Y"], ML_LAM)
+    coef, objs = got["admm"]
+    coef1, objs1 = want["admm"]
+    cerr = float((coef - coef1).abs().max() / coef1.abs().max())
+    oerr = max(abs(a - b) / abs(b) for a, b in zip(objs, objs1))
+    return {"akrr": {"normal_residual": res,
+                     "one_process": normal_residual(
+                         torch, Z, want["akrr"][1], ops["Y"], ML_LAM),
+                     "ok": res <= lim["normal_equations"]},
+            "admm": {"coef": cerr, "objective": oerr,
+                     "iterations": len(objs),
+                     "ok": (cerr <= lim["admm_coef"]
+                            and oerr <= lim["admm_objective"]
+                            and len(objs) == size["ml"]["admm_iters"])}}
+
+
+def sharded_lobpcg_check(torch, np, P, got, ops, size, lam) -> dict:
+    """LOBPCG's eigenvalues by C11's measures (:func:`lobpcg_values`)."""
+    lim = SHARDED_LIMITS
+    vals = lobpcg_values(torch, np, P, ops["A"], size["evd_k"], "cwt", 511,
+                         got["lobpcg"][0], lam, ops["A"].device)
+    return {**vals, "ok": (
+        vals["sketch"] <= lim["lobpcg_sketch"]
+        and vals["converged"] <= lim["lobpcg_converged"]
+        and vals["vs_sigma2"] <= lim["lobpcg_vs_sigma2"]
+        and vals["ritz_excess"] <= lim["lobpcg_ritz"])}
+
+
 def sharded_checks(torch, P, np, run, size, lobpcg_lam) -> dict:
     """The two-rank results against the one-process route with the
     one-process phases' limits (module docstring, phase 4g)."""
@@ -6322,29 +6385,9 @@ def sharded_checks(torch, P, np, run, size, lobpcg_lam) -> dict:
         vs_true = float(((S - sig.double()).abs() / sig.double()).max())
         out[name] = {"sigma_vs_one_process": vs_one, "sigma_vs_true": vs_true,
                      "ok": max(vs_one, vs_true) <= lim["sigma"]}
-    S, W = got["akrr"]
-    Z = S.apply(ops["X"], sk.ROWWISE)
-    res = normal_residual(torch, Z, W, ops["Y"], ML_LAM)
-    out["akrr"] = {"normal_residual": res,
-                   "one_process": normal_residual(torch, Z, want["akrr"][1],
-                                                  ops["Y"], ML_LAM),
-                   "ok": res <= lim["normal_equations"]}
-    coef, objs = got["admm"]
-    coef1, objs1 = want["admm"]
-    cerr = float((coef - coef1).abs().max() / coef1.abs().max())
-    oerr = max(abs(a - b) / abs(b) for a, b in zip(objs, objs1))
-    out["admm"] = {"coef": cerr, "objective": oerr,
-                   "iterations": len(objs),
-                   "ok": (cerr <= lim["admm_coef"]
-                          and oerr <= lim["admm_objective"]
-                          and len(objs) == size["ml"]["admm_iters"])}
-    vals = lobpcg_values(torch, np, P, ops["A"], size["evd_k"], "cwt", 511,
-                         got["lobpcg"][0], lobpcg_lam, ops["A"].device)
-    out["lobpcg"] = {**vals, "ok": (
-        vals["sketch"] <= lim["lobpcg_sketch"]
-        and vals["converged"] <= lim["lobpcg_converged"]
-        and vals["vs_sigma2"] <= lim["lobpcg_vs_sigma2"]
-        and vals["ritz_excess"] <= lim["lobpcg_ritz"])}
+    out.update(sharded_ml_checks(torch, got, want, ops, size))
+    out["lobpcg"] = sharded_lobpcg_check(torch, np, P, got, ops, size,
+                                         lobpcg_lam)
     return out
 
 
@@ -6461,15 +6504,20 @@ def sharded_child(rank: int, world: int, port: int) -> int:
     return 0
 
 
-def sharded_two_ranks(torch) -> dict:
-    """Step 3: spawn :func:`sharded_child` twice (two gloo ranks on the
-    one card) and hold what they report: every check within its limit,
-    each entry point's collectives its design's list, every result the
-    same bytes on both ranks, each rank's kernels launched on its block."""
+def sharded_two_ranks(torch, flag: str = "--sharded-child",
+                      prefix: str = "SHARDED_CHILD",
+                      launches_of=lambda rank: sharded_launches(
+                          rank, 2, SHARDED_FULL)) -> dict:
+    """Step 3 (and 3b, with its ``flag``, ``prefix`` and launches): spawn
+    the child twice (two gloo ranks on the one card) and hold what they
+    report: every check within its limit, each entry point's collectives
+    its design's list, every result the same bytes on both ranks, each
+    rank's launches exactly ``launches_of(rank)``. Returns the reports
+    and the launches summed over the ranks."""
     release_cache(torch)
     world, port = 2, free_port()
     procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--sharded-child",
+        [sys.executable, str(Path(__file__).resolve()), flag,
          str(r), str(world), str(port)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
@@ -6482,30 +6530,364 @@ def sharded_two_ranks(torch) -> dict:
                 p.kill()
                 p.wait()
     check(all(p.returncode == 0 for p in procs),
-          f"sharded child failed, rcs {[p.returncode for p in procs]}:\n"
+          f"{flag} child failed, rcs {[p.returncode for p in procs]}:\n"
           + "\n".join(x[max(x.rfind("Traceback"), 0):][-4000:]
                       for x in logs))
     reports = [json.loads(next(ln for ln in x.splitlines()
-                               if ln.startswith("SHARDED_CHILD "))[14:])
+                               if ln.startswith(prefix + " "))
+                          [len(prefix) + 1:])
                for x in logs]
     r0 = reports[0]
     bad = [k for k, v in r0["checks"].items() if not v["ok"]]
-    check(not bad, f"two-rank sharded group: {bad}: {r0['checks']}")
+    check(not bad, f"two-rank {flag} group: {bad}: {r0['checks']}")
     bad = [k for k in r0["digests"]
            if any(r["digests"][k] != r0["digests"][k] for r in reports)]
-    check(not bad, f"two-rank sharded group: ranks differ on {bad}")
+    check(not bad, f"two-rank {flag} group: ranks differ on {bad}")
     check(not any(r["collectives_bad"] for r in reports),
           f"collectives: {[r['collectives_bad'] for r in reports]}")
     for r in reports:
-        want = sharded_launches(r["rank"], world, SHARDED_FULL)
+        want = launches_of(r["rank"])
         bad = {k: (r["launches"][k], v) for k, v in want.items()
                if r["launches"][k] != v}
         check(not bad, f"rank {r['rank']} launches (got, expected): {bad}")
     check(not any(r["imports_jax"] for r in reports),
-          "a sharded child imported jax or libskylark_tpu")
+          f"a {flag} child imported jax or libskylark_tpu")
     launches = {k: sum(r["launches"][k] for r in reports)
                 for k in r0["launches"]}
     return {"reports": reports, "launches": launches}
+
+
+# step 3b: operands split by columns (or on the sketched axis), at full
+# width: config 3's X (16,384 × 4096) for Fastfood (σ = 64; Matern ν =
+# 1.5, l = 64) and GaussianQRFT 4096 → 4096 rowwise; approximate_krr_poly's
+# 16,384 × 784 (config 5's first rows) for PPT (q = 3, s = 2048); LS for
+# RFUT(wht) columnwise on its rows and for CholeskyQR2, LSQR and LOBPCG
+# on its columns; config 5 for KRR and ADMM on its features; config 4's
+# 8192² symmetric operand row-sharded for the symmetric SVD; krank's gap
+# operand on its columns for the adaptive finder
+SHARDED_COLS_FULL = {"rf_rows": 16384, "rf_d": 4096, "rf_s": 4096,
+                     "rf_sigma": 64.0, "matern_nu": 1.5, "matern_l": 64.0,
+                     "ppt_rows": 16384, "ppt_s": 2048, "ppt_q": 3,
+                     "adaptive_eps": 0.5, "adaptive_r": 10,
+                     "adaptive_iters": 200, **SHARDED_FULL}
+
+
+def sharded_cols_launches(rank: int, size) -> dict:
+    """Each kernel's launches on ``rank`` of two in one run of step 3b's
+    entry points: B4 on each rank's rows after the exchange (Fastfood,
+    twice), B2 at the block's offset for PPT's q CountSketches (offset 0,
+    hash_columnwise, on rank 0) and LOBPCG's sketch of the rank's
+    columns (rows whole: offset 0), B1-rw for the symmetric SVD's range
+    sketch, B1-cos for KRR's map and ADMM's maps; no other kernel."""
+    q = size["ppt_q"]
+    P4, it = size["ml"]["partitions"], size["ml"]["admm_iters"]
+    want = {k: 0 for k in launch_counts()}
+    want.update({"fastfood": 2, "hash_offset": q if rank else 0,
+                 "hash_columnwise": (0 if rank else q) + 1,
+                 "dense_rowwise": 1, "dense_rowwise_cos": 1 + P4 * (1 + it)})
+    return want
+
+
+def sharded_cols_operands(torch, size, device):
+    """Step 3b's operands on ``device``, from seeds (the same in every
+    process): config 3's X, the PPT rows, LS's A and b, config 5's X, y
+    and ±1 targets, config 4's symmetric part, krank's gap operand."""
+    g = torch.Generator(device=device).manual_seed(3)
+    m, n = size["ls_rows"], size["ls_cols"]
+    A = torch.randn(m, n, generator=g, device=device)
+    x0 = torch.randn(n, generator=g, device=device)
+    b = A @ x0 + 0.1 * torch.randn(m, generator=g, device=device)
+    X, y, _, _ = ml_data(torch, size["ml"], device)
+    Y = 2.0 * torch.nn.functional.one_hot(
+        y, size["ml"]["classes"]).to(torch.float32) - 1.0
+    S, _ = svd_operand(torch, size["svd_n"], size["svd_r"], device)
+    K, _, _ = a3_krank_operand(torch, size, device)
+    Xrf = torch.randn((size["rf_rows"], size["rf_d"]),
+                      generator=a3_generator(torch, 12, device),
+                      device=device)
+    return {"Xrf": Xrf, "Xp": X[: size["ppt_rows"]].contiguous(), "A": A,
+            "b": b, "X": X, "y": y, "Y": Y,
+            "Sym": (0.5 * (S + S.T)).contiguous(), "K": K}
+
+
+def sharded_cols_cases(torch, P, size):
+    """Step 3b's entry points: name -> (fn(operands), the layout of its
+    operands' split, its collectives on two ranks (all_reduce,
+    all_gather, all_to_all); None where the count follows the iteration
+    (LSQR, LOBPCG))."""
+    import contextlib
+    import io as stdio
+
+    from libskylark_tpu_torch import algorithms as alg, ml, nla
+    from libskylark_tpu_torch import sketch as sk
+    from libskylark_tpu_torch.algorithms import prox
+    from libskylark_tpu_torch.nla import tsqr
+
+    ms, mp = size["ml"], size["ml"]["partitions"]
+    rw, cw = sk.ROWWISE, sk.COLUMNWISE
+    d, s, sig = size["rf_d"], size["rf_s"], size["rf_sigma"]
+    kern = ml_kernel(ml, ms)
+    # QRFT builds W on the host when it is made (the Halton panel and its
+    # quantiles, about 10 s at 4096 × 4097): made once, applied by both
+    # routes
+    qrft = sk.GaussianQRFT(d, s, P.Context(522), sigma=sig)
+
+    def admm(o):
+        sv = ml.BlockADMMSolver.from_kernel(
+            P.Context(608), prox.HingeLoss(), prox.L2Regularizer(),
+            ADMM_LAM, ms["s"], kern, num_partitions=mp)
+        sv.maxiter, sv.tol = ms["admm_iters"], 0.0
+        buf = stdio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            model = sv.train(o["X"], o["y"], verbose=True)
+        return model.coef, [float(ln.split()[3])
+                            for ln in buf.getvalue().splitlines()]
+
+    return {
+        "fastfood_gauss": (lambda o: sk.FastGaussianRFT(
+            d, s, P.Context(520), sigma=sig).apply(o["Xrf"], rw),
+            (0, 0, 1)),
+        "fastfood_matern": (lambda o: sk.FastMaternRFT(
+            d, s, P.Context(521), nu=size["matern_nu"],
+            l=size["matern_l"]).apply(o["Xrf"], rw), (0, 0, 1)),
+        "qrft": (lambda o: qrft.apply(o["Xrf"], rw), (1, 0, 0)),
+        "ppt": (lambda o: sk.PPT(size["ml"]["d"], size["ppt_s"],
+                                 P.Context(523), q=size["ppt_q"]).apply(
+            o["Xp"], rw), (1, 0, 0)),
+        "rfut": (lambda o: sk.RFUT(size["ls_rows"], P.Context(524),
+                                   fut="wht").apply(o["A"], cw), (0, 0, 1)),
+        "cqr2": (lambda o: tsqr.cholesky_qr2(o["A"]), (2, 0, 2)),
+        "lsqr": (lambda o: alg.lsqr(o["A"], o["b"], alg.KrylovParams(
+            tolerance=size["lsqr_tolerance"],
+            iter_lim=size["lsqr_iter_lim"])), None),
+        "akrr": (lambda o: ml.approximate_kernel_ridge(
+            kern, o["X"], o["Y"], ML_LAM, ms["s"], P.Context(509)),
+            (2, 0, 1)),
+        "admm": (admm, (1 + mp + ms["admm_iters"] * (2 * mp + 1), 0, 1)),
+        # the range sketch splits nothing; CholeskyQR2 twice a pass (3
+        # passes), the basis gathered for each A·Q (3), and QᵀAQ's sum
+        "symmetric_svd": (lambda o: nla.approximate_symmetric_svd(
+            o["Sym"], size["rank"], P.Context(525),
+            nla.ApproximateSVDParams(num_iterations=size["q"])), (7, 3, 0)),
+        "lobpcg": (lambda o: nla.lobpcg_rand_evd(
+            o["A"], size["evd_k"], P.Context(511), sketch="cwt"), None),
+        "krank_adaptive": (lambda o: nla.RandomizedRangeFinder(
+            o["K"], "adaptive", {"epsilon": size["adaptive_eps"],
+                                 "r": size["adaptive_r"],
+                                 "max_iters": size["adaptive_iters"]},
+            P.Context(526)).compute(), (0, 1, 0)),
+    }
+
+
+# the operands each case reads and how they are laid out on the mesh
+SHARDED_COLS_LAYOUT = {"Xrf": "col_sharded", "Xp": "col_sharded",
+                       "A": "col_sharded", "X": "col_sharded",
+                       "Sym": "row_sharded", "K": "col_sharded"}
+
+
+def sharded_cols_run(torch, P, mesh, size, device="cuda",
+                     twins: bool = True) -> dict:
+    """Every entry point of step 3b on its DTensor operands (the main
+    path: the launch counters set to 0 before, read after), each call's
+    collectives, bytes a rank put in and wall seconds; then, with
+    ``twins``, the same calls on the whole operands (the one-process
+    route, LOBPCG's excepted: C11's measures hold it), each timed."""
+    from libskylark_tpu_torch import parallel as par
+    from libskylark_tpu_torch.parallel import mesh as pmesh
+
+    ops = sharded_cols_operands(torch, size, device)
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    dops = {k: par.distribute(v, getattr(par, SHARDED_COLS_LAYOUT[k])(mesh))
+            if k in SHARDED_COLS_LAYOUT else v for k, v in ops.items()}
+    # RFUT sketches LS's rows: A split on them
+    dops["A_rows"] = par.distribute(ops["A"], par.row_sharded(mesh))
+    cases = sharded_cols_cases(torch, P, size)
+    for c in counters():
+        for k in c:
+            c[k] = 0
+    got, colls, nbytes, seconds = {}, {}, {}, {}
+    for name, (fn, _) in cases.items():
+        o = dict(dops, A=dops["A_rows"]) if name == "rfut" else dops
+        for k in pmesh.collective_bytes:
+            pmesh.collective_bytes[k] = 0
+        sync()
+        t0 = time.perf_counter()
+        got[name], colls[name] = counted_call(torch, lambda: fn(o))
+        sync()
+        seconds[name] = time.perf_counter() - t0
+        nbytes[name] = dict(pmesh.collective_bytes)
+    launches = launch_counts()
+    got = {k: whole_of(torch, v) for k, v in got.items()}
+    want, one_s = {}, {}
+    for name, (fn, _) in cases.items():
+        if name == "lobpcg" or not twins:
+            continue
+        sync()
+        t0 = time.perf_counter()
+        want[name] = fn(ops)
+        sync()
+        one_s[name] = time.perf_counter() - t0
+    return {"ops": ops, "cases": cases, "got": got, "want": want,
+            "collectives": colls, "bytes": nbytes, "seconds": seconds,
+            "one_process_seconds": one_s, "launches": launches}
+
+
+def sharded_cols_checks(torch, P, np, run, size, lobpcg_lam) -> dict:
+    """Step 3b's results against the one-process route at PERF.md §2's
+    sharded limits: applies 1e-4·max, CholeskyQR2's Q and R 1e-4·max,
+    LSQR's residual 1 + 1e-3 of the exact one, KRR's normal equations
+    1e-3·‖ZᵀY‖_F, ADMM's coef 1e-3·max and objectives 1e-4, σ 1e-3,
+    each eigenvector's |cos| with its one-process twin within 1e-4,
+    LOBPCG by C11's measures, the adaptive basis orthonormal to 1e-4 and
+    within its ε, byte-equal to the one-process basis (both run the same
+    host code on the same A)."""
+    got, want, ops = run["got"], run["want"], run["ops"]
+    lim = SHARDED_LIMITS
+    out = {}
+    for name in ("fastfood_gauss", "fastfood_matern", "qrft", "ppt", "rfut"):
+        out[name] = {**held(torch, got[name], want[name]),
+                     "bit_equal": bool(torch.equal(got[name], want[name]))}
+    Q, R = got["cqr2"]
+    out["cqr2"] = {"Q": held(torch, Q, want["cqr2"][0]),
+                   "R": held(torch, R, want["cqr2"][1])}
+    out["cqr2"]["ok"] = out["cqr2"]["Q"]["ok"] and out["cqr2"]["R"]["ok"]
+    exact = lstsq_residual(torch, ops["A"], ops["b"])
+    x, it = got["lsqr"]
+    ratio = float(torch.linalg.norm(ops["A"].double() @ x.double()
+                                    - ops["b"].double())) / exact
+    out["lsqr"] = {**held(torch, x, want["lsqr"][0]),
+                   "residual_ratio": ratio,
+                   "iterations": [it, want["lsqr"][1]]}
+    out["lsqr"]["ok"] = ratio <= lim["lsqr_residual"]
+    out.update(sharded_ml_checks(torch, got, want, ops, size))
+    (V, S), (V1, S1) = ((t.double() for t in got["symmetric_svd"]),
+                        (t.double() for t in want["symmetric_svd"]))
+    vs_one = float(((S - S1).abs() / S1.abs()).max())
+    cos = float(((V * V1).sum(0).abs()
+                 / (V.norm(dim=0) * V1.norm(dim=0))).min())
+    out["symmetric_svd"] = {"sigma_vs_one_process": vs_one,
+                            "min_abs_cos": cos,
+                            "ok": (vs_one <= lim["sigma"]
+                                   and 1 - cos <= lim["eigvec_cos"])}
+    out["lobpcg"] = sharded_lobpcg_check(torch, np, P, got, ops, size,
+                                         lobpcg_lam)
+    Q, Q1, K = got["krank_adaptive"], want["krank_adaptive"], ops["K"]
+    orth = float((Q.T @ Q - torch.eye(Q.shape[1], device=Q.device))
+                 .abs().max())
+    resid = float(torch.linalg.norm(K - Q @ (Q.T @ K)))
+    out["krank_adaptive"] = {
+        "columns": [Q.shape[1], Q1.shape[1]], "orthonormal": orth,
+        "residual": resid, "bit_equal": bool(torch.equal(Q, Q1)),
+        "ok": (bool(torch.equal(Q, Q1)) and orth <= 1e-4
+               and resid <= size["adaptive_eps"])}
+    return out
+
+
+def sharded_cols_expected(cases, got, collectives) -> list:
+    """The entries whose collectives on two ranks differ from their
+    design's (LSQR: one all_reduce of A·Z and one gather of Aᵀ·U an
+    iteration, a gather to start; LOBPCG: the sketch's gather, then one
+    all_reduce and one gather a product), and CommDebugMode's total equal
+    to the port's."""
+    bad = []
+    for name, (_, want) in cases.items():
+        c = collectives[name]
+        if name == "lsqr":
+            it = int(got["lsqr"][1])
+            want = (it, it + 1, 0)
+        if name == "lobpcg":
+            ok = c[2] == 0 and c[0] > 0 and c[1] == c[0] + 1
+        else:
+            ok = list(c[:3]) == list(want)
+        if not ok or c[3] != sum(c[:3]):
+            bad.append((name, c))
+    return bad
+
+
+def sharded_cols_child(rank: int, world: int, port: int) -> int:
+    """Step 3b, one of two processes sharing the card through gloo: every
+    entry point of the step on its split operands; on rank 0 also the
+    one-process route and the checks (rank 1's results are held to rank
+    0's bytes, so its host and card are left to the main path); prints
+    one SHARDED_COLS_CHILD line with the checks, each result's digest,
+    the collectives and bytes, the launches, each call's seconds against
+    its twin's and the peak memory."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import libskylark_tpu_torch as P
+    from libskylark_tpu_torch import parallel as par
+    from libskylark_tpu_torch.parallel import multihost
+
+    import warnings
+
+    # scipy's LOBPCG warns that it stops at its 20 iterations (C11)
+    warnings.simplefilter("ignore", UserWarning)
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    multihost.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                     connect_timeout=120.0, backend="gloo")
+    mesh = par.make_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    size = SHARDED_COLS_FULL
+    run = sharded_cols_run(torch, P, mesh, size, twins=rank == 0)
+    t2 = time.perf_counter()
+    checks = {}
+    if rank == 0:
+        A = run["ops"]["A"].double()
+        lam = torch.linalg.eigvalsh(A.T @ A).flip(0)[:size["evd_k"]]
+        checks = sharded_cols_checks(torch, P, np, run, size, lam)
+    print("SHARDED_COLS_CHILD " + json.dumps({
+        "rank": rank, "checks": checks,
+        "digests": {k: sharded_digest(torch, v)
+                    for k, v in run["got"].items()},
+        "collectives": run["collectives"], "bytes": run["bytes"],
+        "collectives_bad": sharded_cols_expected(run["cases"], run["got"],
+                                                 run["collectives"]),
+        "launches": run["launches"], "call_seconds": run["seconds"],
+        "one_process_seconds": run["one_process_seconds"],
+        "seconds": {"setup": t1 - t0, "run": t2 - t1,
+                    "checks": time.perf_counter() - t2,
+                    "total": time.perf_counter() - t0},
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "imports_jax": "jax" in sys.modules or "libskylark_tpu" in
+        sys.modules}, default=float), flush=True)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_cols_two_ranks(torch) -> dict:
+    """Step 3b: :func:`sharded_two_ranks` on :func:`sharded_cols_child`
+    (rank 0 holds the checks); adds each case's wall ms on both ranks,
+    its one-process twin's, its collectives and the bytes rank 0 put in,
+    the step's seconds and each child's own (set-up and total)."""
+    t0 = time.perf_counter()
+    out = sharded_two_ranks(
+        torch, "--sharded-cols-child", "SHARDED_COLS_CHILD",
+        lambda rank: sharded_cols_launches(rank, SHARDED_COLS_FULL))
+    r0, r1 = out["reports"]
+    check(set(r0["checks"]) == set(r0["digests"]),
+          f"rank 0 held {sorted(r0['checks'])} of {sorted(r0['digests'])}")
+    out["cases"] = {k: {"ms": 1e3 * r0["call_seconds"][k],
+                        "rank1_ms": 1e3 * r1["call_seconds"][k],
+                        "one_process_ms": (
+                            1e3 * r0["one_process_seconds"][k]
+                            if k in r0["one_process_seconds"] else None),
+                        "collectives": r0["collectives"][k][:3],
+                        "bytes": sum(r0["bytes"][k].values())}
+                    for k in r0["call_seconds"]}
+    out["child_seconds"] = [r["seconds"] for r in out["reports"]]
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def time_offset(torch, P, peaks: dict) -> list[dict]:
@@ -6552,13 +6934,22 @@ def sharded_phase(torch, P, np, peaks) -> dict:
     t1 = time.perf_counter()
     one = sharded_one_rank(torch, P, np, SHARDED_FULL)
     two = sharded_two_ranks(torch)
+    cols = sharded_cols_two_ranks(torch)
     launches = {k: one["launches"][k] + two["launches"][k]
-                for k in one["launches"]}
+                + cols["launches"][k] for k in one["launches"]}
     main_s = time.perf_counter() - t1
     rows = time_offset(torch, P, peaks)
     out = {"emulated": emulated, "one_rank": one,
-           "two_ranks": two["reports"], "launches": launches,
-           "rows": rows, "main_path_seconds": main_s,
+           "two_ranks": two["reports"],
+           "split_columns": {"seconds": cols["seconds"],
+                             "child_seconds": cols["child_seconds"],
+                             "cases": cols["cases"],
+                             "launches": cols["launches"],
+                             "checks": cols["reports"][0]["checks"],
+                             "peak_memory_gib": [
+                                 r["peak_memory_gib"]
+                                 for r in cols["reports"]]},
+           "launches": launches, "rows": rows, "main_path_seconds": main_s,
            "seconds": time.perf_counter() - t0,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
     emit("sharded", **{k: v for k, v in out.items() if k != "rows"})
@@ -10405,6 +10796,8 @@ def main() -> int:
         return dist_child(*(int(a) for a in sys.argv[2:5]))
     if sys.argv[1:2] == ["--sharded-child"]:
         return sharded_child(*(int(a) for a in sys.argv[2:5]))
+    if sys.argv[1:2] == ["--sharded-cols-child"]:
+        return sharded_cols_child(*(int(a) for a in sys.argv[2:5]))
     if sys.argv[1:2] == ["--flush-child"]:
         return flush_child(json.loads(sys.argv[2]))
     sys.path.insert(0, str(ROOT))

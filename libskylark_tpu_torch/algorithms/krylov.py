@@ -8,12 +8,18 @@ iteration. Chebyshev runs a fixed count and reads nothing. Operators are
 matrices, sparse matrices (whose products are ``spmm``/``spmm_t``,
 base/sparse.py) or (matvec, rmatvec) callable pairs.
 
-A DTensor A whose rows are split over a mesh (parallel/mesh.py) is never
-gathered. LSQR keeps B and U on each rank's rows and V, X whole: A·X is
-local, Aᵀ·U and the column norms of U are local sums and one all_reduce
-each (``mesh._Blocks``). CG, flexible CG and Chebyshev keep every vector
-whole on every rank: each product A·P is the rank's rows A_loc·P and one
-all_gather of the (n × k) result, the ``A @ X`` that XLA gathers for too.
+A DTensor A split over a mesh (parallel/mesh.py), on its rows, its
+columns or both, is never gathered. LSQR keeps B and U on each rank's
+rows and V, X whole: A·X is the rank's block times X's rows for its
+columns, summed by one all_reduce per mesh dimension that splits the
+columns (none when they are whole); Aᵀ·U and the column norms of U are
+local sums and one all_reduce per dimension that splits the rows, and
+Aᵀ·U's short n-length result is gathered over the dimensions that split
+the columns (``mesh._Blocks.mv_whole``/``rmv_whole``). CG, flexible CG
+and Chebyshev keep every vector whole on every rank: each product A·P is
+the rank's block times P's rows for its columns, summed over the
+column-splitting dimensions, and one all_gather of the result over the
+row-splitting ones, the ``A @ X`` that XLA gathers for too.
 Every rank computes the same replicated scalars, so every rank reads the
 same stopping flag and stops at the same iteration. X comes back
 Replicate().
@@ -27,7 +33,6 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 
 from libskylark_tpu_torch.algorithms.precond import IdPrecond, Precond
-from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.device import as_tensor
 from libskylark_tpu_torch.base.sparse import linear_ops, place
 from libskylark_tpu_torch.base.params import Params
@@ -45,29 +50,21 @@ class KrylovParams(Params):
 
 def _as_ops(A: Operator):
     """(mv, rmv) of an explicit pair, a :class:`SparseMatrix`, a matrix or
-    a DTensor's blocks (local products, summed over the ranks)."""
+    a DTensor's blocks (X whole in, the rank's rows out; the rank's rows
+    in, the whole product out)."""
     if isinstance(A, pmesh._Blocks):
-        return A.mv, A.rmv
+        return A.mv_whole, A.rmv_whole
     return A if isinstance(A, tuple) else linear_ops(A)
 
 
-def _row_blocks(A):
-    """A DTensor operand's blocks, its columns whole (the layouts the
-    solvers take)."""
-    B = pmesh._Blocks(A)
-    if B.cols.split:
-        raise errors.NotImplementedYetError(
-            "Krylov solvers on a DTensor with split columns (ROADMAP A5b)")
-    return B
-
-
 def _gathered_ops(A):
-    """(mv, rmv) on whole vectors for a row-split DTensor A: A_loc·X, then
-    an all_gather of the (n × k) product (square systems: CG, flexible
-    CG, Chebyshev)."""
-    B = _row_blocks(A)
-    return (lambda X: B.rows.gather(B.mv(X)),
-            lambda Y: B.rmv(B.rows.take(Y)))
+    """(mv, rmv) on whole vectors for a DTensor A: the rank's block times
+    X's rows for its columns, summed over the column-splitting
+    dimensions, then an all_gather of the (n × k) product over the
+    row-splitting ones (square systems: CG, flexible CG, Chebyshev)."""
+    B = pmesh._Blocks(A)
+    return (lambda X: B.rows.gather(B.mv_whole(X)),
+            lambda Y: B.rmv_whole(B.rows.take(Y)))
 
 
 def _whole(B, device):
@@ -111,7 +108,7 @@ def lsqr_parts(A: Operator, B: torch.Tensor,
     column is done or ``iter_lim`` is reached."""
     params = params or KrylovParams()
     if pmesh._is_sharded(A):
-        A = _row_blocks(A)
+        A = pmesh._Blocks(A)
         B = A.row_block(B)
     mv, rmv = _as_ops(A)
     R = precond or IdPrecond()

@@ -11,13 +11,18 @@ from __future__ import annotations
 import torch
 
 
+def _norm_expansion(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """‖xᵢ‖² + ‖yⱼ‖² − 2·xᵢ·yⱼ, unclamped: a sum over the features, so a
+    feature-split operand's partial sums add up to it (ml/kernels.py)."""
+    nx = torch.sum(X * X, dim=1)
+    ny = torch.sum(Y * Y, dim=1)
+    return nx[:, None] + ny[None, :] - 2.0 * (X @ Y.T)
+
+
 def euclidean_distance_matrix(X: torch.Tensor,
                               Y: torch.Tensor) -> torch.Tensor:
     """Squared Euclidean distances D[i, j] = ‖xᵢ − yⱼ‖²."""
-    nx = torch.sum(X * X, dim=1)
-    ny = torch.sum(Y * Y, dim=1)
-    D = nx[:, None] + ny[None, :] - 2.0 * (X @ Y.T)
-    return torch.clamp_min(D, 0.0)
+    return torch.clamp_min(_norm_expansion(X, Y), 0.0)
 
 
 def symmetric_euclidean_distance_matrix(X: torch.Tensor) -> torch.Tensor:

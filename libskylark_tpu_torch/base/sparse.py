@@ -326,27 +326,27 @@ def place(A, device=None):
 def linear_ops(A):
     """(mv, rmv): X ↦ A·X and X ↦ Aᵀ·X, by spmm/spmm_t for a sparse
     operand (never densified; a distributed one by its own collective
-    products), by matmul for a tensor. For a DTensor A (rows sharded,
-    columns whole) mv takes X whole (a tensor or a Replicate() DTensor)
-    and gives A·X sharded like A's rows, with no traffic; rmv takes Y
-    sharded like A's rows and gives Aᵀ·Y Replicate(): the local
-    A_locᵀ·Y_loc, then one all_reduce (the reference's (Yᵀ·A)ᵀ)."""
+    products), by matmul for a tensor. For a DTensor A, mv takes X whole
+    (a tensor or a Replicate() DTensor) or split like A's columns, and
+    gives A·X split like A's rows: the rank's block times X's rows for
+    its columns, then one all_reduce per mesh dimension that splits the
+    columns (none when they are whole). rmv takes Y split like A's rows
+    (or whole) and gives Aᵀ·Y Replicate(): the local A_locᵀ·Y_loc, one
+    all_reduce per dimension that splits the rows (the reference's
+    (Yᵀ·A)ᵀ), then the gather of the short n-length result over the
+    dimensions that split the columns."""
     if _is_dist(A):
         return A.spmm, A.spmm_t
     from libskylark_tpu_torch.parallel import mesh as pmesh
 
     if pmesh._is_sharded(A):
         B = pmesh._Blocks(A)
-        if B.cols.split:
-            raise errors.NotImplementedYetError(
-                "linear_ops of a DTensor with split columns (ROADMAP A5b)")
 
         def mv(X):
-            X = X.to_local() if pmesh._is_sharded(X) else X
-            return B.rows.wrap(B.mv(X))
+            return B.rows.wrap(B.mv(B.col_block(X)))
 
         def rmv(Y):
-            return B.cols.wrap(B.rmv(B.row_block(Y)))
+            return B.whole(B.rmv_whole(B.row_block(Y)))
 
         return mv, rmv
     if is_sparse_operand(A):

@@ -21,7 +21,10 @@ per-example state (O, Obar, nu) stays on each rank's examples. Each
 partition's map runs on the rank's rows (B1-cos on the card); every sum
 over examples (ZⱼᵀZⱼ, Zⱼᵀ·dsum, Zⱼᵀ·o, the loss) is the rank's local sum
 and one all_reduce. Every rank so computes the same consensus iterate,
-and the model's coefficients are whole on every rank.
+and the model's coefficients are whole on every rank. An X whose
+features are split is first laid out split on its examples by one
+all-to-all at the start of training (``mesh._rows_layout``), then takes
+that route.
 
 ``train(checkpoint=...)`` saves the carry through a
 :class:`~libskylark_tpu_torch.utility.TrainCheckpointer` every
@@ -271,11 +274,7 @@ class BlockADMMSolver:
                     "the per-example state lies on every rank (ROADMAP C23)")
             # each rank trains on its examples; sums over examples are
             # all-reduced (module docstring)
-            B = pmesh._Blocks(X)
-            if B.cols.split:
-                raise errors.NotImplementedYetError(
-                    "BlockADMMSolver.train on a DTensor whose features are "
-                    "split (ROADMAP A5b)")
+            B = pmesh._Blocks(pmesh._rows_layout(X))
             X, Y, total = B.local, B.row_block(Y).reshape(-1), B.rows.sum
         else:
             X = as_tensor(X, device)

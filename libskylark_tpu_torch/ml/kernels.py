@@ -14,11 +14,21 @@ Each kernel offers:
   "sparse", as each kernel defines them;
 - the reference's JSON form (``to_dict``/``deserialize_kernel``).
 
-``gram`` of a DTensor X whose rows are split over a mesh
-(parallel/mesh.py) gives the rank's row block of K against the whole Y,
-a DTensor split like X's rows; Y may be whole on every rank or a DTensor
-split on its rows, which is gathered (an all_gather of Y, n × d: every
-column of K needs every row of Y).
+Every kernel is f(Σ over features of g(x_f, y_f)): Linear, Polynomial
+through ⟨x, y⟩, Gaussian and Matern through ‖x‖² + ‖y‖² − 2⟨x, y⟩,
+Laplacian through Σ|x − y|, ExpSemigroup through Σ√(x + y). Each class
+gives the feature sum (``_partial``) and f (``_finish``); its dense
+``gram`` is the one after the other.
+
+``gram`` of a DTensor X split over a mesh (parallel/mesh.py) gives the
+rank's row block of K, a DTensor split like X's rows: each rank takes
+the feature sum over its own features against every row of Y on those
+features, one all_reduce per mesh dimension that splits the features
+sums the partials, and f runs on the sum. Y may be whole on every rank
+or a DTensor, whose rows are gathered (an all_gather of Y's block over
+the dimensions that split its rows: every column of K needs every row
+of Y). A whole X against a DTensor Y gives K split like Y's rows, on
+K's columns.
 """
 
 from __future__ import annotations
@@ -34,7 +44,7 @@ import torch
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.context import Allocation, Context
 from libskylark_tpu_torch.base.device import as_tensor, resolve_device
-from libskylark_tpu_torch.base.distance import (euclidean_distance_matrix,
+from libskylark_tpu_torch.base.distance import (_norm_expansion,
                                                 l1_distance_matrix)
 
 _KERNEL_REGISTRY: dict[str, type["Kernel"]] = {}
@@ -73,30 +83,46 @@ def _inner_gram(X, Y, device) -> torch.Tensor:
     return X @ (X if Y is None else as_tensor(Y, X.device)).T
 
 
-def _row_blocks(gram):
-    """``gram`` on a DTensor X: the rank's rows of K against Y whole
-    (module docstring)."""
+def _other_rows(Y, cols, device) -> torch.Tensor:
+    """Every row of ``Y`` on the features [cols.lo, cols.hi) of a
+    ``mesh._Space``: a tensor whole (sliced), or a DTensor whose block
+    covers those features (its rows gathered) or another block (gathered
+    whole)."""
+    from libskylark_tpu_torch.parallel import mesh as pmesh
+
+    if not pmesh._is_sharded(Y):
+        return as_tensor(Y, device)[:, cols.lo: cols.hi]
+    Yb = pmesh._Blocks(Y)
+    if (Yb.cols.lo, Yb.cols.hi) == (cols.lo, cols.hi):
+        return Yb.rows.gather(Yb.local)
+    return pmesh._whole(Y)[:, cols.lo: cols.hi]
+
+
+def _sharded_gram(gram):
+    """``gram`` on a DTensor operand (module docstring); a dense or
+    sparse pair takes ``gram`` itself."""
 
     @functools.wraps(gram)
     def wrapper(self, X, Y=None, device=None):
         from libskylark_tpu_torch.parallel import mesh as pmesh
 
-        if not pmesh._is_sharded(X):
-            if pmesh._is_sharded(Y):
-                raise errors.NotImplementedYetError(
-                    "gram of a whole X against a DTensor Y (ROADMAP A5b)")
-            return gram(self, X, Y, device)
-        B = pmesh._Blocks(X)
-        if B.cols.split:
-            raise errors.NotImplementedYetError(
-                "gram of a DTensor whose features are split (ROADMAP A5b)")
-        Y = X if Y is None else Y
+        if pmesh._is_sharded(X):
+            B = pmesh._Blocks(X)
+            other = _other_rows(X if Y is None else Y, B.cols,
+                                B.local.device)
+            K = self._finish(B.cols.sum(self._partial(B.local, other)))
+            return B.rows.wrap(K)
         if pmesh._is_sharded(Y):
-            Yb = pmesh._Blocks(Y)
-            Y = Yb.rows.gather(Yb.local)
-        else:
-            Y = as_tensor(Y, B.local.device)
-        return B.rows.wrap(gram(self, B.local, Y, B.local.device))
+            from torch.distributed.tensor import Replicate, Shard
+
+            B = pmesh._Blocks(Y)
+            X = as_tensor(X, B.local.device)[:, B.cols.lo: B.cols.hi]
+            K = self._finish(B.cols.sum(self._partial(X, B.local)))
+            return pmesh._from_local(
+                K, B.mesh, [Shard(1) if i in B.rows.dims else Replicate()
+                            for i in range(B.mesh.ndim)],
+                (X.shape[0], B.rows.n))
+        return gram(self, X, Y, device)
 
     return wrapper
 
@@ -122,6 +148,15 @@ class Kernel:
         """K[i, j] = k(X[i], Y[j]); Y defaults to X."""
         raise errors.NotImplementedYetError(
             f"{self.kernel_type}: gram not implemented")
+
+    def _partial(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+        """The feature sum of every pair of rows of dense X and Y."""
+        raise errors.NotImplementedYetError(
+            f"{self.kernel_type}: gram not implemented")
+
+    def _finish(self, P: torch.Tensor) -> torch.Tensor:
+        """K from the summed feature sums ``P``."""
+        return P
 
     def symmetric_gram(self, X, device=None) -> torch.Tensor:
         return self.gram(X, None, device)
@@ -161,9 +196,12 @@ class Linear(Kernel):
 
     kernel_type = "linear"
 
-    @_row_blocks
+    @_sharded_gram
     def gram(self, X, Y=None, device=None):
         return _inner_gram(X, Y, device)
+
+    def _partial(self, X, Y):
+        return X @ Y.T
 
     def create_rft(self, S, context, tag="regular"):
         from libskylark_tpu_torch import sketch as sk
@@ -191,11 +229,15 @@ class Gaussian(Kernel):
     def sigma(self) -> float:
         return self._sigma
 
-    @_row_blocks
+    @_sharded_gram
     def gram(self, X, Y=None, device=None):
-        X, Y = _operands(X, Y, device)
-        return torch.exp(-euclidean_distance_matrix(X, Y)
-                         / (2.0 * self._sigma**2))
+        return self._finish(self._partial(*_operands(X, Y, device)))
+
+    def _partial(self, X, Y):
+        return _norm_expansion(X, Y)
+
+    def _finish(self, P):
+        return torch.exp(-torch.clamp_min(P, 0.0) / (2.0 * self._sigma**2))
 
     def create_rft(self, S, context, tag="regular"):
         from libskylark_tpu_torch import sketch as sk
@@ -225,9 +267,15 @@ class Polynomial(Kernel):
         self._c = float(c)
         self._gamma = float(gamma)
 
-    @_row_blocks
+    @_sharded_gram
     def gram(self, X, Y=None, device=None):
-        return (self._gamma * _inner_gram(X, Y, device) + self._c) ** self._q
+        return self._finish(_inner_gram(X, Y, device))
+
+    def _partial(self, X, Y):
+        return X @ Y.T
+
+    def _finish(self, P):
+        return (self._gamma * P + self._c) ** self._q
 
     def create_rft(self, S, context, tag="regular"):
         from libskylark_tpu_torch import sketch as sk
@@ -251,10 +299,15 @@ class Laplacian(Kernel):
         super().__init__(N)
         self._sigma = float(sigma)
 
-    @_row_blocks
+    @_sharded_gram
     def gram(self, X, Y=None, device=None):
-        X, Y = _operands(X, Y, device)
-        return torch.exp(-l1_distance_matrix(X, Y) / self._sigma)
+        return self._finish(self._partial(*_operands(X, Y, device)))
+
+    def _partial(self, X, Y):
+        return l1_distance_matrix(X, Y)
+
+    def _finish(self, P):
+        return torch.exp(-P / self._sigma)
 
     def create_rft(self, S, context, tag="regular"):
         from libskylark_tpu_torch import sketch as sk
@@ -281,15 +334,20 @@ class ExpSemigroup(Kernel):
         super().__init__(N)
         self._beta = float(beta)
 
-    @_row_blocks
+    @_sharded_gram
     def gram(self, X, Y=None, device=None):
-        X, Y = _operands(X, Y, device)
+        return self._finish(self._partial(*_operands(X, Y, device)))
+
+    def _partial(self, X, Y):
         # the (rows, n, d) broadcast, a bounded number of rows at a time
         step = max(1, _BROADCAST_ELEMENTS // max(1, Y.shape[0] * Y.shape[1]))
         parts = [torch.sqrt(torch.clamp_min(Xc[:, None, :] + Y[None, :, :],
                                             0.0)).sum(-1)
                  for Xc in torch.split(X, step)]
-        return torch.exp(-self._beta * torch.cat(parts))
+        return torch.cat(parts) if parts else X.new_zeros((0, Y.shape[0]))
+
+    def _finish(self, P):
+        return torch.exp(-self._beta * P)
 
     def create_rft(self, S, context, tag="regular"):
         from libskylark_tpu_torch import sketch as sk
@@ -318,10 +376,15 @@ class Matern(Kernel):
         self._nu = float(nu)
         self._l = float(l)
 
-    @_row_blocks
+    @_sharded_gram
     def gram(self, X, Y=None, device=None):
-        X, Y = _operands(X, Y, device)
-        r = torch.sqrt(euclidean_distance_matrix(X, Y))
+        return self._finish(self._partial(*_operands(X, Y, device)))
+
+    def _partial(self, X, Y):
+        return _norm_expansion(X, Y)
+
+    def _finish(self, P):
+        r = torch.sqrt(torch.clamp_min(P, 0.0))
         nu, l = self._nu, self._l
         if nu == 0.5:
             return torch.exp(-r / l)

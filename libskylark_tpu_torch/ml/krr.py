@@ -45,6 +45,15 @@ W comes back Replicate(). Exact ``kernel_ridge`` solves the whole n × n
 system on every rank, as XLA's replicated Cholesky does: the examples
 are gathered once (an all_gather of X, n × d) to form it, and A comes
 back split like X's rows.
+
+X may also have its features (columns) split, alone or with its rows.
+Exact ``kernel_ridge`` then forms K by the kernel's own DTensor route
+(ml/kernels.py: each rank's features' partial, one all_reduce, f on the
+sum) and gathers K's rows where they are split. Every other regime first
+lays X out split on its rows by one all-to-all (``mesh._rows_layout``:
+at config 5 it moves X, 60,000 × 784, once, where the feature map's
+partial per apply would all-reduce Z, 60,000 × s) and takes the row
+route.
 """
 
 from __future__ import annotations
@@ -61,7 +70,6 @@ from libskylark_tpu_torch.algorithms.precond import FunctionPrecond, IdPrecond
 from libskylark_tpu_torch.base.context import Context
 from libskylark_tpu_torch.base.device import as_tensor
 from libskylark_tpu_torch.base.params import Params
-from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.precision import with_solver_precision
 from libskylark_tpu_torch.ml.kernels import Kernel
 from libskylark_tpu_torch.parallel import mesh as pmesh
@@ -128,7 +136,8 @@ def _data(X, Y, device):
     (rows split) stays; Y becomes a DTensor split like X's rows (its
     rows taken where it is whole)."""
     if pmesh._is_sharded(X):
-        B = _example_blocks(X)
+        X = pmesh._rows_layout(X)
+        B = pmesh._Blocks(X)
         Y = B.row_block(Y)
         return X, B.rows.wrap(Y[:, None] if Y.ndim == 1 else Y)
     X = as_tensor(X, device)
@@ -154,14 +163,6 @@ def _run_program(fn, name: str, extras: tuple, X, Y, lam, *transforms,
     return cf(X, Y, lam, *transforms, **statics)
 
 
-def _example_blocks(X) -> pmesh._Blocks:
-    B = pmesh._Blocks(X)
-    if B.cols.split:
-        raise errors.NotImplementedYetError(
-            "KRR on a DTensor whose features are split (ROADMAP A5b)")
-    return B
-
-
 @with_solver_precision
 def kernel_ridge(k: Kernel, X, Y, lam: float,
                  params: Optional[KrrParams] = None,
@@ -169,15 +170,23 @@ def kernel_ridge(k: Kernel, X, Y, lam: float,
     """Exact KRR: A = (K + λI)⁻¹·Y by Cholesky. Predict with
     :func:`krr_predict`."""
     params = params or KrrParams()
-    X, Y = _data(X, Y, device)
     params.log(1, "kernel_ridge: solving (K + lambda I) A = Y")
     if pmesh._is_sharded(X):
-        # the whole system on every rank: the examples gathered once
-        B = _example_blocks(X)
-        Xw, Yw = pmesh._whole(X), pmesh._whole(Y)
-        K = k.symmetric_gram(Xw, Xw.device) + lam * _eye(Xw.shape[0], Xw)
-        A = torch.cholesky_solve(Yw, torch.linalg.cholesky(K))
+        # the whole system on every rank
+        B = pmesh._Blocks(X)
+        Y = B.row_block(Y)
+        Y = B.rows.wrap(Y[:, None] if Y.ndim == 1 else Y)
+        if B.cols.split:
+            # K by the kernel's features-split route, its rows gathered
+            K = B.rows.gather(k.symmetric_gram(X).to_local())
+        else:
+            # the examples gathered once
+            Xw = pmesh._whole(X)
+            K = k.symmetric_gram(Xw, Xw.device)
+        K = K + lam * _eye(K.shape[0], K)
+        A = torch.cholesky_solve(pmesh._whole(Y), torch.linalg.cholesky(K))
         return B.rows.wrap(B.rows.take(A))
+    X, Y = _data(X, Y, device)
     return _run_program(_exact_program(k), "kernel_ridge",
                          (engine.digest(k),), X, Y, lam)
 
@@ -297,7 +306,7 @@ def _split_features_ridge(X, Y, lam, R, *transforms, s: int):
     from libskylark_tpu_torch import sketch as sk
 
     SY = R.apply(Y, sk.COLUMNWISE, device=X.device)
-    B = _example_blocks(X) if pmesh._is_sharded(X) else None
+    B = pmesh._Blocks(X) if pmesh._is_sharded(X) else None
     parts = []
     for S in transforms:
         Z = S.apply(X, sk.ROWWISE, device=X.device)

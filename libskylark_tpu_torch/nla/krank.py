@@ -12,20 +12,26 @@ Dense linear algebra runs on the operand's device; the adaptive finder's
 recurrence and the interpolative-decomposition variants run on the host
 (numpy, scipy), as in the reference.
 
-A DTensor operand whose rows are split over a mesh (parallel/mesh.py) is
-never gathered: the stored test matrices (whole on every rank) multiply
-each rank's rows, Aᵀ·Y is the ranks' local products and one all_reduce,
-and the basis Q stays on each rank's rows (Shard(0)). Each QR of a tall
-panel is the reference's Householder QR, which XLA replicates: the
-panel (m × s) is gathered, factored on every rank, and each keeps its
-rows (``_qr``). ``RangeAssistedSVD``/``RangeAssistedEVD`` take the
-``direct`` method on such operands (Qᵀ·A summed over the ranks, the small
-factorization on every rank); the adaptive finder and the host variants
-raise NotImplementedYetError (ROADMAP A5b).
+A DTensor operand split over a mesh (parallel/mesh.py), on its rows, its
+columns or both, is never gathered by the finders that run on the card:
+the stored test matrices (whole on every rank) multiply each rank's
+block, summed over the ranks that split the columns
+(``_Blocks.mv_whole``); Aᵀ·Y is the ranks' local products, one
+all_reduce over those that split the rows and the gather of the short
+result over those that split the columns (``rmv_whole``); the basis Q
+stays on each rank's rows. Each QR of a tall panel is the reference's
+Householder QR, which XLA replicates: the panel (m × s) is gathered,
+factored on every rank, and each keeps its rows (``_qr``).
+``RangeAssistedSVD``/``RangeAssistedEVD``'s ``direct`` method runs on
+the blocks (Qᵀ·A summed over the ranks, the small factorization on every
+rank). The adaptive finder and the other variants pull A whole once,
+as the reference does (``np.asarray(self.A)``), and run the one-process
+method on every rank; the factors come back laid out as A's.
 """
 
 from __future__ import annotations
 
+import copy
 import warnings
 from typing import Optional, Tuple
 
@@ -92,7 +98,7 @@ class RandomizedRangeFinder:
             raise errors.InvalidParametersError(
                 f"missing arguments {missing} for method {method!r}")
         self.A = as_tensor(A, device)
-        self._B = _row_blocks(self.A, method, ("adaptive",))
+        self._B = pmesh._Blocks(self.A)
         self.method = method
         self.kwargs = kwargs
         self.context = context
@@ -109,36 +115,37 @@ class RandomizedRangeFinder:
 
     def _generic(self):
         S = self._test_matrix(int(self.kwargs["s"]))
-        return _qr(self._B, self._B.mv(S))
+        return _qr(self._B, self._B.mv_whole(S))
 
     def _power_iteration(self):
         B = self._B
         S = self._test_matrix(int(self.kwargs["s"]))
-        Y = B.mv(S)
+        Y = B.mv_whole(S)
         for _ in range(int(self.kwargs["q"])):
-            Y = B.mv(B.rmv(Y))
+            Y = B.mv_whole(B.rmv_whole(Y))
         return _qr(B, Y)
 
     def _subspace_iteration(self):
         B = self._B
         S = self._test_matrix(int(self.kwargs["s"]))
-        Q = _qr(B, B.mv(S))
+        Q = _qr(B, B.mv_whole(S))
         for _ in range(int(self.kwargs["q"])):
-            W = torch.linalg.qr(B.rmv(Q))[0]
-            Q = _qr(B, B.mv(W))
+            W = torch.linalg.qr(B.rmv_whole(Q))[0]
+            Q = _qr(B, B.mv_whole(W))
         return Q
 
     def _fast_generic(self):
         B = self._B
         S = srft_matrix(B.shape[1], int(self.kwargs["s"]), self.context,
                         B.local.dtype, B.local.device)
-        return _qr(B, B.mv(S))
+        return _qr(B, B.mv_whole(S))
 
     def _adaptive(self):
         """Alg 4.2: grow Q one vector at a time until the residual norms
         of ``r`` probe vectors fall below ε/(10·√(2/π)). Sequential; runs
-        on the host in the operand's precision, as the reference does."""
-        A = self.A.cpu().numpy()
+        on the host in the operand's precision, as the reference does (a
+        DTensor pulled whole once; each rank keeps its rows of Q)."""
+        A = _host(self.A)
         eps = float(self.kwargs["epsilon"])
         r = int(self.kwargs["r"])
         max_iters = int(self.kwargs["max_iters"])
@@ -167,18 +174,25 @@ class RandomizedRangeFinder:
         if iters == max_iters:
             warnings.warn(f"adaptive range finder: no convergence "
                           f"after {iters} iterations")
-        return torch.from_numpy(Q).to(self.A.device)
+        return self._B.rows.take(torch.from_numpy(Q).to(
+            self._B.local.device))
 
 
-def _row_blocks(A, method: str, host: tuple) -> pmesh._Blocks:
-    """A's blocks (``mesh._Blocks``); a DTensor must keep its columns
-    whole and take a method that runs on its blocks."""
-    B = pmesh._Blocks(A)
-    if B.sharded and (B.cols.split or method in host):
-        raise errors.NotImplementedYetError(
-            f"{method!r} on a DTensor (columns split or a host method) "
-            "(ROADMAP A5b)")
-    return B
+def _host(A) -> np.ndarray:
+    """A on the host: a DTensor gathered whole (``parallel.to_host``)."""
+    return pmesh.to_host(A) if pmesh._is_sharded(A) else A.cpu().numpy()
+
+
+def _on_whole(ra, lay_out):
+    """A variant that runs on whole operands, on a DTensor: A gathered
+    whole once, Q's rows gathered, the one-process method on every rank,
+    its factors laid out by ``lay_out``."""
+    B = ra._B
+    whole = copy.copy(ra)
+    whole.A = pmesh._whole(ra.A)
+    whole.Q = B.rows.gather(ra.Q)
+    whole._B = pmesh._Blocks(whole.A)
+    return lay_out(B, *getattr(whole, f"_{ra.method}")())
 
 
 def _qr(B: pmesh._Blocks, Y: torch.Tensor) -> torch.Tensor:
@@ -219,24 +233,26 @@ class RangeAssistedSVD:
         if method not in self.args:
             raise errors.InvalidParametersError(f"unknown method {method!r}")
         self.A = as_tensor(A, device)
-        self._B = _row_blocks(self.A, method, ("row_extraction",))
+        self._B = pmesh._Blocks(self.A)
         self.Q = (_local_rows(self._B, Q) if self._B.sharded
                   else as_tensor(Q, self.A.device))
         self.method = method
 
     @with_solver_precision
     def compute(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        if self._B.sharded and self.method != "direct":
+            return _on_whole(self, lambda B, U, sigma, Vt: (
+                B.rows.wrap(B.rows.take(U)), B.whole(sigma), B.whole(Vt)))
         return getattr(self, f"_{self.method}")()
 
     def _direct(self):
         B = self._B
-        # Qᵀ·A: the ranks' local products, summed
-        U, sigma, Vt = torch.linalg.svd(B.rows.sum(self.Q.T @ B.local),
+        U, sigma, Vt = torch.linalg.svd(B.qt_whole(self.Q),
                                         full_matrices=False)
         return B.rows.wrap(self.Q @ U), B.whole(sigma), B.whole(Vt)
 
     def _row_extraction(self):
-        A = self.A.cpu().numpy()
+        A = _host(self.A)
         Xr, J = _row_id(self.Q.cpu().numpy(), A.dtype)
         W, R = np.linalg.qr(A[J, :].T)     # A[J, :] = Rᵀ·Wᵀ
         U, sigma, Vhat_t = np.linalg.svd(Xr @ R.T, full_matrices=False)
@@ -267,8 +283,7 @@ class RangeAssistedEVD:
         if method == "one_pass" and context is None:
             raise errors.InvalidParametersError("one_pass needs a context")
         self.A = as_tensor(A, device)
-        self._B = _row_blocks(self.A, method,
-                              ("row_extraction", "nystrom", "one_pass"))
+        self._B = pmesh._Blocks(self.A)
         self.Q = (_local_rows(self._B, Q) if self._B.sharded
                   else as_tensor(Q, self.A.device))
         self.method = method
@@ -277,18 +292,21 @@ class RangeAssistedEVD:
 
     @with_solver_precision
     def compute(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self._B.sharded and self.method != "direct":
+            return _on_whole(self, lambda B, w, V: (
+                B.whole(w), B.rows.wrap(B.rows.take(V))))
         return getattr(self, f"_{self.method}")()
 
     def _direct(self):
         B = self._B
         # Qᵀ·A·Q of a square A split on its rows: A's columns need the
         # whole basis (an all_gather of the n × s panel, not of A)
-        AQ = B.mv(B.rows.gather(self.Q))
+        AQ = B.mv_whole(B.rows.gather(self.Q))
         w, V = torch.linalg.eigh(B.rows.sum(self.Q.T @ AQ))
         return B.whole(w), B.rows.wrap(self.Q @ V)
 
     def _row_extraction(self):
-        A = self.A.cpu().numpy()
+        A = _host(self.A)
         Xr, J = _row_id(self.Q.cpu().numpy(), A.dtype)
         V, R = np.linalg.qr(Xr)
         Z = R @ A[np.ix_(J, J)] @ R.T      # A ≈ Xr·A[J,J]·Xrᵀ

@@ -10,14 +10,18 @@ and the iteration are the reference's. ``power_iterations_rand_evd``
 runs on A's device: a JLT range sketch (the dense kernel, rowwise), power
 iterations, QR and an SVD.
 
-A DTensor A whose rows are split over a mesh (parallel/mesh.py) is never
-gathered: the sketch S·A is the transform's DTensor apply (each rank's
-partial, one all_reduce: Replicate(), s × n); LOBPCG runs on the host of
-every rank with AᵀA·x as the rank's host rows' product and one
-all_reduce, so every rank iterates on the same numbers and returns the
-same bytes. ``power_iterations_rand_evd`` keeps Y on each rank's rows,
-its QR the reference's replicated Householder QR of the gathered (m × k)
-panel.
+A DTensor A split over a mesh (parallel/mesh.py), on its rows, its
+columns or both, is never gathered: the sketch S·A is the transform's
+DTensor apply (each rank's partial, one all_reduce where the rows are
+split), its columns gathered where they are split (s × n, small);
+LOBPCG runs on the host of every rank with AᵀA·x as the rank's host
+block's products, A·x summed over the ranks that split the columns and
+Aᵀ·(A·x) over those that split the rows, then gathered over the first
+(``mesh._Blocks``), so every rank iterates on the same numbers and
+returns the same bytes. ``power_iterations_rand_evd`` keeps Y on each
+rank's rows, its QR the reference's replicated Householder QR of the
+gathered (m × k) panel, and its products ``_Blocks.mv_whole`` and
+``rmv_whole``.
 """
 
 from __future__ import annotations
@@ -68,22 +72,31 @@ def lobpcg_rand_evd(A, k: int, context: Context, s: Optional[int] = None,
     T = sketches[sketch](m, s, context)
     B = T.apply(A, sk.COLUMNWISE, device=A.device)
     blocks = pmesh._Blocks(A)
-    if blocks.cols.split:
-        raise errors.NotImplementedYetError(
-            "lobpcg_rand_evd of a DTensor with split columns (ROADMAP A5b)")
-    B = (B.to_local() if blocks.sharded else B).cpu().numpy()
+    if blocks.sharded:
+        # the sketch's columns, where A's are split
+        B = blocks.cols.gather(B.to_local().T).T
+    B = B.cpu().numpy()
     _, _, Vt = np.linalg.svd(B, full_matrices=False)
     _, R = np.linalg.qr(B)
 
     Ah = blocks.local.cpu().numpy()
+    cols = blocks.cols
+
+    def device_op(op, y):
+        t = torch.from_numpy(np.ascontiguousarray(y)).to(blocks.local.device)
+        return op(t).cpu().numpy()
 
     def amul(x):
-        y = Ah.T @ (Ah @ x)
+        # A_loc·x on this rank's columns, Σ over the ranks that split them
+        u = Ah @ x[cols.lo: cols.hi]
+        if cols.split:
+            u = device_op(cols.sum, u)
+        y = Ah.T @ u
         if blocks.rows.split:
-            # Σ over the ranks of A_locᵀ·A_loc·x
-            t = torch.from_numpy(np.ascontiguousarray(y)).to(
-                blocks.local.device)
-            y = blocks.rows.sum(t).cpu().numpy()
+            # Σ over the ranks of A_locᵀ·(A·x)
+            y = device_op(blocks.rows.sum, y)
+        if cols.split:
+            y = device_op(cols.gather, y)
         return y
 
     def precond(y):
@@ -112,15 +125,10 @@ def power_iterations_rand_evd(A, k: int, context: Context,
     T = sk.JLT(A.shape[1], k, context)
     Y = T.apply(A, sk.ROWWISE, device=A.device)          # A·Sᵀ (m, k)
     B = pmesh._Blocks(A)
-    if B.cols.split:
-        raise errors.NotImplementedYetError(
-            "power_iterations_rand_evd of a DTensor with split columns "
-            "(ROADMAP A5b)")
     if B.sharded:
         Y = Y.to_local()
     for _ in range(power_iters):
-        Y = B.mv(B.rmv(Y))
+        Y = B.mv_whole(B.rmv_whole(Y))
     Q = B.rows.take(torch.linalg.qr(B.rows.gather(Y))[0])
-    _, Sigma, Vt = torch.linalg.svd(B.rows.sum(Q.T @ B.local),
-                                    full_matrices=False)
+    _, Sigma, Vt = torch.linalg.svd(B.qt_whole(Q), full_matrices=False)
     return B.whole(Sigma**2), B.whole(Vt)

@@ -32,7 +32,13 @@ Householder QR, which XLA replicates: the panel is gathered explicitly
 (an all_gather of the m × k' panel, not of A). U comes back sharded like
 A's rows (Shard(0)), V like its columns (Replicate() for a row-sharded
 A), σ Replicate(); a wide A is factored as its transpose, whose split
-moves from Shard(0) to Shard(1).
+moves from Shard(0) to Shard(1). ``approximate_symmetric_svd`` of a
+DTensor is built the same way (:func:`_symmetric_svd_pipeline`): the range
+sketch by the JLT's DTensor route (B1-rw on each rank's rows of a
+row-sharded A), each product A·Q as ``_Blocks.mv_whole`` of the gathered
+(n × k') basis, CholeskyQR2 with its Grams summed, and the small k' × k'
+eigendecomposition on every rank, so every rank holds the same bytes;
+V comes back split like A's rows, the eigenvalues Replicate().
 """
 
 from __future__ import annotations
@@ -45,8 +51,7 @@ import torch
 from libskylark_tpu_torch import engine
 from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.context import Context
-from libskylark_tpu_torch.base.sparse import (is_sparse_operand,
-                                              linear_ops, place)
+from libskylark_tpu_torch.base.sparse import is_sparse_operand, place
 from libskylark_tpu_torch.base.params import Params
 from libskylark_tpu_torch.base.precision import with_solver_precision
 from libskylark_tpu_torch.nla.tsqr import _cholesky_qr2
@@ -201,23 +206,30 @@ def _symmetric_svd_pipeline(A, T, *, k: int, kp: int, num_iterations: int,
                             skip_qr: bool, ortho: str, device=None):
     """The captured part of the symmetric variant for a dense operand:
     the range sketch (B1-rw), the power iteration and the Rayleigh-Ritz
-    matrix G = sym(QᵀAQ). Returns (Q, G); :func:`_symmetric_svd_finish`
-    takes the rest. A sparse operand runs it directly, with the range
-    sketch on ``device`` (default: A's)."""
+    matrix G = sym(QᵀAQ). Returns (Q, G) on local blocks;
+    :func:`_symmetric_svd_finish` takes the rest. A sparse operand or a
+    DTensor runs it directly, with the range sketch on ``device``
+    (default: A's). For a DTensor, Q lives on A's rows and A·Q needs it
+    on A's columns: the (n × k') basis is gathered (not A) and each
+    rank's block multiplies its columns' rows of it, summed over the
+    ranks that split the columns."""
     from libskylark_tpu_torch.sketch import ROWWISE
 
-    mv, _ = linear_ops(A)
-    whole = pmesh._Space(A.shape[0])
-    Q = _orthonormalize(
-        T.apply(A, ROWWISE, device=A.device if device is None else device),
-        ortho, whole)
+    B = pmesh._Blocks(A)
+
+    def aq(Q):
+        return B.mv_whole(B.rows.gather(Q))
+
+    Q = T.apply(A, ROWWISE, device=A.device if device is None else device)
+    Q = Q.to_local() if B.sharded else Q              # range sketch (n, kp)
+    Q = _orthonormalize(Q, ortho, B.rows)
     for _ in range(num_iterations):
-        Q = mv(Q)
+        Q = aq(Q)
         if not skip_qr:
-            Q = _orthonormalize(Q, ortho, whole)
+            Q = _orthonormalize(Q, ortho, B.rows)
     if skip_qr:
-        Q = _orthonormalize(Q, ortho, whole)
-    G = Q.T @ mv(Q)
+        Q = _orthonormalize(Q, ortho, B.rows)
+    G = B.rows.sum(Q.T @ aq(Q))
     return Q, 0.5 * (G + G.T)
 
 
@@ -291,9 +303,6 @@ def approximate_symmetric_svd(A, rank: int, context: Context,
     ``A`` is dense or a :class:`SparseMatrix`."""
     params = params or ApproximateSVDParams()
     _validate_params(params)
-    if pmesh._is_sharded(A):
-        raise errors.NotImplementedYetError(
-            "approximate_symmetric_svd of a DTensor (ROADMAP A5b)")
     A, device = _operand(A, device)
     n, n2 = A.shape
     if n != n2:
@@ -311,4 +320,8 @@ def approximate_symmetric_svd(A, rank: int, context: Context,
                    skip_qr=bool(params.skip_qr), ortho=params.ortho)
     parts = (_symmetric_svd_compiled(A, T, **statics) if _served(A)
              else _symmetric_svd_pipeline(A, T, device=device, **statics))
-    return _symmetric_svd_finish(parts, k)
+    V, S = _symmetric_svd_finish(parts, k)
+    if pmesh._is_sharded(A):
+        B = pmesh._Blocks(A)
+        return B.rows.wrap(V), B.whole(S)
+    return V, S

@@ -13,14 +13,18 @@ factor (the reference's is NaN), never an error.
 A DTensor panel whose rows are split over a mesh (parallel/mesh.py) is
 never gathered: each rank forms its G_loc = A_locᵀ·A_loc, one all_reduce
 of the k × k Gram sums them, the Cholesky runs on every rank, and Q =
-A_loc·R⁻¹ stays on the rank's rows (Shard(0)); R is Replicate().
+A_loc·R⁻¹ stays on the rank's rows (Shard(0)); R is Replicate(). A
+panel whose columns are split needs every column block against every
+other for its Gram: one all-to-all (``mesh._rows_layout``) first lays it
+out split on its rows, the row route runs, and a second all-to-all gives
+Q back in the panel's own placement. A panel is tall and skinny, so this
+moves 2·(p−1)/p of its bytes and gathers nothing.
 """
 
 from __future__ import annotations
 
 import torch
 
-from libskylark_tpu_torch.base import errors
 from libskylark_tpu_torch.base.precision import with_solver_precision
 from libskylark_tpu_torch.parallel import mesh as pmesh
 
@@ -53,13 +57,16 @@ def _cholesky_qr2(A: torch.Tensor, total=None):
 
 
 def _sharded(fn, A):
-    """``fn`` on a DTensor panel's rows: (Q Shard(0), R Replicate())."""
-    B = pmesh._Blocks(A)
-    if B.cols.split:
-        raise errors.NotImplementedYetError(
-            "CholeskyQR of a DTensor with split columns (ROADMAP A5b)")
+    """``fn`` on a DTensor panel's rows: (Q split like the panel's rows,
+    R Replicate()); a panel with split columns by way of the rows layout
+    (module docstring), Q returned in its placement."""
+    rows = pmesh._rows_layout(A)
+    B = pmesh._Blocks(rows)
     Q, R = fn(B.local, B.rows.sum)
-    return B.rows.wrap(Q), B.whole(R)
+    Q = B.rows.wrap(Q)
+    if rows is not A:
+        Q = pmesh._exchange(Q, A.placements)
+    return Q, B.whole(R)
 
 
 @with_solver_precision

@@ -33,8 +33,12 @@ where the reference's partitioner would insert a collective the port
 issues one on the mesh's groups: ``_reduce_partial`` (one all_reduce per
 mesh dimension that splits the contracted axis), ``_Space.gather`` (an
 all_gather of a small panel, named at each site) or ``_exchange`` (the
-all-to-all that moves a split from one axis to the other). Every one is
-counted in :data:`collectives`; none gathers a tall operand. gloo
+all-to-all that moves a split from one axis to the other;
+``_rows_layout`` moves every column split to the rows). Any placement
+is taken: rows, columns or both split, on a line or a grid. Every
+collective is counted in :data:`collectives`; none gathers a tall
+operand but krank's host variants, which pull A whole once as the
+reference does. gloo
 carries all_reduce of CUDA tensors itself; the other collectives of a
 gloo group stage a CUDA tensor through host memory here.
 """
@@ -480,25 +484,79 @@ class _Blocks:
     def sharded(self) -> bool:
         return self.mesh is not None
 
+    def mv_whole(self, X: torch.Tensor) -> torch.Tensor:
+        """A·X for an X every rank holds whole (n × k): this rank's rows
+        of the product (its columns of X, then ``mv``: one all_reduce
+        per mesh dimension that splits the columns)."""
+        return self.mv(self.cols.take(X))
+
+    def rmv_whole(self, Y: torch.Tensor) -> torch.Tensor:
+        """Aᵀ·Y for Y on this rank's rows: the whole (n × k) product on
+        every rank (``rmv``, then the gather of the short column-indexed
+        result over the mesh dimensions that split the columns)."""
+        return self.cols.gather(self.rmv(Y))
+
+    def qt_whole(self, Q: torch.Tensor) -> torch.Tensor:
+        """Qᵀ·A whole (k × n) for Q on this rank's rows: ``rmv_whole``
+        transposed, with the one-process product's operand order
+        (Qᵀ·A_loc, summed over the ranks that split the rows, then
+        gathered over those that split the columns)."""
+        return self.cols.gather(self.rows.sum(Q.T @ self.local).T).T
+
     def whole(self, t: torch.Tensor):
         return self.rows.whole(t)
 
+    def col_block(self, X) -> torch.Tensor:
+        """This rank's rows of ``X``, a panel on the operand's columns
+        (:meth:`_take_block`)."""
+        return self._take_block(X, self.cols, "columns")
+
     def row_block(self, B) -> torch.Tensor:
         """This rank's rows of ``B``, a right-hand side beside the
-        operand: a DTensor split as the operand's rows (its block), or a
-        tensor every rank holds whole (sliced)."""
-        if _is_sharded(B):
-            loc, lo = _local_block(B, 0)
-            if (lo, lo + loc.shape[0]) == (self.rows.lo, self.rows.hi):
+        operand (:meth:`_take_block`)."""
+        return self._take_block(B, self.rows, "rows")
+
+    def _take_block(self, X, space: _Space, what: str) -> torch.Tensor:
+        """This rank's rows of ``X`` on ``space``: a DTensor split as the
+        space (its block), a DTensor whose rows are whole or a tensor
+        every rank holds whole (sliced). A DTensor whose columns are
+        split is refused: each rank would keep other columns of it."""
+        if _is_sharded(X):
+            mesh = X.device_mesh
+            if any(p.is_shard() and p.dim != 0 and mesh.size(i) > 1
+                   for i, p in enumerate(X.placements)):
+                raise errors.InvalidParametersError(
+                    f"operand on the {what} has its columns split "
+                    f"({tuple(X.placements)}); give it with whole columns")
+            loc, lo = _local_block(X, 0)
+            if (lo, lo + loc.shape[0]) == (space.lo, space.hi):
                 return loc
-            raise errors.InvalidParametersError(
-                f"right-hand side rows [{lo}, {lo + loc.shape[0]}) do not "
-                f"match the operand's [{self.rows.lo}, {self.rows.hi})")
+            if loc.shape[0] != space.n:
+                raise errors.InvalidParametersError(
+                    f"operand rows [{lo}, {lo + loc.shape[0]}) do not "
+                    f"match the operand's {what} [{space.lo}, {space.hi})")
+            return space.take(loc)
         from libskylark_tpu_torch.base.device import as_tensor
 
         dev = (self.local.device if isinstance(self.local, torch.Tensor)
                else None)
-        return as_tensor(B, dev)[self.rows.lo: self.rows.hi]
+        return space.take(as_tensor(X, dev))
+
+
+def _rows_layout(x):
+    """``x`` (a 2-D DTensor) with its columns whole: every mesh dimension
+    that splits its columns splits its rows instead, by one
+    :func:`_exchange` (``x`` itself where no dimension of more than one
+    rank splits the columns). The layout of the routes that need whole
+    rows (CholeskyQR2's Gram, a feature map, ADMM's examples)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    if not any(p.is_shard(1) and mesh.size(i) > 1
+               for i, p in enumerate(x.placements)):
+        return x
+    return _exchange(x, [Shard(0) if p.is_shard(1) else p
+                         for p in x.placements])
 
 
 def _whole(x) -> torch.Tensor:
@@ -515,6 +573,25 @@ def _whole(x) -> torch.Tensor:
     return loc.contiguous()
 
 
+def _flat_group(mesh):
+    """The process group over all of ``mesh``'s ranks: a 1-D mesh's own,
+    the one :func:`make_mesh` made for a grid, or, for a grid made
+    elsewhere (``init_device_mesh``), that of torch's flattened mesh,
+    made by the mesh's ranks alone on its first use and kept on the
+    mesh."""
+    if mesh.ndim == 1:
+        return mesh.get_group(0)
+    group = getattr(mesh, "_skylark_flat", None)
+    if group is None:
+        if not mesh.mesh_dim_names:
+            raise errors.InvalidParametersError(
+                "a multi-dimensional mesh needs dimension names (rows, "
+                "cols) for its ranks' group")
+        group = mesh._flatten().get_group(0)
+        mesh._skylark_flat = group
+    return group
+
+
 def _exchange(x, dst_placements):
     """``x`` (a 2-D DTensor) laid out as ``dst_placements`` by one
     all_to_all over the mesh's ranks: each rank sends every other the part
@@ -526,13 +603,9 @@ def _exchange(x, dst_placements):
     mesh, shape = x.device_mesh, tuple(x.shape)
     src_pl, dst_pl = tuple(x.placements), tuple(dst_placements)
     _check_placements(x)
-    group = (mesh.get_group(0) if mesh.ndim == 1
-             else getattr(mesh, "_skylark_flat", None))
-    if group is None:
-        raise errors.NotImplementedYetError(
-            "a multi-dimensional mesh not made by parallel.make_mesh has no "
-            "group over all its ranks (ROADMAP A5b)")
-    ranks = sorted(int(r) for r in mesh.mesh.flatten())
+    group = _flat_group(mesh)
+    # the group's ranks in its own order, the order of the splits
+    ranks = dist.get_process_group_ranks(group)
     grid = mesh.mesh
 
     def rect(placements, r):

@@ -9,17 +9,35 @@ transform contracts (A's rows columnwise, its columns rowwise):
   apply on its block, so the kernel that apply launches (B1, B1-cos, B2,
   B4, B5), with no collective;
 - **split**: each rank takes its partial against its own columns of S,
-  at its block's global offset (``_split_axis_apply`` of the transform:
-  B1's partial kernel, B2 with ``n0``, the hash scatter on the sliced
-  streams, UST's gather of its own samples), then one all_reduce over
-  each mesh dimension that splits the axis, then the transform's
-  epilogue on the sum (the scale; the RFTs' shift, cos and outscale).
-  FJLT's mixer needs the whole axis instead: it first moves the split to
-  the kept axis by one all-to-all (fjlt.py).
+  at its block's global offset (``_split_axis_apply`` of the transform),
+  then one all_reduce over each mesh dimension that splits the axis,
+  then the transform's epilogue on the sum:
+
+  ================  ==================================================
+  JLT, CT           B1's partial kernel; the scale
+  CWT, MMT, WZT     B2 with ``n0`` (CWT in float32), else the scatter on
+                    the sliced streams
+  UST               the gather of the rank's own samples
+  RFT family        B1's partial kernel (or W's panel); inscale, shifts,
+                    per-feature scales, cos (exp) and outscale
+  QRFT family       the columns [lo, hi) of W's quasi-random panel; the
+                    shifts, cos (exp) and outscale
+  PPT               each CountSketch's B2 at ``n0``, the q partials
+                    reduced as one stacked tensor; the lift (once, on
+                    the sum), the FFT product
+  ================  ==================================================
+
+- **a mixer that needs the whole axis** (FJLT, RFUT, Fastfood: the
+  transforms that derive from :class:`WholeAxis`): one all-to-all
+  (``parallel.mesh._exchange``) first moves the split to the kept axis,
+  then each rank runs the one-process apply on its block (B5 for the
+  SRHT, B4 for Fastfood); the result keeps the new split
+  (:func:`apply_whole_axis`).
 
 The result is a DTensor: the kept axis keeps its placement, the sketch
-axis is Replicate(). A transform with no split-axis route raises
-NotImplementedYetError naming ROADMAP A5b.
+axis is Replicate(). Every transform of the reference's set has a route;
+one outside it with no ``_split_axis_apply`` raises
+NotImplementedYetError.
 """
 
 from __future__ import annotations
@@ -85,3 +103,32 @@ def apply(T, A, rowwise: bool):
     placements = [Replicate() if p.is_shard(seq) else p
                   for p in A.placements]
     return pmesh._from_local(out, mesh, placements, shape)
+
+
+def apply_whole_axis(T, A, rowwise: bool):
+    """T·A or A·Tᵀ of the DTensor ``A`` for a transform whose mixer needs
+    the whole sketched axis: where that axis is split, one all-to-all
+    moves the split to the kept axis (Shard(0) → Shard(1) columnwise,
+    the layout change XLA's partitioner inserts), then each rank runs
+    the one-process apply on its block (:func:`apply`)."""
+    from torch.distributed.tensor import Shard
+
+    pmesh._check_placements(A)
+    A = _matrix(A, rowwise)
+    seq = 1 if rowwise else 0
+    if split_dims(A, seq):
+        A = pmesh._exchange(A, [Shard(1 - seq) if p.is_shard(seq) else p
+                                for p in A.placements])
+    return apply(T, A, rowwise)
+
+
+class WholeAxis:
+    """Mixin of the transforms whose mixer needs the whole sketched axis
+    (FJLT, RFUT, Fastfood): their DTensor apply is
+    :func:`apply_whole_axis`."""
+
+    def _apply_columnwise_dtensor(self, A):
+        return apply_whole_axis(self, A, rowwise=False)
+
+    def _apply_rowwise_dtensor(self, A):
+        return apply_whole_axis(self, A, rowwise=True)

@@ -11,7 +11,8 @@ kernel B5 on a CUDA tensor and its plain version on a CPU tensor; other
 shapes take the plain chain, as the reference's own kernel declines them.
 A DTensor split on the sketched axis is first laid out split on the kept
 axis by one all-to-all (``parallel.mesh._exchange``), then each rank
-sketches its block.
+mixes (RFUT) or sketches (FJLT) its block (sketch/dtensor_apply.py
+``WholeAxis``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from libskylark_tpu_torch.base import errors, randgen
 from libskylark_tpu_torch.sketch import cuda_fwht
 from libskylark_tpu_torch.sketch import fut as fut_mod
+from libskylark_tpu_torch.sketch.dtensor_apply import WholeAxis
 from libskylark_tpu_torch.sketch.transform import (SketchTransform, register,
                                                    seeded)
 
@@ -55,7 +57,7 @@ def _popcount_parity(a: np.ndarray) -> np.ndarray:
 
 
 @register
-class RFUT(SketchTransform):
+class RFUT(WholeAxis, SketchTransform):
     """X → F·D·X (output dim == input dim), D Rademacher."""
 
     sketch_type = "RFUT"
@@ -90,7 +92,7 @@ class RFUT(SketchTransform):
 
 
 @register
-class FJLT(SketchTransform):
+class FJLT(WholeAxis, SketchTransform):
     """Fast Johnson-Lindenstrauss transform: subsampled randomized
     DCT/DHT/WHT."""
 
@@ -213,30 +215,6 @@ class FJLT(SketchTransform):
 
     def _apply_rowwise(self, A):
         return self._apply(A, rowwise=True)
-
-    def _apply_dtensor(self, A, rowwise: bool):
-        """The mixer needs the whole sketched axis: where it is split, one
-        all-to-all moves the split to the kept axis (Shard(0) → Shard(1)
-        columnwise, the layout change XLA's partitioner inserts), then
-        each rank runs this FJLT on its block; the result keeps the new
-        split."""
-        from torch.distributed.tensor import Shard
-
-        from libskylark_tpu_torch.parallel import mesh as pmesh
-        from libskylark_tpu_torch.sketch import dtensor_apply
-
-        A = dtensor_apply._matrix(A, rowwise)
-        seq = 1 if rowwise else 0
-        if dtensor_apply.split_dims(A, seq):
-            A = pmesh._exchange(A, [Shard(1 - seq) if p.is_shard(seq) else p
-                                    for p in A.placements])
-        return dtensor_apply.apply(self, A, rowwise)
-
-    def _apply_columnwise_dtensor(self, A):
-        return self._apply_dtensor(A, rowwise=False)
-
-    def _apply_rowwise_dtensor(self, A):
-        return self._apply_dtensor(A, rowwise=True)
 
     def _extra_params(self) -> dict[str, Any]:
         return {"fut": self._fut_name}

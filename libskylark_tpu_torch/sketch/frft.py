@@ -16,6 +16,13 @@ serves and float32 takes the Fastfood kernel's route
 tensor); ``fut="dct"`` and every other NB take the torch chain
 (:func:`_chain_rows` on ``torch.fft`` or the WHT), the reference's own
 XLA chain. The columnwise apply is the rowwise apply of Aᵀ, transposed.
+
+The WHT needs the whole input axis, so a DTensor split on the sketched
+axis is first laid out split on the kept axis by one all-to-all
+(``parallel.mesh._exchange``), then each rank runs the one-process apply
+on its block, B4 on the card (sketch/dtensor_apply.py ``WholeAxis``).
+Every stream, the Matern scales' Gamma draws included, is a pure function
+of the key, so every rank draws the same ones.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 from libskylark_tpu_torch.base import errors, randgen
 from libskylark_tpu_torch.base.context import fold_in
 from libskylark_tpu_torch.sketch import cuda_fastfood
+from libskylark_tpu_torch.sketch.dtensor_apply import WholeAxis
 from libskylark_tpu_torch.sketch.fut import make_fut
 from libskylark_tpu_torch.sketch.rft import matern_scales
 from libskylark_tpu_torch.sketch.transform import (SketchTransform, register,
@@ -158,7 +166,7 @@ def fastfood_serve_apply(key_data, A: torch.Tensor, *, n_dim: int,
                        lambda W: fut_apply_policy(fut_obj, fut, W))
 
 
-class FastRFT(SketchTransform):
+class FastRFT(WholeAxis, SketchTransform):
     """Base Fastfood transform: the WHT core by default, ``fut="dct"``
     for any N without padding."""
 

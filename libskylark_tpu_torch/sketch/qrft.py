@@ -7,6 +7,11 @@ quantile(seq(skip + i, j)), shifts[i] = 2π·seq(skip + i, N). W is built on
 the host in float64 numpy when the transform is built (no randomness is
 involved), then materialized on the apply's device and applied with
 ``torch.matmul``, as the reference applies it; no kernel is involved.
+
+A DTensor whose sketched axis is split contracts each rank's block
+against its own columns [lo, hi) of W (``w_panel``, cut on the host), sums
+the partial projections by one all_reduce and featurizes the sum once
+(sketch/dtensor_apply.py).
 """
 
 from __future__ import annotations
@@ -76,6 +81,13 @@ class QRFT(OperatorCache, SketchTransform):
         return torch.from_numpy(self._W_host).to(device=device, dtype=dtype)
 
     @seeded
+    def w_panel(self, lo: int, hi: int, dtype=torch.float32,
+                device=None) -> torch.Tensor:
+        """W[:, lo:hi], cut on the host."""
+        return torch.from_numpy(np.ascontiguousarray(
+            self._W_host[:, lo:hi])).to(device=device, dtype=dtype)
+
+    @seeded
     def shifts(self, dtype=torch.float32, device=None) -> torch.Tensor:
         return torch.from_numpy(self._shifts_host).to(device=device,
                                                       dtype=dtype)
@@ -87,17 +99,29 @@ class QRFT(OperatorCache, SketchTransform):
         W = self._cached_op(A.dtype, A.device)
         return W if W is not None else self.w_matrix(A.dtype, A.device)
 
+    def _featurize(self, WA: torch.Tensor, feature_axis: int) -> torch.Tensor:
+        sh = self.shifts(WA.dtype, WA.device)
+        return self.outscale * torch.cos(
+            WA + (sh[:, None] if feature_axis == 0 else sh[None, :]))
+
     def _apply_columnwise(self, A: torch.Tensor) -> torch.Tensor:
         self._note_eager_apply(A)
-        W = self._device_W(A)
-        return self.outscale * torch.cos(
-            W @ A + self.shifts(A.dtype, A.device)[:, None])
+        return self._featurize(self._device_W(A) @ A, feature_axis=0)
 
     def _apply_rowwise(self, A: torch.Tensor) -> torch.Tensor:
         self._note_eager_apply(A)
-        W = self._device_W(A)
-        return self.outscale * torch.cos(
-            A @ W.T + self.shifts(A.dtype, A.device)[None, :])
+        return self._featurize(A @ self._device_W(A).T, feature_axis=1)
+
+    def _split_axis_apply(self, A_loc, lo, rowwise, reduce):
+        """This rank's block against W's columns [lo, hi) (the pinned
+        operator's, where one is pinned on the block's device), summed
+        over the ranks, then featurized once."""
+        hi = lo + A_loc.shape[1 if rowwise else 0]
+        W = self._cached_op(A_loc.dtype, A_loc.device)
+        W = (W[:, lo:hi] if W is not None
+             else self.w_panel(lo, hi, A_loc.dtype, A_loc.device))
+        WA = reduce(A_loc @ W.T if rowwise else W @ A_loc)
+        return self._featurize(WA, feature_axis=1 if rowwise else 0)
 
     def _extra_params(self) -> dict[str, Any]:
         return {"sequence": self._sequence.to_dict(), "skip": self._skip}
@@ -174,13 +198,8 @@ class ExpSemigroupQRLT(QRFT):
     def outscale(self) -> float:
         return math.sqrt(1.0 / self._S)
 
-    def _apply_columnwise(self, A: torch.Tensor) -> torch.Tensor:
-        self._note_eager_apply(A)
-        return self.outscale * torch.exp(-(self._device_W(A) @ A))
-
-    def _apply_rowwise(self, A: torch.Tensor) -> torch.Tensor:
-        self._note_eager_apply(A)
-        return self.outscale * torch.exp(-(A @ self._device_W(A).T))
+    def _featurize(self, WA: torch.Tensor, feature_axis: int) -> torch.Tensor:
+        return self.outscale * torch.exp(-WA)
 
     def _extra_params(self):
         d = super()._extra_params()

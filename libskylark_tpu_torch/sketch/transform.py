@@ -435,7 +435,7 @@ class SketchTransform:
         epilogue (sketch/dtensor_apply.py)."""
         raise errors.NotImplementedYetError(
             f"{self.sketch_type}: apply of a DTensor whose sketched axis is "
-            "split (ROADMAP A5b)")
+            "split: this transform has no split-axis route")
 
     def _extra_params(self) -> dict[str, Any]:
         """Transform-specific hyper-params to serialize."""

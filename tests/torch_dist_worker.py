@@ -594,6 +594,251 @@ def _sharded_ml_cases(P, meshes, out):
         put(f"admm_kernel/{mname}", kernel)
 
 
+# -- the split-column (DTensor) cases ----------------------------------------
+
+# the meshes of the split-column group: make_mesh's, and "i22", a 2 × 2
+# grid made by torch's init_device_mesh (no group of make_mesh's own)
+COLS_MESHES = ("m1", "m2", "m4", "m5", "g22", "i22")
+# the transforms whose split-axis route this group holds, each with its
+# oracle atol (the reference's TestShardedOracle: max(1e-4, atol))
+COLS_TRANSFORMS = {
+    "FastGaussianRFT": 1e-4, "FastMaternRFT": 1e-4, "GaussianQRFT": 1e-4,
+    "LaplacianQRFT": 1e-3, "ExpSemigroupQRLT": 1e-3, "PPT": 1e-4,
+    "RFUT": 1e-4}
+# layouts of an operand whose columns are split: col_sharded on every
+# mesh, grid2d (rows and columns) on the 2-D ones
+COLS_LAYOUTS = ("cols", "grid")
+COLS_KERNELS = ("Linear", "Gaussian", "Polynomial", "Laplacian",
+                "ExpSemigroup", "Matern")
+KRANK = {"s": 8, "q": 1, "eps": 1e-2, "r": 4, "iters": 24}
+
+
+def make_cols_transform(sk, name, ctx):
+    """A transform of :data:`COLS_TRANSFORMS` of either package (N = 128,
+    S = 32; RFUT keeps N)."""
+    N, S = TN, TS
+    return {
+        "FastGaussianRFT": lambda: sk.FastGaussianRFT(N, S, ctx, sigma=2.0),
+        "FastMaternRFT": lambda: sk.FastMaternRFT(N, S, ctx, nu=1.5, l=2.0),
+        "GaussianQRFT": lambda: sk.GaussianQRFT(N, S, ctx, sigma=2.0),
+        "LaplacianQRFT": lambda: sk.LaplacianQRFT(N, S, ctx, sigma=64.0),
+        "ExpSemigroupQRLT": lambda: sk.ExpSemigroupQRLT(N, S, ctx,
+                                                        beta=0.5),
+        "PPT": lambda: sk.PPT(N, S, ctx, q=3, c=1.0, gamma=0.5),
+        "RFUT": lambda: sk.RFUT(N, ctx, fut="wht"),
+    }[name]()
+
+
+def make_cols_kernel(ml, name, d):
+    """A kernel of :data:`COLS_KERNELS` of either package's ml module on
+    ``d`` features."""
+    return {
+        "Linear": lambda: ml.Linear(d),
+        "Gaussian": lambda: ml.Gaussian(d, sigma=2.0),
+        "Polynomial": lambda: ml.Polynomial(d, q=2, c=1.0, gamma=0.5),
+        "Laplacian": lambda: ml.Laplacian(d, sigma=3.0),
+        "ExpSemigroup": lambda: ml.ExpSemigroup(d, beta=0.3),
+        "Matern": lambda: ml.Matern(d, nu=1.5, l=2.0),
+    }[name]()
+
+
+def gram_operands():
+    """X (24 × 10) and Y (18 × 10), nonnegative (ExpSemigroup's domain)."""
+    return (np.abs(normal((24, 10), 41)), np.abs(normal((18, 10), 42)))
+
+
+def sym_operand(n=128, seed=4, psd=False, decay=0.7):
+    """A symmetric operand with eigenvalues ±0.7^i
+    (tests/test_torch_nla.py's, at n = 128); 0.7^i with ``psd``; another
+    ``decay`` in place of 0.7."""
+    rng = np.random.default_rng(seed)
+    Q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    w = decay ** np.arange(n) * (1 if psd else np.where(np.arange(n) % 3
+                                                         == 1, -1, 1))
+    A = ((Q * w) @ Q.T).astype(np.float32)
+    return (A + A.T) / 2
+
+
+def _cols_meshes(meshes):
+    """(mesh name, mesh) of the group, with the init_device_mesh grid
+    (made by every rank, kept by the ranks it holds)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if dist.get_world_size() >= 4:
+        i22 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("rows", "cols"))
+        if i22.get_coordinate() is not None:
+            meshes = {**meshes, "i22": i22}
+    return [(m, meshes[m]) for m in COLS_MESHES if m in meshes]
+
+
+def _sharded_cols_cases(P, meshes, out):
+    import torch
+
+    from libskylark_tpu_torch import algorithms as alg, ml, nla
+    from libskylark_tpu_torch import parallel as par, sketch as sk
+    from libskylark_tpu_torch.algorithms.prox import (L2Regularizer,
+                                                       SquaredLoss)
+    from libskylark_tpu_torch.base import errors
+    from libskylark_tpu_torch.base.sparse import linear_ops
+    from libskylark_tpu_torch.nla import krank, lowrank as plr, tsqr
+    from libskylark_tpu_torch.nla.randlobpcg import (
+        lobpcg_rand_evd, power_iterations_rand_evd)
+
+    def put(key, fn, host=_host):
+        _put(out, key, fn, host)
+
+    for mname, mesh in _cols_meshes(meshes):
+        grid = mesh.ndim == 2
+        for name in COLS_TRANSFORMS:
+            for lay, (rowwise, helper) in LAYOUTS.items():
+                # FastMaternRFT differs from FastGaussianRFT only in its
+                # Gamma-drawn scales, slow on the CPU: one layout
+                if ((lay == "rw_grid" and not grid)
+                        or (name == "FastMaternRFT" and lay != "rw_cols")):
+                    continue
+                X = transform_operand(rowwise)
+                T = make_cols_transform(sk, name, P.Context(seed=7))
+                dX = par.distribute(X, getattr(par, helper)(mesh))
+                dim = sk.ROWWISE if rowwise else sk.COLUMNWISE
+                put(f"{name}/{lay}/{mname}", lambda: T.apply(dX, dim))
+        for lay in COLS_LAYOUTS[: 1 + grid]:
+            sh = par.col_sharded(mesh) if lay == "cols" else par.grid2d(mesh)
+            key = f"{mname}/{lay}"
+            A = par.distribute(tsqr_panel(), sh)
+            put(f"cqr2/{key}", lambda: tsqr.cholesky_qr2(A),
+                host=lambda r: {"Q": _host(r[0]), "R": _host(r[1]),
+                                "Q_local": r[0].to_local().numpy()})
+            A, B = lsqr_problem()
+            dA = par.distribute(A, sh)
+            mv, rmv = linear_ops(dA)
+            put(f"mv/{key}", lambda: mv(torch.from_numpy(B[:24])))
+            put(f"rmv/{key}", lambda: rmv(torch.from_numpy(B)))
+            put(f"lsqr/{key}", lambda: alg.lsqr(dA, B, alg.KrylovParams(
+                tolerance=1e-8, iter_lim=200)),
+                host=lambda r: {"X": _host(r[0]), "it": r[1]})
+            # a right-hand side whose columns are split: each rank would
+            # hold other columns of it, so it is refused
+            dB = par.distribute(B, par.col_sharded(mesh))
+            try:
+                alg.lsqr(dA, dB, alg.KrylovParams(iter_lim=2))
+                out[f"split_rhs/{key}"] = np.asarray("")
+            except errors.InvalidParametersError as e:
+                out[f"split_rhs/{key}"] = np.asarray(type(e).__name__)
+            for case, fn, seed in (("cg", alg.cg, 1),
+                                   ("fcg", alg.flexible_cg, 4)):
+                A, B = spd(seed=seed)
+                dA = par.distribute(A, sh)
+                kp = alg.KrylovParams(tolerance=1e-10, iter_lim=300)
+                put(f"{case}/{key}", lambda: fn(dA, B, kp),
+                    host=lambda r: {"X": _host(r[0]), "it": r[1]})
+            X, Y = gram_operands()
+            dX, dY = par.distribute(X, sh), par.distribute(Y, sh)
+            for kname in COLS_KERNELS:
+                k = make_cols_kernel(ml, kname, X.shape[1])
+                put(f"gram/{kname}/{key}", lambda: k.gram(dX))
+                put(f"gram_xy/{kname}/{key}", lambda: k.gram(dX, Y))
+                put(f"gram_whole_x/{kname}/{key}", lambda: k.gram(X, dY))
+            X, Y = ml_data()
+            y = (Y > 0).astype(np.int64)
+            dX = par.distribute(X, sh)
+            k = ml.Gaussian(X.shape[1], sigma=KRR["sigma"])
+            lam, s = KRR["lam"], KRR["s"]
+            put(f"krr/{key}", lambda: ml.kernel_ridge(k, dX, Y, lam))
+            put(f"akrr/{key}", lambda: ml.approximate_kernel_ridge(
+                k, dX, Y, lam, s=s, context=P.Context(seed=3)),
+                host=lambda r: _host(r[1]))
+            cwt = ml.KrrParams(sketched_rr=True, fast_sketch=True,
+                               sketch_size=KRR["t"])
+            put(f"akrr_cwt/{key}", lambda: ml.approximate_kernel_ridge(
+                k, dX, Y, lam, s=s, context=P.Context(seed=4), params=cwt),
+                host=lambda r: _host(r[1]))
+
+            # the other regimes take the same exchange, then the row
+            # routes that test_torch_sharded_ml.py holds
+
+            def linear():
+                S = ml.BlockADMMSolver(SquaredLoss(), L2Regularizer(),
+                                       ADMM["lam"], X.shape[1],
+                                       num_partitions=ADMM["partitions"])
+                S.maxiter, S.tol = ADMM["maxiter"], 0.0
+                return S.train(dX, y).coef
+
+            put(f"admm/{key}", linear)
+            dA = par.distribute(extras_operand(), sh)
+            put(f"lobpcg/{key}", lambda: lobpcg_rand_evd(
+                dA, 4, P.Context(seed=23), s=128), host=lambda r: r[0])
+            put(f"power_evd/{key}", lambda: power_iterations_rand_evd(
+                dA, 4, P.Context(seed=25), power_iters=2),
+                host=lambda r: _host(r[0]))
+            put(f"range_finder/{key}", lambda: krank.RandomizedRangeFinder(
+                dA, "power_iteration", {"s": KRANK["s"], "q": KRANK["q"]},
+                P.Context(seed=21)).compute())
+            put(f"krank_svd/{key}", lambda: krank.randomized_svd(
+                dA, 6, P.Context(seed=22), q=1), host=lambda r: _host(r[1]))
+            put(f"adaptive/{key}", lambda: krank.RandomizedRangeFinder(
+                dA, "adaptive", {"epsilon": KRANK["eps"], "r": KRANK["r"],
+                                 "max_iters": KRANK["iters"]},
+                P.Context(seed=26)).compute())
+            Q = krank.RandomizedRangeFinder(
+                extras_operand(), "power_iteration", {"s": 8, "q": 1},
+                P.Context(seed=27)).compute()
+            put(f"row_extraction/{key}", lambda: krank.RangeAssistedSVD(
+                dA, Q, "row_extraction").compute(),
+                host=lambda r: _host(r[1]))
+            put(f"lowrank/{key}",
+                lambda: plr.approximate_dominant_subspace_basis(
+                    dA, k=4, s=16, t=24, context=P.Context(seed=24)),
+                host=lambda r: _host(r[0]))
+            dL = par.distribute(lowrank(256, 64, 4, 6), sh)
+            put(f"svd/{key}", lambda: nla.approximate_svd(
+                dL, 4, P.Context(seed=17),
+                nla.ApproximateSVDParams(num_iterations=SVD_Q)),
+                host=lambda r: {
+                    "rec": (_host(r[0]) * _host(r[1])[None]) @ _host(r[2]).T,
+                    "S": _host(r[1])})
+            dS = par.distribute(sym_operand(psd=True), sh)
+            Qs = krank.RandomizedRangeFinder(
+                sym_operand(psd=True), "power_iteration", {"s": 8, "q": 2},
+                P.Context(seed=28)).compute()
+            for method in ("direct", "nystrom"):
+                put(f"evd_{method}/{key}", lambda: krank.RangeAssistedEVD(
+                    dS, Qs, method).compute(), host=lambda r: _host(r[0]))
+            dS = par.distribute(sym_operand(), sh)
+            params = nla.ApproximateSVDParams(num_iterations=SVD_Q)
+            put(f"sym_svd/{key}", lambda: nla.approximate_symmetric_svd(
+                dS, 4, P.Context(seed=29), params),
+                host=lambda r: {"V": _host(r[0]), "S": _host(r[1])})
+            dS = par.distribute(sym_operand(decay=SKIP_QR["decay"]), sh)
+            put(f"sym_svd_skip_qr/{key}", lambda: sym_svd_skip_qr(nla, P, dS),
+                host=lambda r: {"V": _host(r[0]), "S": _host(r[1])})
+        # the symmetric SVD on a row-sharded operand too (its range
+        # sketch takes B1-rw on each rank's rows)
+        dS = par.distribute(sym_operand(), par.row_sharded(mesh))
+        params = nla.ApproximateSVDParams(num_iterations=SVD_Q)
+        put(f"sym_svd/{mname}/rows", lambda: nla.approximate_symmetric_svd(
+            dS, 4, P.Context(seed=29), params),
+            host=lambda r: {"V": _host(r[0]), "S": _host(r[1])})
+        dS = par.distribute(sym_operand(decay=SKIP_QR["decay"]),
+                            par.row_sharded(mesh))
+        put(f"sym_svd_skip_qr/{mname}/rows",
+            lambda: sym_svd_skip_qr(nla, P, dS),
+            host=lambda r: {"V": _host(r[0]), "S": _host(r[1])})
+
+
+# the symmetric SVD with skip_qr: eigenvalues ±0.3^i, so that A²·S (no
+# first orthonormalization) is too ill-conditioned for f32 CholeskyQR2
+SKIP_QR = {"decay": 0.3, "rank": 8, "q": 1, "seed": 31}
+
+
+def sym_svd_skip_qr(nla, P, A):
+    """approximate_symmetric_svd of ``A`` at SKIP_QR's settings (rank 8,
+    one power iteration, skip_qr=True)."""
+    return nla.approximate_symmetric_svd(
+        A, SKIP_QR["rank"], P.Context(seed=SKIP_QR["seed"]),
+        nla.ApproximateSVDParams(num_iterations=SKIP_QR["q"], skip_qr=True))
+
+
 def io_libsvm_lines(n: int = 23, d: int = 9, targets: int = 1,
                     seed: int = 5) -> list:
     """A seeded libsvm text (``n`` lines, features 1..d, 0-4 nonzeros a
@@ -780,6 +1025,7 @@ def _serve_mesh_cases(P, meshes, out):
 
 TASKS = {"parallel": _parallel_cases, "dist_sparse": _dist_sparse_cases,
          "sharded": _sharded_cases, "sharded_ml": _sharded_ml_cases,
+         "sharded_cols": _sharded_cols_cases,
          "io_sharded": _io_sharded_cases, "serve_mesh": _serve_mesh_cases}
 
 
